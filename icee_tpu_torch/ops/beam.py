@@ -1,0 +1,136 @@
+"""K2: the whole FactoredLSTM k-beam search in one launch.
+
+Port of ``icee_tpu/ops/pallas_beam.py::mega_beam_decode`` (``cell=
+"factored"``; the ``"lstm"`` cell comes with the NIC slice).  The CUDA
+kernel is ``csrc/beam.cu``: one block per group of images, persistent over
+every step, with the cell, head, top-k, beam selection, parent gather,
+best-completed tracking, next-token embedding and early exit inside.
+:func:`mega_beam_decode_plain` is the same search in plain PyTorch
+(:func:`~icee_tpu_torch.decode.beam.beam_search_batched` over the
+full-vocabulary step): the CPU tests use it, and ``chip_smoke.py`` holds the
+kernel against it on the card.
+
+:func:`mega_beam_decode` takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
+from icee_tpu_torch.models import factored_lstm as fl
+from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops.decode_step import (K_MAX, check_decoder_params,
+                                            check_kernel_widths)
+
+BEAM_ROWS = 8  # csrc/beam.cu BEAM_ROWS: rows (images x k) per block
+SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
+
+def mega_beam_decode_plain(params: dict, features: Optional[torch.Tensor],
+                           style: int, batch: int, start_token: int = 1,
+                           end_token: int = 2, k: int = 5,
+                           max_seq_length: int = 40) -> BeamResult:
+    """The search K2 runs, as ``beam_search_batched`` over
+    ``factored_lstm.decode_step``; ``features`` None is research mode."""
+    hd = params["W_w"].shape[0]
+    zeros = torch.zeros((batch * k, hd), dtype=params["C_w"].dtype,
+                        device=params["C_w"].device)
+    return beam_search_batched(
+        embed_fn=lambda t: fl.embed(params, t),
+        step_fn=lambda x, s: fl.decode_step(params, x, s, style),
+        init_model_state=(zeros, zeros.clone()),
+        start_token=start_token, end_token=end_token, k=k,
+        max_seq_length=max_seq_length, vocab_size=params["C_w"].shape[1],
+        batch=batch, first_input=features)
+
+
+def mega_beam_decode(params: dict, features: Optional[torch.Tensor],
+                     style: int, batch: int, start_token: int = 1,
+                     end_token: int = 2, k: int = 5,
+                     max_seq_length: int = 40) -> BeamResult:
+    """Whole-beam-search-in-one-kernel decode for ``batch`` images.
+
+    ``features``: (batch, k, E) step-1 inputs (serving semantics), or None
+    for research semantics (``<start>``'s embedding at step 1).  As many
+    images as fit ``BEAM_ROWS`` rows share one block.  Returns a
+    :class:`BeamResult` with a leading batch dim, token-identical to
+    :func:`mega_beam_decode_plain`.
+    """
+    return mega_beam_decode_steps(params, features, style, batch,
+                                  start_token, end_token, k,
+                                  max_seq_length)[0]
+
+
+def mega_beam_decode_steps(
+        params: dict, features: Optional[torch.Tensor], style: int,
+        batch: int, start_token: int = 1, end_token: int = 2, k: int = 5,
+        max_seq_length: int = 40
+) -> Tuple[BeamResult, Optional[torch.Tensor]]:
+    """:func:`mega_beam_decode`, plus the (n_blocks,) int32 count of steps
+    each block ran before its early exit (None from the plain version on
+    the CPU), which sizes the work for a bound."""
+    device = params["C_w"].device
+    e, f, hd, v, ns = check_decoder_params(params, device)
+    if features is not None:
+        cuda_lib.check_tensor("features", features, (batch, k, e),
+                              torch.float32, device)
+    if not 0 <= int(style) < ns:
+        raise ValueError(f"style {style} outside [0, {ns})")
+    if not 1 <= k <= min(K_MAX, BEAM_ROWS, v):
+        raise ValueError(f"k={k} outside [1, {min(K_MAX, BEAM_ROWS, v)}]")
+    n_img = BEAM_ROWS // k
+    if device.type == "cpu":
+        return mega_beam_decode_plain(params, features, int(style), batch,
+                                      start_token, end_token, k,
+                                      max_seq_length), None
+    if device.type != "cuda":
+        raise ValueError(f"mega_beam_decode: unsupported device {device}")
+    check_kernel_widths(f, hd, v)
+
+    lib = _library()
+    smem = lib.icee_mega_beam_smem(e, f, hd, v, k, max_seq_length)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"mega_beam_decode needs {smem} bytes of shared "
+                         f"memory per block, more than {SMEM_LIMIT}")
+    n_blocks = -(-batch // n_img)
+    bp = n_blocks * n_img
+    max_len = max_seq_length + 2
+    feats = None
+    if features is not None:
+        feats = features
+        if bp != batch:
+            feats = torch.cat([feats, feats.new_zeros((bp - batch, k, e))])
+    i32 = dict(dtype=torch.int32, device=device)
+    tokens = torch.empty((bp, max_len), **i32)
+    length = torch.empty((bp,), **i32)
+    score = torch.empty((bp,), dtype=torch.float32, device=device)
+    steps = torch.empty((n_blocks,), **i32)
+    p = cuda_lib.ptr
+    rc = lib.icee_mega_beam_decode(
+        p(feats) if feats is not None else None, p(params["B"]),
+        p(params["V_w"]), p(params["V_b"]), p(params["S_w"][int(style)]),
+        p(params["S_b"][int(style)]), p(params["U_w"]), p(params["U_b"]),
+        p(params["W_w"]), p(params["W_b"]), p(params["C_w"]),
+        p(params["C_b"]), p(tokens), p(length), p(score), p(steps),
+        n_blocks, n_img, k, e, f, hd, v, max_seq_length, start_token,
+        end_token, int(features is not None), cuda_lib.stream_ptr(device))
+    cuda_lib.check_rc(lib, rc, "mega_beam_decode")
+    mega_beam_decode.launches += 1
+    return BeamResult(tokens=tokens[:batch], length=length[:batch],
+                      score=score[:batch]), steps
+
+
+mega_beam_decode.launches = 0  # kernel launches
+
+
+def _library() -> ctypes.CDLL:
+    return cuda_lib.library("beam", {
+        "icee_mega_beam_decode": (
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+            ctypes.c_int),
+        "icee_mega_beam_smem": ([ctypes.c_int] * 6, ctypes.c_longlong)})
