@@ -23,8 +23,21 @@ Phases, in order; any failure exits non-zero:
    requests one by one (serial path, K1).  Captions must match, and each
    path's kernel must have launched (its count is reset to 0 just before
    the path runs and read just after);
-7. print one ``{"kernels": [...]}`` line and one ``{"serve": {...}}`` line;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+7. K3 (``fused_factored_scan``, forward and backward) vs its plain versions
+   at B=64, T=25, E=300, F=H=512;
+8. the chunked cross-entropy's row passes vs their plain versions, and the
+   whole chunked loss (kernel path) vs the plain path and the materialized
+   ``masked_cross_entropy``, at 64 x 25 rows, V=8192;
+9. training at flagship width (outside ``torch.inference_mode``): one
+   factual step on the kernel path vs the plain path (losses and grads),
+   30 factual steps (B=64) then 30 emotion steps (style 1, B=96) whose loss
+   must fall, with every K3 and CE kernel's count reset to 0 just before and
+   read just after; 3 steps at the reference's teacher-forcing ratio 0.8;
+   one ``val_step``; the step time, captions/s and device-busy share;
+10. print one ``{"train": {...}}`` line, one ``{"serve": {...}}`` line and
+   one ``{"kernels": [...]}`` line (K1, K2, K3 forward and backward, CE
+   forward and backward);
+11. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ F32_FLOP_PER_S = 67e12
 
 B_IMAGES, K, E, F, H, V, STEPS = 64, 5, 300, 512, 512, 8192, 40
 N_REQUESTS = 16
+LOSS_FALL = 0.9    # phase 9: last cycle's mean loss <= this x the first's
 MODES = ("factual", "happy", "sad", "angry")
 
 
@@ -388,6 +402,25 @@ def device_busy_share(fn):
     return busy_us / wall_us if busy_us > 0 else None
 
 
+def device_time_by_kernel(fn, top: int = 12):
+    """Device time (ms) of one run of ``fn`` summed by kernel name, the
+    ``top`` largest, from a torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows.sort(key=lambda r: -r[1])
+    return [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]
+
+
 def request_breakdown(engine, paths, repeats: int = 5):
     """Device-synchronised host times (ms, median of ``repeats``) of the
     pieces of a request: image decode + ResNet-152 + head for one image,
@@ -505,6 +538,517 @@ def serve_phase(params, device):
         return launches, stats
 
 
+# --- phases 7-9: training ---------------------------------------------------
+
+T_STEPS, B_EMOTION = 25, 96   # bench.py's training shape; the emotion batch
+WORDS = 400                   # the training captions' active vocabulary
+
+
+def max_rel_err(got, want) -> float:
+    """Max abs error over the reference's largest magnitude."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+def cell_flops(b: int, t: int):
+    """(forward, backward) FLOPs of K3 on (b, t) rows: the input-side chain
+    and the recurrence; the backward's seven products over all rows plus
+    the (T - 1) recurrent dh products."""
+    n = b * t
+    fwd = 2 * n * (E * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H)
+    bwd = (2 * n * (H * 4 * H + 8 * F * H + 8 * F * F + 8 * E * F)
+           + 2 * b * (t - 1) * 4 * H * H)
+    return fwd, bwd
+
+
+def cell_weight_floats() -> int:
+    return E * 4 * F + 4 * F + 4 * F * F + 4 * F + 4 * F * H + 4 * H \
+        + H * 4 * H + 4 * H
+
+
+def training_decoder(device, seed: int):
+    """Seeded flagship-width decoder weights with non-zero biases."""
+    import torch
+
+    from icee_tpu_torch.core.config import DecoderConfig
+    from icee_tpu_torch.models import factored_lstm
+
+    dec = factored_lstm.init_params(
+        torch.Generator().manual_seed(seed),
+        DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                      factored_size=F), device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    for k in ("V_b", "S_b", "U_b", "W_b", "C_b"):
+        dec[k].copy_(0.1 * torch.randn(dec[k].shape, generator=g,
+                                       device=device))
+    return dec
+
+
+def check_k3(device):
+    """K3 forward and backward vs their plain versions at B=64, T=25.
+    Tolerances: h and c atol 1e-4 (float32, sums over up to 4H = 2048 terms
+    in other orders, values O(1)); dx and each weight grad max abs error
+    <= 1e-3 x its largest magnitude (sums over all B*T = 1600 rows and a
+    25-step reverse chain, in other orders).  -> (forward, backward)
+    entries of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import lstm_scan
+
+    dec = training_decoder(device, 7)
+    style = 1
+    p = {k: dec[k] for k in lstm_scan.CELL_KEYS}
+    p["S_w"], p["S_b"] = dec["S_w"][style], dec["S_b"][style]
+    g = torch.Generator(device=device).manual_seed(8)
+    x = 0.5 * torch.randn((B_IMAGES, T_STEPS, E), generator=g, device=device)
+    dh = 0.02 * torch.randn((B_IMAGES, T_STEPS, H), generator=g,
+                            device=device)
+    h_seq, c_seq, saved = lstm_scan.factored_scan_fwd(p, x)
+    want_h, want_c = lstm_scan.fused_factored_scan_plain(p, x)
+    dx, grads = lstm_scan.factored_scan_bwd(p, x, h_seq, c_seq, dh, saved)
+    want_dx, want_g = lstm_scan.factored_scan_bwd_plain(p, x, h_seq, c_seq,
+                                                        dh)
+    dx2, grads2 = lstm_scan.factored_scan_bwd(p, x, h_seq, c_seq, dh, saved)
+    torch.cuda.synchronize()
+    fwd_err = max((h_seq - want_h).abs().max().item(),
+                  (c_seq - want_c).abs().max().item())
+    if not fwd_err <= 1e-4:
+        fail(f"K3 forward: max abs error {fwd_err} > 1e-4")
+    rel = {"x": max_rel_err(dx, want_dx)}
+    rel.update({k: max_rel_err(grads[k], want_g[k])
+                for k in lstm_scan.CELL_KEYS})
+    for name, err in rel.items():
+        if not err <= 1e-3:
+            fail(f"K3 backward: d{name} error {err} x max|g| > 1e-3")
+    if not (torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k])
+                                         for k in grads)):
+        fail("K3 backward: two runs on the same inputs differ")
+    log(f"K3: h/c max abs err {fwd_err:.3g}; grads max err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; backward "
+        "bit-identical over two runs")
+
+    ms_f = cuda_ms(lambda: lstm_scan.factored_scan_fwd(p, x), 10)
+    plain_f = cuda_ms(lambda: lstm_scan.fused_factored_scan_plain(p, x), 5)
+    ms_b = cuda_ms(lambda: lstm_scan.factored_scan_bwd(
+        p, x, h_seq, c_seq, dh, saved), 10)
+    plain_b = cuda_ms(lambda: lstm_scan.factored_scan_bwd_plain(
+        p, x, h_seq, c_seq, dh), 5)
+    n = B_IMAGES * T_STEPS
+    flops_f, flops_b = cell_flops(B_IMAGES, T_STEPS)
+    saved_floats = n * (8 * F + 4 * H)
+    bytes_f = 4 * (cell_weight_floats() + n * E + 2 * n * H + saved_floats)
+    bytes_b = 4 * (2 * cell_weight_floats() + 2 * n * E + 3 * n * H
+                   + saved_floats)
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/lstm_scan.cu",
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes a factored "
+                              "LSTM with h = o * c"}
+    bf, bf_by = bound_ms(flops_f, bytes_f)
+    bb, bb_by = bound_ms(flops_b, bytes_b)
+    return (dict(common, name="fused_factored_scan_fwd",
+                 replaces="icee_tpu/ops/pallas_lstm.py:224",
+                 max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+                 bound_ms=bf, bound_by=bf_by),
+            dict(common, name="fused_factored_scan_bwd",
+                 replaces="icee_tpu/ops/pallas_lstm.py:298",
+                 max_abs_err=max((dx - want_dx).abs().max().item(),
+                                 *((grads[k] - want_g[k]).abs().max().item()
+                                   for k in grads)),
+                 max_rel_err=max(rel.values()), ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bb, bound_by=bb_by))
+
+
+def chunked_ce_plain(hid, w, b, tgt, weights, t_chunk, clamp=None):
+    """The chunked loss and its grads with the plain row passes, by hand
+    (no autograd): -> (loss, d hid, d w, d b)."""
+    import torch
+
+    from icee_tpu_torch.ops.chunked_loss import (_to_chunks,
+                                                 ce_grad_rows_plain,
+                                                 ce_rows_plain)
+
+    bsz, t = tgt.shape
+    xc = _to_chunks(hid, t_chunk)
+    tc = _to_chunks(tgt, t_chunk)
+    wc = _to_chunks(weights, t_chunk)
+    one = torch.ones((), device=hid.device)
+    loss = torch.zeros((), device=hid.device)
+    d_w, d_b, dxs = torch.zeros_like(w), torch.zeros_like(b), []
+    for k in range(xc.shape[0]):
+        x = xc[k].reshape(-1, hid.shape[-1])
+        logits = torch.addmm(b, x, w)
+        lse, contrib = ce_rows_plain(logits, tc[k].reshape(-1),
+                                     wc[k].reshape(-1), clamp)
+        loss = loss + contrib.sum()
+        dl, db = ce_grad_rows_plain(logits, tc[k].reshape(-1),
+                                    wc[k].reshape(-1), lse, one, clamp)
+        d_b += db
+        d_w += x.T @ dl
+        dxs.append((dl @ w.T).reshape(bsz, t_chunk, -1))
+    return loss, torch.cat(dxs, 1)[:, :t], d_w, d_b
+
+
+def training_batch(device, b: int, seed: int):
+    """Seeded batch: pooled features (B, 2048) >= 0 like a ReLU network's,
+    captions of ids in [4, V) from a Zipf law over WORDS fixed words (a
+    language the decoder can learn), lengths 8..25, all rows valid."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    words = 4 + torch.randperm(V - 4, generator=torch.Generator()
+                               .manual_seed(99))[:WORDS].to(device)
+    zipf = 1.0 / torch.arange(1, WORDS + 1, device=device,
+                              dtype=torch.float32)
+    ids = torch.multinomial(zipf, b * T_STEPS, replacement=True,
+                            generator=g).reshape(b, T_STEPS)
+    return (torch.rand((b, 2048), generator=g, device=device),
+            words[ids],
+            torch.randint(8, T_STEPS + 1, (b,), generator=g, device=device),
+            torch.ones((b,), dtype=torch.bool, device=device))
+
+
+def check_ce(device):
+    """The CE row passes vs their plain versions, and the whole chunked loss
+    (kernel path) vs the plain path and the materialized loss, at 64 x 25
+    rows, H = 512, V = 8192, lengths 8..25, two masked rows; t_chunk 25
+    (auto) and 22 (the emotion batch's, not dividing T); the clamp form.
+    Tolerances: lse and w*nll atol 1e-4 (values ~9, float32 sums over 8192
+    terms in other orders); dl 1e-4 x its largest magnitude; the loss atol
+    1e-5 and each grad 1e-3 x its largest magnitude (as phase 7).
+    -> (forward entry, backward entry, whole-loss stats)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from icee_tpu_torch.evaluation.metrics import masked_cross_entropy
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    dec = training_decoder(device, 9)
+    w, b = dec["C_w"], dec["C_b"]
+    g = torch.Generator(device=device).manual_seed(10)
+    hid = 0.5 * torch.randn((B_IMAGES, T_STEPS, H), generator=g,
+                            device=device)
+    _, tgt, lens, smask = training_batch(device, B_IMAGES, 11)
+    smask[[5, 40]] = False
+    mask = (torch.arange(T_STEPS, device=device)[None] < lens[:, None]) \
+        & smask[:, None]
+    weights = mask.float() / mask.sum().clamp(min=1)
+    n = B_IMAGES * T_STEPS
+
+    # the row passes at the chunk's shape (auto t_chunk = 25: one chunk)
+    logits = torch.addmm(b, hid.reshape(n, H), w)
+    tflat, wflat = tgt.reshape(n), weights.reshape(n)
+    errs = {}
+    for clamp in (None, 8.0):
+        lse, contrib = cl.ce_rows(logits, tflat, wflat, clamp)
+        want_lse, want_c = cl.ce_rows_plain(logits, tflat, wflat, clamp)
+        db = torch.zeros((V,), device=device)
+        dl = cl.ce_grad_rows(logits.clone(), tflat, wflat, lse,
+                             torch.ones((1,), device=device), db, clamp)
+        want_dl, want_db = cl.ce_grad_rows_plain(
+            logits, tflat, wflat, want_lse,
+            torch.ones((), device=device), clamp)
+        torch.cuda.synchronize()
+        e = {"lse": (lse - want_lse).abs().max().item(),
+             "w_nll": (contrib - want_c).abs().max().item(),
+             "dl_rel": max_rel_err(dl, want_dl),
+             "db_rel": max_rel_err(db, want_db)}
+        for name, err in e.items():
+            if not err <= 1e-4:
+                fail(f"CE rows (clamp {clamp}): {name} error {err} > 1e-4")
+        errs[f"clamp_{clamp}"] = e
+    log(f"CE rows: errors {errs}")
+
+    # the whole loss: kernel path vs plain path vs materialized
+    whole = {}
+    for t_chunk, clamp in ((None, None), (22, None), (22, 8.0)):
+        hg, wg, bg = (a.detach().clone().requires_grad_(True)
+                      for a in (hid, w, b))
+        if clamp is None:
+            loss = cl.masked_ce_from_hiddens(hg, wg, bg, tgt, lens, smask,
+                                             t_chunk)
+        else:
+            loss = cl.masked_sum_ce_from_hiddens(hg, wg, bg, tgt, weights,
+                                                 clamp, t_chunk)
+        loss.backward()
+        got = (loss.detach(), hg.grad, wg.grad, bg.grad)
+        wants = {"plain": chunked_ce_plain(hid, w, b, tgt, weights,
+                                           t_chunk or T_STEPS, clamp)}
+        if clamp is None:
+            hm, wm, bm = (a.detach().clone().requires_grad_(True)
+                          for a in (hid, w, b))
+            lm = masked_cross_entropy(hm @ wm + bm, tgt, lens, smask)
+            lm.backward()
+            wants["materialized"] = (lm.detach(), hm.grad, wm.grad, bm.grad)
+        for ref, want in wants.items():
+            lerr = (got[0] - want[0]).abs().item()
+            gerr = [max_rel_err(a, c) for a, c in zip(got[1:], want[1:])]
+            if not (lerr <= 1e-5 and max(gerr) <= 1e-3):
+                fail(f"chunked CE t_chunk={t_chunk} clamp={clamp} vs {ref}:"
+                     f" loss err {lerr}, grad errs {gerr}")
+            whole[f"t{t_chunk or T_STEPS}_clamp{clamp}_vs_{ref}"] = {
+                "loss_err": lerr, "grad_rel_errs": gerr}
+    log(f"chunked CE vs plain and materialized: {whole}")
+
+    # times: the row passes alone, then the whole loss forward + backward
+    db = torch.zeros((V,), device=device)
+    scratch = logits.clone()
+    one = torch.ones((1,), device=device)
+    lse, _ = cl.ce_rows(logits, tflat, wflat)
+    ms_f = cuda_ms(lambda: cl.ce_rows(logits, tflat, wflat), 20)
+    plain_f = cuda_ms(lambda: cl.ce_rows_plain(logits, tflat, wflat), 20)
+    lib_f = cuda_ms(lambda: Fn.cross_entropy(logits, tflat,
+                                             reduction="none"), 20)
+    ms_b = cuda_ms(lambda: cl.ce_grad_rows(scratch, tflat, wflat, lse, one,
+                                           db), 20)
+    plain_b = cuda_ms(lambda: cl.ce_grad_rows_plain(
+        logits, tflat, wflat, lse, one.reshape(()), None), 20)
+    bf, bf_by = bound_ms(5 * n * V, 4 * (n * V + 4 * n))
+    bb, bb_by = bound_ms(5 * n * V, 4 * (2 * n * V + 3 * n + V))
+
+    hk, wk, bk = (a.detach().clone().requires_grad_(True) for a in (hid, w, b))
+    y_ignore = torch.where(mask, tgt, -100).reshape(n)
+
+    def kernel_path():
+        cl.masked_ce_from_hiddens(hk, wk, bk, tgt, lens, smask).backward()
+
+    def plain_path():
+        chunked_ce_plain(hid, w, b, tgt, weights, T_STEPS)
+
+    def library():
+        Fn.cross_entropy(Fn.linear(hk.reshape(n, H), wk.T, bk),
+                         y_ignore).backward()
+
+    whole_ms = {"kernel_path_ms": cuda_ms(kernel_path, 10),
+                "plain_path_ms": cuda_ms(plain_path, 10),
+                "library_ms": cuda_ms(library, 10)}
+    whole_ms["bound_ms"], whole_ms["bound_by"] = bound_ms(
+        8 * n * H * V, 4 * (n * H * 2 + 2 * H * V + 2 * V + 3 * n))
+    whole_ms["errors"] = whole
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/chunked_ce.cu"}
+    return (dict(common, name="ce_rows",
+                 replaces="icee_tpu/ops/chunked_loss.py:71 (_ce_forward, "
+                          "under masked_ce_from_hiddens :142)",
+                 max_abs_err=max(max(e["lse"], e["w_nll"])
+                                 for e in errs.values()),
+                 ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
+                 library_ms=lib_f,
+                 library_note="F.cross_entropy(logits, y, reduction='none')"),
+            dict(common, name="ce_grad_rows",
+                 replaces="icee_tpu/ops/chunked_loss.py:103 (_ce_bwd)",
+                 max_abs_err=max(e["dl_rel"] for e in errs.values()),
+                 ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by,
+                 library_ms=None,
+                 library_note="no single PyTorch call forms (softmax - "
+                              "onehot) * w * g and its column sum"),
+            whole_ms)
+
+
+def step_ms(fn, n: int):
+    """Median device time of ``n`` calls of ``fn``, each bracketed by its
+    own CUDA events (the whole training step, Adam included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        pairs.append((a, z))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(z) for a, z in pairs)
+
+
+def train_phase(device):
+    """Phase 9: the StyleNet train step at flagship width."""
+    import math
+
+    import torch
+
+    from icee_tpu_torch.core.config import (DecoderConfig, EncoderConfig,
+                                            TrainConfig)
+    from icee_tpu_torch.models import encoder
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import lstm_scan
+    from icee_tpu_torch.train import optim
+    from icee_tpu_torch.train.steps import make_caption_steps
+
+    counters = {"fused_factored_scan_fwd": lstm_scan.factored_scan_fwd,
+                "fused_factored_scan_bwd": lstm_scan.factored_scan_bwd,
+                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                        factored_size=F, dropout=0.5)
+
+    def build(**kw):
+        tcfg = TrainConfig(teacher_forcing_ratio=kw.pop("ratio", 1.0), **kw)
+        return make_caption_steps(cfg, tcfg,
+                                  optim.make_adam(tcfg.lr_caption, tcfg),
+                                  optim.make_adam(tcfg.lr_language, tcfg),
+                                  device=device)
+
+    def fresh():
+        dec = training_decoder(device, 12)
+        dec["C_b"].zero_()
+        head = encoder.init_head_params(torch.Generator().manual_seed(13),
+                                        EncoderConfig(embed_size=E),
+                                        device=device)
+        return dec, head
+
+    kernel, plain = build(), build(fused_scan=False, chunked_ce=False)
+    if not (kernel.use_fused and kernel.use_chunked):
+        fail("the CUDA steps did not select the kernel path")
+    fac_batches = [training_batch(device, B_IMAGES, 20 + i) for i in range(4)]
+    emo_batches = [training_batch(device, B_EMOTION, 30 + i)
+                   for i in range(4)]
+
+    # (i) one factual step, kernel path vs plain path, same weights and
+    # seed.  Tolerances: the loss atol 1e-4 (~9 in float32; the two paths
+    # sum 1600 terms in other orders); each grad 1e-3 x its largest
+    # magnitude, as phase 7, plus 1e-7 absolute: the head's linear_b grad
+    # is 0 in exact arithmetic (the BatchNorm subtracts the batch mean), so
+    # both paths give only rounding noise there
+    dec, head = fresh()
+    out = {}
+    for name, steps in (("kernel", kernel), ("plain", plain)):
+        gen = torch.Generator(device=device).manual_seed(40)
+        loss, grads, _ = steps.factual_grads(dec, head, *fac_batches[0],
+                                             generator=gen)
+        out[name] = (loss, optim.tree_leaves(grads))
+    torch.cuda.synchronize()
+    loss_err = (out["kernel"][0] - out["plain"][0]).abs().item()
+    pairs = [(a, b) for a, b in zip(out["kernel"][1], out["plain"][1])
+             if b is not None]
+    grad_errs = [max_rel_err(a, b) for a, b in pairs]
+    if not (loss_err <= 1e-4 and all(
+            (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() + 1e-7
+            for a, b in pairs)):
+        fail(f"first step: kernel vs plain loss err {loss_err}, grad errs "
+             f"{grad_errs}")
+    log(f"phase 9 (i): first factual step, kernel vs plain: loss "
+        f"{out['kernel'][0].item():.6f} vs {out['plain'][0].item():.6f}, "
+        f"grad err / max|g| per leaf {[float(f'{e:.3g}') for e in grad_errs]}")
+
+    # (ii) 30 factual then 30 emotion steps: the main training path, with
+    # every K3 and CE count from 0 just before and read just after
+    dec, head = fresh()
+    gen = torch.Generator(device=device).manual_seed(41)
+    fac_state = kernel.optimizer.init((dec, head))
+    emo_state = kernel.lang_optimizer.init(dec)
+    reset()
+    fac_losses, emo_losses = [], []
+    for i in range(30):
+        *_, loss = kernel.factual_train_step(dec, head, fac_state,
+                                             *fac_batches[i % 4],
+                                             generator=gen)
+        fac_losses.append(loss)
+    for i in range(30):
+        *_, loss = kernel.emotion_train_step(dec, head, emo_state,
+                                             *emo_batches[i % 4], 1,
+                                             generator=gen)
+        emo_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read()
+    fac_losses = [x.item() for x in fac_losses]
+    emo_losses = [x.item() for x in emo_losses]
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} was not launched on the training path")
+    # the loss must fall: the mean over the last cycle of the 4 batches
+    # below LOSS_FALL x the mean over the first, on each track
+    drops = {}
+    for track, ls in (("factual", fac_losses), ("emotion", emo_losses)):
+        if not all(math.isfinite(x) for x in ls):
+            fail(f"{track} losses not finite: {ls}")
+        first, last = sum(ls[:4]) / 4, sum(ls[-4:]) / 4
+        drops[track] = last / first
+        if not last <= LOSS_FALL * first:
+            fail(f"{track} loss did not fall: first cycle {first}, last "
+                 f"{last} > {LOSS_FALL} x first")
+    log(f"phase 9 (ii): losses factual {fac_losses[0]:.4f} -> "
+        f"{fac_losses[-1]:.4f}, emotion {emo_losses[0]:.4f} -> "
+        f"{emo_losses[-1]:.4f}; last/first cycle {drops}; launches "
+        f"{launches}")
+
+    # per-step launches, each count from 0 before one step
+    reset()
+    kernel.factual_train_step(dec, head, fac_state, *fac_batches[0],
+                              generator=gen)
+    per_fac = read()
+    reset()
+    kernel.emotion_train_step(dec, head, emo_state, *emo_batches[0], 1,
+                              generator=gen)
+    per_emo = read()
+    torch.cuda.synchronize()
+    if min(per_fac.values()) <= 0:
+        fail(f"a kernel missed a ratio-1.0 factual step: {per_fac}")
+
+    # (iii) the reference's ratio 0.8: scheduled sampling in PyTorch,
+    # chunked CE kernels
+    sampled = build(ratio=0.8)
+    reset()
+    s_losses = []
+    s_state = sampled.optimizer.init((dec, head))
+    for i in range(3):
+        *_, loss = sampled.factual_train_step(dec, head, s_state,
+                                              *fac_batches[i],
+                                              generator=gen)
+        s_losses.append(loss.item())
+    per_sampled = read()
+    if not all(math.isfinite(x) for x in s_losses) or \
+            per_sampled["ce_rows"] <= 0 or per_sampled["ce_grad_rows"] <= 0:
+        fail(f"ratio 0.8: losses {s_losses}, launches {per_sampled}")
+
+    # (iv) validation: free-running, head in eval mode
+    v_loss, v_top5, _ = kernel.val_step(dec, head, *fac_batches[0], 0)
+    v_loss, v_top5 = v_loss.item(), v_top5.item()
+    if not (math.isfinite(v_loss) and 0.0 <= v_top5 <= 100.0):
+        fail(f"val_step: loss {v_loss}, top5 {v_top5}")
+    log(f"phase 9 (iii)-(iv): ratio 0.8 losses {s_losses}, launches "
+        f"{per_sampled}; val loss {v_loss:.4f}, top-5 {v_top5:.2f}%")
+
+    # step times: the whole factual step, Adam included
+    def kernel_step():
+        kernel.factual_train_step(dec, head, fac_state, *fac_batches[1],
+                                  generator=gen)
+
+    def plain_step():
+        plain.factual_train_step(dec, head, plain_state, *fac_batches[1],
+                                 generator=gen)
+
+    plain_state = plain.optimizer.init((dec, head))
+    ms = step_ms(kernel_step, 20)
+    plain_ms = step_ms(plain_step, 10)
+    busy = device_busy_share(kernel_step)
+    by_kernel = device_time_by_kernel(kernel_step)
+    return launches, {
+        "config": {"B": B_IMAGES, "B_emotion": B_EMOTION, "T": T_STEPS,
+                   "V": V, "E": E, "H": H, "F": F, "dropout": 0.5,
+                   "teacher_forcing_ratio": 1.0, "lr": [2e-4, 5e-4]},
+        "factual_step_ms": ms, "captions_per_s": B_IMAGES / ms * 1e3,
+        "plain_factual_step_ms": plain_ms,
+        "plain_captions_per_s": B_IMAGES / plain_ms * 1e3,
+        "device_busy_share": busy, "device_ms_by_kernel": by_kernel,
+        "launches_per_factual_step": per_fac,
+        "launches_per_emotion_step": per_emo,
+        "launches_per_ratio_0.8_steps": per_sampled,
+        "first_step_kernel_vs_plain": {"loss_err": loss_err,
+                                       "grad_rel_errs": grad_errs},
+        "factual_losses": fac_losses, "emotion_losses": emo_losses,
+        "last_over_first_cycle": drops, "ratio_0.8_losses": s_losses,
+        "val": {"loss": v_loss, "top5": v_top5}}
+
+
 def main() -> int:
     import torch
 
@@ -557,8 +1101,25 @@ def main() -> int:
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
     k1["launches"] = launches["decode_step_topk"]
     k2["launches"] = launches["mega_beam_decode"]
+    del params
+
+    k3f, k3b = check_k3(device)
+    log(f"phase 7: K3 ok, forward {k3f['ms']:.3f} ms (plain "
+        f"{k3f['plain_ms']:.3f}), backward {k3b['ms']:.3f} ms (plain "
+        f"{k3b['plain_ms']:.3f})")
+    cef, ceb, ce_whole = check_ce(device)
+    log(f"phase 8: CE ok, rows {cef['ms']:.4f} ms, grad rows "
+        f"{ceb['ms']:.4f} ms; whole loss fwd+bwd {ce_whole}")
+    train_launches, train = train_phase(device)
+    train["chunked_ce_fwd_bwd"] = ce_whole
+    log(f"phase 9: factual step {train['factual_step_ms']:.3f} ms, "
+        f"{train['captions_per_s']:.1f} captions/s (plain "
+        f"{train['plain_factual_step_ms']:.3f} ms)")
+    for entry in (k3f, k3b, cef, ceb):
+        entry["launches"] = train_launches[entry["name"]]
+    print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3f, k3b, cef, ceb]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

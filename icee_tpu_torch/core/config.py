@@ -1,5 +1,6 @@
-"""Typed configuration objects (copy of ``icee_tpu/core/config.py``'s serving
-subset: ``MODES``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig``).
+"""Typed configuration objects (copy of ``icee_tpu/core/config.py``'s
+``MODES``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig`` and
+``TrainConfig``).
 
 Default values mirror the reference defaults: ``embed 300 / hidden 512 /
 factored 512 / dropout 0.5`` (``stylenet/train_multitask.py:621-625``) and
@@ -9,7 +10,7 @@ beam decode with ``max_seq_length=40`` (``stylenet/model.py:41,202``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Style modes, in the reference's fixed order; ``factual`` is index 0.
 MODE_FACTUAL = "factual"
@@ -58,3 +59,42 @@ class DecoderConfig:
     @property
     def input_size(self) -> int:
         return self.embed_size
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One training regime (multitask / transfer / seq2seq); the JAX
+    package's fields and defaults."""
+
+    mode: str = MODE_HAPPY            # which emotion track to co-train
+    num_epochs: int = 120
+    caption_batch_size: int = 64
+    language_batch_size: int = 96
+    lr_caption: float = 2e-4
+    lr_language: float = 5e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip: float = 0.5            # elementwise clamp, utils.py:51-60
+    teacher_forcing_ratio: float = 0.8
+    lr_decay_factor: float = 0.8      # x0.8 every 4 plateau epochs
+    lr_decay_patience: int = 4
+    early_stop_patience: int = 10
+    # Fixed padded caption length: max_seq_length + <start> + <end>.
+    max_caption_len: int = 42
+    seed: int = 0
+    log_step: int = 50
+    log_step_emotion: int = 5
+    alpha_c: float = 1.0              # attention regularizer weight
+    resize_size: int = 336
+    crop_size: int = 224
+    # The training scan through the hand-written CUDA kernel K3
+    # (ops/lstm_scan.py; teacher-forced path only).  None = on when the
+    # tensors are on CUDA; on the CPU the kernel's plain version runs.
+    fused_scan: Optional[bool] = None
+    # The training CE in time chunks from the hidden states
+    # (ops/chunked_loss.py): the (B, T, V) logits never exist whole.
+    # None = on when the tensors are on CUDA.
+    chunked_ce: Optional[bool] = None
+    # Mid-epoch progress checkpoints (inert until the trainer is ported).
+    progress_chunk: int = 0

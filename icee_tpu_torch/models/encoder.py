@@ -1,9 +1,10 @@
-"""Encoder head on pooled ResNet features, eval mode (port of
+"""Encoder head on pooled ResNet features (port of
 ``icee_tpu/models/encoder.py``).
 
 Global ``EncoderCNN`` (``stylenet/model.py:11-27``): frozen ResNet-152 minus
 fc -> Linear(2048 -> embed) -> BatchNorm1d(momentum=0.01).  Serving runs the
-BatchNorm on its running statistics.
+BatchNorm on its running statistics; training on the batch statistics, and
+returns the head with its running statistics updated.
 """
 
 from __future__ import annotations
@@ -34,12 +35,22 @@ def init_head_params(generator: torch.Generator, cfg: EncoderConfig,
     }
 
 
-def apply_head(head: dict, pooled: torch.Tensor) -> torch.Tensor:
-    """Linear + BatchNorm1d on running statistics (``model.py:26``, eval)."""
+def apply_head(head: dict, pooled: torch.Tensor, train: bool = False,
+               bn_momentum: float = 0.01):
+    """Linear + BatchNorm1d(momentum=0.01) (``model.py:26``).  Eval mode
+    (the default) -> features (B, embed) on the running statistics;
+    ``train=True`` -> (features, head with updated running statistics)."""
     x = pooled @ head["linear_w"] + head["linear_b"]
-    return resnet.batch_norm(x, head["bn"], channel_axis=-1)
+    if not train:
+        return resnet.batch_norm(x, head["bn"], channel_axis=-1)
+    out, new_bn = resnet.batch_norm_train(x, head["bn"], bn_momentum)
+    new_head = dict(head)
+    new_head["bn"] = new_bn
+    return out, new_head
 
 
-def encode_global_from_pooled(head: dict, pooled: torch.Tensor) -> torch.Tensor:
-    """Head-only path on cached or freshly pooled backbone features."""
-    return apply_head(head, pooled)
+def encode_global_from_pooled(head: dict, pooled: torch.Tensor,
+                              train: bool = False, bn_momentum: float = 0.01):
+    """Head-only path on cached or freshly pooled backbone features; the
+    return follows :func:`apply_head`."""
+    return apply_head(head, pooled, train, bn_momentum)

@@ -1,4 +1,5 @@
-"""ResNet-152 backbone, inference only (port of ``icee_tpu/models/resnet.py``).
+"""ResNet-152 backbone, inference, and the BatchNorm's training mode (port
+of ``icee_tpu/models/resnet.py``).
 
 The reference uses torchvision's ``resnet152`` minus the fc layer, frozen
 (``stylenet/model.py:15-24``).  No pretrained weights exist offline, so the
@@ -90,6 +91,28 @@ def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
     inv = torch.rsqrt(b("running_var") + 1e-5)
     return (x - b("running_mean")) * inv * b("weight") + b("bias")
+
+
+def batch_norm_train(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                     momentum: float = 0.1
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """torch-semantics BatchNorm in training mode over the last (channel)
+    axis: normalizes by the biased batch statistics and updates the running
+    mean and the *unbiased* running variance (``icee_tpu/models/resnet.py::
+    batch_norm``).  -> (out, p with the new running statistics, detached:
+    they are state, not parameters)."""
+    axes = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, unbiased=False)
+    n = x.numel() // x.shape[-1]
+    unbiased = var * n / max(n - 1, 1)
+    new_p = dict(p)
+    new_p["running_mean"] = ((1 - momentum) * p["running_mean"]
+                             + momentum * mean).detach()
+    new_p["running_var"] = ((1 - momentum) * p["running_var"]
+                            + momentum * unbiased).detach()
+    inv = torch.rsqrt(var + 1e-5)
+    return (x - mean) * inv * p["weight"] + p["bias"], new_p
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

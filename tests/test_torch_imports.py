@@ -57,6 +57,8 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
     modules = _port_modules() + _chip_smoke_imports()
     assert "icee_tpu_torch.ops.decode_step" in modules
     assert "icee_tpu_torch.serve.app" in modules
+    assert "icee_tpu_torch.ops.lstm_scan" in modules
+    assert "icee_tpu_torch.train.steps" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary
     env = dict(os.environ, PYTHONPATH=ROOT)
