@@ -13,30 +13,39 @@ Phases, in order; any failure exits non-zero:
    F=H=512, V=8192: at the serial path's 5 rows (one image x 5 beams) and
    at 64 images x 5 beams = 320 rows, which is timed;
 5. K2 (``mega_beam_decode``) vs the plain ``beam_search_batched`` search at
-   64 images, V=8192, 40 steps, in both feature modes; where tokens differ,
-   the plain model's score of the kernel's sequence must tie the plain
-   winner's within 1e-4;
-6. serve: a random-init StyleNet at flagship width (ResNet-152 at 224x224,
-   E=300, H=F=512, V=8192, k=5, 40 steps) behind the HTTP service.  First
-   with cross-request batching: concurrent ``POST /generate`` requests in
-   all four modes (batched path, K2).  Then without batching: the same
-   requests one by one (serial path, K1).  Captions must match, and each
-   path's kernel must have launched (its count is reset to 0 just before
-   the path runs and read just after);
-7. K3 (``fused_factored_scan``, forward and backward) vs its plain versions
-   at B=64, T=25, E=300, F=H=512;
+   64 images, V=8192, 40 steps, in both feature modes, with the StyleNet
+   cell (``cell="factored"``) and then the NIC cell (``cell="lstm"``); each
+   kernel score must match its own sequence's plain score within 1e-3, and
+   where tokens differ, the kernel's sequence must tie the plain winner's
+   within 1e-4;
+6. serve: random-init StyleNet and NIC at flagship width (ResNet-152 at
+   224x224, E=300, H=F=512, V=8192, k=5, 40 steps) behind the HTTP service.
+   First with cross-request batching: concurrent ``POST /generate``
+   requests in all four modes (batched path: K2 factored and K2 lstm).
+   Then without batching: the same requests one by one (serial path: K1
+   and K2 lstm for one image).  Both variants' captions must match, and
+   each path's kernels must have launched (the counts are reset to 0 just
+   before the path runs and read just after).  Then a checkpoint round
+   trip: reference-style torch checkpoints (a StyleNet decoder state dict
+   and a full-module NIC pickle built from seeded ``torch.nn`` modules)
+   serve one request with the captions of the same weights passed as
+   ``params``;
+7. K3 (``fused_factored_scan``) and K4 (``fused_nic_scan``), forward and
+   backward, vs their plain versions at B=64, T=25, E=300, F=H=512; K4
+   also against cuDNN's ``nn.LSTM`` (the library yardstick);
 8. the chunked cross-entropy's row passes vs their plain versions, and the
    whole chunked loss (kernel path) vs the plain path and the materialized
    ``masked_cross_entropy``, at 64 x 25 rows, V=8192;
-9. training at flagship width (outside ``torch.inference_mode``): one
-   factual step on the kernel path vs the plain path (losses and grads),
-   30 factual steps (B=64) then 30 emotion steps (style 1, B=96) whose loss
-   must fall, with every K3 and CE kernel's count reset to 0 just before and
-   read just after; 3 steps at the reference's teacher-forcing ratio 0.8;
-   one ``val_step``; the step time, captions/s and device-busy share;
+9. training at flagship width (outside ``torch.inference_mode``), StyleNet
+   then NIC: one factual step on the kernel path vs the plain path (losses
+   and grads), 30 factual steps (B=64) then 30 emotion steps (B=96) whose
+   loss must fall, with every scan and CE kernel's count reset to 0 just
+   before and read just after; 3 steps at the reference's teacher-forcing
+   ratio 0.8; one ``val_step``; the step time and captions/s (and, for
+   StyleNet, the device-busy share and device time by kernel);
 10. print one ``{"train": {...}}`` line, one ``{"serve": {...}}`` line and
-   one ``{"kernels": [...]}`` line (K1, K2, K3 forward and backward, CE
-   forward and backward);
+   one ``{"kernels": [...]}`` line (K1, K2 factored and lstm, K3 and K4
+   forward and backward, CE forward and backward);
 11. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -96,44 +105,63 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def step_flops_per_row() -> int:
+def step_flops_per_row(cell: str = "factored") -> int:
     """Multiply-adds x2 of one decode step for one row: cell chain + head."""
+    if cell == "lstm":
+        return 2 * (E * 4 * H + H * 4 * H + H * V)
     return 2 * (E * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H + H * V)
 
 
-def decoder_weight_bytes() -> int:
+def decoder_weight_bytes(cell: str = "factored") -> int:
+    """Bytes of the weights every step reads (the embedding is gathered by
+    row and counted with the step inputs)."""
+    if cell == "lstm":
+        return 4 * (E * 4 * H + 4 * H + H * 4 * H + 4 * H + H * V + V)
     return 4 * (E * 4 * F + 4 * F + 4 * F * F + 4 * F + 4 * F * H + 4 * H
                 + H * 4 * H + 4 * H + H * V + V)
 
 
 def captioning_params(device):
-    """Seeded random weights at flagship width, shaped so beams finish at
-    caption-like lengths: the smoke init's residual branches are damped
-    (undamped He init grows ResNet activations ~1e4x over 50 blocks), the
-    encoder head is scaled up so the step-1 feature is O(1) (the default
-    init gives ~0.1, and every beam then emits <end> at once: an empty
-    caption), and the decoder head is sharpened with a bias towards <end>
-    (with near-uniform logits over 8192 words no beam ever completes)."""
+    """Seeded random weights at flagship width, for both served variants,
+    shaped so beams finish at caption-like lengths: the smoke init's
+    residual branches are damped (undamped He init grows ResNet activations
+    ~1e4x over 50 blocks), the encoder heads are scaled up so the step-1
+    feature is O(1) (the default init gives ~0.1, and every beam then emits
+    <end> at once: an empty caption), and the decoder heads are sharpened
+    with a bias towards <end> (with near-uniform logits over 8192 words no
+    beam ever completes).  NIC's input weights are scaled up too: at
+    Xavier scale its captions hardly depend on the image (every request
+    got the same four words).  -> ``CaptionEngine``'s ``params``."""
     import torch
 
     from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
-    from icee_tpu_torch.models import encoder, factored_lstm, resnet
+    from icee_tpu_torch.models import encoder, factored_lstm, lstm, resnet
 
     backbone = resnet.init_params(torch.Generator().manual_seed(0),
                                   device=device)
     for li in range(1, 5):
         for block in backbone[f"layer{li}"]:
             block["bn3"]["weight"].mul_(0.2)
-    dec = factored_lstm.init_params(torch.Generator().manual_seed(1),
-                                    DecoderConfig(vocab_size=V),
-                                    device=device)
-    dec["C_w"].mul_(30.0)
-    dec["C_b"][2] = 2.0
-    head = encoder.init_head_params(torch.Generator().manual_seed(2),
-                                    EncoderConfig(), device=device)
-    head["linear_w"].mul_(10.0)
-    head["linear_b"].mul_(10.0)
-    return {"backbone": backbone, "decoder": dec, "head": head}
+    out = {"backbone": backbone}
+    for variant, init, head_w, seed in (
+            ("stylenet", factored_lstm.init_params, "C", 1),
+            ("nic", lstm.init_params, "linear", 3)):
+        dec = init(torch.Generator().manual_seed(seed),
+                   DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                                 factored_size=F), device=device)
+        w, b = (("C_w", "C_b") if head_w == "C"
+                else ("linear_w", "linear_b"))
+        dec[w].mul_(30.0)
+        dec[b][2] = 2.0
+        if variant == "nic":
+            dec["cell"]["W_ih"].mul_(4.0)
+        head = encoder.init_head_params(
+            torch.Generator().manual_seed(seed + 1),
+            EncoderConfig(embed_size=E), device=device)
+        head["linear_w"].mul_(10.0)
+        head["linear_b"].mul_(10.0)
+        out[variant] = {"decoder": dec, "head": head}
+    return out
 
 
 # --- phase 4: K1 ------------------------------------------------------------
@@ -217,7 +245,7 @@ def k1_line(dec, inputs, max_err: float, ties: int):
 
 # --- phase 5: K2 ------------------------------------------------------------
 
-def sequence_scores(dec, feats, style: int, tokens, length):
+def sequence_scores(dec, cell: str, feats, style: int, tokens, length):
     """Log-probability under the plain model of each image's token sequence
     (``<start>`` at 0; the feature fed at step 1 when ``feats`` is given):
     the score a beam search gives that sequence.  Summed step by step in
@@ -225,45 +253,54 @@ def sequence_scores(dec, feats, style: int, tokens, length):
     import torch
 
     from icee_tpu_torch.models import factored_lstm as fl
+    from icee_tpu_torch.models import lstm
 
+    if cell == "factored":
+        embed = fl.embed
+        step = lambda x, s: fl.decode_step(dec, x, s, style)  # noqa: E731
+    else:
+        embed = lstm.embed
+        step = lambda x, s: lstm.decode_step(dec, x, s)  # noqa: E731
     tok = tokens.long()
     zeros = torch.zeros((tok.shape[0], H), device=tok.device)
     state = (zeros, zeros.clone())
-    x = feats[:, 0] if feats is not None else fl.embed(dec, tok[:, 0])
+    x = feats[:, 0] if feats is not None else embed(dec, tok[:, 0])
     total = torch.zeros((tok.shape[0],), device=tok.device)
     for t in range(1, int(length.max())):
-        logits, state = fl.decode_step(dec, x, state, style)
+        logits, state = step(x, state)
         lp = torch.log_softmax(logits.float(), dim=-1)
         total = torch.where(t < length, total + lp.gather(
             1, tok[:, t:t + 1])[:, 0], total)
-        x = fl.embed(dec, tok[:, t])
+        x = embed(dec, tok[:, t])
     return total
 
 
-def check_k2(dec, device):
+def check_k2(dec, device, cell: str = "factored"):
+    """K2 with ``cell`` vs its plain search; -> its entry of the kernels
+    line."""
     import torch
 
     from icee_tpu_torch.ops.beam import (mega_beam_decode,
                                          mega_beam_decode_plain,
                                          mega_beam_decode_steps)
 
-    style = 2
+    style = 2 if cell == "factored" else 0
     g = torch.Generator(device=device).manual_seed(4)
     feats = torch.randn((B_IMAGES, 1, E), generator=g, device=device)
     feats = feats.expand(B_IMAGES, K, E).contiguous()
     max_err, own_err, total_steps, flips = 0.0, 0.0, 0, 0
+    kw = dict(k=K, max_seq_length=STEPS, cell=cell)
     for mode_feats in (feats, None):
         got, steps = mega_beam_decode_steps(dec, mode_feats, style,
-                                            B_IMAGES, k=K,
-                                            max_seq_length=STEPS)
-        want = mega_beam_decode_plain(dec, mode_feats, style, B_IMAGES,
-                                      k=K, max_seq_length=STEPS)
+                                            B_IMAGES, **kw)
+        want = mega_beam_decode_plain(dec, mode_feats, style, B_IMAGES, **kw)
         # the plain model's score of the kernel's own sequences: a wrong
         # token, parent or length shows here even where the kernel's
         # reported score is right
-        rescored = sequence_scores(dec, mode_feats, style, got.tokens,
+        rescored = sequence_scores(dec, cell, mode_feats, style, got.tokens,
                                    got.length)
-        mode = "serving" if mode_feats is not None else "research"
+        mode = ("serving" if mode_feats is not None else "research") \
+            + f", {cell}"
         for i in range(B_IMAGES):
             gs, ws = got.score[i].item(), want.score[i].item()
             same = (got.length[i] == want.length[i]).item() and torch.equal(
@@ -297,21 +334,25 @@ def check_k2(dec, device):
         if mode_feats is not None:
             total_steps = int(steps.sum())  # the timed, serving-mode run
 
-    ms = cuda_ms(lambda: mega_beam_decode(dec, feats, style, B_IMAGES, k=K,
-                                          max_seq_length=STEPS), 5)
+    ms = cuda_ms(lambda: mega_beam_decode(dec, feats, style, B_IMAGES, **kw),
+                 5)
     plain_ms = cuda_ms(lambda: mega_beam_decode_plain(
-        dec, feats, style, B_IMAGES, k=K, max_seq_length=STEPS), 3)
+        dec, feats, style, B_IMAGES, **kw), 3)
     rows_per_block = (B_IMAGES * K) // steps.numel()
     row_steps = total_steps * rows_per_block
-    nbytes = (decoder_weight_bytes() + 4 * B_IMAGES * K * E
+    nbytes = (decoder_weight_bytes(cell) + 4 * B_IMAGES * K * E
               + 4 * row_steps * E + 4 * B_IMAGES * (STEPS + 4))
-    b_ms, b_by = bound_ms(row_steps * step_flops_per_row(), nbytes)
-    return {"name": "mega_beam_decode", "route": "cuda",
-            "source": "icee_tpu_torch/csrc/beam.cu",
-            "replaces": "icee_tpu/ops/pallas_beam.py:350",
+    b_ms, b_by = bound_ms(row_steps * step_flops_per_row(cell), nbytes)
+    lstm = cell == "lstm"
+    return {"name": "mega_beam_decode" + ("_lstm" if lstm else ""),
+            "route": "cuda", "source": "icee_tpu_torch/csrc/beam.cu",
+            "replaces": "icee_tpu/ops/pallas_beam.py:350" + (
+                " (cell=\"lstm\", :129-143)" if lstm else ""),
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "near_tie_flips": flips, "max_rescore_err": own_err}
+            "library_note": "no single PyTorch call computes a beam search",
+            "near_tie_flips": flips, "max_rescore_err": own_err,
+            "block_steps_run": total_steps}
 
 
 # --- phase 6: serve -----------------------------------------------------------
@@ -349,10 +390,14 @@ def serving(config, engine, device):
         thread.join(timeout=60)
 
 
+SERVED = ("stylenet", "nic")
+
+
 def run_requests(url, requests, concurrent: bool):
     """POST every (image, mode) request, all at once or one after another;
     -> ({index: (status, body, seconds)}, wall seconds).  Fails unless each
-    answer is HTTP 200 with a non-empty stylenet caption."""
+    answer is HTTP 200 with a non-empty stylenet caption and a nic answer
+    (a random-init NIC may end a beam at once: an empty caption)."""
     results = {}
 
     def worker(j, p, m):
@@ -374,8 +419,8 @@ def run_requests(url, requests, concurrent: bool):
         fail(f"only {len(results)} of {len(requests)} requests answered")
     for j, (p, m) in enumerate(requests):
         status, body, _ = results[j]
-        if status != 200 or not body.get("stylenet") or \
-                body["stylenet"] == "-":
+        if status != 200 or body.get("stylenet") in (None, "", "-") or \
+                body.get("nic") in (None, "-"):
             fail(f"request {j} ({m}): HTTP {status}, {body}")
     return results, wall
 
@@ -423,10 +468,10 @@ def device_time_by_kernel(fn, top: int = 12):
 
 def request_breakdown(engine, paths, repeats: int = 5):
     """Device-synchronised host times (ms, median of ``repeats``) of the
-    pieces of a request: image decode + ResNet-152 + head for one image,
-    the serial beam (fused-step path, K1) for one image, and the batched
-    beam (mega path, K2) for a group of len(paths) images; and each
-    piece's device busy share (one profiled run)."""
+    pieces of a request: image decode + ResNet-152 + head for one image;
+    per variant the serial beam for one image (stylenet: fused-step path,
+    K1; nic: K2 lstm) and the batched beam (K2) for a group of len(paths)
+    images; and each piece's device busy share (one profiled run)."""
     import torch
 
     def timed(fn):
@@ -439,17 +484,32 @@ def request_breakdown(engine, paths, repeats: int = 5):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    feat = engine.encode(paths[0], "happy")
-    group = torch.cat([engine.encode(p, "happy") for p in paths])
-    pieces = {
-        "encode_one_image": lambda: engine.encode(paths[0], "happy"),
-        "serial_beam_one_image": lambda: engine.decode(feat, "happy",
-                                                       "fused-step"),
-        f"batched_beam_{len(paths)}_images": lambda: engine.decode(
-            group, "happy", "mega"),
-    }
+    pieces = {"encode_one_image": lambda: engine.encode(paths[0], "happy")}
+    for variant in SERVED:
+        feat = engine.encode(paths[0], "happy", variant)
+        group = torch.cat([engine.encode(p, "happy", variant) for p in paths])
+        pre = "" if variant == "stylenet" else "nic_"
+        pieces[pre + "serial_beam_one_image"] = (
+            lambda f=feat, v=variant: engine.decode(f, "happy", "fused-step",
+                                                    v))
+        pieces[pre + f"batched_beam_{len(paths)}_images"] = (
+            lambda g=group, v=variant: engine.decode(g, "happy", "mega", v))
     return {name: {"ms": timed(fn), "device_busy_share": device_busy_share(fn)}
             for name, fn in pieces.items()}
+
+
+def serving_vocab(tmp: str) -> str:
+    """A vocabulary of V words pickled under ``tmp``; -> its path."""
+    from icee_tpu_torch.data.vocab import SPECIALS, Vocabulary
+
+    vocab = Vocabulary()
+    for w in SPECIALS:
+        vocab.add_word(w)
+    for i in range(V - len(SPECIALS)):
+        vocab.add_word(f"kata{i:04d}")
+    path = os.path.join(tmp, "vocab.pkl")
+    vocab.save(path)
+    return path
 
 
 def serve_phase(params, device):
@@ -458,19 +518,21 @@ def serve_phase(params, device):
     import numpy as np
     from PIL import Image
 
-    from icee_tpu_torch.data.vocab import SPECIALS, Vocabulary
     from icee_tpu_torch.ops.beam import mega_beam_decode
     from icee_tpu_torch.ops.decode_step import decode_step_topk
     from icee_tpu_torch.serve.config import ServeConfig
     from icee_tpu_torch.serve.engine import BEAM_K, CaptionEngine
 
+    def reset():
+        decode_step_topk.launches = 0
+        mega_beam_decode.launches = mega_beam_decode.lstm_launches = 0
+
+    def read():
+        return {"decode_step_topk": decode_step_topk.launches,
+                "mega_beam_decode": mega_beam_decode.launches,
+                "mega_beam_decode_lstm": mega_beam_decode.lstm_launches}
+
     with tempfile.TemporaryDirectory() as tmp:
-        vocab = Vocabulary()
-        for w in SPECIALS:
-            vocab.add_word(w)
-        for i in range(V - len(SPECIALS)):
-            vocab.add_word(f"kata{i:04d}")
-        vocab.save(os.path.join(tmp, "vocab.pkl"))
         rng = np.random.default_rng(5)
         paths = []
         for i in range(N_REQUESTS // 2):
@@ -484,58 +546,184 @@ def serve_phase(params, device):
 
         config = ServeConfig(backend_host="127.0.0.1", backend_port=0,
                              image_folder=os.path.join(tmp, "uploads"),
-                             vocab_path=os.path.join(tmp, "vocab.pkl"),
+                             vocab_path=serving_vocab(tmp),
                              batch_window_ms=200.0)
         t0 = time.perf_counter()
         engine = CaptionEngine(config, image_size=224, device=device,
                                params=params)
         engine.caption(paths[0], "happy")   # warm-up: cuDNN and allocator
         log(f"serve: engine ready in {time.perf_counter() - t0:.1f}s "
-            f"(V={len(engine.vocab)}, E={engine.dec_cfg.embed_size}, "
-            f"H={engine.dec_cfg.hidden_size}, F={engine.dec_cfg.factored_size}"
-            f", k={BEAM_K}, steps={engine.dec_cfg.max_seq_length})")
+            f"(variants {sorted(engine.models)}, V={len(engine.vocab)}, "
+            f"E={engine.dec_cfg.embed_size}, H={engine.dec_cfg.hidden_size}, "
+            f"F={engine.dec_cfg.factored_size}, k={BEAM_K}, "
+            f"steps={engine.dec_cfg.max_seq_length})")
         # path 1, batched: concurrent requests through the BatchingEngine
-        # (mega path, K2); counts from 0 just before, read just after
-        decode_step_topk.launches = mega_beam_decode.launches = 0
+        # (K2 factored + K2 lstm); counts from 0 just before, read just after
+        reset()
         with serving(config, engine, device) as url:
             batched, wall = run_requests(url, requests, concurrent=True)
-        launches = {"mega_beam_decode": mega_beam_decode.launches,
-                    "decode_step_topk_in_batched": decode_step_topk.launches}
+        launches = {"batched": read()}
         # path 2, serial: the same requests one by one through the
-        # CaptionEngine alone (fused-step path, K1)
+        # CaptionEngine alone (K1 for stylenet, K2 lstm for nic)
         serial_config = dataclasses.replace(config, batch_window_ms=0.0)
-        decode_step_topk.launches = mega_beam_decode.launches = 0
+        reset()
         with serving(serial_config, engine, device) as url:
             serial, serial_wall = run_requests(url, requests,
                                                concurrent=False)
-        launches["decode_step_topk"] = decode_step_topk.launches
-        launches["mega_beam_decode_in_serial"] = mega_beam_decode.launches
+        launches["serial"] = read()
 
         for j, (p, m) in enumerate(requests):
-            got, want = batched[j][1]["stylenet"], serial[j][1]["stylenet"]
-            if got != want:
-                fail(f"request {j} ({m}): batched caption {got!r} != "
-                     f"serial {want!r}")
-        for name in ("mega_beam_decode", "decode_step_topk"):
-            if launches[name] <= 0:
-                fail(f"{name} was not launched on its serving path")
+            for variant in SERVED:
+                got, want = batched[j][1][variant], serial[j][1][variant]
+                if got != want:
+                    fail(f"request {j} ({m}) {variant}: batched caption "
+                         f"{got!r} != serial {want!r}")
+        for path, names in (("batched", ("mega_beam_decode",
+                                         "mega_beam_decode_lstm")),
+                            ("serial", ("decode_step_topk",
+                                        "mega_beam_decode_lstm"))):
+            for name in names:
+                if launches[path][name] <= 0:
+                    fail(f"{name} was not launched on the {path} path")
+        words = {v: [len(batched[j][1][v].split())
+                     for j in range(len(requests))] for v in SERVED}
+        if max(words["nic"]) == 0:
+            fail("every nic caption is empty")
         lat = sorted(r[2] * 1e3 for r in batched.values())
         serial_lat = sorted(r[2] * 1e3 for r in serial.values())
-        words = [len(batched[j][1]["stylenet"].split())
-                 for j in range(len(requests))]
-        log(f"serve: {len(requests)} captions equal on the batched and "
-            f"serial paths; words per caption {min(words)}..{max(words)}; "
-            f"e.g. {batched[0][1]['stylenet']!r}")
-        stats = {"requests": len(requests), "wall_s": wall,
-                 "captions_per_s": len(requests) / wall,
+        log(f"serve: {len(requests)} x {len(SERVED)} captions equal on the "
+            f"batched and serial paths; words per caption "
+            f"{ {v: (min(w), max(w)) for v, w in words.items()} }; e.g. "
+            f"{ {v: batched[0][1][v] for v in SERVED} }")
+        stats = {"variants": list(SERVED), "requests": len(requests),
+                 "wall_s": wall, "captions_per_s": len(requests) / wall,
                  "p50_ms": statistics.median(lat), "max_ms": lat[-1],
                  "batch_window_ms": config.batch_window_ms,
                  "serial_wall_s": serial_wall,
                  "serial_captions_per_s": len(requests) / serial_wall,
                  "serial_p50_ms": statistics.median(serial_lat),
-                 "image_size": 224,
+                 "image_size": 224, "launches": launches,
                  "breakdown_ms": request_breakdown(engine, paths)}
+        stats["checkpoint_round_trip"] = checkpoint_phase(
+            params, device, config, paths[0])
         return launches, stats
+
+
+def reference_checkpoints(params, tmp: str, device):
+    """Reference-style torch checkpoints written under ``tmp``: a StyleNet
+    ``DecoderFactoredLSTM`` state dict (the key names of
+    ``stylenet/model.py:52-94``) from ``params["stylenet"]["decoder"]``, and
+    a full-module pickle of a NIC model (``EncoderCNN`` + ``DecoderRNN`` of
+    ``torch.nn`` modules: Embedding, LSTMCell, Linear, BatchNorm1d) drawn
+    from a seed and shaped to caption, whose classes are gone when it is
+    read.  -> (stylenet path, nic path, the NIC weights as a ``params``
+    entry, built from the modules' tensors by hand)."""
+    import types
+
+    import torch
+    import torch.nn as nn
+
+    dec = params["stylenet"]["decoder"]
+    sd = {"B.weight": dec["B"], "C.weight": dec["C_w"].T,
+          "C.bias": dec["C_b"]}
+    for g, name in enumerate(("i", "f", "o", "c")):
+        sd[f"V_{name}.weight"] = dec["V_w"][:, g * F:(g + 1) * F].T
+        sd[f"V_{name}.bias"] = dec["V_b"][g]
+        sd[f"U_{name}.weight"] = dec["U_w"][g].T
+        sd[f"U_{name}.bias"] = dec["U_b"][g]
+        sd[f"W_{name}.weight"] = dec["W_w"][:, g * H:(g + 1) * H].T
+        sd[f"W_{name}.bias"] = dec["W_b"][g]
+        for st, sp in enumerate(("f", "happy_", "sad_", "angry_")):
+            sd[f"S_{sp}{name}.weight"] = dec["S_w"][st, g].T
+            sd[f"S_{sp}{name}.bias"] = dec["S_b"][st, g]
+    sty_path = os.path.join(tmp, "stylenet_decoder.pth")
+    torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+               sty_path)
+
+    mod = types.ModuleType("model")
+
+    class EncoderCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.resnet = nn.Sequential(nn.Conv2d(3, 8, 7))
+            self.linear = nn.Linear(2048, E)
+            self.bn = nn.BatchNorm1d(E, momentum=0.01)
+
+    class DecoderRNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(V, E)
+            self.lstm = nn.LSTMCell(E, H)
+            self.linear = nn.Linear(H, V)
+
+    for cls in (EncoderCNN, DecoderRNN):
+        cls.__module__, cls.__qualname__ = "model", cls.__name__
+        setattr(mod, cls.__name__, cls)
+    sys.modules["model"] = mod
+    try:
+        torch.manual_seed(21)
+        enc, nic = EncoderCNN(), DecoderRNN()
+        with torch.no_grad():   # caption-shaped, as captioning_params
+            enc.linear.weight.mul_(10.0)
+            enc.linear.bias.mul_(10.0)
+            nic.linear.weight.mul_(30.0)
+            nic.linear.bias[2] = 2.0
+        nic_path = os.path.join(tmp, "HAP_BEST_checkpoint_nic.pth.tar")
+        torch.save({"epoch": 1, "encoder": enc, "decoder": nic}, nic_path)
+    finally:
+        del sys.modules["model"]
+    t = {k: v.detach().to(device) for k, v in
+         list(nic.state_dict().items()) + [("enc." + k, v) for k, v in
+                                           enc.state_dict().items()]}
+    nic_params = {
+        "decoder": {"embed": t["embed.weight"],
+                    "cell": {"W_ih": t["lstm.weight_ih"].T.contiguous(),
+                             "W_hh": t["lstm.weight_hh"].T.contiguous(),
+                             "b_ih": t["lstm.bias_ih"],
+                             "b_hh": t["lstm.bias_hh"]},
+                    "linear_w": t["linear.weight"].T.contiguous(),
+                    "linear_b": t["linear.bias"]},
+        "head": {"linear_w": t["enc.linear.weight"].T.contiguous(),
+                 "linear_b": t["enc.linear.bias"],
+                 "bn": {k: t[f"enc.bn.{k}"] for k in
+                        ("weight", "bias", "running_mean", "running_var")}}}
+    return sty_path, nic_path, nic_params
+
+
+def checkpoint_phase(params, device, config, image_path: str):
+    """The engine built from reference torch checkpoints captions one
+    request as the engine built from the same weights as ``params``.  The
+    StyleNet state dict carries no encoder, so its head is the variant's
+    seeded template in both engines."""
+    import dataclasses
+
+    from icee_tpu_torch.core.config import MODES as ALL_MODES
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sty_path, nic_path, nic_params = reference_checkpoints(params, tmp,
+                                                               device)
+        paths = {v: {m: None for m in ALL_MODES}
+                 for v in config.checkpoint_paths}
+        paths["stylenet"] = {m: sty_path for m in ALL_MODES}
+        paths["nic"] = {m: nic_path for m in ALL_MODES}
+        t0 = time.perf_counter()
+        from_ckpt = CaptionEngine(
+            dataclasses.replace(config, checkpoint_paths=paths),
+            image_size=224, device=device,
+            params={"backbone": params["backbone"]})
+        load_s = time.perf_counter() - t0
+    sty_head = from_ckpt.models["stylenet"]["happy"]["head"]
+    from_params = CaptionEngine(config, image_size=224, device=device, params={
+        "backbone": params["backbone"], "nic": nic_params,
+        "stylenet": {"decoder": params["stylenet"]["decoder"],
+                     "head": sty_head}})
+    got = from_ckpt.caption(image_path, "sad")
+    want = from_params.caption(image_path, "sad")
+    if got != want:
+        fail(f"checkpoint-built engine captions {got} != params-built {want}")
+    log(f"checkpoints: loaded in {load_s:.1f}s; captions equal: {got}")
+    return {"load_s": load_s, "captions": {v: got[v] for v in SERVED}}
 
 
 # --- phases 7-9: training ---------------------------------------------------
@@ -656,6 +844,135 @@ def check_k3(device):
                                    for k in grads)),
                  max_rel_err=max(rel.values()), ms=ms_b, plain_ms=plain_b,
                  bound_ms=bb, bound_by=bb_by))
+
+
+def nic_flops(b: int, t: int):
+    """(forward, backward) FLOPs of K4 on (b, t) rows: x W_ih for all rows
+    and the recurrence; dW_ih, dW_hh and dx over all rows plus the (T - 1)
+    recurrent dh products."""
+    n = b * t
+    fwd = 2 * n * (E + H) * 4 * H
+    bwd = 2 * n * 4 * H * (2 * E + H) + 2 * b * (t - 1) * 4 * H * H
+    return fwd, bwd
+
+
+def training_nic_cell(device, seed: int):
+    """Seeded flagship-width NIC cell (Xavier, as ``lstm.init_params``) with
+    non-zero biases."""
+    import torch
+
+    from icee_tpu_torch.models import lstm
+
+    cell = lstm.init_cell_params(torch.Generator().manual_seed(seed), E, H,
+                                 device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    for k in ("b_ih", "b_hh"):
+        cell[k].copy_(0.1 * torch.randn(cell[k].shape, generator=g,
+                                        device=device))
+    return cell
+
+
+def check_k4(device):
+    """K4 forward and backward vs their plain versions at B=64, T=25,
+    E=300, H=512, with K3's tolerances (h and c atol 1e-4; dx and each
+    weight grad <= 1e-3 x its largest magnitude) and the same bits on a
+    second run; then cuDNN's ``nn.LSTM`` with the same weights (TF32 off):
+    its h against the kernel's (atol 1e-4) and its forward and backward
+    times, the library yardstick.  -> (forward, backward) entries of the
+    kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import nic_scan
+
+    cell = training_nic_cell(device, 17)
+    g = torch.Generator(device=device).manual_seed(18)
+    x = 0.5 * torch.randn((B_IMAGES, T_STEPS, E), generator=g, device=device)
+    dh = 0.02 * torch.randn((B_IMAGES, T_STEPS, H), generator=g,
+                            device=device)
+    h_seq, c_seq, gates = nic_scan.nic_scan_fwd(cell, x)
+    want_h, want_c = nic_scan.fused_nic_scan_plain(cell, x)
+    dx, grads = nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh, gates)
+    want_dx, want_g = nic_scan.nic_scan_bwd_plain(cell, x, h_seq, c_seq, dh)
+    h2, c2, _ = nic_scan.nic_scan_fwd(cell, x)
+    dx2, grads2 = nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh, gates)
+    torch.cuda.synchronize()
+    fwd_err = max((h_seq - want_h).abs().max().item(),
+                  (c_seq - want_c).abs().max().item())
+    if not fwd_err <= 1e-4:
+        fail(f"K4 forward: max abs error {fwd_err} > 1e-4")
+    rel = {"x": max_rel_err(dx, want_dx)}
+    rel.update({k: max_rel_err(grads[k], want_g[k])
+                for k in nic_scan.CELL_KEYS})
+    for name, err in rel.items():
+        if not err <= 1e-3:
+            fail(f"K4 backward: d{name} error {err} x max|g| > 1e-3")
+    if not (torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
+            and torch.equal(dx, dx2)
+            and all(torch.equal(grads[k], grads2[k]) for k in grads)):
+        fail("K4: two runs on the same inputs differ")
+    if not torch.equal(grads["b_ih"], grads["b_hh"]):
+        fail("K4 backward: b_ih and b_hh grads differ")
+
+    # the library yardstick: cuDNN's LSTM computes the same function
+    lstm = torch.nn.LSTM(E, H, batch_first=True).to(device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(cell["W_ih"].T)
+        lstm.weight_hh_l0.copy_(cell["W_hh"].T)
+        lstm.bias_ih_l0.copy_(cell["b_ih"])
+        lstm.bias_hh_l0.copy_(cell["b_hh"])
+    xl = x.detach().clone().requires_grad_(True)
+    lib_h, _ = lstm(xl)
+    lib_err = (lib_h.detach() - h_seq).abs().max().item()
+    if not lib_err <= 1e-4:
+        fail(f"K4 vs cuDNN nn.LSTM: h max abs error {lib_err} > 1e-4")
+    log(f"K4: h/c max abs err {fwd_err:.3g}; grads max err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; bit-identical "
+        f"over two runs; cuDNN nn.LSTM h max abs err {lib_err:.3g}")
+    lib_inputs = [xl, *lstm.parameters()]
+
+    def lib_fwd():
+        with torch.no_grad():
+            lstm(x)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_h, lib_inputs, dh, retain_graph=True)
+
+    def lib_fwd_bwd():
+        out, _ = lstm(xl)
+        torch.autograd.grad(out, lib_inputs, dh)
+
+    ms_f = cuda_ms(lambda: nic_scan.nic_scan_fwd(cell, x), 10)
+    plain_f = cuda_ms(lambda: nic_scan.fused_nic_scan_plain(cell, x), 5)
+    lib_f = cuda_ms(lib_fwd, 10)
+    ms_b = cuda_ms(lambda: nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh,
+                                                 gates), 10)
+    plain_b = cuda_ms(lambda: nic_scan.nic_scan_bwd_plain(
+        cell, x, h_seq, c_seq, dh), 5)
+    lib_b = cuda_ms(lib_bwd, 10)
+    lib_fb = cuda_ms(lib_fwd_bwd, 10)
+    n = B_IMAGES * T_STEPS
+    flops_f, flops_b = nic_flops(B_IMAGES, T_STEPS)
+    weights = E * 4 * H + H * 4 * H + 8 * H
+    bytes_f = 4 * (weights + n * E + 2 * n * H + n * 4 * H)
+    bytes_b = 4 * (2 * weights + 2 * n * E + 3 * n * H + n * 4 * H)
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/nic_scan.cu",
+              "library_note": "torch.nn.LSTM(E, H, batch_first=True) "
+                              "(cuDNN), TF32 off",
+              "library_fwd_bwd_ms": lib_fb}
+    bf, bf_by = bound_ms(flops_f, bytes_f)
+    bb, bb_by = bound_ms(flops_b, bytes_b)
+    return (dict(common, name="fused_nic_scan_fwd",
+                 replaces="icee_tpu/ops/pallas_nic_train.py:173",
+                 max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+                 bound_ms=bf, bound_by=bf_by, library_ms=lib_f,
+                 library_max_abs_err=lib_err),
+            dict(common, name="fused_nic_scan_bwd",
+                 replaces="icee_tpu/ops/pallas_nic_train.py:227",
+                 max_abs_err=max((dx - want_dx).abs().max().item(),
+                                 *((grads[k] - want_g[k]).abs().max().item()
+                                   for k in grads)),
+                 max_rel_err=max(rel.values()), ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bb, bound_by=bb_by, library_ms=lib_b))
 
 
 def chunked_ce_plain(hid, w, b, tgt, weights, t_chunk, clamp=None):
@@ -862,23 +1179,29 @@ def step_ms(fn, n: int):
     return statistics.median(a.elapsed_time(z) for a, z in pairs)
 
 
-def train_phase(device):
-    """Phase 9: the StyleNet train step at flagship width."""
+def train_phase(device, factored: bool = True):
+    """Phase 9: the StyleNet (``factored``) or NIC train step at flagship
+    width."""
     import math
 
     import torch
 
     from icee_tpu_torch.core.config import (DecoderConfig, EncoderConfig,
                                             TrainConfig)
-    from icee_tpu_torch.models import encoder
+    from icee_tpu_torch.models import encoder, lstm
     from icee_tpu_torch.ops import chunked_loss as cl
-    from icee_tpu_torch.ops import lstm_scan
+    from icee_tpu_torch.ops import lstm_scan, nic_scan
     from icee_tpu_torch.train import optim
     from icee_tpu_torch.train.steps import make_caption_steps
 
-    counters = {"fused_factored_scan_fwd": lstm_scan.factored_scan_fwd,
-                "fused_factored_scan_bwd": lstm_scan.factored_scan_bwd,
-                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows}
+    if factored:
+        counters = {"fused_factored_scan_fwd": lstm_scan.factored_scan_fwd,
+                    "fused_factored_scan_bwd": lstm_scan.factored_scan_bwd}
+    else:
+        counters = {"fused_nic_scan_fwd": nic_scan.nic_scan_fwd,
+                    "fused_nic_scan_bwd": nic_scan.nic_scan_bwd}
+    counters.update(ce_rows=cl.ce_rows, ce_grad_rows=cl.ce_grad_rows)
+    model = "stylenet" if factored else "nic"
 
     def reset():
         for fn in counters.values():
@@ -895,11 +1218,16 @@ def train_phase(device):
         return make_caption_steps(cfg, tcfg,
                                   optim.make_adam(tcfg.lr_caption, tcfg),
                                   optim.make_adam(tcfg.lr_language, tcfg),
-                                  device=device)
+                                  factored=factored, device=device)
 
     def fresh():
-        dec = training_decoder(device, 12)
-        dec["C_b"].zero_()
+        if factored:
+            dec = training_decoder(device, 12)
+            dec["C_b"].zero_()
+        else:
+            dec = lstm.init_params(torch.Generator().manual_seed(12), cfg,
+                                   device=device)
+            dec["cell"] = training_nic_cell(device, 12)
         head = encoder.init_head_params(torch.Generator().manual_seed(13),
                                         EncoderConfig(embed_size=E),
                                         device=device)
@@ -935,7 +1263,7 @@ def train_phase(device):
             for a, b in pairs)):
         fail(f"first step: kernel vs plain loss err {loss_err}, grad errs "
              f"{grad_errs}")
-    log(f"phase 9 (i): first factual step, kernel vs plain: loss "
+    log(f"phase 9 (i), {model}: first factual step, kernel vs plain: loss "
         f"{out['kernel'][0].item():.6f} vs {out['plain'][0].item():.6f}, "
         f"grad err / max|g| per leaf {[float(f'{e:.3g}') for e in grad_errs]}")
 
@@ -975,7 +1303,7 @@ def train_phase(device):
         if not last <= LOSS_FALL * first:
             fail(f"{track} loss did not fall: first cycle {first}, last "
                  f"{last} > {LOSS_FALL} x first")
-    log(f"phase 9 (ii): losses factual {fac_losses[0]:.4f} -> "
+    log(f"phase 9 (ii), {model}: losses factual {fac_losses[0]:.4f} -> "
         f"{fac_losses[-1]:.4f}, emotion {emo_losses[0]:.4f} -> "
         f"{emo_losses[-1]:.4f}; last/first cycle {drops}; launches "
         f"{launches}")
@@ -1014,7 +1342,7 @@ def train_phase(device):
     v_loss, v_top5 = v_loss.item(), v_top5.item()
     if not (math.isfinite(v_loss) and 0.0 <= v_top5 <= 100.0):
         fail(f"val_step: loss {v_loss}, top5 {v_top5}")
-    log(f"phase 9 (iii)-(iv): ratio 0.8 losses {s_losses}, launches "
+    log(f"phase 9 (iii)-(iv), {model}: ratio 0.8 losses {s_losses}, launches "
         f"{per_sampled}; val loss {v_loss:.4f}, top-5 {v_top5:.2f}%")
 
     # step times: the whole factual step, Adam included
@@ -1082,44 +1410,63 @@ def main() -> int:
     log("phase 3: TF32 off for matmul and cuDNN; cuDNN deterministic")
 
     params = captioning_params(device)
+    sty, nic = params["stylenet"]["decoder"], params["nic"]["decoder"]
     with torch.inference_mode():
         # the serial path's R = 5 (partly filled blocks in all three
         # launches), then R = 320 (full blocks), which is also timed
-        _, serial_err, serial_ties = check_k1(params["decoder"], device,
-                                              K, 6)
-        inputs, err, ties = check_k1(params["decoder"], device,
-                                     B_IMAGES * K, 3)
-        k1 = k1_line(params["decoder"], inputs, max(serial_err, err),
-                     serial_ties + ties)
+        _, serial_err, serial_ties = check_k1(sty, device, K, 6)
+        inputs, err, ties = check_k1(sty, device, B_IMAGES * K, 3)
+        k1 = k1_line(sty, inputs, max(serial_err, err), serial_ties + ties)
         log(f"phase 4: K1 ok, {k1['ms']:.3f} ms vs plain "
             f"{k1['plain_ms']:.3f} ms")
-        k2 = check_k2(params["decoder"], device)
-        log(f"phase 5: K2 ok, {k2['ms']:.3f} ms vs plain "
-            f"{k2['plain_ms']:.3f} ms")
+        k2 = check_k2(sty, device)
+        k2_lstm = check_k2(nic, device, cell="lstm")
+        log(f"phase 5: K2 ok, factored {k2['ms']:.3f} ms vs plain "
+            f"{k2['plain_ms']:.3f} ms; lstm {k2_lstm['ms']:.3f} ms vs "
+            f"plain {k2_lstm['plain_ms']:.3f} ms")
 
     launches, stats = serve_phase(params, device)
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
-    k1["launches"] = launches["decode_step_topk"]
-    k2["launches"] = launches["mega_beam_decode"]
-    del params
+    k1["launches"] = launches["serial"]["decode_step_topk"]
+    k2["launches"] = launches["batched"]["mega_beam_decode"]
+    k2_lstm["launches"] = (launches["batched"]["mega_beam_decode_lstm"]
+                           + launches["serial"]["mega_beam_decode_lstm"])
+    k2_lstm["launches_batched_serial"] = [
+        launches["batched"]["mega_beam_decode_lstm"],
+        launches["serial"]["mega_beam_decode_lstm"]]
+    del params, sty, nic
 
     k3f, k3b = check_k3(device)
+    k4f, k4b = check_k4(device)
     log(f"phase 7: K3 ok, forward {k3f['ms']:.3f} ms (plain "
         f"{k3f['plain_ms']:.3f}), backward {k3b['ms']:.3f} ms (plain "
-        f"{k3b['plain_ms']:.3f})")
+        f"{k3b['plain_ms']:.3f}); K4 ok, forward {k4f['ms']:.3f} ms (plain "
+        f"{k4f['plain_ms']:.3f}, cuDNN {k4f['library_ms']:.3f}), backward "
+        f"{k4b['ms']:.3f} ms (plain {k4b['plain_ms']:.3f}, cuDNN "
+        f"{k4b['library_ms']:.3f})")
     cef, ceb, ce_whole = check_ce(device)
     log(f"phase 8: CE ok, rows {cef['ms']:.4f} ms, grad rows "
         f"{ceb['ms']:.4f} ms; whole loss fwd+bwd {ce_whole}")
     train_launches, train = train_phase(device)
+    nic_launches, train["nic"] = train_phase(device, factored=False)
     train["chunked_ce_fwd_bwd"] = ce_whole
     log(f"phase 9: factual step {train['factual_step_ms']:.3f} ms, "
         f"{train['captions_per_s']:.1f} captions/s (plain "
-        f"{train['plain_factual_step_ms']:.3f} ms)")
-    for entry in (k3f, k3b, cef, ceb):
+        f"{train['plain_factual_step_ms']:.3f} ms); nic "
+        f"{train['nic']['factual_step_ms']:.3f} ms, "
+        f"{train['nic']['captions_per_s']:.1f} captions/s (plain "
+        f"{train['nic']['plain_factual_step_ms']:.3f} ms)")
+    for entry in (k3f, k3b):
         entry["launches"] = train_launches[entry["name"]]
+    for entry in (k4f, k4b):
+        entry["launches"] = nic_launches[entry["name"]]
+    for entry in (cef, ceb):   # both decoders' runs use the CE kernels
+        entry["launches"] = (train_launches[entry["name"]]
+                             + nic_launches[entry["name"]])
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
-    print(json.dumps({"kernels": [k1, k2, k3f, k3b, cef, ceb]}))
+    print(json.dumps({"kernels": [k1, k2, k2_lstm, k3f, k3b, k4f, k4b, cef,
+                                  ceb]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,28 @@
-// K2: the whole FactoredLSTM k-beam search in one launch.
+// K2: the whole k-beam search in one launch, for the StyleNet FactoredLSTM
+// or the NIC decoder's torch LSTM cell.
 //
 // Replaces icee_tpu/ops/pallas_beam.py::mega_beam_decode (the TPU kernel
-// _kernel at :54 with _beam_select at :244), cell="factored".  Semantics are
-// those of decode/beam.py::beam_search_batched: the step-1 single-row special
-// case, rank < n_alive candidate validity, candidate order p*k + q over the
-// k x k merge, strict-> best-completed tracking with the list-order
-// tie-break, length = t + 2, the [<end>] fallback (length 1, score -1e30),
+// _kernel at :54 with _beam_select at :244), cell="factored" (:110-128)
+// and cell="lstm" (:129-143).  The kernel is a template over the weight
+// set (CellWeights or LstmWeights, decode_common.cuh); only the cell step
+// differs, so the head, tile reduction, merge, beam selection, parent
+// gather, best-completed tracking and embedding gather are one copy.
+// Semantics are those of decode/beam.py::beam_search_batched: the step-1
+// single-row special case, rank < n_alive candidate validity, candidate
+// order p*k + q over the k x k merge, strict-> best-completed tracking with
+// the list-order tie-break, length = t + 2, the [<end>] fallback (length 1, score -1e30),
 // and both feed_feature modes (serving: the image feature is the step-1
 // input; research: <start>'s embedding is).  Weights are float32, so the
 // TPU kernel's rounding of h and c through the weight dtype is the identity.
 //
 // What bounds it on the H100: by the roofline, operations (every step runs
-// the cell and the full vocabulary head for every row, 5.1 GFLOP per step
-// at 64 images x 5 beams, V = 8192, against ~32 MB of weights that stay in
-// the 50 MB L2).  In this design each block streams all the weights from L2
-// once per step for its few rows, so what limits it is the rate at which
-// one SM can pull bytes from L2; the matmuls keep 128 bytes in flight per
-// thread (decode_common.cuh dot4) to get close to that rate.
+// the cell and the full vocabulary head for every row: 5.1 GFLOP per step
+// at 64 images x 5 beams, V = 8192, for the factored cell and 3.7 GFLOP for
+// the LSTM cell, against ~32 MB of weights that stay in the 50 MB L2).  In
+// this design each block streams all the weights from L2 once per step for
+// its few rows, so what limits it is the rate at which one SM can pull
+// bytes from L2; the matmuls keep 128 bytes in flight per thread
+// (decode_common.cuh dot4) to get close to that rate.
 //
 // Design: one block per group of n_img images (n_img * k <= 8 rows),
 // persistent over all max_seq_length + 1 steps.  Per-beam x, h, c, the
@@ -25,7 +31,7 @@
 // device functions K1 uses (decode_common.cuh), so both paths score beams
 // bit-identically.  Beam selection, the parent-state gather and
 // best-completed tracking run in the block; the next input is gathered as
-// row B[word] (exact, where the TPU kernel needed a one-hot matmul); the
+// row emb[word] (exact, where the TPU kernel needed a one-hot matmul); the
 // block leaves its step loop once none of its beams is alive.
 #include "decode_common.cuh"
 
@@ -34,10 +40,11 @@ namespace icee {
 constexpr int BEAM_ROWS = 8;
 constexpr int MEGA_THREADS = 512;
 
+template <class W>
 struct MegaArgs {
   const float* feats;  // (n_blocks * n_img * k, E) or null (research mode)
   const float* emb;    // (V, E)
-  CellWeights w;
+  W w;                 // CellWeights or LstmWeights
   const float* Cw;     // (H, V)
   const float* Cb;     // (V,)
   int* tok;            // (n_blocks * n_img, max_len)
@@ -52,13 +59,14 @@ struct Layout {
   size_t floats, ints;
 };
 
-__host__ __device__ inline Layout layout(int E, int F, int H, int V, int k,
+// cw: the width of the cell's scratch planes (cell_width)
+__host__ __device__ inline Layout layout(int E, int cw, int H, int V, int k,
                                          int max_seq) {
   Layout l;
   l.Ep = round4(E);
   l.Hp = round4(H);
   // the scratch planes also hold the logits tiles: at least one tile wide
-  l.ld = (cell_ld(F, H) + VT - 1) / VT * VT;
+  l.ld = (cw + VT - 1) / VT * VT;
   l.L = max_seq + 2;
   l.n_tiles = (V + VT - 1) / VT;
   // logits tiles computed at once (>= 1): they live in the s1 plane
@@ -70,13 +78,15 @@ __host__ __device__ inline Layout layout(int E, int F, int H, int V, int k,
   return l;
 }
 
-__global__ void __launch_bounds__(MEGA_THREADS) mega_beam_kernel(MegaArgs a) {
+template <class W>
+__global__ void __launch_bounds__(MEGA_THREADS)
+mega_beam_kernel(MegaArgs<W> a) {
   extern __shared__ __align__(16) float smem[];
-  const CellWeights& w = a.w;
+  const W& w = a.w;
   const int E = w.E, H = w.H, k = a.k, n_img = a.n_img;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, n_warps = nt >> 5;
-  const Layout l = layout(E, w.F, H, a.V, k, a.max_seq);
+  const Layout l = layout(E, cell_width(w), H, a.V, k, a.max_seq);
   const int Ep = l.Ep, Hp = l.Hp, L = l.L, n_tiles = l.n_tiles;
   const int R = BEAM_ROWS;
 
@@ -132,8 +142,8 @@ __global__ void __launch_bounds__(MEGA_THREADS) mega_beam_kernel(MegaArgs a) {
   for (int t = 0; t <= a.max_seq; ++t) {
     const bool first = (t == 0);
     // cell: (xs, hs, cs) -> (hn, cn); ends with a barrier
-    factored_cell<BEAM_ROWS>(xs, Ep, hs, Hp, cs, Hp, w, s1, s2, l.ld, rows,
-                             hn, Hp, cn, Hp);
+    cell_step<BEAM_ROWS>(xs, Ep, hs, Hp, cs, Hp, w, s1, s2, l.ld, rows, hn,
+                         Hp, cn, Hp);
 
     // head over vocab tiles, npar tiles at a time, reduced to partials
     for (int tb = 0; tb < n_tiles; tb += l.npar) {
@@ -257,14 +267,38 @@ __global__ void __launch_bounds__(MEGA_THREADS) mega_beam_kernel(MegaArgs a) {
 
 using namespace icee;
 
+template <class W>
+static int launch(const float* feats, const float* emb, const W& w,
+                  const float* Cw, const float* Cb, int* tok, int* len,
+                  float* score, int* steps, int n_blocks, int n_img, int k,
+                  int V, int max_seq, int start, int end, int feed,
+                  void* stream) {
+  if (n_blocks <= 0 || k < 1 || k > KMAX || n_img < 1 ||
+      n_img * k > BEAM_ROWS || w.H % 4 || V % 4 ||
+      (feed && feats == nullptr))
+    return cudaErrorInvalidValue;
+  const Layout l = layout(w.E, cell_width(w), w.H, V, k, max_seq);
+  const size_t smem = sizeof(float) * l.floats + sizeof(int) * l.ints;
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_beam_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  MegaArgs<W> a{feats, emb, w, Cw, Cb, tok, len, score, steps, V, k, n_img,
+                max_seq, start, end, feed};
+  mega_beam_kernel<W><<<n_blocks, MEGA_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
 extern "C" const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared memory one block needs (bytes), for the wrapper's checks.
+// Shared memory one block needs (bytes), for the wrapper's checks; the
+// LSTM cell's planes are those of F = H.
 extern "C" long long icee_mega_beam_smem(int E, int F, int H, int V, int k,
                                          int max_seq) {
-  const Layout l = layout(E, F, H, V, k, max_seq);
+  const Layout l = layout(E, cell_ld(F, H), H, V, k, max_seq);
   return (long long)(sizeof(float) * l.floats + sizeof(int) * l.ints);
 }
 
@@ -275,19 +309,19 @@ extern "C" int icee_mega_beam_decode(
     int* tok, int* len, float* score, int* steps, int n_blocks, int n_img,
     int k, int E, int F, int H, int V, int max_seq, int start, int end,
     int feed, void* stream) {
-  if (n_blocks <= 0 || k < 1 || k > KMAX || n_img < 1 ||
-      n_img * k > BEAM_ROWS || F % 4 || H % 4 || V % 4 ||
-      (feed && feats == nullptr))
-    return cudaErrorInvalidValue;
-  const Layout l = layout(E, F, H, V, k, max_seq);
-  const size_t smem = sizeof(float) * l.floats + sizeof(int) * l.ints;
-  cudaError_t e = cudaFuncSetAttribute(
-      mega_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  MegaArgs a{feats, emb, CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},
-             Cw, Cb, tok, len, score, steps, V, k, n_img, max_seq, start, end,
-             feed};
-  mega_beam_kernel<<<n_blocks, MEGA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  if (F % 4) return cudaErrorInvalidValue;
+  return launch(feats, emb, CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},
+                Cw, Cb, tok, len, score, steps, n_blocks, n_img, k, V,
+                max_seq, start, end, feed, stream);
+}
+
+extern "C" int icee_mega_beam_decode_lstm(
+    const float* feats, const float* emb, const float* Wih, const float* bih,
+    const float* Whh, const float* bhh, const float* Cw, const float* Cb,
+    int* tok, int* len, float* score, int* steps, int n_blocks, int n_img,
+    int k, int E, int H, int V, int max_seq, int start, int end, int feed,
+    void* stream) {
+  return launch(feats, emb, LstmWeights{Wih, bih, Whh, bhh, E, H}, Cw, Cb,
+                tok, len, score, steps, n_blocks, n_img, k, V, max_seq, start,
+                end, feed, stream);
 }

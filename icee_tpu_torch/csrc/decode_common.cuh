@@ -1,5 +1,6 @@
-// Device functions shared by the two FactoredLSTM decode kernels:
-// decode_step.cu (one beam step, K1) and beam.cu (the whole beam search, K2).
+// Device functions shared by the decode kernels: decode_step.cu (one
+// FactoredLSTM beam step, K1) and beam.cu (the whole beam search, K2, with
+// the FactoredLSTM or the NIC decoder's torch LSTM cell).
 //
 // Both kernels call the SAME functions for the cell, the vocab head, the
 // per-tile reduction and the tile merge, and every output element is a fixed
@@ -12,7 +13,9 @@
 //
 // Layouts are the JAX package's: linear weights (in, out), V_w (E, 4F),
 // S_w[style] (4, F, F), U_w (4, F, H), W_w (H, 4H), C_w (H, V); gate order
-// [i, f, o, c]; h = o * c with no tanh (stylenet/model.py:153).
+// [i, f, o, c]; h = o * c with no tanh (stylenet/model.py:153).  The LSTM
+// cell: W_ih (E, 4H), W_hh (H, 4H), b_ih, b_hh (4H); gate order
+// [i, f, g, o]; h = o * tanh(c).
 //
 // What bounds the matmuls: the weights stream from L2 to the SM (every
 // weight element is read once per block per step), so the products are
@@ -50,6 +53,22 @@ struct CellWeights {
   const float* __restrict__ Wb;  // (4, H)
   int E, F, H;
 };
+
+struct LstmWeights {
+  const float* __restrict__ Wih;  // (E, 4H)
+  const float* __restrict__ bih;  // (4H,)
+  const float* __restrict__ Whh;  // (H, 4H)
+  const float* __restrict__ bhh;  // (4H,)
+  int E, H;
+};
+
+// Width of the cell's scratch planes for each weight set.
+__host__ __device__ inline int cell_width(const CellWeights& w) {
+  return cell_ld(w.F, w.H);
+}
+__host__ __device__ inline int cell_width(const LstmWeights& w) {
+  return cell_ld(w.H, w.H);
+}
 
 __device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 w) {
   acc[0] = fmaf(a, w.x, acc[0]);
@@ -172,6 +191,68 @@ __device__ void factored_cell(const float* xs, int ldx, const float* hs,
     h_out[r * ldho + j] = o_t * c_new;  // no tanh: reference quirk
   }
   __syncthreads();
+}
+
+// Block-level torch LSTMCell (the NIC decoder, nic/model.py:51) with the
+// factored_cell interface: z = ((x W_ih + b_ih) + h W_hh) + b_hh over all
+// 4H columns into the s1 plane (the XLA cell's float order, ops/cells.py:
+// 79), then the gates [i, f, g, o], c' = f c + i g, h' = o tanh(c').  s2 is
+// not used, so h_out / c_out may alias it.  All threads of the block must
+// call it; it ends with a barrier.
+template <int MAXR>
+__device__ void lstm_cell(const float* xs, int ldx, const float* hs, int ldh,
+                          const float* c_in, int ldc, const LstmWeights& w,
+                          float* s1, float* /*s2*/, int ld, int rows,
+                          float* h_out, int ldho, float* c_out, int ldco) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int H = w.H;
+  float acc[MAXR][4];
+  for (int q = tid; q < H; q += nt) {
+    const int col = 4 * q;
+    dot4<MAXR>(xs, ldx, rows, w.Wih, 4 * H, col, w.E, acc);
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r)
+      if (r < rows)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s1[r * ld + col + j] = acc[r][j] + w.bih[col + j];
+    dot4<MAXR>(hs, ldh, rows, w.Whh, 4 * H, col, H, acc);
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r)
+      if (r < rows)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s1[r * ld + col + j] = (s1[r * ld + col + j] + acc[r][j]) + w.bhh[col + j];
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * H; i += nt) {
+    const int r = i / H, j = i % H;
+    const float* z = s1 + r * ld + j;
+    const float i_t = sigmoid(z[0]), f_t = sigmoid(z[H]);
+    const float g_t = tanhf(z[2 * H]), o_t = sigmoid(z[3 * H]);
+    const float c_new = f_t * c_in[r * ldc + j] + i_t * g_t;
+    c_out[r * ldco + j] = c_new;
+    h_out[r * ldho + j] = o_t * tanhf(c_new);
+  }
+  __syncthreads();
+}
+
+// One cell step through the weight set's cell (overloads for the mega
+// kernel's template).
+template <int MAXR>
+__device__ __forceinline__ void cell_step(
+    const float* xs, int ldx, const float* hs, int ldh, const float* c_in,
+    int ldc, const CellWeights& w, float* s1, float* s2, int ld, int rows,
+    float* h_out, int ldho, float* c_out, int ldco) {
+  factored_cell<MAXR>(xs, ldx, hs, ldh, c_in, ldc, w, s1, s2, ld, rows, h_out,
+                      ldho, c_out, ldco);
+}
+template <int MAXR>
+__device__ __forceinline__ void cell_step(
+    const float* xs, int ldx, const float* hs, int ldh, const float* c_in,
+    int ldc, const LstmWeights& w, float* s1, float* s2, int ld, int rows,
+    float* h_out, int ldho, float* c_out, int ldco) {
+  lstm_cell<MAXR>(xs, ldx, hs, ldh, c_in, ldc, w, s1, s2, ld, rows, h_out,
+                  ldho, c_out, ldco);
 }
 
 // Logits of vocab columns col..col+3 for `rows` rows: h (shared, rows x ldh)

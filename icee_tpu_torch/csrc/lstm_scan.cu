@@ -16,13 +16,12 @@
 //   forward (a): v = x V + V_b, s_g = v_g S_g + S_b, u_g = s_g U_g + U_b for
 //     all N rows at once, as large tiled products (gemm_f32.cuh);
 //   forward (b): one launch per step, z = u_t + (h_{t-1} W + W_b) and the
-//     gates, each block owning 8 hidden units (all four gate columns) for
-//     32 rows, so the recurrence reads W once per block per step;
+//     gates (scan_step.cuh, shared with K4), each block owning 8 hidden
+//     units (all four gate columns) for 32 rows, so the recurrence reads W
+//     once per block per step;
 //   backward (c): one launch per reverse step, dh_carry = dz_{s+1} W^T and
-//     the gate derivatives, writing dZ (N, 4H) from the saved gates.
-//     The step products are latency-bound (a few hundred FMAs per thread
-//     between L2 reads), so they stage k tiles of 128 as float4 and each
-//     thread loads its share of the next tile while the block computes;
+//     the gate derivatives, writing dZ (N, 4H) from the saved gates
+//     (k tiles of 128 as float4, the next tile prefetched);
 //   backward (d): every weight grad and dx as large products over N, and
 //     the bias grads as fixed-order column sums.
 // The forward saves v, s and the gate activations, so the backward
@@ -30,201 +29,54 @@
 // step gives the same bits on every run.  CUDA-core fmaf only (no TF32), so
 // the port holds the JAX package's float32 numerics.
 #include "gemm_f32.cuh"
-
-#include <math.h>
+#include "scan_step.cuh"
 
 namespace icee {
 
-constexpr int SJ = 8;     // hidden units per step block
-constexpr int SR = 32;    // batch rows per step block
-constexpr int SK = 128;   // k tile of the step products
-constexpr int SKP = SK + 1;
-constexpr int S_THREADS = SJ * SR;
-constexpr int SQ = SK / 4;  // float4 quads per tile row
-
-__device__ __forceinline__ float sigm(float z) { return 1.f / (1.f + expf(-z)); }
-
-// Quad q of row `row` (k = k0 + 4 q) of a row-major matrix with K columns:
-// a float4 where `vec` (K % 4 == 0, aligned rows), else scalars; zeros
-// outside the matrix.
-__device__ __forceinline__ float4 load_quad(const float* __restrict__ rowp,
-                                            bool row_ok, int k, int K,
-                                            bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!row_ok || k >= K) return v;
-  if (vec) return *reinterpret_cast<const float4*>(rowp + k);
-  v.x = rowp[k];
-  if (k + 1 < K) v.y = rowp[k + 1];
-  if (k + 2 < K) v.z = rowp[k + 2];
-  if (k + 3 < K) v.w = rowp[k + 3];
-  return v;
-}
-
-__device__ __forceinline__ void put4(float* dst, float4 v) {
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-// Step t: zg rows (b, t) hold u on entry and the gates [i, f, o, g] on exit;
-// h_seq / c_seq (B, T, H) get h_t, c_t.  h_{t-1}, c_{t-1} are read from the
-// same sequences (zero at t = 0).  The product h_{t-1} W_w runs over k
-// tiles of SK, each thread holding its share of the next tile in registers
-// while the block computes on the current one.
-__global__ void __launch_bounds__(S_THREADS)
-fwd_step_kernel(const float* __restrict__ Ww, const float* __restrict__ Wb,
-                float* zg, float* h_seq, float* c_seq, int B, int T, int H,
-                int t, int vec) {
-  __shared__ float hs[SR][SKP];
-  __shared__ float ws[SK][4 * SJ];
-  const int tid = threadIdx.x, r = tid / SJ, jj = tid % SJ;
-  const int b0 = blockIdx.y * SR, j0 = blockIdx.x * SJ;
-  const int b = b0 + r, j = j0 + jj;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (t > 0) {
-    float4 rh[4], rw[4];
-    // 4 quads of the h tile (SR x SK) and 4 of the W tile (SK x 4 gates x
-    // SJ units, two quads per gate) per thread
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = tid + q * S_THREADS;
-        const int rr = i / SQ, kq = i % SQ, bb = b0 + rr;
-        rh[q] = load_quad(h_seq + ((long long)bb * T + t - 1) * H, bb < B,
-                          k0 + 4 * kq, H, vec);
-        const int kk = i / (2 * 4), c = i % (2 * 4);
-        const int g = c / 2, jq = j0 + 4 * (c % 2), k = k0 + kk;
-        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < H) {
-          const float* wp = Ww + (long long)k * 4 * H + g * H;
-          if (vec) {
-            if (jq < H) w = *reinterpret_cast<const float4*>(wp + jq);
-          } else {
-            if (jq < H) w.x = wp[jq];
-            if (jq + 1 < H) w.y = wp[jq + 1];
-            if (jq + 2 < H) w.z = wp[jq + 2];
-            if (jq + 3 < H) w.w = wp[jq + 3];
-          }
-        }
-        rw[q] = w;
-      }
-    };
-    load(0);
-    for (int k0 = 0; k0 < H; k0 += SK) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = tid + q * S_THREADS;
-        put4(&hs[i / SQ][4 * (i % SQ)], rh[q]);
-        const int kk = i / 8, c = i % 8;
-        put4(&ws[kk][(c / 2) * SJ + 4 * (c % 2)], rw[q]);
-      }
-      __syncthreads();
-      if (k0 + SK < H) load(k0 + SK);
-      const int kmax = min(SK, H - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float a = hs[r][kk];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[g] = fmaf(a, ws[kk][g * SJ + jj], acc[g]);
-      }
-      __syncthreads();
-    }
-  }
-  if (b < B && j < H) {
-    const long long row = (long long)b * T + t;
-    float* z = zg + row * 4 * H;
+// The factored cell's gates, [i, f, o, c]; z = u + (h W_w + W_b); h = o * c
+// with no tanh (reference quirk).  The formulas of _fwd_kernel and of
+// _bwd_kernel :132-144.
+struct FactoredGates {
+  static __device__ __forceinline__ void forward(float* z, const float* Wb,
+                                                 const float (&acc)[4], int H,
+                                                 int j, float c_prev,
+                                                 float& c_new, float& h_new) {
     float zz[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) zz[g] = z[g * H + j] + (acc[g] + Wb[g * H + j]);
     const float i_t = sigm(zz[0]), f_t = sigm(zz[1]);
     const float o_t = sigm(zz[2]), g_t = tanhf(zz[3]);
-    const float c_prev = t > 0 ? c_seq[(row - 1) * H + j] : 0.f;
-    const float c_new = f_t * c_prev + i_t * g_t;
+    c_new = f_t * c_prev + i_t * g_t;
     z[j] = i_t;
     z[H + j] = f_t;
     z[2 * H + j] = o_t;
     z[3 * H + j] = g_t;
-    c_seq[row * H + j] = c_new;
-    h_seq[row * H + j] = o_t * c_new;  // no tanh: reference quirk
+    h_new = o_t * c_new;  // no tanh: reference quirk
   }
-}
 
-// Reverse step s: dh_carry = dz_{s+1} W_w^T (zero at s = T - 1), then the
-// gate derivatives of _bwd_kernel :132-144; writes dZ rows (b, s) and the
-// carried dc.  dc_carry (B, H) is read and written by its owning thread.
-// Rows of dZ and W_w are 4H long, so every quad is a float4.
-__global__ void __launch_bounds__(S_THREADS)
-bwd_step_kernel(const float* __restrict__ Ww, const float* __restrict__ gates,
-                const float* __restrict__ c_seq,
-                const float* __restrict__ dh_seq, float* dZ, float* dc_carry,
-                int B, int T, int H, int s) {
-  __shared__ float ds[SR][SKP];
-  __shared__ float ws[SJ][SKP];
-  const int tid = threadIdx.x, r = tid / SJ, jj = tid % SJ;
-  const int b0 = blockIdx.y * SR, j0 = blockIdx.x * SJ;
-  const int b = b0 + r, j = j0 + jj;
-  const int H4 = 4 * H;
-  float acc = 0.f;
-  if (s < T - 1) {
-    float4 rd[4], rw;
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = tid + q * S_THREADS;
-        const int rr = i / SQ, kq = i % SQ, bb = b0 + rr;
-        rd[q] = load_quad(dZ + ((long long)bb * T + s + 1) * H4, bb < B,
-                          k0 + 4 * kq, H4, true);
-      }
-      const int rr = tid / SQ, kq = tid % SQ, jq = j0 + rr;
-      rw = load_quad(Ww + (long long)jq * H4, jq < H, k0 + 4 * kq, H4, true);
-    };
-    load(0);
-    for (int k0 = 0; k0 < H4; k0 += SK) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = tid + q * S_THREADS;
-        put4(&ds[i / SQ][4 * (i % SQ)], rd[q]);
-      }
-      put4(&ws[tid / SQ][4 * (tid % SQ)], rw);
-      __syncthreads();
-      if (k0 + SK < H4) load(k0 + SK);
-      const int kmax = min(SK, H4 - k0);
-      for (int kk = 0; kk < kmax; ++kk) acc = fmaf(ds[r][kk], ws[jj][kk], acc);
-      __syncthreads();
-    }
-  }
-  if (b < B && j < H) {
-    const long long row = (long long)b * T + s;
-    const float* gt = gates + row * H4;
+  static __device__ __forceinline__ float backward(const float* gt, float* dz,
+                                                   int H, int j, float c_new,
+                                                   float c_prev,
+                                                   float dh_total,
+                                                   float dc_in) {
     const float i_t = gt[j], f_t = gt[H + j], o_t = gt[2 * H + j];
     const float g_t = gt[3 * H + j];
-    const float c_new = c_seq[row * H + j];
-    const float c_prev = s > 0 ? c_seq[(row - 1) * H + j] : 0.f;
-    const float dc_in = s < T - 1 ? dc_carry[(long long)b * H + j] : 0.f;
-    const float dh_total = dh_seq[row * H + j] + acc;
     const float d_o = dh_total * c_new;
     const float dc_new = dh_total * o_t + dc_in;
     const float d_f = dc_new * c_prev;
     const float d_i = dc_new * g_t;
     const float d_g = dc_new * i_t;
-    dc_carry[(long long)b * H + j] = dc_new * f_t;
-    float* dz = dZ + row * H4;
     dz[j] = d_i * i_t * (1.f - i_t);
     dz[H + j] = d_f * f_t * (1.f - f_t);
     dz[2 * H + j] = d_o * o_t * (1.f - o_t);
     dz[3 * H + j] = d_g * (1.f - g_t * g_t);
+    return dc_new * f_t;
   }
-}
+};
 
 }  // namespace icee
 
 using namespace icee;
-
-#define ICEE_TRY(expr)                   \
-  do {                                   \
-    const cudaError_t e_ = (expr);       \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 extern "C" {
 
@@ -254,7 +106,7 @@ int icee_lstm_scan_fwd(const float* x, const float* Vw, const float* Vb,
   const dim3 grid((H + SJ - 1) / SJ, (B + SR - 1) / SR);
   const int vec = H % 4 == 0 && aligned16(h_seq) && aligned16(Ww);
   for (int t = 0; t < T; ++t) {
-    fwd_step_kernel<<<grid, S_THREADS, 0, st>>>(Ww, Wb, gates, h_seq, c_seq,
+    fwd_step_kernel<FactoredGates><<<grid, S_THREADS, 0, st>>>(Ww, Wb, gates, h_seq, c_seq,
                                                 B, T, H, t, vec);
     ICEE_TRY(cudaGetLastError());
   }
@@ -277,7 +129,7 @@ int icee_lstm_scan_bwd(const float* x, const float* Vw, const float* Sw,
   const int N = B * T, F4 = 4 * F, H4 = 4 * H;
   const dim3 grid((H + SJ - 1) / SJ, (B + SR - 1) / SR);
   for (int t = T - 1; t >= 0; --t) {
-    bwd_step_kernel<<<grid, S_THREADS, 0, st>>>(Ww, gates, c_seq, dh_seq, dZ,
+    bwd_step_kernel<FactoredGates><<<grid, S_THREADS, 0, st>>>(Ww, gates, c_seq, dh_seq, dZ,
                                                 dc, B, T, H, t);
     ICEE_TRY(cudaGetLastError());
   }

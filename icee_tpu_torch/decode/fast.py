@@ -1,5 +1,5 @@
-"""The FactoredLSTM beam decode paths (port of ``icee_tpu/decode/fast.py``'s
-``factored_candidates``).
+"""The beam decode paths (port of ``icee_tpu/decode/fast.py``'s
+``factored_candidates`` and ``nic_candidates``).
 
 The JAX package probes a chain of candidates (mega kernel -> per-step fused
 kernel -> XLA) and falls through on any exception.  Here the caller names
@@ -11,6 +11,10 @@ the path, and nothing falls back:
 
 Both are token-identical on the card (they share the kernels' device
 functions) and on the CPU (where both wrappers take their plain versions).
+
+The NIC decoder has one path, :func:`nic_decode`: K2 with ``cell="lstm"``.
+The JAX package's only other NIC candidate is the plain XLA beam, which
+here is K2's plain version (the CPU path).
 """
 
 from __future__ import annotations
@@ -67,3 +71,21 @@ def factored_decode(
             vocab_size=dec_params["C_w"].shape[1], batch=batch,
             first_input=feats, step_topk_fn=topk_step)
     raise ValueError(f"unknown decode path {path!r}; choose one of {PATHS}")
+
+
+def nic_decode(
+    dec_params: dict,
+    feats: Optional[torch.Tensor],
+    batch: int,
+    k: int,
+    max_seq_length: int,
+    start_token: int,
+    end_token: int,
+) -> BeamResult:
+    """Beam-decode ``batch`` images with the NIC decoder in one K2 launch
+    (``cell="lstm"``); ``feats`` as in :func:`factored_decode`."""
+    from icee_tpu_torch.ops.beam import mega_beam_decode
+
+    return mega_beam_decode(
+        dec_params, feats, 0, batch, start_token=start_token,
+        end_token=end_token, k=k, max_seq_length=max_seq_length, cell="lstm")

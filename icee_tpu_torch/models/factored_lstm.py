@@ -90,11 +90,19 @@ def _prep_forward(params, cfg, captions, features, teacher_forcing_ratio,
     the feature prepended and dropout applied to the embeddings only, the
     per-step coins as a host list or None on the teacher-forced path, the
     zero initial state)."""
+    return prepare_inputs(embed(params, captions), cfg, captions, features,
+                          teacher_forcing_ratio, generator, train, keep,
+                          coins)
+
+
+def prepare_inputs(emb, cfg, captions, features, teacher_forcing_ratio,
+                   generator, train, keep, coins):
+    """The prologue of :func:`_prep_forward` from the caption embeddings
+    ``emb`` (B, T, E); the NIC decoder (``models/lstm.py``) shares it."""
     b, t = captions.shape
     device = captions.device
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    emb = embed(params, captions)                            # (B, T, E)
     if train and cfg.dropout > 0.0:
         if keep is None:
             keep = torch.rand(tuple(emb.shape), generator=generator,
@@ -118,15 +126,27 @@ def _prep_forward(params, cfg, captions, features, teacher_forcing_ratio,
 
 def _scheduled(params, teacher_inputs, coins: List[bool], state, prev,
                style: int, head_grad: bool):
+    """The scheduled-sampling loop of the factored cell; see
+    :func:`scheduled_loop`."""
+    return scheduled_loop(
+        lambda x, h, c: factored_lstm_cell(params, x, h, c, style),
+        lambda t: embed(params, t), lambda h: output_logits(params, h),
+        teacher_inputs, coins, state, prev, head_grad)
+
+
+def scheduled_loop(cell_fn, embed_fn, logits_fn, teacher_inputs,
+                   coins: List[bool], state, prev, head_grad: bool):
     """The scheduled-sampling loop: on a free step the input is the
     UN-dropped embedding of the previous argmax (``model.py:180-191``).
-    -> (hiddens (B, T, H), logits (B, T, V) or None)."""
+    With ``head_grad`` False the head sees the detached hidden state (it
+    only picks the argmax).  -> (hiddens (B, T, H), logits (B, T, V) or
+    None)."""
     h, c = state
     hs, logits_all = [], []
     for step, coin in enumerate(coins):
-        x = teacher_inputs[:, step] if coin else embed(params, prev)
-        h, c = factored_lstm_cell(params, x, h, c, style)
-        logits = output_logits(params, h if head_grad else h.detach())
+        x = teacher_inputs[:, step] if coin else embed_fn(prev)
+        h, c = cell_fn(x, h, c)
+        logits = logits_fn(h if head_grad else h.detach())
         prev = torch.argmax(logits, dim=-1)                  # first maximum
         hs.append(h)
         if head_grad:

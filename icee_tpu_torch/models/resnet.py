@@ -2,9 +2,10 @@
 of ``icee_tpu/models/resnet.py``).
 
 The reference uses torchvision's ``resnet152`` minus the fc layer, frozen
-(``stylenet/model.py:15-24``).  No pretrained weights exist offline, so the
-backbone is random He-normal init (torchvision's default) or weights moved
-across from the JAX package by :mod:`icee_tpu_torch.bridge`.
+(``stylenet/model.py:15-24``).  The backbone is random He-normal init
+(torchvision's default), weights moved across from the JAX package by
+:mod:`icee_tpu_torch.bridge`, or a torchvision ``state_dict`` (``.pth`` or
+``.npz``) through :func:`load_resnet_params`.
 
 Layouts: every public function takes HWIO conv weights and NHWC images, as in
 the JAX package.  :class:`Backbone` converts the conv weights to OIHW once, at
@@ -17,7 +18,9 @@ statistics (eval).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -213,3 +216,60 @@ def init_params(generator: torch.Generator, dtype=torch.float32,
             in_c = out_c
         params[f"layer{li + 1}"] = blocks
     return params
+
+
+# --- torch checkpoints ------------------------------------------------------
+
+def import_torch_state_dict(state_dict, dtype=torch.float32) -> dict:
+    """torchvision ``resnet152().state_dict()`` -> the HWIO parameter tree
+    (CPU tensors).  Conv weights transpose OIHW -> HWIO; BatchNorm tensors
+    copy through.  Takes tensors or numpy arrays."""
+
+    def arr(name):
+        t = state_dict[name]
+        a = t.detach().cpu().numpy() if hasattr(t, "detach") else t
+        return torch.from_numpy(np.array(a, copy=True)).to(dtype)
+
+    def conv_w(name):
+        return arr(name).permute(2, 3, 1, 0).contiguous()
+
+    def bn(prefix):
+        return {k: arr(f"{prefix}.{k}")
+                for k in ("weight", "bias", "running_mean", "running_var")}
+
+    params = {"conv1": conv_w("conv1.weight"), "bn1": bn("bn1")}
+    for li, nblocks in enumerate(LAYERS_152):
+        blocks = []
+        for bi in range(nblocks):
+            pre = f"layer{li + 1}.{bi}"
+            p = {
+                "conv1": conv_w(f"{pre}.conv1.weight"),
+                "bn1": bn(f"{pre}.bn1"),
+                "conv2": conv_w(f"{pre}.conv2.weight"),
+                "bn2": bn(f"{pre}.bn2"),
+                "conv3": conv_w(f"{pre}.conv3.weight"),
+                "bn3": bn(f"{pre}.bn3"),
+            }
+            if f"{pre}.downsample.0.weight" in state_dict:
+                p["downsample_conv"] = conv_w(f"{pre}.downsample.0.weight")
+                p["downsample_bn"] = bn(f"{pre}.downsample.1")
+            blocks.append(p)
+        params[f"layer{li + 1}"] = blocks
+    return params
+
+
+def load_resnet_params(path: Optional[str]) -> dict:
+    """Backbone weights (CPU, HWIO) from a torch ``.pth`` or an ``.npz`` of
+    the same names, or random init (seed 0) for ``None``; the port of the
+    loader in ``icee_tpu/cli/common.py::load_resnet_params``.  A ``resnet.``
+    wrapper prefix (``EncoderCNN`` pickles) is stripped."""
+    if path is None:
+        return init_params(torch.Generator().manual_seed(0))
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return import_torch_state_dict(dict(f))
+    sd = torch.load(path, map_location="cpu")
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    sd = {k.removeprefix("resnet."): v for k, v in sd.items()}
+    return import_torch_state_dict(sd)

@@ -4,10 +4,12 @@ of ``icee_tpu/serve/batching.py``).
 :class:`BatchingEngine` wraps :class:`~icee_tpu_torch.serve.engine.
 CaptionEngine` with the same ``caption(image_path, mode)`` contract.
 Concurrent callers enqueue; a collector thread drains the queue for
-``window_ms`` or until ``max_batch``, groups requests by mode, and decodes
-each group's stylenet beams with ONE launch of the mega kernel (K2).  Groups
-are padded to the next power of two with copies of the first feature, as in
-the JAX engine.  Captions equal the serial engine's (fused-step path, K1).
+``window_ms`` or until ``max_batch``, groups requests by mode, runs ONE
+backbone pass per image, and decodes each loaded variant's beams for the
+group with ONE launch of the mega kernel K2 (``cell="factored"`` for
+stylenet, ``cell="lstm"`` for nic).  Groups are padded to the next power of
+two with copies of the first feature, as in the JAX engine.  Captions equal
+the serial engine's.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from icee_tpu_torch.core.config import MODES
 from icee_tpu_torch.serve.config import MODEL_VARIANTS
-from icee_tpu_torch.serve.engine import VARIANT
+from icee_tpu_torch.serve.engine import VARIANTS
 
 
 class _Pending:
@@ -92,19 +94,21 @@ class BatchingEngine:
         self.group_sizes.append(len(items))
         eng = self.engine
         results = [{variant: "-" for variant in MODEL_VARIANTS} for _ in items]
-        if mode in eng.models.get(VARIANT, {}):
+        loaded = [v for v in VARIANTS if mode in eng.models.get(v, {})]
+        pooled = [eng._features(item.image_path) for item in items] \
+            if loaded else []
+        n = len(items)
+        n_pad = _next_pow2(n)
+        for variant in loaded:
             # the head runs per image, as in the serial path: a GEMM library
             # may pick another summation order for another row count, and
             # the captions must not depend on the group's size
-            feats = torch.cat([eng.encode(item.image_path, mode)
-                               for item in items])
-            n = len(items)
-            n_pad = _next_pow2(n)
+            feats = torch.cat([eng.head(p, mode, variant) for p in pooled])
             if n_pad != n:
                 feats = torch.cat([feats] + [feats[:1]] * (n_pad - n))
-            res = eng.decode(feats, mode, "mega")
+            res = eng.decode(feats, mode, "mega", variant)
             for i, r in enumerate(results):
-                r[VARIANT] = eng._detok(res.tokens[i], res.length[i])
+                r[variant] = eng._detok(res.tokens[i], res.length[i])
         for item, r in zip(items, results):
             item.result = r
             item.event.set()

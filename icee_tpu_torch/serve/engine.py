@@ -1,27 +1,34 @@
 """Caption serving engine (port of ``icee_tpu/serve/engine.py``), StyleNet
-variant.
+and NIC variants.
 
 Every pipeline is built once at startup; a request runs image decode (host)
--> ResNet-152 -> encoder head -> beam decode on the device, with no model IO
-(the reference unpickles whole modules per request,
-``app/backend/sample.py:52-97``).  Beam semantics are the serving copy's:
-the image feature is the step-1 input (``app/backend/model.py:414-417``).
+-> ONE ResNet-152 pass -> each loaded variant's encoder head -> its beam
+decode on the device, with no model IO (the reference unpickles whole
+modules per request, ``app/backend/sample.py:52-97``).  Beam semantics are
+the serving copy's: the image feature is the step-1 input
+(``app/backend/model.py:414-417``).
 
-This slice serves the ``stylenet`` variant; ``nic``, ``nic_att`` and
+This port serves the ``stylenet`` and ``nic`` variants; ``nic_att`` and
 ``stylenet_att`` answer ``"-"``, as the JAX engine does for a variant it has
-not loaded.  Weights are random (``smoke_mode``, seeded) or passed in as
-``params``; loading checkpoints comes with a later slice.
+not loaded.  Weights are random (``smoke_mode``, seeded per variant as in
+the JAX engine), passed in as ``params``, or reference torch checkpoints
+(``.pth`` / ``.tar`` / ``.ckpt``: state dicts or full-module pickles, read
+without the reference's classes).  The JAX package's own orbax checkpoints
+and the attention variants' checkpoints raise: they come with slices 3 and
+5 of the port.
 
-The serial :meth:`CaptionEngine.caption` decodes through the ``"fused-step"``
-path (kernel K1); :class:`~icee_tpu_torch.serve.batching.BatchingEngine`
-decodes groups through ``"mega"`` (kernel K2).  Both give the same captions.
+The serial :meth:`CaptionEngine.caption` decodes StyleNet through the
+``"fused-step"`` path (kernel K1) and NIC through one K2 launch
+(``cell="lstm"``) for its one image;
+:class:`~icee_tpu_torch.serve.batching.BatchingEngine` decodes each mode
+group with one K2 launch per variant.  Both give the same captions.
 """
 
 from __future__ import annotations
 
 import os
 import zlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,15 +37,24 @@ from icee_tpu_torch.core.config import (MODES, DecoderConfig, EncoderConfig,
                                         mode_id)
 from icee_tpu_torch.core.device import resolve_device
 from icee_tpu_torch.decode.beam import BeamResult
-from icee_tpu_torch.decode.fast import factored_decode
+from icee_tpu_torch.decode.fast import factored_decode, nic_decode
 from icee_tpu_torch.serve.config import MODEL_VARIANTS, ServeConfig
 
-VARIANT = "stylenet"
+VARIANTS = ("nic", "stylenet")  # the variants this port serves
 BEAM_K = 5  # beam width of the serving decode, as in the JAX engine
+TORCH_CKPT = (".pth", ".tar", ".ckpt")
 
 
 def _generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 class CaptionEngine:
@@ -46,14 +62,15 @@ class CaptionEngine:
                  image_size: int = 224, dec_cfg: Optional[DecoderConfig] = None,
                  enc_cfg: Optional[EncoderConfig] = None, device="cuda",
                  params: Optional[dict] = None):
-        """``smoke_mode``: random seeded weights when no checkpoints are
-        configured.  ``params``: ``{"backbone", "decoder", "head"}`` trees in
-        the JAX layout (e.g. from :mod:`icee_tpu_torch.bridge`), used for all
-        four modes.  The ``*_cfg`` overrides are for tests and small
+        """``smoke_mode``: random seeded weights for each variant with no
+        checkpoints configured.  ``params``: ``{"backbone": tree,
+        "stylenet": {"decoder", "head"}, "nic": {"decoder", "head"}}`` in
+        the JAX layout (e.g. from :mod:`icee_tpu_torch.bridge`), any variant
+        may be left out; a variant's trees serve all four modes.  A
+        variant's configured checkpoints take precedence over its
+        ``params``.  The ``*_cfg`` overrides are for tests and small
         deployments; the defaults are the flagship sizes."""
         from icee_tpu_torch.data.vocab import SPECIALS, Vocabulary, load_vocab
-        from icee_tpu_torch.models import encoder as enc_mod
-        from icee_tpu_torch.models import factored_lstm as fl
         from icee_tpu_torch.models import resnet
 
         self.config = config
@@ -72,36 +89,111 @@ class CaptionEngine:
 
         self.dec_cfg = dec_cfg or DecoderConfig(vocab_size=len(self.vocab))
         self.enc_cfg = enc_cfg or EncoderConfig()
-        if config.resnet_weights or any(
-                config.checkpoint_paths.get(VARIANT, {}).values()):
-            raise NotImplementedError(
-                "loading checkpoints is not ported yet: serve with "
-                "smoke_mode or pass params")
+        for variant in MODEL_VARIANTS:
+            if variant not in VARIANTS and any(
+                    config.checkpoint_paths.get(variant, {}).values()):
+                raise NotImplementedError(
+                    f"{variant} checkpoints: the attention variants come "
+                    "with slice 5 of the port")
+        params = params or {}
+        backbone = params.get("backbone")
+        if backbone is None:
+            backbone = resnet.load_resnet_params(config.resnet_weights)
+        # conv weights HWIO -> OIHW once, at load, for cuDNN
+        self.backbone = resnet.Backbone(_to(backbone, self.device))
+        self.models: Dict[str, Dict[str, Dict[str, dict]]] = {}
+        for variant in VARIANTS:
+            modes = self._load_variant(variant, params.get(variant),
+                                       smoke_mode)
+            if modes:
+                self.models[variant] = modes
 
-        self.models: Dict[str, Dict[str, dict]] = {}
-        self.backbone = None
-        if params is None and smoke_mode:
-            seed = zlib.crc32(VARIANT.encode())
-            params = {
-                "backbone": resnet.init_params(_generator(0),
-                                               device=self.device),
-                "decoder": fl.init_params(_generator(seed % (2**31)),
-                                          self.dec_cfg, device=self.device),
-                "head": enc_mod.init_head_params(
-                    _generator(seed % 1000 + 1), self.enc_cfg,
-                    device=self.device),
-            }
-        if params is not None:
-            # conv weights HWIO -> OIHW once, at load, for cuDNN
-            self.backbone = resnet.Backbone(params["backbone"])
-            pipeline = {"decoder": params["decoder"], "head": params["head"]}
-            self.models[VARIANT] = {mode: pipeline for mode in MODES}
+    # -- model loading ----------------------------------------------------
+
+    def _template(self, variant: str) -> Tuple[dict, dict]:
+        """The variant's random seeded (decoder, head), as the JAX engine
+        seeds them: ``crc32(variant)``."""
+        from icee_tpu_torch.models import encoder as enc_mod
+        from icee_tpu_torch.models import factored_lstm as fl
+        from icee_tpu_torch.models import lstm as nic
+
+        seed = zlib.crc32(variant.encode())
+        init = fl.init_params if variant == "stylenet" else nic.init_params
+        dec = init(_generator(seed % (2**31)), self.dec_cfg,
+                   device=self.device)
+        head = enc_mod.init_head_params(_generator(seed % 1000 + 1),
+                                        self.enc_cfg, device=self.device)
+        return dec, head
+
+    def _load_variant(self, variant: str, given: Optional[dict],
+                      smoke_mode: bool) -> Dict[str, Dict[str, dict]]:
+        """One (decoder, head) pipeline per mode, like the reference's
+        16-entry registry (``app/backend/config.py:13-38``); a checkpoint
+        path shared by several modes is loaded once."""
+        paths = self.config.checkpoint_paths.get(variant, {})
+        if not any(paths.values()):
+            if given is not None:
+                pipeline = _to({"decoder": given["decoder"],
+                                "head": given["head"]}, self.device)
+            elif smoke_mode:
+                dec, head = self._template(variant)
+                pipeline = {"decoder": dec, "head": head}
+            else:
+                return {}
+            return {mode: pipeline for mode in MODES}
+        template = self._template(variant)
+        by_path, modes = {}, {}
+        for mode in MODES:
+            path = paths.get(mode)
+            if path and os.path.exists(path):
+                if path not in by_path:
+                    by_path[path] = self._restore(variant, path, template[1])
+                dec, head = by_path[path]
+            elif smoke_mode:
+                dec, head = template
+            else:
+                continue
+            modes[mode] = {"decoder": dec, "head": head}
+        return modes
+
+    def _restore(self, variant: str, path: str,
+                 head_template: dict) -> Tuple[dict, dict]:
+        """A reference torch checkpoint -> (decoder, head) on the device: a
+        decoder state dict (the head is then the variant's template), or a
+        full-module pickle ``{"decoder", "encoder", ...}`` loaded with the
+        stub unpickler, so the reference's classes are not needed."""
+        from icee_tpu_torch.checkpoint import torch_import as ti
+        from icee_tpu_torch.checkpoint.torch_pickle import (load_torch_pickle,
+                                                            module_state_dict)
+
+        if not path.endswith(TORCH_CKPT):
+            raise NotImplementedError(
+                f"{path}: the JAX package's orbax checkpoints come with "
+                "slice 3 of the port; serve reference torch checkpoints "
+                f"({', '.join(TORCH_CKPT)})")
+        sd = load_torch_pickle(path)
+        if isinstance(sd, dict) and "decoder" in sd:  # full ckpt pickle
+            dec_sd = module_state_dict(sd["decoder"])
+            enc_sd = module_state_dict(sd["encoder"])
+        else:
+            dec_sd, enc_sd = sd, None
+        if variant == "stylenet":
+            dec = ti.import_factored_decoder_state_dict(dec_sd)
+        else:
+            dec = ti.import_nic_decoder_state_dict(dec_sd)
+        head = head_template
+        if enc_sd is not None:
+            head = _to(ti.import_encoder_head_state_dict(
+                {k: v for k, v in enc_sd.items()
+                 if not k.startswith("resnet.")}), self.device)
+        return _to(dec, self.device), head
 
     # -- inference --------------------------------------------------------
 
     @torch.inference_mode()
     def _features(self, image_path: str) -> torch.Tensor:
-        """One ResNet-152 pass -> pooled (1, 2048) features."""
+        """One ResNet-152 pass -> pooled (1, 2048) features, shared by every
+        variant's head."""
         from icee_tpu_torch.data.transforms import host_decode_resize, normalize
 
         img = host_decode_resize(image_path, self.image_size)
@@ -109,23 +201,34 @@ class CaptionEngine:
         return self.backbone(x)
 
     @torch.inference_mode()
-    def encode(self, image_path: str, mode: str) -> torch.Tensor:
-        """Image -> (1, E) step-1 feature of the mode's pipeline."""
+    def head(self, pooled: torch.Tensor, mode: str,
+             variant: str = "stylenet") -> torch.Tensor:
+        """Pooled (1, 2048) features -> (1, E) step-1 feature of the
+        variant's pipeline for ``mode``."""
         from icee_tpu_torch.models import encoder as enc_mod
 
-        head = self.models[VARIANT][mode]["head"]
-        return enc_mod.encode_global_from_pooled(head,
-                                                 self._features(image_path))
+        return enc_mod.encode_global_from_pooled(
+            self.models[variant][mode]["head"], pooled)
+
+    def encode(self, image_path: str, mode: str,
+               variant: str = "stylenet") -> torch.Tensor:
+        """Image -> (1, E) step-1 feature (one backbone pass + the head)."""
+        return self.head(self._features(image_path), mode, variant)
 
     @torch.inference_mode()
-    def decode(self, feats: torch.Tensor, mode: str, path: str) -> BeamResult:
-        """(n, E) features -> beam results for ``n`` images via ``path``."""
+    def decode(self, feats: torch.Tensor, mode: str, path: str = "mega",
+               variant: str = "stylenet") -> BeamResult:
+        """(n, E) features -> beam results for ``n`` images.  StyleNet
+        decodes via ``path`` (``"mega"`` or ``"fused-step"``); NIC has the
+        one path, K2 with the LSTM cell."""
         n = feats.shape[0]
         tiled = feats[:, None, :].expand(n, BEAM_K, feats.shape[1]).contiguous()
-        return factored_decode(
-            path, self.models[VARIANT][mode]["decoder"], tiled, mode_id(mode),
-            n, BEAM_K, self.dec_cfg.max_seq_length, self.vocab.start,
-            self.vocab.end)
+        dec = self.models[variant][mode]["decoder"]
+        common = (n, BEAM_K, self.dec_cfg.max_seq_length, self.vocab.start,
+                  self.vocab.end)
+        if variant == "nic":
+            return nic_decode(dec, tiled, *common)
+        return factored_decode(path, dec, tiled, mode_id(mode), *common)
 
     def _detok(self, tokens, length) -> str:
         """id seq -> caption: strip <start>/<end>, drop trailing <unk>
@@ -137,12 +240,16 @@ class CaptionEngine:
         return " ".join(words)
 
     def caption(self, image_path: str, mode: str) -> Dict[str, str]:
-        """Every variant's caption of one image (``run.py:42-57``); the
-        stylenet beam runs the fused-step path."""
+        """Every variant's caption of one image (``run.py:42-57``), from one
+        backbone pass; the stylenet beam runs the fused-step path."""
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode}")
         out = {variant: "-" for variant in MODEL_VARIANTS}
-        if mode in self.models.get(VARIANT, {}):
-            res = self.decode(self.encode(image_path, mode), mode, "fused-step")
-            out[VARIANT] = self._detok(res.tokens[0], res.length[0])
+        loaded = [v for v in VARIANTS if mode in self.models.get(v, {})]
+        if loaded:
+            pooled = self._features(image_path)
+            for variant in loaded:
+                res = self.decode(self.head(pooled, mode, variant), mode,
+                                  "fused-step", variant)
+                out[variant] = self._detok(res.tokens[0], res.length[0])
         return out

@@ -1,5 +1,6 @@
-"""Training and validation steps of the StyleNet captioner (port of
-``icee_tpu/train/steps.py::make_caption_steps``, factored decoder).
+"""Training and validation steps of the global-feature captioners, StyleNet
+(factored decoder) and NIC (port of
+``icee_tpu/train/steps.py::make_caption_steps``).
 
 One step: encoder head on cached pooled features (BatchNorm in training
 mode), the decoder's training forward, the masked token-mean CE, the
@@ -8,9 +9,11 @@ gradient, then clamp + Adam.  Targets are the un-shifted caption at step t
 normalized by the valid-token count like the packed ``CrossEntropyLoss``.
 
 On CUDA (``fused_scan`` / ``chunked_ce`` left None) the teacher-forced
-decoder runs the K3 kernels (``ops/lstm_scan.py``) and the loss the chunked
-CE kernels (``ops/chunked_loss.py``); setting either False runs the plain
-PyTorch form on the same device.
+decoder runs the K3 kernels (``ops/lstm_scan.py``) for StyleNet or the K4
+kernels (``ops/nic_scan.py``) for NIC, and the loss the chunked CE kernels
+(``ops/chunked_loss.py``); setting either False runs the plain PyTorch form
+on the same device.  NIC has no style weights: its steps ignore ``style``,
+and the emotion track trains the whole decoder, as in the JAX package.
 
 Unlike the JAX steps, these update the parameter tensors IN PLACE (and the
 head's BatchNorm running statistics) and also return them.  Randomness
@@ -30,6 +33,7 @@ from icee_tpu_torch.evaluation.metrics import (masked_cross_entropy,
                                                masked_top_k_accuracy)
 from icee_tpu_torch.models import encoder as enc_mod
 from icee_tpu_torch.models import factored_lstm as fl
+from icee_tpu_torch.models import lstm as nic
 from icee_tpu_torch.ops.chunked_loss import masked_ce_from_hiddens
 from icee_tpu_torch.train.optim import Adam, AdamState, tree_leaves
 
@@ -78,8 +82,9 @@ class CaptionSteps:
 
     def __init__(self, cfg: DecoderConfig, tcfg: TrainConfig,
                  optimizer: Adam, lang_optimizer: Adam,
-                 device: torch.device):
+                 device: torch.device, factored: bool = True):
         self.cfg, self.tcfg, self.device = cfg, tcfg, device
+        self.factored = factored
         self.optimizer, self.lang_optimizer = optimizer, lang_optimizer
         on_card = device.type == "cuda"
         self.use_fused = on_card if tcfg.fused_scan is None else tcfg.fused_scan
@@ -96,6 +101,19 @@ class CaptionSteps:
                 raise ValueError(f"step built for {self.device} was given "
                                  f"a tensor on {x.device}")
 
+    def _forward(self, d, captions, feats, style, hiddens=False, **kw):
+        """The decoder's training forward -> logits, or hidden states with
+        ``hiddens``; NIC ignores ``style``."""
+        if self.factored:
+            fn = fl.forward_hiddens if hiddens else fl.forward
+            return fn(d, self.cfg, captions, feats, style, **kw)
+        fn = nic.forward_hiddens if hiddens else nic.forward
+        return fn(d, self.cfg, captions, feats, **kw)
+
+    def _head(self, d):
+        return ((d["C_w"], d["C_b"]) if self.factored
+                else (d["linear_w"], d["linear_b"]))
+
     def _train_loss(self, d, h, pooled, captions, lengths, sample_mask,
                     style, generator, keep, coins):
         """Masked token-mean CE of the training forward -> (loss, head
@@ -106,12 +124,12 @@ class CaptionSteps:
                   generator=generator, train=True, fused_scan=self.use_fused,
                   keep=keep, coins=coins)
         if not self.use_chunked:
-            logits = fl.forward(d, self.cfg, captions, feats, style, **kw)
+            logits = self._forward(d, captions, feats, style, **kw)
             return masked_cross_entropy(logits, captions, lengths,
                                         sample_mask), new_head
-        hiddens = fl.forward_hiddens(d, self.cfg, captions, feats, style,
-                                     **kw)
-        return masked_ce_from_hiddens(hiddens, d["C_w"], d["C_b"], captions,
+        hiddens = self._forward(d, captions, feats, style, hiddens=True,
+                                **kw)
+        return masked_ce_from_hiddens(hiddens, *self._head(d), captions,
                                       lengths, sample_mask), new_head
 
     def factual_grads(self, dec, head, pooled, captions, lengths,
@@ -171,8 +189,8 @@ class CaptionSteps:
         (``train_multitask.py:272-299``) -> (loss, top-5 %, argmax preds)."""
         self._check_device(dec, head, pooled, captions, lengths, sample_mask)
         feats = enc_mod.encode_global_from_pooled(head, pooled)
-        logits = fl.forward(dec, self.cfg, captions, feats, int(style),
-                            teacher_forcing_ratio=0.0, train=False)
+        logits = self._forward(dec, captions, feats, int(style),
+                               teacher_forcing_ratio=0.0, train=False)
         loss = masked_cross_entropy(logits, captions, lengths, sample_mask)
         top5 = masked_top_k_accuracy(logits, captions, lengths, 5,
                                      sample_mask)
@@ -183,16 +201,15 @@ def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
                        optimizer: Adam, lang_optimizer: Adam,
                        factored: bool = True,
                        device="cuda") -> CaptionSteps:
-    """Steps for the StyleNet captioner over cached pooled features.
+    """Steps for the StyleNet (``factored``) or NIC captioner over cached
+    pooled features.
 
     ``optimizer`` covers (decoder, encoder head), the factual track;
     ``lang_optimizer`` covers the decoder only, the emotion track
     (``train_multitask.py:163-167``).  ``device`` is CUDA unless the caller
     asks for the CPU; a step given tensors elsewhere raises.
     """
-    if not factored:
-        raise NotImplementedError("NIC (factored=False) is not ported yet")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer, dev)
+    return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer, dev, factored)

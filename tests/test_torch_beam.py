@@ -4,6 +4,9 @@ fused-step path (``beam_search_batched`` + K1's plain version) vs the JAX
 ``mega_beam_decode`` kernel in interpret mode, mirroring
 ``tests/test_pallas_beam.py``.
 
+The same for K2's ``cell="lstm"`` mode (the NIC decoder), whose port path
+is ``decode/fast.py::nic_decode``.
+
 Tokens and lengths exact; scores to atol 1e-4 (float32 sums in different
 orders over up to 9 steps).  The CUDA kernels run only on the card, where
 ``chip_smoke.py`` holds them against these plain versions.
@@ -18,9 +21,10 @@ import torch
 from icee_tpu.core.config import DecoderConfig
 from icee_tpu.decode.beam import beam_search_batched as jbeam_batched
 from icee_tpu.models import factored_lstm as jfl
+from icee_tpu.models import lstm as jnic
 from icee_tpu.ops.pallas_beam import mega_beam_decode as jmega
 from icee_tpu_torch import bridge
-from icee_tpu_torch.decode.fast import PATHS, factored_decode
+from icee_tpu_torch.decode.fast import PATHS, factored_decode, nic_decode
 from icee_tpu_torch.ops.beam import mega_beam_decode
 
 torch.set_num_threads(2)
@@ -155,3 +159,72 @@ def test_unknown_path_and_bad_block_raise():
         factored_decode("xla", jp, feats, 0, 2, 5, 4, 1, 2)
     with pytest.raises(ValueError):   # 9 beams do not fit an 8-row block
         mega_beam_decode(jp, torch.zeros((2, 9, 32)), 0, 2, k=9)
+
+
+# --- cell="lstm": the NIC decoder ---------------------------------------------
+
+def _nic_params(vocab=256, e=24, h=32, seed=2, end_bias=3.0):
+    """Random NIC weights made with numpy, sharp enough that beams end at
+    varied lengths in serving mode."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.3):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    p = {"embed": w(vocab, e),
+         "cell": {"W_ih": w(e, 4 * h), "W_hh": w(h, 4 * h),
+                  "b_ih": w(4 * h, scale=0.1), "b_hh": w(4 * h, scale=0.1)},
+         "linear_w": w(h, vocab, scale=2.0), "linear_b": w(vocab, scale=0.1)}
+    p["linear_b"][2] = end_bias
+    return p
+
+
+def _nic_port(jp, feats, batch, k, steps):
+    """nic_decode and the K2 wrapper called directly agree exactly."""
+    tp = bridge.to_torch(jp)
+    ft = None if feats is None else torch.tensor(feats)
+    got = nic_decode(tp, ft, batch, k, steps, 1, 2)
+    direct = mega_beam_decode(tp, ft, 0, batch, k=k, max_seq_length=steps,
+                              cell="lstm")
+    for a, b in zip(got, direct):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    return got
+
+
+def _jax_nic_beam(jp, feats, batch, k, steps):
+    zeros = jnp.zeros((batch * k, jp["cell"]["W_hh"].shape[0]), jnp.float32)
+    return jbeam_batched(
+        embed_fn=lambda t: jnic.embed(jp, t),
+        step_fn=lambda x, s: jnic.decode_step(jp, x, s),
+        init_model_state=(zeros, zeros), start_token=1, end_token=2, k=k,
+        max_seq_length=steps, vocab_size=jp["linear_w"].shape[1],
+        batch=batch, first_input=None if feats is None else jnp.asarray(feats))
+
+
+@pytest.mark.parametrize("feed", [True, False])
+def test_lstm_cell_matches_jax_mega_and_beam(feed):
+    """Both feature modes; 5 images in blocks of 2 pad the last block."""
+    jp = _nic_params()
+    batch, k, steps = 5, 3, 8
+    feats = _feats(batch, k, 24, seed=4) if feed else None
+    want = jmega(jp, None if feats is None else jnp.asarray(feats),
+                 jnp.asarray(0), batch, start_token=1, end_token=2, k=k,
+                 max_seq_length=steps, n_img_block=2, v_tile=128,
+                 feed_feature=feed, cell="lstm", interpret=True)
+    got = _nic_port(jp, feats, batch, k, steps)
+    _assert_same(got, want)
+    _assert_same(got, _jax_nic_beam(jp, feats, batch, k, steps))
+    if feed:
+        assert len(set(got.length.tolist())) > 2, "lengths alike prove little"
+
+
+def test_lstm_cell_early_termination():
+    jp = _nic_params(seed=3, end_bias=60.0)
+    batch, k, steps = 4, 3, 8
+    feats = _feats(batch, k, 24, seed=5)
+    want = jmega(jp, jnp.asarray(feats), jnp.asarray(0), batch, k=k,
+                 max_seq_length=steps, n_img_block=4, v_tile=128,
+                 cell="lstm", interpret=True)
+    got = _nic_port(jp, feats, batch, k, steps)
+    _assert_same(got, want)
+    assert np.all(got.length.numpy() == 2)  # <start> <end>

@@ -6,7 +6,10 @@ padding, research mode, early termination and all-tied logits.  K3 (the
 training scan): B = 3, T = 1, E % 4 != 0, F != H, a style other than 0 with
 zero grads on the other slices, and the same bits on a second run.  The
 chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
-clamp, and the whole loss on the card against the CPU.
+clamp, and the whole loss on the card against the CPU.  K4 (the NIC
+training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
+grad, and the same bits on a second run.  K2 with the LSTM cell: both
+feature modes, batch padding and an early end.
 
 These tests need an NVIDIA GPU and skip elsewhere (marker ``cuda``).  On a
 host with the card, and without JAX, run them as
@@ -26,7 +29,7 @@ import torch
 
 from icee_tpu_torch import bridge
 from icee_tpu_torch.decode.fast import factored_decode
-from icee_tpu_torch.ops import chunked_loss, lstm_scan
+from icee_tpu_torch.ops import chunked_loss, lstm_scan, nic_scan
 from icee_tpu_torch.ops.beam import mega_beam_decode, mega_beam_decode_plain
 from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                             decode_step_topk_plain)
@@ -281,3 +284,110 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="expected"):
         chunked_loss.ce_rows(logits, torch.zeros(4, dtype=torch.long),
                              torch.ones(4, device=device))
+
+
+# --- NIC kernels: K4 (nic_scan.cu) and K2 with the LSTM cell (beam.cu) -------
+
+def _nic_params(device, vocab, e, h, seed=0, end_bias=1.0):
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.3):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    p = {"embed": w(vocab, e),
+         "cell": {"W_ih": w(e, 4 * h), "W_hh": w(h, 4 * h),
+                  "b_ih": w(4 * h, scale=0.1), "b_hh": w(4 * h, scale=0.1)},
+         "linear_w": w(h, vocab, scale=1.0), "linear_b": w(vocab, scale=0.1)}
+    p["linear_b"][2] = end_bias
+    return bridge.to_torch(p, device=device)
+
+
+@pytest.mark.parametrize("b,t,e,h", [
+    (5, 1, 30, 64),      # T = 1, B not a multiple of 8, E % 4 != 0
+    (37, 9, 40, 48),     # rows over two step blocks, H not a multiple of 8
+])
+def test_nic_scan_kernels_match_plain(device, b, t, e, h):
+    cell = _nic_params(device, 8, e, h, seed=b)["cell"]
+    g = torch.Generator(device=device).manual_seed(t)
+    x = torch.randn((b, t, e), generator=g, device=device)
+    dh = torch.randn((b, t, h), generator=g, device=device)
+    before = (nic_scan.nic_scan_fwd.launches, nic_scan.nic_scan_bwd.launches)
+    h_seq, c_seq, gates = nic_scan.nic_scan_fwd(cell, x)
+    want_h, want_c = nic_scan.fused_nic_scan_plain(cell, x)
+    torch.testing.assert_close(h_seq, want_h, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c_seq, want_c, rtol=0, atol=1e-4)
+    dx, grads = nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh, gates)
+    want_dx, want_grads = nic_scan.nic_scan_bwd_plain(cell, x, h_seq, c_seq,
+                                                      dh)
+    torch.cuda.synchronize()
+    assert (nic_scan.nic_scan_fwd.launches,
+            nic_scan.nic_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _close_scaled(dx, want_dx)
+    for k in nic_scan.CELL_KEYS:
+        _close_scaled(grads[k], want_grads[k])
+    assert torch.equal(grads["b_ih"], grads["b_hh"])
+    # the same bits on a second run: no atomics anywhere
+    h2, c2, gates2 = nic_scan.nic_scan_fwd(cell, x)
+    dx2, grads2 = nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh, gates)
+    assert torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
+    assert torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k])
+                                        for k in nic_scan.CELL_KEYS)
+
+
+def test_nic_scan_autograd_returns_the_shared_bias_grad(device):
+    cell = {k: v.requires_grad_(True)
+            for k, v in _nic_params(device, 8, 12, 16)["cell"].items()}
+    x = torch.randn((6, 4, 12), device=device, requires_grad=True)
+    (nic_scan.fused_nic_scan(cell, x) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(cell["b_ih"].grad, cell["b_hh"].grad)
+    assert torch.count_nonzero(cell["W_hh"].grad) > 0
+    assert torch.count_nonzero(x.grad) > 0
+
+
+@pytest.mark.parametrize("case", ["serving", "research", "early_end"])
+def test_mega_kernel_lstm_cell_matches_plain(device, case):
+    vocab, e, h, k, batch, steps = 516, 30, 48, 4, 5, 9
+    params = _nic_params(device, vocab, e, h, seed=9,
+                         end_bias=50.0 if case == "early_end" else 1.0)
+    feats = None
+    if case != "research":
+        g = torch.Generator(device=device).manual_seed(2)
+        feats = torch.randn((batch, 1, e), generator=g, device=device)
+        feats = feats.expand(batch, k, e).contiguous()
+    before = (mega_beam_decode.launches, mega_beam_decode.lstm_launches)
+    got = mega_beam_decode(params, feats, 0, batch, k=k, max_seq_length=steps,
+                           cell="lstm")
+    torch.cuda.synchronize()
+    assert (mega_beam_decode.launches,
+            mega_beam_decode.lstm_launches) == (before[0], before[1] + 1)
+    want = mega_beam_decode_plain(params, feats, 0, batch, k=k,
+                                  max_seq_length=steps, cell="lstm")
+    torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    if case == "early_end":
+        assert got.length.tolist() == [2] * batch
+
+
+def test_nic_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    cell = _nic_params(device, 8, 8, 8)["cell"]
+    x = torch.zeros((2, 3, 8), device=device)
+    h_seq, c_seq, _ = nic_scan.nic_scan_fwd(cell, x)
+    with pytest.raises(ValueError, match="gates"):
+        nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, h_seq)
+    with pytest.raises(ValueError, match="expected"):
+        nic_scan.nic_scan_fwd(cell, x.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        nic_scan.nic_scan_fwd(cell, x.double())
+    with pytest.raises(ValueError, match="shape"):
+        nic_scan.nic_scan_fwd(cell, torch.zeros((2, 3, 9), device=device))
+    params = _nic_params(device, 130, 16, 32)   # V % 4 != 0
+    with pytest.raises(ValueError, match="multiples of 4"):
+        mega_beam_decode(params, None, 0, 2, k=4, cell="lstm")
+    params = _nic_params(device, 128, 16, 32)
+    with pytest.raises(ValueError, match="expected"):
+        mega_beam_decode(params, torch.zeros((2, 4, 16)), 0, 2, k=4,
+                         cell="lstm")
+    with pytest.raises(ValueError, match="unknown cell"):
+        mega_beam_decode(params, None, 0, 2, k=4, cell="gru")

@@ -1,11 +1,16 @@
-"""The serving slice as a whole: the port's CaptionEngine (fused-step path),
-BatchingEngine (mega path) and HTTP ``POST /generate`` against the JAX
-engines' ``stylenet`` captions, with the JAX engine's weights bridged across
-and the tiny configs of ``tests/test_serve_batching.py``.  Captions must be
-identical."""
+"""The serving slice as a whole: the port's CaptionEngine (serial: K1 for
+stylenet, K2 with the LSTM cell for nic), BatchingEngine (one K2 launch per
+variant) and HTTP ``POST /generate`` against the JAX engines' ``stylenet``
+and ``nic`` captions, with the JAX engine's weights bridged across and the
+tiny configs of ``tests/test_serve_batching.py``.  Captions must be
+identical.  Engines built from reference torch checkpoints (a decoder state
+dict and a full-module pickle, written here from the same weights) caption
+as the engines built from ``params``."""
 
 import json
+import sys
 import threading
+import types
 import urllib.request
 
 import jax
@@ -20,6 +25,7 @@ from icee_tpu_torch.serve.config import MODEL_VARIANTS, ServeConfig
 
 torch.set_num_threads(2)
 MODES = ("factual", "happy", "sad", "angry")
+SERVED = ("nic", "stylenet")
 
 
 def _resnet_npz(path):
@@ -95,47 +101,53 @@ def engines(tmp_path_factory):
     # captions of one to five words.  Set before the JAX engine's first call,
     # which captures them.
     wrng = np.random.default_rng(8)
-    dec = {name: wrng.standard_normal(a.shape).astype(np.float32)
-           for name, a in jeng.models["stylenet"]["happy"]["decoder"].items()}
-    dec["C_b"][vocab.end] = -1.0
-    head = jax.tree.map(np.asarray, jeng.models["stylenet"]["happy"]["head"])
-    head["linear_w"] = head["linear_w"] * np.float32(30.0)
-    head["linear_b"] = head["linear_b"] * np.float32(30.0)
-    pipeline = jax.tree.map(jax.numpy.asarray,
-                            {"decoder": dec, "head": head})
-    # only stylenet is compared: the JAX engine answers "-" for the other
-    # variants, as the port does, instead of compiling their beams
-    jeng.models = {"stylenet": {}}
-    for mode in MODES:   # one shared pipeline: the engine compiles it once
-        jeng.models["stylenet"][mode] = pipeline
+    trees = {}
+    for variant, end_b in (("stylenet", "C_b"), ("nic", "linear_b")):
+        jpipe = jeng.models[variant]["happy"]
+        dec = jax.tree.map(
+            lambda a: wrng.standard_normal(a.shape).astype(np.float32),
+            jpipe["decoder"])
+        dec[end_b][vocab.end] = -1.0
+        head = jax.tree.map(np.asarray, jpipe["head"])
+        head["linear_w"] = head["linear_w"] * np.float32(30.0)
+        head["linear_b"] = head["linear_b"] * np.float32(30.0)
+        trees[variant] = {"decoder": dec, "head": head}
+    # only stylenet and nic are compared: the JAX engine answers "-" for
+    # the attention variants, as the port does, instead of compiling them
+    jeng.models = {}
+    for variant, tree in trees.items():
+        pipeline = jax.tree.map(jax.numpy.asarray, tree)
+        # one shared pipeline: the engine compiles it once
+        jeng.models[variant] = {mode: pipeline for mode in MODES}
     backbone = jax.tree.map(np.asarray, jeng.backbone)
-    params = bridge.to_torch({"backbone": backbone, "decoder": dec,
-                              "head": head})
+    params = bridge.to_torch(dict(trees, backbone=backbone))
     eng = CaptionEngine(
         ServeConfig(vocab_path=str(tmp / "vocab.pkl"),
                     image_folder=str(tmp / "uploads")),
         image_size=32, dec_cfg=DecoderConfig(**dims),
         enc_cfg=EncoderConfig(embed_size=8), device="cpu", params=params)
-    want = {(p, m): jeng.caption(p, m)["stylenet"]
+    want = {(p, m): {v: c for v, c in jeng.caption(p, m).items()
+                     if v in SERVED}
             for p in paths for m in MODES}
-    return jeng, eng, paths, want
+    return jeng, eng, paths, want, params
 
 
 def test_serial_engine_matches_jax_captions(engines):
-    _, eng, paths, want = engines
-    for (p, m), caption in want.items():
+    _, eng, paths, want, _ = engines
+    for (p, m), captions in want.items():
         got = eng.caption(p, m)
-        assert got["stylenet"] == caption, (p, m)
-        assert all(got[v] == "-" for v in MODEL_VARIANTS if v != "stylenet")
-    lengths = {len(c.split()) for c in want.values()}
-    assert len(lengths) > 1, "captions of one length prove little"
+        assert {v: got[v] for v in SERVED} == captions, (p, m)
+        assert all(got[v] == "-" for v in MODEL_VARIANTS if v not in SERVED)
+    for variant in SERVED:
+        lengths = {len(c[variant].split()) for c in want.values()}
+        assert len(lengths) > 1, f"{variant}: captions of one length"
 
 
 def test_batching_engine_matches_jax_batching(engines):
     from icee_tpu.serve.batching import BatchingEngine as JBatchingEngine
     from icee_tpu_torch.serve.batching import BatchingEngine
 
-    jeng, eng, paths, want = engines
+    jeng, eng, paths, want, _ = engines
     requests = [(p, m) for p in paths for m in ("happy", "sad")]
     for engine_cls, inner in ((BatchingEngine, eng), (JBatchingEngine, jeng)):
         batched = engine_cls(inner, window_ms=500.0, max_batch=8)
@@ -143,7 +155,8 @@ def test_batching_engine_matches_jax_batching(engines):
 
         def worker(p, m):
             try:
-                results[(p, m)] = batched.caption(p, m)["stylenet"]
+                got = batched.caption(p, m)
+                results[(p, m)] = {v: got[v] for v in SERVED}
             except Exception as e:  # noqa: BLE001 - collected and asserted
                 errors.append(e)
 
@@ -157,6 +170,115 @@ def test_batching_engine_matches_jax_batching(engines):
         assert results == {r: want[r] for r in requests}, engine_cls
         assert sum(batched.group_sizes) == len(requests)
         assert max(batched.group_sizes) > 1   # 3 images padded to 4
+
+
+def _factored_state_dict(dec):
+    """A params tree -> the reference ``DecoderFactoredLSTM`` state dict
+    (the inverse of ``import_factored_decoder_state_dict``)."""
+    f, h = dec["U_w"].shape[1], dec["W_w"].shape[0]
+    sd = {"B.weight": dec["B"], "C.weight": dec["C_w"].T,
+          "C.bias": dec["C_b"]}
+    for g, name in enumerate(("i", "f", "o", "c")):
+        sd[f"V_{name}.weight"] = dec["V_w"][:, g * f:(g + 1) * f].T
+        sd[f"V_{name}.bias"] = dec["V_b"][g]
+        sd[f"U_{name}.weight"] = dec["U_w"][g].T
+        sd[f"U_{name}.bias"] = dec["U_b"][g]
+        sd[f"W_{name}.weight"] = dec["W_w"][:, g * h:(g + 1) * h].T
+        sd[f"W_{name}.bias"] = dec["W_b"][g]
+        for s, sp in enumerate(("f", "happy_", "sad_", "angry_")):
+            sd[f"S_{sp}{name}.weight"] = dec["S_w"][s, g].T
+            sd[f"S_{sp}{name}.bias"] = dec["S_b"][s, g]
+    return {k: v.contiguous().clone() for k, v in sd.items()}
+
+
+def _save_nic_full_pickle(path, dec, head):
+    """The reference's full checkpoint of a NIC model: ``{"encoder":
+    EncoderCNN, "decoder": DecoderRNN, ...}`` pickled as whole modules whose
+    classes then vanish, so only the stub unpickler can read it."""
+    import torch.nn as nn
+
+    mod = types.ModuleType("model")
+
+    class EncoderCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.resnet = nn.Sequential(nn.Conv2d(3, 4, 1))
+            self.linear = nn.Linear(*head["linear_w"].shape)
+            self.bn = nn.BatchNorm1d(head["linear_w"].shape[1])
+
+    class DecoderRNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(*dec["embed"].shape)
+            self.lstm = nn.LSTMCell(dec["embed"].shape[1],
+                                    dec["cell"]["W_hh"].shape[0])
+            self.linear = nn.Linear(*dec["linear_w"].shape)
+
+    for cls in (EncoderCNN, DecoderRNN):
+        cls.__module__, cls.__qualname__ = "model", cls.__name__
+        setattr(mod, cls.__name__, cls)
+    sys.modules["model"] = mod
+    try:
+        enc, d = EncoderCNN(), DecoderRNN()
+        c = dec["cell"]
+        d.load_state_dict({
+            "embed.weight": dec["embed"], "lstm.weight_ih": c["W_ih"].T,
+            "lstm.weight_hh": c["W_hh"].T, "lstm.bias_ih": c["b_ih"],
+            "lstm.bias_hh": c["b_hh"], "linear.weight": dec["linear_w"].T,
+            "linear.bias": dec["linear_b"]})
+        enc.load_state_dict(dict(
+            enc.state_dict(), **{"linear.weight": head["linear_w"].T,
+                                 "linear.bias": head["linear_b"]},
+            **{f"bn.{k}": v for k, v in head["bn"].items()}))
+        torch.save({"epoch": 1, "encoder": enc, "decoder": d}, path)
+    finally:
+        del sys.modules["model"]
+
+
+def test_engines_from_torch_checkpoints_caption_as_params(engines, tmp_path):
+    """stylenet from a decoder state dict (the head is then the variant's
+    seeded template, as in the JAX engine), nic from a full-module pickle
+    with its encoder head; the backbone from the torchvision-keyed .npz."""
+    import dataclasses
+    import os
+
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    _, eng, paths, want, params = engines
+    sty_path = str(tmp_path / "stylenet.pth")
+    nic_path = str(tmp_path / "HAP_BEST_checkpoint_nic.pth.tar")
+    torch.save(_factored_state_dict(params["stylenet"]["decoder"]), sty_path)
+    _save_nic_full_pickle(nic_path, params["nic"]["decoder"],
+                          params["nic"]["head"])
+    ckpts = {v: {m: None for m in MODES} for v in MODEL_VARIANTS}
+    ckpts["stylenet"] = {m: sty_path for m in MODES}
+    ckpts["nic"] = {m: nic_path for m in MODES}
+    config = dataclasses.replace(
+        eng.config, checkpoint_paths=ckpts, resnet_weights=os.path.join(
+            os.path.dirname(eng.config.vocab_path), "resnet.npz"))
+    kw = dict(image_size=32, dec_cfg=eng.dec_cfg, enc_cfg=eng.enc_cfg,
+              device="cpu")
+    from_ckpt = CaptionEngine(config, **kw)
+    # one decoder per checkpoint file, shared by the four modes
+    assert len({id(from_ckpt.models["nic"][m]["decoder"]) for m in MODES}) == 1
+    sty_head = from_ckpt.models["stylenet"]["happy"]["head"]
+    from_params = CaptionEngine(dataclasses.replace(eng.config), params=dict(
+        params, stylenet={"decoder": params["stylenet"]["decoder"],
+                          "head": sty_head}), **kw)
+    for p in paths:
+        for m in ("factual", "sad"):
+            got = from_ckpt.caption(p, m)
+            assert got == from_params.caption(p, m), (p, m)
+            assert got["nic"] == want[(p, m)]["nic"]
+    for variant in ("nic_att", "stylenet_att"):
+        bad = dataclasses.replace(config, checkpoint_paths=dict(
+            ckpts, **{variant: {m: nic_path for m in MODES}}))
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            CaptionEngine(bad, **kw)
+    orbax = dataclasses.replace(config, checkpoint_paths=dict(
+        ckpts, nic={m: str(tmp_path) for m in MODES}))
+    with pytest.raises(NotImplementedError, match="orbax"):
+        CaptionEngine(orbax, **kw)
 
 
 def _post(url, path, mode):
@@ -177,7 +299,7 @@ def _post(url, path, mode):
 def test_http_generate_matches_jax_captions(engines):
     from icee_tpu_torch.serve.app import serve
 
-    _, eng, paths, want = engines
+    _, eng, paths, want, _ = engines
     config = eng.config
     config.backend_host, config.backend_port = "127.0.0.1", 0
     config.batch_window_ms = 50.0
@@ -200,8 +322,8 @@ def test_http_generate_matches_jax_captions(engines):
         assert len(out) == len(want)
         for key, (status, body) in out.items():
             assert status == 200
-            assert body["stylenet"] == want[key], key
-            assert body["nic"] == "-" and body["path_img"].startswith(
+            assert {v: body[v] for v in SERVED} == want[key], key
+            assert body["nic_att"] == "-" and body["path_img"].startswith(
                 "/images/")
         name = out[(paths[0], "happy")][1]["path_img"]
         with urllib.request.urlopen(url + name, timeout=30) as resp:

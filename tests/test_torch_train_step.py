@@ -1,5 +1,5 @@
-"""The port's StyleNet train and validation steps vs the JAX package's
-``make_caption_steps``, at a tiny width, with JAX's dropout keep-mask and
+"""The port's StyleNet and NIC train and validation steps vs the JAX
+package's ``make_caption_steps``, at a tiny width, with JAX's dropout keep-mask and
 teacher-forcing coins injected into the port (torch cannot reproduce
 ``jax.random``; the test draws them as ``_prep_forward`` does).
 
@@ -27,6 +27,7 @@ from icee_tpu.core.config import EncoderConfig as JEncoderConfig
 from icee_tpu.core.config import TrainConfig as JTrainConfig
 from icee_tpu.models import encoder as jenc
 from icee_tpu.models import factored_lstm as jfl
+from icee_tpu.models import lstm as jnic
 from icee_tpu.train import optim as joptim
 from icee_tpu.train.steps import make_caption_steps as jmake
 from icee_tpu_torch import bridge
@@ -218,11 +219,96 @@ def test_adam_with_clamp_freeze_and_decay_matches_optax():
 
 def test_steps_refuse_other_devices_and_nic():
     cfg, tcfg = DecoderConfig(vocab_size=V), TrainConfig()
-    with pytest.raises(NotImplementedError):
-        make_caption_steps(cfg, tcfg, None, None, factored=False,
-                           device="cpu")
     steps = make_caption_steps(cfg, tcfg, None, None, device="cpu")
     assert not steps.use_fused and not steps.use_chunked
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_caption_steps(cfg, tcfg, None, None)
+
+
+@pytest.fixture(scope="module")
+def jax_nic_val_step():
+    jcfg, *_ = _setup()
+    ident = optax.identity()
+    return jmake(jcfg, JTrainConfig(), ident, ident, factored=False)[2]
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.7])
+@pytest.mark.parametrize("chunked", [True, False])
+def test_nic_steps_match_jax(ratio, chunked, jax_nic_val_step):
+    """``factored=False``: the NIC decoder's factual, emotion and val steps,
+    JAX's run with ``optax.identity()`` as above.  NIC has no style
+    weights: the emotion step ignores its style and trains the whole
+    decoder, as JAX's does; the head is (linear_w, linear_b)."""
+    jcfg, _, head, data = _setup()
+    dec = jax.tree.map(np.asarray, jnic.init_params(jax.random.PRNGKey(3),
+                                                    jcfg))
+    rng = np.random.default_rng(5)
+    for name in ("b_ih", "b_hh"):
+        dec["cell"][name] = (0.05 * rng.standard_normal(4 * HD)).astype(
+            np.float32)
+    jt = JTrainConfig(teacher_forcing_ratio=ratio, fused_scan=False,
+                      chunked_ce=chunked)
+    ident = optax.identity()
+    jfac, jemo, _ = jmake(jcfg, jt, ident, ident, factored=False)
+    key = jax.random.PRNGKey(11)
+    keep, coins = _draws(key, ratio)
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=HD,
+                        factored_size=FD, feature_size=FEAT, dropout=0.5)
+    tcfg = TrainConfig(teacher_forcing_ratio=ratio, fused_scan=ratio >= 1.0,
+                       chunked_ce=chunked)
+    fac, emo, val = steps = make_caption_steps(
+        cfg, tcfg, optim.make_adam(LR, tcfg), optim.make_adam(LR_LANG, tcfg),
+        factored=False, device="cpu")
+    td = {k: torch.tensor(v) for k, v in data.items()}
+    args = (td["pooled"], td["captions"], td["lengths"], td["sample_mask"])
+    sub = lambda a, b: np.asarray(a) - b  # noqa: E731
+
+    d1, h1, _, want_loss = jfac(dec, head, ident.init(None), *data.values(),
+                                key)
+    want_g = (jax.tree.map(sub, d1, dec),
+              jax.tree.map(sub, _head_part(h1), _head_part(head)))
+    tdec, thead = bridge.to_torch(dec), bridge.to_torch(head)
+    loss, grads, _ = steps.factual_grads(tdec, thead, *args, keep=keep,
+                                         coins=coins)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6,
+                               atol=1e-6)
+    _close_tree((grads[0], _head_part(grads[1])), want_g, rtol=1e-5,
+                atol=1e-5)
+    np.testing.assert_array_equal(grads[0]["cell"]["b_ih"].numpy(),
+                                  grads[0]["cell"]["b_hh"].numpy())
+    fac(tdec, thead, steps.optimizer.init((tdec, thead)), *args, keep=keep,
+        coins=coins)
+    _close_update((tdec, _head_part(thead)),
+                  _adam_step(joptim.make_adam(LR, jt), (dec, _head_part(head)),
+                             want_g), want_g, LR)
+    for k in ("running_mean", "running_var"):
+        np.testing.assert_allclose(thead["bn"][k].numpy(),
+                                   np.asarray(h1["bn"][k]), rtol=1e-6,
+                                   atol=1e-6)
+
+    # emotion step: the style is ignored, the whole decoder trains
+    d2, _, _, want_loss = jemo(dec, head, ident.init(None), *data.values(),
+                               jnp.asarray(2), key)
+    want_g = jax.tree.map(sub, d2, dec)
+    tdec, thead = bridge.to_torch(dec), bridge.to_torch(head)
+    loss, grads, _ = steps.emotion_grads(tdec, thead, *args, 2, keep=keep,
+                                         coins=coins)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6,
+                               atol=1e-6)
+    _close_tree(grads, want_g, rtol=1e-5, atol=1e-5)
+    loss3, *_ = steps.emotion_grads(tdec, thead, *args, 0, keep=keep,
+                                    coins=coins)
+    assert float(loss3) == float(loss)
+    emo(tdec, thead, steps.lang_optimizer.init(tdec), *args, 2, keep=keep,
+        coins=coins)
+    _close_update(tdec, _adam_step(joptim.make_adam(LR_LANG, jt), dec,
+                                   want_g), want_g, LR_LANG)
+
+    w_loss, w_top5, w_preds = jax_nic_val_step(dec, head, *data.values(), 1)
+    g_loss, g_top5, g_preds = val(bridge.to_torch(dec), bridge.to_torch(head),
+                                  *args, 1)
+    np.testing.assert_allclose(float(g_loss), float(w_loss), rtol=1e-6,
+                               atol=1e-6)
+    assert float(g_top5) == pytest.approx(float(w_top5), abs=1e-4)
+    np.testing.assert_array_equal(g_preds.numpy(), np.asarray(w_preds))
