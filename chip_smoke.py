@@ -18,16 +18,25 @@ Phases, in order; any failure exits non-zero:
    kernel score must match its own sequence's plain score within 1e-3, and
    where tokens differ, the kernel's sequence must tie the plain winner's
    within 1e-4;
-6. serve: random-init StyleNet and NIC at flagship width (ResNet-152 at
-   224x224, E=300, H=F=512, V=8192, k=5, 40 steps) behind the HTTP service.
-   First with cross-request batching: concurrent ``POST /generate``
-   requests in all four modes (batched path: K2 factored and K2 lstm).
-   Then without batching: the same requests one by one (serial path: K1
-   and K2 lstm for one image).  Both variants' captions must match, and
-   each path's kernels must have launched (the counts are reset to 0 just
-   before the path runs and read just after).  Then a checkpoint round
-   trip: reference-style torch checkpoints (a StyleNet decoder state dict
-   and a full-module NIC pickle built from seeded ``torch.nn`` modules)
+5b. K6 (``att_decode_step_topk``, the attention step) vs its plain version
+   at 64 images x 5 beams = 320 rows (timed) and at the serial path's one
+   image, for the StyleNet+Att cell (``kind="factored"``) and the NIC+Att
+   cell (``kind="lstm"``), at A=512, P=14x14, FS=2048, E+FS=2348; and the
+   h0/c0 kernel (``att_init_state``) vs ``init_hidden_state``;
+5c. K7 (``mega_att_beam_decode``, the whole attention search) vs the plain
+   search at 64 images, both cells, margin-aware as phase 5, with the
+   steps each block ran;
+6. serve: random-init StyleNet, NIC, StyleNet+Att and NIC+Att at flagship
+   width (ResNet-152 at 224x224, E=300, H=F=A=512, V=8192, k=5, 40 steps)
+   behind the HTTP service.  First with cross-request batching: concurrent
+   ``POST /generate`` requests in all four modes (batched path: K2
+   factored, K2 lstm, K7 factored, K7 lstm).  Then without batching: the
+   same requests one by one (serial path: K1, K2 lstm, the h0/c0 kernel
+   and K6 of both cells for one image).  Every variant's captions must
+   match, and each path's kernels must have launched (the counts are reset
+   to 0 just before the path runs and read just after).  Then a checkpoint
+   round trip: reference-style torch checkpoints (StyleNet and
+   StyleNet+Att decoder state dicts, full-module NIC and NIC+Att pickles)
    serve one request with the captions of the same weights passed as
    ``params``;
 7. K3 (``fused_factored_scan``) and K4 (``fused_nic_scan``), forward and
@@ -44,8 +53,9 @@ Phases, in order; any failure exits non-zero:
    ratio 0.8; one ``val_step``; the step time and captions/s (and, for
    StyleNet, the device-busy share and device time by kernel);
 10. print one ``{"train": {...}}`` line, one ``{"serve": {...}}`` line and
-   one ``{"kernels": [...]}`` line (K1, K2 factored and lstm, K3 and K4
-   forward and backward, CE forward and backward);
+   one ``{"kernels": [...]}`` line (K1, K2 factored and lstm, K6 factored
+   and lstm, the h0/c0 kernel, K7 factored and lstm, K3 and K4 forward and
+   backward, CE forward and backward);
 11. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -68,6 +78,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 B_IMAGES, K, E, F, H, V, STEPS = 64, 5, 300, 512, 512, 8192, 40
+A, P, FS = 512, 196, 2048   # attention width, 14 x 14 positions, features
 N_REQUESTS = 16
 LOSS_FALL = 0.9    # phase 9: last cycle's mean loss <= this x the first's
 MODES = ("factual", "happy", "sad", "angry")
@@ -122,8 +133,8 @@ def decoder_weight_bytes(cell: str = "factored") -> int:
 
 
 def captioning_params(device):
-    """Seeded random weights at flagship width, for both served variants,
-    shaped so beams finish at caption-like lengths: the smoke init's
+    """Seeded random weights at flagship width, for the four served
+    variants, shaped so beams finish at caption-like lengths: the smoke init's
     residual branches are damped (undamped He init grows ResNet activations
     ~1e4x over 50 blocks), the encoder heads are scaled up so the step-1
     feature is O(1) (the default init gives ~0.1, and every beam then emits
@@ -131,11 +142,19 @@ def captioning_params(device):
     with a bias towards <end> (with near-uniform logits over 8192 words no
     beam ever completes).  NIC's input weights are scaled up too: at
     Xavier scale its captions hardly depend on the image (every request
-    got the same four words).  -> ``CaptionEngine``'s ``params``."""
+    got the same four words).  The attention decoders (Xavier init, research
+    beams that start from <start>) get the sharpened head with a larger
+    <end> bias (at 2.0 no beam over 8192 words ever completes; at 12 every
+    beam ends after two words), and init_h/init_c x 6: the 14 x 14 features
+    of different photos differ by ~0.01 per channel in their mean, and at
+    Xavier scale h0 hardly sees it (captions of the same words for every
+    image).  -> ``CaptionEngine``'s ``params``."""
     import torch
 
-    from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
-    from icee_tpu_torch.models import encoder, factored_lstm, lstm, resnet
+    from icee_tpu_torch.core.config import (AttentionDecoderConfig,
+                                            DecoderConfig, EncoderConfig)
+    from icee_tpu_torch.models import (attention, encoder, factored_lstm,
+                                       lstm, resnet)
 
     backbone = resnet.init_params(torch.Generator().manual_seed(0),
                                   device=device)
@@ -161,6 +180,21 @@ def captioning_params(device):
         head["linear_w"].mul_(10.0)
         head["linear_b"].mul_(10.0)
         out[variant] = {"decoder": dec, "head": head}
+    att_cfg = AttentionDecoderConfig(vocab_size=V, embed_size=E,
+                                     hidden_size=H, factored_size=F,
+                                     attention_size=A, feature_size=FS)
+    for variant, init, head_w, seed in (
+            ("stylenet_att", attention.init_factored_att_params, "C", 5),
+            ("nic_att", attention.init_rnn_att_params, "linear", 7)):
+        dec = init(torch.Generator().manual_seed(seed), att_cfg,
+                   device=device)
+        w, b = (("C_w", "C_b") if head_w == "C"
+                else ("linear_w", "linear_b"))
+        dec[w].mul_(30.0)
+        dec[b][2] = 7.5
+        dec["init_h_w"].mul_(6.0)
+        dec["init_c_w"].mul_(6.0)
+        out[variant] = {"decoder": dec}
     return out
 
 
@@ -355,6 +389,291 @@ def check_k2(dec, device, cell: str = "factored"):
             "block_steps_run": total_steps}
 
 
+# --- phase 5b-5c: K6 and K7 (attention) --------------------------------------
+
+ATT_KINDS = {"factored": "stylenet_att", "lstm": "nic_att"}
+
+
+def att_step_flops_per_row(kind: str) -> int:
+    """Multiply-adds x2 of one attention step for one row: att2, the P
+    scores, the context, the gate, then the cell on [emb; ctx] and the
+    head."""
+    attend = 2 * (H * A + P * A + P * FS + H * FS)
+    e_in = E + FS
+    if kind == "lstm":
+        return attend + 2 * (e_in * 4 * H + H * 4 * H + H * V)
+    return attend + 2 * (e_in * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H
+                         + H * V)
+
+
+def att_weight_bytes(kind: str, init: bool = False) -> int:
+    """Bytes of the weights every attention step reads (with ``init``, the
+    h0/c0 projections too)."""
+    e_in = E + FS
+    attend = H * A + A + A + 1 + H * FS + FS
+    if kind == "lstm":
+        cell = e_in * 4 * H + H * 4 * H + 8 * H
+    else:
+        cell = e_in * 4 * F + 4 * F + 4 * F * F + 4 * F + 4 * F * H + 4 * H \
+            + H * 4 * H + 4 * H
+    return 4 * (attend + cell + H * V + V + (2 * FS * H + 2 * H if init
+                                             else 0))
+
+
+def att_features(device, n_img: int, seed: int):
+    """Spatial features at the statistics of the served ones (post-ReLU
+    ResNet maps pooled to 14 x 14: mean ~0.13 per channel)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return 0.3 * torch.rand((n_img, P, FS), generator=g, device=device)
+
+
+def check_k6(dec, kind: str, device, n_img: int, seed: int):
+    """K6 with ``kind`` vs its plain version on ``n_img`` images x K random
+    rows; -> (inputs, max abs error, near-tie swaps).  Ids exact except in
+    a 1e-5 near tie; logp, h', c' atol 1e-4, alpha atol 1e-5."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_decode_step import (
+        att_decode_step_topk, att_decode_step_topk_plain, step_params)
+
+    style = 3 if kind == "factored" else 0
+    cell, att, gate = step_params(dec, kind, style)
+    rows = n_img * K
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((rows, E), generator=g, device=device) * 0.1
+    h = torch.randn((rows, H), generator=g, device=device) * 0.5
+    c = torch.randn((rows, H), generator=g, device=device) * 0.5
+    feats = att_features(device, n_img, seed)
+    att1 = att_mod.att_projection(att, feats)
+    args = (cell, att, gate, x, h, c, feats, att1, kind, K)
+    gv, gi, gh, gc, ga = att_decode_step_topk(*args, ktop=K)
+    wv, wi, wh, wc, wa = att_decode_step_topk_plain(*args, ktop=K)
+    torch.cuda.synchronize()
+    mism = (gi != wi).any(dim=1)
+    ties = 0
+    if bool(mism.any()):
+        logp = torch.log_softmax(wh @ cell["C_w"] + cell["C_b"], dim=-1)
+        for r in torch.nonzero(mism).flatten().tolist():
+            picked = logp[r, gi[r].long()]
+            if (picked - wv[r]).abs().max().item() > 1e-5:
+                fail(f"K6 {kind} {rows} rows, row {r}: ids {gi[r].tolist()} "
+                     f"!= {wi[r].tolist()} beyond a 1e-5 near-tie")
+            ties += 1
+    ok = ~mism
+    errs = {"logp": (gv[ok] - wv[ok]).abs().max().item(),
+            "h": (gh - wh).abs().max().item(),
+            "c": (gc - wc).abs().max().item()}
+    alpha_err = (ga - wa).abs().max().item()
+    log(f"K6 {kind}: {rows} rows, ids equal on {int(ok.sum())}, near-tie "
+        f"swaps {ties}; max abs err {errs}, alpha {alpha_err:.3g}")
+    for name, err in errs.items():
+        if not err <= 1e-4:
+            fail(f"K6 {kind} {rows} rows: {name} error {err} > 1e-4")
+    if not alpha_err <= 1e-5:
+        fail(f"K6 {kind} {rows} rows: alpha error {alpha_err} > 1e-5")
+    return args, max(max(errs.values()), alpha_err), ties
+
+
+def att_library_step(args):
+    """The attention step as a few PyTorch calls (the library yardstick):
+    addmm, a broadcast relu-score, softmax, bmm for the context, the cell,
+    addmm, log_softmax, topk."""
+    import torch
+
+    from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
+
+    cell, att, gate, x, h, c, feats, att1, kind, k = args
+    n_img = feats.shape[0]
+    att2 = torch.addmm(att["dec_b"], h, att["dec_w"])
+    e = torch.relu(att1[:, None] + att2.view(n_img, k, 1, A)) @ att["full_w"]
+    alpha = torch.softmax(e[..., 0] + att["full_b"], dim=-1)
+    ctx = torch.bmm(alpha, feats).reshape(n_img * k, FS)
+    gated = torch.sigmoid(torch.addmm(gate["f_beta_b"], h,
+                                      gate["f_beta_w"])) * ctx
+    xf = torch.cat([x, gated], dim=-1)
+    if kind == "factored":
+        stacked = dict(cell, S_w=cell["S_w"][None], S_b=cell["S_b"][None])
+        h2, _ = factored_lstm_cell(stacked, xf, h, c, 0)
+    else:
+        h2, _ = lstm_cell(cell, xf, h, c)
+    return torch.topk(torch.log_softmax(
+        torch.addmm(cell["C_b"], h2, cell["C_w"]), dim=-1), k)
+
+
+def k6_line(kind: str, args, serial_args, max_err: float, ties: int):
+    """Times K6, its plain version and the library yardstick at the
+    batched shape (64 images x K rows) and the serial one (one image);
+    -> K6's entry of the kernels line."""
+    from icee_tpu_torch.ops.att_decode_step import (
+        att_decode_step_topk, att_decode_step_topk_plain)
+
+    out = {}
+    for tag, a in (("", args), ("serial_", serial_args)):
+        n_img = a[6].shape[0]
+        rows = n_img * K
+        out[tag + "ms"] = cuda_ms(lambda: att_decode_step_topk(*a, ktop=K),
+                                  20)
+        out[tag + "plain_ms"] = cuda_ms(
+            lambda: att_decode_step_topk_plain(*a, ktop=K), 5)
+        out[tag + "library_ms"] = cuda_ms(lambda: att_library_step(a), 20)
+        nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
+                  + 4 * rows * (E + 2 * H) + 4 * rows * (2 * K + 2 * H + P))
+        out[tag + "bound_ms"], out[tag + "bound_by"] = bound_ms(
+            rows * att_step_flops_per_row(kind), nbytes)
+    lstm = kind == "lstm"
+    return dict(out, name="att_decode_step_topk" + ("_lstm" if lstm else ""),
+                route="cuda", source="icee_tpu_torch/csrc/att_decode_step.cu",
+                replaces="icee_tpu/ops/pallas_att_decode.py:201 (kind=\""
+                         + kind + "\")",
+                max_abs_err=max_err, near_tie_swaps=ties,
+                library_note="addmm, relu-score, softmax, bmm, the cell, "
+                             "addmm, log_softmax, topk")
+
+
+def check_att_init(dec, device):
+    """The h0/c0 kernel (the serial path's start, K7's prologue) vs
+    ``init_hidden_state`` at 64 images; -> its entry of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_decode_step import att_init_state
+
+    feats = att_features(device, B_IMAGES, 9)
+    h0, c0 = att_init_state(dec, feats)
+    wh, wc = att_mod.init_hidden_state(dec, feats)
+    torch.cuda.synchronize()
+    err = max((h0 - wh).abs().max().item(), (c0 - wc).abs().max().item())
+    log(f"att_init_state: {B_IMAGES} images, h0/c0 max abs err {err:.3g}")
+    if not err <= 1e-4:
+        fail(f"att_init_state: h0/c0 error {err} > 1e-4")
+    flops = B_IMAGES * (P * FS + 2 * 2 * FS * H)
+    nbytes = 4 * (B_IMAGES * P * FS + 2 * FS * H + 2 * H
+                  + 2 * B_IMAGES * H)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"name": "att_init_state", "route": "cuda",
+            "source": "icee_tpu_torch/csrc/att_decode_step.cu",
+            "replaces": "icee_tpu/ops/pallas_att_decode.py:456 (the h/c "
+                        "init of mega_att_beam_decode, hoisted for the "
+                        "serial path as the streamed call hoists it)",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: att_init_state(dec, feats), 20),
+            "plain_ms": cuda_ms(
+                lambda: att_mod.init_hidden_state(dec, feats), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call: a mean and two "
+                            "products"}
+
+
+def att_sequence_scores(dec, kind: str, feats, style: int, tokens, length):
+    """Log-probability under the plain attention model of each image's
+    token sequence (research semantics: ``<start>`` embedded at step 1, h0
+    and c0 from the mean feature): the score a beam search gives it."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+
+    att = att_mod.select_attention(dec, style)
+    att1 = att_mod.att_projection(att, feats)
+    emb = dec["B"] if kind == "factored" else dec["embed"]
+    tok = tokens.long()
+    state = att_mod.init_hidden_state(dec, feats)
+    x = emb[tok[:, 0]]
+    total = torch.zeros((tok.shape[0],), device=tok.device)
+    for t in range(1, int(length.max())):
+        if kind == "factored":
+            logits, _, state = att_mod.factored_att_decode_step(
+                dec, x, feats, state, style, att1=att1)
+        else:
+            logits, _, state = att_mod.rnn_att_decode_step(
+                dec, x, feats, state, att1=att1)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        total = torch.where(t < length, total + lp.gather(
+            1, tok[:, t:t + 1])[:, 0], total)
+        x = emb[tok[:, t]]
+    return total
+
+
+def check_k7(dec, kind: str, device):
+    """K7 with ``kind`` vs its plain search at 64 images, margin-aware as
+    phase 5: each kernel score matches its own sequence's plain score
+    within 1e-3, and where tokens differ from the plain search, the
+    kernel's sequence ties the plain winner's within 1e-4; -> its entry of
+    the kernels line, with the steps each block ran."""
+    import torch
+
+    from icee_tpu_torch.ops.att_beam import (mega_att_beam_decode,
+                                             mega_att_beam_decode_plain,
+                                             mega_att_beam_decode_steps)
+
+    style = 3 if kind == "factored" else 0
+    feats = att_features(device, B_IMAGES, 14)
+    kw = dict(k=K, max_seq_length=STEPS, kind=kind)
+    got, steps = mega_att_beam_decode_steps(dec, feats, style, B_IMAGES, **kw)
+    want = mega_att_beam_decode_plain(dec, feats, style, B_IMAGES, **kw)
+    rescored = att_sequence_scores(dec, kind, feats, style, got.tokens,
+                                   got.length)
+    max_err, own_err, flips = 0.0, 0.0, 0
+    for i in range(B_IMAGES):
+        gs, ws = got.score[i].item(), want.score[i].item()
+        same = (got.length[i] == want.length[i]).item() and torch.equal(
+            got.tokens[i], want.tokens[i])
+        if int(got.length[i]) > 1:
+            own = abs(rescored[i].item() - gs)
+            own_err = max(own_err, own)
+            if not own <= 1e-3:
+                fail(f"K7 {kind} image {i}: reported score {gs}, its "
+                     f"sequence scores {rescored[i].item()}")
+        if not same:
+            margin = abs(rescored[i].item() - ws)
+            if int(got.length[i]) == 1 or margin > 1e-4:
+                fail(f"K7 {kind} image {i}: tokens differ; kernel's sequence "
+                     f"scores {rescored[i].item()}, plain winner {ws}, "
+                     f"margin {margin} > 1e-4")
+            flips += 1
+            log(f"K7 {kind} image {i}: near-tie flip, margin {margin}")
+        err = abs(gs - ws)
+        if not err <= 1e-3:
+            fail(f"K7 {kind} image {i}: score {gs} vs {ws}")
+        max_err = max(max_err, err)
+    lengths = got.length.float()
+    total_steps = int(steps.sum())
+    log(f"K7 {kind}: {B_IMAGES} images, lengths mean "
+        f"{lengths.mean().item():.2f} min {int(lengths.min())} max "
+        f"{int(lengths.max())}, steps run per block min {int(steps.min())} "
+        f"mean {steps.float().mean().item():.2f} max {int(steps.max())}; "
+        f"kernel scores vs their sequences' plain scores, max abs err "
+        f"{own_err}")
+    ms = cuda_ms(lambda: mega_att_beam_decode(dec, feats, style, B_IMAGES,
+                                              **kw), 3)
+    plain_ms = cuda_ms(lambda: mega_att_beam_decode_plain(
+        dec, feats, style, B_IMAGES, **kw), 1)
+    row_steps = total_steps * K
+    flops = (row_steps * att_step_flops_per_row(kind)
+             + B_IMAGES * (P * FS + 2 * 2 * FS * H))
+    nbytes = (att_weight_bytes(kind, init=True) + 4 * B_IMAGES * P * (FS + A)
+              + 4 * row_steps * E + 4 * B_IMAGES * (STEPS + 4))
+    b_ms, b_by = bound_ms(flops, nbytes)
+    lstm = kind == "lstm"
+    return {"name": "mega_att_beam_decode" + ("_lstm" if lstm else ""),
+            "route": "cuda", "source": "icee_tpu_torch/csrc/att_beam.cu",
+            "replaces": "icee_tpu/ops/pallas_att_decode.py:733 (kind=\""
+                        + kind + "\"; both calls, :974 and :907)",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes a beam search",
+            "near_tie_flips": flips, "max_rescore_err": own_err,
+            "block_steps_run": total_steps,
+            "block_steps_min_mean_max": [int(steps.min()),
+                                         steps.float().mean().item(),
+                                         int(steps.max())],
+            "caption_lengths_min_mean_max": [int(lengths.min()),
+                                             lengths.mean().item(),
+                                             int(lengths.max())]}
+
+
 # --- phase 6: serve -----------------------------------------------------------
 
 def _post(url: str, path: str, mode: str):
@@ -390,14 +709,15 @@ def serving(config, engine, device):
         thread.join(timeout=60)
 
 
-SERVED = ("stylenet", "nic")
+SERVED = ("stylenet", "nic", "stylenet_att", "nic_att")
 
 
 def run_requests(url, requests, concurrent: bool):
     """POST every (image, mode) request, all at once or one after another;
     -> ({index: (status, body, seconds)}, wall seconds).  Fails unless each
-    answer is HTTP 200 with a non-empty stylenet caption and a nic answer
-    (a random-init NIC may end a beam at once: an empty caption)."""
+    answer is HTTP 200 with a non-empty stylenet caption and an answer of
+    every other variant (a random-init decoder may end a beam at once: an
+    empty caption)."""
     results = {}
 
     def worker(j, p, m):
@@ -420,7 +740,7 @@ def run_requests(url, requests, concurrent: bool):
     for j, (p, m) in enumerate(requests):
         status, body, _ = results[j]
         if status != 200 or body.get("stylenet") in (None, "", "-") or \
-                body.get("nic") in (None, "-"):
+                any(body.get(v) in (None, "-") for v in SERVED):
             fail(f"request {j} ({m}): HTTP {status}, {body}")
     return results, wall
 
@@ -470,8 +790,9 @@ def request_breakdown(engine, paths, repeats: int = 5):
     """Device-synchronised host times (ms, median of ``repeats``) of the
     pieces of a request: image decode + ResNet-152 + head for one image;
     per variant the serial beam for one image (stylenet: fused-step path,
-    K1; nic: K2 lstm) and the batched beam (K2) for a group of len(paths)
-    images; and each piece's device busy share (one profiled run)."""
+    K1; nic: K2 lstm; the attention variants: fused-step, K6) and the
+    batched beam (K2 or K7) for a group of len(paths) images; and each
+    piece's device busy share (one profiled run)."""
     import torch
 
     def timed(fn):
@@ -488,7 +809,7 @@ def request_breakdown(engine, paths, repeats: int = 5):
     for variant in SERVED:
         feat = engine.encode(paths[0], "happy", variant)
         group = torch.cat([engine.encode(p, "happy", variant) for p in paths])
-        pre = "" if variant == "stylenet" else "nic_"
+        pre = "" if variant == "stylenet" else variant + "_"
         pieces[pre + "serial_beam_one_image"] = (
             lambda f=feat, v=variant: engine.decode(f, "happy", "fused-step",
                                                     v))
@@ -518,19 +839,32 @@ def serve_phase(params, device):
     import numpy as np
     from PIL import Image
 
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode
+    from icee_tpu_torch.ops.att_decode_step import (att_decode_step_topk,
+                                                    att_init_state)
     from icee_tpu_torch.ops.beam import mega_beam_decode
     from icee_tpu_torch.ops.decode_step import decode_step_topk
     from icee_tpu_torch.serve.config import ServeConfig
     from icee_tpu_torch.serve.engine import BEAM_K, CaptionEngine
 
     def reset():
-        decode_step_topk.launches = 0
+        decode_step_topk.launches = att_init_state.launches = 0
         mega_beam_decode.launches = mega_beam_decode.lstm_launches = 0
+        att_decode_step_topk.launches = att_decode_step_topk.lstm_launches = 0
+        mega_att_beam_decode.launches = 0
+        mega_att_beam_decode.lstm_launches = 0
 
     def read():
         return {"decode_step_topk": decode_step_topk.launches,
                 "mega_beam_decode": mega_beam_decode.launches,
-                "mega_beam_decode_lstm": mega_beam_decode.lstm_launches}
+                "mega_beam_decode_lstm": mega_beam_decode.lstm_launches,
+                "att_decode_step_topk": att_decode_step_topk.launches,
+                "att_decode_step_topk_lstm":
+                    att_decode_step_topk.lstm_launches,
+                "att_init_state": att_init_state.launches,
+                "mega_att_beam_decode": mega_att_beam_decode.launches,
+                "mega_att_beam_decode_lstm":
+                    mega_att_beam_decode.lstm_launches}
 
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(5)
@@ -556,15 +890,19 @@ def serve_phase(params, device):
             f"(variants {sorted(engine.models)}, V={len(engine.vocab)}, "
             f"E={engine.dec_cfg.embed_size}, H={engine.dec_cfg.hidden_size}, "
             f"F={engine.dec_cfg.factored_size}, k={BEAM_K}, "
-            f"steps={engine.dec_cfg.max_seq_length})")
+            f"steps={engine.dec_cfg.max_seq_length}; attention "
+            f"A={engine.att_cfg.attention_size}, "
+            f"FS={engine.att_cfg.feature_size}, P=14x14)")
         # path 1, batched: concurrent requests through the BatchingEngine
-        # (K2 factored + K2 lstm); counts from 0 just before, read just after
+        # (K2 factored + K2 lstm + K7 factored + K7 lstm); counts from 0
+        # just before, read just after
         reset()
         with serving(config, engine, device) as url:
             batched, wall = run_requests(url, requests, concurrent=True)
         launches = {"batched": read()}
         # path 2, serial: the same requests one by one through the
-        # CaptionEngine alone (K1 for stylenet, K2 lstm for nic)
+        # CaptionEngine alone (K1 for stylenet, K2 lstm for nic, the h0/c0
+        # kernel and K6 of both kinds for the attention variants)
         serial_config = dataclasses.replace(config, batch_window_ms=0.0)
         reset()
         with serving(serial_config, engine, device) as url:
@@ -579,21 +917,30 @@ def serve_phase(params, device):
                     fail(f"request {j} ({m}) {variant}: batched caption "
                          f"{got!r} != serial {want!r}")
         for path, names in (("batched", ("mega_beam_decode",
-                                         "mega_beam_decode_lstm")),
+                                         "mega_beam_decode_lstm",
+                                         "mega_att_beam_decode",
+                                         "mega_att_beam_decode_lstm")),
                             ("serial", ("decode_step_topk",
-                                        "mega_beam_decode_lstm"))):
+                                        "mega_beam_decode_lstm",
+                                        "att_decode_step_topk",
+                                        "att_decode_step_topk_lstm",
+                                        "att_init_state"))):
             for name in names:
                 if launches[path][name] <= 0:
                     fail(f"{name} was not launched on the {path} path")
         words = {v: [len(batched[j][1][v].split())
                      for j in range(len(requests))] for v in SERVED}
-        if max(words["nic"]) == 0:
-            fail("every nic caption is empty")
+        for variant in SERVED[1:]:
+            if max(words[variant]) == 0:
+                fail(f"every {variant} caption is empty")
+        distinct = {v: len({batched[j][1][v] for j in range(len(requests))})
+                    for v in SERVED}
         lat = sorted(r[2] * 1e3 for r in batched.values())
         serial_lat = sorted(r[2] * 1e3 for r in serial.values())
         log(f"serve: {len(requests)} x {len(SERVED)} captions equal on the "
             f"batched and serial paths; words per caption "
-            f"{ {v: (min(w), max(w)) for v, w in words.items()} }; e.g. "
+            f"{ {v: (min(w), max(w)) for v, w in words.items()} }; distinct "
+            f"captions of {len(requests)} {distinct}; e.g. "
             f"{ {v: batched[0][1][v] for v in SERVED} }")
         stats = {"variants": list(SERVED), "requests": len(requests),
                  "wall_s": wall, "captions_per_s": len(requests) / wall,
@@ -603,27 +950,22 @@ def serve_phase(params, device):
                  "serial_captions_per_s": len(requests) / serial_wall,
                  "serial_p50_ms": statistics.median(serial_lat),
                  "image_size": 224, "launches": launches,
+                 "words_min_max": {v: [min(w), max(w)]
+                                   for v, w in words.items()},
+                 "distinct_captions": distinct,
                  "breakdown_ms": request_breakdown(engine, paths)}
         stats["checkpoint_round_trip"] = checkpoint_phase(
             params, device, config, paths[0])
         return launches, stats
 
 
-def reference_checkpoints(params, tmp: str, device):
-    """Reference-style torch checkpoints written under ``tmp``: a StyleNet
-    ``DecoderFactoredLSTM`` state dict (the key names of
-    ``stylenet/model.py:52-94``) from ``params["stylenet"]["decoder"]``, and
-    a full-module pickle of a NIC model (``EncoderCNN`` + ``DecoderRNN`` of
-    ``torch.nn`` modules: Embedding, LSTMCell, Linear, BatchNorm1d) drawn
-    from a seed and shaped to caption, whose classes are gone when it is
-    read.  -> (stylenet path, nic path, the NIC weights as a ``params``
-    entry, built from the modules' tensors by hand)."""
-    import types
+ATT_NETS = ("attention", "attention_happy", "attention_sad",
+            "attention_angry")
 
-    import torch
-    import torch.nn as nn
 
-    dec = params["stylenet"]["decoder"]
+def factored_state_dict(dec):
+    """A StyleNet params tree -> the reference ``DecoderFactoredLSTM`` state
+    dict (the key names of ``stylenet/model.py:52-94``)."""
     sd = {"B.weight": dec["B"], "C.weight": dec["C_w"].T,
           "C.bias": dec["C_b"]}
     for g, name in enumerate(("i", "f", "o", "c")):
@@ -636,9 +978,58 @@ def reference_checkpoints(params, tmp: str, device):
         for st, sp in enumerate(("f", "happy_", "sad_", "angry_")):
             sd[f"S_{sp}{name}.weight"] = dec["S_w"][st, g].T
             sd[f"S_{sp}{name}.bias"] = dec["S_b"][st, g]
-    sty_path = os.path.join(tmp, "stylenet_decoder.pth")
-    torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
-               sty_path)
+    return sd
+
+
+def att_extras_state_dict(dec, nets):
+    """An attention decoder's attention nets (stacked per style when there
+    are four), h/c init projections and gate -> the reference state dict
+    entries (``model_att.py:32-70``, ``:140-164``)."""
+    sd = {}
+    for s, net in enumerate(nets):
+        for ours, theirs in (("enc", "encoder_att"), ("dec", "decoder_att"),
+                             ("full", "full_att")):
+            w, b = dec["attention"][f"{ours}_w"], dec["attention"][f"{ours}_b"]
+            if w.dim() == 3:
+                w, b = w[s], b[s]
+            sd[f"{net}.{theirs}.weight"] = w.T
+            sd[f"{net}.{theirs}.bias"] = b
+    for name in ("init_h", "init_c", "f_beta"):
+        sd[f"{name}.weight"] = dec[f"{name}_w"].T
+        sd[f"{name}.bias"] = dec[f"{name}_b"]
+    return sd
+
+
+def reference_checkpoints(params, tmp: str, device):
+    """Reference-style torch checkpoints written under ``tmp``: StyleNet and
+    StyleNet+Att decoder state dicts (``DecoderFactoredLSTM[Att]``) from
+    ``params``; a full-module pickle of a NIC model (``EncoderCNN`` +
+    ``DecoderRNN`` of ``torch.nn`` modules: Embedding, LSTMCell, Linear,
+    BatchNorm1d) drawn from a seed and shaped to caption; and a full-module
+    pickle of a NIC+Att model (a spatial ``EncoderCNN`` with no head and a
+    ``DecoderRNNAtt`` with its ``Attention`` submodule) holding
+    ``params["nic_att"]``'s weights.  The pickles' classes are gone when
+    they are read.  -> ({variant: path}, the NIC weights as a ``params``
+    entry, built from the modules' tensors by hand)."""
+    import types
+
+    import torch
+    import torch.nn as nn
+
+    def save_state_dict(sd, name):
+        path = os.path.join(tmp, name)
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   path)
+        return path
+
+    sty_path = save_state_dict(
+        factored_state_dict(params["stylenet"]["decoder"]),
+        "stylenet_decoder.pth")
+    att_dec = params["stylenet_att"]["decoder"]
+    sty_att_path = save_state_dict(
+        dict(factored_state_dict(att_dec),
+             **att_extras_state_dict(att_dec, ATT_NETS)),
+        "stylenet_att_decoder.pth")
 
     mod = types.ModuleType("model")
 
@@ -656,7 +1047,31 @@ def reference_checkpoints(params, tmp: str, device):
             self.lstm = nn.LSTMCell(E, H)
             self.linear = nn.Linear(H, V)
 
-    for cls in (EncoderCNN, DecoderRNN):
+    class SpatialEncoderCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.resnet = nn.Sequential(nn.Conv2d(3, 8, 7))
+
+    class Attention(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder_att = nn.Linear(FS, A)
+            self.decoder_att = nn.Linear(H, A)
+            self.full_att = nn.Linear(A, 1)
+
+    class DecoderRNNAtt(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(V, E)
+            self.lstm = nn.LSTMCell(E + FS, H)
+            self.linear = nn.Linear(H, V)
+            self.attention = Attention()
+            self.init_h = nn.Linear(FS, H)
+            self.init_c = nn.Linear(FS, H)
+            self.f_beta = nn.Linear(H, FS)
+
+    for cls in (EncoderCNN, DecoderRNN, SpatialEncoderCNN, Attention,
+                DecoderRNNAtt):
         cls.__module__, cls.__qualname__ = "model", cls.__name__
         setattr(mod, cls.__name__, cls)
     sys.modules["model"] = mod
@@ -670,6 +1085,20 @@ def reference_checkpoints(params, tmp: str, device):
             nic.linear.bias[2] = 2.0
         nic_path = os.path.join(tmp, "HAP_BEST_checkpoint_nic.pth.tar")
         torch.save({"epoch": 1, "encoder": enc, "decoder": nic}, nic_path)
+        na = params["nic_att"]["decoder"]
+        nic_att = DecoderRNNAtt()
+        nic_att.load_state_dict({k: v.detach().cpu() for k, v in dict(
+            att_extras_state_dict(na, ("attention",)),
+            **{"embed.weight": na["embed"],
+               "lstm.weight_ih": na["cell"]["W_ih"].T,
+               "lstm.weight_hh": na["cell"]["W_hh"].T,
+               "lstm.bias_ih": na["cell"]["b_ih"],
+               "lstm.bias_hh": na["cell"]["b_hh"],
+               "linear.weight": na["linear_w"].T,
+               "linear.bias": na["linear_b"]}).items()})
+        nic_att_path = os.path.join(tmp, "HAP_BEST_checkpoint_nic_att.pth.tar")
+        torch.save({"epoch": 1, "encoder": SpatialEncoderCNN(),
+                    "decoder": nic_att}, nic_att_path)
     finally:
         del sys.modules["model"]
     t = {k: v.detach().to(device) for k, v in
@@ -687,26 +1116,26 @@ def reference_checkpoints(params, tmp: str, device):
                  "linear_b": t["enc.linear.bias"],
                  "bn": {k: t[f"enc.bn.{k}"] for k in
                         ("weight", "bias", "running_mean", "running_var")}}}
-    return sty_path, nic_path, nic_params
+    return ({"stylenet": sty_path, "nic": nic_path,
+             "stylenet_att": sty_att_path, "nic_att": nic_att_path},
+            nic_params)
 
 
 def checkpoint_phase(params, device, config, image_path: str):
     """The engine built from reference torch checkpoints captions one
-    request as the engine built from the same weights as ``params``.  The
-    StyleNet state dict carries no encoder, so its head is the variant's
-    seeded template in both engines."""
+    request as the engine built from the same weights as ``params``, all
+    four variants.  The StyleNet state dict carries no encoder, so its head
+    is the variant's seeded template in both engines; the attention
+    variants have no head."""
     import dataclasses
 
     from icee_tpu_torch.core.config import MODES as ALL_MODES
     from icee_tpu_torch.serve.engine import CaptionEngine
 
     with tempfile.TemporaryDirectory() as tmp:
-        sty_path, nic_path, nic_params = reference_checkpoints(params, tmp,
-                                                               device)
-        paths = {v: {m: None for m in ALL_MODES}
+        files, nic_params = reference_checkpoints(params, tmp, device)
+        paths = {v: {m: files[v] for m in ALL_MODES}
                  for v in config.checkpoint_paths}
-        paths["stylenet"] = {m: sty_path for m in ALL_MODES}
-        paths["nic"] = {m: nic_path for m in ALL_MODES}
         t0 = time.perf_counter()
         from_ckpt = CaptionEngine(
             dataclasses.replace(config, checkpoint_paths=paths),
@@ -717,7 +1146,9 @@ def checkpoint_phase(params, device, config, image_path: str):
     from_params = CaptionEngine(config, image_size=224, device=device, params={
         "backbone": params["backbone"], "nic": nic_params,
         "stylenet": {"decoder": params["stylenet"]["decoder"],
-                     "head": sty_head}})
+                     "head": sty_head},
+        "stylenet_att": params["stylenet_att"],
+        "nic_att": params["nic_att"]})
     got = from_ckpt.caption(image_path, "sad")
     want = from_params.caption(image_path, "sad")
     if got != want:
@@ -1424,6 +1855,27 @@ def main() -> int:
         log(f"phase 5: K2 ok, factored {k2['ms']:.3f} ms vs plain "
             f"{k2['plain_ms']:.3f} ms; lstm {k2_lstm['ms']:.3f} ms vs "
             f"plain {k2_lstm['plain_ms']:.3f} ms")
+        att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
+        k6 = {}
+        for kind, dec in att.items():
+            # the serial path's one image (a partly filled head block),
+            # then 64 images, which is also timed
+            serial_args, serial_err, serial_ties = check_k6(
+                dec, kind, device, 1, 16)
+            args, err, ties = check_k6(dec, kind, device, B_IMAGES, 15)
+            k6[kind] = k6_line(kind, args, serial_args,
+                               max(serial_err, err), serial_ties + ties)
+        att_init = check_att_init(att["factored"], device)
+        log(f"phase 5b: K6 ok, factored {k6['factored']['ms']:.3f} ms "
+            f"(serial {k6['factored']['serial_ms']:.3f}) vs plain "
+            f"{k6['factored']['plain_ms']:.3f}; lstm {k6['lstm']['ms']:.3f} "
+            f"ms (serial {k6['lstm']['serial_ms']:.3f}) vs plain "
+            f"{k6['lstm']['plain_ms']:.3f}; h0/c0 {att_init['ms']:.4f} ms")
+        k7 = {kind: check_k7(dec, kind, device) for kind, dec in att.items()}
+        log(f"phase 5c: K7 ok, factored {k7['factored']['ms']:.3f} ms vs "
+            f"plain {k7['factored']['plain_ms']:.3f} ms; lstm "
+            f"{k7['lstm']['ms']:.3f} ms vs plain "
+            f"{k7['lstm']['plain_ms']:.3f} ms")
 
     launches, stats = serve_phase(params, device)
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
@@ -1434,7 +1886,13 @@ def main() -> int:
     k2_lstm["launches_batched_serial"] = [
         launches["batched"]["mega_beam_decode_lstm"],
         launches["serial"]["mega_beam_decode_lstm"]]
-    del params, sty, nic
+    for kind, suffix in (("factored", ""), ("lstm", "_lstm")):
+        k6[kind]["launches"] = launches["serial"]["att_decode_step_topk"
+                                                  + suffix]
+        k7[kind]["launches"] = launches["batched"]["mega_att_beam_decode"
+                                                   + suffix]
+    att_init["launches"] = launches["serial"]["att_init_state"]
+    del params, sty, nic, att
 
     k3f, k3b = check_k3(device)
     k4f, k4b = check_k4(device)
@@ -1465,7 +1923,9 @@ def main() -> int:
                              + nic_launches[entry["name"]])
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
-    print(json.dumps({"kernels": [k1, k2, k2_lstm, k3f, k3b, k4f, k4b, cef,
+    print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
+                                  k6["lstm"], att_init, k7["factored"],
+                                  k7["lstm"], k3f, k3b, k4f, k4b, cef,
                                   ceb]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Import shims: reference torch ``state_dict`` checkpoints -> the port's
 parameter trees (port of ``icee_tpu/checkpoint/torch_import.py``'s
-StyleNet, NIC and encoder-head importers).
+StyleNet, NIC, their attention variants' and the encoder-head importers).
 
 The reference saves raw ``state_dict`` files (``train.py:214-220``, loaded
 by ``sample.py:46-47``) or whole-module pickles (``utils.py:63-90``, whose
@@ -15,7 +15,7 @@ order are the LSTM cell's layout transposed.
 
 Tensors may be torch tensors or numpy arrays; the trees hold contiguous
 float32 CPU tensors (``dtype`` otherwise), to be moved to the device by the
-caller.  The attention and seq2seq importers come with their slices.
+caller.  The seq2seq importer comes with its slice.
 """
 
 from __future__ import annotations
@@ -77,6 +77,54 @@ def import_factored_decoder_state_dict(sd: Mapping,
         "C_b": _linear_b(sd, "C"),
     }
     return {k: _tensor(v, dtype) for k, v in params.items()}
+
+
+def _linear_pair(sd: Mapping, name: str, dtype) -> tuple:
+    return (_tensor(_linear_w(sd, name), dtype),
+            _tensor(_linear_b(sd, name), dtype))
+
+
+def _att_extras(params: dict, sd: Mapping, dtype) -> dict:
+    """The h/c init projections and the context gate, as ``init_h_w`` ...
+    ``f_beta_b``."""
+    for name in ("init_h", "init_c", "f_beta"):
+        params[f"{name}_w"], params[f"{name}_b"] = _linear_pair(sd, name,
+                                                                dtype)
+    return params
+
+
+def import_factored_att_decoder_state_dict(sd: Mapping,
+                                           dtype=torch.float32) -> dict:
+    """``DecoderFactoredLSTMAtt`` state_dict (stylenet/model_att.py:93-164):
+    the factored decoder with input E + 2048, one attention net per style
+    (stacked in style order), the h/c init projections and the gate."""
+    params = import_factored_decoder_state_dict(sd, dtype)
+    att_names = ("attention", "attention_happy", "attention_sad",
+                 "attention_angry")
+    att = {}
+    for ours, theirs in (("enc", "encoder_att"), ("dec", "decoder_att"),
+                         ("full", "full_att")):
+        att[f"{ours}_w"] = np.stack([_linear_w(sd, f"{a}.{theirs}")
+                                     for a in att_names])
+        att[f"{ours}_b"] = np.stack([_linear_b(sd, f"{a}.{theirs}")
+                                     for a in att_names])
+    params["attention"] = {k: _tensor(v, dtype) for k, v in att.items()}
+    return _att_extras(params, sd, dtype)
+
+
+def import_nic_att_decoder_state_dict(sd: Mapping,
+                                      dtype=torch.float32) -> dict:
+    """``DecoderRNNAtt`` state_dict (nic/model_att.py:73-161): embedding +
+    LSTMCell(E + 2048 -> H) + output linear + one attention net + the h/c
+    init projections and the gate."""
+    params = import_nic_decoder_state_dict(sd, dtype)
+    att = {}
+    for ours, theirs in (("enc", "encoder_att"), ("dec", "decoder_att"),
+                         ("full", "full_att")):
+        att[f"{ours}_w"], att[f"{ours}_b"] = _linear_pair(
+            sd, f"attention.{theirs}", dtype)
+    params["attention"] = att
+    return _att_extras(params, sd, dtype)
 
 
 def import_nic_decoder_state_dict(sd: Mapping, dtype=torch.float32) -> dict:

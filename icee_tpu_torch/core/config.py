@@ -1,6 +1,6 @@
 """Typed configuration objects (copy of ``icee_tpu/core/config.py``'s
-``MODES``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig`` and
-``TrainConfig``).
+``MODES``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig``,
+``AttentionDecoderConfig`` and ``TrainConfig``).
 
 Default values mirror the reference defaults: ``embed 300 / hidden 512 /
 factored 512 / dropout 0.5`` (``stylenet/train_multitask.py:621-625``) and
@@ -59,6 +59,19 @@ class DecoderConfig:
     @property
     def input_size(self) -> int:
         return self.embed_size
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionDecoderConfig(DecoderConfig):
+    """Attention variants (``stylenet/model_att.py:73-426``,
+    ``nic/model_att.py:73-306``)."""
+
+    attention_size: int = 512
+
+    @property
+    def input_size(self) -> int:
+        # [word_emb ; gated 2048-dim context] per step
+        return self.embed_size + self.feature_size
 
 
 @dataclasses.dataclass(frozen=True)

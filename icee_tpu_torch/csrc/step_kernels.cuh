@@ -1,0 +1,128 @@
+// The three launches of one decode step (cell, per-tile head partials,
+// merge), shared by K1 (decode_step.cu, the FactoredLSTM step) and K6
+// (att_decode_step.cu, whose cell input is [emb; gated context]).  The cell
+// launch is a template over the weight set (CellWeights or LstmWeights).
+#pragma once
+
+#include "decode_common.cuh"
+
+namespace icee {
+
+constexpr int CELL_ROWS = 8;
+constexpr int HEAD_ROWS = 16;
+constexpr int HEAD_TILES = 4;  // vocab tiles per head block
+constexpr int CELL_THREADS = 512;
+
+template <class W>
+__global__ void __launch_bounds__(CELL_THREADS)
+cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
+            const float* __restrict__ c, W w, float* h_out, float* c_out,
+            int R) {
+  extern __shared__ __align__(16) float smem[];
+  const int Ep = round4(w.E), Hp = round4(w.H), ld = cell_width(w);
+  float* xs = smem;
+  float* hs = xs + CELL_ROWS * Ep;
+  float* s1 = hs + CELL_ROWS * Hp;
+  float* s2 = s1 + CELL_ROWS * ld;
+  const int r0 = blockIdx.x * CELL_ROWS;
+  const int rows = min(CELL_ROWS, R - r0);
+  for (int i = threadIdx.x; i < rows * Ep; i += blockDim.x) {
+    const int r = i / Ep, e = i % Ep;
+    xs[i] = e < w.E ? x[(size_t)(r0 + r) * w.E + e] : 0.f;
+  }
+  for (int i = threadIdx.x; i < rows * Hp; i += blockDim.x) {
+    const int r = i / Hp, j = i % Hp;
+    hs[i] = j < w.H ? h[(size_t)(r0 + r) * w.H + j] : 0.f;
+  }
+  __syncthreads();
+  cell_step<CELL_ROWS>(xs, Ep, hs, Hp, c + (size_t)r0 * w.H, w.H, w, s1, s2,
+                       ld, rows, h_out + (size_t)r0 * w.H, w.H,
+                       c_out + (size_t)r0 * w.H, w.H);
+}
+
+__global__ void __launch_bounds__(HEAD_TILES * QT)
+head_kernel(const float* __restrict__ h, const float* __restrict__ Cw,
+            const float* __restrict__ Cb, float* pm, float* pse, float* pv,
+            int* pi, int R, int H, int V, int n_tiles, int k) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = round4(H);
+  float* hs = smem;
+  float* lt = hs + HEAD_ROWS * Hp;  // (HEAD_TILES, HEAD_ROWS, VT)
+  const int r0 = blockIdx.x * HEAD_ROWS;
+  const int rows = min(HEAD_ROWS, R - r0);
+  const int tile0 = blockIdx.y * HEAD_TILES;
+  for (int i = threadIdx.x; i < rows * Hp; i += blockDim.x) {
+    const int r = i / Hp, j = i % Hp;
+    hs[i] = j < H ? h[(size_t)(r0 + r) * H + j] : 0.f;
+  }
+  __syncthreads();
+  const int tl = threadIdx.x / QT, c4 = 4 * (threadIdx.x % QT);
+  head_quad<HEAD_ROWS>(hs, Hp, rows, Cw, Cb, H, V, (tile0 + tl) * VT + c4,
+                       lt + tl * HEAD_ROWS * VT + c4, VT);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  for (int task = warp; task < HEAD_TILES * rows; task += n_warps) {
+    const int t = task / rows, r = task % rows, tile = tile0 + t;
+    if (tile < n_tiles) {
+      const size_t p = (size_t)(r0 + r) * n_tiles + tile;
+      tile_reduce(lt + (t * HEAD_ROWS + r) * VT, tile * VT, k, pm + p,
+                  pse + p, pv + p * k, pi + p * k);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+merge_kernel(const float* __restrict__ pm, const float* __restrict__ pse,
+             float* pv, const int* __restrict__ pi, float* logp, int* idx,
+             int R, int n_tiles, int k) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= R) return;  // whole warps leave together
+  const size_t p = (size_t)r * n_tiles;
+  merge_row(pm + p, pse + p, pv + p * k, pi + p * k, n_tiles, k,
+            logp + (size_t)r * k, idx + (size_t)r * k);
+}
+
+
+// The cell (x of width w.E), head and merge launches on the caller's
+// stream.  Partials: pm, pse (R, n_tiles); pv, pi (R, n_tiles, k), n_tiles =
+// ceil(V / 256).  Returns the first CUDA error of the three launches.
+template <class W>
+cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
+                             const W& w, const float* Cw, const float* Cb,
+                             float* h_out, float* c_out, float* logp,
+                             int* idx, float* pm, float* pse, float* pv,
+                             int* pi, int R, int V, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (V + VT - 1) / VT;
+  cudaError_t e;
+
+  const size_t cell_smem =
+      sizeof(float) * CELL_ROWS *
+      (round4(w.E) + round4(w.H) + 2 * (size_t)cell_width(w));
+  e = cudaFuncSetAttribute(cell_kernel<W>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)cell_smem);
+  if (e != cudaSuccess) return e;
+  cell_kernel<W><<<(R + CELL_ROWS - 1) / CELL_ROWS, CELL_THREADS, cell_smem, s>>>(
+      x, h, c, w, h_out, c_out, R);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const size_t head_smem =
+      sizeof(float) * HEAD_ROWS * (round4(w.H) + HEAD_TILES * VT);
+  e = cudaFuncSetAttribute(head_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)head_smem);
+  if (e != cudaSuccess) return e;
+  const dim3 head_grid((R + HEAD_ROWS - 1) / HEAD_ROWS,
+                       (n_tiles + HEAD_TILES - 1) / HEAD_TILES);
+  head_kernel<<<head_grid, HEAD_TILES * QT, head_smem, s>>>(
+      h_out, Cw, Cb, pm, pse, pv, pi, R, w.H, V, n_tiles, k);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  merge_kernel<<<(R + 7) / 8, 256, 0, s>>>(pm, pse, pv, pi, logp, idx, R,
+                                           n_tiles, k);
+  return cudaGetLastError();
+}
+
+}  // namespace icee
+

@@ -4,7 +4,9 @@
 Global ``EncoderCNN`` (``stylenet/model.py:11-27``): frozen ResNet-152 minus
 fc -> Linear(2048 -> embed) -> BatchNorm1d(momentum=0.01).  Serving runs the
 BatchNorm on its running statistics; training on the batch statistics, and
-returns the head with its running statistics updated.
+returns the head with its running statistics updated.  The spatial
+``EncoderCNN`` of the attention variants (``model_att.py:22-29``) has no
+head: its features are the backbone's feature map pooled to a 14 x 14 grid.
 """
 
 from __future__ import annotations
@@ -54,3 +56,11 @@ def encode_global_from_pooled(head: dict, pooled: torch.Tensor,
     """Head-only path on cached or freshly pooled backbone features; the
     return follows :func:`apply_head`."""
     return apply_head(head, pooled, train, bn_momentum)
+
+
+def encode_spatial(backbone: dict, images: torch.Tensor,
+                   grid: int = 14) -> torch.Tensor:
+    """Spatial encoder forward -> (B, grid * grid, 2048), flattened for
+    attention (``model_att.py:22-29`` + ``:249``)."""
+    fmap = resnet.spatial_features(backbone, images, grid=grid)
+    return fmap.reshape(fmap.shape[0], grid * grid, fmap.shape[-1])

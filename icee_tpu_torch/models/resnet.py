@@ -159,6 +159,17 @@ class Backbone:
         (model.py:22-26)."""
         return self.forward(images).mean(dim=(1, 2))
 
+    def features(self, images: torch.Tensor, grid: int = 14
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pooled (B, 2048) and flattened spatial (B, grid * grid, 2048)
+        features from ONE pass: the mean and the adaptive pool of the same
+        feature map, as the JAX serving engine's ``_features`` derives
+        both (a second backbone pass per request was a reviewed fault)."""
+        fmap = self.forward(images)
+        spatial = adaptive_avg_pool(fmap, (grid, grid))
+        return fmap.mean(dim=(1, 2)), spatial.reshape(
+            fmap.shape[0], grid * grid, fmap.shape[-1]).contiguous()
+
 
 def forward(params: dict, images: torch.Tensor) -> torch.Tensor:
     """images (B, H, W, 3) normalized NHWC -> feature map (B, H/32, W/32,
@@ -170,6 +181,13 @@ def forward(params: dict, images: torch.Tensor) -> torch.Tensor:
 def global_features(params: dict, images: torch.Tensor) -> torch.Tensor:
     """Pooled (B, 2048) features — global EncoderCNN path (model.py:22-26)."""
     return Backbone(params)(images)
+
+
+def spatial_features(params: dict, images: torch.Tensor,
+                     grid: int = 14) -> torch.Tensor:
+    """(B, grid, grid, 2048) features — spatial EncoderCNN path
+    (model_att.py:22-29)."""
+    return adaptive_avg_pool(Backbone(params).forward(images), (grid, grid))
 
 
 # --- init -----------------------------------------------------------------

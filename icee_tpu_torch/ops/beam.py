@@ -30,8 +30,7 @@ from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.decode_step import (K_MAX, check_decoder_params,
                                             check_kernel_widths)
 
-BEAM_ROWS = 8  # csrc/beam.cu BEAM_ROWS: rows (images x k) per block
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+BEAM_ROWS = 8  # csrc/beam_common.cuh BEAM_ROWS: rows (images x k) per block
 CELLS = ("factored", "lstm")
 
 
@@ -130,9 +129,9 @@ def mega_beam_decode_steps(
 
     lib = _library()
     smem = lib.icee_mega_beam_smem(e, f, hd, v, k, max_seq_length)
-    if smem > SMEM_LIMIT:
+    if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(f"mega_beam_decode needs {smem} bytes of shared "
-                         f"memory per block, more than {SMEM_LIMIT}")
+                         f"memory per block, more than {cuda_lib.SMEM_LIMIT}")
     n_blocks = -(-batch // n_img)
     bp = n_blocks * n_img
     max_len = max_seq_length + 2

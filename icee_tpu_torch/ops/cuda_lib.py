@@ -28,10 +28,13 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("decode_step", "beam", "lstm_scan", "nic_scan", "chunked_ce")
+SOURCES = ("decode_step", "beam", "lstm_scan", "nic_scan", "chunked_ce",
+           "att_decode_step", "att_beam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -53,12 +53,13 @@ def check_decoder_params(params: dict, device: torch.device) -> Tuple[int, ...]:
     return e, f, h, v, ns
 
 
-def check_kernel_widths(f: int, h: int, v: int) -> None:
-    """The kernels read weights as float4 column quads: F, H and V must be
-    multiples of 4."""
-    if f % 4 or h % 4 or v % 4:
-        raise ValueError(f"F={f}, H={h}, V={v}: the CUDA kernels take "
-                         "multiples of 4 only")
+def check_kernel_widths(*dims: int) -> None:
+    """The kernels read weights (and features) as float4 column quads: the
+    widths (F, H, V; A and FS for the attention kernels) must be multiples
+    of 4."""
+    if any(d % 4 for d in dims):
+        raise ValueError(f"widths {dims}: the CUDA kernels take multiples "
+                         "of 4 only")
 
 
 def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,

@@ -6,8 +6,9 @@ CaptionEngine` with the same ``caption(image_path, mode)`` contract.
 Concurrent callers enqueue; a collector thread drains the queue for
 ``window_ms`` or until ``max_batch``, groups requests by mode, runs ONE
 backbone pass per image, and decodes each loaded variant's beams for the
-group with ONE launch of the mega kernel K2 (``cell="factored"`` for
-stylenet, ``cell="lstm"`` for nic).  Groups are padded to the next power of
+group with ONE launch of a whole-search kernel: K2 (``cell="factored"`` for
+stylenet, ``cell="lstm"`` for nic) or K7 (``kind="factored"`` for
+stylenet_att, ``kind="lstm"`` for nic_att, on the spatial features).  Groups are padded to the next power of
 two with copies of the first feature, as in the JAX engine.  Captions equal
 the serial engine's.
 """
@@ -23,7 +24,6 @@ import torch
 
 from icee_tpu_torch.core.config import MODES
 from icee_tpu_torch.serve.config import MODEL_VARIANTS
-from icee_tpu_torch.serve.engine import VARIANTS
 
 
 class _Pending:
@@ -94,8 +94,8 @@ class BatchingEngine:
         self.group_sizes.append(len(items))
         eng = self.engine
         results = [{variant: "-" for variant in MODEL_VARIANTS} for _ in items]
-        loaded = [v for v in VARIANTS if mode in eng.models.get(v, {})]
-        pooled = [eng._features(item.image_path) for item in items] \
+        loaded = [v for v in MODEL_VARIANTS if mode in eng.models.get(v, {})]
+        maps = [eng._features(item.image_path) for item in items] \
             if loaded else []
         n = len(items)
         n_pad = _next_pow2(n)
@@ -103,7 +103,8 @@ class BatchingEngine:
             # the head runs per image, as in the serial path: a GEMM library
             # may pick another summation order for another row count, and
             # the captions must not depend on the group's size
-            feats = torch.cat([eng.head(p, mode, variant) for p in pooled])
+            feats = torch.cat([eng.features(p, s, mode, variant)
+                               for p, s in maps])
             if n_pad != n:
                 feats = torch.cat([feats] + [feats[:1]] * (n_pad - n))
             res = eng.decode(feats, mode, "mega", variant)

@@ -1,27 +1,29 @@
-"""Caption serving engine (port of ``icee_tpu/serve/engine.py``), StyleNet
-and NIC variants.
+"""Caption serving engine (port of ``icee_tpu/serve/engine.py``): the
+``nic``, ``nic_att``, ``stylenet`` and ``stylenet_att`` variants.
 
 Every pipeline is built once at startup; a request runs image decode (host)
--> ONE ResNet-152 pass -> each loaded variant's encoder head -> its beam
+-> ONE ResNet-152 pass, whose feature map gives both the pooled features
+(for the global variants' encoder heads) and the 14 x 14 spatial features
+(for the attention variants, with no head) -> each loaded variant's beam
 decode on the device, with no model IO (the reference unpickles whole
 modules per request, ``app/backend/sample.py:52-97``).  Beam semantics are
-the serving copy's: the image feature is the step-1 input
-(``app/backend/model.py:414-417``).
+the JAX engine's: for ``nic`` and ``stylenet`` the serving copy's, the image
+feature as the step-1 input (``app/backend/model.py:414-417``); for the
+attention variants the research beam, ``<start>`` embedded at step 1 and
+the image entering through h0/c0 and the attention.
 
-This port serves the ``stylenet`` and ``nic`` variants; ``nic_att`` and
-``stylenet_att`` answer ``"-"``, as the JAX engine does for a variant it has
-not loaded.  Weights are random (``smoke_mode``, seeded per variant as in
-the JAX engine), passed in as ``params``, or reference torch checkpoints
-(``.pth`` / ``.tar`` / ``.ckpt``: state dicts or full-module pickles, read
-without the reference's classes).  The JAX package's own orbax checkpoints
-and the attention variants' checkpoints raise: they come with slices 3 and
-5 of the port.
+Weights are random (``smoke_mode``, seeded per variant as in the JAX
+engine), passed in as ``params``, or reference torch checkpoints (``.pth``
+/ ``.tar`` / ``.ckpt``: state dicts or full-module pickles, read without
+the reference's classes).  The JAX package's own orbax checkpoints raise:
+they come with slice 3 of the port.
 
 The serial :meth:`CaptionEngine.caption` decodes StyleNet through the
-``"fused-step"`` path (kernel K1) and NIC through one K2 launch
-(``cell="lstm"``) for its one image;
+``"fused-step"`` path (kernel K1), NIC through one K2 launch
+(``cell="lstm"``) for its one image, and the attention variants through
+``"fused-step"`` (kernel K6);
 :class:`~icee_tpu_torch.serve.batching.BatchingEngine` decodes each mode
-group with one K2 launch per variant.  Both give the same captions.
+group with one K2 or K7 launch per variant.  Both give the same captions.
 """
 
 from __future__ import annotations
@@ -33,14 +35,15 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from icee_tpu_torch.core.config import (MODES, DecoderConfig, EncoderConfig,
-                                        mode_id)
+from icee_tpu_torch.core.config import (MODES, AttentionDecoderConfig,
+                                        DecoderConfig, EncoderConfig, mode_id)
 from icee_tpu_torch.core.device import resolve_device
 from icee_tpu_torch.decode.beam import BeamResult
-from icee_tpu_torch.decode.fast import factored_decode, nic_decode
+from icee_tpu_torch.decode.fast import (attention_decode, factored_decode,
+                                        nic_att_decode, nic_decode)
 from icee_tpu_torch.serve.config import MODEL_VARIANTS, ServeConfig
 
-VARIANTS = ("nic", "stylenet")  # the variants this port serves
+ATT_VARIANTS = ("nic_att", "stylenet_att")  # decode spatial features
 BEAM_K = 5  # beam width of the serving decode, as in the JAX engine
 TORCH_CKPT = (".pth", ".tar", ".ckpt")
 
@@ -54,21 +57,23 @@ def _to(tree, device):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 class CaptionEngine:
     def __init__(self, config: ServeConfig, smoke_mode: bool = False,
                  image_size: int = 224, dec_cfg: Optional[DecoderConfig] = None,
                  enc_cfg: Optional[EncoderConfig] = None, device="cuda",
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 att_cfg: Optional[AttentionDecoderConfig] = None):
         """``smoke_mode``: random seeded weights for each variant with no
         checkpoints configured.  ``params``: ``{"backbone": tree,
-        "stylenet": {"decoder", "head"}, "nic": {"decoder", "head"}}`` in
-        the JAX layout (e.g. from :mod:`icee_tpu_torch.bridge`), any variant
-        may be left out; a variant's trees serve all four modes.  A
-        variant's configured checkpoints take precedence over its
-        ``params``.  The ``*_cfg`` overrides are for tests and small
+        "stylenet": {"decoder", "head"}, "nic": {...}, "stylenet_att":
+        {"decoder"}, "nic_att": {...}}`` in the JAX layout (e.g. from
+        :mod:`icee_tpu_torch.bridge`), any variant may be left out; a
+        variant's trees serve all four modes (the attention variants need
+        no head).  A variant's configured checkpoints take precedence over
+        its ``params``.  The ``*_cfg`` overrides are for tests and small
         deployments; the defaults are the flagship sizes."""
         from icee_tpu_torch.data.vocab import SPECIALS, Vocabulary, load_vocab
         from icee_tpu_torch.models import resnet
@@ -88,13 +93,9 @@ class CaptionEngine:
             raise FileNotFoundError(f"vocab not found: {config.vocab_path}")
 
         self.dec_cfg = dec_cfg or DecoderConfig(vocab_size=len(self.vocab))
+        self.att_cfg = att_cfg or AttentionDecoderConfig(
+            vocab_size=len(self.vocab))
         self.enc_cfg = enc_cfg or EncoderConfig()
-        for variant in MODEL_VARIANTS:
-            if variant not in VARIANTS and any(
-                    config.checkpoint_paths.get(variant, {}).values()):
-                raise NotImplementedError(
-                    f"{variant} checkpoints: the attention variants come "
-                    "with slice 5 of the port")
         params = params or {}
         backbone = params.get("backbone")
         if backbone is None:
@@ -102,7 +103,7 @@ class CaptionEngine:
         # conv weights HWIO -> OIHW once, at load, for cuDNN
         self.backbone = resnet.Backbone(_to(backbone, self.device))
         self.models: Dict[str, Dict[str, Dict[str, dict]]] = {}
-        for variant in VARIANTS:
+        for variant in MODEL_VARIANTS:
             modes = self._load_variant(variant, params.get(variant),
                                        smoke_mode)
             if modes:
@@ -113,14 +114,18 @@ class CaptionEngine:
     def _template(self, variant: str) -> Tuple[dict, dict]:
         """The variant's random seeded (decoder, head), as the JAX engine
         seeds them: ``crc32(variant)``."""
+        from icee_tpu_torch.models import attention as att_mod
         from icee_tpu_torch.models import encoder as enc_mod
         from icee_tpu_torch.models import factored_lstm as fl
         from icee_tpu_torch.models import lstm as nic
 
         seed = zlib.crc32(variant.encode())
-        init = fl.init_params if variant == "stylenet" else nic.init_params
-        dec = init(_generator(seed % (2**31)), self.dec_cfg,
-                   device=self.device)
+        init, cfg = {
+            "stylenet": (fl.init_params, self.dec_cfg),
+            "nic": (nic.init_params, self.dec_cfg),
+            "stylenet_att": (att_mod.init_factored_att_params, self.att_cfg),
+            "nic_att": (att_mod.init_rnn_att_params, self.att_cfg)}[variant]
+        dec = init(_generator(seed % (2**31)), cfg, device=self.device)
         head = enc_mod.init_head_params(_generator(seed % 1000 + 1),
                                         self.enc_cfg, device=self.device)
         return dec, head
@@ -134,7 +139,7 @@ class CaptionEngine:
         if not any(paths.values()):
             if given is not None:
                 pipeline = _to({"decoder": given["decoder"],
-                                "head": given["head"]}, self.device)
+                                "head": given.get("head")}, self.device)
             elif smoke_mode:
                 dec, head = self._template(variant)
                 pipeline = {"decoder": dec, "head": head}
@@ -161,7 +166,9 @@ class CaptionEngine:
         """A reference torch checkpoint -> (decoder, head) on the device: a
         decoder state dict (the head is then the variant's template), or a
         full-module pickle ``{"decoder", "encoder", ...}`` loaded with the
-        stub unpickler, so the reference's classes are not needed."""
+        stub unpickler, so the reference's classes are not needed.  The
+        attention variants' spatial encoder has no head to import (the
+        JAX engine's ``_restore`` looks for one in every full pickle)."""
         from icee_tpu_torch.checkpoint import torch_import as ti
         from icee_tpu_torch.checkpoint.torch_pickle import (load_torch_pickle,
                                                             module_state_dict)
@@ -177,12 +184,13 @@ class CaptionEngine:
             enc_sd = module_state_dict(sd["encoder"])
         else:
             dec_sd, enc_sd = sd, None
-        if variant == "stylenet":
-            dec = ti.import_factored_decoder_state_dict(dec_sd)
-        else:
-            dec = ti.import_nic_decoder_state_dict(dec_sd)
+        dec = {"stylenet": ti.import_factored_decoder_state_dict,
+               "nic": ti.import_nic_decoder_state_dict,
+               "stylenet_att": ti.import_factored_att_decoder_state_dict,
+               "nic_att": ti.import_nic_att_decoder_state_dict}[variant](
+                   dec_sd)
         head = head_template
-        if enc_sd is not None:
+        if enc_sd is not None and variant not in ATT_VARIANTS:
             head = _to(ti.import_encoder_head_state_dict(
                 {k: v for k, v in enc_sd.items()
                  if not k.startswith("resnet.")}), self.device)
@@ -191,14 +199,16 @@ class CaptionEngine:
     # -- inference --------------------------------------------------------
 
     @torch.inference_mode()
-    def _features(self, image_path: str) -> torch.Tensor:
-        """One ResNet-152 pass -> pooled (1, 2048) features, shared by every
-        variant's head."""
+    def _features(self, image_path: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ONE ResNet-152 pass -> pooled (1, 2048) features, shared by the
+        global variants' heads, and spatial (1, 196, 2048) features, shared
+        by the attention variants: both derive from the same feature map
+        (the JAX engine's review found a second backbone pass per request)."""
         from icee_tpu_torch.data.transforms import host_decode_resize, normalize
 
         img = host_decode_resize(image_path, self.image_size)
         x = normalize(torch.tensor(img, device=self.device)[None])
-        return self.backbone(x)
+        return self.backbone.features(x)
 
     @torch.inference_mode()
     def head(self, pooled: torch.Tensor, mode: str,
@@ -210,20 +220,38 @@ class CaptionEngine:
         return enc_mod.encode_global_from_pooled(
             self.models[variant][mode]["head"], pooled)
 
+    def features(self, pooled: torch.Tensor, spatial: torch.Tensor,
+                 mode: str, variant: str) -> torch.Tensor:
+        """The variant's decoder input from one backbone pass: the spatial
+        features (attention variants) or the pooled features through the
+        mode's encoder head, (1, E)."""
+        if variant in ATT_VARIANTS:
+            return spatial
+        return self.head(pooled, mode, variant)
+
     def encode(self, image_path: str, mode: str,
                variant: str = "stylenet") -> torch.Tensor:
-        """Image -> (1, E) step-1 feature (one backbone pass + the head)."""
-        return self.head(self._features(image_path), mode, variant)
+        """Image -> the variant's decoder input (one backbone pass, then the
+        head or the spatial grid)."""
+        return self.features(*self._features(image_path), mode, variant)
 
     @torch.inference_mode()
     def decode(self, feats: torch.Tensor, mode: str, path: str = "mega",
                variant: str = "stylenet") -> BeamResult:
-        """(n, E) features -> beam results for ``n`` images.  StyleNet
-        decodes via ``path`` (``"mega"`` or ``"fused-step"``); NIC has the
-        one path, K2 with the LSTM cell."""
+        """Decoder inputs -> beam results for ``n`` images: (n, E) step-1
+        features, or (n, P, FS) spatial features for the attention
+        variants.  StyleNet and the attention variants decode via ``path``
+        (``"mega"`` or ``"fused-step"``); NIC has the one path, K2 with the
+        LSTM cell."""
         n = feats.shape[0]
-        tiled = feats[:, None, :].expand(n, BEAM_K, feats.shape[1]).contiguous()
         dec = self.models[variant][mode]["decoder"]
+        if variant in ATT_VARIANTS:
+            common = (n, BEAM_K, self.att_cfg.max_seq_length,
+                      self.vocab.start, self.vocab.end)
+            if variant == "nic_att":
+                return nic_att_decode(path, dec, feats, *common)
+            return attention_decode(path, dec, feats, mode_id(mode), *common)
+        tiled = feats[:, None, :].expand(n, BEAM_K, feats.shape[1]).contiguous()
         common = (n, BEAM_K, self.dec_cfg.max_seq_length, self.vocab.start,
                   self.vocab.end)
         if variant == "nic":
@@ -241,15 +269,18 @@ class CaptionEngine:
 
     def caption(self, image_path: str, mode: str) -> Dict[str, str]:
         """Every variant's caption of one image (``run.py:42-57``), from one
-        backbone pass; the stylenet beam runs the fused-step path."""
+        backbone pass; the stylenet and attention beams run the fused-step
+        path."""
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode}")
         out = {variant: "-" for variant in MODEL_VARIANTS}
-        loaded = [v for v in VARIANTS if mode in self.models.get(v, {})]
+        loaded = [v for v in MODEL_VARIANTS
+                  if mode in self.models.get(v, {})]
         if loaded:
-            pooled = self._features(image_path)
+            pooled, spatial = self._features(image_path)
             for variant in loaded:
-                res = self.decode(self.head(pooled, mode, variant), mode,
-                                  "fused-step", variant)
+                res = self.decode(self.features(pooled, spatial, mode,
+                                                variant),
+                                  mode, "fused-step", variant)
                 out[variant] = self._detok(res.tokens[0], res.length[0])
         return out

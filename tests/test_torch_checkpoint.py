@@ -1,5 +1,6 @@
 """Reference torch checkpoints into the port: ``icee_tpu_torch.checkpoint``
-(``torch_import``, ``torch_pickle``) and the ResNet importer/loader of
+(``torch_import``, ``torch_pickle``; the StyleNet, NIC, StyleNet+Att, NIC+Att
+and encoder-head importers) and the ResNet importer/loader of
 ``models/resnet.py``, against the JAX package's importers on the same
 state dicts (made with numpy from seeds), and full-module pickles loaded
 without the reference's classes (as ``tests/test_torch_pickle.py`` sets
@@ -23,19 +24,19 @@ from icee_tpu_torch.checkpoint.torch_pickle import (
     load_reference_full_checkpoint, load_torch_pickle, module_state_dict)
 from icee_tpu_torch.models import resnet
 
-V, E, F, H, FEAT = 30, 6, 8, 10, 12
+V, E, F, H, FEAT, A = 30, 6, 8, 10, 12, 7
 
 
 def _w(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def _factored_sd(seed=0):
+def _factored_sd(seed=0, e_in=E):
     rng = np.random.default_rng(seed)
     sd = {"B.weight": _w(rng, V, E), "C.weight": _w(rng, V, H),
           "C.bias": _w(rng, V)}
     for g in jti.GATES:
-        for name, (o, i) in (("V", (F, E)), ("U", (H, F)), ("W", (H, H))):
+        for name, (o, i) in (("V", (F, e_in)), ("U", (H, F)), ("W", (H, H))):
             sd[f"{name}_{g}.weight"] = _w(rng, o, i)
             sd[f"{name}_{g}.bias"] = _w(rng, o)
         for sp in jti.STYLE_PREFIXES:
@@ -44,13 +45,41 @@ def _factored_sd(seed=0):
     return sd
 
 
-def _nic_sd(seed=1):
+def _nic_sd(seed=1, e_in=E):
     rng = np.random.default_rng(seed)
     return {"embed.weight": _w(rng, V, E),
-            "lstm.weight_ih": _w(rng, 4 * H, E),
+            "lstm.weight_ih": _w(rng, 4 * H, e_in),
             "lstm.weight_hh": _w(rng, 4 * H, H),
             "lstm.bias_ih": _w(rng, 4 * H), "lstm.bias_hh": _w(rng, 4 * H),
             "linear.weight": _w(rng, V, H), "linear.bias": _w(rng, V)}
+
+
+def _att_extras(sd, rng, nets):
+    """The attention nets (``encoder_att``, ``decoder_att``, ``full_att``
+    Linears), the h/c init projections and the gate of an attention
+    decoder's state dict (``model_att.py:32-70``, ``:140-164``)."""
+    for net in nets:
+        for name, (o, i) in (("encoder_att", (A, FEAT)),
+                             ("decoder_att", (A, H)), ("full_att", (1, A))):
+            sd[f"{net}.{name}.weight"] = _w(rng, o, i)
+            sd[f"{net}.{name}.bias"] = _w(rng, o)
+    for name, (o, i) in (("init_h", (H, FEAT)), ("init_c", (H, FEAT)),
+                         ("f_beta", (FEAT, H))):
+        sd[f"{name}.weight"] = _w(rng, o, i)
+        sd[f"{name}.bias"] = _w(rng, o)
+    return sd
+
+
+def _factored_att_sd(seed=4):
+    return _att_extras(_factored_sd(seed, E + FEAT),
+                       np.random.default_rng(seed + 100),
+                       ("attention", "attention_happy", "attention_sad",
+                        "attention_angry"))
+
+
+def _nic_att_sd(seed=5):
+    return _att_extras(_nic_sd(seed, E + FEAT),
+                       np.random.default_rng(seed + 100), ("attention",))
 
 
 def _head_sd(seed=2):
@@ -98,6 +127,8 @@ def _same(got, want):
     ("import_factored_decoder_state_dict", _factored_sd),
     ("import_nic_decoder_state_dict", _nic_sd),
     ("import_encoder_head_state_dict", _head_sd),
+    ("import_factored_att_decoder_state_dict", _factored_att_sd),
+    ("import_nic_att_decoder_state_dict", _nic_att_sd),
 ])
 def test_importers_match_jax(name, make):
     sd = make()
@@ -105,6 +136,22 @@ def test_importers_match_jax(name, make):
     # torch tensors in, the same trees out
     _same(getattr(ti, name)({k: torch.tensor(v) for k, v in sd.items()}),
           getattr(jti, name)(sd))
+
+
+def test_attention_importers_stack_the_style_nets():
+    """StyleNet+Att's four per-style nets stack in style order; NIC+Att's
+    one net stays unstacked."""
+    sd = _factored_att_sd()
+    got = ti.import_factored_att_decoder_state_dict(sd)
+    assert got["attention"]["enc_w"].shape == (4, FEAT, A)
+    assert got["attention"]["full_w"].shape == (4, A, 1)
+    np.testing.assert_array_equal(got["attention"]["dec_w"][2].numpy(),
+                                  sd["attention_sad.decoder_att.weight"].T)
+    assert got["V_w"].shape == (E + FEAT, 4 * F)
+    nic = ti.import_nic_att_decoder_state_dict(_nic_att_sd())
+    assert nic["attention"]["enc_w"].shape == (FEAT, A)
+    assert nic["cell"]["W_ih"].shape == (E + FEAT, 4 * H)
+    assert nic["f_beta_w"].shape == (H, FEAT)
 
 
 def test_resnet_import_and_loader_match_jax(tmp_path):

@@ -9,7 +9,10 @@ chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
 clamp, and the whole loss on the card against the CPU.  K4 (the NIC
 training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
 grad, and the same bits on a second run.  K2 with the LSTM cell: both
-feature modes, batch padding and an early end.
+feature modes, batch padding and an early end.  K6 and K7 (the attention
+step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
+vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
+step) bit-identical to K7.
 
 These tests need an NVIDIA GPU and skip elsewhere (marker ``cuda``).  On a
 host with the card, and without JAX, run them as
@@ -28,8 +31,11 @@ import pytest
 import torch
 
 from icee_tpu_torch import bridge
-from icee_tpu_torch.decode.fast import factored_decode
+from icee_tpu_torch.decode.fast import (attention_decode, factored_decode,
+                                        nic_att_decode)
 from icee_tpu_torch.ops import chunked_loss, lstm_scan, nic_scan
+from icee_tpu_torch.models import attention as att_mod
+from icee_tpu_torch.ops import att_beam, att_decode_step
 from icee_tpu_torch.ops.beam import mega_beam_decode, mega_beam_decode_plain
 from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                             decode_step_topk_plain)
@@ -391,3 +397,145 @@ def test_nic_wrappers_raise_on_what_the_kernels_do_not_take(device):
                          cell="lstm")
     with pytest.raises(ValueError, match="unknown cell"):
         mega_beam_decode(params, None, 0, 2, k=4, cell="gru")
+
+
+def _att_params(device, kind, vocab=516, e=30, f=40, h=48, a=20, fs=64,
+                seed=11, gain=1.5, end_bias=2.0):
+    """Random attention-decoder weights in the JAX layout, N(0, gain^2 /
+    fan_in) with a sharper head and a bias on <end>, so beams complete at
+    several lengths."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        scale = gain / np.sqrt(shape[-2]) if len(shape) >= 2 else 0.3
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    if kind == "factored":
+        p = {"B": w(vocab, e), "V_w": w(e + fs, 4 * f), "V_b": w(4, f),
+             "S_w": w(4, 4, f, f), "S_b": w(4, 4, f), "U_w": w(4, f, h),
+             "U_b": w(4, h), "W_w": w(h, 4 * h), "W_b": w(4, h),
+             "C_w": 3 * w(h, vocab), "C_b": w(vocab),
+             "attention": {"enc_w": w(4, fs, a), "enc_b": w(4, a),
+                           "dec_w": w(4, h, a), "dec_b": w(4, a),
+                           "full_w": w(4, a, 1), "full_b": w(4, 1)}}
+        p["C_b"][2] = end_bias
+    else:
+        p = {"embed": w(vocab, e),
+             "cell": {"W_ih": w(e + fs, 4 * h), "W_hh": w(h, 4 * h),
+                      "b_ih": w(4 * h), "b_hh": w(4 * h)},
+             "linear_w": 3 * w(h, vocab), "linear_b": w(vocab),
+             "attention": {"enc_w": w(fs, a), "enc_b": w(a),
+                           "dec_w": w(h, a), "dec_b": w(a),
+                           "full_w": w(a, 1), "full_b": w(1)}}
+        p["linear_b"][2] = end_bias
+    p.update({"init_h_w": w(fs, h), "init_h_b": w(h), "init_c_w": w(fs, h),
+              "init_c_b": w(h), "f_beta_w": w(h, fs), "f_beta_b": w(fs)})
+    return bridge.to_torch(p, device=device)
+
+
+def _att_counts():
+    return (att_decode_step.att_decode_step_topk.launches,
+            att_decode_step.att_decode_step_topk.lstm_launches,
+            att_decode_step.att_init_state.launches,
+            att_beam.mega_att_beam_decode.launches,
+            att_beam.mega_att_beam_decode.lstm_launches)
+
+
+@pytest.mark.parametrize("kind,n_img,k,p", [("factored", 3, 5, 9),
+                                            ("lstm", 4, 3, 196)])
+def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
+    params = _att_params(device, kind)
+    cell, att, gate = att_decode_step.step_params(params, kind, 2)
+    g = torch.Generator(device=device).manual_seed(n_img)
+    rows = n_img * k
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device)
+                for d in (30, 48, 48))
+    feats = torch.rand((n_img, p, 64), generator=g, device=device)
+    att1 = att_mod.att_projection(att, feats)
+    before = _att_counts()
+    got = att_decode_step.att_decode_step_topk(cell, att, gate, x, hh, c,
+                                               feats, att1, kind, k, ktop=k)
+    want = att_decode_step.att_decode_step_topk_plain(
+        cell, att, gate, x, hh, c, feats, att1, kind, k, ktop=k)
+    torch.cuda.synchronize()
+    after = list(before)
+    after[0 if kind == "factored" else 1] += 1
+    assert _att_counts() == tuple(after)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+
+
+def test_att_init_state_kernel_matches_plain(device):
+    params = _att_params(device, "lstm")
+    feats = torch.rand((3, 196, 64), device=device)
+    before = att_decode_step.att_init_state.launches
+    h0, c0 = att_decode_step.att_init_state(params, feats)
+    want_h, want_c = att_mod.init_hidden_state(params, feats)
+    torch.cuda.synchronize()
+    assert att_decode_step.att_init_state.launches == before + 1
+    torch.testing.assert_close(h0, want_h, rtol=0, atol=1e-5)
+    torch.testing.assert_close(c0, want_c, rtol=0, atol=1e-5)
+
+
+ATT_BEAM_WEIGHTS = {"factored": dict(vocab=36, seed=14, end_bias=1.0),
+                    "lstm": {}}
+
+
+@pytest.mark.parametrize("kind,k", [("factored", 5), ("lstm", 5),
+                                    ("factored", 3)])
+def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k):
+    # weights whose beams end at several lengths (checked below)
+    params = _att_params(device, kind, **ATT_BEAM_WEIGHTS[kind])
+    batch, steps = 6, 9
+    feats = torch.tensor(np.random.default_rng(k).random(
+        (batch, 9, 64), dtype=np.float32), device=device)
+    before = _att_counts()
+    got, block_steps = att_beam.mega_att_beam_decode_steps(
+        params, feats, 1, batch, k=k, max_seq_length=steps, kind=kind)
+    torch.cuda.synchronize()
+    after = list(before)
+    after[3 if kind == "factored" else 4] += 1
+    assert _att_counts() == tuple(after)
+    want = att_beam.mega_att_beam_decode_plain(params, feats, 1, batch, k=k,
+                                               max_seq_length=steps,
+                                               kind=kind)
+    torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    assert len(set(got.length.tolist())) > 1, got.length
+    assert int(block_steps.max()) <= steps + 1
+    assert (block_steps >= got.length - 1).all()
+    # the serial serving path (K6 in the Python beam from the h0/c0
+    # kernel) is bit-identical
+    args = (batch, k, steps, 1, 2)
+    fused = (attention_decode("fused-step", params, feats, 1, *args)
+             if kind == "factored"
+             else nic_att_decode("fused-step", params, feats, *args))
+    torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
+    torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
+
+
+def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    params = _att_params(device, "lstm", a=18)    # A % 4 != 0
+    feats = torch.rand((2, 9, 64), device=device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=4, kind="lstm")
+    params = _att_params(device, "factored")
+    with pytest.raises(ValueError, match="expected"):
+        att_beam.mega_att_beam_decode(params, feats.cpu(), 0, 2, k=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        att_beam.mega_att_beam_decode(
+            _att_params(device, "factored", fs=4096, f=512, h=512),
+            torch.rand((2, 9, 4096), device=device), 0, 2, k=8)
+    cell, att, gate = att_decode_step.step_params(params, "factored", 0)
+    x = torch.zeros((6, 30), device=device)
+    h = torch.zeros((6, 48), device=device)
+    with pytest.raises(ValueError, match="rows"):
+        att_decode_step.att_decode_step_topk(
+            cell, att, gate, x, h, h, feats, att_mod.att_projection(att, feats),
+            k=4, ktop=4)

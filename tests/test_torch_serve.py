@@ -1,11 +1,13 @@
 """The serving slice as a whole: the port's CaptionEngine (serial: K1 for
-stylenet, K2 with the LSTM cell for nic), BatchingEngine (one K2 launch per
-variant) and HTTP ``POST /generate`` against the JAX engines' ``stylenet``
-and ``nic`` captions, with the JAX engine's weights bridged across and the
-tiny configs of ``tests/test_serve_batching.py``.  Captions must be
-identical.  Engines built from reference torch checkpoints (a decoder state
-dict and a full-module pickle, written here from the same weights) caption
-as the engines built from ``params``."""
+stylenet, K2 with the LSTM cell for nic, K6 for the attention variants),
+BatchingEngine (one K2 or K7 launch per variant) and HTTP ``POST
+/generate`` against the JAX engines' captions of all four variants
+(``nic``, ``nic_att``, ``stylenet``, ``stylenet_att``), with the JAX
+engine's weights bridged across and the tiny configs of
+``tests/test_serve_batching.py``.  Captions must be identical.  Engines
+built from reference torch checkpoints (decoder state dicts and full-module
+pickles, written here from the same weights) caption as the engines built
+from ``params``."""
 
 import json
 import sys
@@ -20,12 +22,16 @@ import torch
 from PIL import Image
 
 from icee_tpu_torch import bridge
+from icee_tpu_torch.core.config import AttentionDecoderConfig as AttConfig
 from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
 from icee_tpu_torch.serve.config import MODEL_VARIANTS, ServeConfig
 
 torch.set_num_threads(2)
 MODES = ("factual", "happy", "sad", "angry")
-SERVED = ("nic", "stylenet")
+SERVED = MODEL_VARIANTS
+# attention weights: (seed, scale of the weights that read the 2048-wide
+# features, <end> bias)
+ATT_SHAPE = {"stylenet_att": (8, 0.6, 0.0), "nic_att": (9, 2.0, 1.0)}
 
 
 def _resnet_npz(path):
@@ -88,12 +94,13 @@ def engines(tmp_path_factory):
     dims = dict(vocab_size=v, embed_size=8, hidden_size=12, factored_size=12,
                 max_seq_length=5)
     _resnet_npz(str(tmp / "resnet.npz"))
+    att_dims = dict(attention_size=8, **dims)
     jeng = JCaptionEngine(
         JServeConfig(vocab_path=str(tmp / "vocab.pkl"),
                      image_folder=str(tmp),
                      resnet_weights=str(tmp / "resnet.npz")),
         smoke_mode=True, image_size=32, dec_cfg=JDecoderConfig(**dims),
-        att_cfg=AttentionDecoderConfig(attention_size=8, **dims),
+        att_cfg=AttentionDecoderConfig(**att_dims),
         enc_cfg=JEncoderConfig(embed_size=8))
     # Weights that caption: the smoke init gives every image the bare
     # [<end>] fallback (its head logits barely move).  N(0, 1) decoder
@@ -112,8 +119,26 @@ def engines(tmp_path_factory):
         head["linear_w"] = head["linear_w"] * np.float32(30.0)
         head["linear_b"] = head["linear_b"] * np.float32(30.0)
         trees[variant] = {"decoder": dec, "head": head}
-    # only stylenet and nic are compared: the JAX engine answers "-" for
-    # the attention variants, as the port does, instead of compiling them
+    # The attention decoders: N(0, 1) weights too, except where they read
+    # the 2048-wide features (init_h/init_c, enc_w and the cell's context
+    # rows), scaled so the image moves h0 and the context; with the <end>
+    # bias, captions of zero to several words that depend on the image (the
+    # attention variants have no encoder head)
+    for variant, (seed, scale, end_bias) in ATT_SHAPE.items():
+        arng = np.random.default_rng(seed)
+
+        def redraw(a, scale=scale, arng=arng):
+            w = arng.standard_normal(a.shape).astype(np.float32)
+            return w * np.float32(scale) if a.ndim >= 2 and \
+                a.shape[-2] >= 2048 else w
+
+        dec = jax.tree.map(lambda a: redraw(np.asarray(a)),
+                           jeng.models[variant]["happy"]["decoder"])
+        cell_w, b = ((dec["V_w"], "C_b") if variant == "stylenet_att"
+                     else (dec["cell"]["W_ih"], "linear_b"))
+        cell_w[dims["embed_size"]:] *= np.float32(scale)
+        dec[b][vocab.end] = end_bias
+        trees[variant] = {"decoder": dec}
     jeng.models = {}
     for variant, tree in trees.items():
         pipeline = jax.tree.map(jax.numpy.asarray, tree)
@@ -125,7 +150,8 @@ def engines(tmp_path_factory):
         ServeConfig(vocab_path=str(tmp / "vocab.pkl"),
                     image_folder=str(tmp / "uploads")),
         image_size=32, dec_cfg=DecoderConfig(**dims),
-        enc_cfg=EncoderConfig(embed_size=8), device="cpu", params=params)
+        enc_cfg=EncoderConfig(embed_size=8), device="cpu", params=params,
+        att_cfg=AttConfig(**att_dims))
     want = {(p, m): {v: c for v, c in jeng.caption(p, m).items()
                      if v in SERVED}
             for p in paths for m in MODES}
@@ -137,7 +163,6 @@ def test_serial_engine_matches_jax_captions(engines):
     for (p, m), captions in want.items():
         got = eng.caption(p, m)
         assert {v: got[v] for v in SERVED} == captions, (p, m)
-        assert all(got[v] == "-" for v in MODEL_VARIANTS if v not in SERVED)
     for variant in SERVED:
         lengths = {len(c[variant].split()) for c in want.values()}
         assert len(lengths) > 1, f"{variant}: captions of one length"
@@ -191,6 +216,91 @@ def _factored_state_dict(dec):
     return {k: v.contiguous().clone() for k, v in sd.items()}
 
 
+ATT_NETS = ("attention", "attention_happy", "attention_sad",
+            "attention_angry")
+ATT_LINEARS = (("enc", "encoder_att"), ("dec", "decoder_att"),
+               ("full", "full_att"))
+
+
+def _att_extras_state_dict(dec, nets):
+    """The attention nets, h/c init projections and gate of an attention
+    decoder's params -> the reference state dict entries (the inverse of
+    the attention importers)."""
+    sd = {}
+    for s, net in enumerate(nets):
+        for ours, theirs in ATT_LINEARS:
+            w, b = dec["attention"][f"{ours}_w"], dec["attention"][f"{ours}_b"]
+            if w.dim() == 3:   # stacked per style
+                w, b = w[s], b[s]
+            sd[f"{net}.{theirs}.weight"] = w.T
+            sd[f"{net}.{theirs}.bias"] = b
+    for name in ("init_h", "init_c", "f_beta"):
+        sd[f"{name}.weight"] = dec[f"{name}_w"].T
+        sd[f"{name}.bias"] = dec[f"{name}_b"]
+    return sd
+
+
+def _factored_att_state_dict(dec):
+    """A StyleNet+Att params tree -> the reference ``DecoderFactoredLSTMAtt``
+    state dict."""
+    sd = dict(_factored_state_dict(dec), **_att_extras_state_dict(dec,
+                                                                  ATT_NETS))
+    return {k: v.contiguous().clone() for k, v in sd.items()}
+
+
+def _save_nic_att_full_pickle(path, dec):
+    """The reference's full checkpoint of a NIC+Att model: a spatial
+    ``EncoderCNN`` (the ResNet only, no head) and a ``DecoderRNNAtt`` with
+    its ``Attention`` submodule, pickled as whole modules whose classes then
+    vanish."""
+    import torch.nn as nn
+
+    mod = types.ModuleType("model_att")
+    v, e = dec["embed"].shape
+    h = dec["cell"]["W_hh"].shape[0]
+    fs, a = dec["attention"]["enc_w"].shape
+
+    class EncoderCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.resnet = nn.Sequential(nn.Conv2d(3, 4, 1))
+
+    class Attention(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder_att = nn.Linear(fs, a)
+            self.decoder_att = nn.Linear(h, a)
+            self.full_att = nn.Linear(a, 1)
+
+    class DecoderRNNAtt(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(v, e)
+            self.lstm = nn.LSTMCell(e + fs, h)
+            self.linear = nn.Linear(h, v)
+            self.attention = Attention()
+            self.init_h = nn.Linear(fs, h)
+            self.init_c = nn.Linear(fs, h)
+            self.f_beta = nn.Linear(h, fs)
+
+    for cls in (EncoderCNN, Attention, DecoderRNNAtt):
+        cls.__module__, cls.__qualname__ = "model_att", cls.__name__
+        setattr(mod, cls.__name__, cls)
+    sys.modules["model_att"] = mod
+    try:
+        d = DecoderRNNAtt()
+        c = dec["cell"]
+        d.load_state_dict(dict(
+            _att_extras_state_dict(dec, ("attention",)),
+            **{"embed.weight": dec["embed"], "lstm.weight_ih": c["W_ih"].T,
+               "lstm.weight_hh": c["W_hh"].T, "lstm.bias_ih": c["b_ih"],
+               "lstm.bias_hh": c["b_hh"], "linear.weight": dec["linear_w"].T,
+               "linear.bias": dec["linear_b"]}))
+        torch.save({"epoch": 1, "encoder": EncoderCNN(), "decoder": d}, path)
+    finally:
+        del sys.modules["model_att"]
+
+
 def _save_nic_full_pickle(path, dec, head):
     """The reference's full checkpoint of a NIC model: ``{"encoder":
     EncoderCNN, "decoder": DecoderRNN, ...}`` pickled as whole modules whose
@@ -236,9 +346,11 @@ def _save_nic_full_pickle(path, dec, head):
 
 
 def test_engines_from_torch_checkpoints_caption_as_params(engines, tmp_path):
-    """stylenet from a decoder state dict (the head is then the variant's
-    seeded template, as in the JAX engine), nic from a full-module pickle
-    with its encoder head; the backbone from the torchvision-keyed .npz."""
+    """stylenet and stylenet_att from decoder state dicts (stylenet's head
+    is then the variant's seeded template, as in the JAX engine), nic from
+    a full-module pickle with its encoder head and nic_att from one whose
+    spatial encoder has no head; the backbone from the torchvision-keyed
+    .npz."""
     import dataclasses
     import os
 
@@ -250,17 +362,25 @@ def test_engines_from_torch_checkpoints_caption_as_params(engines, tmp_path):
     torch.save(_factored_state_dict(params["stylenet"]["decoder"]), sty_path)
     _save_nic_full_pickle(nic_path, params["nic"]["decoder"],
                           params["nic"]["head"])
-    ckpts = {v: {m: None for m in MODES} for v in MODEL_VARIANTS}
-    ckpts["stylenet"] = {m: sty_path for m in MODES}
-    ckpts["nic"] = {m: nic_path for m in MODES}
+    sty_att_path = str(tmp_path / "stylenet_att.pth")
+    nic_att_path = str(tmp_path / "HAP_BEST_checkpoint_nic_att.pth.tar")
+    torch.save(_factored_att_state_dict(params["stylenet_att"]["decoder"]),
+               sty_att_path)
+    _save_nic_att_full_pickle(nic_att_path, params["nic_att"]["decoder"])
+    paths_by_variant = {"stylenet": sty_path, "nic": nic_path,
+                        "stylenet_att": sty_att_path, "nic_att": nic_att_path}
+    ckpts = {v: {m: paths_by_variant[v] for m in MODES}
+             for v in MODEL_VARIANTS}
     config = dataclasses.replace(
         eng.config, checkpoint_paths=ckpts, resnet_weights=os.path.join(
             os.path.dirname(eng.config.vocab_path), "resnet.npz"))
     kw = dict(image_size=32, dec_cfg=eng.dec_cfg, enc_cfg=eng.enc_cfg,
-              device="cpu")
+              att_cfg=eng.att_cfg, device="cpu")
     from_ckpt = CaptionEngine(config, **kw)
     # one decoder per checkpoint file, shared by the four modes
-    assert len({id(from_ckpt.models["nic"][m]["decoder"]) for m in MODES}) == 1
+    for variant in MODEL_VARIANTS:
+        assert len({id(from_ckpt.models[variant][m]["decoder"])
+                    for m in MODES}) == 1
     sty_head = from_ckpt.models["stylenet"]["happy"]["head"]
     from_params = CaptionEngine(dataclasses.replace(eng.config), params=dict(
         params, stylenet={"decoder": params["stylenet"]["decoder"],
@@ -269,12 +389,8 @@ def test_engines_from_torch_checkpoints_caption_as_params(engines, tmp_path):
         for m in ("factual", "sad"):
             got = from_ckpt.caption(p, m)
             assert got == from_params.caption(p, m), (p, m)
-            assert got["nic"] == want[(p, m)]["nic"]
-    for variant in ("nic_att", "stylenet_att"):
-        bad = dataclasses.replace(config, checkpoint_paths=dict(
-            ckpts, **{variant: {m: nic_path for m in MODES}}))
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            CaptionEngine(bad, **kw)
+            for variant in ("nic", "nic_att", "stylenet_att"):
+                assert got[variant] == want[(p, m)][variant], (p, m, variant)
     orbax = dataclasses.replace(config, checkpoint_paths=dict(
         ckpts, nic={m: str(tmp_path) for m in MODES}))
     with pytest.raises(NotImplementedError, match="orbax"):
@@ -323,13 +439,12 @@ def test_http_generate_matches_jax_captions(engines):
         for key, (status, body) in out.items():
             assert status == 200
             assert {v: body[v] for v in SERVED} == want[key], key
-            assert body["nic_att"] == "-" and body["path_img"].startswith(
-                "/images/")
+            assert body["path_img"].startswith("/images/")
         name = out[(paths[0], "happy")][1]["path_img"]
         with urllib.request.urlopen(url + name, timeout=30) as resp:
             assert resp.read() == open(paths[0], "rb").read()
         status, body = _post(url, paths[0], "nonexistent")
-        assert status == 200 and body["stylenet"] == "-"
+        assert status == 200 and set(body.values()) == {"-"}
     finally:
         httpd.shutdown()
         httpd.server_close()
