@@ -52,11 +52,27 @@ Phases, in order; any failure exits non-zero:
    before and read just after; 3 steps at the reference's teacher-forcing
    ratio 0.8; one ``val_step``; the step time and captions/s (and, for
    StyleNet, the device-busy share and device time by kernel);
-10. print one ``{"train": {...}}`` line, one ``{"serve": {...}}`` line and
-   one ``{"kernels": [...]}`` line (K1, K2 factored and lstm, K6 factored
-   and lstm, the h0/c0 kernel, K7 factored and lstm, K3 and K4 forward and
-   backward, CE forward and backward);
-11. print ``{"ok": true, "device": {...}}`` as the last line.
+10. K5 (``fused_att_scan`` and ``fused_att_scan_sampled``, the attention
+   training scan) forward and backward vs their plain versions at B=128,
+   T=25, full width (A=512, P=196, FS=2048), both cells, features drawn
+   with numpy as N(0, 1) x 0.1 (``bench.py:221-222``): the sampled argmax
+   trace margin-aware (a differing token must tie the plain one within
+   1e-4), then the plain scan rerun on the kernel's trace; the backward
+   the same bits twice; times of the kernel, the plain version and the
+   library chain (per-step cuBLAS and torch calls, forward and through
+   autograd);
+11. training StyleNet+Att then NIC+Att at B=128, T=25: one factual step at
+   ratio 1.0 on the kernel path vs the plain path, 30 factual + 30 emotion
+   steps at the reference's ratio 0.8 (K5 sampled) whose loss must fall,
+   3 steps at ratio 1.0 (K5 teacher-forced), every K5 and CE count reset
+   to 0 just before and read just after; one ``val_step``; step time,
+   captions/s, device-busy share and device time by kernel;
+12. print one ``{"train": {...}}`` line (with ``nic`` and ``att``
+   entries), one ``{"serve": {...}}`` line and one ``{"kernels": [...]}``
+   line (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel,
+   K7 factored and lstm, K3 and K4 forward and backward, CE forward and
+   backward, K5 forward and backward for both cells and both modes);
+13. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -1808,6 +1824,520 @@ def train_phase(device, factored: bool = True):
         "val": {"loss": v_loss, "top5": v_top5}}
 
 
+# --- phases 10-11: attention training (K5) -----------------------------------
+
+B_ATT, B_ATT_EMOTION = 128, 96   # bench.py's attention training batch
+
+
+def att_train_decoder(kind: str, device, seed: int):
+    """Seeded flagship-width attention decoder (the model's init) with
+    non-zero biases, and its config."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch import bridge
+    from icee_tpu_torch.core.config import AttentionDecoderConfig
+    from icee_tpu_torch.models import attention as att_mod
+
+    cfg = AttentionDecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                                 factored_size=F, feature_size=FS,
+                                 attention_size=A, dropout=0.5)
+    init = (att_mod.init_factored_att_params if kind == "factored"
+            else att_mod.init_rnn_att_params)
+    dec = bridge.to_numpy(init(torch.Generator().manual_seed(seed), cfg))
+    rng = np.random.default_rng(seed)
+
+    def noisy(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                noisy(v)
+            elif k.endswith("_b") or k in ("b_ih", "b_hh"):
+                tree[k] = (v + 0.1 * rng.standard_normal(v.shape)).astype(
+                    np.float32)
+    noisy(dec)
+    return bridge.to_torch(dec, device=device), cfg
+
+
+def att_train_features(device, b: int, seed: int):
+    """Spatial features N(0, 1) x 0.1 drawn with numpy (bench.py:221-222)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.tensor((0.1 * rng.standard_normal((b, P, FS))).astype(
+        np.float32), device=device)
+
+
+def k5_inputs(kind: str, device, sampled: bool, seed: int):
+    """K5's inputs at B_ATT x T_STEPS through the model's own repacking
+    (style 2), captions of training_batch's language; -> (args, samp, (dh,
+    dalpha) cotangents, dec)."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+
+    dec, cfg = att_train_decoder(kind, device, seed)
+    fam = att_mod._Family(dec, cfg, 2, kind == "factored")
+    feats = att_train_features(device, B_ATT, seed + 1)
+    _, caps, _, _ = training_batch(device, B_ATT, seed + 2)
+    att = att_mod.select_attention(dec, 2)
+    cell, katt = fam.kernel_params(att)
+    with torch.no_grad():
+        att1 = feats @ att["enc_w"] + att["enc_b"]
+        h0, c0 = att_mod.init_hidden_state(dec, feats)
+    args = (cell, katt, fam.embed(caps), att1, feats, h0, c0, kind)
+    rng = np.random.default_rng(seed + 3)
+    samp = None
+    if sampled:
+        coins = (rng.random(T_STEPS) < 0.8).astype(np.float32)
+        coins[0] = 0.0      # the t = 0 bootstrap from emb_raw
+        samp = {"head": {"C_w": fam.head_w, "C_b": fam.head_b,
+                         "B": fam.table},
+                "emb_raw": fam.embed(caps[:, :1]),
+                "coins": torch.tensor(coins, device=device)}
+    cot = tuple(torch.tensor((0.02 * rng.standard_normal(s)).astype(
+        np.float32), device=device)
+        for s in ((B_ATT, T_STEPS, H), (B_ATT, T_STEPS, P)))
+    return args, samp, cot
+
+
+def k5_flops_bytes(kind: str, sampled: bool):
+    """(forward FLOPs, forward bytes, backward FLOPs, backward bytes) of K5
+    at B_ATT x T_STEPS: every product and pass once per step; bytes count
+    each input read once and each output written once."""
+    b, t = B_ATT, T_STEPS
+    ncat, ex = A + FS + 4 * H, E + FS
+    g4 = 4 * (F if kind == "factored" else H)
+    cell_extra = 4 * F * F + 4 * F * H if kind == "factored" else 0
+    attend = P * A + P * FS
+    fwd = 2 * b * t * (H * ncat + attend + ex * g4 + cell_extra)
+    bwd = (2 * b * t * (g4 * ex + cell_extra + attend + ncat * H)
+           + 4 * b * t * P * A
+           + 2 * b * t * (H * ncat + ex * g4 + cell_extra))
+    weights = H * ncat + ex * g4 + cell_extra + A + 1 + g4 + 4 * H
+    if sampled:
+        fwd += 2 * b * t * H * V
+        weights += H * V + V + V * E
+    big = b * P * (A + FS)
+    seq_out = b * t * (2 * H + P)
+    f_bytes = 4 * (big + weights + b * t * E + 2 * b * H + seq_out)
+    b_bytes = 4 * (big + 2 * weights + 2 * b * t * E + 2 * b * H
+                   + 2 * seq_out + b * P * A + 2 * b * H)
+    return fwd, f_bytes, bwd, b_bytes
+
+
+def k5_library_scan(args, samp, grad: bool = False):
+    """The scan as a per-step chain of cuBLAS and torch calls (the library
+    yardstick): addmm for att2 and the gate, a broadcast relu-score,
+    softmax, bmm for the context, the cell's addmm / baddbmm products, and
+    for the sampled scan addmm + argmax + the embedding gather.  -> (h_seq,
+    alphas, the leaves) with autograd when ``grad``."""
+    import torch
+
+    cell, att, emb, att1, feats, h0, c0, kind = args
+    leaves = []
+    if grad:
+        cell = {k: v.detach().requires_grad_(True) for k, v in cell.items()}
+        att = {k: v.detach().requires_grad_(True) for k, v in att.items()}
+        leaves = list(cell.values()) + list(att.values())
+    with torch.set_grad_enabled(grad):
+        h, c = h0, c0
+        b = h.shape[0]
+        prev = None if samp is None else samp["emb_raw"][:, 0]
+        coins = None if samp is None else samp["coins"].tolist()
+        w_in = torch.cat([cell["V_we"], cell["V_wc"]] if kind == "factored"
+                         else [cell["W_ihe"], cell["W_ihc"]])
+        hs, alphas = [], []
+        for t in range(emb.shape[1]):
+            att2 = torch.addmm(att["dec_b"], h, att["dec_w"])
+            e = torch.relu(att1 + att2[:, None]) @ att["full_w"]
+            alpha = torch.softmax(e[..., 0] + att["full_b"], dim=-1)
+            ctx = torch.bmm(alpha[:, None], feats)[:, 0]
+            gate = torch.sigmoid(torch.addmm(att["fb_b"], h, att["fb_w"]))
+            x_e = emb[:, t] if coins is None or coins[t] else prev
+            x = torch.cat([x_e, gate * ctx], dim=-1)
+            if kind == "factored":
+                v = torch.addmm(cell["V_b"].reshape(-1), x, w_in)
+                v = v.reshape(b, 4, F).transpose(0, 1)
+                s = torch.baddbmm(cell["S_b"][:, None], v, cell["S_w"])
+                u = torch.baddbmm(cell["U_b"][:, None], s, cell["U_w"])
+                z = u.transpose(0, 1) + torch.addmm(
+                    cell["W_b"].reshape(-1), h, cell["W_w"]).reshape(b, 4, H)
+                i_t, f_t, o_t = (torch.sigmoid(z[:, q]) for q in range(3))
+                c = f_t * c + i_t * torch.tanh(z[:, 3])
+                h = o_t * c
+            else:
+                z = (torch.addmm(cell["b_ih"], x, w_in)
+                     + torch.addmm(cell["b_hh"], h, cell["W_hh"])
+                     ).reshape(b, 4, H)
+                i_t, f_t, o_t = (torch.sigmoid(z[:, q]) for q in (0, 1, 3))
+                c = f_t * c + i_t * torch.tanh(z[:, 2])
+                h = o_t * torch.tanh(c)
+            if samp is not None:
+                logits = torch.addmm(samp["head"]["C_b"], h.detach(),
+                                     samp["head"]["C_w"])
+                prev = samp["head"]["B"][torch.argmax(logits, dim=-1)]
+            hs.append(h)
+            alphas.append(alpha)
+        return torch.stack(hs, 1), torch.stack(alphas, 1), leaves
+
+
+def k5_trace_check(kind, args, samp, pidx, plain_h):
+    """Margin-aware check of the kernel's argmax trace against the plain
+    scan's: rows are independent, so at each row's first differing step
+    the plain logits of the two tokens must lie within 1e-4 (a near tie
+    that float32 sums in another order can flip).  -> number of rows that
+    flipped."""
+    import torch
+
+    plain_pidx = plain_h[3]
+    diff = pidx.long() != plain_pidx
+    flips = 0
+    for row in torch.nonzero(diff.any(0)).flatten().tolist():
+        t = int(torch.nonzero(diff[:, row])[0])
+        logits = (plain_h[0][row, t] @ samp["head"]["C_w"]
+                  + samp["head"]["C_b"])
+        gap = (logits[int(pidx[t, row])]
+               - logits[int(plain_pidx[t, row])]).abs().item()
+        if not gap <= 1e-4:
+            fail(f"K5 sampled {kind}: row {row} step {t}: kernel token "
+                 f"{int(pidx[t, row])} vs plain {int(plain_pidx[t, row])}, "
+                 f"logit gap {gap} > 1e-4")
+        flips += 1
+    return flips
+
+
+def check_k5(kind: str, sampled: bool, device):
+    """Phase 10: K5 forward and backward vs the plain versions at B_ATT x
+    T_STEPS, full width.  Forward: h and c atol 1e-4 (float32 sums over up
+    to FS + E = 2348 terms in other orders, values O(1)), alpha atol 1e-5;
+    the sampled trace margin-aware (k5_trace_check), then the plain scan
+    rerun on the kernel's trace.  Backward (the plain backward from the
+    kernel forward's outputs): each grad's max abs error <= 1e-3 x its
+    largest magnitude, and the same bits on a second run.  -> (forward,
+    backward) entries of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import att_scan
+
+    args, samp, (dh, da) = k5_inputs(kind, device, sampled,
+                                     50 + 2 * sampled + (kind == "lstm"))
+    with torch.no_grad():
+        h, a, res = att_scan.att_scan_fwd(*args, samp)
+        flips = 0
+        if sampled:
+            plain_args = (*args[:2], samp["head"], args[2], samp["emb_raw"],
+                          *args[3:7], samp["coins"], kind)
+            free = att_scan.fused_att_scan_sampled_plain(*plain_args)
+            flips = k5_trace_check(kind, args, samp, res["pidx"], free)
+            want = att_scan.fused_att_scan_sampled_plain(
+                *plain_args, forced_pidx=res["pidx"])
+        else:
+            want = att_scan.fused_att_scan_plain(*args)
+        g = att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, kind, samp)
+        g2 = att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, kind, samp)
+        # the plain backward on the forward's att2: relu'(att1 + att2)
+        # jumps at 0, and an att2 recomputed in another summation order
+        # flips the mask of the positions within rounding of 0 (reported
+        # below as the recomputed comparison, not held to the tolerance)
+        att2 = res["buf"]["hp"][:, :, :A].transpose(0, 1)
+        ref = att_scan.att_scan_grads_plain(*args[:7], h, a, res, dh, da,
+                                            kind, samp, att2)
+        ref_recomputed = att_scan.att_scan_grads_plain(
+            *args[:7], h, a, res, dh, da, kind, samp)
+    torch.cuda.synchronize()
+    errs = {"h": (h - want[0]).abs().max().item(),
+            "c": (res["c_seq"] - want[2]).abs().max().item()}
+    alpha_err = (a - want[1]).abs().max().item()
+    mode = "sampled" if sampled else "teacher"
+    for name, err in errs.items():
+        if not err <= 1e-4:
+            fail(f"K5 {mode} {kind} forward: {name} error {err} > 1e-4")
+    if not alpha_err <= 1e-5:
+        fail(f"K5 {mode} {kind} forward: alpha error {alpha_err} > 1e-5")
+    from icee_tpu_torch.train.optim import tree_leaves
+
+    def named(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from named(v, prefix + k + ".")
+            else:
+                yield prefix + k, v
+
+    rel, abs_err = {}, 0.0
+    ref_named = dict(named(ref))
+    recomputed = dict(named(ref_recomputed))
+    recomputed_rel = {}
+    for name, got in named(g):
+        want_g = ref_named[name]
+        recomputed_rel[name] = max_rel_err(got, recomputed[name])
+        abs_err = max(abs_err, (got - want_g).abs().max().item())
+        if name == "att.full_b":
+            # sum over all rows of sum_p d_e, 0 in exact arithmetic: both
+            # sides hold rounding noise, held to 1e-5 in absolute terms
+            full_b = (got.abs().item(), want_g.abs().item())
+            if not max(full_b) <= 1e-5:
+                fail(f"K5 {mode} {kind} backward: full_b grads {full_b}, "
+                     "not within 1e-5 of 0")
+            continue
+        rel[name] = max_rel_err(got, want_g)
+        if not rel[name] <= 1e-3:
+            fail(f"K5 {mode} {kind} backward: d{name} error {rel[name]} x "
+                 "max|g| > 1e-3")
+    if not all(torch.equal(x, y) for x, y in zip(tree_leaves(g),
+                                                  tree_leaves(g2))):
+        fail(f"K5 {mode} {kind} backward: two runs on the same inputs "
+             "differ")
+    log(f"K5 {mode} {kind}: h/c max abs err {errs}, alpha {alpha_err:.3g}"
+        f"{f', trace flips {flips}' if sampled else ''}; grads max err / "
+        f"max|g| {max(rel.values()):.3g} (worst "
+        f"{max(rel, key=rel.get)}), full_b {full_b}; against a plain "
+        f"backward that recomputes att2 "
+        f"{max(recomputed_rel.values()):.3g} (worst "
+        f"{max(recomputed_rel, key=recomputed_rel.get)}); backward "
+        "bit-identical over two runs")
+
+    # times: kernel, plain version, library chain; forward then backward
+    ms_f = cuda_ms(lambda: att_scan.att_scan_fwd(*args, samp), 5)
+    with torch.no_grad():
+        if sampled:
+            plain_f = cuda_ms(lambda: att_scan.fused_att_scan_sampled_plain(
+                *plain_args), 2)
+        else:
+            plain_f = cuda_ms(lambda: att_scan.fused_att_scan_plain(*args),
+                              2)
+        lib_f = cuda_ms(lambda: k5_library_scan(args, samp), 3)
+        ms_b = cuda_ms(lambda: att_scan.att_scan_bwd(
+            *args[:7], h, a, res, dh, da, kind, samp), 5)
+        plain_b = cuda_ms(lambda: att_scan.att_scan_grads_plain(
+            *args[:7], h, a, res, dh, da, kind, samp), 2)
+    lh, la, leaves = k5_library_scan(args, samp, grad=True)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(
+        (lh, la), leaves, (dh, da), retain_graph=True), 3)
+    del lh, la, leaves
+    flops_f, bytes_f, flops_b, bytes_b = k5_flops_bytes(kind, sampled)
+    bf, bf_by = bound_ms(flops_f, bytes_f)
+    bb, bb_by = bound_ms(flops_b, bytes_b)
+    name = "fused_att_scan" + ("_sampled" if sampled else "") + (
+        "_lstm" if kind == "lstm" else "")
+    line = ":887" if sampled else ":540"
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/att_scan.cu",
+              "kind": kind, "mode": mode, "B": B_ATT, "T": T_STEPS,
+              "library_note": "per-step chain: addmm, relu-score, softmax, "
+                              "bmm, the cell's addmm/baddbmm"
+                              + (", head addmm + argmax" if sampled else "")
+                              + "; backward through autograd"}
+    return (dict(common, name=name + "_fwd",
+                 replaces=f"icee_tpu/ops/pallas_att_train.py:623 ({line}, "
+                          f"kind=\"{kind}\")",
+                 max_abs_err=max(max(errs.values()), alpha_err),
+                 trace_flips=flips, ms=ms_f, plain_ms=plain_f,
+                 library_ms=lib_f, bound_ms=bf, bound_by=bf_by),
+            dict(common, name=name + "_bwd",
+                 replaces=f"icee_tpu/ops/pallas_att_train.py:758 ({line}, "
+                          f"kind=\"{kind}\")",
+                 max_abs_err=abs_err, max_rel_err=max(rel.values()),
+                 recomputed_att2_max_rel_err=max(recomputed_rel.values()),
+                 ms=ms_b, plain_ms=plain_b, library_ms=lib_b, bound_ms=bb,
+                 bound_by=bb_by))
+
+
+def att_train_batch(device, b: int, seed: int):
+    """training_batch's captions (T_STEPS + 1 tokens: the model consumes
+    [:, :-1] and predicts [:, 1:]) with spatial features."""
+    import torch
+
+    _, caps, lengths, mask = training_batch(device, b, seed)
+    start = torch.full((b, 1), 1, dtype=caps.dtype, device=device)
+    return (att_train_features(device, b, seed), torch.cat([start, caps], 1),
+            lengths + 1, mask)
+
+
+def k5_counters():
+    from icee_tpu_torch.ops import att_scan
+
+    out = {}
+    for kind in ("factored", "lstm"):
+        for sampled in (False, True):
+            attr = att_scan.counter_name(kind, sampled)
+            tag = "_sampled" if sampled else ""
+            lstm = "_lstm" if kind == "lstm" else ""
+            out[f"fused_att_scan{tag}{lstm}_fwd"] = (att_scan.att_scan_fwd,
+                                                      attr)
+            out[f"fused_att_scan{tag}{lstm}_bwd"] = (att_scan.att_scan_bwd,
+                                                      attr)
+    return out
+
+
+def train_att_phase(device, factored: bool = True):
+    """Phase 11: the StyleNet+Att (``factored``) or NIC+Att train step at
+    flagship width, B_ATT x T_STEPS."""
+    import math
+
+    import torch
+
+    from icee_tpu_torch.core.config import TrainConfig
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.train import optim
+    from icee_tpu_torch.train.steps import make_attention_steps
+
+    kind = "factored" if factored else "lstm"
+    model = "stylenet_att" if factored else "nic_att"
+    counters = {k: v for k, v in k5_counters().items()
+                if (k.endswith("_lstm_fwd") or k.endswith("_lstm_bwd"))
+                == (not factored)}
+    counters.update(ce_rows=(cl.ce_rows, "launches"),
+                    ce_grad_rows=(cl.ce_grad_rows, "launches"))
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    _, cfg = att_train_decoder(kind, "cpu", 0)
+
+    def build(**kw):
+        tcfg = TrainConfig(teacher_forcing_ratio=kw.pop("ratio", 0.8), **kw)
+        return make_attention_steps(cfg, tcfg,
+                                    optim.make_adam(tcfg.lr_caption, tcfg),
+                                    optim.make_adam(tcfg.lr_language, tcfg),
+                                    factored=factored, device=device)
+
+    kernel, plain = build(), build(fused_scan=False, chunked_ce=False)
+    teacher = build(ratio=1.0)
+    plain_teacher = build(ratio=1.0, fused_scan=False, chunked_ce=False)
+    if not (kernel.use_fused and kernel.use_chunked):
+        fail("the CUDA attention steps did not select the kernel path")
+    fac_batches = [att_train_batch(device, B_ATT, 60 + i) for i in range(4)]
+    emo_batches = [att_train_batch(device, B_ATT_EMOTION, 70 + i)
+                   for i in range(4)]
+
+    # (i) one factual step at ratio 1.0, kernel path vs plain path, same
+    # weights and draws.  Tolerances as phase 9: loss atol 1e-4, each grad
+    # 1e-3 x its largest magnitude + 1e-7.  (Ratio 0.8's argmax trace can
+    # flip at a near tie between the two paths; phase 10 holds the sampled
+    # kernel margin-aware.)
+    dec, _ = att_train_decoder(kind, device, 12)
+    out = {}
+    for name, steps in (("kernel", teacher), ("plain", plain_teacher)):
+        gen = torch.Generator(device=device).manual_seed(40)
+        loss, grads = steps.factual_grads(dec, *fac_batches[0],
+                                          generator=gen)
+        out[name] = (loss, optim.tree_leaves(grads))
+    torch.cuda.synchronize()
+    loss_err = (out["kernel"][0] - out["plain"][0]).abs().item()
+    pairs = [(a, b) for a, b in zip(out["kernel"][1], out["plain"][1])
+             if b is not None]
+    grad_errs = [max_rel_err(a, b) for a, b in pairs]
+    if not (loss_err <= 1e-4 and all(
+            (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() + 1e-7
+            for a, b in pairs)):
+        fail(f"{model} first step: kernel vs plain loss err {loss_err}, "
+             f"grad errs {grad_errs}")
+    log(f"phase 11 (i), {model}: first factual step at ratio 1.0, kernel vs "
+        f"plain: loss {out['kernel'][0].item():.6f} vs "
+        f"{out['plain'][0].item():.6f}, grad err / max|g| worst "
+        f"{max(grad_errs):.3g}")
+
+    # (ii) 30 factual then 30 emotion steps at the reference's ratio 0.8:
+    # the main training path, every K5 and CE count from 0 just before and
+    # read just after
+    dec, _ = att_train_decoder(kind, device, 12)
+    gen = torch.Generator(device=device).manual_seed(41)
+    fac_state = kernel.optimizer.init(dec)
+    emo_state = kernel.lang_optimizer.init(dec)
+    reset()
+    fac_losses, emo_losses = [], []
+    for i in range(30):
+        *_, loss = kernel.factual_train_step(dec, fac_state,
+                                             *fac_batches[i % 4],
+                                             generator=gen)
+        fac_losses.append(loss)
+    for i in range(30):
+        *_, loss = kernel.emotion_train_step(dec, emo_state,
+                                             *emo_batches[i % 4], 1,
+                                             generator=gen)
+        emo_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read()
+    fac_losses = [x.item() for x in fac_losses]
+    emo_losses = [x.item() for x in emo_losses]
+    drops = {}
+    for track, ls in (("factual", fac_losses), ("emotion", emo_losses)):
+        if not all(math.isfinite(x) for x in ls):
+            fail(f"{model} {track} losses not finite: {ls}")
+        first, last = sum(ls[:4]) / 4, sum(ls[-4:]) / 4
+        drops[track] = last / first
+        if not last <= LOSS_FALL * first:
+            fail(f"{model} {track} loss did not fall: first cycle {first}, "
+                 f"last {last} > {LOSS_FALL} x first")
+    log(f"phase 11 (ii), {model}: ratio 0.8 losses factual "
+        f"{fac_losses[0]:.4f} -> {fac_losses[-1]:.4f}, emotion "
+        f"{emo_losses[0]:.4f} -> {emo_losses[-1]:.4f}; last/first cycle "
+        f"{drops}; launches {launches}")
+
+    # (iii) ratio 1.0: the teacher-forced K5 kernels
+    t_state = teacher.optimizer.init(dec)
+    before = read()
+    t_losses = []
+    for i in range(3):
+        *_, loss = teacher.factual_train_step(dec, t_state,
+                                              *fac_batches[i],
+                                              generator=gen)
+        t_losses.append(loss.item())
+    after = read()
+    t_launches = {k: after[k] - before[k] for k in after}
+    for k, n in t_launches.items():
+        launches[k] += n
+    if not all(math.isfinite(x) for x in t_losses):
+        fail(f"{model} ratio 1.0 losses {t_losses}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} was not launched on the {model} training path")
+
+    # (iv) validation: free-running
+    v_loss, v_top5, _ = kernel.val_step(dec, *fac_batches[0], 1)
+    v_loss, v_top5 = v_loss.item(), v_top5.item()
+    if not (math.isfinite(v_loss) and 0.0 <= v_top5 <= 100.0):
+        fail(f"{model} val_step: loss {v_loss}, top5 {v_top5}")
+    log(f"phase 11 (iii)-(iv), {model}: ratio 1.0 losses {t_losses}, "
+        f"launches {t_launches}; val loss {v_loss:.4f}, top-5 "
+        f"{v_top5:.2f}%")
+
+    # step times: the whole factual step at ratio 0.8, Adam included
+    def kernel_step():
+        kernel.factual_train_step(dec, fac_state, *fac_batches[1],
+                                  generator=gen)
+
+    def plain_step():
+        plain.factual_train_step(dec, plain_state, *fac_batches[1],
+                                 generator=gen)
+
+    plain_state = plain.optimizer.init(dec)
+    ms = step_ms(kernel_step, 10)
+    plain_ms = step_ms(plain_step, 3)
+    busy = device_busy_share(kernel_step)
+    by_kernel = device_time_by_kernel(kernel_step)
+    return launches, {
+        "config": {"B": B_ATT, "B_emotion": B_ATT_EMOTION, "T": T_STEPS,
+                   "V": V, "E": E, "H": H, "F": F, "A": A, "P": P, "FS": FS,
+                   "dropout": 0.5, "teacher_forcing_ratio": 0.8,
+                   "lr": [2e-4, 5e-4], "alpha_c": 1.0},
+        "factual_step_ms": ms, "captions_per_s": B_ATT / ms * 1e3,
+        "plain_factual_step_ms": plain_ms,
+        "plain_captions_per_s": B_ATT / plain_ms * 1e3,
+        "device_busy_share": busy, "device_ms_by_kernel": by_kernel,
+        "launches_ratio_1.0_3_steps": t_launches,
+        "first_step_kernel_vs_plain": {"loss_err": loss_err,
+                                       "grad_rel_errs_max": max(grad_errs)},
+        "factual_losses": fac_losses, "emotion_losses": emo_losses,
+        "last_over_first_cycle": drops, "ratio_1.0_losses": t_losses,
+        "val": {"loss": v_loss, "top5": v_top5}}
+
+
 def main() -> int:
     import torch
 
@@ -1921,12 +2451,34 @@ def main() -> int:
     for entry in (cef, ceb):   # both decoders' runs use the CE kernels
         entry["launches"] = (train_launches[entry["name"]]
                              + nic_launches[entry["name"]])
+    k5 = []
+    for kind in ("factored", "lstm"):
+        for sampled in (False, True):
+            k5.extend(check_k5(kind, sampled, device))
+    log("phase 10: K5 ok, " + "; ".join(
+        f"{e['name']} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
+        f"{e['library_ms']:.3f})" for e in k5))
+    att_launches = {}
+    train["att"] = {}
+    for factored in (True, False):
+        launched, stats_att = train_att_phase(device, factored)
+        for k, n in launched.items():
+            att_launches[k] = att_launches.get(k, 0) + n
+        train["att"]["stylenet_att" if factored else "nic_att"] = stats_att
+    log("phase 11: attention factual step at ratio 0.8: " + "; ".join(
+        f"{m} {st['factual_step_ms']:.3f} ms, {st['captions_per_s']:.1f} "
+        f"captions/s (plain {st['plain_factual_step_ms']:.3f} ms)"
+        for m, st in train["att"].items()))
+    for entry in k5:
+        entry["launches"] = att_launches[entry["name"]]
+    for entry in (cef, ceb):   # the attention steps use the CE kernels too
+        entry["launches"] += att_launches[entry["name"]]
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
-                                  ceb]}))
+                                  ceb, *k5]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

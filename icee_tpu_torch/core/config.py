@@ -101,9 +101,11 @@ class TrainConfig:
     alpha_c: float = 1.0              # attention regularizer weight
     resize_size: int = 336
     crop_size: int = 224
-    # The training scan through the hand-written CUDA kernel K3
-    # (ops/lstm_scan.py; teacher-forced path only).  None = on when the
-    # tensors are on CUDA; on the CPU the kernel's plain version runs.
+    # The training scan through the hand-written CUDA kernels: K3
+    # (ops/lstm_scan.py, StyleNet) and K4 (ops/nic_scan.py, NIC) on the
+    # teacher-forced path; K5 (ops/att_scan.py, StyleNet+Att and NIC+Att)
+    # teacher-forced and scheduled-sampling.  None = on when the tensors
+    # are on CUDA; on the CPU the kernels' plain versions run.
     fused_scan: Optional[bool] = None
     # The training CE in time chunks from the hidden states
     # (ops/chunked_loss.py): the (B, T, V) logits never exist whole.

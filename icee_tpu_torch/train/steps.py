@@ -1,6 +1,8 @@
 """Training and validation steps of the global-feature captioners, StyleNet
 (factored decoder) and NIC (port of
-``icee_tpu/train/steps.py::make_caption_steps``).
+``icee_tpu/train/steps.py::make_caption_steps``), and of the attention
+captioners, StyleNet+Att and NIC+Att (``make_attention_steps``; see
+:class:`AttentionSteps`).
 
 One step: encoder head on cached pooled features (BatchNorm in training
 mode), the decoder's training forward, the masked token-mean CE, the
@@ -27,10 +29,13 @@ from typing import Tuple
 
 import torch
 
-from icee_tpu_torch.core.config import DecoderConfig, TrainConfig
+from icee_tpu_torch.core.config import (AttentionDecoderConfig,
+                                        DecoderConfig, TrainConfig)
 from icee_tpu_torch.core.device import resolve_device
-from icee_tpu_torch.evaluation.metrics import (masked_cross_entropy,
+from icee_tpu_torch.evaluation.metrics import (length_mask,
+                                               masked_cross_entropy,
                                                masked_top_k_accuracy)
+from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.models import encoder as enc_mod
 from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
@@ -75,10 +80,10 @@ def _merge_bn_stats(head: dict, forward_head: dict) -> None:
         head["bn"][k].copy_(forward_head["bn"][k])
 
 
-class CaptionSteps:
-    """The three steps of :func:`make_caption_steps`; unpacks as
-    ``factual_train_step, emotion_train_step, val_step``.  ``factual_grads``
-    and ``emotion_grads`` give a step's loss and pre-optimizer gradients."""
+class _Steps:
+    """What the caption and attention steps share: the device, the
+    optimizers, the kernel switches (``fused_scan`` / ``chunked_ce`` None =
+    on for CUDA) and the device check."""
 
     def __init__(self, cfg: DecoderConfig, tcfg: TrainConfig,
                  optimizer: Adam, lang_optimizer: Adam,
@@ -101,6 +106,16 @@ class CaptionSteps:
                 raise ValueError(f"step built for {self.device} was given "
                                  f"a tensor on {x.device}")
 
+    def _head(self, d):
+        return ((d["C_w"], d["C_b"]) if self.factored
+                else (d["linear_w"], d["linear_b"]))
+
+
+class CaptionSteps(_Steps):
+    """The three steps of :func:`make_caption_steps`; unpacks as
+    ``factual_train_step, emotion_train_step, val_step``.  ``factual_grads``
+    and ``emotion_grads`` give a step's loss and pre-optimizer gradients."""
+
     def _forward(self, d, captions, feats, style, hiddens=False, **kw):
         """The decoder's training forward -> logits, or hidden states with
         ``hiddens``; NIC ignores ``style``."""
@@ -109,10 +124,6 @@ class CaptionSteps:
             return fn(d, self.cfg, captions, feats, style, **kw)
         fn = nic.forward_hiddens if hiddens else nic.forward
         return fn(d, self.cfg, captions, feats, **kw)
-
-    def _head(self, d):
-        return ((d["C_w"], d["C_b"]) if self.factored
-                else (d["linear_w"], d["linear_b"]))
 
     def _train_loss(self, d, h, pooled, captions, lengths, sample_mask,
                     style, generator, keep, coins):
@@ -197,6 +208,13 @@ class CaptionSteps:
         return loss, top5, torch.argmax(logits, dim=-1)
 
 
+def _step_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
                        optimizer: Adam, lang_optimizer: Adam,
                        factored: bool = True,
@@ -209,7 +227,132 @@ def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
     (``train_multitask.py:163-167``).  ``device`` is CUDA unless the caller
     asks for the CPU; a step given tensors elsewhere raises.
     """
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer, dev, factored)
+    return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer,
+                        _step_device(device), factored)
+
+
+class AttentionSteps(_Steps):
+    """The steps of :func:`make_attention_steps` (port of
+    ``icee_tpu/train/steps.py::make_attention_steps``); unpacks as
+    ``factual_train_step, emotion_train_step, val_step``.
+
+    The spatial features are the encoder's output and it has no trainable
+    parameters, so both optimizers cover the whole decoder
+    (``train_multitask_att.py:165-166``).  The model consumes
+    ``captions[:, :-1]`` and predicts ``captions[:, 1:]`` with lengths - 1
+    (``train_multitask_att.py:308-311``); the loss is the masked token-mean
+    CE plus ``alpha_c`` times the doubly-stochastic regulariser
+    ``mean((1 - sum_t alpha)^2)`` over valid steps and rows (``:322-323``).
+    On CUDA the decoder runs K5 (``ops/att_scan.py``), teacher-forced at
+    ratio 1.0 and sampled below, and the loss the chunked CE kernels; NIC+Att
+    (``factored=False``) ignores ``style``.
+    """
+
+    def _forward(self, d, captions, feats, style, hiddens=False, **kw):
+        if self.factored:
+            fn = (att_mod.factored_att_forward_hiddens if hiddens
+                  else att_mod.factored_att_forward)
+            return fn(d, self.cfg, captions, feats, style, **kw)
+        fn = (att_mod.rnn_att_forward_hiddens if hiddens
+              else att_mod.rnn_att_forward)
+        return fn(d, self.cfg, captions, feats, **kw)
+
+    @staticmethod
+    def _att_reg(alphas, tgt_len, sample_mask):
+        """mean over valid rows and positions of (1 - sum_t alpha)^2, the
+        steps past a caption's length contributing no attention."""
+        mask = length_mask(tgt_len, alphas.shape[1]) & sample_mask[:, None]
+        a = torch.where(mask[..., None], alphas, 0.0)
+        rows = sample_mask.to(alphas.dtype)
+        n_valid = rows.sum().clamp(min=1)
+        return torch.sum((1.0 - a.sum(1)) ** 2 * rows[:, None]) / (
+            n_valid * alphas.shape[-1])
+
+    def _loss(self, d, features, captions, lengths, sample_mask, style,
+              chunked, **kw):
+        """-> (CE + alpha_c x regulariser, logits or None, targets,
+        target lengths)."""
+        captions_in, targets = captions[:, :-1], captions[:, 1:]
+        tgt_len = (lengths - 1).clamp(min=0)
+        sample_mask = sample_mask.bool()
+        if chunked:
+            hiddens, alphas = self._forward(d, captions_in, features, style,
+                                            hiddens=True, **kw)
+            ce, logits = masked_ce_from_hiddens(
+                hiddens, *self._head(d), targets, tgt_len,
+                sample_mask), None
+        else:
+            logits, alphas = self._forward(d, captions_in, features, style,
+                                           **kw)
+            ce = masked_cross_entropy(logits, targets, tgt_len, sample_mask)
+        reg = self._att_reg(alphas, tgt_len, sample_mask)
+        return ce + self.tcfg.alpha_c * reg, logits, targets, tgt_len
+
+    def _grads(self, dec, features, captions, lengths, sample_mask, style,
+               generator, keep, coins):
+        self._check_device(dec, features, captions, lengths, sample_mask)
+        with torch.enable_grad():
+            d = _track(dec)
+            loss = self._loss(
+                d, features, captions, lengths, sample_mask, style,
+                self.use_chunked,
+                teacher_forcing_ratio=self.tcfg.teacher_forcing_ratio,
+                generator=generator, train=True, fused_scan=self.use_fused,
+                keep=keep, coins=coins)[0]
+            grads = _grads_like(d, loss)
+        return loss.detach(), grads
+
+    def factual_grads(self, dec, features, captions, lengths, sample_mask,
+                      generator=None, keep=None, coins=None):
+        """-> (loss, decoder grads) of the factual track (style 0)."""
+        return self._grads(dec, features, captions, lengths, sample_mask, 0,
+                           generator, keep, coins)
+
+    def emotion_grads(self, dec, features, captions, lengths, sample_mask,
+                      style, generator=None, keep=None, coins=None):
+        """-> (loss, decoder grads) of the emotion track for ``style``."""
+        return self._grads(dec, features, captions, lengths, sample_mask,
+                           int(style), generator, keep, coins)
+
+    def factual_train_step(self, dec, opt_state: AdamState, features,
+                           captions, lengths, sample_mask, generator=None,
+                           keep=None, coins=None):
+        """-> (dec, opt_state, loss), the decoder updated in place."""
+        loss, grads = self.factual_grads(dec, features, captions, lengths,
+                                         sample_mask, generator, keep, coins)
+        self.optimizer.update(grads, opt_state, dec)
+        return dec, opt_state, loss
+
+    def emotion_train_step(self, dec, opt_state: AdamState, features,
+                           captions, lengths, sample_mask, style,
+                           generator=None, keep=None, coins=None):
+        """The emotion (language) track: ``lang_optimizer``, in place."""
+        loss, grads = self.emotion_grads(dec, features, captions, lengths,
+                                         sample_mask, style, generator, keep,
+                                         coins)
+        self.lang_optimizer.update(grads, opt_state, dec)
+        return dec, opt_state, loss
+
+    @torch.no_grad()
+    def val_step(self, dec, features, captions, lengths, sample_mask,
+                 style) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Free-running (ratio 0) forward -> (loss with the regulariser,
+        top-5 %, argmax preds (B, T - 1))."""
+        self._check_device(dec, features, captions, lengths, sample_mask)
+        loss, logits, targets, tgt_len = self._loss(
+            dec, features, captions, lengths, sample_mask, int(style), False,
+            teacher_forcing_ratio=0.0, train=False)
+        top5 = masked_top_k_accuracy(logits, targets, tgt_len, 5,
+                                     sample_mask.bool())
+        return loss, top5, torch.argmax(logits, dim=-1)
+
+
+def make_attention_steps(cfg: AttentionDecoderConfig, tcfg: TrainConfig,
+                         optimizer: Adam, lang_optimizer: Adam,
+                         factored: bool = True,
+                         device="cuda") -> AttentionSteps:
+    """Steps for the StyleNet+Att (``factored``) or NIC+Att captioner over
+    spatial features (B, P, feature_size).  ``device`` is CUDA unless the
+    caller asks for the CPU; a step given tensors elsewhere raises."""
+    return AttentionSteps(cfg, tcfg, optimizer, lang_optimizer,
+                          _step_device(device), factored)

@@ -12,7 +12,10 @@ grad, and the same bits on a second run.  K2 with the LSTM cell: both
 feature modes, batch padding and an early end.  K6 and K7 (the attention
 step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
 vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
-step) bit-identical to K7.
+step) bit-identical to K7.  K5 (the attention training scan), both cells,
+teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
+same bits on a second run, and the attention train steps on the card
+against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere (marker ``cuda``).  On a
 host with the card, and without JAX, run them as
@@ -35,7 +38,10 @@ from icee_tpu_torch.decode.fast import (attention_decode, factored_decode,
                                         nic_att_decode)
 from icee_tpu_torch.ops import chunked_loss, lstm_scan, nic_scan
 from icee_tpu_torch.models import attention as att_mod
-from icee_tpu_torch.ops import att_beam, att_decode_step
+from icee_tpu_torch.ops import att_beam, att_decode_step, att_scan
+from icee_tpu_torch.core.config import AttentionDecoderConfig, TrainConfig
+from icee_tpu_torch.train import optim
+from icee_tpu_torch.train.steps import make_attention_steps
 from icee_tpu_torch.ops.beam import mega_beam_decode, mega_beam_decode_plain
 from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                             decode_step_topk_plain)
@@ -539,3 +545,163 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
         att_decode_step.att_decode_step_topk(
             cell, att, gate, x, h, h, feats, att_mod.att_projection(att, feats),
             k=4, ktop=4)
+
+
+# --- K5: the attention training scan (att_scan.cu) --------------------------
+
+def _att_scan_inputs(device, kind, b, t, p, sampled, vocab=37, seed=21):
+    """K5's inputs from a random attention decoder (E = 30, F = 40, H = 48,
+    A = 20, FS = 64) through the model's own repacking."""
+    params = _att_params(device, kind, vocab=vocab, seed=seed)
+    rng = np.random.default_rng(seed + b)
+    feats = torch.tensor(rng.random((b, p, 64), dtype=np.float32),
+                         device=device)
+    caps = torch.tensor(rng.integers(0, vocab, (b, t)), device=device)
+    fam = att_mod._Family(params, AttentionDecoderConfig(embed_size=30),
+                          2, kind == "factored")
+    att = att_mod.select_attention(params, 2)
+    cell, katt = fam.kernel_params(att)
+    att1 = feats @ att["enc_w"] + att["enc_b"]
+    h0, c0 = att_mod.init_hidden_state(params, feats)
+    args = [cell, katt, fam.embed(caps), att1, feats, h0, c0, kind]
+    samp = None
+    if sampled:
+        coins = torch.tensor(rng.integers(0, 2, t), dtype=torch.float32,
+                             device=device)
+        coins[0] = 0.0
+        samp = {"head": {"C_w": fam.head_w, "C_b": fam.head_b,
+                         "B": fam.table},
+                "emb_raw": fam.embed(caps[:, :1]), "coins": coins}
+    cot = (torch.tensor(rng.standard_normal((b, t, 48)), dtype=torch.float32,
+                        device=device),
+           torch.tensor(rng.standard_normal((b, t, p)), dtype=torch.float32,
+                        device=device))
+    return args, samp, cot
+
+
+@pytest.mark.parametrize("sampled", [False, True, "tied"])
+@pytest.mark.parametrize("kind,b,t,p", [("factored", 5, 4, 9),
+                                        ("lstm", 3, 6, 196),
+                                        ("factored", 2, 1, 9),
+                                        ("lstm", 64, 25, 9)])
+def test_att_scan_kernels_match_plain(device, kind, b, t, p, sampled):
+    """``sampled="tied"``: a zero head, so every logit ties and every
+    argmax is token 0 (the lowest index), and the token scatter adds all
+    the sampled rows into one row of B."""
+    args, samp, (dh, da) = _att_scan_inputs(device, kind, b, t, p,
+                                            bool(sampled))
+    if sampled == "tied":
+        samp["head"] = dict(samp["head"], C_w=torch.zeros_like(
+            samp["head"]["C_w"]), C_b=torch.zeros_like(samp["head"]["C_b"]))
+        sampled = True
+    name = att_scan.counter_name(kind, sampled)
+    before = (getattr(att_scan.att_scan_fwd, name),
+              getattr(att_scan.att_scan_bwd, name))
+    h, a, res = att_scan.att_scan_fwd(*args, samp)
+    if sampled:
+        want = att_scan.fused_att_scan_sampled_plain(
+            *args[:2], samp["head"], args[2], samp["emb_raw"], *args[3:7],
+            samp["coins"], kind)
+        torch.testing.assert_close(res["pidx"].long(), want[3], rtol=0,
+                                   atol=0)
+        if not samp["head"]["C_w"].any():
+            assert not res["pidx"].any()
+    else:
+        want = att_scan.fused_att_scan_plain(*args)
+    torch.testing.assert_close(h, want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(res["c_seq"], want[2], rtol=0, atol=1e-4)
+    torch.testing.assert_close(a, want[1], rtol=0, atol=1e-5)
+    got = att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, kind, samp)
+    cpu_res = {"c_seq": res["c_seq"].cpu(),
+               "pidx": None if res["pidx"] is None else res["pidx"].cpu()}
+    # the plain backward on the forward's att2, so both sides take the same
+    # relu' masks (see att_scan_bwd_plain)
+    att2 = res["buf"]["hp"][:, :, :20].transpose(0, 1).cpu()
+    with torch.no_grad():
+        ref = att_scan.att_scan_grads_plain(
+            *(bridge.to_torch(bridge.to_numpy(x)) for x in args[:7]),
+            h.cpu(), a.cpu(), cpu_res, dh.cpu(), da.cpu(), kind,
+            None if samp is None else bridge.to_torch(bridge.to_numpy(samp)),
+            att2)
+    torch.cuda.synchronize()
+    assert (getattr(att_scan.att_scan_fwd, name),
+            getattr(att_scan.att_scan_bwd, name)) == (before[0] + 1,
+                                                      before[1] + 1)
+    flat_got, flat_ref = optim.tree_leaves(got), optim.tree_leaves(ref)
+    assert len(flat_got) == len(flat_ref)
+    for g_, r_ in zip(flat_got, flat_ref):
+        if g_ is got["att"]["full_b"]:
+            # sum of every row's sum_p d_e: 0 in exact arithmetic, so both
+            # sides hold float32 rounding noise of the B T P terms (up to
+            # 7.4e-6 at B = 64, T = 25 with these weights)
+            assert max(g_.abs().item(), r_.abs().item()) <= 1e-4
+        else:
+            _close_scaled(g_.cpu(), r_)
+    # the same bits on a second run: no atomics anywhere
+    again = att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, kind, samp)
+    assert all(torch.equal(x, y) for x, y in
+               zip(flat_got, optim.tree_leaves(again)))
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.8])
+@pytest.mark.parametrize("factored", [True, False])
+def test_attention_steps_on_the_card_match_the_cpu(device, factored, ratio):
+    """The whole attention train step (K5 and the chunked CE on the card,
+    their plain versions on the CPU) from the same weights and draws."""
+    kind = "factored" if factored else "lstm"
+    params = _att_params(device, kind, vocab=37, seed=31)
+    cfg = AttentionDecoderConfig(vocab_size=37, embed_size=30,
+                                 hidden_size=48, factored_size=40,
+                                 feature_size=64, attention_size=20)
+    tcfg = TrainConfig(teacher_forcing_ratio=ratio)
+    rng = np.random.default_rng(32)
+    b, t = 6, 8
+    data = [torch.tensor(rng.random((b, 9, 64), dtype=np.float32)),
+            torch.tensor(rng.integers(0, 37, (b, t))),
+            torch.tensor([8, 3, 5, 1, 8, 6]),
+            torch.tensor([True] * 5 + [False])]
+    keep = rng.random((b, t - 1, 30)) < 0.5
+    coins = [bool(x) for x in rng.integers(0, 2, t - 1)]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        steps = make_attention_steps(cfg, tcfg, None, None, factored,
+                                     device=dev)
+        assert steps.use_fused == steps.use_chunked == (dev.type == "cuda")
+        dec = bridge.to_torch(bridge.to_numpy(params), device=dev)
+        out[dev.type] = steps.emotion_grads(
+            dec, *(x.to(dev) for x in data), 2, keep=keep, coins=coins)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=0, atol=1e-5)
+    for key, r_ in out["cpu"][1].items():
+        g_ = out["cuda"][1][key]
+        if key == "attention":
+            # full_b's grad sums every row's sum_p d_e, 0 in exact
+            # arithmetic: both sides hold rounding noise
+            full_b = g_.pop("full_b").cpu(), r_.pop("full_b")
+            assert max(x.abs().max().item() for x in full_b) <= 1e-4
+        for gl, rl in zip(optim.tree_leaves(g_), optim.tree_leaves(r_)):
+            _close_scaled(gl.cpu(), rl)
+
+
+def test_att_scan_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    args, samp, (dh, da) = _att_scan_inputs(device, "lstm", 2, 3, 9, True)
+    bad = list(args)
+    bad[4] = args[4].cpu()                           # device mix
+    with pytest.raises(ValueError, match="expected cuda"):
+        att_scan.att_scan_fwd(*bad, samp)
+    bad = list(args)
+    bad[2] = args[2].double()                        # unsupported dtype
+    with pytest.raises(TypeError, match="dtype"):
+        att_scan.att_scan_fwd(*bad, samp)
+    odd = dict(args[1])
+    odd["full_w"] = torch.zeros((18, 1), device=device)   # A % 4 != 0
+    odd["dec_w"] = torch.zeros((48, 18), device=device)
+    odd["dec_b"] = torch.zeros((18,), device=device)
+    bad = list(args)
+    bad[1], bad[3] = odd, torch.zeros((2, 9, 18), device=device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        att_scan.att_scan_fwd(*bad, samp)
+    h, a, res = att_scan.att_scan_fwd(*args)         # teacher-forced res
+    with pytest.raises(ValueError, match="token trace"):
+        att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, "lstm", samp)
