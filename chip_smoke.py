@@ -67,12 +67,33 @@ Phases, in order; any failure exits non-zero:
    3 steps at ratio 1.0 (K5 teacher-forced), every K5 and CE count reset
    to 0 just before and read just after; one ``val_step``; step time,
    captions/s, device-busy share and device time by kernel;
-12. print one ``{"train": {...}}`` line (with ``nic`` and ``att``
-   entries), one ``{"serve": {...}}`` line and one ``{"kernels": [...]}``
+12. K8 (``fused_senticap_scan``, the SentiCap training scan) forward and
+   backward vs its plain versions at B=128, T=22, E=H=512, at gclip 5.0
+   and 0.01 (where the clamp on the recurrent dh binds), the same bits
+   twice; times of the kernel and the plain version;
+13. SentiCap base training at the reference COCO regime (B=128, T=22,
+   E=H=512, V=8800, visual 4096, RMSProp): one step's loss and grads on
+   the kernel path (K8, the chunked CE) vs the plain path, 30 steps over
+   Zipf captions whose loss must fall, every K8 and CE count reset to 0
+   just before and read just after; ``validation_perplexity`` on the
+   chunked path; step time, captions/s, the plain step's time;
+14. K9 (``mega_senticap_beam_decode``, the base model's whole beam search)
+   vs its plain search at 64 images, beam 20, max_len 20, margin-aware as
+   phase 5, with weights shaped so beams end at several lengths; then
+   ``decode_split(switched=False)`` on a 64-image split, 7 timed calls
+   (K9's count reset to 0 just before the first and read just after the
+   last) and captions/s of the median call;
+15. print one ``{"train": {...}}`` line (with ``nic``, ``att`` and
+   ``senticap`` entries), one ``{"serve": {...}}`` line, one
+   ``{"decode": {"senticap": {...}}}`` line and one ``{"kernels": [...]}``
    line (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel,
    K7 factored and lstm, K3 and K4 forward and backward, CE forward and
-   backward, K5 forward and backward for both cells and both modes);
-13. print ``{"ok": true, "device": {...}}`` as the last line.
+   backward, K5 forward and backward for both cells and both modes, K8
+   forward and backward, K9);
+16. print ``{"ok": true, "device": {...}}`` as the last line.
+
+Without CUDA it exits 2, and where the package is not beside it 1, each
+with a message and no result.
 """
 
 from __future__ import annotations
@@ -2338,13 +2359,447 @@ def train_att_phase(device, factored: bool = True):
         "val": {"loss": v_loss, "top5": v_top5}}
 
 
+# --- phases 12-14: the SentiCap base mRNN (K8, K9) ---------------------------
+
+# the reference COCO base regime (bench.py:522-536, 625-642): emb/hidden
+# 512, visual 4096, V 8800, batch 128, T = MAX_SENTENCE_LEN + 2, RMSProp;
+# the test path's beam 20, max_len 20, over 64 images
+SC_B, SC_T, SC_E, SC_H, SC_V, SC_VIS = 128, 22, 512, 512, 8800, 4096
+SC_IMAGES, SC_BEAM, SC_MAXLEN = 64, 20, 20
+SC_WORDS = 400                # the training captions' active vocabulary
+SC_DECODE_CALLS = 7           # timed decode_split calls in phase 14
+
+
+def senticap_conf_full(**kw):
+    from icee_tpu_torch.senticap.config import senticap_conf
+
+    return senticap_conf(emb_size=SC_E, lstm_hidden_size=SC_H,
+                         visual_size=SC_VIS, **kw)
+
+
+def k8_flops_bytes():
+    """(fwd flops, bwd flops, fwd bytes, bwd bytes) of K8 at SC_B x SC_T:
+    [x; h] W for all rows; dW = [x; h_prev]^T dZ, dx = dZ W_x^T and the
+    (T - 1) recurrent dh products."""
+    n, h4 = SC_B * SC_T, 4 * SC_H
+    w = (SC_E + SC_H) * h4
+    fwd = 2 * n * (SC_E + SC_H) * h4
+    bwd = (2 * n * (SC_E + SC_H) * h4 + 2 * n * h4 * SC_E
+           + 2 * SC_B * (SC_T - 1) * h4 * SC_H)
+    bytes_f = 4 * (w + n * SC_E + 2 * n * SC_H + n * h4)
+    bytes_b = 4 * (2 * w + 2 * n * SC_E + 3 * n * SC_H + n * h4)
+    return fwd, bwd, bytes_f, bytes_b
+
+
+def check_k8(device):
+    """Phase 12: K8 forward and backward vs their plain versions at B=128,
+    T=22, E=H=512, at gclip 5.0 and 0.01 (where the clamp binds).
+    Tolerances: h and c atol 1e-4 (float32, sums of E + H = 1024 terms in
+    other orders); dx and dW max abs error <= 1e-3 x its largest magnitude
+    (sums over B*T = 2816 rows and a 22-step reverse chain); the same bits
+    twice.  -> (forward, backward) entries of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.senticap import model
+
+    w = model.init_params(torch.Generator().manual_seed(70), SC_V,
+                          senticap_conf_full(), device=device)["w_lstm"]
+    g = torch.Generator(device=device).manual_seed(71)
+    x = torch.randn((SC_B, SC_T, SC_E), generator=g, device=device)
+    dh = torch.randn((SC_B, SC_T, SC_H), generator=g, device=device)
+    h_seq, c_seq, gates = ss.senticap_scan_fwd(w, x)
+    want_h, want_c = ss.fused_senticap_scan_plain(w, x)
+    h2, c2, _ = ss.senticap_scan_fwd(w, x)
+    torch.cuda.synchronize()
+    fwd_err = max((h_seq - want_h).abs().max().item(),
+                  (c_seq - want_c).abs().max().item())
+    if not fwd_err <= 1e-4:
+        fail(f"K8 forward: max abs error {fwd_err} > 1e-4")
+    if not (torch.equal(h_seq, h2) and torch.equal(c_seq, c2)):
+        fail("K8 forward: two runs on the same inputs differ")
+    rel, abs_err, binds = {}, 0.0, {}
+    for gclip in (5.0, 0.01):
+        dx, dw = ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, gclip, gates)
+        dx2, dw2 = ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, gclip, gates)
+        want_dx, want_dw = ss.senticap_scan_bwd_plain(w, x, h_seq, c_seq, dh,
+                                                      gclip)
+        torch.cuda.synchronize()
+        for name, got, want in (("dx", dx, want_dx), ("dW", dw, want_dw)):
+            rel[f"{name}@{gclip}"] = max_rel_err(got, want)
+            abs_err = max(abs_err, (got - want).abs().max().item())
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            fail(f"K8 backward (gclip {gclip}): two runs differ")
+        binds[gclip] = dw
+    for name, err in rel.items():
+        if not err <= 1e-3:
+            fail(f"K8 backward: {name} error {err} x max|g| > 1e-3")
+    if torch.allclose(binds[5.0], binds[0.01]):
+        fail("K8 backward: gclip 0.01 did not change dW (the clamp must "
+             "bind there)")
+    log(f"K8: h/c max abs err {fwd_err:.3g}; grads max err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; bit-identical "
+        f"over two runs; the clamp binds at gclip 0.01")
+    ms_f = cuda_ms(lambda: ss.senticap_scan_fwd(w, x), 10)
+    plain_f = cuda_ms(lambda: ss.fused_senticap_scan_plain(w, x), 5)
+    ms_b = cuda_ms(lambda: ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, 5.0,
+                                                gates), 10)
+    plain_b = cuda_ms(lambda: ss.senticap_scan_bwd_plain(
+        w, x, h_seq, c_seq, dh, 5.0), 5)
+    flops_f, flops_b, bytes_f, bytes_b = k8_flops_bytes()
+    bf, bf_by = bound_ms(flops_f, bytes_f)
+    bb, bb_by = bound_ms(flops_b, bytes_b)
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/senticap_scan.cu",
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes this cell "
+                              "(h = o*c, no bias, the clamp on dh)"}
+    return (dict(common, name="fused_senticap_scan_fwd",
+                 replaces="icee_tpu/ops/pallas_senticap_train.py:173",
+                 max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+                 bound_ms=bf, bound_by=bf_by),
+            dict(common, name="fused_senticap_scan_bwd",
+                 replaces="icee_tpu/ops/pallas_senticap_train.py:224",
+                 max_abs_err=abs_err, max_rel_err=max(rel.values()),
+                 ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by))
+
+
+def senticap_split(n: int, seed: int):
+    """A seeded SentiCap split: captions of ids in [2, SC_V) from a Zipf law
+    over SC_WORDS fixed words (a language the model can learn), lengths
+    6..SC_T - 1 with STOP (0) after the last word, as ``io.make_split``
+    lays them out ([START, w1..wn] in, [w1..wn, STOP] out); image features
+    N(0, 1) (``bench.py:550-551``)."""
+    import numpy as np
+
+    from icee_tpu_torch.senticap.io import SentiDataset
+
+    rng = np.random.default_rng(seed)
+    words = 2 + np.random.default_rng(98).permutation(SC_V - 2)[:SC_WORDS]
+    zipf = 1.0 / np.arange(1, SC_WORDS + 1)
+    ids = words[rng.choice(SC_WORDS, (n, SC_T), p=zipf / zipf.sum())]
+    lengths = rng.integers(6, SC_T, n)
+    x = np.zeros((n, SC_T), np.int32)
+    y = np.zeros((n, SC_T), np.int32)
+    mask = np.zeros((n, SC_T), np.float32)
+    for i, ln in enumerate(lengths):
+        x[i, 1:ln + 1] = ids[i, :ln]
+        y[i, :ln] = ids[i, :ln]
+        mask[i, :ln + 1] = 1.0
+    return SentiDataset(X=x, Y=y, Xlen=mask,
+                        V=rng.standard_normal((n, SC_VIS)).astype(np.float32),
+                        SW=np.zeros((n, SC_T), np.float32),
+                        senti=-np.ones(n, np.float32),
+                        ids=[f"img{i}" for i in range(n)])
+
+
+def train_senticap_phase(device):
+    """Phase 13: the SentiCap base model trains at the reference COCO
+    regime (B=128, T=22, E=H=512, V=8800, visual 4096, RMSProp,
+    teacher-forced, dropout 0.5)."""
+    import math
+
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import (make_base_step,
+                                               validation_perplexity)
+
+    counters = {"fused_senticap_scan_fwd": ss.senticap_scan_fwd,
+                "fused_senticap_scan_bwd": ss.senticap_scan_bwd,
+                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    conf = senticap_conf_full()
+    plain_conf = senticap_conf_full(FUSED_SCAN=False, CHUNKED_CE=False)
+    solver = make_solver(conf)
+    kernel = make_base_step(conf, solver, device=device)
+    plain = make_base_step(plain_conf, solver, device=device)
+    if not (kernel.use_chunked and model.fused_scan_requested(
+            conf, kernel.device)):
+        fail("the CUDA SentiCap step did not select the kernel path")
+    ds = senticap_split(4 * SC_B, 80)
+    data = sio.device_dataset(ds, device)
+    batches = [torch.arange(i * SC_B, (i + 1) * SC_B, device=device)
+               for i in range(4)]
+
+    def fresh():
+        return model.init_params(torch.Generator().manual_seed(81), SC_V,
+                                 conf, device=device)
+
+    # (i) one step's loss and grads, kernel path vs plain path, with the
+    # same dropout masks.  Tolerances: the loss (a SUM over ~1,700 tokens,
+    # ~1.5e4) rtol 1e-5; each grad 1e-3 x its largest magnitude + 1e-7
+    g = torch.Generator(device=device).manual_seed(82)
+    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
+                                    device=device) < 0.5).float() * 2.0,
+                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) < 0.5).float() * 2.0)
+    params = fresh()
+    out = {name: steps.grads(params, data, batches[0], **masks)
+           for name, steps in (("kernel", kernel), ("plain", plain))}
+    torch.cuda.synchronize()
+    k_loss, p_loss = out["kernel"][0].item(), out["plain"][0].item()
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    grad_errs = {k: max_rel_err(out["kernel"][1][k], out["plain"][1][k])
+                 for k in params}
+    if not (loss_err <= 1e-5 and all(
+            (out["kernel"][1][k] - out["plain"][1][k]).abs().max().item()
+            <= 1e-3 * out["plain"][1][k].abs().max().item() + 1e-7
+            for k in params)):
+        fail(f"SentiCap first step: kernel vs plain loss rel err "
+             f"{loss_err}, grad errs {grad_errs}")
+    log(f"phase 13 (i): first step, kernel vs plain: loss {k_loss:.4f} vs "
+        f"{p_loss:.4f}; grad err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} }")
+
+    # (ii) 30 steps on the kernel path, every K8 and CE count from 0 just
+    # before and read just after; the loss must fall
+    params = fresh()
+    opt_state = solver.init(params)
+    gen = torch.Generator(device=device).manual_seed(83)
+    reset()
+    losses = []
+    for i in range(30):
+        params, opt_state, loss = kernel(params, opt_state, data,
+                                         batches[i % 4], gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read()
+    losses = [x.item() for x in losses]
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} was not launched on the SentiCap training path")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"SentiCap losses not finite: {losses}")
+    drop = (sum(losses[-4:]) / 4) / (sum(losses[:4]) / 4)
+    if not drop <= LOSS_FALL:
+        fail(f"SentiCap loss did not fall: last/first cycle {drop} > "
+             f"{LOSS_FALL}")
+    log(f"phase 13 (ii): losses {losses[0]:.1f} -> {losses[-1]:.1f}, "
+        f"last/first cycle {drop:.3f}; launches {launches}")
+
+    # (iii) validation perplexity on the chunked path (K8 forward + CE rows)
+    reset()
+    ppl = validation_perplexity(params, conf, senticap_split(SC_B, 84),
+                                device=device)
+    val_launches = read()
+    if not (math.isfinite(ppl) and ppl > 1.0
+            and val_launches["fused_senticap_scan_fwd"] == 1
+            and val_launches["ce_rows"] > 0):
+        fail(f"validation_perplexity: {ppl}, launches {val_launches}")
+
+    # step times: the whole step, RMSProp included
+    def kernel_step():
+        kernel(params, opt_state, data, batches[1], gen)
+
+    def plain_step():
+        plain(params, opt_state, data, batches[1], gen)
+
+    ms = step_ms(kernel_step, 20)
+    plain_ms = step_ms(plain_step, 10)
+    busy = device_busy_share(kernel_step)
+    by_kernel = device_time_by_kernel(kernel_step)
+    log(f"phase 13 (iii): validation perplexity {ppl:.2f}; step {ms:.3f} ms "
+        f"({SC_B / ms * 1e3:.1f} captions/s), plain {plain_ms:.3f} ms")
+    return launches, {
+        "config": {"B": SC_B, "T": SC_T, "V": SC_V, "E": SC_E, "H": SC_H,
+                   "visual": SC_VIS, "solver": conf["GRAD_METHOD"],
+                   "lr": conf["learning_rate"], "dropout": 0.5,
+                   "semi_forced": conf["SEMI_FORCED"]},
+        "step_ms": ms, "captions_per_s": SC_B / ms * 1e3,
+        "plain_step_ms": plain_ms,
+        "plain_captions_per_s": SC_B / plain_ms * 1e3,
+        "device_busy_share": busy, "device_ms_by_kernel": by_kernel,
+        "first_step_kernel_vs_plain": {"loss_rel_err": loss_err,
+                                       "grad_rel_errs": grad_errs},
+        "losses": losses, "last_over_first_cycle": drop,
+        "val_perplexity": ppl, "val_launches": val_launches}
+
+
+def senticap_decoder(device):
+    """Seeded base-model weights at the decode regime, shaped so beams end
+    at several lengths: Xavier init (``model.init_params``) with the head x
+    60, w_lstm x 1.5, an N(0, 1) output bias and +2.5 on STOP (at the
+    plain init every beam runs to max_len on near-uniform nll)."""
+    import torch
+
+    from icee_tpu_torch.senticap import model
+
+    p = model.init_params(torch.Generator().manual_seed(60), SC_V,
+                          senticap_conf_full())
+    g = torch.Generator().manual_seed(61)
+    p["w"] *= 60.0
+    p["w_lstm"] *= 1.5
+    p["b"] = torch.randn(SC_V, generator=g)
+    p["b"][0] += 2.5
+    return {k: v.to(device) for k, v in p.items()}
+
+
+def senticap_rescore(params, v, tokens, length):
+    """The plain model's length-normalized score of each image's token
+    sequence (the visual pseudo-word at step 0, then the tokens): the score
+    a search gives that sequence."""
+    import torch
+
+    from icee_tpu_torch.senticap import model
+
+    tok = tokens.long()
+    n = tok.shape[0]
+    h = torch.zeros((n, SC_H), device=v.device)
+    c = torch.zeros_like(h)
+    x = model.visual_embedding(params, v)
+    total = torch.zeros((n,), device=v.device)
+    for t in range(int(length.max())):
+        h, c = model.cell(params, x, h, c)
+        nll = -torch.log2(model.output_probs(params, h) + 1e-37)
+        total = torch.where(t < length, total + nll.gather(
+            1, tok[:, t:t + 1])[:, 0], total)
+        x = params["wemb"][tok[:, t]]
+    return total / length.float()
+
+
+def check_k9(device):
+    """Phase 14: K9 vs the plain search at 64 images, beam 20, max_len 20,
+    margin-aware as phase 5: each kernel score matches its own sequence's
+    plain re-score within 1e-3 and the plain search's within 1e-3, and
+    where tokens differ, the kernel's sequence ties the plain winner within
+    1e-4.  -> the kernel's entry of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_decode as sd
+
+    params = senticap_decoder(device)
+    g = torch.Generator(device=device).manual_seed(62)
+    v = torch.randn((SC_IMAGES, SC_VIS), generator=g, device=device)
+    kw = dict(beam_size=SC_BEAM, max_len=SC_MAXLEN)
+    got = sd.mega_senticap_beam_decode(params, v, SC_IMAGES, **kw)
+    again = sd.mega_senticap_beam_decode(params, v, SC_IMAGES, **kw)
+    want = sd.mega_senticap_beam_decode_plain(params, v, SC_IMAGES, **kw)
+    rescored = senticap_rescore(params, v, got[1], got[2])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("K9: two runs on the same inputs differ")
+    max_err, own_err, flips = 0.0, 0.0, 0
+    for i in range(SC_IMAGES):
+        gs, ws, rs = got[0][i].item(), want[0][i].item(), rescored[i].item()
+        n = int(got[2][i])
+        same = n == int(want[2][i]) and torch.equal(got[1][i, :n],
+                                                    want[1][i, :n])
+        own_err = max(own_err, abs(rs - gs))
+        if not abs(rs - gs) <= 1e-3:
+            fail(f"K9 image {i}: reported score {gs}, its sequence scores "
+                 f"{rs}")
+        if not same:
+            margin = abs(rs - ws)
+            if margin > 1e-4:
+                fail(f"K9 image {i}: tokens differ; kernel's sequence "
+                     f"scores {rs}, plain winner {ws}, margin {margin}")
+            flips += 1
+            log(f"K9 image {i}: near-tie flip, margin {margin}")
+        max_err = max(max_err, abs(gs - ws))
+    if not max_err <= 1e-3:
+        fail(f"K9: score error {max_err} > 1e-3")
+    lengths = got[2].tolist()
+    if len(set(lengths)) < 2:
+        fail(f"K9: every beam ended at one length {lengths[0]}")
+    log(f"K9: {SC_IMAGES} images, lengths min {min(lengths)} max "
+        f"{max(lengths)} mean {sum(lengths) / len(lengths):.2f} "
+        f"({len(set(lengths))} distinct); score max abs err {max_err:.3g}, "
+        f"vs own re-score {own_err:.3g}; {flips} near-tie flips; "
+        f"bit-identical over two runs")
+    ms = cuda_ms(lambda: sd.mega_senticap_beam_decode(params, v, SC_IMAGES,
+                                                      **kw), 3)
+    plain_ms = cuda_ms(lambda: sd.mega_senticap_beam_decode_plain(
+        params, v, SC_IMAGES, **kw), 3)
+    rows, steps = SC_IMAGES * SC_BEAM, SC_MAXLEN + 1
+    flops = steps * rows * 2 * ((SC_E + SC_H) * 4 * SC_H + SC_H * SC_V)
+    nbytes = 4 * (SC_V * SC_E + (SC_E + SC_H) * 4 * SC_H + SC_H * SC_V + SC_V
+                  + SC_IMAGES * SC_E + steps * rows * SC_E
+                  + SC_IMAGES * (steps + 2))
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"name": "mega_senticap_beam_decode", "route": "cuda",
+            "source": "icee_tpu_torch/csrc/senticap_beam.cu",
+            "replaces": "icee_tpu/ops/pallas_senticap_decode.py:397",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes a beam search",
+            "near_tie_flips": flips, "max_rescore_err": own_err,
+            "lengths": lengths}
+
+
+def decode_senticap_phase(device):
+    """Phase 14, the path: ``decode_split(switched=False)`` on a 64-image
+    split through K9, ``SC_DECODE_CALLS`` timed calls after a warm-up, K9's
+    count from 0 just before the first and read just after the last (one
+    launch a call), the same captions every call; captions/s from the
+    median call."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.senticap.train import decode_split
+
+    params = senticap_decoder(device)
+    conf = senticap_conf_full()
+    ds = senticap_split(SC_IMAGES, 85)
+    i2w = {i: f"w{i}" for i in range(SC_V)}
+    first = decode_split(params, conf, ds, i2w, torch_device=device)
+    torch.cuda.synchronize()                                    # warm-up
+    sd.mega_senticap_beam_decode.launches = 0
+    walls = []
+    for _ in range(SC_DECODE_CALLS):
+        t0 = time.perf_counter()
+        out = decode_split(params, conf, ds, i2w, torch_device=device)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if out != first:
+            fail("decode_split: captions differ between calls")
+    launches = sd.mega_senticap_beam_decode.launches
+    if launches != SC_DECODE_CALLS:
+        fail(f"decode_split launched K9 {launches} times in "
+             f"{SC_DECODE_CALLS} calls")
+    if len(out) != SC_IMAGES or not all(
+            len(o["caption"]) <= SC_MAXLEN for o in out):
+        fail(f"decode_split: {len(out)} results")
+    lengths = [len(o["caption"]) for o in out]
+    wall = statistics.median(walls)
+    log(f"phase 14: decode_split of {SC_IMAGES} images, median of "
+        f"{SC_DECODE_CALLS} calls {wall * 1e3:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}; "
+        f"{SC_IMAGES / wall:.1f} captions/s), caption words min "
+        f"{min(lengths)} max {max(lengths)}; K9 launches {launches}")
+    return launches, {"images": SC_IMAGES, "beam": SC_BEAM,
+                      "max_len": SC_MAXLEN, "calls": SC_DECODE_CALLS,
+                      "wall_ms": wall * 1e3,
+                      "wall_ms_min_max": [min(walls) * 1e3,
+                                          max(walls) * 1e3],
+                      "captions_per_s": SC_IMAGES / wall,
+                      "caption_words": lengths}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from icee_tpu_torch.ops import cuda_lib
+    try:
+        from icee_tpu_torch.ops import cuda_lib
+    except ModuleNotFoundError as e:
+        if e.name != "icee_tpu_torch":
+            raise
+        print("chip_smoke: the icee_tpu_torch package is not beside this "
+              "script; run it from the repository root", file=sys.stderr)
+        return 1
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -2364,8 +2819,9 @@ def main() -> int:
                     if "registers" in line or "spill" in line:
                         log(f"  {name}: {line.strip()}")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from icee_tpu_torch.core.device import set_float32_precision
+
+    set_float32_precision()   # as every CUDA entry point of the port does
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     log("phase 3: TF32 off for matmul and cuDNN; cuDNN deterministic")
@@ -2473,12 +2929,31 @@ def main() -> int:
         entry["launches"] = att_launches[entry["name"]]
     for entry in (cef, ceb):   # the attention steps use the CE kernels too
         entry["launches"] += att_launches[entry["name"]]
+    k8f, k8b = check_k8(device)
+    log(f"phase 12: K8 ok, forward {k8f['ms']:.3f} ms (plain "
+        f"{k8f['plain_ms']:.3f}, bound {k8f['bound_ms']:.3f}), backward "
+        f"{k8b['ms']:.3f} ms (plain {k8b['plain_ms']:.3f}, bound "
+        f"{k8b['bound_ms']:.3f})")
+    sc_launches, train["senticap"] = train_senticap_phase(device)
+    log(f"phase 13: SentiCap step {train['senticap']['step_ms']:.3f} ms, "
+        f"{train['senticap']['captions_per_s']:.1f} captions/s (plain "
+        f"{train['senticap']['plain_step_ms']:.3f} ms)")
+    for entry in (k8f, k8b):
+        entry["launches"] = sc_launches[entry["name"]]
+    for entry in (cef, ceb):   # the SentiCap steps use the CE kernels too
+        entry["launches"] += sc_launches[entry["name"]]
+    with torch.inference_mode():
+        k9 = check_k9(device)
+        log(f"phase 14: K9 ok, {k9['ms']:.3f} ms vs plain "
+            f"{k9['plain_ms']:.3f} ms (bound {k9['bound_ms']:.3f} ms)")
+        k9["launches"], decode = decode_senticap_phase(device)
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
+    print(json.dumps({"decode": {"senticap": decode}}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
-                                  ceb, *k5]}))
+                                  ceb, *k5, k8f, k8b, k9]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,7 @@ int icee_lstm_scan_bwd(const float* x, const float* Vw, const float* Sw,
   const dim3 grid((H + SJ - 1) / SJ, (B + SR - 1) / SR);
   for (int t = T - 1; t >= 0; --t) {
     bwd_step_kernel<FactoredGates><<<grid, S_THREADS, 0, st>>>(Ww, gates, c_seq, dh_seq, dZ,
-                                                dc, B, T, H, t);
+                                                dc, B, T, H, t, 0.f);
     ICEE_TRY(cudaGetLastError());
   }
   // W branch: dW_w = h_prev^T dZ, dW_b = sum dZ; U branch: dU_b is the

@@ -73,7 +73,7 @@ int icee_nic_scan_bwd(const float* x, const float* Wih, const float* Whh,
   const dim3 grid((H + SJ - 1) / SJ, (B + SR - 1) / SR);
   for (int t = T - 1; t >= 0; --t) {
     bwd_step_kernel<NicGates><<<grid, S_THREADS, 0, st>>>(
-        Whh, gates, c_seq, dh_seq, dZ, dc, B, T, H, t);
+        Whh, gates, c_seq, dh_seq, dZ, dc, B, T, H, t, 0.f);
     ICEE_TRY(cudaGetLastError());
   }
   // dW_ih = x^T dZ, dW_hh = h_prev^T dZ, db = sum dZ, dx = dZ W_ih^T

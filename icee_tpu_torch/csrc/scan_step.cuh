@@ -1,6 +1,6 @@
-// The per-step kernels of the two teacher-forced training scans:
-// lstm_scan.cu (K3, the FactoredLSTM) and nic_scan.cu (K4, the torch-order
-// LSTM).  Both scans keep the same structure: the input side of every step
+// The per-step kernels of the teacher-forced training scans: lstm_scan.cu
+// (K3, the FactoredLSTM), nic_scan.cu (K4, the torch-order LSTM) and
+// senticap_scan.cu (K8, the SentiCap mRNN).  Both scans keep the same structure: the input side of every step
 // is one product over all B * T rows before the recurrence, so a step is
 //   forward:  z = (input side)_t  (+)  h_{t-1} W + b, then the gates;
 //   backward: dh_carry = dZ_{t+1} W^T, then the gate derivatives -> dZ_t,
@@ -140,16 +140,17 @@ fwd_step_kernel(const float* __restrict__ Ww, const float* __restrict__ Wb,
   }
 }
 
-// Reverse step s: dh_carry = dz_{s+1} W^T (zero at s = T - 1), then the
-// gate derivatives; writes dZ rows (b, s) and the carried dc.  dc_carry
-// (B, H) is read and written by its owning thread.  Rows of dZ and W are 4H
-// long, so every quad is a float4.
+// Reverse step s: dh_carry = dz_{s+1} W^T (zero at s = T - 1), clamped to
+// [-gclip, gclip] where the Gates policy says so (Gates::kClipCarry, the
+// SentiCap cell's GradClip on h), then the gate derivatives; writes dZ rows
+// (b, s) and the carried dc.  dc_carry (B, H) is read and written by its
+// owning thread.  Rows of dZ and W are 4H long, so every quad is a float4.
 template <class Gates>
 __global__ void __launch_bounds__(S_THREADS)
 bwd_step_kernel(const float* __restrict__ Ww, const float* __restrict__ gates,
                 const float* __restrict__ c_seq,
                 const float* __restrict__ dh_seq, float* dZ, float* dc_carry,
-                int B, int T, int H, int s) {
+                int B, int T, int H, int s, float gclip) {
   __shared__ float ds[SR][SKP];
   __shared__ float ws[SJ][SKP];
   const int tid = threadIdx.x, r = tid / SJ, jj = tid % SJ;
@@ -190,6 +191,7 @@ bwd_step_kernel(const float* __restrict__ Ww, const float* __restrict__ gates,
     const float c_new = c_seq[row * H + j];
     const float c_prev = s > 0 ? c_seq[(row - 1) * H + j] : 0.f;
     const float dc_in = s < T - 1 ? dc_carry[(long long)b * H + j] : 0.f;
+    if (Gates::kClipCarry) acc = fminf(fmaxf(acc, -gclip), gclip);
     const float dh_total = dh_seq[row * H + j] + acc;
     dc_carry[(long long)b * H + j] = Gates::backward(
         gates + row * H4, dZ + row * H4, H, j, c_new, c_prev, dh_total, dc_in);

@@ -56,9 +56,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int,
           padding=None) -> torch.Tensor:
+    """The conv in the WEIGHT dtype (the input is cast to it), returned as
+    float32, as the JAX ``conv`` (``resnet.py:48-55``).  With bfloat16
+    weights the JAX conv multiplies bfloat16 operands and accumulates in
+    float32; the same arithmetic here is a float32 conv of the
+    bfloat16-rounded operands (their products are exact in float32), since
+    PyTorch's bfloat16 conv would round each output to bfloat16."""
     if padding is None:
         padding = ((w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2)
-    return F.conv2d(x.to(w.dtype), w, stride=stride, padding=padding).float()
+    return F.conv2d(x.to(w.dtype).float(), w.float(), stride=stride,
+                    padding=padding)
 
 
 def _bottleneck(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:
@@ -188,6 +195,33 @@ def spatial_features(params: dict, images: torch.Tensor,
     """(B, grid, grid, 2048) features — spatial EncoderCNN path
     (model_att.py:22-29)."""
     return adaptive_avg_pool(Backbone(params).forward(images), (grid, grid))
+
+
+BACKBONE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cast_conv_weights(params, dtype):
+    """Cast only the CONV kernels to ``dtype`` (the bf16 backbone mode,
+    ``icee_tpu/models/resnet.py::cast_conv_weights``); BatchNorm affine
+    and running statistics stay float32, and every conv then takes
+    ``dtype``-rounded operands with float32 sums and result
+    (:func:`_conv`)."""
+    if isinstance(params, dict):
+        return {k: (v.to(dtype) if k.startswith(("conv", "downsample_conv"))
+                    else cast_conv_weights(v, dtype))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_conv_weights(v, dtype) for v in params]
+    return params
+
+
+def backbone_dtype(name: str) -> torch.dtype:
+    """``ServeConfig.backbone_dtype`` -> the conv weights' dtype: "float32"
+    or "bfloat16"; anything else raises."""
+    if name not in BACKBONE_DTYPES:
+        raise ValueError(f"backbone_dtype {name!r}: choose one of "
+                         f"{sorted(BACKBONE_DTYPES)}")
+    return BACKBONE_DTYPES[name]
 
 
 # --- init -----------------------------------------------------------------

@@ -12,6 +12,10 @@ The loss runs over TIME chunks of ``t_chunk`` steps (zero-padded):
   clamp bit) and adds the chunk's bias grad; ``dx = dl C_w^T`` and
   ``dC_w += x^T dl`` are plain products.
 
+:func:`masked_neglog2_sum_from_hiddens`, the SentiCap perplexity numerator,
+is value only: the forward row pass without a clamp, then one elementwise
+pass.
+
 The row passes are hand-written CUDA kernels (``csrc/chunked_ce.cu``); their
 plain versions :func:`ce_rows_plain` and :func:`ce_grad_rows_plain` sit
 beside them.  Each wrapper takes the plain version only for tensors on the
@@ -259,6 +263,37 @@ def masked_sum_ce_from_hiddens(
         t_chunk = auto_t_chunk(b, t)
     return _weighted_ce(hiddens, head_w, head_b, targets,
                         mask.to(torch.float32), t_chunk, clamp)
+
+
+def masked_neglog2_sum_from_hiddens(
+    hiddens: torch.Tensor,      # (B, T, H)
+    head_w: torch.Tensor,       # (H, V)
+    head_b: torch.Tensor,       # (V,)
+    targets: torch.Tensor,      # (B, T) int
+    mask: torch.Tensor,         # (B, T)
+    t_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """``sum(mask * -log2(softmax(hh @ W + b)[y] + 1e-20))``, the SentiCap
+    perplexity numerator (``mrnn.py:518-530``), without the whole (B, T, V)
+    distributions (``icee_tpu/ops/chunked_loss.py:165``).  Value only.  Per
+    chunk, :func:`ce_rows` gives nll = lse - target logit (no clamp), then
+    p = exp(-nll) and the sum are one elementwise pass."""
+    b, t = targets.shape
+    if t_chunk is None:
+        t_chunk = auto_t_chunk(b, t)
+    with torch.no_grad():
+        xc = _to_chunks(hiddens, t_chunk)
+        tc = _to_chunks(targets.long(), t_chunk)
+        wc = _to_chunks(mask.to(torch.float32), t_chunk)
+        ones = torch.ones((b * t_chunk,), dtype=torch.float32,
+                          device=hiddens.device)
+        acc = torch.zeros((), dtype=torch.float32, device=hiddens.device)
+        for k in range(xc.shape[0]):
+            _, nll = ce_rows(_chunk_logits(xc[k], head_w, head_b),
+                             tc[k].reshape(-1), ones)
+            p = torch.exp(-nll)
+            acc = acc + torch.sum(wc[k].reshape(-1) * -torch.log2(p + 1e-20))
+    return acc
 
 
 def _library() -> ctypes.CDLL:

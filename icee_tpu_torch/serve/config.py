@@ -49,6 +49,9 @@ class ServeConfig:
     image_folder: str = "uploads/"
     vocab_path: Optional[str] = None
     resnet_weights: Optional[str] = None
+    # the ResNet's conv weights: "float32" or "bfloat16" (bf16 operands,
+    # float32 sums and result, BatchNorm in float32); the engine raises on
+    # others
     backbone_dtype: str = "float32"
     # >0: group concurrent /generate requests for this many ms and decode
     # them with ONE batched beam call (serve/batching.py); 0 = per-request

@@ -15,7 +15,10 @@ the image entering through h0/c0 and the attention.
 Weights are random (``smoke_mode``, seeded per variant as in the JAX
 engine), passed in as ``params``, or reference torch checkpoints (``.pth``
 / ``.tar`` / ``.ckpt``: state dicts or full-module pickles, read without
-the reference's classes).  The JAX package's own orbax checkpoints raise:
+the reference's classes).  ``config.backbone_dtype`` ("float32" or
+"bfloat16"; any other value raises) sets the ResNet's conv weights' dtype,
+as in the JAX engine: bfloat16 conv operands with float32 sums and
+result, BatchNorm in float32.  The JAX package's own orbax checkpoints raise:
 they come with slice 3 of the port.
 
 The serial :meth:`CaptionEngine.caption` decodes StyleNet through the
@@ -97,9 +100,14 @@ class CaptionEngine:
             vocab_size=len(self.vocab))
         self.enc_cfg = enc_cfg or EncoderConfig()
         params = params or {}
+        conv_dtype = resnet.backbone_dtype(config.backbone_dtype)
         backbone = params.get("backbone")
         if backbone is None:
             backbone = resnet.load_resnet_params(config.resnet_weights)
+        if conv_dtype != torch.float32:
+            # BACKBONE_DTYPE=bfloat16: bf16 conv weights, float32 BatchNorm,
+            # as the JAX engine's loader casts them (cli/common.py:187-188)
+            backbone = resnet.cast_conv_weights(backbone, conv_dtype)
         # conv weights HWIO -> OIHW once, at load, for cuDNN
         self.backbone = resnet.Backbone(_to(backbone, self.device))
         self.models: Dict[str, Dict[str, Dict[str, dict]]] = {}

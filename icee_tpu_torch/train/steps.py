@@ -31,7 +31,7 @@ import torch
 
 from icee_tpu_torch.core.config import (AttentionDecoderConfig,
                                         DecoderConfig, TrainConfig)
-from icee_tpu_torch.core.device import resolve_device
+from icee_tpu_torch.core.device import resolve_indexed_device
 from icee_tpu_torch.evaluation.metrics import (length_mask,
                                                masked_cross_entropy,
                                                masked_top_k_accuracy)
@@ -208,13 +208,6 @@ class CaptionSteps(_Steps):
         return loss, top5, torch.argmax(logits, dim=-1)
 
 
-def _step_device(device) -> torch.device:
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
                        optimizer: Adam, lang_optimizer: Adam,
                        factored: bool = True,
@@ -228,7 +221,7 @@ def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
     asks for the CPU; a step given tensors elsewhere raises.
     """
     return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer,
-                        _step_device(device), factored)
+                        resolve_indexed_device(device), factored)
 
 
 class AttentionSteps(_Steps):
@@ -355,4 +348,4 @@ def make_attention_steps(cfg: AttentionDecoderConfig, tcfg: TrainConfig,
     spatial features (B, P, feature_size).  ``device`` is CUDA unless the
     caller asks for the CPU; a step given tensors elsewhere raises."""
     return AttentionSteps(cfg, tcfg, optimizer, lang_optimizer,
-                          _step_device(device), factored)
+                          resolve_indexed_device(device), factored)

@@ -705,3 +705,190 @@ def test_att_scan_wrappers_raise_on_what_the_kernels_do_not_take(device):
     h, a, res = att_scan.att_scan_fwd(*args)         # teacher-forced res
     with pytest.raises(ValueError, match="token trace"):
         att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, "lstm", samp)
+
+
+# --- the SentiCap base slice: K8, K9, the step, TF32 -------------------------
+
+def _senticap_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
+                     zero_head=False):
+    """Base mRNN weights drawn with numpy (N(0, 1), a STOP bias)."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    p = {"wemb": n(vocab, e), "w_lstm": n(e + h, 4 * h, scale=0.5),
+         "w": n(h, vocab), "b": n(vocab, scale=0.5),
+         "wvm": n(vis, e, scale=0.5), "bmv": n(e, scale=0.1)}
+    p["b"][0] += stop_bias
+    if zero_head:
+        p["w"][:] = 0.0
+        p["b"][:] = 0.0
+    return bridge.to_torch(p, device=device)
+
+
+@pytest.mark.parametrize("b,t,e,h,gclip", [
+    (3, 1, 13, 16, 0.01),    # T = 1, E % 4 != 0, the clamp binding
+    (5, 6, 30, 32, 0.01),    # B not a multiple of 8, the clamp binding
+    (8, 4, 12, 8, 5.0),
+])
+def test_senticap_scan_kernels_match_plain(device, b, t, e, h, gclip):
+    from icee_tpu_torch.ops import senticap_scan as ss
+
+    g = torch.Generator(device=device).manual_seed(b + t)
+    w = 0.6 * torch.randn((e + h, 4 * h), generator=g, device=device)
+    x = torch.randn((b, t, e), generator=g, device=device)
+    dh = 3.0 * torch.randn((b, t, h), generator=g, device=device)
+    before = (ss.senticap_scan_fwd.launches, ss.senticap_scan_bwd.launches)
+    h_seq, c_seq, gates = ss.senticap_scan_fwd(w, x, gclip)
+    want_h, want_c = ss.fused_senticap_scan_plain(w, x, gclip)
+    torch.testing.assert_close(h_seq, want_h, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c_seq, want_c, rtol=0, atol=1e-4)
+    dx, dw = ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, gclip, gates)
+    want_dx, want_dw = ss.senticap_scan_bwd_plain(w, x, h_seq, c_seq, dh,
+                                                  gclip)
+    torch.cuda.synchronize()
+    assert (ss.senticap_scan_fwd.launches,
+            ss.senticap_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _close_scaled(dx, want_dx)
+    _close_scaled(dw, want_dw)
+    if t > 1 and gclip < 1:   # the clamp binds: it changes dw
+        loose = ss.senticap_scan_bwd_plain(w, x, h_seq, c_seq, dh, 1e9)[1]
+        assert not torch.allclose(loose, want_dw)
+    # the same bits on a second run: no atomics anywhere
+    h2, c2, _ = ss.senticap_scan_fwd(w, x, gclip)
+    dx2, dw2 = ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, gclip, gates)
+    assert torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated"])
+def test_senticap_beam_kernel_matches_plain(device, case):
+    """K9 against its plain search: a ragged vocabulary over several
+    images, one image at beam 20, an all-tied zero head (every step picks
+    tokens 0, 1, 2, ... in index order, so the best sequence is all 0s
+    when STOP is another token) and a saturated tail (nll plateau at
+    -log2(1e-37), ranked by index)."""
+    from icee_tpu_torch.ops import senticap_decode as sd
+
+    vocab, beam, batch, max_len, stop = 515, 5, 6, 7, 0
+    kw = dict(seed=3, stop_bias=4.0)
+    if case == "one_image":
+        vocab, beam, batch = 300, 20, 1
+    elif case == "tied":
+        vocab, stop, kw = 64, 63, dict(zero_head=True)
+    params = _senticap_params(device, vocab, 16, 16, **kw)
+    if case == "saturated":
+        params["b"].fill_(-200.0)
+        params["b"][:4] = torch.tensor([50.0, 49.0, 48.0, 47.0])
+    g = torch.Generator(device=device).manual_seed(5)
+    v = torch.randn((batch, 24), generator=g, device=device)
+    before = sd.mega_senticap_beam_decode.launches
+    got = sd.mega_senticap_beam_decode(params, v, batch, beam_size=beam,
+                                       max_len=max_len, stop_token=stop)
+    torch.cuda.synchronize()
+    assert sd.mega_senticap_beam_decode.launches == before + 1
+    want = sd.mega_senticap_beam_decode_plain(params, v, batch, beam, max_len,
+                                              stop)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    for i in range(batch):
+        n = int(want[2][i])
+        assert got[1][i, :n].tolist() == want[1][i, :n].tolist(), i
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    if case == "tied":
+        assert got[1].tolist() == [[0] * (max_len + 1)] * batch
+    if case == "ragged":
+        assert len(set(got[2].tolist())) > 1
+    again = sd.mega_senticap_beam_decode(params, v, batch, beam_size=beam,
+                                         max_len=max_len, stop_token=stop)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("semi,chunked", [(1.0, True), (1.0, False),
+                                          (0.8, True)])
+def test_senticap_base_step_on_the_card_matches_the_cpu(device, semi,
+                                                        chunked):
+    """One base-model step on the card (K8 at SEMI_FORCED 1.0, the chunked
+    CE kernels) against the same step on the CPU with the same masks.
+    Tolerances: loss rtol 1e-5; params atol 1e-4 (the RMSProp update
+    magnifies grad rounding by up to 10)."""
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import solver as ssolver
+    from icee_tpu_torch.senticap.config import senticap_conf
+    from icee_tpu_torch.senticap.train import make_base_step
+
+    conf = senticap_conf(emb_size=12, lstm_hidden_size=16, visual_size=24,
+                         MAX_SENTENCE_LEN=6, SEMI_FORCED=semi,
+                         CHUNKED_CE=chunked, batch_size_val=5)
+    rng = np.random.default_rng(7)
+    n, t, vocab = 9, 7, 40
+    ds = sio.SentiDataset(
+        X=rng.integers(0, vocab, (n, t)).astype(np.int32),
+        Y=rng.integers(0, vocab, (n, t)).astype(np.int32),
+        Xlen=(np.arange(t)[None] < rng.integers(2, t, (n, 1))).astype(
+            np.float32),
+        V=rng.standard_normal((n, 24)).astype(np.float32),
+        SW=np.zeros((n, t), np.float32), senti=np.ones(n, np.float32),
+        ids=list(range(n)))
+    masks = dict(
+        x_drop=torch.tensor((rng.random((5, t, 12)) < 0.5) * 2.0,
+                            dtype=torch.float32),
+        y_drop=torch.tensor((rng.random((5, t, 16)) < 0.5) * 2.0,
+                            dtype=torch.float32),
+        forced=(torch.tensor(rng.random((5, t)) < semi, dtype=torch.float32)
+                if semi < 1 else None))
+    idx = torch.tensor([4, 0, 8, 2, 6])
+    out = {}
+    for dev in ("cpu", device):
+        params = _senticap_params(dev, vocab, 12, 16, seed=8)
+        tx = ssolver.make_solver(conf)
+        step = make_base_step(conf, tx, device=dev)
+        _, _, loss = step(params, tx.init(params), sio.device_dataset(ds, dev),
+                          idx.to(dev), **{k: None if m is None else m.to(dev)
+                                          for k, m in masks.items()})
+        out[str(dev)] = (loss, params)
+    torch.cuda.synchronize()
+    cpu_loss, cpu_p = out["cpu"]
+    card_loss, card_p = out[str(device)]
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for k in cpu_p:
+        torch.testing.assert_close(card_p[k].cpu(), cpu_p[k], rtol=0,
+                                   atol=1e-4)
+
+
+def test_cuda_entry_points_turn_tf32_off(device):
+    """Building a CUDA engine (and any entry point that resolves a CUDA
+    device) leaves both TF32 flags False."""
+    from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
+    from icee_tpu_torch.serve.config import ServeConfig
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    CaptionEngine(ServeConfig(), smoke_mode=True, device=device,
+                  dec_cfg=DecoderConfig(vocab_size=8, embed_size=4,
+                                        hidden_size=4, factored_size=4),
+                  enc_cfg=EncoderConfig(embed_size=4))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_senticap_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_scan as ss
+
+    w = torch.randn((20, 32), device=device)
+    x = torch.randn((2, 3, 12), device=device)
+    h_seq, c_seq, gates = ss.senticap_scan_fwd(w, x)
+    with pytest.raises(ValueError, match="gates"):
+        ss.senticap_scan_bwd(w, x, h_seq, c_seq, h_seq, 5.0)
+    with pytest.raises(ValueError, match="expected cuda"):
+        ss.senticap_scan_fwd(w.cpu(), x)
+    params = _senticap_params(device, 40, 16, 16)
+    with pytest.raises(ValueError, match="expected cuda"):
+        sd.mega_senticap_beam_decode(params, torch.zeros((1, 24)), 1,
+                                     beam_size=2)
+    with pytest.raises(ValueError, match="BATCH_NORM"):
+        sd.mega_senticap_beam_decode(
+            dict(params, gamma_h=torch.ones(32, device=device)),
+            torch.zeros((1, 24), device=device), 1, beam_size=2)

@@ -97,6 +97,23 @@ def test_resnet_primitives_match_jax():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("k,stride", [(1, 1), (3, 1), (3, 2)])
+def test_bfloat16_conv_matches_jax_conv(k, stride):
+    """A conv with bfloat16 weights (the ``backbone_dtype="bfloat16"`` mode)
+    does the JAX conv's arithmetic: bfloat16 operands, float32 products and
+    sums, a float32 result.  Held within 2e-6 of the largest magnitude (the
+    two summation orders); rounding each output to bfloat16 would be ~2e-3
+    off."""
+    rng = np.random.default_rng(7 + k + stride)
+    x = rng.standard_normal((1, 8, 8, 64)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((k, k, 64, 32))).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, w: jresnet.conv(x, w, stride))(
+        jnp.asarray(x), jnp.asarray(w).astype(jnp.bfloat16)))
+    got = resnet.conv(torch.tensor(x), torch.tensor(w).bfloat16(), stride)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 2e-6 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("stride,downsample", [(1, False), (2, True)])
 def test_bottleneck_matches_jax(stride, downsample):
     """One block on NHWC input with HWIO weights, the JAX layouts."""

@@ -61,7 +61,10 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
     assert "icee_tpu_torch.train.steps" in modules
     for name in ("ops.nic_scan", "models.lstm", "checkpoint.torch_import",
                  "checkpoint.torch_pickle", "models.attention",
-                 "ops.att_decode_step", "ops.att_beam", "ops.att_scan"):
+                 "ops.att_decode_step", "ops.att_beam", "ops.att_scan",
+                 "ops.senticap_scan", "ops.senticap_decode",
+                 "senticap.config", "senticap.io", "senticap.model",
+                 "senticap.solver", "senticap.train", "senticap.beam"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary

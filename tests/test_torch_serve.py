@@ -472,3 +472,69 @@ def test_default_device_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--smoke", "--port", "1", "--env", "/nonexistent.env"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def _pooled(engine, path):
+    pooled, _ = engine._features(path)
+    return np.asarray(pooled, np.float32)
+
+
+def test_backbone_dtype_bfloat16_matches_jax_engine(engines):
+    """``backbone_dtype="bfloat16"`` casts the ResNet's convs as the JAX
+    engine does (bf16 conv weights and inputs, float32 BatchNorm and
+    result), and float32 stays float32.  Tolerances: each conv does the JAX
+    conv's arithmetic (``test_torch_encoder.py``), but bfloat16 keeps 8
+    bits of mantissa (2^-8 ~ 4e-3 relative per rounding), so an input that
+    the two summation orders leave on either side of a rounding boundary
+    rounds one ulp apart, and 50 blocks spread such flips: the pooled
+    features agree within 2e-2 of their largest magnitude (4.8e-3 seen);
+    the float32 engines within 1e-4 of it."""
+    from icee_tpu.serve.config import ServeConfig as JServeConfig
+    from icee_tpu.serve.engine import CaptionEngine as JCaptionEngine
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    jeng, eng, paths, _, _ = engines
+    folder = paths[0].rsplit("/", 1)[0]
+    common = dict(vocab_path=f"{folder}/vocab.pkl", image_folder=folder,
+                  resnet_weights=f"{folder}/resnet.npz")
+    small = dict(image_size=32, enc_cfg=EncoderConfig(embed_size=8))
+    tiny = dict(vocab_size=16, embed_size=8, hidden_size=8,
+                factored_size=8, max_seq_length=3)
+    jbf = JCaptionEngine(JServeConfig(backbone_dtype="bfloat16", **common),
+                         smoke_mode=True, **small)
+    bf = CaptionEngine(ServeConfig(backbone_dtype="bfloat16", **common),
+                       smoke_mode=True, device="cpu",
+                       dec_cfg=DecoderConfig(**tiny),
+                       att_cfg=AttConfig(attention_size=8, **tiny), **small)
+    conv = bf.backbone.params["layer1"][0]["conv2"]
+    bn = bf.backbone.params["layer1"][0]["bn2"]["weight"]
+    assert conv.dtype == torch.bfloat16 and bn.dtype == torch.float32
+    got, want = _pooled(bf, paths[0]), _pooled(jbf, paths[0])
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 2e-2 * scale
+    f32_port, f32_jax = _pooled(eng, paths[0]), _pooled(jeng, paths[0])
+    assert np.abs(f32_port - f32_jax).max() <= 1e-4 * np.abs(f32_jax).max()
+    # bfloat16 really changed the numbers (the cast is not a no-op)
+    assert np.abs(got - f32_port).max() > 1e-6 * scale
+    with pytest.raises(ValueError, match="backbone_dtype"):
+        CaptionEngine(ServeConfig(backbone_dtype="float16", **common),
+                      smoke_mode=True, device="cpu",
+                      dec_cfg=DecoderConfig(**tiny), **small)
+
+
+def test_set_float32_precision_turns_tf32_off():
+    """The one place the port sets float32 precision: both TF32 flags off
+    (``resolve_device`` calls it for every CUDA device)."""
+    from icee_tpu_torch.core.device import set_float32_precision
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        set_float32_precision()
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
