@@ -83,14 +83,35 @@ Phases, in order; any failure exits non-zero:
    ``decode_split(switched=False)`` on a 64-image split, 7 timed calls
    (K9's count reset to 0 just before the first and read just after the
    last) and captions/s of the median call;
-15. print one ``{"train": {...}}`` line (with ``nic``, ``att`` and
-   ``senticap`` entries), one ``{"serve": {...}}`` line, one
-   ``{"decode": {"senticap": {...}}}`` line and one ``{"kernels": [...]}``
-   line (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel,
-   K7 factored and lstm, K3 and K4 forward and backward, CE forward and
+15. the SentiCap switched model's mixture CE (two heads) vs its plain
+   versions at 128 x 22 rows, V=8800, gates U(0.05, 0.95): the row passes
+   at the main path's chunk, the whole loss and every gradient, the same
+   bits twice; times of the row passes and of the whole loss;
+16. switch training at the reference's regime (B=128, T=22, E=H=512,
+   V=8800, DA_SUM, LAMBDA_N = LAMBDA_GAM = 0.25, dropout on the sentiment
+   path, RMSProp over the switch set at lr 1e-4) from a base trained 30
+   steps as in phase 13, over sentiment-pure +1 batches with sentiment
+   words at the switch positions: one step's loss and switch-set grads on the
+   kernel path (two K8 scans, the mixture CE) vs the plain path, 30 steps
+   whose loss must fall, every K8 and mixture-CE count reset to 0 just
+   before and read just after, the frozen weights bit-identical;
+   ``validation_perplexity(switched=True)`` on the chunked path; step time,
+   captions/s, the plain step's time;
+17. K10 (``mega_senticap_switched_decode``, the switched model's whole
+   styled beam search with its switch-gate trace) vs its plain search at
+   64 images, beam 20, max_len 20, margin-aware as phase 14, the trace
+   within 1e-5 where tokens agree; then ``decode_split(switched=True)`` on
+   a 64-image split, 7 timed calls (K10 and K9 counted from 0 just before
+   the first and read just after the last: one launch each a call);
+18. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
+   ``senticap`` and ``senticap_switched`` entries), one ``{"serve":
+   {...}}`` line, one ``{"decode": {"senticap": {...},
+   "senticap_switched": {...}}}`` line and one ``{"kernels": [...]}`` line
+   (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
+   factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
-   forward and backward, K9);
-16. print ``{"ok": true, "device": {...}}`` as the last line.
+   forward and backward, K9, the mixture CE forward and backward, K10);
+19. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -804,9 +825,9 @@ def device_busy_share(fn):
     return busy_us / wall_us if busy_us > 0 else None
 
 
-def device_time_by_kernel(fn, top: int = 12):
+def device_time_by_kernel(fn, top: int | None = 12):
     """Device time (ms) of one run of ``fn`` summed by kernel name, the
-    ``top`` largest, from a torch.profiler trace."""
+    ``top`` largest (None: all), from a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2463,21 +2484,35 @@ def check_k8(device):
                  ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by))
 
 
-def senticap_split(n: int, seed: int):
+def senticap_split(n: int, seed: int, senti: float = -1.0):
     """A seeded SentiCap split: captions of ids in [2, SC_V) from a Zipf law
     over SC_WORDS fixed words (a language the model can learn), lengths
     6..SC_T - 1 with STOP (0) after the last word, as ``io.make_split``
     lays them out ([START, w1..wn] in, [w1..wn, STOP] out); image features
-    N(0, 1) (``bench.py:550-551``)."""
+    N(0, 1) (``bench.py:550-551``); every record of sentiment ``senti``.  A
+    styled split (senti > 0) marks about one word in five as an ANP switch
+    position (SC_SWITCH_SHARE) and puts a sentiment word there, one of
+    SC_SENTI_WORDS ids outside the base words, as the reference's styled
+    captions carry their sentiment words at the switch positions."""
     import numpy as np
 
     from icee_tpu_torch.senticap.io import SentiDataset
 
     rng = np.random.default_rng(seed)
-    words = 2 + np.random.default_rng(98).permutation(SC_V - 2)[:SC_WORDS]
+    order = 2 + np.random.default_rng(98).permutation(SC_V - 2)
+    words = order[:SC_WORDS]
     zipf = 1.0 / np.arange(1, SC_WORDS + 1)
     ids = words[rng.choice(SC_WORDS, (n, SC_T), p=zipf / zipf.sum())]
     lengths = rng.integers(6, SC_T, n)
+    feats = rng.standard_normal((n, SC_VIS)).astype(np.float32)
+    switch = np.zeros((n, SC_T), np.float32)
+    if senti > 0:
+        switch = ((rng.random((n, SC_T)) < SC_SWITCH_SHARE)
+                  & (np.arange(SC_T)[None] < lengths[:, None])).astype(
+            np.float32)
+        senti_words = order[SC_WORDS:SC_WORDS + SC_SENTI_WORDS]
+        ids = np.where(switch > 0, senti_words[rng.integers(
+            0, SC_SENTI_WORDS, (n, SC_T))], ids)
     x = np.zeros((n, SC_T), np.int32)
     y = np.zeros((n, SC_T), np.int32)
     mask = np.zeros((n, SC_T), np.float32)
@@ -2485,10 +2520,8 @@ def senticap_split(n: int, seed: int):
         x[i, 1:ln + 1] = ids[i, :ln]
         y[i, :ln] = ids[i, :ln]
         mask[i, :ln + 1] = 1.0
-    return SentiDataset(X=x, Y=y, Xlen=mask,
-                        V=rng.standard_normal((n, SC_VIS)).astype(np.float32),
-                        SW=np.zeros((n, SC_T), np.float32),
-                        senti=-np.ones(n, np.float32),
+    return SentiDataset(X=x, Y=y, Xlen=mask, V=feats, SW=switch,
+                        senti=np.full(n, senti, np.float32),
                         ids=[f"img{i}" for i in range(n)])
 
 
@@ -2752,13 +2785,15 @@ def decode_senticap_phase(device):
     conf = senticap_conf_full()
     ds = senticap_split(SC_IMAGES, 85)
     i2w = {i: f"w{i}" for i in range(SC_V)}
-    first = decode_split(params, conf, ds, i2w, torch_device=device)
+    first = decode_split(params, conf, ds, i2w, switched=False,
+                         torch_device=device)
     torch.cuda.synchronize()                                    # warm-up
     sd.mega_senticap_beam_decode.launches = 0
     walls = []
     for _ in range(SC_DECODE_CALLS):
         t0 = time.perf_counter()
-        out = decode_split(params, conf, ds, i2w, torch_device=device)
+        out = decode_split(params, conf, ds, i2w, switched=False,
+                           torch_device=device)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if out != first:
@@ -2784,6 +2819,598 @@ def decode_senticap_phase(device):
                                           max(walls) * 1e3],
                       "captions_per_s": SC_IMAGES / wall,
                       "caption_words": lengths}
+
+
+# --- phases 15-17: the SentiCap switched model (the mixture CE, K10) -------
+
+# the reference's switch-training regime (bench.py:574-616, the MTurk
+# regime; train_joint.py:328-372): the widths of phases 12-14, DA_SUM,
+# LAMBDA_N = LAMBDA_GAM = 0.25, dropout 0.5 on the sentiment path only,
+# RMSProp over the switch set; the test path's styled decode at beam 20
+SC_SWITCH_SHARE = 0.2         # tokens marked as ANP switch positions
+SC_SENTI_WORDS = 40           # the sentiment words at those positions
+# The reference's switch-training learning rate (config.py), at which phase
+# 16 compares the first step and runs SC_NAN_STEPS steps; and the rate its
+# loss-fall check trains at.  At 1e-3 the gate, which sums 2H = 1,024
+# inputs, can saturate within a few steps: sigmoid rounds to 1.0 and the
+# gate term (1 - sw) * -log(1 - att) is nan.  The JAX package's step does
+# the same, at the same step as the port's (tests/test_torch_senticap_
+# switched.py::test_switch_training_goes_nan_at_lr_1e3_in_both_packages).
+SC_REF_LR = 1e-3
+SC_SWITCH_LR = 1e-4
+SC_NAN_STEPS = 12
+
+
+def mixture_inputs(device, base, seed: int):
+    """Phase 15's inputs at 128 x 22 rows: the two heads of the switched
+    model of phase 16 (``switched_params`` over ``base``), head inputs
+    N(0, 1) x 0.5, gates U(0.05, 0.95), Zipf targets, weights mask x (1 +
+    LAMBDA_N (1 - sw)) as the switched loss forms them."""
+    import torch
+
+    params = switched_params(device, base)
+    ds = senticap_split(SC_B, seed, senti=1.0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    hh_o, hh_n = (0.5 * torch.randn((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) for _ in range(2))
+    att = 0.05 + 0.9 * torch.rand((SC_B, SC_T), generator=g, device=device)
+    y = torch.as_tensor(ds.Y, device=device).long()
+    mask = torch.as_tensor(ds.Xlen, device=device)
+    sw = torch.as_tensor(ds.SW, device=device)
+    weights = mask * (1.0 + 0.25 * (1.0 - sw))
+    return ([hh_o, hh_n, 1.0 - att, att, params["w"], params["b"],
+             params["w_sw"], params["b_sw"]], y, weights)
+
+
+def check_mixture_ce(device, base):
+    """Phase 15: the mixture CE on the card vs its plain versions at 128 x
+    22 rows, H = 512, V = 8800, both heads.  The row passes at the main
+    path's chunk (11 steps x 128 = 1,408 rows): lse and p atol 1e-4 and
+    1e-6, w*nll atol 1e-4, dl 1e-4 x its largest magnitude (the backward
+    row pass is ``ce_grad_rows`` with weights -fac); the whole loss
+    (a sum) rtol 1e-5 and each gradient (hh_o, hh_n, co, cn, both w, both
+    b) within 1e-3 x its largest magnitude, the same bits twice.  Times of
+    the row passes and of the whole loss on the kernel and plain paths.
+    -> (forward entry, backward entry, whole-loss stats)."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    args, y, weights = mixture_inputs(device, base, 90)
+    names = ("hh_o", "hh_n", "co", "cn", "w_o", "b_o", "w_n", "b_n")
+    t_chunk = cl.even_t_chunk(SC_B, SC_T)
+    n = SC_B * t_chunk
+    x_o, x_n = (a[:, :t_chunk].reshape(n, SC_H) for a in args[:2])
+    lo = torch.addmm(args[5], x_o, args[4])
+    ln = torch.addmm(args[7], x_n, args[6])
+    yf = y[:, :t_chunk].reshape(n)
+    co, cn, wf = (a[:, :t_chunk].reshape(n).contiguous()
+                  for a in (args[2], args[3], weights))
+    got = cl.mixture_ce_rows(lo, ln, yf, co, cn, wf)
+    want = cl.mixture_ce_rows_plain(lo, ln, yf, co, cn, wf)
+    one = torch.ones((1,), device=device)
+    _, _, fac, _ = cl.mixture_row_cotangents(got[2], got[3], co, cn, wf,
+                                             one[0])
+    neg_fac = (-fac).contiguous()
+    db = torch.zeros((SC_V,), device=device)
+    dl = cl.ce_grad_rows(lo.clone(), yf, neg_fac, got[0], one, db)
+    want_dl, want_db = cl.ce_grad_rows_plain(lo, yf, neg_fac, got[0],
+                                             one[0])
+    torch.cuda.synchronize()
+    rows = {"lse": max((got[i] - want[i]).abs().max().item()
+                       for i in (0, 1)),
+            "p": max((got[i] - want[i]).abs().max().item() for i in (2, 3)),
+            "w_nll": (got[4] - want[4]).abs().max().item(),
+            "dl": (dl - want_dl).abs().max().item(),
+            "dl_rel": max_rel_err(dl, want_dl),
+            "db_rel": max_rel_err(db, want_db)}
+    limits = {"lse": 1e-4, "p": 1e-6, "w_nll": 1e-4, "dl_rel": 1e-4,
+              "db_rel": 1e-4}
+    for name, err in ((k, rows[k]) for k in limits):
+        if not err <= limits[name]:
+            fail(f"mixture CE rows: {name} error {err} > {limits[name]}")
+
+    out = {}
+    for name, fn in (("kernel", cl.mixture_ce_from_hiddens),
+                     ("again", cl.mixture_ce_from_hiddens),
+                     ("plain", cl.mixture_ce_plain)):
+        ta = [a.detach().clone().requires_grad_(True) for a in args]
+        loss = fn(*ta, y, weights)
+        out[name] = (loss.detach(), torch.autograd.grad(loss, ta))
+    torch.cuda.synchronize()
+    (kl, kg), (al, ag), (pl, pg) = out["kernel"], out["again"], out["plain"]
+    if not (torch.equal(kl, al) and all(torch.equal(a, b)
+                                        for a, b in zip(kg, ag))):
+        fail("mixture CE: two runs on the same inputs differ")
+    loss_err = abs(kl.item() - pl.item()) / abs(pl.item())
+    grad_errs = {k: max_rel_err(a, b) for k, a, b in zip(names, kg, pg)}
+    if not (loss_err <= 1e-5 and max(grad_errs.values()) <= 1e-3):
+        fail(f"mixture CE vs plain: loss rel err {loss_err}, grad errs "
+             f"{grad_errs}")
+    log(f"mixture CE: rows {rows}; loss {kl.item():.3f} vs plain "
+        f"{pl.item():.3f} (rel err {loss_err:.3g}); grad err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} }; "
+        f"bit-identical over two runs")
+
+    # times: the row passes alone, then the whole loss forward + backward
+    scratch = lo.clone()
+    ms_f = cuda_ms(lambda: cl.mixture_ce_rows(lo, ln, yf, co, cn, wf), 20)
+    plain_f = cuda_ms(lambda: cl.mixture_ce_rows_plain(lo, ln, yf, co, cn,
+                                                       wf), 20)
+    ms_b = cuda_ms(lambda: cl.ce_grad_rows(scratch, yf, neg_fac, got[0],
+                                           one, db), 20)
+    plain_b = cuda_ms(lambda: cl.ce_grad_rows_plain(lo, yf, neg_fac, got[0],
+                                                    one[0]), 20)
+    bf, bf_by = bound_ms(2 * 5 * n * SC_V, 4 * (2 * n * SC_V + 9 * n))
+    bb, bb_by = bound_ms(5 * n * SC_V, 4 * (2 * n * SC_V + 3 * n + SC_V))
+
+    def path(fn):
+        def run():
+            ta = [a.detach().requires_grad_(True) for a in args]
+            torch.autograd.grad(fn(*ta, y, weights), ta)
+        return run
+
+    whole = {"kernel_path_ms": cuda_ms(path(cl.mixture_ce_from_hiddens), 5),
+             "plain_path_ms": cuda_ms(path(cl.mixture_ce_plain), 5),
+             "loss_rel_err": loss_err, "grad_rel_errs": grad_errs,
+             "row_errors": rows}
+    rows_all = SC_B * SC_T
+    # two head products forward, dx and dW of each head backward
+    whole["bound_ms"], whole["bound_by"] = bound_ms(
+        2 * 6 * rows_all * SC_H * SC_V,
+        4 * (4 * rows_all * SC_H + 4 * SC_H * SC_V + 4 * SC_V
+             + 7 * rows_all))
+    common = {"route": "cuda", "source": "icee_tpu_torch/csrc/chunked_ce.cu",
+              "library_ms": None,
+              "library_note": "no call mixes two softmaxes' target "
+                              "probabilities"}
+    return (dict(common, name="mixture_ce_rows",
+                 replaces="icee_tpu/ops/chunked_loss.py:289 (_mixture_fwd, "
+                          "under mixture_ce_from_hiddens :364 and :194)",
+                 max_abs_err=max(rows["lse"], rows["w_nll"]), ms=ms_f,
+                 plain_ms=plain_f, bound_ms=bf, bound_by=bf_by),
+            dict(common, name="ce_grad_rows[mixture]", wrapper="ce_grad_rows",
+                 replaces="icee_tpu/ops/chunked_loss.py:297 (_mixture_bwd)",
+                 max_abs_err=rows["dl"], ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bb, bound_by=bb_by),
+            whole)
+
+
+def pretrained_base(device):
+    """The base model switch training starts from (the reference loads a
+    pretrained COCO model, ``train_joint.py:322-451``): phase 13's Xavier
+    init trained 30 steps on phase 13's split, as phase 13 (ii) trains it.
+    -> CPU tensors."""
+    import torch
+
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import make_base_step
+
+    conf = senticap_conf_full()
+    data = sio.device_dataset(senticap_split(4 * SC_B, 80), device)
+    params = model.init_params(torch.Generator().manual_seed(81), SC_V, conf,
+                               device=device)
+    solver = make_solver(conf)
+    opt_state = solver.init(params)
+    step = make_base_step(conf, solver, device=device)
+    gen = torch.Generator(device=device).manual_seed(83)
+    for i in range(30):
+        params, opt_state, _ = step(params, opt_state, data, torch.arange(
+            (i % 4) * SC_B, (i % 4 + 1) * SC_B, device=device), gen)
+    return {k: v.cpu() for k, v in params.items()}
+
+
+def switched_params(device, base=None):
+    """Seeded switched weights, ``switched.init_params(base=...)`` over a
+    base model: for training the pretrained ``base`` (``pretrained_base``);
+    without one, for the decode, phase 14's base decoder
+    (``senticap_decoder``, shaped so that beams end at several lengths)
+    with the sentiment weights + 0.05 N(0, 1) as ``bench.py:705-708``
+    perturbs them and ``att_w`` x 5, so that the gates spread over ~(0.05,
+    0.95) (x 4: 0.06-0.83, x 8: 0.004-0.96 over a few images' traces at
+    this width)."""
+    import torch
+
+    from icee_tpu_torch.senticap import switched
+
+    train = base is not None
+    if not train:
+        base = {k: v.cpu() for k, v in senticap_decoder("cpu").items()}
+    p = switched.init_params(torch.Generator().manual_seed(64), SC_V,
+                             senticap_conf_full(), base=base)
+    if not train:
+        g = torch.Generator().manual_seed(65)
+        for k in ("w_lstm_sw", "w_sw", "wemb_sw", "wvm_sw"):
+            p[k] = p[k] + 0.05 * torch.randn(p[k].shape, generator=g)
+        p["att_w"] = p["att_w"] * 5.0
+    return {k: v.to(device) for k, v in p.items()}
+
+
+def train_switched_phase(device, base):
+    """Phase 16: switch training at the reference's regime (B=128, T=22,
+    E=H=512, V=8800, DA_SUM, LAMBDA_N = LAMBDA_GAM = 0.25, dropout on the
+    sentiment path, RMSProp over the switch set) over sentiment-pure +1
+    batches.  The first step (kernel vs plain path) and SC_NAN_STEPS steps
+    on the kernel path (where the loss goes nan, recorded, not checked) run
+    at lr 1e-3 from ``senticap_decoder``'s base; the 30 steps whose loss
+    must fall run at SC_SWITCH_LR from the pretrained ``base``."""
+    import math
+
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import switched
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import (make_switched_step,
+                                               validation_perplexity)
+
+    counters = {"fused_senticap_scan_fwd": ss.senticap_scan_fwd,
+                "fused_senticap_scan_bwd": ss.senticap_scan_bwd,
+                "mixture_ce_rows": cl.mixture_ce_rows,
+                "ce_grad_rows": cl.ce_grad_rows}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    ds = senticap_split(4 * SC_B, 86, senti=1.0)
+    data = sio.device_dataset(ds, device)
+    batches = [torch.arange(i * SC_B, (i + 1) * SC_B, device=device)
+               for i in range(4)]
+    ref_start = switched_params("cpu", {k: v.cpu() for k, v in
+                                        senticap_decoder("cpu").items()})
+    start = switched_params("cpu", base)
+    mask = switched.switch_param_mask(start)
+
+    def steps_at(lr, **kw):
+        conf = senticap_conf_full(learning_rate=lr, **kw)
+        solver = make_solver(conf, mask)
+        return conf, solver, make_switched_step(conf, solver, device=device)
+
+    _, ref_solver, ref_kernel = steps_at(SC_REF_LR)
+    _, _, ref_plain = steps_at(SC_REF_LR, FUSED_SCAN=False,
+                               CHUNKED_CE=False)
+    conf, solver, kernel = steps_at(SC_SWITCH_LR)
+    _, _, plain = steps_at(SC_SWITCH_LR, FUSED_SCAN=False, CHUNKED_CE=False)
+    # CHUNKED_CE off: the distributions come from the per-step scan, as in
+    # the JAX package, whose FUSED_SCAN acts on the chunked path only
+    _, _, chunked_off = steps_at(SC_SWITCH_LR, CHUNKED_CE=False)
+    if not (kernel.use_chunked and ref_kernel.use_chunked):
+        fail("the CUDA switched step did not select the kernel path")
+
+    def fresh(p=start):
+        return {k: v.to(device) for k, v in p.items()}
+
+    # (i) one step's loss and switch-set grads at the reference's regime,
+    # kernel vs plain path, with the same dropout masks.  Tolerances as
+    # phase 13: the loss (a SUM) rtol 1e-5; each grad 1e-3 x its largest
+    # magnitude + 1e-7
+    g = torch.Generator(device=device).manual_seed(87)
+    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
+                                    device=device) < 0.5).float() * 2.0,
+                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) < 0.5).float() * 2.0)
+    params = fresh(ref_start)
+    out = {name: steps.grads(params, data, batches[0], **masks)
+           for name, steps in (("kernel", ref_kernel), ("plain", ref_plain))}
+    torch.cuda.synchronize()
+    k_loss, p_loss = out["kernel"][0].item(), out["plain"][0].item()
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    kg, pg = out["kernel"][1], out["plain"][1]
+    if sorted(kg) != sorted(k for k in mask if mask[k]):
+        fail(f"switched step: grads taken for {sorted(kg)}")
+    grad_errs, bad = {}, []
+    for k in kg:
+        if kg[k] is None or pg[k] is None:
+            if not (kg[k] is None and pg[k] is None):
+                bad.append(k)
+            continue
+        grad_errs[k] = max_rel_err(kg[k], pg[k])
+        if not ((kg[k] - pg[k]).abs().max().item()
+                <= 1e-3 * pg[k].abs().max().item() + 1e-7):
+            bad.append(k)
+    if not (loss_err <= 1e-5 and not bad):
+        fail(f"switched first step: kernel vs plain loss rel err {loss_err},"
+             f" grad errs {grad_errs}, bad {bad}")
+    log(f"phase 16 (i): first step at lr {SC_REF_LR}, kernel vs plain: "
+        f"loss {k_loss:.4f} vs {p_loss:.4f}; grad err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} }")
+
+    # (ii-a) SC_NAN_STEPS steps on the kernel path at the reference's lr
+    # from the same start: the step at which the loss stops being finite
+    params = fresh(ref_start)
+    opt_state = ref_solver.init(params)
+    gen = torch.Generator(device=device).manual_seed(88)
+    ref_losses = []
+    for i in range(SC_NAN_STEPS):
+        params, opt_state, loss = ref_kernel(params, opt_state, data,
+                                             batches[i % 4], gen)
+        ref_losses.append(loss)
+    ref_losses = [x.item() for x in ref_losses]
+    nan_at = next((i for i, x in enumerate(ref_losses)
+                   if not math.isfinite(x)), None)
+    log(f"phase 16 (ii-a): lr {SC_REF_LR}: losses {ref_losses}, first "
+        f"non-finite at step {nan_at}")
+
+    # (ii) 30 steps on the kernel path, every K8 and mixture-CE count from
+    # 0 just before and read just after; the loss must fall; the frozen
+    # weights stay bit-identical
+    params = fresh()
+    opt_state = solver.init(params)
+    gen = torch.Generator(device=device).manual_seed(88)
+    reset()
+    losses = []
+    for i in range(30):
+        params, opt_state, loss = kernel(params, opt_state, data,
+                                         batches[i % 4], gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read()
+    losses = [x.item() for x in losses]
+    # two K8 forwards and one backward a step; the mixture CE's two time
+    # chunks (auto t_chunk 16 of T = 22), the backward on the sentiment
+    # head only (the background head is frozen)
+    want = {"fused_senticap_scan_fwd": 60, "fused_senticap_scan_bwd": 30,
+            "mixture_ce_rows": 60, "ce_grad_rows": 60}
+    if launches != want:
+        fail(f"switch training launched {launches}, expected {want}")
+    frozen = [k for k in start if not mask[k]
+              and not torch.equal(params[k].cpu(), start[k])]
+    if frozen:
+        fail(f"switch training changed frozen weights {frozen}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"switched losses not finite: {losses}")
+    drop = (sum(losses[-4:]) / 4) / (sum(losses[:4]) / 4)
+    if not drop <= LOSS_FALL:
+        fail(f"switched loss did not fall: last/first cycle {drop} > "
+             f"{LOSS_FALL}")
+    log(f"phase 16 (ii): losses {losses[0]:.1f} -> {losses[-1]:.1f}, "
+        f"last/first cycle {drop:.3f}; launches {launches}; frozen weights "
+        f"bit-identical")
+
+    # (iii) validation perplexity on the chunked path (two K8 forwards,
+    # the mixture row pass)
+    reset()
+    ppl = validation_perplexity(params, conf, senticap_split(SC_B, 89,
+                                                             senti=1.0),
+                                switched=True, device=device)
+    val_launches = read()
+    if not (math.isfinite(ppl) and ppl > 1.0
+            and val_launches["fused_senticap_scan_fwd"] == 2
+            and val_launches["mixture_ce_rows"] > 0):
+        fail(f"validation_perplexity(switched=True): {ppl}, launches "
+             f"{val_launches}")
+
+    def kernel_step():
+        kernel(params, opt_state, data, batches[1], gen)
+
+    def plain_step():
+        plain(params, opt_state, data, batches[1], gen)
+
+    def chunked_off_step():
+        chunked_off(params, opt_state, data, batches[1], gen)
+
+    def materialized_loss_step():
+        # the kernel path with the mixture CE's plain version (each chunk's
+        # logits and softmaxes materialized, autograd) in place of its own
+        own = cl.mixture_ce_from_hiddens
+        cl.mixture_ce_from_hiddens = cl.mixture_ce_plain
+        try:
+            kernel_step()
+        finally:
+            cl.mixture_ce_from_hiddens = own
+
+    ms = step_ms(kernel_step, 20)
+    plain_ms = step_ms(plain_step, 5)
+    chunked_off_ms = step_ms(chunked_off_step, 5)
+    mat_ms = step_ms(materialized_loss_step, 20)
+    busy = device_busy_share(kernel_step)
+    by_kernel = device_time_by_kernel(kernel_step, top=None)
+    mat_by_kernel = device_time_by_kernel(materialized_loss_step, top=None)
+    device_ms = sum(r["ms"] for r in by_kernel)
+    mat_device_ms = sum(r["ms"] for r in mat_by_kernel)
+    log(f"phase 16 (iii): validation perplexity {ppl:.2f}; step {ms:.3f} ms "
+        f"({SC_B / ms * 1e3:.1f} captions/s, device {device_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms; with the mixture CE's plain version "
+        f"{mat_ms:.3f} ms (device {mat_device_ms:.3f} ms); CHUNKED_CE off "
+        f"{chunked_off_ms:.3f} ms")
+    return launches, {
+        "config": {"B": SC_B, "T": SC_T, "V": SC_V, "E": SC_E, "H": SC_H,
+                   "visual": SC_VIS, "solver": conf["GRAD_METHOD"],
+                   "lr": conf["learning_rate"], "dropout": 0.5,
+                   "domain_adapt": conf["DOMAIN_ADAPT"],
+                   "lambda_n": conf["LAMBDA_N"],
+                   "lambda_gam": conf["LAMBDA_GAM"],
+                   "trainable": sorted(k for k in mask if mask[k])},
+        "step_ms": ms, "captions_per_s": SC_B / ms * 1e3,
+        "plain_step_ms": plain_ms,
+        "plain_captions_per_s": SC_B / plain_ms * 1e3,
+        "device_ms": device_ms,
+        "plain_mixture_ce_step_ms": mat_ms,
+        "plain_mixture_ce_device_ms": mat_device_ms,
+        "chunked_ce_off_step_ms": chunked_off_ms,
+        "device_busy_share": busy, "device_ms_by_kernel": by_kernel[:12],
+        "first_step_kernel_vs_plain": {"lr": SC_REF_LR,
+                                       "loss_rel_err": loss_err,
+                                       "grad_rel_errs": grad_errs},
+        "ref_lr_losses": ref_losses, "ref_lr_first_nonfinite_step": nan_at,
+        "losses": losses, "last_over_first_cycle": drop,
+        "val_perplexity": ppl, "val_launches": val_launches}
+
+
+def switched_rescore(params, v, tokens, length):
+    """The plain switched model's styled (senti = +1) length-normalized
+    score of each image's token sequence: the score a search gives it."""
+    import torch
+
+    from icee_tpu_torch.senticap import switched
+
+    conf = senticap_conf_full()
+    tok = tokens.long()
+    n = tok.shape[0]
+    step = switched.beam_step(params, conf, 1.0)
+    h = torch.zeros((n, 1, 2 * SC_H), device=v.device)
+    c = torch.zeros_like(h)
+    words = torch.zeros((n, 1), dtype=torch.long, device=v.device)
+    total = torch.zeros((n,), device=v.device)
+    for t in range(int(length.max())):
+        probs, h, c, _ = step(words, t == 0, h, c, v)
+        nll = -torch.log2(probs[:, 0] + 1e-37)
+        total = torch.where(t < length, total + nll.gather(
+            1, tok[:, t:t + 1])[:, 0], total)
+        words = tok[:, t:t + 1]
+    return total / length.float()
+
+
+def check_k10(device):
+    """Phase 17: K10 vs its plain search at 64 images, beam 20, max_len 20,
+    margin-aware as phase 14: each kernel score matches its own sequence's
+    plain re-score within 1e-3 and the plain search's within 1e-3; where
+    tokens differ, the kernel's sequence ties the plain winner within
+    1e-4; where they agree, the trace within 1e-5.  -> the kernel's entry
+    of the kernels line."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+
+    params = switched_params(device)
+    g = torch.Generator(device=device).manual_seed(66)
+    v = torch.randn((SC_IMAGES, SC_VIS), generator=g, device=device)
+    kw = dict(beam_size=SC_BEAM, max_len=SC_MAXLEN)
+    got = ssd.mega_senticap_switched_decode(params, v, SC_IMAGES, **kw)
+    again = ssd.mega_senticap_switched_decode(params, v, SC_IMAGES, **kw)
+    want = ssd.mega_senticap_switched_decode_plain(params, v, SC_IMAGES,
+                                                   **kw)
+    rescored = switched_rescore(params, v, got[1], got[2])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("K10: two runs on the same inputs differ")
+    max_err, own_err, trace_err, flips = 0.0, 0.0, 0.0, 0
+    for i in range(SC_IMAGES):
+        gs, ws, rs = got[0][i].item(), want[0][i].item(), rescored[i].item()
+        n = int(got[2][i])
+        same = n == int(want[2][i]) and torch.equal(got[1][i, :n],
+                                                    want[1][i, :n])
+        own_err = max(own_err, abs(rs - gs))
+        if not abs(rs - gs) <= 1e-3:
+            fail(f"K10 image {i}: reported score {gs}, its sequence scores "
+                 f"{rs}")
+        if same:
+            trace_err = max(trace_err, (got[3][i, :n] - want[3][i, :n])
+                            .abs().max().item())
+        else:
+            margin = abs(rs - ws)
+            if margin > 1e-4:
+                fail(f"K10 image {i}: tokens differ; kernel's sequence "
+                     f"scores {rs}, plain winner {ws}, margin {margin}")
+            flips += 1
+            log(f"K10 image {i}: near-tie flip, margin {margin}")
+        max_err = max(max_err, abs(gs - ws))
+    if not max_err <= 1e-3:
+        fail(f"K10: score error {max_err} > 1e-3")
+    if not trace_err <= 1e-5:
+        fail(f"K10: trace error {trace_err} > 1e-5")
+    lengths = got[2].tolist()
+    if len(set(lengths)) < 2:
+        fail(f"K10: every beam ended at one length {lengths[0]}")
+    gates = torch.cat([got[3][i, :lengths[i]] for i in range(SC_IMAGES)])
+    spread = [gates.min().item(), gates.max().item()]
+    log(f"K10: {SC_IMAGES} images, lengths min {min(lengths)} max "
+        f"{max(lengths)} mean {sum(lengths) / len(lengths):.2f} "
+        f"({len(set(lengths))} distinct); gates {spread[0]:.3f}.."
+        f"{spread[1]:.3f}; score max abs err {max_err:.3g}, vs own re-score "
+        f"{own_err:.3g}; trace err {trace_err:.3g}; {flips} near-tie flips;"
+        f" bit-identical over two runs")
+    ms = cuda_ms(lambda: ssd.mega_senticap_switched_decode(
+        params, v, SC_IMAGES, **kw), 3)
+    plain_ms = cuda_ms(lambda: ssd.mega_senticap_switched_decode_plain(
+        params, v, SC_IMAGES, **kw), 3)
+    rows, steps = SC_IMAGES * SC_BEAM, SC_MAXLEN + 1
+    flops = steps * rows * 2 * (2 * ((SC_E + SC_H) * 4 * SC_H + SC_H * SC_V)
+                                + 2 * SC_H)
+    nbytes = 4 * (2 * (SC_V * SC_E + (SC_E + SC_H) * 4 * SC_H + SC_H * SC_V
+                       + SC_V) + 2 * SC_H + 1 + 2 * SC_IMAGES * SC_E
+                  + 2 * steps * rows * SC_E + SC_IMAGES * (2 * steps + 2))
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"name": "mega_senticap_switched_decode", "route": "cuda",
+            "source": "icee_tpu_torch/csrc/senticap_switched_beam.cu",
+            "replaces": "icee_tpu/ops/pallas_senticap_switched_decode.py:241",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes a beam search",
+            "near_tie_flips": flips, "max_rescore_err": own_err,
+            "max_trace_err": trace_err, "gate_min_max": spread,
+            "lengths": lengths}
+
+
+def decode_switched_phase(device):
+    """Phase 17, the path: ``decode_split(switched=True)`` on a 64-image
+    split, ``SC_DECODE_CALLS`` timed calls after a warm-up; K10 (the styled
+    decode) and K9 (the descriptive one, on the background weights) counted
+    from 0 just before the first call and read just after the last (one
+    launch each a call); the same records every call; captions/s (styled
+    and descriptive captions of the 64 images) from the median call."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+    from icee_tpu_torch.senticap.train import decode_split
+
+    params = switched_params(device)
+    conf = senticap_conf_full(MAX_SENTENCE_LEN=SC_MAXLEN)
+    ds = senticap_split(SC_IMAGES, 67, senti=1.0)
+    i2w = {i: f"w{i}" for i in range(SC_V)}
+    first = decode_split(params, conf, ds, i2w, switched=True,
+                         torch_device=device)
+    torch.cuda.synchronize()                                    # warm-up
+    sd.mega_senticap_beam_decode.launches = 0
+    ssd.mega_senticap_switched_decode.launches = 0
+    walls = []
+    for _ in range(SC_DECODE_CALLS):
+        t0 = time.perf_counter()
+        out = decode_split(params, conf, ds, i2w, switched=True,
+                           torch_device=device)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if out != first:
+            fail("decode_split(switched=True): records differ between calls")
+    launches = {"mega_senticap_switched_decode":
+                ssd.mega_senticap_switched_decode.launches,
+                "mega_senticap_beam_decode":
+                sd.mega_senticap_beam_decode.launches}
+    if any(n != SC_DECODE_CALLS for n in launches.values()):
+        fail(f"decode_split(switched=True) launched {launches} in "
+             f"{SC_DECODE_CALLS} calls")
+    if len(out) != SC_IMAGES or not all(
+            len(o["positive"]) <= SC_MAXLEN
+            and len(o["attention"]) == len(o["positive"]) + 1
+            and all(0.0 < a < 1.0 for a in o["attention"]) for o in out):
+        fail(f"decode_split(switched=True): malformed records "
+             f"{out[:2]}")
+    styled = [len(o["positive"]) for o in out]
+    differ = sum(o["positive"] != o["descriptive"] for o in out)
+    wall = statistics.median(walls)
+    log(f"phase 17: decode_split(switched=True) of {SC_IMAGES} images, "
+        f"median of {SC_DECODE_CALLS} calls {wall * 1e3:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}; "
+        f"{2 * SC_IMAGES / wall:.1f} captions/s), styled caption words min "
+        f"{min(styled)} max {max(styled)}, {differ} styled captions differ "
+        f"from the descriptive; launches {launches}")
+    return launches, {"images": SC_IMAGES, "beam": SC_BEAM,
+                      "max_len": SC_MAXLEN, "calls": SC_DECODE_CALLS,
+                      "wall_ms": wall * 1e3,
+                      "wall_ms_min_max": [min(walls) * 1e3,
+                                          max(walls) * 1e3],
+                      "captions_per_s": 2 * SC_IMAGES / wall,
+                      "styled_caption_words": styled,
+                      "styled_differ_from_descriptive": differ}
 
 
 def main() -> int:
@@ -2947,13 +3574,40 @@ def main() -> int:
         log(f"phase 14: K9 ok, {k9['ms']:.3f} ms vs plain "
             f"{k9['plain_ms']:.3f} ms (bound {k9['bound_ms']:.3f} ms)")
         k9["launches"], decode = decode_senticap_phase(device)
+    base = pretrained_base(device)
+    mxf, mxb, train["mixture_ce_fwd_bwd"] = check_mixture_ce(device, base)
+    log(f"phase 15: mixture CE ok, rows {mxf['ms']:.4f} ms (plain "
+        f"{mxf['plain_ms']:.4f}), grad rows {mxb['ms']:.4f} ms (plain "
+        f"{mxb['plain_ms']:.4f}); whole loss fwd+bwd "
+        f"{train['mixture_ce_fwd_bwd']['kernel_path_ms']:.3f} ms (plain "
+        f"{train['mixture_ce_fwd_bwd']['plain_path_ms']:.3f})")
+    sw_launches, train["senticap_switched"] = train_switched_phase(device,
+                                                                  base)
+    log(f"phase 16: switched step "
+        f"{train['senticap_switched']['step_ms']:.3f} ms, "
+        f"{train['senticap_switched']['captions_per_s']:.1f} captions/s "
+        f"(plain {train['senticap_switched']['plain_step_ms']:.3f} ms)")
+    for entry in (k8f, k8b):   # the switch steps run K8 too
+        entry["launches"] += sw_launches[entry["name"]]
+    mxf["launches"] = sw_launches["mixture_ce_rows"]
+    # the mixture CE's backward row pass is ce_grad_rows: its launches in
+    # the switch steps, which ceb (the single-head CE) does not count
+    mxb["launches"] = sw_launches["ce_grad_rows"]
+    with torch.inference_mode():
+        k10 = check_k10(device)
+        log(f"phase 17: K10 ok, {k10['ms']:.3f} ms vs plain "
+            f"{k10['plain_ms']:.3f} ms (bound {k10['bound_ms']:.3f} ms)")
+        sw_dec_launches, decode_sw = decode_switched_phase(device)
+    k10["launches"] = sw_dec_launches["mega_senticap_switched_decode"]
+    k9["launches"] += sw_dec_launches["mega_senticap_beam_decode"]
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
-    print(json.dumps({"decode": {"senticap": decode}}))
+    print(json.dumps({"decode": {"senticap": decode,
+                                 "senticap_switched": decode_sw}}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
-                                  ceb, *k5, k8f, k8b, k9]}))
+                                  ceb, *k5, k8f, k8b, k9, mxf, mxb, k10]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,23 @@ The loss runs over TIME chunks of ``t_chunk`` steps (zero-padded):
 is value only: the forward row pass without a clamp, then one elementwise
 pass.
 
+The SentiCap switched model's two-head mixture CE
+(:func:`mixture_ce_from_hiddens`, port of ``_mixture_ce``) runs over two
+heads in time chunks of equal length: the forward row pass
+:func:`mixture_ce_rows` gives both heads' lse and target probabilities and
+``w * -log(max(co p_o + cn p_n, 1e-37))`` in one launch.  Unlike the
+single-head CE it keeps the logits of every head that needs a gradient, so
+the backward recomputes none: :func:`ce_grad_rows` with per-row weights
+``-fac`` and g = 1 turns them in place into ``fac * (onehot - p)``.  A head
+that needs no gradient (the frozen background head of switch training)
+keeps nothing.  :func:`mixture_ce_plain` is the whole loss with each chunk's
+softmaxes materialized, differentiated by autograd.
+
 The row passes are hand-written CUDA kernels (``csrc/chunked_ce.cu``); their
-plain versions :func:`ce_rows_plain` and :func:`ce_grad_rows_plain` sit
-beside them.  Each wrapper takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+plain versions :func:`ce_rows_plain`, :func:`ce_grad_rows_plain` and
+:func:`mixture_ce_rows_plain` sit beside them.  Each wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -296,8 +309,252 @@ def masked_neglog2_sum_from_hiddens(
     return acc
 
 
+# --- the two-head mixture CE (the SentiCap switched loss) -------------------
+
+PROB_FLOOR = 1e-37  # mrnn.py:563
+
+
+def mixture_ce_rows_plain(logits_o: torch.Tensor, logits_n: torch.Tensor,
+                          targets: torch.Tensor, co: torch.Tensor,
+                          cn: torch.Tensor, weights: torch.Tensor):
+    """Two heads' (R, V) logits -> (lse_o, lse_n, p_o, p_n, contrib), each
+    (R,): ``p = exp(target logit - lse)`` per head and ``contrib = weights *
+    -log(max(co p_o + cn p_n, 1e-37))``."""
+    out = []
+    for logits in (logits_o, logits_n):
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt, _ = _target_logit(logits, targets)
+        out.append((lse, torch.exp(tgt - lse)))
+    (lse_o, p_o), (lse_n, p_n) = out
+    p_mix = co * p_o + cn * p_n
+    contrib = weights * -torch.log(torch.clamp(p_mix, min=PROB_FLOOR))
+    return lse_o, lse_n, p_o, p_n, contrib
+
+
+def mixture_ce_rows(logits_o: torch.Tensor, logits_n: torch.Tensor,
+                    targets: torch.Tensor, co: torch.Tensor, cn: torch.Tensor,
+                    weights: torch.Tensor):
+    """The mixture CE's forward row pass over one chunk; see
+    :func:`mixture_ce_rows_plain`."""
+    device = logits_o.device
+    r, v = _check_rows(logits_o, targets, weights, device)
+    cuda_lib.check_tensor("logits_n", logits_n, (r, v), torch.float32,
+                          device)
+    for name, t in (("co", co), ("cn", cn)):
+        cuda_lib.check_tensor(name, t, (r,), torch.float32, device)
+    if device.type == "cpu":
+        return mixture_ce_rows_plain(logits_o, logits_n, targets, co, cn,
+                                     weights)
+    if device.type != "cuda":
+        raise ValueError(f"mixture_ce_rows: unsupported device {device}")
+    out = [torch.empty((r,), dtype=torch.float32, device=device)
+           for _ in range(5)]
+    p = cuda_lib.ptr
+    lib = _library()
+    rc = lib.icee_mixture_rows(p(logits_o), p(logits_n), p(targets), p(co),
+                               p(cn), p(weights), *(p(t) for t in out), r, v,
+                               cuda_lib.stream_ptr(device))
+    cuda_lib.check_rc(lib, rc, "mixture_ce_rows")
+    mixture_ce_rows.launches += 1
+    return tuple(out)
+
+
+mixture_ce_rows.launches = 0
+
+
+def mixture_row_cotangents(p_o, p_n, co, cn, weights, g):
+    """The mixture CE's per-row cotangents -> (d_co, d_cn, fac_o, fac_n):
+    with g_p = -(w g) live / max(p_mix, 1e-37), zero where the floor bit
+    (``_mixture_bwd``), d_co = g_p p_o, d_cn = g_p p_n and each head's
+    ``fac = g_p c p``, whose negation is :func:`ce_grad_rows`' per-row
+    weight."""
+    p_mix = co * p_o + cn * p_n
+    live = (p_mix > PROB_FLOOR).to(torch.float32)
+    g_p = -(weights * g) * live / torch.clamp(p_mix, min=PROB_FLOOR)
+    return g_p * p_o, g_p * p_n, g_p * co * p_o, g_p * cn * p_n
+
+
+class _MixtureCE(torch.autograd.Function):
+    """sum(weights * -log(max(co p_o + cn p_n, 1e-37))) over (B, T), with
+    ``p_* = softmax(hh_* w_* + b_*)[target]``."""
+
+    @staticmethod
+    def forward(ctx, hh_o, hh_n, co, cn, w_o, b_o, w_n, b_n, targets,
+                weights, t_chunk):
+        need = ctx.needs_input_grad
+        xs = (_to_chunks(hh_o, t_chunk), _to_chunks(hh_n, t_chunk))
+        coc, cnc = _to_chunks(co, t_chunk), _to_chunks(cn, t_chunk)
+        tc = _to_chunks(targets.long(), t_chunk)
+        wc = _to_chunks(weights, t_chunk)
+        n, r = xs[0].shape[0], xs[0].shape[1] * xs[0].shape[2]
+        # a head whose x, w or b needs a gradient keeps every chunk's
+        # logits for the backward; the other writes one chunk of scratch
+        keep = (any(need[i] for i in (0, 4, 5)),
+                any(need[i] for i in (1, 6, 7)))
+        bufs = [hh_o.new_empty((n if kp else 1, r, w.shape[1]))
+                for w, kp in zip((w_o, w_n), keep)]
+        rows, contribs = [], []
+        for k in range(n):
+            lo, ln = (torch.addmm(bias, x[k].reshape(r, -1), w,
+                                  out=buf[k if kp else 0])
+                      for x, w, bias, buf, kp in zip(
+                          xs, (w_o, w_n), (b_o, b_n), bufs, keep))
+            lse_o, lse_n, p_o, p_n, contrib = mixture_ce_rows(
+                lo, ln, tc[k].reshape(-1), coc[k].reshape(-1),
+                cnc[k].reshape(-1), wc[k].reshape(-1))
+            rows.append(torch.stack([lse_o, lse_n, p_o, p_n]))
+            contribs.append(contrib)
+        ctx.t_chunk = t_chunk
+        ctx.save_for_backward(hh_o, hh_n, co, cn, w_o, w_n, targets,
+                              weights, torch.stack(rows),
+                              *(buf if kp else None
+                                for buf, kp in zip(bufs, keep)))
+        return torch.cat(contribs).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        (hh_o, hh_n, co, cn, w_o, w_n, targets, weights, rows, *kept
+         ) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        b, t = targets.shape
+        tch = ctx.t_chunk
+        xs = (_to_chunks(hh_o, tch), _to_chunks(hh_n, tch))
+        coc, cnc = _to_chunks(co, tch), _to_chunks(cn, tch)
+        tc = _to_chunks(targets.long(), tch)
+        wc = _to_chunks(weights, tch)
+        g = g.reshape(()).to(torch.float32)
+        one = torch.ones((1,), dtype=torch.float32, device=g.device)
+        # per head: (chunks, w, kept logits, needs dx, needs dW)
+        heads = [(xs[0], w_o, kept[0], need[0], need[4]),
+                 (xs[1], w_n, kept[1], need[1], need[6])]
+        dw = [torch.zeros_like(w_o), torch.zeros_like(w_n)]
+        db = [torch.zeros((w_o.shape[1],), dtype=torch.float32,
+                          device=g.device),
+              torch.zeros((w_n.shape[1],), dtype=torch.float32,
+                          device=g.device)]
+        dxs, dcos, dcns = [[], []], [], []
+        for k in range(xs[0].shape[0]):
+            lse_o, lse_n, p_o, p_n = rows[k]
+            d_co, d_cn, fac_o, fac_n = mixture_row_cotangents(
+                p_o, p_n, coc[k].reshape(-1), cnc[k].reshape(-1),
+                wc[k].reshape(-1), g)
+            dcos.append(d_co.reshape(b, tch))
+            dcns.append(d_cn.reshape(b, tch))
+            for i, ((xc, w, logits, n_x, n_w), fac, lse) in enumerate(
+                    zip(heads, (fac_o, fac_n), (lse_o, lse_n))):
+                if logits is None:
+                    continue
+                dl = ce_grad_rows(logits[k], tc[k].reshape(-1),
+                                  (-fac).contiguous(), lse, one, db[i])
+                if n_x:
+                    dxs[i].append((dl @ w.T).reshape(b, tch, -1))
+                if n_w:
+                    dw[i].addmm_(xc[k].reshape(-1, xc.shape[-1]).T, dl)
+
+        def unchunk(parts):
+            return torch.cat(parts, dim=1)[:, :t] if parts else None
+
+        return (unchunk(dxs[0]), unchunk(dxs[1]), unchunk(dcos),
+                unchunk(dcns), dw[0] if need[4] else None,
+                db[0] if need[5] else None, dw[1] if need[6] else None,
+                db[1] if need[7] else None, None, None, None)
+
+
+def even_t_chunk(batch: int, t: int) -> int:
+    """:func:`auto_t_chunk`'s number of chunks with T shared evenly among
+    them, so that no chunk is padded with empty steps (B = 128, T = 22:
+    two chunks of 11 steps, not 16 + 6 padded to 32)."""
+    n = -(-t // auto_t_chunk(batch, t))
+    return -(-t // n)
+
+
+def mixture_ce_from_hiddens(
+    hh_o: torch.Tensor,          # (B, T, H) background head input
+    hh_n: torch.Tensor,          # (B, T, H) sentiment head input
+    co: torch.Tensor,            # (B, T) background mixture coefficient
+    cn: torch.Tensor,            # (B, T) sentiment mixture coefficient
+    w_o: torch.Tensor, b_o: torch.Tensor,
+    w_n: torch.Tensor, b_n: torch.Tensor,
+    targets: torch.Tensor,       # (B, T) int
+    weights: torch.Tensor,       # (B, T) float: mask (x CE reweighting)
+    t_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Chunked ``sum(weights * -log(max(co p_o + cn p_n, 1e-37)))``, the
+    SentiCap switched mixture CE (``icee_tpu/ops/chunked_loss.py:364``),
+    in time chunks of equal length (:func:`even_t_chunk` by default).  The
+    cotangents of ``co`` and ``cn`` are ``-w / p_mix * p_{o,n}``; floored
+    tokens get zero gradient.  The logits of a head that needs a gradient
+    are kept for the backward instead of recomputed (its whole (B, T, V)
+    array, 99 MB at B = 128, T = 22, V = 8800); a head that needs none
+    (switch training freezes the background head) keeps one chunk's
+    scratch and costs the backward nothing."""
+    b, t = targets.shape
+    if t_chunk is None:
+        t_chunk = even_t_chunk(b, t)
+    return _MixtureCE.apply(hh_o, hh_n, co.to(torch.float32),
+                            cn.to(torch.float32), w_o, b_o, w_n, b_n,
+                            targets, weights.to(torch.float32), t_chunk)
+
+
+def mixture_ce_plain(hh_o, hh_n, co, cn, w_o, b_o, w_n, b_n, targets,
+                     weights, t_chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`mixture_ce_from_hiddens` with each chunk's two softmaxes
+    materialized, differentiated by autograd (every input's gradient)."""
+    b, t = targets.shape
+    if t_chunk is None:
+        t_chunk = even_t_chunk(b, t)
+    total = torch.zeros((), dtype=torch.float32, device=hh_o.device)
+    for t0 in range(0, t, t_chunk):
+        sl = slice(t0, t0 + t_chunk)
+        y = targets[:, sl].long()[..., None]
+        p_o = torch.softmax(hh_o[:, sl] @ w_o + b_o, -1).gather(-1, y)[..., 0]
+        p_n = torch.softmax(hh_n[:, sl] @ w_n + b_n, -1).gather(-1, y)[..., 0]
+        p_mix = co[:, sl] * p_o + cn[:, sl] * p_n
+        total = total + torch.sum(weights[:, sl] * -torch.log(
+            torch.clamp(p_mix, min=PROB_FLOOR)))
+    return total
+
+
+def mixture_neglog2_sum_from_hiddens(
+    hh_o: torch.Tensor, hh_n: torch.Tensor,
+    co: torch.Tensor, cn: torch.Tensor,
+    w_o: torch.Tensor, b_o: torch.Tensor,
+    w_n: torch.Tensor, b_n: torch.Tensor,
+    targets: torch.Tensor,
+    mask: torch.Tensor,
+    t_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Two-head form of :func:`masked_neglog2_sum_from_hiddens`, the
+    switched model's perplexity numerator ``sum(mask * -log2(co p_o + cn
+    p_n + 1e-20))`` (``icee_tpu/ops/chunked_loss.py:194``).  Value only: per
+    chunk the forward row pass :func:`mixture_ce_rows` gives p_o and p_n,
+    then one elementwise pass."""
+    b, t = targets.shape
+    if t_chunk is None:
+        t_chunk = even_t_chunk(b, t)
+    with torch.no_grad():
+        xo, xn = _to_chunks(hh_o, t_chunk), _to_chunks(hh_n, t_chunk)
+        coc = _to_chunks(co.to(torch.float32), t_chunk)
+        cnc = _to_chunks(cn.to(torch.float32), t_chunk)
+        tc = _to_chunks(targets.long(), t_chunk)
+        wc = _to_chunks(mask.to(torch.float32), t_chunk)
+        ones = torch.ones((b * t_chunk,), dtype=torch.float32,
+                          device=hh_o.device)
+        acc = torch.zeros((), dtype=torch.float32, device=hh_o.device)
+        for k in range(xo.shape[0]):
+            c_o, c_n = coc[k].reshape(-1), cnc[k].reshape(-1)
+            _, _, p_o, p_n, _ = mixture_ce_rows(
+                _chunk_logits(xo[k], w_o, b_o),
+                _chunk_logits(xn[k], w_n, b_n), tc[k].reshape(-1), c_o, c_n,
+                ones)
+            p = c_o * p_o + c_n * p_n
+            acc = acc + torch.sum(wc[k].reshape(-1) * -torch.log2(p + 1e-20))
+    return acc
+
+
 def _library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_lib.library("chunked_ce", {
         "icee_ce_rows": ([vp] * 5 + [i, i, f, i, vp], i),
-        "icee_ce_grad_rows": ([vp] * 6 + [i, i, i, f, i, vp], i)})
+        "icee_ce_grad_rows": ([vp] * 6 + [i, i, i, f, i, vp], i),
+        "icee_mixture_rows": ([vp] * 11 + [i, i, vp], i)})

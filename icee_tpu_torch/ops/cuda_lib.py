@@ -30,7 +30,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("decode_step", "beam", "lstm_scan", "nic_scan", "chunked_ce",
            "att_decode_step", "att_beam", "att_scan", "senticap_scan",
-           "senticap_beam")
+           "senticap_beam", "senticap_switched_beam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

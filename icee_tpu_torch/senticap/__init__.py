@@ -1,3 +1,4 @@
 """SentiCap (the mRNN captioner and its sentiment switch), ported from
-``icee_tpu/senticap/``: so far the base model's training and beam decode
-(``config``, ``io``, ``model``, ``solver``, ``train``, ``beam``)."""
+``icee_tpu/senticap/``: the base model's and the switched model's training
+and beam decode (``config``, ``io``, ``model``, ``switched``, ``solver``,
+``train``, ``beam``)."""

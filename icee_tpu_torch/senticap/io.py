@@ -186,15 +186,19 @@ def make_split(
     return SentiDataset(X=X, Y=Y, Xlen=Xlen, V=V, SW=SW, senti=senti, ids=ids)
 
 
-def device_dataset(ds: SentiDataset, device="cpu"):
-    """Pin a split on ``device`` as torch tensors (the reference's
-    GPU-resident Theano shared arrays, ``mrnn.py:581-596``): the train steps
-    gather minibatch rows by an index vector, so epochs run without
-    host-to-device copies."""
+def device_dataset(ds: SentiDataset, device="cuda"):
+    """Pin a split on ``device`` (CUDA unless the caller asks for the CPU)
+    as torch tensors (the reference's GPU-resident Theano shared arrays,
+    ``mrnn.py:581-596``): the train steps gather minibatch rows by an index
+    vector, so epochs run without host-to-device copies."""
     import torch
 
+    from icee_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+
     def put(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return {"X": put(ds.X), "Y": put(ds.Y), "Xlen": put(ds.Xlen),
             "V": put(ds.V), "SW": put(ds.SW), "senti": put(ds.senti)}
@@ -223,13 +227,17 @@ def save_model(path: str, params, conf: dict, solver_state=None,
                      "w2i": vocab}, f)
 
 
-def load_model(path: str, device="cpu"):
-    """-> (params as tensors on ``device``, conf, solver_state, w2i-or-None)."""
+def load_model(path: str, device="cuda"):
+    """-> (params as tensors on ``device``, CUDA unless the caller asks for
+    the CPU; conf, solver_state, w2i-or-None)."""
     import torch
 
+    from icee_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
     with open(path, "rb") as f:
         blob = pickle.load(f)
-    params = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+    params = {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
               for k, v in blob["params"].items()}
     return (params, blob["conf"], blob.get("solver_state"),
             blob.get("w2i"))

@@ -159,12 +159,13 @@ def visual_embedding(params: dict, v: torch.Tensor) -> torch.Tensor:
 
 
 def _check_conf(conf: dict) -> None:
-    """``JOINED_LOSS_FUNCTION`` belongs to the joined switched model
-    (``mrnn.py:111-115``); on the base mRNN it is an error, not a no-op."""
+    """``JOINED_LOSS_FUNCTION`` (``mrnn.py:111-115``) is refused, here as in
+    the JAX package: an error, not a no-op.  Neither package has a joined
+    loss; the switched model's loss is ``senticap/switched.py::loss_fn``."""
     if conf.get("JOINED_LOSS_FUNCTION"):
         raise NotImplementedError(
-            "JOINED_LOSS_FUNCTION applies to the joined switched model "
-            "(senticap/switched.py, slice 7c of the port)")
+            "JOINED_LOSS_FUNCTION is not supported: the switched model's "
+            "loss is senticap/switched.py::loss_fn")
 
 
 def _masks(b, t, conf, x_drop, y_drop, like):

@@ -71,12 +71,13 @@ class Solver:
         self.decay, self.rho = conf["decay"], conf["rho"]
         self.trainable_mask = trainable_mask
 
-    def _trainable(self, params) -> list:
+    def trainable_keys(self, params) -> list:
+        """The names of the leaves this solver updates."""
         mask = self.trainable_mask
         return [k for k in params if mask is None or mask[k]]
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
-        keys = self._trainable(params)
+        keys = self.trainable_keys(params)
         if self.method == RMSPROP:
             return {"cache": {k: torch.zeros_like(params[k]) for k in keys}}
         return {"grad_sq": {k: torch.zeros_like(params[k]) for k in keys},
@@ -87,7 +88,7 @@ class Solver:
                params: Dict[str, torch.Tensor]) -> dict:
         """Apply one step to ``params`` in place (None grads count as zero;
         frozen leaves are left as they are) -> the new solver state."""
-        keys = self._trainable(params)
+        keys = self.trainable_keys(params)
         g = {k: torch.zeros_like(params[k]) if grads.get(k) is None
              else grads[k] for k in keys}
         g = _scale_and_clip(g, self.batch_size, self.clip)

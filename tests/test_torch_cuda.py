@@ -15,6 +15,10 @@ vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7.  K5 (the attention training scan), both cells,
 teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
 same bits on a second run, and the attention train steps on the card
+against the CPU.  K8 and K9 (the SentiCap scan and base beam search) and
+K10 (the switched beam search): a ragged vocabulary, E != H, one image at
+beam 20, all-tied and saturated heads, the trace; the mixture CE's value
+and every gradient, the same bits twice; the switched step on the card
 against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere (marker ``cuda``).  On a
@@ -892,3 +896,191 @@ def test_senticap_wrappers_raise_on_what_the_kernels_do_not_take(device):
         sd.mega_senticap_beam_decode(
             dict(params, gamma_h=torch.ones(32, device=device)),
             torch.zeros((1, 24), device=device), 1, beam_size=2)
+
+
+def _switched_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
+                     zero_head=False):
+    """Switched weights: the base set, duplicates + 0.3 N(0, 1), a gate
+    spread off 0.5."""
+    base = {k: t.cpu().numpy() for k, t in _senticap_params(
+        "cpu", vocab, e, h, seed, vis, stop_bias, zero_head).items()}
+    rng = np.random.default_rng(seed + 1)
+    p = dict(base)
+    for k, a in base.items():
+        p[f"{k}_sw"] = (a + (0 if zero_head and k in ("w", "b") else 0.3)
+                        * rng.standard_normal(a.shape)).astype(np.float32)
+    p["att_w"] = (0.5 * rng.standard_normal((2 * h, 1))).astype(np.float32)
+    p["att_b"] = np.zeros(1, np.float32)
+    return bridge.to_torch(p, device=device)
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated"])
+def test_senticap_switched_beam_kernel_matches_plain(device, case):
+    """K10 against its plain search, margin-aware: a ragged vocabulary and
+    E != H over several images, one image at beam 20, all-tied zero heads
+    (every step picks tokens 0, 1, 2, ... in index order) and saturated
+    tails (the nll plateau ranked by index).  Where the tokens agree, the
+    trace within 1e-5; where they differ, the kernel's sequence must tie
+    the plain winner within 1e-4 (its score re-scored by the plain
+    search's own step)."""
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+
+    vocab, beam, batch, max_len, stop, e = 515, 5, 6, 7, 0, 12
+    kw = dict(seed=3, stop_bias=4.0)
+    if case == "one_image":
+        vocab, beam, batch, e = 300, 20, 1, 16
+    elif case == "tied":
+        vocab, stop, e, kw = 64, 63, 16, dict(zero_head=True)
+    params = _switched_params(device, vocab, e, 16, **kw)
+    if case == "saturated":
+        for k in ("b", "b_sw"):
+            params[k].fill_(-200.0)
+            params[k][:4] = torch.tensor([50.0, 49.0, 48.0, 47.0])
+    g = torch.Generator(device=device).manual_seed(5)
+    v = torch.randn((batch, 24), generator=g, device=device)
+    before = ssd.mega_senticap_switched_decode.launches
+    got = ssd.mega_senticap_switched_decode(
+        params, v, batch, beam_size=beam, max_len=max_len, stop_token=stop)
+    torch.cuda.synchronize()
+    assert ssd.mega_senticap_switched_decode.launches == before + 1
+    want = ssd.mega_senticap_switched_decode_plain(params, v, batch, beam,
+                                                   max_len, stop)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    for i in range(batch):
+        n = int(got[2][i])
+        if n == int(want[2][i]) and torch.equal(got[1][i, :n],
+                                                want[1][i, :n]):
+            torch.testing.assert_close(got[3][i, :n], want[3][i, :n],
+                                       rtol=0, atol=1e-5)
+            assert not got[3][i, n:].any()
+        else:
+            assert abs(float(got[0][i]) - float(want[0][i])) <= 1e-4, i
+    if case == "tied":
+        assert got[1].tolist() == [[0] * (max_len + 1)] * batch
+    if case == "ragged":
+        assert len(set(got[2].tolist())) > 1
+    again = ssd.mega_senticap_switched_decode(
+        params, v, batch, beam_size=beam, max_len=max_len, stop_token=stop)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("v,t_chunk", [(301, None), (64, 3)])
+def test_mixture_ce_kernel_path_matches_plain(device, v, t_chunk):
+    """The mixture CE on the card (the forward row kernel and the CE grad
+    rows) against its materialized plain version: the value, a sum, rtol
+    1e-5, each gradient within 1e-5 x its largest magnitude, a floored
+    token with zero gradient, the same bits twice; a frozen background
+    head leaves the other gradients as they were."""
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    rng = np.random.default_rng(9)
+    b, t, h = 5, 7, 12
+    att = rng.uniform(0.05, 0.95, (b, t))
+    a = [2 * rng.standard_normal((b, t, h)), 2 * rng.standard_normal(
+        (b, t, h)), 1 - att, att, rng.standard_normal((h, v)),
+         rng.standard_normal(v), rng.standard_normal((h, v)),
+         rng.standard_normal(v)]
+    a = [torch.tensor(x, dtype=torch.float32, device=device) for x in a]
+    y = torch.tensor(rng.integers(0, v, (b, t)), device=device)
+    w = torch.tensor(rng.uniform(0, 2, (b, t)), dtype=torch.float32,
+                     device=device)
+    a[5][3] = a[7][3] = -600.0
+    y[0, 0] = 3
+    out = {}
+    for name, fn in (("kernel", cl.mixture_ce_from_hiddens),
+                     ("again", cl.mixture_ce_from_hiddens),
+                     ("plain", cl.mixture_ce_plain)):
+        ta = [x.clone().requires_grad_(True) for x in a]
+        before = (cl.mixture_ce_rows.launches, cl.ce_grad_rows.launches)
+        loss = fn(*ta, y, w, t_chunk)
+        out[name] = (loss, torch.autograd.grad(loss, ta))
+        if name == "kernel":   # the backward row pass is ce_grad_rows
+            assert cl.mixture_ce_rows.launches > before[0]
+            assert cl.ce_grad_rows.launches > before[1]
+    torch.cuda.synchronize()
+    (kl, kg), (al, ag), (pl, pg) = out["kernel"], out["again"], out["plain"]
+    assert torch.equal(kl, al) and all(torch.equal(x, z)
+                                       for x, z in zip(kg, ag))
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0)
+    for i, (x, z) in enumerate(zip(kg, pg)):
+        assert (x - z).abs().max() <= 1e-5 * z.abs().max(), i
+    assert kg[2][0, 0] == 0 and kg[3][0, 0] == 0
+    ta = [x.clone().requires_grad_(i not in (0, 4, 5))
+          for i, x in enumerate(a)]
+    loss = cl.mixture_ce_from_hiddens(*ta, y, w, t_chunk)
+    live = [i for i in range(8) if ta[i].requires_grad]
+    for i, g in zip(live, torch.autograd.grad(loss, [ta[i] for i in live])):
+        torch.testing.assert_close(g, kg[i], rtol=0, atol=0)
+
+
+def test_senticap_switched_step_on_the_card_matches_the_cpu(device):
+    """One switch-training step on the card (two K8 scans, the background
+    one without autograd, and the mixture CE kernels) against the same
+    step on the CPU with the same masks.  Tolerances: loss rtol 1e-5;
+    params atol 1e-4 (the RMSProp update magnifies grad rounding by up to
+    10); the frozen weights bit-identical."""
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import solver as ssolver
+    from icee_tpu_torch.senticap import switched as sw
+    from icee_tpu_torch.senticap.config import senticap_conf
+    from icee_tpu_torch.senticap.train import make_switched_step
+
+    conf = senticap_conf(emb_size=12, lstm_hidden_size=16, visual_size=24,
+                         MAX_SENTENCE_LEN=6, batch_size_val=5)
+    rng = np.random.default_rng(7)
+    n, t, vocab = 9, 7, 40
+    ds = sio.SentiDataset(
+        X=rng.integers(0, vocab, (n, t)).astype(np.int32),
+        Y=rng.integers(0, vocab, (n, t)).astype(np.int32),
+        Xlen=(np.arange(t)[None] < rng.integers(2, t, (n, 1))).astype(
+            np.float32),
+        V=rng.standard_normal((n, 24)).astype(np.float32),
+        SW=(rng.random((n, t)) < 0.2).astype(np.float32),
+        senti=np.ones(n, np.float32), ids=list(range(n)))
+    masks = dict(
+        x_drop=torch.tensor((rng.random((5, t, 12)) < 0.5) * 2.0,
+                            dtype=torch.float32),
+        y_drop=torch.tensor((rng.random((5, t, 16)) < 0.5) * 2.0,
+                            dtype=torch.float32))
+    idx = torch.tensor([4, 0, 8, 2, 6])
+    out = {}
+    for dev in ("cpu", device):
+        params = _switched_params(dev, vocab, 12, 16, seed=8)
+        tx = ssolver.make_solver(conf, sw.switch_param_mask(params))
+        step = make_switched_step(conf, tx, device=dev)
+        _, _, loss = step(params, tx.init(params),
+                          sio.device_dataset(ds, dev), idx.to(dev),
+                          **{k: m.to(dev) for k, m in masks.items()})
+        out[str(dev)] = (loss, params)
+    torch.cuda.synchronize()
+    cpu_loss, cpu_p = out["cpu"]
+    card_loss, card_p = out[str(device)]
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    start = _switched_params("cpu", vocab, 12, 16, seed=8)
+    for k in cpu_p:
+        torch.testing.assert_close(card_p[k].cpu(), cpu_p[k], rtol=0,
+                                   atol=1e-4)
+        if k in sw.BASE_NAMES:
+            assert torch.equal(card_p[k].cpu(), start[k]), k
+
+
+def test_switched_wrapper_raises_on_what_the_kernel_does_not_take(device):
+    """On CUDA tensors K10's wrapper launches or raises: a wrong dtype, a
+    conf outside DA_SUM, a tensor left on the CPU."""
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+    from icee_tpu_torch.senticap.config import senticap_conf
+
+    params = _switched_params(device, 40, 16, 16)
+    v = torch.zeros((1, 24), device=device)
+    before = ssd.mega_senticap_switched_decode.launches
+    with pytest.raises(TypeError, match="w_sw"):
+        ssd.mega_senticap_switched_decode(
+            dict(params, w_sw=params["w_sw"].double()), v, 1, beam_size=2)
+    with pytest.raises(ValueError, match="DA_SUM"):
+        ssd.mega_senticap_switched_decode(
+            params, v, 1, beam_size=2,
+            conf=senticap_conf(DOMAIN_ADAPT="da_similar_param"))
+    with pytest.raises(ValueError, match="expected cuda"):
+        ssd.mega_senticap_switched_decode(dict(params, att_w=params[
+            "att_w"].cpu()), v, 1, beam_size=2)
+    assert ssd.mega_senticap_switched_decode.launches == before

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
                  "ops.att_decode_step", "ops.att_beam", "ops.att_scan",
                  "ops.senticap_scan", "ops.senticap_decode",
                  "senticap.config", "senticap.io", "senticap.model",
-                 "senticap.solver", "senticap.train", "senticap.beam"):
+                 "senticap.solver", "senticap.train", "senticap.beam",
+                 "senticap.switched", "ops.senticap_switched_decode"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary

@@ -324,7 +324,8 @@ def test_pickles_cross_between_the_packages(tmp_path):
     conf = jconf(**SMALL)
     w2i = {".": 0, "a": 1}
     jio.save_model(str(tmp_path / "jax.pkl"), _j(p), conf, None, w2i)
-    tp, tconf, state, tw2i = sio.load_model(str(tmp_path / "jax.pkl"))
+    tp, tconf, state, tw2i = sio.load_model(str(tmp_path / "jax.pkl"),
+                                            "cpu")
     assert tconf == conf and tw2i == w2i and state is None
     for k in p:
         np.testing.assert_array_equal(tp[k].numpy(), p[k])
@@ -410,9 +411,12 @@ def test_validation_perplexity_matches_jax():
         got = validation_perplexity(bridge.to_torch(p), senticap_conf(
             CHUNKED_CE=chunked, **SMALL), ds, device="cpu")
         np.testing.assert_allclose(got, want, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="7c"):
-        validation_perplexity(bridge.to_torch(p), senticap_conf(**SMALL), ds,
-                              switched=True, device="cpu")
+        # base_only: the background model inside a switched parameter set
+        sw = dict(bridge.to_torch(p), **{f"{k}_sw": 2 * bridge.to_torch(p)[k]
+                                         for k in p})
+        assert validation_perplexity(
+            sw, senticap_conf(CHUNKED_CE=chunked, **SMALL), ds,
+            switched=True, base_only=True, device="cpu") == got
 
 
 def test_train_base_learns_and_device_epoch_matches():

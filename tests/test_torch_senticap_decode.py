@@ -177,14 +177,16 @@ def test_decode_split_matches_jax():
     jp = jax.tree.map(jnp.asarray, params)
     jc = _conf(False, MAX_SENTENCE_LEN=5)
     for dev_mode in (True, False):
-        got = decode_split(tp, conf, ds, i2w, beam_size=4, device=dev_mode,
-                           torch_device="cpu")
+        got = decode_split(tp, conf, ds, i2w, switched=False, beam_size=4,
+                           device=dev_mode, torch_device="cpu")
         want = jdecode_split(jp, jc, jds, i2w, switched=False, beam_size=4,
                              device=dev_mode, mega="off")
         assert got == want, dev_mode
     assert len({len(o["caption"]) for o in got}) > 1
-    with pytest.raises(NotImplementedError, match="7c"):
-        decode_split(tp, conf, ds, i2w, switched=True, torch_device="cpu")
+    # the default decodes the switched model, as JAX's decode_split does:
+    # base weights lack its *_sw set
+    with pytest.raises(KeyError, match="_sw"):
+        decode_split(tp, conf, ds, i2w, torch_device="cpu")
 
 
 def test_wrapper_refuses_the_regimes_it_does_not_compute():
