@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero:
    source, all at once) into ``icee_tpu_torch/_build/``;
 3. turn TF32 off for matmuls and cuDNN, so float32 means float32;
 4. K1 (``decode_step_topk``) vs its plain PyTorch version at E=300,
-   F=H=512, V=8192: at the serial path's 5 rows (one image x 5 beams) and
-   at 64 images x 5 beams = 320 rows, which is timed;
+   F=H=512, V=8192: at the serial path's 5 rows (one image x 5 beams, the
+   column-split path) and at 64 images x 5 beams = 320 rows (the row-tiled
+   path), both timed, with the column-split path's device timeline (a
+   CUDA graph replay: its time, span and per-launch start and end);
 5. K2 (``mega_beam_decode``) vs the plain ``beam_search_batched`` search at
    64 images, V=8192, 40 steps, in both feature modes, with the StyleNet
    cell (``cell="factored"``) and then the NIC cell (``cell="lstm"``); each
@@ -19,10 +21,12 @@ Phases, in order; any failure exits non-zero:
    where tokens differ, the kernel's sequence must tie the plain winner's
    within 1e-4;
 5b. K6 (``att_decode_step_topk``, the attention step) vs its plain version
-   at 64 images x 5 beams = 320 rows (timed) and at the serial path's one
-   image, for the StyleNet+Att cell (``kind="factored"``) and the NIC+Att
-   cell (``kind="lstm"``), at A=512, P=14x14, FS=2048, E+FS=2348; and the
-   h0/c0 kernel (``att_init_state``) vs ``init_hidden_state``;
+   at 64 images x 5 beams = 320 rows (row-tiled) and at the serial path's
+   one image (column-split), both timed, with the column-split path's
+   device timeline, for the StyleNet+Att cell (``kind="factored"``)
+   and the NIC+Att cell (``kind="lstm"``), at A=512, P=14x14, FS=2048,
+   E+FS=2348; and the h0/c0 kernel (``att_init_state``) vs
+   ``init_hidden_state``;
 5c. K7 (``mega_att_beam_decode``, the whole attention search) vs the plain
    search at 64 images, both cells, margin-aware as phase 5, with the
    steps each block ran;
@@ -34,7 +38,8 @@ Phases, in order; any failure exits non-zero:
    same requests one by one (serial path: K1, K2 lstm, the h0/c0 kernel
    and K6 of both cells for one image).  Every variant's captions must
    match, and each path's kernels must have launched (the counts are reset
-   to 0 just before the path runs and read just after).  Then a checkpoint
+   to 0 just before the path runs and read just after); every serial K1
+   and K6 call must have taken the column-split path.  Then a checkpoint
    round trip: reference-style torch checkpoints (StyleNet and
    StyleNet+Att decoder state dicts, full-module NIC and NIC+Att pickles)
    serve one request with the captions of the same weights passed as
@@ -106,7 +111,8 @@ Phases, in order; any failure exits non-zero:
 18. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
    ``senticap`` and ``senticap_switched`` entries), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
-   "senticap_switched": {...}}}`` line and one ``{"kernels": [...]}`` line
+   "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
+   line (phases 4 and 5b) and one ``{"kernels": [...]}`` line
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
@@ -128,6 +134,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # published H100 SXM peaks: HBM 3.35 TB/s, float32 outside the tensor cores
@@ -303,36 +310,93 @@ def check_k1(dec, device, rows: int, seed: int):
     return (x, h, c, style), max(errs.values()), ties
 
 
-def k1_line(dec, inputs, max_err: float, ties: int):
-    """Times K1, its plain version and the library yardstick on
-    ``inputs``; -> K1's entry of the kernels line."""
+def k1_line(dec, inputs, serial_inputs, max_err: float, ties: int):
+    """Times K1, its plain version and the library yardstick at the
+    batched shape (320 rows, the row-tiled path) and the serial one (5
+    rows, the column-split path); -> K1's entry of the kernels line."""
     import torch
 
     from icee_tpu_torch.ops.cells import factored_lstm_cell
     from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                                 decode_step_topk_plain)
 
-    x, h, c, style = inputs
-    rows = x.shape[0]
+    out = {}
+    for tag, (x, h, c, style) in (("", inputs), ("serial_", serial_inputs)):
+        rows = x.shape[0]
 
-    def library():
-        h_new, _ = factored_lstm_cell(dec, x, h, c, style)
-        return torch.topk(torch.log_softmax(
-            torch.addmm(dec["C_b"], h_new, dec["C_w"]), dim=-1), K)
+        def library():
+            h_new, _ = factored_lstm_cell(dec, x, h, c, style)
+            return torch.topk(torch.log_softmax(
+                torch.addmm(dec["C_b"], h_new, dec["C_w"]), dim=-1), K)
 
-    ms = cuda_ms(lambda: decode_step_topk(dec, x, h, c, style, ktop=K), 20)
-    plain_ms = cuda_ms(
-        lambda: decode_step_topk_plain(dec, x, h, c, style, ktop=K), 20)
-    lib_ms = cuda_ms(library, 20)
-    nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
-        + 4 * rows * (2 * K + 2 * H)
-    b_ms, b_by = bound_ms(rows * step_flops_per_row(), nbytes)
-    return {"name": "decode_step_topk", "route": "cuda",
-            "source": "icee_tpu_torch/csrc/decode_step.cu",
-            "replaces": "icee_tpu/ops/pallas_decode.py:261",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "near_tie_swaps": ties}
+        # the serial shape's calls are short and host-bound: more of them,
+        # after more warm-up, for all three alike
+        n, warm = (100, 10) if tag else (20, 1)
+        out[tag + "ms"] = cuda_ms(
+            lambda: decode_step_topk(dec, x, h, c, style, ktop=K), n, warm)
+        out[tag + "plain_ms"] = cuda_ms(
+            lambda: decode_step_topk_plain(dec, x, h, c, style, ktop=K), n,
+            warm)
+        out[tag + "library_ms"] = cuda_ms(library, n, warm)
+        nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
+            + 4 * rows * (2 * K + 2 * H)
+        out[tag + "bound_ms"], out[tag + "bound_by"] = bound_ms(
+            rows * step_flops_per_row(), nbytes)
+    return dict(out, name="decode_step_topk", route="cuda",
+                source="icee_tpu_torch/csrc/decode_step.cu",
+                replaces="icee_tpu/ops/pallas_decode.py:261",
+                max_abs_err=max_err, near_tie_swaps=ties,
+                serial_source="icee_tpu_torch/csrc/split_step.cuh")
+
+
+def split_timeline(fn, calls: int = 20):
+    """The device side of ``fn`` (a column-split K1 or K6 call at the
+    serial shape) without the host: ``fn`` captured in a CUDA graph;
+    -> {"graph_ms": mean time of a replay (CUDA events, back to back),
+    "span_us": mean span of one replay from its first launch's start to
+    its last launch's end, "stages_us": {launch: [mean start, mean end]}
+    after the first launch's start} from a torch.profiler trace of
+    ``calls`` replays, synchronised one by one.  Stages overlap under
+    programmatic dependent launch: a launch starts while its predecessor
+    runs and waits for it inside."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph_ms = cuda_ms(graph.replay, 50, warmup=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            graph.replay()
+            torch.cuda.synchronize()
+    kernels = sorted(((e.time_range.start, e.time_range.end, e.name)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation),
+                     key=lambda k: k[0])
+    n = len({name for _, _, name in kernels})
+    if n == 0 or len(kernels) != n * calls:  # the trace missed launches
+        return {"graph_ms": graph_ms, "span_us": None, "stages_us": None,
+                "device_events": len(kernels)}
+    stages, spans = {}, []
+    for i in range(calls):
+        call = kernels[i * n:(i + 1) * n]
+        t0 = call[0][0]
+        spans.append(max(e for _, e, _ in call) - t0)
+        for b, e, name in call:
+            acc = stages.setdefault(name[:90], [0.0, 0.0])
+            acc[0] += (b - t0) / calls
+            acc[1] += (e - t0) / calls
+    return {"graph_ms": graph_ms, "span_us": sum(spans) / calls,
+            "stages_us": stages}
 
 
 # --- phase 5: K2 ------------------------------------------------------------
@@ -572,11 +636,15 @@ def k6_line(kind: str, args, serial_args, max_err: float, ties: int):
     for tag, a in (("", args), ("serial_", serial_args)):
         n_img = a[6].shape[0]
         rows = n_img * K
+        # the serial shape's calls are short and host-bound: more of them,
+        # after more warm-up, for all three alike
+        n, n_plain, warm = (100, 100, 10) if tag else (20, 5, 1)
         out[tag + "ms"] = cuda_ms(lambda: att_decode_step_topk(*a, ktop=K),
-                                  20)
+                                  n, warm)
         out[tag + "plain_ms"] = cuda_ms(
-            lambda: att_decode_step_topk_plain(*a, ktop=K), 5)
-        out[tag + "library_ms"] = cuda_ms(lambda: att_library_step(a), 20)
+            lambda: att_decode_step_topk_plain(*a, ktop=K), n_plain, warm)
+        out[tag + "library_ms"] = cuda_ms(lambda: att_library_step(a), n,
+                                          warm)
         nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
                   + 4 * rows * (E + 2 * H) + 4 * rows * (2 * K + 2 * H + P))
         out[tag + "bound_ms"], out[tag + "bound_by"] = bound_ms(
@@ -779,7 +847,11 @@ def run_requests(url, requests, concurrent: bool):
     results = {}
 
     def worker(j, p, m):
-        results[j] = _post(url, p, m)
+        try:
+            results[j] = _post(url, p, m)
+        except urllib.error.HTTPError as e:  # the service's error text
+            results[j] = (e.code, {"error": e.read().decode(errors="replace")},
+                          0.0)
 
     t0 = time.perf_counter()
     if concurrent:
@@ -905,15 +977,26 @@ def serve_phase(params, device):
     from icee_tpu_torch.serve.config import ServeConfig
     from icee_tpu_torch.serve.engine import BEAM_K, CaptionEngine
 
+    step_paths = {"decode_step_topk": (decode_step_topk, ""),
+                  "att_decode_step_topk": (att_decode_step_topk, ""),
+                  "att_decode_step_topk_lstm": (att_decode_step_topk,
+                                                "lstm_")}
+
     def reset():
         decode_step_topk.launches = att_init_state.launches = 0
         mega_beam_decode.launches = mega_beam_decode.lstm_launches = 0
         att_decode_step_topk.launches = att_decode_step_topk.lstm_launches = 0
         mega_att_beam_decode.launches = 0
         mega_att_beam_decode.lstm_launches = 0
+        for fn, prefix in step_paths.values():
+            for path in ("split_", "tiled_"):
+                setattr(fn, prefix + path + "launches", 0)
 
     def read():
-        return {"decode_step_topk": decode_step_topk.launches,
+        paths = {f"{name}_{path}": getattr(fn, prefix + path + "_launches")
+                 for name, (fn, prefix) in step_paths.items()
+                 for path in ("split", "tiled")}
+        return {**paths, "decode_step_topk": decode_step_topk.launches,
                 "mega_beam_decode": mega_beam_decode.launches,
                 "mega_beam_decode_lstm": mega_beam_decode.lstm_launches,
                 "att_decode_step_topk": att_decode_step_topk.launches,
@@ -986,6 +1069,14 @@ def serve_phase(params, device):
             for name in names:
                 if launches[path][name] <= 0:
                     fail(f"{name} was not launched on the {path} path")
+        # every serial request is one image: K1 and K6 must have taken
+        # their column-split path, every time
+        for name in step_paths:
+            got = launches["serial"]
+            if got[name + "_tiled"] or got[name + "_split"] != got[name]:
+                fail(f"{name} on the serial path: {got[name + '_split']} "
+                     f"column-split and {got[name + '_tiled']} row-tiled "
+                     f"calls of {got[name]}")
         words = {v: [len(batched[j][1][v].split())
                      for j in range(len(requests))] for v in SERVED}
         for variant in SERVED[1:]:
@@ -3453,16 +3544,26 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     log("phase 3: TF32 off for matmul and cuDNN; cuDNN deterministic")
 
+    from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk
+    from icee_tpu_torch.ops.decode_step import decode_step_topk
+
     params = captioning_params(device)
     sty, nic = params["stylenet"]["decoder"], params["nic"]["decoder"]
     with torch.inference_mode():
         # the serial path's R = 5 (partly filled blocks in all three
         # launches), then R = 320 (full blocks), which is also timed
-        _, serial_err, serial_ties = check_k1(sty, device, K, 6)
+        serial_inputs, serial_err, serial_ties = check_k1(sty, device, K, 6)
         inputs, err, ties = check_k1(sty, device, B_IMAGES * K, 3)
-        k1 = k1_line(sty, inputs, max(serial_err, err), serial_ties + ties)
+        k1 = k1_line(sty, inputs, serial_inputs, max(serial_err, err),
+                     serial_ties + ties)
+        stages = {"decode_step_topk": split_timeline(
+            lambda: decode_step_topk(sty, *serial_inputs, ktop=K))}
         log(f"phase 4: K1 ok, {k1['ms']:.3f} ms vs plain "
-            f"{k1['plain_ms']:.3f} ms")
+            f"{k1['plain_ms']:.3f} ms (library {k1['library_ms']:.3f}); "
+            f"serial {K} rows {k1['serial_ms']:.4f} ms vs plain "
+            f"{k1['serial_plain_ms']:.4f}, library "
+            f"{k1['serial_library_ms']:.4f}, bound "
+            f"{k1['serial_bound_ms']:.4f}")
         k2 = check_k2(sty, device)
         k2_lstm = check_k2(nic, device, cell="lstm")
         log(f"phase 5: K2 ok, factored {k2['ms']:.3f} ms vs plain "
@@ -3478,12 +3579,17 @@ def main() -> int:
             args, err, ties = check_k6(dec, kind, device, B_IMAGES, 15)
             k6[kind] = k6_line(kind, args, serial_args,
                                max(serial_err, err), serial_ties + ties)
+            stages[k6[kind]["name"]] = split_timeline(
+                lambda a=serial_args: att_decode_step_topk(*a, ktop=K))
         att_init = check_att_init(att["factored"], device)
         log(f"phase 5b: K6 ok, factored {k6['factored']['ms']:.3f} ms "
             f"(serial {k6['factored']['serial_ms']:.3f}) vs plain "
             f"{k6['factored']['plain_ms']:.3f}; lstm {k6['lstm']['ms']:.3f} "
             f"ms (serial {k6['lstm']['serial_ms']:.3f}) vs plain "
             f"{k6['lstm']['plain_ms']:.3f}; h0/c0 {att_init['ms']:.4f} ms")
+        log("phases 4, 5b: column-split path at the serial shape from a "
+            "CUDA graph (replay ms, span and stage start/end us): "
+            + json.dumps(stages))
         k7 = {kind: check_k7(dec, kind, device) for kind, dec in att.items()}
         log(f"phase 5c: K7 ok, factored {k7['factored']['ms']:.3f} ms vs "
             f"plain {k7['factored']['plain_ms']:.3f} ms; lstm "
@@ -3604,6 +3710,7 @@ def main() -> int:
     print(json.dumps({"serve": stats}))
     print(json.dumps({"decode": {"senticap": decode,
                                  "senticap_switched": decode_sw}}))
+    print(json.dumps({"split_timeline": stages}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,

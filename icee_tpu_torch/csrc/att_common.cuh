@@ -12,6 +12,10 @@
 // init_state is the h0/c0 of the search (_mega_att_kernel's _init, :455):
 // the mean of the image's P feature rows through init_h and init_c.
 //
+// K6's column-split path (split_step.cuh) calls att_score and softmax_row,
+// the pieces attend_rows is made of, and writes the context and gate chains
+// out in attend_rows' k order.
+//
 // K6 and K7 call the very same functions, and every output is a fixed chain
 // of fmaf/adds (-fmad=false), so one row's arithmetic does not depend on how
 // many rows a block holds: a beam run step by step through K6 scores as the
@@ -57,6 +61,61 @@ __host__ __device__ inline int att_scratch(const AttWeights& w, int rows) {
   return rows * (round4(w.A) + round4(w.P));
 }
 
+// One warp scores one position for `rows` (<= MAXR) rows: each lane a
+// chain over its A quads of relu(att1_p + att2_r) * full_w, then the warp's
+// butterfly sum, the bias after; lane 0 writes dst[r * ldd].  a1 is the
+// position's att1 row (A floats, global), att2 (rows x ld2) is in shared
+// memory.  The whole warp must call it.
+template <int MAXR>
+__device__ __forceinline__ void att_score(const float* __restrict__ a1,
+                                          const AttWeights& w,
+                                          const float* att2, int ld2,
+                                          int rows, float* dst, int ldd) {
+  const int lane = threadIdx.x & 31, A = w.A;
+  float e[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) e[r] = 0.f;
+  for (int a = 4 * lane; a < A; a += 128) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(a1 + a));
+    const float4 fw = __ldg(reinterpret_cast<const float4*>(w.fullw + a));
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < rows) {
+        const float4 d = *reinterpret_cast<const float4*>(att2 + r * ld2 + a);
+        e[r] = fmaf(fmaxf(v.x + d.x, 0.f), fw.x, e[r]);
+        e[r] = fmaf(fmaxf(v.y + d.y, 0.f), fw.y, e[r]);
+        e[r] = fmaf(fmaxf(v.z + d.z, 0.f), fw.z, e[r]);
+        e[r] = fmaf(fmaxf(v.w + d.w, 0.f), fw.w, e[r]);
+      }
+    }
+  }
+  const float fb = w.fullb[0];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r < rows) {  // rows is the same for the whole warp
+      const float sum = warp_sum(e[r]);
+      if (lane == 0) dst[r * ldd] = sum + fb;
+    }
+  }
+}
+
+// One warp: softmax over the P scores of one row, exp(e - max) / sum, in
+// place in er (shared memory); also into out[p] when out is not null.
+__device__ __forceinline__ void softmax_row(float* er, int P, float* out) {
+  const int lane = threadIdx.x & 31;
+  float m = -INFINITY;
+  for (int p = lane; p < P; p += 32) m = fmaxf(m, er[p]);
+  m = warp_max(m);
+  float sum = 0.f;
+  for (int p = lane; p < P; p += 32) sum += expf(er[p] - m);
+  sum = warp_sum(sum);
+  for (int p = lane; p < P; p += 32) {
+    const float a = expf(er[p] - m) / sum;
+    er[p] = a;
+    if (out != nullptr) out[p] = a;
+  }
+}
+
 // `rows` (<= MAXR) beam rows of one image attend over its P positions.  hs
 // (rows x ldh) is in shared memory; feat (P, FS) and att1 (P, A) are the
 // image's, in global memory; scratch holds att_scratch(w, rows) floats of
@@ -71,7 +130,7 @@ __device__ void attend_rows(const float* hs, int ldh, int rows,
                             const float* __restrict__ att1, float* scratch,
                             float* out, int ldo, float* alpha_out) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+  const int warp = tid >> 5, n_warps = nt >> 5;
   const int A = w.A, P = w.P, FS = w.FS, H = w.H;
   const int Ap = round4(A), Pp = round4(P);
   float* att2 = scratch;             // (rows, Ap)
@@ -91,53 +150,14 @@ __device__ void attend_rows(const float* hs, int ldh, int rows,
   }
   __syncthreads();
 
-  // scores: one warp per position, each lane a chain over its A quads, then
-  // the warp's butterfly sum; the bias after
-  const float fb = w.fullb[0];
-  for (int p = warp; p < P; p += n_warps) {
-    float e[MAXR];
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) e[r] = 0.f;
-    const float* a1 = att1 + (size_t)p * A;
-    for (int a = 4 * lane; a < A; a += 128) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(a1 + a));
-      const float4 fw = __ldg(reinterpret_cast<const float4*>(w.fullw + a));
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const float4 d = *reinterpret_cast<const float4*>(att2 + r * Ap + a);
-          e[r] = fmaf(fmaxf(v.x + d.x, 0.f), fw.x, e[r]);
-          e[r] = fmaf(fmaxf(v.y + d.y, 0.f), fw.y, e[r]);
-          e[r] = fmaf(fmaxf(v.z + d.z, 0.f), fw.z, e[r]);
-          e[r] = fmaf(fmaxf(v.w + d.w, 0.f), fw.w, e[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      if (r < rows) {  // rows is the same for the whole block
-        const float sum = warp_sum(e[r]);
-        if (lane == 0) alpha[r * Pp + p] = sum + fb;
-      }
-    }
-  }
+  // scores: one warp per position; then the softmax over P, a warp a row
+  for (int p = warp; p < P; p += n_warps)
+    att_score<MAXR>(att1 + (size_t)p * A, w, att2, Ap, rows, alpha + p, Pp);
   __syncthreads();
 
-  // softmax over P, one warp per row: exp(e - max) / sum
-  for (int r = warp; r < rows; r += n_warps) {
-    float* er = alpha + r * Pp;
-    float m = -INFINITY;
-    for (int p = lane; p < P; p += 32) m = fmaxf(m, er[p]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int p = lane; p < P; p += 32) sum += expf(er[p] - m);
-    sum = warp_sum(sum);
-    for (int p = lane; p < P; p += 32) {
-      const float a = expf(er[p] - m) / sum;
-      er[p] = a;
-      if (alpha_out != nullptr) alpha_out[(size_t)r * P + p] = a;
-    }
-  }
+  for (int r = warp; r < rows; r += n_warps)
+    softmax_row(alpha + r * Pp, P,
+                alpha_out != nullptr ? alpha_out + (size_t)r * P : nullptr);
   __syncthreads();
 
   // ctx = alpha feat (a chain over P), then out = sigmoid(h f_beta_w +

@@ -16,15 +16,23 @@
 // the same device function K7 runs in its prologue, so the serial (K6) and
 // batched (K7) serving paths start from the same bits.
 //
+// Two paths, chosen by the shape alone (one image: column-split, several:
+// row-tiled); a row's outputs are the same bits on both.
+//
 // What bounds it on the H100: at the batched shape (64 images x 5 beams,
 // E + FS = 2348, F = H = A = 512, P = 196, V = 8192) operations, ~28 MFLOP
-// a row; at the serial shape (one image's 5 rows) bytes: every weight
-// (~54 MB for the factored cell, ~45 MB for the LSTM cell) is read for 5
-// rows.  The design keeps every load a float4 with 8 in flight per thread
-// (decode_common.cuh dot4) and writes only x, h', c', alpha and the top-k
-// partials to device memory.
+// a row; the row-tiled design keeps every load a float4 with 8 in flight
+// per thread (decode_common.cuh dot4) and writes only x, h', c', alpha and
+// the top-k partials to device memory.  At the serial shape (one image's 5
+// rows) every weight (~56 MB for the factored cell, ~45 MB for the LSTM
+// cell) is read for 5 rows: bytes, 0.017 / 0.014 ms.  The row-tiled path
+// gave that call one attention block and one cell block (0.85 / 0.65 ms);
+// the column-split path (split_step.cuh: pre, scores, ctx, then the cell's,
+// logits and reduce launches, 8 factored / 6 lstm) spreads every product's
+// columns over the card and is bound by its sequential fmaf chains, ~0.085
+// / ~0.070 ms (NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// Design: four launches on the caller's stream.
+// Row-tiled design: four launches on the caller's stream.
 //   1. attention: one block per image (its k <= 8 rows), att_common.cuh
 //      attend_rows; the image's att1 and features stream from L2/HBM (one
 //      image's features are 1.6 MB, far above a block's shared memory, so
@@ -33,6 +41,7 @@
 //   2-4. K1's cell, head and merge launches (step_kernels.cuh) with input
 //      width E + FS, the cell a template over the weight set.
 #include "att_common.cuh"
+#include "split_step.cuh"
 #include "step_kernels.cuh"
 
 namespace icee {
@@ -148,6 +157,55 @@ extern "C" int icee_att_decode_step_topk_lstm(
                   LstmWeights{Wih, bih, Whh, bhh, E + FS, H}, Cw, Cb, x_full,
                   h_out, c_out, logp, idx, alpha, pm, pse, pv, pi, n_img, k,
                   E, V, ktop, stream);
+}
+
+// The column-split path (split_step.cuh) for ONE image's k <= 8 rows: the
+// same outputs, bit for bit, as the calls above, with the same arguments
+// but for work (icee_att_step_split_work floats) in place of x_full and the
+// partials; feats (1, P, FS), att1 (1, P, A).
+extern "C" long long icee_att_step_split_work(int factored, int k, int F,
+                                              int H, int V, int A, int P,
+                                              int FS) {
+  return split_att_work(factored != 0, k, F, H, V, A, P, FS);
+}
+
+static bool split_shape_ok(int k, int ktop, const AttWeights& aw, int V) {
+  return k >= 1 && k <= SPLIT_ROWS && ktop >= 1 && ktop <= KMAX &&
+         aw.A % 4 == 0 && aw.FS % 4 == 0 && aw.H % 4 == 0 && V % 4 == 0;
+}
+
+extern "C" int icee_att_decode_step_topk_split(
+    const float* x, const float* h, const float* c, const float* feats,
+    const float* att1, const float* decw, const float* decb,
+    const float* fullw, const float* fullb, const float* fbw,
+    const float* fbb, const float* Vw, const float* Vb, const float* Sw,
+    const float* Sb, const float* Uw, const float* Ub, const float* Ww,
+    const float* Wb, const float* Cw, const float* Cb, float* h_out,
+    float* c_out, float* logp, int* idx, float* alpha, float* work, int k,
+    int E, int F, int H, int V, int A, int P, int FS, int ktop,
+    void* stream) {
+  const AttWeights aw{decw, decb, fullw, fullb, fbw, fbb, H, A, P, FS};
+  if (!split_shape_ok(k, ktop, aw, V) || F % 4) return cudaErrorInvalidValue;
+  return launch_split_att(
+      x, h, c, feats, att1, aw,
+      CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E + FS, F, H}, Cw, Cb,
+      h_out, c_out, logp, idx, alpha, work, k, E, V, ktop, stream);
+}
+
+extern "C" int icee_att_decode_step_topk_lstm_split(
+    const float* x, const float* h, const float* c, const float* feats,
+    const float* att1, const float* decw, const float* decb,
+    const float* fullw, const float* fullb, const float* fbw,
+    const float* fbb, const float* Wih, const float* bih, const float* Whh,
+    const float* bhh, const float* Cw, const float* Cb, float* h_out,
+    float* c_out, float* logp, int* idx, float* alpha, float* work, int k,
+    int E, int H, int V, int A, int P, int FS, int ktop, void* stream) {
+  const AttWeights aw{decw, decb, fullw, fullb, fbw, fbb, H, A, P, FS};
+  if (!split_shape_ok(k, ktop, aw, V)) return cudaErrorInvalidValue;
+  return launch_split_att(x, h, c, feats, att1, aw,
+                          LstmWeights{Wih, bih, Whh, bhh, E + FS, H}, Cw, Cb,
+                          h_out, c_out, logp, idx, alpha, work, k, E, V, ktop,
+                          stream);
 }
 
 // h0, c0 (n_img, H) of the attention search from feats (n_img, P, FS).

@@ -9,7 +9,10 @@
 // therefore does not depend on how many rows a block holds, and a beam run
 // through K1 step by step gives bit-identical scores to the same beam run
 // inside K2 — the serving engine's serial path (K1) and batched path (K2)
-// return the same captions.
+// return the same captions.  The column-split path of K1 and K6
+// (split_step.cuh) writes each product out itself, column by column over
+// the whole card, but as the same chains: the same k order from 0.f, the
+// same bias adds after; only tile_reduce and merge_row it calls as they are.
 //
 // Layouts are the JAX package's: linear weights (in, out), V_w (E, 4F),
 // S_w[style] (4, F, F), U_w (4, F, H), W_w (H, 4H), C_w (H, V); gate order

@@ -2,10 +2,20 @@
 StyleNet+Att (``kind="factored"``) and NIC+Att (``kind="lstm"``).
 
 Port of ``icee_tpu/ops/pallas_att_decode.py::fused_att_decode_step_topk``.
-The CUDA kernel is ``csrc/att_decode_step.cu``: an attention launch (one
-block per image) writes x = [emb; gate * ctx], then K1's cell, head and
-merge launches run with input width E + FS (the cell a template over the
-weight set).  :func:`att_decode_step_topk_plain` is the same function in
+The CUDA kernel is ``csrc/att_decode_step.cu`` with two paths, chosen by
+the shape alone and giving the same bits for a row:
+
+* column-split (one image, k <= 8 rows: the serial serving path;
+  ``csrc/split_step.cuh``): pre (every product of h and of the embedding),
+  scores, context, then the cell's and the head's launches, each product's
+  columns spread over the whole card and chained by programmatic dependent
+  launch;
+* row-tiled (several images, the batched shapes): an attention launch (one
+  block per image) writes x = [emb; gate * ctx], then K1's cell, head and
+  merge launches run with input width E + FS (the cell a template over the
+  weight set).
+
+:func:`att_decode_step_topk_plain` is the same function in
 plain PyTorch: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
 against it on the card.
 
@@ -16,7 +26,9 @@ path (K6 per step) starts from K7's bits; its plain version is
 
 Both wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  Launch counts:
-``att_decode_step_topk.launches`` (factored), ``.lstm_launches`` and
+``att_decode_step_topk.launches`` (factored, either path),
+``.lstm_launches``, per path ``.split_launches``, ``.lstm_split_launches``,
+``.tiled_launches``, ``.lstm_tiled_launches``; and
 ``att_init_state.launches``.
 """
 
@@ -31,7 +43,8 @@ from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
-from icee_tpu_torch.ops.decode_step import K_MAX, V_TILE, check_kernel_widths
+from icee_tpu_torch.ops.decode_step import (K_MAX, V_TILE,
+                                            check_kernel_widths)
 
 KINDS = ("factored", "lstm")
 
@@ -105,11 +118,39 @@ def check_step_params(cell_params: dict, att_params: dict, gate_params: dict,
     shapes = dict(CELL_SHAPES[kind](e_in, f, h, v), dec_w=(h, a),
                   dec_b=(a,), full_w=(a, 1), full_b=(1,), f_beta_w=(h, fs),
                   f_beta_b=(fs,))
-    trees = (cell_params, att_params, gate_params)
+    tree = {**gate_params, **att_params, **cell_params}
     for name, shape in shapes.items():
-        t = next(tree[name] for tree in trees if name in tree)
-        cuda_lib.check_tensor(name, t, shape, torch.float32, device)
+        cuda_lib.check_tensor(name, tree[name], shape, torch.float32, device)
     return f, h, v, a, fs
+
+
+def _step_weights(cell_params: dict, att_params: dict, gate_params: dict,
+                  kind: str, e: int, fs: int, device: torch.device,
+                  split: bool):
+    """Validates the step's weights; -> (F, H, V, A, FS, addresses): on a
+    CUDA device the kernel's weight arguments after the step's inputs and
+    its widths after the outputs, on the CPU None."""
+    f, hd, v, a, fs = check_step_params(cell_params, att_params, gate_params,
+                                        kind, e + fs, device)
+    if device.type == "cpu":
+        return f, hd, v, a, fs, None
+    if device.type != "cuda":
+        raise ValueError(f"att_decode_step_topk: unsupported device {device}")
+    check_kernel_widths(f, hd, v, a, fs)
+    if not split:  # the row-tiled cell launch holds 8 rows' planes
+        smem = _library().icee_att_step_smem(e, f, hd, fs)
+        if smem > cuda_lib.SMEM_LIMIT:
+            raise ValueError(f"att_decode_step_topk needs {smem} bytes of "
+                             f"shared memory per block, more than "
+                             f"{cuda_lib.SMEM_LIMIT}")
+    ptr = cuda_lib.ptr
+    cp, ap, gp = cell_params, att_params, gate_params
+    names = (("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b")
+             if kind == "factored" else ("W_ih", "b_ih", "W_hh", "b_hh"))
+    before = (ptr(ap["dec_w"]), ptr(ap["dec_b"]), ptr(ap["full_w"]),
+              ptr(ap["full_b"]), ptr(gp["f_beta_w"]), ptr(gp["f_beta_b"]),
+              *(ptr(cp[n]) for n in names), ptr(cp["C_w"]), ptr(cp["C_b"]))
+    return f, hd, v, a, fs, (before, (f, hd) if kind == "factored" else (hd,))
 
 
 def att_decode_step_topk(cell_params: dict, att_params: dict,
@@ -132,8 +173,11 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     if not 1 <= k <= K_MAX or rows != n_img * k:
         raise ValueError(f"{rows} rows for {n_img} images of k={k} (k <= "
                          f"{K_MAX})")
-    f, hd, v, a, fs = check_step_params(cell_params, att_params, gate_params,
-                                        kind, e + fs, device)
+    split = n_img == 1
+    f, hd, v, a, fs, wp = cuda_lib.checked_weights(
+        (cell_params, att_params, gate_params), (kind, e, fs, device, split),
+        lambda: _step_weights(cell_params, att_params, gate_params, kind, e,
+                              fs, device, split))
     for name, t, shape in (("x", x, (rows, e)), ("h", h, (rows, hd)),
                            ("c", c, (rows, hd)),
                            ("features", features, (n_img, p, fs)),
@@ -145,55 +189,51 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
         return att_decode_step_topk_plain(cell_params, att_params,
                                           gate_params, x, h, c, features,
                                           att1, kind, k, ktop)
-    if device.type != "cuda":
-        raise ValueError(f"att_decode_step_topk: unsupported device {device}")
-    check_kernel_widths(f, hd, v, a, fs)
 
     lib = _library()
-    smem = lib.icee_att_step_smem(e, f, hd, fs)
-    if smem > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"att_decode_step_topk needs {smem} bytes of "
-                         f"shared memory per block, more than "
-                         f"{cuda_lib.SMEM_LIMIT}")
-    n_tiles = -(-v // V_TILE)
     f32 = dict(dtype=torch.float32, device=device)
-    x_full = torch.empty((rows, e + fs), **f32)
     h_out = torch.empty((rows, hd), **f32)
     c_out = torch.empty((rows, hd), **f32)
     logp = torch.empty((rows, ktop), **f32)
     idx = torch.empty((rows, ktop), dtype=torch.int32, device=device)
     alpha = torch.empty((rows, p), **f32)
-    pm = torch.empty((rows, n_tiles), **f32)
-    pse = torch.empty((rows, n_tiles), **f32)
-    pv = torch.empty((rows, n_tiles, ktop), **f32)
-    pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32, device=device)
     ptr = cuda_lib.ptr
-    head = (ptr(x), ptr(h), ptr(c), ptr(features), ptr(att1),
-            ptr(att_params["dec_w"]), ptr(att_params["dec_b"]),
-            ptr(att_params["full_w"]), ptr(att_params["full_b"]),
-            ptr(gate_params["f_beta_w"]), ptr(gate_params["f_beta_b"]))
-    outs = (ptr(cell_params["C_w"]), ptr(cell_params["C_b"]), ptr(x_full),
-            ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
-            ptr(pm), ptr(pse), ptr(pv), ptr(pi), n_img, k, e)
-    tail = (v, a, p, fs, ktop, cuda_lib.stream_ptr(device))
-    cp = cell_params
-    if kind == "factored":
-        rc = lib.icee_att_decode_step_topk(
-            *head, *(ptr(cp[n]) for n in ("V_w", "V_b", "S_w", "S_b", "U_w",
-                                          "U_b", "W_w", "W_b")),
-            *outs, f, hd, *tail)
-        att_decode_step_topk.launches += 1
+    if split:
+        work = torch.empty((lib.icee_att_step_split_work(
+            kind == "factored", k, f, hd, v, a, p, fs),), **f32)
+        outs = (ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
+                ptr(work), k, e)
     else:
-        rc = lib.icee_att_decode_step_topk_lstm(
-            *head, *(ptr(cp[n]) for n in ("W_ih", "b_ih", "W_hh", "b_hh")),
-            *outs, hd, *tail)
-        att_decode_step_topk.lstm_launches += 1
+        x_full = torch.empty((rows, e + fs), **f32)
+        n_tiles = -(-v // V_TILE)
+        pm = torch.empty((rows, n_tiles), **f32)
+        pse = torch.empty((rows, n_tiles), **f32)
+        pv = torch.empty((rows, n_tiles, ktop), **f32)
+        pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32,
+                         device=device)
+        outs = (ptr(x_full), ptr(h_out), ptr(c_out), ptr(logp), ptr(idx),
+                ptr(alpha), ptr(pm), ptr(pse), ptr(pv), ptr(pi), n_img, k, e)
+    fn = {("factored", False): lib.icee_att_decode_step_topk,
+          ("factored", True): lib.icee_att_decode_step_topk_split,
+          ("lstm", False): lib.icee_att_decode_step_topk_lstm,
+          ("lstm", True): lib.icee_att_decode_step_topk_lstm_split}[
+              kind, split]
+    rc = fn(ptr(x), ptr(h), ptr(c), ptr(features), ptr(att1), *wp[0], *outs,
+            *wp[1], v, a, p, fs, ktop, cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, f"att_decode_step_topk (kind={kind})")
+    prefix = "" if kind == "factored" else "lstm_"
+    counts = att_decode_step_topk.__dict__
+    counts[prefix + "launches"] += 1
+    counts[prefix + ("split_launches" if split else "tiled_launches")] += 1
     return logp, idx, h_out, c_out, alpha
 
 
 att_decode_step_topk.launches = 0       # kernel calls, kind="factored"
 att_decode_step_topk.lstm_launches = 0  # kernel calls, kind="lstm"
+att_decode_step_topk.split_launches = 0       # one image: the split path
+att_decode_step_topk.lstm_split_launches = 0
+att_decode_step_topk.tiled_launches = 0       # several images: row-tiled
+att_decode_step_topk.lstm_tiled_launches = 0
 
 
 def att_init_state(params: dict, features: torch.Tensor
@@ -236,5 +276,9 @@ def _library() -> ctypes.CDLL:
     return cuda_lib.library("att_decode_step", {
         "icee_att_decode_step_topk": ([vp] * 31 + [i] * 10 + [vp], i),
         "icee_att_decode_step_topk_lstm": ([vp] * 27 + [i] * 9 + [vp], i),
+        "icee_att_decode_step_topk_split": ([vp] * 27 + [i] * 9 + [vp], i),
+        "icee_att_decode_step_topk_lstm_split": (
+            [vp] * 23 + [i] * 8 + [vp], i),
+        "icee_att_step_split_work": ([i] * 8, ctypes.c_longlong),
         "icee_att_init_state": ([vp] * 7 + [i] * 4 + [vp], i),
         "icee_att_step_smem": ([i] * 4, ctypes.c_longlong)})

@@ -134,8 +134,39 @@ def check_tensor(name: str, t, shape, dtype, device: torch.device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+_checked: Dict[tuple, tuple] = {}
+_CHECKED_MAX = 32
+
+
+def _state(t) -> tuple:
+    if isinstance(t, torch.Tensor):
+        return id(t), None if t.is_inference() else t._version
+    return id(t), None
+
+
+def checked_weights(trees: Tuple[dict, ...], extra: tuple, check):
+    """``check()``: the validation of the weight dicts ``trees`` and what
+    it derives from them (widths, the weight arguments' addresses), kept
+    while every value in ``trees`` is the same object at the same version,
+    so that a decode loop validates its weights once and not at every
+    step.  ``extra`` (the kind, the input widths, the device) is part of
+    the key.  A failing ``check`` raises and keeps nothing."""
+    key = tuple(map(id, trees)) + extra
+    state = tuple(_state(t) for tree in trees for t in tree.values())
+    hit = _checked.get(key)
+    if hit is not None and hit[0] == state:
+        return hit[2]
+    result = check()
+    if len(_checked) >= _CHECKED_MAX:
+        _checked.clear()
+    _checked[key] = (state, trees, result)  # trees held: their ids stay theirs
+    return result
+
+
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's address for a ``ctypes.c_void_p`` argument (declared in
+    the library's argtypes, which take a plain int)."""
+    return t.data_ptr()
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

@@ -1,13 +1,23 @@
 """K1: one FactoredLSTM decode step with an exact top-k over the vocabulary.
 
 Port of ``icee_tpu/ops/pallas_decode.py::fused_decode_step_topk``.  The CUDA
-kernel is ``csrc/decode_step.cu`` (three launches: cell, per-tile head
-partials, merge; the (R, V) logits never reach device memory).
+kernel is ``csrc/decode_step.cu`` with two paths, chosen by the row count
+alone and giving the same bits for a row:
+
+* column-split (R <= ``SPLIT_ROWS`` = 8, one image's beam on the serial
+  serving path; ``csrc/split_step.cuh``): five launches, each product's
+  columns spread over the whole card, weights streamed by ``cp.async``;
+* row-tiled (larger R, the batched shapes; ``csrc/step_kernels.cuh``):
+  three launches, cell, per-tile head partials, merge; the (R, V) logits
+  never reach device memory.
+
 :func:`decode_step_topk_plain` is the same function in plain PyTorch: the CPU
 tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
 
 :func:`decode_step_topk` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises.  Launch counts:
+``decode_step_topk.launches`` (every call), ``.split_launches`` and
+``.tiled_launches`` (each path).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from icee_tpu_torch.ops.cells import factored_lstm_cell
 
 V_TILE = 256   # csrc/decode_common.cuh VT
 K_MAX = 8      # csrc/decode_common.cuh KMAX
+SPLIT_ROWS = 8  # csrc/split_step.cuh SPLIT_ROWS: most rows of the split path
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -62,6 +73,25 @@ def check_kernel_widths(*dims: int) -> None:
                          "of 4 only")
 
 
+def _step_weights(params: dict, style: int, device: torch.device):
+    """Validates the decoder's weights; -> (E, F, H, V, addresses): on a
+    CUDA device the kernel's weight arguments (the style's S slice), on the
+    CPU None."""
+    e, f, hd, v, ns = check_decoder_params(params, device)
+    if not 0 <= style < ns:
+        raise ValueError(f"style {style} outside [0, {ns})")
+    if device.type == "cpu":
+        return e, f, hd, v, None
+    if device.type != "cuda":
+        raise ValueError(f"decode_step_topk: unsupported device {device}")
+    check_kernel_widths(f, hd, v)
+    p = cuda_lib.ptr
+    return e, f, hd, v, (p(params["V_w"]), p(params["V_b"]),
+                         p(params["S_w"][style]), p(params["S_b"][style]),
+                         p(params["U_w"]), p(params["U_b"]), p(params["W_w"]),
+                         p(params["W_b"]), p(params["C_w"]), p(params["C_b"]))
+
+
 def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
                      c: torch.Tensor, style: int, ktop: int = 5) -> Step:
     """-> (logp_top (R, ktop) f32, idx_top (R, ktop) int32, h', c').
@@ -72,49 +102,56 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
     """
     device = x.device
     rows = x.shape[0]
-    e, f, hd, v, ns = check_decoder_params(params, device)
+    e, f, hd, v, weights = cuda_lib.checked_weights(
+        (params,), (int(style), device),
+        lambda: _step_weights(params, int(style), device))
     cuda_lib.check_tensor("x", x, (rows, e), torch.float32, device)
     cuda_lib.check_tensor("h", h, (rows, hd), torch.float32, device)
     cuda_lib.check_tensor("c", c, (rows, hd), torch.float32, device)
-    if not 0 <= int(style) < ns:
-        raise ValueError(f"style {style} outside [0, {ns})")
     if not 1 <= ktop <= min(K_MAX, v):
         raise ValueError(f"ktop={ktop} outside [1, {min(K_MAX, v)}]")
     if device.type == "cpu":
         return decode_step_topk_plain(params, x, h, c, int(style), ktop)
-    if device.type != "cuda":
-        raise ValueError(f"decode_step_topk: unsupported device {device}")
-    check_kernel_widths(f, hd, v)
 
     lib = _library()
-    n_tiles = -(-v // V_TILE)
     f32 = dict(dtype=torch.float32, device=device)
     h_out = torch.empty((rows, hd), **f32)
     c_out = torch.empty((rows, hd), **f32)
     logp = torch.empty((rows, ktop), **f32)
     idx = torch.empty((rows, ktop), dtype=torch.int32, device=device)
-    pm = torch.empty((rows, n_tiles), **f32)
-    pse = torch.empty((rows, n_tiles), **f32)
-    pv = torch.empty((rows, n_tiles, ktop), **f32)
-    pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32, device=device)
     p = cuda_lib.ptr
-    rc = lib.icee_decode_step_topk(
-        p(x), p(h), p(c), p(params["V_w"]), p(params["V_b"]),
-        p(params["S_w"][int(style)]), p(params["S_b"][int(style)]),
-        p(params["U_w"]), p(params["U_b"]), p(params["W_w"]),
-        p(params["W_b"]), p(params["C_w"]), p(params["C_b"]),
-        p(h_out), p(c_out), p(logp), p(idx), p(pm), p(pse), p(pv), p(pi),
-        rows, e, f, hd, v, ktop, cuda_lib.stream_ptr(device))
+    head = (p(x), p(h), p(c), *weights, p(h_out), p(c_out), p(logp), p(idx))
+    if rows <= SPLIT_ROWS:
+        work = torch.empty((lib.icee_decode_step_split_work(rows, f, hd, v),),
+                           **f32)
+        rc = lib.icee_decode_step_topk_split(
+            *head, p(work), rows, e, f, hd, v, ktop,
+            cuda_lib.stream_ptr(device))
+        decode_step_topk.split_launches += 1
+    else:
+        n_tiles = -(-v // V_TILE)
+        pm = torch.empty((rows, n_tiles), **f32)
+        pse = torch.empty((rows, n_tiles), **f32)
+        pv = torch.empty((rows, n_tiles, ktop), **f32)
+        pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32,
+                         device=device)
+        rc = lib.icee_decode_step_topk(
+            *head, p(pm), p(pse), p(pv), p(pi), rows, e, f, hd, v, ktop,
+            cuda_lib.stream_ptr(device))
+        decode_step_topk.tiled_launches += 1
     cuda_lib.check_rc(lib, rc, "decode_step_topk")
     decode_step_topk.launches += 1
     return logp, idx, h_out, c_out
 
 
-decode_step_topk.launches = 0  # kernel calls (each is 3 CUDA launches)
+decode_step_topk.launches = 0        # kernel calls, either path
+decode_step_topk.split_launches = 0  # R <= SPLIT_ROWS (5 CUDA launches)
+decode_step_topk.tiled_launches = 0  # larger R (3 CUDA launches)
 
 
 def _library() -> ctypes.CDLL:
+    vp, i = ctypes.c_void_p, ctypes.c_int
     return cuda_lib.library("decode_step", {
-        "icee_decode_step_topk": (
-            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-            ctypes.c_int)})
+        "icee_decode_step_topk": ([vp] * 21 + [i] * 6 + [vp], i),
+        "icee_decode_step_topk_split": ([vp] * 18 + [i] * 6 + [vp], i),
+        "icee_decode_step_split_work": ([i] * 4, ctypes.c_longlong)})

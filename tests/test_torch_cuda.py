@@ -115,10 +115,12 @@ def test_decode_step_kernel_ties_go_to_the_lowest_ids(device):
 
 
 @pytest.mark.parametrize("case", ["serving", "research", "early_end",
-                                  "tied", "one_beam"])
+                                  "tied", "one_beam", "one_image"])
 def test_mega_kernel_matches_plain_and_fused_step(device, case):
+    # one_image: the serial serving shape, K1's column-split path
     vocab, e, f, h = 516, 30, 40, 48
-    k, batch, steps = (1, 7, 9) if case == "one_beam" else (4, 5, 9)
+    k, batch, steps = {"one_beam": (1, 7, 9),
+                       "one_image": (4, 1, 9)}.get(case, (4, 5, 9))
     params = _params(device, vocab, e, f, h, seed=7,
                      zero_head=case == "tied",
                      end_bias=50.0 if case == "early_end" else 1.0)
@@ -138,8 +140,11 @@ def test_mega_kernel_matches_plain_and_fused_step(device, case):
     torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
     torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
     # the serial serving path (K1 in the Python beam) is bit-identical
+    split = decode_step_topk.split_launches
     fused = factored_decode("fused-step", params, feats, 3, batch, k, steps,
                             1, 2)
+    if batch * k <= 8:
+        assert decode_step_topk.split_launches > split
     torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
     torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
     torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
@@ -451,6 +456,11 @@ def _att_counts():
             att_beam.mega_att_beam_decode.lstm_launches)
 
 
+def _att_split_counts():
+    step = att_decode_step.att_decode_step_topk
+    return step.split_launches, step.lstm_split_launches
+
+
 @pytest.mark.parametrize("kind,n_img,k,p", [("factored", 3, 5, 9),
                                             ("lstm", 4, 3, 196)])
 def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
@@ -491,16 +501,150 @@ def test_att_init_state_kernel_matches_plain(device):
     torch.testing.assert_close(c0, want_c, rtol=0, atol=1e-5)
 
 
+def _k1_inputs(device, rows, seed):
+    params = _params(device, 520, 30, 40, 48, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device)
+                for d in (30, 48, 48))
+    return params, x, hh, c
+
+
+def _k6_inputs(device, kind, n_img, k, seed):
+    params = _att_params(device, kind)
+    cell, att, gate = att_decode_step.step_params(params, kind, 2)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = n_img * k
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device)
+                for d in (30, 48, 48))
+    feats = torch.rand((n_img, 196, 64), generator=g, device=device)
+    att1 = att_mod.att_projection(att, feats)
+    return (cell, att, gate, x, hh, c, feats, att1, kind, k)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("op", ["k1", "factored", "lstm"])
+def test_split_path_matches_plain_at_one_image(device, op, k):
+    """The column-split path (one image's k rows) against the plain version:
+    ids exact, values atol 1e-4, alpha atol 1e-5; E % 4 != 0, F != H, a
+    ragged vocabulary, P = 196."""
+    if op == "k1":
+        params, x, hh, c = _k1_inputs(device, k, 30 + k)
+        before = (decode_step_topk.split_launches,
+                  decode_step_topk.tiled_launches)
+        got = decode_step_topk(params, x, hh, c, 1, ktop=k)
+        want = decode_step_topk_plain(params, x, hh, c, 1, ktop=k)
+        torch.cuda.synchronize()
+        assert (decode_step_topk.split_launches,
+                decode_step_topk.tiled_launches) == (before[0] + 1, before[1])
+    else:
+        args = _k6_inputs(device, op, 1, k, 40 + k)
+        step = att_decode_step.att_decode_step_topk
+        before = (_att_split_counts(), step.tiled_launches,
+                  step.lstm_tiled_launches)
+        got = step(*args, ktop=k)
+        want = att_decode_step.att_decode_step_topk_plain(*args, ktop=k)
+        torch.cuda.synchronize()
+        split = list(before[0])
+        split[0 if op == "factored" else 1] += 1
+        assert (_att_split_counts(), step.tiled_launches,
+                step.lstm_tiled_launches) == (tuple(split), *before[1:])
+        torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+
+
+def test_split_path_at_flagship_width(device):
+    """K1, K6 factored and K6 lstm one after another at the serving widths
+    (E = 300, F = H = A = 512, FS = 2048, P = 196, V = 8192, k = 5), where
+    several launches need more than 48 KB of shared memory: against the
+    plain versions as above."""
+    rng = np.random.default_rng(3)
+    e, f, h, a, fs, p, vocab, k = 300, 512, 512, 512, 2048, 196, 8192, 5
+
+    def w(*shape, scale=None):
+        scale = scale or 1.0 / np.sqrt(shape[-2] if len(shape) > 1 else 4)
+        return torch.tensor((scale * rng.standard_normal(shape)).astype(
+            np.float32), device=device)
+
+    x, hh, c = w(k, e, scale=0.3), w(k, h, scale=0.5), w(k, h, scale=0.5)
+    feats = torch.tensor(0.3 * rng.random((1, p, fs), dtype=np.float32),
+                         device=device)
+    k1 = {"B": w(vocab, e), "V_w": w(e, 4 * f), "V_b": w(4, f),
+          "S_w": w(4, 4, f, f), "S_b": w(4, 4, f), "U_w": w(4, f, h),
+          "U_b": w(4, h), "W_w": w(h, 4 * h), "W_b": w(4, h),
+          "C_w": w(h, vocab, scale=0.2), "C_b": w(vocab)}
+    got = decode_step_topk(k1, x, hh, c, 1, ktop=k)
+    want = decode_step_topk_plain(k1, x, hh, c, 1, ktop=k)
+    outs = [(got, want)]
+    att = {"dec_w": w(h, a), "dec_b": w(a), "full_w": w(a, 1),
+           "full_b": w(1), "enc_w": w(fs, a), "enc_b": w(a)}
+    gate = {"f_beta_w": w(h, fs), "f_beta_b": w(fs)}
+    att1 = att_mod.att_projection(att, feats)
+    cells = {"factored": dict(k1, V_w=w(e + fs, 4 * f), S_w=w(4, f, f),
+                              S_b=w(4, f)),
+             "lstm": {"W_ih": w(e + fs, 4 * h), "b_ih": w(4 * h),
+                      "W_hh": w(h, 4 * h), "b_hh": w(4 * h),
+                      "C_w": k1["C_w"], "C_b": k1["C_b"]}}
+    for kind, cell in cells.items():
+        args = (cell, att, gate, x, hh, c, feats, att1, kind, k)
+        outs.append((att_decode_step.att_decode_step_topk(*args, ktop=k),
+                     att_decode_step.att_decode_step_topk_plain(*args,
+                                                                ktop=k)))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        for i in (0, 2, 3):
+            torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+        if len(got) == 5:
+            torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["k1", "factored", "lstm"])
+def test_split_and_tiled_paths_give_a_row_the_same_bits(device, op):
+    """One image's 5 rows alone (the column-split path) and inside a
+    320-row call (the row-tiled path): logp, idx, h', c' and alpha
+    bit-identical."""
+    if op == "k1":
+        params, x, hh, c = _k1_inputs(device, 320, 7)
+        rows = slice(85, 90)
+        whole = decode_step_topk(params, x, hh, c, 1, ktop=5)
+        alone = decode_step_topk(params, x[rows].contiguous(),
+                                 hh[rows].contiguous(),
+                                 c[rows].contiguous(), 1, ktop=5)
+    else:
+        args = _k6_inputs(device, op, 64, 5, 8)
+        cell, att, gate, x, hh, c, feats, att1 = args[:8]
+        rows, img = slice(85, 90), slice(17, 18)
+        step = att_decode_step.att_decode_step_topk
+        whole = step(*args, ktop=5)
+        alone = step(cell, att, gate, *(t[rows].contiguous()
+                                        for t in (x, hh, c)),
+                     feats[img].contiguous(), att1[img].contiguous(), op, 5,
+                     ktop=5)
+    torch.cuda.synchronize()
+    for w_, a_ in zip(whole, alone):
+        torch.testing.assert_close(a_, w_[rows], rtol=0, atol=0)
+
+
 ATT_BEAM_WEIGHTS = {"factored": dict(vocab=36, seed=14, end_bias=1.0),
                     "lstm": {}}
 
 
-@pytest.mark.parametrize("kind,k", [("factored", 5), ("lstm", 5),
-                                    ("factored", 3)])
-def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k):
+@pytest.mark.parametrize("kind,k,batch", [
+    pytest.param("factored", 5, 6, id="factored-5"),
+    pytest.param("lstm", 5, 6, id="lstm-5"),
+    pytest.param("factored", 3, 6, id="factored-3"),
+    # one image: the serial serving shape, K6's column-split path
+    pytest.param("factored", 5, 1, id="factored-5-one_image"),
+    pytest.param("lstm", 5, 1, id="lstm-5-one_image")])
+def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k,
+                                                      batch):
     # weights whose beams end at several lengths (checked below)
     params = _att_params(device, kind, **ATT_BEAM_WEIGHTS[kind])
-    batch, steps = 6, 9
+    steps = 9
     feats = torch.tensor(np.random.default_rng(k).random(
         (batch, 9, 64), dtype=np.float32), device=device)
     before = _att_counts()
@@ -516,15 +660,20 @@ def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k):
     torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
     torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
     torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
-    assert len(set(got.length.tolist())) > 1, got.length
+    if batch > 1:
+        assert len(set(got.length.tolist())) > 1, got.length
     assert int(block_steps.max()) <= steps + 1
     assert (block_steps >= got.length - 1).all()
     # the serial serving path (K6 in the Python beam from the h0/c0
     # kernel) is bit-identical
     args = (batch, k, steps, 1, 2)
+    split = _att_split_counts()
     fused = (attention_decode("fused-step", params, feats, 1, *args)
              if kind == "factored"
              else nic_att_decode("fused-step", params, feats, *args))
+    moved = [a > b for a, b in zip(_att_split_counts(), split)]
+    assert moved == ([kind == "factored", kind == "lstm"] if batch == 1
+                     else [False, False])
     torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
     torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
     torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
