@@ -57,15 +57,21 @@ Phases, in order; any failure exits non-zero:
    before and read just after; 3 steps at the reference's teacher-forcing
    ratio 0.8; one ``val_step``; the step time and captions/s (and, for
    StyleNet, the device-busy share and device time by kernel);
-10. K5 (``fused_att_scan`` and ``fused_att_scan_sampled``, the attention
-   training scan) forward and backward vs their plain versions at B=128,
-   T=25, full width (A=512, P=196, FS=2048), both cells, features drawn
-   with numpy as N(0, 1) x 0.1 (``bench.py:221-222``): the sampled argmax
-   trace margin-aware (a differing token must tie the plain one within
-   1e-4), then the plain scan rerun on the kernel's trace; the backward
-   the same bits twice; times of the kernel, the plain version and the
-   library chain (per-step cuBLAS and torch calls, forward and through
-   autograd);
+10. K5's product (``csrc/gemm_tf32x3.cuh``: float32 accuracy from three
+   TF32 tensor-core passes) at every shape K5 launches against float64,
+   its error at most 4x that of ``gemm_f32.cuh``'s CUDA-core product on
+   the same inputs, the same bits twice, with both products' device times
+   and achieved TFLOP/s; then K5 (``fused_att_scan`` and
+   ``fused_att_scan_sampled``, the attention training scan) forward and
+   backward vs their plain versions at B=128, T=25, full width (A=512,
+   P=196, FS=2048), both cells, features drawn with numpy as N(0, 1) x
+   0.1 (``bench.py:221-222``): the sampled argmax trace margin-aware (a
+   differing token must tie the plain one within 1e-4), then the plain
+   scan rerun on the kernel's trace; the backward the same bits twice;
+   times of the kernel, the plain version and the library chain (per-step
+   cuBLAS and torch calls, forward and through autograd); one call of each
+   direction profiled, its device time by kernel split into products,
+   attention passes and the rest, with no ``gemm_f32.cuh`` product in it;
 11. training StyleNet+Att then NIC+Att at B=128, T=25: one factual step at
    ratio 1.0 on the kernel path vs the plain path, 30 factual + 30 emotion
    steps at the reference's ratio 0.8 (K5 sampled) whose loss must fall,
@@ -138,9 +144,13 @@ import urllib.error
 import urllib.request
 
 # published H100 SXM peaks: HBM 3.35 TB/s, float32 outside the tensor cores
-# 67 TFLOP/s (the kernels run float32 FMAs on the CUDA cores)
+# 67 TFLOP/s: every kernel's bound_ms counts float32 operations at this
+# rate, so that it stays comparable across PRs
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# K5's products: three TF32 tensor-core passes (495 TFLOP/s dense) per
+# float32-accurate product, the floor its design faces
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 B_IMAGES, K, E, F, H, V, STEPS = 64, 5, 300, 512, 512, 8192, 40
 A, P, FS = 512, 196, 2048   # attention width, 14 x 14 positions, features
@@ -2060,6 +2070,121 @@ def k5_flops_bytes(kind: str, sampled: bool):
     return fwd, f_bytes, bwd, b_bytes
 
 
+def k5_products():
+    """(name, form, M, N, K, batch) of every product K5 launches at B_ATT x
+    T_STEPS, forward, backward and weight grads (the lstm cell's x W_ih,
+    dx and W_ih grad have the factored cell's shapes at F = H)."""
+    ncat, ex, rows = A + FS + 4 * H, E + FS, B_ATT * T_STEPS
+    return [("h_dec_fb_W", "N", B_ATT, ncat, H, 1),
+            ("x_Win", "N", B_ATT, 4 * F, ex, 1),
+            ("S", "N", B_ATT, F, F, 4),
+            ("U", "N", B_ATT, H, F, 4),
+            ("head", "N", B_ATT, V, H, 1),
+            ("ds", "T", B_ATT, F, H, 4),
+            ("dv", "T", B_ATT, F, F, 4),
+            ("dx", "T", B_ATT, ex, 4 * F, 1),
+            ("dh", "T", B_ATT, H, ncat, 1),
+            ("g_Wcat", "A", H, ncat, rows, 1),
+            ("g_Win", "A", ex, 4 * F, rows, 1),
+            ("g_Sw", "A", F, F, rows, 4),
+            ("g_Uw", "A", F, H, rows, 4)]
+
+
+def k5_product_flops(kind: str, sampled: bool):
+    """(forward, backward) FLOPs of K5's products alone at B_ATT x
+    T_STEPS (the backward's reverse loop and its weight grads)."""
+    b, t = B_ATT, T_STEPS
+    ncat, ex = A + FS + 4 * H, E + FS
+    g4 = 4 * (F if kind == "factored" else H)
+    cell_extra = 4 * F * F + 4 * F * H if kind == "factored" else 0
+    step = H * ncat + ex * g4 + cell_extra
+    fwd = 2 * b * t * (step + (H * V if sampled else 0))
+    return fwd, 2 * 2 * b * t * step
+
+
+def kernel_ms(fn, iters: int) -> float:
+    """Device time (ms) of one run of ``fn``: the kernels' own time in a
+    profiler trace of ``iters`` runs, over ``iters`` (no host gaps)."""
+    rows = device_time_by_kernel(lambda: [fn() for _ in range(iters)],
+                                 top=None)
+    return sum(r["ms"] for r in rows) / iters
+
+
+def check_tf32x3(device):
+    """Phase 10 (i): K5's product (``att_scan.tf32x3_product``, the
+    kernels of ``csrc/gemm_tf32x3.cuh``) at every shape K5 launches
+    (``k5_products``), batched operands interleaved along the rows as K5
+    keeps them, against float64: its max abs error at most 4x that of
+    ``gemm_f32.cuh``'s product (``f32_product``) on the same inputs, the
+    same bits twice; both products' device times and achieved TFLOP/s
+    (float32 operations, 2 M N K a product).  -> {name: stats}"""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.ops import att_scan
+
+    out = {}
+    for i, (name, form, m, n, k, batch) in enumerate(k5_products()):
+        rng = np.random.default_rng(80 + i)
+        a_rows, a_cols = (k, m) if form == "A" else (m, k)
+        b_rows, b_cols = (n, k) if form == "T" else (k, n)
+        a = torch.tensor(rng.uniform(-1, 1, (a_rows, batch * a_cols)).astype(
+            np.float32), device=device)
+        b = torch.tensor((0.05 * rng.standard_normal(
+            (batch, b_rows, b_cols))).astype(np.float32), device=device)
+        if batch == 1:
+            b = b[0]
+        else:
+            a = a.view(a_rows, batch, a_cols).transpose(0, 1)
+        got = att_scan.tf32x3_product(a, b, form)
+        again = att_scan.tf32x3_product(a, b, form)
+        f32 = att_scan.f32_product(a, b, form)
+        ref = (att_scan._as_mk(a, form).double()
+               @ att_scan._as_kn(b, form).double())
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs().max().item()
+        err_f32 = (f32.double() - ref).abs().max().item()
+        if not err <= 4.0 * err_f32:
+            fail(f"tf32x3 product {name}: max abs error {err} > 4 x "
+                 f"gemm_f32's {err_f32}")
+        if not torch.equal(got, again):
+            fail(f"tf32x3 product {name}: two runs on the same inputs "
+                 "differ")
+        del got, again, f32, ref
+        ms = kernel_ms(lambda: att_scan.tf32x3_product(a, b, form), 20)
+        ms_f32 = kernel_ms(lambda: att_scan.f32_product(a, b, form), 5)
+        flops = 2.0 * m * n * k * batch
+        out[name] = {"form": form, "M": m, "N": n, "K": k, "batch": batch,
+                     "max_abs_err": err, "f32_max_abs_err": err_f32,
+                     "err_over_f32": err / err_f32, "device_ms": ms,
+                     "f32_device_ms": ms_f32,
+                     "tflops": flops / ms / 1e9,
+                     "f32_tflops": flops / ms_f32 / 1e9}
+    return out
+
+
+K5_ATTENTION_KERNELS = ("att_fwd_kernel", "att_bwd_kernel", "datt1_kernel")
+
+
+def k5_device_groups(direction: str, fn):
+    """Device time (ms) of one K5 call by kernel, from a profiler trace,
+    split into the products (``tf32x3``), the attention passes and the
+    rest; fails if the call ran a ``gemm_f32.cuh`` product."""
+    rows = device_time_by_kernel(fn, top=None)
+    if any("gemm_kernel" in r["kernel"] for r in rows):
+        fail(f"K5 {direction} launched a gemm_f32.cuh product: "
+             f"{[r['kernel'] for r in rows]}")
+    groups = {"products_ms": 0.0, "attention_ms": 0.0, "rest_ms": 0.0}
+    for r in rows:
+        key = ("products_ms" if "tf32x3" in r["kernel"] else "attention_ms"
+               if any(k in r["kernel"] for k in K5_ATTENTION_KERNELS)
+               else "rest_ms")
+        groups[key] += r["ms"]
+    groups["total_ms"] = sum(r["ms"] for r in rows)
+    groups["by_kernel"] = rows[:8]
+    return groups
+
+
 def k5_library_scan(args, samp, grad: bool = False):
     """The scan as a per-step chain of cuBLAS and torch calls (the library
     yardstick): addmm for att2 and the gate, a broadcast relu-score,
@@ -2249,9 +2374,20 @@ def check_k5(kind: str, sampled: bool, device):
     lib_b = cuda_ms(lambda: torch.autograd.grad(
         (lh, la), leaves, (dh, da), retain_graph=True), 3)
     del lh, la, leaves
+    with torch.no_grad():
+        groups_f = k5_device_groups(
+            f"{mode} {kind} forward",
+            lambda: att_scan.att_scan_fwd(*args, samp))
+        groups_b = k5_device_groups(
+            f"{mode} {kind} backward", lambda: att_scan.att_scan_bwd(
+                *args[:7], h, a, res, dh, da, kind, samp))
     flops_f, bytes_f, flops_b, bytes_b = k5_flops_bytes(kind, sampled)
     bf, bf_by = bound_ms(flops_f, bytes_f)
     bb, bb_by = bound_ms(flops_b, bytes_b)
+    # the two floors the design faces: att1 and the features re-streamed
+    # every step and direction, and the products at the 3xTF32 rate
+    stream_floor = 4 * T_STEPS * B_ATT * P * (A + FS) / HBM_BYTES_PER_S * 1e3
+    prod_f, prod_b = k5_product_flops(kind, sampled)
     name = "fused_att_scan" + ("_sampled" if sampled else "") + (
         "_lstm" if kind == "lstm" else "")
     line = ":887" if sampled else ":540"
@@ -2266,14 +2402,19 @@ def check_k5(kind: str, sampled: bool, device):
                           f"kind=\"{kind}\")",
                  max_abs_err=max(max(errs.values()), alpha_err),
                  trace_flips=flips, ms=ms_f, plain_ms=plain_f,
-                 library_ms=lib_f, bound_ms=bf, bound_by=bf_by),
+                 library_ms=lib_f, bound_ms=bf, bound_by=bf_by,
+                 stream_floor_ms=stream_floor,
+                 tf32x3_floor_ms=prod_f / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_f),
             dict(common, name=name + "_bwd",
                  replaces=f"icee_tpu/ops/pallas_att_train.py:758 ({line}, "
                           f"kind=\"{kind}\")",
                  max_abs_err=abs_err, max_rel_err=max(rel.values()),
                  recomputed_att2_max_rel_err=max(recomputed_rel.values()),
                  ms=ms_b, plain_ms=plain_b, library_ms=lib_b, bound_ms=bb,
-                 bound_by=bb_by))
+                 bound_by=bb_by, stream_floor_ms=stream_floor,
+                 tf32x3_floor_ms=prod_b / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_b))
 
 
 def att_train_batch(device, b: int, seed: int):
@@ -3640,13 +3781,23 @@ def main() -> int:
     for entry in (cef, ceb):   # both decoders' runs use the CE kernels
         entry["launches"] = (train_launches[entry["name"]]
                              + nic_launches[entry["name"]])
+    train["att_products"] = check_tf32x3(device)
+    log("phase 10 (i): K5's tf32x3 product ok, device ms / TFLOP/s / error "
+        "over gemm_f32's: " + "; ".join(
+            f"{n} {s['device_ms']:.4f} / {s['tflops']:.1f} / "
+            f"{s['err_over_f32']:.2f} (gemm_f32 {s['f32_device_ms']:.4f} / "
+            f"{s['f32_tflops']:.1f})"
+            for n, s in train["att_products"].items()))
     k5 = []
     for kind in ("factored", "lstm"):
         for sampled in (False, True):
             k5.extend(check_k5(kind, sampled, device))
     log("phase 10: K5 ok, " + "; ".join(
         f"{e['name']} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
-        f"{e['library_ms']:.3f})" for e in k5))
+        f"{e['library_ms']:.3f}; device products / attention / rest "
+        f"{e['device_ms_by_group']['products_ms']:.3f} / "
+        f"{e['device_ms_by_group']['attention_ms']:.3f} / "
+        f"{e['device_ms_by_group']['rest_ms']:.3f})" for e in k5))
     att_launches = {}
     train["att"] = {}
     for factored in (True, False):

@@ -15,20 +15,27 @@
 // and its argmax (lowest index on ties) run after every step.
 //
 // What bounds it on the H100.  At B = 128, T = 25, E = 300, F = H = A =
-// 512, P = 196, FS = 2048 a forward is ~62 GFLOP (~0.9 ms of float32
-// operations; the sampled head adds ~27 GFLOP) against 257 MB of att1 and
-// features read once.  The TPU kernel held a batch tile's features and
-// att1 in VMEM across all T steps; one image's features (1.6 MB) are 7x a
-// block's shared memory and all of them 4x the L2, so here they stream from
-// HBM every step in both directions (6.4 GB, ~1.9 ms a direction), and the
-// products run on the CUDA cores in float32.  What the design does:
+// 512, P = 196, FS = 2048 a forward is ~62 GFLOP of products (the sampled
+// head adds ~27) against 257 MB of att1 and features.  The TPU kernel held
+// a batch tile's features and att1 in VMEM across all T steps; one image's
+// features (1.6 MB) are 7x a block's shared memory and all of them 4x the
+// L2, so here they stream from HBM every step in both directions (6.4 GB,
+// ~1.9 ms a direction at 3.35 TB/s): that is the floor.  The products were
+// ~70% of each direction on the CUDA cores (gemm_f32.cuh, ~9.5 TFLOP/s:
+// 64 x 64 tiles with M = 128 give 64-256 blocks on 132 SMs, no copy in
+// flight).  What the design does:
+//   - every product runs on the tensor cores at float32 accuracy
+//     (gemm_tf32x3.cuh: three TF32 passes, hi/lo split of each operand,
+//     cp.async ring, 128 x 64 block tiles), 495 / 3 TFLOP/s at most, and a
+//     split-K schedule fixed by the shape brings every per-step product,
+//     the batched S, U, ds and dv too, near two blocks an SM;
 //   - everything that depends on h_{t-1} is ONE product per step,
-//     h [dec_w | fb_w | W] (gemm_f32.cuh), so the weights are read once per
-//     64 x 64 output tile, not once per image;
+//     h [dec_w | fb_w | W], so the weights are read once per 128 x 64
+//     output tile, not once per image;
 //   - the per-image passes (scores, softmax, context, gate; backward:
 //     d_alpha, the softmax backward, d_att2) are one launch of one block
 //     per image that streams its att1 and features as float4 with several
-//     loads in flight per thread;
+//     loads in flight per thread (~77% of HBM's rate);
 //   - the forward SAVES what the backward needs (x, ctx, the gate
 //     pre-activations and att2, the gate activations), so the backward
 //     reads the features once a step (for d_alpha), not twice: the TPU
@@ -36,87 +43,29 @@
 //   - d_att1 and full_w's grad are not accumulated every step (51 MB of
 //     read-modify-write a step): the backward keeps the score grads d_e
 //     (B, P) of each step and one pass after the loop sums the T steps for
-//     each (image, p, a), reading att1 once;
-//   - products with few output tiles (the recurrent dh product: 128 x 512
-//     outputs, K = 4608) split K into chunks that are summed in order.
+//     each (image, p, a), reading att1 once.
+// What bounds it now (PERF.md): the products still take about half of
+// each direction, 16-31 TFLOP/s for the per-step ones, bound by a launch's
+// fixed costs (pipeline fill, the partial sums) more than by their
+// arithmetic; the attention passes, at ~77% of HBM, take the rest.
 // No atomics, every sum in a fixed order: the same inputs give the same
 // bits on every run.  Built with -fmad=false like every library here.
+// gemm_f32.cuh is included for colsum and for icee_f32_gemm, the CUDA-core
+// product that the card tests hold the new one against; K5 launches none
+// of its products.
 #include "cell_gates.cuh"
 #include "decode_common.cuh"
 #include "gemm_f32.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace icee {
 
 constexpr int AT_THREADS = 512;   // per-image attention blocks
 constexpr int EW_THREADS = 256;   // elementwise launches
 constexpr int AM_THREADS = 256;   // argmax blocks (one per row)
-constexpr int SM_COUNT = 132;     // H100 SXM: a split product fills a wave
-constexpr int SPLIT_DEPTH = 256;  // least k depth of one split chunk
 constexpr int D1_PCH = 28;        // positions per block of the d_att1 pass
 constexpr int D1_THREADS = 256;
 constexpr size_t SMEM_MAX = 232448;
-
-// ---- products with K split into chunks summed in a fixed order ----------
-
-// k chunk length for an (M, N, K) product: enough chunks for the blocks to
-// fill one wave, each at least SPLIT_DEPTH deep; K itself means no split.
-// A function of the shape only, so a shape always sums in the same order.
-inline int k_chunk_len(int M, int N, int K) {
-  const int tiles = ((M + GM - 1) / GM) * ((N + GN - 1) / GN);
-  int ns = (SM_COUNT + tiles - 1) / tiles;
-  if (ns > K / SPLIT_DEPTH) ns = K / SPLIT_DEPTH;
-  if (ns <= 1) return K;
-  const int kc = (K + ns - 1) / ns;
-  return (kc + GK - 1) / GK * GK;
-}
-
-// Floats of partial products gemm_split needs for this shape.
-inline long long split_floats(int M, int N, int K) {
-  const int kc = k_chunk_len(M, N, K);
-  return kc >= K ? 0 : (long long)((K + kc - 1) / kc) * M * N;
-}
-
-__global__ void __launch_bounds__(EW_THREADS)
-sum_parts_kernel(const float* __restrict__ part, int n_parts, int M, int N,
-                 float* C, long long ldc, const float* __restrict__ bias) {
-  const long long mn = (long long)M * N;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = part[i];
-  for (int q = 1; q < n_parts; ++q) s += part[q * mn + i];
-  const int m = (int)(i / N), n = (int)(i % N);
-  if (bias) s = s + bias[n];
-  C[m * ldc + n] = s;
-}
-
-// C = A B (+ bias), gemm()'s forms and strides, with K cut per
-// k_chunk_len: one batched launch for the full chunks, one for the rest,
-// then the partials (in `part`) summed chunk by chunk.
-inline cudaError_t gemm_split(char form, const float* A, long long lda,
-                              const float* B, long long ldb, float* C,
-                              long long ldc, const float* bias, int M, int N,
-                              int K, float* part, cudaStream_t st) {
-  const int kc = k_chunk_len(M, N, K);
-  if (kc >= K)
-    return gemm(form, A, lda, B, ldb, C, ldc, bias, M, N, K, 1, 0, 0, 0, 0,
-                st);
-  const int full = K / kc, rem = K - full * kc;
-  const long long za = form == 'A' ? kc * lda : kc;  // one chunk of k in A
-  const long long zb = form == 'T' ? kc : kc * ldb;  // and in B
-  const long long mn = (long long)M * N;
-  cudaError_t e = gemm(form, A, lda, B, ldb, part, N, nullptr, M, N, kc,
-                       full, za, zb, mn, 0, st);
-  if (e != cudaSuccess) return e;
-  if (rem > 0) {
-    e = gemm(form, A + full * za, lda, B + full * zb, ldb, part + full * mn,
-             N, nullptr, M, N, rem, 1, 0, 0, 0, 0, st);
-    if (e != cudaSuccess) return e;
-  }
-  sum_parts_kernel<<<(unsigned)((mn + EW_THREADS - 1) / EW_THREADS),
-                     EW_THREADS, 0, st>>>(part, full + (rem > 0), M, N, C,
-                                          ldc, bias);
-  return cudaGetLastError();
-}
 
 // ---- forward ------------------------------------------------------------
 
@@ -528,8 +477,8 @@ static int scan_fwd(bool factored, const float* emb, const float* att1,
     float* z_t = z + (size_t)t * B * H4;
     // everything that depends on h_{t-1}: att2, the gate's pre-activation,
     // h W (its bias is the gates')
-    ICEE_TRY(gemm_split('N', hbuf + t * BH, H, Wcat, NCAT, hp_t, NCAT, bcat,
-                        B, NCAT, H, part, st));
+    ICEE_TRY(tf32x3_gemm('N', hbuf + t * BH, H, Wcat, NCAT, hp_t, NCAT,
+                         bcat, B, NCAT, H, 1, 0, 0, 0, 0, part, st));
     att_fwd_kernel<<<B, AT_THREADS, att_smem, st>>>(
         emb + (size_t)t * B * E, pemb, coins ? coins + t : nullptr, att1,
         feats, fullw, fullb, hp_t, alpha + (size_t)t * B * P,
@@ -539,23 +488,23 @@ static int scan_fwd(bool factored, const float* emb, const float* att1,
       float* v_t = v + (size_t)t * B * F4;
       float* s_t = s + (size_t)t * B * F4;
       // v = x V + V_b, s_g = v_g S_g + S_b[g], u_g = s_g U_g + U_b[g]
-      ICEE_TRY(gemm_split('N', x_t, EX, Win, F4, v_t, F4, bin, B, F4, EX,
-                          part, st));
-      ICEE_TRY(gemm('N', v_t, F4, Sw, F, s_t, F4, Sb, B, F, F, 4, F,
-                    (long long)F * F, F, F, st));
-      ICEE_TRY(gemm('N', s_t, F4, Uw, H, z_t, H4, Ub, B, H, F, 4, F,
-                    (long long)F * H, H, H, st));
+      ICEE_TRY(tf32x3_gemm('N', x_t, EX, Win, F4, v_t, F4, bin, B, F4, EX,
+                           1, 0, 0, 0, 0, part, st));
+      ICEE_TRY(tf32x3_gemm('N', v_t, F4, Sw, F, s_t, F4, Sb, B, F, F, 4, F,
+                           (long long)F * F, F, F, part, st));
+      ICEE_TRY(tf32x3_gemm('N', s_t, F4, Uw, H, z_t, H4, Ub, B, H, F, 4, F,
+                           (long long)F * H, H, H, part, st));
     } else {
-      ICEE_TRY(gemm_split('N', x_t, EX, Win, H4, z_t, H4, bin, B, H4, EX,
-                          part, st));
+      ICEE_TRY(tf32x3_gemm('N', x_t, EX, Win, H4, z_t, H4, bin, B, H4, EX,
+                           1, 0, 0, 0, 0, part, st));
     }
     cell_fwd_kernel<Gates><<<ew_blocks, EW_THREADS, 0, st>>>(
         z_t, brec, hp_t + A + FS, NCAT, cbuf + t * BH, cbuf + (t + 1) * BH,
         hbuf + (t + 1) * BH, B, H);
     ICEE_TRY(cudaGetLastError());
     if (coins) {
-      ICEE_TRY(gemm_split('N', hbuf + (t + 1) * BH, H, Cw, V, logits, V, Cb,
-                          B, V, H, part, st));
+      ICEE_TRY(tf32x3_gemm('N', hbuf + (t + 1) * BH, H, Cw, V, logits, V,
+                           Cb, B, V, H, 1, 0, 0, 0, 0, part, st));
       argmax_embed_kernel<<<B, AM_THREADS, 0, st>>>(logits, V, Bemb, E,
                                                     pidx + (size_t)t * B,
                                                     pemb);
@@ -570,8 +519,8 @@ static int scan_fwd(bool factored, const float* emb, const float* att1,
 // (B, H), and the grads: gatt1 (B, P, A), gWcat (H, NCAT), gbcat (NCAT),
 // gfullw (A), gfullb (1), gWin (E + FS, 4F or 4H), and for the factored
 // cell gVb, gSw, gSb, gUw.  Scratch: dcat (T, B, NCAT) = [d_att2 | dpre_fb
-// | dz] per row, ds, dv (T, B, 4F), dx (B, E + FS), de (T, B, P), part,
-// fw_part (B ceil(P / D1_PCH) A + P).
+// | dz] per row, ds, dv (T, B, 4F), dx (B, E + FS), de (T, B, P), part
+// (icee_att_scan_part_floats), fw_part (B ceil(P / D1_PCH) A + P).
 template <class Gates>
 static int scan_bwd(bool factored, const float* att1, const float* feats,
                     const float* Wcat, const float* fullw, const float* Win,
@@ -603,15 +552,15 @@ static int scan_bwd(bool factored, const float* att1, const float* feats,
       float* ds_t = ds + (size_t)t * B * F4;
       float* dv_t = dv + (size_t)t * B * F4;
       // ds_g = dz_g U_g^T, dv_g = ds_g S_g^T, dx = dv [V_we ; V_wc]^T
-      ICEE_TRY(gemm('T', dz_t, NCAT, Uw, H, ds_t, F4, nullptr, B, F, H, 4, H,
-                    (long long)F * H, F, 0, st));
-      ICEE_TRY(gemm('T', ds_t, F4, Sw, F, dv_t, F4, nullptr, B, F, F, 4, F,
-                    (long long)F * F, F, 0, st));
-      ICEE_TRY(gemm_split('T', dv_t, F4, Win, F4, dx, EX, nullptr, B, EX, F4,
-                          part, st));
+      ICEE_TRY(tf32x3_gemm('T', dz_t, NCAT, Uw, H, ds_t, F4, nullptr, B, F,
+                           H, 4, H, (long long)F * H, F, 0, part, st));
+      ICEE_TRY(tf32x3_gemm('T', ds_t, F4, Sw, F, dv_t, F4, nullptr, B, F, F,
+                           4, F, (long long)F * F, F, 0, part, st));
+      ICEE_TRY(tf32x3_gemm('T', dv_t, F4, Win, F4, dx, EX, nullptr, B, EX,
+                           F4, 1, 0, 0, 0, 0, part, st));
     } else {
-      ICEE_TRY(gemm_split('T', dz_t, NCAT, Win, H4, dx, EX, nullptr, B, EX,
-                          H4, part, st));
+      ICEE_TRY(tf32x3_gemm('T', dz_t, NCAT, Win, H4, dx, EX, nullptr, B, EX,
+                           H4, 1, 0, 0, 0, 0, part, st));
     }
     att_bwd_kernel<<<B, AT_THREADS, att_smem, st>>>(
         dx, ctx + (size_t)t * B * FS, hp + (size_t)t * B * NCAT,
@@ -621,8 +570,8 @@ static int scan_bwd(bool factored, const float* att1, const float* feats,
         E, A, P, FS, NCAT);
     ICEE_TRY(cudaGetLastError());
     // dh_{t-1} = [d_att2 | dpre_fb | dz] [dec_w | fb_w | W]^T (t = 0: dh0)
-    ICEE_TRY(gemm_split('T', dcat_t, NCAT, Wcat, NCAT, dh_c, H, nullptr, B,
-                        H, NCAT, part, st));
+    ICEE_TRY(tf32x3_gemm('T', dcat_t, NCAT, Wcat, NCAT, dh_c, H, nullptr, B,
+                         H, NCAT, 1, 0, 0, 0, 0, part, st));
   }
 
   // d_att1 and full_w's grad: one pass over att1 summing the T steps
@@ -641,21 +590,21 @@ static int scan_bwd(bool factored, const float* att1, const float* feats,
 
   // every other weight grad: one product over all N = T B rows
   const int N = T * B;
-  ICEE_TRY(gemm('A', hbuf, H, dcat, NCAT, gWcat, NCAT, nullptr, H, NCAT, N,
-                1, 0, 0, 0, 0, st));
+  ICEE_TRY(tf32x3_gemm('A', hbuf, H, dcat, NCAT, gWcat, NCAT, nullptr, H,
+                       NCAT, N, 1, 0, 0, 0, 0, part, st));
   ICEE_TRY(colsum(dcat, NCAT, N, NCAT, gbcat, 0, st));
   if (factored) {
-    ICEE_TRY(gemm('A', x, EX, dv, F4, gWin, F4, nullptr, EX, F4, N, 1, 0, 0,
-                  0, 0, st));
+    ICEE_TRY(tf32x3_gemm('A', x, EX, dv, F4, gWin, F4, nullptr, EX, F4, N,
+                         1, 0, 0, 0, 0, part, st));
     ICEE_TRY(colsum(dv, F4, N, F4, gVb, 0, st));
-    ICEE_TRY(gemm('A', v, F4, ds, F4, gSw, F, nullptr, F, F, N, 4, F, F,
-                  (long long)F * F, 0, st));
+    ICEE_TRY(tf32x3_gemm('A', v, F4, ds, F4, gSw, F, nullptr, F, F, N, 4,
+                         F, F, (long long)F * F, 0, part, st));
     ICEE_TRY(colsum(ds, F4, N, F4, gSb, 0, st));
-    ICEE_TRY(gemm('A', s, F4, dcat + A + FS, NCAT, gUw, H, nullptr, F, H, N,
-                  4, F, H, (long long)F * H, 0, st));
+    ICEE_TRY(tf32x3_gemm('A', s, F4, dcat + A + FS, NCAT, gUw, H, nullptr,
+                         F, H, N, 4, F, H, (long long)F * H, 0, part, st));
   } else {
-    ICEE_TRY(gemm('A', x, EX, dcat + A + FS, NCAT, gWin, H4, nullptr, EX, H4,
-                  N, 1, 0, 0, 0, 0, st));
+    ICEE_TRY(tf32x3_gemm('A', x, EX, dcat + A + FS, NCAT, gWin, H4, nullptr,
+                         EX, H4, N, 1, 0, 0, 0, 0, part, st));
   }
   return 0;
 }
@@ -670,16 +619,54 @@ const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Floats of split-product scratch both scans need (V = 0: teacher-forced).
-long long icee_att_scan_part_floats(int lstm, int B, int E, int F, int H,
-                                    int A, int FS, int V) {
+// Floats of split-K partials (gemm_tf32x3.cuh) the larger of the two
+// scans needs: every product either launches, the weight grads' over T B
+// rows included (V = 0: teacher-forced, no head).
+long long icee_att_scan_part_floats(int lstm, int B, int T, int E, int F,
+                                    int H, int A, int FS, int V) {
   const int NCAT = A + FS + 4 * H, EX = E + FS, G4 = 4 * (lstm ? H : F);
-  long long n = split_floats(B, NCAT, H);
-  const long long more[4] = {split_floats(B, G4, EX), split_floats(B, EX, G4),
-                             split_floats(B, H, NCAT),
-                             V > 0 ? split_floats(B, V, H) : 0};
-  for (long long m : more) n = m > n ? m : n;
-  return n > 0 ? n : 1;
+  const int N = T * B;
+  const long long each[] = {
+      tf32x3_part_floats(B, NCAT, H, 1), tf32x3_part_floats(B, G4, EX, 1),
+      V > 0 ? tf32x3_part_floats(B, V, H, 1) : 0,
+      tf32x3_part_floats(B, EX, G4, 1), tf32x3_part_floats(B, H, NCAT, 1),
+      tf32x3_part_floats(H, NCAT, N, 1), tf32x3_part_floats(EX, G4, N, 1),
+      lstm ? 0 : tf32x3_part_floats(B, F, F, 4),
+      lstm ? 0 : tf32x3_part_floats(B, H, F, 4),
+      lstm ? 0 : tf32x3_part_floats(B, F, H, 4),
+      lstm ? 0 : tf32x3_part_floats(F, F, N, 4),
+      lstm ? 0 : tf32x3_part_floats(F, H, N, 4)};
+  long long n = 1;
+  for (long long m : each) n = m > n ? m : n;
+  return n;
+}
+
+// The product alone, for the card tests and chip_smoke.py: C = A B
+// [+ bias] in form 'N', 'T' or 'A' (an int, the letter's code), row strides
+// and batch offsets in floats; part: icee_tf32x3_part_floats floats.
+long long icee_tf32x3_part_floats(int M, int N, int K, int batch) {
+  return tf32x3_part_floats(M, N, K, batch);
+}
+
+int icee_tf32x3_gemm(int form, const float* A, long long lda, const float* B,
+                     long long ldb, float* C, long long ldc,
+                     const float* bias, int M, int N, int K, int batch,
+                     long long za, long long zb, long long zc,
+                     long long zbias, float* part, void* stream) {
+  return tf32x3_gemm((char)form, A, lda, B, ldb, C, ldc, bias, M, N, K,
+                     batch, za, zb, zc, zbias, part,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// gemm_f32.cuh's CUDA-core product on the same arguments: the yardstick of
+// the card tests' error bound.  K5 does not call it.
+int icee_f32_gemm(int form, const float* A, long long lda, const float* B,
+                  long long ldb, float* C, long long ldc, const float* bias,
+                  int M, int N, int K, int batch, long long za, long long zb,
+                  long long zc, long long zbias, void* stream) {
+  if (form != 'N' && form != 'T' && form != 'A') return cudaErrorInvalidValue;
+  return gemm((char)form, A, lda, B, ldb, C, ldc, bias, M, N, K, batch, za,
+              zb, zc, zbias, static_cast<cudaStream_t>(stream));
 }
 
 // Floats of the d_att1 pass's scratch, or -1 if its (T, A) plane of att2

@@ -39,6 +39,14 @@ launch the kernels or raise.  Launch counts, per cell and mode:
 ``att_scan_fwd.launches`` (factored, teacher-forced), ``.lstm_launches``,
 ``.sampled_launches``, ``.sampled_lstm_launches``, and the same on
 ``att_scan_bwd``.
+
+Every product the CUDA scans launch is ``csrc/gemm_tf32x3.cuh``'s: float32
+accuracy on the tensor cores from three TF32 passes over a hi/lo split of
+each operand.  :func:`tf32x3_product` runs that product alone (the card
+tests and ``chip_smoke.py`` hold it against float64), beside its plain
+version :func:`tf32x3_product_plain`, which emulates the split, and
+:func:`f32_product`, the CUDA-core product of ``csrc/gemm_f32.cuh``, the
+yardstick of its error bound.
 """
 
 from __future__ import annotations
@@ -398,6 +406,135 @@ def att_scan_grads_plain(cell: dict, att: dict, emb_seq, att1, features, h0,
     return out
 
 
+# --- the product (csrc/gemm_tf32x3.cuh) --------------------------------------
+
+FORMS = ("N", "T", "A")
+
+
+def _product_dims(a, b, form: str) -> Tuple[int, int, int, int]:
+    """-> (batch, M, N, K) of ``op(a) op(b)``: form ``"N"`` a (M, K), b
+    (K, N); ``"T"`` b given as (N, K); ``"A"`` a given as (K, M).  A 3-D
+    operand is a batch (leading dimension); a 2-D one is shared by every
+    batch entry."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; choose one of {FORMS}")
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3):
+        raise ValueError("product operands must be 2-D or 3-D")
+    batch = max(x.shape[0] if x.dim() == 3 else 1 for x in (a, b))
+    if any(x.dim() == 3 and x.shape[0] != batch for x in (a, b)):
+        raise ValueError(f"batch sizes differ: {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    (ar, ac), (br, bc) = a.shape[-2:], b.shape[-2:]
+    m, k = (ac, ar) if form == "A" else (ar, ac)
+    kb, n = (bc, br) if form == "T" else (br, bc)
+    if k != kb:
+        raise ValueError(f"form {form}: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not chain")
+    return batch, m, n, k
+
+
+def _as_mk(a, form: str):
+    return a.transpose(-1, -2) if form == "A" else a
+
+
+def _as_kn(b, form: str):
+    return b.transpose(-1, -2) if form == "T" else b
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to the bit
+    pattern (the sign is separate, so this rounds the magnitude) and clear
+    them.  Infinities and NaNs pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo), both TF32: hi = round(x), lo = round(x - hi) (the
+    subtraction is exact), so hi + lo = x within 2^-22 of |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_product_plain(a, b, form: str = "N", bias=None):
+    """:func:`tf32x3_product`'s arithmetic in tensor ops: each operand
+    split into TF32 hi and lo, the three products lo_a hi_b, hi_a lo_b and
+    hi_a hi_b summed in float64, cast to float32, then + bias (float32)."""
+    _product_dims(a, b, form)
+    ah, al = (x.double() for x in tf32_split(_as_mk(a, form)))
+    bh, bl = (x.double() for x in tf32_split(_as_kn(b, form)))
+    out = ((al @ bh + ah @ bl) + ah @ bh).float()
+    if bias is not None:
+        out = out + (bias[:, None] if bias.dim() == 2 else bias)
+    return out
+
+
+def _product(a, b, form: str, bias, c_fn: str):
+    """Check the operands and launch ``c_fn`` (``icee_tf32x3_gemm`` or
+    ``icee_f32_gemm``) on them -> C (batch, M, N) or (M, N), contiguous.
+    Operands may be strided views whose rows are contiguous: a 3-D
+    operand's batch offset is its leading stride."""
+    batch, m, n, k = _product_dims(a, b, form)
+    device = a.device
+    for name, x in (("a", a), ("b", b), ("bias", bias)):
+        if x is None:
+            continue
+        if x.device != device:
+            raise ValueError(f"{name}: on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {x.dtype}, expected float32")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be contiguous")
+    if bias is not None and tuple(bias.shape) not in ((n,), (batch, n)):
+        raise ValueError(f"bias: shape {tuple(bias.shape)}, expected ({n},) "
+                         f"or ({batch}, {n})")
+    if device.type != "cuda":
+        raise ValueError(f"{c_fn}: unsupported device {device}")
+    lib = _library()
+    batched = a.dim() == 3 or b.dim() == 3
+    out = torch.empty(((batch,) if batched else ()) + (m, n),
+                      dtype=torch.float32, device=device)
+    ptr = cuda_lib.ptr
+    offs = [x.stride(0) if x is not None and x.dim() == 3 else 0
+            for x in (a, b)]
+    zbias = bias.stride(0) if bias is not None and bias.dim() == 2 else 0
+    args = [ord(form), ptr(a), a.stride(-2), ptr(b), b.stride(-2), ptr(out),
+            n, ctypes.c_void_p(0) if bias is None else ptr(bias), m, n, k,
+            batch, offs[0], offs[1], m * n, zbias]
+    if c_fn == "icee_tf32x3_gemm":   # split-K partials, stream-ordered
+        part = torch.empty((max(1, lib.icee_tf32x3_part_floats(
+            m, n, k, batch)),), dtype=torch.float32, device=device)
+        args.append(ptr(part))
+    rc = getattr(lib, c_fn)(*args, cuda_lib.stream_ptr(device))
+    cuda_lib.check_rc(lib, rc, f"{c_fn} (form {form})")
+    return out
+
+
+def tf32x3_product(a, b, form: str = "N", bias=None):
+    """C = op(a) op(b) [+ bias] at float32 accuracy on the tensor cores
+    (``csrc/gemm_tf32x3.cuh``, the product every K5 launch runs), forms as
+    :func:`_product_dims`; ``bias`` (N,) or (batch, N).  On the CPU the
+    plain version runs; on CUDA the kernel, counted in
+    ``tf32x3_product.launches``."""
+    if a.device.type == "cpu":
+        return tf32x3_product_plain(a, b, form, bias)
+    out = _product(a, b, form, bias, "icee_tf32x3_gemm")
+    tf32x3_product.launches += 1
+    return out
+
+
+tf32x3_product.launches = 0
+
+
+def f32_product(a, b, form: str = "N", bias=None):
+    """The same product on the CUDA cores (``csrc/gemm_f32.cuh``'s
+    ``gemm``, one float32 fmaf chain per output), CUDA only: the yardstick
+    that :func:`tf32x3_product`'s error is held to on the card."""
+    return _product(a, b, form, bias, "icee_f32_gemm")
+
+
 # --- kernel wrappers ---------------------------------------------------------
 
 def _kernel_weights(cell: dict, att: dict, kind: str):
@@ -478,7 +615,7 @@ def att_scan_fwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
         buf["s"] = torch.empty((t, b, g4), **f32)
     lib = _library()
     part = torch.empty((lib.icee_att_scan_part_floats(
-        int(lstm), b, e, f, h, a, fs, v or 0),), **f32)
+        int(lstm), b, t, e, f, h, a, fs, v or 0),), **f32)
     null = ctypes.c_void_p(0)
     ptr = cuda_lib.ptr
     if samp is None:
@@ -566,7 +703,7 @@ def att_scan_bwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
           "dh": torch.empty((b, h), **f32),
           "dc": torch.empty((b, h), **f32),
           "part": torch.empty((lib.icee_att_scan_part_floats(
-              int(lstm), b, e, f, h, a, fs, 0),), **f32),
+              int(lstm), b, t, e, f, h, a, fs, 0),), **f32),
           "fw_part": torch.empty((n_fw,), **f32)}
     if not lstm:
         sc["ds"] = torch.empty((t, b, g4), **f32)
@@ -767,10 +904,14 @@ def fused_att_scan_sampled(cell: dict, att: dict, head: dict, emb_seq,
 
 
 def _library() -> ctypes.CDLL:
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    product = [i, vp, ll, vp, ll, vp, ll, vp] + [i] * 4 + [ll] * 4
     return cuda_lib.library("att_scan", {
         "icee_att_scan_fwd": ([i] + [vp] * 31 + [i] * 9 + [vp], i),
         "icee_att_scan_bwd": ([i] + [vp] * 40 + [i] * 8 + [vp], i),
         "icee_scatter_rows": ([vp, vp, i, i, i, vp, vp], i),
-        "icee_att_scan_part_floats": ([i] * 8, ctypes.c_longlong),
-        "icee_att_scan_fw_part_floats": ([i] * 4, ctypes.c_longlong)})
+        "icee_att_scan_part_floats": ([i] * 9, ll),
+        "icee_att_scan_fw_part_floats": ([i] * 4, ll),
+        "icee_tf32x3_part_floats": ([i] * 4, ll),
+        "icee_tf32x3_gemm": (product + [vp, vp], i),
+        "icee_f32_gemm": (product + [vp], i)})

@@ -15,7 +15,9 @@ vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7.  K5 (the attention training scan), both cells,
 teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
 same bits on a second run, and the attention train steps on the card
-against the CPU.  K8 and K9 (the SentiCap scan and base beam search) and
+against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
+form against float64 (at most 4x the CUDA-core product's error), its
+emulation, ragged, padded, batched and split shapes, the same bits twice.  K8 and K9 (the SentiCap scan and base beam search) and
 K10 (the switched beam search): a ragged vocabulary, E != H, one image at
 beam 20, all-tied and saturated heads, the trace; the mixture CE's value
 and every gradient, the same bits twice; the switched step on the card
@@ -858,6 +860,91 @@ def test_att_scan_wrappers_raise_on_what_the_kernels_do_not_take(device):
     h, a, res = att_scan.att_scan_fwd(*args)         # teacher-forced res
     with pytest.raises(ValueError, match="token trace"):
         att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, "lstm", samp)
+
+
+# --- K5's product (gemm_tf32x3.cuh) ------------------------------------------
+
+# (form, M, N, K, batch, bias, row pad): ragged M, N and K against the
+# 128 x 64 x 32 tiles; rows that are not 16-byte aligned (the 4-byte copy
+# path: N = 37 in a (K, N) operand, K = 301, M = 3 in an (K, M) one); rows
+# padded beyond their width (a row stride > the width); batches laid out as
+# K5's S / U / ds / dv (interleaved along the rows); and shapes whose K the
+# schedule splits into chunks (S / U: 4 of 128, dh: 16 of 288, x W_in: 4 of
+# 608 with the K = 2348 = 293 x 8 + 4 tail)
+TF32X3_CASES = {
+    "N_ragged": ("N", 3, 37, 300, 1, True, 0),
+    "T_ragged": ("T", 3, 37, 300, 1, False, 0),
+    "A_ragged": ("A", 3, 37, 300, 1, True, 0),
+    "N_k301_padded": ("N", 7, 64, 301, 1, False, 3),
+    "A_padded_batched": ("A", 130, 70, 96, 3, True, 4),
+    "N_batched_split": ("N", 128, 512, 512, 4, True, 0),
+    "T_batched_split": ("T", 128, 512, 512, 4, False, 0),
+    "A_batched_weight_grad": ("A", 512, 512, 3200, 4, False, 0),
+    "N_x_Win_split": ("N", 128, 2048, 2348, 1, True, 0),
+    "T_dh_split": ("T", 128, 512, 4608, 1, False, 0),
+    "T_dx_split": ("T", 128, 2348, 2048, 1, False, 0),
+}
+
+
+def _product_operands(device, form, m, n, k, batch, pad, seed):
+    rng = np.random.default_rng(seed)
+    a_rows, a_cols = (k, m) if form == "A" else (m, k)
+    b_rows, b_cols = (n, k) if form == "T" else (k, n)
+    a = torch.tensor(rng.uniform(-1, 1, (a_rows, batch * a_cols + pad)),
+                     dtype=torch.float32, device=device)[:, :batch * a_cols]
+    b = torch.tensor(0.05 * rng.standard_normal((batch, b_rows,
+                                                 b_cols + pad)),
+                     dtype=torch.float32, device=device)[..., :b_cols]
+    if batch == 1:
+        return a, b[0]
+    return a.view(a_rows, batch, a_cols).transpose(0, 1), b
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_CASES))
+def test_tf32x3_product_matches_float64_and_the_plain_version(device, case):
+    """The product K5 launches against float64: its error at most 4x that
+    of gemm_f32.cuh's CUDA-core product on the same inputs (the tensor
+    core's float32 sum truncates, so a small factor is allowed); against
+    the emulation of its split within that bound plus the emulation's own
+    error; the same bits twice."""
+    form, m, n, k, batch, with_bias, pad = TF32X3_CASES[case]
+    a, b = _product_operands(device, form, m, n, k, batch, pad,
+                             seed=len(case))
+    bias = None
+    if with_bias:
+        bias = torch.randn((batch, n) if batch > 1 else (n,),
+                           generator=torch.Generator().manual_seed(3)).to(
+                               device)
+    before = att_scan.tf32x3_product.launches
+    got = att_scan.tf32x3_product(a, b, form, bias)
+    again = att_scan.tf32x3_product(a, b, form, bias)
+    f32 = att_scan.f32_product(a, b, form, bias)
+    plain = att_scan.tf32x3_product_plain(a, b, form, bias)
+    ref = att_scan._as_mk(a, form).double() @ att_scan._as_kn(b, form).double()
+    if bias is not None:
+        ref = ref + (bias[:, None] if bias.dim() == 2 else bias).double()
+    torch.cuda.synchronize()
+    assert att_scan.tf32x3_product.launches == before + 2
+    assert got.shape == ((batch,) if batch > 1 else ()) + (m, n)
+    assert torch.equal(got, again)
+    err = (got.double() - ref).abs().max().item()
+    err_f32 = (f32.double() - ref).abs().max().item()
+    err_plain = (plain.double() - ref).abs().max().item()
+    assert 0.0 < err_f32 and err <= 4.0 * err_f32, (err, err_f32)
+    assert (got - plain).abs().max().item() <= 4.0 * err_f32 + err_plain
+
+
+def test_tf32x3_wrapper_raises_on_what_the_kernel_does_not_take(device):
+    a = torch.zeros((4, 8), device=device)
+    b = torch.zeros((8, 5), device=device)
+    with pytest.raises(ValueError, match="expected cuda"):
+        att_scan.tf32x3_product(a, b.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        att_scan.tf32x3_product(a.double(), b.double())
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        att_scan.tf32x3_product(a.t(), b, "A")   # chains, rows strided
+    with pytest.raises(ValueError, match="bias"):
+        att_scan.tf32x3_product(a, b, "N", torch.zeros(4, device=device))
 
 
 # --- the SentiCap base slice: K8, K9, the step, TF32 -------------------------
