@@ -14,12 +14,15 @@ Phases, in order; any failure exits non-zero:
    column-split path) and at 64 images x 5 beams = 320 rows (the row-tiled
    path), both timed, with the column-split path's device timeline (a
    CUDA graph replay: its time, span and per-launch start and end);
-5. K2 (``mega_beam_decode``) vs the plain ``beam_search_batched`` search at
-   64 images, V=8192, 40 steps, in both feature modes, with the StyleNet
-   cell (``cell="factored"``) and then the NIC cell (``cell="lstm"``); each
-   kernel score must match its own sequence's plain score within 1e-3, and
-   where tokens differ, the kernel's sequence must tie the plain winner's
-   within 1e-4;
+5. K2 (``mega_beam_decode``, one cooperative search over the whole card)
+   vs the plain ``beam_search_batched`` search at 1, 8 and 64 images (the
+   serial request, a batched call, the benchmark shape), V=8192, 40 steps,
+   in both feature modes, with the StyleNet cell (``cell="factored"``) and
+   then the NIC cell (``cell="lstm"``); each kernel score must match its
+   own sequence's plain score within 1e-3, and where tokens differ, the
+   kernel's sequence must tie the plain winner's within 1e-4; the factored
+   cell must equal the serial fused-step path (K1) at atol 0; each shape
+   timed, its bound from the live row-steps it ran;
 5b. K6 (``att_decode_step_topk``, the attention step) vs its plain version
    at 64 images x 5 beams = 320 rows (row-tiled) and at the serial path's
    one image (column-split), both timed, with the column-split path's
@@ -441,33 +444,38 @@ def sequence_scores(dec, cell: str, feats, style: int, tokens, length):
     return total
 
 
-def check_k2(dec, device, cell: str = "factored"):
-    """K2 with ``cell`` vs its plain search; -> its entry of the kernels
-    line."""
+K2_IMAGES = (1, 8, 64)   # the serial request, a batched call, the benchmark
+
+
+def check_k2_shape(dec, device, cell: str, n_img: int):
+    """K2 with ``cell`` for ``n_img`` images vs its plain search, in both
+    feature modes; the factored cell also vs the serial fused-step path
+    (K1) at atol 0; timed.  -> this shape's figures."""
     import torch
 
+    from icee_tpu_torch.decode.fast import factored_decode
     from icee_tpu_torch.ops.beam import (mega_beam_decode,
                                          mega_beam_decode_plain,
                                          mega_beam_decode_steps)
 
     style = 2 if cell == "factored" else 0
     g = torch.Generator(device=device).manual_seed(4)
-    feats = torch.randn((B_IMAGES, 1, E), generator=g, device=device)
-    feats = feats.expand(B_IMAGES, K, E).contiguous()
-    max_err, own_err, total_steps, flips = 0.0, 0.0, 0, 0
+    feats = torch.randn((n_img, 1, E), generator=g, device=device)
+    feats = feats.expand(n_img, K, E).contiguous()
+    max_err, own_err, flips = 0.0, 0.0, 0
     kw = dict(k=K, max_seq_length=STEPS, cell=cell)
     for mode_feats in (feats, None):
-        got, steps = mega_beam_decode_steps(dec, mode_feats, style,
-                                            B_IMAGES, **kw)
-        want = mega_beam_decode_plain(dec, mode_feats, style, B_IMAGES, **kw)
+        got, steps = mega_beam_decode_steps(dec, mode_feats, style, n_img,
+                                            **kw)
+        want = mega_beam_decode_plain(dec, mode_feats, style, n_img, **kw)
         # the plain model's score of the kernel's own sequences: a wrong
         # token, parent or length shows here even where the kernel's
         # reported score is right
         rescored = sequence_scores(dec, cell, mode_feats, style, got.tokens,
                                    got.length)
         mode = ("serving" if mode_feats is not None else "research") \
-            + f", {cell}"
-        for i in range(B_IMAGES):
+            + f", {cell}, {n_img} images"
+        for i in range(n_img):
             gs, ws = got.score[i].item(), want.score[i].item()
             same = (got.length[i] == want.length[i]).item() and torch.equal(
                 got.tokens[i], want.tokens[i])
@@ -491,34 +499,66 @@ def check_k2(dec, device, cell: str = "factored"):
             if not err <= 1e-3:
                 fail(f"K2 {mode} image {i}: score {gs} vs {ws}")
             max_err = max(max_err, err)
+        if cell == "factored":
+            # the serial serving path (K1 in the Python beam) gives the same
+            # bits: column-split at <= 8 rows, row-tiled above
+            fused = factored_decode("fused-step", dec, mode_feats, style,
+                                    n_img, K, STEPS, 1, 2)
+            for what in ("tokens", "length", "score"):
+                if not torch.equal(getattr(fused, what), getattr(got, what)):
+                    fail(f"K2 {mode}: {what} differ from the fused-step "
+                         "path's (atol 0)")
         lengths = got.length.float()
-        log(f"K2 {mode}: {B_IMAGES} images, lengths mean "
-            f"{lengths.mean().item():.2f} min {int(lengths.min())} max "
-            f"{int(lengths.max())}, steps run per block min "
-            f"{int(steps.min())} max {int(steps.max())}; kernel scores vs "
-            f"their sequences' plain scores, max abs err so far {own_err}")
+        log(f"K2 {mode}: lengths mean {lengths.mean().item():.2f} min "
+            f"{int(lengths.min())} max {int(lengths.max())}, steps run per "
+            f"image min {int(steps[:, 0].min())} max "
+            f"{int(steps[:, 0].max())}, live row-steps "
+            f"{int(steps[:, 1].sum())}; rescore max abs err so far {own_err}"
+            + ("; = fused-step at atol 0" if cell == "factored" else ""))
         if mode_feats is not None:
-            total_steps = int(steps.sum())  # the timed, serving-mode run
+            serving_steps = steps   # the timed, serving-mode run
 
-    ms = cuda_ms(lambda: mega_beam_decode(dec, feats, style, B_IMAGES, **kw),
-                 5)
+    ms = cuda_ms(lambda: mega_beam_decode(dec, feats, style, n_img, **kw), 5)
     plain_ms = cuda_ms(lambda: mega_beam_decode_plain(
-        dec, feats, style, B_IMAGES, **kw), 3)
-    rows_per_block = (B_IMAGES * K) // steps.numel()
-    row_steps = total_steps * rows_per_block
-    nbytes = (decoder_weight_bytes(cell) + 4 * B_IMAGES * K * E
-              + 4 * row_steps * E + 4 * B_IMAGES * (STEPS + 4))
+        dec, feats, style, n_img, **kw), 3)
+    row_steps = int(serving_steps[:, 1].sum())
+    nbytes = (decoder_weight_bytes(cell) + 4 * n_img * K * E
+              + 4 * row_steps * E + 4 * n_img * (STEPS + 4))
     b_ms, b_by = bound_ms(row_steps * step_flops_per_row(cell), nbytes)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": max_err,
+            "max_rescore_err": own_err, "near_tie_flips": flips,
+            "steps_min_max": [int(serving_steps[:, 0].min()),
+                              int(serving_steps[:, 0].max())],
+            "live_row_steps": row_steps}
+
+
+def check_k2(dec, device, cell: str = "factored"):
+    """K2 with ``cell`` at 1, 8 and 64 images (``check_k2_shape``); -> its
+    entry of the kernels line: the 64-image figures, and every shape's
+    under ``shapes``."""
+    from icee_tpu_torch.ops.beam import max_grid
+
+    shapes = {str(n): check_k2_shape(dec, device, cell, n)
+              for n in K2_IMAGES}
+    top = shapes[str(B_IMAGES)]
     lstm = cell == "lstm"
     return {"name": "mega_beam_decode" + ("_lstm" if lstm else ""),
             "route": "cuda", "source": "icee_tpu_torch/csrc/beam.cu",
             "replaces": "icee_tpu/ops/pallas_beam.py:350" + (
                 " (cell=\"lstm\", :129-143)" if lstm else ""),
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
             "library_note": "no single PyTorch call computes a beam search",
-            "near_tie_flips": flips, "max_rescore_err": own_err,
-            "block_steps_run": total_steps}
+            "near_tie_flips": sum(s["near_tie_flips"]
+                                  for s in shapes.values()),
+            "max_rescore_err": max(s["max_rescore_err"]
+                                   for s in shapes.values()),
+            "grid_blocks": max_grid(dec["C_w" if not lstm
+                                        else "linear_w"].device),
+            "shapes": shapes}
 
 
 # --- phase 5b-5c: K6 and K7 (attention) --------------------------------------
@@ -984,6 +1024,7 @@ def serve_phase(params, device):
                                                     att_init_state)
     from icee_tpu_torch.ops.beam import mega_beam_decode
     from icee_tpu_torch.ops.decode_step import decode_step_topk
+    from icee_tpu_torch.serve.batching import BatchingEngine
     from icee_tpu_torch.serve.config import ServeConfig
     from icee_tpu_torch.serve.engine import BEAM_K, CaptionEngine
 
@@ -1048,9 +1089,13 @@ def serve_phase(params, device):
         # (K2 factored + K2 lstm + K7 factored + K7 lstm); counts from 0
         # just before, read just after
         reset()
-        with serving(config, engine, device) as url:
+        batcher = BatchingEngine(engine, window_ms=config.batch_window_ms)
+        with serving(config, batcher, device) as url:
             batched, wall = run_requests(url, requests, concurrent=True)
         launches = {"batched": read()}
+        # images a batched call decodes (the group padded to a power of 2):
+        # each group is one K2 launch per global-feature variant
+        groups = [1 << (n - 1).bit_length() for n in batcher.group_sizes]
         # path 2, serial: the same requests one by one through the
         # CaptionEngine alone (K1 for stylenet, K2 lstm for nic, the h0/c0
         # kernel and K6 of both kinds for the attention variants)
@@ -1109,6 +1154,7 @@ def serve_phase(params, device):
                  "serial_captions_per_s": len(requests) / serial_wall,
                  "serial_p50_ms": statistics.median(serial_lat),
                  "image_size": 224, "launches": launches,
+                 "batched_images_per_call": groups,
                  "words_min_max": {v: [min(w), max(w)]
                                    for v, w in words.items()},
                  "distinct_captions": distinct,
@@ -3707,9 +3753,14 @@ def main() -> int:
             f"{k1['serial_bound_ms']:.4f}")
         k2 = check_k2(sty, device)
         k2_lstm = check_k2(nic, device, cell="lstm")
-        log(f"phase 5: K2 ok, factored {k2['ms']:.3f} ms vs plain "
-            f"{k2['plain_ms']:.3f} ms; lstm {k2_lstm['ms']:.3f} ms vs "
-            f"plain {k2_lstm['plain_ms']:.3f} ms")
+        log("phase 5: K2 ok, ms (plain, bound) at " + "; ".join(
+            f"{n} images: factored {k2['shapes'][n]['ms']:.3f} "
+            f"({k2['shapes'][n]['plain_ms']:.3f}, "
+            f"{k2['shapes'][n]['bound_ms']:.3f}), lstm "
+            f"{k2_lstm['shapes'][n]['ms']:.3f} "
+            f"({k2_lstm['shapes'][n]['plain_ms']:.3f}, "
+            f"{k2_lstm['shapes'][n]['bound_ms']:.3f})"
+            for n in k2["shapes"]))
         att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
         k6 = {}
         for kind, dec in att.items():
@@ -3746,6 +3797,15 @@ def main() -> int:
     k2_lstm["launches_batched_serial"] = [
         launches["batched"]["mega_beam_decode_lstm"],
         launches["serial"]["mega_beam_decode_lstm"]]
+    # the main path's launches by images a call: the batched calls' groups
+    # (a K2 launch of each cell per group), the serial NIC requests (one
+    # image each); 64 images is the benchmark shape, not served
+    groups = stats["batched_images_per_call"]
+    serial_nic = launches["serial"]["mega_beam_decode_lstm"]
+    for entry, serial in ((k2, 0), (k2_lstm, serial_nic)):
+        by = {str(n): groups.count(n) for n in sorted(set(groups))}
+        by["1"] = by.get("1", 0) + serial
+        entry["launches_by_images"] = by
     for kind, suffix in (("factored", ""), ("lstm", "_lstm")):
         k6[kind]["launches"] = launches["serial"]["att_decode_step_topk"
                                                   + suffix]

@@ -54,6 +54,7 @@
 #include <utility>
 
 #include "att_common.cuh"
+#include "grid_common.cuh"
 
 namespace icee {
 
@@ -105,19 +106,6 @@ struct SplitArgs {
   float* alpha_out;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // Programmatic dependent launch (sm_90): let the next launch on the stream
 // be scheduled / wait until the previous one has finished and its writes
 // are visible.  Both are no-ops for a launch without the attribute.

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, at
 small shapes that ``chip_smoke.py``'s flagship run does not reach.  K1 and
 K2: a ragged vocab, an input width that is not a multiple of 4, F != H, row
-counts that do not fill a block, several images per K2 block with batch
+counts that do not fill a block, several images per K2 search with batch
 padding, research mode, early termination and all-tied logits.  K3 (the
 training scan): B = 3, T = 1, E % 4 != 0, F != H, a style other than 0 with
 zero grads on the other slices, and the same bits on a second run.  The
@@ -9,7 +9,9 @@ chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
 clamp, and the whole loss on the card against the CPU.  K4 (the NIC
 training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
 grad, and the same bits on a second run.  K2 with the LSTM cell: both
-feature modes, batch padding and an early end.  K6 and K7 (the attention
+feature modes, batch padding and an early end; the whole-card search at
+1, 8 and 64 images, k = 1 and 8, images ending at widely different steps,
+the same bits on a second run and on a 3-block grid.  K6 and K7 (the attention
 step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
 vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7.  K5 (the attention training scan), both cells,
@@ -48,7 +50,9 @@ from icee_tpu_torch.ops import att_beam, att_decode_step, att_scan
 from icee_tpu_torch.core.config import AttentionDecoderConfig, TrainConfig
 from icee_tpu_torch.train import optim
 from icee_tpu_torch.train.steps import make_attention_steps
-from icee_tpu_torch.ops.beam import mega_beam_decode, mega_beam_decode_plain
+from icee_tpu_torch.ops.beam import (max_grid, mega_beam_decode,
+                                     mega_beam_decode_plain,
+                                     mega_beam_decode_steps)
 from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                             decode_step_topk_plain)
 
@@ -414,6 +418,75 @@ def test_nic_wrappers_raise_on_what_the_kernels_do_not_take(device):
                          cell="lstm")
     with pytest.raises(ValueError, match="unknown cell"):
         mega_beam_decode(params, None, 0, 2, k=4, cell="gru")
+
+
+@pytest.mark.parametrize("cell,n_img,k", [
+    ("factored", 1, 5), ("factored", 8, 5), ("factored", 64, 5),
+    ("factored", 8, 1), ("factored", 8, 8),
+    ("lstm", 1, 5), ("lstm", 8, 5), ("lstm", 64, 5), ("lstm", 8, 1),
+    ("lstm", 8, 8)])
+def test_grid_search_matches_plain_and_keeps_its_bits(device, cell, n_img,
+                                                      k):
+    """K2 as one search over the whole card: images that end at widely
+    different steps (live-row compaction; some with the [<end>] fallback),
+    a ragged vocabulary, E % 4 != 0, F != H.  Against the plain search; the
+    same bits on a second run and on a 3-block grid; the factored cell
+    bit-identical to the serial fused-step path (K1: column-split at <= 8
+    rows, row-tiled above)."""
+    vocab, e, steps = 516, 30, 16
+    if cell == "factored":
+        params, style = _params(device, vocab, e, 40, 48, seed=21,
+                                end_bias=3.0), 3
+    else:
+        params, style = _nic_params(device, vocab, e, 48, seed=23,
+                                    end_bias=3.0), 0
+    one = np.random.default_rng(5).standard_normal((n_img, 1, e))
+    feats = torch.tensor(np.repeat(one, k, axis=1).astype(np.float32),
+                         device=device)
+    kw = dict(k=k, max_seq_length=steps, cell=cell)
+    before = (mega_beam_decode.launches, mega_beam_decode.lstm_launches)
+    got, ran = mega_beam_decode_steps(params, feats, style, n_img, **kw)
+    torch.cuda.synchronize()
+    after = (mega_beam_decode.launches, mega_beam_decode.lstm_launches)
+    assert after == ((before[0] + 1, before[1]) if cell == "factored"
+                     else (before[0], before[1] + 1))
+    want = mega_beam_decode_plain(params, feats, style, n_img, **kw)
+    torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    if n_img >= 8:
+        assert len(set(got.length.tolist())) >= 3
+    # steps each image ran (>= 1, at most all of them) and its live
+    # row-steps: one row at step 1, at most k after
+    assert ran.shape == (n_img, 2) and ran.dtype == torch.int32
+    n_steps, row_steps = ran[:, 0].cpu(), ran[:, 1].cpu()
+    assert bool(((n_steps >= 1) & (n_steps <= steps + 1)).all())
+    assert bool(((row_steps >= n_steps)
+                 & (row_steps <= 1 + k * (n_steps - 1))).all())
+    for grid in (None, 3):
+        again, ran2 = mega_beam_decode_steps(params, feats, style, n_img,
+                                             grid=grid, **kw)
+        assert torch.equal(again.tokens, got.tokens)
+        assert torch.equal(again.length, got.length)
+        assert torch.equal(again.score, got.score)
+        assert torch.equal(ran2, ran)
+    if cell == "factored":
+        split = decode_step_topk.split_launches
+        fused = factored_decode("fused-step", params, feats, style, n_img, k,
+                                steps, 1, 2)
+        assert (decode_step_topk.split_launches > split) == (n_img * k <= 8)
+        torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
+        torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
+        torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
+
+
+def test_grid_search_takes_only_a_grid_the_card_holds(device):
+    params = _params(device, 128, 16, 32, 32)
+    most = max_grid(device)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    for grid in (0, most + 1):
+        with pytest.raises(ValueError, match="grid="):
+            mega_beam_decode_steps(params, None, 0, 2, k=4, grid=grid)
 
 
 def _att_params(device, kind, vocab=516, e=30, f=40, h=48, a=20, fs=64,
