@@ -30,19 +30,23 @@ Phases, in order; any failure exits non-zero:
    and the NIC+Att cell (``kind="lstm"``), at A=512, P=14x14, FS=2048,
    E+FS=2348; and the h0/c0 kernel (``att_init_state``) vs
    ``init_hidden_state``;
-5c. K7 (``mega_att_beam_decode``, the whole attention search) vs the plain
-   search at 64 images, both cells, margin-aware as phase 5, with the
-   steps each block ran;
+5c. K7 (``mega_att_beam_decode``, one cooperative attention search over
+   the whole card) vs the plain search at 1, 2, 8 and 64 images, both
+   cells, margin-aware as phase 5, and vs the fused-step path (K6 per
+   step) at atol 0; each shape timed, its bound from the live row-steps it
+   ran;
 6. serve: random-init StyleNet, NIC, StyleNet+Att and NIC+Att at flagship
    width (ResNet-152 at 224x224, E=300, H=F=A=512, V=8192, k=5, 40 steps)
    behind the HTTP service.  First with cross-request batching: concurrent
    ``POST /generate`` requests in all four modes (batched path: K2
    factored, K2 lstm, K7 factored, K7 lstm).  Then without batching: the
-   same requests one by one (serial path: K1, K2 lstm, the h0/c0 kernel
-   and K6 of both cells for one image).  Every variant's captions must
-   match, and each path's kernels must have launched (the counts are reset
-   to 0 just before the path runs and read just after); every serial K1
-   and K6 call must have taken the column-split path.  Then a checkpoint
+   same requests one by one (serial path: the same four kernels for one
+   image).  Then the same requests through the engine's fused-step beams
+   (K1, K2 lstm, the h0/c0 kernel and K6 of both cells for one image).
+   Every variant's captions must match on all three paths, and each path's
+   kernels must have launched (the counts are reset to 0 just before the
+   path runs and read just after); every fused-step K1 and K6 call must
+   have taken the column-split path.  Then a checkpoint
    round trip: reference-style torch checkpoints (StyleNet and
    StyleNet+Att decoder state dicts, full-module NIC and NIC+Att pickles)
    serve one request with the captions of the same weights passed as
@@ -444,13 +448,50 @@ def sequence_scores(dec, cell: str, feats, style: int, tokens, length):
     return total
 
 
+def margin_check(what: str, got, want, rescored):
+    """A search's results ``got`` against the plain search's ``want``,
+    margin-aware: each kernel score must match its own sequence's plain
+    score (``rescored``) within 1e-3, and where tokens differ from the
+    plain search, the kernel's sequence must tie the plain winner's within
+    1e-4; every score within 1e-3 of the plain one.  -> (max score error,
+    max rescore error, near-tie flips)."""
+    import torch
+
+    max_err, own_err, flips = 0.0, 0.0, 0
+    for i in range(got.length.shape[0]):
+        gs, ws = got.score[i].item(), want.score[i].item()
+        same = (got.length[i] == want.length[i]).item() and torch.equal(
+            got.tokens[i], want.tokens[i])
+        if int(got.length[i]) > 1:
+            own = abs(rescored[i].item() - gs)
+            own_err = max(own_err, own)
+            if not own <= 1e-3:
+                fail(f"{what}, image {i}: reported score {gs}, its "
+                     f"sequence scores {rescored[i].item()}")
+        if not same:
+            # a near tie: the kernel's sequence scores within 1e-4 of the
+            # plain winner's under the plain model
+            margin = abs(rescored[i].item() - ws)
+            if int(got.length[i]) == 1 or margin > 1e-4:
+                fail(f"{what}, image {i}: tokens differ; kernel's sequence "
+                     f"scores {rescored[i].item()}, plain winner {ws}, "
+                     f"margin {margin} > 1e-4")
+            flips += 1
+            log(f"{what}, image {i}: near-tie flip, margin {margin}")
+        err = abs(gs - ws)
+        if not err <= 1e-3:
+            fail(f"{what}, image {i}: score {gs} vs {ws}")
+        max_err = max(max_err, err)
+    return max_err, own_err, flips
+
+
 K2_IMAGES = (1, 8, 64)   # the serial request, a batched call, the benchmark
 
 
 def check_k2_shape(dec, device, cell: str, n_img: int):
     """K2 with ``cell`` for ``n_img`` images vs its plain search, in both
-    feature modes; the factored cell also vs the serial fused-step path
-    (K1) at atol 0; timed.  -> this shape's figures."""
+    feature modes; the factored cell also vs the fused-step path (K1) at
+    atol 0; timed.  -> this shape's figures."""
     import torch
 
     from icee_tpu_torch.decode.fast import factored_decode
@@ -475,32 +516,11 @@ def check_k2_shape(dec, device, cell: str, n_img: int):
                                    got.length)
         mode = ("serving" if mode_feats is not None else "research") \
             + f", {cell}, {n_img} images"
-        for i in range(n_img):
-            gs, ws = got.score[i].item(), want.score[i].item()
-            same = (got.length[i] == want.length[i]).item() and torch.equal(
-                got.tokens[i], want.tokens[i])
-            if int(got.length[i]) > 1:
-                own = abs(rescored[i].item() - gs)
-                own_err = max(own_err, own)
-                if not own <= 1e-3:
-                    fail(f"K2 {mode} image {i}: reported score {gs}, its "
-                         f"sequence scores {rescored[i].item()}")
-            if not same:
-                # a near tie: the kernel's sequence scores within 1e-4 of
-                # the plain winner's under the plain model
-                margin = abs(rescored[i].item() - ws)
-                if int(got.length[i]) == 1 or margin > 1e-4:
-                    fail(f"K2 {mode} image {i}: tokens differ; kernel's "
-                         f"sequence scores {rescored[i].item()}, plain "
-                         f"winner {ws}, margin {margin} > 1e-4")
-                flips += 1
-                log(f"K2 {mode} image {i}: near-tie flip, margin {margin}")
-            err = abs(gs - ws)
-            if not err <= 1e-3:
-                fail(f"K2 {mode} image {i}: score {gs} vs {ws}")
-            max_err = max(max_err, err)
+        errs = margin_check(f"K2 {mode}", got, want, rescored)
+        max_err, own_err = max(max_err, errs[0]), max(own_err, errs[1])
+        flips += errs[2]
         if cell == "factored":
-            # the serial serving path (K1 in the Python beam) gives the same
+            # the fused-step path (K1 in the Python beam) gives the same
             # bits: column-split at <= 8 rows, row-tiled above
             fused = factored_decode("fused-step", dec, mode_feats, style,
                                     n_img, K, STEPS, 1, 2)
@@ -772,82 +792,93 @@ def att_sequence_scores(dec, kind: str, feats, style: int, tokens, length):
     return total
 
 
-def check_k7(dec, kind: str, device):
-    """K7 with ``kind`` vs its plain search at 64 images, margin-aware as
-    phase 5: each kernel score matches its own sequence's plain score
-    within 1e-3, and where tokens differ from the plain search, the
-    kernel's sequence ties the plain winner's within 1e-4; -> its entry of
-    the kernels line, with the steps each block ran."""
+K7_IMAGES = (1, 2, 8, 64)   # the serial request, batched calls, benchmark
+
+
+def check_k7_shape(dec, kind: str, device, n_img: int):
+    """K7 with ``kind`` for ``n_img`` images vs its plain search,
+    margin-aware as phase 5: each kernel score matches its own sequence's
+    plain score within 1e-3, and where tokens differ from the plain search,
+    the kernel's sequence ties the plain winner's within 1e-4; and vs the
+    fused-step path (K6 per step from the h0/c0 kernel) at atol 0; timed,
+    its bound from the live row-steps it ran.  -> this shape's figures."""
     import torch
 
+    from icee_tpu_torch.decode.fast import attention_decode, nic_att_decode
     from icee_tpu_torch.ops.att_beam import (mega_att_beam_decode,
                                              mega_att_beam_decode_plain,
                                              mega_att_beam_decode_steps)
 
     style = 3 if kind == "factored" else 0
-    feats = att_features(device, B_IMAGES, 14)
+    feats = att_features(device, n_img, 14)
     kw = dict(k=K, max_seq_length=STEPS, kind=kind)
-    got, steps = mega_att_beam_decode_steps(dec, feats, style, B_IMAGES, **kw)
-    want = mega_att_beam_decode_plain(dec, feats, style, B_IMAGES, **kw)
+    got, steps = mega_att_beam_decode_steps(dec, feats, style, n_img, **kw)
+    want = mega_att_beam_decode_plain(dec, feats, style, n_img, **kw)
     rescored = att_sequence_scores(dec, kind, feats, style, got.tokens,
                                    got.length)
-    max_err, own_err, flips = 0.0, 0.0, 0
-    for i in range(B_IMAGES):
-        gs, ws = got.score[i].item(), want.score[i].item()
-        same = (got.length[i] == want.length[i]).item() and torch.equal(
-            got.tokens[i], want.tokens[i])
-        if int(got.length[i]) > 1:
-            own = abs(rescored[i].item() - gs)
-            own_err = max(own_err, own)
-            if not own <= 1e-3:
-                fail(f"K7 {kind} image {i}: reported score {gs}, its "
-                     f"sequence scores {rescored[i].item()}")
-        if not same:
-            margin = abs(rescored[i].item() - ws)
-            if int(got.length[i]) == 1 or margin > 1e-4:
-                fail(f"K7 {kind} image {i}: tokens differ; kernel's sequence "
-                     f"scores {rescored[i].item()}, plain winner {ws}, "
-                     f"margin {margin} > 1e-4")
-            flips += 1
-            log(f"K7 {kind} image {i}: near-tie flip, margin {margin}")
-        err = abs(gs - ws)
-        if not err <= 1e-3:
-            fail(f"K7 {kind} image {i}: score {gs} vs {ws}")
-        max_err = max(max_err, err)
+    what = f"K7 {kind} {n_img} images"
+    max_err, own_err, flips = margin_check(what, got, want, rescored)
+    # the fused-step path (K6 per step: column-split at one image,
+    # row-tiled above) gives the same bits
+    args = (n_img, K, STEPS, 1, 2)
+    fused = (attention_decode("fused-step", dec, feats, style, *args)
+             if kind == "factored"
+             else nic_att_decode("fused-step", dec, feats, *args))
+    for name in ("tokens", "length", "score"):
+        if not torch.equal(getattr(fused, name), getattr(got, name)):
+            fail(f"{what}: {name} differ from the fused-step path's "
+                 "(atol 0)")
     lengths = got.length.float()
-    total_steps = int(steps.sum())
-    log(f"K7 {kind}: {B_IMAGES} images, lengths mean "
-        f"{lengths.mean().item():.2f} min {int(lengths.min())} max "
-        f"{int(lengths.max())}, steps run per block min {int(steps.min())} "
-        f"mean {steps.float().mean().item():.2f} max {int(steps.max())}; "
-        f"kernel scores vs their sequences' plain scores, max abs err "
-        f"{own_err}")
-    ms = cuda_ms(lambda: mega_att_beam_decode(dec, feats, style, B_IMAGES,
-                                              **kw), 3)
+    row_steps = int(steps[:, 1].sum())
+    log(f"{what}: lengths mean {lengths.mean().item():.2f} min "
+        f"{int(lengths.min())} max {int(lengths.max())}, steps run per image "
+        f"min {int(steps[:, 0].min())} max {int(steps[:, 0].max())}, live "
+        f"row-steps {row_steps}; rescore max abs err {own_err}; = fused-step "
+        "at atol 0")
+    ms = cuda_ms(lambda: mega_att_beam_decode(dec, feats, style, n_img, **kw),
+                 5)
     plain_ms = cuda_ms(lambda: mega_att_beam_decode_plain(
-        dec, feats, style, B_IMAGES, **kw), 1)
-    row_steps = total_steps * K
+        dec, feats, style, n_img, **kw), 1)
     flops = (row_steps * att_step_flops_per_row(kind)
-             + B_IMAGES * (P * FS + 2 * 2 * FS * H))
-    nbytes = (att_weight_bytes(kind, init=True) + 4 * B_IMAGES * P * (FS + A)
-              + 4 * row_steps * E + 4 * B_IMAGES * (STEPS + 4))
+             + n_img * (P * FS + 2 * 2 * FS * H))
+    nbytes = (att_weight_bytes(kind, init=True) + 4 * n_img * P * (FS + A)
+              + 4 * row_steps * E + 4 * n_img * (STEPS + 4))
     b_ms, b_by = bound_ms(flops, nbytes)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": max_err,
+            "max_rescore_err": own_err, "near_tie_flips": flips,
+            "steps_min_max": [int(steps[:, 0].min()), int(steps[:, 0].max())],
+            "live_row_steps": row_steps,
+            "caption_lengths_min_mean_max": [int(lengths.min()),
+                                             lengths.mean().item(),
+                                             int(lengths.max())]}
+
+
+def check_k7(dec, kind: str, device):
+    """K7 with ``kind`` at 1, 2, 8 and 64 images (``check_k7_shape``); ->
+    its entry of the kernels line: the 64-image figures, and every shape's
+    under ``shapes``."""
+    from icee_tpu_torch.ops.att_beam import max_grid
+
+    shapes = {str(n): check_k7_shape(dec, kind, device, n)
+              for n in K7_IMAGES}
+    top = shapes[str(B_IMAGES)]
     lstm = kind == "lstm"
     return {"name": "mega_att_beam_decode" + ("_lstm" if lstm else ""),
             "route": "cuda", "source": "icee_tpu_torch/csrc/att_beam.cu",
             "replaces": "icee_tpu/ops/pallas_att_decode.py:733 (kind=\""
                         + kind + "\"; both calls, :974 and :907)",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
             "library_note": "no single PyTorch call computes a beam search",
-            "near_tie_flips": flips, "max_rescore_err": own_err,
-            "block_steps_run": total_steps,
-            "block_steps_min_mean_max": [int(steps.min()),
-                                         steps.float().mean().item(),
-                                         int(steps.max())],
-            "caption_lengths_min_mean_max": [int(lengths.min()),
-                                             lengths.mean().item(),
-                                             int(lengths.max())]}
+            "near_tie_flips": sum(s["near_tie_flips"]
+                                  for s in shapes.values()),
+            "max_rescore_err": max(s["max_rescore_err"]
+                                   for s in shapes.values()),
+            "grid_blocks": max_grid(dec["init_h_w"].device),
+            "shapes": shapes}
 
 
 # --- phase 6: serve -----------------------------------------------------------
@@ -925,11 +956,13 @@ def run_requests(url, requests, concurrent: bool):
     return results, wall
 
 
-def device_busy_share(fn):
+def device_busy_share(fn, top: int = 0):
     """Share of one run of ``fn``'s wall time in which the card was busy
     (kernels and copies), from a torch.profiler trace; None when the trace
     holds no device event.  The profiler's own host cost lengthens the run,
-    so the share reads low."""
+    so the share reads low.  With ``top``, -> (share, the ``top`` largest
+    kernels' device ms as ``device_time_by_kernel`` gives them) from the
+    same trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -944,21 +977,17 @@ def device_busy_share(fn):
     busy_us = sum(e.self_device_time_total for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
-    return busy_us / wall_us if busy_us > 0 else None
+    share = busy_us / wall_us if busy_us > 0 else None
+    if not top:
+        return share
+    return share, kernel_rows(prof, top)
 
 
-def device_time_by_kernel(fn, top: int | None = 12):
-    """Device time (ms) of one run of ``fn`` summed by kernel name, the
-    ``top`` largest (None: all), from a torch.profiler trace."""
-    import torch
+def kernel_rows(prof, top: int | None):
+    """A profiler trace's device time (ms) summed by kernel name, the
+    ``top`` largest (None: all)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
@@ -966,13 +995,30 @@ def device_time_by_kernel(fn, top: int | None = 12):
     return [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]
 
 
+def device_time_by_kernel(fn, top: int | None = 12):
+    """Device time (ms) of one run of ``fn`` summed by kernel name, the
+    ``top`` largest (None: all), from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_rows(prof, top)
+
+
 def request_breakdown(engine, paths, repeats: int = 5):
     """Device-synchronised host times (ms, median of ``repeats``) of the
-    pieces of a request: image decode + ResNet-152 + head for one image;
-    per variant the serial beam for one image (stylenet: fused-step path,
-    K1; nic: K2 lstm; the attention variants: fused-step, K6) and the
+    pieces of a request: the whole serial request without HTTP
+    (``engine.caption``: one backbone pass and four beams); image decode +
+    ResNet-152 + head for one image; per variant the serial beam for one
+    image (one K2 or K7 launch), for stylenet and the attention variants
+    also the fused-step beam (K1 or K6 per step in a Python beam), and the
     batched beam (K2 or K7) for a group of len(paths) images; and each
-    piece's device busy share (one profiled run)."""
+    piece's device busy share and its three largest kernels' device ms
+    (profiled runs)."""
     import torch
 
     def timed(fn):
@@ -985,18 +1031,26 @@ def request_breakdown(engine, paths, repeats: int = 5):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    pieces = {"encode_one_image": lambda: engine.encode(paths[0], "happy")}
+    pieces = {"caption_one_image": lambda: engine.caption(paths[0], "happy"),
+              "encode_one_image": lambda: engine.encode(paths[0], "happy")}
     for variant in SERVED:
         feat = engine.encode(paths[0], "happy", variant)
         group = torch.cat([engine.encode(p, "happy", variant) for p in paths])
         pre = "" if variant == "stylenet" else variant + "_"
         pieces[pre + "serial_beam_one_image"] = (
-            lambda f=feat, v=variant: engine.decode(f, "happy", "fused-step",
-                                                    v))
+            lambda f=feat, v=variant: engine.decode(f, "happy", "mega", v))
+        if variant != "nic":
+            pieces[pre + "fused_step_beam_one_image"] = (
+                lambda f=feat, v=variant: engine.decode(f, "happy",
+                                                        "fused-step", v))
         pieces[pre + f"batched_beam_{len(paths)}_images"] = (
             lambda g=group, v=variant: engine.decode(g, "happy", "mega", v))
-    return {name: {"ms": timed(fn), "device_busy_share": device_busy_share(fn)}
-            for name, fn in pieces.items()}
+    out = {}
+    for name, fn in pieces.items():
+        share, kernels = device_busy_share(fn, top=3)
+        out[name] = {"ms": timed(fn), "device_busy_share": share,
+                     "device_ms_by_kernel": kernels}
+    return out
 
 
 def serving_vocab(tmp: str) -> str:
@@ -1097,41 +1151,51 @@ def serve_phase(params, device):
         # each group is one K2 launch per global-feature variant
         groups = [1 << (n - 1).bit_length() for n in batcher.group_sizes]
         # path 2, serial: the same requests one by one through the
-        # CaptionEngine alone (K1 for stylenet, K2 lstm for nic, the h0/c0
-        # kernel and K6 of both kinds for the attention variants)
+        # CaptionEngine alone (one K2 launch for stylenet and for nic, one
+        # K7 launch for each attention variant, one image each)
         serial_config = dataclasses.replace(config, batch_window_ms=0.0)
         reset()
         with serving(serial_config, engine, device) as url:
             serial, serial_wall = run_requests(url, requests,
                                                concurrent=False)
         launches["serial"] = read()
+        # path 3, the fused-step beams: the same requests one by one
+        # through CaptionEngine.caption(path="fused-step") (K1 for
+        # stylenet, K2 lstm for nic, the h0/c0 kernel and K6 of both kinds
+        # for the attention variants, a Python beam over one image)
+        reset()
+        fused = [engine.caption(p, m, path="fused-step")
+                 for p, m in requests]
+        launches["fused_step"] = read()
 
         for j, (p, m) in enumerate(requests):
             for variant in SERVED:
-                got, want = batched[j][1][variant], serial[j][1][variant]
-                if got != want:
-                    fail(f"request {j} ({m}) {variant}: batched caption "
-                         f"{got!r} != serial {want!r}")
-        for path, names in (("batched", ("mega_beam_decode",
-                                         "mega_beam_decode_lstm",
-                                         "mega_att_beam_decode",
-                                         "mega_att_beam_decode_lstm")),
-                            ("serial", ("decode_step_topk",
-                                        "mega_beam_decode_lstm",
-                                        "att_decode_step_topk",
-                                        "att_decode_step_topk_lstm",
-                                        "att_init_state"))):
+                want = serial[j][1][variant]
+                for path, got in (("batched", batched[j][1][variant]),
+                                  ("fused-step", fused[j][variant])):
+                    if got != want:
+                        fail(f"request {j} ({m}) {variant}: {path} caption "
+                             f"{got!r} != serial {want!r}")
+        mega = ("mega_beam_decode", "mega_beam_decode_lstm",
+                "mega_att_beam_decode", "mega_att_beam_decode_lstm")
+        for path, names in (("batched", mega), ("serial", mega),
+                            ("fused_step", ("decode_step_topk",
+                                            "mega_beam_decode_lstm",
+                                            "att_decode_step_topk",
+                                            "att_decode_step_topk_lstm",
+                                            "att_init_state"))):
             for name in names:
                 if launches[path][name] <= 0:
                     fail(f"{name} was not launched on the {path} path")
-        # every serial request is one image: K1 and K6 must have taken
+        # every fused-step request is one image: K1 and K6 must have taken
         # their column-split path, every time
         for name in step_paths:
-            got = launches["serial"]
+            got = launches["fused_step"]
             if got[name + "_tiled"] or got[name + "_split"] != got[name]:
-                fail(f"{name} on the serial path: {got[name + '_split']} "
-                     f"column-split and {got[name + '_tiled']} row-tiled "
-                     f"calls of {got[name]}")
+                fail(f"{name} on the fused-step path: "
+                     f"{got[name + '_split']} column-split and "
+                     f"{got[name + '_tiled']} row-tiled calls of "
+                     f"{got[name]}")
         words = {v: [len(batched[j][1][v].split())
                      for j in range(len(requests))] for v in SERVED}
         for variant in SERVED[1:]:
@@ -1142,7 +1206,7 @@ def serve_phase(params, device):
         lat = sorted(r[2] * 1e3 for r in batched.values())
         serial_lat = sorted(r[2] * 1e3 for r in serial.values())
         log(f"serve: {len(requests)} x {len(SERVED)} captions equal on the "
-            f"batched and serial paths; words per caption "
+            f"batched, serial and fused-step paths; words per caption "
             f"{ {v: (min(w), max(w)) for v, w in words.items()} }; distinct "
             f"captions of {len(requests)} {distinct}; e.g. "
             f"{ {v: batched[0][1][v] for v in SERVED} }")
@@ -2150,10 +2214,16 @@ def k5_product_flops(kind: str, sampled: bool):
 
 def kernel_ms(fn, iters: int) -> float:
     """Device time (ms) of one run of ``fn``: the kernels' own time in a
-    profiler trace of ``iters`` runs, over ``iters`` (no host gaps)."""
+    profiler trace of ``iters`` runs, over ``iters`` (no host gaps); by
+    CUDA events (host gaps included) where the trace holds no device
+    time (the profiler sometimes records none)."""
     rows = device_time_by_kernel(lambda: [fn() for _ in range(iters)],
                                  top=None)
-    return sum(r["ms"] for r in rows) / iters
+    total = sum(r["ms"] for r in rows)
+    if total > 0:
+        return total / iters
+    log("kernel_ms: the profiler trace holds no device time; CUDA events")
+    return cuda_ms(fn, iters)
 
 
 def check_tf32x3(device):
@@ -3783,35 +3853,40 @@ def main() -> int:
             "CUDA graph (replay ms, span and stage start/end us): "
             + json.dumps(stages))
         k7 = {kind: check_k7(dec, kind, device) for kind, dec in att.items()}
-        log(f"phase 5c: K7 ok, factored {k7['factored']['ms']:.3f} ms vs "
-            f"plain {k7['factored']['plain_ms']:.3f} ms; lstm "
-            f"{k7['lstm']['ms']:.3f} ms vs plain "
-            f"{k7['lstm']['plain_ms']:.3f} ms")
+        log("phase 5c: K7 ok, ms (plain, bound) at " + "; ".join(
+            f"{n} images: factored {k7['factored']['shapes'][n]['ms']:.3f} "
+            f"({k7['factored']['shapes'][n]['plain_ms']:.3f}, "
+            f"{k7['factored']['shapes'][n]['bound_ms']:.3f}), lstm "
+            f"{k7['lstm']['shapes'][n]['ms']:.3f} "
+            f"({k7['lstm']['shapes'][n]['plain_ms']:.3f}, "
+            f"{k7['lstm']['shapes'][n]['bound_ms']:.3f})"
+            for n in k7["factored"]["shapes"]))
 
     launches, stats = serve_phase(params, device)
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
-    k1["launches"] = launches["serial"]["decode_step_topk"]
-    k2["launches"] = launches["batched"]["mega_beam_decode"]
-    k2_lstm["launches"] = (launches["batched"]["mega_beam_decode_lstm"]
-                           + launches["serial"]["mega_beam_decode_lstm"])
-    k2_lstm["launches_batched_serial"] = [
-        launches["batched"]["mega_beam_decode_lstm"],
-        launches["serial"]["mega_beam_decode_lstm"]]
-    # the main path's launches by images a call: the batched calls' groups
-    # (a K2 launch of each cell per group), the serial NIC requests (one
-    # image each); 64 images is the benchmark shape, not served
+    # the served paths (batched and serial) launch the whole-search
+    # kernels; the fused-step path (phase 6's third) launches K1, K6 and
+    # the h0/c0 kernel
+    k1["launches"] = launches["fused_step"]["decode_step_topk"]
+    # by images a call: the batched calls' groups (a launch of each
+    # whole-search kernel per group), the serial requests (one image
+    # each); 64 images is the benchmark shape, not served
     groups = stats["batched_images_per_call"]
-    serial_nic = launches["serial"]["mega_beam_decode_lstm"]
-    for entry, serial in ((k2, 0), (k2_lstm, serial_nic)):
+    for entry, name in ((k2, "mega_beam_decode"),
+                        (k2_lstm, "mega_beam_decode_lstm"),
+                        (k7["factored"], "mega_att_beam_decode"),
+                        (k7["lstm"], "mega_att_beam_decode_lstm")):
+        entry["launches"] = (launches["batched"][name]
+                             + launches["serial"][name])
+        entry["launches_batched_serial"] = [launches["batched"][name],
+                                            launches["serial"][name]]
         by = {str(n): groups.count(n) for n in sorted(set(groups))}
-        by["1"] = by.get("1", 0) + serial
+        by["1"] = by.get("1", 0) + launches["serial"][name]
         entry["launches_by_images"] = by
     for kind, suffix in (("factored", ""), ("lstm", "_lstm")):
-        k6[kind]["launches"] = launches["serial"]["att_decode_step_topk"
-                                                  + suffix]
-        k7[kind]["launches"] = launches["batched"]["mega_att_beam_decode"
-                                                   + suffix]
-    att_init["launches"] = launches["serial"]["att_init_state"]
+        k6[kind]["launches"] = launches["fused_step"]["att_decode_step_topk"
+                                                      + suffix]
+    att_init["launches"] = launches["fused_step"]["att_init_state"]
     del params, sty, nic, att
 
     k3f, k3b = check_k3(device)

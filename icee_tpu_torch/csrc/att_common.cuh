@@ -12,14 +12,15 @@
 // init_state is the h0/c0 of the search (_mega_att_kernel's _init, :455):
 // the mean of the image's P feature rows through init_h and init_c.
 //
-// K6's column-split path (split_step.cuh) calls att_score and softmax_row,
-// the pieces attend_rows is made of, and writes the context and gate chains
-// out in attend_rows' k order.
+// K6's column-split path (split_step.cuh) and K7 (att_beam.cu, on
+// grid_beam.cuh) call att_score and softmax_row, the pieces attend_rows is
+// made of, and write the context and gate chains (K7: init_state's too)
+// out in the same k order.
 //
-// K6 and K7 call the very same functions, and every output is a fixed chain
-// of fmaf/adds (-fmad=false), so one row's arithmetic does not depend on how
-// many rows a block holds: a beam run step by step through K6 scores as the
-// same beam inside K7.  The contraction orders are not the XLA oracle's
+// So K6 and K7 compute every output as the same fixed chain of fmaf/adds
+// (-fmad=false), and one row's arithmetic does not depend on how many rows
+// a block holds: a beam run step by step through K6 scores as the same
+// beam inside K7.  The contraction orders are not the XLA oracle's
 // (one dot over A; sum over P of feat * alpha) nor the TPU kernel's (A in
 // 128-wide pieces; P in tiles in the streamed call): the port is held to
 // them with a tolerance.

@@ -12,9 +12,10 @@
 // beam-major permutation and vocab padding were layout devices of the TPU
 // and are not carried over.
 //
-// Also here: the search's initial state for the serial path (att_init),
-// the same device function K7 runs in its prologue, so the serial (K6) and
-// batched (K7) serving paths start from the same bits.
+// Also here: the search's initial state for the fused-step path
+// (att_init, init_state), whose chains K7 (att_beam.cu) computes too, so
+// the fused-step (K6) and whole-search (K7) paths start from the same
+// bits.
 //
 // Two paths, chosen by the shape alone (one image: column-split, several:
 // row-tiled); a row's outputs are the same bits on both.

@@ -1,6 +1,7 @@
 // What the kernels that spread one step over the whole card share: the
-// cp.async helpers (split_step.cuh's column-split launches and beam.cu's
-// persistent search) and the grid barrier of a cooperative launch.
+// cp.async helpers (split_step.cuh's column-split launches and
+// grid_beam.cuh's persistent searches) and the grid barrier of a
+// cooperative launch.
 #pragma once
 
 #include <cuda_runtime.h>

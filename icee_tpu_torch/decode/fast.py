@@ -20,7 +20,8 @@ here is K2's plain version (the CPU path).
 The attention decoders (:func:`attention_decode` for StyleNet+Att,
 :func:`nic_att_decode` for NIC+Att) have the same two paths: ``"mega"``,
 one K7 launch (``ops/att_beam.py``), and ``"fused-step"``, the Python beam
-driving K6 (``ops/att_decode_step.py``) once per step from K7's h0/c0.
+driving K6 (``ops/att_decode_step.py``) once per step from the h0/c0
+kernel (``att_init_state``, K7's bits).
 Their beams have the research semantics: step 1 embeds ``<start>``, and the
 spatial features (batch, P, FS) enter through h0/c0 and the attention.
 """

@@ -3,15 +3,21 @@
 
 Port of ``icee_tpu/ops/pallas_att_decode.py::mega_att_beam_decode``, both
 of its calls (the resident and the P-streamed one, which compute the same
-function).  The CUDA kernel is ``csrc/att_beam.cu``: one block per image,
-persistent over every step, with h0/c0 from the mean feature, the
-re-attention, the cell, head, top-k, beam selection, parent gather,
-best-completed tracking, next-token embedding and early exit inside.  The
-TPU scheduling knobs (``n_img_block``, ``n_streams``, ``topk_fold``,
-``p_stream``, ``p_tile``, ``_profile``) have no counterpart.
-:func:`mega_att_beam_decode_plain` is the same search in plain PyTorch
-(``beam_search_batched`` over the decoder's full-vocabulary step): the CPU
-tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
+function).  The CUDA kernel is ``csrc/att_beam.cu``: ONE cooperative launch
+of one block per SM, persistent over every step, spreads each step of the
+search over the whole card (K2's design, ``csrc/grid_beam.cuh``).  A step
+runs as stages separated by a grid barrier: the products of h and of the
+embedding, the attention scores (units of an image's positions), the
+context (units of an image's feature columns, the softmax in every block),
+the rest of the cell, the vocabulary head, the per-tile top-k partials and
+each image's beam tail; h0/c0 from the mean feature before step 1.  Only
+the beams still alive run.  :func:`att_grid_plan` is the launch plan the
+kernel reads.  The TPU scheduling knobs (``n_img_block``, ``n_streams``,
+``topk_fold``, ``p_stream``, ``p_tile``, ``_profile``) have no
+counterpart.  :func:`mega_att_beam_decode_plain` is the same search in
+plain PyTorch (``beam_search_batched`` over the decoder's full-vocabulary
+step): the CPU tests use it, and ``chip_smoke.py`` holds the kernel against
+it on the card.
 
 The search has the research semantics: step 1 embeds ``<start>``; the
 image enters through h0/c0 and the attention context only.  The hoisted
@@ -26,7 +32,9 @@ the CPU; for CUDA tensors it launches the kernel or raises.  Launch counts:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,9 +42,23 @@ from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.ops import cuda_lib
-from icee_tpu_torch.ops.att_decode_step import (K_MAX, check_step_params,
+from icee_tpu_torch.ops.att_decode_step import (K_MAX, KINDS, V_TILE,
+                                                check_step_params,
                                                 step_params, _kind)
-from icee_tpu_torch.ops.decode_step import check_kernel_widths
+from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
+                                     MAX_STAGES, NSLOT, PLAN_ARRAYS,
+                                     SLOT_FLOATS, THREADS,
+                                     GridPlan, Job, carve_regions,
+                                     check_grid, grid_blocks, launch_chunks,
+                                     plan_stage, plan_struct,
+                                     stage_with_width, slabs_on, tail_floats)
+from icee_tpu_torch.ops.decode_step import (check_beam_width,
+                                            check_kernel_widths)
+
+# csrc/grid_beam.cuh's limits for the attention (checked against the
+# library when it loads)
+MAX_P = 256                   # positions of an image
+WARPS = THREADS // 32         # a block's warps: positions it scores at once
 
 
 def _embed_table(params: dict, kind: str) -> torch.Tensor:
@@ -92,14 +114,160 @@ def mega_att_beam_decode(params: dict, features: torch.Tensor, style: int,
                                       max_seq_length, kind)[0]
 
 
+# --- the launch plan -----------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AttGridPlan(GridPlan):
+    """What one launch of ``csrc/att_beam.cu`` reads besides the tensors
+    (``cell`` holds the kind): the product stages (the step's, then the
+    init stage), the scores stage's ``pu`` positions a unit and ``upi``
+    units an image, and the scratch layout."""
+    a: int
+    p: int
+    fs: int
+    pu: int
+    upi: int
+
+
+def att_stage_jobs(kind: str, e: int, f: int, h: int, v: int, a: int,
+                   fs: int) -> Tuple[Tuple[Job, ...], ...]:
+    """The product stages of a search, in the order ``csrc/att_beam.cu``
+    lists them (and, within a stage, its job order): pre, ctx (per image),
+    [vrows, style,] gates, logits, init.  The scores stage, after pre, has
+    no products."""
+    pre = (Job("att2", 1, a), Job("gpre", 1, fs), Job("hw", 1, 4 * h),
+           Job("xpart", 1, 4 * f))
+    ctx = (Job("ctx", 1, fs),)
+    if kind == "factored":
+        cell = ((Job("v", 1, 4 * f),), (Job("s", 4, f),),
+                (Job("z", 4, h, gates=True, sets=4),))
+    else:
+        cell = ((Job("gates", 4, h, gates=True),),)
+    return (pre, ctx, *cell, (Job("logits", 1, v),),
+            (Job("h0", 1, h), Job("c0", 1, h)))
+
+
+CTX_STAGE = 1  # the per-image stage: units (slab, live image)
+
+
+def plan_image_stage(jobs: Tuple[Job, ...], grid: int, n_img: int):
+    """A per-image stage's slabs: units (slab, image) of the image's live
+    rows (at most k), so the narrowest slabs (16, 32, 64 columns) that give
+    every block about one unit, 64 once the images fill the grid so."""
+    cols = n_img * sum(j.nseg * j.segw for j in jobs)
+    m = -(-cols // (16 * grid))
+    return stage_with_width(jobs, 16 if m <= 1 else 32 if m == 2 else 64)
+
+
+def score_units(p: int, n_img: int, grid: int) -> Tuple[int, int]:
+    """(positions a unit, units an image) of the scores stage: an image's P
+    positions over about grid / n_img blocks, a warp's worth at least."""
+    upi = max(1, min(-(-p // WARPS), grid // n_img))
+    pu = -(-p // upi)
+    return pu, -(-p // pu)
+
+
+@functools.lru_cache(maxsize=64)
+def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
+                  fs: int, k: int, n_img: int, max_seq: int,
+                  grid: int) -> AttGridPlan:
+    """The plan of one launch for ``n_img`` images on ``grid`` blocks;
+    raises ValueError on what the kernel does not take."""
+    _kind(kind)
+    check_kernel_widths(f, h, v, a, fs)
+    if kind == "lstm" and f != h:
+        raise ValueError(f"f={f} != h={h}: the LSTM cell's widths are H")
+    if not 1 <= k <= min(K_MAX, v):
+        raise ValueError(f"k={k} outside [1, {min(K_MAX, v)}]: the kernel "
+                         "K7 (csrc/att_beam.cu) takes at most K_MAX")
+    if e < 1 or n_img < 1 or max_seq < 0 or grid < 1 or a < 4 or fs < 4:
+        raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
+                         f"grid={grid}, a={a}, fs={fs}: each must be "
+                         "positive (a, fs at least 4)")
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"P={p} positions outside [1, {MAX_P}]")
+    if K_MAX * a > NSLOT * SLOT_FLOATS:
+        raise ValueError(f"A={a}: {K_MAX} rows of att2 do not fit the "
+                         "kernel's ring")
+    rows = n_img * k
+    if rows > MAX_ROWS:
+        raise ValueError(f"{n_img} images x k={k} = {rows} rows: one launch "
+                         f"takes at most {MAX_ROWS}")
+    n_tiles = -(-v // V_TILE)
+    if tail_floats(n_tiles, k, max_seq + 2) > NSLOT * SLOT_FLOATS:
+        raise ValueError(f"V={v}, max_seq={max_seq}: the beam tail's "
+                         "scratch does not fit the kernel's ring")
+    jobs = att_stage_jobs(kind, e, f, h, v, a, fs)
+    stages = tuple(plan_image_stage(js, grid, n_img) if i == CTX_STAGE
+                   else plan_stage(js, grid, n_img if i == len(jobs) - 1
+                                   else rows)
+                   for i, js in enumerate(jobs))
+    pu, upi = score_units(p, n_img, grid)
+    fact = kind == "factored"
+    floats = carve_regions([
+        ("att2", rows * a), ("gpre", rows * fs), ("hw", rows * 4 * h),
+        ("xpart", rows * 4 * f), ("esc", rows * p), ("ctx", rows * fs),
+        ("v", rows * 4 * f if fact else 0), ("s", rows * 4 * f if fact else 0),
+        ("hn", 2 * rows * h), ("cn", 2 * rows * h),
+        ("logits", rows * n_tiles * V_TILE), ("pm", rows * n_tiles),
+        ("pse", rows * n_tiles), ("pv", rows * n_tiles * k),
+        ("scores", rows), ("bscore", n_img), ("mean", n_img * fs)])
+    ints = carve_regions([
+        ("bar", 1), ("pi", rows * n_tiles * k), ("alive", rows),
+        ("word", rows), ("prev", rows), ("seqs", rows * (max_seq + 2)),
+        ("steps", 2 * n_img)])
+    return AttGridPlan(kind, e, f, h, v, k, n_img, max_seq, grid, stages,
+                       floats, ints, a, p, fs, pu, upi)
+
+
+_PLAN_FIELDS = (
+    "kind", "E", "F", "H", "V", "A", "P", "FS", "k", "n_img", "max_seq",
+    "start", "end", "Vp", "n_tiles", "grid", "n_stages", "pu", "upi")
+_FLOAT_REGIONS = ("att2", "gpre", "hw", "xpart", "esc", "ctx", "v", "s",
+                  "hn", "cn", "logits", "pm", "pse", "pv", "scores",
+                  "bscore", "mean")
+
+
+class _CAttPlan(ctypes.Structure):
+    """``csrc/att_beam.cu`` AttGridPlan, field by field (all 64-bit)."""
+    _fields_ = ([(n, ctypes.c_longlong) for n in _PLAN_FIELDS]
+                + [(n, ctypes.c_longlong * MAX_STAGES) for n in PLAN_ARRAYS]
+                + [("o_" + n, ctypes.c_longlong)
+                   for n in _FLOAT_REGIONS + INT_REGIONS])
+
+
+def _c_plan(plan: AttGridPlan, start: int, end: int) -> _CAttPlan:
+    vals = dict(kind=KINDS.index(plan.cell), E=plan.e, F=plan.f, H=plan.h,
+                V=plan.v, A=plan.a, P=plan.p, FS=plan.fs, k=plan.k,
+                n_img=plan.n_img, max_seq=plan.max_seq, start=start, end=end,
+                Vp=plan.n_tiles * V_TILE, n_tiles=plan.n_tiles,
+                grid=plan.grid, n_stages=len(plan.stages), pu=plan.pu,
+                upi=plan.upi)
+    return plan_struct(_CAttPlan, plan, vals, _FLOAT_REGIONS + INT_REGIONS)
+
+
+_max_grid: Dict[int, int] = {}
+
+
+def max_grid(device: torch.device) -> int:
+    """Blocks of one cooperative launch of the kernel on ``device``."""
+    return grid_blocks(_library(), "icee_mega_att_beam_max_grid", _max_grid,
+                       device)
+
+
 def mega_att_beam_decode_steps(
         params: dict, features: torch.Tensor, style: int, batch: int,
         start_token: int = 1, end_token: int = 2, k: int = 5,
-        max_seq_length: int = 40, kind: str = "factored"
+        max_seq_length: int = 40, kind: str = "factored",
+        grid: Optional[int] = None
 ) -> Tuple[BeamResult, Optional[torch.Tensor]]:
-    """:func:`mega_att_beam_decode`, plus the (batch,) int32 count of steps
-    each block (image) ran before its early exit (None from the plain
-    version on the CPU), which sizes the work for a bound."""
+    """:func:`mega_att_beam_decode`, plus a (batch, 2) int32 count per
+    image: the steps it ran before its last beam ended, and the live
+    row-steps (beams computed, summed over those steps), which size the
+    work for a bound (None from the plain version on the CPU).  ``grid``
+    launches fewer blocks than the card holds (tests: the bits must not
+    change)."""
     emb = _embed_table(params, kind)
     device = emb.device
     v, e = emb.shape
@@ -112,12 +280,10 @@ def mega_att_beam_decode_steps(
     cuda_lib.check_tensor("features", features, (batch, p, fs),
                           torch.float32, device)
     for name, shape in (("init_h_w", (fs, hd)), ("init_h_b", (hd,)),
-                        ("init_c_w", (fs, hd)), ("init_c_b", (hd,)),
-                        ("embed", (v, e))):
-        t = emb if name == "embed" else params[name]
-        cuda_lib.check_tensor(name, t, shape, torch.float32, device)
-    if not 1 <= k <= min(K_MAX, v):
-        raise ValueError(f"k={k} outside [1, {min(K_MAX, v)}]")
+                        ("init_c_w", (fs, hd)), ("init_c_b", (hd,))):
+        cuda_lib.check_tensor(name, params[name], shape, torch.float32,
+                              device)
+    check_beam_width("k", k, v, device, "K7 (csrc/att_beam.cu)")
     if device.type == "cpu":
         return mega_att_beam_decode_plain(params, features, int(style), batch,
                                           start_token, end_token, k,
@@ -125,42 +291,50 @@ def mega_att_beam_decode_steps(
     if device.type != "cuda":
         raise ValueError(f"mega_att_beam_decode: unsupported device {device}")
     check_kernel_widths(f, hd, v, a, fs)
-
     lib = _library()
-    smem = lib.icee_mega_att_beam_smem(e, f, hd, v, k, max_seq_length, a, p,
-                                       fs)
-    if smem > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"mega_att_beam_decode needs {smem} bytes of shared "
-                         f"memory per block, more than {cuda_lib.SMEM_LIMIT}")
+    blocks = check_grid(grid, max_grid(device))
     att1 = att_mod.att_projection(att, features)
-    max_len = max_seq_length + 2
-    i32 = dict(dtype=torch.int32, device=device)
-    tokens = torch.empty((batch, max_len), **i32)
-    length = torch.empty((batch,), **i32)
-    score = torch.empty((batch,), dtype=torch.float32, device=device)
-    steps = torch.empty((batch,), **i32)
     ptr = cuda_lib.ptr
-    head = (ptr(features), ptr(att1), ptr(emb), ptr(att["dec_w"]),
-            ptr(att["dec_b"]), ptr(att["full_w"]), ptr(att["full_b"]),
-            ptr(gate["f_beta_w"]), ptr(gate["f_beta_b"]),
-            *(ptr(params[n]) for n in ("init_h_w", "init_h_b", "init_c_w",
-                                       "init_c_b")))
-    outs = (ptr(cell["C_w"]), ptr(cell["C_b"]), ptr(tokens), ptr(length),
-            ptr(score), ptr(steps), batch, k, e)
-    tail = (v, a, p, fs, max_seq_length, start_token, end_token,
-            cuda_lib.stream_ptr(device))
-    if kind == "factored":
-        rc = lib.icee_mega_att_beam_decode(
-            *head, *(ptr(cell[n]) for n in ("V_w", "V_b", "S_w", "S_b", "U_w",
-                                            "U_b", "W_w", "W_b")),
-            *outs, f, hd, *tail)
-        mega_att_beam_decode.launches += 1
+    names = (("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b")
+             if kind == "factored" else ("W_ih", "b_ih", "W_hh", "b_hh"))
+    weights = (ptr(emb), ptr(att["dec_w"]), ptr(att["dec_b"]),
+               ptr(att["full_w"]), ptr(att["full_b"]), ptr(gate["f_beta_w"]),
+               ptr(gate["f_beta_b"]),
+               *(ptr(params[n]) for n in ("init_h_w", "init_h_b", "init_c_w",
+                                          "init_c_b")),
+               *(ptr(cell[n]) for n in names), ptr(cell["C_w"]),
+               ptr(cell["C_b"]))
+    fn = (lib.icee_mega_att_beam_decode if kind == "factored"
+          else lib.icee_mega_att_beam_decode_lstm)
+    i32 = dict(dtype=torch.int32, device=device)
+    results = []
+    for first, n_img in launch_chunks(batch, k):
+        plan = att_grid_plan(kind, e, f, hd, v, a, p, fs, k, n_img,
+                             max_seq_length, blocks)
+        scratch = torch.empty((plan.n_floats,), dtype=torch.float32,
+                              device=device)
+        ints = torch.zeros((plan.n_ints,), **i32)  # the barrier starts at 0
+        tokens = torch.empty((n_img, max_seq_length + 2), **i32)
+        length = torch.empty((n_img,), **i32)
+        score = torch.empty((n_img,), dtype=torch.float32, device=device)
+        cplan = _c_plan(plan, start_token, end_token)
+        rc = fn(ctypes.byref(cplan), ptr(slabs_on(plan, device)),
+                ptr(features[first:first + n_img]),
+                ptr(att1[first:first + n_img]), *weights, ptr(scratch),
+                ptr(ints), ptr(tokens), ptr(length), ptr(score),
+                cuda_lib.stream_ptr(device))
+        cuda_lib.check_rc(lib, rc, f"mega_att_beam_decode (kind={kind})")
+        if kind == "factored":
+            mega_att_beam_decode.launches += 1
+        else:
+            mega_att_beam_decode.lstm_launches += 1
+        off, size = plan.region("steps")
+        results.append((tokens, length, score,
+                        ints[off:off + size].view(n_img, 2).clone()))
+    if len(results) == 1:
+        tokens, length, score, steps = results[0]
     else:
-        rc = lib.icee_mega_att_beam_decode_lstm(
-            *head, *(ptr(cell[n]) for n in ("W_ih", "b_ih", "W_hh", "b_hh")),
-            *outs, hd, *tail)
-        mega_att_beam_decode.lstm_launches += 1
-    cuda_lib.check_rc(lib, rc, f"mega_att_beam_decode (kind={kind})")
+        tokens, length, score, steps = (torch.cat(t) for t in zip(*results))
     return BeamResult(tokens=tokens, length=length, score=score), steps
 
 
@@ -170,7 +344,18 @@ mega_att_beam_decode.lstm_launches = 0  # kernel launches, kind="lstm"
 
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return cuda_lib.library("att_beam", {
-        "icee_mega_att_beam_decode": ([vp] * 27 + [i] * 12 + [vp], i),
-        "icee_mega_att_beam_decode_lstm": ([vp] * 23 + [i] * 11 + [vp], i),
-        "icee_mega_att_beam_smem": ([i] * 9, ctypes.c_longlong)})
+    lib = cuda_lib.library("att_beam", {
+        "icee_mega_att_beam_decode": ([vp] * 31, i),
+        "icee_mega_att_beam_decode_lstm": ([vp] * 27, i),
+        "icee_mega_att_beam_max_grid": ([vp], i),
+        "icee_mega_att_beam_consts": ([vp], None)})
+    if getattr(lib, "geometry_checked", False):
+        return lib
+    consts = (ctypes.c_longlong * 9)()
+    lib.icee_mega_att_beam_consts(consts)
+    want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, MAX_P, K_MAX)
+    if tuple(consts[1:]) != want:
+        raise RuntimeError(f"csrc/att_beam.cu's geometry {tuple(consts[1:])} "
+                           f"is not the wrapper's {want}")
+    lib.geometry_checked = True
+    return lib

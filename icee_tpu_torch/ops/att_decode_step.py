@@ -20,8 +20,8 @@ plain PyTorch: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
 against it on the card.
 
 Also here, :func:`att_init_state`: the search's h0/c0 from the mean spatial
-feature through the device function K7 runs in its prologue, so the serial
-path (K6 per step) starts from K7's bits; its plain version is
+feature with the chains K7 computes before its first step, so the
+fused-step path (K6 per step) starts from K7's bits; its plain version is
 :func:`~icee_tpu_torch.models.attention.init_hidden_state`.
 
 Both wrappers take the plain version only for tensors on the CPU; for CUDA
@@ -44,6 +44,7 @@ from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
 from icee_tpu_torch.ops.decode_step import (K_MAX, V_TILE,
+                                            check_beam_width,
                                             check_kernel_widths)
 
 KINDS = ("factored", "lstm")
@@ -170,9 +171,12 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     device = x.device
     rows, e = x.shape
     n_img, p, fs = features.shape
-    if not 1 <= k <= K_MAX or rows != n_img * k:
-        raise ValueError(f"{rows} rows for {n_img} images of k={k} (k <= "
-                         f"{K_MAX})")
+    if k < 1 or rows != n_img * k:
+        raise ValueError(f"{rows} rows for {n_img} images of k={k}")
+    if device.type == "cuda" and k > K_MAX:
+        raise ValueError(f"k={k} rows an image: the CUDA kernel K6 "
+                         f"(csrc/att_decode_step.cu) takes at most K_MAX = "
+                         f"{K_MAX}")
     split = n_img == 1
     f, hd, v, a, fs, wp = cuda_lib.checked_weights(
         (cell_params, att_params, gate_params), (kind, e, fs, device, split),
@@ -183,8 +187,8 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
                            ("features", features, (n_img, p, fs)),
                            ("att1", att1, (n_img, p, a))):
         cuda_lib.check_tensor(name, t, shape, torch.float32, device)
-    if not 1 <= ktop <= min(K_MAX, v):
-        raise ValueError(f"ktop={ktop} outside [1, {min(K_MAX, v)}]")
+    check_beam_width("ktop", ktop, v, device,
+                     "K6 (csrc/att_decode_step.cu)")
     if device.type == "cpu":
         return att_decode_step_topk_plain(cell_params, att_params,
                                           gate_params, x, h, c, features,

@@ -2,7 +2,8 @@
 (``cell="factored"``) or the NIC decoder (``cell="lstm"``).
 
 Port of ``icee_tpu/ops/pallas_beam.py::mega_beam_decode``.  The CUDA kernel
-is ``csrc/beam.cu``: ONE cooperative launch of one block per SM, persistent
+is ``csrc/beam.cu`` (its machinery, shared with K7, in
+``csrc/grid_beam.cuh``): ONE cooperative launch of one block per SM, persistent
 over every step, spreads each step of the search over the whole card.  A
 step runs as stages separated by a grid barrier: the cell's products (their
 output columns cut into slabs, the live rows into blocks), the vocabulary
@@ -37,11 +38,12 @@ from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.decode_step import (K_MAX, V_TILE,
+                                            check_beam_width,
                                             check_decoder_params,
                                             check_kernel_widths)
 
 CELLS = ("factored", "lstm")
-# csrc/beam.cu's geometry (checked against the library when it loads)
+# csrc/grid_beam.cuh's geometry (checked against the library when it loads)
 THREADS = 512        # a block's threads
 KC = 64              # k rows of a ring chunk
 KCP = KC + 4         # row stride of a chunk's input rows
@@ -50,7 +52,7 @@ SLOT_FLOATS = 7680   # floats of one chunk: weights, then input rows
 MAX_ROWS = 1024      # rows (images x k) of one launch
 MAX_BR = 64          # most rows of a unit
 MAX_UNIT_ROWS = 128  # input rows of a unit, all sets (two a copying thread)
-MAX_STAGES = 4
+MAX_STAGES = 8
 SCRATCH_ALIGN = 64   # floats: each scratch region starts 256-byte aligned
 
 
@@ -262,7 +264,9 @@ def tail_floats(n_tiles: int, k: int, length: int) -> int:
             + 6 * k + 4)
 
 
-def _carve(sizes) -> Tuple[Tuple[str, int, int], ...]:
+def carve_regions(sizes) -> Tuple[Tuple[str, int, int], ...]:
+    """(name, offset, size) of each scratch region, in order, each starting
+    ``SCRATCH_ALIGN``-aligned."""
     out, off = [], 0
     for name, size in sizes:
         out.append((name, off, size))
@@ -295,13 +299,13 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
                    for jobs in stage_jobs(cell, e, f, h, v))
     fact = cell == "factored"
     length = max_seq + 2
-    floats = _carve([
+    floats = carve_regions([
         ("v", rows * 4 * f if fact else 0), ("hw", rows * 4 * h if fact else 0),
         ("s", rows * 4 * f if fact else 0), ("hn", 2 * rows * h),
         ("cn", 2 * rows * h), ("logits", rows * n_tiles * V_TILE),
         ("pm", rows * n_tiles), ("pse", rows * n_tiles),
         ("pv", rows * n_tiles * k), ("scores", rows), ("bscore", n_img)])
-    ints = _carve([
+    ints = carve_regions([
         ("bar", 1), ("pi", rows * n_tiles * k), ("alive", rows),
         ("word", rows), ("prev", rows), ("seqs", rows * length),
         ("steps", 2 * n_img)])
@@ -319,27 +323,25 @@ def launch_chunks(batch: int, k: int) -> list:
 _PLAN_FIELDS = (
     "cell", "E", "F", "H", "V", "k", "n_img", "max_seq", "start", "end",
     "feed", "Vp", "n_tiles", "grid", "n_stages")
-_PLAN_ARRAYS = ("cw", "br", "n_slabs", "slab0")
+PLAN_ARRAYS = ("cw", "br", "n_slabs", "slab0")
 _FLOAT_REGIONS = ("v", "hw", "s", "hn", "cn", "logits", "pm", "pse", "pv",
                   "scores", "bscore")
-_INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar")
+INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar")
 
 
 class _CPlan(ctypes.Structure):
     """``csrc/beam.cu`` GridPlan, field by field (all 64-bit)."""
     _fields_ = ([(n, ctypes.c_longlong) for n in _PLAN_FIELDS]
-                + [(n, ctypes.c_longlong * MAX_STAGES) for n in _PLAN_ARRAYS]
+                + [(n, ctypes.c_longlong * MAX_STAGES) for n in PLAN_ARRAYS]
                 + [("o_" + n, ctypes.c_longlong)
-                   for n in _FLOAT_REGIONS + _INT_REGIONS])
+                   for n in _FLOAT_REGIONS + INT_REGIONS])
 
 
-def _c_plan(plan: GridPlan, start: int, end: int, feed: bool) -> _CPlan:
-    c = _CPlan()
-    vals = dict(cell=CELLS.index(plan.cell), E=plan.e, F=plan.f, H=plan.h,
-                V=plan.v, k=plan.k, n_img=plan.n_img, max_seq=plan.max_seq,
-                start=start, end=end, feed=int(feed),
-                Vp=plan.n_tiles * V_TILE, n_tiles=plan.n_tiles,
-                grid=plan.grid, n_stages=len(plan.stages))
+def plan_struct(cls, plan: GridPlan, vals: dict, regions) -> ctypes.Structure:
+    """A kernel's plan struct (``cls``, a ctypes mirror): the scalar
+    ``vals``, each stage's geometry and first slab, and the offset
+    ``o_<name>`` of each scratch region in ``regions``."""
+    c = cls()
     for name, val in vals.items():
         setattr(c, name, val)
     first = 0
@@ -347,16 +349,26 @@ def _c_plan(plan: GridPlan, start: int, end: int, feed: bool) -> _CPlan:
         c.cw[i], c.br[i] = st.cw, st.br
         c.n_slabs[i], c.slab0[i] = len(st.slabs), first
         first += len(st.slabs)
-    for name in _FLOAT_REGIONS + _INT_REGIONS:
+    for name in regions:
         setattr(c, "o_" + name, plan.region(name)[0])
     return c
+
+
+def _c_plan(plan: GridPlan, start: int, end: int, feed: bool) -> _CPlan:
+    vals = dict(cell=CELLS.index(plan.cell), E=plan.e, F=plan.f, H=plan.h,
+                V=plan.v, k=plan.k, n_img=plan.n_img, max_seq=plan.max_seq,
+                start=start, end=end, feed=int(feed),
+                Vp=plan.n_tiles * V_TILE, n_tiles=plan.n_tiles,
+                grid=plan.grid, n_stages=len(plan.stages))
+    return plan_struct(_CPlan, plan, vals, _FLOAT_REGIONS + INT_REGIONS)
 
 
 _slab_tables: Dict[tuple, torch.Tensor] = {}
 _max_grid: Dict[int, int] = {}
 
 
-def _slabs_on(plan: GridPlan, device: torch.device) -> torch.Tensor:
+def slabs_on(plan: GridPlan, device: torch.device) -> torch.Tensor:
+    """The plan's slab table on ``device``, cached by plan and device."""
     key = (plan, device.index)
     if key not in _slab_tables:
         if len(_slab_tables) >= 64:
@@ -365,18 +377,35 @@ def _slabs_on(plan: GridPlan, device: torch.device) -> torch.Tensor:
     return _slab_tables[key]
 
 
-def max_grid(device: torch.device) -> int:
-    """Blocks of one cooperative launch of the kernel on ``device``."""
+def grid_blocks(lib: ctypes.CDLL, fn: str, cache: Dict[int, int],
+                device: torch.device) -> int:
+    """Blocks of one cooperative launch of a whole-search kernel on
+    ``device``, by the library's occupancy query ``fn`` (cached per
+    device)."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    if idx not in _max_grid:
-        lib = _library()
+    if idx not in cache:
         out = ctypes.c_int(0)
         with torch.cuda.device(idx):
-            cuda_lib.check_rc(lib, lib.icee_mega_beam_max_grid(
-                ctypes.byref(out)), "mega_beam_decode: occupancy")
-        _max_grid[idx] = out.value
-    return _max_grid[idx]
+            cuda_lib.check_rc(lib, getattr(lib, fn)(ctypes.byref(out)),
+                              f"{fn}: occupancy")
+        cache[idx] = out.value
+    return cache[idx]
+
+
+def max_grid(device: torch.device) -> int:
+    """Blocks of one cooperative launch of the kernel on ``device``."""
+    return grid_blocks(_library(), "icee_mega_beam_max_grid", _max_grid,
+                       device)
+
+
+def check_grid(grid: Optional[int], most: int) -> int:
+    """The blocks of a launch: all the card holds, or ``grid`` of them."""
+    blocks = most if grid is None else int(grid)
+    if not 1 <= blocks <= most:
+        raise ValueError(f"grid={grid} outside [1, {most}] (the blocks one "
+                         "cooperative launch holds)")
+    return blocks
 
 
 def mega_beam_decode_steps(
@@ -401,8 +430,7 @@ def mega_beam_decode_steps(
     if features is not None:
         cuda_lib.check_tensor("features", features, (batch, k, e),
                               torch.float32, device)
-    if not 1 <= k <= min(K_MAX, v):
-        raise ValueError(f"k={k} outside [1, {min(K_MAX, v)}]")
+    check_beam_width("k", k, v, device, "K2 (csrc/beam.cu)")
     if device.type == "cpu":
         return mega_beam_decode_plain(params, features, int(style), batch,
                                       start_token, end_token, k,
@@ -411,11 +439,7 @@ def mega_beam_decode_steps(
         raise ValueError(f"mega_beam_decode: unsupported device {device}")
     check_kernel_widths(f, hd, v)
     lib = _library()
-    most = max_grid(device)
-    blocks = most if grid is None else int(grid)
-    if not 1 <= blocks <= most:
-        raise ValueError(f"grid={grid} outside [1, {most}] (the blocks one "
-                         "cooperative launch holds)")
+    blocks = check_grid(grid, max_grid(device))
     p = cuda_lib.ptr
     if cell == "factored":
         s = int(style)
@@ -444,7 +468,7 @@ def mega_beam_decode_steps(
         length = torch.empty((n_img,), **i32)
         score = torch.empty((n_img,), dtype=torch.float32, device=device)
         cplan = _c_plan(plan, start_token, end_token, feats is not None)
-        rc = fn(ctypes.byref(cplan), p(_slabs_on(plan, device)),
+        rc = fn(ctypes.byref(cplan), p(slabs_on(plan, device)),
                 p(feats) if feats is not None else None, p(emb), *weights,
                 p(fs), p(ints), p(tokens), p(length), p(score),
                 cuda_lib.stream_ptr(device))

@@ -73,6 +73,18 @@ def check_kernel_widths(*dims: int) -> None:
                          "of 4 only")
 
 
+def check_beam_width(name: str, k: int, v: int, device: torch.device,
+                     kernel: str) -> None:
+    """A beam width or top-k ``name=k``: the plain route takes any ``1 <= k
+    <= V``; the CUDA kernels hold a row's top-k in registers and take at
+    most ``K_MAX``."""
+    if not 1 <= k <= v:
+        raise ValueError(f"{name}={k} outside [1, {v}]")
+    if device.type == "cuda" and k > K_MAX:
+        raise ValueError(f"{name}={k}: the CUDA kernel {kernel} takes at "
+                         f"most K_MAX = {K_MAX}")
+
+
 def _step_weights(params: dict, style: int, device: torch.device):
     """Validates the decoder's weights; -> (E, F, H, V, addresses): on a
     CUDA device the kernel's weight arguments (the style's S slice), on the
@@ -108,8 +120,7 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
     cuda_lib.check_tensor("x", x, (rows, e), torch.float32, device)
     cuda_lib.check_tensor("h", h, (rows, hd), torch.float32, device)
     cuda_lib.check_tensor("c", c, (rows, hd), torch.float32, device)
-    if not 1 <= ktop <= min(K_MAX, v):
-        raise ValueError(f"ktop={ktop} outside [1, {min(K_MAX, v)}]")
+    check_beam_width("ktop", ktop, v, device, "K1 (csrc/decode_step.cu)")
     if device.type == "cpu":
         return decode_step_topk_plain(params, x, h, c, int(style), ktop)
 

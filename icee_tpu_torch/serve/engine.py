@@ -21,12 +21,15 @@ as in the JAX engine: bfloat16 conv operands with float32 sums and
 result, BatchNorm in float32.  The JAX package's own orbax checkpoints raise:
 they come with slice 3 of the port.
 
-The serial :meth:`CaptionEngine.caption` decodes StyleNet through the
-``"fused-step"`` path (kernel K1), NIC through one K2 launch
-(``cell="lstm"``) for its one image, and the attention variants through
-``"fused-step"`` (kernel K6);
-:class:`~icee_tpu_torch.serve.batching.BatchingEngine` decodes each mode
-group with one K2 or K7 launch per variant.  Both give the same captions.
+The serial :meth:`CaptionEngine.caption` decodes its one image through
+the whole-search kernels: StyleNet and NIC through one K2 launch each, the
+attention variants through one K7 launch each (the ``"mega"`` path);
+``path="fused-step"`` takes the Python beam over K1 or K6 instead, which
+gives the same bits.  :class:`~icee_tpu_torch.serve.batching.BatchingEngine`
+decodes each mode group with one K2 or K7 launch per variant.  All give
+the same captions.  The JAX engine's serial path runs the XLA beam
+(``icee_tpu/serve/engine.py:203-212``) and neither of its kernels, so the
+port's choice of kernel departs from nothing in JAX.
 """
 
 from __future__ import annotations
@@ -275,10 +278,12 @@ class CaptionEngine:
             words.pop()
         return " ".join(words)
 
-    def caption(self, image_path: str, mode: str) -> Dict[str, str]:
+    def caption(self, image_path: str, mode: str,
+                path: str = "mega") -> Dict[str, str]:
         """Every variant's caption of one image (``run.py:42-57``), from one
-        backbone pass; the stylenet and attention beams run the fused-step
-        path."""
+        backbone pass; the stylenet and attention beams run ``path``
+        (``"mega"``: one K2 or K7 launch; ``"fused-step"``: K1 or K6 per
+        step), NIC one K2 launch."""
         if mode not in MODES:
             raise ValueError(f"invalid mode {mode}")
         out = {variant: "-" for variant in MODEL_VARIANTS}
@@ -289,6 +294,6 @@ class CaptionEngine:
             for variant in loaded:
                 res = self.decode(self.features(pooled, spatial, mode,
                                                 variant),
-                                  mode, "fused-step", variant)
+                                  mode, path, variant)
                 out[variant] = self._detok(res.tokens[0], res.length[0])
         return out

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K2 (the whole beam search of StyleNet and NIC) and the served beams
+"""K2 (the whole beam search of StyleNet and NIC) or K7 (the whole
+attention beam search of StyleNet+Att and NIC+Att) and the served beams
 that run it, for several checkouts in turn on one NVIDIA GPU, so that two
 versions are compared on one card.
 
@@ -8,21 +9,26 @@ version unpacked into a directory that git ignores:
 
     mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
     python3 scripts/beam_turns.py _archive/parent . . _archive/parent
+    python3 scripts/beam_turns.py --kernel k7 _archive/parent . . _archive/parent
 
-(``--json PATH`` first: also write every turn's results to PATH.)
+(``--json PATH`` first: also write every turn's results to PATH;
+``--kernel k2`` is the default.)
 
 Each argument is a checkout's root.  Each turn runs in a process of its
 own that imports that checkout's ``chip_smoke`` and ``icee_tpu_torch``,
 builds the serving kernels into that checkout, and with
 ``chip_smoke.captioning_params``' seeded flagship weights (E = 300, F = H =
-512, V = 8192, k = 5, 40 steps) times ``mega_beam_decode`` at 1, 8 and 64
-images for both cells (CUDA events, mean of 5 after a warm-up; serving
-mode, the features of ``chip_smoke.check_k2``), then builds the caption
-engine as ``chip_smoke.serve_phase`` does and runs its
-``request_breakdown`` (host time of each served piece, median of 5, and
-its device busy share).  Every turn's K2 results must be the same bits as
-the first turn's.  The script prints each turn's log, a table by turn and
-a JSON line of it.
+512, V = 8192, k = 5, 40 steps; attention A = 512, P = 196, FS = 2048)
+times the kernel (CUDA events, mean of 5 after a warm-up): K2,
+``mega_beam_decode``, at 1, 8 and 64 images for both cells (serving mode,
+the features of ``chip_smoke.check_k2``); K7, ``mega_att_beam_decode``, at
+1, 2, 8 and 64 images for both kinds (the features of
+``chip_smoke.check_k7``).  Then it builds the caption engine as
+``chip_smoke.serve_phase`` does and runs its ``request_breakdown`` (host
+time of each served piece, median of 5, and its device busy share; a piece
+a checkout does not time shows as absent).  Every turn's kernel results
+must be the same bits as the first turn's.  The script prints each turn's
+log, a table by turn and a JSON line of it.
 """
 
 from __future__ import annotations
@@ -35,12 +41,46 @@ import sys
 import tempfile
 
 TAG = "TURN-RESULT "
-IMAGES = (1, 8, 64)
-PIECES = ("nic_serial_beam_one_image", "batched_beam_8_images",
-          "nic_batched_beam_8_images", "serial_beam_one_image")
+# by kernel: (images a call, (cell or kind, served variant, style), the
+# served pieces of request_breakdown to show)
+KERNELS = {
+    "k2": ((1, 8, 64), (("factored", "stylenet", 2), ("lstm", "nic", 0)),
+           ("nic_serial_beam_one_image", "batched_beam_8_images",
+            "nic_batched_beam_8_images", "serial_beam_one_image",
+            "fused_step_beam_one_image")),
+    "k7": ((1, 2, 8, 64), (("factored", "stylenet_att", 3),
+                           ("lstm", "nic_att", 0)),
+           ("stylenet_att_serial_beam_one_image",
+            "stylenet_att_fused_step_beam_one_image",
+            "nic_att_serial_beam_one_image",
+            "nic_att_fused_step_beam_one_image",
+            "stylenet_att_batched_beam_8_images",
+            "nic_att_batched_beam_8_images", "serial_beam_one_image",
+            "encode_one_image", "caption_one_image")),
+}
 
 
-def turn(root: str) -> None:
+def kernel_call(cs, kernel: str, dec, cell: str, style: int, n: int,
+                device):
+    """A call of the kernel on ``n`` images of the smoke's features."""
+    import torch
+
+    if kernel == "k2":
+        from icee_tpu_torch.ops.beam import mega_beam_decode
+
+        g = torch.Generator(device=device).manual_seed(4)
+        feats = torch.randn((n, 1, cs.E), generator=g, device=device)
+        feats = feats.expand(n, cs.K, cs.E).contiguous()
+        return lambda: mega_beam_decode(dec, feats, style, n, k=cs.K,
+                                        max_seq_length=cs.STEPS, cell=cell)
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode
+
+    feats = cs.att_features(device, n, 14)
+    return lambda: mega_att_beam_decode(dec, feats, style, n, k=cs.K,
+                                        max_seq_length=cs.STEPS, kind=cell)
+
+
+def turn(root: str, kernel: str) -> None:
     """One checkout's figures; prints TAG + JSON as its last line."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -52,7 +92,6 @@ def turn(root: str) -> None:
     import chip_smoke as cs
     from icee_tpu_torch.core.device import set_float32_precision
     from icee_tpu_torch.ops import cuda_lib
-    from icee_tpu_torch.ops.beam import mega_beam_decode
     from icee_tpu_torch.serve.config import ServeConfig
     from icee_tpu_torch.serve.engine import CaptionEngine
 
@@ -65,26 +104,19 @@ def turn(root: str) -> None:
     torch.backends.cudnn.deterministic = True
     device = torch.device("cuda", 0)
     params = cs.captioning_params(device)
-    k2 = {}
+    images, cells, _ = KERNELS[kernel]
+    timed = {}
     with torch.inference_mode():
-        for cell, variant, style in (("factored", "stylenet", 2),
-                                     ("lstm", "nic", 0)):
+        for cell, variant, style in cells:
             dec = params[variant]["decoder"]
-            for n in IMAGES:
-                g = torch.Generator(device=device).manual_seed(4)
-                feats = torch.randn((n, 1, cs.E), generator=g, device=device)
-                feats = feats.expand(n, cs.K, cs.E).contiguous()
-
-                def run(d=dec, f=feats, s=style, b=n, c=cell):
-                    return mega_beam_decode(d, f, s, b, k=cs.K,
-                                            max_seq_length=cs.STEPS, cell=c)
-
+            for n in images:
+                run = kernel_call(cs, kernel, dec, cell, style, n, device)
                 res = run()
                 digest = hashlib.sha256()
                 for t in (res.tokens, res.length, res.score):
                     digest.update(t.cpu().numpy().tobytes())
-                k2[f"{cell}_{n}"] = {"ms": cs.cuda_ms(run, 5),
-                                     "bits": digest.hexdigest()[:16]}
+                timed[f"{cell}_{n}"] = {"ms": cs.cuda_ms(run, 5),
+                                        "bits": digest.hexdigest()[:16]}
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(5)
         paths = []
@@ -102,17 +134,22 @@ def turn(root: str) -> None:
                                params=params)
         engine.caption(paths[0], "happy")   # warm-up: cuDNN and allocator
         pieces = cs.request_breakdown(engine, paths)
-    print(TAG + json.dumps({"root": root, "k2": k2, "pieces": pieces}),
-          flush=True)
+    print(TAG + json.dumps({"root": root, "kernel": timed,
+                            "pieces": pieces}), flush=True)
 
 
 def main(args) -> int:
-    json_path = None
-    if args[:1] == ["--json"]:
-        json_path, args = args[1], args[2:]
+    json_path, kernel = None, "k2"
+    while args[:1] in (["--json"], ["--kernel"]):
+        if args[0] == "--json":
+            json_path = args[1]
+        else:
+            kernel = args[1]
+        args = args[2:]
     roots = args
-    if not roots:
+    if not roots or kernel not in KERNELS:
         raise SystemExit(__doc__)
+    name = {"k2": "mega_beam_decode", "k7": "mega_att_beam_decode"}[kernel]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -121,7 +158,7 @@ def main(args) -> int:
     turns = []
     for i, root in enumerate(roots):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn", root], capture_output=True,
+                               "--turn", kernel, root], capture_output=True,
                               text=True)
         lines = proc.stdout.splitlines()
         print(f"--- turn {i}: {root} (exit {proc.returncode})", flush=True)
@@ -135,32 +172,39 @@ def main(args) -> int:
                           arg=root))
     if json_path:
         with open(json_path, "w") as f:
-            json.dump({"device": smi, "turns": turns}, f, indent=1)
-    for key, entry in turns[0]["k2"].items():
+            json.dump({"device": smi, "kernel": kernel, "turns": turns}, f,
+                      indent=1)
+    for key, entry in turns[0]["kernel"].items():
         for t in turns[1:]:
-            if t["k2"][key]["bits"] != entry["bits"]:
-                raise SystemExit(f"K2 {key}: turn {t['turn']} ({t['arg']}) "
-                                 "gives other bits than turn 0")
-    print("K2 ms by turn (" + ", ".join(roots) + "):")
-    for key in turns[0]["k2"]:
-        print(f"  {'mega_beam_decode ' + key:36s} " + "  ".join(
-            f"{t['k2'][key]['ms']:8.3f}" for t in turns))
+            if t["kernel"][key]["bits"] != entry["bits"]:
+                raise SystemExit(f"{name} {key}: turn {t['turn']} "
+                                 f"({t['arg']}) gives other bits than turn 0")
+    print(f"{name} ms by turn (" + ", ".join(roots) + "):")
+    for key in turns[0]["kernel"]:
+        print(f"  {name + ' ' + key:36s} " + "  ".join(
+            f"{t['kernel'][key]['ms']:8.3f}" for t in turns))
     print("served pieces, host ms (device busy share) by turn:")
-    for name in PIECES:
-        print(f"  {name:36s} " + "  ".join(
-            f"{t['pieces'][name]['ms']:8.3f} "
-            f"({t['pieces'][name]['device_busy_share'] or 0:.2f})"
-            for t in turns))
-    print(json.dumps({"beam_turns": [
-        {"arg": t["arg"], "k2_ms": {k: e["ms"] for k, e in t["k2"].items()},
-         "pieces_ms": {n: t["pieces"][n]["ms"] for n in PIECES}}
-        for t in turns]}))
+    pieces = KERNELS[kernel][2]
+
+    def cell(t, piece):
+        got = t["pieces"].get(piece)
+        if got is None:
+            return f"{'absent':>15s}"
+        return f"{got['ms']:8.3f} ({got['device_busy_share'] or 0:.2f})"
+
+    for piece in pieces:
+        print(f"  {piece:40s} " + "  ".join(cell(t, piece) for t in turns))
+    print(json.dumps({"beam_turns": {"kernel": kernel, "turns": [
+        {"arg": t["arg"], "ms": {k: e["ms"] for k, e in t["kernel"].items()},
+         "pieces_ms": {n: t["pieces"][n]["ms"] for n in pieces
+                       if n in t["pieces"]}}
+        for t in turns]}}))
     print(smi)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turn"]:
-        turn(sys.argv[2])
+        turn(sys.argv[3], sys.argv[2])
     else:
         sys.exit(main(sys.argv[1:]))

@@ -113,6 +113,27 @@ def test_plain_version_matches_both_jax_calls_and_the_xla_beam(kind, style):
     assert len(set(lengths)) >= 3 and max(lengths) >= 3, lengths
 
 
+@pytest.mark.parametrize("kind,style", [("factored", 1), ("lstm", 0)])
+def test_k_10_matches_the_jax_resident_call(kind, style):
+    """Ten beams, above the CUDA kernels' K_MAX = 8: the CPU route answers
+    as the JAX kernel's resident call (interpret mode)."""
+    k, batch, steps = 10, 2, 5
+    tree = _params(kind)
+    jp = jax.tree.map(jnp.asarray, tree)
+    feats = np.random.default_rng(3).standard_normal(
+        (batch, P, CFG.feature_size)).astype(np.float32)
+    want = jmega(jp, feats, jnp.asarray(style), batch, start_token=1,
+                 end_token=2, k=k, max_seq_length=steps, n_img_block=2,
+                 v_tile=128, kind=kind, interpret=True)
+    got = mega_att_beam_decode(bridge.to_torch(tree), torch.tensor(feats),
+                               style, batch, start_token=1, end_token=2, k=k,
+                               max_seq_length=steps, kind=kind)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.length.numpy(), np.asarray(want.length))
+    np.testing.assert_allclose(got.score.numpy(), np.asarray(want.score),
+                               rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
 def test_both_decode_paths_agree_on_the_cpu(kind):
     tp = bridge.to_torch(_params(kind))
@@ -146,7 +167,11 @@ def test_wrapper_raises_on_what_it_does_not_take():
         mega_att_beam_decode(tp, feats, 0, BATCH + 1, k=K)
     with pytest.raises(ValueError, match="style"):
         mega_att_beam_decode(tp, feats, 4, BATCH, k=K)
-    with pytest.raises(ValueError, match="k=9"):
-        mega_att_beam_decode(tp, feats, 0, BATCH, k=9)
+    with pytest.raises(ValueError, match="k=0"):
+        mega_att_beam_decode(tp, feats, 0, BATCH, k=0)
+    # above the CUDA kernel's K_MAX = 8 the plain route still decodes (the
+    # card refuses: tests/test_torch_cuda.py)
+    got = mega_att_beam_decode(tp, feats, 0, BATCH, k=9, max_seq_length=3)
+    assert got.tokens.shape == (BATCH, 5)
     with pytest.raises(ValueError, match="unknown kind"):
         mega_att_beam_decode(tp, feats, 0, BATCH, k=K, kind="gru")

@@ -81,6 +81,37 @@ def test_plain_version_matches_the_jax_kernel(kind, style):
         torch.testing.assert_close(got[i], plain[i], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_plain_version_takes_k_10_as_the_jax_kernel_does(kind):
+    """Ten rows an image and a top-10, above the CUDA kernels' K_MAX = 8:
+    the CPU route answers as the JAX kernel."""
+    k = 10
+    init = (ja.init_factored_att_params if kind == "factored"
+            else ja.init_rnn_att_params)
+    jp = init(jax.random.PRNGKey(7), CFG)
+    rng = np.random.default_rng(7)
+    x, h, c = (rng.standard_normal((2 * k, d)).astype(np.float32)
+               for d in (16, 24, 24))
+    feats = rng.standard_normal((2, P, 32)).astype(np.float32)
+    tp = bridge.to_torch(jax.tree.map(np.asarray, jp))
+    cell, att, gate = step_params(tp, kind, 1 if kind == "factored" else 0)
+    jcell, jatt, jgate = (jax.tree.map(jnp.asarray, t)
+                          for t in (cell, att, gate))
+    att1 = np.asarray(feats @ np.asarray(jatt["enc_w"])
+                      + np.asarray(jatt["enc_b"]))
+    want = [np.asarray(w) for w in fused_att_decode_step_topk(
+        jcell, jatt, jgate, x, h, c, feats, att1, kind=kind, k=k, ktop=k,
+        n_img_block=1, v_tile=128, interpret=True)]
+    got = att_decode_step_topk(cell, att, gate, *(
+        torch.tensor(a) for a in (x, h, c, feats, att1)), kind=kind, k=k,
+        ktop=k)
+    assert got[1].shape == (2 * k, k)
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    for i in (0, 2, 3, 4):
+        np.testing.assert_allclose(got[i].numpy(), want[i], rtol=0,
+                                   atol=ATOL)
+
+
 def test_init_state_on_the_cpu_is_init_hidden_state():
     tp, inputs, _ = _case("lstm", 0, seed=4)
     feats = inputs[3]
@@ -105,7 +136,12 @@ def test_wrapper_raises_on_what_it_does_not_take():
                              k=K, ktop=K)
     with pytest.raises(ValueError, match="ktop"):
         att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
-                             ktop=9)
+                             ktop=0)
+    # above the CUDA kernel's K_MAX = 8 the plain route still decodes
+    # (the card refuses: tests/test_torch_cuda.py)
+    got = att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
+                               ktop=9)
+    assert got[0].shape == got[1].shape == (B * K, 9)
     with pytest.raises(ValueError, match="unknown kind"):
         att_decode_step_topk(cell, att, gate, x, h, c, feats, att1,
                              kind="gru", k=K, ktop=K)

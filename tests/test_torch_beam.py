@@ -113,6 +113,20 @@ def test_early_termination():
     assert np.all(got.length.numpy() == 2)  # <start> <end>
 
 
+@pytest.mark.parametrize("feed", [True, False])
+def test_k_10_matches_jax_mega(feed):
+    """Ten beams, above the CUDA kernels' K_MAX = 8: the CPU route answers
+    as the JAX kernel, in both feature modes."""
+    jp = _params(seed=12)
+    batch, k, steps = 3, 10, 6
+    feats = _feats(batch, k, 32, seed=4) if feed else None
+    want = jmega(jp, None if feats is None else jnp.asarray(feats),
+                 jnp.asarray(2), batch, start_token=1, end_token=2, k=k,
+                 max_seq_length=steps, n_img_block=2, v_tile=128,
+                 feed_feature=feed, interpret=True)
+    _assert_same(_port_all(jp, feats, 2, batch, k, steps), want)
+
+
 def test_all_tied_logits():
     """Zero head: every word ties every step; the candidate merge, top-k and
     best-completed tracking all resolve ties by the lowest index."""
@@ -157,8 +171,11 @@ def test_unknown_path_and_bad_block_raise():
     feats = torch.zeros((2, 5, 32))
     with pytest.raises(ValueError):
         factored_decode("xla", jp, feats, 0, 2, 5, 4, 1, 2)
-    with pytest.raises(ValueError):   # 9 beams do not fit an 8-row block
-        mega_beam_decode(jp, torch.zeros((2, 9, 32)), 0, 2, k=9)
+    # 9 beams: above the CUDA kernel's K_MAX = 8 the plain route still
+    # decodes (the card refuses: tests/test_torch_cuda.py)
+    got = mega_beam_decode(jp, torch.zeros((2, 9, 32)), 0, 2, k=9,
+                           max_seq_length=3)
+    assert got.tokens.shape == (2, 5)
 
 
 # --- cell="lstm": the NIC decoder ---------------------------------------------

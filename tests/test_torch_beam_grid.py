@@ -7,7 +7,8 @@ disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
 images and k = 1, 5, 8; a batch must split into launches of at most
 ``MAX_ROWS`` rows; and the plan and the wrapper must raise on what the
 kernel does not take.  The ctypes mirror of the kernel's ``GridPlan`` and
-its geometry constants are held against the CUDA source's text.  The
+its geometry constants are held against the CUDA sources' text
+(``csrc/beam.cu`` and the ``csrc/grid_beam.cuh`` it shares with K7).  The
 kernel itself runs on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -24,8 +25,10 @@ from icee_tpu_torch.ops.beam import (KC, KCP, MAX_BR, MAX_ROWS, SLOT_FLOATS,
                                      THREADS, grid_plan, launch_chunks,
                                      mega_beam_decode_steps, slab_columns)
 
-SOURCE = (Path(beam.__file__).resolve().parents[1] / "csrc" /
-          "beam.cu").read_text()
+CSRC = Path(beam.__file__).resolve().parents[1] / "csrc"
+# the kernel and the machinery it shares with K7
+SOURCE = "".join((CSRC / n).read_text() for n in ("beam.cu",
+                                                  "grid_beam.cuh"))
 SHAPES = [  # (cell, E, F, H, V)
     ("factored", 300, 512, 512, 8192),   # flagship
     ("factored", 30, 40, 48, 516),       # ragged V, F != H, E % 4 != 0
@@ -158,8 +161,11 @@ def _params(vocab=128, e=16, h=32, seed=0):
 
 def test_the_wrapper_raises_before_the_cpu_route():
     params = _params()
-    with pytest.raises(ValueError, match="k=9"):
-        mega_beam_decode_steps(params, None, 0, 2, k=9)
+    # above the kernel's K_MAX = 8 the plain route decodes (the card
+    # refuses: tests/test_torch_cuda.py)
+    got, steps = mega_beam_decode_steps(params, None, 0, 2, k=9,
+                                        max_seq_length=3)
+    assert steps is None and got.tokens.shape == (2, 5)
     with pytest.raises(ValueError, match="k=0"):
         mega_beam_decode_steps(params, None, 0, 2, k=0)
     with pytest.raises(ValueError, match="style 4"):

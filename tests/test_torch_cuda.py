@@ -14,7 +14,10 @@ feature modes, batch padding and an early end; the whole-card search at
 the same bits on a second run and on a 3-block grid.  K6 and K7 (the attention
 step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
 vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
-step) bit-identical to K7.  K5 (the attention training scan), both cells,
+step) bit-identical to K7; K7 as one search over the whole card at 1, 3, 8
+and 64 images and k = 1, 5 and 8, the same bits on a second run and on a
+3-block grid.  Every wrapper refuses k above the kernels' K_MAX = 8 on a
+CUDA tensor (the CPU route takes any k).  K5 (the attention training scan), both cells,
 teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
 same bits on a second run, and the attention train steps on the card
 against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
@@ -169,6 +172,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _params(device, 128, 16, 32, 32)
     with pytest.raises(ValueError, match="expected cpu"):
         decode_step_topk(params, x.cpu(), h, h, 0)
+    # above K_MAX the CPU route decodes; the kernels refuse, naming it
+    with pytest.raises(ValueError, match="K1 .*K_MAX = 8"):
+        decode_step_topk(params, x, h, h, 0, ktop=9)
+    with pytest.raises(ValueError, match="K2 .*K_MAX = 8"):
+        mega_beam_decode(params, None, 0, 2, k=9)
+    with pytest.raises(ValueError, match="K2 .*K_MAX = 8"):
+        mega_beam_decode(_nic_params(device, 128, 16, 32), None, 0, 2, k=9,
+                         cell="lstm")
 
 
 # --- training kernels: K3 (lstm_scan.cu) and the chunked CE (chunked_ce.cu) --
@@ -737,8 +748,9 @@ def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k,
     torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
     if batch > 1:
         assert len(set(got.length.tolist())) > 1, got.length
-    assert int(block_steps.max()) <= steps + 1
-    assert (block_steps >= got.length - 1).all()
+    assert block_steps.shape == (batch, 2)
+    assert int(block_steps[:, 0].max()) <= steps + 1
+    assert (block_steps[:, 0] >= got.length - 1).all()
     # the serial serving path (K6 in the Python beam from the h0/c0
     # kernel) is bit-identical
     args = (batch, k, steps, 1, 2)
@@ -754,6 +766,58 @@ def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k,
     torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("n_img", [1, 3, 8, 64])
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_grid_att_search_matches_plain_and_keeps_its_bits(device, kind,
+                                                          n_img, k):
+    """K7 as one search over the whole card: images that end at several
+    steps (live-row and live-image compaction), a ragged vocabulary, E % 4
+    != 0, F != H, P = 9.  Against the plain search; the same bits on a
+    second run and on a 3-block grid; bit-identical to the serial
+    fused-step path (K6 per step from the h0/c0 kernel: column-split at
+    one image, row-tiled above)."""
+    params = _att_params(device, kind, **ATT_BEAM_WEIGHTS[kind])
+    steps = 9
+    feats = torch.tensor(np.random.default_rng(n_img + k).random(
+        (n_img, 9, 64), dtype=np.float32), device=device)
+    kw = dict(k=k, max_seq_length=steps, kind=kind)
+    before = _att_counts()
+    got, ran = att_beam.mega_att_beam_decode_steps(params, feats, 1, n_img,
+                                                   **kw)
+    torch.cuda.synchronize()
+    after = list(before)
+    after[3 if kind == "factored" else 4] += 1
+    assert _att_counts() == tuple(after)
+    want = att_beam.mega_att_beam_decode_plain(params, feats, 1, n_img, **kw)
+    torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    if n_img >= 8 and k > 1:
+        assert len(set(got.length.tolist())) >= 2, got.length
+    # steps each image ran and its live row-steps: one row at step 1, at
+    # most k after
+    assert ran.shape == (n_img, 2) and ran.dtype == torch.int32
+    n_steps, row_steps = ran[:, 0].cpu(), ran[:, 1].cpu()
+    assert bool(((n_steps >= 1) & (n_steps <= steps + 1)).all())
+    assert bool(((row_steps >= n_steps)
+                 & (row_steps <= 1 + k * (n_steps - 1))).all())
+    for grid in (None, 3):
+        again, ran2 = att_beam.mega_att_beam_decode_steps(
+            params, feats, 1, n_img, grid=grid, **kw)
+        assert torch.equal(again.tokens, got.tokens)
+        assert torch.equal(again.length, got.length)
+        assert torch.equal(again.score, got.score)
+        assert torch.equal(ran2, ran)
+    args = (n_img, k, steps, 1, 2)
+    fused = (attention_decode("fused-step", params, feats, 1, *args)
+             if kind == "factored"
+             else nic_att_decode("fused-step", params, feats, *args))
+    torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
+    torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
+
+
 def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _att_params(device, "lstm", a=18)    # A % 4 != 0
     feats = torch.rand((2, 9, 64), device=device)
@@ -762,17 +826,35 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _att_params(device, "factored")
     with pytest.raises(ValueError, match="expected"):
         att_beam.mega_att_beam_decode(params, feats.cpu(), 0, 2, k=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        att_beam.mega_att_beam_decode(
-            _att_params(device, "factored", fs=4096, f=512, h=512),
-            torch.rand((2, 9, 4096), device=device), 0, 2, k=8)
+    with pytest.raises(ValueError, match="P=300"):
+        att_beam.mega_att_beam_decode(params,
+                                      torch.rand((2, 300, 64), device=device),
+                                      0, 2, k=4)
+    # above K_MAX the CPU route decodes; the kernels refuse, naming it
+    with pytest.raises(ValueError, match="K7 .*K_MAX = 8"):
+        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=9)
+    most = att_beam.max_grid(device)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    for grid in (0, most + 1):
+        with pytest.raises(ValueError, match="grid="):
+            att_beam.mega_att_beam_decode_steps(params, feats, 0, 2, k=4,
+                                                grid=grid)
     cell, att, gate = att_decode_step.step_params(params, "factored", 0)
+    att1 = att_mod.att_projection(att, feats)
     x = torch.zeros((6, 30), device=device)
     h = torch.zeros((6, 48), device=device)
     with pytest.raises(ValueError, match="rows"):
         att_decode_step.att_decode_step_topk(
-            cell, att, gate, x, h, h, feats, att_mod.att_projection(att, feats),
-            k=4, ktop=4)
+            cell, att, gate, x, h, h, feats, att1, k=4, ktop=4)
+    x9 = torch.zeros((18, 30), device=device)
+    h9 = torch.zeros((18, 48), device=device)
+    with pytest.raises(ValueError, match="K6 .*K_MAX = 8"):
+        att_decode_step.att_decode_step_topk(
+            cell, att, gate, x9, h9, h9, feats, att1, k=9, ktop=4)
+    with pytest.raises(ValueError, match="K6 .*K_MAX = 8"):
+        att_decode_step.att_decode_step_topk(
+            cell, att, gate, x9[:16], h9[:16], h9[:16], feats, att1, k=8,
+            ktop=9)
 
 
 # --- K5: the attention training scan (att_scan.cu) --------------------------

@@ -62,6 +62,20 @@ def test_plain_step_matches_jax_kernel_and_reference(style, vocab, v_tile):
     assert got_i.dtype == np.int32 and got_v.dtype == np.float32
 
 
+def test_plain_step_takes_ktop_10_as_the_jax_kernel_does():
+    """Above the CUDA kernels' K_MAX = 8: the CPU route answers as JAX."""
+    jp, x, h, c = _setup(512, seed=4)
+    got_v, got_i, got_h, got_c = _port(jp, x, h, c, 1, ktop=10)
+    want_v, want_i, want_h, want_c = map(np.asarray, fused_decode_step_topk(
+        jp, x, h, c, jnp.asarray(1), ktop=10, row_block=16, v_tile=128,
+        interpret=True))
+    assert got_i.shape == (16, 10)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_v, want_v, **TOL)
+    np.testing.assert_allclose(got_h, want_h, **TOL)
+    np.testing.assert_allclose(got_c, want_c, **TOL)
+
+
 def test_all_tied_logits_pick_lowest_ids():
     """Zero head: every vocab entry ties; ids must be 0..k-1 like lax.top_k
     (as tests/test_pallas.py::test_fused_step_tie_breaking)."""
@@ -91,7 +105,11 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         decode_step_topk(tp, xt, ht, ct, 4)      # no such style
     with pytest.raises(ValueError):
-        decode_step_topk(tp, xt, ht, ct, 0, ktop=9)
+        decode_step_topk(tp, xt, ht, ct, 0, ktop=0)
+    # above the CUDA kernel's K_MAX = 8 the plain route still decodes
+    # (the card refuses: tests/test_torch_cuda.py)
+    vals, idx, _, _ = decode_step_topk(tp, xt, ht, ct, 0, ktop=9)
+    assert vals.shape == idx.shape == (4, 9)
     bad = dict(tp, C_w=tp["C_w"].t().contiguous().t())  # not contiguous
     with pytest.raises(ValueError):
         decode_step_topk(bad, xt, ht, ct, 0)
