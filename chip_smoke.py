@@ -95,9 +95,14 @@ Phases, in order; any failure exits non-zero:
    Zipf captions whose loss must fall, every K8 and CE count reset to 0
    just before and read just after; ``validation_perplexity`` on the
    chunked path; step time, captions/s, the plain step's time;
-14. K9 (``mega_senticap_beam_decode``, the base model's whole beam search)
-   vs its plain search at 64 images, beam 20, max_len 20, margin-aware as
-   phase 5, with weights shaped so beams end at several lengths; then
+14. K9's product alone at its two shapes (3xTF32 ``wgmma`` from weight
+   planes: error against float64 at most 4x ``gemm_f32.cuh``'s, the same
+   bits twice, TFLOP/s); K9 (``mega_senticap_beam_decode``, the base
+   model's whole beam search) vs its plain search at 64 images, beam 20,
+   max_len 20, margin-aware as phase 5, with weights shaped so beams end
+   at several lengths, and one call's device time by launch group (it
+   fails if a ``gemm_f32.cuh`` product ran), beside its float32 bound and
+   its 3xTF32 floor; then
    ``decode_split(switched=False)`` on a 64-image split, 7 timed calls
    (K9's count reset to 0 just before the first and read just after the
    last) and captions/s of the median call;
@@ -115,12 +120,14 @@ Phases, in order; any failure exits non-zero:
    before and read just after, the frozen weights bit-identical;
    ``validation_perplexity(switched=True)`` on the chunked path; step time,
    captions/s, the plain step's time;
-17. K10 (``mega_senticap_switched_decode``, the switched model's whole
-   styled beam search with its switch-gate trace) vs its plain search at
-   64 images, beam 20, max_len 20, margin-aware as phase 14, the trace
-   within 1e-5 where tokens agree; then ``decode_split(switched=True)`` on
-   a 64-image split, 7 timed calls (K10 and K9 counted from 0 just before
-   the first and read just after the last: one launch each a call);
+17. K10's products alone (both paths in one launch), as phase 14; K10
+   (``mega_senticap_switched_decode``, the switched model's whole styled
+   beam search with its switch-gate trace) vs its plain search at 64
+   images, beam 20, max_len 20, margin-aware as phase 14, the trace within
+   1e-5 where tokens agree, its launch groups as phase 14's; then
+   ``decode_split(switched=True)`` on a 64-image split, 7 timed calls (K10
+   and K9 counted from 0 just before the first and read just after the
+   last: one launch each a call);
 18. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
    ``senticap`` and ``senticap_switched`` entries), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
@@ -3049,6 +3056,169 @@ def senticap_rescore(params, v, tokens, length):
     return total / length.float()
 
 
+# the launch groups of a K9 / K10 call (senticap_device_groups), by kernel
+# name; a product is the cell's before the step's gates kernel and the
+# head's after it
+SB_PRODUCT_KERNELS = ("gemm_kernel", "sb_product_kernel")
+SB_GROUP_KERNELS = (("gates_ms", "sb_gates_kernel"),
+                    ("switch_gate_ms", "sw_gate_kernel"),
+                    ("row_topk_ms", "sb_row_topk_kernel"),
+                    ("select_ms", "sb_select_kernel"),
+                    ("init_ms", "sb_init_kernel"),
+                    ("prepare_ms", "sb_prepare_kernel"))
+
+
+def senticap_device_groups(what: str, fn):
+    """Device time (ms) of one K9 or K10 call ``fn`` by launch group,
+    summed over the steps, from a profiler trace: the cell products, the
+    head products, the gates, K10's switch gate, the row softmax and
+    top-k, the selection and gather, the set-up; with the launches of each
+    group and the count of ``gemm_f32.cuh`` products (``gemm_kernel``).
+    None where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation
+                     and e.self_device_time_total > 0),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        log(f"{what}: the profiler trace holds no device time")
+        return None
+    groups = {"cell_products_ms": 0.0, "head_products_ms": 0.0}
+    groups.update({g: 0.0 for g, _ in SB_GROUP_KERNELS})
+    groups["other_ms"] = 0.0
+    counts = {g: 0 for g in groups}
+    after_gates = False
+    for e in events:
+        ms = e.self_device_time_total / 1e3
+        if any(k in e.name for k in SB_PRODUCT_KERNELS):
+            key = "head_products_ms" if after_gates else "cell_products_ms"
+        else:
+            key = next((g for g, k in SB_GROUP_KERNELS if k in e.name),
+                       "other_ms")
+            after_gates = (after_gates or key == "gates_ms") \
+                and key != "select_ms"
+        groups[key] += ms
+        counts[key] += 1
+    groups["total_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    groups["launches"] = {g: n for g, n in counts.items() if n}
+    groups["gemm_f32_launches"] = sum("gemm_kernel" in e.name
+                                      for e in events)
+    return groups
+
+
+def check_sb_products(device, paths: int):
+    """Phases 14 and 17 (i): the products K9 (``paths`` 1) and K10 (2, one
+    launch for both paths) run every step, alone at their shapes (the cell
+    1280 x 1024 x 2048, the head 1280 x 512 x 8800 + bias), from planes
+    that ``prepare_weights`` lays out on the card: against float64, the
+    max abs error at most 4x that of ``gemm_f32.cuh``'s product
+    (``att_scan.f32_product``) on the same inputs, the same bits twice,
+    and the planes the same bits as their plain layout; whether the bits
+    are ``gemm_tf32x3.cuh``'s (``att_scan.tf32x3_product``, mma.sync:
+    the same sums in another unit); device ms and TFLOP/s (float32
+    operations) of each and of ``torch.matmul`` (``gemm_tf32x3.cuh``'s
+    time at these shapes: ``scripts/probe_sb_product.py``, from CUDA
+    graph replays; this profiler reads it low).
+    -> {shape: stats}"""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.ops import att_scan
+    from icee_tpu_torch.ops import senticap_decode as sd
+
+    rows = SC_IMAGES * SC_BEAM
+    out = {}
+    for i, (shape, k, n, bias) in enumerate((
+            ("cell", SC_E + SC_H, 4 * SC_H, False),
+            ("head", SC_H, SC_V, True))):
+        rng = np.random.default_rng(90 + 10 * paths + i)
+        a = torch.tensor(rng.uniform(-1, 1, (paths, rows, k)).astype(
+            np.float32), device=device)
+        w = torch.tensor((0.05 * rng.standard_normal((paths, k, n))).astype(
+            np.float32), device=device)
+        b = torch.tensor(rng.standard_normal((paths, n)).astype(np.float32),
+                         device=device) if bias else None
+        planes = torch.stack([sd.prepare_weights(w[z]) for z in range(paths)])
+        if not torch.equal(planes[0].cpu(),
+                           sd.prepare_weights_plain(w[0].cpu())):
+            fail(f"K{8 + paths} {shape} planes differ from their plain "
+                 "layout")
+        if paths == 1:
+            a, w, planes = a[0], w[0], planes[0]
+            b = b[0] if bias else None
+        splits = 1 if bias else sd.product_splits(rows, n, k, paths,
+                                                   sd.sm_count(device))
+        got = sd.planes_product(a, planes, n, b, splits=splits)
+        again = sd.planes_product(a, planes, n, b, splits=splits)
+        f32 = att_scan.f32_product(a, w, "N", b)
+        tc = att_scan.tf32x3_product(a, w, "N", b)
+        ref = a.double() @ w.double()
+        if bias:
+            ref = ref + (b.double()[:, None] if paths == 2 else b.double())
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs().max().item()
+        err_f32 = (f32.double() - ref).abs().max().item()
+        if not err <= 4.0 * err_f32:
+            fail(f"K{8 + paths} {shape} product: max abs error {err} > 4 x "
+                 f"gemm_f32's {err_f32}")
+        if not torch.equal(got, again):
+            fail(f"K{8 + paths} {shape} product: two runs differ")
+        same_tc = torch.equal(got, tc)
+        del got, again, f32, tc, ref
+        ms = kernel_ms(lambda: sd.planes_product(a, planes, n, b,
+                                                 splits=splits), 20)
+        ms_f32 = kernel_ms(lambda: att_scan.f32_product(a, w, "N", b), 5)
+        ms_lib = cuda_ms(lambda: torch.matmul(a, w), 20, warmup=3)
+        flops = 2.0 * paths * rows * n * k
+        out[shape] = {"M": rows, "N": n, "K": k, "paths": paths,
+                      "splits": splits,
+                      "max_abs_err": err, "f32_max_abs_err": err_f32,
+                      "err_over_f32": err / err_f32,
+                      "same_bits_as_gemm_tf32x3": same_tc,
+                      "device_ms": ms, "tflops": flops / ms / 1e9,
+                      "f32_device_ms": ms_f32,
+                      "f32_tflops": flops / ms_f32 / 1e9,
+                      "matmul_ms": ms_lib,
+                      "matmul_tflops": flops / ms_lib / 1e9}
+        del a, w, b, planes
+    return out
+
+
+def products_line(stats) -> str:
+    return "; ".join(
+        f"{n} {s['device_ms']:.4f} ms {s['tflops']:.1f} TFLOP/s (k ranges "
+        f"{s['splits']}, error {s['err_over_f32']:.2f}x gemm_f32's, "
+        f"gemm_tf32x3's bits {s['same_bits_as_gemm_tf32x3']}; gemm_f32 "
+        f"{s['f32_device_ms']:.4f}, torch.matmul {s['matmul_ms']:.4f})"
+        for n, s in stats.items())
+
+
+def groups_line(groups) -> str:
+    if groups is None:
+        return "not measured (no device time in the trace)"
+    return ", ".join(f"{g[:-3]} {v:.3f}" for g, v in groups.items()
+                     if g.endswith("_ms") and v)
+
+
+def senticap_profile(what: str, fn):
+    """``senticap_device_groups`` of one call; fails if a ``gemm_f32.cuh``
+    product ran in it."""
+    groups = senticap_device_groups(what, fn)
+    if groups is not None and groups["gemm_f32_launches"]:
+        fail(f"{what} launched {groups['gemm_f32_launches']} gemm_f32.cuh "
+             f"products: {groups['launches']}")
+    return groups
+
+
 def check_k9(device):
     """Phase 14: K9 vs the plain search at 64 images, beam 20, max_len 20,
     margin-aware as phase 5: each kernel score matches its own sequence's
@@ -3108,11 +3278,15 @@ def check_k9(device):
                   + SC_IMAGES * SC_E + steps * rows * SC_E
                   + SC_IMAGES * (steps + 2))
     b_ms, b_by = bound_ms(flops, nbytes)
+    groups = senticap_profile("K9", lambda: sd.mega_senticap_beam_decode(
+        params, v, SC_IMAGES, **kw))
     return {"name": "mega_senticap_beam_decode", "route": "cuda",
             "source": "icee_tpu_torch/csrc/senticap_beam.cu",
             "replaces": "icee_tpu/ops/pallas_senticap_decode.py:397",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tf32x3_ms": flops / TF32X3_FLOP_PER_S * 1e3,
+            "device_ms_by_group": groups, "library_ms": None,
             "library_note": "no single PyTorch call computes a beam search",
             "near_tie_flips": flips, "max_rescore_err": own_err,
             "lengths": lengths}
@@ -3687,11 +3861,15 @@ def check_k10(device):
                        + SC_V) + 2 * SC_H + 1 + 2 * SC_IMAGES * SC_E
                   + 2 * steps * rows * SC_E + SC_IMAGES * (2 * steps + 2))
     b_ms, b_by = bound_ms(flops, nbytes)
+    groups = senticap_profile("K10", lambda: ssd.mega_senticap_switched_decode(
+        params, v, SC_IMAGES, **kw))
     return {"name": "mega_senticap_switched_decode", "route": "cuda",
             "source": "icee_tpu_torch/csrc/senticap_switched_beam.cu",
             "replaces": "icee_tpu/ops/pallas_senticap_switched_decode.py:241",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tf32x3_ms": flops / TF32X3_FLOP_PER_S * 1e3,
+            "device_ms_by_group": groups, "library_ms": None,
             "library_note": "no single PyTorch call computes a beam search",
             "near_tie_flips": flips, "max_rescore_err": own_err,
             "max_trace_err": trace_err, "gate_min_max": spread,
@@ -3962,9 +4140,14 @@ def main() -> int:
     for entry in (cef, ceb):   # the SentiCap steps use the CE kernels too
         entry["launches"] += sc_launches[entry["name"]]
     with torch.inference_mode():
+        k9_products = check_sb_products(device, 1)
+        log("phase 14 (i): K9's products ok: " + products_line(k9_products))
         k9 = check_k9(device)
+        k9["products"] = k9_products
         log(f"phase 14: K9 ok, {k9['ms']:.3f} ms vs plain "
-            f"{k9['plain_ms']:.3f} ms (bound {k9['bound_ms']:.3f} ms)")
+            f"{k9['plain_ms']:.3f} ms (bound {k9['bound_ms']:.3f} ms, "
+            f"3xTF32 floor {k9['bound_tf32x3_ms']:.3f}); device ms by "
+            f"group: {groups_line(k9['device_ms_by_group'])}")
         k9["launches"], decode = decode_senticap_phase(device)
     base = pretrained_base(device)
     mxf, mxb, train["mixture_ce_fwd_bwd"] = check_mixture_ce(device, base)
@@ -3986,9 +4169,15 @@ def main() -> int:
     # the switch steps, which ceb (the single-head CE) does not count
     mxb["launches"] = sw_launches["ce_grad_rows"]
     with torch.inference_mode():
+        k10_products = check_sb_products(device, 2)
+        log("phase 17 (i): K10's products ok: "
+            + products_line(k10_products))
         k10 = check_k10(device)
+        k10["products"] = k10_products
         log(f"phase 17: K10 ok, {k10['ms']:.3f} ms vs plain "
-            f"{k10['plain_ms']:.3f} ms (bound {k10['bound_ms']:.3f} ms)")
+            f"{k10['plain_ms']:.3f} ms (bound {k10['bound_ms']:.3f} ms, "
+            f"3xTF32 floor {k10['bound_tf32x3_ms']:.3f}); device ms by "
+            f"group: {groups_line(k10['device_ms_by_group'])}")
         sw_dec_launches, decode_sw = decode_switched_phase(device)
     k10["launches"] = sw_dec_launches["mega_senticap_switched_decode"]
     k9["launches"] += sw_dec_launches["mega_senticap_beam_decode"]

@@ -11,24 +11,33 @@
 // (R, L); the results per image start as the all-stop sequence of length 1
 // with an infinite score (and a zero trace).
 //
+//   sb_prepare_kernel     once a call: a weight W (K, N) laid out for the
+//                         products, k-contiguous and split into TF32 hi / lo
+//                         planes (below);
+//   sb_product_kernel     the cell's [x; h] W and the head's h W + b at
+//                         float32 accuracy on the tensor cores (3xTF32),
+//                         every path in one launch (blockIdx.z);
 //   sb_gates_kernel       one thread per cell element: gates [i, f, o, c],
 //                         c' = f c + i g, h' = o c' (no tanh);
-//   sb_row_topk_kernel    one block per row: the exact softmax of one head
+//   sb_row_topk_kernel    one block per row: the row's logits read once
+//                         into shared memory, the exact softmax of one head
 //                         (MIX = false) or the DA_SUM mixture of two,
 //                         (1 - att) (e_o / se_o) + att (e_n / se_n) in that
-//                         operation order (MIX = true), then nll =
-//                         -log2(p + 1e-37) in shared memory and the beam
-//                         lowest (nll, token) pairs, ties to the lowest
-//                         token: every token with p < ~1e-38 sits on the
-//                         same plateau, so the rank is by nll then index,
-//                         never by logit;
+//                         operation order (MIX = true, with K10's switch
+//                         gate att computed first by one warp), then nll =
+//                         -log2(p + 1e-37) and the beam lowest (nll, token)
+//                         pairs, ties to the lowest token: every token with
+//                         p < ~1e-38 sits on the same plateau, so the rank
+//                         is by nll then index, never by logit
+//                         (sb_select_row, below);
 //   sb_select_kernel      one block per image: the beam^2 candidate totals
 //                         lp[parent] + nll; the best completed one (token 0
 //                         or the last step) by lp / (t + 1), lowest
-//                         candidate index among equals, replaces the
-//                         running best only if strictly lower; the
-//                         survivors are the beam lowest totals among the
-//                         others, ties to the lowest candidate index
+//                         candidate index among equals (a block-wide
+//                         argmin), replaces the running best only if
+//                         strictly lower; the survivors are the beam
+//                         lowest totals among the others, ties to the
+//                         lowest candidate index
 //                         (ranks by counting, no sort); then every path's
 //                         h, c, the sequences (and the trace, whose [t] is
 //                         the gate of the parent row at this step: the gate
@@ -36,18 +45,64 @@
 //                         from each survivor's parent and the next word
 //                         embedded per path.
 // No atomics: a search gives the same bits on every run.
+//
+// The products.  The weights are the same for all max_len + 1 steps of a
+// call, so the call lays each one out once (sb_prepare_kernel) in the form
+// the tensor cores read: W (K, N) becomes planes (Np, 2 Kp), Np = N rounded
+// up to 128 and Kp = K rounded up to 32 (zeros past N and K), row n holding
+// column n of W k-contiguous, each 32-deep k tile as its 32 hi values, then
+// its 32 lo values, hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi)
+// (gemm_tf32x3.cuh's tf32_split, bit for bit).  A tile's rows are then 128
+// contiguous bytes a plane, copied into shared memory in wgmma's K-major
+// 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8) in 1024-byte
+// atoms), and no thread splits B.  A (the activations, new every step) is
+// split in registers as gemm_tf32x3.cuh splits it and fed to wgmma from
+// registers.  Each output adds lo_a hi_b, hi_a lo_b, hi_a hi_b (small terms
+// first) for each 8-deep step into a fragment that the k tile's first
+// wgmma starts from 0 (scale-d false), then a rounded add into the float32
+// accumulator (the tensor core's float32 sum truncates; gemm_tf32x3.cuh's
+// header), then + bias: gemm_tf32x3.cuh's arithmetic on the warpgroup
+// instruction.  No atomics: where a product is cut into k ranges (below),
+// their partial sums are added in range order.
+//
+// Why wgmma: the planes make both operands k-major, as TF32 wgmma requires,
+// and the first design, gemm_tf32x3.cuh's mma.sync loop on the planes
+// (128 x 64 tiles, two blocks an SM), ran the products at 30-44 TFLOP/s:
+// its arithmetic alone, without copies, at 50-60, its copies alone at ~5
+// TB/s from L2 (scripts/probe_sb_product.py): the issue of 24 mmas, 8
+// fragment loads and 40 split instructions a warp an 8-deep step held it.
+// A warpgroup's wgmma does a 64 x 64 x 8 step in one instruction from
+// shared memory, which leaves the copies from L2 as the larger cost.
+//
+// Tiles: 128 rows x 64 columns, two warpgroups of 64 rows, two blocks an
+// SM (128 x 128 tiles, one block an SM, copy 25% fewer bytes a flop but
+// ran 10-20% slower: one block's wgmma waits and barriers leave the tensor
+// cores idle; with one copy warp and mbarriers instead of the barriers,
+// slower still: that warp's cp.async issue could not feed two warpgroups),
+// k tiles of 32 in a 3-stage cp.async ring; A rows of 36
+// floats (fragment loads free of bank conflicts).  Waves: K9's cell (M =
+// 1,280, N = 2,048) is 320 tiles against 264 two-block slots, a second
+// wave 21% full; cut into two k ranges (splits 2, the launch plan's
+// choice, ops/senticap_decode.py::launch_plan) it is 640 half-depth units
+// in three waves 81% full, the gates kernel adding the two partial sums in
+// range order.
 #pragma once
 
 #include <math.h>
 
-#include "gemm_f32.cuh"
-#include "scan_step.cuh"  // ICEE_TRY
+#include "gemm_tf32x3.cuh"  // tf32_split, tc_mma, cp.async helpers
+#include "scan_step.cuh"    // ICEE_TRY
 
 namespace icee {
 
 constexpr int TOPK_THREADS = 256;
 constexpr int TOPK_WARPS = TOPK_THREADS / 32;
 constexpr int SEL_THREADS = 512;
+
+constexpr int SP_BM = 128, SP_BN = 64, SP_BK = 32, SP_STAGES = 3;
+constexpr int SP_THREADS = 256;        // two warpgroups
+constexpr int SP_LDA = SP_BK + 4;      // A rows in shared memory
+constexpr int SP_NP = 64;              // planes' rows: a multiple of this
 
 __device__ __forceinline__ float sb_sigm(float z) {
   return 1.f / (1.f + expf(-z));
@@ -57,6 +112,353 @@ __device__ __forceinline__ float sb_sigm(float z) {
 __device__ __forceinline__ bool lex_less(float v, int i, float w, int j) {
   return v < w || (v == w && i < j);
 }
+
+// ---- the products ----------------------------------------------------------
+
+// W (K, N) rows -> planes (Np, 2 Kp) as the header says; one thread a
+// 16-byte group (n, k tile, plane, 4 k), n fastest so that W's rows are
+// read in order.
+__global__ void sb_prepare_kernel(const float* __restrict__ W, int K, int N,
+                                  int Kp, int Np, float* P) {
+  const long long total = (long long)Np * (Kp / 2);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const int n = (int)(i % Np);
+    const int r = (int)(i / Np);   // (k tile, plane, chunk of 4)
+    const int kt = r >> 4, lo = (r >> 3) & 1, k0 = SP_BK * kt + 4 * (r & 7);
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + q;
+      const float x = n < N && k < K ? W[(long long)k * N + n] : 0.f;
+      unsigned h, l;
+      tf32_split(x, h, l);
+      v[q] = __uint_as_float(lo ? l : h);
+    }
+    *reinterpret_cast<float4*>(P + (long long)n * 2 * Kp + 4 * r) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+struct SbProduct {
+  const float* A;      // A(z, m, k) = A[z * za + m * lda + k]
+  const float* P;      // planes of path z at P + z * zp, rows of 2 kp
+  const float* bias0;  // (N,) of path 0, path 1: bias1 (BIAS only)
+  const float* bias1;
+  float* C;            // C(z, m, n) = C[z * zc + m * ldc + n] (+ s zs)
+  long long lda, za, zp, ldc, zc, zs;
+  int M, N, K, kp;
+  int splits;          // k ranges a path (their partial sums apart)
+  int vec_a;           // 1: 16-byte copies of A's rows
+};
+
+// Bytes of one ring stage: B's hi and lo tiles (64 rows of 128 bytes each,
+// in 1024-byte swizzle atoms), then A's 128 rows of SP_LDA floats.
+__host__ __device__ constexpr int sp_stage_bytes() {
+  return 2 * SP_BN * 128 + 4 * SP_BM * SP_LDA;
+}
+
+__host__ __device__ constexpr int sp_smem_bytes() {
+  return SP_STAGES * sp_stage_bytes() + 1024;   // + aligning the ring
+}
+
+// The shared-memory descriptor of a K-major tile of rows of 128 bytes (32
+// TF32 values) in the 128-byte swizzle: 8-row atoms of 1024 bytes, 16-byte
+// chunk c of row r at c ^ (r % 8); the leading offset unused, the stride
+// between atoms 1024 bytes.
+__device__ __forceinline__ unsigned long long wg_desc(unsigned saddr) {
+  return (unsigned long long)((saddr & 0x3ffff) >> 4) |
+         (1ull << 16) | ((unsigned long long)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// t (+)= a b on a 64 x 64 tile: a (64 x 8, TF32) from registers in the
+// m16n8k8 A layout a warp a 16-row slice; b (8 x 64, TF32) from shared
+// memory by its descriptor; acc = 0: t = a b (scale-d false).
+__device__ __forceinline__ void wg_mma_n64(float (&t)[32],
+                                          const unsigned (&a)[4],
+                                          unsigned long long b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(t[0]), "+f"(t[1]), "+f"(t[2]), "+f"(t[3]),
+        "+f"(t[4]), "+f"(t[5]), "+f"(t[6]), "+f"(t[7]),
+        "+f"(t[8]), "+f"(t[9]), "+f"(t[10]), "+f"(t[11]),
+        "+f"(t[12]), "+f"(t[13]), "+f"(t[14]), "+f"(t[15]),
+        "+f"(t[16]), "+f"(t[17]), "+f"(t[18]), "+f"(t[19]),
+        "+f"(t[20]), "+f"(t[21]), "+f"(t[22]), "+f"(t[23]),
+        "+f"(t[24]), "+f"(t[25]), "+f"(t[26]), "+f"(t[27]),
+        "+f"(t[28]), "+f"(t[29]), "+f"(t[30]), "+f"(t[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// One k tile [k0, k0 + 32) of A (zero past M and K) and of the planes'
+// hi and lo tiles (in bounds by construction: Np and Kp padded) into a
+// stage.
+__device__ __forceinline__ void sp_load(const SbProduct& g, const float* A,
+                                        const float* P, unsigned char* stage,
+                                        int m0, int n0, int k0) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * SP_BN * 8; i += SP_THREADS) {
+    const int n = i >> 4, lo = (i >> 3) & 1, c = i & 7;
+    unsigned char* dst = stage + lo * SP_BN * 128 + (n >> 3) * 1024 +
+                         (n & 7) * 128 + ((c ^ (n & 7)) << 4);
+    tc_copy16(reinterpret_cast<float*>(dst),
+              P + (long long)(n0 + n) * 2 * g.kp + 2 * k0 + 32 * lo + 4 * c,
+              16);
+  }
+  float* As = reinterpret_cast<float*>(stage + 2 * SP_BN * 128);
+  if (g.vec_a) {
+    for (int i = tid; i < SP_BM * SP_BK / 4; i += SP_THREADS) {
+      const int m = i / (SP_BK / 4), k = (i % (SP_BK / 4)) * 4;
+      const int gm = m0 + m, gk = k0 + k;
+      const bool in = gm < g.M && gk < g.K;
+      tc_copy16(As + m * SP_LDA + k, in ? A + gm * g.lda + gk : A,
+                in ? 4 * min(4, g.K - gk) : 0);
+    }
+  } else {
+    for (int i = tid; i < SP_BM * SP_BK; i += SP_THREADS) {
+      const int m = i / SP_BK, k = i % SP_BK;
+      const int gm = m0 + m, gk = k0 + k;
+      const bool in = gm < g.M && gk < g.K;
+      tc_copy4(As + m * SP_LDA + k, in ? A + gm * g.lda + gk : A,
+               in ? 4 : 0);
+    }
+  }
+}
+
+// C = A W [+ bias] for batch entry z and k range s of blockIdx.z = z
+// splits + s (the range's partial sum at C + s zs; BIAS only where splits
+// is 1); tile (blockIdx.y, blockIdx.x) of 128 x 64, two warpgroups of 64
+// rows.  Each k tile: the warpgroup's A fragments from shared memory,
+// split in registers; then for each 8-deep step lo_a hi_b, hi_a lo_b,
+// hi_a hi_b by wgmma into t (the first of the tile with scale-d false, so
+// t starts from 0); then acc += t, rounded.  BIAS: the head (the cell has
+// none), which also tells the two apart in a profile.
+template <bool BIAS>
+__global__ void __launch_bounds__(SP_THREADS, 2)
+sb_product_kernel(SbProduct g) {
+  extern __shared__ unsigned char sp_raw[];
+  const unsigned raw = (unsigned)__cvta_generic_to_shared(sp_raw);
+  unsigned char* ring = sp_raw + ((1024 - (raw & 1023)) & 1023);
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int row = 16 * warp + gr;   // warpgroup warp / 4 holds rows 64 wg..
+  const int m0 = blockIdx.y * SP_BM, n0 = blockIdx.x * SP_BN;
+  const int z = blockIdx.z / g.splits, sp = blockIdx.z % g.splits;
+  const float* A = g.A + z * g.za;
+  const float* P = g.P + z * g.zp;
+  const int nk_all = (g.K + SP_BK - 1) / SP_BK;
+  const int per = (nk_all + g.splits - 1) / g.splits;
+  const int kt0 = sp * per, nk = min(nk_all, kt0 + per) - kt0;
+  constexpr int STAGE = sp_stage_bytes();
+
+  float acc[SP_BN / 2], t[SP_BN / 2];
+#pragma unroll
+  for (int i = 0; i < SP_BN / 2; ++i) acc[i] = t[i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < SP_STAGES - 1; ++st) {
+    if (st < nk)
+      sp_load(g, A, P, ring + st * STAGE, m0, n0, (kt0 + st) * SP_BK);
+    tc_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc_wait<SP_STAGES - 2>();  // tile kt has landed (this thread's copies)
+    // the copies' writes, made visible to wgmma's reads (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();           // ... and everyone's; stage kt - 1 is free
+    const int nxt = kt + SP_STAGES - 1;
+    if (nxt < nk)
+      sp_load(g, A, P, ring + (nxt % SP_STAGES) * STAGE, m0, n0,
+              (kt0 + nxt) * SP_BK);
+    tc_commit();
+    const int so = (kt % SP_STAGES) * STAGE;
+    const float* As =
+        reinterpret_cast<const float*>(ring + so + 2 * SP_BN * 128);
+    unsigned ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = 8 * s + tq;
+      float v[4];
+      v[0] = As[row * SP_LDA + k];
+      v[1] = As[(row + 8) * SP_LDA + k];
+      v[2] = As[row * SP_LDA + k + 4];
+      v[3] = As[(row + 8) * SP_LDA + k + 4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tf32_split(v[q], ah[s][q], al[s][q]);
+    }
+    const unsigned long long dh = wg_desc(ring_s + so);
+    const unsigned long long dl = wg_desc(ring_s + so + SP_BN * 128);
+#pragma unroll
+    for (int i = 0; i < SP_BN / 2; ++i)
+      asm volatile("" : "+f"(t[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {   // + 32 bytes (2 x 16) a k8 step
+      wg_mma_n64(t, al[s], dh + 2 * s, s);
+      wg_mma_n64(t, ah[s], dl + 2 * s, 1);
+      wg_mma_n64(t, ah[s], dh + 2 * s, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < SP_BN / 2; ++i) {   // t is read only after the wait
+      asm volatile("" : "+f"(t[i])::"memory");
+      acc[i] = __fadd_rn(acc[i], t[i]);
+    }
+  }
+  tc_wait<0>();
+
+  // acc[4 j + 2 h + q] holds C(row + 8 h, 8 j + 2 tq + q) of the tile
+  float* C = g.C + z * g.zc + sp * g.zs;
+  const float* bias = BIAS ? (z == 0 ? g.bias0 : g.bias1) : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + row + 8 * h;
+    if (m >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < SP_BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = n0 + 8 * j + 2 * tq + q;
+        if (n >= g.N) continue;
+        float v = acc[4 * j + 2 * h + q];
+        if (BIAS) v = __fadd_rn(v, bias[n]);
+        C[(long long)m * g.ldc + n] = v;
+      }
+  }
+}
+
+template <bool BIAS>
+inline cudaError_t sp_launch(const SbProduct& g, int batch,
+                             cudaStream_t st) {
+  const int smem = sp_smem_bytes();
+  // set at every launch, as gemm_tf32x3.cuh does (no process-wide flag)
+  const cudaError_t e = cudaFuncSetAttribute(
+      sb_product_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((g.N + SP_BN - 1) / SP_BN, (g.M + SP_BM - 1) / SP_BM,
+                  batch * g.splits);
+  sb_product_kernel<BIAS><<<grid, SP_THREADS, smem, st>>>(g);
+  return cudaGetLastError();
+}
+
+inline bool sp_aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// C = A W [+ bias] with W prepared as planes (kp = W's padded depth), for
+// `batch` (1 or 2) paths, each path's k tiles cut into `splits` (1 or 2)
+// ranges whose partial sums go to C + s zs (no bias then: the caller adds
+// them in range order).
+inline cudaError_t sb_product(const float* A, long long lda, long long za,
+                              const float* P, long long zp, int kp,
+                              const float* bias0, const float* bias1,
+                              float* C, long long ldc, long long zc,
+                              long long zs, int M, int N, int K, int batch,
+                              int splits, cudaStream_t st) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K < 1 || kp < K || kp % SP_BK != 0 || batch < 1 || batch > 2 ||
+      splits < 1 || splits > 2 || (splits > 1 && bias0 != nullptr) ||
+      !sp_aligned16(P) || zp % 4 != 0)
+    return cudaErrorInvalidValue;
+  if ((M + SP_BM - 1) / SP_BM > 65535) return cudaErrorInvalidConfiguration;
+  SbProduct g;
+  g.A = A; g.P = P; g.bias0 = bias0; g.bias1 = bias1 ? bias1 : bias0;
+  g.C = C; g.lda = lda; g.za = za; g.zp = zp; g.ldc = ldc; g.zc = zc;
+  g.zs = zs; g.M = M; g.N = N; g.K = K; g.kp = kp; g.splits = splits;
+  g.vec_a = sp_aligned16(A) && lda % 4 == 0 && za % 4 == 0;
+  return bias0 ? sp_launch<true>(g, batch, st)
+               : sp_launch<false>(g, batch, st);
+}
+
+inline int sp_round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// Lays W (K, N) out as planes (Np, 2 Kp) (the header); P holds Np * 2 Kp
+// floats.
+inline cudaError_t sb_prepare(const float* W, int K, int N, float* P,
+                              cudaStream_t st) {
+  if (K < 1 || N < 1 || !sp_aligned16(P)) return cudaErrorInvalidValue;
+  const int Kp = sp_round_up(K, SP_BK), Np = sp_round_up(N, SP_NP);
+  const long long total = (long long)Np * (Kp / 2);
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
+                                                      : 4096);
+  sb_prepare_kernel<<<blocks, 256, 0, st>>>(W, K, N, Kp, Np, P);
+  return cudaGetLastError();
+}
+
+// ---- the launch plan -------------------------------------------------------
+
+// The host's plan of one search (ops/senticap_decode.py::launch_plan, whose
+// ctypes mirror is _CPlan; the C entry points re-derive every size and
+// refuse a plan that differs).
+struct SbPlan {
+  long long cell_planes;  // floats of one path's prepared w_lstm
+  long long head_planes;  // floats of one path's prepared w
+  long long topk_smem;    // bytes of one row top-k block
+  long long select_smem;  // bytes of one selection block
+  int cell_splits;        // k ranges of the cell product (1 or 2; the
+                          // head adds a bias: one)
+  int cell_kp, head_kp;   // the products' padded depths
+  int topk_cap;           // survivor slots of one row
+  int paths;
+};
+
+// Shared memory of one selection block (bytes).
+inline long long sb_select_smem(int beam, int max_len, bool with_trace) {
+  const long long K2 = (long long)beam * beam, L = max_len + 1;
+  return 4 * (2 * K2 + 3 * (long long)beam + beam * L * (with_trace ? 2 : 1));
+}
+
+// Survivor slots of a row: the K threads whose least pair is at most the
+// threshold hold every survivor, at most ceil(V / TOPK_THREADS) each
+// (sb_select_row); even, so that the rows after it stay 16-byte aligned.
+inline int sb_topk_cap(int V, int K) {
+  const int c = K * ((V + TOPK_THREADS - 1) / TOPK_THREADS);
+  return c + (c & 1);
+}
+
+// Shared memory of one row top-k block (bytes): the warps' sorted minima,
+// then one path: the survivors, the row; two paths: the rows, the second
+// (dead once the mixture is formed) shared with the survivors, so that
+// three blocks fit an SM at V = 8800.
+inline long long sb_topk_smem(int V, int K, int paths) {
+  const long long cand = 8LL * sb_topk_cap(V, K);
+  if (paths == 1) return 8LL * TOPK_THREADS + cand + 4LL * V;
+  const long long second = 4LL * V > cand ? 4LL * V : cand;
+  return 8LL * TOPK_THREADS + 4LL * sp_round_up(V, 4) + second;
+}
+
+// 0 where the plan is the one this source derives for the shapes.
+inline int sb_check_plan(const SbPlan& p, int beam, int E, int H, int V,
+                         int max_len, int paths) {
+  const int ck = sp_round_up(E + H, SP_BK), hk = sp_round_up(H, SP_BK);
+  const bool ok =
+      p.paths == paths && p.cell_kp == ck && p.head_kp == hk &&
+      p.cell_planes == (long long)sp_round_up(4 * H, SP_NP) * 2 * ck &&
+      p.head_planes == (long long)sp_round_up(V, SP_NP) * 2 * hk &&
+      (p.cell_splits == 1 || p.cell_splits == 2) &&
+      p.topk_cap == sb_topk_cap(V, beam) &&
+      p.topk_smem == sb_topk_smem(V, beam, paths) &&
+      p.select_smem == sb_select_smem(beam, max_len, paths == 2) &&
+      beam >= 1 && beam <= V && beam <= TOPK_THREADS;
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// ---- the step's element-wise and row passes --------------------------------
 
 // x0 (P, n_img, E) -> xh's x columns for every beam slot, h = c = 0; the
 // search state and the results as above.  trace and att_trace may be null.
@@ -91,136 +493,290 @@ __global__ void sb_init_kernel(const float* __restrict__ x0, float* xh,
   }
 }
 
-// z (R, 4H) pre-activations, c (R, H) -> hn, cn (R, H).
-__global__ void sb_gates_kernel(const float* __restrict__ z,
-                                const float* __restrict__ c, float* hn,
-                                float* cn, long long R, int H) {
+// z (R, 4H) pre-activations (with splits 2, the sum of the partial sums
+// z and z + zs, in that order), c (R, H) -> hn, cn (R, H).
+__global__ void sb_gates_kernel(const float* __restrict__ z, long long zs,
+                                int splits, const float* __restrict__ c,
+                                float* hn, float* cn, long long R, int H) {
   const long long n = R * H;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / H;
     const int j = (int)(i % H);
     const float* zr = z + r * 4 * H;
-    const float ig = sb_sigm(zr[j]);
-    const float fg = sb_sigm(zr[H + j]);
-    const float og = sb_sigm(zr[2 * H + j]);
-    const float cc = fg * c[i] + ig * tanhf(zr[3 * H + j]);
+    float g[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      g[q] = zr[q * H + j];
+      if (splits > 1) g[q] = __fadd_rn(g[q], zr[zs + q * H + j]);
+    }
+    const float ig = sb_sigm(g[0]);
+    const float fg = sb_sigm(g[1]);
+    const float og = sb_sigm(g[2]);
+    const float cc = fg * c[i] + ig * tanhf(g[3]);
     cn[i] = cc;
     hn[i] = og * cc;  // no tanh: reference quirk
   }
 }
 
-__device__ __forceinline__ float tk_block_reduce(float v, bool is_max,
-                                                 float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, w) : v + w;
-  }
+// Block-wide reduction of R values a thread (max or sum): a fixed shuffle
+// tree in each warp, then the warps' results in warp order, so the same
+// inputs give the same bits; two barriers whatever R.
+template <int R>
+__device__ __forceinline__ void tk_block_reduce(float (&v)[R], bool is_max,
+                                                float (*red)[TOPK_WARPS]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    for (int o = 16; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v[r], o);
+      v[r] = is_max ? fmaxf(v[r], w) : v[r] + w;
+    }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();
-  if (lane == 0) red[warp] = v;
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) red[r][warp] = v[r];
   __syncthreads();
-  float t = red[0];
-  for (int q = 1; q < TOPK_WARPS; ++q) t = is_max ? fmaxf(t, red[q]) : t + red[q];
-  return t;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float t = red[r][0];
+    for (int q = 1; q < TOPK_WARPS; ++q)
+      t = is_max ? fmaxf(t, red[r][q]) : t + red[r][q];
+    v[r] = t;
+  }
 }
 
-// The row's max and sum of exp(l - max), block-wide.
-__device__ __forceinline__ void tk_max_sum(const float* l, int V, float* red,
-                                           float* m_out, float* s_out) {
-  const int tid = threadIdx.x;
-  float m = -INFINITY;
-  for (int c = tid; c < V; c += TOPK_THREADS) m = fmaxf(m, l[c]);
-  m = tk_block_reduce(m, true, red);
-  float s = 0.f;
-  for (int c = tid; c < V; c += TOPK_THREADS) s += expf(l[c] - m);
-  s = tk_block_reduce(s, false, red);
-  *m_out = m;
-  *s_out = s;
+// An nll value as an order-preserving key (unsigned <, the order of float
+// <, with -0 counted as +0) and back (-0 comes back as +0).
+__device__ __forceinline__ unsigned sb_key(float v) {
+  const unsigned b = __float_as_uint(__fadd_rn(v, 0.f));
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float sb_unkey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// (key, token) as one 64-bit value in the order (nll, then token).
+__device__ __forceinline__ unsigned long long sb_pair(unsigned key, int c) {
+  return ((unsigned long long)key << 32) | (unsigned)c;
+}
+
+// The pair above every pair of a row, distinct for each thread.
+__device__ __forceinline__ unsigned long long sb_sentinel(int V) {
+  return sb_pair(0xffffffffu, V + threadIdx.x);
+}
+
+// The K <= TOPK_THREADS least (nll, token) pairs of one row, in order, from
+// its nll keys (V,) in shared memory and m, this thread's least pair over
+// its tokens c = tid + i T (sb_sentinel where it has none), into out_nll /
+// out_tok (K,), by a threshold and an exact order of the survivors:
+//   1. tau, the K-th least of the T minima: each warp sorts its 32 minima
+//      (a bitonic network over shuffles), and each minimum's rank is its
+//      place in its warp plus a binary search in each other warp's run;
+//   2. the survivors, every pair <= tau: at least K (the K threads whose
+//      minimum is <= tau), at most K ceil(V / T) (only those threads hold
+//      one), gathered in thread order by a block-wide prefix sum;
+//   3. each survivor's rank among the survivors by counting; the K lowest
+//      are written in rank order.
+// With the pass that found the minima, the row's keys are read three
+// times.  Pairs are distinct (the token), so every rank is exact and the
+// result is a stable sort's first K, ties to the lowest token; no atomics.
+// runs: T pairs, cand: sb_topk_cap(V, K) pairs, scan: TOPK_WARPS ints.
+__device__ void sb_select_row(const unsigned* keys, int V, int K,
+                              unsigned long long m, unsigned long long* runs,
+                              unsigned long long* cand, int* scan,
+                              unsigned long long* tau_sh, float* out_nll,
+                              int* out_tok) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long p = __shfl_xor_sync(0xffffffffu, m, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      m = keep_min ? (p < m ? p : m) : (p < m ? m : p);
+    }
+  runs[tid] = m;
+  __syncthreads();
+  int rank = lane;
+  for (int w = 0; w < TOPK_WARPS; ++w) {
+    if (w == warp) continue;
+    const unsigned long long* run = runs + 32 * w;
+    int pos = 0;   // the entries of the run below m
+#pragma unroll
+    for (int s = 32; s > 0; s >>= 1)
+      if (pos + s <= 32 && run[pos + s - 1] < m) pos += s;
+    rank += pos;
+  }
+  if (rank == K - 1) *tau_sh = m;
+  __syncthreads();
+  const unsigned long long tau = *tau_sh;
+  const unsigned tau_key = (unsigned)(tau >> 32);
+  int n = 0;
+  for (int c = tid; c < V; c += TOPK_THREADS) {
+    const unsigned k = keys[c];
+    n += k <= tau_key && sb_pair(k, c) <= tau;
+  }
+  int incl = n;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) scan[warp] = incl;
+  __syncthreads();
+  int off = incl - n, total = 0;
+  for (int w = 0; w < TOPK_WARPS; ++w) {
+    if (w < warp) off += scan[w];
+    total += scan[w];
+  }
+  for (int c = tid; c < V && n > 0; c += TOPK_THREADS) {
+    const unsigned k = keys[c];
+    if (k <= tau_key && sb_pair(k, c) <= tau) {
+      cand[off++] = sb_pair(k, c);
+      --n;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < total; i += TOPK_THREADS) {
+    const unsigned long long x = cand[i];
+    int r = 0;
+    for (int j = 0; j < total; ++j) r += cand[j] < x;
+    if (r < K) {
+      out_nll[r] = sb_unkey((unsigned)(x >> 32));
+      out_tok[r] = (int)(x & 0xffffffffull);
+    }
+  }
+}
+
+// A row of V floats from global memory into shared memory, 16 bytes a copy
+// where V % 4 == 0 (the row then starts 16-byte aligned).
+__device__ __forceinline__ void tk_load_row(const float* __restrict__ src,
+                                            float* dst, int V) {
+  if ((V & 3) == 0) {
+    for (int i = threadIdx.x; i < V / 4; i += TOPK_THREADS)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(src)[i];
+  } else {
+    for (int i = threadIdx.x; i < V; i += TOPK_THREADS) dst[i] = src[i];
+  }
 }
 
 // One block per row r < R of logits (R, V) (with MIX, of the two heads'
-// logits (2, R, V) mixed by att (R,)): the row's nll in shared memory, then
-// the K smallest (nll, token) pairs in order into top_nll / top_tok (R, K).
+// logits (2, R, V), mixed by the switch gate att[r] = sigmoid(hn_o[r] .
+// aw[:H] + hn_n[r] . aw[H:] + ab), which warp 0 computes first and writes
+// to att (R,); hn (2, R, H)): the row(s) read once into shared memory; the
+// max m; e = exp(l - m) in place and its sum se; p = e / se (MIX: (1 -
+// att) (e_o / se_o) + att (e_n / se_n)), nll = -log2(p + 1e-37), kept as
+// its key in place, each thread's least pair on the way; then the K
+// smallest (nll, token) pairs in order into top_nll / top_tok (R, K)
+// (sb_select_row).  Every thread's sums run over its tokens c = tid + i T
+// in order, then the fixed block reduction.  Shared memory:
+// sb_topk_smem(V, K, MIX ? 2 : 1) bytes.
 template <bool MIX>
 __global__ void __launch_bounds__(TOPK_THREADS)
 sb_row_topk_kernel(const float* __restrict__ logits,
-                   const float* __restrict__ att, long long R, int V, int K,
-                   float* top_nll, int* top_tok) {
-  extern __shared__ float nll[];  // (V,)
-  __shared__ float red[TOPK_WARPS];
-  __shared__ float wv[TOPK_WARPS];
-  __shared__ int wi[TOPK_WARPS];
+                   const float* __restrict__ hn,
+                   const float* __restrict__ aw,
+                   const float* __restrict__ ab, float* att, long long R,
+                   int V, int H, int K, int cap, float* top_nll,
+                   int* top_tok) {
+  constexpr int P = MIX ? 2 : 1;
+  extern __shared__ __align__(16) unsigned long long tk_sm[];
+  unsigned long long* runs = tk_sm;                     // (T,)
+  // one path: survivors (cap,), row (V,); two: rows at 0 and Vp, the
+  // survivors over the second once it is dead (sb_topk_smem)
+  const int vp = MIX ? (V + 3) / 4 * 4 : 0;
+  unsigned long long* cand =
+      MIX ? reinterpret_cast<unsigned long long*>(
+                reinterpret_cast<float*>(runs + TOPK_THREADS) + vp)
+          : runs + TOPK_THREADS;
+  float* row = MIX ? reinterpret_cast<float*>(runs + TOPK_THREADS)
+                   : reinterpret_cast<float*>(cand + cap);
+  float* row_n = row + vp;
+  __shared__ float red[2][TOPK_WARPS];
+  __shared__ int scan[TOPK_WARPS];
+  __shared__ unsigned long long tau;
+  __shared__ float a_sh;
   const int tid = threadIdx.x;
-  const long long row = blockIdx.x;
-  const float* l = logits + row * V;
-  float m, s;
-  tk_max_sum(l, V, red, &m, &s);
-  if (MIX) {
-    const float* ln = logits + (R + row) * V;
-    float mn, sn;
-    tk_max_sum(ln, V, red, &mn, &sn);
-    const float a = att[row], one_m_a = 1.f - a;
-    for (int c = tid; c < V; c += TOPK_THREADS) {
-      const float p = one_m_a * (expf(l[c] - m) / s)
-                      + a * (expf(ln[c] - mn) / sn);
-      nll[c] = -log2f(p + 1e-37f);
-    }
-  } else {
-    for (int c = tid; c < V; c += TOPK_THREADS) {
-      const float p = expf(l[c] - m) / s;
-      nll[c] = -log2f(p + 1e-37f);
+  const long long r0 = blockIdx.x;
+#pragma unroll
+  for (int p = 0; p < P; ++p) tk_load_row(logits + (p * R + r0) * V,
+                                          p ? row_n : row, V);
+  if (MIX && tid < 32) {   // the switch gate: lanes strided over H, a tree
+    const float* ho = hn + r0 * H;
+    const float* hs = hn + (R + r0) * H;
+    float s = 0.f;
+    for (int j = tid; j < H; j += 32) s += ho[j] * aw[j];
+    for (int j = tid; j < H; j += 32) s += hs[j] * aw[H + j];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (tid == 0) {
+      a_sh = sb_sigm(s + ab[0]);
+      att[r0] = a_sh;
     }
   }
   __syncthreads();
-  // the next smallest pair is the least one above the last taken
-  float lv = -INFINITY;
-  int li = -1;
-  for (int k = 0; k < K; ++k) {
-    float bv = INFINITY;
-    int bi = 0x7fffffff;
-    for (int c = tid; c < V; c += TOPK_THREADS) {
-      const float v = nll[c];
-      if (lex_less(lv, li, v, c) && lex_less(v, c, bv, bi)) {
-        bv = v;
-        bi = c;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (lex_less(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    const int lane = tid & 31, warp = tid >> 5;
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    bv = wv[0];
-    bi = wi[0];
-    for (int q = 1; q < TOPK_WARPS; ++q)
-      if (lex_less(wv[q], wi[q], bv, bi)) {
-        bv = wv[q];
-        bi = wi[q];
-      }
-    __syncthreads();  // wv / wi are rewritten next round
-    if (tid == 0) {
-      top_nll[row * K + k] = bv;
-      top_tok[row * K + k] = bi;
-    }
-    lv = bv;
-    li = bi;
+  float m[P], se[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float* l = p ? row_n : row;
+    m[p] = -INFINITY;
+    for (int c = tid; c < V; c += TOPK_THREADS) m[p] = fmaxf(m[p], l[c]);
   }
+  tk_block_reduce<P>(m, true, red);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float* l = p ? row_n : row;
+    se[p] = 0.f;
+    for (int c = tid; c < V; c += TOPK_THREADS) {
+      const float e = expf(l[c] - m[p]);
+      l[c] = e;
+      se[p] += e;
+    }
+  }
+  tk_block_reduce<P>(se, false, red);
+  unsigned* keys = reinterpret_cast<unsigned*>(row);
+  unsigned long long least = sb_sentinel(V);
+  const float a = MIX ? a_sh : 0.f, one_m_a = 1.f - a;
+  for (int c = tid; c < V; c += TOPK_THREADS) {
+    float p;
+    if (MIX)
+      p = one_m_a * (row[c] / se[0]) + a * (row_n[c] / se[MIX ? 1 : 0]);
+    else
+      p = row[c] / se[0];
+    const unsigned k = sb_key(-log2f(p + 1e-37f));
+    keys[c] = k;
+    const unsigned long long x = sb_pair(k, c);
+    least = x < least ? x : least;
+  }
+  __syncthreads();
+  sb_select_row(keys, V, K, least, runs, cand, scan, &tau, top_nll + r0 * K,
+                top_tok + r0 * K);
 }
 
-// Shared memory of one selection block (bytes).
-inline long long sb_select_smem(int beam, int max_len, bool with_trace) {
-  const long long K2 = (long long)beam * beam, L = max_len + 1;
-  return 4 * (2 * K2 + 3 * (long long)beam + beam * L * (with_trace ? 2 : 1));
+// sb_select_row alone on given rows nll (R, V) (the card's test of the
+// selection against its plain emulation).
+__global__ void __launch_bounds__(TOPK_THREADS)
+sb_row_select_kernel(const float* __restrict__ nll_rows, int V, int K,
+                     int cap, float* top_nll, int* top_tok) {
+  extern __shared__ __align__(16) unsigned long long tk_sm[];
+  unsigned long long* runs = tk_sm;
+  unsigned long long* cand = runs + TOPK_THREADS;
+  unsigned* keys = reinterpret_cast<unsigned*>(cand + cap);
+  __shared__ int scan[TOPK_WARPS];
+  __shared__ unsigned long long tau;
+  const long long r0 = blockIdx.x;
+  unsigned long long least = sb_sentinel(V);
+  for (int c = threadIdx.x; c < V; c += TOPK_THREADS) {
+    const unsigned k = sb_key(nll_rows[r0 * V + c]);
+    keys[c] = k;
+    const unsigned long long x = sb_pair(k, c);
+    least = x < least ? x : least;
+  }
+  __syncthreads();
+  sb_select_row(keys, V, K, least, runs, cand, scan, &tau, top_nll + r0 * K,
+                top_tok + r0 * K);
 }
 
 // One block per image: candidate totals, best completed, survivors, then
@@ -246,8 +802,8 @@ sb_select_kernel(const float* __restrict__ top_nll,
   int* par = sseq + beam * L;                       // (beam,)
   int* wrd = par + beam;                            // (beam,)
   float* strace = reinterpret_cast<float*>(wrd + beam);  // (beam, L), TRACE
-  __shared__ float best_v;
-  __shared__ int best_c, improves;
+  __shared__ float best_v, wbest_v[SEL_THREADS / 32];
+  __shared__ int best_c, improves, wbest_c[SEL_THREADS / 32];
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long img = blockIdx.x, r0 = img * beam;
   const bool last = (t == max_len);
@@ -261,30 +817,60 @@ sb_select_kernel(const float* __restrict__ top_nll,
     if (TRACE) strace[i] = trace[r0 * L + i];
   }
   __syncthreads();
-  // best completed: the first minimum of lp / (t + 1) over stop candidates
-  if (tid == 0) {
+  // best completed: the first minimum of lp / (t + 1) over stop candidates,
+  // (value, index)-least over the block (a scan that replaces only on a
+  // strictly lower value keeps the lowest index among equals); where every
+  // value is inf (or nan) the candidate is 0, as such a scan leaves it
+  {
     float bv = INFINITY;
-    int bc = 0;
+    int bc = 0x7fffffff;
     const float denom = (float)(t + 1);
-    for (int i = 0; i < K2; ++i) {
+    for (int i = tid; i < K2; i += nt) {
       const float v = (ctok[i] == stop || last) ? tot[i] / denom : INFINITY;
-      if (v < bv) {
+      if (lex_less(v, i, bv, bc)) {
         bv = v;
         bc = i;
       }
     }
-    best_v = bv;
-    best_c = bc;
-    improves = bv < score[img];  // strict: the first best stays on ties
-  }
-  // survivors: the rank of each candidate among the non-stop totals
-  for (int i = tid; i < K2; i += nt) {
-    const float vi = (ctok[i] == stop || last) ? INFINITY : tot[i];
-    int rank = 0;
-    for (int j = 0; j < K2 && rank < beam; ++j) {
-      const float vj = (ctok[j] == stop || last) ? INFINITY : tot[j];
-      rank += lex_less(vj, j, vi, i);
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+      if (lex_less(ov, oc, bv, bc)) {
+        bv = ov;
+        bc = oc;
+      }
     }
+    if ((tid & 31) == 0) {
+      wbest_v[tid >> 5] = bv;
+      wbest_c[tid >> 5] = bc;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int q = 1; q < nt / 32; ++q)
+        if (lex_less(wbest_v[q], wbest_c[q], wbest_v[0], wbest_c[0])) {
+          wbest_v[0] = wbest_v[q];
+          wbest_c[0] = wbest_c[q];
+        }
+      bv = wbest_v[0];
+      best_v = bv;
+      best_c = bv < INFINITY ? wbest_c[0] : 0;
+      improves = bv < score[img];  // strict: the first best stays on ties
+    }
+  }
+  // survivors: the rank of each candidate among the non-stop totals (a
+  // stop candidate's total set to inf first), counted four at a time
+  // until it reaches the beam
+  for (int i = tid; i < K2; i += nt)
+    if (ctok[i] == stop || last) tot[i] = INFINITY;
+  __syncthreads();
+  for (int i = tid; i < K2; i += nt) {
+    const float vi = tot[i];
+    int rank = 0, j = 0;
+    for (; j + 4 <= K2 && rank < beam; j += 4)
+      rank += lex_less(tot[j], j, vi, i) + lex_less(tot[j + 1], j + 1, vi, i)
+              + lex_less(tot[j + 2], j + 2, vi, i)
+              + lex_less(tot[j + 3], j + 3, vi, i);
+    for (; j < K2 && rank < beam; ++j) rank += lex_less(tot[j], j, vi, i);
     if (rank < beam) {
       slp[rank] = vi;
       par[rank] = i / beam;
@@ -306,19 +892,34 @@ sb_select_kernel(const float* __restrict__ top_nll,
     }
   }
   if (last) return;
-  const int W = E + H;
+  // the next [x; h] and c rows: a warp a row, lanes along it, 16 bytes a
+  // copy where E and H allow (four copies in flight a lane)
+  const int W = E + H, lane = tid & 31, nw = nt / 32;
+  const bool vec = ((E | H) & 3) == 0;
   for (int path = 0; path < PATHS; ++path) {
     const float* emb = path == 0 ? emb0 : emb1;
     const long long off = path * R;
-    for (int i = tid; i < beam * W; i += nt) {
-      const int q = i / W, col = i % W;
-      const long long src = off + r0 + par[q];
-      xh[(off + r0 + q) * W + col] =
-          col < E ? emb[(long long)wrd[q] * E + col] : hn[src * H + col - E];
-    }
-    for (int i = tid; i < beam * H; i += nt) {
-      const int q = i / H;
-      c[(off + r0 + q) * H + i % H] = cn[(off + r0 + par[q]) * H + i % H];
+    for (int q = tid >> 5; q < beam; q += nw) {
+      const float* e = emb + (long long)wrd[q] * E;
+      const float* h = hn + (off + r0 + par[q]) * H;
+      const float* cs = cn + (off + r0 + par[q]) * H;
+      float* d = xh + (off + r0 + q) * W;
+      float* cd = c + (off + r0 + q) * H;
+      if (vec) {
+        const int E4 = E / 4, H4 = H / 4;
+#pragma unroll 4
+        for (int j = lane; j < E4 + H4; j += 32)
+          reinterpret_cast<float4*>(d)[j] =
+              j < E4 ? reinterpret_cast<const float4*>(e)[j]
+                     : reinterpret_cast<const float4*>(h)[j - E4];
+#pragma unroll 4
+        for (int j = lane; j < H4; j += 32)
+          reinterpret_cast<float4*>(cd)[j] =
+              reinterpret_cast<const float4*>(cs)[j];
+      } else {
+        for (int j = lane; j < W; j += 32) d[j] = j < E ? e[j] : h[j - E];
+        for (int j = lane; j < H; j += 32) cd[j] = cs[j];
+      }
     }
   }
   for (int i = tid; i < beam * L; i += nt) {

@@ -12,55 +12,34 @@
 // every step t = 0..max_len, for all images at once,
 //   1. both cells: z = [x_o; h_o] w_lstm and z_sw = [x_n; h_n] w_lstm_sw
 //      (no bias), gates [i, f, o, c], c' = f c + i g, h' = o c' (no tanh);
-//   2. the switch gate att = sigmoid([h'_o; h'_n] . att_w + att_b), one warp
-//      a row;
-//   3. both heads h'_o w + b and h'_n w_sw + b_sw;
-//   4. one block a row: both exact softmaxes, the mixture (1 - att) p_o +
-//      att p_n in the JAX step's operation order, nll = -log2(p + 1e-37),
+//   2. both heads h'_o w + b and h'_n w_sw + b_sw;
+//   3. one block a row: the switch gate att = sigmoid([h'_o; h'_n] . att_w
+//      + att_b) (one warp), both exact softmaxes, the mixture (1 - att) p_o
+//      + att p_n in the JAX step's operation order, nll = -log2(p + 1e-37),
 //      and the row's beam lowest (nll, token) pairs;
-//   5. one block an image: K9's candidate selection, which also carries the
+//   4. one block an image: K9's candidate selection, which also carries the
 //      trace (a token's entry is the gate of the step that emitted it);
-//   6. the next inputs x_o = wemb[w], x_n = wemb_sw[w], gathered with both
+//   5. the next inputs x_o = wemb[w], x_n = wemb_sw[w], gathered with both
 //      paths' h and c from each survivor's parent.
-// Steps 4 and 5 are senticap_beam.cuh's device functions, shared with K9.
+// Every stage is senticap_beam.cuh's, shared with K9.
 // Every image runs all max_len + 1 steps: the search has no early end.
 //
-// What bounds it on the H100: float32 operations.  At 64 images x 20 beams
-// = 1280 rows, E = H = 512, V = 8800, one step is 2 x 5.37 GFLOP of cells
-// and 2 x 11.5 GFLOP of heads: 710 GFLOP over 21 steps, 10.6 ms at 67
-// TFLOP/s, against ~60 MB of weights a step.  The TPU kernel kept both
-// weight sets resident in VMEM for a block of images and gathered with
-// one-hot matmuls; here the host loops over the steps inside one C call,
-// each step eight launches over all images: the four products are
-// gemm_f32.cuh's tiled SIMT products (one fmaf chain per output in k
-// order), the softmax pair, the mixture and the top-k one block per row
-// with the row's nll in shared memory (4 V bytes), the selection one block
-// per image (ranks by counting, no sort).  No atomics: a search gives the
-// same bits on every run.
+// What bounds it on the H100: operations.  At 64 images x 20 beams = 1280
+// rows, E = H = 512, V = 8800, one step is 2 x 5.37 GFLOP of cells and 2 x
+// 11.5 GFLOP of heads: 710 GFLOP over 21 steps, 10.6 ms at the CUDA cores'
+// 67 TFLOP/s float32, 4.3 ms at 165 (three TF32 passes on the tensor
+// cores), against ~60 MB of weights.  The TPU kernel kept both weight sets
+// resident in VMEM for a block of images and gathered with one-hot
+// matmuls; here, as in K9 (senticap_beam.cu; senticap_beam.cuh says why
+// wgmma), the four weights are laid out once a call as TF32 hi / lo
+// planes, both paths' planes in one buffer, and the host loops over the
+// steps inside one C call, five launches a step over all images: both
+// cells in one 3xTF32 product launch (a path a blockIdx.z), the gates of
+// both paths, both heads in one launch, the row pass (the switch gate, the
+// mixture, the top-k: the rows read once into shared memory, 8 V bytes),
+// the selection (one block an image, ranks by counting, no sort).  No
+// atomics: a search gives the same bits on every run.
 #include "senticap_beam.cuh"
-
-namespace icee {
-
-// att (R,) = sigmoid(hn_o[r] . aw[:H] + hn_n[r] . aw[H:] + ab): one warp a
-// row, lanes strided over H, then a fixed shuffle tree.
-__global__ void sw_gate_kernel(const float* __restrict__ hn,
-                               const float* __restrict__ aw,
-                               const float* __restrict__ ab, float* att,
-                               long long R, int H) {
-  const long long row =
-      (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;  // whole warps leave together
-  const float* ho = hn + row * H;
-  const float* hs = hn + (R + row) * H;
-  float s = 0.f;
-  for (int j = lane; j < H; j += 32) s += ho[j] * aw[j];
-  for (int j = lane; j < H; j += 32) s += hs[j] * aw[H + j];
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) att[row] = sb_sigm(s + ab[0]);
-}
-
-}  // namespace icee
 
 using namespace icee;
 
@@ -70,38 +49,42 @@ const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared memory of one selection block (bytes).
-long long icee_senticap_switched_select_smem(int beam, int max_len) {
-  return sb_select_smem(beam, max_len, true);
-}
-
-// x0 (2, n_img, E) visual pseudo-words [background; sentiment]; emb_o,
-// emb_n (V, E), W_o, W_n (E + H, 4H), w_o, w_n (H, V), b_o, b_n (V,), aw
-// (2H,), ab (1,).  Scratch: xh (2, R, E + H), c, hn, cn (2, R, H), z (2, R,
-// 4H), att (R,), logits (2, R, V), top_nll / top_tok (R, beam), seqs (R,
-// L), lp (R,), trace (R, L), with R = n_img * beam and L = max_len + 1.
+// plan: ops/senticap_decode.py::launch_plan (paths 2).  x0 (2, n_img, E)
+// visual pseudo-words [background; sentiment]; emb_o, emb_n (V, E), W_o,
+// W_n (E + H, 4H), w_o, w_n (H, V), b_o, b_n (V,), aw (2H,), ab (1,).
+// Scratch: planes (2 (cell_planes + head_planes) floats: both cells', then
+// both heads'), xh (2, R, E + H), c, hn, cn (2, R, H), z (cell_splits,
+// 2, R, 4H), att (R,), logits (2, R, V), top_nll / top_tok (R, beam), seqs
+// (R, L), lp (R,), trace (R, L), with R = n_img * beam and L = max_len + 1.
 // Results: tok (n_img, L), len, score (n_img,), att_trace (n_img, L).
 int icee_senticap_switched_beam(
-    const float* x0, const float* emb_o, const float* emb_n, const float* W_o,
-    const float* W_n, const float* w_o, const float* w_n, const float* b_o,
-    const float* b_n, const float* aw, const float* ab, float* xh, float* c,
-    float* z, float* hn, float* cn, float* att, float* logits,
-    float* top_nll, int* top_tok, int* seqs, float* lp, float* trace,
-    int* tok, int* len, float* score, float* att_trace, int n_img, int beam,
-    int E, int H, int V, int max_len, int stop, void* stream) {
+    const SbPlan* plan, const float* x0, const float* emb_o,
+    const float* emb_n, const float* W_o, const float* W_n, const float* w_o,
+    const float* w_n, const float* b_o, const float* b_n, const float* aw,
+    const float* ab, float* planes, float* xh, float* c, float* z, float* hn,
+    float* cn, float* att, float* logits, float* top_nll, int* top_tok,
+    int* seqs, float* lp, float* trace, int* tok, int* len, float* score,
+    float* att_trace, int n_img, int beam, int E, int H, int V, int max_len,
+    int stop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_img <= 0 || beam < 1 || beam > V || E < 1 || H < 1)
+  if (n_img <= 0 || E < 1 || H < 1 || max_len < 0)
     return cudaErrorInvalidValue;
+  const SbPlan p = *plan;
+  ICEE_TRY((cudaError_t)sb_check_plan(p, beam, E, H, V, max_len, 2));
   const long long R = (long long)n_img * beam;
-  const int L = max_len + 1, H4 = 4 * H, W = E + H;
-  const size_t topk_smem = sizeof(float) * (size_t)V;
-  const size_t sel_smem = (size_t)sb_select_smem(beam, max_len, true);
+  const int L = max_len + 1, H4 = 4 * H, W = E + H, Ri = (int)R;
+  float* cell_w = planes;
+  float* head_w = planes + 2 * p.cell_planes;
   ICEE_TRY(cudaFuncSetAttribute(sb_row_topk_kernel<true>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)topk_smem));
+                                (int)p.topk_smem));
   ICEE_TRY(cudaFuncSetAttribute(sb_select_kernel<2, true>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)sel_smem));
+                                (int)p.select_smem));
+  ICEE_TRY(sb_prepare(W_o, W, H4, cell_w, st));
+  ICEE_TRY(sb_prepare(W_n, W, H4, cell_w + p.cell_planes, st));
+  ICEE_TRY(sb_prepare(w_o, H, V, head_w, st));
+  ICEE_TRY(sb_prepare(w_n, H, V, head_w + p.head_planes, st));
   sb_init_kernel<<<264, 256, 0, st>>>(x0, xh, c, seqs, lp, tok, len, score,
                                       trace, att_trace, n_img, beam, E, H, L,
                                       stop, 2);
@@ -109,25 +92,20 @@ int icee_senticap_switched_beam(
   const long long cells = 2 * R * H;
   const int gate_blocks = (int)((cells + 255) / 256 < 4096
                                     ? (cells + 255) / 256 : 4096);
-  const int att_blocks = (int)((R * 32 + 255) / 256);
-  const int Ri = (int)R;
   for (int t = 0; t <= max_len; ++t) {
-    ICEE_TRY(gemm('N', xh, W, W_o, H4, z, H4, nullptr, Ri, H4, W, 1, 0, 0,
-                  0, 0, st));
-    ICEE_TRY(gemm('N', xh + R * W, W, W_n, H4, z + R * H4, H4, nullptr, Ri,
-                  H4, W, 1, 0, 0, 0, 0, st));
-    sb_gates_kernel<<<gate_blocks, 256, 0, st>>>(z, c, hn, cn, 2 * R, H);
+    ICEE_TRY(sb_product(xh, W, R * W, cell_w, p.cell_planes, p.cell_kp,
+                        nullptr, nullptr, z, H4, R * H4, 2 * R * H4, Ri, H4,
+                        W, 2, p.cell_splits, st));
+    sb_gates_kernel<<<gate_blocks, 256, 0, st>>>(z, 2 * R * H4, p.cell_splits,
+                                                 c, hn, cn, 2 * R, H);
     ICEE_TRY(cudaGetLastError());
-    sw_gate_kernel<<<att_blocks, 256, 0, st>>>(hn, aw, ab, att, R, H);
+    ICEE_TRY(sb_product(hn, H, R * H, head_w, p.head_planes, p.head_kp, b_o,
+                        b_n, logits, V, R * V, 0, Ri, V, H, 2, 1, st));
+    sb_row_topk_kernel<true><<<Ri, TOPK_THREADS, p.topk_smem, st>>>(
+        logits, hn, aw, ab, att, R, V, H, beam, p.topk_cap, top_nll,
+        top_tok);
     ICEE_TRY(cudaGetLastError());
-    ICEE_TRY(gemm('N', hn, H, w_o, V, logits, V, b_o, Ri, V, H, 1, 0, 0, 0,
-                  0, st));
-    ICEE_TRY(gemm('N', hn + R * H, H, w_n, V, logits + R * V, V, b_n, Ri, V,
-                  H, 1, 0, 0, 0, 0, st));
-    sb_row_topk_kernel<true><<<Ri, TOPK_THREADS, topk_smem, st>>>(
-        logits, att, R, V, beam, top_nll, top_tok);
-    ICEE_TRY(cudaGetLastError());
-    sb_select_kernel<2, true><<<n_img, SEL_THREADS, sel_smem, st>>>(
+    sb_select_kernel<2, true><<<n_img, SEL_THREADS, p.select_smem, st>>>(
         top_nll, top_tok, hn, cn, emb_o, emb_n, att, xh, c, seqs, lp, trace,
         tok, len, score, att_trace, R, beam, E, H, L, t, max_len, stop);
     ICEE_TRY(cudaGetLastError());

@@ -4,12 +4,15 @@ Port of ``icee_tpu/ops/pallas_senticap_switched_decode.py::
 mega_senticap_switched_decode``: the styled decode (senti = +1) of the
 switched two-LSTM model in the ``DA_SUM`` test regime, with the switch-gate
 trace of every emitted token.  The CUDA kernel is
-``csrc/senticap_switched_beam.cu``: one C call runs every step (both cells,
-the gate, both heads, the exact mixture of the two softmaxes, per-row top-k
-by nll with lowest-index ties, per-image candidate selection carrying the
-trace, parent gathers, both paths' next-word embeddings) for all images at
-once.  :func:`mega_senticap_switched_decode_plain` is the same search in
-plain PyTorch (``senticap/beam.py::make_device_beam(with_attention=True)``
+``csrc/senticap_switched_beam.cu``: one C call lays the four weights out
+once as TF32 hi / lo planes (``ops/senticap_decode.py::launch_plan``, both
+paths' planes in one buffer), then runs every step (both cells in one
+launch, the gates, both heads in one launch, the switch gate, the exact
+mixture of the two softmaxes and the per-row top-k by nll with lowest-index
+ties in one row pass, per-image candidate selection carrying the trace,
+parent gathers, both paths' next-word embeddings) for all images at once.
+:func:`mega_senticap_switched_decode_plain` is the same search in plain
+PyTorch (``senticap/beam.py::make_device_beam(with_attention=True)``
 over ``senticap/switched.py::beam_step``): the CPU tests use it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
@@ -31,6 +34,7 @@ import torch
 
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.senticap_decode import check_params as check_base
+from icee_tpu_torch.ops.senticap_decode import launch_plan, sm_count
 from icee_tpu_torch.senticap.config import DA_SUM
 
 
@@ -99,12 +103,9 @@ def mega_senticap_switched_decode(
     if device.type != "cuda":
         raise ValueError(f"mega_senticap_switched_decode: unsupported device "
                          f"{device}")
+    plan = launch_plan("mega_senticap_switched_decode", batch, beam_size,
+                       e, h, vocab, max_len, 2, sm_count(device))
     lib = _library()
-    sel_smem = lib.icee_senticap_switched_select_smem(beam_size, max_len)
-    if max(sel_smem, 4 * vocab) > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"mega_senticap_switched_decode needs "
-                         f"{max(sel_smem, 4 * vocab)} bytes of shared memory "
-                         f"per block, more than {cuda_lib.SMEM_LIMIT}")
     # the two visual pseudo-words (mrnn_switched.py:792-808 via
     # mrnn.py:390-391): products outside the kernel, as the JAX wrapper
     # computes them
@@ -113,9 +114,10 @@ def mega_senticap_switched_decode(
     rows, seq_len = batch * beam_size, max_len + 1
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    scratch = dict(xh=torch.empty((2, rows, e + h), **f32),
+    scratch = dict(planes=torch.empty((plan.planes_floats(),), **f32),
+                   xh=torch.empty((2, rows, e + h), **f32),
                    c=torch.empty((2, rows, h), **f32),
-                   z=torch.empty((2, rows, 4 * h), **f32),
+                   z=torch.empty((plan.cell_splits, 2, rows, 4 * h), **f32),
                    hn=torch.empty((2, rows, h), **f32),
                    cn=torch.empty((2, rows, h), **f32),
                    att=torch.empty((rows,), **f32),
@@ -133,10 +135,12 @@ def mega_senticap_switched_decode(
                                    "w", "w_sw", "b", "b_sw", "att_w",
                                    "att_b")]
     p = cuda_lib.ptr
+    c_plan = plan.c_struct()
     rc = lib.icee_senticap_switched_beam(
-        p(x0), *(p(w) for w in weights), *(p(scratch[k]) for k in scratch),
-        p(tokens), p(length), p(score), p(att_trace), batch, beam_size, e, h,
-        vocab, max_len, stop_token, cuda_lib.stream_ptr(device))
+        ctypes.byref(c_plan), p(x0), *(p(w) for w in weights),
+        *(p(scratch[k]) for k in scratch), p(tokens), p(length), p(score),
+        p(att_trace), batch, beam_size, e, h, vocab, max_len, stop_token,
+        cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "mega_senticap_switched_decode")
     mega_senticap_switched_decode.launches += 1
     return score, tokens, length, att_trace
@@ -148,5 +152,4 @@ mega_senticap_switched_decode.launches = 0  # wrapper calls on CUDA tensors
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     return cuda_lib.library("senticap_switched_beam", {
-        "icee_senticap_switched_beam": ([vp] * 27 + [i] * 7 + [vp], i),
-        "icee_senticap_switched_select_smem": ([i, i], ctypes.c_longlong)})
+        "icee_senticap_switched_beam": ([vp] * 29 + [i] * 7 + [vp], i)})

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K2 (the whole beam search of StyleNet and NIC) or K7 (the whole
 attention beam search of StyleNet+Att and NIC+Att) and the served beams
-that run it, for several checkouts in turn on one NVIDIA GPU, so that two
-versions are compared on one card.
+that run it, or K9 / K10 (the SentiCap beam-20 searches), for several
+checkouts in turn on one NVIDIA GPU, so that two versions are compared on
+one card.
 
 Run from the repository root on a machine with the card, with the other
 version unpacked into a directory that git ignores:
@@ -10,9 +11,10 @@ version unpacked into a directory that git ignores:
     mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
     python3 scripts/beam_turns.py _archive/parent . . _archive/parent
     python3 scripts/beam_turns.py --kernel k7 _archive/parent . . _archive/parent
+    python3 scripts/beam_turns.py --kernel k9 _archive/parent . . _archive/parent
 
 (``--json PATH`` first: also write every turn's results to PATH;
-``--kernel k2`` is the default.)
+``--kernel k2`` is the default; ``k9`` and ``k10`` take the same turns.)
 
 Each argument is a checkout's root.  Each turn runs in a process of its
 own that imports that checkout's ``chip_smoke`` and ``icee_tpu_torch``,
@@ -29,11 +31,28 @@ time of each served piece, median of 5, and its device busy share; a piece
 a checkout does not time shows as absent).  Every turn's kernel results
 must be the same bits as the first turn's.  The script prints each turn's
 log, a table by turn and a JSON line of it.
+
+``--kernel k9`` / ``k10``: each turn builds the SentiCap decode kernels
+and times K9, ``mega_senticap_beam_decode``, and K10,
+``mega_senticap_switched_decode``, at 64 images, beam 20, max_len 20 on
+``chip_smoke.senticap_decoder`` / ``chip_smoke.switched_params`` weights
+and the features of ``chip_smoke.check_k9`` / ``check_k10`` (CUDA events,
+mean of 5 after a warm-up), profiles one call by launch group (this
+tree's ``chip_smoke.senticap_device_groups``, whichever checkout runs) and
+times ``torch.matmul`` (float32, TF32 off) at the search's two product
+shapes as a yardstick.  Turns of one checkout must give the same bits.
+Between checkouts, whose products may round differently, the comparison is
+margin-aware as ``chip_smoke.py``'s phases 14 and 17: each image's scores
+within 1e-3, and where the tokens differ, the two sequences' plain
+re-scores (``chip_smoke.senticap_rescore`` / ``switched_rescore``) within
+1e-4 of each other.  Both kernels run in every turn; ``--kernel`` says
+which one heads the table.
 """
 
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -58,6 +77,74 @@ KERNELS = {
             "nic_att_batched_beam_8_images", "serial_beam_one_image",
             "encode_one_image", "caption_one_image")),
 }
+
+
+SENTICAP = ("k9", "k10")
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def this_tree_smoke():
+    """This tree's ``chip_smoke`` (its launch-group profile), whichever
+    checkout a turn imports as ``chip_smoke``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def senticap_turn(cs, device) -> dict:
+    """K9 and K10 at chip_smoke's decode shapes: ms, bits, the results,
+    their plain re-scores and one call's launch groups; the matmul
+    yardstick."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+
+    here = this_tree_smoke()
+    kw = dict(beam_size=cs.SC_BEAM, max_len=cs.SC_MAXLEN)
+    out = {}
+    for name, params_fn, seed, call, rescore in (
+            ("k9", cs.senticap_decoder, 62, sd.mega_senticap_beam_decode,
+             cs.senticap_rescore),
+            ("k10", cs.switched_params, 66,
+             ssd.mega_senticap_switched_decode, cs.switched_rescore)):
+        params = params_fn(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        v = torch.randn((cs.SC_IMAGES, cs.SC_VIS), generator=g,
+                        device=device)
+
+        def run(params=params, v=v, call=call):
+            return call(params, v, cs.SC_IMAGES, **kw)
+
+        res = run()
+        again = run()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for t in res:
+            digest.update(t.cpu().numpy().tobytes())
+        rescored = rescore(params, v, res[1], res[2])
+        out[name] = {"ms": cs.cuda_ms(run, 5), "bits": digest.hexdigest()[:16],
+                     "same_bits_twice": all(torch.equal(a, b)
+                                            for a, b in zip(res, again)),
+                     "score": res[0].tolist(), "tokens": res[1].tolist(),
+                     "length": res[2].tolist(),
+                     "rescored": rescored.tolist(),
+                     "groups": here.senticap_device_groups(name, run)}
+        del params, v, res, again
+    rows = cs.SC_IMAGES * cs.SC_BEAM
+    yard = {}
+    for shape, (m, k, n) in (("cell", (rows, cs.SC_E + cs.SC_H, 4 * cs.SC_H)),
+                             ("head", (rows, cs.SC_H, cs.SC_V))):
+        a = torch.randn((m, k), device=device)
+        b = torch.randn((k, n), device=device)
+        ms = cs.cuda_ms(lambda: torch.matmul(a, b), 20, warmup=3)
+        yard[shape] = {"M": m, "K": k, "N": n, "ms": ms,
+                       "tflops": 2.0 * m * n * k / ms / 1e9,
+                       "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    out["matmul_yardstick"] = yard
+    return out
 
 
 def kernel_call(cs, kernel: str, dec, cell: str, style: int, n: int,
@@ -97,12 +184,20 @@ def turn(root: str, kernel: str) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("beam_turns: CUDA is not available")
+    device = torch.device("cuda", 0)
+    if kernel in SENTICAP:
+        cuda_lib.build_all(["senticap_beam", "senticap_switched_beam"])
+        set_float32_precision()
+        with torch.inference_mode():
+            timed = senticap_turn(cs, device)
+        print(TAG + json.dumps({"root": root, "senticap": timed}),
+              flush=True)
+        return
     cuda_lib.build_all(["decode_step", "beam", "att_decode_step",
                         "att_beam"])
     set_float32_precision()
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
-    device = torch.device("cuda", 0)
     params = cs.captioning_params(device)
     images, cells, _ = KERNELS[kernel]
     timed = {}
@@ -147,9 +242,8 @@ def main(args) -> int:
             kernel = args[1]
         args = args[2:]
     roots = args
-    if not roots or kernel not in KERNELS:
+    if not roots or kernel not in tuple(KERNELS) + SENTICAP:
         raise SystemExit(__doc__)
-    name = {"k2": "mega_beam_decode", "k7": "mega_att_beam_decode"}[kernel]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -174,6 +268,9 @@ def main(args) -> int:
         with open(json_path, "w") as f:
             json.dump({"device": smi, "kernel": kernel, "turns": turns}, f,
                       indent=1)
+    if kernel in SENTICAP:
+        return senticap_table(kernel, roots, turns, smi)
+    name = {"k2": "mega_beam_decode", "k7": "mega_att_beam_decode"}[kernel]
     for key, entry in turns[0]["kernel"].items():
         for t in turns[1:]:
             if t["kernel"][key]["bits"] != entry["bits"]:
@@ -199,6 +296,69 @@ def main(args) -> int:
          "pieces_ms": {n: t["pieces"][n]["ms"] for n in pieces
                        if n in t["pieces"]}}
         for t in turns]}}))
+    print(smi)
+    return 0
+
+
+def compare_searches(key: str, a: dict, b: dict) -> list:
+    """Margin-aware comparison of two turns' results of one search ->
+    the images whose tokens differ (a near-tie flip each); raises where a
+    score differs by more than 1e-3 or a flip's re-scores by more than
+    1e-4."""
+    flips = []
+    for i, (sa, sb) in enumerate(zip(a["score"], b["score"])):
+        n = a["length"][i]
+        same = n == b["length"][i] and a["tokens"][i][:n] == b["tokens"][i][:n]
+        if abs(sa - sb) > 1e-3:
+            raise SystemExit(f"{key} image {i}: scores {sa} and {sb}")
+        if not same:
+            margin = abs(a["rescored"][i] - b["rescored"][i])
+            if margin > 1e-4:
+                raise SystemExit(f"{key} image {i}: tokens differ, re-scores "
+                                 f"{a['rescored'][i]} and {b['rescored'][i]}")
+            flips.append((i, margin))
+    return flips
+
+
+def senticap_table(kernel: str, roots, turns, smi: str) -> int:
+    """K9 / K10 turns: bits within a checkout, margins between checkouts,
+    then the table of times and launch groups by turn."""
+    order = [kernel] + [k for k in SENTICAP if k != kernel]
+    for key in order:
+        first = {}
+        for t in turns:
+            entry = t["senticap"][key]
+            if not entry["same_bits_twice"]:
+                raise SystemExit(f"{key}: turn {t['turn']} gives other bits "
+                                 "on a second call")
+            ref = first.setdefault(os.path.abspath(t["arg"]), entry)
+            if entry["bits"] != ref["bits"]:
+                raise SystemExit(f"{key}: turn {t['turn']} ({t['arg']}) "
+                                 "gives other bits than an earlier turn of "
+                                 "its checkout")
+        base = turns[0]["senticap"][key]
+        for t in turns[1:]:
+            flips = compare_searches(key, base, t["senticap"][key])
+            if flips:
+                print(f"{key}: turn {t['turn']} vs turn 0: near-tie flips "
+                      f"(image, re-score margin) {flips}")
+    print("ms by turn (" + ", ".join(roots) + "):")
+    for key in order:
+        print(f"  {key:36s} " + "  ".join(
+            f"{t['senticap'][key]['ms']:8.3f}" for t in turns))
+        groups = [t["senticap"][key]["groups"] or {} for t in turns]
+        for g in sorted({g for gs in groups for g, v in gs.items()
+                         if g.endswith("_ms") and v}):
+            print(f"    {g:34s} " + "  ".join(
+                f"{gs.get(g, 0.0):8.3f}" for gs in groups))
+    yard = turns[0]["senticap"]["matmul_yardstick"]
+    print("torch.matmul yardstick (float32, TF32 off): " + "; ".join(
+        f"{s} {y['M']}x{y['K']}x{y['N']} {y['ms']:.3f} ms "
+        f"{y['tflops']:.1f} TFLOP/s" for s, y in yard.items()))
+    print(json.dumps({"beam_turns": {"kernel": kernel, "turns": [
+        {"arg": t["arg"], "ms": {k: t["senticap"][k]["ms"] for k in order},
+         "groups": {k: t["senticap"][k]["groups"] for k in order}}
+        for t in turns], "matmul_yardstick": yard}}))
     print(smi)
     return 0
 

@@ -24,7 +24,10 @@ against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
 form against float64 (at most 4x the CUDA-core product's error), its
 emulation, ragged, padded, batched and split shapes, the same bits twice.  K8 and K9 (the SentiCap scan and base beam search) and
 K10 (the switched beam search): a ragged vocabulary, E != H, one image at
-beam 20, all-tied and saturated heads, the trace; the mixture CE's value
+beam 20, all-tied and saturated heads, the trace, beam 1; their products alone
+(3xTF32 by wgmma from pre-split planes) against float64 at the decode's
+shapes and ragged ones, at both tile widths, and their row
+selection against its plain emulation; the mixture CE's value
 and every gradient, the same bits twice; the switched step on the card
 against the CPU.
 
@@ -1157,19 +1160,22 @@ def test_senticap_scan_kernels_match_plain(device, b, t, e, h, gclip):
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
-@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated"])
+@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated",
+                                  "beam1"])
 def test_senticap_beam_kernel_matches_plain(device, case):
     """K9 against its plain search: a ragged vocabulary over several
     images, one image at beam 20, an all-tied zero head (every step picks
     tokens 0, 1, 2, ... in index order, so the best sequence is all 0s
-    when STOP is another token) and a saturated tail (nll plateau at
-    -log2(1e-37), ranked by index)."""
+    when STOP is another token), a saturated tail (nll plateau at
+    -log2(1e-37), ranked by index) and beam 1 (greedy)."""
     from icee_tpu_torch.ops import senticap_decode as sd
 
     vocab, beam, batch, max_len, stop = 515, 5, 6, 7, 0
     kw = dict(seed=3, stop_bias=4.0)
     if case == "one_image":
         vocab, beam, batch = 300, 20, 1
+    elif case == "beam1":
+        beam = 1
     elif case == "tied":
         vocab, stop, kw = 64, 63, dict(zero_head=True)
     params = _senticap_params(device, vocab, 16, 16, **kw)
@@ -1268,6 +1274,112 @@ def test_cuda_entry_points_turn_tf32_off(device):
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+# K9's and K10's products alone, at the decode's shapes (64 images x beam
+# 20 rows) and ragged ones (M, N, K off the tiles): (paths, M, K, N, bias)
+SB_PRODUCT_CASES = {
+    "k9_cell": (1, 1280, 1024, 2048, False),
+    "k9_head": (1, 1280, 512, 8800, True),
+    "k10_cells": (2, 1280, 1024, 2048, False),
+    "k10_heads": (2, 1280, 512, 8800, True),
+    "ragged": (1, 77, 45, 130, True),
+    "ragged_two": (2, 129, 33, 65, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SB_PRODUCT_CASES))
+@pytest.mark.parametrize("splits", [1, 2])
+def test_senticap_products_match_float64_and_keep_their_bits(device, case,
+                                                             splits):
+    """The product K9 and K10 launch every step (planes of the weights,
+    3xTF32 by wgmma) against float64, in one k range or two (the cells'
+    split, its partial sums added in range order; no bias then): its error
+    at most 4x that of gemm_f32.cuh's product on the same inputs, the same
+    bits twice, the planes the plain layout's bits, and within that bound
+    plus the emulation's own error of its plain emulation."""
+    from icee_tpu_torch.ops import senticap_decode as sd
+
+    paths, m, k, n, bias = SB_PRODUCT_CASES[case]
+    bias = bias and splits == 1
+    rng = np.random.default_rng(m + k + n)
+    a = torch.tensor(rng.uniform(-1, 1, (paths, m, k)), dtype=torch.float32,
+                     device=device)
+    w = torch.tensor(0.05 * rng.standard_normal((paths, k, n)),
+                     dtype=torch.float32, device=device)
+    b = (torch.tensor(rng.standard_normal((paths, n)), dtype=torch.float32,
+                      device=device) if bias else None)
+    before = sd.prepare_weights.launches
+    planes = torch.stack([sd.prepare_weights(w[z]) for z in range(paths)])
+    assert sd.prepare_weights.launches == before + paths
+    assert torch.equal(planes[-1].cpu(),
+                       sd.prepare_weights_plain(w[-1].cpu()))
+    if paths == 1:
+        a, w, planes = a[0], w[0], planes[0]
+        b = b[0] if bias else None
+    before = sd.planes_product.launches
+    got = sd.planes_product(a, planes, n, b, splits=splits)
+    again = sd.planes_product(a, planes, n, b, splits=splits)
+    f32 = att_scan.f32_product(a, w, "N", b)
+    plain = sd.planes_product_plain(a.cpu(), planes.cpu(), n,
+                                    None if b is None else b.cpu())
+    ref = a.double() @ w.double()
+    if bias:
+        ref = ref + (b.double()[:, None] if paths == 2 else b.double())
+    torch.cuda.synchronize()
+    assert sd.planes_product.launches == before + 2
+    assert torch.equal(got, again)
+    err = (got.double() - ref).abs().max().item()
+    err_f32 = (f32.double() - ref).abs().max().item()
+    err_plain = (plain.double() - ref.cpu()).abs().max().item()
+    assert 0.0 < err_f32 and err <= 4.0 * err_f32, (err, err_f32)
+    assert (got.cpu() - plain).abs().max().item() <= 4.0 * err_f32 + err_plain
+
+
+def _selection_rows(vocab):
+    """nll rows: random softmax rows of several sharpnesses (saturated on
+    the plateau), the whole plateau, three tokens off it, equal nll at
+    scattered tokens, -0 beside +0, integer values with many repeats."""
+    rng = np.random.default_rng(vocab)
+    logits = rng.standard_normal((4, vocab)) * np.array([[1], [8], [60],
+                                                         [200]])
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    rows = list(-np.log2(p.astype(np.float32) + np.float32(1e-37)))
+    plateau = np.float32(-np.log2(np.float32(1e-37)))
+    rows.append(np.full(vocab, plateau))
+    r = np.full(vocab, plateau)
+    r[[vocab - 1, 4, vocab // 2]] = [2.0, 9.0, 2.0]
+    rows.append(r)
+    r = rng.uniform(3.0, 30.0, vocab)
+    r[rng.choice(vocab, 5, replace=False)] = 1.25
+    rows.append(r)
+    r = rng.uniform(1.0, 30.0, vocab)
+    r[[vocab // 3, 5]] = [-0.0, 0.0]
+    rows.append(r)
+    rows.append(rng.integers(0, 4, vocab).astype(np.float64))
+    return torch.tensor(np.stack(rows), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("vocab,k", [(40, 1), (40, 5), (40, 40), (300, 20),
+                                     (8800, 1), (8800, 20), (8800, 164),
+                                     (257, 256)])
+def test_row_selection_kernel_matches_its_emulation(device, vocab, k):
+    """The row selection K9 and K10 run (one block a row: the threads'
+    minima, the threshold, the survivors, their order), alone, against
+    its plain emulation and a stable sort: the same tokens and nll bits."""
+    from icee_tpu_torch.ops import senticap_decode as sd
+
+    nll = _selection_rows(vocab)
+    before = sd.row_topk.launches
+    got_nll, got_tok = sd.row_topk(nll.to(device), k)
+    torch.cuda.synchronize()
+    assert sd.row_topk.launches == before + 1
+    want_nll, want_tok = sd.row_topk_plain(nll, k)
+    s = torch.sort(nll, dim=1, stable=True)
+    assert torch.equal(want_tok.long(), s.indices[:, :k])
+    assert torch.equal(got_tok.cpu(), want_tok)
+    assert torch.equal(got_nll.cpu(), want_nll)
+
+
 def test_senticap_wrappers_raise_on_what_the_kernels_do_not_take(device):
     from icee_tpu_torch.ops import senticap_decode as sd
     from icee_tpu_torch.ops import senticap_scan as ss
@@ -1289,6 +1401,26 @@ def test_senticap_wrappers_raise_on_what_the_kernels_do_not_take(device):
             torch.zeros((1, 24), device=device), 1, beam_size=2)
 
 
+def test_senticap_searches_refuse_a_beam_above_the_row_pass(device):
+    """A beam above the row top-k's 256 threads, or one whose selection
+    block would need more shared memory than a block has, raises on the
+    card before any launch (the CPU route takes it)."""
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+
+    params = _senticap_params(device, 400, 16, 16)
+    v = torch.zeros((1, 24), device=device)
+    before = sd.mega_senticap_beam_decode.launches
+    with pytest.raises(ValueError, match="row top-k"):
+        sd.mega_senticap_beam_decode(params, v, 1, beam_size=300)
+    with pytest.raises(ValueError, match="shared memory"):
+        sd.mega_senticap_beam_decode(params, v, 1, beam_size=200)
+    assert sd.mega_senticap_beam_decode.launches == before
+    sw = _switched_params(device, 400, 16, 16)
+    with pytest.raises(ValueError, match="row top-k"):
+        ssd.mega_senticap_switched_decode(sw, v, 1, beam_size=300)
+
+
 def _switched_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
                      zero_head=False):
     """Switched weights: the base set, duplicates + 0.3 N(0, 1), a gate
@@ -1305,7 +1437,8 @@ def _switched_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
     return bridge.to_torch(p, device=device)
 
 
-@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated"])
+@pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated",
+                                  "beam1"])
 def test_senticap_switched_beam_kernel_matches_plain(device, case):
     """K10 against its plain search, margin-aware: a ragged vocabulary and
     E != H over several images, one image at beam 20, all-tied zero heads
@@ -1320,6 +1453,8 @@ def test_senticap_switched_beam_kernel_matches_plain(device, case):
     kw = dict(seed=3, stop_bias=4.0)
     if case == "one_image":
         vocab, beam, batch, e = 300, 20, 1, 16
+    elif case == "beam1":
+        beam = 1
     elif case == "tied":
         vocab, stop, e, kw = 64, 63, 16, dict(zero_head=True)
     params = _switched_params(device, vocab, e, 16, **kw)
