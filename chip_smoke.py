@@ -53,7 +53,16 @@ Phases, in order; any failure exits non-zero:
    ``params``;
 7. K3 (``fused_factored_scan``) and K4 (``fused_nic_scan``), forward and
    backward, vs their plain versions at B=64, T=25, E=300, F=H=512; K4
-   also against cuDNN's ``nn.LSTM`` (the library yardstick);
+   also against cuDNN's ``nn.LSTM`` (the library yardstick); K3's products
+   over all rows alone (3xTF32: ``wgmma`` from the weights' planes, and
+   ``gemm_tf32x3.cuh`` for the weight grads) against float64, their error
+   at most 4x that of ``gemm_f32.cuh``'s product on the same inputs, the
+   same bits twice, with their device times and TFLOP/s beside
+   ``gemm_f32.cuh``'s and ``torch.matmul``'s; one K3 call of each
+   direction profiled by launch group (products, weight planes,
+   recurrence, column sums), failing if a ``gemm_f32.cuh`` product ran or
+   the recurrence took other than one launch; its float32 bound and its
+   3xTF32 floor;
 8. the chunked cross-entropy's row passes vs their plain versions, and the
    whole chunked loss (kernel path) vs the plain path and the materialized
    ``masked_cross_entropy``, at 64 x 25 rows, V=8192;
@@ -88,7 +97,8 @@ Phases, in order; any failure exits non-zero:
 12. K8 (``fused_senticap_scan``, the SentiCap training scan) forward and
    backward vs its plain versions at B=128, T=22, E=H=512, at gclip 5.0
    and 0.01 (where the clamp on the recurrent dh binds), the same bits
-   twice; times of the kernel and the plain version;
+   twice; times of the kernel and the plain version; its products alone,
+   its launch groups and its floors as phase 7's for K3;
 13. SentiCap base training at the reference COCO regime (B=128, T=22,
    E=H=512, V=8800, visual 4096, RMSProp): one step's loss and grads on
    the kernel path (K8, the chunked CE) vs the plain path, 30 steps over
@@ -1461,6 +1471,160 @@ def cell_weight_floats() -> int:
         + H * 4 * H + 4 * H
 
 
+# K3's and K8's launch groups, by kernel-name fragment: the products over
+# all rows (the planes product and gemm_tf32x3.cuh's, its partial sums
+# included), the weights' TF32 planes, the recurrence, the bias column sums
+SCAN_GROUPS = (("products_ms", ("sb_product_kernel", "tf32x3_")),
+               ("planes_ms", ("sb_prepare_kernel",)),
+               ("recurrence_ms", ("scan_fwd_grid_kernel",
+                                  "scan_bwd_grid_kernel")),
+               ("column_sums_ms", ("colsum_kernel",)))
+
+
+def scan_device_groups(what: str, fn):
+    """Device time (ms) of one K3 or K8 call ``fn`` by launch group, from
+    a profiler trace, with each group's launches; fails if the call ran a
+    ``gemm_f32.cuh`` product (``gemm_kernel``) or launched its recurrence
+    other than once.  None where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.self_device_time_total > 0]
+    if not events:
+        log(f"{what}: the profiler trace holds no device time")
+        return None
+    if any("gemm_kernel" in e.name for e in events):
+        fail(f"{what} launched a gemm_f32.cuh product: "
+             f"{sorted({e.name for e in events})}")
+    groups = {g: 0.0 for g, _ in SCAN_GROUPS}
+    groups["other_ms"] = 0.0
+    counts = {g: 0 for g in groups}
+    for e in events:
+        key = next((g for g, frags in SCAN_GROUPS
+                    if any(f in e.name for f in frags)), "other_ms")
+        groups[key] += e.self_device_time_total / 1e3
+        counts[key] += 1
+    if counts["recurrence_ms"] != 1:
+        fail(f"{what}: {counts['recurrence_ms']} recurrence launches, "
+             "expected one")
+    groups["total_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    groups["launches"] = counts
+    return groups
+
+
+def scan_products(kernel: str):
+    """(direction, name, form, M, N, K, batch, bias) of every product over
+    all rows that K3 (B_IMAGES x T_STEPS) or K8 (SC_B x SC_T) launches:
+    'N' and 'T' by wgmma from the weight's planes, 'A' (the weight grads)
+    on ``gemm_tf32x3.cuh``."""
+    if kernel == "K3":
+        n = B_IMAGES * T_STEPS
+        return [("fwd", "x_Vw", "N", n, 4 * F, E, 1, True),
+                ("fwd", "v_S", "N", n, F, F, 4, True),
+                ("fwd", "s_U", "N", n, H, F, 4, True),
+                ("bwd", "dz_Ut", "T", n, F, H, 4, False),
+                ("bwd", "ds_St", "T", n, F, F, 4, False),
+                ("bwd", "dv_Vwt", "T", n, E, 4 * F, 1, False),
+                ("bwd", "g_Ww", "A", H, 4 * H, n, 1, False),
+                ("bwd", "g_U", "A", F, H, n, 4, False),
+                ("bwd", "g_S", "A", F, F, n, 4, False),
+                ("bwd", "g_Vw", "A", E, 4 * F, n, 1, False)]
+    n = SC_B * SC_T
+    return [("fwd", "x_Wx", "N", n, 4 * SC_H, SC_E, 1, False),
+            ("bwd", "dZ_Wxt", "T", n, SC_E, 4 * SC_H, 1, False),
+            ("bwd", "g_Wx", "A", SC_E, 4 * SC_H, n, 1, False),
+            ("bwd", "g_Wh", "A", SC_H, 4 * SC_H, n, 1, False)]
+
+
+def check_scan_products(device, kernel: str):
+    """Phases 7 and 12 (i): every product K3 or K8 runs over all rows,
+    alone at its main-path shape (``scan_grid.scan_product``: the weight's
+    planes laid out, then the wgmma product; ``gemm_tf32x3.cuh`` for the
+    weight grads), batched operands strided as the scan keeps them,
+    against float64: its max abs error at most 4x that of
+    ``gemm_f32.cuh``'s product (``att_scan.f32_product``) on the same
+    inputs, the same bits twice; device ms (planes included) and TFLOP/s
+    (float32 operations) of it, of ``gemm_f32.cuh``'s and of
+    ``torch.matmul`` (float32, TF32 off).  -> {direction: {name: stats}}"""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.ops import att_scan, scan_grid
+
+    out = {"fwd": {}, "bwd": {}}
+    for i, (direction, name, form, m, n, k, batch, with_bias) in enumerate(
+            scan_products(kernel)):
+        rng = np.random.default_rng(110 + i)
+        a_rows, a_cols = (k, m) if form == "A" else (m, k)
+        b_rows, b_cols = (n, k) if form == "T" else (k, n)
+        a = torch.tensor(rng.uniform(-1, 1, (a_rows, batch * a_cols)).astype(
+            np.float32), device=device)
+        b = torch.tensor((0.05 * rng.standard_normal(
+            (batch, b_rows, b_cols))).astype(np.float32), device=device)
+        bias = torch.tensor(rng.standard_normal(
+            (batch, n) if batch > 1 else (n,)).astype(np.float32),
+            device=device) if with_bias else None
+        if batch == 1:
+            b = b[0]
+        else:
+            a = a.view(a_rows, batch, a_cols).transpose(0, 1)
+        got = scan_grid.scan_product(a, b, form, bias)
+        again = scan_grid.scan_product(a, b, form, bias)
+        f32 = att_scan.f32_product(a, b, form, bias)
+        ref = (att_scan._as_mk(a, form).double()
+               @ att_scan._as_kn(b, form).double())
+        if with_bias:
+            ref = ref + (bias[:, None] if batch > 1 else bias).double()
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs().max().item()
+        err_f32 = (f32.double() - ref).abs().max().item()
+        if not err <= 4.0 * err_f32:
+            fail(f"{kernel} product {name}: max abs error {err} > 4 x "
+                 f"gemm_f32's {err_f32}")
+        if not torch.equal(got, again):
+            fail(f"{kernel} product {name}: two runs differ")
+        del got, again, f32, ref
+        aa, bb = att_scan._as_mk(a, form), att_scan._as_kn(b, form)
+        ms = kernel_ms(lambda: scan_grid.scan_product(a, b, form, bias), 20)
+        ms_f32 = kernel_ms(lambda: att_scan.f32_product(a, b, form, bias), 5)
+        ms_lib = cuda_ms(lambda: torch.matmul(aa, bb), 20, warmup=3)
+        flops = 2.0 * m * n * k * batch
+        out[direction][name] = {
+            "form": form, "M": m, "N": n, "K": k, "batch": batch,
+            "max_abs_err": err, "f32_max_abs_err": err_f32,
+            "err_over_f32": err / err_f32, "device_ms": ms,
+            "tflops": flops / ms / 1e9, "f32_device_ms": ms_f32,
+            "f32_tflops": flops / ms_f32 / 1e9, "matmul_ms": ms_lib,
+            "matmul_tflops": flops / ms_lib / 1e9}
+        if form == "A":
+            # the other route for a weight grad: A^T written k-contiguous
+            # (a copy), then the planes of B and the wgmma product
+            ms_wg = kernel_ms(lambda: scan_grid.scan_product(
+                aa.contiguous(), b, "N"), 20)
+            out[direction][name]["wgmma_route_ms"] = ms_wg
+            out[direction][name]["wgmma_route_tflops"] = flops / ms_wg / 1e9
+        del a, b, bias, aa, bb
+    return out
+
+
+def scan_products_line(stats) -> str:
+    return "; ".join(
+        f"{n} {s['device_ms']:.4f} ms {s['tflops']:.1f} TFLOP/s (error "
+        f"{s['err_over_f32']:.2f}x gemm_f32's; gemm_f32 "
+        f"{s['f32_device_ms']:.4f}, torch.matmul {s['matmul_ms']:.4f}"
+        + (f", transposed + wgmma {s['wgmma_route_ms']:.4f}"
+           if "wgmma_route_ms" in s else "") + ")"
+        for d in ("fwd", "bwd") for n, s in stats[d].items())
+
+
 def training_decoder(device, seed: int):
     """Seeded flagship-width decoder weights with non-zero biases."""
     import torch
@@ -1522,6 +1686,12 @@ def check_k3(device):
         f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; backward "
         "bit-identical over two runs")
 
+    groups_f = scan_device_groups(
+        "K3 forward", lambda: lstm_scan.factored_scan_fwd(p, x))
+    groups_b = scan_device_groups(
+        "K3 backward", lambda: lstm_scan.factored_scan_bwd(
+            p, x, h_seq, c_seq, dh, saved))
+    products = check_scan_products(device, "K3")
     ms_f = cuda_ms(lambda: lstm_scan.factored_scan_fwd(p, x), 10)
     plain_f = cuda_ms(lambda: lstm_scan.fused_factored_scan_plain(p, x), 5)
     ms_b = cuda_ms(lambda: lstm_scan.factored_scan_bwd(
@@ -1543,14 +1713,18 @@ def check_k3(device):
     return (dict(common, name="fused_factored_scan_fwd",
                  replaces="icee_tpu/ops/pallas_lstm.py:224",
                  max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
-                 bound_ms=bf, bound_by=bf_by),
+                 bound_ms=bf, bound_by=bf_by,
+                 bound_tf32x3_ms=flops_f / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_f, products=products["fwd"]),
             dict(common, name="fused_factored_scan_bwd",
                  replaces="icee_tpu/ops/pallas_lstm.py:298",
                  max_abs_err=max((dx - want_dx).abs().max().item(),
                                  *((grads[k] - want_g[k]).abs().max().item()
                                    for k in grads)),
                  max_rel_err=max(rel.values()), ms=ms_b, plain_ms=plain_b,
-                 bound_ms=bb, bound_by=bb_by))
+                 bound_ms=bb, bound_by=bb_by,
+                 bound_tf32x3_ms=flops_b / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_b, products=products["bwd"]))
 
 
 def nic_flops(b: int, t: int):
@@ -2816,6 +2990,11 @@ def check_k8(device):
     log(f"K8: h/c max abs err {fwd_err:.3g}; grads max err / max|g| "
         f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; bit-identical "
         f"over two runs; the clamp binds at gclip 0.01")
+    groups_f = scan_device_groups("K8 forward",
+                                  lambda: ss.senticap_scan_fwd(w, x))
+    groups_b = scan_device_groups("K8 backward", lambda: ss.senticap_scan_bwd(
+        w, x, h_seq, c_seq, dh, 5.0, gates))
+    products = check_scan_products(device, "K8")
     ms_f = cuda_ms(lambda: ss.senticap_scan_fwd(w, x), 10)
     plain_f = cuda_ms(lambda: ss.fused_senticap_scan_plain(w, x), 5)
     ms_b = cuda_ms(lambda: ss.senticap_scan_bwd(w, x, h_seq, c_seq, dh, 5.0,
@@ -2832,11 +3011,15 @@ def check_k8(device):
     return (dict(common, name="fused_senticap_scan_fwd",
                  replaces="icee_tpu/ops/pallas_senticap_train.py:173",
                  max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
-                 bound_ms=bf, bound_by=bf_by),
+                 bound_ms=bf, bound_by=bf_by,
+                 bound_tf32x3_ms=flops_f / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_f, products=products["fwd"]),
             dict(common, name="fused_senticap_scan_bwd",
                  replaces="icee_tpu/ops/pallas_senticap_train.py:224",
                  max_abs_err=abs_err, max_rel_err=max(rel.values()),
-                 ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by))
+                 ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by,
+                 bound_tf32x3_ms=flops_b / TF32X3_FLOP_PER_S * 1e3,
+                 device_ms_by_group=groups_b, products=products["bwd"]))
 
 
 def senticap_split(n: int, seed: int, senti: float = -1.0):
@@ -4069,9 +4252,16 @@ def main() -> int:
 
     k3f, k3b = check_k3(device)
     k4f, k4b = check_k4(device)
+    log("phase 7 (i): K3's products ok: " + scan_products_line(
+        {"fwd": k3f["products"], "bwd": k3b["products"]}))
     log(f"phase 7: K3 ok, forward {k3f['ms']:.3f} ms (plain "
-        f"{k3f['plain_ms']:.3f}), backward {k3b['ms']:.3f} ms (plain "
-        f"{k3b['plain_ms']:.3f}); K4 ok, forward {k4f['ms']:.3f} ms (plain "
+        f"{k3f['plain_ms']:.3f}, bound {k3f['bound_ms']:.3f}, 3xTF32 floor "
+        f"{k3f['bound_tf32x3_ms']:.3f}; device ms by group: "
+        f"{groups_line(k3f['device_ms_by_group'])}), backward "
+        f"{k3b['ms']:.3f} ms (plain {k3b['plain_ms']:.3f}, bound "
+        f"{k3b['bound_ms']:.3f}, 3xTF32 floor {k3b['bound_tf32x3_ms']:.3f}; "
+        f"device ms by group: {groups_line(k3b['device_ms_by_group'])}); "
+        f"K4 ok, forward {k4f['ms']:.3f} ms (plain "
         f"{k4f['plain_ms']:.3f}, cuDNN {k4f['library_ms']:.3f}), backward "
         f"{k4b['ms']:.3f} ms (plain {k4b['plain_ms']:.3f}, cuDNN "
         f"{k4b['library_ms']:.3f})")
@@ -4127,10 +4317,15 @@ def main() -> int:
     for entry in (cef, ceb):   # the attention steps use the CE kernels too
         entry["launches"] += att_launches[entry["name"]]
     k8f, k8b = check_k8(device)
+    log("phase 12 (i): K8's products ok: " + scan_products_line(
+        {"fwd": k8f["products"], "bwd": k8b["products"]}))
     log(f"phase 12: K8 ok, forward {k8f['ms']:.3f} ms (plain "
-        f"{k8f['plain_ms']:.3f}, bound {k8f['bound_ms']:.3f}), backward "
+        f"{k8f['plain_ms']:.3f}, bound {k8f['bound_ms']:.3f}, 3xTF32 floor "
+        f"{k8f['bound_tf32x3_ms']:.3f}; device ms by group: "
+        f"{groups_line(k8f['device_ms_by_group'])}), backward "
         f"{k8b['ms']:.3f} ms (plain {k8b['plain_ms']:.3f}, bound "
-        f"{k8b['bound_ms']:.3f})")
+        f"{k8b['bound_ms']:.3f}, 3xTF32 floor {k8b['bound_tf32x3_ms']:.3f}; "
+        f"device ms by group: {groups_line(k8b['device_ms_by_group'])})")
     sc_launches, train["senticap"] = train_senticap_phase(device)
     log(f"phase 13: SentiCap step {train['senticap']['step_ms']:.3f} ms, "
         f"{train['senticap']['captions_per_s']:.1f} captions/s (plain "

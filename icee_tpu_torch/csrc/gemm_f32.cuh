@@ -1,6 +1,8 @@
 // Float32 products and fixed-order column sums for the training kernels:
-// lstm_scan.cu (K3, forward and backward) and chunked_ce.cu (the chunked
-// cross-entropy's bias gradient).
+// nic_scan.cu (K4, forward and backward), chunked_ce.cu (the chunked
+// cross-entropy's bias gradient), lstm_scan.cu (K3's bias grads: the column
+// sums only) and att_scan.cu (the CUDA-core yardstick of the tensor-core
+// products' error).
 //
 // gemm_kernel: C(m, n) = sum_k A(m, k) B(k, n) [+ bias(n)],
 // batched over blockIdx.z with a stride per operand.  The operands are read
@@ -21,8 +23,9 @@
 //
 // What bounds it on the H100: float32 operations on the CUDA cores (67
 // TFLOP/s at 700 W).  The 4 x 4 register tile does 16 FMAs for every 8
-// floats read from shared memory; a later PR moves the products to the
-// tensor cores (TF32 or bf16 wgmma) where the tolerance allows.
+// floats read from shared memory.  K3, K5, K8, K9 and K10 moved their
+// products to the tensor cores at float32 accuracy (gemm_tf32x3.cuh,
+// planes_product.cuh); K4 is next.
 //
 // colsum_kernel: out(c) [+]= sum_r X(r, c), each column summed by 8 fixed
 // row groups then added in group order: no atomics, same bits every run.

@@ -1,12 +1,15 @@
-// The per-step kernels of the teacher-forced training scans: lstm_scan.cu
-// (K3, the FactoredLSTM), nic_scan.cu (K4, the torch-order LSTM) and
-// senticap_scan.cu (K8, the SentiCap mRNN).  Both scans keep the same structure: the input side of every step
-// is one product over all B * T rows before the recurrence, so a step is
+// The per-step kernels of the teacher-forced training scan K4 (nic_scan.cu,
+// the torch-order LSTM), the only scan that launches them now: K3
+// (lstm_scan.cu) and K8 (senticap_scan.cu) run their recurrence as one
+// cooperative launch (scan_grid.cuh) and take only the Gates policies
+// (cell_gates.cuh), sigm and ICEE_TRY from here.  The input side of every
+// step is one product over all B * T rows before the recurrence, so a step
+// is
 //   forward:  z = (input side)_t  (+)  h_{t-1} W + b, then the gates;
 //   backward: dh_carry = dZ_{t+1} W^T, then the gate derivatives -> dZ_t,
-// with W (H, 4H).  The products are the same for both cells; what differs
-// (gate order, where the biases are added, h = o * c or o * tanh(c)) is a
-// Gates policy with two static device functions:
+// with W (H, 4H).  What differs between cells (gate order, where the
+// biases are added, h = o * c or o * tanh(c)) is a Gates policy with two
+// static device functions:
 //   forward(z, b, acc, H, j, c_prev, &c_new, &h_new): z points at the row's
 //     4H input-side values; acc[g] = (h_{t-1} W)[g H + j]; overwrites
 //     z[g H + j] with the gate activations the backward reads;

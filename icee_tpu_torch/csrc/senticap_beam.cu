@@ -54,7 +54,7 @@ const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// W (K, N) -> planes (Np, 2 Kp) (senticap_beam.cuh), P 16-byte aligned.
+// W (K, N) -> planes (Np, 2 Kp) (planes_product.cuh), P 16-byte aligned.
 int icee_sb_prepare(const float* W, int K, int N, float* P, void* stream) {
   return (int)sb_prepare(W, K, N, P, static_cast<cudaStream_t>(stream));
 }
@@ -67,8 +67,10 @@ int icee_sb_product(const float* A, long long lda, long long za,
                     const float* bias1, float* C, long long ldc,
                     long long zc, long long zs, int M, int N, int K,
                     int batch, int splits, void* stream) {
-  return (int)sb_product(A, lda, za, P, zp, kp, bias0, bias1, C, ldc, zc, zs,
-                         M, N, K, batch, splits,
+  if (batch > 2) return cudaErrorInvalidValue;
+  const float* bias[2] = {bias0, bias1 ? bias1 : bias0};
+  return (int)sb_product(A, lda, za, P, zp, kp, bias0 ? bias : nullptr, C,
+                         ldc, zc, zs, M, N, K, batch, splits,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -127,14 +129,14 @@ int icee_senticap_beam(const SbPlan* plan, const float* x0, const float* emb,
   const int gate_blocks = (int)((cells + 255) / 256 < 4096
                                     ? (cells + 255) / 256 : 4096);
   for (int t = 0; t <= max_len; ++t) {
-    ICEE_TRY(sb_product(xh, E + H, 0, cell_w, 0, p.cell_kp, nullptr,
-                        nullptr, z, H4, 0, (long long)R * H4, R, H4, E + H,
-                        1, p.cell_splits, st));
+    ICEE_TRY(sb_product(xh, E + H, 0, cell_w, 0, p.cell_kp, nullptr, z, H4,
+                        0, (long long)R * H4, R, H4, E + H, 1, p.cell_splits,
+                        st));
     sb_gates_kernel<<<gate_blocks, 256, 0, st>>>(
         z, (long long)R * H4, p.cell_splits, c, hn, cn, R, H);
     ICEE_TRY(cudaGetLastError());
-    ICEE_TRY(sb_product(hn, H, 0, head_w, 0, p.head_kp, b, nullptr, logits,
-                        V, 0, 0, R, V, H, 1, 1, st));
+    ICEE_TRY(sb_product(hn, H, 0, head_w, 0, p.head_kp, &b, logits, V, 0, 0,
+                        R, V, H, 1, 1, st));
     sb_row_topk_kernel<false><<<R, TOPK_THREADS, p.topk_smem, st>>>(
         logits, nullptr, nullptr, nullptr, nullptr, R, V, H, beam,
         p.topk_cap, top_nll, top_tok);

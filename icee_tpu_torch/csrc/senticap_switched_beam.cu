@@ -92,15 +92,16 @@ int icee_senticap_switched_beam(
   const long long cells = 2 * R * H;
   const int gate_blocks = (int)((cells + 255) / 256 < 4096
                                     ? (cells + 255) / 256 : 4096);
+  const float* heads[2] = {b_o, b_n};   // the two paths' head biases
   for (int t = 0; t <= max_len; ++t) {
     ICEE_TRY(sb_product(xh, W, R * W, cell_w, p.cell_planes, p.cell_kp,
-                        nullptr, nullptr, z, H4, R * H4, 2 * R * H4, Ri, H4,
-                        W, 2, p.cell_splits, st));
+                        nullptr, z, H4, R * H4, 2 * R * H4, Ri, H4, W, 2,
+                        p.cell_splits, st));
     sb_gates_kernel<<<gate_blocks, 256, 0, st>>>(z, 2 * R * H4, p.cell_splits,
                                                  c, hn, cn, 2 * R, H);
     ICEE_TRY(cudaGetLastError());
-    ICEE_TRY(sb_product(hn, H, R * H, head_w, p.head_planes, p.head_kp, b_o,
-                        b_n, logits, V, R * V, 0, Ri, V, H, 2, 1, st));
+    ICEE_TRY(sb_product(hn, H, R * H, head_w, p.head_planes, p.head_kp,
+                        heads, logits, V, R * V, 0, Ri, V, H, 2, 1, st));
     sb_row_topk_kernel<true><<<Ri, TOPK_THREADS, p.topk_smem, st>>>(
         logits, hn, aw, ab, att, R, V, H, beam, p.topk_cap, top_nll,
         top_tok);

@@ -2,9 +2,12 @@
 
 Port of ``icee_tpu/ops/pallas_lstm.py::fused_factored_scan``.  The CUDA
 kernels are ``csrc/lstm_scan.cu``: the input side (V -> S -> U for all B*T
-rows) as tiled products, one launch per step for the recurrence, one per
-reverse step for the backward's (dh, dc) chain, and the weight grads as
-products over all rows (``csrc/gemm_f32.cuh``).
+rows), the backward's dx chain and the weight grads as products over all
+rows on the tensor cores at float32 accuracy (3xTF32: ``wgmma`` from the
+weights' TF32 planes, ``csrc/planes_product.cuh``; ``mma.sync`` for the
+weight grads, ``csrc/gemm_tf32x3.cuh``), and the recurrence as one
+cooperative launch a direction (``csrc/scan_grid.cuh``) whose launch plan
+is ``ops/scan_grid.py::scan_plan``.
 
 :func:`fused_factored_scan` is a ``torch.autograd.Function`` whose forward
 is :func:`factored_scan_fwd` and whose backward is :func:`factored_scan_bwd`.
@@ -26,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, scan_grid
 from icee_tpu_torch.ops.cells import factored_lstm_cell
 
 CELL_KEYS = ("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b")
@@ -135,6 +138,18 @@ def factored_scan_bwd_plain(params: dict, x: torch.Tensor,
 # --- kernel wrappers ----------------------------------------------------------
 
 Saved = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # v, s, gates
+WHAT = "K3 (csrc/lstm_scan.cu)"
+
+
+def _workspace(lib, plan, b, t, e, f, h, direction: int, device):
+    """The C side's workspace of one direction (0 forward, 1 backward)
+    and its plan struct."""
+    cplan = plan.c_struct()
+    sizes = (ctypes.c_longlong * 2)()
+    lib.icee_lstm_scan_workspace(ctypes.byref(cplan), b, t, e, f, h,
+                                 ctypes.byref(sizes))
+    return cplan, torch.empty((sizes[direction],), dtype=torch.float32,
+                              device=device)
 
 
 def factored_scan_fwd(params: dict, x: torch.Tensor
@@ -149,6 +164,7 @@ def factored_scan_fwd(params: dict, x: torch.Tensor
         return h_seq, c_seq, None
     if device.type != "cuda":
         raise ValueError(f"factored_scan_fwd: unsupported device {device}")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     n = b * t
     f32 = dict(dtype=torch.float32, device=device)
     h_seq = torch.empty((b, t, h), **f32)
@@ -158,15 +174,17 @@ def factored_scan_fwd(params: dict, x: torch.Tensor
     gates = torch.empty((n, 4 * h), **f32)
     p = cuda_lib.ptr
     lib = _library()
+    cplan, ws = _workspace(lib, plan, b, t, e, f, h, 0, device)
     rc = lib.icee_lstm_scan_fwd(
-        p(x), *(p(params[k]) for k in CELL_KEYS), p(h_seq), p(c_seq), p(v),
-        p(s), p(gates), b, t, e, f, h, cuda_lib.stream_ptr(device))
+        ctypes.byref(cplan), p(x), *(p(params[k]) for k in CELL_KEYS),
+        p(h_seq), p(c_seq), p(v), p(s), p(gates), p(ws), ws.numel(), b, t, e,
+        f, h, cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "factored_scan_fwd")
     factored_scan_fwd.launches += 1
     return h_seq, c_seq, (v, s, gates)
 
 
-factored_scan_fwd.launches = 0  # kernel calls (each is 3 products + T steps)
+factored_scan_fwd.launches = 0  # kernel calls (3 products + 1 recurrence)
 
 
 def factored_scan_bwd(params: dict, x: torch.Tensor, h_seq: torch.Tensor,
@@ -187,8 +205,8 @@ def factored_scan_bwd(params: dict, x: torch.Tensor, h_seq: torch.Tensor,
         raise ValueError("factored_scan_bwd: the kernel backward reads the "
                          "forward's saved (v, s, gates)")
     if params["W_w"].data_ptr() % 16:
-        raise ValueError("factored_scan_bwd: W_w must be 16-byte aligned "
-                         "(the reverse steps read its rows as float4)")
+        raise ValueError("factored_scan_bwd: W_w must be 16-byte aligned")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     n = b * t
     v, s, gates = saved
     cuda_lib.check_tensor("v", v, (n, 4 * f), torch.float32, device)
@@ -201,20 +219,21 @@ def factored_scan_bwd(params: dict, x: torch.Tensor, h_seq: torch.Tensor,
     d_z = torch.empty((n, 4 * h), **f32)
     d_s = torch.empty((n, 4 * f), **f32)
     d_v = torch.empty((n, 4 * f), **f32)
-    d_c = torch.empty((b, h), **f32)
     p = cuda_lib.ptr
     lib = _library()
+    cplan, ws = _workspace(lib, plan, b, t, e, f, h, 1, device)
     rc = lib.icee_lstm_scan_bwd(
-        p(x), p(params["V_w"]), p(params["S_w"]), p(params["U_w"]),
-        p(params["W_w"]), p(h_prev), p(c_seq), p(v), p(s), p(gates),
-        p(dh_seq), p(dx), *(p(grads[k]) for k in CELL_KEYS), p(d_z), p(d_s),
-        p(d_v), p(d_c), b, t, e, f, h, cuda_lib.stream_ptr(device))
+        ctypes.byref(cplan), p(x), p(params["V_w"]), p(params["S_w"]),
+        p(params["U_w"]), p(params["W_w"]), p(h_prev), p(c_seq), p(v), p(s),
+        p(gates), p(dh_seq), p(dx), *(p(grads[k]) for k in CELL_KEYS),
+        p(d_z), p(d_s), p(d_v), p(ws), ws.numel(), b, t, e, f, h,
+        cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "factored_scan_bwd")
     factored_scan_bwd.launches += 1
     return dx, grads
 
 
-factored_scan_bwd.launches = 0  # kernel calls (T steps + 7 products + sums)
+factored_scan_bwd.launches = 0  # kernel calls (1 recurrence, 7 products, sums)
 
 
 class _FusedScan(torch.autograd.Function):
@@ -246,7 +265,11 @@ def fused_factored_scan(params: dict, x_seq: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return cuda_lib.library("lstm_scan", {
-        "icee_lstm_scan_fwd": ([vp] * 14 + [i] * 5 + [vp], i),
-        "icee_lstm_scan_bwd": ([vp] * 24 + [i] * 5 + [vp], i)})
+        "icee_lstm_scan_workspace": ([vp] + [i] * 5 + [vp], i),
+        "icee_lstm_scan_fwd": ([vp] * 16 + [ll] + [i] * 5 + [vp], i),
+        "icee_lstm_scan_bwd": ([vp] * 25 + [ll] + [i] * 5 + [vp], i),
+        "icee_scan_product_ws": ([i] * 5, ll),
+        "icee_scan_product": ([i, vp, ll, ll, vp, ll, ll, vp, ll, vp]
+                              + [i] * 4 + [vp, ll, vp], i)})

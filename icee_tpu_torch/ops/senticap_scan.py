@@ -1,11 +1,13 @@
 """K8: the teacher-forced SentiCap mRNN training scan, forward and backward.
 
 Port of ``icee_tpu/ops/pallas_senticap_train.py::fused_senticap_scan``.  The
-CUDA kernels are ``csrc/senticap_scan.cu``: ``P = x W_x`` for all B*T rows
-as one tiled product, one launch per step for the recurrence, one per
-reverse step for the backward's (dh, dc) chain with the recurrent dh clamped
-to +-gclip (GradClip on h; the output cotangent is not clamped), then dW and
-dx as products over all rows (``csrc/gemm_f32.cuh``).
+CUDA kernels are ``csrc/senticap_scan.cu``: ``P = x W_x`` for all B*T rows,
+then dW and dx, as products on the tensor cores at float32 accuracy
+(3xTF32, ``csrc/planes_product.cuh`` and ``csrc/gemm_tf32x3.cuh``), and the
+recurrence as one cooperative launch a direction (``csrc/scan_grid.cuh``,
+launch plan ``ops/scan_grid.py::scan_plan``), the backward's recurrent dh
+clamped to +-gclip after its whole sum (GradClip on h; the output
+cotangent is not clamped).
 
 :func:`fused_senticap_scan` is a ``torch.autograd.Function`` whose forward
 is :func:`senticap_scan_fwd` and whose backward is :func:`senticap_scan_bwd`.
@@ -25,8 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, scan_grid
 from icee_tpu_torch.ops.lstm_scan import _shift
+
+WHAT = "K8 (csrc/senticap_scan.cu)"
 
 
 def check_scan_inputs(w_lstm: torch.Tensor, x: torch.Tensor
@@ -113,6 +117,17 @@ def senticap_scan_bwd_plain(w_lstm: torch.Tensor, x: torch.Tensor,
 
 # --- kernel wrappers ----------------------------------------------------------
 
+def _workspace(lib, plan, b, t, e, h, direction: int, device):
+    """The C side's workspace of one direction (0 forward, 1 backward)
+    and its plan struct."""
+    cplan = plan.c_struct()
+    sizes = (ctypes.c_longlong * 2)()
+    lib.icee_senticap_scan_workspace(ctypes.byref(cplan), b, t, e, h,
+                                     ctypes.byref(sizes))
+    return cplan, torch.empty((sizes[direction],), dtype=torch.float32,
+                              device=device)
+
+
 def senticap_scan_fwd(w_lstm: torch.Tensor, x: torch.Tensor, gclip=5.0
                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Optional[torch.Tensor]]:
@@ -127,21 +142,24 @@ def senticap_scan_fwd(w_lstm: torch.Tensor, x: torch.Tensor, gclip=5.0
         return h_seq, c_seq, None
     if device.type != "cuda":
         raise ValueError(f"senticap_scan_fwd: unsupported device {device}")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     f32 = dict(dtype=torch.float32, device=device)
     h_seq = torch.empty((b, t, h), **f32)
     c_seq = torch.empty((b, t, h), **f32)
     gates = torch.empty((b * t, 4 * h), **f32)
     p = cuda_lib.ptr
     lib = _library()
-    rc = lib.icee_senticap_scan_fwd(p(x), p(w_lstm), p(h_seq), p(c_seq),
-                                    p(gates), b, t, e, h,
+    cplan, ws = _workspace(lib, plan, b, t, e, h, 0, device)
+    rc = lib.icee_senticap_scan_fwd(ctypes.byref(cplan), p(x), p(w_lstm),
+                                    p(h_seq), p(c_seq), p(gates), p(ws),
+                                    ws.numel(), b, t, e, h,
                                     cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "senticap_scan_fwd")
     senticap_scan_fwd.launches += 1
     return h_seq, c_seq, gates
 
 
-senticap_scan_fwd.launches = 0  # kernel calls (each is 1 product + T steps)
+senticap_scan_fwd.launches = 0  # kernel calls (1 product + 1 recurrence)
 
 
 def senticap_scan_bwd(w_lstm: torch.Tensor, x: torch.Tensor,
@@ -165,26 +183,26 @@ def senticap_scan_bwd(w_lstm: torch.Tensor, x: torch.Tensor,
     cuda_lib.check_tensor("gates", gates, (b * t, 4 * h), torch.float32,
                           device)
     if w_lstm.data_ptr() % 16:
-        raise ValueError("senticap_scan_bwd: w_lstm must be 16-byte aligned "
-                         "(the reverse steps read its rows as float4)")
+        raise ValueError("senticap_scan_bwd: w_lstm must be 16-byte aligned")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     f32 = dict(dtype=torch.float32, device=device)
     h_prev = _shift(h_seq)
     dx = torch.empty((b, t, e), **f32)
     dw = torch.empty((e + h, 4 * h), **f32)
     d_z = torch.empty((b * t, 4 * h), **f32)
-    d_c = torch.empty((b, h), **f32)
     p = cuda_lib.ptr
     lib = _library()
+    cplan, ws = _workspace(lib, plan, b, t, e, h, 1, device)
     rc = lib.icee_senticap_scan_bwd(
-        p(x), p(w_lstm), p(h_prev), p(c_seq), p(gates), p(dh_seq), p(dx),
-        p(dw), p(d_z), p(d_c), b, t, e, h, float(gclip),
-        cuda_lib.stream_ptr(device))
+        ctypes.byref(cplan), p(x), p(w_lstm), p(h_prev), p(c_seq), p(gates),
+        p(dh_seq), p(dx), p(dw), p(d_z), p(ws), ws.numel(), b, t, e,
+        h, float(gclip), cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "senticap_scan_bwd")
     senticap_scan_bwd.launches += 1
     return dx, dw
 
 
-senticap_scan_bwd.launches = 0  # kernel calls (T steps + 3 products)
+senticap_scan_bwd.launches = 0  # kernel calls (1 recurrence + 3 products)
 
 
 class _FusedSenticapScan(torch.autograd.Function):
@@ -218,6 +236,8 @@ def fused_senticap_scan(w_lstm: torch.Tensor, x_seq: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     return cuda_lib.library("senticap_scan", {
-        "icee_senticap_scan_fwd": ([vp] * 5 + [i] * 4 + [vp], i),
-        "icee_senticap_scan_bwd": ([vp] * 10 + [i] * 4 + [f, vp], i)})
+        "icee_senticap_scan_workspace": ([vp] + [i] * 4 + [vp], i),
+        "icee_senticap_scan_fwd": ([vp] * 7 + [ll] + [i] * 4 + [vp], i),
+        "icee_senticap_scan_bwd": ([vp] * 11 + [ll] + [i] * 4 + [f, vp], i)})

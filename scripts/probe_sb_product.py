@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Probe of the product K9 and K10 run every step
-(``icee_tpu_torch/csrc/senticap_beam.cuh``'s ``sb_product_kernel``: 3xTF32
+(``icee_tpu_torch/csrc/planes_product.cuh``'s ``sb_product_kernel``: 3xTF32
 by ``wgmma`` from the weights' pre-split hi / lo planes) on one NVIDIA GPU:
 what its time is made of.
 
@@ -176,7 +176,7 @@ def build(variants) -> dict:
     from icee_tpu_torch.ops import cuda_lib
 
     os.makedirs(PROBE, exist_ok=True)
-    src = open(os.path.join(CSRC, "senticap_beam.cuh")).read()
+    src = open(os.path.join(CSRC, "planes_product.cuh")).read()
     procs = {}
     for name, edits in variants.items():
         text = src
@@ -187,13 +187,15 @@ def build(variants) -> dict:
             text = text.replace(old, new)
         d = os.path.join(PROBE, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "senticap_beam.cuh"), "w") as f:
+        with open(os.path.join(d, "planes_product.cuh"), "w") as f:
             f.write(text)
-        # the source beside the edited header, so that its quoted include
-        # finds that one first; the other headers come from csrc
-        with open(os.path.join(CSRC, "senticap_beam.cu")) as f, \
-                open(os.path.join(d, "senticap_beam.cu"), "w") as g:
-            g.write(f.read())
+        # the source and the header that includes the product beside the
+        # edited header, so that their quoted includes find that one
+        # first; the other headers come from csrc
+        for fn in ("senticap_beam.cu", "senticap_beam.cuh"):
+            with open(os.path.join(CSRC, fn)) as f, \
+                    open(os.path.join(d, fn), "w") as g:
+                g.write(f.read())
         lib = os.path.join(d, "probe.so")
         procs[name] = (subprocess.Popen(
             [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-I", CSRC,

@@ -3,8 +3,13 @@ small shapes that ``chip_smoke.py``'s flagship run does not reach.  K1 and
 K2: a ragged vocab, an input width that is not a multiple of 4, F != H, row
 counts that do not fill a block, several images per K2 search with batch
 padding, research mode, early termination and all-tied logits.  K3 (the
-training scan): B = 3, T = 1, E % 4 != 0, F != H, a style other than 0 with
-zero grads on the other slices, and the same bits on a second run.  The
+training scan): B = 1, 3 and 130 (three 64-row passes), T = 1 and 25,
+E % 4 != 0, F != H, H that the recurrence's unit groups do not divide, a
+style other than 0 with zero grads on the other slices, and the same bits
+on a second run; every product K3 and K8 run over all rows alone at the
+main path's shapes against float64 (at most 4x gemm_f32.cuh's error, the
+same bits twice) and at ragged shapes against its emulation; a hidden
+width no recurrence plan fits refused by name.  The
 chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
 clamp, and the whole loss on the card against the CPU.  K4 (the NIC
 training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
@@ -23,8 +28,9 @@ same bits on a second run, and the attention train steps on the card
 against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
 form against float64 (at most 4x the CUDA-core product's error), its
 emulation, ragged, padded, batched and split shapes, the same bits twice.  K8 and K9 (the SentiCap scan and base beam search) and
-K10 (the switched beam search): a ragged vocabulary, E != H, one image at
-beam 20, all-tied and saturated heads, the trace, beam 1; their products alone
+K10 (the switched beam search): a ragged vocabulary, E != H, K8 at B = 1,
+130 and 129 (H = 528: the forward's blocks take 192 rows), gclip 0.01 where
+the clamp binds, one image at beam 20, all-tied and saturated heads, the trace, beam 1; their products alone
 (3xTF32 by wgmma from pre-split planes) against float64 at the decode's
 shapes and ragged ones, at both tile widths, and their row
 selection against its plain emulation; the mixture CE's value
@@ -217,7 +223,11 @@ def _close_scaled(got, want, rel=1e-3):
 @pytest.mark.parametrize("b,t,e,f,h,style", [
     (3, 4, 30, 48, 64, 2),     # B not a multiple of 8, E % 4 != 0, F != H
     (9, 1, 16, 32, 32, 0),     # T = 1
-    (40, 7, 20, 40, 24, 3),    # F > H, rows over two step blocks
+    (40, 7, 20, 40, 24, 3),    # F > H, a backward unit group half full
+    (1, 6, 8, 16, 36, 1),      # B = 1; H = 36: 9 forward unit groups,
+                               # the last backward group a quarter full
+    (3, 25, 12, 24, 44, 2),    # T = 25 at small width, H % 8 != 0
+    (130, 3, 20, 32, 32, 0),   # three 64-row passes
 ])
 def test_lstm_scan_kernels_match_plain(device, b, t, e, f, h, style):
     full = _cell_params(device, e, f, h, seed=b)
@@ -1105,6 +1115,94 @@ def test_tf32x3_wrapper_raises_on_what_the_kernel_does_not_take(device):
         att_scan.tf32x3_product(a, b, "N", torch.zeros(4, device=device))
 
 
+# --- K3's and K8's products over all rows alone -------------------------------
+
+def _scan_product_shapes():
+    """(name, form, M, N, K, batch) of every product over all rows that K3
+    (B 64, T 25, E 300, F = H = 512) and K8 (B 128, T 22, E = H = 512)
+    launch: 'N' and 'T' by wgmma from the weight's planes, 'A' (the weight
+    grads) on gemm_tf32x3.cuh."""
+    n3, n8 = 64 * 25, 128 * 22
+    return [("k3_x_Vw", "N", n3, 2048, 300, 1), ("k3_v_S", "N", n3, 512, 512, 4),
+            ("k3_s_U", "N", n3, 512, 512, 4), ("k3_dz_Ut", "T", n3, 512, 512, 4),
+            ("k3_ds_St", "T", n3, 512, 512, 4),
+            ("k3_dv_Vwt", "T", n3, 300, 2048, 1),
+            ("k3_g_Ww", "A", 512, 2048, n3, 1), ("k3_g_U", "A", 512, 512, n3, 4),
+            ("k3_g_S", "A", 512, 512, n3, 4), ("k3_g_Vw", "A", 300, 2048, n3, 1),
+            ("k8_x_Wx", "N", n8, 2048, 512, 1),
+            ("k8_dZ_Wxt", "T", n8, 512, 2048, 1),
+            ("k8_g_Wx", "A", 512, 2048, n8, 1), ("k8_g_Wh", "A", 512, 2048, n8, 1)]
+
+
+@pytest.mark.parametrize("shape", _scan_product_shapes(), ids=lambda s: s[0])
+def test_scan_products_match_float64_and_keep_their_bits(device, shape):
+    """Each product K3 and K8 run over all rows, alone at its main-path
+    shape (batched operands strided as the scans keep them): its error
+    against float64 at most 4x that of gemm_f32.cuh's product on the same
+    inputs, the same bits twice; 'N' with the bias the forward adds."""
+    from icee_tpu_torch.ops import scan_grid
+
+    name, form, m, n, k, batch = shape
+    a, b = _product_operands(device, form, m, n, k, batch, 0,
+                             seed=len(name) + m)
+    bias = None
+    if form == "N":
+        bias = torch.randn((batch, n) if batch > 1 else (n,),
+                           generator=torch.Generator().manual_seed(4)).to(
+                               device)
+    before = scan_grid.scan_product.launches
+    got = scan_grid.scan_product(a, b, form, bias)
+    again = scan_grid.scan_product(a, b, form, bias)
+    f32 = att_scan.f32_product(a, b, form, bias)
+    ref = att_scan._as_mk(a, form).double() @ att_scan._as_kn(b, form).double()
+    if bias is not None:
+        ref = ref + (bias[:, None] if bias.dim() == 2 else bias).double()
+    torch.cuda.synchronize()
+    assert scan_grid.scan_product.launches == before + 2
+    assert got.shape == ((batch,) if batch > 1 else ()) + (m, n)
+    assert torch.equal(got, again)
+    err = (got.double() - ref).abs().max().item()
+    err_f32 = (f32.double() - ref).abs().max().item()
+    assert 0.0 < err_f32 and err <= 4.0 * err_f32, (err, err_f32)
+
+
+@pytest.mark.parametrize("form,m,n,k,batch", [
+    ("N", 37, 70, 45, 3),    # ragged everywhere, three weights
+    ("T", 5, 33, 100, 1),
+    ("A", 19, 40, 77, 2),
+])
+def test_scan_product_matches_its_emulation_at_ragged_shapes(device, form, m,
+                                                             n, k, batch):
+    from icee_tpu_torch.ops import scan_grid
+
+    a, b = _product_operands(device, form, m, n, k, batch, 3, seed=m)
+    got = scan_grid.scan_product(a, b, form)
+    plain = scan_grid.scan_product(a.cpu(), b.cpu(), form)
+    f32 = att_scan.f32_product(a, b, form)
+    ref = att_scan._as_mk(a, form).double() @ att_scan._as_kn(b, form).double()
+    torch.cuda.synchronize()
+    err_f32 = (f32.double() - ref).abs().max().item()
+    err_plain = (plain.double() - ref.cpu()).abs().max().item()
+    assert (got.cpu() - plain).abs().max().item() <= 4.0 * err_f32 + err_plain
+
+
+def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
+    """H = 1024: no block's slice of W_h fits one an SM; each wrapper
+    raises naming its kernel, and launches nothing."""
+    from icee_tpu_torch.ops import senticap_scan as ss
+
+    h = 1024
+    x = torch.zeros((2, 3, 8), device=device)
+    w = torch.zeros((8 + h, 4 * h), device=device)
+    before = ss.senticap_scan_fwd.launches
+    with pytest.raises(ValueError, match="K8"):
+        ss.senticap_scan_fwd(w, x)
+    assert ss.senticap_scan_fwd.launches == before
+    p = _slice(_cell_params(device, 8, 16, h), 0)
+    with pytest.raises(ValueError, match="K3"):
+        lstm_scan.factored_scan_fwd(p, x)
+
+
 # --- the SentiCap base slice: K8, K9, the step, TF32 -------------------------
 
 def _senticap_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
@@ -1129,6 +1227,10 @@ def _senticap_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
     (3, 1, 13, 16, 0.01),    # T = 1, E % 4 != 0, the clamp binding
     (5, 6, 30, 32, 0.01),    # B not a multiple of 8, the clamp binding
     (8, 4, 12, 8, 5.0),
+    (1, 22, 16, 20, 0.01),   # B = 1, H = 20: groups that do not divide
+    (130, 5, 24, 36, 5.0),   # three 64-row passes, H % 8 != 0
+    (129, 3, 16, 528, 0.01), # 132 unit groups: the forward's blocks
+                             # take 192 rows, three passes each
 ])
 def test_senticap_scan_kernels_match_plain(device, b, t, e, h, gclip):
     from icee_tpu_torch.ops import senticap_scan as ss

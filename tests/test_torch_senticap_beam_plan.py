@@ -1,5 +1,6 @@
 """The host side and the arithmetic of K9 and K10 (the SentiCap beam-20
-searches, ``csrc/senticap_beam.cuh``) that the CPU can check, without JAX:
+searches, ``csrc/senticap_beam.cuh``, their products in
+``csrc/planes_product.cuh``) that the CPU can check, without JAX:
 
 - the row selection's plain emulation (``row_topk_plain``, the kernel's
   steps: each thread's least pair, the threshold, the survivors, their
@@ -35,7 +36,10 @@ from icee_tpu_torch.ops import senticap_decode as sd
 from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
 CSRC = Path(sd.__file__).resolve().parents[1] / "csrc"
-HEADER = (CSRC / "senticap_beam.cuh").read_text()
+# the searches' header and the products' (moved apart once K3 and K8 came
+# to use the product too)
+HEADER = ((CSRC / "senticap_beam.cuh").read_text()
+          + (CSRC / "planes_product.cuh").read_text())
 PLATEAU = -math.log2(1e-37)
 
 
