@@ -1482,7 +1482,7 @@ SCAN_GROUPS = (("products_ms", ("sb_product_kernel", "tf32x3_")),
 
 
 def scan_device_groups(what: str, fn):
-    """Device time (ms) of one K3 or K8 call ``fn`` by launch group, from
+    """Device time (ms) of one K3, K4 or K8 call ``fn`` by launch group, from
     a profiler trace, with each group's launches; fails if the call ran a
     ``gemm_f32.cuh`` product (``gemm_kernel``) or launched its recurrence
     other than once.  None where the trace holds no device time."""
@@ -1522,9 +1522,9 @@ def scan_device_groups(what: str, fn):
 
 def scan_products(kernel: str):
     """(direction, name, form, M, N, K, batch, bias) of every product over
-    all rows that K3 (B_IMAGES x T_STEPS) or K8 (SC_B x SC_T) launches:
-    'N' and 'T' by wgmma from the weight's planes, 'A' (the weight grads)
-    on ``gemm_tf32x3.cuh``."""
+    all rows that K3 or K4 (B_IMAGES x T_STEPS) or K8 (SC_B x SC_T)
+    launches: 'N' and 'T' by wgmma from the weight's planes, 'A' (the
+    weight grads) on ``gemm_tf32x3.cuh``."""
     if kernel == "K3":
         n = B_IMAGES * T_STEPS
         return [("fwd", "x_Vw", "N", n, 4 * F, E, 1, True),
@@ -1537,6 +1537,12 @@ def scan_products(kernel: str):
                 ("bwd", "g_U", "A", F, H, n, 4, False),
                 ("bwd", "g_S", "A", F, F, n, 4, False),
                 ("bwd", "g_Vw", "A", E, 4 * F, n, 1, False)]
+    if kernel == "K4":
+        n = B_IMAGES * T_STEPS
+        return [("fwd", "x_Wih", "N", n, 4 * H, E, 1, True),
+                ("bwd", "dZ_Wiht", "T", n, E, 4 * H, 1, False),
+                ("bwd", "g_Wih", "A", E, 4 * H, n, 1, False),
+                ("bwd", "g_Whh", "A", H, 4 * H, n, 1, False)]
     n = SC_B * SC_T
     return [("fwd", "x_Wx", "N", n, 4 * SC_H, SC_E, 1, False),
             ("bwd", "dZ_Wxt", "T", n, SC_E, 4 * SC_H, 1, False),
@@ -1545,7 +1551,7 @@ def scan_products(kernel: str):
 
 
 def check_scan_products(device, kernel: str):
-    """Phases 7 and 12 (i): every product K3 or K8 runs over all rows,
+    """Phases 7 and 12 (i): every product K3, K4 or K8 runs over all rows,
     alone at its main-path shape (``scan_grid.scan_product``: the weight's
     planes laid out, then the wgmma product; ``gemm_tf32x3.cuh`` for the
     weight grads), batched operands strided as the scan keeps them,
@@ -1759,8 +1765,10 @@ def check_k4(device):
     weight grad <= 1e-3 x its largest magnitude) and the same bits on a
     second run; then cuDNN's ``nn.LSTM`` with the same weights (TF32 off):
     its h against the kernel's (atol 1e-4) and its forward and backward
-    times, the library yardstick.  -> (forward, backward) entries of the
-    kernels line."""
+    times, the library yardstick; one call a direction by launch group
+    (``scan_device_groups``: no ``gemm_f32.cuh`` product, one recurrence
+    launch) and K4's products alone (``check_scan_products``).  ->
+    (forward, backward) entries of the kernels line."""
     import torch
 
     from icee_tpu_torch.ops import nic_scan
@@ -1822,6 +1830,12 @@ def check_k4(device):
         out, _ = lstm(xl)
         torch.autograd.grad(out, lib_inputs, dh)
 
+    groups_f = scan_device_groups(
+        "K4 forward", lambda: nic_scan.nic_scan_fwd(cell, x))
+    groups_b = scan_device_groups(
+        "K4 backward", lambda: nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq,
+                                                     dh, gates))
+    products = check_scan_products(device, "K4")
     ms_f = cuda_ms(lambda: nic_scan.nic_scan_fwd(cell, x), 10)
     plain_f = cuda_ms(lambda: nic_scan.fused_nic_scan_plain(cell, x), 5)
     lib_f = cuda_ms(lib_fwd, 10)
@@ -1845,15 +1859,20 @@ def check_k4(device):
     return (dict(common, name="fused_nic_scan_fwd",
                  replaces="icee_tpu/ops/pallas_nic_train.py:173",
                  max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
-                 bound_ms=bf, bound_by=bf_by, library_ms=lib_f,
-                 library_max_abs_err=lib_err),
+                 bound_ms=bf, bound_by=bf_by,
+                 bound_tf32x3_ms=flops_f / TF32X3_FLOP_PER_S * 1e3,
+                 library_ms=lib_f, library_max_abs_err=lib_err,
+                 device_ms_by_group=groups_f, products=products["fwd"]),
             dict(common, name="fused_nic_scan_bwd",
                  replaces="icee_tpu/ops/pallas_nic_train.py:227",
                  max_abs_err=max((dx - want_dx).abs().max().item(),
                                  *((grads[k] - want_g[k]).abs().max().item()
                                    for k in grads)),
                  max_rel_err=max(rel.values()), ms=ms_b, plain_ms=plain_b,
-                 bound_ms=bb, bound_by=bb_by, library_ms=lib_b))
+                 bound_ms=bb, bound_by=bb_by,
+                 bound_tf32x3_ms=flops_b / TF32X3_FLOP_PER_S * 1e3,
+                 library_ms=lib_b, device_ms_by_group=groups_b,
+                 products=products["bwd"]))
 
 
 def chunked_ce_plain(hid, w, b, tgt, weights, t_chunk, clamp=None):
@@ -1905,14 +1924,117 @@ def training_batch(device, b: int, seed: int):
             torch.ones((b,), dtype=torch.bool, device=device))
 
 
+CE_FWD_KERNELS = ("ce_rows_kernel",)
+CE_BWD_KERNELS = ("ce_grad_rows_kernel", "ce_colsum_groups_kernel",
+                  "ce_target_kernel", "colsum_kernel")
+
+
+def ce_pass_ms(device, logits, tflat, wflat, x, w, b, iters: int = 20):
+    """Device ms of one CE row pass, forward and backward, two ways: cold
+    (after writing a buffer twice the L2's 50 MB, the chunk copied in
+    first for the backward) and as the main path runs it (right after the
+    ``addmm`` that writes the chunk from x, w, b).  Each is the summed
+    device time of the pass's own kernels (``CE_FWD_KERNELS``,
+    ``CE_BWD_KERNELS``) in a profiler trace of ``iters`` runs, over
+    ``iters``; by CUDA events around the pass (host gaps included) where
+    the trace holds none of them.  -> {"fwd_cold_ms", "fwd_after_addmm_ms",
+    "bwd_cold_ms", "bwd_after_addmm_ms"}"""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    flush = torch.empty((100 << 20) // 4, device=device)
+    scratch = torch.empty_like(logits)
+    db = torch.zeros((logits.shape[1],), device=device)
+    one = torch.ones((1,), device=device)
+    lse, _ = cl.ce_rows(logits, tflat, wflat)
+
+    def cold_fwd():
+        flush.zero_()
+
+    def cold_bwd():
+        scratch.copy_(logits)
+        flush.zero_()
+
+    def addmm():
+        torch.addmm(b, x, w, out=scratch)
+
+    fwd = {"cold": (cold_fwd, lambda: cl.ce_rows(logits, tflat, wflat)),
+           "after_addmm": (addmm, lambda: cl.ce_rows(scratch, tflat,
+                                                     wflat))}
+    bwd = {"cold": (cold_bwd, lambda: cl.ce_grad_rows(
+        scratch, tflat, wflat, lse, one, db)),
+           "after_addmm": (addmm, lambda: cl.ce_grad_rows(
+               scratch, tflat, wflat, lse, one, db))}
+    out = {}
+    for direction, passes, frags in (("fwd", fwd, CE_FWD_KERNELS),
+                                     ("bwd", bwd, CE_BWD_KERNELS)):
+        for how, (prep, fn) in passes.items():
+            rows = device_time_by_kernel(
+                lambda: [(prep(), fn()) for _ in range(iters)], top=None)
+            ms = sum(r["ms"] for r in rows
+                     if any(f in r["kernel"] for f in frags))
+            if ms <= 0:
+                log("ce_pass_ms: the profiler trace holds no CE kernel; "
+                    "CUDA events")
+                ms = events_after(prep, fn, iters)
+            else:
+                ms /= iters
+            out[f"{direction}_{how}_ms"] = ms
+    return out
+
+
+def events_after(prep, fn, iters: int) -> float:
+    """Mean device ms of ``fn`` alone by CUDA events around it, ``prep``
+    run before each call outside the events."""
+    import torch
+
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        prep()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        pairs.append((a, z))
+    torch.cuda.synchronize()
+    return statistics.mean(a.elapsed_time(z) for a, z in pairs)
+
+
+def ce_grad_rows_raw(logits, tflat, wflat, lse, g, db, accumulate: int):
+    """The backward row pass through the library's entry point with
+    ``accumulate`` as given (the wrapper always adds into db)."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import cuda_lib
+
+    lib = cl._library()
+    r, v = logits.shape
+    ws = torch.empty((lib.icee_ce_grad_ws(r, v),), device=logits.device)
+    p = cuda_lib.ptr
+    rc = lib.icee_ce_grad_rows(p(logits), p(tflat), p(wflat), p(lse), p(g),
+                               p(db), accumulate, p(ws), ws.numel(), r, v,
+                               0.0, 0, cuda_lib.stream_ptr(logits.device))
+    cuda_lib.check_rc(lib, rc, "ce_grad_rows (raw)")
+    return logits
+
+
 def check_ce(device):
     """The CE row passes vs their plain versions, and the whole chunked loss
     (kernel path) vs the plain path and the materialized loss, at 64 x 25
     rows, H = 512, V = 8192, lengths 8..25, two masked rows; t_chunk 25
     (auto) and 22 (the emotion batch's, not dividing T); the clamp form.
     Tolerances: lse and w*nll atol 1e-4 (values ~9, float32 sums over 8192
-    terms in other orders); dl 1e-4 x its largest magnitude; the loss atol
-    1e-5 and each grad 1e-3 x its largest magnitude (as phase 7).
+    terms in other orders); dl and db 1e-4 x their largest magnitude, db
+    added into ones (accumulate on) and written alone (off); the loss atol
+    1e-5 and each grad 1e-3 x its largest magnitude (as phase 7).  Both
+    passes give the same bits twice.  Times: by CUDA events, and
+    ``ce_pass_ms``'s cold and after-addmm device times.
     -> (forward entry, backward entry, whole-loss stats)."""
     import torch
     import torch.nn.functional as Fn
@@ -1936,12 +2058,17 @@ def check_ce(device):
     logits = torch.addmm(b, hid.reshape(n, H), w)
     tflat, wflat = tgt.reshape(n), weights.reshape(n)
     errs = {}
+    one = torch.ones((1,), device=device)
     for clamp in (None, 8.0):
         lse, contrib = cl.ce_rows(logits, tflat, wflat, clamp)
+        lse2, contrib2 = cl.ce_rows(logits, tflat, wflat, clamp)
         want_lse, want_c = cl.ce_rows_plain(logits, tflat, wflat, clamp)
-        db = torch.zeros((V,), device=device)
-        dl = cl.ce_grad_rows(logits.clone(), tflat, wflat, lse,
-                             torch.ones((1,), device=device), db, clamp)
+        db = torch.ones((V,), device=device)
+        dl = cl.ce_grad_rows(logits.clone(), tflat, wflat, lse, one, db,
+                             clamp)
+        db2 = torch.ones((V,), device=device)
+        dl2 = cl.ce_grad_rows(logits.clone(), tflat, wflat, lse, one, db2,
+                              clamp)
         want_dl, want_db = cl.ce_grad_rows_plain(
             logits, tflat, wflat, want_lse,
             torch.ones((), device=device), clamp)
@@ -1949,12 +2076,22 @@ def check_ce(device):
         e = {"lse": (lse - want_lse).abs().max().item(),
              "w_nll": (contrib - want_c).abs().max().item(),
              "dl_rel": max_rel_err(dl, want_dl),
-             "db_rel": max_rel_err(db, want_db)}
+             "db_rel": max_rel_err(db - 1.0, want_db)}
+        if clamp is None:   # accumulate off: db written, not added to
+            db_off = torch.full((V,), 7.0, device=device)
+            ce_grad_rows_raw(logits.clone(), tflat, wflat, lse, one, db_off,
+                             0)
+            torch.cuda.synchronize()
+            e["db_off_rel"] = max_rel_err(db_off, want_db)
         for name, err in e.items():
             if not err <= 1e-4:
                 fail(f"CE rows (clamp {clamp}): {name} error {err} > 1e-4")
+        if not (torch.equal(lse, lse2) and torch.equal(contrib, contrib2)
+                and torch.equal(dl, dl2) and torch.equal(db, db2)):
+            fail(f"CE rows (clamp {clamp}): two runs on the same inputs "
+                 "differ")
         errs[f"clamp_{clamp}"] = e
-    log(f"CE rows: errors {errs}")
+    log(f"CE rows: errors {errs}; bit-identical over two runs")
 
     # the whole loss: kernel path vs plain path vs materialized
     whole = {}
@@ -2002,6 +2139,9 @@ def check_ce(device):
         logits, tflat, wflat, lse, one.reshape(()), None), 20)
     bf, bf_by = bound_ms(5 * n * V, 4 * (n * V + 4 * n))
     bb, bb_by = bound_ms(5 * n * V, 4 * (2 * n * V + 3 * n + V))
+    passes = ce_pass_ms(device, logits, tflat, wflat, hid.reshape(n, H), w,
+                        b)
+    log(f"CE row passes, device ms: {passes}")
 
     hk, wk, bk = (a.detach().clone().requires_grad_(True) for a in (hid, w, b))
     y_ignore = torch.where(mask, tgt, -100).reshape(n)
@@ -2029,12 +2169,16 @@ def check_ce(device):
                  max_abs_err=max(max(e["lse"], e["w_nll"])
                                  for e in errs.values()),
                  ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
+                 cold_ms=passes["fwd_cold_ms"],
+                 after_addmm_ms=passes["fwd_after_addmm_ms"],
                  library_ms=lib_f,
                  library_note="F.cross_entropy(logits, y, reduction='none')"),
             dict(common, name="ce_grad_rows",
                  replaces="icee_tpu/ops/chunked_loss.py:103 (_ce_bwd)",
                  max_abs_err=max(e["dl_rel"] for e in errs.values()),
                  ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by,
+                 cold_ms=passes["bwd_cold_ms"],
+                 after_addmm_ms=passes["bwd_after_addmm_ms"],
                  library_ms=None,
                  library_note="no single PyTorch call forms (softmax - "
                               "onehot) * w * g and its column sum"),
@@ -4254,6 +4398,8 @@ def main() -> int:
     k4f, k4b = check_k4(device)
     log("phase 7 (i): K3's products ok: " + scan_products_line(
         {"fwd": k3f["products"], "bwd": k3b["products"]}))
+    log("phase 7 (i): K4's products ok: " + scan_products_line(
+        {"fwd": k4f["products"], "bwd": k4b["products"]}))
     log(f"phase 7: K3 ok, forward {k3f['ms']:.3f} ms (plain "
         f"{k3f['plain_ms']:.3f}, bound {k3f['bound_ms']:.3f}, 3xTF32 floor "
         f"{k3f['bound_tf32x3_ms']:.3f}; device ms by group: "
@@ -4262,12 +4408,19 @@ def main() -> int:
         f"{k3b['bound_ms']:.3f}, 3xTF32 floor {k3b['bound_tf32x3_ms']:.3f}; "
         f"device ms by group: {groups_line(k3b['device_ms_by_group'])}); "
         f"K4 ok, forward {k4f['ms']:.3f} ms (plain "
-        f"{k4f['plain_ms']:.3f}, cuDNN {k4f['library_ms']:.3f}), backward "
-        f"{k4b['ms']:.3f} ms (plain {k4b['plain_ms']:.3f}, cuDNN "
-        f"{k4b['library_ms']:.3f})")
+        f"{k4f['plain_ms']:.3f}, cuDNN {k4f['library_ms']:.3f}, bound "
+        f"{k4f['bound_ms']:.3f}, 3xTF32 floor {k4f['bound_tf32x3_ms']:.3f}; "
+        f"device ms by group: {groups_line(k4f['device_ms_by_group'])}), "
+        f"backward {k4b['ms']:.3f} ms (plain {k4b['plain_ms']:.3f}, cuDNN "
+        f"{k4b['library_ms']:.3f}, bound {k4b['bound_ms']:.3f}, 3xTF32 floor "
+        f"{k4b['bound_tf32x3_ms']:.3f}; device ms by group: "
+        f"{groups_line(k4b['device_ms_by_group'])})")
     cef, ceb, ce_whole = check_ce(device)
-    log(f"phase 8: CE ok, rows {cef['ms']:.4f} ms, grad rows "
-        f"{ceb['ms']:.4f} ms; whole loss fwd+bwd {ce_whole}")
+    log(f"phase 8: CE ok, rows {cef['ms']:.4f} ms (cold "
+        f"{cef['cold_ms']:.4f}, after addmm {cef['after_addmm_ms']:.4f}, "
+        f"bound {cef['bound_ms']:.4f}), grad rows {ceb['ms']:.4f} ms (cold "
+        f"{ceb['cold_ms']:.4f}, after addmm {ceb['after_addmm_ms']:.4f}, "
+        f"bound {ceb['bound_ms']:.4f}); whole loss fwd+bwd {ce_whole}")
     train_launches, train = train_phase(device)
     nic_launches, train["nic"] = train_phase(device, factored=False)
     train["chunked_ce_fwd_bwd"] = ce_whole

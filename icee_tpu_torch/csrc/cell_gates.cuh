@@ -2,7 +2,8 @@
 // FactoredLSTM), K4 (nic_scan.cu, the torch-order LSTM), K5 (att_scan.cu,
 // the attention decoders, whose cells are these two) and K8
 // (senticap_scan.cu, the SentiCap mRNN).  Each is the Gates interface of
-// scan_step.cuh:
+// scan_grid.cuh's recurrence (K5 calls the same functions from its own
+// step loop):
 //   forward(z, b, acc, H, j, c_prev, &c_new, &h_new): z points at the row's
 //     4H input-side values, acc[g] = (h_{t-1} W)[g H + j]; overwrites
 //     z[g H + j] with the gate activations the backward reads;
@@ -10,9 +11,12 @@
 //     to step t - 1; writes dz[g H + j];
 //   kClipCarry: whether the recurrent dh is clamped to [-gclip, gclip]
 //     before it joins the next reverse step.
+// scan_grid.cuh's backward gate pass hands both functions its shared
+// memory tiles with a stride in place of H (H = per, j = the element), and
+// dz aliases gates there: a policy reads every gate before it writes dz.
 #pragma once
 
-#include "scan_step.cuh"
+#include "scan_step.cuh"   // sigm, ICEE_TRY
 
 namespace icee {
 

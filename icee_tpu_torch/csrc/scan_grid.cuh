@@ -1,14 +1,14 @@
 // The recurrence of the teacher-forced training scans K3 (lstm_scan.cu,
-// the FactoredLSTM) and K8 (senticap_scan.cu, the SentiCap mRNN) as ONE
-// cooperative launch a direction, with each block's slice of W_h (H, 4H)
+// the FactoredLSTM), K4 (nic_scan.cu, the torch-order LSTM) and K8
+// (senticap_scan.cu, the SentiCap mRNN) as ONE cooperative launch a
+// direction, with each block's slice of W_h (H, 4H)
 // resident in shared memory for all T steps and each step's product on the
 // tensor cores at float32 accuracy (3xTF32 wgmma).
 //
 //   forward  scan_fwd_grid_kernel: for t = 0 .. T-1, z_t = (input side)_t
 //            (+) (h_{t-1} W_h [+ b]) and the gates (a cell_gates.cuh
-//            policy: the input side first, then the recurrent sum, as the
-//            step kernels of scan_step.cuh add them); one grid barrier a
-//            step.  Block (row group, unit group) owns `f_rows` batch rows
+//            policy: the input side first, then the recurrent sum); one
+//            grid barrier a step.  Block (row group, unit group) owns `f_rows` batch rows
 //            and `f_units` hidden units j, i.e. the 4 f_units gate columns
 //            g H + j of W_h (all H rows of them, resident).  It reads
 //            h_{t-1} (its rows x H) from L2 a step.

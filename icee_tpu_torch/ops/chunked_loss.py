@@ -32,7 +32,12 @@ The row passes are hand-written CUDA kernels (``csrc/chunked_ce.cu``); their
 plain versions :func:`ce_rows_plain`, :func:`ce_grad_rows_plain` and
 :func:`mixture_ce_rows_plain` sit beside them.  Each wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises.
+or raises.  The CE's kernels read a row once: the forward one warp a row,
+each lane an online (max, rescaled sum) over its columns, merged by a
+fixed butterfly; the backward in (column slab, row group) blocks whose column
+sums are added in group order by a second launch.
+:func:`ce_rows_partition_plain` and :func:`ce_grad_rows_partition_plain`
+emulate that partition and its order of sums in tensor ops.
 """
 
 from __future__ import annotations
@@ -104,6 +109,92 @@ def ce_grad_rows_plain(logits: torch.Tensor, targets: torch.Tensor,
     return dl, dl.sum(dim=0)
 
 
+# --- row passes: the kernels' partition, emulated -----------------------------
+
+# csrc/chunked_ce.cu's geometry
+CER_ROWS = 4         # forward: rows of a block, one warp each
+CER_UNROLL = 8       # forward: groups a lane sums a chunk
+CEG_THREADS = 256    # backward: threads of a block, VW columns each
+CEG_ROWS = 64        # backward: rows of a group
+CEG_UNROLL = 8       # backward: rows whose loads a thread keeps in flight
+
+
+def _ce_ref(m: torch.Tensor) -> torch.Tensor:
+    """The kernels' reference for exp: the max, 0 where it is -inf."""
+    return torch.where(m == -torch.inf, torch.zeros_like(m), m)
+
+
+def ce_rows_partition_plain(logits: torch.Tensor, targets: torch.Tensor,
+                            weights: torch.Tensor,
+                            clamp: Optional[float] = None, vw: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ce_rows_plain` in the forward kernel's partition and order:
+    lane l of a row's warp sums the ``vw``-float groups q = l mod 32
+    (``vw`` 4 where V % 4 == 0, else 1, as the kernel picks for an aligned
+    row), CER_UNROLL groups a chunk; per chunk its max, the lane's sum
+    rescaled once, then the chunk's terms in order; the 32 lanes' (max,
+    sum) pairs merged by a butterfly (offsets 16 .. 1).  -> (lse, w *
+    nll), each (R,)."""
+    r, v = logits.shape
+    vw = vw or (4 if v % 4 == 0 else 1)
+    nq = v // vw
+    span = 32 * CER_UNROLL
+    groups = torch.cat([logits.reshape(r, nq, vw), logits.new_full(
+        (r, -nq % span, vw), -torch.inf)], 1)
+    # (R, chunks, CER_UNROLL, lane, vw): group q0 + 32 u + lane
+    groups = groups.reshape(r, -1, CER_UNROLL, 32, vw)
+    m = logits.new_full((r, 32), -torch.inf)
+    s = logits.new_zeros((r, 32))
+    for ch in range(groups.shape[1]):
+        vals = groups[:, ch]                              # (R, U, 32, vw)
+        cm = torch.maximum(m, vals.amax(dim=(1, 3)))
+        ref = _ce_ref(cm)
+        t = s * torch.exp(m - ref)
+        for u in range(CER_UNROLL):
+            e = torch.exp(vals[:, u, :, 0] - ref)
+            for k in range(1, vw):
+                e = e + torch.exp(vals[:, u, :, k] - ref)
+            t = t + e
+        m, s = cm, t
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        m2, s2 = m[:, lanes ^ off], s[:, lanes ^ off]
+        mm = torch.maximum(m, m2)
+        ref = _ce_ref(mm)
+        s = s * torch.exp(m - ref) + s2 * torch.exp(m2 - ref)
+        m = mm
+    lse = m[:, 0] + torch.log(s[:, 0])
+    tgt, _ = _target_logit(logits, targets)
+    nll = lse - tgt
+    if clamp is not None:
+        nll = torch.clamp(nll, max=float(clamp))
+    return lse, weights * nll
+
+
+def ce_grad_rows_partition_plain(logits: torch.Tensor, targets: torch.Tensor,
+                                 weights: torch.Tensor, lse: torch.Tensor,
+                                 g: torch.Tensor, db: torch.Tensor,
+                                 accumulate: bool = True,
+                                 clamp: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """:func:`ce_grad_rows_plain` in the backward kernels' order: dl per
+    element as the plain version forms it; each group of CEG_ROWS rows'
+    column sums row by row in row order, then the groups' sums in group
+    order into ``db`` (added to it where ``accumulate``, in place).
+    -> dl."""
+    dl, _ = ce_grad_rows_plain(logits, targets, weights, lse, g, clamp)
+    total = None
+    for r0 in range(0, dl.shape[0], CEG_ROWS):
+        part = dl[r0]
+        for i in range(r0 + 1, min(r0 + CEG_ROWS, dl.shape[0])):
+            part = part + dl[i]
+        total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros_like(db)
+    db.copy_(db + total if accumulate else total)
+    return dl
+
+
 # --- row passes: kernel wrappers ---------------------------------------------
 
 def _check_rows(logits, targets, weights, device):
@@ -168,8 +259,11 @@ def ce_grad_rows(logits: torch.Tensor, targets: torch.Tensor,
         raise ValueError(f"ce_grad_rows: unsupported device {device}")
     p = cuda_lib.ptr
     lib = _library()
+    ws = torch.empty((lib.icee_ce_grad_ws(r, v),), dtype=torch.float32,
+                     device=device)
     rc = lib.icee_ce_grad_rows(p(logits), p(targets), p(weights), p(lse),
-                               p(g), p(db), 1, r, v, *_clamp_args(clamp),
+                               p(g), p(db), 1, p(ws), ws.numel(), r, v,
+                               *_clamp_args(clamp),
                                cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "ce_grad_rows")
     ce_grad_rows.launches += 1
@@ -554,7 +648,9 @@ def mixture_neglog2_sum_from_hiddens(
 
 def _library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     return cuda_lib.library("chunked_ce", {
         "icee_ce_rows": ([vp] * 5 + [i, i, f, i, vp], i),
-        "icee_ce_grad_rows": ([vp] * 6 + [i, i, i, f, i, vp], i),
+        "icee_ce_grad_ws": ([i, i], ll),
+        "icee_ce_grad_rows": ([vp] * 6 + [i, vp, ll, i, i, f, i, vp], i),
         "icee_mixture_rows": ([vp] * 11 + [i, i, vp], i)})

@@ -2,10 +2,16 @@
 backward.
 
 Port of ``icee_tpu/ops/pallas_nic_train.py::fused_nic_scan``.  The CUDA
-kernels are ``csrc/nic_scan.cu``: ``P = x W_ih + b_ih`` for all B*T rows as
-one tiled product, one launch per step for the recurrence, one per reverse
-step for the backward's (dh, dc) chain, then dW_ih, dW_hh and dx as
-products over all rows and db as a column sum (``csrc/gemm_f32.cuh``).
+kernels are ``csrc/nic_scan.cu``, on K3's and K8's design: ``P = x W_ih +
+b_ih`` for all B*T rows, then dW_ih, dW_hh and dx, as products on the
+tensor cores at float32 accuracy (3xTF32: ``wgmma`` from the weight's TF32
+planes, ``csrc/planes_product.cuh``; ``mma.sync`` for the weight grads,
+``csrc/gemm_tf32x3.cuh``), db as a fixed-order column sum, and the
+recurrence as one cooperative launch a direction (``csrc/scan_grid.cuh``
+with the ``NicGates`` policy of ``csrc/cell_gates.cuh``) whose launch plan
+is ``ops/scan_grid.py::scan_plan``.  A shape with no plan (H above ~700:
+a block's slice of W_hh must fit its SM's shared memory) raises, naming
+K4.
 
 :func:`fused_nic_scan` is a ``torch.autograd.Function`` whose forward is
 :func:`nic_scan_fwd` and whose backward is :func:`nic_scan_bwd`; ``b_ih``
@@ -13,9 +19,10 @@ and ``b_hh`` receive the same gradient, as in the JAX ``custom_vjp``.
 
 Plain versions, beside the kernels: :func:`fused_nic_scan_plain` (the scan
 of ``ops/cells.py::lstm_cell`` from zero state, as ``reference_nic_scan``)
-and :func:`nic_scan_bwd_plain` (the explicit formulas of ``_bwd_kernel``).
-Each wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+and :func:`nic_scan_bwd_plain` (the explicit formulas of ``_bwd_kernel``);
+the kernels' own arithmetic is ``scan_grid.nic_scan_tc_plain`` and
+``nic_scan_bwd_tc_plain``.  Each wrapper takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,11 +32,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, scan_grid
 from icee_tpu_torch.ops.cells import lstm_cell
 from icee_tpu_torch.ops.lstm_scan import _shift
 
 CELL_KEYS = ("W_ih", "W_hh", "b_ih", "b_hh")
+WHAT = "K4 (csrc/nic_scan.cu)"
 
 
 def check_scan_inputs(cell: dict, x: torch.Tensor) -> Tuple[int, int, int,
@@ -113,6 +121,17 @@ def nic_scan_bwd_plain(cell: dict, x: torch.Tensor, h_seq: torch.Tensor,
 
 # --- kernel wrappers ----------------------------------------------------------
 
+def _workspace(lib, plan, b, t, e, h, direction: int, device):
+    """The C side's workspace of one direction (0 forward, 1 backward)
+    and its plan struct."""
+    cplan = plan.c_struct()
+    sizes = (ctypes.c_longlong * 2)()
+    lib.icee_nic_scan_workspace(ctypes.byref(cplan), b, t, e, h,
+                                ctypes.byref(sizes))
+    return cplan, torch.empty((sizes[direction],), dtype=torch.float32,
+                              device=device)
+
+
 def nic_scan_fwd(cell: dict, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K4 forward -> (h_seq, c_seq, gates).  On CUDA, ``gates`` (N, 4H) are
@@ -125,22 +144,24 @@ def nic_scan_fwd(cell: dict, x: torch.Tensor
         return h_seq, c_seq, None
     if device.type != "cuda":
         raise ValueError(f"nic_scan_fwd: unsupported device {device}")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     f32 = dict(dtype=torch.float32, device=device)
     h_seq = torch.empty((b, t, h), **f32)
     c_seq = torch.empty((b, t, h), **f32)
     gates = torch.empty((b * t, 4 * h), **f32)
     p = cuda_lib.ptr
     lib = _library()
+    cplan, ws = _workspace(lib, plan, b, t, e, h, 0, device)
     rc = lib.icee_nic_scan_fwd(
-        p(x), p(cell["W_ih"]), p(cell["b_ih"]), p(cell["W_hh"]),
-        p(cell["b_hh"]), p(h_seq), p(c_seq), p(gates), b, t, e, h,
-        cuda_lib.stream_ptr(device))
+        ctypes.byref(cplan), p(x), p(cell["W_ih"]), p(cell["b_ih"]),
+        p(cell["W_hh"]), p(cell["b_hh"]), p(h_seq), p(c_seq), p(gates),
+        p(ws), ws.numel(), b, t, e, h, cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "nic_scan_fwd")
     nic_scan_fwd.launches += 1
     return h_seq, c_seq, gates
 
 
-nic_scan_fwd.launches = 0  # kernel calls (each is 1 product + T steps)
+nic_scan_fwd.launches = 0  # kernel calls (1 product + 1 recurrence)
 
 
 def nic_scan_bwd(cell: dict, x: torch.Tensor, h_seq: torch.Tensor,
@@ -164,8 +185,8 @@ def nic_scan_bwd(cell: dict, x: torch.Tensor, h_seq: torch.Tensor,
     cuda_lib.check_tensor("gates", gates, (b * t, 4 * h), torch.float32,
                           device)
     if cell["W_hh"].data_ptr() % 16:
-        raise ValueError("nic_scan_bwd: W_hh must be 16-byte aligned (the "
-                         "reverse steps read its rows as float4)")
+        raise ValueError("nic_scan_bwd: W_hh must be 16-byte aligned")
+    plan = scan_grid.plan_on(WHAT, b, h, device)
     f32 = dict(dtype=torch.float32, device=device)
     h_prev = _shift(h_seq)
     dx = torch.empty((b, t, e), **f32)
@@ -173,19 +194,20 @@ def nic_scan_bwd(cell: dict, x: torch.Tensor, h_seq: torch.Tensor,
     d_whh = torch.empty((h, 4 * h), **f32)
     db = torch.empty((4 * h,), **f32)
     d_z = torch.empty((b * t, 4 * h), **f32)
-    d_c = torch.empty((b, h), **f32)
     p = cuda_lib.ptr
     lib = _library()
+    cplan, ws = _workspace(lib, plan, b, t, e, h, 1, device)
     rc = lib.icee_nic_scan_bwd(
-        p(x), p(cell["W_ih"]), p(cell["W_hh"]), p(h_prev), p(c_seq),
-        p(gates), p(dh_seq), p(dx), p(d_wih), p(d_whh), p(db), p(d_z),
-        p(d_c), b, t, e, h, cuda_lib.stream_ptr(device))
+        ctypes.byref(cplan), p(x), p(cell["W_ih"]), p(cell["W_hh"]),
+        p(h_prev), p(c_seq), p(gates), p(dh_seq), p(dx), p(d_wih), p(d_whh),
+        p(db), p(d_z), p(ws), ws.numel(), b, t, e, h,
+        cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, "nic_scan_bwd")
     nic_scan_bwd.launches += 1
     return dx, {"W_ih": d_wih, "W_hh": d_whh, "b_ih": db, "b_hh": db.clone()}
 
 
-nic_scan_bwd.launches = 0  # kernel calls (T steps + 3 products + a sum)
+nic_scan_bwd.launches = 0  # kernel calls (1 recurrence, 3 products, a sum)
 
 
 class _FusedNicScan(torch.autograd.Function):
@@ -218,7 +240,8 @@ def fused_nic_scan(cell: dict, x_seq: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return cuda_lib.library("nic_scan", {
-        "icee_nic_scan_fwd": ([vp] * 8 + [i] * 4 + [vp], i),
-        "icee_nic_scan_bwd": ([vp] * 13 + [i] * 4 + [vp], i)})
+        "icee_nic_scan_workspace": ([vp] + [i] * 4 + [vp], i),
+        "icee_nic_scan_fwd": ([vp] * 10 + [ll] + [i] * 4 + [vp], i),
+        "icee_nic_scan_bwd": ([vp] * 14 + [ll] + [i] * 4 + [vp], i)})

@@ -1,8 +1,9 @@
-"""The host side and the arithmetic of K3's and K8's kernels (the StyleNet
-and SentiCap training scans) that the CPU can check.
+"""The host side and the arithmetic of K3's, K4's and K8's kernels (the
+StyleNet, NIC and SentiCap training scans) that the CPU can check.
 
-Since K3 and K8 were redesigned for the H100, each direction of a scan is
-the products over all B * T rows on the tensor cores at float32 accuracy
+Since K3, K4 and K8 were redesigned for the H100, each direction of a
+scan is the products over all B * T rows on the tensor cores at float32
+accuracy
 (``csrc/planes_product.cuh``'s 3xTF32 ``wgmma`` where one operand is a
 weight, ``csrc/gemm_tf32x3.cuh``'s ``mma.sync`` for the weight grads), and
 the recurrence as ONE cooperative launch (``csrc/scan_grid.cuh``) whose
@@ -13,6 +14,7 @@ blocks keep their slice of W_h in shared memory for all T steps.  Here:
   (the C entry points re-derive it and refuse a plan that differs);
   :class:`_CPlan` is the ctypes mirror of its ``ScanPlan``;
 - :func:`factored_scan_tc_plain`, :func:`factored_scan_bwd_tc_plain`,
+  :func:`nic_scan_tc_plain`, :func:`nic_scan_bwd_tc_plain`,
   :func:`senticap_scan_tc_plain` and :func:`senticap_scan_bwd_tc_plain`:
   the kernels' arithmetic in tensor ops (each product
   ``att_scan.tf32x3_product_plain``'s 3xTF32, the backward's recurrent dh
@@ -143,7 +145,7 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
     """``sg_plan``: among the partitions whose blocks fit one an SM and
     whose shared memory fits a block, the least work a block a step, then
     the fewest words through L2 a step, then more units.  Raises, naming
-    ``what``, where none fits."""
+    ``what`` (the kernel: K3, K4 or K8), where none fits."""
     if b < 1 or h < 1:
         raise ValueError(f"{what}: B = {b}, H = {h}")
     fwd, best = None, None
@@ -201,18 +203,57 @@ def plan_on(what: str, b: int, h: int, device: torch.device) -> ScanPlan:
 # --- the kernels' arithmetic --------------------------------------------------
 
 def _gates_ifoc(z: torch.Tensor, c_prev: torch.Tensor):
-    """[i, f, o, c] gates of pre-activations z (B, 4, H) -> (acts (B, 4,
-    H), c, h = o c)."""
+    """The factored cell's [i, f, o, c] gates of pre-activations z (B, 4,
+    H) -> (acts (B, 4, H), c, h = o c)."""
     i_t, f_t = torch.sigmoid(z[:, 0]), torch.sigmoid(z[:, 1])
     o_t, g_t = torch.sigmoid(z[:, 2]), torch.tanh(z[:, 3])
     c = f_t * c_prev + i_t * g_t
     return torch.stack([i_t, f_t, o_t, g_t], 1), c, o_t * c
 
 
-def _scan_tc_plain(u: torch.Tensor, w_h: torch.Tensor, w_b):
+def _dgates_ifoc(acts, c, c_prev, dh_total, dc_carry):
+    """``FactoredGates::backward`` on (B, 4, H) activations -> (dz (B, 4,
+    H), the dc carried to the step before)."""
+    i_, f_, o_, g_ = (acts[:, q] for q in range(4))
+    d_o = dh_total * c
+    dc = dh_total * o_ + dc_carry
+    d_f = dc * c_prev
+    d_i = dc * g_
+    d_g = dc * i_
+    return torch.stack([d_i * i_ * (1.0 - i_), d_f * f_ * (1.0 - f_),
+                        d_o * o_ * (1.0 - o_), d_g * (1.0 - g_ * g_)],
+                       1), dc * f_
+
+
+def _gates_ifgo(z: torch.Tensor, c_prev: torch.Tensor):
+    """torch's LSTMCell [i, f, g, o] gates of pre-activations z (B, 4, H)
+    -> (acts (B, 4, H), c, h = o tanh(c)) (``NicGates::forward``)."""
+    i_t, f_t = torch.sigmoid(z[:, 0]), torch.sigmoid(z[:, 1])
+    g_t, o_t = torch.tanh(z[:, 2]), torch.sigmoid(z[:, 3])
+    c = f_t * c_prev + i_t * g_t
+    return torch.stack([i_t, f_t, g_t, o_t], 1), c, o_t * torch.tanh(c)
+
+
+def _dgates_ifgo(acts, c, c_prev, dh_total, dc_carry):
+    """``NicGates::backward`` on (B, 4, H) activations -> (dz (B, 4, H),
+    the dc carried to the step before)."""
+    i_, f_, g_, o_ = (acts[:, q] for q in range(4))
+    tanh_c = torch.tanh(c)
+    d_o = dh_total * tanh_c
+    dc = dh_total * o_ * (1.0 - tanh_c * tanh_c) + dc_carry
+    d_i = dc * g_
+    d_f = dc * c_prev
+    d_g = dc * i_
+    return torch.stack([d_i * i_ * (1.0 - i_), d_f * f_ * (1.0 - f_),
+                        d_g * (1.0 - g_ * g_), d_o * o_ * (1.0 - o_)],
+                       1), dc * f_
+
+
+def _scan_tc_plain(u: torch.Tensor, w_h: torch.Tensor, pre, gates):
     """The forward recurrence over the input side u (B, T, 4, H): z_t =
-    u_t + (h_{t-1} W_h [+ W_b]) with the step product 3xTF32 -> (h_seq,
-    c_seq, gate activations (B, T, 4, H))."""
+    ``pre(u_t, acc)`` with acc = h_{t-1} W_h (B, 4, H) a 3xTF32 product
+    (zero at t = 0), then ``gates(z, c_prev)`` -> (h_seq, c_seq, gate
+    activations (B, T, 4, H))."""
     b, t, _, hd = u.shape
     h = u.new_zeros((b, hd))
     c = u.new_zeros((b, hd))
@@ -220,36 +261,27 @@ def _scan_tc_plain(u: torch.Tensor, w_h: torch.Tensor, w_b):
     for step in range(t):
         acc = (tf32x3_product_plain(h, w_h) if step else
                u.new_zeros((b, 4 * hd)))
-        if w_b is not None:
-            acc = acc + w_b.reshape(-1)
-        a, c, h = _gates_ifoc(u[:, step] + acc.reshape(b, 4, hd), c)
+        a, c, h = gates(pre(u[:, step], acc.reshape(b, 4, hd)), c)
         hs.append(h)
         cs.append(c)
         acts.append(a)
     return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(acts, 1)
 
 
-def _chain_tc_plain(acts, c_seq, dh_seq, w_h, plan: ScanPlan, gclip):
-    """The backward recurrence from the saved gate activations: dh_carry
-    = dZ_{s+1} W_h^T as the plan's k ranges, each 3xTF32, added in range
-    order, then clamped to +-gclip (None: no clamp) -> dZ (B, T, 4, H)."""
+def _chain_tc_plain(acts, c_seq, dh_seq, w_h, plan: ScanPlan, gclip,
+                    dgates):
+    """The backward recurrence from the saved gate activations: the gate
+    derivatives ``dgates``, and dh_carry = dZ_{s+1} W_h^T as the plan's k
+    ranges, each 3xTF32, added in range order, then clamped to +-gclip
+    (None: no clamp) -> dZ (B, T, 4, H)."""
     b, t, _, hd = acts.shape
     dz = acts.new_empty((b, t, 4, hd))
     carry = acts.new_zeros((b, hd))
     dc_carry = acts.new_zeros((b, hd))
     c_prev = torch.cat([torch.zeros_like(c_seq[:, :1]), c_seq[:, :-1]], 1)
     for s in reversed(range(t)):
-        i_, f_, o_, g_ = (acts[:, s, q] for q in range(4))
-        dh_total = dh_seq[:, s] + carry
-        d_o = dh_total * c_seq[:, s]
-        dc = dh_total * o_ + dc_carry
-        d_f = dc * c_prev[:, s]
-        d_i = dc * g_
-        d_g = dc * i_
-        dc_carry = dc * f_
-        dz[:, s] = torch.stack([d_i * i_ * (1.0 - i_), d_f * f_ * (1.0 - f_),
-                                d_o * o_ * (1.0 - o_), d_g * (1.0 - g_ * g_)],
-                               1)
+        dz[:, s], dc_carry = dgates(acts[:, s], c_seq[:, s], c_prev[:, s],
+                                    dh_seq[:, s] + carry, dc_carry)
         flat = dz[:, s].reshape(b, 4 * hd)
         carry = None
         for k0 in range(0, 4 * hd, plan.b_kc):
@@ -259,6 +291,12 @@ def _chain_tc_plain(acts, c_seq, dh_seq, w_h, plan: ScanPlan, gclip):
         if gclip is not None:
             carry = carry.clamp(-gclip, gclip)
     return dz
+
+
+def _h_prev(h_seq: torch.Tensor) -> torch.Tensor:
+    """(B, T, H) -> h shifted one step (zero at t = 0), (B T, H)."""
+    return torch.cat([torch.zeros_like(h_seq[:, :1]), h_seq[:, :-1]],
+                     1).reshape(-1, h_seq.shape[-1])
 
 
 def factored_scan_tc_plain(params: dict, x: torch.Tensor):
@@ -273,7 +311,9 @@ def factored_scan_tc_plain(params: dict, x: torch.Tensor):
                              params["S_w"], "N", params["S_b"])
     u = tf32x3_product_plain(s, params["U_w"], "N", params["U_b"])
     u = u.transpose(0, 1).reshape(b, t, 4, hd)
-    h_seq, c_seq, acts = _scan_tc_plain(u, params["W_w"], params["W_b"])
+    w_b = params["W_b"]
+    h_seq, c_seq, acts = _scan_tc_plain(
+        u, params["W_w"], lambda u_t, acc: u_t + (acc + w_b), _gates_ifoc)
     return h_seq, c_seq, (v, s.transpose(0, 1).reshape(n, 4 * f), acts)
 
 
@@ -286,11 +326,11 @@ def factored_scan_bwd_tc_plain(params: dict, x: torch.Tensor,
     f, hd = params["U_w"].shape[1], params["W_w"].shape[0]
     n = b * t
     v, s, acts = saved
-    dz = _chain_tc_plain(acts, c_seq, dh_seq, params["W_w"], plan, None)
+    dz = _chain_tc_plain(acts, c_seq, dh_seq, params["W_w"], plan, None,
+                         _dgates_ifoc)
     dzf = dz.reshape(n, 4 * hd)
     dzg = dz.reshape(n, 4, hd).transpose(0, 1)          # (4, n, H)
-    h_prev = torch.cat([torch.zeros_like(h_seq[:, :1]), h_seq[:, :-1]],
-                       1).reshape(n, hd)
+    h_prev = _h_prev(h_seq)
     sg = s.reshape(n, 4, f).transpose(0, 1)
     vg = v.reshape(n, 4, f).transpose(0, 1)
     ds = tf32x3_product_plain(dzg, params["U_w"], "T")   # (4, n, F)
@@ -314,7 +354,8 @@ def senticap_scan_tc_plain(w_lstm: torch.Tensor, x: torch.Tensor):
     b, t, e = x.shape
     hd = w_lstm.shape[1] // 4
     p = tf32x3_product_plain(x.reshape(b * t, e), w_lstm[:e])
-    return _scan_tc_plain(p.reshape(b, t, 4, hd), w_lstm[e:], None)
+    return _scan_tc_plain(p.reshape(b, t, 4, hd), w_lstm[e:],
+                          lambda u_t, acc: u_t + acc, _gates_ifoc)
 
 
 def senticap_scan_bwd_tc_plain(w_lstm: torch.Tensor, x: torch.Tensor,
@@ -326,20 +367,51 @@ def senticap_scan_bwd_tc_plain(w_lstm: torch.Tensor, x: torch.Tensor,
     b, t, e = x.shape
     hd = w_lstm.shape[1] // 4
     n = b * t
-    dz = _chain_tc_plain(acts, c_seq, dh_seq, w_lstm[e:], plan, gclip)
+    dz = _chain_tc_plain(acts, c_seq, dh_seq, w_lstm[e:], plan, gclip,
+                         _dgates_ifoc)
     dzf = dz.reshape(n, 4 * hd)
-    h_prev = torch.cat([torch.zeros_like(h_seq[:, :1]), h_seq[:, :-1]],
-                       1).reshape(n, hd)
     dw = torch.cat([tf32x3_product_plain(x.reshape(n, e), dzf, "A"),
-                    tf32x3_product_plain(h_prev, dzf, "A")], 0)
+                    tf32x3_product_plain(_h_prev(h_seq), dzf, "A")], 0)
     dx = tf32x3_product_plain(dzf, w_lstm[:e], "T").reshape(b, t, e)
     return dx, dw
+
+
+def nic_scan_tc_plain(cell: dict, x: torch.Tensor):
+    """K4's forward arithmetic -> (h_seq, c_seq, gate activations (B, T,
+    4, H)): P = x W_ih + b_ih 3xTF32, then z = (P_t + h W_hh) + b_hh."""
+    b, t, e = x.shape
+    hd = cell["W_hh"].shape[0]
+    p = tf32x3_product_plain(x.reshape(b * t, e), cell["W_ih"], "N",
+                             cell["b_ih"])
+    b_hh = cell["b_hh"].reshape(4, hd)
+    return _scan_tc_plain(p.reshape(b, t, 4, hd), cell["W_hh"],
+                          lambda u_t, acc: (u_t + acc) + b_hh, _gates_ifgo)
+
+
+def nic_scan_bwd_tc_plain(cell: dict, x: torch.Tensor, h_seq: torch.Tensor,
+                          c_seq: torch.Tensor, dh_seq: torch.Tensor, acts,
+                          plan: ScanPlan):
+    """K4's backward arithmetic from the forward's gate activations ->
+    (dx (B, T, E), grads by name; ``b_ih`` and ``b_hh`` the same column
+    sum of dZ)."""
+    b, t, e = x.shape
+    hd = cell["W_hh"].shape[0]
+    n = b * t
+    dz = _chain_tc_plain(acts, c_seq, dh_seq, cell["W_hh"], plan, None,
+                         _dgates_ifgo)
+    dzf = dz.reshape(n, 4 * hd)
+    db = dzf.sum(0)
+    grads = {"W_ih": tf32x3_product_plain(x.reshape(n, e), dzf, "A"),
+             "W_hh": tf32x3_product_plain(_h_prev(h_seq), dzf, "A"),
+             "b_ih": db, "b_hh": db.clone()}
+    dx = tf32x3_product_plain(dzf, cell["W_ih"], "T").reshape(b, t, e)
+    return dx, grads
 
 
 # --- one product alone ---------------------------------------------------------
 
 def scan_product(a, b, form: str = "N", bias=None) -> torch.Tensor:
-    """C = op(a) op(b) [+ bias] as K3 and K8 compute their products over
+    """C = op(a) op(b) [+ bias] as K3, K4 and K8 compute their products over
     all rows (forms as ``att_scan._product_dims``; ``b`` the weight in
     'N' and 'T', whose bias is (N,) or (batch, N); no bias in 'A').  On
     the CPU ``att_scan.tf32x3_product_plain``; on the card the scans'

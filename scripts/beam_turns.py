@@ -342,6 +342,9 @@ def senticap_table(kernel: str, roots, turns, smi: str) -> int:
             if flips:
                 print(f"{key}: turn {t['turn']} vs turn 0: near-tie flips "
                       f"(image, re-score margin) {flips}")
+        same = all(t["senticap"][key]["bits"] == base["bits"] for t in turns)
+        print(f"{key}: " + ("the same bits in every turn, every checkout"
+                            if same else "other bits between checkouts"))
     print("ms by turn (" + ", ".join(roots) + "):")
     for key in order:
         print(f"  {key:36s} " + "  ".join(

@@ -11,9 +11,13 @@ main path's shapes against float64 (at most 4x gemm_f32.cuh's error, the
 same bits twice) and at ragged shapes against its emulation; a hidden
 width no recurrence plan fits refused by name.  The
 chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
-clamp, and the whole loss on the card against the CPU.  K4 (the NIC
+clamp, and the whole loss on the card against the CPU; the one-read
+forward and the slab x row-group backward against the emulation of their
+partition at V = 8192, 8800 and a ragged V, rows not 16-byte aligned, a
+-inf logit, a row of equal logits, the same bits twice.  K4 (the NIC
 training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
-grad, and the same bits on a second run.  K2 with the LSTM cell: both
+grad, and the same bits on a second run; at flagship width against its
+3xTF32 emulation; H = 1024 refused by name.  K2 with the LSTM cell: both
 feature modes, batch padding and an early end; the whole-card search at
 1, 8 and 64 images, k = 1 and 8, images ending at widely different steps,
 the same bits on a second run and on a 3-block grid.  K6 and K7 (the attention
@@ -296,6 +300,62 @@ def test_ce_row_kernels_match_plain(device, rows, vocab, clamp):
     torch.testing.assert_close(db, 1.0 + want_db, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("rows,vocab,clamp,offset", [
+    (1600, 8192, None, 0),   # StyleNet / NIC factual chunk
+    (96, 8800, 8.0, 0),      # SentiCap's vocabulary, the clamp
+    (45, 301, 2.0, 0),       # a ragged V: one float a load
+    (33, 1024, None, 1),     # rows not 16-byte aligned: one float a load
+])
+def test_ce_row_kernels_read_a_row_once_and_keep_their_bits(
+        device, rows, vocab, clamp, offset):
+    """The one-read forward and the slab x row-group backward against their
+    plain versions and the emulation of their partition
+    (``ce_rows_partition_plain``, ``ce_grad_rows_partition_plain``), with
+    a -inf logit, a row of equal logits, targets outside [0, V) and the
+    same bits on a second run."""
+    g = torch.Generator(device=device).manual_seed(rows + vocab)
+    buf = torch.empty(rows * vocab + offset, device=device)
+    logits = buf[offset:].view(rows, vocab)
+    logits.copy_(3.0 * torch.randn((rows, vocab), generator=g,
+                                   device=device))
+    logits[2, 7] = -torch.inf
+    logits[3] = 0.25
+    tgt = torch.randint(0, vocab, (rows,), generator=g, device=device)
+    tgt[0], tgt[1] = vocab, -1
+    wts = torch.rand((rows,), generator=g, device=device)
+    lse, contrib = chunked_loss.ce_rows(logits, tgt, wts, clamp)
+    lse2, contrib2 = chunked_loss.ce_rows(logits, tgt, wts, clamp)
+    want_lse, want_c = chunked_loss.ce_rows_plain(logits, tgt, wts, clamp)
+    emu_lse, emu_c = chunked_loss.ce_rows_partition_plain(logits, tgt, wts,
+                                                          clamp)
+    for want in (want_lse, emu_lse):
+        torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(contrib, want_c, rtol=0, atol=1e-5)
+    torch.testing.assert_close(contrib, emu_c, rtol=0, atol=1e-5)
+    gup = torch.tensor([1.5], device=device)
+    db = torch.ones((vocab,), device=device)
+    db2 = torch.ones((vocab,), device=device)
+    before = chunked_loss.ce_grad_rows.launches
+    dl = chunked_loss.ce_grad_rows(logits.clone(), tgt, wts, lse, gup, db,
+                                   clamp)
+    dl2 = chunked_loss.ce_grad_rows(logits.clone(), tgt, wts, lse, gup, db2,
+                                    clamp)
+    want_dl, want_db = chunked_loss.ce_grad_rows_plain(
+        logits, tgt, wts, lse, gup.reshape(()), clamp)
+    emu_db = torch.ones((vocab,), device=device)
+    chunked_loss.ce_grad_rows_partition_plain(logits, tgt, wts, lse,
+                                              gup.reshape(()), emu_db, True,
+                                              clamp)
+    torch.cuda.synchronize()
+    assert chunked_loss.ce_grad_rows.launches == before + 2
+    torch.testing.assert_close(dl, want_dl, rtol=0, atol=1e-6)
+    torch.testing.assert_close(db, 1.0 + want_db, rtol=0, atol=1e-5)
+    torch.testing.assert_close(db, emu_db, rtol=0, atol=1e-5)
+    assert torch.isfinite(lse).all() and dl[2, 7] == 0
+    for a, b in ((lse, lse2), (contrib, contrib2), (dl, dl2), (db, db2)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("t_chunk", [None, 4])
 def test_chunked_ce_on_the_card_matches_the_cpu(device, t_chunk):
     rng = np.random.default_rng(2)
@@ -383,6 +443,37 @@ def test_nic_scan_kernels_match_plain(device, b, t, e, h):
     assert torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
     assert torch.equal(dx, dx2) and all(torch.equal(grads[k], grads2[k])
                                         for k in nic_scan.CELL_KEYS)
+
+
+def test_nic_scan_kernels_match_their_arithmetic_at_flagship_width(device):
+    """K4 at the main path's B 64, T 25, E 300, H 512 against
+    ``scan_grid.nic_scan_tc_plain`` / ``nic_scan_bwd_tc_plain`` (the
+    kernels' own products and order of sums, 3xTF32): h and c within
+    1e-5, each grad within 1e-4 of its largest magnitude (only expf and
+    tanhf, and the products' tile order, differ), and one recurrence
+    launch a direction."""
+    from icee_tpu_torch.ops import scan_grid
+
+    b, t, e, h = 64, 25, 300, 512
+    cell = _nic_params(device, 8, e, h, seed=3)["cell"]
+    cell["W_hh"] = cell["W_hh"] * (3.0 / h ** 0.5)
+    g = torch.Generator(device=device).manual_seed(4)
+    x = 0.5 * torch.randn((b, t, e), generator=g, device=device)
+    dh = 0.02 * torch.randn((b, t, h), generator=g, device=device)
+    h_seq, c_seq, gates = nic_scan.nic_scan_fwd(cell, x)
+    want_h, want_c, acts = scan_grid.nic_scan_tc_plain(cell, x)
+    torch.testing.assert_close(h_seq, want_h, rtol=0, atol=1e-5)
+    torch.testing.assert_close(c_seq, want_c, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gates.view(b, t, 4, h), acts, rtol=0,
+                               atol=1e-5)
+    dx, grads = nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq, dh, gates)
+    plan = scan_grid.plan_on("K4", b, h, device)
+    want_dx, want_g = scan_grid.nic_scan_bwd_tc_plain(
+        cell, x, h_seq, c_seq, dh, gates.view(b, t, 4, h), plan)
+    torch.cuda.synchronize()
+    _close_scaled(dx, want_dx, 1e-4)
+    for k in nic_scan.CELL_KEYS:
+        _close_scaled(grads[k], want_g[k], 1e-4)
 
 
 def test_nic_scan_autograd_returns_the_shared_bias_grad(device):
@@ -1188,7 +1279,7 @@ def test_scan_product_matches_its_emulation_at_ragged_shapes(device, form, m,
 
 def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
     """H = 1024: no block's slice of W_h fits one an SM; each wrapper
-    raises naming its kernel, and launches nothing."""
+    (K3, K4, K8) raises naming its kernel, and launches nothing."""
     from icee_tpu_torch.ops import senticap_scan as ss
 
     h = 1024
@@ -1201,6 +1292,11 @@ def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
     p = _slice(_cell_params(device, 8, 16, h), 0)
     with pytest.raises(ValueError, match="K3"):
         lstm_scan.factored_scan_fwd(p, x)
+    cell = _nic_params(device, 8, 8, h)["cell"]
+    before = nic_scan.nic_scan_fwd.launches
+    with pytest.raises(ValueError, match="K4"):
+        nic_scan.nic_scan_fwd(cell, x)
+    assert nic_scan.nic_scan_fwd.launches == before
 
 
 # --- the SentiCap base slice: K8, K9, the step, TF32 -------------------------

@@ -3,7 +3,9 @@
 The JAX side runs its Pallas kernel in interpret mode (``interpret=True``)
 and its XLA oracle ``reference_nic_scan``; on the CPU the port's wrappers take
 their plain versions (the CUDA kernels are held against those on the card by
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``).  Inputs come from
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``), and the kernels' own
+arithmetic (``scan_grid.nic_scan_tc_plain``) is held against the Pallas
+kernel through 25 steps.  Inputs come from
 ``numpy.random.default_rng``.
 
 Tolerances: the forward atol 1e-5 (float32 on both sides, BLAS sums in other
@@ -117,6 +119,35 @@ def test_plain_backward_matches_autograd_of_plain_forward():
     for k in KEYS:
         np.testing.assert_allclose(grads[k].numpy(), tc[k].grad.numpy(),
                                    rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_kernel_arithmetic_matches_pallas_through_25_steps():
+    """The CUDA kernels' arithmetic (``scan_grid.nic_scan_tc_plain`` and
+    ``nic_scan_bwd_tc_plain``: 3xTF32 products, the recurrent dh as the
+    plan's k ranges added in order) against the Pallas kernel in
+    interpret mode and ``jax.grad`` of it, through T = 25 steps: h atol
+    1e-4, each gradient within 1e-3 of its largest magnitude (K3's)."""
+    from icee_tpu_torch.ops import scan_grid
+
+    b, t = 6, 25
+    cell, x = _cell(21), _x(22, b, t)
+    cell["W_hh"] = (cell["W_hh"] * 0.5).astype(np.float32)
+    kh = np.random.default_rng(23).standard_normal((b, t, H)).astype(
+        np.float32)
+    want_h = np.asarray(jscan(cell, jnp.asarray(x), None, True))
+    want_g = jax.grad(lambda c, xx: jnp.sum(jscan(c, xx, None, True) * kh),
+                      argnums=(0, 1))(cell, jnp.asarray(x))
+    tc = bridge.to_torch(cell)
+    h_seq, c_seq, acts = scan_grid.nic_scan_tc_plain(tc, torch.tensor(x))
+    np.testing.assert_allclose(h_seq.numpy(), want_h, rtol=0, atol=1e-4)
+    plan = scan_grid.scan_plan("K4", b, H)
+    dx, grads = scan_grid.nic_scan_bwd_tc_plain(
+        tc, torch.tensor(x), h_seq, c_seq, torch.tensor(kh), acts, plan)
+    for got, want in [(dx, want_g[1])] + [(grads[k], want_g[0][k])
+                                          for k in KEYS]:
+        want = np.asarray(want)
+        err = np.abs(got.numpy() - want).max()
+        assert err <= 1e-3 * np.abs(want).max(), err
 
 
 def test_wrappers_check_their_inputs():

@@ -1,10 +1,10 @@
-"""The host side and the arithmetic of K3 and K8 (the StyleNet and
-SentiCap training scans: ``csrc/lstm_scan.cu``, ``csrc/senticap_scan.cu``,
-their recurrence in ``csrc/scan_grid.cuh``) that the CPU can check,
-without JAX:
+"""The host side and the arithmetic of K3, K4 and K8 (the StyleNet, NIC
+and SentiCap training scans: ``csrc/lstm_scan.cu``, ``csrc/nic_scan.cu``,
+``csrc/senticap_scan.cu``, their recurrence in ``csrc/scan_grid.cuh``)
+that the CPU can check, without JAX:
 
 - the recurrence's launch plan (``ops/scan_grid.py::scan_plan``) at the
-  main path's shapes (K3: B 64, H 512; K8: B 128, H 512) and at edge
+  main path's shapes (K3 and K4: B 64, H 512; K8: B 128, H 512) and at edge
   shapes (B 1, 3, 200; H 8, 33, 300): every (row, unit) of the forward and
   every (unit, k) of the backward's product owned by one block, shared
   memory within a block's 227 KB, at most one block an SM, the choice at
@@ -18,7 +18,7 @@ without JAX:
   over T = 25 steps at small width, against the unchanged plain scans and
   float64 within phases 7 and 12's tolerances (h and c atol 1e-4, each
   gradient within 1e-3 of its largest magnitude), K8 at gclip 5.0 and at
-  0.01, where the clamp binds.
+  0.01, where the clamp binds, K4 with H not a multiple of 32.
 
 The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from icee_tpu_torch.ops import cuda_lib, lstm_scan, scan_grid
+from icee_tpu_torch.ops import cuda_lib, lstm_scan, nic_scan, scan_grid
 from icee_tpu_torch.ops import senticap_scan as ss
 
 CSRC = Path(scan_grid.__file__).resolve().parents[1] / "csrc"
@@ -131,6 +131,21 @@ def test_the_main_path_shapes():
     assert k8.b_blocks * 128 * k8.b_kc * 4 == 8 << 20
 
 
+def test_k4_plans_as_k3_at_the_main_path_shape_and_refuses_wide_h():
+    """K4 (B 64, H 512) takes K3's plan: the recurrence depends on (B, H)
+    alone.  Its old step kernels took any H; the resident slice of W_hh
+    caps H at the plan's reach (704 fits, 736 does not)."""
+    k4 = scan_grid.scan_plan(nic_scan.WHAT, 64, 512)
+    assert k4 == scan_grid.scan_plan("K3", 64, 512)
+    assert (k4.f_rows, k4.f_units, k4.f_blocks) == (64, 4, 128)
+    assert (k4.b_units, k4.b_kc, k4.b_splits, k4.b_blocks) == (64, 128, 16,
+                                                               128)
+    for b in (1, 64, 128):
+        assert scan_grid.scan_plan("K4", b, 704).f_blocks > 0
+        with pytest.raises(ValueError, match="K4 .*H = 736"):
+            scan_grid.scan_plan(nic_scan.WHAT, b, 736)
+
+
 def test_a_shape_that_fits_no_partition_raises_naming_the_kernel():
     with pytest.raises(ValueError, match="K3 .*H = 1024"):
         scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 64, 1024)
@@ -202,6 +217,9 @@ def _c_params(source: str, fn: str) -> int:
     (ss, "senticap_scan.cu", "icee_senticap_scan_workspace"),
     (ss, "senticap_scan.cu", "icee_senticap_scan_fwd"),
     (ss, "senticap_scan.cu", "icee_senticap_scan_bwd"),
+    (nic_scan, "nic_scan.cu", "icee_nic_scan_workspace"),
+    (nic_scan, "nic_scan.cu", "icee_nic_scan_fwd"),
+    (nic_scan, "nic_scan.cu", "icee_nic_scan_bwd"),
 ])
 def test_the_ctypes_signatures_match_the_entry_points(module, source, fn,
                                                       monkeypatch):
@@ -219,13 +237,19 @@ def test_the_ctypes_signatures_match_the_entry_points(module, source, fn,
 
 
 def test_no_step_kernel_and_no_cuda_core_product_in_the_scans():
-    """K3 and K8 launch the recurrence once a direction and no product of
-    gemm_f32.cuh: their sources call neither the step kernels nor gemm()."""
-    for name in ("lstm_scan.cu", "senticap_scan.cu"):
+    """K3, K4 and K8 launch the recurrence once a direction and no product
+    of gemm_f32.cuh: their sources call neither a step kernel nor gemm(),
+    and scan_step.cuh defines no step kernel any more."""
+    for name in ("lstm_scan.cu", "senticap_scan.cu", "nic_scan.cu"):
         src = (CSRC / name).read_text()
         assert "fwd_step_kernel" not in src and "bwd_step_kernel" not in src
         assert not re.search(r"\bgemm\(", src)
         assert "scan_fwd_grid<" in src and "scan_bwd_grid<" in src
+        assert "sb_product(" in src and "tf32x3_gemm(" in src
+    nic = (CSRC / "nic_scan.cu").read_text()
+    assert "scan_fwd_grid<NicGates>" in nic and "scan_bwd_grid<NicGates>" in nic
+    step = (CSRC / "scan_step.cuh").read_text()
+    assert "__global__" not in step and "_step_kernel" not in step
 
 
 # --- the kernels' arithmetic ------------------------------------------------------
@@ -316,6 +340,48 @@ def test_k8_arithmetic_through_25_steps(b, e, h, gclip):
     if gclip < 1:   # the clamp binds: it changes dW
         loose = ss.senticap_scan_bwd_plain(w, x, h_seq, c_seq, dh, 1e9)[1]
         assert not torch.allclose(loose, want_dw)
+
+
+def _nic_cell(rng, e, h):
+    def t(a):
+        return torch.tensor(a.astype(np.float32))
+
+    return {"W_ih": t(rng.uniform(-1, 1, (e, 4 * h)) / np.sqrt(e)),
+            "W_hh": t(rng.uniform(-1.5, 1.5, (h, 4 * h)) / np.sqrt(h)),
+            "b_ih": t(0.1 * rng.standard_normal(4 * h)),
+            "b_hh": t(0.1 * rng.standard_normal(4 * h))}
+
+
+@pytest.mark.parametrize("b,e,h", [(6, 20, 36), (3, 13, 44)])
+def test_k4_arithmetic_through_25_steps(b, e, h):
+    rng = np.random.default_rng(7 * b + h)
+    t = 25
+    cell = _nic_cell(rng, e, h)
+    x = torch.tensor((0.5 * rng.standard_normal((b, t, e))).astype(
+        np.float32))
+    dh = torch.tensor((0.02 * rng.standard_normal((b, t, h))).astype(
+        np.float32))
+    plan = scan_grid.scan_plan("K4", b, h)
+    assert plan.b_splits > 1        # the partials are added in order
+    h_seq, c_seq, acts = scan_grid.nic_scan_tc_plain(cell, x)
+    want_h, want_c = nic_scan.fused_nic_scan_plain(cell, x)
+    h64, c64 = nic_scan.fused_nic_scan_plain(_double(cell), x.double())
+    for got, want in ((h_seq, want_h), (c_seq, want_c), (h_seq, h64),
+                      (c_seq, c64)):
+        assert (got.double() - want.double()).abs().max().item() <= 1e-4
+    assert acts.shape == (b, t, 4, h)
+    dx, grads = scan_grid.nic_scan_bwd_tc_plain(cell, x, h_seq, c_seq, dh,
+                                                acts, plan)
+    want_dx, want_g = nic_scan.nic_scan_bwd_plain(cell, x, h_seq, c_seq, dh)
+    dx64, g64 = nic_scan.nic_scan_bwd_plain(
+        _double(cell), x.double(), h_seq.double(), c_seq.double(),
+        dh.double())
+    _close(dx, want_dx)
+    _close(dx.double(), dx64)
+    for k in nic_scan.CELL_KEYS:
+        _close(grads[k], want_g[k])
+        _close(grads[k].double(), g64[k])
+    assert torch.equal(grads["b_ih"], grads["b_hh"])
 
 
 def test_scan_product_takes_the_plain_version_on_the_cpu():
