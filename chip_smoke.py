@@ -28,8 +28,10 @@ Phases, in order; any failure exits non-zero:
    one image (column-split), both timed, with the column-split path's
    device timeline, for the StyleNet+Att cell (``kind="factored"``)
    and the NIC+Att cell (``kind="lstm"``), at A=512, P=14x14, FS=2048,
-   E+FS=2348; and the h0/c0 kernel (``att_init_state``) vs
-   ``init_hidden_state``;
+   E+FS=2348; and the h0/c0 launch (``att_init_state``: K7's own mean
+   and init stages over the whole card) at 1, 2, 8 and 64 images for both
+   decoders vs ``init_hidden_state`` (1e-4) and vs the h0/c0 K7 computes
+   for the same images (atol 0), timed at 1 and 64 images;
 5c. K7 (``mega_att_beam_decode``, one cooperative attention search over
    the whole card) vs the plain search at 1, 2, 8 and 64 images, both
    cells, margin-aware as phase 5, and vs the fused-step path (K6 per
@@ -118,8 +120,10 @@ Phases, in order; any failure exits non-zero:
    last) and captions/s of the median call;
 15. the SentiCap switched model's mixture CE (two heads) vs its plain
    versions at 128 x 22 rows, V=8800, gates U(0.05, 0.95): the row passes
-   at the main path's chunk, the whole loss and every gradient, the same
-   bits twice; times of the row passes and of the whole loss;
+   at the main path's chunk (the forward also vs the emulation of its
+   partition), the whole loss and every gradient, the same bits twice;
+   times of the row passes (CUDA events, and their kernels' device time
+   cold and right after the chunk's two ``addmm``) and of the whole loss;
 16. switch training at the reference's regime (B=128, T=22, E=H=512,
    V=8800, DA_SUM, LAMBDA_N = LAMBDA_GAM = 0.25, dropout on the sentiment
    path, RMSProp over the switch set at lr 1e-4) from a base trained 30
@@ -746,38 +750,87 @@ def k6_line(kind: str, args, serial_args, max_err: float, ties: int):
                              "addmm, log_softmax, topk")
 
 
-def check_att_init(dec, device):
-    """The h0/c0 kernel (the serial path's start, K7's prologue) vs
-    ``init_hidden_state`` at 64 images; -> its entry of the kernels line."""
+INIT_IMAGES = (1, 2, 8, 64)   # K7's shapes; timed at 1 and 64
+INIT_KERNELS = ("att_init_kernel",)   # the h0/c0 launch's, any version
+
+
+def check_att_init(att, device):
+    """Phase 5b: the h0/c0 launch (``att_init_state``: K7's mean and init
+    stages alone, over the whole card) for both attention decoders at 1,
+    2, 8 and 64 images: within 1e-4 of ``init_hidden_state``, equal at
+    atol 0 to the h0/c0 K7 computes for the same images
+    (``att_beam.search_init_state``), the same bits twice.  Timed with
+    the StyleNet+Att weights at one image (the fused-step path's launches)
+    and 64, by CUDA events and by the device time of its kernels in a
+    profiler trace (in all, and launch by launch: the mean's, the init
+    stage's and the gap between), each beside its bound.  -> its entry of
+    the kernels line: the one-image figures, and both shapes' under
+    ``shapes``."""
     import torch
 
     from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_beam import search_init_state
     from icee_tpu_torch.ops.att_decode_step import att_init_state
 
-    feats = att_features(device, B_IMAGES, 9)
-    h0, c0 = att_init_state(dec, feats)
-    wh, wc = att_mod.init_hidden_state(dec, feats)
-    torch.cuda.synchronize()
-    err = max((h0 - wh).abs().max().item(), (c0 - wc).abs().max().item())
-    log(f"att_init_state: {B_IMAGES} images, h0/c0 max abs err {err:.3g}")
-    if not err <= 1e-4:
-        fail(f"att_init_state: h0/c0 error {err} > 1e-4")
-    flops = B_IMAGES * (P * FS + 2 * 2 * FS * H)
-    nbytes = 4 * (B_IMAGES * P * FS + 2 * FS * H + 2 * H
-                  + 2 * B_IMAGES * H)
-    b_ms, b_by = bound_ms(flops, nbytes)
+    err, shapes = 0.0, {}
+    for n in INIT_IMAGES:
+        feats = att_features(device, n, 9)
+        for kind, dec in att.items():
+            h0, c0 = att_init_state(dec, feats)
+            h1, c1 = att_init_state(dec, feats)
+            kh, kc = search_init_state(dec, feats, kind,
+                                       3 if kind == "factored" else 0, K)
+            wh, wc = att_mod.init_hidden_state(dec, feats)
+            torch.cuda.synchronize()
+            e = max((h0 - wh).abs().max().item(),
+                    (c0 - wc).abs().max().item())
+            err = max(err, e)
+            if not e <= 1e-4:
+                fail(f"att_init_state {kind}, {n} images: h0/c0 error {e} "
+                     "> 1e-4")
+            if kh is None or not (torch.equal(h0, kh)
+                                  and torch.equal(c0, kc)):
+                fail(f"att_init_state {kind}, {n} images: h0/c0 differ "
+                     "from K7's (atol 0)")
+            if not (torch.equal(h0, h1) and torch.equal(c0, c1)):
+                fail(f"att_init_state {kind}, {n} images: two runs differ")
+        if n not in (1, B_IMAGES):
+            continue
+        dec = att["factored"]
+        flops = n * (P * FS + 2 * 2 * FS * H)
+        nbytes = 4 * (n * P * FS + 2 * FS * H + 2 * H + 2 * n * H)
+        b_ms, b_by = bound_ms(flops, nbytes)
+
+        def run(dec=dec, feats=feats):
+            return att_init_state(dec, feats)
+
+        shapes[str(n)] = {
+            "ms": cuda_ms(run, 50, 5),
+            "device_ms": kernels_device_ms(run, INIT_KERNELS, 50),
+            "by_launch": launches_device_ms(run, INIT_KERNELS, 50),
+            "plain_ms": cuda_ms(
+                lambda: att_mod.init_hidden_state(dec, feats), 20),
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"att_init_state: {INIT_IMAGES} images, both decoders: h0/c0 max "
+        f"abs err {err:.3g} vs init_hidden_state, = K7's at atol 0, the "
+        "same bits twice; " + "; ".join(
+            f"{n} images {v['ms']:.4f} ms (device {v['device_ms']}, by "
+            f"launch {v['by_launch']}, plain {v['plain_ms']:.4f}, bound "
+            f"{v['bound_ms']:.4f})"
+            for n, v in shapes.items()))
+    top = shapes["1"]
     return {"name": "att_init_state", "route": "cuda",
-            "source": "icee_tpu_torch/csrc/att_decode_step.cu",
+            "source": "icee_tpu_torch/csrc/att_beam.cu",
             "replaces": "icee_tpu/ops/pallas_att_decode.py:456 (the h/c "
                         "init of mega_att_beam_decode, hoisted for the "
                         "serial path as the streamed call hoists it)",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: att_init_state(dec, feats), 20),
-            "plain_ms": cuda_ms(
-                lambda: att_mod.init_hidden_state(dec, feats), 20),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err, "ms": top["ms"],
+            "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
             "library_note": "no single PyTorch call: a mean and two "
-                            "products"}
+                            "products",
+            "shapes": shapes}
 
 
 def att_sequence_scores(dec, kind: str, feats, style: int, tokens, length):
@@ -1010,6 +1063,51 @@ def kernel_rows(prof, top: int | None):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
     return [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]]
+
+
+def kernels_device_ms(fn, frags, iters: int, prep=None):
+    """Device ms a call of ``fn`` spends in the kernels whose names hold
+    one of ``frags``, from a profiler trace of ``iters`` calls (``prep``
+    run before each, outside the count); None where the trace holds no
+    such kernel."""
+    rows = device_time_by_kernel(
+        lambda: [((prep() if prep else None), fn()) for _ in range(iters)],
+        top=None)
+    ms = sum(r["ms"] for r in rows if any(f in r["kernel"] for f in frags))
+    return ms / iters if ms > 0 else None
+
+
+def launches_device_ms(fn, frags, iters: int):
+    """A call of ``fn`` launch by launch: the device ms of each launch of
+    a kernel whose name holds one of ``frags``, by its place in the call,
+    and of the gap between each and the next, means over a profiler trace
+    of ``iters`` calls; None where the trace holds none of them.  ->
+    {"launch_ms": [...], "gap_ms": [...]}"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and any(f in e.name for f in frags)),
+                key=lambda e: e.time_range.start)
+    if not ev or len(ev) % iters:
+        return None
+    per = len(ev) // iters
+    calls = [ev[i * per:(i + 1) * per] for i in range(iters)]
+    return {"launch_ms": [statistics.mean(c[j].time_range.elapsed_us()
+                                          for c in calls) / 1e3
+                          for j in range(per)],
+            "gap_ms": [statistics.mean(c[j + 1].time_range.start
+                                       - c[j].time_range.end
+                                       for c in calls) / 1e3
+                       for j in range(per - 1)]}
 
 
 def device_time_by_kernel(fn, top: int | None = 12):
@@ -1970,16 +2068,11 @@ def ce_pass_ms(device, logits, tflat, wflat, x, w, b, iters: int = 20):
     for direction, passes, frags in (("fwd", fwd, CE_FWD_KERNELS),
                                      ("bwd", bwd, CE_BWD_KERNELS)):
         for how, (prep, fn) in passes.items():
-            rows = device_time_by_kernel(
-                lambda: [(prep(), fn()) for _ in range(iters)], top=None)
-            ms = sum(r["ms"] for r in rows
-                     if any(f in r["kernel"] for f in frags))
-            if ms <= 0:
+            ms = kernels_device_ms(fn, frags, iters, prep)
+            if ms is None:
                 log("ce_pass_ms: the profiler trace holds no CE kernel; "
                     "CUDA events")
                 ms = events_after(prep, fn, iters)
-            else:
-                ms /= iters
             out[f"{direction}_{how}_ms"] = ms
     return out
 
@@ -3711,6 +3804,57 @@ def mixture_inputs(device, base, seed: int):
              params["w_sw"], params["b_sw"]], y, weights)
 
 
+MIX_FWD_KERNELS = ("mixture_rows_kernel", "ce_rows_kernel")
+
+
+def mixture_pass_ms(device, head_o, head_n, yf, co, cn, wf, neg_fac, lse_o,
+                    iters: int = 20):
+    """Device ms of the mixture CE's row passes over one chunk, as
+    ``ce_pass_ms`` times the CE's: the forward (both heads, any version's
+    kernel, ``MIX_FWD_KERNELS``) and the backward (``ce_grad_rows`` over
+    head o's logits with weights -fac and its lse, as phase 15 checks it,
+    ``CE_BWD_KERNELS``), each cold
+    (after writing 100 MB) and right after the ``addmm`` that writes its
+    logits (the forward: both heads' from (x, w, b) = ``head_o``,
+    ``head_n``).  None where a trace holds no such kernel.  -> {"fwd_cold_ms",
+    "fwd_after_addmm_ms", "bwd_cold_ms", "bwd_after_addmm_ms"}"""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    flush = torch.empty((100 << 20) // 4, device=device)
+    lo, ln = (torch.addmm(b, x, w) for x, w, b in (head_o, head_n))
+    scratch = torch.empty_like(lo)
+    db = torch.zeros((lo.shape[1],), device=device)
+    one = torch.ones((1,), device=device)
+
+    def heads():
+        for (x, w, b), out in ((head_o, lo), (head_n, ln)):
+            torch.addmm(b, x, w, out=out)
+
+    def cold_bwd():
+        scratch.copy_(lo)
+        flush.zero_()
+
+    def bwd():
+        cl.ce_grad_rows(scratch, yf, neg_fac, lse_o, one, db)
+
+    def fwd():
+        cl.mixture_ce_rows(lo, ln, yf, co, cn, wf)
+
+    return {
+        "fwd_cold_ms": kernels_device_ms(fwd, MIX_FWD_KERNELS, iters,
+                                         flush.zero_),
+        "fwd_after_addmm_ms": kernels_device_ms(fwd, MIX_FWD_KERNELS, iters,
+                                                heads),
+        "bwd_cold_ms": kernels_device_ms(bwd, CE_BWD_KERNELS, iters,
+                                         cold_bwd),
+        "bwd_after_addmm_ms": kernels_device_ms(
+            bwd, CE_BWD_KERNELS, iters,
+            lambda: torch.addmm(head_o[2], head_o[0], head_o[1],
+                                out=scratch))}
+
+
 def check_mixture_ce(device, base):
     """Phase 15: the mixture CE on the card vs its plain versions at 128 x
     22 rows, H = 512, V = 8800, both heads.  The row passes at the main
@@ -3718,9 +3862,13 @@ def check_mixture_ce(device, base):
     1e-6, w*nll atol 1e-4, dl 1e-4 x its largest magnitude (the backward
     row pass is ``ce_grad_rows`` with weights -fac); the whole loss
     (a sum) rtol 1e-5 and each gradient (hh_o, hh_n, co, cn, both w, both
-    b) within 1e-3 x its largest magnitude, the same bits twice.  Times of
-    the row passes and of the whole loss on the kernel and plain paths.
-    -> (forward entry, backward entry, whole-loss stats)."""
+    b) within 1e-3 x its largest magnitude, the same bits twice (each row
+    pass too); the forward also within the same tolerances of the
+    emulation of its partition (``mixture_rows_partition_plain``).  Times
+    of the row passes (CUDA events; their kernels' device time cold and
+    after the chunk's ``addmm``, ``mixture_pass_ms``) and of the whole
+    loss on the kernel and plain paths.  -> (forward entry, backward
+    entry, whole-loss stats)."""
     import torch
 
     from icee_tpu_torch.ops import chunked_loss as cl
@@ -3736,28 +3884,39 @@ def check_mixture_ce(device, base):
     co, cn, wf = (a[:, :t_chunk].reshape(n).contiguous()
                   for a in (args[2], args[3], weights))
     got = cl.mixture_ce_rows(lo, ln, yf, co, cn, wf)
+    got2 = cl.mixture_ce_rows(lo, ln, yf, co, cn, wf)
     want = cl.mixture_ce_rows_plain(lo, ln, yf, co, cn, wf)
+    emu = cl.mixture_rows_partition_plain(lo, ln, yf, co, cn, wf)
     one = torch.ones((1,), device=device)
     _, _, fac, _ = cl.mixture_row_cotangents(got[2], got[3], co, cn, wf,
                                              one[0])
     neg_fac = (-fac).contiguous()
     db = torch.zeros((SC_V,), device=device)
+    db2 = torch.zeros((SC_V,), device=device)
     dl = cl.ce_grad_rows(lo.clone(), yf, neg_fac, got[0], one, db)
+    dl2 = cl.ce_grad_rows(lo.clone(), yf, neg_fac, got[0], one, db2)
     want_dl, want_db = cl.ce_grad_rows_plain(lo, yf, neg_fac, got[0],
                                              one[0])
     torch.cuda.synchronize()
-    rows = {"lse": max((got[i] - want[i]).abs().max().item()
-                       for i in (0, 1)),
-            "p": max((got[i] - want[i]).abs().max().item() for i in (2, 3)),
-            "w_nll": (got[4] - want[4]).abs().max().item(),
-            "dl": (dl - want_dl).abs().max().item(),
-            "dl_rel": max_rel_err(dl, want_dl),
-            "db_rel": max_rel_err(db, want_db)}
-    limits = {"lse": 1e-4, "p": 1e-6, "w_nll": 1e-4, "dl_rel": 1e-4,
+    rows = {}
+    for tag, ref in (("", want), ("emu_", emu)):
+        rows[tag + "lse"] = max((got[i] - ref[i]).abs().max().item()
+                                for i in (0, 1))
+        rows[tag + "p"] = max((got[i] - ref[i]).abs().max().item()
+                              for i in (2, 3))
+        rows[tag + "w_nll"] = (got[4] - ref[4]).abs().max().item()
+    rows.update({"dl": (dl - want_dl).abs().max().item(),
+                 "dl_rel": max_rel_err(dl, want_dl),
+                 "db_rel": max_rel_err(db, want_db)})
+    limits = {"lse": 1e-4, "p": 1e-6, "w_nll": 1e-4, "emu_lse": 1e-4,
+              "emu_p": 1e-6, "emu_w_nll": 1e-4, "dl_rel": 1e-4,
               "db_rel": 1e-4}
     for name, err in ((k, rows[k]) for k in limits):
         if not err <= limits[name]:
             fail(f"mixture CE rows: {name} error {err} > {limits[name]}")
+    if not (all(torch.equal(a, b) for a, b in zip(got, got2))
+            and torch.equal(dl, dl2) and torch.equal(db, db2)):
+        fail("mixture CE row passes: two runs on the same inputs differ")
 
     out = {}
     for name, fn in (("kernel", cl.mixture_ce_from_hiddens),
@@ -3792,6 +3951,13 @@ def check_mixture_ce(device, base):
                                                     one[0]), 20)
     bf, bf_by = bound_ms(2 * 5 * n * SC_V, 4 * (2 * n * SC_V + 9 * n))
     bb, bb_by = bound_ms(5 * n * SC_V, 4 * (2 * n * SC_V + 3 * n + SC_V))
+    dev_ms = mixture_pass_ms(device, (x_o, args[4], args[5]),
+                             (x_n, args[6], args[7]), yf, co, cn, wf,
+                             neg_fac, got[0])
+    log(f"mixture CE row passes at {n} x {SC_V}: CUDA events forward "
+        f"{ms_f:.4f} ms, backward {ms_b:.4f}; device " + ", ".join(
+            f"{k} {v}" for k, v in dev_ms.items()) + f" (bounds {bf:.4f}, "
+            f"{bb:.4f})")
 
     def path(fn):
         def run():
@@ -3817,11 +3983,14 @@ def check_mixture_ce(device, base):
                  replaces="icee_tpu/ops/chunked_loss.py:289 (_mixture_fwd, "
                           "under mixture_ce_from_hiddens :364 and :194)",
                  max_abs_err=max(rows["lse"], rows["w_nll"]), ms=ms_f,
-                 plain_ms=plain_f, bound_ms=bf, bound_by=bf_by),
+                 plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
+                 cold_ms=dev_ms["fwd_cold_ms"],
+                 after_addmm_ms=dev_ms["fwd_after_addmm_ms"]),
             dict(common, name="ce_grad_rows[mixture]", wrapper="ce_grad_rows",
                  replaces="icee_tpu/ops/chunked_loss.py:297 (_mixture_bwd)",
                  max_abs_err=rows["dl"], ms=ms_b, plain_ms=plain_b,
-                 bound_ms=bb, bound_by=bb_by),
+                 bound_ms=bb, bound_by=bb_by, cold_ms=dev_ms["bwd_cold_ms"],
+                 after_addmm_ms=dev_ms["bwd_after_addmm_ms"]),
             whole)
 
 
@@ -4348,12 +4517,14 @@ def main() -> int:
                                max(serial_err, err), serial_ties + ties)
             stages[k6[kind]["name"]] = split_timeline(
                 lambda a=serial_args: att_decode_step_topk(*a, ktop=K))
-        att_init = check_att_init(att["factored"], device)
+        att_init = check_att_init(att, device)
         log(f"phase 5b: K6 ok, factored {k6['factored']['ms']:.3f} ms "
             f"(serial {k6['factored']['serial_ms']:.3f}) vs plain "
             f"{k6['factored']['plain_ms']:.3f}; lstm {k6['lstm']['ms']:.3f} "
             f"ms (serial {k6['lstm']['serial_ms']:.3f}) vs plain "
-            f"{k6['lstm']['plain_ms']:.3f}; h0/c0 {att_init['ms']:.4f} ms")
+            f"{k6['lstm']['plain_ms']:.3f}; h0/c0 at one image "
+            f"{att_init['ms']:.4f} ms (device {att_init['device_ms']}), 64 "
+            f"images {att_init['shapes'][str(B_IMAGES)]['ms']:.4f}")
         log("phases 4, 5b: column-split path at the serial shape from a "
             "CUDA graph (replay ms, span and stage start/end us): "
             + json.dumps(stages))

@@ -14,7 +14,7 @@
 //
 // Semantics: the research beam of decode/beam.py::beam_search_batched over
 // factored_att_decode_step / rnn_att_decode_step: h0/c0 from the mean
-// spatial feature (init_state), step 1 embeds <start> (the image enters
+// spatial feature (init_hidden_state), step 1 embeds <start> (the image enters
 // only through h0/c0 and the attention context), each step re-attends with
 // the current h, then K2's beam tail.
 //
@@ -57,6 +57,18 @@
 // -fmad=false, and no chain's k range is split across blocks.  So the
 // fused-step path (K6 per step from att_init_state's h0/c0) and this
 // kernel give a beam the same scores bit for bit, at any grid size.
+//
+// Also here, the fused-step path's h0/c0 (icee_att_init_state, for
+// ops/att_decode_step.py::att_init_state): this kernel's own mean
+// (run_mean) and init stage, alone, over the whole card, so that path
+// starts from this kernel's bits.  What bounds it: bytes, the features
+// (1.6 MB an image) and the two weights (8.4 MB), ~3 us at one image and
+// ~33 us at 64; at one image also the 2,048-long fmaf chains
+// (~4 us at 2 GHz), which stay whole, so the init stage's 64 units of 16
+// columns stream their 64-row k chunks through the ring while each chain
+// runs in one thread.  Two launches, the mean's then the stage's (one
+// cooperative launch with a grid barrier between them took about the same
+// device time and needs a zeroed barrier word every call).
 #include "grid_beam.cuh"
 
 namespace icee {
@@ -75,8 +87,18 @@ struct AttGridPlan {
   long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar;
 };
 
+// The plan of the h0/c0 launch (ops/att_beam.py::_CInitPlan mirrors it
+// field by field): its one product stage, the search's init stage, and
+// the mean's offset in the float scratch.
+struct AttInitPlan {
+  long long H, P, FS, n_img, grid, n_stages;
+  long long cw[MAX_STAGES], br[MAX_STAGES], n_slabs[MAX_STAGES],
+      slab0[MAX_STAGES];
+  long long o_mean;
+};
+
 // The mean of each image's P feature rows (a sequential sum over P, then
-// / P: init_state's arithmetic), a thread a column quad; 8 rows' loads in
+// / P), a thread a column quad; 8 rows' loads in
 // flight ahead of their adds.
 __device__ void run_mean(const GridArgs& a) {
   const int nq = a.FS / 4, P = a.P;
@@ -173,9 +195,36 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
   }
 }
 
+// The fused-step path's h0/c0, one launch a part: part 0 the mean, part 1
+// the init stage (every image live with one row, its compact row).
+__global__ void __launch_bounds__(GB_THREADS, 1)
+grid_att_init_kernel(const __grid_constant__ GridArgs a, int part) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Job jobs[MAX_JOBS];
+  __shared__ Stage stages[MAX_STAGES];
+  if (part == 0) {
+    run_mean(a);
+    return;
+  }
+  const Smem sm = carve_smem(smem);
+  load_plan(a, jobs, stages);
+  StepCtx c = step_ctx(a, 0);
+  c.n = a.n_img;
+  run_stage(a, stages[0], sm, c);
+}
+
 }  // namespace icee
 
 using namespace icee;
+
+// The init stage's two jobs: h0 = mean init_h_w + init_h_b and c0 alike,
+// row i of each at out + i * ldo.
+static void init_jobs(Job* j, const float* mean, int FS, int H,
+                      const float* ihw, const float* ihb, const float* icw,
+                      const float* icb, float* h0, float* c0, int ldo) {
+  j[0] = bias_job(ihw, 0, H, FS, 1, H, A_DENSE, mean, FS, 0, ihb, h0, ldo);
+  j[1] = bias_job(icw, 0, H, FS, 1, H, A_DENSE, mean, FS, 0, icb, c0, ldo);
+}
 
 // The jobs both cells share: pre's att2 and gpre (jobs 0, 1; the cell's
 // two are jobs 2, 3), ctx (job 4), and the init stage's h0 and c0 (the
@@ -201,10 +250,8 @@ static void attention_jobs(GridArgs& a, const AttGridPlan& p, float* fs,
   // step 1's h and c rows (row img * k of the parity-1 planes; the live
   // rows of step 1 are the images, in order)
   const size_t plane = (size_t)rows * H;
-  a.jobs[init] = bias_job(ihw, 0, H, FS, 1, H, A_DENSE, fs + p.o_mean, FS, 0,
-                          ihb, fs + p.o_hn + plane, (int)p.k * H);
-  a.jobs[init + 1] = bias_job(icw, 0, H, FS, 1, H, A_DENSE, fs + p.o_mean,
-                              FS, 0, icb, fs + p.o_cn + plane, (int)p.k * H);
+  init_jobs(a.jobs + init, fs + p.o_mean, FS, H, ihw, ihb, icw, icb,
+            fs + p.o_hn + plane, fs + p.o_cn + plane, (int)p.k * H);
 }
 
 // The launch: the plan's shared fields (search_args), then the
@@ -355,4 +402,41 @@ extern "C" int icee_mega_att_beam_decode_lstm(
   stage_of(a, 4, j, 2);           // init
   return att_launch(p, slabs, feats, att1, emb, fullw, fullb, a, fs, is, tok,
                     len, score, stream);
+}
+
+// h0, c0 (n_img, H) of the attention search from feats (n_img, P, FS), as
+// the search computes them before its first step: run_mean into fs + o_mean
+// (n_img, FS), then the init stage, each over `grid` blocks.
+extern "C" int icee_att_init_state(const AttInitPlan* plan, const int* slabs,
+                                   const float* feats, const float* ihw,
+                                   const float* ihb, const float* icw,
+                                   const float* icb, float* h0, float* c0,
+                                   float* fs, void* stream) {
+  const AttInitPlan& p = *plan;
+  if (p.n_img < 1 || p.n_img > MAX_ROWS || p.P < 1 || p.FS < 4 ||
+      p.FS % 4 || p.H < 4 || p.H % 4 || p.grid < 1 || p.n_stages != 1)
+    return cudaErrorInvalidValue;
+  const int H = (int)p.H, FS = (int)p.FS;
+  GridArgs a = {};
+  init_jobs(a.jobs, fs + p.o_mean, FS, H, ihw, ihb, icw, icb, h0, c0, H);
+  a.n_jobs = 2;
+  stage_of(a, 0, 0, 2);
+  cudaError_t e = set_stages(a, 1, p.cw, p.br, p.n_slabs, p.slab0, slabs);
+  if (e != cudaSuccess) return e;
+  a.afeats = feats;
+  a.mean = fs + p.o_mean;
+  a.n_img = (int)p.n_img;
+  a.H = H;
+  a.P = (int)p.P;
+  a.FS = FS;
+  const size_t smem = grid_smem_bytes();
+  e = cudaFuncSetAttribute(grid_att_init_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  grid_att_init_kernel<<<(unsigned)p.grid, GB_THREADS, 0, st>>>(a, 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  grid_att_init_kernel<<<(unsigned)p.grid, GB_THREADS, smem, st>>>(a, 1);
+  return cudaGetLastError();
 }

@@ -9,13 +9,12 @@
 //   alpha = softmax_p(e)
 //   ctx   = sum_p alpha_p feat_p                             (rows, FS)
 //   out   = sigmoid(h f_beta_w + f_beta_b) * ctx
-// init_state is the h0/c0 of the search (_mega_att_kernel's _init, :455):
-// the mean of the image's P feature rows through init_h and init_c.
 //
 // K6's column-split path (split_step.cuh) and K7 (att_beam.cu, on
 // grid_beam.cuh) call att_score and softmax_row, the pieces attend_rows is
-// made of, and write the context and gate chains (K7: init_state's too)
-// out in the same k order.
+// made of, and write the context and gate chains out in the same k order.
+// The search's h0/c0 (_mega_att_kernel's _init, :455) is K7's own stages,
+// which att_beam.cu also runs alone for the fused-step path.
 //
 // So K6 and K7 compute every output as the same fixed chain of fmaf/adds
 // (-fmad=false), and one row's arithmetic does not depend on how many rows
@@ -48,13 +47,6 @@ struct AttWeights {
   const float* __restrict__ fbw;    // (H, FS) f_beta
   const float* __restrict__ fbb;    // (FS,)
   int H, A, P, FS;
-};
-
-struct InitWeights {
-  const float* __restrict__ ihw;  // (FS, H) init_h
-  const float* __restrict__ ihb;  // (H,)
-  const float* __restrict__ icw;  // (FS, H) init_c
-  const float* __restrict__ icb;  // (H,)
 };
 
 // Shared floats attend_rows needs for `rows` rows: att2 then alpha.
@@ -180,34 +172,6 @@ __device__ void attend_rows(const float* hs, int ldh, int rows,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           out[r * ldo + col + j] = sigmoid(acc[r][j] + bb[j]) * out[r * ldo + col + j];
-  }
-  __syncthreads();
-}
-
-// h0, c0 of one image (H floats each, shared or global): the mean of its P
-// feature rows (a sequential sum over P, then / P) into m (shared, FS
-// floats, 16-byte aligned), then m init_h_w + init_h_b and m init_c_w +
-// init_c_b.  FS and H must be multiples of 4.  All threads of the block
-// must call it; it ends with a barrier.
-__device__ inline void init_state(const float* __restrict__ feat, int P,
-                                  int FS, const InitWeights& w, int H,
-                                  float* m, float* h_out, float* c_out) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int f = tid; f < FS; f += nt) {
-    float s = 0.f;
-    for (int p = 0; p < P; ++p) s += feat[(size_t)p * FS + f];
-    m[f] = s / (float)P;
-  }
-  __syncthreads();
-  float acc[1][4];
-  for (int q = tid; q < H / 4; q += nt) {
-    const int col = 4 * q;
-    dot4<1>(m, FS, 1, w.ihw, H, col, FS, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) h_out[col + j] = acc[0][j] + w.ihb[col + j];
-    dot4<1>(m, FS, 1, w.icw, H, col, FS, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c_out[col + j] = acc[0][j] + w.icb[col + j];
   }
   __syncthreads();
 }

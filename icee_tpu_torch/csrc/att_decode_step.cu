@@ -12,11 +12,6 @@
 // beam-major permutation and vocab padding were layout devices of the TPU
 // and are not carried over.
 //
-// Also here: the search's initial state for the fused-step path
-// (att_init, init_state), whose chains K7 (att_beam.cu) computes too, so
-// the fused-step (K6) and whole-search (K7) paths start from the same
-// bits.
-//
 // Two paths, chosen by the shape alone (one image: column-split, several:
 // row-tiled); a row's outputs are the same bits on both.
 //
@@ -72,15 +67,6 @@ att_kernel(const float* __restrict__ x, const float* __restrict__ h,
   attend_rows<ATT_ROWS>(hs, Hp, k, w, feats + (size_t)img * w.P * w.FS,
                         att1 + (size_t)img * w.P * w.A, scratch,
                         x_full + r0 * ldx + E, ldx, alpha_out + r0 * w.P);
-}
-
-__global__ void __launch_bounds__(ATT_THREADS)
-att_init_kernel(const float* __restrict__ feats, int P, int FS,
-                InitWeights w, int H, float* h0, float* c0) {
-  extern __shared__ __align__(16) float m[];  // (FS,)
-  const int img = blockIdx.x;
-  init_state(feats + (size_t)img * P * FS, P, FS, w, H, m, h0 + (size_t)img * H,
-             c0 + (size_t)img * H);
 }
 
 }  // namespace icee
@@ -207,21 +193,4 @@ extern "C" int icee_att_decode_step_topk_lstm_split(
                           LstmWeights{Wih, bih, Whh, bhh, E + FS, H}, Cw, Cb,
                           h_out, c_out, logp, idx, alpha, work, k, E, V, ktop,
                           stream);
-}
-
-// h0, c0 (n_img, H) of the attention search from feats (n_img, P, FS).
-extern "C" int icee_att_init_state(const float* feats, const float* ihw,
-                                   const float* ihb, const float* icw,
-                                   const float* icb, float* h0, float* c0,
-                                   int n_img, int P, int FS, int H,
-                                   void* stream) {
-  if (n_img <= 0 || FS % 4 || H % 4) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * FS;
-  cudaError_t e = cudaFuncSetAttribute(
-      att_init_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  att_init_kernel<<<n_img, ATT_THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      feats, P, FS, InitWeights{ihw, ihb, icw, icb}, H, h0, c0);
-  return cudaGetLastError();
 }

@@ -17,21 +17,24 @@
 // The SentiCap switched model's mixture CE (chunked_loss.py::_mixture_ce, a
 // jax.custom_vjp: forward :265, backward :297, under mixture_ce_from_hiddens
 // :364 and mixture_neglog2_sum_from_hiddens :194) has two heads.  Its
-// forward row pass is mixture_rows_kernel: per row, both heads' lse and
-// target probability p = exp(tgt - lse), then p_mix = co p_o + cn p_n and
-// w * -log(max(p_mix, 1e-37)).  Its backward reuses the CE's backward on
-// each head that needs a gradient, with per-row weights -fac (fac = dL/dp_tgt
-// * p_tgt from the caller) and g = 1, which forms fac (onehot - p) exactly.
+// forward row pass is the CE's forward over both heads' rows (HEADS = 2):
+// per row, both heads' lse and target probability p = exp(tgt - lse),
+// then p_mix = co p_o + cn p_n and w * -log(max(p_mix, 1e-37)).  Its
+// backward reuses the CE's backward on each head that needs a gradient,
+// with per-row weights -fac (fac = dL/dp_tgt * p_tgt from the caller) and
+// g = 1, which forms fac (onehot - p) exactly.
 //
 // What bounds it on the H100: bytes.  Each pass reads (the backward also
 // writes) the (rows, V) float32 chunk: 52 MB at 1600 x 8192, ~16 us at
 // 3.35 TB/s, against a few flops per element (the mixture's forward reads
-// two such chunks, one a head).  What the design does about it:
-//   forward (ce_rows_kernel): one warp a row, CER_ROWS rows a block; the
-//     row is read ONCE, each lane keeping an online (max, rescaled sum)
-//     over its columns (lane l owns the 16-byte groups q = l mod 32),
-//     CER_UNROLL loads a chunk with the next chunk's loads issued before
-//     this one is summed; the lanes' pairs merge by a butterfly of
+// two such chunks, one a head: 99 MB at 1,408 x 8,800, ~30 us).  What the
+// design does about it:
+//   forward (ce_rows_kernel, HEADS rows of one warp: the CE's one, the
+//     mixture's two, one after the other): one warp a row, CER_ROWS rows a
+//     block; each row is read ONCE, each lane keeping an online (max,
+//     rescaled sum) over its columns (lane l owns the 16-byte groups q = l
+//     mod 32), CER_UNROLL loads a chunk with the next chunk's loads issued
+//     before this one is summed; the lanes' pairs merge by a butterfly of
 //     shuffles (offsets 16, 8, 4, 2, 1), whose merge is commutative to the
 //     bit, so every lane ends with the same pair; the target logit is
 //     taken from the registers of the lane that loaded it.  A row V % 4 !=
@@ -52,57 +55,10 @@
 //     logits into a small buffer;
 //   the (B, T, V) logits never exist whole, only one chunk's.
 // Every sum has a fixed order, so a loss gives the same bits on every run.
-// The mixture's forward keeps the first design: one block of CE_THREADS a
-// row, reading the row twice (row_max_sum).
 #include "decode_common.cuh"
 #include "gemm_f32.cuh"   // aligned16
 
 namespace icee {
-
-constexpr int CE_THREADS = 256;   // the mixture forward: a block a row
-constexpr int CE_WARPS = CE_THREADS / 32;
-
-// Block-wide reduction, warps combined in warp order; every thread gets it.
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  v = MAX ? warp_max(v) : warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by an earlier reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-#pragma unroll
-  for (int q = 1; q < CE_WARPS; ++q) t = MAX ? fmaxf(t, red[q]) : t + red[q];
-  return t;
-}
-
-// The row's max m and sum of exp(l - m), block-wide; every thread gets them.
-__device__ void row_max_sum(const float* l, int V, int vec, float* red,
-                            float* m_out, float* s_out) {
-  const int tid = threadIdx.x;
-  float m = -INFINITY;
-  if (vec) {
-    for (int q = tid; q < V / 4; q += CE_THREADS) {
-      const float4 a = reinterpret_cast<const float4*>(l)[q];
-      m = fmaxf(fmaxf(m, fmaxf(a.x, a.y)), fmaxf(a.z, a.w));
-    }
-  } else {
-    for (int c = tid; c < V; c += CE_THREADS) m = fmaxf(m, l[c]);
-  }
-  m = block_reduce<true>(m, red);
-  float s = 0.f;
-  if (vec) {
-    for (int q = tid; q < V / 4; q += CE_THREADS) {
-      const float4 a = reinterpret_cast<const float4*>(l)[q];
-      s += expf(a.x - m) + expf(a.y - m) + expf(a.z - m) + expf(a.w - m);
-    }
-  } else {
-    for (int c = tid; c < V; c += CE_THREADS) s += expf(l[c] - m);
-  }
-  s = block_reduce<false>(s, red);
-  *m_out = m;
-  *s_out = s;
-}
 
 constexpr int CER_ROWS = 4;       // rows of a forward block, one warp each
 constexpr int CER_UNROLL = 8;     // 16-byte loads a lane issues a chunk
@@ -158,26 +114,38 @@ __device__ __forceinline__ void ce_load(const float* l, int q,
   }
 }
 
-// One warp a row.  Lane l sums the VW-float groups q = l mod 32 chunk by
-// chunk (CER_UNROLL groups a lane, in order), the next chunk's loads
-// issued before this one is summed; the lanes then merge by the butterfly,
-// and the lane that loaded the target's group hands its logit round.
+// What a forward launch reads and writes.  HEADS = 1, the CE: l[0], lse[0]
+// and contrib = weights * nll, nll optionally min(nll, clamp).  HEADS = 2,
+// the mixture: l[0] = lo, l[1] = ln, both lse and p = exp(tgt - lse), and
+// contrib = weights * -log(max(co p_o + cn p_n, 1e-37)).
+struct RowArgs {
+  const float* l[2];
+  const long long* targets;
+  const float* weights;
+  const float* co;
+  const float* cn;
+  float* lse[2];
+  float* p[2];
+  float* contrib;
+  int R, V, use_clamp;
+  float clamp;
+};
+
+// One warp's pass over row l (nq VW-float groups; the target's group qy,
+// -1 where none, and its place ky).  Lane l sums the groups q = l mod 32
+// chunk by chunk (CER_UNROLL groups a lane, in order), the next chunk's
+// loads issued before this one is summed; the lanes then merge by the
+// butterfly, and the lane that loaded the target's group hands its logit
+// round.  -> (m, s) and tgt, the same in every lane (tgt 0 where qy < 0).
 template <int VW>
-__global__ void __launch_bounds__(CER_THREADS)
-ce_rows_kernel(const float* __restrict__ logits,
-               const long long* __restrict__ targets,
-               const float* __restrict__ weights, float* lse, float* contrib,
-               int R, int V, float clamp, int use_clamp) {
+__device__ __forceinline__ void warp_row(const float* __restrict__ l, int nq,
+                                         int qy, int ky, float& m, float& s,
+                                         float& tgt) {
   constexpr int span = 32 * CER_UNROLL;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * CER_ROWS + (threadIdx.x >> 5);
-  if (row >= R) return;   // the whole warp
-  const float* l = logits + (long long)row * V;
-  const long long y = targets[row];
-  const bool valid = y >= 0 && y < V;
-  const int nq = V / VW, qy = valid ? (int)(y / VW) : -1;
-  const int ky = valid ? (int)(y % VW) : 0;
-  float m = -INFINITY, s = 0.f, tgt = 0.f;
+  m = -INFINITY;
+  s = 0.f;
+  tgt = 0.f;
   float v[CER_UNROLL][VW], nx[CER_UNROLL][VW];
 #pragma unroll
   for (int u = 0; u < CER_UNROLL; ++u) ce_load<VW>(l, 32 * u + lane, nq, v[u]);
@@ -202,43 +170,43 @@ ce_rows_kernel(const float* __restrict__ logits,
   for (int off = 16; off > 0; off >>= 1)
     ce_merge(m, s, __shfl_xor_sync(FULL, m, off),
              __shfl_xor_sync(FULL, s, off));
-  tgt = __shfl_sync(FULL, tgt, valid ? qy & 31 : 0);
-  if (lane == 0) {
-    const float L = m + logf(s);
-    float nll = L - (valid ? tgt : 0.f);
-    if (use_clamp) nll = fminf(nll, clamp);
-    lse[row] = L;
-    contrib[row] = weights[row] * nll;
-  }
+  tgt = __shfl_sync(FULL, tgt, qy >= 0 ? qy & 31 : 0);
 }
 
-// One block per row of the two heads' logits (R, V) each.
-__global__ void __launch_bounds__(CE_THREADS)
-mixture_rows_kernel(const float* __restrict__ lo, const float* __restrict__ ln,
-                    const long long* __restrict__ targets,
-                    const float* __restrict__ co, const float* __restrict__ cn,
-                    const float* __restrict__ weights, float* lse_o,
-                    float* lse_n, float* p_o, float* p_n, float* contrib,
-                    int V, int vec) {
-  __shared__ float red[CE_WARPS];
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const float* a = lo + (long long)row * V;
-  const float* b = ln + (long long)row * V;
-  float m_o, s_o, m_n, s_n;
-  row_max_sum(a, V, vec, red, &m_o, &s_o);
-  row_max_sum(b, V, vec, red, &m_n, &s_n);
-  if (tid == 0) {
-    const float Lo = m_o + logf(s_o), Ln = m_n + logf(s_n);
-    const long long y = targets[row];
-    const bool valid = y >= 0 && y < V;
-    const float po = expf((valid ? a[y] : 0.f) - Lo);
-    const float pn = expf((valid ? b[y] : 0.f) - Ln);
-    const float pm = co[row] * po + cn[row] * pn;
-    lse_o[row] = Lo;
-    lse_n[row] = Ln;
-    p_o[row] = po;
-    p_n[row] = pn;
-    contrib[row] = weights[row] * -logf(fmaxf(pm, 1e-37f));
+// One warp a row of each of the HEADS logits (R, V), the heads one after
+// the other; lane 0 writes the row's results.
+template <int VW, int HEADS>
+__global__ void __launch_bounds__(CER_THREADS)
+ce_rows_kernel(const __grid_constant__ RowArgs a) {
+  const int row = blockIdx.x * CER_ROWS + (threadIdx.x >> 5);
+  if (row >= a.R) return;   // the whole warp
+  const int V = a.V;
+  const long long y = a.targets[row];
+  const bool valid = y >= 0 && y < V;
+  const int nq = V / VW, qy = valid ? (int)(y / VW) : -1;
+  const int ky = valid ? (int)(y % VW) : 0;
+  float L[HEADS], tgt[HEADS];
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) {
+    float m, s;
+    warp_row<VW>(a.l[h] + (long long)row * V, nq, qy, ky, m, s, tgt[h]);
+    L[h] = m + logf(s);
+  }
+  if ((threadIdx.x & 31) != 0) return;
+  if constexpr (HEADS == 1) {
+    float nll = L[0] - (valid ? tgt[0] : 0.f);
+    if (a.use_clamp) nll = fminf(nll, a.clamp);
+    a.lse[0][row] = L[0];
+    a.contrib[row] = a.weights[row] * nll;
+  } else {
+    const float po = expf((valid ? tgt[0] : 0.f) - L[0]);
+    const float pn = expf((valid ? tgt[1] : 0.f) - L[1]);
+    const float pm = a.co[row] * po + a.cn[row] * pn;
+    a.lse[0][row] = L[0];
+    a.lse[1][row] = L[1];
+    a.p[0][row] = po;
+    a.p[1][row] = pn;
+    a.contrib[row] = a.weights[row] * -logf(fmaxf(pm, 1e-37f));
   }
 }
 
@@ -350,6 +318,21 @@ __global__ void ce_colsum_groups_kernel(const float* __restrict__ part,
 
 using namespace icee;
 
+// The forward row pass over a.R rows of HEADS heads: 16-byte loads where
+// vec (V % 4 == 0 and every head's rows 16-byte aligned), else one float a
+// load.
+template <int HEADS>
+static int launch_rows(const RowArgs& a, bool vec, void* stream) {
+  if (a.R <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (a.R + CER_ROWS - 1) / CER_ROWS;
+  if (vec)
+    ce_rows_kernel<4, HEADS><<<blocks, CER_THREADS, 0, st>>>(a);
+  else
+    ce_rows_kernel<1, HEADS><<<blocks, CER_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* icee_error_string(int code) {
@@ -361,16 +344,17 @@ const char* icee_error_string(int code) {
 int icee_ce_rows(const float* logits, const long long* targets,
                  const float* weights, float* lse, float* contrib, int R,
                  int V, float clamp, int use_clamp, void* stream) {
-  if (R <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (R + CER_ROWS - 1) / CER_ROWS;
-  if (V % 4 == 0 && aligned16(logits))
-    ce_rows_kernel<4><<<blocks, CER_THREADS, 0, st>>>(
-        logits, targets, weights, lse, contrib, R, V, clamp, use_clamp);
-  else
-    ce_rows_kernel<1><<<blocks, CER_THREADS, 0, st>>>(
-        logits, targets, weights, lse, contrib, R, V, clamp, use_clamp);
-  return (int)cudaGetLastError();
+  RowArgs a = {};
+  a.l[0] = logits;
+  a.targets = targets;
+  a.weights = weights;
+  a.lse[0] = lse;
+  a.contrib = contrib;
+  a.R = R;
+  a.V = V;
+  a.clamp = clamp;
+  a.use_clamp = use_clamp;
+  return launch_rows<1>(a, V % 4 == 0 && aligned16(logits), stream);
 }
 
 // The mixture CE's forward row pass over one chunk: logits lo, ln (R, V),
@@ -381,13 +365,22 @@ int icee_mixture_rows(const float* lo, const float* ln,
                       const float* cn, const float* weights, float* lse_o,
                       float* lse_n, float* p_o, float* p_n, float* contrib,
                       int R, int V, void* stream) {
-  if (R <= 0) return 0;
-  const int vec = V % 4 == 0 && aligned16(lo) && aligned16(ln);
-  mixture_rows_kernel<<<R, CE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      lo, ln, targets, co, cn, weights, lse_o, lse_n, p_o, p_n, contrib, V,
-      vec);
-  return (int)cudaGetLastError();
+  RowArgs a = {};
+  a.l[0] = lo;
+  a.l[1] = ln;
+  a.targets = targets;
+  a.weights = weights;
+  a.co = co;
+  a.cn = cn;
+  a.lse[0] = lse_o;
+  a.lse[1] = lse_n;
+  a.p[0] = p_o;
+  a.p[1] = p_n;
+  a.contrib = contrib;
+  a.R = R;
+  a.V = V;
+  return launch_rows<2>(
+      a, V % 4 == 0 && aligned16(lo) && aligned16(ln), stream);
 }
 
 // Floats of icee_ce_grad_rows' workspace for R rows of V: the groups'

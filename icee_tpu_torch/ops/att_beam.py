@@ -12,12 +12,14 @@ context (units of an image's feature columns, the softmax in every block),
 the rest of the cell, the vocabulary head, the per-tile top-k partials and
 each image's beam tail; h0/c0 from the mean feature before step 1.  Only
 the beams still alive run.  :func:`att_grid_plan` is the launch plan the
-kernel reads.  The TPU scheduling knobs (``n_img_block``, ``n_streams``,
-``topk_fold``, ``p_stream``, ``p_tile``, ``_profile``) have no
-counterpart.  :func:`mega_att_beam_decode_plain` is the same search in
-plain PyTorch (``beam_search_batched`` over the decoder's full-vocabulary
-step): the CPU tests use it, and ``chip_smoke.py`` holds the kernel against
-it on the card.
+kernel reads.  :func:`init_state` runs the search's mean and h0/c0 stage
+alone for the fused-step path (``att_decode_step.att_init_state``),
+planned by :func:`att_init_plan`.  The TPU scheduling knobs
+(``n_img_block``, ``n_streams``, ``topk_fold``, ``p_stream``, ``p_tile``,
+``_profile``) have no counterpart.  :func:`mega_att_beam_decode_plain` is
+the same search in plain PyTorch (``beam_search_batched`` over the
+decoder's full-vocabulary step): the CPU tests use it, and
+``chip_smoke.py`` holds the kernel against it on the card.
 
 The search has the research semantics: step 1 embeds ``<start>``; the
 image enters through h0/c0 and the attention context only.  The hoisted
@@ -48,7 +50,7 @@ from icee_tpu_torch.ops.att_decode_step import (K_MAX, KINDS, V_TILE,
 from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
                                      MAX_STAGES, NSLOT, PLAN_ARRAYS,
                                      SLOT_FLOATS, THREADS,
-                                     GridPlan, Job, carve_regions,
+                                     GridPlan, Job, StagePlan, carve_regions,
                                      check_grid, grid_blocks, launch_chunks,
                                      plan_stage, plan_struct,
                                      stage_with_width, slabs_on, tail_floats)
@@ -134,8 +136,8 @@ def att_stage_jobs(kind: str, e: int, f: int, h: int, v: int, a: int,
                    fs: int) -> Tuple[Tuple[Job, ...], ...]:
     """The product stages of a search, in the order ``csrc/att_beam.cu``
     lists them (and, within a stage, its job order): pre, ctx (per image),
-    [vrows, style,] gates, logits, init.  The scores stage, after pre, has
-    no products."""
+    [vrows, style,] gates, logits, init.  The scores stage, after pre,
+    has no products; the mean before init is not a product stage."""
     pre = (Job("att2", 1, a), Job("gpre", 1, fs), Job("hw", 1, 4 * h),
            Job("xpart", 1, 4 * f))
     ctx = (Job("ctx", 1, fs),)
@@ -144,8 +146,13 @@ def att_stage_jobs(kind: str, e: int, f: int, h: int, v: int, a: int,
                 (Job("z", 4, h, gates=True, sets=4),))
     else:
         cell = ((Job("gates", 4, h, gates=True),),)
-    return (pre, ctx, *cell, (Job("logits", 1, v),),
-            (Job("h0", 1, h), Job("c0", 1, h)))
+    return (pre, ctx, *cell, (Job("logits", 1, v),), init_stage_jobs(h))
+
+
+def init_stage_jobs(h: int) -> Tuple[Job, ...]:
+    """The search's last stage, run before step 1 after the mean: h0 and
+    c0 from the mean feature."""
+    return Job("h0", 1, h), Job("c0", 1, h)
 
 
 CTX_STAGE = 1  # the per-image stage: units (slab, live image)
@@ -268,6 +275,16 @@ def mega_att_beam_decode_steps(
     work for a bound (None from the plain version on the CPU).  ``grid``
     launches fewer blocks than the card holds (tests: the bits must not
     change)."""
+    result, steps, _ = _search(params, features, style, batch, start_token,
+                               end_token, k, max_seq_length, kind, grid)
+    return result, steps
+
+
+def _search(params: dict, features: torch.Tensor, style: int, batch: int,
+            start_token: int, end_token: int, k: int, max_seq_length: int,
+            kind: str, grid: Optional[int]):
+    """:func:`mega_att_beam_decode_steps`, plus each launch's (plan,
+    scratch) on the card (an empty list on the CPU)."""
     emb = _embed_table(params, kind)
     device = emb.device
     v, e = emb.shape
@@ -287,7 +304,7 @@ def mega_att_beam_decode_steps(
     if device.type == "cpu":
         return mega_att_beam_decode_plain(params, features, int(style), batch,
                                           start_token, end_token, k,
-                                          max_seq_length, kind), None
+                                          max_seq_length, kind), None, []
     if device.type != "cuda":
         raise ValueError(f"mega_att_beam_decode: unsupported device {device}")
     check_kernel_widths(f, hd, v, a, fs)
@@ -307,7 +324,7 @@ def mega_att_beam_decode_steps(
     fn = (lib.icee_mega_att_beam_decode if kind == "factored"
           else lib.icee_mega_att_beam_decode_lstm)
     i32 = dict(dtype=torch.int32, device=device)
-    results = []
+    results, launched = [], []
     for first, n_img in launch_chunks(batch, k):
         plan = att_grid_plan(kind, e, f, hd, v, a, p, fs, k, n_img,
                              max_seq_length, blocks)
@@ -331,11 +348,128 @@ def mega_att_beam_decode_steps(
         off, size = plan.region("steps")
         results.append((tokens, length, score,
                         ints[off:off + size].view(n_img, 2).clone()))
+        launched.append((plan, scratch))
     if len(results) == 1:
         tokens, length, score, steps = results[0]
     else:
         tokens, length, score, steps = (torch.cat(t) for t in zip(*results))
-    return BeamResult(tokens=tokens, length=length, score=score), steps
+    return (BeamResult(tokens=tokens, length=length, score=score), steps,
+            launched)
+
+
+def search_init_state(params: dict, features: torch.Tensor,
+                      kind: str = "factored", style: int = 0, k: int = 5
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h0, c0 (n_img, H) as the search computes them before its first
+    step, on the card: a search of ``max_seq_length=0`` leaves them in the
+    parity-1 h and c planes of its scratch (row img * k), which step 1
+    reads and no later step overwrote.  For holding :func:`init_state`
+    to the search; None, None on the CPU."""
+    n_img = features.shape[0]
+    _, _, launched = _search(params, features, style, n_img, 1, 2, k, 0,
+                             kind, None)
+    if not launched:
+        return None, None
+    hd = params["init_h_w"].shape[1]
+    out = []
+    for name in ("hn", "cn"):
+        parts = []
+        for plan, scratch in launched:
+            off, _ = plan.region(name)
+            plane = scratch[off + plan.rows * hd:off + 2 * plan.rows * hd]
+            parts.append(plane.view(plan.n_img, plan.k, hd)[:, 0])
+        out.append(torch.cat(parts))
+    return out[0], out[1]
+
+
+# --- the search's h0/c0 alone (the fused-step path's start) ---------------
+
+
+@dataclass(frozen=True)
+class AttInitPlan:
+    """What one h0/c0 launch of ``csrc/att_beam.cu``
+    (``icee_att_init_state``) reads besides the tensors: for ``n_img``
+    images on ``grid`` blocks, the search's init stage (its one product
+    stage; the mean before it is ``run_mean``, a thread an (image, column
+    quad)) and the scratch (the mean)."""
+    h: int
+    p: int
+    fs: int
+    n_img: int
+    grid: int
+    stages: Tuple[StagePlan, ...]
+    floats: Tuple[Tuple[str, int, int], ...]
+    ints: Tuple[Tuple[str, int, int], ...] = ()
+
+    region = GridPlan.region
+    slab_table = GridPlan.slab_table
+    n_floats = GridPlan.n_floats
+
+
+@functools.lru_cache(maxsize=64)
+def att_init_plan(h: int, p: int, fs: int, n_img: int,
+                  grid: int) -> AttInitPlan:
+    """The plan of one h0/c0 launch: the search's init stage planned as
+    :func:`att_grid_plan` plans it (units (column slab, image block));
+    raises ValueError on what the kernel does not take."""
+    check_kernel_widths(h, fs)
+    if p < 1 or n_img < 1 or grid < 1 or h < 4 or fs < 4:
+        raise ValueError(f"P={p}, n_img={n_img}, grid={grid}, h={h}, "
+                         f"fs={fs}: each must be positive (h, fs at least 4)")
+    if n_img > MAX_ROWS:
+        raise ValueError(f"{n_img} images: one launch takes at most "
+                         f"{MAX_ROWS}")
+    return AttInitPlan(h, p, fs, n_img, grid,
+                       (plan_stage(init_stage_jobs(h), grid, n_img),),
+                       carve_regions([("mean", n_img * fs)]))
+
+
+class _CInitPlan(ctypes.Structure):
+    """``csrc/att_beam.cu`` AttInitPlan, field by field (all 64-bit)."""
+    _fields_ = ([(n, ctypes.c_longlong)
+                 for n in ("H", "P", "FS", "n_img", "grid", "n_stages")]
+                + [(n, ctypes.c_longlong * MAX_STAGES) for n in PLAN_ARRAYS]
+                + [("o_mean", ctypes.c_longlong)])
+
+
+_init_cplans: Dict[AttInitPlan, _CInitPlan] = {}
+
+
+def init_state(params: dict, features: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h0, c0 (n_img, H) of the search from ``features`` (n_img, P, FS)
+    on the card, by the search's own mean and init stage over the whole
+    card (``icee_att_init_state``, two launches): the same bits as the
+    search's.  The caller (``att_decode_step.att_init_state``) validates
+    the tensors."""
+    device = features.device
+    n_all, p, fs = features.shape
+    hd = params["init_h_w"].shape[1]
+    lib = _library()
+    blocks = max_grid(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    h0 = torch.empty((n_all, hd), **f32)
+    c0 = torch.empty_like(h0)
+    ptr = cuda_lib.ptr
+    weights = [ptr(params[n]) for n in ("init_h_w", "init_h_b", "init_c_w",
+                                        "init_c_b")]
+    for first, n_img in launch_chunks(n_all, 1):
+        plan = att_init_plan(hd, p, fs, n_img, blocks)
+        scratch = torch.empty((plan.n_floats,), **f32)
+        cplan = _init_cplans.get(plan)
+        if cplan is None:
+            if len(_init_cplans) >= 64:
+                _init_cplans.clear()
+            cplan = _init_cplans[plan] = plan_struct(_CInitPlan, plan, dict(
+                H=hd, P=p, FS=fs, n_img=n_img, grid=blocks, n_stages=1),
+                ("mean",))
+        rc = lib.icee_att_init_state(
+            ctypes.byref(cplan), ptr(slabs_on(plan, device)),
+            ptr(features[first:first + n_img]), *weights,
+            ptr(h0[first:first + n_img]), ptr(c0[first:first + n_img]),
+            ptr(scratch), cuda_lib.stream_ptr(device))
+        cuda_lib.check_rc(lib, rc, "att_init_state")
+    return h0, c0
 
 
 mega_att_beam_decode.launches = 0       # kernel launches, kind="factored"
@@ -348,6 +482,7 @@ def _library() -> ctypes.CDLL:
         "icee_mega_att_beam_decode": ([vp] * 31, i),
         "icee_mega_att_beam_decode_lstm": ([vp] * 27, i),
         "icee_mega_att_beam_max_grid": ([vp], i),
+        "icee_att_init_state": ([vp] * 11, i),
         "icee_mega_att_beam_consts": ([vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib

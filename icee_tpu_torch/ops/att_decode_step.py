@@ -20,8 +20,10 @@ plain PyTorch: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
 against it on the card.
 
 Also here, :func:`att_init_state`: the search's h0/c0 from the mean spatial
-feature with the chains K7 computes before its first step, so the
-fused-step path (K6 per step) starts from K7's bits; its plain version is
+feature, on the card by K7's own mean and init stages run alone over the
+whole card (``csrc/att_beam.cu``, :func:`~icee_tpu_torch.ops.att_beam.
+init_state`), so the fused-step path (K6 per step) starts from K7's bits;
+its plain version is
 :func:`~icee_tpu_torch.models.attention.init_hidden_state`.
 
 Both wrappers take the plain version only for tensors on the CPU; for CUDA
@@ -244,7 +246,8 @@ def att_init_state(params: dict, features: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h0, c0 (n_img, H) of the attention search from the mean of each
     image's spatial features (n_img, P, FS): ``init_h``/``init_c`` of the
-    decoder ``params`` (either kind)."""
+    decoder ``params`` (either kind).  On the card K7's mean and init
+    stages (``csrc/att_beam.cu``): the bits K7 starts its search from."""
     device = features.device
     n_img, p, fs = features.shape
     hd = params["init_h_w"].shape[1]
@@ -259,15 +262,9 @@ def att_init_state(params: dict, features: torch.Tensor
     if device.type != "cuda":
         raise ValueError(f"att_init_state: unsupported device {device}")
     check_kernel_widths(hd, fs)
-    lib = _library()
-    h0 = torch.empty((n_img, hd), dtype=torch.float32, device=device)
-    c0 = torch.empty_like(h0)
-    ptr = cuda_lib.ptr
-    rc = lib.icee_att_init_state(
-        ptr(features), *(ptr(params[n]) for n in ("init_h_w", "init_h_b",
-                                                  "init_c_w", "init_c_b")),
-        ptr(h0), ptr(c0), n_img, p, fs, hd, cuda_lib.stream_ptr(device))
-    cuda_lib.check_rc(lib, rc, "att_init_state")
+    from icee_tpu_torch.ops import att_beam  # it imports this module
+
+    h0, c0 = att_beam.init_state(params, features)
     att_init_state.launches += 1
     return h0, c0
 
@@ -284,5 +281,4 @@ def _library() -> ctypes.CDLL:
         "icee_att_decode_step_topk_lstm_split": (
             [vp] * 23 + [i] * 8 + [vp], i),
         "icee_att_step_split_work": ([i] * 8, ctypes.c_longlong),
-        "icee_att_init_state": ([vp] * 7 + [i] * 4 + [vp], i),
         "icee_att_step_smem": ([i] * 4, ctypes.c_longlong)})

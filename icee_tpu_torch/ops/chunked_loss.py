@@ -32,12 +32,14 @@ The row passes are hand-written CUDA kernels (``csrc/chunked_ce.cu``); their
 plain versions :func:`ce_rows_plain`, :func:`ce_grad_rows_plain` and
 :func:`mixture_ce_rows_plain` sit beside them.  Each wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises.  The CE's kernels read a row once: the forward one warp a row,
-each lane an online (max, rescaled sum) over its columns, merged by a
-fixed butterfly; the backward in (column slab, row group) blocks whose column
-sums are added in group order by a second launch.
-:func:`ce_rows_partition_plain` and :func:`ce_grad_rows_partition_plain`
-emulate that partition and its order of sums in tensor ops.
+or raises.  The kernels read a row once: the forward (the CE's and the
+mixture's, one template over the heads) one warp a row, each lane an online
+(max, rescaled sum) over its columns, merged by a fixed butterfly; the
+backward in (column slab, row group) blocks whose column sums are added in
+group order by a second launch.  :func:`ce_rows_partition_plain`,
+:func:`mixture_rows_partition_plain` and
+:func:`ce_grad_rows_partition_plain` emulate that partition and its order
+of sums in tensor ops.
 """
 
 from __future__ import annotations
@@ -128,13 +130,43 @@ def ce_rows_partition_plain(logits: torch.Tensor, targets: torch.Tensor,
                             weights: torch.Tensor,
                             clamp: Optional[float] = None, vw: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ce_rows_plain` in the forward kernel's partition and order:
-    lane l of a row's warp sums the ``vw``-float groups q = l mod 32
-    (``vw`` 4 where V % 4 == 0, else 1, as the kernel picks for an aligned
-    row), CER_UNROLL groups a chunk; per chunk its max, the lane's sum
-    rescaled once, then the chunk's terms in order; the 32 lanes' (max,
-    sum) pairs merged by a butterfly (offsets 16 .. 1).  -> (lse, w *
-    nll), each (R,)."""
+    """:func:`ce_rows_plain` in the forward kernel's partition and order
+    (:func:`_lse_partition`).  -> (lse, w * nll), each (R,)."""
+    lse = _lse_partition(logits, vw)
+    tgt, _ = _target_logit(logits, targets)
+    nll = lse - tgt
+    if clamp is not None:
+        nll = torch.clamp(nll, max=float(clamp))
+    return lse, weights * nll
+
+
+def mixture_rows_partition_plain(logits_o: torch.Tensor,
+                                 logits_n: torch.Tensor,
+                                 targets: torch.Tensor, co: torch.Tensor,
+                                 cn: torch.Tensor, weights: torch.Tensor,
+                                 vw: int = 0):
+    """:func:`mixture_ce_rows_plain` in the forward kernel's partition and
+    order: each head's row as the CE's (:func:`_lse_partition`), then p =
+    exp(target logit - lse) per head, p_mix = co p_o + cn p_n and ``w *
+    -log(max(p_mix, 1e-37))``.  -> (lse_o, lse_n, p_o, p_n, contrib)."""
+    out = []
+    for logits in (logits_o, logits_n):
+        lse = _lse_partition(logits, vw)
+        tgt, _ = _target_logit(logits, targets)
+        out.append((lse, torch.exp(tgt - lse)))
+    (lse_o, p_o), (lse_n, p_n) = out
+    p_mix = co * p_o + cn * p_n
+    contrib = weights * -torch.log(torch.clamp(p_mix, min=PROB_FLOOR))
+    return lse_o, lse_n, p_o, p_n, contrib
+
+
+def _lse_partition(logits: torch.Tensor, vw: int = 0) -> torch.Tensor:
+    """Each row's logsumexp as a warp of the forward kernel forms it: lane
+    l sums the ``vw``-float groups q = l mod 32 (``vw`` 4 where V % 4 ==
+    0, else 1, as the kernel picks for an aligned row), CER_UNROLL groups
+    a chunk; per chunk its max, the lane's sum rescaled once, then the
+    chunk's terms in order; the 32 lanes' (max, sum) pairs merged by a
+    butterfly (offsets 16 .. 1); lse = max + log(sum).  -> (R,)."""
     r, v = logits.shape
     vw = vw or (4 if v % 4 == 0 else 1)
     nq = v // vw
@@ -163,12 +195,7 @@ def ce_rows_partition_plain(logits: torch.Tensor, targets: torch.Tensor,
         ref = _ce_ref(mm)
         s = s * torch.exp(m - ref) + s2 * torch.exp(m2 - ref)
         m = mm
-    lse = m[:, 0] + torch.log(s[:, 0])
-    tgt, _ = _target_logit(logits, targets)
-    nll = lse - tgt
-    if clamp is not None:
-        nll = torch.clamp(nll, max=float(clamp))
-    return lse, weights * nll
+    return m[:, 0] + torch.log(s[:, 0])
 
 
 def ce_grad_rows_partition_plain(logits: torch.Tensor, targets: torch.Tensor,

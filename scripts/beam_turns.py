@@ -25,7 +25,12 @@ times the kernel (CUDA events, mean of 5 after a warm-up): K2,
 ``mega_beam_decode``, at 1, 8 and 64 images for both cells (serving mode,
 the features of ``chip_smoke.check_k2``); K7, ``mega_att_beam_decode``, at
 1, 2, 8 and 64 images for both kinds (the features of
-``chip_smoke.check_k7``).  Then it builds the caption engine as
+``chip_smoke.check_k7``), and with it the fused-step path's h0/c0 launch,
+``att_init_state``, at 1, 2, 8 and 64 images (StyleNet+Att weights, the
+features of ``chip_smoke.check_att_init``; CUDA events, mean of 50 after
+5 warm-ups, and its kernels' device time in a profiler trace, in all
+and launch by launch, this tree's ``chip_smoke.kernels_device_ms`` and
+``launches_device_ms``).  Then it builds the caption engine as
 ``chip_smoke.serve_phase`` does and runs its ``request_breakdown`` (host
 time of each served piece, median of 5, and its device busy share; a piece
 a checkout does not time shows as absent).  Every turn's kernel results
@@ -167,6 +172,29 @@ def kernel_call(cs, kernel: str, dec, cell: str, style: int, n: int,
                                         max_seq_length=cs.STEPS, kind=cell)
 
 
+def init_turn(cs, dec, images, device) -> dict:
+    """The h0/c0 launch at each image count: ms by CUDA events, its
+    kernels' device ms and the bits of h0 and c0."""
+    from icee_tpu_torch.ops.att_decode_step import att_init_state
+
+    here = this_tree_smoke()
+    out = {}
+    for n in images:
+        feats = cs.att_features(device, n, 9)
+
+        def run(feats=feats):
+            return att_init_state(dec, feats)
+
+        digest = hashlib.sha256()
+        for t in run():
+            digest.update(t.cpu().numpy().tobytes())
+        out[f"init_{n}"] = {
+            "ms": cs.cuda_ms(run, 50, 5), "bits": digest.hexdigest()[:16],
+            "device_ms": here.kernels_device_ms(run, here.INIT_KERNELS, 50),
+            "by_launch": here.launches_device_ms(run, here.INIT_KERNELS, 50)}
+    return out
+
+
 def turn(root: str, kernel: str) -> None:
     """One checkout's figures; prints TAG + JSON as its last line."""
     root = os.path.abspath(root)
@@ -212,6 +240,9 @@ def turn(root: str, kernel: str) -> None:
                     digest.update(t.cpu().numpy().tobytes())
                 timed[f"{cell}_{n}"] = {"ms": cs.cuda_ms(run, 5),
                                         "bits": digest.hexdigest()[:16]}
+        if kernel == "k7":
+            timed.update(init_turn(cs, params["stylenet_att"]["decoder"],
+                                   images, device))
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(5)
         paths = []
@@ -276,10 +307,18 @@ def main(args) -> int:
             if t["kernel"][key]["bits"] != entry["bits"]:
                 raise SystemExit(f"{name} {key}: turn {t['turn']} "
                                  f"({t['arg']}) gives other bits than turn 0")
-    print(f"{name} ms by turn (" + ", ".join(roots) + "):")
+    print(f"{name} ms by turn (" + ", ".join(roots) + "), then the h0/c0 "
+          "launch's (CUDA events; its kernels' device ms):")
     for key in turns[0]["kernel"]:
-        print(f"  {name + ' ' + key:36s} " + "  ".join(
-            f"{t['kernel'][key]['ms']:8.3f}" for t in turns))
+        label = key if key.startswith("init") else f"{name} {key}"
+        print(f"  {label:36s} " + "  ".join(
+            f"{t['kernel'][key]['ms']:8.4f}" for t in turns))
+        if key.startswith("init"):
+            print(f"  {'  device':36s} " + "  ".join(
+                f"{t['kernel'][key]['device_ms'] or 0:8.4f}" for t in turns))
+            print(f"  {'  device by launch, gaps':36s} " + "  ".join(
+                json.dumps(t["kernel"][key].get("by_launch"))
+                for t in turns))
     print("served pieces, host ms (device busy share) by turn:")
     pieces = KERNELS[kernel][2]
 
@@ -293,6 +332,8 @@ def main(args) -> int:
         print(f"  {piece:40s} " + "  ".join(cell(t, piece) for t in turns))
     print(json.dumps({"beam_turns": {"kernel": kernel, "turns": [
         {"arg": t["arg"], "ms": {k: e["ms"] for k, e in t["kernel"].items()},
+         "device_ms": {k: e["device_ms"] for k, e in t["kernel"].items()
+                       if "device_ms" in e},
          "pieces_ms": {n: t["pieces"][n]["ms"] for n in pieces
                        if n in t["pieces"]}}
         for t in turns]}}))

@@ -32,15 +32,21 @@ builds the scan and CE libraries into that checkout, and measures:
   ``addmm`` that writes the chunk (this script's checkout's
   ``chip_smoke.ce_pass_ms``, run on the turn's own package), and its
   outputs;
+- the mixture CE's row passes at 1,408 rows x V 8,800, two heads (phase
+  15's chunk, drawn with numpy): the forward over both heads and the
+  backward (``ce_grad_rows`` with weights -fac over head o), each pass's
+  device time cold and right after its ``addmm`` (this script's
+  checkout's ``chip_smoke.mixture_pass_ms``), and their outputs;
 - ``torch.matmul`` (float32, TF32 off) at each product shape the scans
   launch over all rows: a yardstick for the products alone;
 - unless ``--kernels-only``: the StyleNet and NIC factual steps (phase 9),
   the SentiCap base step (phase 13) and the switch step (phase 16).
 
 Turns of one checkout must give the same bits; turns of two checkouts
-must agree within phases 7, 8 and 12's tolerances (h and c atol 1e-4,
-each gradient within 1e-3 of its largest magnitude; the CE's lse and
-w * nll atol 1e-4, dl and db within 1e-4 of their largest magnitude).  The script prints each
+must agree within phases 7, 8, 12 and 15's tolerances (h and c atol
+1e-4, each gradient within 1e-3 of its largest magnitude; the CE's and
+the mixture's lse and w * nll atol 1e-4, the mixture's p atol 1e-6, dl
+and db within 1e-4 of their largest magnitude).  The script prints each
 turn's log, then tables of kernel, group and step times by turn and a JSON
 line of them.  Any failed phase or comparison fails the script.
 """
@@ -65,6 +71,7 @@ GROUPS = (("products", ("gemm_kernel", "sb_product_kernel", "tf32x3_")),
 K3_SHAPE = dict(b=64, t=25, e=300, f=512, h=512)
 K8_SHAPE = dict(b=128, t=22, e=512, h=512)
 CE_SHAPE = dict(rows=1600, h=512, v=8192)
+MIX_SHAPE = dict(rows=1408, h=512, v=8800)
 
 
 def products(k3=K3_SHAPE, k8=K8_SHAPE):
@@ -233,8 +240,38 @@ def ce_calls(device):
     db = torch.ones((s["v"],), device=device)
     dl = cl.ce_grad_rows(logits.clone(), tgt, wts, lse,
                          torch.ones((1,), device=device), db)
-    times = this_chip_smoke().ce_pass_ms(device, logits, tgt, wts, x, w, b)
+    smoke = this_chip_smoke()
+    times = smoke.ce_pass_ms(device, logits, tgt, wts, x, w, b)
     outs = {"ce_lse": lse, "ce_contrib": contrib, "ce_dl": dl, "ce_db": db}
+    # the mixture: two heads' chunks, gates U(0.05, 0.95)
+    s = MIX_SHAPE
+    heads = []
+    for _ in range(2):
+        heads.append(tuple(torch.tensor(a, device=device) for a in (
+            (0.5 * rng.standard_normal((s["rows"], s["h"]))).astype(
+                np.float32),
+            (rng.standard_normal((s["h"], s["v"])) / 8.0).astype(np.float32),
+            (0.1 * rng.standard_normal(s["v"])).astype(np.float32))))
+    tgt = torch.tensor(rng.integers(0, s["v"], s["rows"]), device=device)
+    co = torch.tensor(rng.uniform(0.05, 0.95, s["rows"]).astype(np.float32),
+                      device=device)
+    cn = 1.0 - co
+    wts = torch.tensor(rng.random(s["rows"]).astype(np.float32),
+                       device=device)
+    lo, ln = (torch.addmm(b, x, w) for x, w, b in heads)
+    rows = cl.mixture_ce_rows(lo, ln, tgt, co, cn, wts)
+    one = torch.ones((1,), device=device)
+    _, _, fac, _ = cl.mixture_row_cotangents(rows[2], rows[3], co, cn, wts,
+                                             one[0])
+    neg_fac = (-fac).contiguous()
+    db = torch.zeros((s["v"],), device=device)
+    dl = cl.ce_grad_rows(lo.clone(), tgt, neg_fac, rows[0], one, db)
+    times.update({"mix_" + k: v for k, v in smoke.mixture_pass_ms(
+        device, heads[0], heads[1], tgt, co, cn, wts, neg_fac,
+        rows[0]).items()})
+    outs.update({"mix_" + n: t for n, t in zip(
+        ("lse_o", "lse_n", "p_o", "p_n", "contrib"), rows)})
+    outs.update(mix_dl=dl, mix_db=db)
     return times, {k: v.cpu() for k, v in outs.items()}
 
 
@@ -314,8 +351,13 @@ def compare(outs, same_root: bool, same_bits=()):
                 raise SystemExit(f"{k}: two turns of one checkout differ")
             continue
         err = (a[k] - b[k]).abs().max().item()
-        if k in ("ce_lse", "ce_contrib"):
+        if k in ("ce_lse", "ce_contrib", "mix_lse_o", "mix_lse_n",
+                 "mix_contrib"):
             ok = err <= 1e-4
+        elif k in ("mix_p_o", "mix_p_n"):
+            ok = err <= 1e-6
+        elif k in ("mix_dl", "mix_db"):
+            ok = err <= 1e-4 * b[k].abs().max().item()
         elif k in ("ce_dl", "ce_db"):
             ok = err <= 1e-4 * b[k].abs().max().item()
         elif k.endswith(("_h", "_c")):
@@ -395,10 +437,11 @@ def main(args) -> int:
                     for t in turns]
             print(f"  {call} {g:12s} " + "  ".join(
                 "    none" if v is None else f"{v:8.3f}" for v in vals))
-    print("CE row pass device ms by turn:")
+    print("CE and mixture CE row pass device ms by turn:")
     for key in turns[0]["ce_passes"]:
         print(f"  {key:28s} " + "  ".join(
-            f"{t['ce_passes'][key]:8.4f}" for t in turns))
+            "    none" if t["ce_passes"].get(key) is None
+            else f"{t['ce_passes'][key]:8.4f}" for t in turns))
     if with_steps:
         print("train step ms by turn:")
         for step in turns[0]["steps"]:

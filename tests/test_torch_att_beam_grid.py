@@ -6,10 +6,14 @@ and in order (grids of 1 to 132 blocks, 1 to 64 images); the stages must
 fit the kernel's chunk slots and threads; the scratch regions must be
 disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
 images and k = 1, 5, 8, both kinds; the plan and the wrapper must raise on
-what the kernel does not take.  The ctypes mirror of the kernel's
-``AttGridPlan``, its geometry constants and its stage list are held
-against the CUDA sources' text.  No JAX: the search itself is held against
-JAX in ``tests/test_torch_att_beam.py`` and runs on the card in
+what the kernel does not take.  The h0/c0 launch (the search's mean and
+init stage alone: ``run_mean``'s tasks, then ``att_init_plan``'s stage)
+must cover each (image, column quad) of the mean and each h0/c0 column of
+each image once, at 1, 2 and 64 images.  The ctypes mirrors of the
+kernel's ``AttGridPlan`` and ``AttInitPlan``, its geometry constants, its
+stage lists and its entry points' argument counts are held against the
+CUDA sources' text.  No JAX: the search itself is held against JAX in
+``tests/test_torch_att_beam.py`` and runs on the card in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -22,9 +26,10 @@ import pytest
 import torch
 
 from icee_tpu_torch import bridge
-from icee_tpu_torch.ops import att_beam, beam
+from icee_tpu_torch.ops import att_beam, att_decode_step, beam
 from icee_tpu_torch.ops.att_beam import (CTX_STAGE, MAX_P, att_grid_plan,
-                                         att_stage_jobs,
+                                         att_init_plan, att_stage_jobs,
+                                         init_stage_jobs,
                                          mega_att_beam_decode_steps)
 from icee_tpu_torch.ops.beam import (KC, KCP, MAX_BR, MAX_ROWS, NSLOT,
                                      SLOT_FLOATS, THREADS, slab_columns)
@@ -245,3 +250,166 @@ def test_the_kernels_stage_list_is_the_plans(kind, fn):
         [CTX_STAGE]
     assert f"p.n_stages != {len(jobs)}" in body
     assert f"a.n_jobs = {sum(len(js) for js in jobs)};" in body
+
+
+def _row_blocks(n: int, br: int) -> list:
+    """The rows of each unit of a stage that is not per image, as
+    ``csrc/grid_beam.cuh``'s unit_of splits n live rows into blocks."""
+    n_rb = -(-n // br)
+    base, rem = divmod(n, n_rb)
+    out = []
+    for rb in range(n_rb):
+        i0 = rb * base + min(rb, rem)
+        out.append(list(range(i0, i0 + base + (1 if rb < rem else 0))))
+    return out
+
+
+def _mean_tasks(n_img: int, fs: int, grid: int) -> dict:
+    """The (image, column quad) each thread of ``run_mean`` sums, as its
+    grid-stride loop walks the tasks: -> {(image, quad): times}."""
+    nq, out = fs // 4, {}
+    for b in range(grid):
+        for tid in range(THREADS):
+            for task in range(b * THREADS + tid, n_img * nq, grid * THREADS):
+                key = divmod(task, nq)
+                out[key] = out.get(key, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("grid", [3, 132])
+@pytest.mark.parametrize("n_img", [1, 2, 64])
+@pytest.mark.parametrize("h,p,fs", [(512, 196, 2048), (48, 9, 64)])
+def test_init_plan_covers_each_mean_quad_and_output_column_once(
+        h, p, fs, n_img, grid):
+    """The h0/c0 launch as the kernel walks it: ``run_mean``'s tasks give
+    each (image, column quad) exactly once, a thread's chain over all P;
+    the init stage's units (slab, row block) give each (image, h0 or c0
+    column) exactly once, a chain over all FS.  The stage fits the
+    kernel's slots and threads."""
+    assert _mean_tasks(n_img, fs, grid) == {
+        (i, q): 1 for i in range(n_img) for q in range(fs // 4)}
+    mean = SOURCE[SOURCE.index("__device__ void run_mean("):]
+    mean = mean[:mean.index("\n}\n")]
+    assert ("task = blockIdx.x * GB_THREADS + threadIdx.x; task < a.n_img * "
+            "nq;\n       task += gridDim.x * GB_THREADS") in mean
+    plan = att_init_plan(h, p, fs, n_img, grid)
+    (init,) = plan.stages
+    assert [j.name for j in init.jobs] == ["h0", "c0"]
+    cols = {}
+    for ji, seg, c0, width in init.slabs:
+        assert seg == 0 and c0 % 4 == 0 and width % 4 == 0
+        for rows in _row_blocks(n_img, init.br):
+            assert len(rows) <= init.br
+            for i in rows:
+                for c in range(c0, c0 + width):
+                    key = (init.jobs[ji].name, i, c)
+                    cols[key] = cols.get(key, 0) + 1
+    assert cols == {(n, i, c): 1 for n in ("h0", "c0")
+                    for i in range(n_img) for c in range(h)}
+    assert init.cw in (16, 32, 64)
+    assert 1 <= init.br <= min(MAX_BR, 2 * THREADS // (init.cw // 4))
+    assert KC * init.cw + init.br * KCP <= SLOT_FLOATS
+    # the card's 132 SMs: one round of units at one image
+    if grid == 132 and n_img == 1 and fs == 2048:
+        assert len(init.slabs) <= 132
+    assert plan.region("mean") == (0, n_img * fs)
+    assert plan.n_floats == n_img * fs
+    assert plan.slab_table().shape == (len(init.slabs), 4)
+
+
+def test_the_search_plans_its_init_stage_as_the_init_launch_does():
+    """The search's last stage is the h0/c0 launch's, planned alike (over
+    the images, not the rows)."""
+    for n_img in (1, 2, 8, 64):
+        init = att_init_plan(512, 196, 2048, n_img, 132)
+        for kind in ("factored", "lstm"):
+            plan = att_grid_plan(kind, 300, 512, 512, 8192, 512, 196, 2048,
+                                 5, n_img, 40, 132)
+            assert plan.stages[-1:] == init.stages
+    assert init_stage_jobs(512) == tuple(
+        att_stage_jobs("lstm", 300, 512, 512, 8192, 512, 2048)[-1])
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(h=42), "multiples of 4"), (dict(fs=66), "multiples of 4"),
+    (dict(p=0), "P=0"), (dict(n_img=0), "n_img=0"), (dict(grid=0), "grid=0"),
+    (dict(n_img=MAX_ROWS + 1), f"{MAX_ROWS + 1} images"),
+])
+def test_the_init_plan_raises_on_what_the_kernel_does_not_take(kwargs,
+                                                                match):
+    args = dict(h=48, p=9, fs=64, n_img=2, grid=4)
+    args.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        att_init_plan(**args)
+
+
+def test_the_ctypes_init_plan_mirrors_the_kernels_struct():
+    body = re.search(r"struct AttInitPlan \{(.*?)\n\};", SOURCE,
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.replace("long long", "").strip()
+        fields += [d.strip() for d in decl.split(",") if d.strip()]
+    py_fields = []
+    for name, ctype in att_beam._CInitPlan._fields_:
+        n = getattr(ctype, "_length_", None)
+        py_fields.append(f"{name}[MAX_STAGES]" if n else name)
+        assert (ctype if not n else ctype._type_) is ctypes.c_longlong
+    assert py_fields == fields
+
+
+def test_the_init_entry_points_stages_are_the_plans():
+    """icee_att_init_state: the search's run_mean (part 0), then its h0
+    and c0 jobs, built by the helper the search uses, as the plan's one
+    stage (part 1)."""
+    body = SOURCE[SOURCE.index('extern "C" int icee_att_init_state('):]
+    body = body[:body.index("\n}\n")]
+    assert "init_jobs(a.jobs, fs + p.o_mean," in body
+    assert "stage_of(a, 0, 0, 2);" in body and "p.n_stages != 1" in body
+    assert "(a, 0);" in body and "(a, 1);" in body
+    assert len(init_stage_jobs(48)) == 2
+    kernel = SOURCE[SOURCE.index("grid_att_init_kernel(const"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert "run_mean(a);" in kernel and "run_stage(a, stages[0], sm, c);" \
+        in kernel
+    shared = SOURCE[SOURCE.index("static void attention_jobs("):]
+    shared = shared[:shared.index("\n}\n")]
+    assert "init_jobs(a.jobs + init, fs + p.o_mean," in shared
+    # the one-block-an-image kernel and its device function are gone
+    assert "icee_att_init_state" not in (CSRC / "att_decode_step.cu"
+                                         ).read_text()
+    assert "init_state(" not in (CSRC / "att_common.cuh").read_text()
+
+
+@pytest.mark.parametrize("module,source,fn", [
+    (att_beam, "att_beam.cu", "icee_mega_att_beam_decode"),
+    (att_beam, "att_beam.cu", "icee_mega_att_beam_decode_lstm"),
+    (att_beam, "att_beam.cu", "icee_att_init_state"),
+    (att_beam, "att_beam.cu", "icee_mega_att_beam_max_grid"),
+    (att_decode_step, "att_decode_step.cu", "icee_att_decode_step_topk"),
+    (att_decode_step, "att_decode_step.cu",
+     "icee_att_decode_step_topk_lstm"),
+    (att_decode_step, "att_decode_step.cu",
+     "icee_att_decode_step_topk_split"),
+    (att_decode_step, "att_decode_step.cu",
+     "icee_att_decode_step_topk_lstm_split"),
+])
+def test_the_ctypes_signatures_match_the_entry_points(module, source, fn,
+                                                      monkeypatch):
+    from icee_tpu_torch.ops import cuda_lib
+
+    declared = {}
+
+    def fake_library(name, signatures):
+        declared.update(signatures)
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(cuda_lib, "library", fake_library)
+    with pytest.raises(RuntimeError, match="stop"):
+        module._library()
+    text = (CSRC / source).read_text()
+    sig = re.search(r'extern "C" \w+ %s\((.*?)\)\s*\{' % fn, text,
+                    re.S).group(1)
+    assert len(declared[fn][0]) == len([p for p in sig.split(",")
+                                        if p.strip()])

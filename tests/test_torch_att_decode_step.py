@@ -2,7 +2,9 @@
 wrapper takes its plain version, against the JAX package's
 ``fused_att_decode_step_topk`` run in interpret mode (as
 ``tests/test_pallas_att.py`` runs it), for both cells and a style other
-than 0, at that file's small sizes (P = 9, narrow widths, ``v_tile`` 128).
+than 0, at that file's small sizes (P = 9, narrow widths, ``v_tile`` 128);
+and the search's h0/c0 (``att_init_state``, and the order of its kernel's
+sums) against JAX's ``init_hidden_state``.
 
 Tolerances: logp, h', c' and alpha atol 1e-5 (float32; the TPU kernel tiles
 the score over A and the vocabulary in its own order); ids exact.
@@ -119,6 +121,53 @@ def test_init_state_on_the_cpu_is_init_hidden_state():
     want_h, want_c = ta.init_hidden_state(tp, feats)
     torch.testing.assert_close(h0, want_h, rtol=0, atol=0)
     torch.testing.assert_close(c0, want_c, rtol=0, atol=0)
+    assert att_init_state.launches == 0
+
+
+def _init_state_in_kernel_order(params, feats):
+    """h0, c0 in the arithmetic of K7's mean and init stages (which
+    ``att_init_state`` runs on the card): each mean column the float32 sum
+    over P in order from 0 (a chain of fmaf(1, f, s) = s + f), then / P;
+    each output column one float32 fmaf chain over FS in order from 0,
+    then + the bias.  Python loops over k, vectorized over the columns;
+    numpy float32 keeps every step in float32 (fmaf is a rounded mul-add,
+    here a rounded product then a rounded add: the same within 1e-5 at
+    these sizes)."""
+    f = feats.numpy()
+    s = np.zeros(f.shape[::2], np.float32)
+    for p_ in range(f.shape[1]):
+        s = s + f[:, p_]
+    mean = s / np.float32(f.shape[1])
+    out = []
+    for w, b in (("init_h_w", "init_h_b"), ("init_c_w", "init_c_b")):
+        wt, bt = params[w].numpy(), params[b].numpy()
+        acc = np.zeros((f.shape[0], wt.shape[1]), np.float32)
+        for k_ in range(wt.shape[0]):
+            acc = acc + mean[:, k_:k_ + 1] * wt[k_]
+        out.append(acc + bt)
+    return out
+
+
+@pytest.mark.parametrize("n_img", [1, 3])
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_init_state_matches_jax_init_hidden_state(kind, n_img):
+    """att_init_state on the CPU, and the arithmetic its kernel runs (the
+    search's mean and init stages), against JAX's ``init_hidden_state``
+    (``icee_tpu/models/attention.py:155``) at P = 196 positions of FS = 32
+    features, atol 1e-5."""
+    tp, _, _ = _case(kind, 0, seed=7 + n_img)
+    jp = jax.tree.map(np.asarray, bridge.to_numpy(tp))
+    rng = np.random.default_rng(n_img)
+    feats = rng.uniform(0, 1, (n_img, 196, 32)).astype(np.float32)
+    want_h, want_c = ja.init_hidden_state(jp, jnp.asarray(feats))
+    h0, c0 = att_init_state(tp, torch.tensor(feats))
+    np.testing.assert_allclose(h0.numpy(), np.asarray(want_h), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(c0.numpy(), np.asarray(want_c), rtol=0,
+                               atol=ATOL)
+    kh, kc = _init_state_in_kernel_order(tp, torch.tensor(feats))
+    np.testing.assert_allclose(kh, np.asarray(want_h), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(kc, np.asarray(want_c), rtol=0, atol=ATOL)
     assert att_init_state.launches == 0
 
 

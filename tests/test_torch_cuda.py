@@ -356,6 +356,43 @@ def test_ce_row_kernels_read_a_row_once_and_keep_their_bits(
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("rows,vocab,offset", [
+    (1408, 8800, 0),   # the switch step's chunk: 11 steps x 128
+    (45, 301, 0),      # a ragged V: one float a load
+    (33, 1024, 1),     # one head's rows not 16-byte aligned
+])
+def test_mixture_rows_kernel_reads_each_head_once_and_keeps_its_bits(
+        device, rows, vocab, offset):
+    """The mixture forward (the CE forward's warp pass over both heads)
+    against its plain version and the emulation of its partition
+    (``mixture_rows_partition_plain``), with targets outside [0, V), a row
+    of equal logits, a floored p_mix and the same bits on a second run."""
+    g = torch.Generator(device=device).manual_seed(rows + vocab)
+    lo = 3.0 * torch.randn((rows, vocab), generator=g, device=device)
+    buf = torch.empty(rows * vocab + offset, device=device)
+    ln = buf[offset:].view(rows, vocab)
+    ln.copy_(3.0 * torch.randn((rows, vocab), generator=g, device=device))
+    lo[3] = ln[3] = 0.25
+    tgt = torch.randint(0, vocab, (rows,), generator=g, device=device)
+    tgt[0], tgt[1] = vocab, -1
+    lo[5, tgt[5]] = ln[5, tgt[5]] = -600.0
+    co = torch.rand((rows,), generator=g, device=device)
+    cn = 1.0 - co
+    wts = torch.rand((rows,), generator=g, device=device)
+    before = chunked_loss.mixture_ce_rows.launches
+    got = chunked_loss.mixture_ce_rows(lo, ln, tgt, co, cn, wts)
+    again = chunked_loss.mixture_ce_rows(lo, ln, tgt, co, cn, wts)
+    want = chunked_loss.mixture_ce_rows_plain(lo, ln, tgt, co, cn, wts)
+    emu = chunked_loss.mixture_rows_partition_plain(lo, ln, tgt, co, cn, wts)
+    torch.cuda.synchronize()
+    assert chunked_loss.mixture_ce_rows.launches == before + 2
+    for ref in (want, emu):
+        for i, atol in enumerate((1e-5, 1e-5, 1e-6, 1e-6, 1e-5)):
+            torch.testing.assert_close(got[i], ref[i], rtol=0, atol=atol)
+    assert got[2][5] == 0 and got[3][5] == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("t_chunk", [None, 4])
 def test_chunked_ce_on_the_card_matches_the_cpu(device, t_chunk):
     rng = np.random.default_rng(2)
@@ -679,16 +716,25 @@ def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
     torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
 
 
-def test_att_init_state_kernel_matches_plain(device):
-    params = _att_params(device, "lstm")
-    feats = torch.rand((3, 196, 64), device=device)
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+@pytest.mark.parametrize("n_img", [1, 3])
+def test_att_init_state_kernel_matches_plain(device, n_img, kind):
+    """The h0/c0 launch (K7's mean and init stages alone) against the
+    plain version, and the h0/c0 K7 computes for the same images (a search
+    of no further step) at atol 0; the same bits twice."""
+    params = _att_params(device, kind)
+    feats = torch.rand((n_img, 196, 64), device=device)
     before = att_decode_step.att_init_state.launches
     h0, c0 = att_decode_step.att_init_state(params, feats)
+    h1, c1 = att_decode_step.att_init_state(params, feats)
     want_h, want_c = att_mod.init_hidden_state(params, feats)
+    k7_h, k7_c = att_beam.search_init_state(params, feats, kind, 1)
     torch.cuda.synchronize()
-    assert att_decode_step.att_init_state.launches == before + 1
+    assert att_decode_step.att_init_state.launches == before + 2
     torch.testing.assert_close(h0, want_h, rtol=0, atol=1e-5)
     torch.testing.assert_close(c0, want_c, rtol=0, atol=1e-5)
+    assert torch.equal(h0, k7_h) and torch.equal(c0, k7_c)
+    assert torch.equal(h0, h1) and torch.equal(c0, c1)
 
 
 def _k1_inputs(device, rows, seed):
