@@ -142,8 +142,24 @@ Phases, in order; any failure exits non-zero:
    ``decode_split(switched=True)`` on a 64-image split, 7 timed calls (K10
    and K9 counted from 0 just before the first and read just after the
    last: one launch each a call);
-18. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
-   ``senticap`` and ``senticap_switched`` entries), one ``{"serve":
+18. the trainers (``train/loops.py``) at flagship width on the host
+   loader: ``MultitaskTrainer.train`` for StyleNet (3 epochs) and NIC (2)
+   over 2,560 Zipf captions of 512 images (40 batches of 64), 320
+   validation captions and 960 + 96 emotion captions, ratio 1.0; then
+   ``TransferTrainer`` and ``PaperRegimeTrainer`` for an epoch each, and a
+   StyleNet+Att epoch of 2 + 1 batches at B = 128, ratio 0.8.  Every count
+   from 0 just before a run and read just after: K3 / K4 forward and
+   backward once a step, the CE's row passes once a step and chunk, K2
+   once a validation (K5 sampled on the attention epoch), and no plain
+   version called; the factual train loss falls to <= LOSS_FALL x the
+   first epoch's; ``restore`` gives bit-equal params and optimizer
+   states; an engine from ``HAP_BEST_checkpoint_*`` captions as one from
+   the params; the last sample = one K2 search = the plain
+   ``beam_search``, margin-aware as phase 5.  Seconds an epoch (train,
+   validation, sample, checkpoint), training captions/s with validation
+   included, and a StyleNet epoch's device-busy share (the profiler);
+19. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
+   ``senticap``, ``senticap_switched`` and ``trainer`` entries), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b) and one ``{"kernels": [...]}`` line
@@ -151,7 +167,7 @@ Phases, in order; any failure exits non-zero:
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10);
-19. print ``{"ok": true, "device": {...}}`` as the last line.
+20. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -4435,6 +4451,569 @@ def decode_switched_phase(device):
                       "styled_differ_from_descriptive": differ}
 
 
+# --- phase 18: the trainers (slice 3a) ----------------------------------------
+
+# the corpus: phase 9's Zipf language, 5 captions an image (the reference's
+# Flickr8k layout); 512 training images x 5 = 40 batches of 64, 320
+# validation captions, 960 + 96 emotion captions
+TR_IMAGES, TR_CAPS, TR_VAL, TR_EMO, TR_EMO_VAL = 512, 5, 320, 960, 96
+TR_EPOCHS = {"stylenet": 3, "nic": 2}
+ATT_TR_BATCHES = (2, 1)      # the StyleNet+Att epoch: factual, emotion
+
+
+def trainer_vocab():
+    """V words: the four specials, then w4 .. w{V-1}."""
+    from icee_tpu_torch.data.vocab import SPECIALS, Vocabulary
+
+    vocab = Vocabulary()
+    for w in SPECIALS:
+        vocab.add_word(w)
+    for i in range(len(SPECIALS), V):
+        vocab.add_word(f"w{i}")
+    return vocab
+
+
+def trainer_corpus(n_images: int, n_caps: int, seed: int, tag: str):
+    """CaptionExamples over ``n_images`` synthetic images, ``n_caps``
+    captions each (<start> Zipf words <end>, 8..T_STEPS tokens), each
+    example holding its image's captions as references."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.data.captions import CaptionExample
+
+    words = (4 + torch.randperm(V - 4, generator=torch.Generator()
+                                .manual_seed(99))[:WORDS]).numpy()
+    zipf = 1.0 / np.arange(1, WORDS + 1)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_images):
+        caps = [[1] + words[rng.choice(WORDS, rng.integers(6, T_STEPS - 1),
+                                       p=zipf / zipf.sum())].tolist() + [2]
+                for _ in range(n_caps)]
+        out.extend(CaptionExample(f"{tag}{i}", c, caps) for c in caps)
+    return out
+
+
+def trainer_features(names, seed: int, shape):
+    """name -> host features U(0, 1) (pooled) or 0.1 N(0, 1) (spatial,
+    bench.py:221-222), float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if len(shape) == 1:
+        return {n: rng.random(shape, dtype=np.float32) for n in names}
+    return {n: (0.1 * rng.standard_normal(shape)).astype(np.float32)
+            for n in names}
+
+
+@contextlib.contextmanager
+def plain_counters():
+    """Count every call of the trainer's kernels' plain versions (each
+    wrapper calls its plain version by module name, on a CPU tensor) while
+    the block runs; -> the dict of counts."""
+    from icee_tpu_torch.ops import att_scan, beam
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import lstm_scan, nic_scan
+
+    targets = [(lstm_scan, "fused_factored_scan_plain"),
+               (lstm_scan, "factored_scan_bwd_plain"),
+               (nic_scan, "fused_nic_scan_plain"),
+               (nic_scan, "nic_scan_bwd_plain"),
+               (cl, "ce_rows_plain"), (cl, "ce_grad_rows_plain"),
+               (beam, "mega_beam_decode_plain"),
+               (att_scan, "fused_att_scan_plain"),
+               (att_scan, "fused_att_scan_sampled_plain"),
+               (att_scan, "att_scan_grads_plain")]
+    counts = {name: 0 for _, name in targets}
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def trainer_counters():
+    """Phase 18's launch counters: K3, K4, K5 (StyleNet+Att), the CE row
+    passes and K2 (both cells)."""
+    from icee_tpu_torch.ops import beam, lstm_scan, nic_scan
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    out = {"fused_factored_scan_fwd": (lstm_scan.factored_scan_fwd,
+                                       "launches"),
+           "fused_factored_scan_bwd": (lstm_scan.factored_scan_bwd,
+                                       "launches"),
+           "fused_nic_scan_fwd": (nic_scan.nic_scan_fwd, "launches"),
+           "fused_nic_scan_bwd": (nic_scan.nic_scan_bwd, "launches"),
+           "ce_rows": (cl.ce_rows, "launches"),
+           "ce_grad_rows": (cl.ce_grad_rows, "launches"),
+           "mega_beam_decode": (beam.mega_beam_decode, "launches"),
+           "mega_beam_decode_lstm": (beam.mega_beam_decode,
+                                     "lstm_launches")}
+    out.update({k: v for k, v in k5_counters().items()
+                if not k.endswith(("_lstm_fwd", "_lstm_bwd"))})
+    return out
+
+
+class EpochClock:
+    """Wall seconds of a trainer's passes, read after a synchronize: the
+    training passes, the validations, the sample inside them and the
+    checkpoint writes, and each epoch's end (its ``save``)."""
+
+    def __init__(self, tr):
+        import torch
+
+        self.marks = {"train": [], "val": [], "sample": [], "save": []}
+        self.ends = []
+        self.t0 = None
+
+        def timed(kind, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.marks[kind].append(time.perf_counter() - t)
+                if kind == "save":
+                    self.ends.append(time.perf_counter())
+                return out
+            return run
+
+        tr._run_train = timed("train", tr._run_train)
+        tr._run_val = timed("val", tr._run_val)
+        tr.save = timed("save", tr.save)
+        if tr.sample_fn is not None:
+            tr.sample_fn = timed("sample", tr.sample_fn)
+
+    def start(self):
+        self.t0 = time.perf_counter()
+
+    def stats(self, epochs: int, captions: int) -> dict:
+        """Per-epoch means and training captions/s (the epoch's training
+        captions over its wall time, validation, sample and checkpoint
+        included)."""
+        bounds = [self.t0] + self.ends
+        walls = [b - a for a, b in zip(bounds, bounds[1:])]
+        per = {k: sum(v) / epochs for k, v in self.marks.items()}
+        return {"epoch_s": walls, "train_s": per["train"],
+                "val_s": per["val"], "sample_s": per["sample"],
+                "save_s": per["save"],
+                "captions_per_s": [captions / w for w in walls]}
+
+
+def trainer_run(device, family: str, cls: str, tmp: str, dec, head, cfg,
+                tcfg, vocab, call):
+    """One trainer at flagship width on the card: built, its clock set,
+    ``call(trainer)`` run with every launch counter from 0 just before
+    and read just after. -> (trainer, launches, clock)."""
+    from icee_tpu_torch.train import loops
+
+    os.makedirs(tmp, exist_ok=True)
+    tr = getattr(loops, cls)(cfg, tcfg, vocab, dec, head, family=family,
+                             model_dir=tmp, data_name="chip",
+                             metrics_path=os.path.join(tmp, "metrics.jsonl"),
+                             device=device)
+    if not (tr.steps.use_fused and tr.steps.use_chunked):
+        fail(f"phase 18 {cls} {family}: the steps did not select the "
+             "kernel path")
+    clock = EpochClock(tr)
+    counters = trainer_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    clock.start()
+    call(tr)
+    import torch
+
+    torch.cuda.synchronize()
+    return tr, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, \
+        clock
+
+
+def expect_launches(what: str, got: dict, want: dict):
+    """Every listed count exactly as expected, every other count 0."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"phase 18 {what}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)} (all counts {got})")
+
+
+def metrics_events(tmp: str):
+    with open(os.path.join(tmp, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    from icee_tpu_torch.train.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def check_restore(tr, path: str, family: str, cfg, tcfg, vocab, dec0,
+                  head0, device):
+    """A fresh trainer restored from ``path`` (the last epoch's checkpoint)
+    holds the trainer's params and both optimizer states bit for bit."""
+    from icee_tpu_torch.train import loops
+
+    other = loops.MultitaskTrainer(cfg, tcfg, vocab, dec0, head0,
+                                   family=family, device=device,
+                                   model_dir=os.path.dirname(path))
+    other.restore(path)
+    same = (trees_equal((other.dec, other.head), (tr.dec, tr.head))
+            and all(a.count == b.count and a.hyperparams == b.hyperparams
+                    and trees_equal((a.mu, a.nu), (b.mu, b.nu))
+                    for a, b in ((other.opt_state, tr.opt_state),
+                                 (other.lang_opt_state, tr.lang_opt_state))))
+    if not same or other.start_epoch != TR_EPOCHS[
+            "stylenet" if family == "factored" else "nic"]:
+        fail(f"phase 18 {family}: restore from {path} is not bit-equal "
+             f"(start epoch {other.start_epoch})")
+
+
+def check_sample(tr, sampled, cell: str, device):
+    """The trainer's last sample: equal to one K2 search on its feature,
+    and that search margin-aware (phase 5's rule) against the plain
+    ``beam_search`` on the card.  -> (flips, max score error)."""
+    import torch
+
+    from icee_tpu_torch.decode.beam import BeamResult, beam_search
+    from icee_tpu_torch.decode.fast import factored_decode, nic_decode
+    from icee_tpu_torch.models import encoder as enc_mod
+    from icee_tpu_torch.models import factored_lstm as fl
+    from icee_tpu_torch.models import lstm
+
+    feat, style, words = sampled[-1]
+    with torch.no_grad():
+        x = enc_mod.encode_global_from_pooled(tr.head, feat)
+        tiled = x[:, None, :].expand(1, 5, x.shape[1]).contiguous()
+        common = (1, 5, tr.cfg.max_seq_length, 1, 2)
+        got = (factored_decode("mega", tr.dec, tiled, style, *common)
+               if cell == "factored" else nic_decode(tr.dec, tiled, *common))
+        ids = got.tokens[0][: int(got.length[0])].tolist()
+        if [tr.vocab.idx2word[i] for i in ids][: len(words)] != words:
+            fail(f"phase 18 {cell}: the sample {words} is not K2's {ids}")
+        if cell == "factored":
+            emb = lambda t: fl.embed(tr.dec, t)  # noqa: E731
+            step = lambda x_, s: fl.decode_step(tr.dec, x_, s, style)  # noqa
+        else:
+            emb = lambda t: lstm.embed(tr.dec, t)  # noqa: E731
+            step = lambda x_, s: lstm.decode_step(tr.dec, x_, s)  # noqa
+        zeros = torch.zeros((5, H), device=device)
+        plain = beam_search(emb, step, (zeros, zeros.clone()), 1, 2, 5,
+                            tr.cfg.max_seq_length, V, first_input=tiled[0])
+        want = BeamResult(plain.tokens[None], plain.length[None],
+                          plain.score[None])
+        rescored = sequence_scores(tr.dec, cell, tiled, style, got.tokens,
+                                   got.length)
+        err, _, flips = margin_check(f"phase 18 {cell} sample", got, want,
+                                     rescored)
+    return flips, err
+
+
+def check_engine(best: str, snapshot, device):
+    """CaptionEngines from the best checkpoint and from the trainer's
+    params at that epoch caption 8 pooled features alike (one K2 search
+    each a mode)."""
+    import torch
+
+    from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
+    from icee_tpu_torch.serve.config import ServeConfig
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    kw = dict(dec_cfg=DecoderConfig(vocab_size=V, embed_size=E,
+                                    hidden_size=H, factored_size=F,
+                                    max_seq_length=STEPS),
+              enc_cfg=EncoderConfig(embed_size=E), device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = os.path.join(tmp, "vocab.pkl")
+        trainer_vocab().save(vocab_path)
+        engines = [CaptionEngine(ServeConfig(
+            vocab_path=vocab_path,
+            checkpoint_paths={"stylenet": {m: best for m in MODES}}),
+            params={"backbone": {}}, **kw),
+            CaptionEngine(ServeConfig(vocab_path=vocab_path), params={
+                "backbone": {}, "stylenet": snapshot}, **kw)]
+    pooled = torch.rand((8, 2048), generator=torch.Generator(
+        device=device).manual_seed(81), device=device)
+    caps = []
+    for eng in engines:
+        caps.append([])
+        for mode in ("factual", "happy"):
+            res = eng.decode(eng.head(pooled, mode, "stylenet"), mode,
+                             variant="stylenet")
+            caps[-1].append((res.tokens.cpu(), res.length.cpu()))
+    for (ta, la), (tb, lb) in zip(*caps):
+        if not (torch.equal(ta, tb) and torch.equal(la, lb)):
+            fail("phase 18: the engine from the best checkpoint captions "
+                 "otherwise than the engine from the params")
+    return len(set(caps[0][0][1].tolist()))
+
+
+def trainer_phase(device):
+    """Phase 18: the port's trainers on the card at flagship width."""
+    import math
+
+    import torch
+
+    from icee_tpu_torch.core.config import (DecoderConfig, EncoderConfig,
+                                            TrainConfig)
+    from icee_tpu_torch.data.pipeline import (caption_dataset_loader,
+                                              styled_caption_loader)
+    from icee_tpu_torch.models import encoder, lstm
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    vocab = trainer_vocab()
+    train = trainer_corpus(TR_IMAGES, TR_CAPS, 180, "t")
+    val = trainer_corpus(TR_VAL // TR_CAPS, TR_CAPS, 181, "v")
+    emo = trainer_corpus(TR_EMO // TR_CAPS, TR_CAPS, 182, "e")
+    emo_val = trainer_corpus(TR_EMO_VAL // TR_CAPS + 1, TR_CAPS, 183,
+                             "u")[:TR_EMO_VAL]
+    names = {e.image for ds in (train, val, emo, emo_val) for e in ds}
+    pooled = trainer_features(sorted(names), 184, (2048,))
+
+    def loader(ds, b, feats=pooled, seed=0):
+        return caption_dataset_loader(ds, b, T_STEPS, feats.__getitem__,
+                                      seed=seed)
+
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                        factored_size=F, dropout=0.5, max_seq_length=STEPS)
+    tcfg = TrainConfig(mode="happy", teacher_forcing_ratio=1.0,
+                       max_caption_len=T_STEPS, log_step=10 ** 9,
+                       log_step_emotion=10 ** 9)
+    n_fac, n_emo = -(-len(train) // B_IMAGES), -(-len(emo) // B_EMOTION)
+    n_val = -(-len(val) // B_IMAGES) + -(-len(emo_val) // B_EMOTION)
+
+    def chunks(b):
+        return -(-T_STEPS // cl.auto_t_chunk(b, T_STEPS))
+
+    ce_epoch = n_fac * chunks(B_IMAGES) + n_emo * chunks(B_EMOTION)
+    stats, launches = {}, {}
+
+    def fresh(family):
+        if family == "factored":
+            dec = training_decoder(device, 12)
+        else:
+            dec = lstm.init_params(torch.Generator().manual_seed(12), cfg,
+                                   device=device)
+            dec["cell"] = training_nic_cell(device, 12)
+        head = encoder.init_head_params(torch.Generator().manual_seed(13),
+                                        EncoderConfig(embed_size=E),
+                                        device=device)
+        return dec, head
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as root, plain_counters() as plain:
+        # (i) MultitaskTrainer.train: StyleNet 3 epochs, NIC 2
+        for family, model in (("factored", "stylenet"), ("nic", "nic")):
+            epochs = TR_EPOCHS[model]
+            tmp = os.path.join(root, model)
+            dec0, head0 = fresh(family)
+            sampled, snapshot = [], {}
+
+            def call(tr, epochs=epochs):
+                sample, save = tr.sample_fn, tr.save
+
+                def record(dec, head, feat, style):
+                    words = sample(dec, head, feat, style)
+                    sampled.append((feat, int(style), words))
+                    return words
+
+                def keep_best(epoch, is_best, mode_tag=None):
+                    if is_best and not mode_tag:
+                        snapshot.update(decoder=clone_tree(tr.dec),
+                                        head=clone_tree(tr.head))
+                    return save(epoch, is_best, mode_tag)
+
+                tr.sample_fn, tr.save = record, keep_best
+                tr.train(loader(train, B_IMAGES), loader(val, B_IMAGES),
+                         loader(emo, B_EMOTION), loader(emo_val, B_EMOTION),
+                         num_epochs=epochs)
+
+            tr, got, clock = trainer_run(device, family, "MultitaskTrainer",
+                                         tmp, dec0, head0, cfg, tcfg, vocab,
+                                         call)
+            scan = ("fused_factored_scan" if family == "factored"
+                    else "fused_nic_scan")
+            k2 = ("mega_beam_decode" if family == "factored"
+                  else "mega_beam_decode_lstm")
+            steps = epochs * (n_fac + n_emo)
+            expect_launches(model, got, {
+                f"{scan}_fwd": steps, f"{scan}_bwd": steps,
+                "ce_rows": epochs * ce_epoch,
+                "ce_grad_rows": epochs * ce_epoch, k2: 2 * epochs})
+            add(got)
+            events = metrics_events(tmp)
+            fac = [e for e in events if e["event"] == "epoch_factual"]
+            emo_ev = [e for e in events if e["event"] == "epoch_emotion"]
+            losses = [e["train_loss"] for e in fac]
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] <= LOSS_FALL * losses[0]:
+                fail(f"phase 18 {model}: factual train loss {losses} did "
+                     f"not fall to {LOSS_FALL} x the first epoch's")
+            written = sorted(os.listdir(tmp))
+            if "HAP_checkpoint_chip" not in written:
+                fail(f"phase 18 {model}: checkpoints {written}")
+            check_restore(tr, os.path.join(tmp, "HAP_checkpoint_chip"),
+                          family, cfg, tcfg, vocab, dec0, head0, device)
+            flips, score_err = check_sample(tr, sampled, family, device)
+            st = clock.stats(epochs, len(train) + len(emo))
+            st.update(
+                epochs=epochs, train_loss=losses,
+                emotion_train_loss=[e["train_loss"] for e in emo_ev],
+                val_loss=[e["val_loss"] for e in fac],
+                bleu4=[e["bleu4"] for e in fac],
+                emotion_bleu4=[e["bleu4"] for e in emo_ev],
+                top5=[e["top5"] for e in fac], checkpoints=written,
+                sample=sampled[-1][2], sample_flips=flips,
+                sample_score_err=score_err, launches=got,
+                best_bleu4=tr.best_bleu4)
+            if family == "factored":
+                best = os.path.join(tmp, "HAP_BEST_checkpoint_chip")
+                if os.path.isdir(best):
+                    st["engine_lengths"] = check_engine(best, snapshot,
+                                                        device)
+                else:
+                    fail(f"phase 18: no best checkpoint in {written}")
+                # the device-busy share of one more epoch's factual
+                # training pass and validation, from the profiler
+                st["device_busy_share"] = device_busy_share(
+                    lambda: (tr._run_train(loader(train, B_IMAGES, seed=1),
+                                           0, 10 ** 9, "FAC"),
+                             tr._run_val(loader(val, B_IMAGES), 0)))
+            stats[model] = st
+            log(f"phase 18 (i), {model}: {epochs} epochs, s an epoch "
+                f"{[round(w, 2) for w in st['epoch_s']]} (train "
+                f"{st['train_s']:.2f}, val {st['val_s']:.2f}, sample "
+                f"{st['sample_s']:.3f}, save {st['save_s']:.2f}), "
+                f"captions/s {[round(c) for c in st['captions_per_s']]}; "
+                f"train loss {[round(x, 4) for x in losses]}, BLEU-4 "
+                f"{st['bleu4']}; sample {st['sample']} ({flips} near-tie "
+                f"flips); launches {got}")
+            del tr
+            torch.cuda.empty_cache()
+
+        # (ii) TransferTrainer, 1 epoch from the StyleNet FAC weights
+        dec0, head0 = fresh("factored")
+        tmp = os.path.join(root, "transfer")
+        tr, got, clock = trainer_run(
+            device, "factored", "TransferTrainer", tmp, dec0, head0, cfg,
+            tcfg, vocab, lambda t: t.train_transfer(
+                loader(emo, B_EMOTION), loader(emo_val, B_EMOTION),
+                num_epochs=1))
+        expect_launches("transfer", got, {
+            "fused_factored_scan_fwd": n_emo,
+            "fused_factored_scan_bwd": n_emo,
+            "ce_rows": n_emo * chunks(B_EMOTION),
+            "ce_grad_rows": n_emo * chunks(B_EMOTION),
+            "mega_beam_decode": 1})
+        if not torch.equal(tr.dec["B"], dec0["B"]):
+            fail("phase 18 transfer: the frozen embedding B moved")
+        add(got)
+        stats["transfer"] = dict(clock.stats(1, len(emo)), launches=got)
+        del tr
+
+        # (iii) PaperRegimeTrainer, 1 epoch: the factual pass, then the
+        # text-only happy pass (K3 on the captions alone)
+        dec0, head0 = fresh("factored")
+        tmp = os.path.join(root, "paper")
+        ids = [e.caption_ids for e in emo]
+
+        def paper(t):
+            t.train(loader(train, B_IMAGES), {"happy": styled_caption_loader(
+                ids, B_EMOTION, T_STEPS, seed=0)}, num_epochs=1)
+
+        tr, got, clock = trainer_run(device, "factored", "PaperRegimeTrainer",
+                                     tmp, dec0, head0, cfg, tcfg, vocab,
+                                     paper)
+        expect_launches("paper regime", got, {
+            "fused_factored_scan_fwd": n_fac + n_emo,
+            "fused_factored_scan_bwd": n_fac + n_emo, "ce_rows": ce_epoch,
+            "ce_grad_rows": ce_epoch})
+        names_ = list(tr.dec)
+        st = tr.style_opt_states["happy"]
+        for key in ("S_w", "S_b"):
+            m = st.mu[names_.index(key)]
+            if m[[0, 2, 3]].abs().max().item() != 0.0 or not torch.equal(
+                    tr.dec[key][2:], dec0[key][2:]):
+                fail(f"phase 18 paper regime: {key}'s other styles moved")
+        add(got)
+        stats["paper"] = dict(clock.stats(1, len(train) + len(emo)),
+                              launches=got)
+        del tr
+        torch.cuda.empty_cache()
+
+        # (iv) one StyleNet+Att epoch at B_ATT, ratio 0.8 (K5 sampled)
+        att_train = trainer_corpus(
+            ATT_TR_BATCHES[0] * B_ATT // TR_CAPS + 1, TR_CAPS, 185,
+            "a")[:ATT_TR_BATCHES[0] * B_ATT]
+        att_emo = trainer_corpus(B_ATT // TR_CAPS + 1, TR_CAPS, 186,
+                                 "b")[:ATT_TR_BATCHES[1] * B_ATT]
+        att_val = trainer_corpus(B_ATT // TR_CAPS + 1, TR_CAPS, 187,
+                                 "c")[:B_ATT]
+        spatial = trainer_features(sorted(
+            {e.image for ds in (att_train, att_emo, att_val) for e in ds}),
+            188, (P, FS))
+        dec0, acfg = att_train_decoder("factored", device, 12)
+        atcfg = TrainConfig(mode="happy", teacher_forcing_ratio=0.8,
+                            max_caption_len=T_STEPS + 1, log_step=10 ** 9,
+                            log_step_emotion=10 ** 9)
+        tmp = os.path.join(root, "att")
+
+        def att(t):
+            t.train(*(caption_dataset_loader(ds, B_ATT, T_STEPS + 1,
+                                             spatial.__getitem__, seed=0)
+                      for ds in (att_train, att_val, att_emo, att_val)),
+                    num_epochs=1)
+
+        tr, got, clock = trainer_run(device, "factored_att",
+                                     "MultitaskTrainer", tmp, dec0, None,
+                                     acfg, atcfg, vocab, att)
+        n_att = sum(ATT_TR_BATCHES)
+        att_chunks = -(-T_STEPS // cl.auto_t_chunk(B_ATT, T_STEPS))
+        expect_launches("stylenet_att", got, {
+            "fused_att_scan_sampled_fwd": n_att,
+            "fused_att_scan_sampled_bwd": n_att,
+            "ce_rows": n_att * att_chunks,
+            "ce_grad_rows": n_att * att_chunks})
+        add(got)
+        stats["stylenet_att"] = dict(clock.stats(1, n_att * B_ATT),
+                                     launches=got)
+        del tr
+    if any(plain.values()):
+        fail(f"phase 18: a plain version ran on the card: {plain}")
+    stats["plain_calls"] = plain
+    stats["config"] = {
+        "V": V, "E": E, "H": H, "F": F, "T": T_STEPS, "B": B_IMAGES,
+        "B_emotion": B_EMOTION, "B_att": B_ATT, "P": P,
+        "train_captions": len(train), "val_captions": len(val),
+        "emotion_captions": [len(emo), len(emo_val)],
+        "teacher_forcing_ratio": [1.0, 0.8], "dropout": 0.5}
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -4700,6 +5279,22 @@ def main() -> int:
         sw_dec_launches, decode_sw = decode_switched_phase(device)
     k10["launches"] = sw_dec_launches["mega_senticap_switched_decode"]
     k9["launches"] += sw_dec_launches["mega_senticap_beam_decode"]
+    tr_launches, train["trainer"] = trainer_phase(device)
+    log("phase 18: trainers ok; StyleNet epoch s "
+        f"{[round(w, 2) for w in train['trainer']['stylenet']['epoch_s']]}"
+        ", captions/s "
+        f"{[round(c) for c in train['trainer']['stylenet']['captions_per_s']]}"
+        "; NIC epoch s "
+        f"{[round(w, 2) for w in train['trainer']['nic']['epoch_s']]}, "
+        "captions/s "
+        f"{[round(c) for c in train['trainer']['nic']['captions_per_s']]}; "
+        "device-busy share of a StyleNet epoch "
+        f"{train['trainer']['stylenet']['device_busy_share']}")
+    # the trainers run K3, K4, K5 (sampled, factored), the CE and K2
+    for entry in (k3f, k3b, k4f, k4b, cef, ceb, *k5):
+        entry["launches"] += tr_launches.get(entry["name"], 0)
+    k2["launches"] += tr_launches["mega_beam_decode"]
+    k2_lstm["launches"] += tr_launches["mega_beam_decode_lstm"]
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"decode": {"senticap": decode,

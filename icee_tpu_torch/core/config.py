@@ -1,5 +1,5 @@
 """Typed configuration objects (copy of ``icee_tpu/core/config.py``'s
-``MODES``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig``,
+``MODES``, ``EMOTIONS``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig``,
 ``AttentionDecoderConfig`` and ``TrainConfig``).
 
 Default values mirror the reference defaults: ``embed 300 / hidden 512 /
@@ -18,6 +18,7 @@ MODE_HAPPY = "happy"
 MODE_SAD = "sad"
 MODE_ANGRY = "angry"
 MODES: Tuple[str, ...] = (MODE_FACTUAL, MODE_HAPPY, MODE_SAD, MODE_ANGRY)
+EMOTIONS: Tuple[str, ...] = (MODE_HAPPY, MODE_SAD, MODE_ANGRY)
 
 
 def mode_id(mode: str) -> int:
@@ -111,5 +112,6 @@ class TrainConfig:
     # (ops/chunked_loss.py): the (B, T, V) logits never exist whole.
     # None = on when the tensors are on CUDA.
     chunked_ce: Optional[bool] = None
-    # Mid-epoch progress checkpoints (inert until the trainer is ported).
+    # Mid-epoch progress checkpoints of the device-resident epochs; the
+    # port's trainer refuses any value but 0 until those epochs are ported.
     progress_chunk: int = 0

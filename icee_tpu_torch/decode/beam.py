@@ -1,5 +1,5 @@
-"""Masked beam search over a batch of images (port of
-``icee_tpu/decode/beam.py``'s ``BeamResult`` and ``beam_search_batched``).
+"""Masked beam search (port of ``icee_tpu/decode/beam.py``'s ``BeamResult``,
+``beam_search`` and ``beam_search_batched``).
 
 The reference beam (``stylenet/model.py:198-294``) shrinks the live beam
 each step; this is the JAX package's proved-equivalent masked formulation:
@@ -152,3 +152,32 @@ def beam_search_batched(
                         torch.full_like(best_score, NEG_INF))
     return BeamResult(tokens=tokens.to(torch.int32),
                       length=length.to(torch.int32), score=score)
+
+
+def beam_search(
+    embed_fn: Callable[[torch.Tensor], torch.Tensor],
+    step_fn: Optional[Callable],
+    init_model_state: Tuple[torch.Tensor, ...],
+    start_token: int,
+    end_token: int,
+    k: int,
+    max_seq_length: int,
+    vocab_size: int,
+    first_input: Optional[torch.Tensor] = None,
+    step_topk_fn: Optional[Callable] = None,
+) -> BeamResult:
+    """The search for ONE image: :func:`beam_search_batched` at batch 1.
+
+    ``init_model_state`` leaves have leading dim ``k``; ``first_input`` is
+    an optional (k, E) step-1 input (serving semantics).  The step
+    functions are :func:`beam_search_batched`'s over ``k`` rows.  ->
+    BeamResult of ``tokens`` (max_seq_length + 2,), ``length`` () and
+    ``score`` ().
+    """
+    res = beam_search_batched(
+        embed_fn, step_fn, init_model_state, start_token, end_token, k,
+        max_seq_length, vocab_size, batch=1,
+        first_input=None if first_input is None else first_input[None],
+        step_topk_fn=step_topk_fn)
+    return BeamResult(tokens=res.tokens[0], length=res.length[0],
+                      score=res.score[0])

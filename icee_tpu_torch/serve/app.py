@@ -21,6 +21,7 @@ import json
 import mimetypes
 import os
 import re
+import tempfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -96,8 +97,14 @@ def make_handler(engine, config: ServeConfig):
             path = os.path.join(config.image_folder,
                                 os.path.basename(filename or "upload.jpg"))
             try:
-                with open(path, "wb") as f:
+                # written under a temporary name and moved in, so that a
+                # concurrent request for the same file name never reads a
+                # half-written image
+                fd, tmp = tempfile.mkstemp(dir=config.image_folder,
+                                           prefix=".upload_")
+                with os.fdopen(fd, "wb") as f:
                     f.write(data)
+                os.replace(tmp, path)
                 result = engine.caption(path, mode)
                 result["path_img"] = "/images/" + os.path.basename(path)
                 self._send(200, json.dumps(result).encode())

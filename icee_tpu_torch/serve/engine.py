@@ -13,13 +13,14 @@ attention variants the research beam, ``<start>`` embedded at step 1 and
 the image entering through h0/c0 and the attention.
 
 Weights are random (``smoke_mode``, seeded per variant as in the JAX
-engine), passed in as ``params``, or reference torch checkpoints (``.pth``
-/ ``.tar`` / ``.ckpt``: state dicts or full-module pickles, read without
-the reference's classes).  ``config.backbone_dtype`` ("float32" or
+engine), passed in as ``params``, checkpoints that the port's trainers
+wrote (``checkpoint/ckpt.py``), or reference torch checkpoints (``.pth`` /
+``.tar`` / ``.ckpt``: state dicts or full-module pickles, read without the
+reference's classes).  ``config.backbone_dtype`` ("float32" or
 "bfloat16"; any other value raises) sets the ResNet's conv weights' dtype,
 as in the JAX engine: bfloat16 conv operands with float32 sums and
-result, BatchNorm in float32.  The JAX package's own orbax checkpoints raise:
-they come with slice 3 of the port.
+result, BatchNorm in float32.  The JAX package's orbax checkpoints raise:
+the port imports no JAX to read them.
 
 The serial :meth:`CaptionEngine.caption` decodes its one image through
 the whole-search kernels: StyleNet and NIC through one K2 launch each, the
@@ -174,21 +175,32 @@ class CaptionEngine:
 
     def _restore(self, variant: str, path: str,
                  head_template: dict) -> Tuple[dict, dict]:
-        """A reference torch checkpoint -> (decoder, head) on the device: a
-        decoder state dict (the head is then the variant's template), or a
-        full-module pickle ``{"decoder", "encoder", ...}`` loaded with the
-        stub unpickler, so the reference's classes are not needed.  The
+        """A checkpoint -> (decoder, head) on the device.  A directory that
+        the port's trainers wrote (``checkpoint/ckpt.py``) loads through
+        ``load_params``; a reference torch checkpoint is a decoder state
+        dict (the head is then the variant's template), or a full-module
+        pickle ``{"decoder", "encoder", ...}`` loaded with the stub
+        unpickler, so the reference's classes are not needed.  The
         attention variants' spatial encoder has no head to import (the
         JAX engine's ``_restore`` looks for one in every full pickle)."""
+        from icee_tpu_torch.checkpoint import ckpt
         from icee_tpu_torch.checkpoint import torch_import as ti
         from icee_tpu_torch.checkpoint.torch_pickle import (load_torch_pickle,
                                                             module_state_dict)
 
+        if ckpt.is_port_checkpoint(path):
+            params = ckpt.load_params(path, self.device)
+            head = params.get("head")
+            return params["decoder"], (head_template if head is None
+                                       else head)
         if not path.endswith(TORCH_CKPT):
             raise NotImplementedError(
-                f"{path}: the JAX package's orbax checkpoints come with "
-                "slice 3 of the port; serve reference torch checkpoints "
-                f"({', '.join(TORCH_CKPT)})")
+                f"{path}: neither a checkpoint written by the port's "
+                f"trainers (a directory holding {ckpt.CKPT_FILE}) nor a "
+                f"reference torch checkpoint ({', '.join(TORCH_CKPT)}); the "
+                "JAX package's orbax checkpoints are not read by the port, "
+                "which imports no JAX: retrain with the port or export the "
+                "reference's torch format")
         sd = load_torch_pickle(path)
         if isinstance(sd, dict) and "decoder" in sd:  # full ckpt pickle
             dec_sd = module_state_dict(sd["decoder"])

@@ -25,7 +25,7 @@ instead (see ``models/factored_lstm.py``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,6 +43,18 @@ from icee_tpu_torch.ops.chunked_loss import masked_ce_from_hiddens
 from icee_tpu_torch.train.optim import Adam, AdamState, tree_leaves
 
 _STATE_KEYS = ("running_mean", "running_var")
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    top5: torch.Tensor
+
+
+def _val_metrics(logits, targets, lengths, sample_mask) -> StepMetrics:
+    """Token-mean CE and top-5 accuracy (%) over the valid tokens."""
+    return StepMetrics(
+        loss=masked_cross_entropy(logits, targets, lengths, sample_mask),
+        top5=masked_top_k_accuracy(logits, targets, lengths, 5, sample_mask))
 
 
 def _track(tree):
@@ -202,10 +214,8 @@ class CaptionSteps(_Steps):
         feats = enc_mod.encode_global_from_pooled(head, pooled)
         logits = self._forward(dec, captions, feats, int(style),
                                teacher_forcing_ratio=0.0, train=False)
-        loss = masked_cross_entropy(logits, captions, lengths, sample_mask)
-        top5 = masked_top_k_accuracy(logits, captions, lengths, 5,
-                                     sample_mask)
-        return loss, top5, torch.argmax(logits, dim=-1)
+        m = _val_metrics(logits, captions, lengths, sample_mask)
+        return m.loss, m.top5, torch.argmax(logits, dim=-1)
 
 
 def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
@@ -349,3 +359,40 @@ def make_attention_steps(cfg: AttentionDecoderConfig, tcfg: TrainConfig,
     caller asks for the CPU; a step given tensors elsewhere raises."""
     return AttentionSteps(cfg, tcfg, optimizer, lang_optimizer,
                           resolve_indexed_device(device), factored)
+
+
+class TextStyleStep(_Steps):
+    """The paper regime's text-only emotion step (``icee_tpu/train/loops.py``
+    ``PaperRegimeTrainer``): the StyleNet decoder's training forward with
+    no features (step t consumes ``captions[:, t]``), the masked token-mean
+    CE, then ``optimizer`` (one style's S slice, ``optim.make_style_adam``)
+    in place.  On CUDA the teacher-forced forward runs K3 and the loss the
+    chunked CE kernels, as in :class:`CaptionSteps`."""
+
+    def __init__(self, cfg: DecoderConfig, tcfg: TrainConfig,
+                 optimizer: Adam, device="cuda"):
+        super().__init__(cfg, tcfg, optimizer, optimizer,
+                         resolve_indexed_device(device))
+
+    def __call__(self, dec, opt_state: AdamState, captions, lengths,
+                 sample_mask, style, generator=None, keep=None, coins=None):
+        """-> (dec, opt_state, loss), the decoder updated in place."""
+        self._check_device(dec, captions, lengths, sample_mask)
+        with torch.enable_grad():
+            d = _track(dec)
+            kw = dict(teacher_forcing_ratio=self.tcfg.teacher_forcing_ratio,
+                      generator=generator, train=True,
+                      fused_scan=self.use_fused, keep=keep, coins=coins)
+            if self.use_chunked:
+                hiddens = fl.forward_hiddens(d, self.cfg, captions, None,
+                                             int(style), **kw)
+                loss = masked_ce_from_hiddens(hiddens, d["C_w"], d["C_b"],
+                                              captions, lengths, sample_mask)
+            else:
+                logits = fl.forward(d, self.cfg, captions, None, int(style),
+                                    **kw)
+                loss = masked_cross_entropy(logits, captions, lengths,
+                                            sample_mask)
+            grads = _grads_like(d, loss)
+        self.optimizer.update(grads, opt_state, dec)
+        return dec, opt_state, loss.detach()

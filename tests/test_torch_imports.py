@@ -65,7 +65,10 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
                  "ops.senticap_scan", "ops.senticap_decode",
                  "senticap.config", "senticap.io", "senticap.model",
                  "senticap.solver", "senticap.train", "senticap.beam",
-                 "senticap.switched", "ops.senticap_switched_decode"):
+                 "senticap.switched", "ops.senticap_switched_decode",
+                 "train.loops", "checkpoint.ckpt", "data.captions",
+                 "data.pipeline", "native", "evaluation.bleu",
+                 "evaluation.coco_metrics", "utils.logging"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary
