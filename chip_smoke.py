@@ -106,7 +106,9 @@ Phases, in order; any failure exits non-zero:
    the kernel path (K8, the chunked CE) vs the plain path, 30 steps over
    Zipf captions whose loss must fall, every K8 and CE count reset to 0
    just before and read just after; ``validation_perplexity`` on the
-   chunked path; step time, captions/s, the plain step's time;
+   chunked path; step time, captions/s, the plain step's time; the
+   chunked neglog2 sum (``masked_neglog2_sum_from_hiddens``) at 128 x 22
+   rows on the kernel path and with the plain row pass, both timed;
 14. K9's product alone at its two shapes (3xTF32 ``wgmma`` from weight
    planes: error against float64 at most 4x ``gemm_f32.cuh``'s, the same
    bits twice, TFLOP/s); K9 (``mega_senticap_beam_decode``, the base
@@ -158,8 +160,28 @@ Phases, in order; any failure exits non-zero:
    ``beam_search``, margin-aware as phase 5.  Seconds an epoch (train,
    validation, sample, checkpoint), training captions/s with validation
    included, and a StyleNet epoch's device-busy share (the profiler);
-19. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
-   ``senticap``, ``senticap_switched`` and ``trainer`` entries), one ``{"serve":
+19. the CLIs and the serving entry point (slice 3b) as processes on the
+   card, in the demo's order, over phase 18's corpus written as caption
+   files (every one of V words at least once) and 512 synthetic JPEGs, at
+   flagship width (first whether the C++ batcher and JPEG decoder build
+   there): ``build_vocab`` (V = 8192), ``precompute_features``
+   (ResNet-152 at 224, batch 32), ``train`` (multitask StyleNet, 2 epochs,
+   ratio 1.0 set through the stage wrapper), ``evaluate`` in both
+   semantics, ``caption_batch`` (and ``--beam_size 9``, which must fail
+   with K2's own message), ``sample``, ``validate``, the spatial
+   ``precompute_features`` of 64 images with ``evaluate --attention`` and
+   ``caption_batch --attention``, then ``python -m icee_tpu_torch.serve``
+   on the trained checkpoint (one request, ``GET /``).  Each stage runs
+   through a wrapper (``CLI_WRAPPER``) that prints the port's launch
+   counters: K3 and the CE once a training step, K2 once a batch or
+   validation, K7 once a batch, no plain version.  ``evaluate``'s BLEU must
+   equal the in-process ``evaluate()``, ``caption_batch``'s captions the
+   in-process call (the first batch margin-aware against the plain
+   search), the served caption ``CaptionEngine``'s.  Seconds a stage, CUDA
+   start-up apart, images/s and captions/s with process start included;
+20. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
+   ``senticap``, ``senticap_switched`` and ``trainer`` entries), one
+   ``{"cli": {...}}`` line (phase 19), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b) and one ``{"kernels": [...]}`` line
@@ -167,7 +189,7 @@ Phases, in order; any failure exits non-zero:
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10);
-20. print ``{"ok": true, "device": {...}}`` as the last line.
+21. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -3450,6 +3472,58 @@ def train_senticap_phase(device):
         "val_perplexity": ppl, "val_launches": val_launches}
 
 
+def check_neglog2(device):
+    """``masked_neglog2_sum_from_hiddens`` (the SentiCap perplexity
+    numerator: ``ce_rows`` a chunk, then one elementwise pass) at phase
+    13's validation shape, 128 x 22 rows, V = 8800: the kernel path vs the
+    same function with the plain row pass, both timed on the card.  No
+    single PyTorch call computes it: the ``+ 1e-20`` inside the ``log2``
+    (``icee_tpu/ops/chunked_loss.py:188``) is no call's.  -> figures."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    g = torch.Generator(device=device).manual_seed(131)
+    hh = torch.randn((SC_B, SC_T, SC_H), generator=g, device=device)
+    w = 0.05 * torch.randn((SC_H, SC_V), generator=g, device=device)
+    b = 0.1 * torch.randn((SC_V,), generator=g, device=device)
+    y = torch.randint(0, SC_V, (SC_B, SC_T), generator=g, device=device)
+    mask = (torch.rand((SC_B, SC_T), generator=g, device=device)
+            < 0.8).float()
+
+    def run():
+        return cl.masked_neglog2_sum_from_hiddens(hh, w, b, y, mask)
+
+    @contextlib.contextmanager
+    def plain_rows():
+        kernel = cl.ce_rows
+        cl.ce_rows = cl.ce_rows_plain
+        try:
+            yield
+        finally:
+            cl.ce_rows = kernel
+
+    with torch.no_grad():
+        before = cl.ce_rows.launches
+        got = run()
+        if cl.ce_rows.launches == before:
+            fail("neglog2: the kernel path launched no ce_rows")
+        with plain_rows():
+            want = run()
+        err = abs(got.item() - want.item())
+        if not err <= 1e-5 * abs(want.item()):
+            fail(f"neglog2: {got.item()} vs the plain row pass's "
+                 f"{want.item()}")
+        ms = cuda_ms(run, 20)
+        with plain_rows():
+            plain_ms = cuda_ms(run, 20)
+    rows = SC_B * SC_T
+    b_ms, b_by = bound_ms(2 * rows * SC_H * SC_V, 4 * rows * SC_V)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "value": want.item(), "rows": rows, "V": SC_V}
+
+
 def senticap_decoder(device):
     """Seeded base-model weights at the decode regime, shaped so beams end
     at several lengths: Xavier init (``model.init_params``) with the head x
@@ -5014,6 +5088,774 @@ def trainer_phase(device):
     return launches, stats
 
 
+# --- phase 19: the CLIs and the serving entry point (slice 3b) ---------------
+
+# phase 18's caption language as files: 500 training images x 5 captions,
+# each word w4 .. w{V-1} in them at least once (so build_vocab --threshold 1
+# gives V); validation and emotion captions over the same images.  No count
+# is a multiple of its batch, so every stage runs a padded last batch
+CLI_IMAGES = 500
+CLI_VAL_IMAGES, CLI_EMO_IMAGES, CLI_EMO_VAL_IMAGES = 60, 190, 20
+# the augmenting train stage's corpus: the backbone runs once a caption
+CLI_AUG_IMAGES, CLI_AUG_EMO_IMAGES = 40, 20
+CLI_BATCH = 64             # train / evaluate / caption_batch batches (the default)
+CLI_EPOCHS = 2
+CLI_TIMEOUT_S = 600
+CLI_STYLE = "sad"          # the seeded checkpoint's mode
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Each stage runs as ``python -c CLI_WRAPPER '{"module": ..., "ratio": ...}'
+# args...``: the wrapper imports torch (``import_s``), starts CUDA
+# (``cuda_init_s``), imports this script and the port's kernel modules that
+# hold the counters (``setup_s``; a CLI imports most of them itself), runs
+# the CLI module as ``__main__`` (runpy; ``run_s``) and prints one JSON line
+# of the port's launch counters and these clocks.  ``ratio`` replaces the
+# teacher-forcing ratio of ``cli.common.train_config`` (no CLI flag sets
+# it, in either package).  SIGTERM ends a server stage as an exit.
+CLI_WRAPPER = r"""
+import json, runpy, signal, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+import chip_smoke as cs
+opts = json.loads(sys.argv[1])
+if opts.get("ratio") is not None:
+    import dataclasses
+    from icee_tpu_torch.cli import common
+    make = common.train_config
+    common.train_config = lambda args: dataclasses.replace(
+        make(args), teacher_forcing_ratio=opts["ratio"])
+counters = cs.cli_counters()
+for fn, attr in counters.values():
+    setattr(fn, attr, 0)
+signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))
+sys.argv = [opts["module"]] + sys.argv[2:]
+code = 0
+with cs.plain_counters() as plain:
+    t3 = time.perf_counter()
+    try:
+        runpy.run_module(opts["module"], run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+t4 = time.perf_counter()
+print(json.dumps({"cli_stage": {
+    "counts": {k: getattr(fn, a) for k, (fn, a) in counters.items()},
+    "plain": dict(plain), "import_s": t1 - t0, "cuda_init_s": t2 - t1,
+    "setup_s": t3 - t2, "run_s": t4 - t3}}), flush=True)
+sys.exit(code)
+"""
+
+
+def cli_counters():
+    """Phase 19's launch counters: phase 18's (K3, K4, K5, the CE row
+    passes, K2) and K7, both kinds."""
+    from icee_tpu_torch.ops import att_beam
+
+    out = trainer_counters()
+    out["mega_att_beam_decode"] = (att_beam.mega_att_beam_decode,
+                                   "launches")
+    out["mega_att_beam_decode_lstm"] = (att_beam.mega_att_beam_decode,
+                                        "lstm_launches")
+    return out
+
+
+def cli_files(root: str) -> dict:
+    """The caption files and synthetic JPEGs (256 px, smooth) of phase 19's
+    corpus under ``root``; -> their paths."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    img_dir = os.path.join(root, "img")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(190)
+    for i in range(CLI_IMAGES):
+        small = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(small, "RGB").resize((256, 256), Image.BILINEAR).save(
+            os.path.join(img_dir, f"t{i}.jpg"), quality=90)
+    # every word of the vocabulary, spread over the training captions
+    rare = (4 + torch.randperm(V - 4, generator=torch.Generator()
+                               .manual_seed(191))).tolist()
+
+    def write(name, examples, extra=False):
+        path = os.path.join(root, name)
+        seen = {}
+        with open(path, "w") as f:
+            for c, e in enumerate(examples):
+                ids = e.caption_ids[1:-1]
+                if extra:
+                    ids = ids + rare[c::len(examples)]
+                j = seen[e.image] = seen.get(e.image, -1) + 1
+                f.write(f"{e.image}.jpg#{j}\t"
+                        + " ".join(f"w{i}" for i in ids) + "\n")
+        return path
+
+    def over(images, seed, first=0):
+        ex = trainer_corpus(images, TR_CAPS, seed, "t")
+        for e in ex:   # image names t{first} .. : the training images
+            e.image = f"t{int(e.image[1:]) + first}"
+        return ex
+
+    return {
+        "img": img_dir,
+        "train": write("train.txt", trainer_corpus(CLI_IMAGES, TR_CAPS, 180,
+                                                   "t"), extra=True),
+        "val": write("val.txt", over(CLI_VAL_IMAGES, 181)),
+        "happy": write("happy.txt", over(CLI_EMO_IMAGES, 182)),
+        "val_happy": write("val_happy.txt", over(CLI_EMO_VAL_IMAGES, 183,
+                                                 CLI_EMO_IMAGES)),
+        "train_aug": write("train_aug.txt", over(CLI_AUG_IMAGES, 184)),
+        "happy_aug": write("happy_aug.txt", over(CLI_AUG_EMO_IMAGES, 185)),
+    }
+
+
+GATES, STYLES = ("i", "f", "o", "c"), ("f", "happy_", "sad_", "angry_")
+
+
+def reference_decoder_state_dict(dec) -> dict:
+    """The port's FactoredLSTM tree -> the reference ``DecoderFactoredLSTM``
+    state dict (the inverse of ``checkpoint/torch_import.py``'s importer),
+    CPU tensors."""
+    f, h = dec["U_w"].shape[1], dec["W_w"].shape[0]
+    sd = {"B.weight": dec["B"], "C.weight": dec["C_w"].T,
+          "C.bias": dec["C_b"]}
+    for g, name in enumerate(GATES):
+        sd[f"V_{name}.weight"] = dec["V_w"][:, g * f:(g + 1) * f].T
+        sd[f"V_{name}.bias"] = dec["V_b"][g]
+        sd[f"U_{name}.weight"] = dec["U_w"][g].T
+        sd[f"U_{name}.bias"] = dec["U_b"][g]
+        sd[f"W_{name}.weight"] = dec["W_w"][:, g * h:(g + 1) * h].T
+        sd[f"W_{name}.bias"] = dec["W_b"][g]
+        for s, sp in enumerate(STYLES):
+            sd[f"S_{sp}{name}.weight"] = dec["S_w"][s, g].T
+            sd[f"S_{sp}{name}.bias"] = dec["S_b"][s, g]
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def reference_head_state_dict(head) -> dict:
+    """The port's encoder head -> the reference ``EncoderCNN``'s
+    ``linear.*`` and ``bn.*`` entries, CPU tensors."""
+    sd = {"linear.weight": head["linear_w"].T,
+          "linear.bias": head["linear_b"],
+          **{f"bn.{k}": v for k, v in head["bn"].items()}}
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def resnet_state_dict(backbone) -> dict:
+    """The port's HWIO ResNet-152 tree -> numpy arrays in torchvision's
+    state-dict names (OIHW), the inverse of
+    ``models/resnet.py::import_torch_state_dict``."""
+
+    def conv(w):
+        return w.permute(3, 2, 0, 1).contiguous().cpu().numpy()
+
+    def bn(prefix, p):
+        return {f"{prefix}.{k}": v.cpu().numpy() for k, v in p.items()}
+
+    sd = {"conv1.weight": conv(backbone["conv1"]),
+          **bn("bn1", backbone["bn1"])}
+    for li in range(1, 5):
+        for bi, p in enumerate(backbone[f"layer{li}"]):
+            pre = f"layer{li}.{bi}"
+            for j in (1, 2, 3):
+                sd[f"{pre}.conv{j}.weight"] = conv(p[f"conv{j}"])
+                sd.update(bn(f"{pre}.bn{j}", p[f"bn{j}"]))
+            if "downsample_conv" in p:
+                sd[f"{pre}.downsample.0.weight"] = conv(p["downsample_conv"])
+                sd.update(bn(f"{pre}.downsample.1", p["downsample_bn"]))
+    return sd
+
+
+def seeded_decode_weights(params, feats: dict):
+    """Phase 6's seeded StyleNet decoder and encoder head
+    (``captioning_params``), the head's BatchNorm running statistics those
+    of ``feats``, the cached features of phase 19's images: each image's
+    step-1 feature is then O(1) about the images' mean, and images get
+    captions of their own.  (The trained checkpoint, fitted to captions
+    that do not depend on the image, gives one caption to every image, so
+    it could not show a feature put in another image's row.)  -> (dec,
+    head)."""
+    import numpy as np
+    import torch
+
+    src = params["stylenet"]["head"]
+    pooled = torch.from_numpy(np.stack([feats[n] for n in sorted(feats)]))
+    with torch.no_grad():
+        z = pooled.to(src["linear_w"].device) @ src["linear_w"] \
+            + src["linear_b"]
+    head = {"linear_w": src["linear_w"], "linear_b": src["linear_b"],
+            "bn": {**src["bn"], "running_mean": z.mean(0),
+                   "running_var": z.var(0, unbiased=False)}}
+    return params["stylenet"]["decoder"], head
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A tensor tree (dicts and lists) -> {path: the tensor's bytes and
+    shape}, to compare two trees whatever their key order."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flat_tree(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in flat_tree(sub, f"{prefix}/{i}").items()}
+    t = tree.detach().cpu().contiguous()
+    return {prefix: (str(t.dtype), tuple(t.shape), t.numpy().tobytes())}
+
+
+def cli_env() -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("CHECKPOINT_PATH_") and k not in (
+               "VOCAB_PATH", "RESNET_WEIGHTS", "BACKBONE_DTYPE",
+               "BATCH_WINDOW_MS", "IMAGE_FOLDER")}
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def cli_cmd(module: str, args, ratio=None):
+    return [sys.executable, "-c", CLI_WRAPPER,
+            json.dumps({"module": module, "ratio": ratio}), *map(str, args)]
+
+
+def cli_record(name: str, out: str, want: dict, wall: float, logs: str):
+    """The wrapper's JSON line from a stage's output, its counts held to
+    ``want`` (every other count 0, no plain version) -> (stats, counts)."""
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"cli_stage"')]
+    if not lines:
+        fail(f"phase 19 {name}: no counter line (output in {logs})")
+    rec = json.loads(lines[-1])["cli_stage"]
+    if any(rec["plain"].values()):
+        fail(f"phase 19 {name}: a plain version ran on the card: "
+             f"{rec['plain']}")
+    for k, n in rec["counts"].items():
+        if n != want.get(k, 0):
+            fail(f"phase 19 {name}: {k} launched {n} times, expected "
+                 f"{want.get(k, 0)} (all counts {rec['counts']})")
+    stats = {"wall_s": wall, **{k: rec[k] for k in (
+        "import_s", "cuda_init_s", "setup_s", "run_s")}}
+    return stats, rec["counts"]
+
+
+def cli_stage(name: str, module: str, args, logs: str, want: dict,
+              ratio=None):
+    """One CLI as its own process; it must exit 0 and launch ``want``.
+    -> (stats, counts, stdout)."""
+    t = time.perf_counter()
+    proc = subprocess.run(cli_cmd(module, args, ratio), cwd=ROOT,
+                          env=cli_env(), capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    log_path = os.path.join(logs, f"{name}.log")
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"phase 19 {name}: exit {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    stats, counts = cli_record(name, proc.stdout, want, wall, log_path)
+    log(f"phase 19 {name}: {wall:.2f} s (import torch "
+        f"{stats['import_s']:.2f} s, CUDA start-up {stats['cuda_init_s']:.2f}"
+        f" s, counters {stats['setup_s']:.2f} s, run {stats['run_s']:.2f} "
+        f"s); launches { {k: n for k, n in counts.items() if n} }")
+    return stats, counts, proc.stdout
+
+
+def bleu_lines(out: str):
+    return [float(ln.split()[1]) for ln in out.splitlines()
+            if ln.startswith("BLEU-")]
+
+
+def cli_searches(dec, head, feats: dict, names, style: int, vocab, device):
+    """Each image's search in this process, its cached feature taken by
+    name and put through ``head``: K2 over ``names`` in batches of
+    CLI_BATCH (zero rows pad the last), and the plain search over all of
+    them.  -> (features (n, K, E), kernel result, plain result, the plain
+    model's score of each kernel sequence), rows in ``names`` order."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.decode.beam import BeamResult
+    from icee_tpu_torch.decode.fast import factored_decode
+    from icee_tpu_torch.models.encoder import encode_global_from_pooled
+    from icee_tpu_torch.ops.beam import mega_beam_decode_plain
+
+    xs, parts = [], []
+    with torch.no_grad():
+        for i in range(0, len(names), CLI_BATCH):
+            chunk = names[i:i + CLI_BATCH]
+            x = encode_global_from_pooled(head, torch.from_numpy(np.stack(
+                [feats[n] for n in chunk])).to(device))
+            xs.append(x)
+            x = torch.cat([x, x.new_zeros((CLI_BATCH - len(chunk), E))])
+            res = factored_decode(
+                "mega", dec, x[:, None, :].expand(CLI_BATCH, K, E)
+                .contiguous(), style, CLI_BATCH, K, STEPS, vocab.start,
+                vocab.end)
+            parts.append([t[:len(chunk)] for t in res])
+        kern = BeamResult(*(torch.cat(ts) for ts in zip(*parts)))
+        n = len(names)
+        tiled = torch.cat(xs)[:, None, :].expand(n, K, E).contiguous()
+        plain = mega_beam_decode_plain(dec, tiled, style, n, vocab.start,
+                                       vocab.end, k=K, max_seq_length=STEPS)
+        rescored = sequence_scores(dec, "factored", tiled, style,
+                                   kern.tokens, kern.length)
+    return tiled, kern, plain, rescored
+
+
+def check_cli_captions(got: dict, names, kern, plain, rescored, vocab):
+    """``caption_batch``'s JSON against this process's searches of the same
+    images: each image's caption the detokenized K2 sequence of its own
+    feature (so a feature decoded in another image's row, or dropped,
+    fails), the K2 sequences margin-aware (phase 5's rule) against the
+    plain search's, and most images with a caption of their own.  -> (near-
+    tie flips, distinct captions)."""
+    want = {}
+    for i, name in enumerate(names):
+        words = vocab.decode(kern.tokens[i, :int(kern.length[i])].tolist())
+        while words and words[-1] == "<unk>":
+            words.pop()
+        want[name] = " ".join(words)
+    if sorted(got) != list(names):
+        fail(f"phase 19 caption_batch: {len(got)} captions for "
+             f"{len(names)} images")
+    bad = [n for n in names if got[n] != want[n]]
+    if bad:
+        fail(f"phase 19 caption_batch: {len(bad)} captions differ from "
+             f"their image's search (first {bad[0]}: {got[bad[0]]!r} vs "
+             f"{want[bad[0]]!r})")
+    distinct = len(set(got.values()))
+    if distinct < len(names) // 2:
+        fail(f"phase 19 caption_batch: {distinct} distinct captions of "
+             f"{len(names)}: the check cannot see a row mix-up")
+    _, _, flips = margin_check("phase 19 caption_batch", kern, plain,
+                               rescored)
+    return flips, distinct
+
+
+def check_eval_lines(what: str, out: str, dataset, row: dict, tiled, plain,
+                     dec, style: int, vocab):
+    """``evaluate``'s printed predictions, line by line, against the plain
+    search of that line's image (``row``: image -> row of ``plain``): equal,
+    or a near tie (the printed sequence scores within 1e-4 of the plain
+    winner under the plain model).  -> near-tie flips."""
+    import torch
+
+    preds = [ln.split()[1:] for ln in out.splitlines()
+             if ln.startswith("pred ")]
+    if len(preds) != len(dataset):
+        fail(f"{what}: {len(preds)} predictions for {len(dataset)} lines")
+    flips = 0
+    for j, (ex, words) in enumerate(zip(dataset, preds)):
+        r = row[ex.image]
+        want = plain.tokens[r, :int(plain.length[r])].tolist()
+        ids = [vocab.word2idx[w] for w in words]
+        if ids == want:
+            continue
+        toks = torch.full((1, plain.tokens.shape[1]), vocab.end,
+                          dtype=plain.tokens.dtype, device=tiled.device)
+        toks[0, :len(ids)] = torch.tensor(ids, dtype=toks.dtype)
+        with torch.no_grad():
+            score = sequence_scores(dec, "factored", tiled[r:r + 1], style,
+                                    toks, torch.tensor([len(ids)],
+                                                       device=tiled.device))
+        margin = abs(score.item() - plain.score[r].item())
+        if len(ids) <= 1 or margin > 1e-4:
+            fail(f"{what}, line {j} ({ex.image}): predicted {words}, the "
+                 f"plain search {vocab.decode(want, False)}; margin "
+                 f"{margin} > 1e-4")
+        flips += 1
+        log(f"{what}, line {j}: near-tie flip, margin {margin}")
+    return flips
+
+
+def cli_phase(device):
+    """Phase 19: the demo's stages as processes on the card, at flagship
+    width (E = 300, H = F = 512, 40 steps, k = 5, V = 8192), with phase
+    6's seeded weights made anew: the backbone for every image stage, the
+    StyleNet decoder and head for the decode stages."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.checkpoint.ckpt import load_params
+    from icee_tpu_torch.cli.evaluate import evaluate
+    from icee_tpu_torch.cli.sample import caption_image
+    from icee_tpu_torch.core.config import DecoderConfig, mode_id
+    from icee_tpu_torch.data.captions import load_caption_dataset
+    from icee_tpu_torch.data.transforms import host_decode_resize, normalize
+    from icee_tpu_torch.data.vocab import load_vocab
+    from icee_tpu_torch.models import resnet
+    from icee_tpu_torch.models.encoder import encode_global_from_pooled
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    from icee_tpu_torch import native
+    from icee_tpu_torch.native import imagedec
+
+    stats, launches = {}, {}
+    m = "icee_tpu_torch.cli."
+    params = captioning_params(device)
+    # the host-side C++ libraries (g++ at first use; NumPy / PIL otherwise)
+    stats["native_available"] = {"batcher": native.native_available(),
+                                 "imagedec": imagedec.native_available()}
+    log(f"phase 19: native libraries built: {stats['native_available']}")
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                        factored_size=F, max_seq_length=STEPS)
+    t_cap = STEPS + 2
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def ce_launches(*steps):
+        """The CE row passes of ``(steps, batch)`` pairs of training
+        steps: one launch a time chunk."""
+        return sum(n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
+                   for n, b in steps)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files = cli_files(root)
+        # phase 6's seeded backbone (residual branches damped), in
+        # torchvision's names, for every stage that runs the backbone
+        backbone = os.path.join(root, "resnet152.npz")
+        np.savez(backbone, **resnet_state_dict(params["backbone"]))
+        stats["corpus_s"] = time.perf_counter() - t0
+        logs = os.path.join(root, "logs")
+        os.makedirs(logs)
+        vocab_path = os.path.join(root, "vocab.pkl")
+        cache = os.path.join(root, "features.npz")
+        models = os.path.join(root, "models")
+
+        def stage(name, module, args, want=None, ratio=None):
+            st, counts, out = cli_stage(name, module, args, logs, want or {},
+                                        ratio)
+            stats[name] = st
+            add(counts)
+            return out
+
+        def train_args(caps, happy, epochs, model_dir, name, source):
+            return [
+                "--trainer", "multitask", "--family", "stylenet", "--mode",
+                "happy", "--vocab_path", vocab_path, "--caption_path", caps,
+                "--val_caption_path", files["val"], "--happy_path", happy,
+                "--val_happy_path", files["val_happy"], *source,
+                "--num_epochs", epochs, "--caption_batch_size", CLI_BATCH,
+                "--language_batch_size", B_EMOTION, "--model_path",
+                model_dir, "--log_path", os.path.join(root, f"{name}.log"),
+                "--metrics_path", os.path.join(root, f"{name}.jsonl"),
+                "--data_name", name, "--log_step", 10 ** 9,
+                "--log_step_emotion", 10 ** 9]
+
+        def train_events(name, epochs):
+            with open(os.path.join(root, f"{name}.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            losses = [e["train_loss"] for e in events
+                      if e["event"] == "epoch_factual"]
+            if len(events) != 2 * epochs or len(losses) != epochs or not all(
+                    np.isfinite(x) for x in losses):
+                fail(f"phase 19 {name}: events {events}")
+            return events, losses
+
+        # 1/6 the vocabulary
+        stage("build_vocab", m + "build_vocab", [
+            "--caption_path", files["train"], "--vocab_path", vocab_path,
+            "--threshold", 1])
+        vocab = load_vocab(vocab_path)
+        if len(vocab) != V:
+            fail(f"phase 19: build_vocab gave {len(vocab)} words, not {V}")
+        # 2/6 the feature cache: ResNet-152 at 224 on the card, batch 32
+        stage("precompute_features", m + "precompute_features", [
+            "--caption_path", files["train"], "--image_dir", files["img"],
+            "--out", cache, "--batch_size", 32, "--resnet_weights",
+            backbone])
+        stats["precompute_features"]["images_per_s"] = \
+            CLI_IMAGES / stats["precompute_features"]["wall_s"]
+        with np.load(cache) as f:
+            feats = dict(f)
+        names = sorted(feats)
+        if len(names) != CLI_IMAGES:
+            fail(f"phase 19 precompute_features: {len(names)} features")
+        # 3/6 (i) two epochs of the multitask regime on the feature cache
+        # at ratio 1.0, so that every step takes the teacher-forced path
+        # (K3)
+        n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
+        n_emo = -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION)
+        ce = CLI_EPOCHS * ce_launches((n_fac, CLI_BATCH), (n_emo, B_EMOTION))
+        steps = CLI_EPOCHS * (n_fac + n_emo)
+        stage("train", m + "train", train_args(
+            files["train"], files["happy"], CLI_EPOCHS, models, "chip",
+            ["--feature_cache", cache]),
+            {"fused_factored_scan_fwd": steps,
+             "fused_factored_scan_bwd": steps, "ce_rows": ce,
+             "ce_grad_rows": ce, "mega_beam_decode": 2 * CLI_EPOCHS},
+            ratio=1.0)
+        events, losses = train_events("chip", CLI_EPOCHS)
+        written = sorted(os.listdir(models))
+        best = os.path.join(models, "HAP_BEST_checkpoint_chip")
+        if not os.path.isdir(best):
+            best = os.path.join(models, "HAP_checkpoint_chip")
+        stats["train"].update(
+            steps=steps, train_loss=losses, checkpoints=written,
+            bleu4=[e["bleu4"] for e in events],
+            served_checkpoint=os.path.basename(best),
+            captions_per_s=CLI_EPOCHS * (CLI_IMAGES + CLI_EMO_IMAGES)
+            * TR_CAPS / stats["train"]["wall_s"])
+        # 3/6 (ii) one epoch as a user runs it: the default ratio (0.8:
+        # the scheduled-sampling loop, the chunked CE, no K3) and the
+        # backbone over --image_dir on a fresh crop and flip each call
+        n_fac = -(-CLI_AUG_IMAGES * TR_CAPS // CLI_BATCH)
+        n_emo = -(-CLI_AUG_EMO_IMAGES * TR_CAPS // B_EMOTION)
+        ce = ce_launches((n_fac, CLI_BATCH), (n_emo, B_EMOTION))
+        stage("train_augment", m + "train", train_args(
+            files["train_aug"], files["happy_aug"], 1,
+            os.path.join(root, "models_aug"), "aug",
+            ["--image_dir", files["img"], "--resnet_weights", backbone]),
+            {"ce_rows": ce, "ce_grad_rows": ce, "mega_beam_decode": 2})
+        _, aug_losses = train_events("aug", 1)
+        stats["train_augment"].update(
+            steps=n_fac + n_emo, train_loss=aug_losses,
+            augmented_captions=(CLI_AUG_IMAGES + CLI_AUG_EMO_IMAGES)
+            * TR_CAPS)
+        # the seeded decoder as the reference's torch checkpoints, turned
+        # into a port checkpoint by the export CLI
+        dec, head = seeded_decode_weights(params, feats)
+        dec_pth = os.path.join(root, "decoder.pth")
+        enc_pth = os.path.join(root, "encoder.pth")
+        torch.save(reference_decoder_state_dict(dec), dec_pth)
+        torch.save(reference_head_state_dict(head), enc_pth)
+        style = mode_id(CLI_STYLE)
+        tag = CLI_STYLE.upper()[:3]
+        stage("export", m + "export", [
+            "--decoder_path", dec_pth, "--encoder_path", enc_pth,
+            "--vocab_path", vocab_path, "--out_dir", os.path.join(
+                root, "seeded"), "--data_name", "seeded", "--mode",
+            CLI_STYLE])
+        seeded = os.path.join(root, "seeded", f"{tag}_checkpoint_seeded")
+        exported = load_params(seeded, device)
+        if flat_tree(exported) != flat_tree({"decoder": dec, "head": head}):
+            fail("phase 19 export: the checkpoint's params are not the "
+                 "exported ones")
+        tiled, kern, plain, rescored = cli_searches(dec, head, feats, names,
+                                                    style, vocab, device)
+        row = {n: i for i, n in enumerate(names)}
+        # 4/6 BLEU over the validation captions: research semantics on the
+        # trained checkpoint (the feature never fed), serving semantics on
+        # the seeded one, whose lines are held to their images' searches
+        n_val = CLI_VAL_IMAGES * TR_CAPS
+        dataset = load_caption_dataset(files["val"], vocab)
+        common = ["--vocab_path", vocab_path, "--feature_cache", cache,
+                  "--batch_size", CLI_BATCH]
+        trained = load_params(best, device)
+        outs = {}
+        for name, path, mode, extra in (
+                ("evaluate", best, "happy", []),
+                ("evaluate_feed_feature", seeded, CLI_STYLE,
+                 ["--feed_feature"])):
+            out = outs[name] = stage(name, m + "evaluate", common + [
+                "--checkpoint_path", path, "--test_path", files["val"],
+                "--mode", mode, *extra],
+                {"mega_beam_decode": -(-n_val // CLI_BATCH)})
+            got = bleu_lines(out)
+            w = exported if extra else trained
+            want = evaluate(w["decoder"], w["head"], cfg, vocab, dataset,
+                            feats.__getitem__, mode_id(mode),
+                            batch_size=CLI_BATCH, k=K, print_pairs=False,
+                            feed_feature=bool(extra), device=device)
+            if got != list(want):
+                fail(f"phase 19 {name}: BLEU {got} != the in-process "
+                     f"evaluate()'s {list(want)}")
+            stats[name].update(bleu=got,
+                               captions_per_s=n_val / stats[name]["wall_s"])
+        stats["evaluate_feed_feature"]["near_tie_flips"] = check_eval_lines(
+            "phase 19 evaluate --feed_feature",
+            outs["evaluate_feed_feature"], dataset, row, tiled,
+            plain, dec, style, vocab)
+        # every image of the directory, serving semantics
+        captions = os.path.join(root, "captions.json")
+        seeded_args = ["--vocab_path", vocab_path, "--feature_cache", cache,
+                       "--checkpoint_path", seeded, "--mode", CLI_STYLE,
+                       "--batch_size", CLI_BATCH]
+        stage("caption_batch", m + "caption_batch", seeded_args + [
+            "--image_dir", files["img"], "--out", captions],
+            {"mega_beam_decode": -(-CLI_IMAGES // CLI_BATCH)})
+        with open(captions) as f:
+            got = json.load(f)
+        flips, distinct = check_cli_captions(got, names, kern, plain,
+                                             rescored, vocab)
+        stats["caption_batch"].update(
+            near_tie_flips=flips, distinct_captions=distinct,
+            captions_per_s=CLI_IMAGES / stats["caption_batch"]["wall_s"])
+        # a beam the kernel does not take raises K2's own error
+        t = time.perf_counter()
+        proc = subprocess.run(cli_cmd(m + "caption_batch", seeded_args + [
+            "--out", os.path.join(root, "k9.json"), "--beam_size", 9]),
+            cwd=ROOT, env=cli_env(), capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
+        k2_msg = "k=9: the CUDA kernel K2 (csrc/beam.cu) takes at most K_MAX"
+        if proc.returncode == 0 or k2_msg not in proc.stderr:
+            fail(f"phase 19 caption_batch --beam_size 9: exit "
+                 f"{proc.returncode}, {proc.stderr[-2000:]}")
+        stats["caption_batch_beam_9"] = {
+            "wall_s": time.perf_counter() - t,
+            "error": next((ln for ln in proc.stderr.splitlines()
+                           if k2_msg in ln), None)}
+        # 5/6 one image, its feature from the backbone on the card, the
+        # weights from the reference's torch checkpoints
+        image = os.path.join(files["img"], "t0.jpg")
+        out = stage("sample", m + "sample", [
+            "--image", image, "--vocab_path", vocab_path, "--decoder_path",
+            dec_pth, "--encoder_path", enc_pth, "--resnet_weights", backbone,
+            "--mode", CLI_STYLE], {"mega_beam_decode": 1})
+        with torch.no_grad():
+            pooled = resnet.Backbone(params["backbone"])(normalize(
+                torch.tensor(host_decode_resize(image, 224), device=device)
+                [None]))
+            want = caption_image(dec, cfg, vocab, encode_global_from_pooled(
+                head, pooled)[0], style)
+        sampled = out.splitlines()[-2]
+        if sampled != want or not want:
+            fail(f"phase 19 sample: {sampled!r}; in this process {want!r}")
+        stats["sample"].update(caption=sampled,
+                               same_as_caption_batch=sampled == got["t0.jpg"])
+        out = stage("validate", m + "validate", [
+            "--caption_path", files["val"], "--checkpoint_path", best,
+            *common])
+        stats["validate"]["line"] = [ln for ln in out.splitlines()
+                                     if ln.startswith("Val Loss")][-1]
+        # the attention decoder over spatial features of the validation
+        # images, random weights
+        spatial = os.path.join(root, "spatial.npz")
+        stage("precompute_features_spatial", m + "precompute_features", [
+            "--caption_path", files["val"], "--image_dir", files["img"],
+            "--out", spatial, "--batch_size", 32, "--spatial",
+            "--resnet_weights", backbone])
+        stats["precompute_features_spatial"]["images_per_s"] = \
+            CLI_VAL_IMAGES / stats["precompute_features_spatial"]["wall_s"]
+        att = ["--vocab_path", vocab_path, "--feature_cache", spatial,
+               "--attention", "--batch_size", CLI_BATCH]
+        stage("evaluate_attention", m + "evaluate", att + [
+            "--test_path", files["val"]],
+            {"mega_att_beam_decode": -(-n_val // CLI_BATCH)})
+        stats["evaluate_attention"]["captions_per_s"] = \
+            n_val / stats["evaluate_attention"]["wall_s"]
+        stage("caption_batch_attention", m + "caption_batch", att + [
+            "--out", os.path.join(root, "att_captions.json")],
+            {"mega_att_beam_decode": -(-CLI_VAL_IMAGES // CLI_BATCH)})
+        stats["caption_batch_attention"]["captions_per_s"] = \
+            CLI_VAL_IMAGES / stats["caption_batch_attention"]["wall_s"]
+        # 6/6 the server: the trained checkpoint as StyleNet's happy model,
+        # the seeded one as its sad model
+        stats["serve"] = serve_stage(device, root, vocab_path, backbone,
+                                     {"happy": best, CLI_STYLE: seeded},
+                                     files["img"], logs, add)
+        stats["config"] = {
+            "V": V, "E": E, "H": H, "F": F, "max_seq_length": STEPS,
+            "k": K, "images": CLI_IMAGES, "train_captions": CLI_IMAGES
+            * TR_CAPS, "val_captions": n_val, "emotion_captions":
+            [CLI_EMO_IMAGES * TR_CAPS, CLI_EMO_VAL_IMAGES * TR_CAPS],
+            "batch": CLI_BATCH, "emotion_batch": B_EMOTION,
+            "epochs": CLI_EPOCHS, "teacher_forcing_ratio": [1.0, "default"],
+            "augment_captions": [CLI_AUG_IMAGES * TR_CAPS,
+                                 CLI_AUG_EMO_IMAGES * TR_CAPS],
+            "attention_images": CLI_VAL_IMAGES}
+    return launches, stats
+
+
+def serve_stage(device, root: str, vocab_path: str, backbone: str,
+                checkpoints: dict, img_dir: str, logs: str, add):
+    """``python -m icee_tpu_torch.serve`` through the wrapper on a free
+    port, with a ``.env`` that serves ``checkpoints`` (mode -> path) as
+    StyleNet's models: one ``POST /generate`` of one image in each mode and
+    one of a second image in the last, then ``GET /``, then SIGTERM.  Each
+    served caption must be ``CaptionEngine``'s for that checkpoint, the
+    last mode's two images must get captions of their own, the page must
+    be the bundled ``index.html``, and K2 must launch once a request."""
+    import signal
+    import socket
+
+    from icee_tpu_torch.serve.config import ServeConfig
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env_file = os.path.join(root, "serve.env")
+    uploads = os.path.join(root, "uploads")
+    suffix = {"factual": "FAC", "happy": "HAP", "sad": "SAD", "angry": "ANG"}
+    with open(env_file, "w") as f:
+        f.write(f"BACKEND_HOST=127.0.0.1\nIMAGE_FOLDER={uploads}\n"
+                f"VOCAB_PATH={vocab_path}\nRESNET_WEIGHTS={backbone}\n"
+                + "".join(f"CHECKPOINT_PATH_STYLENET_{suffix[mode]}={path}\n"
+                          for mode, path in checkpoints.items()))
+    url = f"http://127.0.0.1:{port}"
+    modes = list(checkpoints)
+    requests = [(os.path.join(img_dir, "t1.jpg"), mode) for mode in modes]
+    requests.append((os.path.join(img_dir, "t2.jpg"), modes[-1]))
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        cli_cmd("icee_tpu_torch.serve", ["--env", env_file, "--port", port]),
+        cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        while True:
+            try:
+                urllib.request.urlopen(url + "/index.js", timeout=5).read()
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if proc.poll() is not None or \
+                        time.perf_counter() - t > CLI_TIMEOUT_S:
+                    fail(f"phase 19 serve: the server did not start: "
+                         f"{proc.stderr.read()[-3000:]}")
+                time.sleep(0.2)
+        up = time.perf_counter() - t
+        answers = [_post(url, image, mode) for image, mode in requests]
+        with urllib.request.urlopen(url + "/", timeout=30) as r:
+            page = r.read()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    wall = time.perf_counter() - t
+    log_path = os.path.join(logs, "serve.log")
+    with open(log_path, "w") as f:
+        f.write(out + "\n--- stderr ---\n" + err)
+    if proc.returncode != 0:
+        fail(f"phase 19 serve: exit {proc.returncode}: {err[-3000:]}")
+    stats, counts = cli_record("serve", out, {"mega_beam_decode": len(
+        requests)}, wall, log_path)
+    add(counts)
+    with open(os.path.join(ROOT, "icee_tpu_torch", "serve", "static",
+                           "index.html"), "rb") as f:
+        if page != f.read():
+            fail("phase 19 serve: GET / is not the bundled index.html")
+    engine = CaptionEngine(ServeConfig(
+        vocab_path=vocab_path, resnet_weights=backbone,
+        checkpoint_paths={"stylenet": checkpoints}), device=device)
+    captions = []
+    for (image, mode), (status, served, _) in zip(requests, answers):
+        want = engine.caption(image, mode)["stylenet"]
+        if status != 200 or served.get("stylenet") != want or \
+                served.get("nic") != "-":
+            fail(f"phase 19 serve: {os.path.basename(image)} ({mode}) "
+                 f"answered {status} {served}; the engine captions "
+                 f"{want!r}")
+        captions.append(want)
+    if captions[-1] == captions[-2]:
+        fail(f"phase 19 serve: two images got one caption {captions[-1]!r}"
+             f" from the seeded checkpoint")
+    stats.update(up_s=up, request_s=[a[2] for a in answers],
+                 captions=captions)
+    log(f"phase 19 serve: up in {up:.2f} s, requests "
+        f"{[round(a[2], 3) for a in answers]} s, {wall:.2f} s in all; "
+        f"captions {captions}")
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -5230,9 +6072,12 @@ def main() -> int:
         f"{k8b['bound_ms']:.3f}, 3xTF32 floor {k8b['bound_tf32x3_ms']:.3f}; "
         f"device ms by group: {groups_line(k8b['device_ms_by_group'])})")
     sc_launches, train["senticap"] = train_senticap_phase(device)
+    train["senticap"]["neglog2"] = check_neglog2(device)
     log(f"phase 13: SentiCap step {train['senticap']['step_ms']:.3f} ms, "
         f"{train['senticap']['captions_per_s']:.1f} captions/s (plain "
-        f"{train['senticap']['plain_step_ms']:.3f} ms)")
+        f"{train['senticap']['plain_step_ms']:.3f} ms); neglog2 sum "
+        f"{train['senticap']['neglog2']['ms']:.4f} ms (plain row pass "
+        f"{train['senticap']['neglog2']['plain_ms']:.4f} ms)")
     for entry in (k8f, k8b):
         entry["launches"] = sc_launches[entry["name"]]
     for entry in (cef, ceb):   # the SentiCap steps use the CE kernels too
@@ -5295,7 +6140,23 @@ def main() -> int:
         entry["launches"] += tr_launches.get(entry["name"], 0)
     k2["launches"] += tr_launches["mega_beam_decode"]
     k2_lstm["launches"] += tr_launches["mega_beam_decode_lstm"]
+    cli_launches, cli = cli_phase(device)
+    log("phase 19: CLIs ok; s a stage (CUDA start-up) " + ", ".join(
+        f"{name} {st['wall_s']:.1f} ({st.get('cuda_init_s', 0.0):.1f})"
+        for name, st in cli.items() if isinstance(st, dict)
+        and "wall_s" in st) + f"; precompute_features "
+        f"{cli['precompute_features']['images_per_s']:.1f} images/s, "
+        f"evaluate {cli['evaluate']['captions_per_s']:.1f} and "
+        f"caption_batch {cli['caption_batch']['captions_per_s']:.1f} "
+        "captions/s, process start included")
+    # the CLIs run K3, the CE and K2 (train, evaluate, caption_batch,
+    # sample, serve) and K7 (the attention stages)
+    for entry in (k3f, k3b, cef, ceb):
+        entry["launches"] += cli_launches.get(entry["name"], 0)
+    k2["launches"] += cli_launches["mega_beam_decode"]
+    k7["factored"]["launches"] += cli_launches["mega_att_beam_decode"]
     print(json.dumps({"train": train}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"decode": {"senticap": decode,
                                  "senticap_switched": decode_sw}}))

@@ -10,7 +10,8 @@ Package map:
 - :mod:`icee_tpu_torch.core`     — configs, initializers, device resolution
 - :mod:`icee_tpu_torch.data`     — tokenizer, vocabulary, image transforms,
   caption files and the host loaders (``pipeline``)
-- :mod:`icee_tpu_torch.native`   — flat ragged caption storage
+- :mod:`icee_tpu_torch.native`   — flat ragged caption storage, the C++
+  batcher and JPEG decoder (host code, built by ``g++`` at first use)
 - :mod:`icee_tpu_torch.ops`      — the cell, the hand-written CUDA kernels
   (``csrc/``: decode step, beam search, training scan, chunked CE) and
   their plain PyTorch versions
@@ -22,8 +23,13 @@ Package map:
 - :mod:`icee_tpu_torch.evaluation` — masked CE, top-k accuracy, BLEU and
   the COCO caption metrics
 - :mod:`icee_tpu_torch.utils`    — the JSONL metrics writer
-- :mod:`icee_tpu_torch.decode`   — masked beam search and the decode paths
+- :mod:`icee_tpu_torch.decode`   — masked beam search, the decode paths and
+  greedy decoding
 - :mod:`icee_tpu_torch.serve`    — caption engine, batching, HTTP service
+  and its page (``python -m icee_tpu_torch.serve``)
+- :mod:`icee_tpu_torch.cli`      — the command-line entry points
+  (``python -m icee_tpu_torch.cli.train`` and the rest; on CUDA unless
+  ``--device cpu``)
 - :mod:`icee_tpu_torch.bridge`   — numpy <-> torch parameter trees
 """
 

@@ -77,6 +77,17 @@ def module_state_dict(obj: Any, prefix: str = "") -> "OrderedDict":
     return out
 
 
+def load_state_dict(path: str) -> Dict[str, Any]:
+    """A reference torch checkpoint -> its state dict: a state-dict pickle,
+    or a whole module pickled (its class need not be importable)."""
+    obj = load_torch_pickle(path)
+    if hasattr(obj, "state_dict"):
+        return obj.state_dict()
+    if "_parameters" in getattr(obj, "__dict__", {}):
+        return module_state_dict(obj)
+    return obj
+
+
 def load_reference_full_checkpoint(path: str) -> Dict[str, Any]:
     """Load a reference full checkpoint -> {'epoch', 'bleu-4',
     'epochs_since_improvement', 'encoder_state', 'decoder_state'} with the

@@ -1,0 +1,236 @@
+"""``python -m icee_tpu_torch.cli.train`` — unified training CLI (port of
+``icee_tpu/cli/train.py``), selected by ``--trainer`` (flags otherwise
+mirror ``train_multitask.py:560-634``):
+
+- ``multitask``      -> T2 (``stylenet/train_multitask.py``) / NIC copy
+- ``multitask_att``  -> T3 (``train_multitask_att.py``)
+- ``transfer_fac``   -> T4 stage-1 factual pretraining
+- ``transfer``       -> T5 stage-2 style fine-tune (masked optimizer)
+- ``paper``          -> T1 StyleNet-paper regime (text-only style corpora)
+
+``--family {stylenet,nic}`` picks the factored vs plain decoder.  On a CUDA
+device every training step launches the kernels (K3 or K4, K5 for the
+attention families, and the chunked CE) and each validation's sample one K2
+search; ``--fused_scan off`` / ``--chunked_ce off`` are the explicit
+opt-outs, as in the JAX CLI.
+
+Refused at start-up, each naming the slice of the port that brings it:
+``--trainer seq2seq`` (slice 6); ``--device_resident``, ``--feature_dtype
+bfloat16``, ``--device_budget_gb`` and ``--progress_chunk`` (slice 3c);
+``--data_parallel``, ``--tensor_parallel`` and the multi-host flags (slice
+8).  A ``--hidden_size`` that the training scan's launch plan cannot take on
+this card is refused with the plan's own message before any data loads.
+"""
+
+import argparse
+
+DEVICE_BUDGET_GB = 4.0    # --device_budget_gb's default
+
+
+def refuse_unported(args) -> None:
+    """Raise SystemExit, naming the slice, for what the port does not run
+    yet; nothing is ignored in silence."""
+    if args.trainer == "seq2seq":
+        raise SystemExit("--trainer seq2seq: the seq2seq trainer comes with "
+                         "slice 6 of the port")
+    resident = [flag for flag, on in (
+        ("--device_resident", args.device_resident),
+        ("--feature_dtype bfloat16", args.feature_dtype != "float32"),
+        ("--device_budget_gb", args.device_budget_gb != DEVICE_BUDGET_GB),
+        ("--progress_chunk", args.progress_chunk != 0)) if on]
+    if resident:
+        raise SystemExit(f"{', '.join(resident)}: the device-resident "
+                         "epochs and their progress checkpoints come with "
+                         "slice 3c of the port")
+    parallel = [flag for flag, on in (
+        ("--data_parallel", args.data_parallel),
+        ("--tensor_parallel", args.tensor_parallel > 1),
+        ("--coordinator_address", args.coordinator_address is not None),
+        ("--num_processes", args.num_processes is not None),
+        ("--process_id", args.process_id is not None)) if on]
+    if parallel:
+        raise SystemExit(f"{', '.join(parallel)}: multi-device training "
+                         "comes with slice 8 of the port")
+
+
+def check_scan_plan(family: str, cfg, tcfg, device) -> None:
+    """Where the training scan runs on the card (K3 for StyleNet, K4 for
+    NIC), its launch plan must take every batch size at this hidden size:
+    otherwise raise the plan's own ValueError now, not at the first step."""
+    if device.type != "cuda" or family.endswith("_att") or \
+            tcfg.fused_scan is False:
+        return
+    from icee_tpu_torch.ops import lstm_scan, nic_scan, scan_grid
+
+    what = lstm_scan.WHAT if family == "factored" else nic_scan.WHAT
+    for b in sorted({tcfg.caption_batch_size, tcfg.language_batch_size}):
+        scan_grid.plan_on(what, b, cfg.hidden_size, device)
+
+
+def init_weights(family: str, cfg, ecfg, seed: int, device):
+    """Fresh (decoder, head) from ``torch.Generator``s seeded ``seed`` and
+    ``seed + 1`` (the JAX CLI uses ``jax.random.PRNGKey(seed)`` and
+    ``(seed + 1)``, whose draws torch cannot reproduce); the attention
+    families have no head."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.models import encoder as enc_mod
+    from icee_tpu_torch.models import factored_lstm as fl
+    from icee_tpu_torch.models import lstm as nic_mod
+
+    init = {"factored": fl.init_params, "nic": nic_mod.init_params,
+            "factored_att": att_mod.init_factored_att_params,
+            "nic_att": att_mod.init_rnn_att_params}[family]
+    dec = init(torch.Generator().manual_seed(seed), cfg, device=device)
+    head = None if family.endswith("_att") else enc_mod.init_head_params(
+        torch.Generator().manual_seed(seed + 1), ecfg, device=device)
+    return dec, head
+
+
+def main(args) -> None:
+    from icee_tpu_torch.cli import common
+    from icee_tpu_torch.core.config import EncoderConfig
+    from icee_tpu_torch.data.captions import (load_caption_dataset,
+                                              load_styled_caption_dataset)
+    from icee_tpu_torch.data.pipeline import (caption_dataset_loader,
+                                              styled_caption_loader)
+    from icee_tpu_torch.data.vocab import load_vocab
+    from icee_tpu_torch.train.loops import (MultitaskTrainer,
+                                            PaperRegimeTrainer,
+                                            TransferTrainer)
+
+    refuse_unported(args)
+    device = common.device_of(args)
+    vocab = load_vocab(args.vocab_path)
+    attention = args.trainer.endswith("_att") or args.attention
+    cfg = common.decoder_config(args, len(vocab), attention=attention)
+    tcfg = common.train_config(args)
+    ecfg = EncoderConfig(embed_size=args.embed_size)
+    family = "factored" if args.family == "stylenet" else "nic"
+    if attention:
+        family += "_att"
+    check_scan_plan(family, cfg, tcfg, device)
+
+    # training uses the reference augmentation regime (random crop/flip per
+    # epoch); validation the deterministic eval transform with feature
+    # memoization.  --no_augment opts into the cached fast path for training
+    # too (constant eval-mode features).
+    provider_eval = common.make_feature_provider(args, spatial=attention)
+    if args.no_augment or args.feature_cache:
+        provider_train = provider_eval
+    else:
+        provider_train = common.make_feature_provider(
+            args, spatial=attention, augment=True, seed=args.seed)
+
+    emo_paths = {"happy": (args.happy_path, args.val_happy_path),
+                 "sad": (args.sad_path, args.val_sad_path),
+                 "angry": (args.angry_path, args.val_angry_path)}
+
+    def loader(path, bs, train=True):
+        return caption_dataset_loader(
+            load_caption_dataset(path, vocab), batch_size=bs,
+            max_len=tcfg.max_caption_len,
+            image_provider=provider_train if train else provider_eval,
+            shuffle=train, seed=args.seed)
+
+    dec, head = init_weights(family, cfg, ecfg, args.seed, device)
+    common_kw = dict(
+        cfg=cfg, tcfg=tcfg, vocab=vocab, dec_params=dec, head_params=head,
+        family=family, log_path=args.log_path, model_dir=args.model_path,
+        data_name=args.data_name, metrics_path=args.metrics_path,
+        device=device)
+
+    if args.trainer in ("multitask", "multitask_att"):
+        trainer = MultitaskTrainer(**common_kw)
+        if args.checkpoint_path:
+            # full resume: params + both optimizers + plateau counters
+            trainer.restore(args.checkpoint_path)
+            print(f"start_epoch {trainer.start_epoch}")
+        emo_train, emo_val = emo_paths[args.mode]
+        trainer.train(
+            loader(args.caption_path, tcfg.caption_batch_size),
+            loader(args.val_caption_path, tcfg.caption_batch_size,
+                   train=False),
+            loader(emo_train, tcfg.language_batch_size),
+            loader(emo_val, tcfg.language_batch_size, train=False))
+    elif args.trainer == "transfer_fac":
+        trainer = MultitaskTrainer(**common_kw)
+        trainer.train_factual_only(
+            loader(args.caption_path, tcfg.caption_batch_size),
+            loader(args.val_caption_path, tcfg.caption_batch_size,
+                   train=False))
+    elif args.trainer == "transfer":
+        trainer = TransferTrainer(**common_kw)
+        if args.checkpoint_path:
+            # transfer loads the factual stage's PARAMETERS and builds fresh
+            # optimizers over the style group (train_transfer.py:94-115)
+            trainer.dec, trainer.head = common.load_decoder(
+                args.checkpoint_path, device)
+        emo_train, emo_val = emo_paths[args.mode]
+        trainer.train_transfer(
+            loader(emo_train, tcfg.language_batch_size),
+            loader(emo_val, tcfg.language_batch_size, train=False))
+    else:  # paper
+        trainer = PaperRegimeTrainer(**common_kw)
+
+        def style_loader(path):
+            return styled_caption_loader(
+                load_styled_caption_dataset(path, vocab),
+                batch_size=tcfg.language_batch_size,
+                max_len=tcfg.max_caption_len, seed=args.seed)
+
+        trainer.train(
+            loader(args.caption_path, tcfg.caption_batch_size),
+            {emo: style_loader(p[0]) for emo, p in emo_paths.items()})
+
+
+def parser() -> argparse.ArgumentParser:
+    from icee_tpu_torch.cli.common import (add_data_flags, add_model_flags,
+                                           add_train_flags)
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--trainer", type=str, default="multitask",
+                   choices=["multitask", "multitask_att", "transfer_fac",
+                            "transfer", "paper", "seq2seq"])
+    p.add_argument("--family", type=str, default="stylenet",
+                   choices=["stylenet", "nic"])
+    p.add_argument("--attention", action="store_true")
+    p.add_argument("--no_augment", action="store_true",
+                   help="disable train-time crop/flip; use cached eval-mode "
+                        "features")
+    p.add_argument("--device_resident", action="store_true",
+                   help="device-resident epochs: slice 3c of the port "
+                        "(refused)")
+    p.add_argument("--feature_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="storage dtype of --device_resident features: "
+                        "slice 3c of the port (bfloat16 refused)")
+    p.add_argument("--device_budget_gb", type=float,
+                   default=DEVICE_BUDGET_GB,
+                   help="device feature budget of --device_resident: slice "
+                        "3c of the port (any other value refused)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="multi-device training: slice 8 of the port "
+                        "(refused)")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="model-axis size (with --data_parallel): slice 8 "
+                        "of the port (above 1 refused)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-host: slice 8 of the port (refused)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--checkpoint_path", type=str, default=None,
+                   help="resume/fine-tune source checkpoint (a directory "
+                        "the port's trainers wrote)")
+    p.add_argument("--data_name", type=str, default="flickr8k_id")
+    add_model_flags(p)
+    add_train_flags(p)
+    add_data_flags(p)
+    return p
+
+
+if __name__ == "__main__":
+    args = parser().parse_args()
+    print(args)
+    main(args)

@@ -58,6 +58,28 @@ def encode_global_from_pooled(head: dict, pooled: torch.Tensor,
     return apply_head(head, pooled, train, bn_momentum)
 
 
+def encode_global(backbone: dict, head: dict, images: torch.Tensor,
+                  train: bool = True, backbone_train_bn: bool = False,
+                  bn_momentum: float = 0.01):
+    """Global encoder forward -> ((B, embed), new backbone, new head), as
+    ``icee_tpu/models/encoder.py::encode_global``.  The backbone is frozen
+    (no gradient reaches it, ``model.py:23-24``); ``backbone_train_bn=True``
+    reproduces the reference quirk where its BatchNorms still normalize by
+    the batch statistics and update their running statistics.  ``train``
+    runs the head's BatchNorm on the batch statistics."""
+    with torch.no_grad():
+        if backbone_train_bn:
+            fmap, new_backbone = resnet.forward_train_bn(backbone, images)
+        else:
+            fmap, new_backbone = resnet.forward(backbone, images), backbone
+        pooled = fmap.mean(dim=(1, 2))
+    if train:
+        feats, new_head = apply_head(head, pooled, True, bn_momentum)
+    else:
+        feats, new_head = apply_head(head, pooled), head
+    return feats, new_backbone, new_head
+
+
 def encode_spatial(backbone: dict, images: torch.Tensor,
                    grid: int = 14) -> torch.Tensor:
     """Spatial encoder forward -> (B, grid * grid, 2048), flattened for

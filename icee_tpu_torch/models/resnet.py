@@ -178,6 +178,46 @@ class Backbone:
             fmap.shape[0], grid * grid, fmap.shape[-1]).contiguous()
 
 
+def _bottleneck_train_bn(x: torch.Tensor, p: dict, stride: int,
+                         momentum: float):
+    """:func:`bottleneck` with every BatchNorm in training mode -> (out, p
+    with the new running statistics)."""
+    new_p = dict(p)
+    out, new_p["bn1"] = batch_norm_train(conv(x, p["conv1"], 1), p["bn1"],
+                                         momentum)
+    out, new_p["bn2"] = batch_norm_train(conv(torch.relu(out), p["conv2"],
+                                              stride), p["bn2"], momentum)
+    out, new_p["bn3"] = batch_norm_train(conv(torch.relu(out), p["conv3"], 1),
+                                         p["bn3"], momentum)
+    if "downsample_conv" in p:
+        identity, new_p["downsample_bn"] = batch_norm_train(
+            conv(x, p["downsample_conv"], stride), p["downsample_bn"],
+            momentum)
+    else:
+        identity = x
+    return torch.relu(out + identity), new_p
+
+
+def forward_train_bn(params: dict, images: torch.Tensor,
+                     momentum: float = 0.1):
+    """:func:`forward` with the BatchNorms on the batch statistics,
+    updating their running statistics (``icee_tpu/models/resnet.py::
+    forward(train_bn=True)``, the reference's frozen backbone left in
+    training mode) -> (feature map (B, H/32, W/32, 2048) NHWC, params with
+    the new running statistics)."""
+    new_params = dict(params)
+    x = conv(images, params["conv1"], 2, padding=(3, 3))
+    x, new_params["bn1"] = batch_norm_train(x, params["bn1"], momentum)
+    x = max_pool_3x3_s2(torch.relu(x))
+    for li, nblocks in enumerate(LAYERS_152):
+        layer = list(params[f"layer{li + 1}"])
+        for bi in range(nblocks):
+            x, layer[bi] = _bottleneck_train_bn(
+                x, layer[bi], 2 if (bi == 0 and li > 0) else 1, momentum)
+        new_params[f"layer{li + 1}"] = layer
+    return x, new_params
+
+
 def forward(params: dict, images: torch.Tensor) -> torch.Tensor:
     """images (B, H, W, 3) normalized NHWC -> feature map (B, H/32, W/32,
     2048) NHWC, from HWIO ``params``.  Converts the weights on every call:
@@ -311,17 +351,18 @@ def import_torch_state_dict(state_dict, dtype=torch.float32) -> dict:
 
 
 def load_resnet_params(path: Optional[str]) -> dict:
-    """Backbone weights (CPU, HWIO) from a torch ``.pth`` or an ``.npz`` of
-    the same names, or random init (seed 0) for ``None``; the port of the
-    loader in ``icee_tpu/cli/common.py::load_resnet_params``.  A ``resnet.``
-    wrapper prefix (``EncoderCNN`` pickles) is stripped."""
+    """Backbone weights (CPU, HWIO) from a torch ``.pth`` (a state dict or a
+    pickled module, read without its classes) or an ``.npz`` of the same
+    names, or random init (seed 0) for ``None``; the port of the loader in
+    ``icee_tpu/cli/common.py::load_resnet_params``.  A ``resnet.`` wrapper
+    prefix (``EncoderCNN`` pickles) is stripped."""
+    from icee_tpu_torch.checkpoint.torch_pickle import load_state_dict
+
     if path is None:
         return init_params(torch.Generator().manual_seed(0))
     if path.endswith(".npz"):
         with np.load(path) as f:
             return import_torch_state_dict(dict(f))
-    sd = torch.load(path, map_location="cpu")
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
-    sd = {k.removeprefix("resnet."): v for k, v in sd.items()}
+    sd = {k.removeprefix("resnet."): v
+          for k, v in load_state_dict(path).items()}
     return import_torch_state_dict(sd)

@@ -5,10 +5,11 @@ Parity target: the Flask app (``app/backend/run.py:16-61``): ``POST
 "nic_att": ..., "stylenet": ..., "stylenet_att": ..., "path_img": ...}``
 (all ``-`` on bad input), ``GET /images/<f>`` serves uploads, 500 with the
 exception text on failure.  Stdlib ``ThreadingHTTPServer`` + a small
-multipart parser; CORS headers as the reference's flask-cors setup.  The
-static frontend (``GET /``) comes with a later slice.
+multipart parser; CORS headers as the reference's flask-cors setup.
+``GET /`` serves the bundled frontend (``serve/static/``: ``/`` is
+``index.html``, any other name its file there).
 
-Run: ``python -m icee_tpu_torch.serve.app [--env .env] [--smoke]
+Run: ``python -m icee_tpu_torch.serve [--env .env] [--smoke] [--port N]
 [--device cuda]``.
 """
 
@@ -27,6 +28,9 @@ from typing import Optional
 
 from icee_tpu_torch.core.config import MODES
 from icee_tpu_torch.serve.config import ServeConfig, load_config
+
+STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "static")
 
 
 def parse_multipart(body: bytes, content_type: str):
@@ -61,15 +65,21 @@ def make_handler(engine, config: ServeConfig):
             self._send(200, b"")
 
         def do_GET(self):
-            if not self.path.startswith("/images/"):
+            if self.path.startswith("/images/"):
+                name = os.path.basename(self.path[len("/images/"):])
+                path = os.path.join(config.image_folder, name)
+                ctype = "application/octet-stream"
+            else:
+                # the static frontend: "/" is index.html, any other name
+                # its basename in the static folder
+                name = ("index.html" if self.path in ("/", "") else
+                        os.path.basename(self.path))
+                path = os.path.join(STATIC_DIR, name)
+                ctype = "text/html"
+            if not os.path.isfile(path):
                 self._send(404, b'{"error": "not found"}')
                 return
-            name = os.path.basename(self.path[len("/images/"):])
-            path = os.path.join(config.image_folder, name)
-            if not os.path.exists(path):
-                self._send(404, b'{"error": "not found"}')
-                return
-            ctype = mimetypes.guess_type(path)[0] or "application/octet-stream"
+            ctype = mimetypes.guess_type(path)[0] or ctype
             with open(path, "rb") as f:
                 self._send(200, f.read(), ctype)
 

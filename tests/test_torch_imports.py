@@ -68,7 +68,12 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
                  "senticap.switched", "ops.senticap_switched_decode",
                  "train.loops", "checkpoint.ckpt", "data.captions",
                  "data.pipeline", "native", "evaluation.bleu",
-                 "evaluation.coco_metrics", "utils.logging"):
+                 "evaluation.coco_metrics", "utils.logging",
+                 "native.imagedec", "decode.greedy", "serve.__main__",
+                 "cli._entry", "cli.common", "cli.build_vocab",
+                 "cli.precompute_features", "cli.train", "cli.validate",
+                 "cli.evaluate", "cli.sample", "cli.caption_batch",
+                 "cli.export", "cli.inspect_ckpt"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary

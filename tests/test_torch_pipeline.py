@@ -176,3 +176,29 @@ def test_bleu_and_coco_metrics_match_jax(seed):
         jcoco.coco_metrics(words, whyps)
     with pytest.raises(ValueError):
         bleu.corpus_bleu(refs, hyps[:-1])
+
+
+def test_loaders_assemble_batches_with_numpy(monkeypatch):
+    """Both loaders take the NumPy batcher: with the C++ library made to
+    fail on use, every batch still comes, equal to the NumPy path's."""
+    from icee_tpu_torch import native
+
+    def no_library():
+        raise AssertionError("the loader called the C++ batcher")
+
+    monkeypatch.setattr(native, "_load", no_library)
+    vocab, _ = _vocabs()
+    examples = cap.load_caption_dataset(TRAIN, vocab)
+    rag = RaggedCaptions([e.caption_ids for e in examples])
+    loader = pipe.caption_dataset_loader(examples, batch_size=4, max_len=9,
+                                         shuffle=False)
+    styled = pipe.styled_caption_loader([e.caption_ids for e in examples],
+                                        batch_size=4, max_len=9,
+                                        shuffle=False)
+    for batches in (list(loader), list(styled)):
+        assert len(batches) == -(-len(examples) // 4)
+        for i, b in enumerate(batches):
+            idx = np.arange(4 * i, min(4 * i + 4, len(examples)))
+            want, lengths = rag.batch(idx, max_len=9, force_numpy=True)
+            np.testing.assert_array_equal(b.captions[:len(idx)], want)
+            np.testing.assert_array_equal(b.lengths[:len(idx)], lengths)
