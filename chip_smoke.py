@@ -63,8 +63,10 @@ Phases, in order; any failure exits non-zero:
    ``gemm_f32.cuh``'s and ``torch.matmul``'s; one K3 call of each
    direction profiled by launch group (products, weight planes,
    recurrence, column sums), failing if a ``gemm_f32.cuh`` product ran or
-   the recurrence took other than one launch; its float32 bound and its
-   3xTF32 floor;
+   the recurrence took other than one launch (counted by the library
+   itself and in the trace; a trace that lost its last records is taken
+   again, ``scan_device_groups``); its float32 bound and its 3xTF32
+   floor;
 8. the chunked cross-entropy's row passes vs their plain versions, and the
    whole chunked loss (kernel path) vs the plain path and the materialized
    ``masked_cross_entropy``, at 64 x 25 rows, V=8192;
@@ -166,7 +168,9 @@ Phases, in order; any failure exits non-zero:
    flagship width (first whether the C++ batcher and JPEG decoder build
    there): ``build_vocab`` (V = 8192), ``precompute_features``
    (ResNet-152 at 224, batch 32), ``train`` (multitask StyleNet, 2 epochs,
-   ratio 1.0 set through the stage wrapper), ``evaluate`` in both
+   ratio 1.0 set through the stage wrapper), ``train_resident`` (the
+   same with ``--device_resident --progress_chunk 4``: its checkpoint
+   bit-equal to ``train``'s), ``evaluate`` in both
    semantics, ``caption_batch`` (and ``--beam_size 9``, which must fail
    with K2's own message), ``sample``, ``validate``, the spatial
    ``precompute_features`` of 64 images with ``evaluate --attention`` and
@@ -179,8 +183,30 @@ Phases, in order; any failure exits non-zero:
    in-process call (the first batch margin-aware against the plain
    search), the served caption ``CaptionEngine``'s.  Seconds a stage, CUDA
    start-up apart, images/s and captions/s with process start included;
-20. print one ``{"train": {...}}`` line (with ``nic``, ``att``,
-   ``senticap``, ``senticap_switched`` and ``trainer`` entries), one
+20. the device-resident epochs (slice 3c) at flagship width: (a) a
+   StyleNet ``MultitaskTrainer`` epoch at ratio 1.0 over 6,000 images x 5
+   Zipf captions (B = 64), 1,500 emotion lines (B = 96) and 2,500
+   validation lines from the host loader, then from pinned splits
+   (``data/device.py``): parameters, optimizer states and generator equal
+   at atol 0, the same losses, BLEU and top-5, launches exact (K3 and the
+   CE a step, K2 a validation), the pinned training passes run under
+   ``torch.cuda.set_sync_debug_mode("warn")`` and their synchronizing
+   calls counted by line; (b) the pinned epoch with a progress record
+   every 64 batches, killed after the 3rd record and resumed by a fresh
+   trainer: equal to (a)'s at atol 0, each record's write timed; (c)
+   StyleNet+Att at ratio 0.8 over 1,000 spatial features (1.6 GB) x 5
+   captions at B = 128, streamed through a 0.5 GB budget and pinned:
+   equal at atol 0, K5 launches exact; (d) bfloat16 storage against
+   float32 storage of the rounded features, at atol 0; (e) one
+   StyleNet+Att step at ratio 0.8 at B = 512 and 1,024 (step ms,
+   captions/s, peak memory, or the error that refuses it); (f)
+   ``make_base_epoch`` / ``make_switched_epoch`` over 10 batches at phase
+   13's shapes against the steps one by one, at atol 0, K8 and the
+   (mixture) CE launches exact; seconds, captions/s and the device-busy
+   share of each tier; no plain version called;
+21. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+   ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
+   ``trainer`` and ``resident`` entries), one
    ``{"cli": {...}}`` line (phase 19), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
@@ -189,7 +215,7 @@ Phases, in order; any failure exits non-zero:
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10);
-21. print ``{"ok": true, "device": {...}}`` as the last line.
+22. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -1617,26 +1643,59 @@ SCAN_GROUPS = (("products_ms", ("sb_product_kernel", "tf32x3_")),
                ("column_sums_ms", ("colsum_kernel",)))
 
 
-def scan_device_groups(what: str, fn):
+SCAN_TRACE_TRIES = 5       # traces of one call before its groups go unmeasured
+TRACE_MARKER = "spin_kernel"   # torch.cuda._sleep's kernel, last in a window
+
+
+def scan_device_groups(what: str, fn, module):
     """Device time (ms) of one K3, K4 or K8 call ``fn`` by launch group, from
-    a profiler trace, with each group's launches; fails if the call ran a
-    ``gemm_f32.cuh`` product (``gemm_kernel``) or launched its recurrence
-    other than once.  None where the trace holds no device time."""
+    a profiler trace, with each group's launches; ``module`` is the scan's
+    wrapper module (``lstm_scan``, ``nic_scan``, ``senticap_scan``).  Fails
+    if the call launched its recurrence other than once, counted by the
+    library itself (``icee_scan_recurrence_launches``) and in the trace, or
+    ran a ``gemm_f32.cuh`` product (``gemm_kernel``).
+
+    The trace records CUDA activity only, then a marker kernel
+    (``torch.cuda._sleep``).  A trace can lose its last records
+    (``scripts/probe_scan_profile.py`` on an H100: with CPU activity too,
+    87 of 100 traces of a K3 backward lost some on one machine, CUDA alone
+    5 of 100, while the library's count and the grid barrier's said every
+    call ran its recurrence once): a trace without the marker, or without the
+    recurrence's record, is taken again, up to ``SCAN_TRACE_TRIES`` times
+    (``trace_retries``).  None where no trace came whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    lib = module._library()
+    for attempt in range(SCAN_TRACE_TRIES):
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation and e.self_device_time_total > 0]
-    if not events:
-        log(f"{what}: the profiler trace holds no device time")
+        before = lib.icee_scan_recurrence_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        launched = lib.icee_scan_recurrence_launches() - before
+        if launched != 1:
+            fail(f"{what}: the library launched its recurrence {launched} "
+                 "times, expected once")
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.is_user_annotation
+                         and e.self_device_time_total > 0),
+                        key=lambda e: e.time_range.start)
+        recurrences = sum(any(f in e.name for f in SCAN_GROUPS[2][1])
+                          for e in events)
+        if recurrences > 1:
+            fail(f"{what}: {recurrences} recurrence launches in the trace, "
+                 "expected one")
+        if events and TRACE_MARKER in events[-1].name and recurrences == 1:
+            break
+    else:
+        log(f"{what}: {SCAN_TRACE_TRIES} traces lost records; device time "
+            "by group not measured")
         return None
+    events = events[:-1]
     if any("gemm_kernel" in e.name for e in events):
         fail(f"{what} launched a gemm_f32.cuh product: "
              f"{sorted({e.name for e in events})}")
@@ -1648,11 +1707,9 @@ def scan_device_groups(what: str, fn):
                     if any(f in e.name for f in frags)), "other_ms")
         groups[key] += e.self_device_time_total / 1e3
         counts[key] += 1
-    if counts["recurrence_ms"] != 1:
-        fail(f"{what}: {counts['recurrence_ms']} recurrence launches, "
-             "expected one")
     groups["total_ms"] = sum(e.self_device_time_total for e in events) / 1e3
     groups["launches"] = counts
+    groups["trace_retries"] = attempt
     return groups
 
 
@@ -1829,10 +1886,10 @@ def check_k3(device):
         "bit-identical over two runs")
 
     groups_f = scan_device_groups(
-        "K3 forward", lambda: lstm_scan.factored_scan_fwd(p, x))
+        "K3 forward", lambda: lstm_scan.factored_scan_fwd(p, x), lstm_scan)
     groups_b = scan_device_groups(
         "K3 backward", lambda: lstm_scan.factored_scan_bwd(
-            p, x, h_seq, c_seq, dh, saved))
+            p, x, h_seq, c_seq, dh, saved), lstm_scan)
     products = check_scan_products(device, "K3")
     ms_f = cuda_ms(lambda: lstm_scan.factored_scan_fwd(p, x), 10)
     plain_f = cuda_ms(lambda: lstm_scan.fused_factored_scan_plain(p, x), 5)
@@ -1967,10 +2024,10 @@ def check_k4(device):
         torch.autograd.grad(out, lib_inputs, dh)
 
     groups_f = scan_device_groups(
-        "K4 forward", lambda: nic_scan.nic_scan_fwd(cell, x))
+        "K4 forward", lambda: nic_scan.nic_scan_fwd(cell, x), nic_scan)
     groups_b = scan_device_groups(
         "K4 backward", lambda: nic_scan.nic_scan_bwd(cell, x, h_seq, c_seq,
-                                                     dh, gates))
+                                                     dh, gates), nic_scan)
     products = check_scan_products(device, "K4")
     ms_f = cuda_ms(lambda: nic_scan.nic_scan_fwd(cell, x), 10)
     plain_f = cuda_ms(lambda: nic_scan.fused_nic_scan_plain(cell, x), 5)
@@ -3266,9 +3323,9 @@ def check_k8(device):
         f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; bit-identical "
         f"over two runs; the clamp binds at gclip 0.01")
     groups_f = scan_device_groups("K8 forward",
-                                  lambda: ss.senticap_scan_fwd(w, x))
+                                  lambda: ss.senticap_scan_fwd(w, x), ss)
     groups_b = scan_device_groups("K8 backward", lambda: ss.senticap_scan_bwd(
-        w, x, h_seq, c_seq, dh, 5.0, gates))
+        w, x, h_seq, c_seq, dh, 5.0, gates), ss)
     products = check_scan_products(device, "K8")
     ms_f = cuda_ms(lambda: ss.senticap_scan_fwd(w, x), 10)
     plain_f = cuda_ms(lambda: ss.fused_senticap_scan_plain(w, x), 5)
@@ -4712,12 +4769,12 @@ def trainer_run(device, family: str, cls: str, tmp: str, dec, head, cfg,
         clock
 
 
-def expect_launches(what: str, got: dict, want: dict):
+def expect_launches(what: str, got: dict, want: dict, phase: int = 18):
     """Every listed count exactly as expected, every other count 0."""
     for name, n in got.items():
         if n != want.get(name, 0):
-            fail(f"phase 18 {what}: {name} launched {n} times, expected "
-                 f"{want.get(name, 0)} (all counts {got})")
+            fail(f"phase {phase} {what}: {name} launched {n} times, "
+                 f"expected {want.get(name, 0)} (all counts {got})")
 
 
 def metrics_events(tmp: str):
@@ -5100,6 +5157,7 @@ CLI_VAL_IMAGES, CLI_EMO_IMAGES, CLI_EMO_VAL_IMAGES = 60, 190, 20
 CLI_AUG_IMAGES, CLI_AUG_EMO_IMAGES = 40, 20
 CLI_BATCH = 64             # train / evaluate / caption_batch batches (the default)
 CLI_EPOCHS = 2
+CLI_PROGRESS = 4           # train_resident: a progress record every 4 batches
 CLI_TIMEOUT_S = 600
 CLI_STYLE = "sad"          # the seeded checkpoint's mode
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -5479,7 +5537,7 @@ def cli_phase(device):
     import numpy as np
     import torch
 
-    from icee_tpu_torch.checkpoint.ckpt import load_params
+    from icee_tpu_torch.checkpoint.ckpt import load_checkpoint, load_params
     from icee_tpu_torch.cli.evaluate import evaluate
     from icee_tpu_torch.cli.sample import caption_image
     from icee_tpu_torch.core.config import DecoderConfig, mode_id
@@ -5602,6 +5660,37 @@ def cli_phase(device):
             served_checkpoint=os.path.basename(best),
             captions_per_s=CLI_EPOCHS * (CLI_IMAGES + CLI_EMO_IMAGES)
             * TR_CAPS / stats["train"]["wall_s"])
+        # 3/6 (i') the same run with the splits on the card and a progress
+        # record every CLI_PROGRESS batches: the same final checkpoint, bit
+        # for bit (the same seed, cache and ratio)
+        resident = os.path.join(root, "models_resident")
+        stage("train_resident", m + "train", train_args(
+            files["train"], files["happy"], CLI_EPOCHS, resident, "chipres",
+            ["--feature_cache", cache, "--device_resident",
+             "--progress_chunk", CLI_PROGRESS]),
+            {"fused_factored_scan_fwd": steps,
+             "fused_factored_scan_bwd": steps, "ce_rows": ce,
+             "ce_grad_rows": ce, "mega_beam_decode": 2 * CLI_EPOCHS},
+            ratio=1.0)
+        res_events, res_losses = train_events("chipres", CLI_EPOCHS)
+        res_written = sorted(os.listdir(resident))
+        same = [n.replace("chipres", "chip") for n in res_written] == written
+        for name in written if same else []:
+            same = same and saved_equal(
+                load_checkpoint(os.path.join(models, name)),
+                load_checkpoint(os.path.join(
+                    resident, name.replace("_chip", "_chipres"))))
+        if not same or [{k: v for k, v in e.items() if k != "t"}
+                        for e in res_events] != [
+                            {k: v for k, v in e.items() if k != "t"}
+                            for e in events]:
+            fail(f"phase 19 train_resident: checkpoints {res_written} or "
+                 "their contents or events differ from the train stage's")
+        stats["train_resident"].update(
+            steps=steps, train_loss=res_losses, checkpoints=res_written,
+            equal_to_train=True, captions_per_s=CLI_EPOCHS * (
+                CLI_IMAGES + CLI_EMO_IMAGES) * TR_CAPS
+            / stats["train_resident"]["wall_s"])
         # 3/6 (ii) one epoch as a user runs it: the default ratio (0.8:
         # the scheduled-sampling loop, the chunked CE, no K3) and the
         # backbone over --image_dir on a fresh crop and flip each call
@@ -5854,6 +5943,503 @@ def serve_stage(device, root: str, vocab_path: str, backbone: str,
         f"{[round(a[2], 3) for a in answers]} s, {wall:.2f} s in all; "
         f"captions {captions}")
     return stats
+
+
+# --- phase 20: device-resident epochs and mid-epoch progress (slice 3c) ------
+
+# a Flickr8k-sized split: 6,000 images x 5 Zipf captions (30,000 at B = 64),
+# an emotion corpus of 1,500 lines at B = 96, 500 x 5 validation lines
+RES_IMAGES, RES_EMO, RES_VAL = 6000, 1500, 500
+RES_PROGRESS = 64          # (b): a record every 64 batches: 8 in the pass
+RES_KILL_AFTER = 3         # (b): the hook raises after this record
+RES_ATT_IMAGES = 1000      # (c): 196 x 2048 float32 features, 1.6 GB
+RES_ATT_BUDGET_GB = 0.5    # (c): below the split's features: it streams
+RES_BF16_BATCHES = 10      # (d)
+RES_BIG_B = (512, 1024)    # (e): one attention step at each
+RES_SC_BATCHES = 10        # (f)
+RES_BUSY_BATCHES = 40      # the busy share's pass of each tier
+
+
+@contextlib.contextmanager
+def sync_warnings():
+    """Run the block under ``torch.cuda.set_sync_debug_mode("warn")``;
+    -> the list of its synchronizing calls, each the Python stack (file,
+    line) that made it, innermost last."""
+    import traceback
+    import warnings
+
+    import torch
+
+    calls = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            calls.append([(f.filename, f.lineno)
+                          for f in traceback.extract_stack()[:-1]
+                          if not f.filename.endswith("warnings.py")])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield calls
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def sync_sites(calls) -> dict:
+    """Synchronizing calls counted by the innermost line of this
+    repository that made them, with the innermost line outside it (file,
+    line and text) where there is one."""
+    import linecache
+
+    out = {}
+    for stack in calls:
+        ours = [f"{os.path.relpath(f, ROOT)}:{n}" for f, n in stack
+                if os.path.abspath(f).startswith(ROOT + os.sep)]
+        key = ours[-1] if ours else "?"
+        if stack and not os.path.abspath(stack[-1][0]).startswith(ROOT):
+            f, n = stack[-1]
+            key += (f" via {os.path.basename(f)}:{n} "
+                    f"`{linecache.getline(f, n).strip()}`")
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def saved_equal(a, b) -> bool:
+    """Two trees as ``torch.load`` gives them equal: tensors bit for bit,
+    everything else by ``==``."""
+    import torch
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(saved_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(saved_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def trainer_state_equal(a, b) -> bool:
+    """Two trainers' params, both optimizer states and generators equal bit
+    for bit."""
+    import torch
+
+    return (trees_equal((a.dec, a.head), (b.dec, b.head))
+            and all(x.count == y.count and x.hyperparams == y.hyperparams
+                    and trees_equal((x.mu, x.nu), (y.mu, y.nu))
+                    for x, y in ((a.opt_state, b.opt_state),
+                                 (a.lang_opt_state, b.lang_opt_state)))
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state()))
+
+
+def same_events(a: str, b: str) -> bool:
+    """Two trainers' JSONL events equal but for their clocks."""
+    def strip(events):
+        return [{k: v for k, v in e.items() if k != "t"} for e in events]
+    return strip(metrics_events(a)) == strip(metrics_events(b))
+
+
+def resident_phase(device):
+    """Phase 20: the device-resident epochs (``data/device.py``) and the
+    mid-epoch progress records (``checkpoint/progress.py``) at flagship
+    width.  -> (launches, stats, large-batch attention steps)."""
+    import torch
+
+    from icee_tpu_torch.core.config import (DecoderConfig, EncoderConfig,
+                                            TrainConfig)
+    from icee_tpu_torch.data import device as dd
+    from icee_tpu_torch.data.pipeline import caption_dataset_loader
+    from icee_tpu_torch.models import encoder
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.train import loops
+
+    vocab = trainer_vocab()
+    train = trainer_corpus(RES_IMAGES, TR_CAPS, 200, "r")
+    emo = trainer_corpus(RES_EMO // TR_CAPS, TR_CAPS, 201, "q")
+    val = trainer_corpus(RES_VAL, TR_CAPS, 202, "s")
+    names = {e.image for ds in (train, emo, val) for e in ds}
+    pooled = trainer_features(sorted(names), 203, (2048,))
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                        factored_size=F, dropout=0.5, max_seq_length=STEPS)
+
+    def tcfg(**kw):
+        return TrainConfig(mode="happy", teacher_forcing_ratio=1.0,
+                           max_caption_len=T_STEPS, log_step=10 ** 9,
+                           log_step_emotion=10 ** 9, **kw)
+
+    def host(ds, b, shuffle=True):
+        return caption_dataset_loader(ds, b, T_STEPS, pooled.__getitem__,
+                                      shuffle=shuffle, seed=0)
+
+    def pinned(ds, b, shuffle=True, feats=pooled, **kw):
+        return dd.from_examples(ds, b, T_STEPS, feats.__getitem__,
+                                shuffle=shuffle, seed=0, device=device, **kw)
+
+    def splits(make):
+        return (make(train, B_IMAGES), make(val, B_IMAGES, False),
+                make(emo, B_EMOTION), make(val, B_EMOTION, False))
+
+    dec0 = training_decoder(device, 20)
+    head0 = encoder.init_head_params(torch.Generator().manual_seed(21),
+                                     EncoderConfig(embed_size=E),
+                                     device=device)
+    n_fac, n_emo = -(-len(train) // B_IMAGES), -(-len(emo) // B_EMOTION)
+
+    def chunks(b, t=T_STEPS):
+        return -(-t // cl.auto_t_chunk(b, t))
+
+    ce_epoch = n_fac * chunks(B_IMAGES) + n_emo * chunks(B_EMOTION)
+    epoch_want = {"fused_factored_scan_fwd": n_fac + n_emo,
+                  "fused_factored_scan_bwd": n_fac + n_emo,
+                  "ce_rows": ce_epoch, "ce_grad_rows": ce_epoch,
+                  "mega_beam_decode": 2}
+    stats, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def run(tmp, call, cls="MultitaskTrainer", family="factored", dec=dec0,
+            head=head0, conf=cfg, tc=None):
+        return trainer_run(device, family, cls, tmp, clone_tree(dec),
+                           None if head is None else clone_tree(head), conf,
+                           tc or tcfg(), vocab, call)
+
+    def tier_stats(clock, got):
+        st = clock.stats(1, len(train) + len(emo))
+        st["launches"] = got
+        return st
+
+    with tempfile.TemporaryDirectory() as root, plain_counters() as plain:
+        # (a) one epoch from the host loader, then from pinned splits with
+        # the same weights and seed, its training under the sync check
+        host_splits = splits(host)
+        host_tr, got, clock = run(os.path.join(root, "host"),
+                                  lambda t: t.train(*host_splits,
+                                                    num_epochs=1))
+        expect_launches("(a) host", got, epoch_want, 20)
+        add(got)
+        stats["host"] = tier_stats(clock, got)
+        caught = []
+        pin_splits = splits(pinned)
+
+        def synced(tr):
+            run_device = tr._run_train_device
+
+            def checked(*a, **kw):
+                with sync_warnings() as calls:
+                    try:
+                        return run_device(*a, **kw)
+                    finally:
+                        caught.extend(calls)
+            tr._run_train_device = checked
+            tr.train(*pin_splits, num_epochs=1)
+
+        pin_dir = os.path.join(root, "pinned")
+        pin_tr, got, clock = run(pin_dir, synced)
+        expect_launches("(a) pinned", got, epoch_want, 20)
+        add(got)
+        stats["pinned"] = tier_stats(clock, got)
+        sites = sync_sites(caught)
+        stats["pinned"].update(
+            sync_calls=len(caught), sync_sites=sites,
+            port_sync_calls=sum(n for k, n in sites.items()
+                                if k.startswith("icee_tpu_torch/")))
+        if not trainer_state_equal(pin_tr, host_tr):
+            fail("phase 20 (a): the pinned epoch's state is not the host "
+                 "epoch's")
+        if not same_events(pin_dir, os.path.join(root, "host")):
+            fail("phase 20 (a): the pinned epoch's losses, BLEU or top-5 "
+                 "differ from the host epoch's")
+        log(f"phase 20 (a): pinned = host epoch at atol 0; epoch s host "
+            f"{stats['host']['epoch_s'][0]:.2f} (train "
+            f"{stats['host']['train_s']:.2f}), pinned "
+            f"{stats['pinned']['epoch_s'][0]:.2f} (train "
+            f"{stats['pinned']['train_s']:.2f}); synchronizing calls in "
+            f"the pinned training passes {stats['pinned']['sync_calls']} "
+            f"({stats['pinned']['port_sync_calls']} in the port) at "
+            f"{stats['pinned']['sync_sites']}")
+
+        # (b) the pinned epoch with a record every RES_PROGRESS batches,
+        # killed after the RES_KILL_AFTER-th, resumed by a fresh trainer
+        writes = []
+        save = loops.progress.save_progress
+
+        def timed_save(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = save(*a, **kw)
+            writes.append(time.perf_counter() - t)
+            return out
+
+        class Killed(RuntimeError):
+            pass
+
+        def killed(tr, runs=splits(pinned)):
+            def hook(epoch, pass_idx, row):
+                if len(writes) == RES_KILL_AFTER:
+                    raise Killed(f"after row {row}")
+            tr._progress_hook = hook
+            try:
+                tr.train(*runs, num_epochs=1)
+            except Killed:
+                return
+            fail("phase 20 (b): the progress hook never killed the run")
+
+        kill_dir = os.path.join(root, "killed")
+        loops.progress.save_progress = timed_save
+        try:
+            _, got_k, _ = run(kill_dir, killed,
+                              tc=tcfg(progress_chunk=RES_PROGRESS))
+            resume_splits = splits(pinned)
+            resumed, got_r, clock = run(
+                kill_dir, lambda t: t.train(*resume_splits, num_epochs=1),
+                tc=tcfg(progress_chunk=RES_PROGRESS))
+        finally:
+            loops.progress.save_progress = save
+        both = {k: got_k[k] + got_r[k] for k in got_k}
+        expect_launches("(b) killed + resumed", both, epoch_want,
+                        20)
+        add(both)
+        if not trainer_state_equal(resumed, pin_tr):
+            fail("phase 20 (b): the resumed run's state is not the "
+                 "uninterrupted pinned epoch's")
+        if not same_events(kill_dir, pin_dir):
+            fail("phase 20 (b): the resumed run's losses, BLEU or top-5 "
+                 "differ from the uninterrupted pinned epoch's")
+        if any(n.startswith("progress_checkpoint")
+               for n in os.listdir(kill_dir)):
+            fail("phase 20 (b): the progress record was not cleared")
+        records = -(-n_fac // RES_PROGRESS) + -(-n_emo // RES_PROGRESS)
+        if len(writes) != records:
+            fail(f"phase 20 (b): {len(writes)} records, expected {records}")
+        stats["resumed"] = dict(
+            tier_stats(clock, both), records=len(writes),
+            killed_after_records=RES_KILL_AFTER, record_write_s=writes,
+            record_write_mean_s=statistics.mean(writes))
+        log(f"phase 20 (b): killed after {RES_KILL_AFTER} records, resumed "
+            f"= uninterrupted at atol 0; a record write "
+            f"{statistics.mean(writes):.3f} s (of {len(writes)})")
+
+        # the device-busy share of a RES_BUSY_BATCHES-batch training pass of
+        # each tier, from the profiler
+        part = train[:RES_BUSY_BATCHES * B_IMAGES]
+        stats["host"]["device_busy_share"] = device_busy_share(
+            lambda: host_tr._run_train(host(part, B_IMAGES), 0, 10 ** 9,
+                                       "FAC"))
+        stats["pinned"]["device_busy_share"] = device_busy_share(
+            lambda: pin_tr._run_train(pinned(part, B_IMAGES), 0, 10 ** 9,
+                                      "FAC"))
+        del host_tr, pin_tr, resumed
+        torch.cuda.empty_cache()
+
+        # (c) StyleNet+Att at ratio 0.8: a split over the budget streams;
+        # the same split pinned
+        att_ds = trainer_corpus(RES_ATT_IMAGES, TR_CAPS, 204, "x")
+        spatial = trainer_features(sorted({e.image for e in att_ds}), 205,
+                                   (P, FS))
+        budget = int(RES_ATT_BUDGET_GB * (1 << 30))
+        if dd.pin_plan(RES_ATT_IMAGES, (P, FS), budget) != "stream":
+            fail("phase 20 (c): pin_plan did not stream the spatial split")
+        dec_att, acfg = att_train_decoder("factored", device, 22)
+        atc = TrainConfig(mode="happy", teacher_forcing_ratio=0.8,
+                          max_caption_len=T_STEPS + 1, log_step=10 ** 9,
+                          log_step_emotion=10 ** 9)
+        n_att = -(-len(att_ds) // B_ATT)
+        att_ce = n_att * chunks(B_ATT)
+        att_want = {"fused_att_scan_sampled_fwd": n_att,
+                    "fused_att_scan_sampled_bwd": n_att,
+                    "ce_rows": att_ce, "ce_grad_rows": att_ce}
+        att = {}
+        for tier in ("streamed", "pinned"):
+            if tier == "streamed":
+                split = dd.from_examples_streamed(
+                    att_ds, B_ATT, T_STEPS + 1, spatial.__getitem__, seed=0,
+                    budget_bytes=budget, device=device)
+            else:
+                split = dd.from_examples(att_ds, B_ATT, T_STEPS + 1,
+                                         spatial.__getitem__, seed=0,
+                                         device=device)
+            tr, got, clock = run(
+                os.path.join(root, f"att_{tier}"),
+                lambda t, s=split: t._run_train(s, 0, 10 ** 9, "FAC"),
+                family="factored_att", dec=dec_att, head=None, conf=acfg,
+                tc=atc)
+            expect_launches(f"(c) {tier}", got, att_want, 20)
+            add(got)
+            att[tier] = (tr, dict(train_s=clock.marks["train"][0],
+                                  captions_per_s=len(att_ds)
+                                  / clock.marks["train"][0],
+                                  launches=got))
+            if tier == "streamed":
+                att[tier][1].update(capacity=split.capacity,
+                                    rows_per_chunk=split.rows_per_chunk)
+            del split
+        if not trainer_state_equal(att["streamed"][0], att["pinned"][0]):
+            fail("phase 20 (c): the streamed epoch's state is not the "
+                 "pinned epoch's")
+        stats["att_streamed"] = att["streamed"][1]
+        stats["att_pinned"] = att["pinned"][1]
+        log(f"phase 20 (c): StyleNet+Att streamed = pinned at atol 0; "
+            f"train s streamed {stats['att_streamed']['train_s']:.2f} "
+            f"(capacity {stats['att_streamed']['capacity']} features), "
+            f"pinned {stats['att_pinned']['train_s']:.2f}")
+        del att, spatial
+        torch.cuda.empty_cache()
+
+        # (d) bfloat16 storage against the same features rounded to
+        # bfloat16 and stored as float32
+        part = train[:RES_BF16_BATCHES * B_IMAGES]
+        rounded = {n: torch.from_numpy(v).bfloat16().float().numpy()
+                   for n, v in pooled.items()}
+        bf = []
+        for split in (pinned(part, B_IMAGES, feature_dtype=torch.bfloat16),
+                      pinned(part, B_IMAGES, feats=rounded)):
+            tr, got, _ = run(os.path.join(root, f"bf16_{len(bf)}"),
+                             lambda t, s=split: t._run_train(
+                                 s, 0, 10 ** 9, "FAC"))
+            add(got)
+            bf.append(tr)
+        if not trainer_state_equal(bf[0], bf[1]):
+            fail("phase 20 (d): bfloat16 storage is not float32 storage of "
+                 "the rounded features")
+        stats["bf16_equal"] = True
+        del bf
+
+    # (e) one StyleNet+Att step at ratio 0.8 at large batches
+    from icee_tpu_torch.train import optim
+    from icee_tpu_torch.train.steps import make_attention_steps
+
+    big = {}
+    steps = make_attention_steps(
+        acfg, atc, optim.make_adam(atc.lr_caption, atc),
+        optim.make_adam(atc.lr_language, atc), factored=True, device=device)
+    for b in RES_BIG_B:
+        try:
+            dec, _ = att_train_decoder("factored", device, 23)
+            opt = steps.optimizer.init(dec)
+            feats, caps, lens, mask = att_train_batch(device, b, 90 + b)
+            g = torch.Generator(device=device).manual_seed(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            ms = step_ms(lambda: steps.factual_train_step(
+                dec, opt, feats, caps, lens, mask, generator=g), 3)
+            big[f"b{b}"] = {"step_ms": ms, "captions_per_s": b / ms * 1e3,
+                            "max_memory_allocated_bytes":
+                                torch.cuda.max_memory_allocated(device)}
+        except (RuntimeError, ValueError) as e:
+            big[f"b{b}"] = {"refused": f"{type(e).__name__}: {e}"}
+        dec = opt = feats = caps = lens = mask = None
+        torch.cuda.empty_cache()
+    log(f"phase 20 (e): StyleNet+Att steps at ratio 0.8: {big}")
+
+    # (f) SentiCap whole epochs against the same steps called one by one
+    stats["senticap"] = senticap_epochs(device, add)
+    if any(plain.values()):
+        fail(f"phase 20: a plain version ran on the card: {plain}")
+    stats["plain_calls"] = plain
+    stats["config"] = {
+        "V": V, "E": E, "H": H, "F": F, "T": T_STEPS, "B": B_IMAGES,
+        "B_emotion": B_EMOTION, "images": RES_IMAGES,
+        "train_captions": len(train), "emotion_captions": len(emo),
+        "val_captions": len(val), "progress_chunk": RES_PROGRESS,
+        "att_images": RES_ATT_IMAGES, "att_budget_gb": RES_ATT_BUDGET_GB,
+        "B_att": B_ATT, "P": P, "FS": FS}
+    return launches, stats, big
+
+
+def senticap_epochs(device, add) -> dict:
+    """Phase 20 (f): ``make_base_epoch`` and ``make_switched_epoch`` at the
+    COCO regime (phase 13's and 16's shapes) over RES_SC_BATCHES index
+    rows against the step called row by row from the same state and
+    generator: the same params, solver state and losses, the same K8, CE
+    and mixture-CE launches."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model, switched
+    from icee_tpu_torch.senticap import train as st
+    from icee_tpu_torch.senticap.solver import make_solver
+
+    counters = {"fused_senticap_scan_fwd": ss.senticap_scan_fwd,
+                "fused_senticap_scan_bwd": ss.senticap_scan_bwd,
+                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows,
+                "mixture_ce_rows": cl.mixture_ce_rows}
+    out = {}
+    for kind in ("base", "switched"):
+        base = model.init_params(torch.Generator().manual_seed(94), SC_V,
+                                 senticap_conf_full())
+        if kind == "base":
+            conf = senticap_conf_full()
+            ds = senticap_split(RES_SC_BATCHES * SC_B, 95)
+            start = {k: v.to(device) for k, v in base.items()}
+            mask = None
+            make_epoch, make_step = st.make_base_epoch, st.make_base_step
+        else:
+            conf = senticap_conf_full(learning_rate=SC_SWITCH_LR)
+            ds = senticap_split(RES_SC_BATCHES * SC_B, 96, senti=1.0)
+            start = switched_params(device, base)
+            mask = switched.switch_param_mask(start)
+            make_epoch, make_step = (st.make_switched_epoch,
+                                     st.make_switched_step)
+        data = sio.device_dataset(ds, device)
+        rows = torch.as_tensor(st._epoch_indices(
+            RES_SC_BATCHES * SC_B, SC_B, np.random.default_rng(97)),
+            device=device)
+        runs = []
+        for whole in (True, False):
+            params = {k: v.clone() for k, v in start.items()}
+            solver = make_solver(conf, mask)
+            opt = solver.init(params)
+            gen = torch.Generator(device=device).manual_seed(98)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if whole:
+                params, opt, gen, losses = make_epoch(
+                    conf, solver, device=device)(params, opt, data, rows,
+                                                 gen)
+                losses = losses.tolist()
+            else:
+                step = make_step(conf, solver, device=device)
+                losses = []
+                for idx in rows:
+                    params, opt, loss = step(params, opt, data, idx, gen)
+                    losses.append(float(loss))
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in counters.items()}
+            # the switched step's ce_grad_rows is the mixture's backward
+            add({f"{k}_mixture" if kind == "switched" and k == "ce_grad_rows"
+                 else k: n for k, n in counts.items()})
+            runs.append((params, opt, gen.get_state(), losses, counts,
+                         time.perf_counter() - t))
+        (p1, o1, g1, l1, c1, s1), (p2, o2, g2, l2, c2, s2) = runs
+        # a switch step scans both paths forward and the sentiment path
+        # (the trainable one) backward
+        scans = RES_SC_BATCHES * (2 if kind == "switched" else 1)
+        if not (trees_equal(p1, p2) and trees_equal(o1, o2)
+                and torch.equal(g1, g2) and l1 == l2):
+            fail(f"phase 20 (f) {kind}: the whole epoch differs from the "
+                 "step loop")
+        if c1 != c2 or c1["fused_senticap_scan_fwd"] != scans or \
+                c1["fused_senticap_scan_bwd"] != RES_SC_BATCHES or (
+                    kind == "switched"
+                    and c1["mixture_ce_rows"] != 2 * RES_SC_BATCHES):
+            fail(f"phase 20 (f) {kind}: launches {c1} (step loop {c2})")
+        out[kind] = {"epoch_s": s1, "step_loop_s": s2, "launches": c1,
+                     "losses": l1}
+    log(f"phase 20 (f): SentiCap epochs = the step loops; launches "
+        f"{ {k: v['launches'] for k, v in out.items()} }")
+    return out
 
 
 def main() -> int:
@@ -6155,6 +6741,25 @@ def main() -> int:
         entry["launches"] += cli_launches.get(entry["name"], 0)
     k2["launches"] += cli_launches["mega_beam_decode"]
     k7["factored"]["launches"] += cli_launches["mega_att_beam_decode"]
+    res_launches, train["resident"], big = resident_phase(device)
+    train["att"].update(big)
+    res = train["resident"]
+    log("phase 20: device-resident epochs ok; epoch s host "
+        f"{res['host']['epoch_s'][0]:.2f}, pinned "
+        f"{res['pinned']['epoch_s'][0]:.2f}, resumed "
+        f"{res['resumed']['epoch_s'][0]:.2f}; training captions/s host "
+        f"{res['host']['captions_per_s'][0]:.0f}, pinned "
+        f"{res['pinned']['captions_per_s'][0]:.0f}; busy share host "
+        f"{res['host']['device_busy_share']}, pinned "
+        f"{res['pinned']['device_busy_share']}; synchronizing calls "
+        f"{res['pinned']['sync_calls']}; launches {res_launches}")
+    # the resident epochs run K3, the CE, K2, K5 (sampled, factored), K8
+    # and the mixture CE
+    for entry in (k3f, k3b, cef, ceb, k8f, k8b, *k5):
+        entry["launches"] += res_launches.get(entry["name"], 0)
+    k2["launches"] += res_launches["mega_beam_decode"]
+    mxf["launches"] += res_launches["mixture_ce_rows"]
+    mxb["launches"] += res_launches["ce_grad_rows_mixture"]
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))

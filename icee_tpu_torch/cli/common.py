@@ -78,9 +78,10 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                         "(B,T,V) logits never materialize); auto = on for "
                         "a CUDA device")
     p.add_argument("--progress_chunk", type=int, default=0,
-                   help="mid-epoch progress checkpoints of the "
-                        "device-resident epochs: slice 3c of the port; "
-                        "any value but 0 is refused")
+                   help="with --device_resident, write a mid-epoch "
+                        "progress record every N batches "
+                        "(checkpoint/progress.py) so a killed run resumes "
+                        "inside the epoch; 0 = off")
 
 
 def add_data_flags(p: argparse.ArgumentParser) -> None:

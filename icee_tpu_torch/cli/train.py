@@ -14,12 +14,20 @@ attention families, and the chunked CE) and each validation's sample one K2
 search; ``--fused_scan off`` / ``--chunked_ce off`` are the explicit
 opt-outs, as in the JAX CLI.
 
+``--device_resident`` holds each split on the device
+(``data/device.py``): pinned when its unique features fit
+``--device_budget_gb`` (stored as ``--feature_dtype``), streamed in chunks
+otherwise, the paper regime's style corpora with ``from_styled``; it needs
+constant features (``--no_augment`` or ``--feature_cache``).
+``--progress_chunk N`` writes a progress record every N batches of a
+device epoch, and a run started again in the same ``--model_path``
+resumes from it mid-epoch.
+
 Refused at start-up, each naming the slice of the port that brings it:
-``--trainer seq2seq`` (slice 6); ``--device_resident``, ``--feature_dtype
-bfloat16``, ``--device_budget_gb`` and ``--progress_chunk`` (slice 3c);
-``--data_parallel``, ``--tensor_parallel`` and the multi-host flags (slice
-8).  A ``--hidden_size`` that the training scan's launch plan cannot take on
-this card is refused with the plan's own message before any data loads.
+``--trainer seq2seq`` (slice 6); ``--data_parallel``, ``--tensor_parallel``
+and the multi-host flags (slice 8).  A ``--hidden_size`` that the training
+scan's launch plan cannot take on this card is refused with the plan's own
+message before any data loads.
 """
 
 import argparse
@@ -33,15 +41,6 @@ def refuse_unported(args) -> None:
     if args.trainer == "seq2seq":
         raise SystemExit("--trainer seq2seq: the seq2seq trainer comes with "
                          "slice 6 of the port")
-    resident = [flag for flag, on in (
-        ("--device_resident", args.device_resident),
-        ("--feature_dtype bfloat16", args.feature_dtype != "float32"),
-        ("--device_budget_gb", args.device_budget_gb != DEVICE_BUDGET_GB),
-        ("--progress_chunk", args.progress_chunk != 0)) if on]
-    if resident:
-        raise SystemExit(f"{', '.join(resident)}: the device-resident "
-                         "epochs and their progress checkpoints come with "
-                         "slice 3c of the port")
     parallel = [flag for flag, on in (
         ("--data_parallel", args.data_parallel),
         ("--tensor_parallel", args.tensor_parallel > 1),
@@ -88,13 +87,44 @@ def init_weights(family: str, cfg, ecfg, seed: int, device):
     return dec, head
 
 
+def resident_split(ds, path: str, bs: int, train: bool, args, tcfg,
+                   provider, feature_dtype, device):
+    """A caption split held on ``device`` (``data/device.py``): pinned
+    when its unique features fit ``--device_budget_gb`` in their storage
+    dtype (``pin_plan``), streamed otherwise (with a NOTE line)."""
+    import numpy as np
+
+    from icee_tpu_torch.data import device as device_data
+
+    if not ds:
+        raise SystemExit(f"empty caption set: {path}")
+    feat_shape = np.asarray(provider(ds[0].image)).shape
+    n_unique = len({e.image for e in ds})
+    budget = int(args.device_budget_gb * (1 << 30))
+    plan = device_data.pin_plan(
+        n_unique, feat_shape, budget_bytes=budget,
+        bytes_per_feature=2 if feature_dtype is not None else 4)
+    kw = dict(batch_size=bs, max_len=tcfg.max_caption_len,
+              image_provider=provider, shuffle=train, seed=args.seed,
+              feature_dtype=feature_dtype, device=device)
+    if plan == "pin":
+        return device_data.from_examples(ds, **kw)
+    print(f"NOTE: {path} features exceed the device-resident budget; "
+          "streaming per-chunk feature buffers "
+          f"({args.device_budget_gb:g} GiB, double-buffered)")
+    return device_data.from_examples_streamed(ds, budget_bytes=budget, **kw)
+
+
 def main(args) -> None:
+    import torch
+
     from icee_tpu_torch.cli import common
     from icee_tpu_torch.core.config import EncoderConfig
     from icee_tpu_torch.data.captions import (load_caption_dataset,
                                               load_styled_caption_dataset)
     from icee_tpu_torch.data.pipeline import (caption_dataset_loader,
                                               styled_caption_loader)
+    from icee_tpu_torch.data import device as device_data
     from icee_tpu_torch.data.vocab import load_vocab
     from icee_tpu_torch.train.loops import (MultitaskTrainer,
                                             PaperRegimeTrainer,
@@ -127,10 +157,22 @@ def main(args) -> None:
                  "sad": (args.sad_path, args.val_sad_path),
                  "angry": (args.angry_path, args.val_angry_path)}
 
+    if args.device_resident and not (args.no_augment or args.feature_cache):
+        raise SystemExit(
+            "--device_resident holds one feature per image on the device, "
+            "which requires constant features: pass --no_augment or "
+            "--feature_cache (per-epoch crop/flip augmentation would be "
+            "frozen at its first draw)")
+    feature_dtype = {"float32": None,
+                     "bfloat16": torch.bfloat16}[args.feature_dtype]
+
     def loader(path, bs, train=True):
+        ds = load_caption_dataset(path, vocab)
+        if args.device_resident:
+            return resident_split(ds, path, bs, train, args, tcfg,
+                                  provider_eval, feature_dtype, device)
         return caption_dataset_loader(
-            load_caption_dataset(path, vocab), batch_size=bs,
-            max_len=tcfg.max_caption_len,
+            ds, batch_size=bs, max_len=tcfg.max_caption_len,
             image_provider=provider_train if train else provider_eval,
             shuffle=train, seed=args.seed)
 
@@ -175,9 +217,15 @@ def main(args) -> None:
         trainer = PaperRegimeTrainer(**common_kw)
 
         def style_loader(path):
+            ds = load_styled_caption_dataset(path, vocab)
+            if args.device_resident:
+                # text-only corpora always fit: (N, T) ids
+                return device_data.from_styled(
+                    ds, batch_size=tcfg.language_batch_size,
+                    max_len=tcfg.max_caption_len, seed=args.seed,
+                    device=device)
             return styled_caption_loader(
-                load_styled_caption_dataset(path, vocab),
-                batch_size=tcfg.language_batch_size,
+                ds, batch_size=tcfg.language_batch_size,
                 max_len=tcfg.max_caption_len, seed=args.seed)
 
         trainer.train(
@@ -200,16 +248,23 @@ def parser() -> argparse.ArgumentParser:
                    help="disable train-time crop/flip; use cached eval-mode "
                         "features")
     p.add_argument("--device_resident", action="store_true",
-                   help="device-resident epochs: slice 3c of the port "
-                        "(refused)")
+                   help="hold each split on the device and gather every "
+                        "batch there, reading the losses once an epoch "
+                        "(requires --no_augment or --feature_cache); "
+                        "splits over the feature budget stream per-chunk "
+                        "buffers instead")
     p.add_argument("--feature_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="storage dtype of --device_resident features: "
-                        "slice 3c of the port (bfloat16 refused)")
+                   help="storage dtype of --device_resident features; "
+                        "bfloat16 halves the bytes (each gathered batch is "
+                        "cast back to float32: the only difference is the "
+                        "one-time storage rounding)")
     p.add_argument("--device_budget_gb", type=float,
                    default=DEVICE_BUDGET_GB,
-                   help="device feature budget of --device_resident: slice "
-                        "3c of the port (any other value refused)")
+                   help="device memory for --device_resident features: a "
+                        "split whose unique features fit is pinned, a "
+                        "larger one streams through two buffers of half "
+                        "this size")
     p.add_argument("--data_parallel", action="store_true",
                    help="multi-device training: slice 8 of the port "
                         "(refused)")

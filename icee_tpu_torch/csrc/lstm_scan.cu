@@ -96,6 +96,9 @@ const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Recurrence launches issued by this library so far (scan_grid.cuh).
+unsigned long long icee_scan_recurrence_launches() { return sg_launches(); }
+
 // Floats of the forward's and the backward's workspaces -> out[0], out[1].
 int icee_lstm_scan_workspace(const ScanPlan* plan, int B, int T, int E,
                              int F, int H, long long* out) {

@@ -624,6 +624,14 @@ scan_bwd_grid_kernel(ScanBwdArgs a) {
 
 // ---- the launches --------------------------------------------------------
 
+// Recurrence launches this library has issued: cooperative launches that
+// returned success (read by each scan's icee_scan_recurrence_launches, so
+// a check can count them without a profiler trace).
+inline unsigned long long& sg_launches() {
+  static unsigned long long n = 0;
+  return n;
+}
+
 template <class Kernel, class Args>
 inline cudaError_t sg_launch(Kernel kernel, const Args& a, int blocks,
                              long long smem, cudaStream_t st) {
@@ -642,7 +650,9 @@ inline cudaError_t sg_launch(Kernel kernel, const Args& a, int blocks,
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(blocks), dim3(SG_THREADS), args,
                                   (size_t)smem, st);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) ++sg_launches();
+  return e;
 }
 
 // The forward recurrence over the input side in zg (B T, 4H); `count`

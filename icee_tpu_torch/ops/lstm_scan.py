@@ -272,4 +272,5 @@ def _library() -> ctypes.CDLL:
         "icee_lstm_scan_bwd": ([vp] * 25 + [ll] + [i] * 5 + [vp], i),
         "icee_scan_product_ws": ([i] * 5, ll),
         "icee_scan_product": ([i, vp, ll, ll, vp, ll, ll, vp, ll, vp]
-                              + [i] * 4 + [vp, ll, vp], i)})
+                              + [i] * 4 + [vp, ll, vp], i),
+        "icee_scan_recurrence_launches": ([], ctypes.c_ulonglong)})

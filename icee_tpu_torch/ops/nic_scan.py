@@ -244,4 +244,5 @@ def _library() -> ctypes.CDLL:
     return cuda_lib.library("nic_scan", {
         "icee_nic_scan_workspace": ([vp] + [i] * 4 + [vp], i),
         "icee_nic_scan_fwd": ([vp] * 10 + [ll] + [i] * 4 + [vp], i),
-        "icee_nic_scan_bwd": ([vp] * 14 + [ll] + [i] * 4 + [vp], i)})
+        "icee_nic_scan_bwd": ([vp] * 14 + [ll] + [i] * 4 + [vp], i),
+        "icee_scan_recurrence_launches": ([], ctypes.c_ulonglong)})

@@ -240,4 +240,5 @@ def _library() -> ctypes.CDLL:
     return cuda_lib.library("senticap_scan", {
         "icee_senticap_scan_workspace": ([vp] + [i] * 4 + [vp], i),
         "icee_senticap_scan_fwd": ([vp] * 7 + [ll] + [i] * 4 + [vp], i),
-        "icee_senticap_scan_bwd": ([vp] * 11 + [ll] + [i] * 4 + [f, vp], i)})
+        "icee_senticap_scan_bwd": ([vp] * 11 + [ll] + [i] * 4 + [f, vp], i),
+        "icee_scan_recurrence_launches": ([], ctypes.c_ulonglong)})

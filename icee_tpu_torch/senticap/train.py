@@ -12,6 +12,8 @@ gradient, then the reference's RMSProp/Adadelta pipeline.
 ``train_switched`` the switch ("gap filler") regime: seed both paths of the
 switched model from a base model and optimize ONLY the switch set with the
 LAMBDA_N/LAMBDA_GAM loss (``train_joint.py:322-451``).
+``make_base_epoch`` / ``make_switched_epoch`` run a whole epoch of either
+step with one read of its losses, and both regimes train through them.
 ``validation_perplexity`` and ``decode_split`` evaluate and decode either.
 On CUDA the teacher-forced scans run K8 (``ops/senticap_scan.py``), the
 losses the chunked CE kernels (the mixture CE for the switched model), and
@@ -225,6 +227,54 @@ def make_switched_step(conf: dict, solver, mesh=None,
     return SwitchedStep(conf, solver, device)
 
 
+def _make_epoch(step):
+    """A whole epoch of ``step`` over a device-resident split:
+    ``epoch(params, opt_state, data, idx_rows, generator) -> (params,
+    opt_state, generator, losses)`` runs the step once an index row of
+    ``idx_rows`` ((n, batch) on the device), in order, drawing from
+    ``generator`` as the step loop does; each step's loss goes into an (n,)
+    float64 tensor on the device, read once at the end (``losses`` on the
+    CPU).  The port of the JAX package's one-dispatch ``lax.scan``: the
+    same steps, no read between them."""
+
+    def epoch(params, opt_state, data, idx_rows, generator=None):
+        losses = torch.empty(len(idx_rows), dtype=torch.float64,
+                             device=step.device)
+        for r, idx in enumerate(idx_rows):
+            params, opt_state, loss = step(params, opt_state, data, idx,
+                                           generator)
+            losses[r] = loss
+        return params, opt_state, generator, losses.cpu()
+
+    return epoch
+
+
+def make_base_epoch(conf: dict, solver, mesh=None, device="cuda"):
+    """Whole-epoch base-model training (see :func:`_make_epoch`) over
+    :func:`make_base_step`."""
+    return _make_epoch(make_base_step(conf, solver, mesh, device))
+
+
+def make_switched_epoch(conf: dict, solver, mesh=None, device="cuda"):
+    """Whole-epoch switch training (see :func:`_make_epoch`) over
+    :func:`make_switched_step`; each index row must be sentiment-pure
+    (:func:`_epoch_indices_by_sentiment`), because the step reads the
+    batch-level ``senti[idx][0]``."""
+    return _make_epoch(make_switched_step(conf, solver, mesh, device))
+
+
+def _run_epoch(epoch_fn, params, opt_state, data, idx_rows, gen,
+               device_epoch: bool):
+    """One epoch through ``epoch_fn``: whole (``device_epoch``: the losses
+    read once) or a row at a time (each loss read after its step)."""
+    losses = []
+    for rows in ([idx_rows] if device_epoch else idx_rows.split(1)):
+        params, opt_state, gen, ls = epoch_fn(params, opt_state, data, rows,
+                                              gen)
+        losses += ls.tolist()
+    return params, opt_state, losses
+
+
 def train_base(dataset: sio.SentiDataset, vocab_size: int,
                conf: Optional[dict] = None, num_epochs: int = 10,
                unigram: Optional[np.ndarray] = None,
@@ -243,7 +293,7 @@ def train_base(dataset: sio.SentiDataset, vocab_size: int,
                                     vocab_size, conf, unigram, device=dev)
     solver = make_solver(conf)
     opt_state = solver.init(params)
-    step = make_base_step(conf, solver, device=dev)
+    epoch_fn = make_base_epoch(conf, solver, device=dev)
     data = sio.device_dataset(dataset, dev)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -252,12 +302,8 @@ def train_base(dataset: sio.SentiDataset, vocab_size: int,
         t0 = time.time()
         idx_rows = torch.as_tensor(
             _epoch_indices(dataset.X.shape[0], batch, rng), device=dev)
-        losses = []
-        for idx in idx_rows:
-            params, opt_state, loss = step(params, opt_state, data, idx, gen)
-            losses.append(loss if device_epoch else float(loss))
-        if device_epoch and losses:
-            losses = torch.stack(losses).double().cpu().tolist()
+        params, opt_state, losses = _run_epoch(
+            epoch_fn, params, opt_state, data, idx_rows, gen, device_epoch)
         print(f"[senticap base] epoch {epoch}: loss "
               f"{np.mean(losses):.3f} ({time.time() - t0:.1f}s)")
         for cb in callbacks or []:
@@ -294,21 +340,19 @@ def train_switched(dataset: sio.SentiDataset, base_params: dict,
                                       device=dev)
     solver = make_solver(conf, sw_model.switch_param_mask(params))
     opt_state = solver.init(params)
-    step = make_switched_step(conf, solver, device=dev)
+    epoch_fn = make_switched_epoch(conf, solver, device=dev)
     data = sio.device_dataset(dataset, dev)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     batch = min(conf["batch_size_val"], dataset.X.shape[0])
     for epoch in range(num_epochs):
         t0 = time.time()
-        losses = []
-        for idx in _epoch_indices_by_sentiment(dataset.senti, batch, rng):
-            params, opt_state, loss = step(
-                params, opt_state, data, torch.as_tensor(idx, device=dev),
-                gen)
-            losses.append(loss if device_epoch else float(loss))
-        if device_epoch and losses:
-            losses = torch.stack(losses).double().cpu().tolist()
+        batches = _epoch_indices_by_sentiment(dataset.senti, batch, rng)
+        idx_rows = torch.as_tensor(
+            np.stack(batches) if batches else np.zeros((0, batch), np.int64),
+            device=dev)
+        params, opt_state, losses = _run_epoch(
+            epoch_fn, params, opt_state, data, idx_rows, gen, device_epoch)
         print(f"[senticap switch] epoch {epoch}: loss "
               f"{np.mean(losses) if losses else float('nan'):.3f} "
               f"({time.time() - t0:.1f}s)")

@@ -12,10 +12,23 @@ sample caption printed per validation.  The JSONL events (``epoch_factual``,
 
 Batches come from :mod:`icee_tpu_torch.data.pipeline` as NumPy; the
 trainer moves them to its device (CUDA unless the caller asks for the CPU)
-and reads each step's loss, as the JAX loop does.  On CUDA the steps launch
-the hand-written kernels (K3 or K4 on the teacher-forced global families,
-K5 on the attention families, the chunked CE on all) and the default sample
-one K2 search; on the CPU they run the kernels' plain versions.
+and reads each step's loss, as the JAX loop does.  A split held on the
+device (:class:`icee_tpu_torch.data.device.DeviceCaptionData`, pinned or
+streamed) instead trains whole epochs there: each batch is gathered on the
+device from the epoch's index rows, each step's loss and token count go
+into a (2, nb) float64 tensor on the device, and the host reads that
+tensor once an epoch (or at each progress record); the same steps run in
+the same order with the same randomness, so the parameters equal the host
+loop's.
+On CUDA the steps launch the hand-written kernels (K3 or K4 on the
+teacher-forced global families, K5 on the attention families, the chunked
+CE on all) and the default sample one K2 search; on the CPU they run the
+kernels' plain versions.
+
+With ``tcfg.progress_chunk > 0`` a device epoch writes a crash-atomic
+progress record (:mod:`icee_tpu_torch.checkpoint.progress`) every
+``progress_chunk`` batches, and ``train`` / ``train_factual_only`` /
+``train_transfer`` resume a killed run from it, bit for bit.
 
 Randomness: a ``torch.Generator`` seeded from ``tcfg.seed`` on the
 trainer's device drives the dropout keep-mask and the teacher-forcing
@@ -26,9 +39,7 @@ step as ``keep=`` / ``coins=``: this is how the tests hand the port the
 JAX package's draws, which torch cannot reproduce.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its slice:
-the device-resident loaders (``DeviceCaptionData``) and
-``tcfg.progress_chunk`` (slice 3c), ``mesh`` (slice 8) and
-``Seq2SeqTrainer`` (slice 6).
+``mesh`` (slice 8) and ``Seq2SeqTrainer`` (slice 6).
 """
 
 from __future__ import annotations
@@ -40,11 +51,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from icee_tpu_torch.checkpoint import progress
 from icee_tpu_torch.checkpoint.ckpt import (CheckpointState, load_checkpoint,
                                             save_checkpoint)
 from icee_tpu_torch.core.config import (EMOTIONS, DecoderConfig, TrainConfig,
                                         mode_id)
 from icee_tpu_torch.core.device import resolve_indexed_device
+from icee_tpu_torch.data.device import (DeviceCaptionData,
+                                        StreamedCaptionData, gather_batch)
 from icee_tpu_torch.evaluation.bleu import corpus_bleu
 from icee_tpu_torch.evaluation.metrics import AverageMeter, perplexity
 from icee_tpu_torch.train import optim
@@ -78,15 +92,6 @@ def _clone(tree, device):
     if tree is None:
         return None
     return torch.as_tensor(tree).to(device, copy=True)
-
-
-def _refuse_device_data(loader) -> None:
-    """The JAX package's device-resident loaders have no port yet."""
-    if any(c.__name__ == "DeviceCaptionData" for c in type(loader).__mro__):
-        raise NotImplementedError(
-            "device-resident loaders (DeviceCaptionData and its device "
-            "epochs) come with slice 3c of the port; use the host loaders "
-            "of icee_tpu_torch.data.pipeline")
 
 
 @dataclasses.dataclass
@@ -132,10 +137,6 @@ class MultitaskTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device training (mesh) comes with slice 8 of the port")
-        if tcfg.progress_chunk:
-            raise NotImplementedError(
-                "mid-epoch progress checkpoints (tcfg.progress_chunk) come "
-                "with slice 3c of the port; set progress_chunk=0")
         self.cfg, self.tcfg, self.vocab = cfg, tcfg, vocab
         self.family = family
         self.attention = family.endswith("_att")
@@ -224,44 +225,203 @@ class MultitaskTrainer:
         keep, coins = self.draws(batch, steps)
         return {"keep": keep, "coins": coins}
 
+    def _apply_step(self, style: Optional[int], feats, caps, lens, smask):
+        """One training step of the factual (style None or 0) or emotion
+        track on device tensors, the trees updated in place -> the loss (a
+        device tensor)."""
+        kw = self._step_randomness(caps.shape[0],
+                                   caps.shape[1] - int(self.attention))
+        if style is None or style == 0:
+            if self.attention:
+                self.dec, self.opt_state, loss = self.factual_step(
+                    self.dec, self.opt_state, feats, caps, lens, smask, **kw)
+            else:
+                self.dec, self.head, self.opt_state, loss = \
+                    self.factual_step(self.dec, self.head, self.opt_state,
+                                      feats, caps, lens, smask, **kw)
+        elif self.attention:
+            self.dec, self.lang_opt_state, loss = self.emotion_step(
+                self.dec, self.lang_opt_state, feats, caps, lens, smask,
+                style, **kw)
+        else:
+            self.dec, self.head, self.lang_opt_state, loss = \
+                self.emotion_step(self.dec, self.head, self.lang_opt_state,
+                                  feats, caps, lens, smask, style, **kw)
+        return loss
+
     def _run_train(self, loader, style: Optional[int], log_step: int,
-                   tag: str) -> EpochStats:
-        _refuse_device_data(loader)
+                   tag: str, epoch: Optional[int] = None, pass_idx: int = 0,
+                   start_row: int = 0, loss_prefix=None) -> EpochStats:
+        if isinstance(loader, DeviceCaptionData):
+            return self._run_train_device(
+                loader, style, log_step, tag, epoch=epoch, pass_idx=pass_idx,
+                start_row=start_row, loss_prefix=loss_prefix)
         losses = AverageMeter()
         t0 = time.time()
         for i, batch in enumerate(loader):
             feats, caps, lens, smask = self._to_device(
                 batch.images, batch.captions, batch.lengths,
                 batch.sample_mask)
-            kw = self._step_randomness(batch.batch_size,
-                                       caps.shape[1] - int(self.attention))
-            if style is None or style == 0:
-                if self.attention:
-                    self.dec, self.opt_state, loss = self.factual_step(
-                        self.dec, self.opt_state, feats, caps, lens, smask,
-                        **kw)
-                else:
-                    self.dec, self.head, self.opt_state, loss = \
-                        self.factual_step(self.dec, self.head, self.opt_state,
-                                          feats, caps, lens, smask, **kw)
-            else:
-                if self.attention:
-                    self.dec, self.lang_opt_state, loss = self.emotion_step(
-                        self.dec, self.lang_opt_state, feats, caps, lens,
-                        smask, style, **kw)
-                else:
-                    self.dec, self.head, self.lang_opt_state, loss = \
-                        self.emotion_step(self.dec, self.head,
-                                          self.lang_opt_state, feats, caps,
-                                          lens, smask, style, **kw)
-            loss = float(loss)
+            loss = float(self._apply_step(style, feats, caps, lens, smask))
             if i % log_step == 0:
                 print(f"Step [{i}/{len(loader)}], [{tag}], Loss: {loss:.4f}")
             losses.update(loss, int(batch.lengths.sum()))
         return EpochStats(loss=losses.avg, batch_time=time.time() - t0)
 
+    def _epoch_rows(self, ddata: DeviceCaptionData, idx, valid):
+        """An epoch's index rows on the device: (example rows, unique-image
+        rows or None, sample mask), copied once from page-locked memory."""
+        def put(a, dtype):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        rows = None
+        if ddata.images is not None or isinstance(ddata, StreamedCaptionData):
+            rows = put(ddata.image_rows(idx), torch.int64)
+        return put(idx, torch.int64), rows, put(valid, torch.bool)
+
+    @staticmethod
+    def _segments(ddata, img_rows, start_row: int, nb: int):
+        """(r0, r1, features, image rows) over the epoch's rows from
+        ``start_row``: one segment of the pinned features, or a streamed
+        split's chunks with their buffers and remaps."""
+        if not isinstance(ddata, StreamedCaptionData):
+            yield start_row, nb, ddata.images, None
+            return
+        R = ddata.rows_per_chunk
+        bounds = [(r0, min(r0 + R, nb)) for r0 in range(start_row, nb, R)]
+        for c, (buf, remap) in enumerate(ddata.stream(img_rows, bounds)):
+            yield bounds[c] + (buf, remap)
+
+    def _init_loss_trace(self, nb: int, start_row: int, loss_prefix):
+        """The (2, nb) float64 trace of an epoch's losses (row 0) and token
+        counts (row 1) on the device, a resumed prefix restored."""
+        trace = torch.zeros((2, nb), dtype=torch.float64, device=self.device)
+        if loss_prefix is not None:
+            trace[:, :start_row] = torch.as_tensor(np.stack(
+                [np.asarray(p, np.float64)[:start_row] for p in loss_prefix]))
+        return trace
+
+    @staticmethod
+    def _epoch_stats(trace, log_step, tag, t0) -> EpochStats:
+        """Step logging after the epoch + the token-weighted epoch loss of
+        a host (2, nb) trace, summed in the host loop's order (the same
+        float as its meter)."""
+        meter = AverageMeter()
+        losses, ntoks = trace.tolist()
+        for i, (loss, n) in enumerate(zip(losses, ntoks)):
+            if i % max(log_step, 1) == 0:
+                print(f"Step [{i}/{len(losses)}], [{tag}], Loss: {loss:.4f}")
+            meter.update(loss, int(n))
+        return EpochStats(loss=meter.avg, batch_time=time.time() - t0)
+
+    def _run_train_device(self, ddata, style: Optional[int], log_step: int,
+                          tag: str, epoch: Optional[int] = None,
+                          pass_idx: int = 0, start_row: int = 0,
+                          loss_prefix=None) -> EpochStats:
+        """One training epoch over a :class:`DeviceCaptionData` (pinned) or
+        :class:`StreamedCaptionData` split: the host loop's steps in its
+        order, each batch gathered on the device.  No step's loss is read
+        until the epoch ends, except at a progress record: with
+        ``tcfg.progress_chunk > 0`` (and an ``epoch`` to label it) one is
+        written after every ``progress_chunk`` rows and the last.
+        ``start_row`` / ``loss_prefix`` restart a killed pass at its last
+        record."""
+        t0 = time.time()
+        idx, valid = ddata.epoch_indices()
+        nb = idx.shape[0]
+        idx_d, rows_d, valid_d = self._epoch_rows(ddata, idx, valid)
+        img_rows = ddata.image_rows(idx)
+        trace = self._init_loss_trace(nb, start_row, loss_prefix)
+        chunk = self.tcfg.progress_chunk if epoch is not None else 0
+        last_saved = start_row
+        for r0, r1, images, remap in self._segments(ddata, img_rows,
+                                                    start_row, nb):
+            for r in range(r0, r1):
+                b_img = rows_d[r] if remap is None else remap[r - r0]
+                feats, caps, lens = gather_batch(
+                    images, ddata.captions, ddata.lengths, idx_d[r], b_img,
+                    valid_d[r])
+                trace[0, r] = self._apply_step(style, feats, caps, lens,
+                                               valid_d[r])
+                trace[1, r] = lens.sum()
+                if chunk and (r + 1 - last_saved >= chunk or r + 1 == nb):
+                    last_saved = r + 1
+                    self._save_progress(epoch, pass_idx, r + 1,
+                                        *trace.cpu().numpy())
+        return self._epoch_stats(trace.cpu(), log_step, tag, t0)
+
+    # -- mid-epoch progress (checkpoint/progress.py) ------------------------
+
+    def _save_progress(self, epoch: int, pass_idx: int, row: int,
+                       losses, ntoks) -> None:
+        record = progress.make_record(
+            epoch=epoch, pass_idx=pass_idx, row=row,
+            rng=self.generator.get_state(),
+            params={"decoder": self.dec, "head": self.head},
+            opt_states={"optimizer": self.opt_state,
+                        "lang_optimizer": self.lang_opt_state},
+            losses=losses, ntoks=ntoks,
+            epochs_since_improvement=self.epochs_since_improvement,
+            best_bleu4=self.best_bleu4)
+        progress.save_progress(self.model_dir, self.data_name, record)
+        hook = getattr(self, "_progress_hook", None)
+        if hook is not None:
+            hook(epoch, pass_idx, row)
+
+    def _clear_progress(self) -> None:
+        """Drop the mid-epoch record once a train loop runs to completion:
+        a later fresh run in the same model_dir must not resume past it."""
+        if self.tcfg.progress_chunk:
+            progress.clear_progress(self.model_dir, self.data_name)
+
+    def _resume_progress(self, loaders_by_pass: dict) -> Optional[dict]:
+        """If a progress record exists, restore the whole training state
+        from it and return ``{"epoch", "pass_idx", "row", "losses",
+        "ntoks"}``.
+
+        ``loaders_by_pass`` maps pass_idx -> that pass's TRAIN loader;
+        every shuffling device split is fast-forwarded one
+        ``epoch_indices()`` call a COMPLETED epoch, so the resumed epoch's
+        shuffle is the killed run's."""
+        rec = progress.load_progress(
+            self.model_dir, self.data_name,
+            {"params": {"decoder": self.dec, "head": self.head},
+             "opt_states": {"optimizer": self.opt_state,
+                            "lang_optimizer": self.lang_opt_state}})
+        if rec is None:
+            return None
+        epoch, pass_idx, row = rec["epoch"], rec["pass_idx"], rec["row"]
+        self.dec = rec["params"]["decoder"]
+        self.head = rec["params"]["head"]
+        self.opt_state = rec["opt_states"]["optimizer"]
+        self.lang_opt_state = rec["opt_states"]["lang_optimizer"]
+        self.generator.set_state(rec["rng"])
+        self.epochs_since_improvement = dict(rec["epochs_since_improvement"])
+        self.best_bleu4 = dict(rec["best_bleu4"])
+        self.start_epoch = epoch
+        for _ in range(epoch):           # completed epochs
+            for ld in loaders_by_pass.values():
+                if isinstance(ld, DeviceCaptionData) and ld.shuffle:
+                    ld.epoch_indices()
+        nb = len(rec["losses"])
+        _log(self.log_path, f"RESUMING mid-epoch: epoch {epoch}, pass "
+                            f"{pass_idx}, row {row}/{nb}")
+        return {"epoch": epoch, "pass_idx": pass_idx, "row": row,
+                "losses": rec["losses"], "ntoks": rec["ntoks"]}
+
+    # -- validation -------------------------------------------------------
+
+    def _val_batch(self, feats, caps, lens, smask, style: int):
+        return self.val_step(
+            self.dec, *(() if self.attention else (self.head,)),
+            feats, caps, lens, smask, style)
+
     def _run_val(self, loader, style: int) -> EpochStats:
-        _refuse_device_data(loader)
+        if isinstance(loader, DeviceCaptionData):
+            return self._run_val_device(loader, style)
         losses, top5s = AverageMeter(), AverageMeter()
         references, hypotheses = [], []
         start, end = self.vocab.start, self.vocab.end
@@ -272,9 +432,8 @@ class MultitaskTrainer:
             feats, caps, lens, smask = self._to_device(
                 batch.images, batch.captions, batch.lengths,
                 batch.sample_mask)
-            loss, top5, preds = self.val_step(
-                self.dec, *(() if self.attention else (self.head,)),
-                feats, caps, lens, smask, style)
+            loss, top5, preds = self._val_batch(feats, caps, lens, smask,
+                                                style)
             n_tok = int(batch.lengths.sum())
             losses.update(float(loss), n_tok)
             top5s.update(float(top5), n_tok)
@@ -294,6 +453,54 @@ class MultitaskTrainer:
         return EpochStats(loss=losses.avg, top5=top5s.avg, bleu4=bleu4,
                           batch_time=time.time() - t0)
 
+    def _run_val_device(self, ddata, style: int) -> EpochStats:
+        """Validation over a :class:`DeviceCaptionData` or
+        :class:`StreamedCaptionData` split: the host ``_run_val``'s batches
+        and metrics, each batch gathered on the device and the results read
+        once at the end."""
+        t0 = time.time()
+        idx, valid = ddata.epoch_indices()
+        nb = idx.shape[0]
+        idx_d, rows_d, valid_d = self._epoch_rows(ddata, idx, valid)
+        img_rows = ddata.image_rows(idx)
+        outs, lens_all = [], []
+        for r0, r1, images, remap in self._segments(ddata, img_rows, 0, nb):
+            for r in range(r0, r1):
+                b_img = rows_d[r] if remap is None else remap[r - r0]
+                feats, caps, lens = gather_batch(
+                    images, ddata.captions, ddata.lengths, idx_d[r], b_img,
+                    valid_d[r])
+                outs.append(self._val_batch(feats, caps, lens, valid_d[r],
+                                            style))
+                lens_all.append(lens)
+        loss_t = torch.stack([o[0] for o in outs]).cpu().tolist()
+        top5_t = torch.stack([o[1] for o in outs]).cpu().tolist()
+        preds = torch.stack([o[2] for o in outs]).cpu().numpy()
+        lens_h = torch.stack(lens_all).cpu().numpy()
+        losses, top5s = AverageMeter(), AverageMeter()
+        references, hypotheses = [], []
+        start, end = self.vocab.start, self.vocab.end
+        shift = 1 if self.attention else 0
+        for b in range(nb):
+            n_tok = int(lens_h[b].sum())
+            losses.update(loss_t[b], n_tok)
+            top5s.update(top5_t[b], n_tok)
+            for j in range(idx.shape[1]):
+                if not valid[b, j]:
+                    continue
+                references.append([strip_specials(r, start, end)
+                                   for r in ddata.references[int(idx[b, j])]])
+                L = max(int(lens_h[b, j]) - shift, 0)
+                hypotheses.append(
+                    strip_specials(preds[b, j, :L].tolist(), start, end))
+        bleu4 = corpus_bleu(references, hypotheses)
+        if self.sample_fn is not None and nb:
+            # the host loop samples from the first row of the last batch
+            feat = ddata.sample_feature(int(img_rows[-1, 0]))
+            print(self.sample_fn(self.dec, self.head, feat, style))
+        return EpochStats(loss=losses.avg, top5=top5s.avg, bleu4=bleu4,
+                          batch_time=time.time() - t0)
+
     def _improved(self, track: str, bleu4: float) -> bool:
         """Best-BLEU bookkeeping of one track -> whether it improved."""
         is_best = bleu4 > self.best_bleu4[track]
@@ -304,52 +511,87 @@ class MultitaskTrainer:
 
     # -- full regime ------------------------------------------------------
 
+    @staticmethod
+    def _resume_kw(prog: Optional[dict]) -> dict:
+        """``_run_train``'s restart arguments for the in-flight pass."""
+        if prog is None:
+            return {}
+        return dict(start_row=prog["row"],
+                    loss_prefix=(prog["losses"], prog["ntoks"]))
+
     def train(self, data_loader, val_loader, emotion_loader,
               val_emotion_loader, num_epochs: Optional[int] = None) -> Dict:
         tcfg = self.tcfg
         num_epochs = num_epochs or tcfg.num_epochs
         emo = mode_id(tcfg.mode)
         tag = tcfg.mode[:3].upper()
+        prog = None
+        if tcfg.progress_chunk:
+            prog = self._resume_progress({0: data_loader, 1: emotion_loader})
         for epoch in range(self.start_epoch, num_epochs):
-            imp_fac = self.epochs_since_improvement["factual"]
-            imp_emo = self.epochs_since_improvement["emotion"]
-            if imp_fac >= tcfg.early_stop_patience and \
-                    imp_emo >= tcfg.early_stop_patience:
-                self.metrics.log("early_stop", epoch=epoch, imp_fac=imp_fac,
-                                 imp_emo=imp_emo)
-                break
-            if imp_fac > 0 and imp_fac % tcfg.lr_decay_patience == 0:
-                lr = optim.decay_lr(self.opt_state, tcfg.lr_decay_factor)
-                _log(self.log_path, f"DECAYING learning rate to {lr:f}")
-                self.metrics.log("lr_decay", epoch=epoch, track="factual",
-                                 lr=lr)
-            if imp_emo > 0 and imp_emo % tcfg.lr_decay_patience == 0:
-                lr = optim.decay_lr(self.lang_opt_state, tcfg.lr_decay_factor)
-                _log(self.log_path,
-                     f"DECAYING language learning rate to {lr:f}")
-                self.metrics.log("lr_decay", epoch=epoch, track="emotion",
-                                 lr=lr)
+            # mid-epoch resume: the passes before prog["pass_idx"] ran (their
+            # validation too: the record's counters include it) and the
+            # in-flight pass restarts at prog["row"].  The epoch-start
+            # decay/early-stop block ran in the killed run (its effect is in
+            # the record's optimizer states), so it does not run again.
+            resuming = prog is not None and prog["epoch"] == epoch
+            if not resuming:
+                imp_fac = self.epochs_since_improvement["factual"]
+                imp_emo = self.epochs_since_improvement["emotion"]
+                if imp_fac >= tcfg.early_stop_patience and \
+                        imp_emo >= tcfg.early_stop_patience:
+                    self.metrics.log("early_stop", epoch=epoch,
+                                     imp_fac=imp_fac, imp_emo=imp_emo)
+                    break
+                if imp_fac > 0 and imp_fac % tcfg.lr_decay_patience == 0:
+                    lr = optim.decay_lr(self.opt_state, tcfg.lr_decay_factor)
+                    _log(self.log_path, f"DECAYING learning rate to {lr:f}")
+                    self.metrics.log("lr_decay", epoch=epoch,
+                                     track="factual", lr=lr)
+                if imp_emo > 0 and imp_emo % tcfg.lr_decay_patience == 0:
+                    lr = optim.decay_lr(self.lang_opt_state,
+                                        tcfg.lr_decay_factor)
+                    _log(self.log_path,
+                         f"DECAYING language learning rate to {lr:f}")
+                    self.metrics.log("lr_decay", epoch=epoch,
+                                     track="emotion", lr=lr)
 
             # factual track
-            tr = self._run_train(data_loader, 0, tcfg.log_step, "FAC")
-            va = self._run_val(val_loader, 0)
-            _log(self.log_path,
-                 f"Epoch [{epoch}/{num_epochs}], [FAC], "
-                 f"Batch Time: {tr.batch_time + va.batch_time:.3f}, "
-                 f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
-                 f"\tTrain Loss: {tr.loss:.4f} | "
-                 f"Train Perplexity: {perplexity(tr.loss):5.4f}\n"
-                 f"\tVal   Loss: {va.loss:.4f} | "
-                 f"Val   Perplexity: {perplexity(va.loss):5.4f}")
-            self.metrics.log("epoch_factual", epoch=epoch,
-                             train_loss=tr.loss, val_loss=va.loss,
-                             top5=va.top5, bleu4=va.bleu4,
-                             lr=optim.get_lr(self.opt_state))
-            self._improved("factual", va.bleu4)
+            if resuming and prog["pass_idx"] > 0:
+                # complete (validated, counted): burn its shuffle draw so
+                # later epochs' batches are the killed run's
+                if isinstance(data_loader, DeviceCaptionData) and \
+                        data_loader.shuffle:
+                    data_loader.epoch_indices()
+                _log(self.log_path,
+                     f"Epoch [{epoch}/{num_epochs}], [FAC], resumed past "
+                     "(completed before preemption)")
+            else:
+                tr = self._run_train(
+                    data_loader, 0, tcfg.log_step, "FAC", epoch=epoch,
+                    pass_idx=0, **self._resume_kw(prog if resuming else None))
+                va = self._run_val(val_loader, 0)
+                _log(self.log_path,
+                     f"Epoch [{epoch}/{num_epochs}], [FAC], "
+                     f"Batch Time: {tr.batch_time + va.batch_time:.3f}, "
+                     f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
+                     f"\tTrain Loss: {tr.loss:.4f} | "
+                     f"Train Perplexity: {perplexity(tr.loss):5.4f}\n"
+                     f"\tVal   Loss: {va.loss:.4f} | "
+                     f"Val   Perplexity: {perplexity(va.loss):5.4f}")
+                self.metrics.log("epoch_factual", epoch=epoch,
+                                 train_loss=tr.loss, val_loss=va.loss,
+                                 top5=va.top5, bleu4=va.bleu4,
+                                 lr=optim.get_lr(self.opt_state))
+                self._improved("factual", va.bleu4)
 
             # emotion track (single --mode emotion, train_multitask.py:139-147)
+            emo_kw = self._resume_kw(
+                prog if resuming and prog["pass_idx"] == 1 else None)
+            if resuming:
+                prog = None            # consumed; later epochs run normally
             tr_e = self._run_train(emotion_loader, emo, tcfg.log_step_emotion,
-                                   tag)
+                                   tag, epoch=epoch, pass_idx=1, **emo_kw)
             va_e = self._run_val(val_emotion_loader, emo)
             _log(self.log_path,
                  f"Epoch [{epoch}/{num_epochs}], [{tag}], "
@@ -363,6 +605,7 @@ class MultitaskTrainer:
                              top5=va_e.top5, bleu4=va_e.bleu4,
                              lr=optim.get_lr(self.lang_opt_state))
             self.save(epoch, self._improved("emotion", va_e.bleu4))
+        self._clear_progress()
         return {"best_bleu4": self.best_bleu4}
 
     def train_factual_only(self, data_loader, val_loader,
@@ -371,13 +614,22 @@ class MultitaskTrainer:
         produces the FAC_BEST checkpoint the transfer stage resumes from."""
         tcfg = self.tcfg
         num_epochs = num_epochs or tcfg.num_epochs
+        prog = None
+        if tcfg.progress_chunk:
+            prog = self._resume_progress({0: data_loader})
         for epoch in range(self.start_epoch, num_epochs):
-            imp = self.epochs_since_improvement["factual"]
-            if imp >= tcfg.early_stop_patience:
-                break
-            if imp > 0 and imp % tcfg.lr_decay_patience == 0:
-                optim.decay_lr(self.opt_state, tcfg.lr_decay_factor)
-            tr = self._run_train(data_loader, 0, tcfg.log_step, "FAC")
+            resuming = prog is not None and prog["epoch"] == epoch
+            fac_kw = self._resume_kw(prog if resuming else None)
+            if resuming:
+                prog = None
+            else:
+                imp = self.epochs_since_improvement["factual"]
+                if imp >= tcfg.early_stop_patience:
+                    break
+                if imp > 0 and imp % tcfg.lr_decay_patience == 0:
+                    optim.decay_lr(self.opt_state, tcfg.lr_decay_factor)
+            tr = self._run_train(data_loader, 0, tcfg.log_step, "FAC",
+                                 epoch=epoch, pass_idx=0, **fac_kw)
             va = self._run_val(val_loader, 0)
             _log(self.log_path,
                  f"Epoch [{epoch}/{num_epochs}], [FAC], Top-5 Acc: "
@@ -385,6 +637,7 @@ class MultitaskTrainer:
                  f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
             self.save(epoch, self._improved("factual", va.bleu4),
                       mode_tag="FAC")
+        self._clear_progress()
         return {"best_bleu4": self.best_bleu4}
 
     def _state(self, epoch: int) -> CheckpointState:
@@ -446,20 +699,29 @@ class TransferTrainer(MultitaskTrainer):
         num_epochs = num_epochs or tcfg.num_epochs
         emo = mode_id(tcfg.mode)
         tag = tcfg.mode[:3].upper()
+        prog = None
+        if tcfg.progress_chunk:
+            prog = self._resume_progress({0: emotion_loader})
         for epoch in range(self.start_epoch, num_epochs):
-            imp = self.epochs_since_improvement["emotion"]
-            if imp >= tcfg.early_stop_patience:
-                break
-            if imp > 0 and imp % tcfg.lr_decay_patience == 0:
-                optim.decay_lr(self.lang_opt_state, tcfg.lr_decay_factor)
+            resuming = prog is not None and prog["epoch"] == epoch
+            emo_kw = self._resume_kw(prog if resuming else None)
+            if resuming:
+                prog = None
+            else:
+                imp = self.epochs_since_improvement["emotion"]
+                if imp >= tcfg.early_stop_patience:
+                    break
+                if imp > 0 and imp % tcfg.lr_decay_patience == 0:
+                    optim.decay_lr(self.lang_opt_state, tcfg.lr_decay_factor)
             tr = self._run_train(emotion_loader, emo, tcfg.log_step_emotion,
-                                 tag)
+                                 tag, epoch=epoch, pass_idx=0, **emo_kw)
             va = self._run_val(val_emotion_loader, emo)
             _log(self.log_path,
                  f"Epoch [{epoch}/{num_epochs}], [{tag}], "
                  f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
                  f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
             self.save(epoch, self._improved("emotion", va.bleu4))
+        self._clear_progress()
         return {"best_bleu4": self.best_bleu4}
 
 
@@ -482,23 +744,36 @@ class PaperRegimeTrainer(MultitaskTrainer):
             self.style_steps[emo] = TextStyleStep(self.cfg, self.tcfg, tx,
                                                   self.device)
 
+    def _style_step(self, emo: str, caps, lens, smask) -> None:
+        self.dec, self.style_opt_states[emo], _ = self.style_steps[emo](
+            self.dec, self.style_opt_states[emo], caps, lens, smask,
+            mode_id(emo), **self._step_randomness(caps.shape[0],
+                                                  caps.shape[1]))
+
+    def _style_epoch(self, emo: str, ddata: DeviceCaptionData) -> None:
+        """One text-only style epoch over a corpus on the device
+        (``data/device.py::from_styled``): the host loop's steps in its
+        order, each batch gathered on the device; no loss is read."""
+        idx, valid = ddata.epoch_indices()
+        idx_d, _, valid_d = self._epoch_rows(ddata, idx, valid)
+        for r in range(idx.shape[0]):
+            _, caps, lens = gather_batch(None, ddata.captions, ddata.lengths,
+                                         idx_d[r], None, valid_d[r])
+            self._style_step(emo, caps, lens, valid_d[r])
+
     def train(self, data_loader, style_loaders: Dict[str, object],
               num_epochs: Optional[int] = None) -> None:
         num_epochs = num_epochs or self.tcfg.num_epochs
         for epoch in range(num_epochs):
             self._run_train(data_loader, 0, self.tcfg.log_step, "FAC")
             for emo, loader in style_loaders.items():
-                _refuse_device_data(loader)
-                sid = mode_id(emo)
-                step = self.style_steps[emo]
+                if isinstance(loader, DeviceCaptionData):
+                    self._style_epoch(emo, loader)
+                    continue
                 for batch in loader:
                     caps, lens, smask = self._to_device(
                         batch.captions, batch.lengths, batch.sample_mask)
-                    self.dec, self.style_opt_states[emo], _ = step(
-                        self.dec, self.style_opt_states[emo], caps, lens,
-                        smask, sid,
-                        **self._step_randomness(batch.batch_size,
-                                                caps.shape[1]))
+                    self._style_step(emo, caps, lens, smask)
             self.save(epoch, is_best=False, mode_tag="PAPER")
 
 

@@ -399,10 +399,6 @@ TRAIN_BASE = ["--vocab_path", "unused.pkl", "--device", "cpu"]
 
 @pytest.mark.parametrize("extra,slice_", [
     (["--trainer", "seq2seq"], "slice 6"),
-    (["--device_resident"], "slice 3c"),
-    (["--feature_dtype", "bfloat16"], "slice 3c"),
-    (["--device_budget_gb", "8"], "slice 3c"),
-    (["--progress_chunk", "1"], "slice 3c"),
     (["--data_parallel"], "slice 8"),
     (["--tensor_parallel", "2"], "slice 8"),
     (["--coordinator_address", "localhost:1234"], "slice 8"),
@@ -411,6 +407,173 @@ TRAIN_BASE = ["--vocab_path", "unused.pkl", "--device", "cpu"]
 def test_train_refuses_what_is_not_ported(extra, slice_):
     with pytest.raises(SystemExit, match=slice_):
         run_port(train, TRAIN_BASE + extra)
+
+
+def train_argv(tmp, side, epochs=2, extra=()):
+    """The ``run`` fixture's multitask arguments over the feature cache."""
+    paths = ["--caption_path", f"{DATA}/train.txt", "--val_caption_path",
+             f"{DATA}/train.txt"]
+    for key in ("happy", "sad", "angry"):
+        paths += [f"--{key}_path", f"{DATA}/happy.txt",
+                  f"--val_{key}_path", f"{DATA}/happy.txt"]
+    return ["--trainer", "multitask", "--family", "stylenet", "--mode",
+            "happy", "--vocab_path", str(tmp / "vocab.pkl"), *paths, *MODEL,
+            "--dropout", "0.0", "--num_epochs", str(epochs),
+            "--caption_batch_size", "8", "--language_batch_size", "3",
+            "--lr_caption", "5e-3", "--lr_language", "5e-3",
+            "--model_path", str(tmp / side), "--log_path",
+            str(tmp / f"{side}.log"), "--metrics_path",
+            str(tmp / f"{side}.jsonl"), "--data_name", "demo",
+            "--feature_cache", str(tmp / "features.npz"), *extra]
+
+
+PORT_FLAGS = ["--device", "cpu", "--fused_scan", "on", "--chunked_ce", "on"]
+
+
+@pytest.fixture(scope="module")
+def resident(run):
+    """``train`` over the feature cache from JAX's initial weights: the
+    port on the host loader, the port with ``--device_resident``, and the
+    JAX CLI with ``--device_resident``."""
+    tmp = run["tmp"]
+    vocab = load_vocab(str(tmp / "vocab.pkl"))
+    jdec = jax.tree.map(np.asarray, jfl.init_params(
+        jax.random.PRNGKey(0), JDecoderConfig(
+            vocab_size=len(vocab), embed_size=E, hidden_size=H,
+            factored_size=H, max_seq_length=MAX_SEQ)))
+    jhead = jax.tree.map(np.asarray, jenc.init_head_params(
+        jax.random.PRNGKey(1), JEncoderConfig(embed_size=E)))
+    weights = (jdec, jhead)
+    with pytest.MonkeyPatch.context() as mp:
+        from icee_tpu.cli import common as jcommon
+
+        mp.setattr(train, "init_weights", lambda family, cfg, ecfg, seed,
+                   device: tuple(bridge.to_torch(w, device)
+                                 for w in weights))
+        ratio_one(mp, jcommon)
+        ratio_one(mp, common)
+        run_port(train, train_argv(tmp, "r_host") + PORT_FLAGS)
+        run_port(train, train_argv(tmp, "r_dev", extra=[
+            "--device_resident"]) + PORT_FLAGS)
+        run_jax("icee_tpu.cli.train", train_argv(tmp, "r_jax", extra=[
+            "--device_resident"]), mp)
+    return {"tmp": tmp, "weights": weights}
+
+
+def _final_params(tmp, side):
+    from icee_tpu_torch.checkpoint.ckpt import load_params
+
+    return load_params(str(tmp / side / "HAP_checkpoint_demo"))
+
+
+def _trees_equal(a, b):
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _trees_equal(a[k], b[k])
+    else:
+        assert torch.equal(a, b)
+
+
+def test_device_resident_train_equals_the_host_loader_and_matches_jax(
+        resident):
+    """``--device_resident`` (the split pinned, every batch gathered on the
+    device) ends in the host-loader run's checkpoint at atol 0 with the
+    same events, and matches the JAX CLI's ``--device_resident`` run at
+    ``test_train_matches_jax``'s tolerances."""
+    tmp = resident["tmp"]
+    _trees_equal(_final_params(tmp, "r_dev"), _final_params(tmp, "r_host"))
+    assert events(tmp / "r_dev.jsonl") == events(tmp / "r_host.jsonl")
+    got, want = events(tmp / "r_dev.jsonl"), events(tmp / "r_jax.jsonl")
+    assert [r["event"] for r in got] == [r["event"] for r in want] == [
+        "epoch_factual", "epoch_emotion"] * 2
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            if k in ("train_loss", "val_loss"):
+                np.testing.assert_allclose(g[k], v, rtol=1e-5, err_msg=k)
+            elif k == "top5":
+                assert g[k] == pytest.approx(v, abs=1e-4)
+            elif k == "lr":
+                np.testing.assert_allclose(g[k], v, rtol=1e-6)
+            else:
+                assert g[k] == v, (k, g, w)
+    assert sorted(os.listdir(tmp / "r_dev")) == sorted(
+        os.listdir(tmp / "r_jax"))
+
+
+def test_device_resident_needs_constant_features(run, monkeypatch):
+    """Without ``--no_augment`` or ``--feature_cache`` both CLIs exit
+    before training: augmentation would be frozen at its first draw."""
+    argv = train_argv(run["tmp"], "r_refused", extra=["--device_resident"])
+    argv = argv[:argv.index("--feature_cache")]
+    argv += ["--device_resident"]
+    with pytest.raises(SystemExit, match="--no_augment or --feature_cache"):
+        run_port(train, argv + PORT_FLAGS)
+    with pytest.raises(SystemExit, match="--no_augment or --feature_cache"):
+        run_jax("icee_tpu.cli.train", argv, monkeypatch)
+    assert not os.path.exists(run["tmp"] / "r_refused")
+
+
+def test_progress_chunk_resumes_a_killed_run(resident, capsys, monkeypatch):
+    """``--progress_chunk 1``: a run killed after its 2nd record of the
+    second epoch's emotion pass, started again with the same arguments,
+    prints ``RESUMING mid-epoch`` and ends in the uninterrupted run's
+    checkpoint at atol 0, the record cleared."""
+    from icee_tpu_torch.checkpoint import progress
+    from icee_tpu_torch.train import loops
+
+    tmp = resident["tmp"]
+    monkeypatch.setattr(train, "init_weights", lambda family, cfg, ecfg,
+                        seed, device: tuple(bridge.to_torch(w, device)
+                                            for w in resident["weights"]))
+    ratio_one(monkeypatch, common)
+    argv = train_argv(tmp, "r_kill", extra=[
+        "--device_resident", "--progress_chunk", "1"]) + PORT_FLAGS
+
+    class Killed(RuntimeError):
+        pass
+
+    def hook(epoch, pass_idx, row):
+        if (epoch, pass_idx, row) == (1, 1, 2):
+            raise Killed
+
+    with monkeypatch.context() as mp:
+        mp.setattr(loops.MultitaskTrainer, "_progress_hook",
+                   staticmethod(hook), raising=False)
+        with pytest.raises(Killed):
+            run_port(train, argv)
+    assert progress.peek_progress(str(tmp / "r_kill"), "demo")["row"] == 2
+    capsys.readouterr()
+    run_port(train, argv)
+    assert "RESUMING mid-epoch: epoch 1, pass 1, row 2/3" in \
+        capsys.readouterr().out
+    _trees_equal(_final_params(tmp, "r_kill"), _final_params(tmp, "r_dev"))
+    assert progress.peek_progress(str(tmp / "r_kill"), "demo") is None
+
+
+def test_bfloat16_features_pinned_and_streamed(resident, capsys,
+                                               monkeypatch):
+    """``--feature_dtype bfloat16`` trains; with a budget below the split's
+    features the split streams (a NOTE line) and ends in the pinned
+    bfloat16 run's checkpoint at atol 0."""
+    tmp = resident["tmp"]
+    monkeypatch.setattr(train, "init_weights", lambda family, cfg, ecfg,
+                        seed, device: tuple(bridge.to_torch(w, device)
+                                            for w in resident["weights"]))
+    ratio_one(monkeypatch, common)
+    flags = ["--device_resident", "--feature_dtype", "bfloat16"]
+    capsys.readouterr()
+    run_port(train, train_argv(tmp, "r_bf16", 1, flags) + PORT_FLAGS)
+    assert "NOTE" not in capsys.readouterr().out
+    # 8 images x 2048 bfloat16 = 32 KiB; 12 KiB streams 3 images a buffer
+    run_port(train, train_argv(tmp, "r_bf16s", 1, flags + [
+        "--device_budget_gb", str(24 / (1 << 20))]) + PORT_FLAGS)
+    assert "NOTE: examples/data/train.txt features exceed" in \
+        capsys.readouterr().out
+    pinned, streamed = _final_params(tmp, "r_bf16"), _final_params(
+        tmp, "r_bf16s")
+    _trees_equal(streamed, pinned)
+    assert all(torch.isfinite(v).all() for v in pinned["decoder"].values())
 
 
 @pytest.mark.parametrize("mod", [evaluate, caption_batch])

@@ -1867,3 +1867,54 @@ def test_switched_wrapper_raises_on_what_the_kernel_does_not_take(device):
         ssd.mega_senticap_switched_decode(dict(params, att_w=params[
             "att_w"].cpu()), v, 1, beam_size=2)
     assert ssd.mega_senticap_switched_decode.launches == before
+
+
+def test_streamed_epochs_on_the_card_equal_the_pinned_epochs(device):
+    """Two StyleNet epochs (K3, the chunked CE) over a split streamed
+    through buffers of 3 features (``data/device.py``: the worker thread's
+    gather into page-locked staging, the side stream's copies, the events;
+    the second epoch reuses the buffers) against the same epochs over the
+    split pinned on the card: the same parameters and losses, bit for
+    bit."""
+    from icee_tpu_torch.core.config import DecoderConfig, EncoderConfig
+    from icee_tpu_torch.data import captions as cap
+    from icee_tpu_torch.data import device as dd
+    from icee_tpu_torch.data.vocab import build_vocab
+    from icee_tpu_torch.models import encoder, factored_lstm
+    from icee_tpu_torch.train import loops
+
+    path = "examples/data/train.txt"
+    vocab = build_vocab(path, 1)
+    ds = cap.load_caption_dataset(path, vocab)
+    rng = np.random.default_rng(3)
+    feats = {e.image: rng.random(32, dtype=np.float32) for e in ds}
+    cfg = DecoderConfig(vocab_size=len(vocab), embed_size=16, hidden_size=24,
+                        factored_size=24, feature_size=32,
+                        max_seq_length=8)
+    dec = factored_lstm.init_params(torch.Generator().manual_seed(0), cfg)
+    head = encoder.init_head_params(torch.Generator().manual_seed(1),
+                                    EncoderConfig(embed_size=16,
+                                                  feature_size=32))
+    runs = []
+    for streamed in (False, True):
+        tr = loops.MultitaskTrainer(
+            cfg, TrainConfig(teacher_forcing_ratio=1.0, log_step=100),
+            vocab, dec, head, device=device, model_dir="unused")
+        kw = dict(shuffle=True, seed=0, device=device)
+        split = (dd.from_examples_streamed(ds, 2, 10, feats.__getitem__,
+                                           budget_bytes=2 * 3 * 32 * 4, **kw)
+                 if streamed else
+                 dd.from_examples(ds, 2, 10, feats.__getitem__, **kw))
+        if streamed:
+            assert split.capacity == 3 and split.rows_per_chunk == 1
+        losses = [tr._run_train(split, 0, 100, "T").loss for _ in range(2)]
+        torch.cuda.synchronize()
+        runs.append((losses, tr))
+    (want, a), (got, b) = runs
+    assert got == want
+    for x, y in ((a.dec, b.dec), (a.head, b.head)):
+        for k in x:
+            if isinstance(x[k], dict):
+                assert all(torch.equal(x[k][j], y[k][j]) for j in x[k])
+            else:
+                assert torch.equal(x[k], y[k]), k

@@ -220,6 +220,9 @@ def _c_params(source: str, fn: str) -> int:
     (nic_scan, "nic_scan.cu", "icee_nic_scan_workspace"),
     (nic_scan, "nic_scan.cu", "icee_nic_scan_fwd"),
     (nic_scan, "nic_scan.cu", "icee_nic_scan_bwd"),
+    (lstm_scan, "lstm_scan.cu", "icee_scan_recurrence_launches"),
+    (ss, "senticap_scan.cu", "icee_scan_recurrence_launches"),
+    (nic_scan, "nic_scan.cu", "icee_scan_recurrence_launches"),
 ])
 def test_the_ctypes_signatures_match_the_entry_points(module, source, fn,
                                                       monkeypatch):

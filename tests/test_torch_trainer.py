@@ -399,28 +399,11 @@ def test_refusals_name_their_slice(data, tmp_path):
     kw = dict(device="cpu", model_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="slice 8"):
         loops.MultitaskTrainer(*args, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        loops.MultitaskTrainer(cfg, TrainConfig(progress_chunk=2),
-                               *args[2:], **kw)
     with pytest.raises(NotImplementedError, match="slice 6"):
         loops.Seq2SeqTrainer(cfg, tcfg, data["vocab"], {}, {})
     with pytest.raises(ValueError, match="family"):
         loops.MultitaskTrainer(*args, family="seq2seq", **kw)
-
-    class DeviceCaptionData:           # the JAX package's device loader
-        pass
-
-    tr = loops.MultitaskTrainer(*args, **kw)
-    loader = _loaders(data, "ds", 4)[0]
-    for call in (lambda: tr._run_train(DeviceCaptionData(), 0, 1, "FAC"),
-                 lambda: tr._run_val(DeviceCaptionData(), 0),
-                 lambda: tr.train(loader, loader, DeviceCaptionData(),
-                                  loader, num_epochs=1)):
-        with pytest.raises(NotImplementedError, match="slice 3c"):
-            call()
-    paper = loops.PaperRegimeTrainer(*args, **kw)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        paper.train(loader, {"happy": DeviceCaptionData()}, num_epochs=1)
+    loops.PaperRegimeTrainer(*args, **kw)
     # the trainer trains its own copies: the caller's trees stay as given
     np.testing.assert_array_equal(args[3]["S_w"].numpy(), dec["S_w"])
 
