@@ -204,10 +204,41 @@ Phases, in order; any failure exits non-zero:
    13's shapes against the steps one by one, at atol 0, K8 and the
    (mixture) CE launches exact; seconds, captions/s and the device-busy
    share of each tier; no plain version called;
-21. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+21. the SentiCap CLI (slice 7d) as processes on the card at the COCO
+   regime (E = H = 512, visual 4096, B = 128, max_len 20, beam 20), over a
+   caption JSON of 512 images x 5 Zipf captions whose words pass
+   MIN_WORD_FREQ at V = 8,800 and 4096-wide features, through
+   ``CLI_WRAPPER``: ``base`` (2 epochs: K8 forward and backward once a
+   step, the CE row passes once a step and chunk, then
+   ``validation_perplexity`` in blocks of 128 rows), ``base
+   --device_resident`` (its pickle bit-equal to ``base``'s), ``train`` from
+   ``base``'s pickle over 640 styled records that add 40 sentiment words
+   (two K8 forwards and one backward a step, the mixture CE), ``test
+   --out_dir`` over 64 images (K10 and K9 once) and ``test --base_only``
+   (K9 once); launches exact, no plain version; the ``test`` decodes and
+   metrics equal an in-process ``decode_split`` of the same pickle (a
+   differing caption only at a 1e-4 near tie); seconds a stage with
+   ``import torch`` apart and decoded captions/s with the start;
+22. seq2seq (slice 6) and the utilities (slice 9): (a)
+   ``Seq2SeqTrainer.train`` at ``Seq2SeqConfig``'s defaults (E = 300, H =
+   512, 1 layer, dropout 0.22), V = 8192, over phase 18's corpus at B = 64
+   with 960 lines a style at B = 96, ratio 0.8, 2 epochs, from the host
+   loader and from pinned splits: parameters, both Adam states, the
+   generator and the log equal at atol 0, the CE row passes once a step and
+   chunk, no plain version, the factual loss falling; ``greedy_sample`` in
+   every mode; 3 steps at ratio 1.0; (b) ``python -m
+   icee_tpu_torch.cli.train --trainer seq2seq`` over phase 19's feature
+   cache, with and without ``--device_resident``: the same log; (c) an
+   ``adversarial.total_loss`` and an ``encode_decode.loss`` with every
+   gradient on the card against the CPU, ``grad_reverse`` negating on the
+   card; (d) ``utils.profiling.trace`` around one step (its file names
+   ``ce_rows_kernel``) and ``StepTimer``'s p50 of the factual step with
+   captions/s from it; then the run's whole wall time;
+23. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
-   ``trainer`` and ``resident`` entries), one
-   ``{"cli": {...}}`` line (phase 19), one ``{"serve":
+   ``trainer``, ``resident`` and ``seq2seq`` entries), one
+   ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
+   entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b) and one ``{"kernels": [...]}`` line
@@ -215,7 +246,7 @@ Phases, in order; any failure exits non-zero:
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10);
-22. print ``{"ok": true, "device": {...}}`` as the last line.
+24. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -225,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4646,8 +4678,16 @@ def plain_counters():
     from icee_tpu_torch.ops import att_scan, beam
     from icee_tpu_torch.ops import chunked_loss as cl
     from icee_tpu_torch.ops import lstm_scan, nic_scan
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
-    targets = [(lstm_scan, "fused_factored_scan_plain"),
+    targets = [(ss, "fused_senticap_scan_plain"),
+               (ss, "senticap_scan_bwd_plain"),
+               (cl, "mixture_ce_rows_plain"),
+               (sd, "mega_senticap_beam_decode_plain"),
+               (ssd, "mega_senticap_switched_decode_plain"),
+               (lstm_scan, "fused_factored_scan_plain"),
                (lstm_scan, "factored_scan_bwd_plain"),
                (nic_scan, "fused_nic_scan_plain"),
                (nic_scan, "nic_scan_bwd_plain"),
@@ -4785,6 +4825,8 @@ def metrics_events(tmp: str):
 def clone_tree(tree):
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
     return tree.clone()
 
 
@@ -5209,15 +5251,28 @@ sys.exit(code)
 
 
 def cli_counters():
-    """Phase 19's launch counters: phase 18's (K3, K4, K5, the CE row
-    passes, K2) and K7, both kinds."""
+    """The CLI stages' launch counters (phases 19, 21, 22): phase 18's (K3,
+    K4, K5, the CE row passes, K2), K7 (both kinds) and the SentiCap
+    kernels (K8, the mixture CE's forward, K9, K10)."""
     from icee_tpu_torch.ops import att_beam
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
     out = trainer_counters()
     out["mega_att_beam_decode"] = (att_beam.mega_att_beam_decode,
                                    "launches")
     out["mega_att_beam_decode_lstm"] = (att_beam.mega_att_beam_decode,
                                         "lstm_launches")
+    out.update({
+        "fused_senticap_scan_fwd": (ss.senticap_scan_fwd, "launches"),
+        "fused_senticap_scan_bwd": (ss.senticap_scan_bwd, "launches"),
+        "mixture_ce_rows": (cl.mixture_ce_rows, "launches"),
+        "mega_senticap_beam_decode": (sd.mega_senticap_beam_decode,
+                                      "launches"),
+        "mega_senticap_switched_decode": (
+            ssd.mega_senticap_switched_decode, "launches")})
     return out
 
 
@@ -5379,19 +5434,20 @@ def cli_cmd(module: str, args, ratio=None):
             json.dumps({"module": module, "ratio": ratio}), *map(str, args)]
 
 
-def cli_record(name: str, out: str, want: dict, wall: float, logs: str):
+def cli_record(name: str, out: str, want: dict, wall: float, logs: str,
+               phase: int = 19):
     """The wrapper's JSON line from a stage's output, its counts held to
     ``want`` (every other count 0, no plain version) -> (stats, counts)."""
     lines = [ln for ln in out.splitlines() if ln.startswith('{"cli_stage"')]
     if not lines:
-        fail(f"phase 19 {name}: no counter line (output in {logs})")
+        fail(f"phase {phase} {name}: no counter line (output in {logs})")
     rec = json.loads(lines[-1])["cli_stage"]
     if any(rec["plain"].values()):
-        fail(f"phase 19 {name}: a plain version ran on the card: "
+        fail(f"phase {phase} {name}: a plain version ran on the card: "
              f"{rec['plain']}")
     for k, n in rec["counts"].items():
         if n != want.get(k, 0):
-            fail(f"phase 19 {name}: {k} launched {n} times, expected "
+            fail(f"phase {phase} {name}: {k} launched {n} times, expected "
                  f"{want.get(k, 0)} (all counts {rec['counts']})")
     stats = {"wall_s": wall, **{k: rec[k] for k in (
         "import_s", "cuda_init_s", "setup_s", "run_s")}}
@@ -5399,7 +5455,7 @@ def cli_record(name: str, out: str, want: dict, wall: float, logs: str):
 
 
 def cli_stage(name: str, module: str, args, logs: str, want: dict,
-              ratio=None):
+              ratio=None, phase: int = 19):
     """One CLI as its own process; it must exit 0 and launch ``want``.
     -> (stats, counts, stdout)."""
     t = time.perf_counter()
@@ -5411,10 +5467,11 @@ def cli_stage(name: str, module: str, args, logs: str, want: dict,
     with open(log_path, "w") as f:
         f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     if proc.returncode != 0:
-        fail(f"phase 19 {name}: exit {proc.returncode}: "
+        fail(f"phase {phase} {name}: exit {proc.returncode}: "
              f"{proc.stderr[-3000:]}")
-    stats, counts = cli_record(name, proc.stdout, want, wall, log_path)
-    log(f"phase 19 {name}: {wall:.2f} s (import torch "
+    stats, counts = cli_record(name, proc.stdout, want, wall, log_path,
+                               phase)
+    log(f"phase {phase} {name}: {wall:.2f} s (import torch "
         f"{stats['import_s']:.2f} s, CUDA start-up {stats['cuda_init_s']:.2f}"
         f" s, counters {stats['setup_s']:.2f} s, run {stats['run_s']:.2f} "
         f"s); launches { {k: n for k, n in counts.items() if n} }")
@@ -5529,11 +5586,13 @@ def check_eval_lines(what: str, out: str, dataset, row: dict, tiled, plain,
     return flips
 
 
-def cli_phase(device):
+def cli_phase(device, keep: str = None):
     """Phase 19: the demo's stages as processes on the card, at flagship
     width (E = 300, H = F = 512, 40 steps, k = 5, V = 8192), with phase
     6's seeded weights made anew: the backbone for every image stage, the
-    StyleNet decoder and head for the decode stages."""
+    StyleNet decoder and head for the decode stages.  ``keep``: a
+    directory that receives the vocabulary, the feature cache and the
+    caption files (phase 22 trains seq2seq on them)."""
     import numpy as np
     import torch
 
@@ -5834,6 +5893,12 @@ def cli_phase(device):
             {"mega_att_beam_decode": -(-CLI_VAL_IMAGES // CLI_BATCH)})
         stats["caption_batch_attention"]["captions_per_s"] = \
             CLI_VAL_IMAGES / stats["caption_batch_attention"]["wall_s"]
+        if keep:
+            import shutil
+
+            for path in (vocab_path, cache, files["train"], files["val"],
+                         files["happy"], files["val_happy"]):
+                shutil.copy(path, keep)
         # 6/6 the server: the trained checkpoint as StyleNet's happy model,
         # the seeded one as its sad model
         stats["serve"] = serve_stage(device, root, vocab_path, backbone,
@@ -6442,9 +6507,634 @@ def senticap_epochs(device, add) -> dict:
     return out
 
 
-def main() -> int:
+# --- phase 21: the SentiCap CLI as processes (slice 7d) ----------------------
+
+# the COCO regime of phases 12-14 as the CLI runs it: 512 images x 5 Zipf
+# captions (phase 13's language) whose words pass MIN_WORD_FREQ = 5 at SC_V
+# words (a tail after the Zipf words holds every word 5 times: the
+# vocabulary counts every token, the split keeps the first 20), 4096-wide
+# N(0, 1) features; SCC_SENTI styled records with SC_SENTI_WORDS new
+# sentiment words at their switch positions, so that ``train``'s vocab
+# surgery adds them; ``test`` over the first SCC_TEST_IMAGES images, each
+# with its 5 captions as references
+SCC_IMAGES, SCC_CAPS, SCC_SENTI, SCC_TEST_IMAGES = 512, 5, 640, 64
+SCC_EPOCHS = 2
+SCC_MIN_FREQ = 5
+
+
+def senticap_cli_files(root: str) -> dict:
+    """The caption JSONs and the feature npz of phase 21 under ``root``."""
+    import numpy as np
+
+    rng = np.random.default_rng(210)
+    order = 2 + np.random.default_rng(98).permutation(SC_V - 2)
+    words = order[:SC_WORDS]
+    zipf = 1.0 / np.arange(1, SC_WORDS + 1)
+    tail = list(range(1, SC_V)) * SCC_MIN_FREQ
+    rng.shuffle(tail)
+    n = SCC_IMAGES * SCC_CAPS
+    caps = []
+    for c in range(n):
+        ids = words[rng.choice(SC_WORDS, rng.integers(6, SC_MAXLEN),
+                               p=zipf / zipf.sum())].tolist() + tail[c::n]
+        caps.append({"image": f"i{c // SCC_CAPS}",
+                     "tokens": [f"w{i}" for i in ids]})
+    senti = []
+    for r in range(SCC_SENTI):
+        ids = words[rng.choice(SC_WORDS, rng.integers(6, SC_MAXLEN),
+                               p=zipf / zipf.sum())].tolist()
+        toks = [f"w{i}" for i in ids]
+        switch = (rng.random(len(toks)) < SC_SWITCH_SHARE).astype(int)
+        switch[rng.integers(len(toks))] = 1
+        for j in np.flatnonzero(switch):
+            toks[j] = f"s{rng.integers(SC_SENTI_WORDS)}"
+        senti.append({"image": f"i{r % SCC_IMAGES}", "tokens": toks,
+                      "switch": switch.tolist()})
+    out = {}
+    for name, recs in (("captions", caps), ("senti", senti),
+                       ("test", caps[:SCC_TEST_IMAGES * SCC_CAPS])):
+        out[name] = os.path.join(root, f"{name}.json")
+        with open(out[name], "w") as f:
+            json.dump(recs, f)
+    out["features"] = os.path.join(root, "feats.npz")
+    np.savez(out["features"], **{
+        f"i{k}": rng.standard_normal(SC_VIS).astype(np.float32)
+        for k in range(SCC_IMAGES)})
+    return out
+
+
+def pickle_equal(a: str, b: str) -> bool:
+    """Two SentiCap model pickles: the same params bit for bit, the same
+    conf, solver state and vocabulary."""
+    import pickle
+
+    import numpy as np
+
+    with open(a, "rb") as f:
+        pa = pickle.load(f)
+    with open(b, "rb") as f:
+        pb = pickle.load(f)
+    return (set(pa["params"]) == set(pb["params"]) and all(
+        np.array_equal(pa["params"][k], pb["params"][k])
+        and pa["params"][k].dtype == pb["params"][k].dtype
+        for k in pa["params"]) and pa["conf"] == pb["conf"]
+        and pa["w2i"] == pb["w2i"]
+        and pa["solver_state"] == pb["solver_state"])
+
+
+def metrics_line(out: str) -> dict:
+    """``test --out_dir``'s metrics JSON line in a stage's output."""
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("{") and not ln.startswith('{"cli_stage"')]
+    if len(lines) != 1:
+        fail(f"phase 21 test: {len(lines)} metrics lines")
+    return json.loads(lines[0])
+
+
+def check_test_stage(what: str, out: str, model: str, files: dict,
+                     base_only: bool, device):
+    """``test``'s printed decodes and metrics JSON against an in-process
+    ``decode_split`` of the same pickle (K9 / K10 again in this process):
+    equal line by line, or where an image's caption differs, a near tie
+    (the two sequences' scores under the plain model within 1e-4: phase
+    14's rule).  -> (decoded captions, near-tie flips)."""
     import torch
 
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap.eval_out import score_decodes
+    from icee_tpu_torch.senticap.train import decode_split
+
+    params, conf, _, w2i = sio.load_model(model, device)
+    i2w = {i: w for w, i in w2i.items()}
+    records = sio.load_captions_json(files["test"])
+    seen, unique = set(), []
+    for r in records:
+        if r["image"] not in seen:
+            seen.add(r["image"])
+            unique.append(r)
+    ds = sio.make_split(unique, sio.load_features(files["features"]), w2i,
+                        max_len=conf["MAX_SENTENCE_LEN"],
+                        visual_size=conf["visual_size"])
+    want = decode_split(params, conf, ds, i2w, switched=not base_only,
+                        torch_device=device)
+    keys = ("caption",) if base_only else ("positive", "descriptive")
+    refs = {}
+    for r in records:
+        refs.setdefault(r["image"], []).append(r["tokens"])
+    printed = [ln for ln in out.splitlines() if ln.startswith("[")]
+    got = []
+    for ln in printed:
+        image, rest = ln[1:].split("] ", 1)
+        if not base_only:
+            rest = rest.split(": ", 1)[1]
+        got.append((image, rest.split()))
+    exp = [(rec["image"], rec[k]) for rec in want for k in keys]
+    if [g[0] for g in got] != [e[0] for e in exp]:
+        fail(f"phase 21 {what}: {len(got)} printed decodes for "
+             f"{len(exp)} expected")
+    flips = 0
+    v = torch.as_tensor(ds.V, device=device)
+    for j, ((image, words), (_, want_words)) in enumerate(zip(got, exp)):
+        if words == want_words:
+            continue
+        i = j // len(keys)
+        styled = keys[j % len(keys)] == "positive"
+        scores = []
+        for ws in (words, want_words):
+            ids = [w2i[w] for w in ws] + [0]
+            tok = torch.tensor([ids], device=device)
+            ln = torch.tensor([len(ids)], device=device)
+            rescore = switched_rescore if styled else senticap_rescore
+            scores.append(rescore(params, v[i:i + 1], tok, ln).item())
+        margin = abs(scores[0] - scores[1])
+        if margin > 1e-4:
+            fail(f"phase 21 {what}, {image}: decoded {words}, in this "
+                 f"process {want_words}; margin {margin} > 1e-4")
+        flips += 1
+    if not base_only and flips == 0 and metrics_line(out) != json.loads(
+            json.dumps(score_decodes(want, refs), default=float)):
+        fail(f"phase 21 {what}: metrics {metrics} differ from the "
+             "in-process decode's")
+    return len(exp), flips
+
+
+def senticap_cli_phase(device):
+    """Phase 21: ``python -m icee_tpu_torch.cli.senticap_train`` as
+    processes on the card at the COCO regime (E = H = 512, visual 4096,
+    B = 128, max_len 20, beam 20): ``base`` (2 epochs), ``base
+    --device_resident`` (its pickle bit-equal to ``base``'s), ``train``
+    from ``base``'s pickle (lr 1e-4, phase 16's: at the CLI's 1e-3 switch
+    training can go nan at this width), ``test --out_dir`` over 64 images
+    and ``test --base_only``, each through ``CLI_WRAPPER`` with its
+    launches exact and no plain version called."""
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    stats, launches = {}, {}
+    m = "icee_tpu_torch.cli.senticap_train"
+    t_cap = SC_MAXLEN + 1
+    chunks = -(-t_cap // cl.auto_t_chunk(SC_B, t_cap))
+    steps = SCC_EPOCHS * (SCC_IMAGES * SCC_CAPS // SC_B)
+    val_blocks = -(-SCC_IMAGES * SCC_CAPS // SC_B)
+    sw_steps = SCC_EPOCHS * (SCC_SENTI // SC_B)
+    widths = ["--emb_size", SC_E, "--hidden_size", SC_H, "--visual_size",
+              SC_VIS, "--batch_size", SC_B, "--max_len", SC_MAXLEN]
+    with tempfile.TemporaryDirectory() as root:
+        files = senticap_cli_files(root)
+        logs = os.path.join(root, "logs")
+        os.makedirs(logs)
+        data = ["--features", files["features"]]
+
+        def stage(name, args, want):
+            st, counts, out = cli_stage(name, m, args, logs, want, phase=21)
+            stats[name] = st
+            for k, n in counts.items():
+                launches.setdefault(name, {})[k] = n
+            return out
+
+        base_want = {"fused_senticap_scan_fwd": steps + val_blocks,
+                     "fused_senticap_scan_bwd": steps,
+                     "ce_rows": (steps + val_blocks) * chunks,
+                     "ce_grad_rows": steps * chunks}
+        paths = {k: os.path.join(root, f"{k}.pik")
+                 for k in ("base", "base_resident", "switched")}
+        outs = {}
+        for name, extra in (("base", []),
+                            ("base_resident", ["--device_resident"])):
+            outs[name] = stage(name, [
+                "base", "--captions", files["captions"], *data, *widths,
+                "--num_epochs", SCC_EPOCHS, "--model_out", paths[name],
+                *extra], base_want)
+        vocab_line = [ln for ln in outs["base"].splitlines()
+                      if ln.startswith("vocab ")]
+        if vocab_line != [f"vocab {SC_V}, split "
+                          f"({SCC_IMAGES * SCC_CAPS}, {t_cap})"]:
+            fail(f"phase 21 base: {vocab_line}")
+        ppl = [float(ln.split()[-1]) for ln in outs["base"].splitlines()
+               if ln.startswith("val perplexity:")]
+        losses = [float(ln.split()[5]) for ln in outs["base"].splitlines()
+                  if ln.startswith("[senticap base] epoch")]
+        if len(losses) != SCC_EPOCHS or not losses[-1] < losses[0] or \
+                len(ppl) != 1 or not ppl[0] < SC_V:
+            fail(f"phase 21 base: losses {losses}, perplexity {ppl}")
+        def kept(text):     # the stage's lines but its clocks and paths
+            return [ln for ln in text.splitlines() if not ln.startswith((
+                "[senticap base] epoch", "saved", '{"cli_stage"'))]
+
+        if not pickle_equal(paths["base"], paths["base_resident"]) or \
+                kept(outs["base"]) != kept(outs["base_resident"]):
+            fail("phase 21 base_resident: the pickle or the perplexity "
+                 "differs from base's")
+        stats["base"].update(steps=steps, losses=losses, perplexity=ppl[0],
+                             captions_per_s=SCC_EPOCHS * SCC_IMAGES
+                             * SCC_CAPS / stats["base"]["wall_s"])
+        stats["base_resident"].update(equal_to_base=True)
+        out = stage("train", [
+            "train", "--captions", files["senti"], *data, "-s", "pos",
+            "--base_model", paths["base"], "--batch_size", SC_B,
+            "--num_epochs", SCC_EPOCHS, "--lr", SC_SWITCH_LR,
+            "--model_out", paths["switched"]],
+            {"fused_senticap_scan_fwd": 2 * sw_steps,
+             "fused_senticap_scan_bwd": sw_steps,
+             "mixture_ce_rows": sw_steps * chunks,
+             "ce_grad_rows": sw_steps * chunks})
+        added = [ln.split()[0] for ln in out.splitlines()
+                 if ln.startswith("  ")]
+        sw_losses = [float(ln.split()[5]) for ln in out.splitlines()
+                     if ln.startswith("[senticap switch] epoch")]
+        if sorted(added) != sorted(f"s{i}" for i in range(SC_SENTI_WORDS)) \
+                or f"vocab surgery: +{SC_SENTI_WORDS} sentiment words" \
+                not in out or len(sw_losses) != SCC_EPOCHS or not all(
+                    math.isfinite(x) for x in sw_losses):
+            fail(f"phase 21 train: added {added}, losses {sw_losses}")
+        stats["train"].update(steps=sw_steps, added_words=len(added),
+                               losses=sw_losses)
+        for name, model, extra, want in (
+                ("test", paths["switched"],
+                 ["--out_dir", os.path.join(root, "eval")],
+                 {"mega_senticap_switched_decode": 1,
+                  "mega_senticap_beam_decode": 1}),
+                ("test_base_only", paths["base"], ["--base_only"],
+                 {"mega_senticap_beam_decode": 1})):
+            out = stage(name, ["test", "--captions", files["test"], *data,
+                               "--model_in", model, "--print_n",
+                               SCC_TEST_IMAGES, *extra], want)
+            if name == "test" and not all(os.path.exists(os.path.join(
+                    root, "eval", f)) for f in (
+                    "output_pos", "output_des", "reference0", "reference4",
+                    "highlight.html")):
+                fail("phase 21 test: the eval files are missing")
+            n, flips = check_test_stage(name, out, model, files,
+                                        name == "test_base_only", device)
+            stats[name].update(captions=n, near_tie_flips=flips,
+                               captions_per_s=n / stats[name]["wall_s"])
+            if name == "test":
+                stats[name]["metrics"] = metrics_line(out)
+    stats["config"] = {"E": SC_E, "H": SC_H, "visual": SC_VIS, "V": SC_V,
+                       "batch": SC_B, "max_len": SC_MAXLEN, "beam": SC_BEAM,
+                       "captions": SCC_IMAGES * SCC_CAPS,
+                       "styled_records": SCC_SENTI, "epochs": SCC_EPOCHS,
+                       "test_images": SCC_TEST_IMAGES,
+                       "switch_lr": SC_SWITCH_LR}
+    log("phase 21: SentiCap CLI ok; s a stage (import torch; run) "
+        + ", ".join(f"{k} {v['wall_s']:.1f} ({v['import_s']:.1f}; "
+                    f"{v['run_s']:.1f})"
+                    for k, v in stats.items() if "wall_s" in v)
+        + f"; decoded captions/s with the start: test "
+        f"{stats['test']['captions_per_s']:.1f}, base_only "
+        f"{stats['test_base_only']['captions_per_s']:.1f}")
+    return launches, stats
+
+
+# --- phase 22: seq2seq style transfer on the card (slices 6, 9) --------------
+
+# Seq2SeqConfig's defaults (E 300, H 512, 1 layer, dropout 0.22, 40 steps of
+# greedy_sample, feature 2048) at V = 8192 over phase 18's corpus (B = 64)
+# with S2S_EMO lines a style at B = 96, at the reference's ratio 0.8, plus
+# S2S_TF_STEPS steps at 1.0; the CLI over phase 19's feature cache
+S2S_EPOCHS, S2S_EMO, S2S_TF_STEPS, S2S_TIMED = 2, 960, 3, 12
+S2S_CLI_EPOCHS = 1
+
+
+def seq2seq_phase(device, cli_files: str):
+    """Phase 22: (a) ``Seq2SeqTrainer.train`` from the host loader and from
+    pinned splits, equal at atol 0, the CE row passes counted, then
+    ``greedy_sample`` for every mode and S2S_TF_STEPS teacher-forced
+    steps; (b) ``cli.train --trainer seq2seq`` as two processes over
+    phase 19's cache, host loader and ``--device_resident``, the same log;
+    (c) an adversarial and an encoder-decoder SentiCap loss with their
+    gradients on the card against the CPU, and ``grad_reverse`` on the
+    card; (d) ``utils.profiling.trace`` around one step and ``StepTimer``
+    over S2S_TIMED."""
+    import torch
+
+    from icee_tpu_torch.core.config import (EncoderConfig, Seq2SeqConfig,
+                                            TrainConfig)
+    from icee_tpu_torch.data import device as ddev
+    from icee_tpu_torch.data.pipeline import caption_dataset_loader
+    from icee_tpu_torch.models import encoder
+    from icee_tpu_torch.models import seq2seq as s2s
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.train import optim
+    from icee_tpu_torch.train.loops import Seq2SeqTrainer
+    from icee_tpu_torch.train.steps import make_seq2seq_steps
+    from icee_tpu_torch.utils import profiling
+
+    stats, launches = {}, {}
+    vocab = trainer_vocab()
+    train = trainer_corpus(TR_IMAGES, TR_CAPS, 180, "t")
+    val = trainer_corpus(TR_VAL // TR_CAPS, TR_CAPS, 181, "v")
+    emo = {e: trainer_corpus(S2S_EMO // TR_CAPS, TR_CAPS, 220 + i, e[0])
+           for i, e in enumerate(("happy", "sad", "angry"))}
+    emo_val = {e: trainer_corpus(TR_EMO_VAL // TR_CAPS + 1, TR_CAPS,
+                                 230 + i, e[0] + "v")[:TR_EMO_VAL]
+               for i, e in enumerate(emo)}
+    names = {x.image for ds in (train, val, *emo.values(),
+                                *emo_val.values()) for x in ds}
+    pooled = trainer_features(sorted(names), 184, (2048,))
+    scfg = Seq2SeqConfig(vocab_size=V)
+    tcfg = TrainConfig(teacher_forcing_ratio=0.8, max_caption_len=T_STEPS,
+                       caption_batch_size=B_IMAGES,
+                       language_batch_size=B_EMOTION)
+    params0 = s2s.init_params(torch.Generator().manual_seed(220), scfg,
+                              device=device)
+    head0 = encoder.init_head_params(torch.Generator().manual_seed(221),
+                                     EncoderConfig(embed_size=scfg.embed_size),
+                                     device=device)
+
+    def chunks(b, t):
+        return -(-t // cl.auto_t_chunk(b, t))
+
+    n_fac = -(-len(train) // B_IMAGES)
+    n_emo = sum(-(-len(d) // B_EMOTION) for d in emo.values())
+    ce_epoch = (n_fac * chunks(B_IMAGES, T_STEPS)
+                + n_emo * chunks(B_EMOTION, T_STEPS - 1))
+    counters = {"ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows}
+
+    def split(ds, b, shuffle, pinned):
+        if pinned:
+            return ddev.from_examples(ds, b, T_STEPS, pooled.__getitem__,
+                                      shuffle=shuffle, seed=0, device=device)
+        return caption_dataset_loader(ds, b, T_STEPS, pooled.__getitem__,
+                                      shuffle=shuffle, seed=0)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as root, plain_counters() as plain:
+        # (a) two epochs, host loader then pinned
+        for tier in ("host", "pinned"):
+            pinned = tier == "pinned"
+            log_path = os.path.join(root, f"{tier}.log")
+            tr = Seq2SeqTrainer(scfg, tcfg, vocab, params0, head0,
+                                log_path=log_path, device=device)
+            loaders = (split(train, B_IMAGES, True, pinned),
+                       {e: split(d, B_EMOTION, True, pinned)
+                        for e, d in emo.items()},
+                       split(val, B_IMAGES, False, pinned),
+                       {e: split(d, B_EMOTION, False, pinned)
+                        for e, d in emo_val.items()})
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(loaders[0], loaders[1], S2S_EPOCHS, loaders[2],
+                     loaders[3])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in counters.items()}
+            launches[f"train_{tier}"] = counts
+            if counts != {"ce_rows": S2S_EPOCHS * ce_epoch,
+                          "ce_grad_rows": S2S_EPOCHS * ce_epoch}:
+                fail(f"phase 22 (a) {tier}: CE launches {counts}, expected "
+                     f"{S2S_EPOCHS * ce_epoch} each")
+            with open(log_path) as f:
+                text = f.read()
+            fac = [float(ln.split()[-1]) for ln in text.splitlines()
+                   if "[FAC], Loss" in ln]
+            runs[tier] = (tr, text)
+            captions = S2S_EPOCHS * (len(train) + sum(map(len, emo.values())))
+            stats[tier] = {"wall_s": wall, "epoch_s": wall / S2S_EPOCHS,
+                           "factual_loss": fac, "captions_per_s":
+                           captions / wall}
+        (host, host_log), (pin, pin_log) = runs["host"], runs["pinned"]
+        same = (host_log == pin_log
+                and trees_equal((host.params, host.head),
+                                (pin.params, pin.head))
+                and all(x.count == y.count and trees_equal((x.mu, x.nu),
+                                                           (y.mu, y.nu))
+                        for x, y in ((host.opt_state, pin.opt_state),
+                                     (host.emotion_opt_state,
+                                      pin.emotion_opt_state)))
+                and torch.equal(host.generator.get_state(),
+                                pin.generator.get_state()))
+        if not same:
+            fail("phase 22 (a): the pinned epochs are not the host loader's "
+                 f"at atol 0 (params, both Adam states, the log; the logs "
+                 f"equal: {host_log == pin_log})")
+        fac = stats["host"]["factual_loss"]
+        if len(fac) != S2S_EPOCHS or not fac[-1] < fac[0]:
+            fail(f"phase 22 (a): factual losses {fac} did not fall")
+        # greedy_sample in every mode from the trained weights
+        feats = encoder.encode_global_from_pooled(pin.head, torch.stack([
+            torch.from_numpy(pooled[x.image]) for x in val[:8]]).to(device))
+        samples = {}
+        for mode, emotion in (("factual", None), ("happy", 0), ("sad", 1),
+                              ("angry", 2)):
+            ids = s2s.greedy_sample(pin.params, scfg, feats, vocab.start,
+                                    emotion)
+            if ids.shape != (8, scfg.max_seq_length) or not (
+                    (ids >= 0) & (ids < V)).all():
+                fail(f"phase 22 (a): greedy_sample({mode}) {ids.shape}")
+            samples[mode] = vocab.decode(ids[0].tolist())[:12]
+        # S2S_TF_STEPS teacher-forced steps (ratio 1.0), and the timed
+        # steps at 0.8 with the trace around one
+        batch = next(iter(caption_dataset_loader(
+            train, B_IMAGES, T_STEPS, pooled.__getitem__, seed=0,
+            prefetch=0)))
+        pooled_b, caps, lens, smask = (
+            torch.from_numpy(batch.images).float().to(device),
+            torch.from_numpy(batch.captions).long().to(device),
+            torch.from_numpy(batch.lengths).long().to(device),
+            torch.from_numpy(batch.sample_mask).to(device))
+        tf_losses, timer = [], profiling.StepTimer(warmup=2)
+        for fn in counters.values():
+            fn.launches = 0
+        for ratio, n in ((1.0, S2S_TF_STEPS), (0.8, S2S_TIMED)):
+            tc = TrainConfig(teacher_forcing_ratio=ratio,
+                             max_caption_len=T_STEPS)
+            adam = optim.make_adam(tc.lr_caption, tc)
+            fac_step = make_seq2seq_steps(scfg, tc, adam, adam,
+                                          device).factual_train_step
+            p = {k: clone_tree(v) if k == "encoder" else v
+                 for k, v in pin.params.items()}
+            h = {k: clone_tree(v) for k, v in pin.head.items()}
+            st = adam.init((p["encoder"], h))
+            gen = torch.Generator(device=device).manual_seed(222)
+            for _ in range(n):
+                with timer if ratio < 1.0 else contextlib.nullcontext():
+                    p, h, st, loss = fac_step(p, h, st, pooled_b, caps,
+                                              lens, smask, gen)
+                if ratio == 1.0:
+                    tf_losses.append(float(loss))
+            if ratio < 1.0:
+                trace_dir = os.path.join(root, "trace")
+                with profiling.trace(trace_dir):
+                    fac_step(p, h, st, pooled_b, caps, lens, smask, gen)
+                    torch.cuda.synchronize()
+                with open(os.path.join(trace_dir, "trace.json")) as f:
+                    trace_text = f.read()
+                if "ce_rows_kernel" not in trace_text:
+                    fail("phase 22 (d): the trace names no ce_rows_kernel")
+        counts = {k: fn.launches for k, fn in counters.items()}
+        launches["steps"] = counts
+        per = chunks(B_IMAGES, T_STEPS)
+        if counts != {"ce_rows": (S2S_TF_STEPS + S2S_TIMED + 1) * per,
+                      "ce_grad_rows": (S2S_TF_STEPS + S2S_TIMED + 1) * per}:
+            fail(f"phase 22 (a), (d): CE launches {counts}")
+        if not all(math.isfinite(x) for x in tf_losses):
+            fail(f"phase 22 (a): ratio 1.0 losses {tf_losses}")
+        summary = timer.summary()
+        stats["steps"] = {"ratio_1_losses": tf_losses, "timer": summary,
+                          "captions_per_s": B_IMAGES
+                          / (summary["p50_ms"] / 1e3),
+                          "trace_bytes": len(trace_text)}
+        stats["samples"] = samples
+        if any(plain.values()):
+            fail(f"phase 22: a plain version ran on the card: {plain}")
+    log(f"phase 22 (a): seq2seq pinned = host at atol 0; epoch s host "
+        f"{stats['host']['epoch_s']:.2f}, pinned "
+        f"{stats['pinned']['epoch_s']:.2f}; training captions/s host "
+        f"{stats['host']['captions_per_s']:.0f}, pinned "
+        f"{stats['pinned']['captions_per_s']:.0f}; factual losses "
+        f"{[round(x, 3) for x in fac]}; samples {samples}")
+    log(f"phase 22 (d): factual step at 0.8 p50 "
+        f"{summary['p50_ms']:.2f} ms ({stats['steps']['captions_per_s']:.0f}"
+        f" captions/s), the trace names ce_rows_kernel")
+    stats["cli"] = seq2seq_cli_stages(cli_files, launches)
+    stats["variants"] = senticap_variants(device)
+    stats["config"] = {"V": V, "E": scfg.embed_size, "H": scfg.hidden_size,
+                       "layers": scfg.num_layers, "dropout": scfg.dropout,
+                       "max_seq_length": scfg.max_seq_length,
+                       "T": T_STEPS, "batch": B_IMAGES,
+                       "emotion_batch": B_EMOTION, "emotion_lines": S2S_EMO,
+                       "epochs": S2S_EPOCHS, "ratio": 0.8}
+    return launches, stats
+
+
+def seq2seq_cli_stages(files: str, launches: dict) -> dict:
+    """Phase 22 (b): ``cli.train --trainer seq2seq`` on phase 19's files
+    (``files``: the vocabulary, cache and caption files it kept), with and
+    without ``--device_resident``: the same log, the CE row passes once a
+    step and chunk."""
+    from icee_tpu_torch.data.captions import load_caption_dataset
+    from icee_tpu_torch.data.vocab import load_vocab
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    def at(name):
+        return os.path.join(files, name)
+
+    vocab = load_vocab(at("vocab.pkl"))
+    t_cap = 40 + 2
+    n_fac = -(-len(load_caption_dataset(at("train.txt"), vocab)) // B_IMAGES)
+    n_emo = -(-len(load_caption_dataset(at("happy.txt"), vocab))
+              // B_EMOTION)
+    per = (n_fac * -(-t_cap // cl.auto_t_chunk(B_IMAGES, t_cap))
+           + 3 * n_emo * -(-(t_cap - 1) // cl.auto_t_chunk(B_EMOTION,
+                                                           t_cap - 1)))
+    want = {"ce_rows": S2S_CLI_EPOCHS * per,
+            "ce_grad_rows": S2S_CLI_EPOCHS * per}
+    stats, logs, emo = {}, {}, []
+    stage_logs = at("stage_logs")
+    os.makedirs(stage_logs, exist_ok=True)
+    for key in ("happy", "sad", "angry"):
+        emo += [f"--{key}_path", at("happy.txt"), f"--val_{key}_path",
+                at("val_happy.txt")]
+    for name, extra in (("seq2seq", []),
+                        ("seq2seq_resident", ["--device_resident"])):
+        logs[name] = at(f"{name}.log")
+        st, counts, _ = cli_stage(name, "icee_tpu_torch.cli.train", [
+            "--trainer", "seq2seq", "--vocab_path", at("vocab.pkl"),
+            "--caption_path", at("train.txt"), "--val_caption_path",
+            at("val.txt"), *emo, "--feature_cache", at("features.npz"),
+            "--num_epochs", S2S_CLI_EPOCHS, "--caption_batch_size",
+            B_IMAGES, "--language_batch_size", B_EMOTION, "--dropout",
+            0.22, "--log_path", logs[name], "--model_path",
+            at(f"models_{name}"), *extra], stage_logs, want, phase=22)
+        launches[name] = counts
+        stats[name] = st
+    with open(logs["seq2seq"]) as f:
+        host = f.read()
+    with open(logs["seq2seq_resident"]) as f:
+        resident = f.read()
+    if host != resident or host.count("Epoch [") != 4 * S2S_CLI_EPOCHS:
+        fail("phase 22 (b): the --device_resident run's log differs from "
+             "the host loader's")
+    stats["log"] = host.splitlines()
+    log("phase 22 (b): cli.train --trainer seq2seq, s (import torch; run) "
+        + ", ".join(f"{k} {stats[k]['wall_s']:.1f} "
+                    f"({stats[k]['import_s']:.1f}; {stats[k]['run_s']:.1f})"
+                    for k in ("seq2seq", "seq2seq_resident"))
+        + "; the two logs equal")
+    return stats
+
+
+def senticap_variants(device) -> dict:
+    """Phase 22 (c): ``adversarial.total_loss`` (MSQ_LOSS, the style
+    regressor behind ``grad_reverse``) and ``encode_decode.loss`` at the
+    COCO widths (E = H = 512, visual 4096, V = 8800, B = 128, T = 22), loss
+    and every gradient on the card against the same on the CPU: the loss
+    (a masked SUM) rtol 1e-5, each gradient within 1e-3 x its largest
+    magnitude (phase 13's rule); ``grad_reverse`` negates on the card."""
+    import numpy as np
+    import torch
+
+    from icee_tpu_torch.senticap import adversarial as adv
+    from icee_tpu_torch.senticap import encode_decode as ed
+
+    x = torch.randn(64, 32, device=device, requires_grad=True)
+    g = torch.randn(64, 32, device=device)
+    (got,) = torch.autograd.grad(adv.grad_reverse(x), x, g)
+    if not torch.equal(got, -g):
+        fail("phase 22 (c): grad_reverse does not negate on the card")
+    ds = senticap_split(SC_B, 240)
+    enc_words = senticap_split(SC_B, 241).X
+    kw = dict(emb_size=SC_E, lstm_hidden_size=SC_H, visual_size=SC_VIS)
+    out = {}
+    for name, conf, init, loss in (
+            ("adversarial", adv.adv_conf(**kw), adv.init_params,
+             lambda p, c, t: adv.total_loss(p, c, t["X"], t["Y"], t["Xlen"],
+                                            t["V"], t["style"])),
+            ("encode_decode", ed.encdec_conf(**kw), ed.init_params,
+             lambda p, c, t: ed.loss(p, c, t["X"], t["Y"], t["Xlen"],
+                                     t["enc"], t["V"]))):
+        params = init(torch.Generator().manual_seed(242), SC_V, conf)
+        host = {"X": ds.X, "Y": ds.Y, "Xlen": ds.Xlen, "V": ds.V,
+                "enc": enc_words, "style": np.arange(SC_B) % 2}
+        res = []
+        for dev in (torch.device("cpu"), device):
+            leaves = []
+
+            def put(tree):
+                if isinstance(tree, dict):
+                    return {k: put(v) for k, v in tree.items()}
+                t = tree.detach().to(dev).requires_grad_(True)
+                leaves.append(t)
+                return t
+
+            p = put(params)
+            t = {k: torch.as_tensor(np.asarray(v)).to(dev)
+                 for k, v in host.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = loss(p, conf, t)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res.append((value.item(), [
+                (torch.zeros_like(l_) if gr is None else gr).detach().cpu()
+                for l_, gr in zip(leaves, grads)],
+                time.perf_counter() - t0))
+        (lc, gc, sc), (lg, gg, sg) = res
+        worst = max(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(gg, gc))
+        if not abs(lg - lc) <= 1e-5 * abs(lc) or not worst <= 1e-3:
+            fail(f"phase 22 (c) {name}: loss {lg} vs CPU {lc}, worst grad "
+                 f"error {worst} of its largest magnitude")
+        out[name] = {"loss": lg, "cpu_loss": lc, "worst_grad_rel": worst,
+                     "card_s": sg, "cpu_s": sc}
+    log("phase 22 (c): " + "; ".join(
+        f"{k} loss {v['loss']:.4f} (CPU {v['cpu_loss']:.4f}), worst grad "
+        f"{v['worst_grad_rel']:.2e} of its largest" for k, v in out.items())
+        + "; grad_reverse negates on the card")
+    return out
+
+
+def main() -> int:
+    import shutil
+
+    import torch
+
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6726,7 +7416,8 @@ def main() -> int:
         entry["launches"] += tr_launches.get(entry["name"], 0)
     k2["launches"] += tr_launches["mega_beam_decode"]
     k2_lstm["launches"] += tr_launches["mega_beam_decode_lstm"]
-    cli_launches, cli = cli_phase(device)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cli_launches, cli = cli_phase(device, keep)
     log("phase 19: CLIs ok; s a stage (CUDA start-up) " + ", ".join(
         f"{name} {st['wall_s']:.1f} ({st.get('cuda_init_s', 0.0):.1f})"
         for name, st in cli.items() if isinstance(st, dict)
@@ -6760,6 +7451,27 @@ def main() -> int:
     k2["launches"] += res_launches["mega_beam_decode"]
     mxf["launches"] += res_launches["mixture_ce_rows"]
     mxb["launches"] += res_launches["ce_grad_rows_mixture"]
+    sc_launches, cli["senticap_cli"] = senticap_cli_phase(device)
+    # base and base_resident run K8 and the CE, train K8 and the mixture
+    # CE (its backward the CE's backward row pass), test K10 and K9
+    for stage, counts in sc_launches.items():
+        for entry in (k8f, k8b, k9, k10):
+            entry["launches"] += counts.get(entry["name"], 0)
+        if stage == "train":
+            mxf["launches"] += counts["mixture_ce_rows"]
+            mxb["launches"] += counts["ce_grad_rows"]
+        else:
+            for entry in (cef, ceb):
+                entry["launches"] += counts.get(entry["name"], 0)
+    try:
+        s2s_launches, train["seq2seq"] = seq2seq_phase(device, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    for counts in s2s_launches.values():   # the CE row passes only
+        for entry in (cef, ceb):
+            entry["launches"] += counts.get(entry["name"], 0)
+    log(f"phases 21-22 done; the whole run {time.perf_counter() - t_run:.1f}"
+        " s (the kernels' build included)")
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))

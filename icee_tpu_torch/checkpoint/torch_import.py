@@ -1,6 +1,7 @@
 """Import shims: reference torch ``state_dict`` checkpoints -> the port's
-parameter trees (port of ``icee_tpu/checkpoint/torch_import.py``'s
-StyleNet, NIC, their attention variants' and the encoder-head importers).
+parameter trees (port of ``icee_tpu/checkpoint/torch_import.py``: the
+StyleNet, NIC, their attention variants', the seq2seq and the encoder-head
+importers).
 
 The reference saves raw ``state_dict`` files (``train.py:214-220``, loaded
 by ``sample.py:46-47``) or whole-module pickles (``utils.py:63-90``, whose
@@ -15,7 +16,7 @@ order are the LSTM cell's layout transposed.
 
 Tensors may be torch tensors or numpy arrays; the trees hold contiguous
 float32 CPU tensors (``dtype`` otherwise), to be moved to the device by the
-caller.  The seq2seq importer comes with its slice.
+caller.
 """
 
 from __future__ import annotations
@@ -142,6 +143,45 @@ def import_nic_decoder_state_dict(sd: Mapping, dtype=torch.float32) -> dict:
         "linear_w": _tensor(_linear_w(sd, "linear"), dtype),
         "linear_b": _tensor(_linear_b(sd, "linear"), dtype),
     }
+
+
+def _seq2seq_half(sd: Mapping, prefix: str, dtype) -> dict:
+    """One ``EncoderRNN``/``DecoderRNN`` half (``seq2seq/model.py:30-64,
+    125-144``): embedding + ``nn.LSTM`` layer stack + output linear.
+    ``nn.LSTM`` stores per-layer ``weight_ih_l{n}`` (4H, in) in torch's
+    [i, f, g, o] gate order — the cell layout transposed."""
+    layers = []
+    n = 0
+    while f"{prefix}.lstm.weight_ih_l{n}" in sd:
+        layers.append({
+            "W_ih": _tensor(_np(sd[f"{prefix}.lstm.weight_ih_l{n}"]).T,
+                            dtype),
+            "W_hh": _tensor(_np(sd[f"{prefix}.lstm.weight_hh_l{n}"]).T,
+                            dtype),
+            "b_ih": _tensor(_np(sd[f"{prefix}.lstm.bias_ih_l{n}"]), dtype),
+            "b_hh": _tensor(_np(sd[f"{prefix}.lstm.bias_hh_l{n}"]), dtype),
+        })
+        n += 1
+    if not layers:
+        raise KeyError(f"no {prefix}.lstm.weight_ih_l0 in state_dict")
+    return {
+        "embed": _tensor(_np(sd[f"{prefix}.embed.weight"]), dtype),
+        "lstm": layers,
+        "linear_w": _tensor(_linear_w(sd, f"{prefix}.linear"), dtype),
+        "linear_b": _tensor(_linear_b(sd, f"{prefix}.linear"), dtype),
+    }
+
+
+def import_seq2seq_state_dict(sd: Mapping, dtype=torch.float32) -> dict:
+    """``Seq2Seq`` state_dict (``seq2seq/model.py:220-254``) -> the port's
+    tree: the encoder half + the three per-emotion decoders stacked on axis
+    0 in (happy, sad, angry) order (``models/seq2seq.py`` emotion ids)."""
+    from icee_tpu_torch.models.seq2seq import stack_trees
+
+    decoders = [_seq2seq_half(sd, f"decoder_{m}", dtype)
+                for m in ("happy", "sad", "angry")]
+    return {"encoder": _seq2seq_half(sd, "encoder", dtype),
+            "decoders": stack_trees(decoders)}
 
 
 def import_encoder_head_state_dict(sd: Mapping, dtype=torch.float32) -> dict:

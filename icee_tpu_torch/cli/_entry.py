@@ -4,8 +4,7 @@
 Each CLI module keeps its argparse setup under ``if __name__ ==
 "__main__"``; these shims re-run the module as a main program, so that
 ``icee-torch-train ...`` behaves exactly like ``python -m
-icee_tpu_torch.cli.train ...``.  The SentiCap trainer's CLI comes with its
-slice (7d).
+icee_tpu_torch.cli.train ...``.
 """
 
 import runpy
@@ -45,6 +44,10 @@ def inspect_ckpt() -> None:
 
 def precompute_features() -> None:
     _run("icee_tpu_torch.cli.precompute_features")
+
+
+def senticap_train() -> None:
+    _run("icee_tpu_torch.cli.senticap_train")
 
 
 def caption_batch() -> None:

@@ -7,6 +7,7 @@ mirror ``train_multitask.py:560-634``):
 - ``transfer_fac``   -> T4 stage-1 factual pretraining
 - ``transfer``       -> T5 stage-2 style fine-tune (masked optimizer)
 - ``paper``          -> T1 StyleNet-paper regime (text-only style corpora)
+- ``seq2seq``        -> T6 seq2seq style transfer (``seq2seq/train.py``)
 
 ``--family {stylenet,nic}`` picks the factored vs plain decoder.  On a CUDA
 device every training step launches the kernels (K3 or K4, K5 for the
@@ -23,11 +24,15 @@ constant features (``--no_augment`` or ``--feature_cache``).
 device epoch, and a run started again in the same ``--model_path``
 resumes from it mid-epoch.
 
-Refused at start-up, each naming the slice of the port that brings it:
-``--trainer seq2seq`` (slice 6); ``--data_parallel``, ``--tensor_parallel``
-and the multi-host flags (slice 8).  A ``--hidden_size`` that the training
-scan's launch plan cannot take on this card is refused with the plan's own
-message before any data loads.
+``--trainer seq2seq`` trains on the host loader, or with
+``--device_resident`` on pinned splits; a split over the budget falls back
+to the host loader with a WARNING line, as in the JAX CLI (the seq2seq
+trainer has no streamed tier).
+
+Refused at start-up, naming slice 8 of the port, which brings them:
+``--data_parallel``, ``--tensor_parallel`` and the multi-host flags.  A
+``--hidden_size`` that the training scan's launch plan cannot take on this
+card is refused with the plan's own message before any data loads.
 """
 
 import argparse
@@ -38,9 +43,6 @@ DEVICE_BUDGET_GB = 4.0    # --device_budget_gb's default
 def refuse_unported(args) -> None:
     """Raise SystemExit, naming the slice, for what the port does not run
     yet; nothing is ignored in silence."""
-    if args.trainer == "seq2seq":
-        raise SystemExit("--trainer seq2seq: the seq2seq trainer comes with "
-                         "slice 6 of the port")
     parallel = [flag for flag, on in (
         ("--data_parallel", args.data_parallel),
         ("--tensor_parallel", args.tensor_parallel > 1),
@@ -57,7 +59,7 @@ def check_scan_plan(family: str, cfg, tcfg, device) -> None:
     NIC), its launch plan must take every batch size at this hidden size:
     otherwise raise the plan's own ValueError now, not at the first step."""
     if device.type != "cuda" or family.endswith("_att") or \
-            tcfg.fused_scan is False:
+            family == "seq2seq" or tcfg.fused_scan is False:
         return
     from icee_tpu_torch.ops import lstm_scan, nic_scan, scan_grid
 
@@ -70,7 +72,8 @@ def init_weights(family: str, cfg, ecfg, seed: int, device):
     """Fresh (decoder, head) from ``torch.Generator``s seeded ``seed`` and
     ``seed + 1`` (the JAX CLI uses ``jax.random.PRNGKey(seed)`` and
     ``(seed + 1)``, whose draws torch cannot reproduce); the attention
-    families have no head."""
+    families have no head.  For ``family="seq2seq"`` the first is the
+    seq2seq tree (``cfg`` a ``Seq2SeqConfig``)."""
     import torch
 
     from icee_tpu_torch.models import attention as att_mod
@@ -78,9 +81,12 @@ def init_weights(family: str, cfg, ecfg, seed: int, device):
     from icee_tpu_torch.models import factored_lstm as fl
     from icee_tpu_torch.models import lstm as nic_mod
 
+    from icee_tpu_torch.models import seq2seq as s2s
+
     init = {"factored": fl.init_params, "nic": nic_mod.init_params,
             "factored_att": att_mod.init_factored_att_params,
-            "nic_att": att_mod.init_rnn_att_params}[family]
+            "nic_att": att_mod.init_rnn_att_params,
+            "seq2seq": s2s.init_params}[family]
     dec = init(torch.Generator().manual_seed(seed), cfg, device=device)
     head = None if family.endswith("_att") else enc_mod.init_head_params(
         torch.Generator().manual_seed(seed + 1), ecfg, device=device)
@@ -91,7 +97,9 @@ def resident_split(ds, path: str, bs: int, train: bool, args, tcfg,
                    provider, feature_dtype, device):
     """A caption split held on ``device`` (``data/device.py``): pinned
     when its unique features fit ``--device_budget_gb`` in their storage
-    dtype (``pin_plan``), streamed otherwise (with a NOTE line)."""
+    dtype (``pin_plan``), streamed otherwise (with a NOTE line); for the
+    seq2seq trainer, which has no streamed tier, None (with a WARNING
+    line): the caller takes the host loader."""
     import numpy as np
 
     from icee_tpu_torch.data import device as device_data
@@ -109,6 +117,10 @@ def resident_split(ds, path: str, bs: int, train: bool, args, tcfg,
               feature_dtype=feature_dtype, device=device)
     if plan == "pin":
         return device_data.from_examples(ds, **kw)
+    if args.trainer == "seq2seq":
+        print(f"WARNING: {path} features exceed the device-resident "
+              "budget; falling back to the host loader")
+        return None
     print(f"NOTE: {path} features exceed the device-resident budget; "
           "streaming per-chunk feature buffers "
           f"({args.device_budget_gb:g} GiB, double-buffered)")
@@ -119,7 +131,7 @@ def main(args) -> None:
     import torch
 
     from icee_tpu_torch.cli import common
-    from icee_tpu_torch.core.config import EncoderConfig
+    from icee_tpu_torch.core.config import EncoderConfig, Seq2SeqConfig
     from icee_tpu_torch.data.captions import (load_caption_dataset,
                                               load_styled_caption_dataset)
     from icee_tpu_torch.data.pipeline import (caption_dataset_loader,
@@ -128,7 +140,7 @@ def main(args) -> None:
     from icee_tpu_torch.data.vocab import load_vocab
     from icee_tpu_torch.train.loops import (MultitaskTrainer,
                                             PaperRegimeTrainer,
-                                            TransferTrainer)
+                                            Seq2SeqTrainer, TransferTrainer)
 
     refuse_unported(args)
     device = common.device_of(args)
@@ -140,6 +152,8 @@ def main(args) -> None:
     family = "factored" if args.family == "stylenet" else "nic"
     if attention:
         family += "_att"
+    if args.trainer == "seq2seq":
+        family = "seq2seq"
     check_scan_plan(family, cfg, tcfg, device)
 
     # training uses the reference augmentation regime (random crop/flip per
@@ -169,13 +183,35 @@ def main(args) -> None:
     def loader(path, bs, train=True):
         ds = load_caption_dataset(path, vocab)
         if args.device_resident:
-            return resident_split(ds, path, bs, train, args, tcfg,
-                                  provider_eval, feature_dtype, device)
+            split = resident_split(ds, path, bs, train, args, tcfg,
+                                   provider_eval, feature_dtype, device)
+            if split is not None:
+                return split
         return caption_dataset_loader(
             ds, batch_size=bs, max_len=tcfg.max_caption_len,
             image_provider=provider_train if train else provider_eval,
             shuffle=train, seed=args.seed)
 
+    if args.trainer == "seq2seq":
+        scfg = Seq2SeqConfig(vocab_size=len(vocab),
+                             embed_size=args.embed_size,
+                             hidden_size=args.hidden_size,
+                             num_layers=args.num_layers,
+                             dropout=args.dropout,
+                             max_seq_length=args.max_seq_length)
+        params, head = init_weights(family, scfg, ecfg, args.seed, device)
+        trainer = Seq2SeqTrainer(scfg, tcfg, vocab, params, head,
+                                 log_path=args.log_path, device=device)
+        trainer.train(
+            loader(args.caption_path, tcfg.caption_batch_size),
+            {emo: loader(p[0], tcfg.language_batch_size)
+             for emo, p in emo_paths.items()},
+            val_loader=loader(args.val_caption_path,
+                              tcfg.caption_batch_size, train=False),
+            val_emotion_loaders={
+                emo: loader(p[1], tcfg.language_batch_size, train=False)
+                for emo, p in emo_paths.items()})
+        return
     dec, head = init_weights(family, cfg, ecfg, args.seed, device)
     common_kw = dict(
         cfg=cfg, tcfg=tcfg, vocab=vocab, dec_params=dec, head_params=head,

@@ -1,6 +1,6 @@
 """Typed configuration objects (copy of ``icee_tpu/core/config.py``'s
 ``MODES``, ``EMOTIONS``, ``mode_id``, ``EncoderConfig``, ``DecoderConfig``,
-``AttentionDecoderConfig`` and ``TrainConfig``).
+``AttentionDecoderConfig``, ``Seq2SeqConfig`` and ``TrainConfig``).
 
 Default values mirror the reference defaults: ``embed 300 / hidden 512 /
 factored 512 / dropout 0.5`` (``stylenet/train_multitask.py:621-625``) and
@@ -73,6 +73,19 @@ class AttentionDecoderConfig(DecoderConfig):
     def input_size(self) -> int:
         # [word_emb ; gated 2048-dim context] per step
         return self.embed_size + self.feature_size
+
+
+@dataclasses.dataclass(frozen=True)
+class Seq2SeqConfig:
+    """Seq2seq style transfer (``seq2seq/model.py:220-301``)."""
+
+    vocab_size: int = 0
+    embed_size: int = 300
+    hidden_size: int = 512
+    num_layers: int = 1
+    dropout: float = 0.22
+    max_seq_length: int = 40
+    feature_size: int = 2048
 
 
 @dataclasses.dataclass(frozen=True)

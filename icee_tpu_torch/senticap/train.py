@@ -279,18 +279,25 @@ def train_base(dataset: sio.SentiDataset, vocab_size: int,
                conf: Optional[dict] = None, num_epochs: int = 10,
                unigram: Optional[np.ndarray] = None,
                callbacks: Optional[list] = None, seed: int = 0, mesh=None,
-               device_epoch: bool = False, device="cuda"):
+               device_epoch: bool = False, device="cuda",
+               init_params_override: Optional[dict] = None):
     """Base-model training loop (``train_complete``, ``mrnn.py:727-770``).
     ``device_epoch`` runs the same steps and reads the losses back once per
-    epoch instead of once per step (the same parameters and losses)."""
+    epoch instead of once per step (the same parameters and losses).
+    ``init_params_override``: a pre-built parameter set, on ``device``,
+    trained in place instead of a fresh draw (the CLI's init seam)."""
     conf = conf or senticap_conf()
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel SentiCap training (mesh) comes with slice 8 of "
             "the port")
     dev = resolve_indexed_device(device)
-    params = base_model.init_params(torch.Generator().manual_seed(seed),
-                                    vocab_size, conf, unigram, device=dev)
+    if init_params_override is not None:
+        params = init_params_override
+    else:
+        params = base_model.init_params(torch.Generator().manual_seed(seed),
+                                        vocab_size, conf, unigram,
+                                        device=dev)
     solver = make_solver(conf)
     opt_state = solver.init(params)
     epoch_fn = make_base_epoch(conf, solver, device=dev)
@@ -368,44 +375,55 @@ def validation_perplexity(params, conf, dataset: sio.SentiDataset,
     """Masked corpus perplexity (``get_val_perplexity``; ``base_only``
     evaluates the background model inside a switched param set,
     ``mrnn_switched.py:1301``).  With ``conf["CHUNKED_CE"]`` (None = on for
-    CUDA) the (B, T, V) distributions never exist: the split evaluates in
-    one pass through the chunked neglog2 sums (the mixture's for the
-    switched model, at the batch sentiment ``senti[0]``)."""
+    CUDA) the (B, T, V) distributions never exist: each block goes through
+    the chunked neglog2 sums (the mixture's for the switched model, at the
+    split's sentiment ``senti[0]``).
+
+    The split is evaluated in blocks of ``conf["batch_size_val"]`` rows
+    (the training batch), their neglog2 sums added: the JAX package's one
+    pass over the whole split would hand K8 a batch of every row, which its
+    launch plan refuses from about 1,100 rows at H = 512 (and the
+    materialized path would hold (N, T, V) floats).  The sum's order is
+    the only difference."""
     dev = resolve_indexed_device(device)
     use_chunked = (base_model.chunked_ce_requested(conf, dev)
                    and conf.get("SOFTMAX_OUT", True))
     data = sio.device_dataset(dataset, dev)
-    y, mask = data["Y"], data["Xlen"]
-    if switched and not base_only:
-        _check_on(dev, **params)
-        senti0 = data["senti"][0]
-        if use_chunked:
-            from icee_tpu_torch.ops.chunked_loss import (
-                mixture_neglog2_sum_from_hiddens)
-
-            (hh_o, hh_n, att), _, _ = sw_model.forward(
-                params, conf, data["X"], data["V"], senti0,
-                return_hiddens=True)
-            co, cn = sw_model.mixture_coefficients(conf, att, senti0)
-            hsum = mixture_neglog2_sum_from_hiddens(
-                hh_o, hh_n, co, cn, params["w"], params["b"],
-                params["w_sw"], params["b_sw"], y, mask)
-            return float(2.0 ** (hsum / torch.sum(mask)))
-        s, _, _ = sw_model.forward(params, conf, data["X"], data["V"],
-                                   senti0)
-        return float(base_model.perplexity(s, y, mask))
-    p = {k: params[k] for k in BASE_KEYS}
+    mixture = switched and not base_only
+    p = params if mixture else {k: params[k] for k in BASE_KEYS}
     _check_on(dev, **p)
-    if use_chunked:
-        from icee_tpu_torch.ops.chunked_loss import (
-            masked_neglog2_sum_from_hiddens)
+    senti0 = data["senti"][0]
+    n = int(data["X"].shape[0])
+    block = max(1, int(conf["batch_size_val"]))
+    hsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for r0 in range(0, n, block):
+        x, y, mask, v = (data[k][r0:r0 + block]
+                         for k in ("X", "Y", "Xlen", "V"))
+        hsum = hsum + _neglog2_sum(p, conf, x, y, mask, v, senti0, mixture,
+                                   use_chunked)
+    return float(2.0 ** (hsum / torch.sum(data["Xlen"])))
 
-        hh = base_model.forward(p, conf, data["X"], data["V"],
-                                return_hiddens=True)
-        hsum = masked_neglog2_sum_from_hiddens(hh, p["w"], p["b"], y, mask)
-        return float(2.0 ** (hsum / torch.sum(mask)))
-    s = base_model.forward(p, conf, data["X"], data["V"])
-    return float(base_model.perplexity(s, y, mask))
+
+def _neglog2_sum(p, conf, x, y, mask, v, senti0, mixture: bool,
+                 use_chunked: bool) -> torch.Tensor:
+    """``sum(mask * -log2(p(y) + 1e-20))`` of one block of rows."""
+    from icee_tpu_torch.ops.chunked_loss import (
+        masked_neglog2_sum_from_hiddens, mixture_neglog2_sum_from_hiddens)
+
+    if mixture and use_chunked:
+        (hh_o, hh_n, att), _, _ = sw_model.forward(p, conf, x, v, senti0,
+                                                   return_hiddens=True)
+        co, cn = sw_model.mixture_coefficients(conf, att, senti0)
+        return mixture_neglog2_sum_from_hiddens(
+            hh_o, hh_n, co, cn, p["w"], p["b"], p["w_sw"], p["b_sw"], y,
+            mask)
+    if use_chunked:
+        hh = base_model.forward(p, conf, x, v, return_hiddens=True)
+        return masked_neglog2_sum_from_hiddens(hh, p["w"], p["b"], y, mask)
+    s = (sw_model.forward(p, conf, x, v, senti0)[0] if mixture
+         else base_model.forward(p, conf, x, v))
+    prob = torch.gather(s, -1, y.long()[..., None])[..., 0]
+    return torch.sum(-torch.log2(prob + 1e-20) * mask)
 
 
 def make_beam_step(params, conf, switched: bool = False):

@@ -1,13 +1,14 @@
 """Training regimes as host-side epoch drivers over the training steps (port
-of ``icee_tpu/train/loops.py``'s host loop: ``MultitaskTrainer``,
-``TransferTrainer`` and ``PaperRegimeTrainer`` on the host loader).
+of ``icee_tpu/train/loops.py``: ``MultitaskTrainer``, ``TransferTrainer``,
+``PaperRegimeTrainer`` and ``Seq2SeqTrainer``).
 
-All regimes share the reference's control policy (``train_multitask.py:
-180-269``): per-epoch factual track then the emotion track, teacher-forced
-training and free-running validation with loss / perplexity / top-5 /
-corpus BLEU-4, LR x0.8 after every 4 non-improving epochs of a track, early
-stop once both tracks reach 10, best-BLEU checkpointing, and a beam-decoded
-sample caption printed per validation.  The JSONL events (``epoch_factual``,
+The captioning regimes share the reference's control policy
+(``train_multitask.py:180-269``): per-epoch factual track then the
+emotion track, teacher-forced training and free-running validation with
+loss / perplexity / top-5 / corpus BLEU-4, LR x0.8 after every 4
+non-improving epochs of a track, early stop once both tracks reach 10,
+best-BLEU checkpointing, and a beam-decoded sample caption printed per
+validation.  The JSONL events (``epoch_factual``,
 ``epoch_emotion``, ``lr_decay``, ``early_stop``) are the JAX package's.
 
 Batches come from :mod:`icee_tpu_torch.data.pipeline` as NumPy; the
@@ -38,8 +39,9 @@ training step and never on validation), and its results are passed to the
 step as ``keep=`` / ``coins=``: this is how the tests hand the port the
 JAX package's draws, which torch cannot reproduce.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its slice:
-``mesh`` (slice 8) and ``Seq2SeqTrainer`` (slice 6).
+``Seq2SeqTrainer`` trains seq2seq style transfer on the host loader or
+pinned splits.  Not ported yet, and refused with ``NotImplementedError``
+naming its slice: ``mesh`` (slice 8).
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ from icee_tpu_torch.evaluation.bleu import corpus_bleu
 from icee_tpu_torch.evaluation.metrics import AverageMeter, perplexity
 from icee_tpu_torch.train import optim
 from icee_tpu_torch.train.steps import (TextStyleStep, make_attention_steps,
-                                        make_caption_steps)
+                                        make_caption_steps,
+                                        make_seq2seq_steps)
 from icee_tpu_torch.utils.logging import MetricsLogger
 
 FAMILIES = ("factored", "nic", "factored_att", "nic_att")
@@ -92,6 +95,21 @@ def _clone(tree, device):
     if tree is None:
         return None
     return torch.as_tensor(tree).to(device, copy=True)
+
+
+def _epoch_rows(ddata: DeviceCaptionData, idx, valid, device):
+    """An epoch's index rows on ``device``: (example rows, unique-image rows
+    or None, sample mask), copied once from page-locked memory."""
+    def put(a, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    rows = None
+    if ddata.images is not None or isinstance(ddata, StreamedCaptionData):
+        rows = put(ddata.image_rows(idx), torch.int64)
+    return put(idx, torch.int64), rows, put(valid, torch.bool)
 
 
 @dataclasses.dataclass
@@ -268,20 +286,6 @@ class MultitaskTrainer:
             losses.update(loss, int(batch.lengths.sum()))
         return EpochStats(loss=losses.avg, batch_time=time.time() - t0)
 
-    def _epoch_rows(self, ddata: DeviceCaptionData, idx, valid):
-        """An epoch's index rows on the device: (example rows, unique-image
-        rows or None, sample mask), copied once from page-locked memory."""
-        def put(a, dtype):
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-
-        rows = None
-        if ddata.images is not None or isinstance(ddata, StreamedCaptionData):
-            rows = put(ddata.image_rows(idx), torch.int64)
-        return put(idx, torch.int64), rows, put(valid, torch.bool)
-
     @staticmethod
     def _segments(ddata, img_rows, start_row: int, nb: int):
         """(r0, r1, features, image rows) over the epoch's rows from
@@ -332,7 +336,7 @@ class MultitaskTrainer:
         t0 = time.time()
         idx, valid = ddata.epoch_indices()
         nb = idx.shape[0]
-        idx_d, rows_d, valid_d = self._epoch_rows(ddata, idx, valid)
+        idx_d, rows_d, valid_d = _epoch_rows(ddata, idx, valid, self.device)
         img_rows = ddata.image_rows(idx)
         trace = self._init_loss_trace(nb, start_row, loss_prefix)
         chunk = self.tcfg.progress_chunk if epoch is not None else 0
@@ -461,7 +465,7 @@ class MultitaskTrainer:
         t0 = time.time()
         idx, valid = ddata.epoch_indices()
         nb = idx.shape[0]
-        idx_d, rows_d, valid_d = self._epoch_rows(ddata, idx, valid)
+        idx_d, rows_d, valid_d = _epoch_rows(ddata, idx, valid, self.device)
         img_rows = ddata.image_rows(idx)
         outs, lens_all = [], []
         for r0, r1, images, remap in self._segments(ddata, img_rows, 0, nb):
@@ -755,7 +759,7 @@ class PaperRegimeTrainer(MultitaskTrainer):
         (``data/device.py::from_styled``): the host loop's steps in its
         order, each batch gathered on the device; no loss is read."""
         idx, valid = ddata.epoch_indices()
-        idx_d, _, valid_d = self._epoch_rows(ddata, idx, valid)
+        idx_d, _, valid_d = _epoch_rows(ddata, idx, valid, self.device)
         for r in range(idx.shape[0]):
             _, caps, lens = gather_batch(None, ddata.captions, ddata.lengths,
                                          idx_d[r], None, valid_d[r])
@@ -778,8 +782,176 @@ class PaperRegimeTrainer(MultitaskTrainer):
 
 
 class Seq2SeqTrainer:
-    """T6 (``seq2seq/train.py``): not ported yet."""
+    """T6 (``seq2seq/train.py``): factual autoencode pass + per-emotion
+    decoder passes (port of ``icee_tpu/train/loops.py::Seq2SeqTrainer``).
+    Reference quirk kept: the emotion pass feeds the *factual* caption as
+    both source and target (``seq2seq/train.py:316-317``), so loaders only
+    need (image, src).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the seq2seq trainer comes with slice 6 of the port")
+    ``params`` (:mod:`icee_tpu_torch.models.seq2seq`) and ``head`` are
+    copied to ``device``; the trainer updates its copies in place.  A split
+    on the device (:class:`icee_tpu_torch.data.device.DeviceCaptionData`,
+    pinned) trains and validates there: each batch gathered on the device,
+    every step's loss and token count kept there and read once a pass; the
+    same steps in the same order with the same randomness as the host
+    loader's, so the parameters equal its bit for bit.  A streamed split is
+    refused (the train CLI takes the host loader for one, as JAX's does).
+    ``draws(batch, steps, track) -> (keep, coins)`` with ``track``
+    ``"factual"`` or ``"emotion"``, when given, replaces the generator once
+    a training step (as in :class:`MultitaskTrainer`).  No checkpoint is
+    written, as in the JAX trainer."""
+
+    def __init__(self, cfg, tcfg: TrainConfig, vocab, params, head,
+                 log_path: Optional[str] = None, mesh=None, device="cuda",
+                 draws: Optional[Callable] = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device training (mesh) comes with slice 8 of the port")
+        self.cfg, self.tcfg, self.vocab = cfg, tcfg, vocab
+        self.device = resolve_indexed_device(device)
+        self.params = _clone(params, self.device)
+        self.head = _clone(head, self.device)
+        self.log_path = log_path
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            tcfg.seed)
+        self.draws = draws
+        self.optimizer = optim.make_adam(tcfg.lr_caption, tcfg)
+        self.emotion_optimizer = optim.make_adam(tcfg.lr_language, tcfg)
+        self.steps = make_seq2seq_steps(cfg, tcfg, self.optimizer,
+                                        self.emotion_optimizer, self.device)
+        (self.factual_step, self.emotion_step, self.val_factual,
+         self.val_emotion) = self.steps
+        self.opt_state = self.optimizer.init((self.params["encoder"],
+                                              self.head))
+        self.emotion_opt_state = self.emotion_optimizer.init(
+            self.params["decoders"])
+
+    _to_device = MultitaskTrainer._to_device
+
+    def _step_randomness(self, batch: int, steps: int, track: str) -> dict:
+        if self.draws is None:
+            return {"generator": self.generator}
+        keep, coins = self.draws(batch, steps, track)
+        return {"keep": keep, "coins": coins}
+
+    def _factual(self, feats, caps, lens, smask):
+        """One factual step in place -> its loss (a device tensor)."""
+        kw = self._step_randomness(caps.shape[0], caps.shape[1], "factual")
+        self.params, self.head, self.opt_state, loss = self.factual_step(
+            self.params, self.head, self.opt_state, feats, caps, lens, smask,
+            **kw)
+        return loss
+
+    def _emotion(self, eid: int, feats, caps, lens, smask):
+        """One emotion step, dst = src (``seq2seq/train.py:316-317``)."""
+        kw = self._step_randomness(caps.shape[0], caps.shape[1] - 1,
+                                   "emotion")
+        self.params, self.emotion_opt_state, loss = self.emotion_step(
+            self.params, self.head, self.emotion_opt_state, feats, caps,
+            lens, caps, lens, smask, eid, **kw)
+        return loss
+
+    def _device_pass(self, ddata: DeviceCaptionData, fn) -> list:
+        """``fn(feats, caps, lens, valid)`` once a batch of a pinned split's
+        epoch, in order, each batch gathered on the device -> the results,
+        nothing read."""
+        if isinstance(ddata, StreamedCaptionData):
+            raise ValueError("Seq2SeqTrainer trains pinned splits or the "
+                             "host loader, not a streamed split")
+        idx, valid = ddata.epoch_indices()
+        idx_d, rows_d, valid_d = _epoch_rows(ddata, idx, valid, self.device)
+        out = []
+        for r in range(idx.shape[0]):
+            feats, caps, lens = gather_batch(
+                ddata.images, ddata.captions, ddata.lengths, idx_d[r],
+                rows_d[r], valid_d[r])
+            out.append(fn(feats, caps, lens, valid_d[r]))
+        return out
+
+    def _train_pass(self, loader, step) -> AverageMeter:
+        """One training pass of ``step(feats, caps, lens, smask) -> loss``
+        -> the token-weighted loss meter (token counts: the lengths)."""
+        meter = AverageMeter()
+        if isinstance(loader, DeviceCaptionData):
+            out = self._device_pass(loader, lambda f, c, ln, v: torch.stack(
+                [step(f, c, ln, v).double(), ln.sum().double()]))
+            if out:
+                for loss, n in torch.stack(out).cpu().tolist():
+                    meter.update(loss, int(n))
+            return meter
+        for batch in loader:
+            feats, caps, lens, smask = self._to_device(
+                batch.images, batch.captions, batch.lengths,
+                batch.sample_mask)
+            meter.update(float(step(feats, caps, lens, smask)),
+                         int(batch.lengths.sum()))
+        return meter
+
+    def train(self, data_loader, emotion_loaders: Dict[str, object],
+              num_epochs: Optional[int] = None, val_loader=None,
+              val_emotion_loaders: Optional[Dict] = None) -> None:
+        num_epochs = num_epochs or self.tcfg.num_epochs
+        for epoch in range(num_epochs):
+            losses = self._train_pass(data_loader, self._factual)
+            _log(self.log_path,
+                 f"Epoch [{epoch}/{num_epochs}], [FAC], "
+                 f"Loss {losses.avg:.4f}")
+            if val_loader is not None:
+                vl, vt = self.validate_factual(val_loader)
+                _log(self.log_path,
+                     f"\tVal Loss: {vl:.4f} | Perplexity "
+                     f"{perplexity(vl):.4f} | Top-5 {vt:.3f}")
+            for emo, loader in emotion_loaders.items():
+                eid = mode_id(emo) - 1
+                e_losses = self._train_pass(
+                    loader, lambda f, c, ln, v, e=eid: self._emotion(
+                        e, f, c, ln, v))
+                _log(self.log_path,
+                     f"Epoch [{epoch}/{num_epochs}], "
+                     f"[{emo[:3].upper()}], Loss {e_losses.avg:.4f}")
+                if val_emotion_loaders and emo in val_emotion_loaders:
+                    vl, vt = self.validate_emotion(
+                        val_emotion_loaders[emo], eid)
+                    _log(self.log_path,
+                         f"\tVal Loss: {vl:.4f} | Top-5 {vt:.3f}")
+
+    def _validate(self, loader, fn, tokens) -> tuple:
+        """Token-weighted (loss, top-5) of ``fn(feats, caps, lens, smask)
+        -> (loss, top5, preds)`` over a split; ``tokens(lengths)`` is a
+        batch's weight."""
+        losses, top5s = AverageMeter(), AverageMeter()
+        if isinstance(loader, DeviceCaptionData):
+            out = self._device_pass(loader, lambda f, c, ln, v: torch.stack(
+                [*(x.double() for x in fn(f, c, ln, v)[:2]),
+                 tokens(ln).double()]))
+            rows = torch.stack(out).cpu().tolist() if out else []
+        else:
+            rows = []
+            for batch in loader:
+                feats, caps, lens, smask = self._to_device(
+                    batch.images, batch.captions, batch.lengths,
+                    batch.sample_mask)
+                loss, top5, _ = fn(feats, caps, lens, smask)
+                rows.append((float(loss), float(top5),
+                             tokens(torch.from_numpy(batch.lengths))))
+        for loss, top5, n in rows:
+            losses.update(loss, int(n))
+            top5s.update(top5, int(n))
+        return losses.avg, top5s.avg
+
+    def validate_factual(self, loader):
+        """seq2seq ``val_factual`` (``seq2seq/train.py:262-299``): teacher-
+        forcing off, token-mean loss + top-5."""
+        return self._validate(
+            loader, lambda f, c, ln, v: self.val_factual(
+                self.params, self.head, f, c, ln, v),
+            lambda ln: ln.sum())
+
+    def validate_emotion(self, loader, emotion_id: int):
+        """seq2seq ``val_emotion`` (``seq2seq/train.py:303-345``), with the
+        dst=src overwrite kept; a batch weighs its lengths - 1 (at least
+        1)."""
+        return self._validate(
+            loader, lambda f, c, ln, v: self.val_emotion(
+                self.params, self.head, f, c, ln, c, ln, v, emotion_id),
+            lambda ln: (ln - 1).clamp(min=0).sum().clamp(min=1))

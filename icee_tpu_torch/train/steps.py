@@ -1,8 +1,9 @@
 """Training and validation steps of the global-feature captioners, StyleNet
 (factored decoder) and NIC (port of
-``icee_tpu/train/steps.py::make_caption_steps``), and of the attention
+``icee_tpu/train/steps.py::make_caption_steps``), of the attention
 captioners, StyleNet+Att and NIC+Att (``make_attention_steps``; see
-:class:`AttentionSteps`).
+:class:`AttentionSteps`), and of seq2seq style transfer
+(``make_seq2seq_steps``; see :class:`Seq2SeqSteps`).
 
 One step: encoder head on cached pooled features (BatchNorm in training
 mode), the decoder's training forward, the masked token-mean CE, the
@@ -30,7 +31,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from icee_tpu_torch.core.config import (AttentionDecoderConfig,
-                                        DecoderConfig, TrainConfig)
+                                        DecoderConfig, Seq2SeqConfig,
+                                        TrainConfig)
 from icee_tpu_torch.core.device import resolve_indexed_device
 from icee_tpu_torch.evaluation.metrics import (length_mask,
                                                masked_cross_entropy,
@@ -39,6 +41,7 @@ from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.models import encoder as enc_mod
 from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
+from icee_tpu_torch.models import seq2seq as s2s
 from icee_tpu_torch.ops.chunked_loss import masked_ce_from_hiddens
 from icee_tpu_torch.train.optim import Adam, AdamState, tree_leaves
 
@@ -396,3 +399,158 @@ class TextStyleStep(_Steps):
             grads = _grads_like(d, loss)
         self.optimizer.update(grads, opt_state, dec)
         return dec, opt_state, loss.detach()
+
+
+class Seq2SeqSteps(_Steps):
+    """The steps of :func:`make_seq2seq_steps` (port of
+    ``icee_tpu/train/steps.py::make_seq2seq_steps``, the T6 regime); unpacks
+    as ``factual_train_step, emotion_train_step, val_factual_step,
+    val_emotion_step``.
+
+    The factual step trains the encoder half and the encoder head (its
+    BatchNorm in training mode, the forward's running statistics kept) on
+    the feature-prefixed autoencoding pass, targets the un-shifted caption.
+    The emotion step trains the stacked decoders on ``captions_dst[:, :-1]``
+    -> ``captions_dst[:, 1:]`` with lengths - 1, from a zero state: the
+    reference's ``DecoderRNN.forward`` drops the encoder state, so the
+    encoder pass (and the head's features, which only feed it) is dead in
+    that loss and is skipped, as JAX's chunked path skips it.  The other
+    emotions' gradient slices are zeroed, and ``emotion_optimizer`` is ONE
+    Adam over the stacked tensors, as in JAX: the other emotions' moments
+    still decay and their weights still move by the bias-corrected m /
+    sqrt(v) after their own steps.  On CUDA (``chunked_ce`` None) both
+    losses run the chunked CE kernels; no kernel runs the recurrence (JAX
+    runs it in ``lax.scan``).  ``keep`` / ``coins`` are one pass's injected
+    draws (the JAX step draws the emotion pass's from the second half of
+    its key's split)."""
+
+    def __iter__(self):
+        return iter((self.factual_train_step, self.emotion_train_step,
+                     self.val_factual_step, self.val_emotion_step))
+
+    def factual_grads(self, params, head, pooled, captions, lengths,
+                      sample_mask, generator=None, keep=None, coins=None):
+        """-> (loss, (encoder-half grads, head grads), forward head)."""
+        self._check_device(params, head, pooled, captions, lengths,
+                           sample_mask)
+        ratio = self.tcfg.teacher_forcing_ratio
+        with torch.enable_grad():
+            enc, h = _track(params["encoder"]), _track(head)
+            feats, new_head = enc_mod.encode_global_from_pooled(h, pooled,
+                                                                True)
+            p = dict(params, encoder=enc)
+            out, _ = s2s.encode(p, self.cfg, feats, captions, ratio,
+                                generator, True, self.use_chunked, keep,
+                                coins)
+            if self.use_chunked:
+                loss = masked_ce_from_hiddens(
+                    out, enc["linear_w"], enc["linear_b"], captions,
+                    lengths, sample_mask)
+            else:
+                loss = masked_cross_entropy(out, captions, lengths,
+                                            sample_mask)
+            grads = _grads_like((enc, h), loss)
+        return loss.detach(), grads, new_head
+
+    def emotion_grads(self, params, captions_dst, dst_lengths, sample_mask,
+                      emotion, generator=None, keep=None, coins=None):
+        """-> (loss, stacked-decoder grads with the other emotions' slices
+        zeroed)."""
+        self._check_device(params, captions_dst, dst_lengths, sample_mask)
+        emotion = int(emotion)
+        tgt_len = (dst_lengths - 1).clamp(min=0)
+        with torch.enable_grad():
+            decs = _track(params["decoders"])
+            p = dict(params, decoders=decs)
+            out = s2s.decode_emotion(
+                p, self.cfg, None, captions_dst[:, :-1], emotion,
+                self.tcfg.teacher_forcing_ratio, generator, True,
+                self.use_chunked, keep, coins)
+            if self.use_chunked:
+                half = s2s.select_decoder(p, emotion)
+                loss = masked_ce_from_hiddens(
+                    out, half["linear_w"], half["linear_b"],
+                    captions_dst[:, 1:], tgt_len, sample_mask)
+            else:
+                loss = masked_cross_entropy(out, captions_dst[:, 1:],
+                                            tgt_len, sample_mask)
+            grads = _grads_like(decs, loss)
+
+        def only(g):
+            if isinstance(g, dict):
+                return {k: only(v) for k, v in g.items()}
+            if isinstance(g, (list, tuple)):
+                return type(g)(only(v) for v in g)
+            onehot = torch.zeros((3,) + (1,) * (g.dim() - 1), dtype=g.dtype,
+                                 device=g.device)
+            onehot[emotion] = 1.0
+            return g * onehot
+
+        return loss.detach(), only(grads)
+
+    def factual_train_step(self, params, head, opt_state: AdamState, pooled,
+                           captions, lengths, sample_mask, generator=None,
+                           keep=None, coins=None):
+        """The optimizer covers (encoder half, head).  -> (params, head,
+        opt_state, loss), the trees updated in place."""
+        loss, grads, new_head = self.factual_grads(
+            params, head, pooled, captions, lengths, sample_mask, generator,
+            keep, coins)
+        self.optimizer.update(grads, opt_state, (params["encoder"], head))
+        _merge_bn_stats(head, new_head)
+        return params, head, opt_state, loss
+
+    def emotion_train_step(self, params, head, opt_state: AdamState, pooled,
+                           captions_src, src_lengths, captions_dst,
+                           dst_lengths, sample_mask, emotion, generator=None,
+                           keep=None, coins=None):
+        """``emotion_optimizer`` over the stacked decoders.  ``head``,
+        ``pooled``, ``captions_src`` and ``src_lengths`` feed only the dead
+        encoder pass (kept for the JAX step's signature).  -> (params,
+        opt_state, loss), the decoders updated in place."""
+        loss, grads = self.emotion_grads(params, captions_dst, dst_lengths,
+                                         sample_mask, emotion, generator,
+                                         keep, coins)
+        self.lang_optimizer.update(grads, opt_state, params["decoders"])
+        return params, opt_state, loss
+
+    @torch.no_grad()
+    def val_factual_step(self, params, head, pooled, captions, lengths,
+                         sample_mask):
+        """The encoder pass at ratio 0 (free-running from step 0), the head
+        in eval mode -> (loss, top-5 %, argmax preds)."""
+        self._check_device(params, head, pooled, captions, lengths,
+                           sample_mask)
+        feats = enc_mod.encode_global_from_pooled(head, pooled)
+        logits, _ = s2s.encode(params, self.cfg, feats, captions, 0.0,
+                               None, False)
+        m = _val_metrics(logits, captions, lengths, sample_mask)
+        return m.loss, m.top5, torch.argmax(logits, dim=-1)
+
+    @torch.no_grad()
+    def val_emotion_step(self, params, head, pooled, captions_src,
+                         src_lengths, captions_dst, dst_lengths, sample_mask,
+                         emotion):
+        """The emotion decoder at ratio 0 on ``captions_dst[:, :-1]`` ->
+        (loss, top-5 %, argmax preds (B, T - 1)) against ``captions_dst[:,
+        1:]``; the encoder pass is dead here too."""
+        self._check_device(params, captions_dst, dst_lengths, sample_mask)
+        logits = s2s.decode_emotion(params, self.cfg, None,
+                                    captions_dst[:, :-1], int(emotion), 0.0,
+                                    None, False)
+        tgt_len = (dst_lengths - 1).clamp(min=0)
+        m = _val_metrics(logits, captions_dst[:, 1:], tgt_len, sample_mask)
+        return m.loss, m.top5, torch.argmax(logits, dim=-1)
+
+
+def make_seq2seq_steps(cfg: Seq2SeqConfig, tcfg: TrainConfig,
+                       optimizer: Adam, emotion_optimizer: Adam,
+                       device="cuda") -> Seq2SeqSteps:
+    """T6 steps.  ``optimizer`` covers (encoder half, encoder head);
+    ``emotion_optimizer`` the stacked emotion decoders, each step's
+    gradient masked to its emotion's slice (the reference keeps one Adam
+    per emotion decoder, ``seq2seq/train.py:141-158``; JAX and the port
+    one masked Adam).  ``device`` is CUDA unless the caller asks for the
+    CPU; a step given tensors elsewhere raises."""
+    return Seq2SeqSteps(cfg, tcfg, optimizer, emotion_optimizer,
+                        resolve_indexed_device(device))

@@ -22,7 +22,9 @@ and BLEU-1..4 are held equal, without tolerance; ``validate``'s loss to
 rtol 1e-5, its top-5 and BLEU-4 lines equal.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -398,7 +400,6 @@ TRAIN_BASE = ["--vocab_path", "unused.pkl", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--trainer", "seq2seq"], "slice 6"),
     (["--data_parallel"], "slice 8"),
     (["--tensor_parallel", "2"], "slice 8"),
     (["--coordinator_address", "localhost:1234"], "slice 8"),
@@ -499,6 +500,84 @@ def test_device_resident_train_equals_the_host_loader_and_matches_jax(
                 assert g[k] == v, (k, g, w)
     assert sorted(os.listdir(tmp / "r_dev")) == sorted(
         os.listdir(tmp / "r_jax"))
+
+
+@pytest.fixture(scope="module")
+def seq2seq_runs(run):
+    """``train --trainer seq2seq`` over the feature cache from JAX's initial
+    weights (``s2s.init_params(PRNGKey(seed))``, the head from ``seed +
+    1``), dropout 0 and ratio 1.0: the JAX CLI, the port on the host
+    loader, with ``--device_resident`` (pinned), and with a feature budget
+    below the split's (the WARNING fallback to the host loader)."""
+    from icee_tpu.core.config import Seq2SeqConfig as JSeq2SeqConfig
+    from icee_tpu.models import seq2seq as js2s
+
+    tmp = run["tmp"]
+    vocab = load_vocab(str(tmp / "vocab.pkl"))
+    jparams = jax.tree.map(np.asarray, js2s.init_params(
+        jax.random.PRNGKey(0), JSeq2SeqConfig(
+            vocab_size=len(vocab), embed_size=E, hidden_size=H,
+            dropout=0.0, max_seq_length=MAX_SEQ)))
+    jhead = jax.tree.map(np.asarray, jenc.init_head_params(
+        jax.random.PRNGKey(1), JEncoderConfig(embed_size=E)))
+    seen = []
+
+    def init_weights(family, cfg, ecfg, seed, device):
+        seen.append((family, cfg))
+        return bridge.to_torch(jparams, device), bridge.to_torch(jhead,
+                                                                 device)
+
+    def argv(side, extra=()):
+        a = train_argv(tmp, side, extra=extra)
+        a[a.index("multitask")] = "seq2seq"
+        return a
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        from icee_tpu.cli import common as jcommon
+
+        mp.setattr(train, "init_weights", init_weights)
+        ratio_one(mp, jcommon)
+        ratio_one(mp, common)
+        run_jax("icee_tpu.cli.train", argv("s_jax"), mp)
+        for side, extra in (("s_host", []), ("s_dev", ["--device_resident"]),
+                            ("s_over", ["--device_resident",
+                                        "--device_budget_gb", "1e-9"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                run_port(train, argv(side, extra) + PORT_FLAGS)
+            out[side] = buf.getvalue()
+    assert [f for f, _ in seen] == ["seq2seq"] * 3
+    assert seen[0][1].dropout == 0.0 and seen[0][1].hidden_size == H
+    return {"tmp": tmp, "stdout": out}
+
+
+def test_seq2seq_train_matches_jax_and_device_resident_equals_host(
+        seq2seq_runs):
+    """The port's ``--trainer seq2seq`` log (factual and three emotion
+    passes, both validations, 2 epochs) has the JAX CLI's lines, its
+    numbers rtol 1e-5 (top-5 a percentage: atol 1e-3); ``--device_resident``
+    (pinned) writes the host-loader run's log exactly, and over the budget
+    the CLI says so and takes the host loader, as JAX's does."""
+    tmp = seq2seq_runs["tmp"]
+
+    def log(side):
+        with open(tmp / f"{side}.log") as f:
+            return f.read()
+
+    host, jlog = log("s_host"), log("s_jax")
+    num = r"-?\d+\.\d+"
+    assert re.sub(num, "#", host) == re.sub(num, "#", jlog)
+    assert host.count("Epoch [") == 2 * 4 and host.count("Val Loss") == 8
+    got = [float(x) for x in re.findall(num, host)]
+    want = [float(x) for x in re.findall(num, jlog)]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    assert log("s_dev") == host
+    assert log("s_over") == host
+    warn = "features exceed the device-resident budget; falling back to " \
+        "the host loader"
+    assert warn in seq2seq_runs["stdout"]["s_over"]
+    assert warn not in seq2seq_runs["stdout"]["s_dev"]
 
 
 def test_device_resident_needs_constant_features(run, monkeypatch):
@@ -642,7 +721,8 @@ def test_entry_points_name_the_port_modules():
     with open("pyproject.toml", "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     ours = {k: v for k, v in scripts.items() if k.startswith("icee-torch-")}
-    assert len(ours) == 10
+    assert len(ours) == 11
+    assert ours["icee-torch-senticap-train"].endswith(":senticap_train")
     ran = []
     orig = _entry.runpy.run_module
     try:
@@ -656,7 +736,7 @@ def test_entry_points_name_the_port_modules():
     for m in ran:
         assert m.startswith("icee_tpu_torch.")
         __import__(m)
-    assert len(set(ran)) == 10
+    assert len(set(ran)) == 11
 
 
 def test_chip_smoke_writes_weights_the_importers_read(monkeypatch):

@@ -74,7 +74,10 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
                  "cli.precompute_features", "cli.train", "cli.validate",
                  "cli.evaluate", "cli.sample", "cli.caption_batch",
                  "cli.export", "cli.inspect_ckpt", "data.device",
-                 "checkpoint.progress"):
+                 "checkpoint.progress", "senticap.sentiment",
+                 "senticap.eval_out", "senticap.adversarial",
+                 "senticap.encode_decode", "cli.senticap_train",
+                 "models.seq2seq", "utils.profiling", "utils.embeddings"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary

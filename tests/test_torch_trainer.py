@@ -399,8 +399,6 @@ def test_refusals_name_their_slice(data, tmp_path):
     kw = dict(device="cpu", model_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="slice 8"):
         loops.MultitaskTrainer(*args, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        loops.Seq2SeqTrainer(cfg, tcfg, data["vocab"], {}, {})
     with pytest.raises(ValueError, match="family"):
         loops.MultitaskTrainer(*args, family="seq2seq", **kw)
     loops.PaperRegimeTrainer(*args, **kw)
