@@ -234,19 +234,38 @@ Phases, in order; any failure exits non-zero:
    card; (d) ``utils.profiling.trace`` around one step (its file names
    ``ce_rows_kernel``) and ``StepTimer``'s p50 of the factual step with
    captions/s from it; then the run's whole wall time;
-23. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+23. the data- and tensor-parallel port (slice 8) as two ranks sharing the
+   card over gloo (NCCL refuses two ranks on one card), at flagship width
+   over phase 19's files: (a) ``python -m torch.distributed.run
+   --nproc_per_node 2`` of ``cli.train --data_parallel --dist_backend
+   gloo`` (the stage wrapper on every rank), at DP 2 and at
+   ``--tensor_parallel 2`` (the vocabulary split in two): each must give
+   phase 19's ``train`` log (text equal, the epochs' losses within
+   PAR_LOSS_RTOL, top-5 and BLEU-4 equal), every rank launching K3 and
+   the CE once a step and chunk of its rows and K2 once a validation; (b)
+   ``evaluate --data_parallel`` over two ranks: phase 19's ``evaluate
+   --feed_feature`` (K2) and ``evaluate --attention`` (K7) lines, token
+   for token, each rank launching once a batch; (c) one SentiCap base step
+   at DP 2 in a spawned world (``parallel/launch.py``): both ranks' loss
+   and gradients equal, and within 1e-5 / PAR_GRAD_TOL of one process's on
+   the card; (d) with two cards or more, (a) over NCCL, one rank a card;
+   (e) seconds a rank spends in ``import torch`` and CUDA's start, and the
+   StyleNet factual step's ms a rank at DP 2 and TP 2 beside phase 9's;
+   launches exact on every rank, no plain version called;
+24. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
    ``trainer``, ``resident`` and ``seq2seq`` entries), one
    ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
    entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
-   line (phases 4 and 5b) and one ``{"kernels": [...]}`` line
+   line (phases 4 and 5b), one ``{"parallel": {...}}`` line (phase 23)
+   and one ``{"kernels": [...]}`` line
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10);
-24. print ``{"ok": true, "device": {...}}`` as the last line.
+25. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -266,6 +285,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 # published H100 SXM peaks: HBM 3.35 TB/s, float32 outside the tensor cores
 # 67 TFLOP/s: every kernel's bound_ms counts float32 operations at this
@@ -4675,7 +4695,7 @@ def plain_counters():
     """Count every call of the trainer's kernels' plain versions (each
     wrapper calls its plain version by module name, on a CPU tensor) while
     the block runs; -> the dict of counts."""
-    from icee_tpu_torch.ops import att_scan, beam
+    from icee_tpu_torch.ops import att_beam, att_scan, beam
     from icee_tpu_torch.ops import chunked_loss as cl
     from icee_tpu_torch.ops import lstm_scan, nic_scan
     from icee_tpu_torch.ops import senticap_decode as sd
@@ -4693,6 +4713,7 @@ def plain_counters():
                (nic_scan, "nic_scan_bwd_plain"),
                (cl, "ce_rows_plain"), (cl, "ce_grad_rows_plain"),
                (beam, "mega_beam_decode_plain"),
+               (att_beam, "mega_att_beam_decode_plain"),
                (att_scan, "fused_att_scan_plain"),
                (att_scan, "fused_att_scan_sampled_plain"),
                (att_scan, "att_scan_grads_plain")]
@@ -5211,9 +5232,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the CLI module as ``__main__`` (runpy; ``run_s``) and prints one JSON line
 # of the port's launch counters and these clocks.  ``ratio`` replaces the
 # teacher-forcing ratio of ``cli.common.train_config`` (no CLI flag sets
-# it, in either package).  SIGTERM ends a server stage as an exit.
+# it, in either package).  SIGTERM ends a server stage as an exit.  With
+# ``counts_path`` the line goes to ``<counts_path><RANK>.json`` instead
+# (phase 23's ranks share one stdout, whose long writes interleave).
 CLI_WRAPPER = r"""
-import json, runpy, signal, sys, time
+import json, os, runpy, signal, sys, time
 t0 = time.perf_counter()
 import torch
 t1 = time.perf_counter()
@@ -5242,10 +5265,17 @@ with cs.plain_counters() as plain:
         code = e.code
     torch.cuda.synchronize()
 t4 = time.perf_counter()
-print(json.dumps({"cli_stage": {
+rank = int(os.environ.get("RANK", 0))
+line = json.dumps({"cli_stage": {
+    "rank": rank,
     "counts": {k: getattr(fn, a) for k, (fn, a) in counters.items()},
     "plain": dict(plain), "import_s": t1 - t0, "cuda_init_s": t2 - t1,
-    "setup_s": t3 - t2, "run_s": t4 - t3}}), flush=True)
+    "setup_s": t3 - t2, "run_s": t4 - t3}})
+if opts.get("counts_path"):
+    with open(f"{opts['counts_path']}{rank}.json", "w") as f:
+        f.write(line)
+else:
+    print(line, flush=True)
 sys.exit(code)
 """
 
@@ -5591,8 +5621,10 @@ def cli_phase(device, keep: str = None):
     width (E = 300, H = F = 512, 40 steps, k = 5, V = 8192), with phase
     6's seeded weights made anew: the backbone for every image stage, the
     StyleNet decoder and head for the decode stages.  ``keep``: a
-    directory that receives the vocabulary, the feature cache and the
-    caption files (phase 22 trains seq2seq on them)."""
+    directory that receives the vocabulary, the feature caches, the caption
+    files (phase 22 trains seq2seq on them), the ``train`` stage's log and
+    checkpoint and the ``evaluate`` stages' outputs (phase 23 holds its
+    multi-rank runs to them)."""
     import numpy as np
     import torch
 
@@ -5883,8 +5915,9 @@ def cli_phase(device, keep: str = None):
             CLI_VAL_IMAGES / stats["precompute_features_spatial"]["wall_s"]
         att = ["--vocab_path", vocab_path, "--feature_cache", spatial,
                "--attention", "--batch_size", CLI_BATCH]
-        stage("evaluate_attention", m + "evaluate", att + [
-            "--test_path", files["val"]],
+        outs["evaluate_attention"] = stage(
+            "evaluate_attention", m + "evaluate", att + [
+                "--test_path", files["val"]],
             {"mega_att_beam_decode": -(-n_val // CLI_BATCH)})
         stats["evaluate_attention"]["captions_per_s"] = \
             n_val / stats["evaluate_attention"]["wall_s"]
@@ -5897,8 +5930,14 @@ def cli_phase(device, keep: str = None):
             import shutil
 
             for path in (vocab_path, cache, files["train"], files["val"],
-                         files["happy"], files["val_happy"]):
+                         files["happy"], files["val_happy"], spatial,
+                         os.path.join(root, "chip.log"),
+                         os.path.join(root, "chip.jsonl")):
                 shutil.copy(path, keep)
+            shutil.copytree(seeded, os.path.join(keep, "seeded_checkpoint"))
+            for name in ("evaluate_feed_feature", "evaluate_attention"):
+                with open(os.path.join(keep, f"{name}.out"), "w") as f:
+                    f.write(outs[name])
         # 6/6 the server: the trained checkpoint as StyleNet's happy model,
         # the seeded one as its sad model
         stats["serve"] = serve_stage(device, root, vocab_path, backbone,
@@ -7129,6 +7168,433 @@ def senticap_variants(device) -> dict:
     return out
 
 
+PAR_RANKS = 2              # phase 23: ranks, two on one card (gloo)
+PAR_TIMED_STEPS = 20       # (e) timed steps a rank and mesh
+PAR_LOSS_RTOL = 1e-5       # (a) the epochs' losses against phase 19's
+PAR_GRAD_TOL = 1e-5        # (c) each grad within this x its largest |g|
+
+
+def torchrun_cmd(wrapper: str, module: str, args, counts_path: str,
+                 ratio=None, nproc: int = PAR_RANKS):
+    """``python -m torch.distributed.run --standalone`` of ``nproc`` ranks,
+    each running the stage wrapper (``CLI_WRAPPER``, written to
+    ``wrapper``) around ``module``, its counter line written to
+    ``<counts_path><RANK>.json``."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), wrapper,
+            json.dumps({"module": module, "ratio": ratio,
+                        "counts_path": counts_path}), *map(str, args)]
+
+
+def ranks_stage(name: str, wrapper: str, module: str, args, logs: str,
+                want: dict, ratio=None, nproc: int = PAR_RANKS):
+    """One CLI as ``nproc`` ranks under torchrun; it must exit 0 and every
+    rank must launch ``want`` (every other count 0, no plain version).
+    -> (stats with each rank's clocks, the counts summed over the ranks,
+    stdout)."""
+    t = time.perf_counter()
+    counts_path = os.path.join(logs, f"{name}_counts_")
+    proc = subprocess.run(torchrun_cmd(wrapper, module, args, counts_path,
+                                       ratio, nproc),
+                          cwd=ROOT, env=cli_env(), capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    log_path = os.path.join(logs, f"{name}.log")
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"phase 23 {name}: exit {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    recs = []
+    for r in range(nproc):
+        if os.path.exists(f"{counts_path}{r}.json"):
+            with open(f"{counts_path}{r}.json") as f:
+                recs.append(json.load(f)["cli_stage"])
+    if [r["rank"] for r in recs] != list(range(nproc)):
+        fail(f"phase 23 {name}: counter lines of ranks "
+             f"{[r['rank'] for r in recs]} (output in {log_path})")
+    total = {}
+    for rec in recs:
+        if any(rec["plain"].values()):
+            fail(f"phase 23 {name}: a plain version ran on rank "
+                 f"{rec['rank']}: {rec['plain']}")
+        for k, n in rec["counts"].items():
+            if n != want.get(k, 0):
+                fail(f"phase 23 {name}: rank {rec['rank']} launched {k} "
+                     f"{n} times, expected {want.get(k, 0)} (all counts "
+                     f"{rec['counts']})")
+            total[k] = total.get(k, 0) + n
+    stats = {"wall_s": wall, "ranks": [
+        {k: rec[k] for k in ("import_s", "cuda_init_s", "setup_s",
+                             "run_s")} for rec in recs]}
+    log(f"phase 23 {name}: {wall:.2f} s; per rank import torch "
+        + ", ".join(f"{r['import_s']:.2f}" for r in stats["ranks"])
+        + " s, CUDA start-up " + ", ".join(
+            f"{r['cuda_init_s']:.2f}" for r in stats["ranks"])
+        + " s, run " + ", ".join(f"{r['run_s']:.2f}"
+                                 for r in stats["ranks"])
+        + f" s; launches a rank { {k: n for k, n in want.items() if n} }")
+    return stats, total, proc.stdout
+
+
+def compare_runs(name: str, got_dir: str, got_name: str, want_dir: str,
+                 want_name: str) -> dict:
+    """A multi-rank training run's log and JSONL events against the
+    one-process run's: the log's text with its numbers masked equal, the
+    events' kinds equal, the losses within PAR_LOSS_RTOL, top-5 and BLEU-4
+    equal, the learning rates 1e-6.  -> the largest differences."""
+    import re
+
+    def text(path):
+        with open(path) as f:
+            body = re.sub(r"Batch Time: [\d.]+, ", "", f.read())
+        return re.sub(r"\d+\.\d+(e-?\d+)?", "#", body)
+
+    def events(d, n):
+        with open(os.path.join(d, f"{n}.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    if text(os.path.join(got_dir, f"{got_name}.log")) != text(
+            os.path.join(want_dir, f"{want_name}.log")):
+        fail(f"phase 23 {name}: the log's text differs from phase 19's")
+    got, want = events(got_dir, got_name), events(want_dir, want_name)
+    if [e["event"] for e in got] != [e["event"] for e in want]:
+        fail(f"phase 23 {name}: events {[e['event'] for e in got]}")
+    diff = {"loss_rel": 0.0, "top5_abs": 0.0, "lr_rel": 0.0, "bleu4_abs": 0.0}
+    for g, w in zip(got, want):
+        for k in ("train_loss", "val_loss"):
+            diff["loss_rel"] = max(diff["loss_rel"],
+                                   abs(g[k] - w[k]) / abs(w[k]))
+        diff["top5_abs"] = max(diff["top5_abs"], abs(g["top5"] - w["top5"]))
+        diff["lr_rel"] = max(diff["lr_rel"], abs(g["lr"] - w["lr"]) / w["lr"])
+        diff["bleu4_abs"] = max(diff["bleu4_abs"],
+                                abs(g["bleu4"] - w["bleu4"]))
+    if not (diff["loss_rel"] <= PAR_LOSS_RTOL and diff["top5_abs"] == 0
+            and diff["bleu4_abs"] == 0 and diff["lr_rel"] <= 1e-6):
+        fail(f"phase 23 {name}: against phase 19's one-process run {diff}")
+    return diff
+
+
+def parallel_rank(mesh, payload) -> dict:
+    """Phase 23's work on each rank of a spawned world on the card: (c) one
+    SentiCap base step's loss and gradients at DP 2 (phase 13's model,
+    split and dropout masks, the global batch of SC_B rows), and (e) the
+    StyleNet factual step (phase 9's weights and batch, B = 64 global) at
+    DP 2 and at TP 2, timed; each part's launches counted from 0 and no
+    plain version called."""
+    import torch
+
+    from icee_tpu_torch.core.config import (DecoderConfig, EncoderConfig,
+                                            TrainConfig)
+    from icee_tpu_torch.core.device import set_float32_precision
+    from icee_tpu_torch.models import encoder
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import lstm_scan
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.parallel.mesh import make_mesh
+    from icee_tpu_torch.parallel.train import shard_decoder
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import make_base_step
+    from icee_tpu_torch.train import optim
+    from icee_tpu_torch.train.steps import make_caption_steps
+
+    set_float32_precision()
+    device = mesh.device
+    counters = {"fused_factored_scan_fwd": lstm_scan.factored_scan_fwd,
+                "fused_factored_scan_bwd": lstm_scan.factored_scan_bwd,
+                "fused_senticap_scan_fwd": ss.senticap_scan_fwd,
+                "fused_senticap_scan_bwd": ss.senticap_scan_bwd,
+                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        with plain_counters() as plain:
+            out = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}, \
+            dict(plain)
+
+    res = {"rank": mesh.rank}
+    # (c) SentiCap base, DP 2
+    conf = senticap_conf_full()
+    step = make_base_step(conf, make_solver(conf), mesh, device)
+    data = sio.device_dataset(senticap_split(4 * SC_B, 80), device)
+    g = torch.Generator(device=device).manual_seed(82)
+    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
+                                    device=device) < 0.5).float() * 2.0,
+                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) < 0.5).float() * 2.0)
+    params = model.init_params(torch.Generator().manual_seed(81), SC_V,
+                               conf, device=device)
+    idx = torch.arange(SC_B, device=device)
+    (loss, grads), counts, plain = counted(
+        lambda: step.grads(params, data, idx, **masks))
+    res["senticap"] = {"loss": loss.item(), "counts": counts,
+                       "plain": plain, "grads": {
+                           k: v.cpu() for k, v in grads.items()}}
+    # (e) the StyleNet factual step at DP 2 and TP 2
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
+                        factored_size=F, dropout=0.5)
+    tcfg = TrainConfig(teacher_forcing_ratio=1.0)
+    res["steps"] = {}
+    for shape in ((PAR_RANKS, 1), (1, PAR_RANKS)):
+        m = mesh if shape == mesh.shape else make_mesh(
+            shape, device=device, backend=mesh.backend)
+        steps = make_caption_steps(cfg, tcfg, optim.make_adam(1e-3, tcfg),
+                                   optim.make_adam(1e-3, tcfg),
+                                   device=device, mesh=m)
+        dec = training_decoder(device, 12)
+        dec["C_b"].zero_()
+        dec = shard_decoder(dec, m)
+        head = encoder.init_head_params(torch.Generator().manual_seed(13),
+                                        EncoderConfig(embed_size=E),
+                                        device=device)
+        batch = training_batch(device, B_IMAGES, 20)
+        gen = torch.Generator(device=device).manual_seed(41)
+        state = steps.optimizer.init((dec, head))
+
+        def one():
+            return steps.factual_train_step(dec, head, state, *batch,
+                                            generator=gen)[3]
+
+        loss, counts, plain = counted(one)
+        ms = step_ms(one, PAR_TIMED_STEPS) if device.type == "cuda" else None
+        res["steps"][f"{shape[0]}x{shape[1]}"] = {
+            "first_loss": loss.item(), "counts": counts, "plain": plain,
+            "step_ms": ms}
+    return res
+
+
+def parallel_world(device, backend: str) -> list:
+    """Phase 23 (c) and (e) as a spawned world of PAR_RANKS ranks on the
+    card -> each rank's results."""
+    from icee_tpu_torch.parallel.launch import spawn
+
+    with tempfile.TemporaryDirectory() as work:
+        return spawn(parallel_rank, PAR_RANKS, None, workdir=work,
+                     shape=(PAR_RANKS, 1), device="cuda", backend=backend)
+
+
+def parallel_phase(device, keep: str, one_step_ms: float):
+    """Phase 23: the data- and tensor-parallel port (slice 8) as processes
+    on the card, two ranks sharing it over gloo.  (a) ``cli.train
+    --data_parallel`` under torchrun over phase 19's feature cache, at DP 2
+    and at ``--tensor_parallel 2``: phase 19's ``train`` stage, whose log
+    and events it must give (``compare_runs``); (b) ``evaluate
+    --data_parallel``: phase 19's ``evaluate --feed_feature`` (K2) and
+    ``evaluate --attention`` (K7) lines, token for token; (c) one SentiCap
+    base step at DP 2: loss and gradients against one process's on the
+    card; (d) with two cards or more, (a) over NCCL, one rank a card; (e)
+    the seconds of a rank's start and its step ms at DP 2 and TP 2 beside
+    phase 9's one-process step.  Launches exact on every rank, no plain
+    version.  The stages of (a) run at once, then those of (b).  ->
+    (launches summed over the ranks, stats)."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    m = "icee_tpu_torch.cli."
+    stats, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as root:
+        logs = os.path.join(root, "logs")
+        os.makedirs(logs)
+        wrapper = os.path.join(root, "stage_wrapper.py")
+        with open(wrapper, "w") as f:
+            f.write(CLI_WRAPPER)
+        vocab = os.path.join(keep, "vocab.pkl")
+        cache = os.path.join(keep, "features.npz")
+        t_cap = STEPS + 2
+
+        def ce(b_fac, b_emo):
+            """CE row-pass launches of a rank's training steps at these
+            local batches: one a time chunk."""
+            n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
+            n_emo = -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION)
+            return CLI_EPOCHS * sum(
+                n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
+                for n, b in ((n_fac, b_fac), (n_emo, b_emo)))
+
+        steps = CLI_EPOCHS * (-(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
+                              + -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION))
+        runs = [("train_dp2", ["--dist_backend", "gloo"],
+                 (CLI_BATCH // PAR_RANKS, B_EMOTION // PAR_RANKS)),
+                ("train_tp2", ["--dist_backend", "gloo", "--tensor_parallel",
+                               PAR_RANKS], (CLI_BATCH, B_EMOTION))]
+        if torch.cuda.device_count() >= PAR_RANKS:
+            runs.append(("train_dp2_nccl", [],
+                         (CLI_BATCH // PAR_RANKS, B_EMOTION // PAR_RANKS)))
+        else:
+            stats["train_dp2_nccl"] = (f"not run: {torch.cuda.device_count()}"
+                                       " card(s), NCCL takes one a rank")
+
+        def train_stage(name, extra, b_fac, b_emo):
+            n_ce = ce(b_fac, b_emo)
+            return ranks_stage(name, wrapper, m + "train", [
+                "--trainer", "multitask", "--family", "stylenet", "--mode",
+                "happy", "--vocab_path", vocab, "--caption_path",
+                os.path.join(keep, "train.txt"), "--val_caption_path",
+                os.path.join(keep, "val.txt"), "--happy_path",
+                os.path.join(keep, "happy.txt"), "--val_happy_path",
+                os.path.join(keep, "val_happy.txt"), "--feature_cache",
+                cache, "--num_epochs", CLI_EPOCHS, "--caption_batch_size",
+                CLI_BATCH, "--language_batch_size", B_EMOTION,
+                "--model_path", os.path.join(root, name), "--log_path",
+                os.path.join(root, f"{name}.log"), "--metrics_path",
+                os.path.join(root, f"{name}.jsonl"), "--data_name", "chip",
+                "--log_step", 10 ** 9, "--log_step_emotion", 10 ** 9,
+                "--data_parallel", *extra], logs,
+                {"fused_factored_scan_fwd": steps,
+                 "fused_factored_scan_bwd": steps, "ce_rows": n_ce,
+                 "ce_grad_rows": n_ce, "mega_beam_decode": 2 * CLI_EPOCHS},
+                ratio=1.0)
+
+        # (b) evaluate over two ranks: phase 19's one-card lines
+        n_val = CLI_VAL_IMAGES * TR_CAPS
+        evals = (("evaluate_feed_feature", [
+                      "--feature_cache", cache, "--checkpoint_path",
+                      os.path.join(keep, "seeded_checkpoint"), "--mode",
+                      CLI_STYLE, "--feed_feature"], "mega_beam_decode"),
+                 ("evaluate_attention", [
+                      "--feature_cache", os.path.join(keep, "spatial.npz"),
+                      "--attention"], "mega_att_beam_decode"))
+
+        def eval_stage(name, args, kernel):
+            return ranks_stage(
+                f"{name}_dp2", wrapper, m + "evaluate", args + [
+                    "--vocab_path", vocab, "--test_path",
+                    os.path.join(keep, "val.txt"), "--batch_size",
+                    CLI_BATCH, "--data_parallel", "--dist_backend", "gloo"],
+                logs, {kernel: -(-n_val // CLI_BATCH)})
+
+        # the stages of (a), then of (b), run at once: their ranks share
+        # the card (each stage's seconds then include the others' load)
+        with ThreadPoolExecutor(len(runs)) as pool:
+            done = [(name, pool.submit(train_stage, name, extra, *b))
+                    for name, extra, b in runs]
+            for name, job in done:
+                st, counts, _ = job.result()
+                add(counts)
+                st["against_one_process"] = compare_runs(name, root, name,
+                                                         keep, "chip")
+                st["checkpoints"] = sorted(os.listdir(os.path.join(root,
+                                                                   name)))
+                stats[name] = st
+        with ThreadPoolExecutor(len(evals)) as pool:
+            done = [(name, pool.submit(eval_stage, name, args, kernel))
+                    for name, args, kernel in evals]
+            for name, job in done:
+                st, counts, out = job.result()
+                add(counts)
+                with open(os.path.join(keep, f"{name}.out")) as f:
+                    want = [ln for ln in f.read().splitlines()
+                            if ln.startswith(("ref ", "pred ", "BLEU-"))]
+                got = [ln for ln in out.splitlines()
+                       if ln.startswith(("ref ", "pred ", "BLEU-"))]
+                if got != want or len(want) != 2 * n_val + 4:
+                    fail(f"phase 23 {name}_dp2: {len(got)} lines, "
+                         f"{sum(a != b for a, b in zip(got, want))} differ "
+                         "from phase 19's one-card run")
+                st["lines_equal"] = len(got)
+                stats[f"{name}_dp2"] = st
+
+    world_launches, world = parallel_world_checks(device, one_step_ms)
+    add(world_launches)
+    stats.update(world)
+    stats["config"] = {"ranks": PAR_RANKS, "backend": "gloo",
+                       "cards": torch.cuda.device_count(),
+                       "train_batch": CLI_BATCH, "emotion_batch": B_EMOTION,
+                       "epochs": CLI_EPOCHS, "V": V, "E": E, "H": H, "F": F}
+    return launches, stats
+
+
+def parallel_world_checks(device, one_step_ms: float):
+    """Phase 23 (c) and (e): the spawned world's results held to one
+    process's on the card -> (launches summed over the ranks, stats)."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import make_base_step
+
+    stats, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    t = time.perf_counter()
+    ranks = parallel_world(device, "gloo")
+    stats["world_s"] = time.perf_counter() - t
+    sc = [r["senticap"] for r in ranks]
+    for r in ranks:
+        for part in (r["senticap"], *r["steps"].values()):
+            if any(part["plain"].values()):
+                fail(f"phase 23: a plain version ran on rank {r['rank']}: "
+                     f"{part['plain']}")
+    for r in sc:
+        want = {"fused_senticap_scan_fwd": 1, "fused_senticap_scan_bwd": 1,
+                "ce_rows": -(-SC_T // cl.auto_t_chunk(SC_B // PAR_RANKS,
+                                                      SC_T))}
+        want["ce_grad_rows"] = want["ce_rows"]
+        if {k: n for k, n in r["counts"].items() if n} != want:
+            fail(f"phase 23 (c): launches {r['counts']}, expected {want}")
+        add(r["counts"])
+    conf = senticap_conf_full()
+    step = make_base_step(conf, make_solver(conf), device=device)
+    data = sio.device_dataset(senticap_split(4 * SC_B, 80), device)
+    g = torch.Generator(device=device).manual_seed(82)
+    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
+                                    device=device) < 0.5).float() * 2.0,
+                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) < 0.5).float() * 2.0)
+    params = model.init_params(torch.Generator().manual_seed(81), SC_V,
+                               conf, device=device)
+    loss, grads = step.grads(params, data, torch.arange(SC_B, device=device),
+                             **masks)
+    errs = {k: ((sc[0]["grads"][k] - v.cpu()).abs().max()
+                / v.abs().max().clamp(min=1e-30)).item()
+            for k, v in grads.items()}
+    loss_err = abs(sc[0]["loss"] - loss.item()) / abs(loss.item())
+    same = all(torch.equal(sc[1]["grads"][k], sc[0]["grads"][k])
+               for k in grads) and sc[1]["loss"] == sc[0]["loss"]
+    if not (same and loss_err <= 1e-5 and max(errs.values()) <= PAR_GRAD_TOL):
+        fail(f"phase 23 (c): ranks equal {same}, loss rel err {loss_err}, "
+             f"grad err / max|g| {errs}")
+    stats["senticap_dp2_step"] = {
+        "loss_rel_err": loss_err, "grad_err_over_max": max(errs.values()),
+        "ranks_equal": same}
+    # (e) step ms a rank, DP 2 and TP 2, beside phase 9's one process
+    stats["factual_step_ms"] = {"one_process": one_step_ms}
+    for mesh_name in ranks[0]["steps"]:
+        per = [r["steps"][mesh_name] for r in ranks]
+        b_local = B_IMAGES // PAR_RANKS if mesh_name.endswith("x1") \
+            else B_IMAGES
+        want = {"fused_factored_scan_fwd": 1, "fused_factored_scan_bwd": 1,
+                "ce_rows": -(-T_STEPS // cl.auto_t_chunk(b_local, T_STEPS))}
+        want["ce_grad_rows"] = want["ce_rows"]
+        for p in per:
+            if {k: n for k, n in p["counts"].items() if n} != want:
+                fail(f"phase 23 (e) {mesh_name}: launches {p['counts']}, "
+                     f"expected {want}")
+            add(p["counts"])
+        if len({p["first_loss"] for p in per}) != 1:
+            fail(f"phase 23 (e) {mesh_name}: the ranks' losses differ: "
+                 f"{[p['first_loss'] for p in per]}")
+        stats["factual_step_ms"][mesh_name] = [p["step_ms"] for p in per]
+    return launches, stats
+
+
 def main() -> int:
     import shutil
 
@@ -7465,12 +7931,29 @@ def main() -> int:
                 entry["launches"] += counts.get(entry["name"], 0)
     try:
         s2s_launches, train["seq2seq"] = seq2seq_phase(device, keep)
+        for counts in s2s_launches.values():   # the CE row passes only
+            for entry in (cef, ceb):
+                entry["launches"] += counts.get(entry["name"], 0)
+        t23 = time.perf_counter()
+        par_launches, par = parallel_phase(device, keep,
+                                           train["factual_step_ms"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
-    for counts in s2s_launches.values():   # the CE row passes only
-        for entry in (cef, ceb):
-            entry["launches"] += counts.get(entry["name"], 0)
-    log(f"phases 21-22 done; the whole run {time.perf_counter() - t_run:.1f}"
+    # every rank's launches: K3, the CE, K2 and K7 (phase 19's stages over
+    # two ranks), K8 (the SentiCap step)
+    for entry in (k3f, k3b, cef, ceb, k8f, k8b):
+        entry["launches"] += par_launches.get(entry["name"], 0)
+    k2["launches"] += par_launches.get("mega_beam_decode", 0)
+    k7["factored"]["launches"] += par_launches.get("mega_att_beam_decode", 0)
+    par["phase_s"] = time.perf_counter() - t23
+    log(f"phase 23: slice 8 ok in {par['phase_s']:.1f} s; against phase "
+        "19's one-process train "
+        + ", ".join(f"{n} {par[n]['against_one_process']}" for n in par
+                    if isinstance(par[n], dict)
+                    and "against_one_process" in par[n])
+        + f"; SentiCap DP 2 step {par['senticap_dp2_step']}; factual step "
+        f"ms a rank {par['factual_step_ms']}; launches {par_launches}")
+    log(f"phases 21-23 done; the whole run {time.perf_counter() - t_run:.1f}"
         " s (the kernels' build included)")
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
@@ -7478,6 +7961,7 @@ def main() -> int:
     print(json.dumps({"decode": {"senticap": decode,
                                  "senticap_switched": decode_sw}}))
     print(json.dumps({"split_timeline": stages}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,

@@ -30,6 +30,9 @@ Package map:
 - :mod:`icee_tpu_torch.cli`      — the command-line entry points
   (``python -m icee_tpu_torch.cli.train`` and the rest; on CUDA unless
   ``--device cpu``)
+- :mod:`icee_tpu_torch.parallel` — data and vocab-dim tensor parallelism
+  over ``torch.distributed`` (the mesh, its collectives, the trees'
+  placement, spawned worlds and the dry run)
 - :mod:`icee_tpu_torch.bridge`   — numpy <-> torch parameter trees
 """
 

@@ -9,6 +9,12 @@ backbone runs on the device, and each batch of ``--batch_size`` images
 ``--beam_size`` the kernels do not take (above 8) raises the kernel's own
 error on the card; nothing decodes on a plain path there instead.
 
+``--data_parallel`` decodes each batch over every rank of the world (one
+process per card, ``python -m torch.distributed.run``): each rank searches
+its share of the batch, rounded down to a multiple of the ranks (at least
+one image each), as the JAX CLI rounds it, and rank 0 writes the JSON.  A
+world of one process decodes single-device with a WARNING.
+
 Serving semantics by default (image feature fed at beam step 1,
 ``app/backend/model.py:414-417``); ``--research_semantics`` gives the
 ``stylenet/model.py:224-227`` behavior.
@@ -26,20 +32,22 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
                   batch_size=64, k=5, attention=False, feed_feature=True,
-                  device="cpu"):
+                  device="cpu", mesh=None):
     """-> dict image name -> detokenized caption (serving detok contract:
     strip specials, drop trailing ``<unk>``,
-    ``app/backend/sample.py:82-96``)."""
+    ``app/backend/sample.py:82-96``); ``mesh``: data-parallel decoding."""
     from icee_tpu_torch.cli.evaluate import beam_decode, padded_features
 
     batch_size = min(batch_size, max(1, len(names)))
+    if mesh is not None:
+        batch_size = max(mesh.n_data, batch_size - batch_size % mesh.n_data)
     out = {}
     for i in range(0, len(names), batch_size):
         chunk = names[i : i + batch_size]
         feats = padded_features(head, provider, chunk, batch_size, attention,
                                 device)
         toks, lens = beam_decode(dec_params, cfg, vocab, feats, mode_idx, k,
-                                 attention, feed_feature)
+                                 attention, feed_feature, mesh)
         for b, name in enumerate(chunk):
             words = vocab.decode(toks[b, : int(lens[b])])
             while words and words[-1] == "<unk>":
@@ -85,10 +93,10 @@ def main(args) -> None:
     from icee_tpu_torch.core.config import mode_id
     from icee_tpu_torch.data.vocab import load_vocab
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-device decoding comes with "
-                         "slice 8 of the port")
     device = common.device_of(args)
+    mesh = common.data_parallel_mesh(args, device, "decoding")
+    if mesh is not None:
+        device = mesh.device
     vocab = load_vocab(args.vocab_path)
     cfg = common.decoder_config(args, len(vocab), attention=args.attention)
     names = image_names(args)
@@ -105,8 +113,10 @@ def main(args) -> None:
         dec, head, cfg, vocab, names, provider, mode_id(args.mode),
         batch_size=args.batch_size, k=args.beam_size,
         attention=args.attention, feed_feature=not args.research_semantics,
-        device=device)
-
+        device=device, mesh=mesh)
+    common.end_parallel(mesh)
+    if mesh is not None and not mesh.is_writer:
+        return
     text = json.dumps(captions, ensure_ascii=False, indent=2)
     if args.out:
         with open(args.out, "w") as f:
@@ -117,15 +127,13 @@ def main(args) -> None:
 
 
 def parser() -> argparse.ArgumentParser:
-    from icee_tpu_torch.cli.common import add_model_flags
+    from icee_tpu_torch.cli.common import add_model_flags, add_parallel_flags
 
     p = argparse.ArgumentParser()
     p.add_argument("--checkpoint_path", type=str, default=None)
     p.add_argument("--attention", action="store_true",
                    help="use the attention decoder family")
-    p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device decoding: slice 8 of the port "
-                        "(refused)")
+    add_parallel_flags(p, "decoding")
     p.add_argument("--research_semantics", action="store_true",
                    help="ignore the image feature in the beam "
                         "(stylenet/model.py:224-227) instead of the "

@@ -291,3 +291,82 @@ def smoke_weights(cfg, device, attention: bool = False) -> tuple:
                                     EncoderConfig(embed_size=cfg.embed_size),
                                     device=device)
     return dec, head
+
+
+# --- multi-process runs (icee_tpu_torch/parallel) -------------------------
+
+def add_parallel_flags(p: argparse.ArgumentParser, what: str,
+                       multihost: bool = False) -> None:
+    """``--data_parallel`` (and, for training, the model axis and JAX's
+    three multi-host flags) plus ``--dist_backend``."""
+    p.add_argument("--data_parallel", action="store_true",
+                   help=f"data-parallel {what} over every rank of the "
+                        "world: one process per card, started by "
+                        "python -m torch.distributed.run (or, for "
+                        "training, the multi-host flags)")
+    if multihost:
+        p.add_argument("--tensor_parallel", type=int, default=1,
+                       help="model-axis size (with --data_parallel): the "
+                            "vocabulary of the embedding and the output "
+                            "head split over that many ranks")
+        p.add_argument("--coordinator_address", type=str, default=None,
+                       help="multi-host: host:port of process 0 (with "
+                            "--data_parallel, --num_processes and "
+                            "--process_id)")
+        p.add_argument("--num_processes", type=int, default=None)
+        p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="collectives' backend (default: NCCL on CUDA, gloo "
+                        "on the CPU); gloo lets two ranks share one card, "
+                        "which NCCL refuses")
+
+
+def refuse_parallel_without_dp(args) -> None:
+    """The model axis and the multi-host flags act only with
+    ``--data_parallel``, and the coordinator needs the other two: raise
+    SystemExit rather than ignore them."""
+    stray = [flag for flag, on in (
+        ("--tensor_parallel", args.tensor_parallel > 1),
+        ("--coordinator_address", args.coordinator_address is not None),
+        ("--num_processes", args.num_processes is not None),
+        ("--process_id", args.process_id is not None)) if on]
+    if stray and not args.data_parallel:
+        raise SystemExit(f"{', '.join(stray)} need --data_parallel")
+    if args.coordinator_address is not None and (
+            args.num_processes is None or args.process_id is None):
+        raise SystemExit("--coordinator_address needs --num_processes and "
+                         "--process_id")
+
+
+def data_parallel_mesh(args, device: torch.device, what: str, tp: int = 1):
+    """``--data_parallel``: start the world (torchrun's environment or the
+    multi-host flags, ``parallel/mesh.py::init_distributed``) -> this
+    rank's mesh, or None with a WARNING where the world holds one
+    process (or without the flag)."""
+    if not args.data_parallel:
+        return None
+    import torch.distributed as dist
+
+    from icee_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from icee_tpu_torch.parallel.train import dp_tp_shape
+
+    init_distributed(getattr(args, "coordinator_address", None),
+                     getattr(args, "num_processes", None),
+                     getattr(args, "process_id", None),
+                     backend=args.dist_backend, device=device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1:
+        print(f"WARNING: --data_parallel with a single device; {what} "
+              "single-device")
+        return None
+    shape = dp_tp_shape(n, tp) if tp > 1 else (n, 1)
+    return make_mesh(shape, device=device, backend=args.dist_backend)
+
+
+def end_parallel(mesh) -> None:
+    """Take the world down at the end of a multi-process run."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()

@@ -11,6 +11,14 @@ on the CPU their plain versions.  The JAX CLI probes a chain of candidate
 paths and takes the first that compiles; the port has one path a decoder,
 and a beam width the kernel does not take (k > 8) raises its error.
 
+``--data_parallel`` decodes each batch over every rank of the world (one
+process per card, started by ``python -m torch.distributed.run``): each
+rank searches its ``--batch_size / N`` images
+(``decode/fast.py::sharded_factored_decode`` /
+``sharded_attention_decode``) and rank 0 prints; ``--batch_size`` must
+divide by N.  A world of one process decodes single-device with a
+WARNING.
+
 Semantics: without ``--attention`` the research ``sample()`` by default
 (the feature never fed, ``stylenet/model.py:224-227``); ``--feed_feature``
 gives the serving semantics (``app/backend/model.py:414-417``).
@@ -46,9 +54,10 @@ def padded_features(head, provider, names, batch_size: int, attention: bool,
 
 
 def beam_decode(dec_params, cfg, vocab, feats, style: int, k: int,
-                attention: bool, feed_feature: bool):
+                attention: bool, feed_feature: bool, mesh=None):
     """One batch's beam search: one K2 (or, with ``attention``, K7) launch
-    on the card; -> (tokens, lengths) as numpy."""
+    on the card, on this rank's images of it with a ``mesh``; -> (tokens,
+    lengths) of the whole batch as numpy."""
     import torch
 
     from icee_tpu_torch.decode import fast
@@ -57,20 +66,31 @@ def beam_decode(dec_params, cfg, vocab, feats, style: int, k: int,
     common = (batch, k, cfg.max_seq_length, vocab.start, vocab.end)
     with torch.no_grad():
         if attention:
-            res = fast.attention_decode("mega", dec_params,
-                                        feats.contiguous(), style, *common)
+            if mesh is not None:
+                res = fast.sharded_attention_decode(
+                    dec_params, feats.contiguous(), style, mesh, *common)
+            else:
+                res = fast.attention_decode("mega", dec_params,
+                                            feats.contiguous(), style,
+                                            *common)
         else:
             tiled = feats[:, None, :].expand(batch, k, feats.shape[1])
-            res = fast.factored_decode(
-                "mega", dec_params,
-                tiled.contiguous() if feed_feature else None, style, *common)
+            tiled = tiled.contiguous() if feed_feature else None
+            if mesh is not None:
+                res = fast.sharded_factored_decode(dec_params, tiled, style,
+                                                   mesh, *common)
+            else:
+                res = fast.factored_decode("mega", dec_params, tiled, style,
+                                           *common)
     return res.tokens.cpu().numpy(), res.length.cpu().numpy()
 
 
 def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
              batch_size=64, k=5, print_pairs=True, attention=False,
-             feed_feature=False, device="cpu"):
-    """-> [BLEU-1, BLEU-2, BLEU-3, BLEU-4] over ``dataset``'s lines."""
+             feed_feature=False, device="cpu", mesh=None):
+    """-> [BLEU-1, BLEU-2, BLEU-3, BLEU-4] over ``dataset``'s lines;
+    ``mesh``: each batch decoded data-parallel, the pairs printed by rank
+    0 alone."""
     from icee_tpu_torch.evaluation.bleu import bleu_1_to_4
 
     references, hypotheses = [], []
@@ -79,13 +99,13 @@ def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
         feats = padded_features(head, provider, [ex.image for ex in chunk],
                                 batch_size, attention, device)
         toks, lens = beam_decode(dec_params, cfg, vocab, feats, mode_idx, k,
-                                 attention, feed_feature)
+                                 attention, feed_feature, mesh)
         for b, ex in enumerate(chunk):
             refs = [list(map(int, r)) for r in ex.all_caption_ids]
             hyp = toks[b, : lens[b]].tolist()
             references.append(refs)
             hypotheses.append(hyp)
-            if print_pairs:
+            if print_pairs and (mesh is None or mesh.is_writer):
                 print("ref", " ".join(vocab.idx2word[w] for w in refs[0]))
                 print("pred", " ".join(vocab.idx2word[w] for w in hyp))
     return bleu_1_to_4(references, hypotheses)
@@ -97,10 +117,13 @@ def main(args) -> None:
     from icee_tpu_torch.data.captions import load_caption_dataset
     from icee_tpu_torch.data.vocab import load_vocab
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-device decoding comes with "
-                         "slice 8 of the port")
     device = common.device_of(args)
+    mesh = common.data_parallel_mesh(args, device, "decoding")
+    if mesh is not None:
+        device = mesh.device
+        if args.batch_size % mesh.n_data:
+            raise SystemExit(f"--batch_size {args.batch_size} must divide "
+                             f"by the data-axis size {mesh.n_data}")
     vocab = load_vocab(args.vocab_path)
     cfg = common.decoder_config(args, len(vocab), attention=args.attention)
     dataset = load_caption_dataset(args.test_path, vocab)
@@ -115,24 +138,25 @@ def main(args) -> None:
     b1, b2, b3, b4 = evaluate(dec, head, cfg, vocab, dataset, provider,
                               mode_id(args.mode), batch_size=args.batch_size,
                               attention=args.attention,
-                              feed_feature=args.feed_feature, device=device)
-    print("BLEU-1", b1)
-    print("BLEU-2", b2)
-    print("BLEU-3", b3)
-    print("BLEU-4", b4)
+                              feed_feature=args.feed_feature, device=device,
+                              mesh=mesh)
+    if mesh is None or mesh.is_writer:
+        print("BLEU-1", b1)
+        print("BLEU-2", b2)
+        print("BLEU-3", b3)
+        print("BLEU-4", b4)
+    common.end_parallel(mesh)
 
 
 def parser() -> argparse.ArgumentParser:
-    from icee_tpu_torch.cli.common import add_model_flags
+    from icee_tpu_torch.cli.common import add_model_flags, add_parallel_flags
 
     p = argparse.ArgumentParser()
     p.add_argument("--checkpoint_path", type=str, default=None)
     p.add_argument("--attention", action="store_true",
                    help="evaluate the attention decoder (reference "
                         "evaluator default)")
-    p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device decoding: slice 8 of the port "
-                        "(refused)")
+    add_parallel_flags(p, "decoding")
     p.add_argument("--feed_feature", action="store_true",
                    help="feed the image feature at beam step 1 (serving "
                         "semantics) instead of the reference research "

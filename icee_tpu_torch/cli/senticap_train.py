@@ -30,8 +30,13 @@ the chunked CE, ``train`` through two K8 scans a step and the mixture CE,
 and ``test`` decodes through K10 (styled) and K9 (descriptive, or the base
 model with ``--base_only``); ``--chunked_ce`` / ``--fused_scan`` ``auto``
 mean on for CUDA.  The model pickle is the JAX package's: either package
-loads the other's.  ``--data_parallel`` is refused, naming slice 8 of the
-port.  Fresh weights come from :func:`init_base` and
+loads the other's.  ``--data_parallel`` trains ``base`` and ``train``
+over every rank of the world (one process per card, ``python -m
+torch.distributed.run``; ``senticap/train.py``'s data-parallel steps): the
+minibatch must divide by the ranks, every rank starts from rank 0's
+weights and rank 0 alone writes the pickle; ``test`` decodes on one card
+(as the JAX CLI's), and a world of one process trains single-device with
+a WARNING.  Fresh weights come from :func:`init_base` and
 :func:`init_switched`, drawn from ``torch.Generator``s seeded ``--seed``
 (the JAX CLI draws from ``jax.random.PRNGKey(seed)``, whose numbers torch
 cannot reproduce).
@@ -71,15 +76,23 @@ def init_switched(vocab_size: int, conf: dict, base: dict, seed: int,
 
 
 def main(args) -> None:
-    from icee_tpu_torch.cli.common import device_of
+    from icee_tpu_torch.cli.common import (data_parallel_mesh, device_of,
+                                           end_parallel)
     from icee_tpu_torch.senticap import io as sio
     from icee_tpu_torch.senticap import train as T
     from icee_tpu_torch.senticap.config import senticap_conf
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: data-parallel SentiCap training "
-                         "comes with slice 8 of the port")
     device = device_of(args)
+    mesh = None
+    if args.command != "test":
+        mesh = data_parallel_mesh(args, device, "training")
+        if mesh is not None:
+            device = mesh.device
+            if args.batch_size % mesh.n_data:
+                raise SystemExit(f"--batch_size {args.batch_size} must "
+                                 "divide by the data-axis size "
+                                 f"{mesh.n_data}")
+    writer = mesh is None or mesh.is_writer
     records = sio.load_captions_json(args.captions)
     default_senti = 1.0 if args.sentiment == "pos" else -1.0
     for r in records:
@@ -106,11 +119,12 @@ def main(args) -> None:
             ds, len(w2i), conf, num_epochs=args.num_epochs, seed=args.seed,
             device_epoch=args.device_resident, device=device,
             init_params_override=init_base(len(w2i), conf, unigram,
-                                           args.seed, device))
-        sio.save_model(args.model_out, params, conf, vocab=w2i)
-        print(f"saved base model to {args.model_out}")
-        print("val perplexity:",
-              T.validation_perplexity(params, conf, ds, device=device))
+                                           args.seed, device), mesh=mesh)
+        ppl = T.validation_perplexity(params, conf, ds, device=device)
+        if writer:
+            sio.save_model(args.model_out, params, conf, vocab=w2i)
+            print(f"saved base model to {args.model_out}")
+            print("val perplexity:", ppl)
 
     elif args.command == "train":
         from icee_tpu_torch.senticap import switched as sw_model
@@ -156,9 +170,10 @@ def main(args) -> None:
         params, _ = T.train_switched(
             ds, base_params, len(w2i), conf, num_epochs=args.num_epochs,
             seed=args.seed, init_params_override=sw_params,
-            device_epoch=args.device_resident, device=device)
-        sio.save_model(args.model_out, params, conf, vocab=w2i)
-        print(f"saved switched model to {args.model_out}")
+            device_epoch=args.device_resident, device=device, mesh=mesh)
+        if writer:
+            sio.save_model(args.model_out, params, conf, vocab=w2i)
+            print(f"saved switched model to {args.model_out}")
 
     elif args.command == "test":
         params, conf, _, w2i = sio.load_model(args.model_in, device)
@@ -200,9 +215,12 @@ def main(args) -> None:
             print(json.dumps(score_decodes(out, refs), default=float))
     else:
         raise SystemExit(f"unknown command {args.command}")
+    end_parallel(mesh)
 
 
 def parser() -> argparse.ArgumentParser:
+    from icee_tpu_torch.cli.common import add_parallel_flags
+
     p = argparse.ArgumentParser()
     p.add_argument("command", choices=["base", "train", "test"])
     p.add_argument("-s", "--sentiment", choices=["pos", "neg"],
@@ -225,9 +243,6 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--base_only", action="store_true")
     p.add_argument("--print_n", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device training: slice 8 of the port "
-                        "(refused)")
     p.add_argument("--device_resident", action="store_true",
                    help="run each epoch over the split on the device with "
                         "the losses read once an epoch (the same steps and "
@@ -244,6 +259,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu (the plain "
                         "PyTorch versions of the kernels)")
+    add_parallel_flags(p, "training")
     return p
 
 

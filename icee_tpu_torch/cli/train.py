@@ -29,29 +29,26 @@ resumes from it mid-epoch.
 to the host loader with a WARNING line, as in the JAX CLI (the seq2seq
 trainer has no streamed tier).
 
-Refused at start-up, naming slice 8 of the port, which brings them:
-``--data_parallel``, ``--tensor_parallel`` and the multi-host flags.  A
-``--hidden_size`` that the training scan's launch plan cannot take on this
-card is refused with the plan's own message before any data loads.
+``--data_parallel`` trains on every rank of the world, one process per
+card (``icee_tpu_torch/parallel``): started by ``python -m
+torch.distributed.run --nproc_per_node N -m icee_tpu_torch.cli.train
+--data_parallel ...``, or on several hosts with JAX's ``--coordinator_address
+--num_processes --process_id``.  ``--tensor_parallel M`` splits the
+vocabulary of the embedding and the head over M ranks of a ``(N / M, M)``
+mesh where M divides the world (JAX's ``dp_tp_shape``).  Both batch sizes
+must divide by the data axis.  Every rank loads the same data; rank 0
+alone logs and writes the checkpoints.  ``--dist_backend gloo`` puts
+several ranks on one card (NCCL refuses that); the default follows the
+device.  A world of one process trains single-device with a WARNING;
+``--tensor_parallel`` or the multi-host flags without ``--data_parallel``
+are refused.  A ``--hidden_size`` that the training scan's launch plan
+cannot take on this card is refused with the plan's own message before any
+data loads.
 """
 
 import argparse
 
 DEVICE_BUDGET_GB = 4.0    # --device_budget_gb's default
-
-
-def refuse_unported(args) -> None:
-    """Raise SystemExit, naming the slice, for what the port does not run
-    yet; nothing is ignored in silence."""
-    parallel = [flag for flag, on in (
-        ("--data_parallel", args.data_parallel),
-        ("--tensor_parallel", args.tensor_parallel > 1),
-        ("--coordinator_address", args.coordinator_address is not None),
-        ("--num_processes", args.num_processes is not None),
-        ("--process_id", args.process_id is not None)) if on]
-    if parallel:
-        raise SystemExit(f"{', '.join(parallel)}: multi-device training "
-                         "comes with slice 8 of the port")
 
 
 def check_scan_plan(family: str, cfg, tcfg, device) -> None:
@@ -142,8 +139,15 @@ def main(args) -> None:
                                             PaperRegimeTrainer,
                                             Seq2SeqTrainer, TransferTrainer)
 
-    refuse_unported(args)
+    common.refuse_parallel_without_dp(args)
     device = common.device_of(args)
+    mesh = common.data_parallel_mesh(args, device, "training",
+                                     args.tensor_parallel)
+    if mesh is not None:
+        from icee_tpu_torch.parallel.data import check_batch_sizes
+
+        check_batch_sizes(common.train_config(args), mesh, SystemExit)
+        device = mesh.device
     vocab = load_vocab(args.vocab_path)
     attention = args.trainer.endswith("_att") or args.attention
     cfg = common.decoder_config(args, len(vocab), attention=attention)
@@ -201,7 +205,8 @@ def main(args) -> None:
                              max_seq_length=args.max_seq_length)
         params, head = init_weights(family, scfg, ecfg, args.seed, device)
         trainer = Seq2SeqTrainer(scfg, tcfg, vocab, params, head,
-                                 log_path=args.log_path, device=device)
+                                 log_path=args.log_path, mesh=mesh,
+                                 device=device)
         trainer.train(
             loader(args.caption_path, tcfg.caption_batch_size),
             {emo: loader(p[0], tcfg.language_batch_size)
@@ -211,13 +216,14 @@ def main(args) -> None:
             val_emotion_loaders={
                 emo: loader(p[1], tcfg.language_batch_size, train=False)
                 for emo, p in emo_paths.items()})
+        common.end_parallel(mesh)
         return
     dec, head = init_weights(family, cfg, ecfg, args.seed, device)
     common_kw = dict(
         cfg=cfg, tcfg=tcfg, vocab=vocab, dec_params=dec, head_params=head,
         family=family, log_path=args.log_path, model_dir=args.model_path,
         data_name=args.data_name, metrics_path=args.metrics_path,
-        device=device)
+        mesh=mesh, device=device)
 
     if args.trainer in ("multitask", "multitask_att"):
         trainer = MultitaskTrainer(**common_kw)
@@ -243,8 +249,8 @@ def main(args) -> None:
         if args.checkpoint_path:
             # transfer loads the factual stage's PARAMETERS and builds fresh
             # optimizers over the style group (train_transfer.py:94-115)
-            trainer.dec, trainer.head = common.load_decoder(
-                args.checkpoint_path, device)
+            trainer.load_params(*common.load_decoder(args.checkpoint_path,
+                                                     device))
         emo_train, emo_val = emo_paths[args.mode]
         trainer.train_transfer(
             loader(emo_train, tcfg.language_batch_size),
@@ -267,10 +273,12 @@ def main(args) -> None:
         trainer.train(
             loader(args.caption_path, tcfg.caption_batch_size),
             {emo: style_loader(p[0]) for emo, p in emo_paths.items()})
+    common.end_parallel(mesh)
 
 
 def parser() -> argparse.ArgumentParser:
     from icee_tpu_torch.cli.common import (add_data_flags, add_model_flags,
+                                           add_parallel_flags,
                                            add_train_flags)
 
     p = argparse.ArgumentParser()
@@ -301,16 +309,7 @@ def parser() -> argparse.ArgumentParser:
                         "split whose unique features fit is pinned, a "
                         "larger one streams through two buffers of half "
                         "this size")
-    p.add_argument("--data_parallel", action="store_true",
-                   help="multi-device training: slice 8 of the port "
-                        "(refused)")
-    p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="model-axis size (with --data_parallel): slice 8 "
-                        "of the port (above 1 refused)")
-    p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-host: slice 8 of the port (refused)")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    add_parallel_flags(p, "training", multihost=True)
     p.add_argument("--checkpoint_path", type=str, default=None,
                    help="resume/fine-tune source checkpoint (a directory "
                         "the port's trainers wrote)")

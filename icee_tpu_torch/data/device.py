@@ -15,7 +15,9 @@ port's ``BatchLoader._index_batches`` does (the same seeded
 ``np.random.default_rng`` shuffle, the same trailing partial batch), so a
 device epoch and a host-loader epoch visit the same batches; with the
 trainer's randomness drawn in the same order they give the same
-parameters.
+parameters.  On a mesh (``icee_tpu_torch/parallel``) every rank holds the
+whole split, as JAX replicates it, gathers the same global batches and
+computes on its rows of them.
 
 A split whose features exceed the card's budget (:func:`pin_plan`) becomes
 a :class:`StreamedCaptionData`: captions and lengths on the card, features

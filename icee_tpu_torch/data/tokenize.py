@@ -15,15 +15,21 @@ A pure-Python fallback tokenizer is included for environments without nltk.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import List
 
-try:  # nltk's regex tokenizer needs no downloaded data
-    from nltk.tokenize.destructive import NLTKWordTokenizer
 
-    _NLTK_TOKENIZER = NLTKWordTokenizer()
-except Exception:  # pragma: no cover - exercised only without nltk
-    _NLTK_TOKENIZER = None
+@functools.lru_cache(maxsize=None)
+def _nltk_tokenizer():
+    """nltk's regex tokenizer (it needs no downloaded data), imported at
+    first use: importing nltk takes seconds (it imports scipy.stats), which
+    every process that only unpickles a vocabulary would pay."""
+    try:
+        from nltk.tokenize.destructive import NLTKWordTokenizer
+    except ImportError:  # pragma: no cover - exercised only without nltk
+        return None
+    return NLTKWordTokenizer()
 
 _SENT_RE = re.compile(r"(?<=[.!?])\s+")
 
@@ -39,8 +45,8 @@ def sent_split(text: str) -> List[str]:
 
 def word_tokenize(text: str) -> List[str]:
     """Reference-parity ``nltk.tokenize.word_tokenize`` without Punkt data."""
-    if _NLTK_TOKENIZER is not None:
-        return [
-            tok for sent in sent_split(text) for tok in _NLTK_TOKENIZER.tokenize(sent)
-        ]
+    tokenizer = _nltk_tokenizer()
+    if tokenizer is not None:
+        return [tok for sent in sent_split(text)
+                for tok in tokenizer.tokenize(sent)]
     return _FALLBACK_RE.findall(text)

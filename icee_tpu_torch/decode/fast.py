@@ -24,6 +24,13 @@ driving K6 (``ops/att_decode_step.py``) once per step from the h0/c0
 kernel (``att_init_state``, K7's bits).
 Their beams have the research semantics: step 1 embeds ``<start>``, and the
 spatial features (batch, P, FS) enter through h0/c0 and the attention.
+
+:func:`sharded_factored_decode` and :func:`sharded_attention_decode` (the
+counterparts of JAX's ``sharded_mega_decode`` and
+``sharded_mega_att_decode``) split a batch's images over a mesh's data
+group: each rank runs one K2 (K7) search on its ``batch / n_data`` images
+with the whole decoder, and the results are gathered to every rank.  A
+search is independent per image, so the tokens are the one-card search's.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 
 from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
 from icee_tpu_torch.models import factored_lstm as fl
+from icee_tpu_torch.parallel.collectives import gather_rows
+from icee_tpu_torch.parallel.data import row_slice
 
 PATHS = ("mega", "fused-step")
 
@@ -155,3 +164,48 @@ def nic_att_decode(path: str, dec_params: dict, spatial: torch.Tensor,
     decoder through ``path``."""
     return _att_decode(path, "lstm", dec_params, spatial, 0, batch, k,
                        max_seq_length, start_token, end_token)
+
+
+def _gathered(res: BeamResult, mesh) -> BeamResult:
+    """Each rank's rows of a search's results, stacked in data-rank order
+    on every rank (:func:`~icee_tpu_torch.parallel.collectives.
+    gather_rows`)."""
+    return BeamResult(*(gather_rows(x.contiguous(), mesh.data_group,
+                                    mesh.data_rank, mesh.n_data)
+                        for x in res))
+
+
+def sharded_factored_decode(dec_params: dict, feats: Optional[torch.Tensor],
+                            style: int, mesh, batch: int, k: int,
+                            max_seq_length: int, start_token: int,
+                            end_token: int, cell: str = "factored"
+                            ) -> BeamResult:
+    """Data-parallel :func:`factored_decode` through ``"mega"`` (or, with
+    ``cell="lstm"``, :func:`nic_decode`): this rank's rows of ``feats``
+    (batch, k, E) (None: the research semantics), one K2 launch, the
+    results of every rank.  ``batch`` must divide by the data axis."""
+    rows = row_slice(batch, mesh)
+    local = None if feats is None else feats[rows].contiguous()
+    n = rows.stop - rows.start
+    common = (k, max_seq_length, start_token, end_token)
+    if cell == "lstm":
+        res = nic_decode(dec_params, local, n, *common)
+    else:
+        res = factored_decode("mega", dec_params, local, style, n, *common)
+    return _gathered(res, mesh)
+
+
+def sharded_attention_decode(dec_params: dict, spatial: torch.Tensor,
+                             style: int, mesh, batch: int, k: int,
+                             max_seq_length: int, start_token: int,
+                             end_token: int, kind: str = "factored"
+                             ) -> BeamResult:
+    """Data-parallel attention decode through ``"mega"``: this rank's rows
+    of ``spatial`` (batch, P, FS), one K7 launch, the results of every
+    rank; ``kind`` ``"factored"`` (StyleNet+Att) or ``"lstm"`` (NIC+Att)."""
+    rows = row_slice(batch, mesh)
+    res = _att_decode("mega", kind, dec_params,
+                      spatial[rows].contiguous(), style,
+                      rows.stop - rows.start, k, max_seq_length, start_token,
+                      end_token)
+    return _gathered(res, mesh)

@@ -36,13 +36,16 @@ def masked_cross_entropy(
     targets: torch.Tensor,    # (B, T) int
     lengths: torch.Tensor,    # (B,)
     sample_mask: Optional[torch.Tensor] = None,  # (B,) bool, batch padding
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Token-mean CE == torch ``CrossEntropyLoss()(packed_logits,
-    packed_tgts)``."""
+    packed_tgts)``; ``count``, where given, replaces this batch's
+    valid-token count as the denominator (a data-parallel rank's share of
+    a global batch's mean)."""
     mask = _mask(lengths, logits.shape[1], sample_mask)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    denom = mask.sum().clamp(min=1)
+    denom = (mask.sum() if count is None else count).clamp(min=1)
     return torch.where(mask, nll, 0.0).sum() / denom
 
 
@@ -52,13 +55,15 @@ def masked_top_k_accuracy(
     lengths: torch.Tensor,
     k: int = 5,
     sample_mask: Optional[torch.Tensor] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Top-k token accuracy in percent over valid tokens (utils.py:127-140);
-    ties go to the lowest index, as ``lax.top_k``."""
+    ties go to the lowest index, as ``lax.top_k``; ``count`` as in
+    :func:`masked_cross_entropy`."""
     mask = _mask(lengths, logits.shape[1], sample_mask)
     _, top_idx = top_k(logits, k)                       # (B, T, k)
     correct = (top_idx == targets.long()[..., None]).any(dim=-1)
-    denom = mask.sum().clamp(min=1)
+    denom = (mask.sum() if count is None else count).clamp(min=1)
     return 100.0 * (mask & correct).sum() / denom
 
 

@@ -252,16 +252,35 @@ class _Family:
     """What differs between the two decoders: the embedding table, the
     cell, the head and K5's parameter layout."""
 
-    def __init__(self, params: dict, cfg, style: int, factored: bool):
+    def __init__(self, params: dict, cfg, style: int, factored: bool,
+                 vocab=None):
         self.params, self.cfg, self.style = params, cfg, int(style)
         self.factored = factored
+        self.vocab = vocab
         self.table = params["B"] if factored else params["embed"]
         self.head_w, self.head_b = ((params["C_w"], params["C_b"])
                                     if factored else
                                     (params["linear_w"], params["linear_b"]))
 
     def embed(self, tokens):
+        if self.vocab is not None:
+            return self.vocab.embed(self.table, tokens)
         return self.table[tokens.long()]
+
+    def argmax(self, logits):
+        if self.vocab is not None:
+            return self.vocab.argmax(logits)
+        return torch.argmax(logits, dim=-1)              # first maximum
+
+    def whole_head(self) -> dict:
+        """K5's sampled scan reads the whole head and table (its argmax
+        and the fed-back rows): with ``vocab`` gathered from the slices,
+        each slice's gradient its part of the whole's."""
+        if self.vocab is None:
+            return {"C_w": self.head_w, "C_b": self.head_b, "B": self.table}
+        return {"C_w": self.vocab.whole(self.head_w, 1),
+                "C_b": self.vocab.whole(self.head_b, 0),
+                "B": self.vocab.whole(self.table, 0)}
 
     def cell(self, x, h, c):
         if self.factored:
@@ -303,7 +322,7 @@ def _train_forward(fam: _Family, captions, features, teacher_forcing_ratio,
         if coins is None:
             return att_scan.fused_att_scan(cell, katt, emb_seq, att1,
                                            features, h0, c0, kind)
-        head = {"C_w": fam.head_w, "C_b": fam.head_b, "B": fam.table}
+        head = fam.whole_head()
         coin_t = torch.tensor(coins, dtype=torch.float32,
                               device=emb_seq.device)
         # only the t = 0 bootstrap column of the raw embeddings is consumed
@@ -326,7 +345,7 @@ def _train_forward(fam: _Family, captions, features, teacher_forcing_ratio,
             if coins is not None:
                 logits = fam.logits(h.detach())
         if coins is not None:
-            prev = torch.argmax(logits, dim=-1)          # first maximum
+            prev = fam.argmax(logits)
         alphas.append(alpha)
     return torch.stack(outs, 1), torch.stack(alphas, 1)
 
@@ -365,12 +384,15 @@ def factored_att_forward_hiddens(params: dict, cfg: AttentionDecoderConfig,
                                  generator: Optional[torch.Generator] = None,
                                  train: bool = True, fused_scan: bool = False,
                                  keep=None,
-                                 coins: Optional[Sequence[bool]] = None
+                                 coins: Optional[Sequence[bool]] = None,
+                                 vocab=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """StyleNet+Att training forward -> (hiddens (B, T, H), alphas); the
     vocab head is left to the caller (the chunked loss).  ``fused_scan``
-    runs K5, teacher-forced or sampled."""
-    return _train_forward(_Family(params, cfg, style, True), captions,
+    runs K5, teacher-forced or sampled.  ``vocab``: ``B`` and the head hold
+    this rank's slice of a vocabulary split over the mesh's model group
+    (:func:`icee_tpu_torch.models.factored_lstm.embed`)."""
+    return _train_forward(_Family(params, cfg, style, True, vocab), captions,
                           features, teacher_forcing_ratio, generator, train,
                           fused_scan, keep, coins, head_grad=False)
 
@@ -395,10 +417,11 @@ def rnn_att_forward_hiddens(params: dict, cfg: AttentionDecoderConfig,
                             generator: Optional[torch.Generator] = None,
                             train: bool = True, fused_scan: bool = False,
                             keep=None,
-                            coins: Optional[Sequence[bool]] = None
+                            coins: Optional[Sequence[bool]] = None,
+                            vocab=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NIC+Att training forward -> (hiddens, alphas); see
     :func:`factored_att_forward_hiddens`."""
-    return _train_forward(_Family(params, cfg, 0, False), captions,
+    return _train_forward(_Family(params, cfg, 0, False, vocab), captions,
                           features, teacher_forcing_ratio, generator, train,
                           fused_scan, keep, coins, head_grad=False)

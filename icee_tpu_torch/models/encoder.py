@@ -38,24 +38,27 @@ def init_head_params(generator: torch.Generator, cfg: EncoderConfig,
 
 
 def apply_head(head: dict, pooled: torch.Tensor, train: bool = False,
-               bn_momentum: float = 0.01):
+               bn_momentum: float = 0.01, group=None):
     """Linear + BatchNorm1d(momentum=0.01) (``model.py:26``).  Eval mode
     (the default) -> features (B, embed) on the running statistics;
-    ``train=True`` -> (features, head with updated running statistics)."""
+    ``train=True`` -> (features, head with updated running statistics);
+    ``group``: the batch statistics over a data group's rows
+    (:func:`~icee_tpu_torch.models.resnet.batch_norm_train`)."""
     x = pooled @ head["linear_w"] + head["linear_b"]
     if not train:
         return resnet.batch_norm(x, head["bn"], channel_axis=-1)
-    out, new_bn = resnet.batch_norm_train(x, head["bn"], bn_momentum)
+    out, new_bn = resnet.batch_norm_train(x, head["bn"], bn_momentum, group)
     new_head = dict(head)
     new_head["bn"] = new_bn
     return out, new_head
 
 
 def encode_global_from_pooled(head: dict, pooled: torch.Tensor,
-                              train: bool = False, bn_momentum: float = 0.01):
+                              train: bool = False, bn_momentum: float = 0.01,
+                              group=None):
     """Head-only path on cached or freshly pooled backbone features; the
     return follows :func:`apply_head`."""
-    return apply_head(head, pooled, train, bn_momentum)
+    return apply_head(head, pooled, train, bn_momentum, group)
 
 
 def encode_global(backbone: dict, head: dict, images: torch.Tensor,

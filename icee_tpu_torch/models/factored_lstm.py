@@ -57,7 +57,13 @@ def init_params(generator: torch.Generator, cfg: DecoderConfig,
     }
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, vocab=None) -> torch.Tensor:
+    """Rows of ``B``; with ``vocab`` (a
+    :class:`~icee_tpu_torch.parallel.collectives.VocabShard`) ``B`` holds
+    this rank's slice of the rows and the lookup sums over the model
+    group."""
+    if vocab is not None:
+        return vocab.embed(params["B"], tokens)
     return params["B"][tokens.long()]
 
 
@@ -85,12 +91,13 @@ def _teacher_forced(ratio) -> bool:
 
 
 def _prep_forward(params, cfg, captions, features, teacher_forcing_ratio,
-                  generator, train, keep, coins):
+                  generator, train, keep, coins, vocab=None):
     """Shared training-forward prologue -> (teacher inputs (B, T, E) with
     the feature prepended and dropout applied to the embeddings only, the
     per-step coins as a host list or None on the teacher-forced path, the
     zero initial state)."""
-    return prepare_inputs(embed(params, captions), cfg, captions, features,
+    return prepare_inputs(embed(params, captions, vocab), cfg, captions,
+                          features,
                           teacher_forcing_ratio, generator, train, keep,
                           coins)
 
@@ -125,29 +132,33 @@ def prepare_inputs(emb, cfg, captions, features, teacher_forcing_ratio,
 
 
 def _scheduled(params, teacher_inputs, coins: List[bool], state, prev,
-               style: int, head_grad: bool):
+               style: int, head_grad: bool, vocab=None):
     """The scheduled-sampling loop of the factored cell; see
     :func:`scheduled_loop`."""
     return scheduled_loop(
         lambda x, h, c: factored_lstm_cell(params, x, h, c, style),
-        lambda t: embed(params, t), lambda h: output_logits(params, h),
-        teacher_inputs, coins, state, prev, head_grad)
+        lambda t: embed(params, t, vocab),
+        lambda h: output_logits(params, h), teacher_inputs, coins, state,
+        prev, head_grad, vocab)
 
 
 def scheduled_loop(cell_fn, embed_fn, logits_fn, teacher_inputs,
-                   coins: List[bool], state, prev, head_grad: bool):
+                   coins: List[bool], state, prev, head_grad: bool,
+                   vocab=None):
     """The scheduled-sampling loop: on a free step the input is the
     UN-dropped embedding of the previous argmax (``model.py:180-191``).
     With ``head_grad`` False the head sees the detached hidden state (it
     only picks the argmax).  -> (hiddens (B, T, H), logits (B, T, V) or
-    None)."""
+    None).  With ``vocab`` the head holds this rank's columns and the
+    argmax is taken over the whole split vocabulary."""
     h, c = state
     hs, logits_all = [], []
     for step, coin in enumerate(coins):
         x = teacher_inputs[:, step] if coin else embed_fn(prev)
         h, c = cell_fn(x, h, c)
         logits = logits_fn(h if head_grad else h.detach())
-        prev = torch.argmax(logits, dim=-1)                  # first maximum
+        prev = (torch.argmax(logits, dim=-1) if vocab is None   # first max
+                else vocab.argmax(logits))
         hs.append(h)
         if head_grad:
             logits_all.append(logits)
@@ -187,9 +198,12 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
                     teacher_forcing_ratio: float = 0.8,
                     generator: Optional[torch.Generator] = None,
                     train: bool = True, fused_scan: bool = False, keep=None,
-                    coins: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                    coins: Optional[Sequence[bool]] = None,
+                    vocab=None) -> torch.Tensor:
     """Training forward -> hidden states (B, T, H); :func:`forward`'s
     semantics with the vocab head left to the caller (the chunked loss).
+    ``vocab``: ``B`` and ``C_w`` hold this rank's slice of a vocabulary
+    split over the mesh's model group (see :func:`embed`).
 
     On the teacher-forced path (ratio >= 1) ``fused_scan`` runs the K3
     scan (``ops/lstm_scan.py``) for any batch size; otherwise the cell loop
@@ -198,7 +212,7 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
     """
     teacher_inputs, coins, state = _prep_forward(
         params, cfg, captions, features, teacher_forcing_ratio, generator,
-        train, keep, coins)
+        train, keep, coins, vocab)
     style = int(style)
     if coins is None:
         if fused_scan:
@@ -215,7 +229,8 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
             hs.append(h)
         return torch.stack(hs, 1)
     hiddens, _ = _scheduled(params, teacher_inputs, coins, state,
-                            captions[:, 0], style, head_grad=False)
+                            captions[:, 0], style, head_grad=False,
+                            vocab=vocab)
     return hiddens
 
 

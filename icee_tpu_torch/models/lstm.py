@@ -81,7 +81,11 @@ def init_params(generator: torch.Generator, cfg: DecoderConfig,
     }
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, vocab=None) -> torch.Tensor:
+    """Rows of ``embed``; ``vocab`` as in
+    :func:`icee_tpu_torch.models.factored_lstm.embed`."""
+    if vocab is not None:
+        return vocab.embed(params["embed"], tokens)
     return params["embed"][tokens.long()]
 
 
@@ -103,19 +107,21 @@ def decode_step(params: dict, x: torch.Tensor,
 
 
 def _prep_forward(params, cfg, captions, features, teacher_forcing_ratio,
-                  generator, train, keep, coins):
+                  generator, train, keep, coins, vocab=None):
     """-> (teacher inputs (B, T, E), coins or None, zero state); the
     factored decoder's prologue over this decoder's embedding."""
-    return fl.prepare_inputs(embed(params, captions), cfg, captions,
+    return fl.prepare_inputs(embed(params, captions, vocab), cfg, captions,
                              features, teacher_forcing_ratio, generator,
                              train, keep, coins)
 
 
-def _scheduled(params, teacher_inputs, coins, state, prev, head_grad):
+def _scheduled(params, teacher_inputs, coins, state, prev, head_grad,
+               vocab=None):
     return fl.scheduled_loop(
         lambda x, h, c: lstm_cell(params["cell"], x, h, c),
-        lambda t: embed(params, t), lambda h: output_logits(params, h),
-        teacher_inputs, coins, state, prev, head_grad)
+        lambda t: embed(params, t, vocab),
+        lambda h: output_logits(params, h), teacher_inputs, coins, state,
+        prev, head_grad, vocab)
 
 
 def forward(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
@@ -145,9 +151,11 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
                     teacher_forcing_ratio: float = 0.8,
                     generator: Optional[torch.Generator] = None,
                     train: bool = True, fused_scan: bool = False, keep=None,
-                    coins: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                    coins: Optional[Sequence[bool]] = None,
+                    vocab=None) -> torch.Tensor:
     """Training forward -> hidden states (B, T, H), the vocab head left to
-    the caller (the chunked loss).
+    the caller (the chunked loss); ``vocab`` as in
+    :func:`icee_tpu_torch.models.factored_lstm.forward_hiddens`.
 
     On the teacher-forced path (ratio >= 1) ``fused_scan`` runs the K4 scan
     (``ops/nic_scan.py``) for any batch size; otherwise the cell loop in
@@ -156,7 +164,7 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
     (``models/lstm.py:213``)."""
     teacher_inputs, coins, state = _prep_forward(
         params, cfg, captions, features, teacher_forcing_ratio, generator,
-        train, keep, coins)
+        train, keep, coins, vocab)
     if coins is None:
         if fused_scan:
             return fused_nic_scan(params["cell"], teacher_inputs)
@@ -167,7 +175,7 @@ def forward_hiddens(params: dict, cfg: DecoderConfig, captions: torch.Tensor,
             hs.append(h)
         return torch.stack(hs, 1)
     hiddens, _ = _scheduled(params, teacher_inputs, coins, state,
-                            captions[:, 0], head_grad=False)
+                            captions[:, 0], head_grad=False, vocab=vocab)
     return hiddens
 
 

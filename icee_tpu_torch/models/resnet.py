@@ -104,17 +104,32 @@ def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 
 def batch_norm_train(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                     momentum: float = 0.1
+                     momentum: float = 0.1, group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """torch-semantics BatchNorm in training mode over the last (channel)
     axis: normalizes by the biased batch statistics and updates the running
     mean and the *unbiased* running variance (``icee_tpu/models/resnet.py::
     batch_norm``).  -> (out, p with the new running statistics, detached:
-    they are state, not parameters)."""
+    they are state, not parameters).
+
+    ``group``: the rows are this rank's share of a batch split evenly over
+    a data group, and the statistics are the whole batch's, as GSPMD
+    computes them: the sum for the mean, then the sum of squared
+    deviations (JAX's ``jnp.var``), each summed over the group in both
+    directions (the rows downstream differ by rank)."""
     axes = tuple(range(x.ndim - 1))
-    mean = x.mean(dim=axes)
-    var = x.var(dim=axes, unbiased=False)
-    n = x.numel() // x.shape[-1]
+    if group is None:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, unbiased=False)
+        n = x.numel() // x.shape[-1]
+    else:
+        from torch.distributed import get_world_size
+
+        from icee_tpu_torch.parallel.collectives import all_reduce_sum
+
+        n = x.numel() // x.shape[-1] * get_world_size(group)
+        mean = all_reduce_sum(x.sum(dim=axes), group) / n
+        var = all_reduce_sum(((x - mean) ** 2).sum(dim=axes), group) / n
     unbiased = var * n / max(n - 1, 1)
     new_p = dict(p)
     new_p["running_mean"] = ((1 - momentum) * p["running_mean"]

@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.parallel.collectives import copy_to_model
 
 
 def auto_t_chunk(batch: int, t: int, target_rows: int = 2048) -> int:
@@ -308,6 +309,29 @@ def _chunk_logits(x: torch.Tensor, head_w: torch.Tensor,
     return torch.addmm(head_b, x.reshape(-1, x.shape[-1]), head_w)
 
 
+def _ce_backward(hiddens, head_w, head_b, tc, wc, lses, g, t_chunk,
+                 clamp=None):
+    """The chunk loop of both single-head CEs' backwards: per chunk the
+    logits again, :func:`ce_grad_rows` with the chunk's targets ``tc[k]``,
+    per-row weights ``wc[k]`` and logsumexp ``lses[k]`` (its column sum
+    into d_b), then ``dx = dl C_w^T`` and ``d_w += x^T dl``.  -> (dx, d_w,
+    d_b)."""
+    b, t = hiddens.shape[:2]
+    xc = _to_chunks(hiddens, t_chunk)
+    g = g.reshape(1).to(torch.float32).contiguous()
+    d_w = torch.zeros_like(head_w)
+    d_b = torch.zeros_like(head_b)
+    dxs = []
+    for k in range(xc.shape[0]):
+        x = xc[k].reshape(-1, hiddens.shape[-1])
+        dl = ce_grad_rows(_chunk_logits(xc[k], head_w, head_b),
+                          tc[k].reshape(-1), wc[k].reshape(-1).contiguous(),
+                          lses[k].contiguous(), g, d_b, clamp)
+        dxs.append((dl @ head_w.T).reshape(b, t_chunk, -1))
+        d_w.addmm_(x.T, dl)
+    return torch.cat(dxs, dim=1)[:, :t], d_w, d_b
+
+
 class _WeightedCE(torch.autograd.Function):
     """sum(weights * nll) over (B, T), nll optionally clamped to
     ``min(nll, clamp)`` with zero gradient where the clamp bit."""
@@ -333,27 +357,64 @@ class _WeightedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hiddens, head_w, head_b, targets, weights, lses = ctx.saved_tensors
-        b, t = targets.shape
-        xc = _to_chunks(hiddens, ctx.t_chunk)
-        tc = _to_chunks(targets.long(), ctx.t_chunk)
-        wc = _to_chunks(weights, ctx.t_chunk)
-        g = g.reshape(1).to(torch.float32).contiguous()
-        d_w = torch.zeros_like(head_w)
-        d_b = torch.zeros_like(head_b)
-        dxs = []
+        return (*_ce_backward(hiddens, head_w, head_b,
+                              _to_chunks(targets.long(), ctx.t_chunk),
+                              _to_chunks(weights, ctx.t_chunk), lses, g,
+                              ctx.t_chunk, ctx.clamp),
+                None, None, None, None)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """:class:`_WeightedCE` with the head's columns split over the mesh's
+    model group (``vocab``, a :class:`~icee_tpu_torch.parallel.collectives.
+    VocabShard`).  Each rank runs the row passes on its own columns with
+    its targets shifted into them (a target outside gives no target logit
+    and no one-hot entry); the rows' logsumexp and target logits are
+    combined over the group, and the clamp is decided from the whole row's
+    nll and passed to the backward as a per-row weight.  dx is this rank's
+    columns' share: the caller passes the hidden states (the same on every
+    rank of the group) through ``copy_to_model``, which sums it."""
+
+    @staticmethod
+    def forward(ctx, hiddens, head_w, head_b, targets, weights, t_chunk,
+                clamp, vocab):
+        xc = _to_chunks(hiddens, t_chunk)
+        tc = _to_chunks(vocab.local_ids(targets), t_chunk)
+        wc = _to_chunks(weights, t_chunk)
+        lses, tgts = [], []
         for k in range(xc.shape[0]):
-            x = xc[k].reshape(-1, hiddens.shape[-1])
-            dl = ce_grad_rows(_chunk_logits(xc[k], head_w, head_b),
-                              tc[k].reshape(-1), wc[k].reshape(-1), lses[k],
-                              g, d_b, ctx.clamp)
-            dxs.append((dl @ head_w.T).reshape(b, ctx.t_chunk, -1))
-            d_w.addmm_(x.T, dl)
-        dx = torch.cat(dxs, dim=1)[:, :t]
-        return dx, d_w, d_b, None, None, None, None
+            logits = _chunk_logits(xc[k], head_w, head_b)
+            t = tc[k].reshape(-1)
+            lse, _ = ce_rows(logits, t, wc[k].reshape(-1))
+            lses.append(lse)
+            tgts.append(_target_logit(logits, t)[0])
+        lse = vocab.logsumexp(torch.stack(lses))
+        nll = lse - vocab.sum(torch.stack(tgts))
+        w = wc.reshape(nll.shape)
+        scale = w
+        if clamp is not None:
+            scale = w * (nll < float(clamp)).to(w.dtype)
+            nll = torch.clamp(nll, max=float(clamp))
+        ctx.t_chunk, ctx.vocab = t_chunk, vocab
+        ctx.save_for_backward(hiddens, head_w, head_b, targets, scale, lse)
+        return (w * nll).reshape(-1).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        hiddens, head_w, head_b, targets, scale, lses = ctx.saved_tensors
+        return (*_ce_backward(hiddens, head_w, head_b,
+                              _to_chunks(ctx.vocab.local_ids(targets),
+                                         ctx.t_chunk), scale, lses, g,
+                              ctx.t_chunk),
+                None, None, None, None, None)
 
 
 def _weighted_ce(hiddens, head_w, head_b, targets, weights, t_chunk,
-                 clamp=None):
+                 clamp=None, vocab=None):
+    if vocab is not None:
+        return _VocabParallelCE.apply(copy_to_model(hiddens, vocab.group),
+                                      head_w, head_b, targets, weights,
+                                      t_chunk, clamp, vocab)
     return _WeightedCE.apply(hiddens, head_w, head_b, targets, weights,
                              t_chunk, clamp)
 
@@ -366,19 +427,27 @@ def masked_ce_from_hiddens(
     lengths: torch.Tensor,            # (B,)
     sample_mask: Optional[torch.Tensor] = None,  # (B,) bool
     t_chunk: Optional[int] = None,
+    count: Optional[torch.Tensor] = None,
+    vocab=None,
 ) -> torch.Tensor:
     """Token-mean masked CE, equal to ``masked_cross_entropy(hiddens @ head_w
     + head_b, ...)`` (``evaluation/metrics.py``) without the whole logits;
-    weights ``mask / max(sum(mask), 1)`` over the whole batch."""
+    weights ``mask / max(count, 1)``, ``count`` the batch's valid tokens
+    unless given (a data-parallel step passes the global batch's).
+    ``vocab``: the head holds this rank's slice of a vocabulary split over
+    the mesh's model group (:func:`~icee_tpu_torch.parallel.collectives.
+    vocab_shard`)."""
     b, t = targets.shape
     mask = (torch.arange(t, device=lengths.device)[None, :]
             < lengths[:, None])
     if sample_mask is not None:
         mask = mask & sample_mask[:, None].bool()
-    weights = mask.to(torch.float32) / mask.sum().clamp(min=1)
+    weights = mask.to(torch.float32) / (
+        mask.sum() if count is None else count).clamp(min=1)
     if t_chunk is None:
         t_chunk = auto_t_chunk(b, t)
-    return _weighted_ce(hiddens, head_w, head_b, targets, weights, t_chunk)
+    return _weighted_ce(hiddens, head_w, head_b, targets, weights, t_chunk,
+                        vocab=vocab)
 
 
 def masked_sum_ce_from_hiddens(
@@ -389,14 +458,17 @@ def masked_sum_ce_from_hiddens(
     mask: torch.Tensor,         # (B, T) float/bool weights
     clamp: Optional[float] = None,
     t_chunk: Optional[int] = None,
+    vocab=None,
 ) -> torch.Tensor:
     """Masked token-SUM CE (the SentiCap convention, ``mrnn.py:560-567``):
-    ``sum(mask * min(nll, clamp))`` without the whole logits."""
+    ``sum(mask * min(nll, clamp))`` without the whole logits; ``vocab`` as
+    in :func:`masked_ce_from_hiddens` (the clamp then bites on the whole
+    row's nll)."""
     b, t = targets.shape
     if t_chunk is None:
         t_chunk = auto_t_chunk(b, t)
     return _weighted_ce(hiddens, head_w, head_b, targets,
-                        mask.to(torch.float32), t_chunk, clamp)
+                        mask.to(torch.float32), t_chunk, clamp, vocab)
 
 
 def masked_neglog2_sum_from_hiddens(
@@ -495,6 +567,60 @@ def mixture_row_cotangents(p_o, p_n, co, cn, weights, g):
     return g_p * p_o, g_p * p_n, g_p * co * p_o, g_p * cn * p_n
 
 
+def _mixture_backward(ctx, g, local_ids):
+    """The chunk loop of both mixture CEs' backwards, from what their
+    forwards saved (``t_chunk``; hh_o, hh_n, co, cn, w_o, w_n, targets,
+    weights, the rows' (lse_o, lse_n, p_o, p_n) and each head's kept
+    logits or None): per chunk the rows' cotangents
+    (:func:`mixture_row_cotangents`), then for each head that kept its
+    logits :func:`ce_grad_rows` with weights ``-fac``, the whole rows' lse
+    and targets ``local_ids(targets)``; dx and dW where needed.  -> the
+    gradients of (hh_o, hh_n, co, cn, w_o, b_o, w_n, b_n)."""
+    (hh_o, hh_n, co, cn, w_o, w_n, targets, weights, rows, *kept
+     ) = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    b, t = targets.shape
+    tch = ctx.t_chunk
+    xs = (_to_chunks(hh_o, tch), _to_chunks(hh_n, tch))
+    coc, cnc = _to_chunks(co, tch), _to_chunks(cn, tch)
+    tc = _to_chunks(local_ids(targets), tch)
+    wc = _to_chunks(weights, tch)
+    g = g.reshape(()).to(torch.float32)
+    one = torch.ones((1,), dtype=torch.float32, device=g.device)
+    # per head: (chunks, w, kept logits, needs dx, needs dW)
+    heads = [(xs[0], w_o, kept[0], need[0], need[4]),
+             (xs[1], w_n, kept[1], need[1], need[6])]
+    dw = [torch.zeros_like(w_o), torch.zeros_like(w_n)]
+    db = [torch.zeros((w.shape[1],), dtype=torch.float32, device=g.device)
+          for w in (w_o, w_n)]
+    dxs, dcos, dcns = [[], []], [], []
+    for k in range(xs[0].shape[0]):
+        lse_o, lse_n, p_o, p_n = rows[k]
+        d_co, d_cn, fac_o, fac_n = mixture_row_cotangents(
+            p_o, p_n, coc[k].reshape(-1), cnc[k].reshape(-1),
+            wc[k].reshape(-1), g)
+        dcos.append(d_co.reshape(b, tch))
+        dcns.append(d_cn.reshape(b, tch))
+        for i, ((xc, w, logits, n_x, n_w), fac, lse) in enumerate(
+                zip(heads, (fac_o, fac_n), (lse_o, lse_n))):
+            if logits is None:
+                continue
+            dl = ce_grad_rows(logits[k], tc[k].reshape(-1),
+                              (-fac).contiguous(), lse.contiguous(), one,
+                              db[i])
+            if n_x:
+                dxs[i].append((dl @ w.T).reshape(b, tch, -1))
+            if n_w:
+                dw[i].addmm_(xc[k].reshape(-1, xc.shape[-1]).T, dl)
+
+    def unchunk(parts):
+        return torch.cat(parts, dim=1)[:, :t].contiguous() if parts else None
+
+    return (unchunk(dxs[0]), unchunk(dxs[1]), unchunk(dcos), unchunk(dcns),
+            dw[0] if need[4] else None, db[0] if need[5] else None,
+            dw[1] if need[6] else None, db[1] if need[7] else None)
+
+
 class _MixtureCE(torch.autograd.Function):
     """sum(weights * -log(max(co p_o + cn p_n, 1e-37))) over (B, T), with
     ``p_* = softmax(hh_* w_* + b_*)[target]``."""
@@ -534,51 +660,56 @@ class _MixtureCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (hh_o, hh_n, co, cn, w_o, w_n, targets, weights, rows, *kept
-         ) = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        b, t = targets.shape
-        tch = ctx.t_chunk
-        xs = (_to_chunks(hh_o, tch), _to_chunks(hh_n, tch))
-        coc, cnc = _to_chunks(co, tch), _to_chunks(cn, tch)
-        tc = _to_chunks(targets.long(), tch)
-        wc = _to_chunks(weights, tch)
-        g = g.reshape(()).to(torch.float32)
-        one = torch.ones((1,), dtype=torch.float32, device=g.device)
-        # per head: (chunks, w, kept logits, needs dx, needs dW)
-        heads = [(xs[0], w_o, kept[0], need[0], need[4]),
-                 (xs[1], w_n, kept[1], need[1], need[6])]
-        dw = [torch.zeros_like(w_o), torch.zeros_like(w_n)]
-        db = [torch.zeros((w_o.shape[1],), dtype=torch.float32,
-                          device=g.device),
-              torch.zeros((w_n.shape[1],), dtype=torch.float32,
-                          device=g.device)]
-        dxs, dcos, dcns = [[], []], [], []
-        for k in range(xs[0].shape[0]):
-            lse_o, lse_n, p_o, p_n = rows[k]
-            d_co, d_cn, fac_o, fac_n = mixture_row_cotangents(
-                p_o, p_n, coc[k].reshape(-1), cnc[k].reshape(-1),
-                wc[k].reshape(-1), g)
-            dcos.append(d_co.reshape(b, tch))
-            dcns.append(d_cn.reshape(b, tch))
-            for i, ((xc, w, logits, n_x, n_w), fac, lse) in enumerate(
-                    zip(heads, (fac_o, fac_n), (lse_o, lse_n))):
-                if logits is None:
-                    continue
-                dl = ce_grad_rows(logits[k], tc[k].reshape(-1),
-                                  (-fac).contiguous(), lse, one, db[i])
-                if n_x:
-                    dxs[i].append((dl @ w.T).reshape(b, tch, -1))
-                if n_w:
-                    dw[i].addmm_(xc[k].reshape(-1, xc.shape[-1]).T, dl)
+        return (*_mixture_backward(ctx, g, lambda t: t.long()), None, None,
+                None)
 
-        def unchunk(parts):
-            return torch.cat(parts, dim=1)[:, :t] if parts else None
 
-        return (unchunk(dxs[0]), unchunk(dxs[1]), unchunk(dcos),
-                unchunk(dcns), dw[0] if need[4] else None,
-                db[0] if need[5] else None, dw[1] if need[6] else None,
-                db[1] if need[7] else None, None, None, None)
+class _VocabParallelMixtureCE(torch.autograd.Function):
+    """:class:`_MixtureCE` with both heads' columns split over the mesh's
+    model group (``vocab``): each rank runs the forward row pass on its
+    columns, the heads' logsumexp and target logits are combined over the
+    group, and p, the floor and the cotangents come from the whole rows.
+    Each rank's backward turns its kept logits into dl with the whole
+    rows' lse; dx is its columns' share (the caller's ``copy_to_model``
+    sums it).  Every head keeps its logits."""
+
+    @staticmethod
+    def forward(ctx, hh_o, hh_n, co, cn, w_o, b_o, w_n, b_n, targets,
+                weights, t_chunk, vocab):
+        xs = (_to_chunks(hh_o, t_chunk), _to_chunks(hh_n, t_chunk))
+        coc, cnc = _to_chunks(co, t_chunk), _to_chunks(cn, t_chunk)
+        tc = _to_chunks(vocab.local_ids(targets), t_chunk)
+        wc = _to_chunks(weights, t_chunk)
+        n, r = xs[0].shape[0], xs[0].shape[1] * xs[0].shape[2]
+        bufs = [hh_o.new_empty((n, r, w.shape[1])) for w in (w_o, w_n)]
+        parts = []
+        for k in range(n):
+            lo, ln = (torch.addmm(bias, x[k].reshape(r, -1), w,
+                                  out=buf[k])
+                      for x, w, bias, buf in zip(xs, (w_o, w_n), (b_o, b_n),
+                                                 bufs))
+            t = tc[k].reshape(-1)
+            lse_o, lse_n, _, _, _ = mixture_ce_rows(
+                lo, ln, t, coc[k].reshape(-1), cnc[k].reshape(-1),
+                wc[k].reshape(-1))
+            parts.append(torch.stack([lse_o, lse_n, _target_logit(lo, t)[0],
+                                      _target_logit(ln, t)[0]]))
+        parts = torch.stack(parts)                      # (n, 4, r)
+        lse = vocab.logsumexp(parts[:, :2].contiguous())
+        p = torch.exp(vocab.sum(parts[:, 2:].contiguous()) - lse)
+        rows = torch.cat([lse, p], dim=1)               # lse_o lse_n p_o p_n
+        p_mix = coc.reshape(n, r) * p[:, 0] + cnc.reshape(n, r) * p[:, 1]
+        contrib = wc.reshape(n, r) * -torch.log(
+            torch.clamp(p_mix, min=PROB_FLOOR))
+        ctx.t_chunk, ctx.vocab = t_chunk, vocab
+        ctx.save_for_backward(hh_o, hh_n, co, cn, w_o, w_n, targets,
+                              weights, rows, *bufs)
+        return contrib.reshape(-1).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_mixture_backward(ctx, g, ctx.vocab.local_ids), None, None,
+                None, None)
 
 
 def even_t_chunk(batch: int, t: int) -> int:
@@ -599,6 +730,7 @@ def mixture_ce_from_hiddens(
     targets: torch.Tensor,       # (B, T) int
     weights: torch.Tensor,       # (B, T) float: mask (x CE reweighting)
     t_chunk: Optional[int] = None,
+    vocab=None,
 ) -> torch.Tensor:
     """Chunked ``sum(weights * -log(max(co p_o + cn p_n, 1e-37)))``, the
     SentiCap switched mixture CE (``icee_tpu/ops/chunked_loss.py:364``),
@@ -608,13 +740,18 @@ def mixture_ce_from_hiddens(
     are kept for the backward instead of recomputed (its whole (B, T, V)
     array, 99 MB at B = 128, T = 22, V = 8800); a head that needs none
     (switch training freezes the background head) keeps one chunk's
-    scratch and costs the backward nothing."""
+    scratch and costs the backward nothing.  ``vocab``: both heads hold
+    this rank's slice of a vocabulary split over the mesh's model group
+    (:class:`_VocabParallelMixtureCE`)."""
     b, t = targets.shape
     if t_chunk is None:
         t_chunk = even_t_chunk(b, t)
-    return _MixtureCE.apply(hh_o, hh_n, co.to(torch.float32),
-                            cn.to(torch.float32), w_o, b_o, w_n, b_n,
-                            targets, weights.to(torch.float32), t_chunk)
+    args = (hh_o, hh_n, co.to(torch.float32), cn.to(torch.float32), w_o,
+            b_o, w_n, b_n, targets, weights.to(torch.float32), t_chunk)
+    if vocab is not None:
+        hh = (copy_to_model(x, vocab.group) for x in (hh_o, hh_n))
+        return _VocabParallelMixtureCE.apply(*hh, *args[2:], vocab)
+    return _MixtureCE.apply(*args)
 
 
 def mixture_ce_plain(hh_o, hh_n, co, cn, w_o, b_o, w_n, b_n, targets,

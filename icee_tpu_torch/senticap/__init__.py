@@ -5,5 +5,5 @@ and beam decode (``config``, ``io``, ``model``, ``switched``, ``solver``,
 (``sentiment``), the test path's eval files and metrics (``eval_out``),
 and the adversarial-style and encoder-decoder variants (``adversarial``,
 ``encode_decode``).  Their CLI is ``icee_tpu_torch.cli.senticap_train``.
-Only the data-parallel ``mesh`` of the steps is still refused, naming
-slice 8 of the port."""
+The steps and the training loops take a data-parallel ``mesh``
+(``train.py``)."""

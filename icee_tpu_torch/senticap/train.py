@@ -19,8 +19,17 @@ On CUDA the teacher-forced scans run K8 (``ops/senticap_scan.py``), the
 losses the chunked CE kernels (the mixture CE for the switched model), and
 ``decode_split`` the whole beam searches: K9 (``ops/senticap_decode.py``)
 for the base model and the switched model's descriptive decode, K10
-(``ops/senticap_switched_decode.py``) for its styled decode.  The data
-parallel ``mesh`` comes with slice 8 of the port.
+(``ops/senticap_switched_decode.py``) for its styled decode.
+
+On a mesh (``mesh=``, :mod:`icee_tpu_torch.parallel`; data parallel, as
+the JAX package's) every rank holds the whole split and the whole
+parameters, draws the GLOBAL minibatch's dropout masks (and semi-forced
+matrix) from the same generator state and computes on its data rank's rows
+of the minibatch: K8 and the (mixture) CE run per rank.  The loss is a
+masked SUM, so the ranks' gradients are SUMMED over the data group, and
+the parameter-only regularizers (L2, the similarity term) enter each
+rank's cost divided by the data axis so the sum counts them once, as JAX's
+``_shard_mapped_grads``.  Only rank 0 prints.
 
 Entry points run on CUDA unless the caller asks for the CPU; parameters are
 updated IN PLACE.  Randomness (dropout masks, the semi-forced matrix) comes
@@ -37,6 +46,9 @@ import numpy as np
 import torch
 
 from icee_tpu_torch.core.device import resolve_indexed_device
+from icee_tpu_torch.parallel.collectives import all_reduce_grads, reduced
+from icee_tpu_torch.parallel.data import local_rows, row_slice
+from icee_tpu_torch.parallel.train import broadcast_params
 from icee_tpu_torch.senticap import io as sio
 from icee_tpu_torch.senticap import model as base_model
 from icee_tpu_torch.senticap import switched as sw_model
@@ -88,11 +100,24 @@ class BaseStep:
     """One base-model step over a device-resident split (see
     :func:`make_base_step`)."""
 
-    def __init__(self, conf: dict, solver, device):
+    def __init__(self, conf: dict, solver, device, mesh=None):
         self.conf, self.solver = conf, solver
-        self.device = resolve_indexed_device(device)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.data_group
+        self.ndata = 1 if mesh is None else mesh.n_data
+        self.device = resolve_indexed_device(
+            device if mesh is None else mesh.device)
         self.use_chunked = (base_model.chunked_ce_requested(conf, self.device)
                             and conf.get("SOFTMAX_OUT", True))
+
+    def _local(self, *xs):
+        """This data rank's rows of the global minibatch's tensors."""
+        return local_rows(xs, self.mesh)
+
+    def _shared(self, loss, grads):
+        """The data group's sums of the ranks' loss and gradients."""
+        return reduced(loss.detach(), self.group), all_reduce_grads(
+            grads, self.group)
 
     def _dropouts(self, b, t, generator, x_drop, y_drop):
         conf, dev = self.conf, self.device
@@ -121,11 +146,13 @@ class BaseStep:
         conf = self.conf
         _check_on(self.device, idx=idx, **{k: params[k] for k in params},
                   **{f"data[{k!r}]": v for k, v in data.items()})
-        x, y = data["X"][idx], data["Y"][idx]
-        mask, v = data["Xlen"][idx], data["V"][idx]
-        b, t = x.shape
+        b, t = idx.shape[0], data["X"].shape[1]
         x_drop, y_drop, forced = self._masks(b, t, generator, x_drop, y_drop,
                                              forced)
+        idx, x_drop, y_drop, forced = self._local(idx, x_drop, y_drop,
+                                                  forced)
+        x, y = data["X"][idx], data["Y"][idx]
+        mask, v = data["Xlen"][idx], data["V"][idx]
         semi = float(conf.get("SEMI_FORCED", 1.0))
         with torch.enable_grad():
             p = {k: q.detach().requires_grad_(True) for k, q in params.items()}
@@ -141,9 +168,10 @@ class BaseStep:
             else:
                 loss = base_model.loss_fn(out, y, mask)
             l2 = sum(torch.sum(q ** 2) for q in p.values())
-            cost = loss + conf["L2_REG_CONST"] * l2
+            reg = conf["L2_REG_CONST"] * l2
+            cost = loss + (reg if self.ndata == 1 else reg / self.ndata)
             got = torch.autograd.grad(cost, list(p.values()))
-        return loss.detach(), dict(zip(p, got))
+        return self._shared(loss, dict(zip(p, got)))
 
     def __call__(self, params: dict, opt_state: dict, data: dict,
                  idx: torch.Tensor,
@@ -161,8 +189,8 @@ class SwitchedStep(BaseStep):
     trainable leaves only (the switch set under ``train_switched``); the
     L2 term covers the switch set, as the JAX step's ``cost_fn`` does."""
 
-    def __init__(self, conf: dict, solver, device):
-        super().__init__(conf, solver, device)
+    def __init__(self, conf: dict, solver, device, mesh=None):
+        super().__init__(conf, solver, device, mesh)
         # the switched heads are always softmaxes: no SOFTMAX_OUT guard
         self.use_chunked = base_model.chunked_ce_requested(conf, self.device)
 
@@ -175,11 +203,12 @@ class SwitchedStep(BaseStep):
         conf = self.conf
         _check_on(self.device, idx=idx, **{k: params[k] for k in params},
                   **{f"data[{k!r}]": v for k, v in data.items()})
+        senti0 = data["senti"][idx][0]
+        b, t = idx.shape[0], data["X"].shape[1]
+        x_drop, y_drop = self._dropouts(b, t, generator, x_drop, y_drop)
+        idx, x_drop, y_drop = self._local(idx, x_drop, y_drop)
         x, y = data["X"][idx], data["Y"][idx]
         mask, v, sw = data["Xlen"][idx], data["V"][idx], data["SW"][idx]
-        senti0 = data["senti"][idx][0]
-        b, t = x.shape
-        x_drop, y_drop = self._dropouts(b, t, generator, x_drop, y_drop)
         tmask = sw_model.switch_param_mask(params)
         trainable = self.solver.trainable_keys(params)
         with torch.enable_grad():
@@ -195,22 +224,23 @@ class SwitchedStep(BaseStep):
                 s_, la, l1a = sw_model.forward(p, conf, x, v, senti0, x_drop,
                                                y_drop)
                 loss = sw_model.loss_fn(conf, s_, y, mask, sw, la, l1a)
-            cost = sw_model.cost_fn(p, conf, loss, tmask)
+            if self.ndata == 1:
+                cost = sw_model.cost_fn(p, conf, loss, tmask)
+            else:
+                cost = loss + sw_model.cost_fn(
+                    p, conf, torch.zeros_like(loss), tmask) / self.ndata
             got = torch.autograd.grad(cost, [p[k] for k in trainable],
                                       allow_unused=True)
-        return loss.detach(), dict(zip(trainable, got))
+        return self._shared(loss, dict(zip(trainable, got)))
 
 
 def make_base_step(conf: dict, solver, mesh=None, device="cuda") -> BaseStep:
     """The base-model step over device-resident data (``data`` from
     ``io.device_dataset``).  ``conf["CHUNKED_CE"]`` and
     ``conf["FUSED_SCAN"]`` (None = on for CUDA) select the chunked loss and
-    K8; ``mesh`` (data parallelism) comes with slice 8 of the port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel SentiCap steps (mesh) come with slice 8 of the "
-            "port")
-    return BaseStep(conf, solver, device)
+    K8; on a ``mesh`` the step is data parallel (the module docstring):
+    every rank is given the same global index row ``idx``."""
+    return BaseStep(conf, solver, device, mesh)
 
 
 def make_switched_step(conf: dict, solver, mesh=None,
@@ -218,13 +248,9 @@ def make_switched_step(conf: dict, solver, mesh=None,
     """The switched-model step over device-resident data.
     ``conf["CHUNKED_CE"]`` (None = on for CUDA) computes the mixture CE
     from the two heads' hidden states in time chunks and
-    ``conf["FUSED_SCAN"]`` sends both recurrences to K8; ``mesh`` (data
-    parallelism) comes with slice 8 of the port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel SentiCap steps (mesh) come with slice 8 of the "
-            "port")
-    return SwitchedStep(conf, solver, device)
+    ``conf["FUSED_SCAN"]`` sends both recurrences to K8; ``mesh`` as in
+    :func:`make_base_step`."""
+    return SwitchedStep(conf, solver, device, mesh)
 
 
 def _make_epoch(step):
@@ -275,6 +301,22 @@ def _run_epoch(epoch_fn, params, opt_state, data, idx_rows, gen,
     return params, opt_state, losses
 
 
+def _mesh_batch(conf: dict, dataset: sio.SentiDataset, mesh,
+                params: dict) -> int:
+    """The minibatch (checked to divide the data axis on a mesh, whose
+    ranks then start from rank 0's ``params``, broadcast in place)."""
+    batch = min(conf["batch_size_val"], dataset.X.shape[0])
+    if mesh is not None:
+        row_slice(batch, mesh)
+        broadcast_params(params)
+    return batch
+
+
+def _say(mesh, text: str) -> None:
+    if mesh is None or mesh.is_writer:
+        print(text)
+
+
 def train_base(dataset: sio.SentiDataset, vocab_size: int,
                conf: Optional[dict] = None, num_epochs: int = 10,
                unigram: Optional[np.ndarray] = None,
@@ -285,13 +327,11 @@ def train_base(dataset: sio.SentiDataset, vocab_size: int,
     ``device_epoch`` runs the same steps and reads the losses back once per
     epoch instead of once per step (the same parameters and losses).
     ``init_params_override``: a pre-built parameter set, on ``device``,
-    trained in place instead of a fresh draw (the CLI's init seam)."""
+    trained in place instead of a fresh draw (the CLI's init seam).
+    ``mesh``: data parallel (the module docstring); the parameters start
+    as rank 0's, and the minibatch must divide by the data axis."""
     conf = conf or senticap_conf()
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel SentiCap training (mesh) comes with slice 8 of "
-            "the port")
-    dev = resolve_indexed_device(device)
+    dev = resolve_indexed_device(device if mesh is None else mesh.device)
     if init_params_override is not None:
         params = init_params_override
     else:
@@ -300,19 +340,19 @@ def train_base(dataset: sio.SentiDataset, vocab_size: int,
                                         device=dev)
     solver = make_solver(conf)
     opt_state = solver.init(params)
-    epoch_fn = make_base_epoch(conf, solver, device=dev)
+    epoch_fn = make_base_epoch(conf, solver, mesh, device=dev)
     data = sio.device_dataset(dataset, dev)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    batch = min(conf["batch_size_val"], dataset.X.shape[0])
+    batch = _mesh_batch(conf, dataset, mesh, params)
     for epoch in range(num_epochs):
         t0 = time.time()
         idx_rows = torch.as_tensor(
             _epoch_indices(dataset.X.shape[0], batch, rng), device=dev)
         params, opt_state, losses = _run_epoch(
             epoch_fn, params, opt_state, data, idx_rows, gen, device_epoch)
-        print(f"[senticap base] epoch {epoch}: loss "
-              f"{np.mean(losses):.3f} ({time.time() - t0:.1f}s)")
+        _say(mesh, f"[senticap base] epoch {epoch}: loss "
+                   f"{np.mean(losses):.3f} ({time.time() - t0:.1f}s)")
         for cb in callbacks or []:
             cb(epoch, params)
     return params, opt_state
@@ -332,13 +372,9 @@ def train_switched(dataset: sio.SentiDataset, base_params: dict,
     its device, instead of re-initializing from ``base_params``; it is
     updated in place.  ``device_epoch`` runs the same steps and reads the
     losses back once per epoch instead of once per step (the same
-    parameters and losses)."""
+    parameters and losses).  ``mesh`` as in :func:`train_base`."""
     conf = conf or senticap_conf()
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel SentiCap training (mesh) comes with slice 8 of "
-            "the port")
-    dev = resolve_indexed_device(device)
+    dev = resolve_indexed_device(device if mesh is None else mesh.device)
     if init_params_override is not None:
         params = init_params_override
     else:
@@ -347,11 +383,11 @@ def train_switched(dataset: sio.SentiDataset, base_params: dict,
                                       device=dev)
     solver = make_solver(conf, sw_model.switch_param_mask(params))
     opt_state = solver.init(params)
-    epoch_fn = make_switched_epoch(conf, solver, device=dev)
+    epoch_fn = make_switched_epoch(conf, solver, mesh, device=dev)
     data = sio.device_dataset(dataset, dev)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    batch = min(conf["batch_size_val"], dataset.X.shape[0])
+    batch = _mesh_batch(conf, dataset, mesh, params)
     for epoch in range(num_epochs):
         t0 = time.time()
         batches = _epoch_indices_by_sentiment(dataset.senti, batch, rng)
@@ -360,9 +396,9 @@ def train_switched(dataset: sio.SentiDataset, base_params: dict,
             device=dev)
         params, opt_state, losses = _run_epoch(
             epoch_fn, params, opt_state, data, idx_rows, gen, device_epoch)
-        print(f"[senticap switch] epoch {epoch}: loss "
-              f"{np.mean(losses) if losses else float('nan'):.3f} "
-              f"({time.time() - t0:.1f}s)")
+        _say(mesh, f"[senticap switch] epoch {epoch}: loss "
+                   f"{np.mean(losses) if losses else float('nan'):.3f} "
+                   f"({time.time() - t0:.1f}s)")
         for cb in callbacks or []:
             cb(epoch, params)
     return params, opt_state

@@ -40,8 +40,21 @@ step as ``keep=`` / ``coins=``: this is how the tests hand the port the
 JAX package's draws, which torch cannot reproduce.
 
 ``Seq2SeqTrainer`` trains seq2seq style transfer on the host loader or
-pinned splits.  Not ported yet, and refused with ``NotImplementedError``
-naming its slice: ``mesh`` (slice 8).
+pinned splits.
+
+On a mesh (``mesh=``, :mod:`icee_tpu_torch.parallel`; one process per
+card) every rank builds the same global batches from the same seeded
+loader or device split and its steps compute on its rows
+(``train/steps.py``): the decoder lives as this rank's vocabulary slice
+(whole for seq2seq, which is data parallel only), the other trees whole,
+all broadcast from rank 0 first.  Validation, the sample caption, the
+checkpoints and the progress records use the whole decoder, gathered;
+validation sums its loss and top-5 over the ranks' rows and gathers their
+predictions, so every rank sees the single-device metrics and takes the
+same decisions.  Only rank 0 prints, writes the log, the JSONL metrics, the
+checkpoints and the progress records, in the single-device format (the
+serving engine loads them unchanged); ``restore`` loads whole, then
+shards.  The batch sizes must divide by the data axis.
 """
 
 from __future__ import annotations
@@ -63,6 +76,9 @@ from icee_tpu_torch.data.device import (DeviceCaptionData,
                                         StreamedCaptionData, gather_batch)
 from icee_tpu_torch.evaluation.bleu import corpus_bleu
 from icee_tpu_torch.evaluation.metrics import AverageMeter, perplexity
+from icee_tpu_torch.parallel import train as ptrain
+from icee_tpu_torch.parallel.data import check_batch_sizes
+from icee_tpu_torch.parallel.mesh import decoder_param_shardings
 from icee_tpu_torch.train import optim
 from icee_tpu_torch.train.steps import (TextStyleStep, make_attention_steps,
                                         make_caption_steps,
@@ -152,21 +168,22 @@ class MultitaskTrainer:
         if family not in FAMILIES:
             raise ValueError(f"unknown family {family!r}; choose one of "
                              f"{FAMILIES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh) comes with slice 8 of the port")
         self.cfg, self.tcfg, self.vocab = cfg, tcfg, vocab
         self.family = family
         self.attention = family.endswith("_att")
         self.factored = family.startswith("factored")
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.is_writer
+        if mesh is not None:
+            check_batch_sizes(tcfg, mesh)
+            device = mesh.device
         self.device = resolve_indexed_device(device)
-        self.dec = _clone(dec_params, self.device)
-        self.head = _clone(head_params, self.device)
+        self.load_params(dec_params, head_params)
         self.sample_fn = sample_fn
         self.log_path = log_path
         self.model_dir = model_dir
         self.data_name = data_name
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if self.writer else None)
         self.generator = torch.Generator(device=self.device).manual_seed(
             tcfg.seed)
         self.draws = draws
@@ -186,11 +203,75 @@ class MultitaskTrainer:
         if self.sample_fn is None and not self.attention:
             self.sample_fn = self._default_sample_fn
 
+    def load_params(self, dec_params, head_params) -> None:
+        """Take whole (decoder, head) trees as this trainer's own: copies
+        on its device; on a mesh rank 0's, broadcast, the decoder cut to
+        this rank's vocabulary slice."""
+        dec = _clone(dec_params, self.device)
+        self.head = _clone(head_params, self.device)
+        if self.mesh is None:
+            self.dec = dec
+            return
+        ptrain.broadcast_params((dec, self.head))
+        self.dec_specs = decoder_param_shardings(dec, self.mesh)
+        self.dec = ptrain.shard_decoder(dec, self.mesh)
+
+    def _whole_dec(self):
+        """The whole decoder (gathered from the ranks' slices on a model
+        group of more than one)."""
+        if self.mesh is None or self.mesh.n_model == 1:
+            return self.dec
+        return ptrain.gather_decoder(self.dec, self.mesh, self.dec_specs)
+
+    def _opt_dims(self):
+        """The split dimension of each moment of the two optimizers'
+        states (the factual one's cover the head too, but the attention
+        families')."""
+        dims = optim.tree_leaves(self.dec_specs)
+        head = [] if self.attention else [None] * len(
+            optim.tree_leaves(self.head))
+        return dims + head, dims
+
+    def _whole_state(self):
+        """-> (decoder, head, optimizer state, language optimizer state),
+        whole, on every rank."""
+        if self.mesh is None or self.mesh.n_model == 1:
+            return self.dec, self.head, self.opt_state, self.lang_opt_state
+        fac, lang = self._opt_dims()
+        return (self._whole_dec(), self.head,
+                ptrain.map_state(ptrain.gather_leaves, self.opt_state, fac,
+                                 self.mesh),
+                ptrain.map_state(ptrain.gather_leaves, self.lang_opt_state,
+                                 lang, self.mesh))
+
+    def _set_whole_state(self, dec, head, opt_state, lang_opt_state) -> None:
+        """Take restored whole trees (the same on every rank), cut to this
+        rank's slices on a mesh."""
+        self.head = head
+        if self.mesh is None or self.mesh.n_model == 1:
+            self.dec, self.opt_state = dec, opt_state
+            self.lang_opt_state = lang_opt_state
+            return
+        fac, lang = self._opt_dims()
+        self.dec = ptrain.shard_decoder(dec, self.mesh)
+        self.opt_state = ptrain.map_state(ptrain.shard_leaves, opt_state,
+                                          fac, self.mesh)
+        self.lang_opt_state = ptrain.map_state(
+            ptrain.shard_leaves, lang_opt_state, lang, self.mesh)
+
+    def _log(self, text: str) -> None:
+        if self.writer:
+            _log(self.log_path, text)
+
+    def _print(self, text) -> None:
+        if self.writer:
+            print(text)
+
     def _build_steps(self) -> None:
         make = make_attention_steps if self.attention else make_caption_steps
         self.steps = make(self.cfg, self.tcfg, self.optimizer,
                           self.lang_optimizer, self.factored,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
         self.factual_step, self.emotion_step, self.val_step = self.steps
 
     def _to_device(self, *arrays):
@@ -282,7 +363,8 @@ class MultitaskTrainer:
                 batch.sample_mask)
             loss = float(self._apply_step(style, feats, caps, lens, smask))
             if i % log_step == 0:
-                print(f"Step [{i}/{len(loader)}], [{tag}], Loss: {loss:.4f}")
+                self._print(f"Step [{i}/{len(loader)}], [{tag}], "
+                            f"Loss: {loss:.4f}")
             losses.update(loss, int(batch.lengths.sum()))
         return EpochStats(loss=losses.avg, batch_time=time.time() - t0)
 
@@ -308,8 +390,7 @@ class MultitaskTrainer:
                 [np.asarray(p, np.float64)[:start_row] for p in loss_prefix]))
         return trace
 
-    @staticmethod
-    def _epoch_stats(trace, log_step, tag, t0) -> EpochStats:
+    def _epoch_stats(self, trace, log_step, tag, t0) -> EpochStats:
         """Step logging after the epoch + the token-weighted epoch loss of
         a host (2, nb) trace, summed in the host loop's order (the same
         float as its meter)."""
@@ -317,7 +398,8 @@ class MultitaskTrainer:
         losses, ntoks = trace.tolist()
         for i, (loss, n) in enumerate(zip(losses, ntoks)):
             if i % max(log_step, 1) == 0:
-                print(f"Step [{i}/{len(losses)}], [{tag}], Loss: {loss:.4f}")
+                self._print(f"Step [{i}/{len(losses)}], [{tag}], "
+                            f"Loss: {loss:.4f}")
             meter.update(loss, int(n))
         return EpochStats(loss=meter.avg, batch_time=time.time() - t0)
 
@@ -361,16 +443,19 @@ class MultitaskTrainer:
 
     def _save_progress(self, epoch: int, pass_idx: int, row: int,
                        losses, ntoks) -> None:
+        dec, head, opt, lang = self._whole_state()
         record = progress.make_record(
             epoch=epoch, pass_idx=pass_idx, row=row,
             rng=self.generator.get_state(),
-            params={"decoder": self.dec, "head": self.head},
-            opt_states={"optimizer": self.opt_state,
-                        "lang_optimizer": self.lang_opt_state},
+            params={"decoder": dec, "head": head},
+            opt_states={"optimizer": opt, "lang_optimizer": lang},
             losses=losses, ntoks=ntoks,
             epochs_since_improvement=self.epochs_since_improvement,
             best_bleu4=self.best_bleu4)
-        progress.save_progress(self.model_dir, self.data_name, record)
+        if self.writer:
+            progress.save_progress(self.model_dir, self.data_name, record)
+        if self.mesh is not None:
+            torch.distributed.barrier()
         hook = getattr(self, "_progress_hook", None)
         if hook is not None:
             hook(epoch, pass_idx, row)
@@ -378,7 +463,7 @@ class MultitaskTrainer:
     def _clear_progress(self) -> None:
         """Drop the mid-epoch record once a train loop runs to completion:
         a later fresh run in the same model_dir must not resume past it."""
-        if self.tcfg.progress_chunk:
+        if self.tcfg.progress_chunk and self.writer:
             progress.clear_progress(self.model_dir, self.data_name)
 
     def _resume_progress(self, loaders_by_pass: dict) -> Optional[dict]:
@@ -390,18 +475,18 @@ class MultitaskTrainer:
         every shuffling device split is fast-forwarded one
         ``epoch_indices()`` call a COMPLETED epoch, so the resumed epoch's
         shuffle is the killed run's."""
+        dec, head, opt, lang = self._whole_state()
         rec = progress.load_progress(
             self.model_dir, self.data_name,
-            {"params": {"decoder": self.dec, "head": self.head},
-             "opt_states": {"optimizer": self.opt_state,
-                            "lang_optimizer": self.lang_opt_state}})
+            {"params": {"decoder": dec, "head": head},
+             "opt_states": {"optimizer": opt, "lang_optimizer": lang}})
         if rec is None:
             return None
         epoch, pass_idx, row = rec["epoch"], rec["pass_idx"], rec["row"]
-        self.dec = rec["params"]["decoder"]
-        self.head = rec["params"]["head"]
-        self.opt_state = rec["opt_states"]["optimizer"]
-        self.lang_opt_state = rec["opt_states"]["lang_optimizer"]
+        self._set_whole_state(rec["params"]["decoder"],
+                              rec["params"]["head"],
+                              rec["opt_states"]["optimizer"],
+                              rec["opt_states"]["lang_optimizer"])
         self.generator.set_state(rec["rng"])
         self.epochs_since_improvement = dict(rec["epochs_since_improvement"])
         self.best_bleu4 = dict(rec["best_bleu4"])
@@ -411,21 +496,22 @@ class MultitaskTrainer:
                 if isinstance(ld, DeviceCaptionData) and ld.shuffle:
                     ld.epoch_indices()
         nb = len(rec["losses"])
-        _log(self.log_path, f"RESUMING mid-epoch: epoch {epoch}, pass "
-                            f"{pass_idx}, row {row}/{nb}")
+        self._log(f"RESUMING mid-epoch: epoch {epoch}, pass "
+                  f"{pass_idx}, row {row}/{nb}")
         return {"epoch": epoch, "pass_idx": pass_idx, "row": row,
                 "losses": rec["losses"], "ntoks": rec["ntoks"]}
 
     # -- validation -------------------------------------------------------
 
-    def _val_batch(self, feats, caps, lens, smask, style: int):
+    def _val_batch(self, dec, feats, caps, lens, smask, style: int):
         return self.val_step(
-            self.dec, *(() if self.attention else (self.head,)),
+            dec, *(() if self.attention else (self.head,)),
             feats, caps, lens, smask, style)
 
     def _run_val(self, loader, style: int) -> EpochStats:
+        dec = self._whole_dec()
         if isinstance(loader, DeviceCaptionData):
-            return self._run_val_device(loader, style)
+            return self._run_val_device(loader, style, dec)
         losses, top5s = AverageMeter(), AverageMeter()
         references, hypotheses = [], []
         start, end = self.vocab.start, self.vocab.end
@@ -436,8 +522,8 @@ class MultitaskTrainer:
             feats, caps, lens, smask = self._to_device(
                 batch.images, batch.captions, batch.lengths,
                 batch.sample_mask)
-            loss, top5, preds = self._val_batch(feats, caps, lens, smask,
-                                                style)
+            loss, top5, preds = self._val_batch(dec, feats, caps, lens,
+                                                smask, style)
             n_tok = int(batch.lengths.sum())
             losses.update(float(loss), n_tok)
             top5s.update(float(top5), n_tok)
@@ -453,11 +539,11 @@ class MultitaskTrainer:
             last_feat = feats
         bleu4 = corpus_bleu(references, hypotheses)
         if self.sample_fn is not None and last_feat is not None:
-            print(self.sample_fn(self.dec, self.head, last_feat[0:1], style))
+            self._print(self.sample_fn(dec, self.head, last_feat[0:1], style))
         return EpochStats(loss=losses.avg, top5=top5s.avg, bleu4=bleu4,
                           batch_time=time.time() - t0)
 
-    def _run_val_device(self, ddata, style: int) -> EpochStats:
+    def _run_val_device(self, ddata, style: int, dec) -> EpochStats:
         """Validation over a :class:`DeviceCaptionData` or
         :class:`StreamedCaptionData` split: the host ``_run_val``'s batches
         and metrics, each batch gathered on the device and the results read
@@ -474,8 +560,8 @@ class MultitaskTrainer:
                 feats, caps, lens = gather_batch(
                     images, ddata.captions, ddata.lengths, idx_d[r], b_img,
                     valid_d[r])
-                outs.append(self._val_batch(feats, caps, lens, valid_d[r],
-                                            style))
+                outs.append(self._val_batch(dec, feats, caps, lens,
+                                            valid_d[r], style))
                 lens_all.append(lens)
         loss_t = torch.stack([o[0] for o in outs]).cpu().tolist()
         top5_t = torch.stack([o[1] for o in outs]).cpu().tolist()
@@ -501,7 +587,7 @@ class MultitaskTrainer:
         if self.sample_fn is not None and nb:
             # the host loop samples from the first row of the last batch
             feat = ddata.sample_feature(int(img_rows[-1, 0]))
-            print(self.sample_fn(self.dec, self.head, feat, style))
+            self._print(self.sample_fn(dec, self.head, feat, style))
         return EpochStats(loss=losses.avg, top5=top5s.avg, bleu4=bleu4,
                           batch_time=time.time() - t0)
 
@@ -549,14 +635,14 @@ class MultitaskTrainer:
                     break
                 if imp_fac > 0 and imp_fac % tcfg.lr_decay_patience == 0:
                     lr = optim.decay_lr(self.opt_state, tcfg.lr_decay_factor)
-                    _log(self.log_path, f"DECAYING learning rate to {lr:f}")
+                    self._log(f"DECAYING learning rate to {lr:f}")
                     self.metrics.log("lr_decay", epoch=epoch,
                                      track="factual", lr=lr)
                 if imp_emo > 0 and imp_emo % tcfg.lr_decay_patience == 0:
                     lr = optim.decay_lr(self.lang_opt_state,
                                         tcfg.lr_decay_factor)
-                    _log(self.log_path,
-                         f"DECAYING language learning rate to {lr:f}")
+                    self._log(
+                        f"DECAYING language learning rate to {lr:f}")
                     self.metrics.log("lr_decay", epoch=epoch,
                                      track="emotion", lr=lr)
 
@@ -567,22 +653,22 @@ class MultitaskTrainer:
                 if isinstance(data_loader, DeviceCaptionData) and \
                         data_loader.shuffle:
                     data_loader.epoch_indices()
-                _log(self.log_path,
-                     f"Epoch [{epoch}/{num_epochs}], [FAC], resumed past "
-                     "(completed before preemption)")
+                self._log(
+                    f"Epoch [{epoch}/{num_epochs}], [FAC], resumed past "
+                    "(completed before preemption)")
             else:
                 tr = self._run_train(
                     data_loader, 0, tcfg.log_step, "FAC", epoch=epoch,
                     pass_idx=0, **self._resume_kw(prog if resuming else None))
                 va = self._run_val(val_loader, 0)
-                _log(self.log_path,
-                     f"Epoch [{epoch}/{num_epochs}], [FAC], "
-                     f"Batch Time: {tr.batch_time + va.batch_time:.3f}, "
-                     f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
-                     f"\tTrain Loss: {tr.loss:.4f} | "
-                     f"Train Perplexity: {perplexity(tr.loss):5.4f}\n"
-                     f"\tVal   Loss: {va.loss:.4f} | "
-                     f"Val   Perplexity: {perplexity(va.loss):5.4f}")
+                self._log(
+                    f"Epoch [{epoch}/{num_epochs}], [FAC], "
+                    f"Batch Time: {tr.batch_time + va.batch_time:.3f}, "
+                    f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
+                    f"\tTrain Loss: {tr.loss:.4f} | "
+                    f"Train Perplexity: {perplexity(tr.loss):5.4f}\n"
+                    f"\tVal   Loss: {va.loss:.4f} | "
+                    f"Val   Perplexity: {perplexity(va.loss):5.4f}")
                 self.metrics.log("epoch_factual", epoch=epoch,
                                  train_loss=tr.loss, val_loss=va.loss,
                                  top5=va.top5, bleu4=va.bleu4,
@@ -597,13 +683,13 @@ class MultitaskTrainer:
             tr_e = self._run_train(emotion_loader, emo, tcfg.log_step_emotion,
                                    tag, epoch=epoch, pass_idx=1, **emo_kw)
             va_e = self._run_val(val_emotion_loader, emo)
-            _log(self.log_path,
-                 f"Epoch [{epoch}/{num_epochs}], [{tag}], "
-                 f"Top-5 Acc: {va_e.top5:.3f}, BLEU-4 Score: {va_e.bleu4}\n"
-                 f"\tTrain Loss: {tr_e.loss:.4f} | "
-                 f"Train Perplexity: {perplexity(tr_e.loss):5.4f}\n"
-                 f"\tVal   Loss: {va_e.loss:.4f} | "
-                 f"Val   Perplexity: {perplexity(va_e.loss):5.4f}")
+            self._log(
+                f"Epoch [{epoch}/{num_epochs}], [{tag}], "
+                f"Top-5 Acc: {va_e.top5:.3f}, BLEU-4 Score: {va_e.bleu4}\n"
+                f"\tTrain Loss: {tr_e.loss:.4f} | "
+                f"Train Perplexity: {perplexity(tr_e.loss):5.4f}\n"
+                f"\tVal   Loss: {va_e.loss:.4f} | "
+                f"Val   Perplexity: {perplexity(va_e.loss):5.4f}")
             self.metrics.log("epoch_emotion", epoch=epoch, mode=tcfg.mode,
                              train_loss=tr_e.loss, val_loss=va_e.loss,
                              top5=va_e.top5, bleu4=va_e.bleu4,
@@ -635,33 +721,34 @@ class MultitaskTrainer:
             tr = self._run_train(data_loader, 0, tcfg.log_step, "FAC",
                                  epoch=epoch, pass_idx=0, **fac_kw)
             va = self._run_val(val_loader, 0)
-            _log(self.log_path,
-                 f"Epoch [{epoch}/{num_epochs}], [FAC], Top-5 Acc: "
-                 f"{va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
-                 f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
+            self._log(
+                f"Epoch [{epoch}/{num_epochs}], [FAC], Top-5 Acc: "
+                f"{va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
+                f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
             self.save(epoch, self._improved("factual", va.bleu4),
                       mode_tag="FAC")
         self._clear_progress()
         return {"best_bleu4": self.best_bleu4}
 
     def _state(self, epoch: int) -> CheckpointState:
+        """The whole trees' checkpoint state (gathered on a mesh)."""
+        dec, head, opt, lang = self._whole_state()
         return CheckpointState(
             epoch=epoch,
             epochs_since_improvement=self.epochs_since_improvement,
             best_bleu4=self.best_bleu4,
-            params={"decoder": self.dec, "head": self.head},
-            opt_states={"optimizer": self.opt_state,
-                        "lang_optimizer": self.lang_opt_state})
+            params={"decoder": dec, "head": head},
+            opt_states={"optimizer": opt, "lang_optimizer": lang})
 
     def restore(self, path: str) -> None:
         """Full resume: params, BOTH optimizer states, epoch and plateau
         counters (``train_multitask.py:169-177``), each tensor placed as
-        this trainer's own."""
+        this trainer's own (on a mesh: loaded whole, then sharded)."""
         restored = load_checkpoint(path, self._state(0).as_pytree())
-        self.dec = restored["params"]["decoder"]
-        self.head = restored["params"]["head"]
-        self.opt_state = restored["opt_states"]["optimizer"]
-        self.lang_opt_state = restored["opt_states"]["lang_optimizer"]
+        self._set_whole_state(restored["params"]["decoder"],
+                              restored["params"]["head"],
+                              restored["opt_states"]["optimizer"],
+                              restored["opt_states"]["lang_optimizer"])
         self.start_epoch = int(restored["epoch"]) + 1
         self.epochs_since_improvement = {
             k: int(v) for k, v in restored["epochs_since_improvement"].items()}
@@ -669,9 +756,14 @@ class MultitaskTrainer:
             k: float(v) for k, v in restored["best_bleu4"].items()}
 
     def save(self, epoch: int, is_best: bool, mode_tag: Optional[str] = None):
-        save_checkpoint(self.model_dir, self.data_name,
-                        mode_tag or self.tcfg.mode[:3].upper(),
-                        self._state(epoch), is_best)
+        """Rank 0 writes the checkpoint (every rank gathers)."""
+        state = self._state(epoch)
+        if self.writer:
+            save_checkpoint(self.model_dir, self.data_name,
+                            mode_tag or self.tcfg.mode[:3].upper(), state,
+                            is_best)
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
 
 class TransferTrainer(MultitaskTrainer):
@@ -720,10 +812,10 @@ class TransferTrainer(MultitaskTrainer):
             tr = self._run_train(emotion_loader, emo, tcfg.log_step_emotion,
                                  tag, epoch=epoch, pass_idx=0, **emo_kw)
             va = self._run_val(val_emotion_loader, emo)
-            _log(self.log_path,
-                 f"Epoch [{epoch}/{num_epochs}], [{tag}], "
-                 f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
-                 f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
+            self._log(
+                f"Epoch [{epoch}/{num_epochs}], [{tag}], "
+                f"Top-5 Acc: {va.top5:.3f}, BLEU-4 Score: {va.bleu4}\n"
+                f"\tTrain Loss: {tr.loss:.4f} | Val Loss: {va.loss:.4f}")
             self.save(epoch, self._improved("emotion", va.bleu4))
         self._clear_progress()
         return {"best_bleu4": self.best_bleu4}
@@ -746,7 +838,7 @@ class PaperRegimeTrainer(MultitaskTrainer):
             self.style_optimizers[emo] = tx
             self.style_opt_states[emo] = tx.init(self.dec)
             self.style_steps[emo] = TextStyleStep(self.cfg, self.tcfg, tx,
-                                                  self.device)
+                                                  self.device, self.mesh)
 
     def _style_step(self, emo: str, caps, lens, smask) -> None:
         self.dec, self.style_opt_states[emo], _ = self.style_steps[emo](
@@ -804,13 +896,17 @@ class Seq2SeqTrainer:
     def __init__(self, cfg, tcfg: TrainConfig, vocab, params, head,
                  log_path: Optional[str] = None, mesh=None, device="cuda",
                  draws: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh) comes with slice 8 of the port")
         self.cfg, self.tcfg, self.vocab = cfg, tcfg, vocab
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.is_writer
+        if mesh is not None:
+            check_batch_sizes(tcfg, mesh)
+            device = mesh.device
         self.device = resolve_indexed_device(device)
         self.params = _clone(params, self.device)
         self.head = _clone(head, self.device)
+        if mesh is not None:
+            ptrain.broadcast_params((self.params, self.head))
         self.log_path = log_path
         self.generator = torch.Generator(device=self.device).manual_seed(
             tcfg.seed)
@@ -818,7 +914,8 @@ class Seq2SeqTrainer:
         self.optimizer = optim.make_adam(tcfg.lr_caption, tcfg)
         self.emotion_optimizer = optim.make_adam(tcfg.lr_language, tcfg)
         self.steps = make_seq2seq_steps(cfg, tcfg, self.optimizer,
-                                        self.emotion_optimizer, self.device)
+                                        self.emotion_optimizer, self.device,
+                                        mesh)
         (self.factual_step, self.emotion_step, self.val_factual,
          self.val_emotion) = self.steps
         self.opt_state = self.optimizer.init((self.params["encoder"],
@@ -827,6 +924,7 @@ class Seq2SeqTrainer:
             self.params["decoders"])
 
     _to_device = MultitaskTrainer._to_device
+    _log = MultitaskTrainer._log
 
     def _step_randomness(self, batch: int, steps: int, track: str) -> dict:
         if self.draws is None:
@@ -893,27 +991,27 @@ class Seq2SeqTrainer:
         num_epochs = num_epochs or self.tcfg.num_epochs
         for epoch in range(num_epochs):
             losses = self._train_pass(data_loader, self._factual)
-            _log(self.log_path,
-                 f"Epoch [{epoch}/{num_epochs}], [FAC], "
-                 f"Loss {losses.avg:.4f}")
+            self._log(
+                f"Epoch [{epoch}/{num_epochs}], [FAC], "
+                f"Loss {losses.avg:.4f}")
             if val_loader is not None:
                 vl, vt = self.validate_factual(val_loader)
-                _log(self.log_path,
-                     f"\tVal Loss: {vl:.4f} | Perplexity "
-                     f"{perplexity(vl):.4f} | Top-5 {vt:.3f}")
+                self._log(
+                    f"\tVal Loss: {vl:.4f} | Perplexity "
+                    f"{perplexity(vl):.4f} | Top-5 {vt:.3f}")
             for emo, loader in emotion_loaders.items():
                 eid = mode_id(emo) - 1
                 e_losses = self._train_pass(
                     loader, lambda f, c, ln, v, e=eid: self._emotion(
                         e, f, c, ln, v))
-                _log(self.log_path,
-                     f"Epoch [{epoch}/{num_epochs}], "
-                     f"[{emo[:3].upper()}], Loss {e_losses.avg:.4f}")
+                self._log(
+                    f"Epoch [{epoch}/{num_epochs}], "
+                    f"[{emo[:3].upper()}], Loss {e_losses.avg:.4f}")
                 if val_emotion_loaders and emo in val_emotion_loaders:
                     vl, vt = self.validate_emotion(
                         val_emotion_loaders[emo], eid)
-                    _log(self.log_path,
-                         f"\tVal Loss: {vl:.4f} | Top-5 {vt:.3f}")
+                    self._log(
+                        f"\tVal Loss: {vl:.4f} | Top-5 {vt:.3f}")
 
     def _validate(self, loader, fn, tokens) -> tuple:
         """Token-weighted (loss, top-5) of ``fn(feats, caps, lens, smask)

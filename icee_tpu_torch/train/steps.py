@@ -22,6 +22,32 @@ Unlike the JAX steps, these update the parameter tensors IN PLACE (and the
 head's BatchNorm running statistics) and also return them.  Randomness
 comes from a ``torch.Generator``; ``keep`` and ``coins`` may be passed in
 instead (see ``models/factored_lstm.py``).
+
+On a mesh (``mesh=``, :mod:`icee_tpu_torch.parallel`) every rank is given
+the same GLOBAL batch and computes on its data coordinate's rows of it, as
+JAX's jitted steps compute on a batch sharded over the data axis:
+
+- the dropout keep-mask and the coins are drawn (or given) for the global
+  batch, from the same generator state on every rank, and each rank keeps
+  its rows, so the draws are the single-device run's;
+- the packed-mean CE divides each rank's token sum by the GLOBAL batch's
+  valid-token count (and the attention regulariser by its valid rows); a
+  mean of per-rank means would be another loss wherever ranks hold
+  different counts;
+- the encoder head's BatchNorm normalizes by the global batch's statistics
+  (``models/resnet.py::batch_norm_train``);
+- each rank's loss is its share of the global loss, so the gradients are
+  summed over the data group before the clamp and Adam, and every rank
+  applies the same update; the returned loss is the global one;
+- where the vocabulary divides the model axis, ``B`` / ``embed`` and the
+  head hold this model rank's slice (``parallel/train.py::shard_decoder``):
+  the embedding looks up its rows and sums over the model group, the
+  scheduled-sampling argmax is taken over the whole vocabulary, and the
+  loss is the vocab-parallel chunked CE (``ops/chunked_loss.py``), which a
+  split head always takes (``chunked_ce`` off is for a whole head).
+
+Validation on a mesh takes the WHOLE decoder (the trainers gather it) and
+returns the global loss and top-5 and every row's predictions.
 """
 
 from __future__ import annotations
@@ -43,6 +69,10 @@ from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
 from icee_tpu_torch.models import seq2seq as s2s
 from icee_tpu_torch.ops.chunked_loss import masked_ce_from_hiddens
+from icee_tpu_torch.parallel.collectives import (all_reduce_grads,
+                                                 gather_rows, reduced,
+                                                 vocab_shard)
+from icee_tpu_torch.parallel.data import local_rows
 from icee_tpu_torch.train.optim import Adam, AdamState, tree_leaves
 
 _STATE_KEYS = ("running_mean", "running_var")
@@ -53,11 +83,15 @@ class StepMetrics(NamedTuple):
     top5: torch.Tensor
 
 
-def _val_metrics(logits, targets, lengths, sample_mask) -> StepMetrics:
-    """Token-mean CE and top-5 accuracy (%) over the valid tokens."""
+def _val_metrics(logits, targets, lengths, sample_mask,
+                 count=None) -> StepMetrics:
+    """Token-mean CE and top-5 accuracy (%) over the valid tokens
+    (``count`` of them where given)."""
     return StepMetrics(
-        loss=masked_cross_entropy(logits, targets, lengths, sample_mask),
-        top5=masked_top_k_accuracy(logits, targets, lengths, 5, sample_mask))
+        loss=masked_cross_entropy(logits, targets, lengths, sample_mask,
+                                  count),
+        top5=masked_top_k_accuracy(logits, targets, lengths, 5, sample_mask,
+                                   count))
 
 
 def _track(tree):
@@ -102,7 +136,8 @@ class _Steps:
 
     def __init__(self, cfg: DecoderConfig, tcfg: TrainConfig,
                  optimizer: Adam, lang_optimizer: Adam,
-                 device: torch.device, factored: bool = True):
+                 device: torch.device, factored: bool = True, mesh=None,
+                 split_vocab: bool = True):
         self.cfg, self.tcfg, self.device = cfg, tcfg, device
         self.factored = factored
         self.optimizer, self.lang_optimizer = optimizer, lang_optimizer
@@ -110,6 +145,57 @@ class _Steps:
         self.use_fused = on_card if tcfg.fused_scan is None else tcfg.fused_scan
         self.use_chunked = (on_card if tcfg.chunked_ce is None
                             else tcfg.chunked_ce)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.data_group
+        self.vocab = (vocab_shard(mesh, cfg.vocab_size) if split_vocab
+                      else None)
+        if self.vocab is not None:
+            self.use_chunked = True
+
+    # -- the data group ----------------------------------------------------
+
+    def _draws(self, batch: int, steps: int, ratio, generator, keep, coins):
+        """Under a data group: the keep-mask and coins of the GLOBAL batch
+        (``batch`` rows, ``steps`` steps), drawn in the forward's order
+        (``factored_lstm.prepare_inputs``) where not given, and this rank's
+        rows of the keep-mask.  Without one: as given."""
+        if self.group is None:
+            return keep, coins
+        gen = (torch.Generator().manual_seed(0) if generator is None
+               else generator)
+        if keep is None and self.cfg.dropout > 0.0:
+            keep = torch.rand((batch, steps, self.cfg.embed_size),
+                              generator=gen, device=gen.device) \
+                < 1.0 - self.cfg.dropout
+        if coins is None and float(ratio) < 1.0:
+            coins = torch.rand((steps,), generator=gen,
+                               device=gen.device) < ratio
+        if keep is not None:
+            keep = local_rows(torch.as_tensor(keep), self.mesh)
+        return keep, coins
+
+    def _count(self, lengths, t: int, sample_mask):
+        """The global batch's valid-token count under a data group (None
+        without one: the loss counts its own batch)."""
+        if self.group is None:
+            return None
+        mask = length_mask(lengths, t)
+        if sample_mask is not None:
+            mask = mask & sample_mask[:, None].bool()
+        return reduced(mask.sum(), self.group)
+
+    def _global(self, x):
+        """A per-rank share summed over the data group (no gradient)."""
+        return reduced(x.detach(), self.group)
+
+    def _reduce_grads(self, grads):
+        return all_reduce_grads(grads, self.group)
+
+    def _gather_preds(self, preds):
+        if self.group is None:
+            return preds
+        return gather_rows(preds.contiguous(), self.group,
+                           self.mesh.data_rank, self.mesh.n_data)
 
     def __iter__(self):
         return iter((self.factual_train_step, self.emotion_train_step,
@@ -133,7 +219,10 @@ class CaptionSteps(_Steps):
 
     def _forward(self, d, captions, feats, style, hiddens=False, **kw):
         """The decoder's training forward -> logits, or hidden states with
-        ``hiddens``; NIC ignores ``style``."""
+        ``hiddens`` (over a split vocabulary on a model group); NIC ignores
+        ``style``."""
+        if hiddens:
+            kw["vocab"] = self.vocab
         if self.factored:
             fn = fl.forward_hiddens if hiddens else fl.forward
             return fn(d, self.cfg, captions, feats, style, **kw)
@@ -144,45 +233,51 @@ class CaptionSteps(_Steps):
                     style, generator, keep, coins):
         """Masked token-mean CE of the training forward -> (loss, head
         with the forward's BatchNorm running statistics)."""
-        feats, new_head = enc_mod.encode_global_from_pooled(h, pooled,
-                                                            train=True)
+        feats, new_head = enc_mod.encode_global_from_pooled(
+            h, pooled, train=True, group=self.group)
+        count = self._count(lengths, captions.shape[1], sample_mask)
         kw = dict(teacher_forcing_ratio=self.tcfg.teacher_forcing_ratio,
                   generator=generator, train=True, fused_scan=self.use_fused,
                   keep=keep, coins=coins)
         if not self.use_chunked:
             logits = self._forward(d, captions, feats, style, **kw)
             return masked_cross_entropy(logits, captions, lengths,
-                                        sample_mask), new_head
+                                        sample_mask, count), new_head
         hiddens = self._forward(d, captions, feats, style, hiddens=True,
                                 **kw)
         return masked_ce_from_hiddens(hiddens, *self._head(d), captions,
-                                      lengths, sample_mask), new_head
+                                      lengths, sample_mask, count=count,
+                                      vocab=self.vocab), new_head
+
+    def _grads(self, dec, head, track_head, pooled, captions, lengths,
+               sample_mask, style, generator, keep, coins):
+        self._check_device(dec, head, pooled, captions, lengths, sample_mask)
+        keep, coins = self._draws(*captions.shape,
+                                  self.tcfg.teacher_forcing_ratio,
+                                  generator, keep, coins)
+        pooled, captions, lengths, sample_mask = local_rows(
+            (pooled, captions, lengths, sample_mask), self.mesh)
+        with torch.enable_grad():
+            d = _track(dec)
+            h = _track(head) if track_head else head
+            loss, new_head = self._train_loss(d, h, pooled, captions,
+                                              lengths, sample_mask, style,
+                                              generator, keep, coins)
+            grads = _grads_like((d, h) if track_head else d, loss)
+        return self._global(loss), self._reduce_grads(grads), new_head
 
     def factual_grads(self, dec, head, pooled, captions, lengths,
                       sample_mask, generator=None, keep=None, coins=None):
         """-> (loss, (decoder grads, head grads), forward head)."""
-        self._check_device(dec, head, pooled, captions, lengths, sample_mask)
-        with torch.enable_grad():
-            d, h = _track(dec), _track(head)
-            loss, new_head = self._train_loss(d, h, pooled, captions,
-                                              lengths, sample_mask, 0,
-                                              generator, keep, coins)
-            grads = _grads_like((d, h), loss)
-        return loss.detach(), grads, new_head
+        return self._grads(dec, head, True, pooled, captions, lengths,
+                           sample_mask, 0, generator, keep, coins)
 
     def emotion_grads(self, dec, head, pooled, captions, lengths,
                       sample_mask, style, generator=None, keep=None,
                       coins=None):
         """-> (loss, decoder grads, forward head)."""
-        self._check_device(dec, head, pooled, captions, lengths, sample_mask)
-        with torch.enable_grad():
-            d = _track(dec)
-            loss, new_head = self._train_loss(d, head, pooled, captions,
-                                              lengths, sample_mask,
-                                              int(style), generator, keep,
-                                              coins)
-            grads = _grads_like(d, loss)
-        return loss.detach(), grads, new_head
+        return self._grads(dec, head, False, pooled, captions, lengths,
+                           sample_mask, int(style), generator, keep, coins)
 
     def factual_train_step(self, dec, head, opt_state: AdamState, pooled,
                            captions, lengths, sample_mask, generator=None,
@@ -214,27 +309,33 @@ class CaptionSteps(_Steps):
         """Free-running (ratio 0) forward, head in eval mode
         (``train_multitask.py:272-299``) -> (loss, top-5 %, argmax preds)."""
         self._check_device(dec, head, pooled, captions, lengths, sample_mask)
+        pooled, captions, lengths, sample_mask = local_rows(
+            (pooled, captions, lengths, sample_mask), self.mesh)
         feats = enc_mod.encode_global_from_pooled(head, pooled)
         logits = self._forward(dec, captions, feats, int(style),
                                teacher_forcing_ratio=0.0, train=False)
-        m = _val_metrics(logits, captions, lengths, sample_mask)
-        return m.loss, m.top5, torch.argmax(logits, dim=-1)
+        m = _val_metrics(logits, captions, lengths, sample_mask,
+                         self._count(lengths, captions.shape[1],
+                                     sample_mask))
+        return (self._global(m.loss), self._global(m.top5),
+                self._gather_preds(torch.argmax(logits, dim=-1)))
 
 
 def make_caption_steps(cfg: DecoderConfig, tcfg: TrainConfig,
                        optimizer: Adam, lang_optimizer: Adam,
-                       factored: bool = True,
-                       device="cuda") -> CaptionSteps:
+                       factored: bool = True, device="cuda",
+                       mesh=None) -> CaptionSteps:
     """Steps for the StyleNet (``factored``) or NIC captioner over cached
     pooled features.
 
     ``optimizer`` covers (decoder, encoder head), the factual track;
     ``lang_optimizer`` covers the decoder only, the emotion track
     (``train_multitask.py:163-167``).  ``device`` is CUDA unless the caller
-    asks for the CPU; a step given tensors elsewhere raises.
+    asks for the CPU; a step given tensors elsewhere raises.  ``mesh``: the
+    data- and tensor-parallel steps of the module docstring.
     """
     return CaptionSteps(cfg, tcfg, optimizer, lang_optimizer,
-                        resolve_indexed_device(device), factored)
+                        resolve_indexed_device(device), factored, mesh)
 
 
 class AttentionSteps(_Steps):
@@ -255,6 +356,8 @@ class AttentionSteps(_Steps):
     """
 
     def _forward(self, d, captions, feats, style, hiddens=False, **kw):
+        if hiddens:
+            kw["vocab"] = self.vocab
         if self.factored:
             fn = (att_mod.factored_att_forward_hiddens if hiddens
                   else att_mod.factored_att_forward)
@@ -263,14 +366,14 @@ class AttentionSteps(_Steps):
               else att_mod.rnn_att_forward)
         return fn(d, self.cfg, captions, feats, **kw)
 
-    @staticmethod
-    def _att_reg(alphas, tgt_len, sample_mask):
+    def _att_reg(self, alphas, tgt_len, sample_mask):
         """mean over valid rows and positions of (1 - sum_t alpha)^2, the
-        steps past a caption's length contributing no attention."""
+        steps past a caption's length contributing no attention; the valid
+        rows of the global batch under a data group."""
         mask = length_mask(tgt_len, alphas.shape[1]) & sample_mask[:, None]
         a = torch.where(mask[..., None], alphas, 0.0)
         rows = sample_mask.to(alphas.dtype)
-        n_valid = rows.sum().clamp(min=1)
+        n_valid = reduced(rows.sum(), self.group).clamp(min=1)
         return torch.sum((1.0 - a.sum(1)) ** 2 * rows[:, None]) / (
             n_valid * alphas.shape[-1])
 
@@ -281,22 +384,30 @@ class AttentionSteps(_Steps):
         captions_in, targets = captions[:, :-1], captions[:, 1:]
         tgt_len = (lengths - 1).clamp(min=0)
         sample_mask = sample_mask.bool()
+        count = self._count(tgt_len, targets.shape[1], sample_mask)
         if chunked:
             hiddens, alphas = self._forward(d, captions_in, features, style,
                                             hiddens=True, **kw)
             ce, logits = masked_ce_from_hiddens(
                 hiddens, *self._head(d), targets, tgt_len,
-                sample_mask), None
+                sample_mask, count=count, vocab=self.vocab), None
         else:
             logits, alphas = self._forward(d, captions_in, features, style,
                                            **kw)
-            ce = masked_cross_entropy(logits, targets, tgt_len, sample_mask)
+            ce = masked_cross_entropy(logits, targets, tgt_len, sample_mask,
+                                      count)
         reg = self._att_reg(alphas, tgt_len, sample_mask)
-        return ce + self.tcfg.alpha_c * reg, logits, targets, tgt_len
+        return (ce + self.tcfg.alpha_c * reg, logits, targets, tgt_len,
+                count)
 
     def _grads(self, dec, features, captions, lengths, sample_mask, style,
                generator, keep, coins):
         self._check_device(dec, features, captions, lengths, sample_mask)
+        keep, coins = self._draws(captions.shape[0], captions.shape[1] - 1,
+                                  self.tcfg.teacher_forcing_ratio,
+                                  generator, keep, coins)
+        features, captions, lengths, sample_mask = local_rows(
+            (features, captions, lengths, sample_mask), self.mesh)
         with torch.enable_grad():
             d = _track(dec)
             loss = self._loss(
@@ -305,8 +416,8 @@ class AttentionSteps(_Steps):
                 teacher_forcing_ratio=self.tcfg.teacher_forcing_ratio,
                 generator=generator, train=True, fused_scan=self.use_fused,
                 keep=keep, coins=coins)[0]
-            grads = _grads_like(d, loss)
-        return loss.detach(), grads
+            grads = self._reduce_grads(_grads_like(d, loss))
+        return self._global(loss), grads
 
     def factual_grads(self, dec, features, captions, lengths, sample_mask,
                       generator=None, keep=None, coins=None):
@@ -345,23 +456,27 @@ class AttentionSteps(_Steps):
         """Free-running (ratio 0) forward -> (loss with the regulariser,
         top-5 %, argmax preds (B, T - 1))."""
         self._check_device(dec, features, captions, lengths, sample_mask)
-        loss, logits, targets, tgt_len = self._loss(
+        features, captions, lengths, sample_mask = local_rows(
+            (features, captions, lengths, sample_mask), self.mesh)
+        loss, logits, targets, tgt_len, count = self._loss(
             dec, features, captions, lengths, sample_mask, int(style), False,
             teacher_forcing_ratio=0.0, train=False)
         top5 = masked_top_k_accuracy(logits, targets, tgt_len, 5,
-                                     sample_mask.bool())
-        return loss, top5, torch.argmax(logits, dim=-1)
+                                     sample_mask.bool(), count)
+        return (self._global(loss), self._global(top5),
+                self._gather_preds(torch.argmax(logits, dim=-1)))
 
 
 def make_attention_steps(cfg: AttentionDecoderConfig, tcfg: TrainConfig,
                          optimizer: Adam, lang_optimizer: Adam,
-                         factored: bool = True,
-                         device="cuda") -> AttentionSteps:
+                         factored: bool = True, device="cuda",
+                         mesh=None) -> AttentionSteps:
     """Steps for the StyleNet+Att (``factored``) or NIC+Att captioner over
     spatial features (B, P, feature_size).  ``device`` is CUDA unless the
-    caller asks for the CPU; a step given tensors elsewhere raises."""
+    caller asks for the CPU; a step given tensors elsewhere raises.
+    ``mesh`` as in :func:`make_caption_steps`."""
     return AttentionSteps(cfg, tcfg, optimizer, lang_optimizer,
-                          resolve_indexed_device(device), factored)
+                          resolve_indexed_device(device), factored, mesh)
 
 
 class TextStyleStep(_Steps):
@@ -373,14 +488,29 @@ class TextStyleStep(_Steps):
     chunked CE kernels, as in :class:`CaptionSteps`."""
 
     def __init__(self, cfg: DecoderConfig, tcfg: TrainConfig,
-                 optimizer: Adam, device="cuda"):
+                 optimizer: Adam, device="cuda", mesh=None):
         super().__init__(cfg, tcfg, optimizer, optimizer,
-                         resolve_indexed_device(device))
+                         resolve_indexed_device(device), mesh=mesh)
 
     def __call__(self, dec, opt_state: AdamState, captions, lengths,
                  sample_mask, style, generator=None, keep=None, coins=None):
         """-> (dec, opt_state, loss), the decoder updated in place."""
+        loss, grads = self.grads(dec, captions, lengths, sample_mask, style,
+                                 generator, keep, coins)
+        self.optimizer.update(grads, opt_state, dec)
+        return dec, opt_state, loss
+
+    def grads(self, dec, captions, lengths, sample_mask, style,
+              generator=None, keep=None, coins=None):
+        """-> (loss, decoder grads) of the global batch: each rank's share
+        summed over the data group."""
         self._check_device(dec, captions, lengths, sample_mask)
+        keep, coins = self._draws(*captions.shape,
+                                  self.tcfg.teacher_forcing_ratio,
+                                  generator, keep, coins)
+        captions, lengths, sample_mask = local_rows(
+            (captions, lengths, sample_mask), self.mesh)
+        count = self._count(lengths, captions.shape[1], sample_mask)
         with torch.enable_grad():
             d = _track(dec)
             kw = dict(teacher_forcing_ratio=self.tcfg.teacher_forcing_ratio,
@@ -388,17 +518,18 @@ class TextStyleStep(_Steps):
                       fused_scan=self.use_fused, keep=keep, coins=coins)
             if self.use_chunked:
                 hiddens = fl.forward_hiddens(d, self.cfg, captions, None,
-                                             int(style), **kw)
+                                             int(style), vocab=self.vocab,
+                                             **kw)
                 loss = masked_ce_from_hiddens(hiddens, d["C_w"], d["C_b"],
-                                              captions, lengths, sample_mask)
+                                              captions, lengths, sample_mask,
+                                              count=count, vocab=self.vocab)
             else:
                 logits = fl.forward(d, self.cfg, captions, None, int(style),
                                     **kw)
                 loss = masked_cross_entropy(logits, captions, lengths,
-                                            sample_mask)
-            grads = _grads_like(d, loss)
-        self.optimizer.update(grads, opt_state, dec)
-        return dec, opt_state, loss.detach()
+                                            sample_mask, count)
+            grads = self._reduce_grads(_grads_like(d, loss))
+        return self._global(loss), grads
 
 
 class Seq2SeqSteps(_Steps):
@@ -434,10 +565,15 @@ class Seq2SeqSteps(_Steps):
         self._check_device(params, head, pooled, captions, lengths,
                            sample_mask)
         ratio = self.tcfg.teacher_forcing_ratio
+        keep, coins = self._draws(*captions.shape, ratio, generator, keep,
+                                  coins)
+        pooled, captions, lengths, sample_mask = local_rows(
+            (pooled, captions, lengths, sample_mask), self.mesh)
+        count = self._count(lengths, captions.shape[1], sample_mask)
         with torch.enable_grad():
             enc, h = _track(params["encoder"]), _track(head)
-            feats, new_head = enc_mod.encode_global_from_pooled(h, pooled,
-                                                                True)
+            feats, new_head = enc_mod.encode_global_from_pooled(
+                h, pooled, True, group=self.group)
             p = dict(params, encoder=enc)
             out, _ = s2s.encode(p, self.cfg, feats, captions, ratio,
                                 generator, True, self.use_chunked, keep,
@@ -445,12 +581,12 @@ class Seq2SeqSteps(_Steps):
             if self.use_chunked:
                 loss = masked_ce_from_hiddens(
                     out, enc["linear_w"], enc["linear_b"], captions,
-                    lengths, sample_mask)
+                    lengths, sample_mask, count=count)
             else:
                 loss = masked_cross_entropy(out, captions, lengths,
-                                            sample_mask)
+                                            sample_mask, count)
             grads = _grads_like((enc, h), loss)
-        return loss.detach(), grads, new_head
+        return self._global(loss), self._reduce_grads(grads), new_head
 
     def emotion_grads(self, params, captions_dst, dst_lengths, sample_mask,
                       emotion, generator=None, keep=None, coins=None):
@@ -458,7 +594,14 @@ class Seq2SeqSteps(_Steps):
         zeroed)."""
         self._check_device(params, captions_dst, dst_lengths, sample_mask)
         emotion = int(emotion)
+        keep, coins = self._draws(captions_dst.shape[0],
+                                  captions_dst.shape[1] - 1,
+                                  self.tcfg.teacher_forcing_ratio, generator,
+                                  keep, coins)
+        captions_dst, dst_lengths, sample_mask = local_rows(
+            (captions_dst, dst_lengths, sample_mask), self.mesh)
         tgt_len = (dst_lengths - 1).clamp(min=0)
+        count = self._count(tgt_len, captions_dst.shape[1] - 1, sample_mask)
         with torch.enable_grad():
             decs = _track(params["decoders"])
             p = dict(params, decoders=decs)
@@ -470,10 +613,10 @@ class Seq2SeqSteps(_Steps):
                 half = s2s.select_decoder(p, emotion)
                 loss = masked_ce_from_hiddens(
                     out, half["linear_w"], half["linear_b"],
-                    captions_dst[:, 1:], tgt_len, sample_mask)
+                    captions_dst[:, 1:], tgt_len, sample_mask, count=count)
             else:
                 loss = masked_cross_entropy(out, captions_dst[:, 1:],
-                                            tgt_len, sample_mask)
+                                            tgt_len, sample_mask, count)
             grads = _grads_like(decs, loss)
 
         def only(g):
@@ -486,7 +629,7 @@ class Seq2SeqSteps(_Steps):
             onehot[emotion] = 1.0
             return g * onehot
 
-        return loss.detach(), only(grads)
+        return self._global(loss), self._reduce_grads(only(grads))
 
     def factual_train_step(self, params, head, opt_state: AdamState, pooled,
                            captions, lengths, sample_mask, generator=None,
@@ -521,11 +664,16 @@ class Seq2SeqSteps(_Steps):
         in eval mode -> (loss, top-5 %, argmax preds)."""
         self._check_device(params, head, pooled, captions, lengths,
                            sample_mask)
+        pooled, captions, lengths, sample_mask = local_rows(
+            (pooled, captions, lengths, sample_mask), self.mesh)
         feats = enc_mod.encode_global_from_pooled(head, pooled)
         logits, _ = s2s.encode(params, self.cfg, feats, captions, 0.0,
                                None, False)
-        m = _val_metrics(logits, captions, lengths, sample_mask)
-        return m.loss, m.top5, torch.argmax(logits, dim=-1)
+        m = _val_metrics(logits, captions, lengths, sample_mask,
+                         self._count(lengths, captions.shape[1],
+                                     sample_mask))
+        return (self._global(m.loss), self._global(m.top5),
+                self._gather_preds(torch.argmax(logits, dim=-1)))
 
     @torch.no_grad()
     def val_emotion_step(self, params, head, pooled, captions_src,
@@ -535,22 +683,28 @@ class Seq2SeqSteps(_Steps):
         (loss, top-5 %, argmax preds (B, T - 1)) against ``captions_dst[:,
         1:]``; the encoder pass is dead here too."""
         self._check_device(params, captions_dst, dst_lengths, sample_mask)
+        captions_dst, dst_lengths, sample_mask = local_rows(
+            (captions_dst, dst_lengths, sample_mask), self.mesh)
         logits = s2s.decode_emotion(params, self.cfg, None,
                                     captions_dst[:, :-1], int(emotion), 0.0,
                                     None, False)
         tgt_len = (dst_lengths - 1).clamp(min=0)
-        m = _val_metrics(logits, captions_dst[:, 1:], tgt_len, sample_mask)
-        return m.loss, m.top5, torch.argmax(logits, dim=-1)
+        m = _val_metrics(logits, captions_dst[:, 1:], tgt_len, sample_mask,
+                         self._count(tgt_len, logits.shape[1], sample_mask))
+        return (self._global(m.loss), self._global(m.top5),
+                self._gather_preds(torch.argmax(logits, dim=-1)))
 
 
 def make_seq2seq_steps(cfg: Seq2SeqConfig, tcfg: TrainConfig,
                        optimizer: Adam, emotion_optimizer: Adam,
-                       device="cuda") -> Seq2SeqSteps:
+                       device="cuda", mesh=None) -> Seq2SeqSteps:
     """T6 steps.  ``optimizer`` covers (encoder half, encoder head);
     ``emotion_optimizer`` the stacked emotion decoders, each step's
     gradient masked to its emotion's slice (the reference keeps one Adam
     per emotion decoder, ``seq2seq/train.py:141-158``; JAX and the port
     one masked Adam).  ``device`` is CUDA unless the caller asks for the
-    CPU; a step given tensors elsewhere raises."""
+    CPU; a step given tensors elsewhere raises.  ``mesh``: data parallel
+    only, the parameters whole on every rank, as JAX replicates them."""
     return Seq2SeqSteps(cfg, tcfg, optimizer, emotion_optimizer,
-                        resolve_indexed_device(device))
+                        resolve_indexed_device(device), mesh=mesh,
+                        split_vocab=False)

@@ -400,12 +400,19 @@ TRAIN_BASE = ["--vocab_path", "unused.pkl", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--data_parallel"], "slice 8"),
-    (["--tensor_parallel", "2"], "slice 8"),
-    (["--coordinator_address", "localhost:1234"], "slice 8"),
-    (["--num_processes", "2", "--process_id", "0"], "slice 8"),
+    (["--data_parallel", "--coordinator_address", "localhost:1234"],
+     "--coordinator_address needs --num_processes and --process_id"),
+    (["--tensor_parallel", "2"], "--tensor_parallel need --data_parallel"),
+    (["--coordinator_address", "localhost:1234"],
+     "--coordinator_address need --data_parallel"),
+    (["--num_processes", "2", "--process_id", "0"],
+     "--num_processes, --process_id need --data_parallel"),
 ])
 def test_train_refuses_what_is_not_ported(extra, slice_):
+    """The multi-process flags that cannot act are refused at start-up,
+    before the vocabulary loads: the model axis and the multi-host flags
+    without ``--data_parallel`` (the JAX CLI ignores them there), and a
+    coordinator without the process count and id."""
     with pytest.raises(SystemExit, match=slice_):
         run_port(train, TRAIN_BASE + extra)
 
@@ -656,12 +663,29 @@ def test_bfloat16_features_pinned_and_streamed(resident, capsys,
 
 
 @pytest.mark.parametrize("mod", [evaluate, caption_batch])
-def test_decoders_refuse_data_parallel(mod):
-    argv = ["--vocab_path", "unused.pkl", "--data_parallel", "--device",
-            "cpu"] + (["--test_path", "unused.txt"] if mod is evaluate
-                      else [])
-    with pytest.raises(SystemExit, match="slice 8"):
-        run_port(mod, argv)
+def test_decoders_refuse_data_parallel(mod, run, capsys, tmp_path):
+    """``--data_parallel`` in a world of one process (no torchrun, no
+    coordinator) is not refused: it decodes single-device after JAX's
+    WARNING, and its output is the run without the flag's."""
+    argv = ["--vocab_path", str(run["tmp"] / "vocab.pkl"), "--feature_cache",
+            run["cache"], "--mode", "happy", "--checkpoint_path",
+            run["ckpt"]["port"], "--device", "cpu", *MODEL]
+    if mod is evaluate:
+        argv += ["--test_path", f"{DATA}/train.txt", "--batch_size", "6"]
+    else:
+        argv += ["--image_dir", f"{DATA}/img", "--batch_size", "3"]
+    outs = []
+    for extra in ([], ["--data_parallel"]):
+        out = [] if mod is evaluate else [
+            "--out", str(tmp_path / f"c{len(extra)}.json")]
+        run_port(mod, argv + extra + out)
+        text = capsys.readouterr().out
+        assert ("WARNING: --data_parallel with a single device; decoding "
+                "single-device" in text) == bool(extra)
+        outs.append(_decode_lines(text) if mod is evaluate else
+                    (tmp_path / f"c{len(extra)}.json").read_text())
+    assert outs[0] == outs[1]
+    assert outs[0]
 
 
 def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,

@@ -77,7 +77,10 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path, tiny_vocab):
                  "checkpoint.progress", "senticap.sentiment",
                  "senticap.eval_out", "senticap.adversarial",
                  "senticap.encode_decode", "cli.senticap_train",
-                 "models.seq2seq", "utils.profiling", "utils.embeddings"):
+                 "models.seq2seq", "utils.profiling", "utils.embeddings",
+                 "parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.train", "parallel.data", "parallel.launch",
+                 "parallel.programs", "parallel.dryrun"):
         assert f"icee_tpu_torch.{name}" in modules
     pickled = str(tmp_path / "vocab.pkl")
     tiny_vocab.save(pickled)   # an icee_tpu.data.vocab.Vocabulary
@@ -97,3 +100,18 @@ def test_forbidden_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jaxlib.xla_client")
     assert not _is_forbidden("icee_tpu_torch")
     assert not _is_forbidden("icee_tpu_torch.ops.cells")
+
+
+def test_kernel_wrappers_reach_no_training_layer():
+    """The kernel wrappers (``ops``) and the collectives they use
+    (``parallel.collectives``) load nothing of the training layer
+    (``icee_tpu_torch.train``)."""
+    probe = ("import sys, icee_tpu_torch.ops.chunked_loss, "
+             "icee_tpu_torch.parallel.collectives; "
+             "print([m for m in sys.modules "
+             "if m.startswith('icee_tpu_torch.train')])")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=ROOT),
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -439,8 +439,13 @@ def test_train_base_learns_and_device_epoch_matches():
     for k in p1:
         assert torch.equal(p1[k], p2[k]), k
     assert seen[-1] < seen[0]
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        train_base(ds, V, conf, num_epochs=1, mesh=object(), device="cpu")
+    from icee_tpu_torch.parallel.mesh import Mesh
+
+    # a data axis (3) that does not divide the minibatch (4): refused
+    # before any collective
+    mesh = Mesh((3, 1), 0, None, None, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="must divide by the data-axis"):
+        train_base(ds, V, conf, num_epochs=1, mesh=mesh, device="cpu")
 
 
 def validation_perplexity_cpu(p, conf, ds):

@@ -43,6 +43,7 @@ from icee_tpu.senticap import model as jmodel
 from icee_tpu.senticap import switched as jswitched
 from icee_tpu_torch import bridge
 from icee_tpu_torch.cli import senticap_train as cli
+from icee_tpu_torch.senticap import io as sio
 from icee_tpu_torch.senticap import train as port_train
 
 E, H, VIS, MAXLEN = 8, 8, 12, 6
@@ -256,10 +257,23 @@ def test_test_decodes_and_eval_files_match_jax(runs, writer, capsys,
             assert (port_dir / n).read_bytes() == (jax_dir / n).read_bytes()
 
 
-def test_data_parallel_is_refused(runs):
-    with pytest.raises(SystemExit, match="slice 8"):
-        run_port(["base", "--captions", runs["paths"]["captions"],
-                  "--data_parallel", "--device", "cpu"])
+def test_data_parallel_is_refused(runs, capsys):
+    """``--data_parallel`` in a world of one process is not refused: it
+    trains single-device after a WARNING, the pickle the run without
+    the flag's (the same seeded weights and draws)."""
+    tmp, data = runs["tmp"], ["--features", runs["paths"]["features"]]
+    pickles = []
+    for extra in ([], ["--data_parallel"]):
+        out = tmp / f"dp{len(extra)}_base.pik"
+        run_port(["base", "--captions", runs["paths"]["captions"], *data,
+                  *SIZES, "--num_epochs", "1", "--model_out", str(out),
+                  *extra, *PORT])
+        text = capsys.readouterr().out
+        assert ("WARNING: --data_parallel with a single device; training "
+                "single-device" in text) == bool(extra)
+        pickles.append(sio.load_model(str(out), "cpu")[0])
+    for k in pickles[0]:
+        assert torch.equal(pickles[0][k], pickles[1][k]), k
 
 
 @pytest.mark.parametrize("switched", [False, True])

@@ -511,8 +511,13 @@ def test_train_switched_learns_and_device_epoch_matches():
     assert p3 is start
     for k in p1:
         assert torch.equal(p1[k], p3[k]), k
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        train_switched(ds, base, V, conf, num_epochs=1, mesh=object(),
+    from icee_tpu_torch.parallel.mesh import Mesh
+
+    # a data axis that does not divide the minibatch: refused before any
+    # collective
+    mesh = Mesh((3, 1), 0, None, None, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="must divide by the data-axis"):
+        train_switched(ds, base, V, conf, num_epochs=1, mesh=mesh,
                        device="cpu")
 
 

@@ -585,9 +585,15 @@ def test_trainer_refuses_a_mesh_and_a_streamed_split(corpus):
 
     jcfg, cfg, _, tcfg = _configs(corpus, 1.0)
     p, head = _weights(jcfg)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    from icee_tpu_torch.parallel.mesh import Mesh
+
+    # a mesh whose data axis the batch sizes do not divide: refused with
+    # JAX's message before any collective
+    mesh = Mesh((7, 1), 0, None, None, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="must divide by the data-axis "
+                                         "size 7"):
         Seq2SeqTrainer(cfg, tcfg, corpus["vocab"], bridge.to_torch(p),
-                       bridge.to_torch(head), mesh=object(), device="cpu")
+                       bridge.to_torch(head), mesh=mesh, device="cpu")
     tr = Seq2SeqTrainer(cfg, tcfg, corpus["vocab"], bridge.to_torch(p),
                         bridge.to_torch(head), device="cpu")
     streamed = ddev.from_examples_streamed(

@@ -72,6 +72,7 @@ from icee_tpu_torch.core.config import TrainConfig
 from icee_tpu_torch.data import captions as cap
 from icee_tpu_torch.data import pipeline as pipe
 from icee_tpu_torch.data.vocab import build_vocab
+from icee_tpu_torch.parallel.mesh import Mesh
 from icee_tpu_torch.train import loops
 
 TRAIN, HAPPY = "examples/data/train.txt", "examples/data/happy.txt"
@@ -397,8 +398,12 @@ def test_refusals_name_their_slice(data, tmp_path):
     args = (cfg, tcfg, data["vocab"], bridge.to_torch(dec),
             bridge.to_torch(head))
     kw = dict(device="cpu", model_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        loops.MultitaskTrainer(*args, mesh=object(), **kw)
+    # a mesh whose data axis (3) the batch sizes do not divide: refused
+    # with JAX's message before any collective
+    mesh = Mesh((3, 1), 0, None, None, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="must divide by the data-axis "
+                                         "size 3"):
+        loops.MultitaskTrainer(*args, mesh=mesh, **kw)
     with pytest.raises(ValueError, match="family"):
         loops.MultitaskTrainer(*args, family="seq2seq", **kw)
     loops.PaperRegimeTrainer(*args, **kw)
