@@ -37,6 +37,20 @@ Phases, in order; any failure exits non-zero:
    cells, margin-aware as phase 5, and vs the fused-step path (K6 per
    step) at atol 0; each shape timed, its bound from the live row-steps it
    ran;
+5d. the wide paths (beam widths and top-ks of 9 to 256, ``csrc/
+   wide_topk.cuh``): (a) K1 and K6 (both cells) at k = 9, 20, 64 and 256
+   rows an image (top-k = k), one image and 64, against their plain
+   versions as phases 4 and 5b hold them (a near-tie swap within 1e-4,
+   the log-probs' own tolerance, above k = 8), launches exact, timed at
+   k = 20 and 256; (b, c) K2 and K7 (both cells) at the same widths, one
+   image and 64 (a launch holds MAX_ROWS // k images; 40 steps at k = 9
+   and 20, 12 at 64, 8 at 256), margin-aware against the plain searches,
+   launches exact, and at k = 20 = the fused-step paths (K1, K6) at atol
+   0, timed at k = 20 and 256; (d) k = 257 refused on the card by every
+   wrapper, naming its kernel, nothing launched; (e) the main path at
+   beam 20: the decode entry points of ``decode/fast.py`` for 8 images of
+   each variant, both paths, every count from 0 just before and read just
+   after and exact, no plain version, fused-step = whole search at atol 0;
 6. serve: random-init StyleNet, NIC, StyleNet+Att and NIC+Att at flagship
    width (ResNet-152 at 224x224, E=300, H=F=A=512, V=8192, k=5, 40 steps)
    behind the HTTP service.  First with cross-request batching: concurrent
@@ -171,7 +185,9 @@ Phases, in order; any failure exits non-zero:
    ratio 1.0 set through the stage wrapper), ``train_resident`` (the
    same with ``--device_resident --progress_chunk 4``: its checkpoint
    bit-equal to ``train``'s), ``evaluate`` in both
-   semantics, ``caption_batch`` (and ``--beam_size 9``, which must fail
+   semantics, ``caption_batch`` (and ``--beam_size 20``, K2's wide path,
+   its captions those of this process's searches at beam 20 and
+   margin-aware against the plain search's; ``--beam_size 257`` must fail
    with K2's own message), ``sample``, ``validate``, the spatial
    ``precompute_features`` of 64 images with ``evaluate --attention`` and
    ``caption_batch --attention``, then ``python -m icee_tpu_torch.serve``
@@ -264,7 +280,9 @@ Phases, in order; any failure exits non-zero:
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
-   forward and backward, K9, the mixture CE forward and backward, K10);
+   forward and backward, K9, the mixture CE forward and backward, K10, and
+   the wide paths of K1, K2, K6 and K7, both cells: their launches phase
+   5d (e)'s and, for K2, phase 19's beam-20 stage);
 25. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
@@ -417,16 +435,42 @@ def captioning_params(device):
     return out
 
 
+def near_tie(ktop: int) -> float:
+    """The plain log-prob gap within which K1 or K6 may order two entries of
+    a top-``ktop`` otherwise than the plain version: 1e-5 at the k <= 8
+    widths (phases 4 and 5b); above, 1e-4, the tolerance the log-probs
+    themselves are held to.  The kernels' log-probs differ from the plain
+    versions' by up to ~5e-5 here (another fmaf order over H = 512), and
+    below the first few ranks of V = 8192 gaps that small are common (a
+    top-256 of 256 rows compares ~65,000 adjacent pairs)."""
+    from icee_tpu_torch.ops.decode_step import K_MAX
+
+    return 1e-5 if ktop <= K_MAX else 1e-4
+
+
+@contextlib.contextmanager
+def counted_calls(fn, want: dict, what: str):
+    """Launch counters ``fn.<name>`` must grow by exactly ``want[name]``
+    while the block runs (the calls a check makes, one by one)."""
+    before = {n: getattr(fn, n) for n in want}
+    yield
+    got = {n: getattr(fn, n) - before[n] for n in want}
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+
+
 # --- phase 4: K1 ------------------------------------------------------------
 
-def check_k1(dec, device, rows: int, seed: int):
-    """K1 vs its plain version on ``rows`` random rows; -> (inputs, max abs
-    error, near-tie swaps).  Fails on any id outside a near tie or any
-    error above 1e-4."""
+def check_k1(dec, device, rows: int, seed: int, ktop: int = K):
+    """K1 vs its plain version on ``rows`` random rows at top-``ktop``; ->
+    (inputs, max abs error, near-tie swaps).  Fails on any id outside a
+    near tie or any error above 1e-4, and unless the call launched once,
+    on the path its shape and width take."""
     import torch
 
     from icee_tpu_torch.ops.cells import factored_lstm_cell
-    from icee_tpu_torch.ops.decode_step import (decode_step_topk,
+    from icee_tpu_torch.ops.decode_step import (K_MAX, SPLIT_ROWS,
+                                                decode_step_topk,
                                                 decode_step_topk_plain)
 
     style = 1
@@ -435,32 +479,37 @@ def check_k1(dec, device, rows: int, seed: int):
     h = torch.randn((rows, H), generator=g, device=device) * 0.5
     c = torch.randn((rows, H), generator=g, device=device) * 0.5
 
-    got = decode_step_topk(dec, x, h, c, style, ktop=K)
-    want = decode_step_topk_plain(dec, x, h, c, style, ktop=K)
+    with counted_calls(decode_step_topk, {
+            "launches": 1, "wide_launches": int(ktop > K_MAX),
+            "split_launches": int(rows <= SPLIT_ROWS),
+            "tiled_launches": int(rows > SPLIT_ROWS)}, f"K1 {rows} rows"):
+        got = decode_step_topk(dec, x, h, c, style, ktop=ktop)
+    want = decode_step_topk_plain(dec, x, h, c, style, ktop=ktop)
     torch.cuda.synchronize()
     gv, gi, gh, gc = got
     wv, wi, wh, wc = want
     # ids exact, except where the kernel picked an entry whose plain
-    # log-prob ties the plain top-k within 1e-5 (a near-tie swap)
+    # log-prob ties the plain top-k at its rank within near_tie(ktop) (a
+    # near-tie swap)
     h2, _ = factored_lstm_cell(dec, x, h, c, style)
     logp = torch.log_softmax(h2 @ dec["C_w"] + dec["C_b"], dim=-1)
     mism = (gi != wi).any(dim=1)
-    ties = 0
+    ties, tie = 0, near_tie(ktop)
     for r in torch.nonzero(mism).flatten().tolist():
         picked = logp[r, gi[r].long()]
-        if (picked - wv[r]).abs().max().item() > 1e-5:
+        if (picked - wv[r]).abs().max().item() > tie:
             fail(f"K1 {rows} rows, row {r}: ids {gi[r].tolist()} != "
-                 f"{wi[r].tolist()} beyond a 1e-5 near-tie")
+                 f"{wi[r].tolist()} beyond a {tie} near-tie")
         ties += 1
     ok = ~mism
     errs = {"logp": (gv[ok] - wv[ok]).abs().max().item(),
             "h": (gh - wh).abs().max().item(),
             "c": (gc - wc).abs().max().item()}
-    log(f"K1: {rows} rows, ids equal on {int(ok.sum())}, near-tie swaps "
-        f"{ties}; max abs err {errs}")
+    log(f"K1: {rows} rows, top-{ktop}, ids equal on {int(ok.sum())}, "
+        f"near-tie swaps {ties}; max abs err {errs}")
     for name, err in errs.items():
         if not err <= 1e-4:
-            fail(f"K1 {rows} rows: {name} error {err} > 1e-4")
+            fail(f"K1 {rows} rows, top-{ktop}: {name} error {err} > 1e-4")
     return (x, h, c, style), max(errs.values()), ties
 
 
@@ -468,39 +517,49 @@ def k1_line(dec, inputs, serial_inputs, max_err: float, ties: int):
     """Times K1, its plain version and the library yardstick at the
     batched shape (320 rows, the row-tiled path) and the serial one (5
     rows, the column-split path); -> K1's entry of the kernels line."""
+    out = {}
+    for tag, shape_inputs in (("", inputs), ("serial_", serial_inputs)):
+        # the serial shape's calls are short and host-bound: more of them,
+        # after more warm-up, for all three alike
+        n, warm = (100, 10) if tag else (20, 1)
+        for key, val in k1_times(dec, shape_inputs, K, n, warm).items():
+            out[tag + key] = val
+    return dict(out, name="decode_step_topk", route="cuda",
+                source="icee_tpu_torch/csrc/decode_step.cu",
+                replaces="icee_tpu/ops/pallas_decode.py:261",
+                max_abs_err=max_err, near_tie_swaps=ties,
+                serial_source="icee_tpu_torch/csrc/split_step.cuh")
+
+
+def k1_times(dec, inputs, ktop: int, n: int, warm: int,
+             library: bool = True) -> dict:
+    """K1's, its plain version's and the library yardstick's (the cell,
+    addmm, log_softmax, topk; with ``library``) mean ms over ``n`` calls on
+    ``inputs`` at top-``ktop``, and the bound."""
     import torch
 
     from icee_tpu_torch.ops.cells import factored_lstm_cell
     from icee_tpu_torch.ops.decode_step import (decode_step_topk,
                                                 decode_step_topk_plain)
 
-    out = {}
-    for tag, (x, h, c, style) in (("", inputs), ("serial_", serial_inputs)):
-        rows = x.shape[0]
+    x, h, c, style = inputs
+    rows = x.shape[0]
 
-        def library():
-            h_new, _ = factored_lstm_cell(dec, x, h, c, style)
-            return torch.topk(torch.log_softmax(
-                torch.addmm(dec["C_b"], h_new, dec["C_w"]), dim=-1), K)
+    def library_step():
+        h_new, _ = factored_lstm_cell(dec, x, h, c, style)
+        return torch.topk(torch.log_softmax(
+            torch.addmm(dec["C_b"], h_new, dec["C_w"]), dim=-1), ktop)
 
-        # the serial shape's calls are short and host-bound: more of them,
-        # after more warm-up, for all three alike
-        n, warm = (100, 10) if tag else (20, 1)
-        out[tag + "ms"] = cuda_ms(
-            lambda: decode_step_topk(dec, x, h, c, style, ktop=K), n, warm)
-        out[tag + "plain_ms"] = cuda_ms(
-            lambda: decode_step_topk_plain(dec, x, h, c, style, ktop=K), n,
-            warm)
-        out[tag + "library_ms"] = cuda_ms(library, n, warm)
-        nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
-            + 4 * rows * (2 * K + 2 * H)
-        out[tag + "bound_ms"], out[tag + "bound_by"] = bound_ms(
-            rows * step_flops_per_row(), nbytes)
-    return dict(out, name="decode_step_topk", route="cuda",
-                source="icee_tpu_torch/csrc/decode_step.cu",
-                replaces="icee_tpu/ops/pallas_decode.py:261",
-                max_abs_err=max_err, near_tie_swaps=ties,
-                serial_source="icee_tpu_torch/csrc/split_step.cuh")
+    out = {"ms": cuda_ms(
+        lambda: decode_step_topk(dec, x, h, c, style, ktop=ktop), n, warm),
+        "plain_ms": cuda_ms(lambda: decode_step_topk_plain(
+            dec, x, h, c, style, ktop=ktop), n, warm),
+        "library_ms": cuda_ms(library_step, n, warm) if library else None}
+    nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
+        + 4 * rows * (2 * ktop + 2 * H)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        rows * step_flops_per_row(), nbytes)
+    return out
 
 
 def split_timeline(fn, calls: int = 20):
@@ -625,44 +684,71 @@ def margin_check(what: str, got, want, rescored):
 K2_IMAGES = (1, 8, 64)   # the serial request, a batched call, the benchmark
 
 
-def check_k2_shape(dec, device, cell: str, n_img: int):
-    """K2 with ``cell`` for ``n_img`` images vs its plain search, in both
-    feature modes; the factored cell also vs the fused-step path (K1) at
-    atol 0; timed.  -> this shape's figures."""
+def plain_by_images(search, batch: int, k: int, *args, **kw):
+    """A plain search ``search(args[0], feats, args[2], n, ...)`` over
+    ``batch`` images, MAX_ROWS // k images at a time (the kernels' launch
+    split; the images' searches are independent), the results stacked."""
+    import torch
+
+    from icee_tpu_torch.decode.beam import BeamResult
+    from icee_tpu_torch.ops.beam import launch_chunks
+
+    dec, feats, style = args
+    parts = [search(dec, None if feats is None else feats[i:i + n], style,
+                    n, k=k, **kw) for i, n in launch_chunks(batch, k)]
+    return BeamResult(*(torch.cat(ts) for ts in zip(*parts)))
+
+
+def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
+                   steps_max: int = STEPS, fused: bool = True,
+                   timed: bool = True):
+    """K2 with ``cell`` for ``n_img`` images at beam ``k`` (``steps_max``
+    steps) vs its plain search, in both feature modes, its launches exact;
+    with ``fused``, the factored cell also vs the fused-step path (K1) at
+    atol 0; with ``timed``, timed.  -> this shape's figures."""
     import torch
 
     from icee_tpu_torch.decode.fast import factored_decode
-    from icee_tpu_torch.ops.beam import (mega_beam_decode,
+    from icee_tpu_torch.ops.beam import (K_MAX, launch_chunks,
+                                         mega_beam_decode,
                                          mega_beam_decode_plain,
                                          mega_beam_decode_steps)
 
     style = 2 if cell == "factored" else 0
     g = torch.Generator(device=device).manual_seed(4)
     feats = torch.randn((n_img, 1, E), generator=g, device=device)
-    feats = feats.expand(n_img, K, E).contiguous()
+    feats = feats.expand(n_img, k, E).contiguous()
     max_err, own_err, flips = 0.0, 0.0, 0
-    kw = dict(k=K, max_seq_length=STEPS, cell=cell)
+    kw = dict(max_seq_length=steps_max, cell=cell)
+    pre = "" if cell == "factored" else "lstm_"
+    n_launch = len(launch_chunks(n_img, k))
     for mode_feats in (feats, None):
-        got, steps = mega_beam_decode_steps(dec, mode_feats, style, n_img,
-                                            **kw)
-        want = mega_beam_decode_plain(dec, mode_feats, style, n_img, **kw)
+        mode = ("serving" if mode_feats is not None else "research") \
+            + f", {cell}, {n_img} images, k={k}"
+        with counted_calls(mega_beam_decode, {
+                pre + "launches": n_launch,
+                pre + "wide_launches": n_launch * (k > K_MAX)},
+                f"K2 {mode}"):
+            got, steps = mega_beam_decode_steps(dec, mode_feats, style,
+                                                n_img, k=k, **kw)
+        want = plain_by_images(mega_beam_decode_plain, n_img, k, dec,
+                               mode_feats, style, **kw)
         # the plain model's score of the kernel's own sequences: a wrong
         # token, parent or length shows here even where the kernel's
         # reported score is right
         rescored = sequence_scores(dec, cell, mode_feats, style, got.tokens,
                                    got.length)
-        mode = ("serving" if mode_feats is not None else "research") \
-            + f", {cell}, {n_img} images"
         errs = margin_check(f"K2 {mode}", got, want, rescored)
         max_err, own_err = max(max_err, errs[0]), max(own_err, errs[1])
         flips += errs[2]
-        if cell == "factored":
+        if cell == "factored" and fused:
             # the fused-step path (K1 in the Python beam) gives the same
             # bits: column-split at <= 8 rows, row-tiled above
-            fused = factored_decode("fused-step", dec, mode_feats, style,
-                                    n_img, K, STEPS, 1, 2)
+            fused_res = factored_decode("fused-step", dec, mode_feats, style,
+                                        n_img, k, steps_max, 1, 2)
             for what in ("tokens", "length", "score"):
-                if not torch.equal(getattr(fused, what), getattr(got, what)):
+                if not torch.equal(getattr(fused_res, what),
+                                   getattr(got, what)):
                     fail(f"K2 {mode}: {what} differ from the fused-step "
                          "path's (atol 0)")
         lengths = got.length.float()
@@ -671,23 +757,28 @@ def check_k2_shape(dec, device, cell: str, n_img: int):
             f"image min {int(steps[:, 0].min())} max "
             f"{int(steps[:, 0].max())}, live row-steps "
             f"{int(steps[:, 1].sum())}; rescore max abs err so far {own_err}"
-            + ("; = fused-step at atol 0" if cell == "factored" else ""))
+            + ("; = fused-step at atol 0" if cell == "factored" and fused
+               else ""))
         if mode_feats is not None:
             serving_steps = steps   # the timed, serving-mode run
 
-    ms = cuda_ms(lambda: mega_beam_decode(dec, feats, style, n_img, **kw), 5)
-    plain_ms = cuda_ms(lambda: mega_beam_decode_plain(
-        dec, feats, style, n_img, **kw), 3)
-    row_steps = int(serving_steps[:, 1].sum())
-    nbytes = (decoder_weight_bytes(cell) + 4 * n_img * K * E
-              + 4 * row_steps * E + 4 * n_img * (STEPS + 4))
-    b_ms, b_by = bound_ms(row_steps * step_flops_per_row(cell), nbytes)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": max_err,
-            "max_rescore_err": own_err, "near_tie_flips": flips,
-            "steps_min_max": [int(serving_steps[:, 0].min()),
-                              int(serving_steps[:, 0].max())],
-            "live_row_steps": row_steps}
+    out = {"max_abs_err": max_err, "max_rescore_err": own_err,
+           "near_tie_flips": flips, "launches_a_call": n_launch,
+           "steps_min_max": [int(serving_steps[:, 0].min()),
+                             int(serving_steps[:, 0].max())],
+           "live_row_steps": int(serving_steps[:, 1].sum())}
+    if not timed:
+        return out
+    out["ms"] = cuda_ms(lambda: mega_beam_decode(dec, feats, style, n_img,
+                                                 k=k, **kw), 5)
+    out["plain_ms"] = cuda_ms(lambda: plain_by_images(
+        mega_beam_decode_plain, n_img, k, dec, feats, style, **kw), 3)
+    row_steps = out["live_row_steps"]
+    nbytes = (decoder_weight_bytes(cell) + 4 * n_img * k * E
+              + 4 * row_steps * E + 4 * n_img * (steps_max + 4))
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        row_steps * step_flops_per_row(cell), nbytes)
+    return out
 
 
 def check_k2(dec, device, cell: str = "factored"):
@@ -758,51 +849,79 @@ def att_features(device, n_img: int, seed: int):
     return 0.3 * torch.rand((n_img, P, FS), generator=g, device=device)
 
 
-def check_k6(dec, kind: str, device, n_img: int, seed: int):
-    """K6 with ``kind`` vs its plain version on ``n_img`` images x K random
-    rows; -> (inputs, max abs error, near-tie swaps).  Ids exact except in
-    a 1e-5 near tie; logp, h', c' atol 1e-4, alpha atol 1e-5."""
+def att_step_plain(args, ktop: int):
+    """K6's plain version on ``args``, a group of images at a time (at most
+    MAX_ROWS rows: it repeats each image's features for each of its rows),
+    the outputs concatenated."""
+    import torch
+
+    from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk_plain
+    from icee_tpu_torch.ops.beam import MAX_ROWS
+
+    cell, att, gate, x, h, c, feats, att1, kind, k = args
+    per = max(1, MAX_ROWS // k)
+    parts = [att_decode_step_topk_plain(
+        cell, att, gate, x[i * k:(i + per) * k], h[i * k:(i + per) * k],
+        c[i * k:(i + per) * k], feats[i:i + per], att1[i:i + per], kind, k,
+        ktop=ktop) for i in range(0, feats.shape[0], per)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
+def check_k6(dec, kind: str, device, n_img: int, seed: int, k: int = K):
+    """K6 with ``kind`` vs its plain version on ``n_img`` images x ``k``
+    random rows at top-``k``; -> (inputs, max abs error, near-tie swaps).
+    Ids exact except in a 1e-5 near tie; logp, h', c' atol 1e-4, alpha
+    atol 1e-5; one launch, on the path the shape takes."""
     import torch
 
     from icee_tpu_torch.models import attention as att_mod
-    from icee_tpu_torch.ops.att_decode_step import (
-        att_decode_step_topk, att_decode_step_topk_plain, step_params)
+    from icee_tpu_torch.ops.att_decode_step import (att_decode_step_topk,
+                                                    step_params)
+    from icee_tpu_torch.ops.decode_step import K_MAX, SPLIT_ROWS
 
     style = 3 if kind == "factored" else 0
     cell, att, gate = step_params(dec, kind, style)
-    rows = n_img * K
+    rows = n_img * k
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((rows, E), generator=g, device=device) * 0.1
     h = torch.randn((rows, H), generator=g, device=device) * 0.5
     c = torch.randn((rows, H), generator=g, device=device) * 0.5
     feats = att_features(device, n_img, seed)
     att1 = att_mod.att_projection(att, feats)
-    args = (cell, att, gate, x, h, c, feats, att1, kind, K)
-    gv, gi, gh, gc, ga = att_decode_step_topk(*args, ktop=K)
-    wv, wi, wh, wc, wa = att_decode_step_topk_plain(*args, ktop=K)
+    args = (cell, att, gate, x, h, c, feats, att1, kind, k)
+    pre = "" if kind == "factored" else "lstm_"
+    split = n_img == 1 and k <= SPLIT_ROWS
+    with counted_calls(att_decode_step_topk, {
+            pre + "launches": 1, pre + "wide_launches": int(k > K_MAX),
+            pre + "split_launches": int(split),
+            pre + "tiled_launches": int(not split)},
+            f"K6 {kind} {n_img} images, k={k}"):
+        gv, gi, gh, gc, ga = att_decode_step_topk(*args, ktop=k)
+    wv, wi, wh, wc, wa = att_step_plain(args, k)
     torch.cuda.synchronize()
     mism = (gi != wi).any(dim=1)
-    ties = 0
+    ties, tie = 0, near_tie(k)
     if bool(mism.any()):
         logp = torch.log_softmax(wh @ cell["C_w"] + cell["C_b"], dim=-1)
         for r in torch.nonzero(mism).flatten().tolist():
             picked = logp[r, gi[r].long()]
-            if (picked - wv[r]).abs().max().item() > 1e-5:
+            if (picked - wv[r]).abs().max().item() > tie:
                 fail(f"K6 {kind} {rows} rows, row {r}: ids {gi[r].tolist()} "
-                     f"!= {wi[r].tolist()} beyond a 1e-5 near-tie")
+                     f"!= {wi[r].tolist()} beyond a {tie} near-tie")
             ties += 1
     ok = ~mism
     errs = {"logp": (gv[ok] - wv[ok]).abs().max().item(),
             "h": (gh - wh).abs().max().item(),
             "c": (gc - wc).abs().max().item()}
     alpha_err = (ga - wa).abs().max().item()
-    log(f"K6 {kind}: {rows} rows, ids equal on {int(ok.sum())}, near-tie "
-        f"swaps {ties}; max abs err {errs}, alpha {alpha_err:.3g}")
+    log(f"K6 {kind}: {rows} rows, k={k}, ids equal on {int(ok.sum())}, "
+        f"near-tie swaps {ties}; max abs err {errs}, alpha {alpha_err:.3g}")
     for name, err in errs.items():
         if not err <= 1e-4:
-            fail(f"K6 {kind} {rows} rows: {name} error {err} > 1e-4")
+            fail(f"K6 {kind} {rows} rows, k={k}: {name} error {err} > 1e-4")
     if not alpha_err <= 1e-5:
-        fail(f"K6 {kind} {rows} rows: alpha error {alpha_err} > 1e-5")
+        fail(f"K6 {kind} {rows} rows, k={k}: alpha error {alpha_err} > "
+             "1e-5")
     return args, max(max(errs.values()), alpha_err), ties
 
 
@@ -832,30 +951,39 @@ def att_library_step(args):
         torch.addmm(cell["C_b"], h2, cell["C_w"]), dim=-1), k)
 
 
+def k6_times(kind: str, args, n: int, n_plain: int, warm: int,
+             library: bool = True) -> dict:
+    """K6's, its plain version's and the library yardstick's (with
+    ``library``) mean ms on ``args`` at top-k (k their rows an image), and
+    the bound."""
+    from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk
+
+    n_img, k = args[6].shape[0], args[9]
+    rows = n_img * k
+    out = {"ms": cuda_ms(lambda: att_decode_step_topk(*args, ktop=k), n,
+                         warm),
+           "plain_ms": cuda_ms(lambda: att_step_plain(args, k), n_plain,
+                               warm),
+           "library_ms": (cuda_ms(lambda: att_library_step(args), n, warm)
+                          if library else None)}
+    nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
+              + 4 * rows * (E + 2 * H) + 4 * rows * (2 * k + 2 * H + P))
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        rows * att_step_flops_per_row(kind), nbytes)
+    return out
+
+
 def k6_line(kind: str, args, serial_args, max_err: float, ties: int):
     """Times K6, its plain version and the library yardstick at the
     batched shape (64 images x K rows) and the serial one (one image);
     -> K6's entry of the kernels line."""
-    from icee_tpu_torch.ops.att_decode_step import (
-        att_decode_step_topk, att_decode_step_topk_plain)
-
     out = {}
     for tag, a in (("", args), ("serial_", serial_args)):
-        n_img = a[6].shape[0]
-        rows = n_img * K
         # the serial shape's calls are short and host-bound: more of them,
         # after more warm-up, for all three alike
         n, n_plain, warm = (100, 100, 10) if tag else (20, 5, 1)
-        out[tag + "ms"] = cuda_ms(lambda: att_decode_step_topk(*a, ktop=K),
-                                  n, warm)
-        out[tag + "plain_ms"] = cuda_ms(
-            lambda: att_decode_step_topk_plain(*a, ktop=K), n_plain, warm)
-        out[tag + "library_ms"] = cuda_ms(lambda: att_library_step(a), n,
-                                          warm)
-        nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
-                  + 4 * rows * (E + 2 * H) + 4 * rows * (2 * K + 2 * H + P))
-        out[tag + "bound_ms"], out[tag + "bound_by"] = bound_ms(
-            rows * att_step_flops_per_row(kind), nbytes)
+        for key, val in k6_times(kind, a, n, n_plain, warm).items():
+            out[tag + key] = val
     lstm = kind == "lstm"
     return dict(out, name="att_decode_step_topk" + ("_lstm" if lstm else ""),
                 route="cuda", source="icee_tpu_torch/csrc/att_decode_step.cu",
@@ -981,63 +1109,78 @@ def att_sequence_scores(dec, kind: str, feats, style: int, tokens, length):
 K7_IMAGES = (1, 2, 8, 64)   # the serial request, batched calls, benchmark
 
 
-def check_k7_shape(dec, kind: str, device, n_img: int):
-    """K7 with ``kind`` for ``n_img`` images vs its plain search,
-    margin-aware as phase 5: each kernel score matches its own sequence's
-    plain score within 1e-3, and where tokens differ from the plain search,
-    the kernel's sequence ties the plain winner's within 1e-4; and vs the
-    fused-step path (K6 per step from the h0/c0 kernel) at atol 0; timed,
-    its bound from the live row-steps it ran.  -> this shape's figures."""
+def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
+                   steps_max: int = STEPS, fused: bool = True,
+                   timed: bool = True):
+    """K7 with ``kind`` for ``n_img`` images at beam ``k`` (``steps_max``
+    steps) vs its plain search, margin-aware as phase 5: each kernel score
+    matches its own sequence's plain score within 1e-3, and where tokens
+    differ from the plain search, the kernel's sequence ties the plain
+    winner's within 1e-4; its launches exact; with ``fused``, vs the
+    fused-step path (K6 per step from the h0/c0 kernel) at atol 0; with
+    ``timed``, timed, its bound from the live row-steps it ran.  -> this
+    shape's figures."""
     import torch
 
     from icee_tpu_torch.decode.fast import attention_decode, nic_att_decode
     from icee_tpu_torch.ops.att_beam import (mega_att_beam_decode,
                                              mega_att_beam_decode_plain,
                                              mega_att_beam_decode_steps)
+    from icee_tpu_torch.ops.beam import K_MAX, launch_chunks
 
     style = 3 if kind == "factored" else 0
     feats = att_features(device, n_img, 14)
-    kw = dict(k=K, max_seq_length=STEPS, kind=kind)
-    got, steps = mega_att_beam_decode_steps(dec, feats, style, n_img, **kw)
-    want = mega_att_beam_decode_plain(dec, feats, style, n_img, **kw)
+    kw = dict(max_seq_length=steps_max, kind=kind)
+    what = f"K7 {kind} {n_img} images, k={k}"
+    pre = "" if kind == "factored" else "lstm_"
+    n_launch = len(launch_chunks(n_img, k))
+    with counted_calls(mega_att_beam_decode, {
+            pre + "launches": n_launch,
+            pre + "wide_launches": n_launch * (k > K_MAX)}, what):
+        got, steps = mega_att_beam_decode_steps(dec, feats, style, n_img,
+                                                k=k, **kw)
+    want = plain_by_images(mega_att_beam_decode_plain, n_img, k, dec, feats,
+                           style, **kw)
     rescored = att_sequence_scores(dec, kind, feats, style, got.tokens,
                                    got.length)
-    what = f"K7 {kind} {n_img} images"
     max_err, own_err, flips = margin_check(what, got, want, rescored)
-    # the fused-step path (K6 per step: column-split at one image,
-    # row-tiled above) gives the same bits
-    args = (n_img, K, STEPS, 1, 2)
-    fused = (attention_decode("fused-step", dec, feats, style, *args)
-             if kind == "factored"
-             else nic_att_decode("fused-step", dec, feats, *args))
-    for name in ("tokens", "length", "score"):
-        if not torch.equal(getattr(fused, name), getattr(got, name)):
-            fail(f"{what}: {name} differ from the fused-step path's "
-                 "(atol 0)")
+    if fused:
+        # the fused-step path (K6 per step: column-split at one image of
+        # k <= 8, row-tiled above) gives the same bits
+        args = (n_img, k, steps_max, 1, 2)
+        fused_res = (attention_decode("fused-step", dec, feats, style, *args)
+                     if kind == "factored"
+                     else nic_att_decode("fused-step", dec, feats, *args))
+        for name in ("tokens", "length", "score"):
+            if not torch.equal(getattr(fused_res, name), getattr(got, name)):
+                fail(f"{what}: {name} differ from the fused-step path's "
+                     "(atol 0)")
     lengths = got.length.float()
     row_steps = int(steps[:, 1].sum())
     log(f"{what}: lengths mean {lengths.mean().item():.2f} min "
         f"{int(lengths.min())} max {int(lengths.max())}, steps run per image "
         f"min {int(steps[:, 0].min())} max {int(steps[:, 0].max())}, live "
-        f"row-steps {row_steps}; rescore max abs err {own_err}; = fused-step "
-        "at atol 0")
-    ms = cuda_ms(lambda: mega_att_beam_decode(dec, feats, style, n_img, **kw),
-                 5)
-    plain_ms = cuda_ms(lambda: mega_att_beam_decode_plain(
-        dec, feats, style, n_img, **kw), 1)
+        f"row-steps {row_steps}; rescore max abs err {own_err}"
+        + ("; = fused-step at atol 0" if fused else ""))
+    out = {"max_abs_err": max_err, "max_rescore_err": own_err,
+           "near_tie_flips": flips, "launches_a_call": n_launch,
+           "steps_min_max": [int(steps[:, 0].min()), int(steps[:, 0].max())],
+           "live_row_steps": row_steps,
+           "caption_lengths_min_mean_max": [int(lengths.min()),
+                                            lengths.mean().item(),
+                                            int(lengths.max())]}
+    if not timed:
+        return out
+    out["ms"] = cuda_ms(lambda: mega_att_beam_decode(
+        dec, feats, style, n_img, k=k, **kw), 5)
+    out["plain_ms"] = cuda_ms(lambda: plain_by_images(
+        mega_att_beam_decode_plain, n_img, k, dec, feats, style, **kw), 1)
     flops = (row_steps * att_step_flops_per_row(kind)
              + n_img * (P * FS + 2 * 2 * FS * H))
     nbytes = (att_weight_bytes(kind, init=True) + 4 * n_img * P * (FS + A)
-              + 4 * row_steps * E + 4 * n_img * (STEPS + 4))
-    b_ms, b_by = bound_ms(flops, nbytes)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": max_err,
-            "max_rescore_err": own_err, "near_tie_flips": flips,
-            "steps_min_max": [int(steps[:, 0].min()), int(steps[:, 0].max())],
-            "live_row_steps": row_steps,
-            "caption_lengths_min_mean_max": [int(lengths.min()),
-                                             lengths.mean().item(),
-                                             int(lengths.max())]}
+              + 4 * row_steps * E + 4 * n_img * (steps_max + 4))
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
+    return out
 
 
 def check_k7(dec, kind: str, device):
@@ -1065,6 +1208,327 @@ def check_k7(dec, kind: str, device):
                                    for s in shapes.values()),
             "grid_blocks": max_grid(dec["init_h_w"].device),
             "shapes": shapes}
+
+
+# --- phase 5d: beam widths 9-256 (the wide paths of K1, K2, K6, K7) ---------
+
+WIDE_KS = (9, 20, 64, 256)   # widths above K_MAX held to the plain versions
+WIDE_IMAGES = (1, 64)
+# a search's steps at each width: the attention decoders' captions are 6-8
+# words long, so 8 steps let them end at k = 256
+WIDE_STEPS = {9: STEPS, 20: STEPS, 64: 12, 256: 8}
+WIDE_TIMED = (20, 256)       # widths timed for the kernels line
+WIDE_FUSED = 20              # K2 = K1 fused-step and K7 = K6 at atol 0
+WIDE_MAIN = (8, 20)          # the main path's images and beam (e)
+WIDE_SOURCE = "icee_tpu_torch/csrc/wide_topk.cuh"
+
+
+def wide_steps(sty, att, device):
+    """Phase 5d (a): K1 and K6 (both cells) at top-k = rows an image k in
+    WIDE_KS, at one image and at 64, against their plain versions as
+    phases 4 and 5b hold them (``check_k1``, ``check_k6``: ids exact but
+    in a 1e-5 near tie, 1e-4, alpha 1e-5, launches exact); timed at
+    WIDE_TIMED.  -> {"k1" | kind: {"max_abs_err", "near_tie_swaps",
+    "shapes"}}."""
+    import torch
+
+    out = {n: {"max_abs_err": 0.0, "near_tie_swaps": 0, "shapes": {}}
+           for n in ("k1", *att)}
+
+    def note(name, err, ties):
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        out[name]["near_tie_swaps"] += ties
+
+    for k in WIDE_KS:
+        for n_img in WIDE_IMAGES:
+            rows, timed = n_img * k, k in WIDE_TIMED
+            # calls a timing: fewer at the larger shapes; the library
+            # yardstick up to 1,280 rows (K6's broadcast score is 6.5 GB
+            # at 16,384)
+            n, warm = (50, 5) if rows <= 256 else (20, 2) if rows <= 1280 \
+                else (5, 1)
+            library = rows <= 1280
+            inputs, err, ties = check_k1(sty, device, rows, 30 + k + n_img,
+                                         ktop=k)
+            note("k1", err, ties)
+            if timed:
+                out["k1"]["shapes"][f"k{k}_rows{rows}"] = dict(
+                    k1_times(sty, inputs, k, n, warm, library), k=k,
+                    rows=rows)
+            del inputs
+            for kind, dec in att.items():
+                args, err, ties = check_k6(dec, kind, device, n_img,
+                                           40 + k + n_img, k=k)
+                note(kind, err, ties)
+                if timed:
+                    out[kind]["shapes"][f"k{k}_rows{rows}"] = dict(
+                        k6_times(kind, args, n, max(2, n // 4), warm,
+                                 library), k=k, rows=rows)
+                del args
+            torch.cuda.empty_cache()
+    return out
+
+
+def wide_searches(sty, nic, att, device):
+    """Phase 5d (b), (c): K2 (both cells) and K7 (both cells) at beam k in
+    WIDE_KS for one image and 64 (WIDE_STEPS[k] steps; at 64 images and k
+    above 16 a search is several launches of MAX_ROWS // k images),
+    margin-aware against the plain searches as phases 5 and 5c hold them,
+    launches exact; at k = WIDE_FUSED also = the fused-step paths (K1, K6)
+    at atol 0; timed at WIDE_TIMED.  -> {name: {"max_abs_err",
+    "near_tie_flips", "max_rescore_err", "shapes"}}."""
+    import torch
+
+    names = {("factored", False): "k2", ("lstm", False): "k2_lstm",
+             ("factored", True): "k7", ("lstm", True): "k7_lstm"}
+    out = {n: {"max_abs_err": 0.0, "near_tie_flips": 0,
+               "max_rescore_err": 0.0, "shapes": {}}
+           for n in names.values()}
+    for k in WIDE_KS:
+        for n_img in WIDE_IMAGES:
+            kw = dict(k=k, steps_max=WIDE_STEPS[k], fused=k == WIDE_FUSED,
+                      timed=k in WIDE_TIMED)
+            for (cell, attends), name in names.items():
+                if attends:
+                    r = check_k7_shape(att[cell], cell, device, n_img, **kw)
+                else:
+                    r = check_k2_shape(sty if cell == "factored" else nic,
+                                       device, cell, n_img, **kw)
+                o = out[name]
+                o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+                o["max_rescore_err"] = max(o["max_rescore_err"],
+                                           r["max_rescore_err"])
+                o["near_tie_flips"] += r["near_tie_flips"]
+                if kw["timed"]:
+                    o["shapes"][f"k{k}_images{n_img}"] = dict(
+                        r, k=k, images=n_img, steps=WIDE_STEPS[k])
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_refusals(sty, nic, att, device):
+    """Phase 5d (d): k = 257 on the card: each wide wrapper raises a
+    ValueError naming its kernel and the limit K_WIDE = 256, and launches
+    nothing."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode
+    from icee_tpu_torch.ops.att_decode_step import (att_decode_step_topk,
+                                                    step_params)
+    from icee_tpu_torch.ops.beam import mega_beam_decode
+    from icee_tpu_torch.ops.decode_step import decode_step_topk
+
+    z = dict(device=device)
+    x, h = torch.zeros((257, E), **z), torch.zeros((257, H), **z)
+    feats = att_features(device, 1, 3)
+    cases = [("K1", lambda: decode_step_topk(sty, x[:5], h[:5], h[:5], 0,
+                                             ktop=257)),
+             ("K1", lambda: decode_step_topk(sty, x, h, h, 0, ktop=257)),
+             ("K2", lambda: mega_beam_decode(sty, None, 0, 1, k=257)),
+             ("K2", lambda: mega_beam_decode(nic, None, 0, 1, k=257,
+                                             cell="lstm"))]
+    for kind, dec in att.items():
+        cell, at, gate = step_params(dec, kind, 0)
+        att1 = att_mod.att_projection(at, feats)
+        cases += [
+            ("K6", lambda c=cell, a=at, g=gate, a1=att1, kd=kind:
+             att_decode_step_topk(c, a, g, x, h, h, feats, a1, kd, 257,
+                                  ktop=5)),
+            ("K6", lambda c=cell, a=at, g=gate, a1=att1, kd=kind:
+             att_decode_step_topk(c, a, g, x[:5], h[:5], h[:5], feats, a1,
+                                  kd, 5, ktop=257)),
+            ("K7", lambda d=dec, kd=kind: mega_att_beam_decode(
+                d, feats, 0, 1, k=257, kind=kd))]
+    fns = (decode_step_topk, mega_beam_decode, att_decode_step_topk,
+           mega_att_beam_decode)
+    before = [dict(vars(fn)) for fn in fns]
+    msgs = []
+    for name, call in cases:
+        try:
+            call()
+        except ValueError as e:
+            if f"{name} (csrc/" not in str(e) or "K_WIDE = 256" not in str(e):
+                fail(f"phase 5d: k = 257 on {name} raised {e!r}")
+            msgs.append(str(e))
+            continue
+        fail(f"phase 5d: k = 257 on {name} did not raise")
+    torch.cuda.synchronize()
+    if [dict(vars(fn)) for fn in fns] != before:
+        fail("phase 5d: a refused call launched a kernel")
+    return msgs
+
+
+def wide_counters():
+    """The wide paths' launch counters and the totals beside them: K1, K2
+    (both cells), K6 (both cells), K7 (both cells) and the h0/c0 kernel."""
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode
+    from icee_tpu_torch.ops.att_decode_step import (att_decode_step_topk,
+                                                    att_init_state)
+    from icee_tpu_torch.ops.beam import mega_beam_decode
+    from icee_tpu_torch.ops.decode_step import decode_step_topk
+
+    out = {"att_init_state": (att_init_state, "launches")}
+    for fn, name in ((decode_step_topk, "decode_step_topk"),
+                     (mega_beam_decode, "mega_beam_decode"),
+                     (att_decode_step_topk, "att_decode_step_topk"),
+                     (mega_att_beam_decode, "mega_att_beam_decode")):
+        for attr in ("launches", "wide_launches", "lstm_launches",
+                     "lstm_wide_launches"):
+            if hasattr(fn, attr):
+                suffix = attr[:-len("launches")].strip("_")
+                out[name + ("_" + suffix if suffix else "")] = (fn, attr)
+    return out
+
+
+def wide_main_path(sty, nic, att, device):
+    """Phase 5d (e): the main path at beam 20, through the decode entry
+    points the serving engine and the CLIs call (``decode/fast.py``): for
+    WIDE_MAIN[0] images, StyleNet's whole search and fused-step path, NIC's
+    search, and both attention decoders' searches and fused-step paths.
+    Every count from 0 just before and read just after: K2 and K7 once a
+    search, K1 and K6 once a step of their fused-step paths (the steps the
+    whole search runs, taken from it beforehand), the h0/c0 kernel once a
+    fused-step attention path, every one of them wide; no plain version;
+    each fused-step result = its whole search's at atol 0.  -> the
+    counts."""
+    import torch
+
+    from icee_tpu_torch.decode.fast import (attention_decode,
+                                            factored_decode, nic_att_decode,
+                                            nic_decode)
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode_steps
+    from icee_tpu_torch.ops.beam import mega_beam_decode_steps
+
+    n, k = WIDE_MAIN
+    g = torch.Generator(device=device).manual_seed(21)
+    feats = torch.randn((n, 1, E), generator=g, device=device).expand(
+        n, k, E).contiguous()
+    spatial = att_features(device, n, 22)
+    styles = {"factored": 3, "lstm": 0}
+    # the steps each whole search runs: its fused-step path's step calls
+    _, st = mega_beam_decode_steps(sty, feats, 2, n, k=k,
+                                   max_seq_length=STEPS)
+    att_steps = {kind: int(mega_att_beam_decode_steps(
+        dec, spatial, styles[kind], n, k=k, max_seq_length=STEPS,
+        kind=kind)[1][:, 0].max()) for kind, dec in att.items()}
+    counters = wide_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    with plain_counters() as plain:
+        res = {
+            "stylenet": factored_decode("mega", sty, feats, 2, n, k, STEPS,
+                                        1, 2),
+            "stylenet_fused": factored_decode("fused-step", sty, feats, 2, n,
+                                              k, STEPS, 1, 2),
+            "nic": nic_decode(nic, feats, n, k, STEPS, 1, 2),
+            "stylenet_att": attention_decode("mega", att["factored"],
+                                             spatial, 3, n, k, STEPS, 1, 2),
+            "stylenet_att_fused": attention_decode(
+                "fused-step", att["factored"], spatial, 3, n, k, STEPS, 1,
+                2),
+            "nic_att": nic_att_decode("mega", att["lstm"], spatial, n, k,
+                                      STEPS, 1, 2),
+            "nic_att_fused": nic_att_decode("fused-step", att["lstm"],
+                                            spatial, n, k, STEPS, 1, 2)}
+        torch.cuda.synchronize()
+    got = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    if any(plain.values()):
+        fail(f"phase 5d (e): a plain version ran on the card: {plain}")
+    s1, s6f, s6l = int(st[:, 0].max()), att_steps["factored"], \
+        att_steps["lstm"]
+    want = {"decode_step_topk": s1, "decode_step_topk_wide": s1,
+            "mega_beam_decode": 1, "mega_beam_decode_wide": 1,
+            "mega_beam_decode_lstm": 1, "mega_beam_decode_lstm_wide": 1,
+            "att_decode_step_topk": s6f, "att_decode_step_topk_wide": s6f,
+            "att_decode_step_topk_lstm": s6l,
+            "att_decode_step_topk_lstm_wide": s6l,
+            "mega_att_beam_decode": 1, "mega_att_beam_decode_wide": 1,
+            "mega_att_beam_decode_lstm": 1,
+            "mega_att_beam_decode_lstm_wide": 1, "att_init_state": 2}
+    if got != want:
+        fail(f"phase 5d (e): launches {got}, expected {want}")
+    for name in ("stylenet", "stylenet_att", "nic_att"):
+        for what in ("tokens", "length", "score"):
+            if not torch.equal(getattr(res[name], what),
+                               getattr(res[name + "_fused"], what)):
+                fail(f"phase 5d (e) {name}: the fused-step path's {what} "
+                     "differ from the whole search's (atol 0)")
+    lengths = {name: [int(r.length.min()), int(r.length.max())]
+               for name, r in res.items()}
+    log(f"phase 5d (e): beam {k}, {n} images a variant: launches {got}; "
+        f"caption lengths min/max {lengths}; fused-step = whole search at "
+        "atol 0")
+    return got
+
+
+def wide_entry(name: str, source: str, replaces: str, fig: dict,
+               headline: str) -> dict:
+    """A wide path's entry of the kernels line: the ``headline`` shape's
+    figures, every timed shape's under ``shapes``, the errors over every
+    checked width and shape."""
+    top = fig["shapes"][headline]
+    return dict({k: v for k, v in fig.items() if k != "shapes"},
+                name=name, route="cuda", source=source, replaces=replaces,
+                wide_source=WIDE_SOURCE, ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"],
+                library_ms=top.get("library_ms"),
+                headline=headline, widths_checked=list(WIDE_KS),
+                images_checked=list(WIDE_IMAGES), shapes=fig["shapes"])
+
+
+def wide_phase(params, device):
+    """Phase 5d: beam widths 9-256 in K1, K2, K6 and K7 (their wide paths,
+    ``csrc/wide_topk.cuh``): (a)-(c) against their plain versions, (d) the
+    refusals at 257, (e) the main path at beam 20.  -> (the kernels line's
+    wide entries by name, the main path's counts)."""
+    sty, nic = params["stylenet"]["decoder"], params["nic"]["decoder"]
+    att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
+    steps = wide_steps(sty, att, device)
+    log("phase 5d (a): K1, K6 wide ok; ms (plain, bound) " + "; ".join(
+        f"{n} {sh}: {f['ms']:.4f} ({f['plain_ms']:.4f}, "
+        f"{f['bound_ms']:.4f})" for n, fig in steps.items()
+        for sh, f in fig["shapes"].items()))
+    searches = wide_searches(sty, nic, att, device)
+    log("phase 5d (b, c): K2, K7 wide ok; ms (plain, bound) " + "; ".join(
+        f"{n} {sh}: {f['ms']:.3f} ({f['plain_ms']:.3f}, "
+        f"{f['bound_ms']:.3f})" for n, fig in searches.items()
+        for sh, f in fig["shapes"].items()))
+    msgs = check_wide_refusals(sty, nic, att, device)
+    log(f"phase 5d (d): k = 257 refused by every wrapper: {msgs[0]!r} ...")
+    counts = wide_main_path(sty, nic, att, device)
+    att_step = "icee_tpu/ops/pallas_att_decode.py:201 (kind=\"{}\", k 9-256)"
+    att_beam = ("icee_tpu/ops/pallas_att_decode.py:733 (kind=\"{}\"; both "
+                "calls, :974 and :907; k 9-256)")
+    entries = {
+        "decode_step_topk_wide": wide_entry(
+            "decode_step_topk_wide", "icee_tpu_torch/csrc/decode_step.cu",
+            "icee_tpu/ops/pallas_decode.py:261 (ktop 9-256)", steps["k1"],
+            "k20_rows1280"),
+        "mega_beam_decode_wide": wide_entry(
+            "mega_beam_decode_wide", "icee_tpu_torch/csrc/beam.cu",
+            "icee_tpu/ops/pallas_beam.py:350 (k 9-256)", searches["k2"],
+            "k20_images64"),
+        "mega_beam_decode_lstm_wide": wide_entry(
+            "mega_beam_decode_lstm_wide", "icee_tpu_torch/csrc/beam.cu",
+            "icee_tpu/ops/pallas_beam.py:350 (cell=\"lstm\", :129-143; k "
+            "9-256)", searches["k2_lstm"], "k20_images64")}
+    for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
+        entries[f"att_decode_step_topk{sfx}_wide"] = wide_entry(
+            f"att_decode_step_topk{sfx}_wide",
+            "icee_tpu_torch/csrc/att_decode_step.cu", att_step.format(kind),
+            steps[kind], "k20_rows1280")
+        entries[f"mega_att_beam_decode{sfx}_wide"] = wide_entry(
+            f"mega_att_beam_decode{sfx}_wide",
+            "icee_tpu_torch/csrc/att_beam.cu", att_beam.format(kind),
+            searches["k7" + sfx], "k20_images64")
+    for name, entry in entries.items():
+        entry["launches"] = counts[name]
+        if entry["library_ms"] is None:
+            entry["library_note"] = "no single PyTorch call computes a " \
+                                    "beam search"
+    return entries, counts
 
 
 # --- phase 6: serve -----------------------------------------------------------
@@ -4692,17 +5156,20 @@ def trainer_features(names, seed: int, shape):
 
 @contextlib.contextmanager
 def plain_counters():
-    """Count every call of the trainer's kernels' plain versions (each
-    wrapper calls its plain version by module name, on a CPU tensor) while
-    the block runs; -> the dict of counts."""
-    from icee_tpu_torch.ops import att_beam, att_scan, beam
+    """Count every call of the kernels' plain versions (each wrapper calls
+    its plain version by module name, on a CPU tensor) while the block
+    runs; -> the dict of counts."""
+    from icee_tpu_torch.ops import (att_beam, att_decode_step, att_scan,
+                                    beam, decode_step)
     from icee_tpu_torch.ops import chunked_loss as cl
     from icee_tpu_torch.ops import lstm_scan, nic_scan
     from icee_tpu_torch.ops import senticap_decode as sd
     from icee_tpu_torch.ops import senticap_scan as ss
     from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
-    targets = [(ss, "fused_senticap_scan_plain"),
+    targets = [(decode_step, "decode_step_topk_plain"),
+               (att_decode_step, "att_decode_step_topk_plain"),
+               (ss, "fused_senticap_scan_plain"),
                (ss, "senticap_scan_bwd_plain"),
                (cl, "mixture_ce_rows_plain"),
                (sd, "mega_senticap_beam_decode_plain"),
@@ -5223,6 +5690,7 @@ CLI_EPOCHS = 2
 CLI_PROGRESS = 4           # train_resident: a progress record every 4 batches
 CLI_TIMEOUT_S = 600
 CLI_STYLE = "sad"          # the seeded checkpoint's mode
+CLI_WIDE_BEAM = 20         # caption_batch at a beam above K_MAX (K2 wide)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Each stage runs as ``python -c CLI_WRAPPER '{"module": ..., "ratio": ...}'
@@ -5282,8 +5750,9 @@ sys.exit(code)
 
 def cli_counters():
     """The CLI stages' launch counters (phases 19, 21, 22): phase 18's (K3,
-    K4, K5, the CE row passes, K2), K7 (both kinds) and the SentiCap
-    kernels (K8, the mixture CE's forward, K9, K10)."""
+    K4, K5, the CE row passes, K2), K7 (both kinds), the wide paths of K2
+    and K7 (a beam above K_MAX) and the SentiCap kernels (K8, the mixture
+    CE's forward, K9, K10)."""
     from icee_tpu_torch.ops import att_beam
     from icee_tpu_torch.ops import chunked_loss as cl
     from icee_tpu_torch.ops import senticap_decode as sd
@@ -5295,6 +5764,10 @@ def cli_counters():
                                    "launches")
     out["mega_att_beam_decode_lstm"] = (att_beam.mega_att_beam_decode,
                                         "lstm_launches")
+    for name in ("mega_beam_decode", "mega_att_beam_decode"):
+        for pre in ("", "lstm_"):
+            fn = out[name][0]
+            out[f"{name}_{pre}wide"] = (fn, pre + "wide_launches")
     out.update({
         "fused_senticap_scan_fwd": (ss.senticap_scan_fwd, "launches"),
         "fused_senticap_scan_bwd": (ss.senticap_scan_bwd, "launches"),
@@ -5513,12 +5986,14 @@ def bleu_lines(out: str):
             if ln.startswith("BLEU-")]
 
 
-def cli_searches(dec, head, feats: dict, names, style: int, vocab, device):
-    """Each image's search in this process, its cached feature taken by
-    name and put through ``head``: K2 over ``names`` in batches of
-    CLI_BATCH (zero rows pad the last), and the plain search over all of
-    them.  -> (features (n, K, E), kernel result, plain result, the plain
-    model's score of each kernel sequence), rows in ``names`` order."""
+def cli_searches(dec, head, feats: dict, names, style: int, vocab, device,
+                 k: int = K):
+    """Each image's search at beam ``k`` in this process, its cached
+    feature taken by name and put through ``head``: K2 over ``names`` in
+    batches of CLI_BATCH (zero rows pad the last), and the plain search
+    over all of them (MAX_ROWS // k images at a time).  -> (features (n,
+    k, E), kernel result, plain result, the plain model's score of each
+    kernel sequence), rows in ``names`` order."""
     import numpy as np
     import torch
 
@@ -5536,15 +6011,16 @@ def cli_searches(dec, head, feats: dict, names, style: int, vocab, device):
             xs.append(x)
             x = torch.cat([x, x.new_zeros((CLI_BATCH - len(chunk), E))])
             res = factored_decode(
-                "mega", dec, x[:, None, :].expand(CLI_BATCH, K, E)
-                .contiguous(), style, CLI_BATCH, K, STEPS, vocab.start,
+                "mega", dec, x[:, None, :].expand(CLI_BATCH, k, E)
+                .contiguous(), style, CLI_BATCH, k, STEPS, vocab.start,
                 vocab.end)
             parts.append([t[:len(chunk)] for t in res])
         kern = BeamResult(*(torch.cat(ts) for ts in zip(*parts)))
         n = len(names)
-        tiled = torch.cat(xs)[:, None, :].expand(n, K, E).contiguous()
-        plain = mega_beam_decode_plain(dec, tiled, style, n, vocab.start,
-                                       vocab.end, k=K, max_seq_length=STEPS)
+        tiled = torch.cat(xs)[:, None, :].expand(n, k, E).contiguous()
+        plain = plain_by_images(mega_beam_decode_plain, n, k, dec, tiled,
+                                style, start_token=vocab.start,
+                                end_token=vocab.end, max_seq_length=STEPS)
         rescored = sequence_scores(dec, "factored", tiled, style,
                                    kern.tokens, kern.length)
     return tiled, kern, plain, rescored
@@ -5638,6 +6114,7 @@ def cli_phase(device, keep: str = None):
     from icee_tpu_torch.models import resnet
     from icee_tpu_torch.models.encoder import encode_global_from_pooled
     from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops.beam import launch_chunks
 
     from icee_tpu_torch import native
     from icee_tpu_torch.native import imagedec
@@ -5867,17 +6344,38 @@ def cli_phase(device, keep: str = None):
         stats["caption_batch"].update(
             near_tie_flips=flips, distinct_captions=distinct,
             captions_per_s=CLI_IMAGES / stats["caption_batch"]["wall_s"])
-        # a beam the kernel does not take raises K2's own error
+        # a beam above K_MAX takes K2's wide path: every image's caption
+        # that of this process's search at that beam, margin-aware against
+        # the plain search's; one launch a MAX_ROWS // k images of a batch
+        wide = f"caption_batch_beam_{CLI_WIDE_BEAM}"
+        n_wide = -(-CLI_IMAGES // CLI_BATCH) * len(
+            launch_chunks(CLI_BATCH, CLI_WIDE_BEAM))
+        stage(wide, m + "caption_batch", seeded_args + [
+            "--image_dir", files["img"], "--out", os.path.join(
+                root, f"{wide}.json"), "--beam_size", CLI_WIDE_BEAM],
+            {"mega_beam_decode": n_wide, "mega_beam_decode_wide": n_wide})
+        with open(os.path.join(root, f"{wide}.json")) as f:
+            got = json.load(f)
+        _, kern_w, plain_w, rescored_w = cli_searches(
+            dec, head, feats, names, style, vocab, device, CLI_WIDE_BEAM)
+        flips, distinct = check_cli_captions(got, names, kern_w, plain_w,
+                                             rescored_w, vocab)
+        stats[wide].update(
+            near_tie_flips=flips, distinct_captions=distinct,
+            captions_per_s=CLI_IMAGES / stats[wide]["wall_s"])
+        del kern_w, plain_w, rescored_w
+        # a beam above K_WIDE raises K2's own error
         t = time.perf_counter()
         proc = subprocess.run(cli_cmd(m + "caption_batch", seeded_args + [
-            "--out", os.path.join(root, "k9.json"), "--beam_size", 9]),
+            "--out", os.path.join(root, "k257.json"), "--beam_size", 257]),
             cwd=ROOT, env=cli_env(), capture_output=True, text=True,
             timeout=CLI_TIMEOUT_S)
-        k2_msg = "k=9: the CUDA kernel K2 (csrc/beam.cu) takes at most K_MAX"
+        k2_msg = ("k=257: the CUDA kernel K2 (csrc/beam.cu) takes at most "
+                  "K_WIDE = 256")
         if proc.returncode == 0 or k2_msg not in proc.stderr:
-            fail(f"phase 19 caption_batch --beam_size 9: exit "
+            fail(f"phase 19 caption_batch --beam_size 257: exit "
                  f"{proc.returncode}, {proc.stderr[-2000:]}")
-        stats["caption_batch_beam_9"] = {
+        stats["caption_batch_beam_257"] = {
             "wall_s": time.perf_counter() - t,
             "error": next((ln for ln in proc.stderr.splitlines()
                            if k2_msg in ln), None)}
@@ -7700,6 +8198,13 @@ def main() -> int:
             f"({k7['lstm']['shapes'][n]['plain_ms']:.3f}, "
             f"{k7['lstm']['shapes'][n]['bound_ms']:.3f})"
             for n in k7["factored"]["shapes"]))
+        t5d = time.perf_counter()
+        wide, _ = wide_phase(params, device)
+        log(f"phase 5d: beam widths {WIDE_KS} ok in "
+            f"{time.perf_counter() - t5d:.1f} s; at beam 20, 64 images: "
+            + "; ".join(f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, "
+                        f"bound {e['bound_ms']:.3f})"
+                        for n, e in wide.items()))
 
     launches, stats = serve_phase(params, device)
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
@@ -7893,10 +8398,14 @@ def main() -> int:
         f"caption_batch {cli['caption_batch']['captions_per_s']:.1f} "
         "captions/s, process start included")
     # the CLIs run K3, the CE and K2 (train, evaluate, caption_batch,
-    # sample, serve) and K7 (the attention stages)
+    # sample, serve; caption_batch at beam 20 its wide path) and K7 (the
+    # attention stages)
     for entry in (k3f, k3b, cef, ceb):
         entry["launches"] += cli_launches.get(entry["name"], 0)
-    k2["launches"] += cli_launches["mega_beam_decode"]
+    k2["launches"] += (cli_launches["mega_beam_decode"]
+                       - cli_launches["mega_beam_decode_wide"])
+    wide["mega_beam_decode_wide"]["launches"] += \
+        cli_launches["mega_beam_decode_wide"]
     k7["factored"]["launches"] += cli_launches["mega_att_beam_decode"]
     res_launches, train["resident"], big = resident_phase(device)
     train["att"].update(big)
@@ -7965,7 +8474,8 @@ def main() -> int:
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
-                                  ceb, *k5, k8f, k8b, k9, mxf, mxb, k10]}))
+                                  ceb, *k5, k8f, k8b, k9, mxf, mxb, k10,
+                                  *wide.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,10 @@
 //   logits | tile partials | beam tail (merge_row, the selection, the
 //        sequences, best-completed tracking; emb[word] is next step's x)
 // Only live rows run (step 1: slot 0 of each image); the per-image stages
-// take only images with a live row.  att1 = features enc_w + enc_b stays a
+// take only images with a live row.  Beam widths of 9 to KWIDE = 256: the
+// per-image stages (scores, ctx) take an image's live rows in groups of 8
+// (a group in an image's place, grid_beam.cuh scan_rows), and the
+// selection is K2's wide row stage and tail.  att1 = features enc_w + enc_b stays a
 // plain product outside the kernel, as in the JAX package.
 //
 // Bits: every output is the chain K6 computes for it (attend_rows' and
@@ -137,8 +140,9 @@ __device__ void run_mean(const GridArgs& a) {
 }
 
 // The scores stage: units (live image, `pu` positions); a unit stages its
-// image's live rows of att2 in the ring, then each warp scores positions
-// (att_score: a lane's chain over its A quads, the butterfly, the bias).
+// image's live rows of att2 in the ring (at most KMAX: a group's where the
+// beam is wider), then each warp scores positions (att_score: a lane's
+// chain over its A quads, the butterfly, the bias).
 __device__ void run_scores(const GridArgs& a, const Smem& sm,
                            const StepCtx& c) {
   const int warp = threadIdx.x >> 5, A = a.A, Ap = round4(A);
@@ -163,6 +167,7 @@ __device__ void run_scores(const GridArgs& a, const Smem& sm,
   }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_att_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -188,10 +193,7 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
         grid_sync(a.bar, gen);
       }
     }
-    run_partials(a, sm, c.n);
-    grid_sync(a.bar, gen);
-    run_tail(a, sm, c);
-    grid_sync(a.bar, gen);
+    run_selection<WIDE>(a, sm, c, gen);
   }
 }
 
@@ -281,8 +283,10 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
   a.FS = (int)p.FS;
   a.pu = (int)p.pu;
   a.upi = (int)p.upi;
-  return grid_launch(reinterpret_cast<const void*>(grid_att_kernel), a,
-                     (int)p.grid, stream);
+  const void* kernel =
+      p.k > KMAX ? reinterpret_cast<const void*>(grid_att_kernel<true>)
+                 : reinterpret_cast<const void*>(grid_att_kernel<false>);
+  return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
 extern "C" const char* icee_error_string(int code) {
@@ -291,7 +295,7 @@ extern "C" const char* icee_error_string(int code) {
 
 // The kernel's dynamic shared memory (bytes) and its geometry, for the
 // wrapper's plan: {smem, threads, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS,
-// MAX_P, KMAX}.
+// MAX_P, KMAX, KWIDE}.
 extern "C" void icee_mega_att_beam_consts(long long* out) {
   out[0] = (long long)grid_smem_bytes();
   out[1] = GB_THREADS;
@@ -302,12 +306,15 @@ extern "C" void icee_mega_att_beam_consts(long long* out) {
   out[6] = MAX_ROWS;
   out[7] = MAX_P;
   out[8] = KMAX;
+  out[9] = KWIDE;
 }
 
-// Blocks of one cooperative launch on the current device.
+// Blocks of one cooperative launch on the current device (either
+// instantiation).
 extern "C" int icee_mega_att_beam_max_grid(int* out) {
-  return grid_max_blocks(reinterpret_cast<const void*>(grid_att_kernel),
-                         out);
+  return grid_max_blocks2(
+      reinterpret_cast<const void*>(grid_att_kernel<false>),
+      reinterpret_cast<const void*>(grid_att_kernel<true>), out);
 }
 
 // factored: stages pre | ctx | vrows | style | gates | logits | init (and

@@ -37,7 +37,9 @@
 
 namespace icee {
 
-constexpr int ATT_ROWS = KMAX;  // most beam rows of one image (register tiles)
+// most beam rows a block attends at once (register tiles); K6 and K7 take
+// a wider beam's rows in groups of ATT_ROWS
+constexpr int ATT_ROWS = KMAX;
 
 struct AttWeights {
   const float* __restrict__ decw;   // (H, A)

@@ -29,13 +29,15 @@
 // / ~0.070 ms (NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Row-tiled design: four launches on the caller's stream.
-//   1. attention: one block per image (its k <= 8 rows), att_common.cuh
+//   1. attention: one block per image and group of up to 8 of its k rows
+//      (one group where k <= 8; k up to KWIDE = 256), att_common.cuh
 //      attend_rows; the image's att1 and features stream from L2/HBM (one
 //      image's features are 1.6 MB, far above a block's shared memory, so
 //      nothing of the TPU kernel's VMEM residency carries over).  Writes
 //      x_full = [emb; gate * ctx] (R, E + FS) and alpha (R, P).
 //   2-4. K1's cell, head and merge launches (step_kernels.cuh) with input
-//      width E + FS, the cell a template over the weight set.
+//      width E + FS, the cell a template over the weight set; a top-k of 9
+//      to KWIDE takes K1's wide head and reduce (wide_topk.cuh).
 #include "att_common.cuh"
 #include "split_step.cuh"
 #include "step_kernels.cuh"
@@ -44,6 +46,9 @@ namespace icee {
 
 constexpr int ATT_THREADS = 512;
 
+// Block (image, row group): the group's rows [g ATT_ROWS, + ATT_ROWS) of
+// the image's k (one group where k <= ATT_ROWS; a row's outputs do not
+// depend on the rows it shares a block with).
 __global__ void __launch_bounds__(ATT_THREADS)
 att_kernel(const float* __restrict__ x, const float* __restrict__ h,
            AttWeights w, const float* __restrict__ feats,
@@ -51,20 +56,21 @@ att_kernel(const float* __restrict__ x, const float* __restrict__ h,
            int E, int k) {
   extern __shared__ __align__(16) float smem[];
   const int H = w.H, Hp = round4(H), ldx = E + w.FS;
-  float* hs = smem;              // (k, Hp)
-  float* scratch = hs + k * Hp;  // attend_rows' att2 and alpha
+  const int rows = min(ATT_ROWS, k - (int)blockIdx.y * ATT_ROWS);
+  float* hs = smem;                 // (rows, Hp)
+  float* scratch = hs + rows * Hp;  // attend_rows' att2 and alpha
   const int img = blockIdx.x;
-  const size_t r0 = (size_t)img * k;
-  for (int i = threadIdx.x; i < k * Hp; i += blockDim.x) {
+  const size_t r0 = (size_t)img * k + blockIdx.y * ATT_ROWS;
+  for (int i = threadIdx.x; i < rows * Hp; i += blockDim.x) {
     const int r = i / Hp, j = i % Hp;
     hs[i] = j < H ? h[(r0 + r) * H + j] : 0.f;
   }
-  for (int i = threadIdx.x; i < k * E; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
     const int r = i / E, e = i % E;
     x_full[(r0 + r) * ldx + e] = x[(r0 + r) * E + e];
   }
   __syncthreads();
-  attend_rows<ATT_ROWS>(hs, Hp, k, w, feats + (size_t)img * w.P * w.FS,
+  attend_rows<ATT_ROWS>(hs, Hp, rows, w, feats + (size_t)img * w.P * w.FS,
                         att1 + (size_t)img * w.P * w.A, scratch,
                         x_full + r0 * ldx + E, ldx, alpha_out + r0 * w.P);
 }
@@ -79,21 +85,24 @@ static int att_step(const float* x, const float* h, const float* c,
                     const W& w, const float* Cw, const float* Cb,
                     float* x_full, float* h_out, float* c_out, float* logp,
                     int* idx, float* alpha, float* pm, float* pse, float* pv,
-                    int* pi, int n_img, int k, int E, int V, int ktop,
-                    void* stream) {
-  if (n_img <= 0 || k < 1 || k > ATT_ROWS || ktop < 1 || ktop > KMAX ||
-      aw.A % 4 || aw.FS % 4 || aw.H % 4 || V % 4 || w.E != E + aw.FS)
+                    int* pi, float* lg, int n_img, int k, int E, int V,
+                    int ktop, void* stream) {
+  if (n_img <= 0 || k < 1 || k > KWIDE || ktop < 1 || ktop > KWIDE ||
+      ktop > V || aw.A % 4 || aw.FS % 4 || aw.H % 4 || V % 4 ||
+      w.E != E + aw.FS)
     return cudaErrorInvalidValue;
+  const int rows = k < ATT_ROWS ? k : ATT_ROWS;  // a block's rows
   const size_t smem =
-      sizeof(float) * (k * round4(aw.H) + att_scratch(aw, k));
+      sizeof(float) * (rows * round4(aw.H) + att_scratch(aw, rows));
   cudaError_t e = cudaFuncSetAttribute(
       att_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  att_kernel<<<n_img, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n_img, (k + ATT_ROWS - 1) / ATT_ROWS);
+  att_kernel<<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       x, h, aw, feats, att1, x_full, alpha, E, k);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return launch_step_topk(x_full, h, c, w, Cw, Cb, h_out, c_out, logp, idx,
-                          pm, pse, pv, pi, n_img * k, V, ktop, stream);
+                          pm, pse, pv, pi, lg, n_img * k, V, ktop, stream);
 }
 
 extern "C" const char* icee_error_string(int code) {
@@ -108,9 +117,10 @@ extern "C" long long icee_att_step_smem(int E, int F, int H, int FS) {
                      (round4(E + FS) + round4(H) + 2 * (size_t)cell_ld(F, H)));
 }
 
-// Rows R = n_img * k, image-major.  x (R, E); h, c (R, H); feats (n_img, P,
-// FS); att1 (n_img, P, A); x_full (R, E + FS) scratch; alpha (R, P);
-// partials pm, pse (R, n_tiles), pv, pi (R, n_tiles, ktop).  V_w has E + FS
+// Rows R = n_img * k, image-major, k <= KWIDE.  x (R, E); h, c (R, H);
+// feats (n_img, P, FS); att1 (n_img, P, A); x_full (R, E + FS) scratch;
+// alpha (R, P); partials pm, pse (R, n_tiles), pv, pi (R, n_tiles, ktop),
+// or for ktop > KMAX the logits lg (R, n_tiles * 256).  V_w has E + FS
 // rows.  Returns 0 or the first CUDA error of the four launches.
 extern "C" int icee_att_decode_step_topk(
     const float* x, const float* h, const float* c, const float* feats,
@@ -120,14 +130,15 @@ extern "C" int icee_att_decode_step_topk(
     const float* Sb, const float* Uw, const float* Ub, const float* Ww,
     const float* Wb, const float* Cw, const float* Cb, float* x_full,
     float* h_out, float* c_out, float* logp, int* idx, float* alpha,
-    float* pm, float* pse, float* pv, int* pi, int n_img, int k, int E,
-    int F, int H, int V, int A, int P, int FS, int ktop, void* stream) {
+    float* pm, float* pse, float* pv, int* pi, float* lg, int n_img, int k,
+    int E, int F, int H, int V, int A, int P, int FS, int ktop,
+    void* stream) {
   if (F % 4) return cudaErrorInvalidValue;
   const AttWeights aw{decw, decb, fullw, fullb, fbw, fbb, H, A, P, FS};
   return att_step(x, h, c, feats, att1, aw,
                   CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E + FS, F, H},
                   Cw, Cb, x_full, h_out, c_out, logp, idx, alpha, pm, pse, pv,
-                  pi, n_img, k, E, V, ktop, stream);
+                  pi, lg, n_img, k, E, V, ktop, stream);
 }
 
 extern "C" int icee_att_decode_step_topk_lstm(
@@ -137,19 +148,20 @@ extern "C" int icee_att_decode_step_topk_lstm(
     const float* fbb, const float* Wih, const float* bih, const float* Whh,
     const float* bhh, const float* Cw, const float* Cb, float* x_full,
     float* h_out, float* c_out, float* logp, int* idx, float* alpha,
-    float* pm, float* pse, float* pv, int* pi, int n_img, int k, int E,
-    int H, int V, int A, int P, int FS, int ktop, void* stream) {
+    float* pm, float* pse, float* pv, int* pi, float* lg, int n_img, int k,
+    int E, int H, int V, int A, int P, int FS, int ktop, void* stream) {
   const AttWeights aw{decw, decb, fullw, fullb, fbw, fbb, H, A, P, FS};
   return att_step(x, h, c, feats, att1, aw,
                   LstmWeights{Wih, bih, Whh, bhh, E + FS, H}, Cw, Cb, x_full,
-                  h_out, c_out, logp, idx, alpha, pm, pse, pv, pi, n_img, k,
-                  E, V, ktop, stream);
+                  h_out, c_out, logp, idx, alpha, pm, pse, pv, pi, lg, n_img,
+                  k, E, V, ktop, stream);
 }
 
-// The column-split path (split_step.cuh) for ONE image's k <= 8 rows: the
-// same outputs, bit for bit, as the calls above, with the same arguments
-// but for work (icee_att_step_split_work floats) in place of x_full and the
-// partials; feats (1, P, FS), att1 (1, P, A).
+// The column-split path (split_step.cuh) for ONE image's k <= 8 rows (a
+// top-k up to KWIDE): the same outputs, bit for bit, as the calls above,
+// with the same arguments but for work (icee_att_step_split_work floats)
+// in place of x_full, the partials and the logits; feats (1, P, FS), att1
+// (1, P, A).
 extern "C" long long icee_att_step_split_work(int factored, int k, int F,
                                               int H, int V, int A, int P,
                                               int FS) {
@@ -157,8 +169,9 @@ extern "C" long long icee_att_step_split_work(int factored, int k, int F,
 }
 
 static bool split_shape_ok(int k, int ktop, const AttWeights& aw, int V) {
-  return k >= 1 && k <= SPLIT_ROWS && ktop >= 1 && ktop <= KMAX &&
-         aw.A % 4 == 0 && aw.FS % 4 == 0 && aw.H % 4 == 0 && V % 4 == 0;
+  return k >= 1 && k <= SPLIT_ROWS && ktop >= 1 && ktop <= KWIDE &&
+         ktop <= V && aw.A % 4 == 0 && aw.FS % 4 == 0 && aw.H % 4 == 0 &&
+         V % 4 == 0;
 }
 
 extern "C" int icee_att_decode_step_topk_split(

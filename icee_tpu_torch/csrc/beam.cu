@@ -49,6 +49,15 @@
 // best-completed tracking).  Once no beam is alive every block leaves after
 // the barrier.
 //
+// Beam widths of 9 to KWIDE = 256 (wide_topk.cuh): the products do not
+// depend on k (a launch holds at most MAX_ROWS = 1024 rows, so 4 images at
+// k = 256: ops/beam.py::launch_chunks splits a batch); the tile partials
+// and tail give way to a row stage (a block a live row: logZ as merge_row
+// takes it, the row's top-k by a radix select, into device memory) and a
+// wide tail (an image's k x k candidates selected the same way from L2,
+// the sequences double-buffered in device memory, so no tail state grows
+// with k or L in shared memory).
+//
 // Bits: every output is the same sequential fmaf chain in k order from 0.f
 // as dot4's (decode_common.cuh), with the same bias adds after and the same
 // cell arithmetic, built with -fmad=false; a chain's k range is never
@@ -73,6 +82,7 @@ struct GridPlan {
   long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar;
 };
 
+template <bool WIDE>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_beam_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -91,10 +101,7 @@ grid_beam_kernel(const __grid_constant__ GridArgs a) {
       run_stage(a, stages[s], sm, c);
       grid_sync(a.bar, gen);
     }
-    run_partials(a, sm, c.n);
-    grid_sync(a.bar, gen);
-    run_tail(a, sm, c);
-    grid_sync(a.bar, gen);
+    run_selection<WIDE>(a, sm, c, gen);
   }
 }
 
@@ -113,8 +120,10 @@ static int launch(const GridPlan& p, const int* slabs, const float* feats,
   a.feats = p.feed ? feats : nullptr;
   a.emb = emb;
   a.feed = (int)p.feed;
-  return grid_launch(reinterpret_cast<const void*>(grid_beam_kernel), a,
-                     (int)p.grid, stream);
+  const void* kernel =
+      p.k > KMAX ? reinterpret_cast<const void*>(grid_beam_kernel<true>)
+                 : reinterpret_cast<const void*>(grid_beam_kernel<false>);
+  return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
 extern "C" const char* icee_error_string(int code) {
@@ -122,7 +131,8 @@ extern "C" const char* icee_error_string(int code) {
 }
 
 // The kernel's dynamic shared memory (bytes) and its geometry, for the
-// wrapper's plan: {smem, threads, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS}.
+// wrapper's plan: {smem, threads, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS,
+// KWIDE, TOPK_FLOATS}.
 extern "C" void icee_mega_beam_consts(long long* out) {
   out[0] = (long long)grid_smem_bytes();
   out[1] = GB_THREADS;
@@ -131,12 +141,16 @@ extern "C" void icee_mega_beam_consts(long long* out) {
   out[4] = NSLOT;
   out[5] = SLOT_FLOATS;
   out[6] = MAX_ROWS;
+  out[7] = KWIDE;
+  out[8] = TOPK_FLOATS;
 }
 
-// Blocks of one cooperative launch on the current device.
+// Blocks of one cooperative launch on the current device (either
+// instantiation).
 extern "C" int icee_mega_beam_max_grid(int* out) {
-  return grid_max_blocks(reinterpret_cast<const void*>(grid_beam_kernel),
-                         out);
+  return grid_max_blocks2(
+      reinterpret_cast<const void*>(grid_beam_kernel<false>),
+      reinterpret_cast<const void*>(grid_beam_kernel<true>), out);
 }
 
 // factored: stages [x V_w + V_b, h W_w + W_b] | v_g S_g + S_b | the gates

@@ -35,7 +35,8 @@ namespace icee {
 
 constexpr int VT = 256;          // vocab tile width: one partial top-k per tile
 constexpr int QT = VT / 4;       // threads per tile (4 columns each)
-constexpr int KMAX = 8;          // largest beam / top-k the kernels take
+constexpr int KMAX = 8;          // largest beam / top-k of the k <= 8 paths
+                                 // (wider ones: wide_topk.cuh, KWIDE)
 constexpr float NEG = -1e30f;    // masked logit / dead-beam score (JAX NEG)
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -359,20 +360,30 @@ __device__ void tile_reduce(float* lt, int col0, int k, float* om, float* ose,
   }
 }
 
-// One warp merges a row's per-tile partials: logZ = M + log(sum_t se_t *
-// exp(m_t - M)) summed in tile order, then the exact top-k of the n_tiles*k
-// candidates (value desc, lowest vocab index on ties).  cand_v is consumed.
-// Lane 0 writes logp[q] = value - logZ and idx[q].
-__device__ void merge_row(const float* pm, const float* pse, float* cand_v,
-                          const int* cand_i, int n_tiles, int k, float* logp,
-                          int* idx) {
+// One warp: a row's logZ from its per-tile partials, M + log(sum_t se_t *
+// exp(m_t - M)) summed in tile order; every lane returns it.  The k <=
+// KMAX merge (merge_row) and the wide paths (wide_topk.cuh) both take it
+// from here, so a row's log-probs are the same bits on either.
+__device__ __forceinline__ float merge_logz(const float* pm, const float* pse,
+                                            int n_tiles) {
   const int lane = threadIdx.x & 31;
   float M = -INFINITY;
   for (int t = lane; t < n_tiles; t += 32) M = fmaxf(M, pm[t]);
   M = warp_max(M);
   float S = 0.f;
   for (int t = 0; t < n_tiles; ++t) S += pse[t] * expf(pm[t] - M);
-  const float logz = M + logf(S);
+  return M + logf(S);
+}
+
+// One warp merges a row's per-tile partials: logZ (merge_logz), then the
+// exact top-k of the n_tiles*k candidates (value desc, lowest vocab index
+// on ties).  cand_v is consumed.  Lane 0 writes logp[q] = value - logZ and
+// idx[q].
+__device__ void merge_row(const float* pm, const float* pse, float* cand_v,
+                          const int* cand_i, int n_tiles, int k, float* logp,
+                          int* idx) {
+  const int lane = threadIdx.x & 31;
+  const float logz = merge_logz(pm, pse, n_tiles);
   const int n = n_tiles * k;
   for (int q = 0; q < k; ++q) {
     float bv = -INFINITY;

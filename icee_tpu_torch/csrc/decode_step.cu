@@ -34,6 +34,12 @@
 //      Only the (R, n_tiles, k) partials are written.
 //   3. merge: one warp per row combines the partials into logZ and the
 //      exact top-k, and writes logp = value - logZ.
+// A top-k of 9 to KWIDE = 256 (wide_topk.cuh): the head writes the logits
+// (R, V) to device memory instead of reducing its tiles, and a reduce
+// launch of one block a row takes logZ the same way and the row's top-k by
+// a radix select (the O(k V) picks of the two launches above are for k <=
+// 8 only); the column-split path's reduce launch does the same on its
+// logits.  The logits and logZ are the same bits, so are the log-probs.
 // The simple first version uses CUDA-core fmaf; wgmma/TMA tiling is later
 // work.
 #include "split_step.cuh"
@@ -46,37 +52,40 @@ extern "C" const char* icee_error_string(int code) {
 }
 
 // Partials: pm, pse (R, n_tiles); pv, pi (R, n_tiles, k), n_tiles = ceil(V /
-// 256).  Returns 0 or the first CUDA error of the three launches.
+// 256); for k > KMAX instead lg (R, n_tiles * 256), the logits (the
+// partials then unused).  Returns 0 or the first CUDA error of the three
+// launches.
 extern "C" int icee_decode_step_topk(
     const float* x, const float* h, const float* c, const float* Vw,
     const float* Vb, const float* Sw, const float* Sb, const float* Uw,
     const float* Ub, const float* Ww, const float* Wb, const float* Cw,
     const float* Cb, float* h_out, float* c_out, float* logp, int* idx,
-    float* pm, float* pse, float* pv, int* pi, int R, int E, int F, int H,
-    int V, int k, void* stream) {
-  if (R <= 0 || k < 1 || k > KMAX || F % 4 || H % 4 || V % 4)
+    float* pm, float* pse, float* pv, int* pi, float* lg, int R, int E,
+    int F, int H, int V, int k, void* stream) {
+  if (R <= 0 || k < 1 || k > KWIDE || k > V || F % 4 || H % 4 || V % 4)
     return cudaErrorInvalidValue;
   return launch_step_topk(x, h, c,
                           CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},
-                          Cw, Cb, h_out, c_out, logp, idx, pm, pse, pv, pi, R,
-                          V, k, stream);
+                          Cw, Cb, h_out, c_out, logp, idx, pm, pse, pv, pi, lg,
+                          R, V, k, stream);
 }
 
 extern "C" long long icee_decode_step_split_work(int R, int F, int H, int V) {
   return split_k1_work(R, F, H, V);
 }
 
-// The column-split path (split_step.cuh) for R <= 8 rows: the same outputs,
-// bit for bit, as icee_decode_step_topk.  work: icee_decode_step_split_work
-// floats.  Returns 0 or the first CUDA error of the five launches.
+// The column-split path (split_step.cuh) for R <= 8 rows, at any top-k up
+// to KWIDE: the same outputs, bit for bit, as icee_decode_step_topk.  work:
+// icee_decode_step_split_work floats.  Returns 0 or the first CUDA error of
+// the five launches.
 extern "C" int icee_decode_step_topk_split(
     const float* x, const float* h, const float* c, const float* Vw,
     const float* Vb, const float* Sw, const float* Sb, const float* Uw,
     const float* Ub, const float* Ww, const float* Wb, const float* Cw,
     const float* Cb, float* h_out, float* c_out, float* logp, int* idx,
     float* work, int R, int E, int F, int H, int V, int k, void* stream) {
-  if (R <= 0 || R > SPLIT_ROWS || k < 1 || k > KMAX || F % 4 || H % 4 ||
-      V % 4)
+  if (R <= 0 || R > SPLIT_ROWS || k < 1 || k > KWIDE || k > V || F % 4 ||
+      H % 4 || V % 4)
     return cudaErrorInvalidValue;
   return launch_split_k1(x, h, c,
                          CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},

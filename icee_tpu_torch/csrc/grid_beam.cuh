@@ -27,7 +27,13 @@
 //   - the tile partials (run_partials: every 256-wide logits tile of every
 //     live row through tile_reduce, a warp a tile) and the beam tail
 //     (run_tail: each image in one block, merge_row of its live rows, the
-//     selection, the sequences, best-completed tracking).
+//     selection, the sequences, best-completed tracking);
+//   - above KMAX (k of 9 to KWIDE = 256, wide_topk.cuh) the row stage
+//     (run_rowsel: a block a live row, its logZ and exact top-k into device
+//     memory) and the wide tail (run_tail_wide: each image in one block,
+//     the top-k of its k x k candidates by block_topk, read from L2, the
+//     sequences double-buffered in device memory); per-image stages take
+//     a wide image's live rows in groups of at most KMAX (scan_rows).
 // Intermediates live in device memory (L2) and are read across a barrier
 // through L2 only (cp.async.cg, __ldcg); an image's search state has one
 // owner block; no atomics touch data.  Once no beam is alive every block
@@ -44,6 +50,7 @@
 
 #include "att_common.cuh"
 #include "grid_common.cuh"
+#include "wide_topk.cuh"
 
 namespace icee {
 
@@ -141,13 +148,14 @@ struct Smem {
   float* ring;          // the chunk ring; the partials and tail scratch
   float* zs;            // a gate unit's z, (4, nr, cw / 4)
   float* alpha;         // a per-image unit's softmax rows, (KMAX, ALD)
+                        // (a unit's rows: an image's, or a group of KMAX)
   const float** xptr;   // compact row -> its step input row
   int* list;            // compact row -> row
   int* hsrc;            // compact row -> the row of its h, c (-1: zeros)
   int* rmap;            // row -> compact row (-1: not live)
-  int* img;             // live image -> image
-  int* ifirst;          // live image -> its first compact row
-  int* icount;          // live image -> its live rows
+  int* img;             // live image (group) -> image
+  int* ifirst;          // live image (group) -> its first compact row
+  int* icount;          // live image (group) -> its live rows
   int* wcount;          // the scan's per-warp counts
 };
 
@@ -297,7 +305,10 @@ __device__ __forceinline__ int compact(int n, const Smem& sm, Live live,
 // runs slot 0 of each image (every candidate comes from it); later steps
 // the slots whose beam is alive.  Where the kernel attends, also the
 // images with a live row, in order (c.n_img), each with its first compact
-// row and count (an image's live rows are adjacent).  Ends with a barrier.
+// row and count (an image's live rows are adjacent); where k > KMAX, an
+// image's slots in groups of KMAX (slots [g KMAX, (g + 1) KMAX)) take an
+// image's place, so that a per-image unit holds at most KMAX rows.  Ends
+// with a barrier.
 __device__ void scan_rows(const GridArgs& a, const Smem& sm, StepCtx& c) {
   const int t = c.t;
   c.n = compact(
@@ -320,24 +331,29 @@ __device__ void scan_rows(const GridArgs& a, const Smem& sm, StepCtx& c) {
         sm.rmap[r] = idx;
       });
   if (!a.att) return;
+  const int G = (a.k + KMAX - 1) / KMAX;  // groups an image: 1 at k <= KMAX
   c.n_img = compact(
-      a.n_img, sm,
-      [&](int img) {
+      a.n_img * G, sm,
+      [&](int grp) {
+        const int base = (grp / G) * a.k, q0 = (grp % G) * KMAX;
+        const int q1 = min(a.k, q0 + KMAX);
         bool any = false;
-        for (int q = 0; q < a.k; ++q) any |= sm.rmap[img * a.k + q] >= 0;
+        for (int q = q0; q < q1; ++q) any |= sm.rmap[base + q] >= 0;
         return any;
       },
-      [&](int idx, int img) {
+      [&](int idx, int grp) {
         if (idx < 0) return;
+        const int base = (grp / G) * a.k, q0 = (grp % G) * KMAX;
+        const int q1 = min(a.k, q0 + KMAX);
         int first = -1, cnt = 0;
-        for (int q = 0; q < a.k; ++q) {
-          const int i = sm.rmap[img * a.k + q];
+        for (int q = q0; q < q1; ++q) {
+          const int i = sm.rmap[base + q];
           if (i >= 0) {
             if (first < 0) first = i;
             ++cnt;
           }
         }
-        sm.img[idx] = img;
+        sm.img[idx] = grp / G;
         sm.ifirst[idx] = first;
         sm.icount[idx] = cnt;
       });
@@ -806,8 +822,16 @@ __host__ __device__ inline int merge_floats(int n_tiles, int k) {
 }
 
 // Floats of the tail's per-image state after the merging warps' copies:
-// log-probs, ids, sequences old and new, and the k-slot state.
+// log-probs, ids, sequences old and new, and the k-slot state.  Above KMAX
+// the larger of the wide row stage's (the selection's scratch, a tile a
+// warp, the tiles' max and sum-exp) and the wide tail's (the selection's
+// scratch and the k-slot state; the candidates and sequences stay in
+// device memory), whatever L.
 __host__ __device__ inline int tail_floats(int n_tiles, int k, int L) {
+  if (k > KMAX) {
+    const int rowsel = GB_WARPS * VT + 2 * n_tiles, tail = 5 * k + 4;
+    return TOPK_FLOATS + (rowsel > tail ? rowsel : tail);
+  }
   return KMAX * merge_floats(n_tiles, k) + 2 * k * k + 2 * k * L + 6 * k + 4;
 }
 
@@ -955,6 +979,142 @@ __device__ void run_tail(const GridArgs& a, const Smem& sm,
   }
 }
 
+// The wide row stage (k > KMAX): a block a live row in turn, its logZ and
+// exact top-k (wide_row: K1's wide reduce, the same bits) into pv, pi at
+// the row's place, (rows, k) each.
+__device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
+  TopkScratch* s = reinterpret_cast<TopkScratch*>(sm.ring);
+  float* lt = sm.ring + TOPK_FLOATS;  // a tile a warp
+  float* pm = lt + GB_WARPS * VT;
+  float* pse = pm + a.n_tiles;
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+    const size_t r = sm.list[i];
+    float* lp = a.pv + r * a.k;
+    int* li = a.pi + r * a.k;
+    wide_row(a.logits + (size_t)i * a.Vp, a.V, a.k, lt, pm, pse, s,
+             [&](int q, int col, float v) {
+               lp[q] = v;
+               li[q] = col;
+             });
+  }
+}
+
+// The wide beam tail (k > KMAX) of the images this block owns: run_tail's
+// semantics (candidate order p*k + q, rank < n_alive validity, strict->
+// tracking, length = t + 2) with the top-k of an image's k*k candidates
+// taken by block_topk from the row stage's log-probs in device memory, and
+// the sequences read from plane t % 2 of seqs and written to the other
+// (seqs holds two (rows, L) planes).
+__device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
+                              const StepCtx& c) {
+  const int tid = threadIdx.x;
+  const int k = a.k, L = a.max_seq + 2, t = c.t;
+  const bool first = t == 0;
+  TopkScratch* s = reinterpret_cast<TopkScratch*>(sm.ring);
+  float* sc = sm.ring + TOPK_FLOATS;             // beam scores
+  float* top = sc + k;                           // selected totals
+  int* al = reinterpret_cast<int*>(top + k);     // alive
+  int* pq = al + k;                              // parent slot
+  int* wq = pq + k;                              // selected next words
+  int* keep = wq + k;                            // [improved, slot, n_take]
+  float* best_s = reinterpret_cast<float*>(keep + 3);
+  const size_t plane = (size_t)a.rows * L;
+  const int* seq_in = a.seqs + (t & 1) * plane;
+  int* seq_out = a.seqs + ((t & 1) ^ 1) * plane;
+  for (int img = blockIdx.x; img < a.n_img; img += gridDim.x) {
+    const int base = img * k;
+    int live_rows = 0;
+    for (int q = 0; q < k; ++q) live_rows += sm.rmap[base + q] >= 0;
+    if (live_rows == 0) continue;
+    for (int q = tid; q < k; q += GB_THREADS) {
+      al[q] = a.alive[base + q];
+      sc[q] = a.scores[base + q];
+    }
+    if (tid == 0) *best_s = a.bscore[img];
+    __syncthreads();
+    const float* lp = a.pv + (size_t)base * k;  // candidate p*k + q at p*k + q
+    const int* li = a.pi + (size_t)base * k;
+    auto total = [&](int cand) {
+      const int p = cand / k;
+      const bool ok = first ? (p == 0) : (al[p] != 0);
+      return ok ? sc[p] + __ldcg(lp + cand) : NEG;
+    };
+    block_topk(k * k, k, total, s, [&](int q, int cand) {
+      top[q] = total(cand);
+      pq[q] = cand / k;
+      wq[q] = __ldcg(li + cand);
+    });
+    for (int e = tid; e < k * L; e += GB_THREADS) {
+      const int q = e / L, pos = e % L;
+      seq_out[(size_t)base * L + e] =
+          pos == t + 1 ? wq[q]
+                       : __ldcg(seq_in + (size_t)(base + pq[q]) * L + pos);
+    }
+    if (tid == 0) {
+      int n_take = k;
+      if (!first) {
+        n_take = 0;
+        for (int p = 0; p < k; ++p) n_take += al[p];
+      }
+      float best = NEG;
+      int ib = 0;
+      for (int q = 0; q < k; ++q) {
+        const bool completed = q < n_take && wq[q] == a.end;
+        const float cv = completed ? top[q] : NEG;
+        if (q == 0 || cv > best) {
+          best = cv;
+          ib = q;
+        }
+      }
+      keep[0] = best > *best_s;
+      keep[1] = ib;
+      keep[2] = n_take;
+      if (keep[0]) {
+        a.bscore[img] = best;
+        a.score[img] = best;
+        a.len[img] = t + 2;
+      }
+      a.steps[2 * img] += 1;
+      a.steps[2 * img + 1] += live_rows;
+    }
+    __syncthreads();
+    for (int q = tid; q < k; q += GB_THREADS) {
+      const bool still = q < keep[2] && wq[q] != a.end;
+      a.alive[base + q] = still ? 1 : 0;
+      a.scores[base + q] = still ? top[q] : NEG;
+      a.word[base + q] = wq[q];
+      a.prev[base + q] = pq[q];
+    }
+    if (keep[0]) {
+      const int q = keep[1];
+      for (int e = tid; e < L; e += GB_THREADS)
+        a.tok[(size_t)img * L + e] =
+            e == t + 1 ? wq[q]
+                       : __ldcg(seq_in + (size_t)(base + pq[q]) * L + e);
+    }
+    __syncthreads();
+  }
+}
+
+// A step's selection after its logits: the tile partials and the beam tail
+// (k <= KMAX), or (WIDE) the wide row stage and tail; a grid barrier after
+// each.  The kernels are instantiated once for each, so that the k <= KMAX
+// kernel is compiled as it was before the wide paths.
+template <bool WIDE>
+__device__ void run_selection(const GridArgs& a, const Smem& sm,
+                              const StepCtx& c, unsigned& gen) {
+  if constexpr (WIDE) {
+    run_rowsel(a, sm, c.n);
+    grid_sync(a.bar, gen);
+    run_tail_wide(a, sm, c);
+  } else {
+    run_partials(a, sm, c.n);
+    grid_sync(a.bar, gen);
+    run_tail(a, sm, c);
+  }
+  grid_sync(a.bar, gen);
+}
+
 }  // namespace icee
 
 // --- host side ---------------------------------------------------------------
@@ -1031,7 +1191,7 @@ template <class Plan>
 inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
                                float* fs, int* is, int* tok, int* len,
                                float* score) {
-  if (p.k < 1 || p.k > KMAX || p.n_img < 1 || p.n_img * p.k > MAX_ROWS ||
+  if (p.k < 1 || p.k > KWIDE || p.n_img < 1 || p.n_img * p.k > MAX_ROWS ||
       p.E < 1 || p.H < 4 || p.H % 4 || p.F % 4 || p.V < p.k || p.V % 4 ||
       p.max_seq < 0 || p.grid < 1 || p.n_tiles != (p.V + VT - 1) / VT ||
       p.Vp != p.n_tiles * VT ||
@@ -1077,6 +1237,7 @@ inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
 // Blocks of one cooperative launch of `kernel` on the current device:
 // co-resident blocks per SM times the SMs.
 inline int grid_max_blocks(const void* kernel, int* out) {
+  *out = 0;
   int dev = 0, sms = 0, per = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1093,6 +1254,16 @@ inline int grid_max_blocks(const void* kernel, int* out) {
         &per, kernel, GB_THREADS, grid_smem_bytes());
   if (e == cudaSuccess && per < 1) e = cudaErrorInvalidConfiguration;
   *out = per * sms;
+  return e;
+}
+
+// The blocks of one cooperative launch that both instantiations of a
+// search kernel (k <= KMAX and WIDE) hold: the fewer of the two.
+inline int grid_max_blocks2(const void* narrow, const void* wide, int* out) {
+  int n = 0, w = 0;
+  cudaError_t e = static_cast<cudaError_t>(grid_max_blocks(narrow, &n));
+  if (e == cudaSuccess) e = static_cast<cudaError_t>(grid_max_blocks(wide, &w));
+  *out = n < w ? n : w;
   return e;
 }
 

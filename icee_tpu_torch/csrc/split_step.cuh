@@ -1,6 +1,7 @@
 // The column-split path of K1 (decode_step.cu) and K6 (att_decode_step.cu):
 // one decode step for a few rows (one image's k <= 8 beam slots, the serial
-// serving path) spread over every SM of the card.
+// serving path; its top-k may be up to KWIDE wide) spread over every SM of
+// the card.
 //
 // Why: at that shape every weight is read once for 5 rows (K1 ~32 MB, K6
 // ~56 MB factored / ~45 MB lstm).  The row-tiled path (step_kernels.cuh)
@@ -55,6 +56,7 @@
 
 #include "att_common.cuh"
 #include "grid_common.cuh"
+#include "wide_topk.cuh"
 
 namespace icee {
 
@@ -430,7 +432,8 @@ inline Gemv gemv(const float* W, int ldw, const float* A, int lda, int K,
   return Gemv{W, A, nullptr, bias, out, K, ldw, 0, ncols, 1, lda, 0, ldo};
 }
 
-// The logits and reduce launches (h_out (R, H) -> logp, idx).
+// The logits and reduce launches (h_out (R, H) -> logp, idx); a top-k
+// above KMAX takes the wide reduce (wide_topk.cuh) on the same logits.
 inline cudaError_t launch_split_head(const float* h_out, const float* Cw,
                                      const float* Cb, int R, int H, int V,
                                      int ktop, float* logits, float* logp,
@@ -441,6 +444,12 @@ inline cudaError_t launch_split_head(const float* h_out, const float* Cw,
   a.job[0] = gemv(Cw, V, h_out, H, H, V, Cb, logits, V);
   cudaError_t e = launch_slab<LOGITS>(a, s, true);
   if (e != cudaSuccess) return e;
+  if (ktop > KMAX) {  // a top-k above 8: the wide reduce (wide_topk.cuh)
+    const size_t smem = sizeof(float) * (size_t)wide_reduce_floats(V);
+    if (smem > SPLIT_SMEM_LIMIT) return cudaErrorInvalidValue;
+    return split_launch(wide_reduce_kernel, R, WIDE_THREADS, smem, s, true,
+                        (const float*)logits, V, V, ktop, logp, idx);
+  }
   const int n_tiles = (V + VT - 1) / VT;
   const size_t smem =
       sizeof(float) * ((REDUCE_THREADS / 32) * VT + n_tiles * (2 + 2 * ktop));

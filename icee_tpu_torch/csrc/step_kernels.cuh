@@ -2,9 +2,13 @@
 // merge), shared by K1 (decode_step.cu, the FactoredLSTM step) and K6
 // (att_decode_step.cu, whose cell input is [emb; gated context]).  The cell
 // launch is a template over the weight set (CellWeights or LstmWeights).
+// Above KMAX (a top-k of 9 to KWIDE) the head writes the logits to device
+// memory (head_logits_kernel) and wide_topk.cuh's reduce launch takes each
+// row's logZ and top-k from there.
 #pragma once
 
 #include "decode_common.cuh"
+#include "wide_topk.cuh"
 
 namespace icee {
 
@@ -82,19 +86,47 @@ merge_kernel(const float* __restrict__ pm, const float* __restrict__ pse,
             logp + (size_t)r * k, idx + (size_t)r * k);
 }
 
+// The wide head (k > KMAX): the head kernel's grid and products, each
+// logits quad written to lg (R, ld), ld = n_tiles * VT (columns past V
+// hold NEG), with no per-tile reduction.
+__global__ void __launch_bounds__(HEAD_TILES * QT)
+head_logits_kernel(const float* __restrict__ h, const float* __restrict__ Cw,
+                   const float* __restrict__ Cb, float* lg, int ld, int R,
+                   int H, int V) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = round4(H);
+  float* hs = smem;
+  const int r0 = blockIdx.x * HEAD_ROWS;
+  const int rows = min(HEAD_ROWS, R - r0);
+  for (int i = threadIdx.x; i < rows * Hp; i += blockDim.x) {
+    const int r = i / Hp, j = i % Hp;
+    hs[i] = j < H ? h[(size_t)(r0 + r) * H + j] : 0.f;
+  }
+  __syncthreads();
+  const int col = (blockIdx.y * HEAD_TILES + threadIdx.x / QT) * VT +
+                  4 * (threadIdx.x % QT);
+  if (col < ld)
+    head_quad<HEAD_ROWS>(hs, Hp, rows, Cw, Cb, H, V, col,
+                         lg + (size_t)r0 * ld + col, ld);
+}
 
 // The cell (x of width w.E), head and merge launches on the caller's
 // stream.  Partials: pm, pse (R, n_tiles); pv, pi (R, n_tiles, k), n_tiles =
-// ceil(V / 256).  Returns the first CUDA error of the three launches.
+// ceil(V / 256).  Above KMAX the head writes the logits to lg (R, n_tiles *
+// 256; unused, and may be null, at k <= KMAX) and the merge is the wide
+// reduce; the partials are not used.  Returns the first CUDA error of the
+// three launches.
 template <class W>
 cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
                              const W& w, const float* Cw, const float* Cb,
                              float* h_out, float* c_out, float* logp,
                              int* idx, float* pm, float* pse, float* pv,
-                             int* pi, int R, int V, int k, void* stream) {
+                             int* pi, float* lg, int R, int V, int k,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (V + VT - 1) / VT;
   cudaError_t e;
+  if (k > KMAX && lg == nullptr) return cudaErrorInvalidValue;
 
   const size_t cell_smem =
       sizeof(float) * CELL_ROWS *
@@ -107,14 +139,26 @@ cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
       x, h, c, w, h_out, c_out, R);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
+  const dim3 head_grid((R + HEAD_ROWS - 1) / HEAD_ROWS,
+                       (n_tiles + HEAD_TILES - 1) / HEAD_TILES);
+  if (k > KMAX) {
+    const int ld = n_tiles * VT;
+    const size_t smem = sizeof(float) * HEAD_ROWS * round4(w.H);
+    e = cudaFuncSetAttribute(head_logits_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    head_logits_kernel<<<head_grid, HEAD_TILES * QT, smem, s>>>(
+        h_out, Cw, Cb, lg, ld, R, w.H, V);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    return launch_wide_reduce(lg, ld, R, V, k, logp, idx, s);
+  }
   const size_t head_smem =
       sizeof(float) * HEAD_ROWS * (round4(w.H) + HEAD_TILES * VT);
   e = cudaFuncSetAttribute(head_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)head_smem);
   if (e != cudaSuccess) return e;
-  const dim3 head_grid((R + HEAD_ROWS - 1) / HEAD_ROWS,
-                       (n_tiles + HEAD_TILES - 1) / HEAD_TILES);
   head_kernel<<<head_grid, HEAD_TILES * QT, head_smem, s>>>(
       h_out, Cw, Cb, pm, pse, pv, pi, R, w.H, V, n_tiles, k);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;

@@ -12,7 +12,10 @@ context (units of an image's feature columns, the softmax in every block),
 the rest of the cell, the vocabulary head, the per-tile top-k partials and
 each image's beam tail; h0/c0 from the mean feature before step 1.  Only
 the beams still alive run.  :func:`att_grid_plan` is the launch plan the
-kernel reads.  :func:`init_state` runs the search's mean and h0/c0 stage
+kernel reads.  Beam widths of 9 to ``K_WIDE`` = 256: the per-image stages
+take an image's live rows in groups of up to 8 (``ATT_GROUP`` rows, a
+group planned in an image's place), and the selection is K2's wide row
+stage and tail.  :func:`init_state` runs the search's mean and h0/c0 stage
 alone for the fused-step path (``att_decode_step.att_init_state``),
 planned by :func:`att_init_plan`.  The TPU scheduling knobs
 (``n_img_block``, ``n_streams``, ``topk_fold``, ``p_stream``, ``p_tile``,
@@ -28,7 +31,9 @@ outside the kernel, as in the JAX package.
 
 :func:`mega_att_beam_decode` takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.  Launch counts:
-``mega_att_beam_decode.launches`` (factored) and ``.lstm_launches``.
+``mega_att_beam_decode.launches`` (factored) and ``.lstm_launches``, and of
+those at a beam above ``K_MAX`` ``.wide_launches`` and
+``.lstm_wide_launches``.
 """
 
 from __future__ import annotations
@@ -53,14 +58,23 @@ from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
                                      GridPlan, Job, StagePlan, carve_regions,
                                      check_grid, grid_blocks, launch_chunks,
                                      plan_stage, plan_struct,
-                                     stage_with_width, slabs_on, tail_floats)
-from icee_tpu_torch.ops.decode_step import (check_beam_width,
+                                     selection_regions, stage_with_width,
+                                     slabs_on, tail_floats)
+from icee_tpu_torch.ops.decode_step import (K_WIDE, check_beam_width,
                                             check_kernel_widths)
 
 # csrc/grid_beam.cuh's limits for the attention (checked against the
 # library when it loads)
 MAX_P = 256                   # positions of an image
 WARPS = THREADS // 32         # a block's warps: positions it scores at once
+ATT_GROUP = K_MAX             # rows of a per-image unit: a wider beam's
+                              # image takes ceil(k / 8) units' places
+
+
+def image_groups(n_img: int, k: int) -> int:
+    """The per-image stages' units of rows: an image's k rows in groups of
+    at most ``ATT_GROUP`` (one an image where k <= ``K_MAX``)."""
+    return n_img * -(-k // ATT_GROUP)
 
 
 def _embed_table(params: dict, kind: str) -> torch.Tensor:
@@ -160,8 +174,10 @@ CTX_STAGE = 1  # the per-image stage: units (slab, live image)
 
 def plan_image_stage(jobs: Tuple[Job, ...], grid: int, n_img: int):
     """A per-image stage's slabs: units (slab, image) of the image's live
-    rows (at most k), so the narrowest slabs (16, 32, 64 columns) that give
-    every block about one unit, 64 once the images fill the grid so."""
+    rows (at most min(k, 8); ``n_img`` counts an image's groups where k is
+    wider, :func:`image_groups`), so the narrowest slabs (16, 32, 64
+    columns) that give every block about one unit, 64 once the images fill
+    the grid so."""
     cols = n_img * sum(j.nseg * j.segw for j in jobs)
     m = -(-cols // (16 * grid))
     return stage_with_width(jobs, 16 if m <= 1 else 32 if m == 2 else 64)
@@ -169,7 +185,8 @@ def plan_image_stage(jobs: Tuple[Job, ...], grid: int, n_img: int):
 
 def score_units(p: int, n_img: int, grid: int) -> Tuple[int, int]:
     """(positions a unit, units an image) of the scores stage: an image's P
-    positions over about grid / n_img blocks, a warp's worth at least."""
+    positions over about grid / n_img blocks, a warp's worth at least
+    (``n_img`` counts groups as :func:`plan_image_stage` does)."""
     upi = max(1, min(-(-p // WARPS), grid // n_img))
     pu = -(-p // upi)
     return pu, -(-p // pu)
@@ -185,9 +202,9 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
     check_kernel_widths(f, h, v, a, fs)
     if kind == "lstm" and f != h:
         raise ValueError(f"f={f} != h={h}: the LSTM cell's widths are H")
-    if not 1 <= k <= min(K_MAX, v):
-        raise ValueError(f"k={k} outside [1, {min(K_MAX, v)}]: the kernel "
-                         "K7 (csrc/att_beam.cu) takes at most K_MAX")
+    if not 1 <= k <= min(K_WIDE, v):
+        raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
+                         "K7 (csrc/att_beam.cu) takes at most K_WIDE")
     if e < 1 or n_img < 1 or max_seq < 0 or grid < 1 or a < 4 or fs < 4:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}, a={a}, fs={fs}: each must be "
@@ -206,24 +223,25 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
         raise ValueError(f"V={v}, max_seq={max_seq}: the beam tail's "
                          "scratch does not fit the kernel's ring")
     jobs = att_stage_jobs(kind, e, f, h, v, a, fs)
-    stages = tuple(plan_image_stage(js, grid, n_img) if i == CTX_STAGE
+    groups = image_groups(n_img, k)
+    stages = tuple(plan_image_stage(js, grid, groups) if i == CTX_STAGE
                    else plan_stage(js, grid, n_img if i == len(jobs) - 1
                                    else rows)
                    for i, js in enumerate(jobs))
-    pu, upi = score_units(p, n_img, grid)
+    pu, upi = score_units(p, groups, grid)
     fact = kind == "factored"
+    sel = selection_regions(rows, n_tiles, k, max_seq + 2)
     floats = carve_regions([
         ("att2", rows * a), ("gpre", rows * fs), ("hw", rows * 4 * h),
         ("xpart", rows * 4 * f), ("esc", rows * p), ("ctx", rows * fs),
         ("v", rows * 4 * f if fact else 0), ("s", rows * 4 * f if fact else 0),
         ("hn", 2 * rows * h), ("cn", 2 * rows * h),
-        ("logits", rows * n_tiles * V_TILE), ("pm", rows * n_tiles),
-        ("pse", rows * n_tiles), ("pv", rows * n_tiles * k),
+        ("logits", rows * n_tiles * V_TILE), ("pm", sel["pm"]),
+        ("pse", sel["pse"]), ("pv", sel["pv"]),
         ("scores", rows), ("bscore", n_img), ("mean", n_img * fs)])
     ints = carve_regions([
-        ("bar", 1), ("pi", rows * n_tiles * k), ("alive", rows),
-        ("word", rows), ("prev", rows), ("seqs", rows * (max_seq + 2)),
-        ("steps", 2 * n_img)])
+        ("bar", 1), ("pi", sel["pi"]), ("alive", rows), ("word", rows),
+        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)])
     return AttGridPlan(kind, e, f, h, v, k, n_img, max_seq, grid, stages,
                        floats, ints, a, p, fs, pu, upi)
 
@@ -341,10 +359,9 @@ def _search(params: dict, features: torch.Tensor, style: int, batch: int,
                 ptr(ints), ptr(tokens), ptr(length), ptr(score),
                 cuda_lib.stream_ptr(device))
         cuda_lib.check_rc(lib, rc, f"mega_att_beam_decode (kind={kind})")
-        if kind == "factored":
-            mega_att_beam_decode.launches += 1
-        else:
-            mega_att_beam_decode.lstm_launches += 1
+        prefix = "" if kind == "factored" else "lstm_"
+        mega_att_beam_decode.__dict__[prefix + "launches"] += 1
+        mega_att_beam_decode.__dict__[prefix + "wide_launches"] += k > K_MAX
         off, size = plan.region("steps")
         results.append((tokens, length, score,
                         ints[off:off + size].view(n_img, 2).clone()))
@@ -474,6 +491,8 @@ def init_state(params: dict, features: torch.Tensor
 
 mega_att_beam_decode.launches = 0       # kernel launches, kind="factored"
 mega_att_beam_decode.lstm_launches = 0  # kernel launches, kind="lstm"
+mega_att_beam_decode.wide_launches = 0       # of those, at k > K_MAX
+mega_att_beam_decode.lstm_wide_launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -486,9 +505,10 @@ def _library() -> ctypes.CDLL:
         "icee_mega_att_beam_consts": ([vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib
-    consts = (ctypes.c_longlong * 9)()
+    consts = (ctypes.c_longlong * 10)()
     lib.icee_mega_att_beam_consts(consts)
-    want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, MAX_P, K_MAX)
+    want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, MAX_P, K_MAX,
+            K_WIDE)
     if tuple(consts[1:]) != want:
         raise RuntimeError(f"csrc/att_beam.cu's geometry {tuple(consts[1:])} "
                            f"is not the wrapper's {want}")

@@ -10,10 +10,14 @@ the shape alone and giving the same bits for a row:
   scores, context, then the cell's and the head's launches, each product's
   columns spread over the whole card and chained by programmatic dependent
   launch;
-* row-tiled (several images, the batched shapes): an attention launch (one
-  block per image) writes x = [emb; gate * ctx], then K1's cell, head and
+* row-tiled (several images, or more than 8 rows an image; the batched
+  shapes): an attention launch (one block per image and group of up to 8
+  of its rows) writes x = [emb; gate * ctx], then K1's cell, head and
   merge launches run with input width E + FS (the cell a template over the
   weight set).
+
+Beams and top-ks of 9 to ``K_WIDE`` = 256 take K1's wide head and reduce
+(``csrc/wide_topk.cuh``), the same bits as the narrow merge would give.
 
 :func:`att_decode_step_topk_plain` is the same function in
 plain PyTorch: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
@@ -30,7 +34,8 @@ Both wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  Launch counts:
 ``att_decode_step_topk.launches`` (factored, either path),
 ``.lstm_launches``, per path ``.split_launches``, ``.lstm_split_launches``,
-``.tiled_launches``, ``.lstm_tiled_launches``; and
+``.tiled_launches``, ``.lstm_tiled_launches``, and a beam or top-k
+above ``K_MAX``, ``.wide_launches``, ``.lstm_wide_launches``; and
 ``att_init_state.launches``.
 """
 
@@ -45,9 +50,10 @@ from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
-from icee_tpu_torch.ops.decode_step import (K_MAX, V_TILE,
-                                            check_beam_width,
-                                            check_kernel_widths)
+from icee_tpu_torch.ops.decode_step import (K_MAX, K_WIDE, SPLIT_ROWS,
+                                            V_TILE, check_beam_width,
+                                            check_kernel_widths,
+                                            scratch_ptrs, tiled_scratch)
 
 KINDS = ("factored", "lstm")
 
@@ -175,11 +181,11 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     n_img, p, fs = features.shape
     if k < 1 or rows != n_img * k:
         raise ValueError(f"{rows} rows for {n_img} images of k={k}")
-    if device.type == "cuda" and k > K_MAX:
+    if device.type == "cuda" and k > K_WIDE:
         raise ValueError(f"k={k} rows an image: the CUDA kernel K6 "
-                         f"(csrc/att_decode_step.cu) takes at most K_MAX = "
-                         f"{K_MAX}")
-    split = n_img == 1
+                         f"(csrc/att_decode_step.cu) takes at most K_WIDE = "
+                         f"{K_WIDE}")
+    split = n_img == 1 and k <= SPLIT_ROWS
     f, hd, v, a, fs, wp = cuda_lib.checked_weights(
         (cell_params, att_params, gate_params), (kind, e, fs, device, split),
         lambda: _step_weights(cell_params, att_params, gate_params, kind, e,
@@ -211,14 +217,9 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
                 ptr(work), k, e)
     else:
         x_full = torch.empty((rows, e + fs), **f32)
-        n_tiles = -(-v // V_TILE)
-        pm = torch.empty((rows, n_tiles), **f32)
-        pse = torch.empty((rows, n_tiles), **f32)
-        pv = torch.empty((rows, n_tiles, ktop), **f32)
-        pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32,
-                         device=device)
+        scratch = tiled_scratch(rows, v, ktop, device)
         outs = (ptr(x_full), ptr(h_out), ptr(c_out), ptr(logp), ptr(idx),
-                ptr(alpha), ptr(pm), ptr(pse), ptr(pv), ptr(pi), n_img, k, e)
+                ptr(alpha), *scratch_ptrs(scratch), n_img, k, e)
     fn = {("factored", False): lib.icee_att_decode_step_topk,
           ("factored", True): lib.icee_att_decode_step_topk_split,
           ("lstm", False): lib.icee_att_decode_step_topk_lstm,
@@ -231,6 +232,7 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     counts = att_decode_step_topk.__dict__
     counts[prefix + "launches"] += 1
     counts[prefix + ("split_launches" if split else "tiled_launches")] += 1
+    counts[prefix + "wide_launches"] += max(k, ktop) > K_MAX
     return logp, idx, h_out, c_out, alpha
 
 
@@ -240,6 +242,8 @@ att_decode_step_topk.split_launches = 0       # one image: the split path
 att_decode_step_topk.lstm_split_launches = 0
 att_decode_step_topk.tiled_launches = 0       # several images: row-tiled
 att_decode_step_topk.lstm_tiled_launches = 0
+att_decode_step_topk.wide_launches = 0        # k or ktop above K_MAX
+att_decode_step_topk.lstm_wide_launches = 0
 
 
 def att_init_state(params: dict, features: torch.Tensor
@@ -275,8 +279,8 @@ att_init_state.launches = 0
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     return cuda_lib.library("att_decode_step", {
-        "icee_att_decode_step_topk": ([vp] * 31 + [i] * 10 + [vp], i),
-        "icee_att_decode_step_topk_lstm": ([vp] * 27 + [i] * 9 + [vp], i),
+        "icee_att_decode_step_topk": ([vp] * 32 + [i] * 10 + [vp], i),
+        "icee_att_decode_step_topk_lstm": ([vp] * 28 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_split": ([vp] * 27 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_lstm_split": (
             [vp] * 23 + [i] * 8 + [vp], i),

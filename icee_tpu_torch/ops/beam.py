@@ -11,6 +11,12 @@ head, the per-tile top-k partials, and each image's beam tail (merge,
 selection, sequences, best-completed tracking, early exit).  Only the beams
 still alive run.  :func:`grid_plan` is the launch plan the kernel reads:
 each stage's column slabs and row-block size, and the scratch layout.
+Beam widths of 9 to ``K_WIDE`` = 256 take the kernel's wide selection
+(``csrc/wide_topk.cuh``): a row stage (a block a live row: logZ, the row's
+top-k into device memory) and a wide tail (an image's k x k candidates
+selected from L2, the sequences double-buffered in device memory).  A
+launch holds at most ``MAX_ROWS`` rows, so :func:`launch_chunks` splits a
+batch into launches of ``MAX_ROWS // k`` images (4 at k = 256).
 
 :func:`mega_beam_decode_plain` is the same search in plain PyTorch
 (:func:`~icee_tpu_torch.decode.beam.beam_search_batched` over the decoder's
@@ -20,7 +26,8 @@ kernel against it on the card.
 :func:`mega_beam_decode` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Its launch counts
 are ``mega_beam_decode.launches`` (factored) and
-``mega_beam_decode.lstm_launches``.
+``mega_beam_decode.lstm_launches``, and of those at a beam above ``K_MAX``
+``.wide_launches`` and ``.lstm_wide_launches``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
 from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
 from icee_tpu_torch.ops import cuda_lib
-from icee_tpu_torch.ops.decode_step import (K_MAX, V_TILE,
+from icee_tpu_torch.ops.decode_step import (K_MAX, K_WIDE, V_TILE,
                                             check_beam_width,
                                             check_decoder_params,
                                             check_kernel_widths)
@@ -54,6 +61,7 @@ MAX_BR = 64          # most rows of a unit
 MAX_UNIT_ROWS = 128  # input rows of a unit, all sets (two a copying thread)
 MAX_STAGES = 8
 SCRATCH_ALIGN = 64   # floats: each scratch region starts 256-byte aligned
+TOPK_FLOATS = 1024   # csrc/wide_topk.cuh: a block selection's scratch
 
 
 def check_nic_params(params: dict, device: torch.device) -> Tuple[int, ...]:
@@ -258,10 +266,30 @@ def merge_floats(n_tiles: int, k: int) -> int:
 
 
 def tail_floats(n_tiles: int, k: int, length: int) -> int:
-    """Floats of the beam tail's scratch (beam.cu): K_MAX merging warps'
-    copies, then one image's log-probs, ids, sequences and slot state."""
+    """Floats of the beam tail's scratch (``csrc/grid_beam.cuh``): K_MAX
+    merging warps' copies, then one image's log-probs, ids, sequences and
+    slot state.  Above K_MAX the larger of the wide row stage's (the
+    selection's scratch, a tile a warp, the tiles' max and sum-exp) and the
+    wide tail's (the selection's scratch and the slot state), whatever the
+    length."""
+    if k > K_MAX:
+        return TOPK_FLOATS + max(THREADS // 32 * V_TILE + 2 * n_tiles,
+                                 5 * k + 4)
     return (K_MAX * merge_floats(n_tiles, k) + 2 * k * k + 2 * k * length
             + 6 * k + 4)
+
+
+def selection_regions(rows: int, n_tiles: int, k: int, length: int):
+    """Sizes of the scratch regions the selection reads and writes: the
+    tile partials pm, pse (rows, n_tiles) and pv, pi (rows, n_tiles, k) and
+    the sequences (rows, length); above K_MAX pv, pi are each row's top-k
+    (rows, k), pm and pse go unused, and the sequences take two planes."""
+    if k > K_MAX:
+        return dict(pm=0, pse=0, pv=rows * k, pi=rows * k,
+                    seqs=2 * rows * length)
+    return dict(pm=rows * n_tiles, pse=rows * n_tiles,
+                pv=rows * n_tiles * k, pi=rows * n_tiles * k,
+                seqs=rows * length)
 
 
 def carve_regions(sizes) -> Tuple[Tuple[str, int, int], ...]:
@@ -282,8 +310,9 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
     if cell not in CELLS:
         raise ValueError(f"unknown cell {cell!r}; choose one of {CELLS}")
     check_kernel_widths(f, h, v)
-    if not 1 <= k <= min(K_MAX, v):
-        raise ValueError(f"k={k} outside [1, {min(K_MAX, v)}]")
+    if not 1 <= k <= min(K_WIDE, v):
+        raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
+                         "K2 (csrc/beam.cu) takes at most K_WIDE")
     if e < 1 or n_img < 1 or max_seq < 0 or grid < 1:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}: each must be positive")
@@ -298,17 +327,16 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
     stages = tuple(plan_stage(jobs, grid, rows)
                    for jobs in stage_jobs(cell, e, f, h, v))
     fact = cell == "factored"
-    length = max_seq + 2
+    sel = selection_regions(rows, n_tiles, k, max_seq + 2)
     floats = carve_regions([
         ("v", rows * 4 * f if fact else 0), ("hw", rows * 4 * h if fact else 0),
         ("s", rows * 4 * f if fact else 0), ("hn", 2 * rows * h),
         ("cn", 2 * rows * h), ("logits", rows * n_tiles * V_TILE),
-        ("pm", rows * n_tiles), ("pse", rows * n_tiles),
-        ("pv", rows * n_tiles * k), ("scores", rows), ("bscore", n_img)])
+        ("pm", sel["pm"]), ("pse", sel["pse"]), ("pv", sel["pv"]),
+        ("scores", rows), ("bscore", n_img)])
     ints = carve_regions([
-        ("bar", 1), ("pi", rows * n_tiles * k), ("alive", rows),
-        ("word", rows), ("prev", rows), ("seqs", rows * length),
-        ("steps", 2 * n_img)])
+        ("bar", 1), ("pi", sel["pi"]), ("alive", rows), ("word", rows),
+        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)])
     return GridPlan(cell, e, f, h, v, k, n_img, max_seq, grid, stages,
                     floats, ints)
 
@@ -473,10 +501,9 @@ def mega_beam_decode_steps(
                 p(fs), p(ints), p(tokens), p(length), p(score),
                 cuda_lib.stream_ptr(device))
         cuda_lib.check_rc(lib, rc, f"mega_beam_decode (cell={cell})")
-        if cell == "factored":
-            mega_beam_decode.launches += 1
-        else:
-            mega_beam_decode.lstm_launches += 1
+        prefix = "" if cell == "factored" else "lstm_"
+        mega_beam_decode.__dict__[prefix + "launches"] += 1
+        mega_beam_decode.__dict__[prefix + "wide_launches"] += k > K_MAX
         off, size = plan.region("steps")
         results.append((tokens, length, score,
                         ints[off:off + size].view(n_img, 2).clone()))
@@ -489,6 +516,8 @@ def mega_beam_decode_steps(
 
 mega_beam_decode.launches = 0       # kernel launches, cell="factored"
 mega_beam_decode.lstm_launches = 0  # kernel launches, cell="lstm"
+mega_beam_decode.wide_launches = 0       # of those, at k > K_MAX
+mega_beam_decode.lstm_wide_launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -500,9 +529,10 @@ def _library() -> ctypes.CDLL:
         "icee_mega_beam_consts": ([vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib
-    consts = (ctypes.c_longlong * 7)()
+    consts = (ctypes.c_longlong * 9)()
     lib.icee_mega_beam_consts(consts)
-    want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS)
+    want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, K_WIDE,
+            TOPK_FLOATS)
     if tuple(consts[1:]) != want:
         raise RuntimeError(f"csrc/beam.cu's geometry {tuple(consts[1:])} is "
                            f"not the wrapper's {want}")

@@ -11,13 +11,19 @@ alone and giving the same bits for a row:
   three launches, cell, per-tile head partials, merge; the (R, V) logits
   never reach device memory.
 
+A top-k of 9 to ``K_WIDE`` = 256 takes either path with the wide reduce
+(``csrc/wide_topk.cuh``): the head writes the logits to device memory and a
+block a row takes logZ as the merge does and the top-k by a radix select,
+the same bits as the k <= ``K_MAX`` merge would give.
+
 :func:`decode_step_topk_plain` is the same function in plain PyTorch: the CPU
 tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
 
 :func:`decode_step_topk` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Launch counts:
 ``decode_step_topk.launches`` (every call), ``.split_launches`` and
-``.tiled_launches`` (each path).
+``.tiled_launches`` (each path), ``.wide_launches`` (a top-k above
+``K_MAX``, either path).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.cells import factored_lstm_cell
 
 V_TILE = 256   # csrc/decode_common.cuh VT
-K_MAX = 8      # csrc/decode_common.cuh KMAX
+K_MAX = 8      # csrc/decode_common.cuh KMAX: the narrow paths' widest k
+K_WIDE = 256   # csrc/wide_topk.cuh KWIDE: the wide paths' widest k
 SPLIT_ROWS = 8  # csrc/split_step.cuh SPLIT_ROWS: most rows of the split path
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -76,13 +83,14 @@ def check_kernel_widths(*dims: int) -> None:
 def check_beam_width(name: str, k: int, v: int, device: torch.device,
                      kernel: str) -> None:
     """A beam width or top-k ``name=k``: the plain route takes any ``1 <= k
-    <= V``; the CUDA kernels hold a row's top-k in registers and take at
-    most ``K_MAX``."""
+    <= V``; the CUDA kernels take at most ``K_WIDE`` (their k <= ``K_MAX``
+    paths pick from per-tile candidates, the wider ones select by a radix
+    select over a block)."""
     if not 1 <= k <= v:
         raise ValueError(f"{name}={k} outside [1, {v}]")
-    if device.type == "cuda" and k > K_MAX:
+    if device.type == "cuda" and k > K_WIDE:
         raise ValueError(f"{name}={k}: the CUDA kernel {kernel} takes at "
-                         f"most K_MAX = {K_MAX}")
+                         f"most K_WIDE = {K_WIDE}")
 
 
 def _step_weights(params: dict, style: int, device: torch.device):
@@ -140,29 +148,49 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
             cuda_lib.stream_ptr(device))
         decode_step_topk.split_launches += 1
     else:
-        n_tiles = -(-v // V_TILE)
-        pm = torch.empty((rows, n_tiles), **f32)
-        pse = torch.empty((rows, n_tiles), **f32)
-        pv = torch.empty((rows, n_tiles, ktop), **f32)
-        pi = torch.empty((rows, n_tiles, ktop), dtype=torch.int32,
-                         device=device)
+        scratch = tiled_scratch(rows, v, ktop, device)
         rc = lib.icee_decode_step_topk(
-            *head, p(pm), p(pse), p(pv), p(pi), rows, e, f, hd, v, ktop,
+            *head, *scratch_ptrs(scratch), rows, e, f, hd, v, ktop,
             cuda_lib.stream_ptr(device))
         decode_step_topk.tiled_launches += 1
     cuda_lib.check_rc(lib, rc, "decode_step_topk")
     decode_step_topk.launches += 1
+    decode_step_topk.wide_launches += ktop > K_MAX
     return logp, idx, h_out, c_out
 
 
 decode_step_topk.launches = 0        # kernel calls, either path
 decode_step_topk.split_launches = 0  # R <= SPLIT_ROWS (5 CUDA launches)
 decode_step_topk.tiled_launches = 0  # larger R (3 CUDA launches)
+decode_step_topk.wide_launches = 0   # ktop > K_MAX, either path
+
+
+def tiled_scratch(rows: int, v: int, ktop: int, device: torch.device):
+    """The row-tiled path's scratch arguments (``csrc/step_kernels.cuh``):
+    the per-tile partials pm, pse (rows, n_tiles) and pv, pi (rows,
+    n_tiles, ktop), then the logits (rows, n_tiles * 256) where ``ktop``
+    is above ``K_MAX`` (the partials then unused and empty; else None)."""
+    n_tiles = -(-v // V_TILE)
+    f32 = dict(dtype=torch.float32, device=device)
+    wide = ktop > K_MAX
+    tiles = 0 if wide else n_tiles
+    pm = torch.empty((rows, tiles), **f32)
+    pse = torch.empty((rows, tiles), **f32)
+    pv = torch.empty((rows, tiles, ktop), **f32)
+    pi = torch.empty((rows, tiles, ktop), dtype=torch.int32, device=device)
+    lg = torch.empty((rows, n_tiles * V_TILE), **f32) if wide else None
+    return pm, pse, pv, pi, lg
+
+
+def scratch_ptrs(tensors) -> list:
+    """Kernel arguments of scratch tensors: each one's address, None for
+    None."""
+    return [None if t is None else cuda_lib.ptr(t) for t in tensors]
 
 
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     return cuda_lib.library("decode_step", {
-        "icee_decode_step_topk": ([vp] * 21 + [i] * 6 + [vp], i),
+        "icee_decode_step_topk": ([vp] * 22 + [i] * 6 + [vp], i),
         "icee_decode_step_topk_split": ([vp] * 18 + [i] * 6 + [vp], i),
         "icee_decode_step_split_work": ([i] * 4, ctypes.c_longlong)})

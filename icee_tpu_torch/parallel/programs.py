@@ -198,7 +198,8 @@ def trainer(mesh, p: dict) -> dict:
     ``p["epochs"]`` epochs on the mesh over ``p["datasets"]`` ("train",
     "emotion" and, for the paper regime, the styled corpora by emotion;
     pinned on the device with ``p["resident"]``) -> the final whole
-    parameters and this rank's slices."""
+    parameters, this rank's slices (but for seq2seq) and every training
+    step's loss in order."""
     from icee_tpu_torch.data.pipeline import styled_caption_loader
     from icee_tpu_torch.train import loops
 
@@ -209,12 +210,14 @@ def trainer(mesh, p: dict) -> dict:
     if p["kind"] == "seq2seq":
         tr = loops.Seq2SeqTrainer(p["cfg"], tc, p["vocab"], p["dec"],
                                   p["head"], **kw)
+        losses = _record_losses(tr)
         tr.train(fac, {"happy": emo}, p["epochs"],
                  val_loader=_loader(p, "train", tc.caption_batch_size,
                                     False),
                  val_emotion_loaders={"happy": _loader(
                      p, "emotion", tc.language_batch_size, False)})
-        return {"dec": _np(tr.params), "head": _np(tr.head)}
+        return {"dec": _np(tr.params), "head": _np(tr.head),
+                "losses": np.array(losses)}
     cls = {"multitask": loops.MultitaskTrainer,
            "transfer": loops.TransferTrainer,
            "paper": loops.PaperRegimeTrainer}[p["kind"]]
@@ -239,9 +242,10 @@ def trainer(mesh, p: dict) -> dict:
 
 
 def _record_losses(tr) -> list:
-    """Wrap ``tr``'s training steps (``_apply_step`` and, in the paper
-    regime, each style's text-only step) so that every step's loss, summed
-    over the data group, is appended to the returned list in order."""
+    """Wrap ``tr``'s training steps (``_apply_step``, or the seq2seq
+    trainer's ``_factual`` and ``_emotion``, and, in the paper regime, each
+    style's text-only step) so that every step's loss, summed over the data
+    group, is appended to the returned list in order."""
     losses = []
 
     def recording(step, index):
@@ -251,7 +255,9 @@ def _record_losses(tr) -> list:
             return out
         return run
 
-    tr._apply_step = recording(tr._apply_step, None)
+    for name in ("_apply_step", "_factual", "_emotion"):
+        if hasattr(tr, name):
+            setattr(tr, name, recording(getattr(tr, name), None))
     for emo, step in getattr(tr, "style_steps", {}).items():
         tr.style_steps[emo] = recording(step, 2)
     return losses

@@ -57,12 +57,12 @@ def _params(kind):
     return tree
 
 
-def _xla_beam(jp, feats, style, kind):
+def _xla_beam(jp, feats, style, kind, k=K, steps=STEPS, vocab=None):
     att = (ja._select_attention(jp["attention"], style)
            if kind == "factored" else jp["attention"])
     att1 = feats @ att["enc_w"] + att["enc_b"]
-    feats_k = jnp.repeat(feats, K, axis=0)
-    att1_k = jnp.repeat(att1, K, axis=0)
+    feats_k = jnp.repeat(feats, k, axis=0)
+    att1_k = jnp.repeat(att1, k, axis=0)
     if kind == "factored":
         def step(x, s):
             logits, _, s2 = ja.factored_att_decode_step(
@@ -78,8 +78,8 @@ def _xla_beam(jp, feats, style, kind):
     return beam_search_batched(
         embed_fn=embed, step_fn=step,
         init_model_state=ja.init_hidden_state(jp, feats_k), start_token=1,
-        end_token=2, k=K, max_seq_length=STEPS,
-        vocab_size=CFG.vocab_size, batch=BATCH)
+        end_token=2, k=k, max_seq_length=steps,
+        vocab_size=vocab or CFG.vocab_size, batch=feats.shape[0])
 
 
 @pytest.mark.filterwarnings("ignore:mega_att_beam_decode")
@@ -113,10 +113,63 @@ def test_plain_version_matches_both_jax_calls_and_the_xla_beam(kind, style):
     assert len(set(lengths)) >= 3 and max(lengths) >= 3, lengths
 
 
+@pytest.mark.parametrize("kind,k", [("factored", 20), ("lstm", 20),
+                                    ("factored", 64)])
+def test_wide_beam_on_tied_rows_matches_jax(kind, k):
+    """Beam widths the CUDA kernel takes on its wide paths (9 to 256): the
+    CPU route (both port paths) answers as JAX, V = 128, the head's
+    columns copied in pairs so that every step's rows and k x k candidates
+    tie: tokens and lengths equal, scores within 1e-5.  At k = 20 the JAX
+    kernel's resident call in interpret mode; at k = 64, where interpret
+    mode takes about a minute an image on the CPU, the XLA attention beam
+    (``_xla_beam``), which the kernel is held to above."""
+    global CFG
+    cfg, CFG = CFG, JAttCfg(vocab_size=128, embed_size=16, hidden_size=24,
+                            factored_size=24, attention_size=20,
+                            feature_size=32)
+    try:
+        tree = _params(kind)
+    finally:
+        CFG = cfg
+    w, b = ("C_w", "C_b") if kind == "factored" else ("linear_w", "linear_b")
+    tree[w][:, 1::2] = tree[w][:, 0::2]
+    end = tree[b][2]
+    tree[b][1::2] = tree[b][0::2]
+    tree[b][2:4] = end, tree[b][4]       # <end> alone holds the end bias
+    style, batch, steps = (1 if kind == "factored" else 0), 2, 8
+    jp = jax.tree.map(jnp.asarray, tree)
+    feats = np.random.default_rng({"factored": 3, "lstm": 8}[kind]) \
+        .standard_normal((batch, P, 32)).astype(np.float32)
+    if k == 20:
+        want = jmega(jp, feats, jnp.asarray(style), batch, start_token=1,
+                     end_token=2, k=k, max_seq_length=steps, n_img_block=2,
+                     v_tile=128, kind=kind, interpret=True)
+    else:
+        want = _xla_beam(jp, feats, jnp.asarray(style), kind, k=k,
+                         steps=steps, vocab=128)
+    tp = bridge.to_torch(tree)
+    got = mega_att_beam_decode(tp, torch.tensor(feats), style, batch,
+                               start_token=1, end_token=2, k=k,
+                               max_seq_length=steps, kind=kind)
+    args = (batch, k, steps, 1, 2)
+    fused = (attention_decode("fused-step", tp, torch.tensor(feats), style,
+                              *args) if kind == "factored"
+             else nic_att_decode("fused-step", tp, torch.tensor(feats),
+                                 *args))
+    for res in (got, fused):
+        np.testing.assert_array_equal(res.tokens.numpy(),
+                                      np.asarray(want.tokens))
+        np.testing.assert_array_equal(res.length.numpy(),
+                                      np.asarray(want.length))
+        np.testing.assert_allclose(res.score.numpy(), np.asarray(want.score),
+                                   rtol=0, atol=1e-5)
+    assert got.length.min() >= 2       # every image completed a caption
+
+
 @pytest.mark.parametrize("kind,style", [("factored", 1), ("lstm", 0)])
 def test_k_10_matches_the_jax_resident_call(kind, style):
-    """Ten beams, above the CUDA kernels' K_MAX = 8: the CPU route answers
-    as the JAX kernel's resident call (interpret mode)."""
+    """Ten beams, above the CUDA kernels' narrow paths (K_MAX = 8): the
+    CPU route answers as the JAX kernel's resident call (interpret mode)."""
     k, batch, steps = 10, 2, 5
     tree = _params(kind)
     jp = jax.tree.map(jnp.asarray, tree)
@@ -169,7 +222,7 @@ def test_wrapper_raises_on_what_it_does_not_take():
         mega_att_beam_decode(tp, feats, 4, BATCH, k=K)
     with pytest.raises(ValueError, match="k=0"):
         mega_att_beam_decode(tp, feats, 0, BATCH, k=0)
-    # above the CUDA kernel's K_MAX = 8 the plain route still decodes (the
+    # the plain route decodes any k up to V (the card takes up to K_WIDE; the
     # card refuses: tests/test_torch_cuda.py)
     got = mega_att_beam_decode(tp, feats, 0, BATCH, k=9, max_seq_length=3)
     assert got.tokens.shape == (BATCH, 5)

@@ -5,8 +5,10 @@ and in order, and the scores stage's units each image's P positions once
 and in order (grids of 1 to 132 blocks, 1 to 64 images); the stages must
 fit the kernel's chunk slots and threads; the scratch regions must be
 disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
-images and k = 1, 5, 8, both kinds; the plan and the wrapper must raise on
-what the kernel does not take.  The h0/c0 launch (the search's mean and
+images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
+paths' 9, 20, 64, 256, both kinds; above k = 8 the per-image stages must
+take an image's rows in groups of at most 8; the plan and the wrapper must
+raise on what the kernel does not take.  The h0/c0 launch (the search's mean and
 init stage alone: ``run_mean``'s tasks, then ``att_init_plan``'s stage)
 must cover each (image, column quad) of the mean and each h0/c0 column of
 each image once, at 1, 2 and 64 images.  The ctypes mirrors of the
@@ -27,12 +29,15 @@ import torch
 
 from icee_tpu_torch import bridge
 from icee_tpu_torch.ops import att_beam, att_decode_step, beam
-from icee_tpu_torch.ops.att_beam import (CTX_STAGE, MAX_P, att_grid_plan,
-                                         att_init_plan, att_stage_jobs,
+from icee_tpu_torch.ops.att_beam import (ATT_GROUP, CTX_STAGE, MAX_P,
+                                         att_grid_plan, att_init_plan,
+                                         att_stage_jobs, image_groups,
                                          init_stage_jobs,
-                                         mega_att_beam_decode_steps)
-from icee_tpu_torch.ops.beam import (KC, KCP, MAX_BR, MAX_ROWS, NSLOT,
-                                     SLOT_FLOATS, THREADS, slab_columns)
+                                         mega_att_beam_decode_steps,
+                                         plan_image_stage, score_units)
+from icee_tpu_torch.ops.beam import (K_MAX, K_WIDE, KC, KCP, MAX_BR,
+                                     MAX_ROWS, NSLOT, SLOT_FLOATS, THREADS,
+                                     slab_columns)
 
 CSRC = Path(att_beam.__file__).resolve().parents[1] / "csrc"
 SOURCE = (CSRC / "att_beam.cu").read_text()
@@ -43,6 +48,7 @@ SHAPES = [  # (kind, E, F, H, V, A, P, FS)
     ("lstm", 300, 512, 512, 8192, 512, 196, 2048),
     ("lstm", 30, 48, 48, 516, 20, 9, 64),
 ]
+WIDE_KS = [9, 20, 64, 256]   # the wide paths' widths (k > K_MAX)
 STAGE_NAMES = {
     "factored": [["att2", "gpre", "hw", "xpart"], ["ctx"], ["v"], ["s"],
                  ["z"], ["logits"], ["h0", "c0"]],
@@ -122,24 +128,30 @@ def test_stages_fit_the_kernels_slots_and_threads(shape):
         assert plan.upi <= 132
 
 
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8] + WIDE_KS)
 @pytest.mark.parametrize("n_img", [1, 8, 64])
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
 def test_scratch_regions_are_disjoint_aligned_and_sized(kind, n_img, k):
+    """Above K_MAX pv and pi hold each row's top-k, pm and pse go unused
+    and the sequences take two planes, as in K2's plan."""
     e, f, h, v, a, p, fs, steps = 300, 512, 512, 8192, 512, 196, 2048, 40
+    n_img = min(n_img, MAX_ROWS // k)
     plan = att_grid_plan(kind, e, f, h, v, a, p, fs, k, n_img, steps, 132)
     rows, nt = n_img * k, -(-v // 256)
     assert plan.rows == rows <= MAX_ROWS and plan.n_tiles == nt
-    fact = kind == "factored"
+    fact, wide = kind == "factored", k > K_MAX
     want_f = {"att2": rows * a, "gpre": rows * fs, "hw": rows * 4 * h,
               "xpart": rows * 4 * f, "esc": rows * p, "ctx": rows * fs,
               "v": rows * 4 * f * fact, "s": rows * 4 * f * fact,
               "hn": 2 * rows * h, "cn": 2 * rows * h,
-              "logits": rows * nt * 256, "pm": rows * nt, "pse": rows * nt,
-              "pv": rows * nt * k, "scores": rows, "bscore": n_img,
-              "mean": n_img * fs}
-    want_i = {"bar": 1, "pi": rows * nt * k, "alive": rows, "word": rows,
-              "prev": rows, "seqs": rows * (steps + 2), "steps": 2 * n_img}
+              "logits": rows * nt * 256, "pm": 0 if wide else rows * nt,
+              "pse": 0 if wide else rows * nt,
+              "pv": rows * (1 if wide else nt) * k, "scores": rows,
+              "bscore": n_img, "mean": n_img * fs}
+    want_i = {"bar": 1, "pi": rows * (1 if wide else nt) * k,
+              "alive": rows, "word": rows, "prev": rows,
+              "seqs": (2 if wide else 1) * rows * (steps + 2),
+              "steps": 2 * n_img}
     for regions, want, total in ((plan.floats, want_f, plan.n_floats),
                                  (plan.ints, want_i, plan.n_ints)):
         assert {n: size for n, _, size in regions} == want
@@ -150,8 +162,67 @@ def test_scratch_regions_are_disjoint_aligned_and_sized(kind, n_img, k):
         assert total == max(b for _, b in spans)
 
 
+@pytest.mark.parametrize("k", WIDE_KS)
+@pytest.mark.parametrize("shape", SHAPES[:2],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_a_wide_images_rows_go_to_the_per_image_stages_in_groups(shape, k):
+    """Above K_MAX an image's k rows take ceil(k / 8) places of an image
+    in the per-image stages (at most ATT_GROUP = 8 rows a unit, what the
+    kernel's att2 and softmax rows hold): the context stage and the scores
+    units are planned over the groups, each group's scores units cover its
+    P positions once and in order, and a group's slots are the image's
+    [g 8, (g + 1) 8) (``scan_rows``)."""
+    kind, e, f, h, v, a, p, fs = shape
+    v = max(v, k)
+    for n_img in (1, MAX_ROWS // k):
+        plan = att_grid_plan(kind, e, f, h, v, a, p, fs, k, n_img, 40, 132)
+        groups = image_groups(n_img, k)
+        assert groups == n_img * -(-k // ATT_GROUP) > n_img
+        assert plan.stages[CTX_STAGE] == plan_image_stage(
+            att_stage_jobs(kind, e, f, h, v, a, fs)[CTX_STAGE], 132, groups)
+        assert (plan.pu, plan.upi) == score_units(p, groups, 132)
+        for u in range(plan.upi):
+            assert range(u * plan.pu, min(p, (u + 1) * plan.pu))
+        assert [q for u in range(plan.upi)
+                for q in range(u * plan.pu, min(p, (u + 1) * plan.pu))] \
+            == list(range(p))
+    slots = [list(range(q0, min(k, q0 + ATT_GROUP)))
+             for q0 in range(0, k, ATT_GROUP)]
+    assert sum(slots, []) == list(range(k))
+    assert all(1 <= len(g) <= 8 for g in slots)
+    scan = SHARED[SHARED.index("__device__ void scan_rows("):]
+    scan = scan[:scan.index("\n}\n")]
+    assert "const int G = (a.k + KMAX - 1) / KMAX;" in scan
+    assert "const int q1 = min(a.k, q0 + KMAX);" in scan
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);",
+                             (CSRC / "decode_common.cuh").read_text()))
+    assert int(consts["KMAX"]) == ATT_GROUP == K_MAX
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_the_ctypes_plan_carries_a_wide_plan(k):
+    """A wide plan through the ctypes mirror: k, the scores units and every
+    region's offset as the plan lays them out; the library's consts entry
+    point reports KWIDE (``icee_mega_att_beam_consts``), which the wrapper
+    holds to K_WIDE, and the kernel runs the wide instantiation above
+    KMAX."""
+    n_img = MAX_ROWS // k
+    plan = att_grid_plan("lstm", 300, 512, 512, 8192, 512, 196, 2048, k,
+                         n_img, 40, 132)
+    c = att_beam._c_plan(plan, 1, 2)
+    assert (c.k, c.n_img, c.pu, c.upi) == (k, n_img, plan.pu, plan.upi)
+    for name in att_beam._FLOAT_REGIONS + beam.INT_REGIONS:
+        assert getattr(c, "o_" + name) == plan.region(name)[0]
+    wide = (CSRC / "wide_topk.cuh").read_text()
+    assert int(re.search(r"constexpr int KWIDE = (\d+);", wide).group(1)) \
+        == K_WIDE >= k
+    assert "out[9] = KWIDE;" in SOURCE
+    assert "p.k > KMAX ? reinterpret_cast<const void*>(grid_att_kernel<true>)" \
+        in SOURCE
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(k=0), "k=0"), (dict(k=9), "k=9"), (dict(v=4, k=5), "k=5"),
+    (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
     (dict(v=130), "multiples of 4"), (dict(f=42), "multiples of 4"),
     (dict(a=18), "multiples of 4"), (dict(fs=66), "multiples of 4"),
     (dict(p=0), "P=0"), (dict(p=MAX_P + 1), f"P={MAX_P + 1}"),
@@ -199,7 +270,7 @@ def test_the_wrapper_raises_before_the_cpu_route():
         mega_att_beam_decode_steps(params, feats[:, :, :8], 0, 2, k=2)
     with pytest.raises(ValueError, match="unknown kind"):
         mega_att_beam_decode_steps(params, feats, 0, 2, k=2, kind="gru")
-    # the plain route takes any k up to V (the card refuses k > 8)
+    # the plain route takes any k up to V (the card takes up to K_WIDE)
     got, steps = mega_att_beam_decode_steps(params, feats, 1, 2, k=9,
                                             max_seq_length=3)
     assert steps is None and got.tokens.shape == (2, 5)

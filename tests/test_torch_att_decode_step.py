@@ -85,8 +85,8 @@ def test_plain_version_matches_the_jax_kernel(kind, style):
 
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
 def test_plain_version_takes_k_10_as_the_jax_kernel_does(kind):
-    """Ten rows an image and a top-10, above the CUDA kernels' K_MAX = 8:
-    the CPU route answers as the JAX kernel."""
+    """Ten rows an image and a top-10, above the CUDA kernels' narrow
+    paths (K_MAX = 8): the CPU route answers as the JAX kernel."""
     k = 10
     init = (ja.init_factored_att_params if kind == "factored"
             else ja.init_rnn_att_params)
@@ -109,6 +109,46 @@ def test_plain_version_takes_k_10_as_the_jax_kernel_does(kind):
         ktop=k)
     assert got[1].shape == (2 * k, k)
     np.testing.assert_array_equal(got[1].numpy(), want[1])
+    for i in (0, 2, 3, 4):
+        np.testing.assert_allclose(got[i].numpy(), want[i], rtol=0,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("kind,k", [("lstm", 20), ("factored", 64)])
+def test_wide_step_on_tied_rows_matches_the_jax_kernel(kind, k):
+    """k rows an image and a top-k at the CUDA kernel's wide widths (9 to
+    256), V = 128, the head's columns copied in pairs so that every row's
+    logits tie: the CPU route's ids equal the JAX kernel's (interpret
+    mode), values within 1e-5."""
+    cfg = JAttCfg(vocab_size=128, embed_size=16, hidden_size=24,
+                  factored_size=24, attention_size=20, feature_size=32)
+    init = (ja.init_factored_att_params if kind == "factored"
+            else ja.init_rnn_att_params)
+    jp = jax.tree.map(np.array, init(jax.random.PRNGKey(9), cfg))
+    head = ("C_w", "C_b") if kind == "factored" else ("linear_w", "linear_b")
+    jp[head[0]][:, 1::2] = jp[head[0]][:, 0::2]
+    jp[head[1]][1::2] = jp[head[1]][0::2]
+    rng = np.random.default_rng(9)
+    x, h, c = (rng.standard_normal((2 * k, d)).astype(np.float32)
+               for d in (16, 24, 24))
+    feats = rng.standard_normal((2, P, 32)).astype(np.float32)
+    tp = bridge.to_torch(jp)
+    cell, att, gate = step_params(tp, kind, 1 if kind == "factored" else 0)
+    jcell, jatt, jgate = (jax.tree.map(jnp.asarray, t)
+                          for t in (cell, att, gate))
+    att1 = np.asarray(feats @ np.asarray(jatt["enc_w"])
+                      + np.asarray(jatt["enc_b"]))
+    want = [np.asarray(w) for w in fused_att_decode_step_topk(
+        jcell, jatt, jgate, x, h, c, feats, att1, kind=kind, k=k, ktop=k,
+        n_img_block=1, v_tile=128, interpret=True)]
+    got = att_decode_step_topk(cell, att, gate, *(
+        torch.tensor(a) for a in (x, h, c, feats, att1)), kind=kind, k=k,
+        ktop=k)
+    gv, gi = got[0].numpy(), got[1].numpy()
+    assert gi.shape == (2 * k, k)
+    assert (gv[:, 0::2] == gv[:, 1::2]).all()        # the ties are there
+    assert (gi[:, 1::2] == gi[:, 0::2] + 1).all()    # ... the lower id first
+    np.testing.assert_array_equal(gi, want[1])
     for i in (0, 2, 3, 4):
         np.testing.assert_allclose(got[i].numpy(), want[i], rtol=0,
                                    atol=ATOL)
@@ -186,7 +226,7 @@ def test_wrapper_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="ktop"):
         att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
                              ktop=0)
-    # above the CUDA kernel's K_MAX = 8 the plain route still decodes
+    # the plain route decodes any k up to V (the card takes up to K_WIDE)
     # (the card refuses: tests/test_torch_cuda.py)
     got = att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
                                ktop=9)

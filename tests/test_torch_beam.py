@@ -115,8 +115,8 @@ def test_early_termination():
 
 @pytest.mark.parametrize("feed", [True, False])
 def test_k_10_matches_jax_mega(feed):
-    """Ten beams, above the CUDA kernels' K_MAX = 8: the CPU route answers
-    as the JAX kernel, in both feature modes."""
+    """Ten beams, above the CUDA kernels' narrow paths (K_MAX = 8): the
+    CPU route answers as the JAX kernel, in both feature modes."""
     jp = _params(seed=12)
     batch, k, steps = 3, 10, 6
     feats = _feats(batch, k, 32, seed=4) if feed else None
@@ -125,6 +125,43 @@ def test_k_10_matches_jax_mega(feed):
                  max_seq_length=steps, n_img_block=2, v_tile=128,
                  feed_feature=feed, interpret=True)
     _assert_same(_port_all(jp, feats, 2, batch, k, steps), want)
+
+
+@pytest.mark.parametrize("k", [20, 64])
+def test_wide_beam_on_tied_rows_matches_jax_mega(k):
+    """Beam widths the CUDA kernel takes on its wide paths (9 to 256): the
+    CPU route (both port paths) answers as JAX, V = 128, with the head's
+    columns copied in pairs so that every step's rows and k x k candidates
+    tie: tokens and lengths equal, scores within 1e-5.  At k = 20 the JAX
+    kernel in interpret mode; at k = 64, where interpret mode takes about
+    a minute an image on the CPU, the XLA ``beam_search_batched`` that
+    ``tests/test_pallas_beam.py`` holds the kernel to."""
+    jp = _params(vocab=128, seed=14)
+    jp["C_w"] = np.array(jp["C_w"]) * np.float32(8.0)
+    jp["C_w"][:, 1::2] = jp["C_w"][:, 0::2]
+    jp["C_b"] = np.array(jp["C_b"])
+    jp["C_b"][1::2] = jp["C_b"][0::2]
+    jp["C_b"][2] = 4.0                    # <end> (ties token 3) ends beams
+    batch, steps = 2, 4
+    feats = _feats(batch, k, 32, seed=6)
+    if k == 20:
+        want = jmega(jp, jnp.asarray(feats), jnp.asarray(1), batch,
+                     start_token=1, end_token=2, k=k, max_seq_length=steps,
+                     n_img_block=2, v_tile=128, interpret=True)
+    else:
+        jparams = jax.tree.map(jnp.asarray, jp)
+        zeros = jnp.zeros((batch * k, 64), jnp.float32)
+        want = jbeam_batched(
+            embed_fn=lambda t: jfl.embed(jparams, t),
+            step_fn=lambda x, st: jfl.decode_step(jparams, x, st, 1),
+            init_model_state=(zeros, zeros), start_token=1, end_token=2,
+            k=k, max_seq_length=steps, vocab_size=128, batch=batch,
+            first_input=jnp.asarray(feats))
+    got = _port_all(jp, feats, 1, batch, k, steps)
+    _assert_same(got, want, scores=False)
+    np.testing.assert_allclose(got.score.numpy(), np.asarray(want.score),
+                               rtol=0, atol=1e-5)
+    assert (got.length.numpy() > 1).all()
 
 
 def test_all_tied_logits():
@@ -171,8 +208,8 @@ def test_unknown_path_and_bad_block_raise():
     feats = torch.zeros((2, 5, 32))
     with pytest.raises(ValueError):
         factored_decode("xla", jp, feats, 0, 2, 5, 4, 1, 2)
-    # 9 beams: above the CUDA kernel's K_MAX = 8 the plain route still
-    # decodes (the card refuses: tests/test_torch_cuda.py)
+    # 9 beams, on the CUDA kernel's wide path: the plain route decodes any
+    # k up to V (the card takes up to K_WIDE = 256: tests/test_torch_cuda.py)
     got = mega_beam_decode(jp, torch.zeros((2, 9, 32)), 0, 2, k=9,
                            max_seq_length=3)
     assert got.tokens.shape == (2, 5)

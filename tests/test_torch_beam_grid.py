@@ -4,12 +4,15 @@ must cover each output column of each of its products once and in order
 (a ragged vocabulary, F != H, grids of 1 to 132 blocks); the slabs and row
 blocks must fit the kernel's chunk slots; the scratch regions must be
 disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
-images and k = 1, 5, 8; a batch must split into launches of at most
-``MAX_ROWS`` rows; and the plan and the wrapper must raise on what the
-kernel does not take.  The ctypes mirror of the kernel's ``GridPlan`` and
-its geometry constants are held against the CUDA sources' text
-(``csrc/beam.cu`` and the ``csrc/grid_beam.cuh`` it shares with K7).  The
-kernel itself runs on the card (``tests/test_torch_cuda.py``).
+images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
+paths' 9, 20, 64, 256; a batch must split into launches of at most
+``MAX_ROWS`` rows; the beam tail's scratch must fit the ring; and the plan
+and the wrapper must raise on what the kernel does not take.  The ctypes
+mirror of the kernel's ``GridPlan`` and its geometry constants are held
+against the CUDA sources' text (``csrc/beam.cu``, the
+``csrc/grid_beam.cuh`` it shares with K7, ``csrc/wide_topk.cuh`` and
+``csrc/decode_common.cuh``).
+The kernel itself runs on the card (``tests/test_torch_cuda.py``).
 """
 
 import re
@@ -21,14 +24,18 @@ import torch
 
 from icee_tpu_torch import bridge
 from icee_tpu_torch.ops import beam
-from icee_tpu_torch.ops.beam import (KC, KCP, MAX_BR, MAX_ROWS, SLOT_FLOATS,
-                                     THREADS, grid_plan, launch_chunks,
+from icee_tpu_torch.ops.beam import (K_MAX, K_WIDE, KC, KCP, MAX_BR,
+                                     MAX_ROWS, SLOT_FLOATS, THREADS,
+                                     TOPK_FLOATS, grid_plan, launch_chunks,
                                      mega_beam_decode_steps, slab_columns)
 
 CSRC = Path(beam.__file__).resolve().parents[1] / "csrc"
 # the kernel and the machinery it shares with K7
 SOURCE = "".join((CSRC / n).read_text() for n in ("beam.cu",
-                                                  "grid_beam.cuh"))
+                                                  "grid_beam.cuh",
+                                                  "wide_topk.cuh",
+                                                  "decode_common.cuh"))
+WIDE_KS = [9, 20, 64, 256]   # the wide paths' widths (k > K_MAX)
 SHAPES = [  # (cell, E, F, H, V)
     ("factored", 300, 512, 512, 8192),   # flagship
     ("factored", 30, 40, 48, 516),       # ragged V, F != H, E % 4 != 0
@@ -89,22 +96,29 @@ def test_stages_fit_the_kernels_slots_and_threads(shape):
             assert len(st.slabs) <= 132
 
 
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8] + WIDE_KS)
 @pytest.mark.parametrize("n_img", [1, 8, 64])
 @pytest.mark.parametrize("cell", ["factored", "lstm"])
 def test_scratch_regions_are_disjoint_aligned_and_sized(cell, n_img, k):
+    """Above K_MAX pv and pi hold each row's top-k, pm and pse go unused
+    and the sequences take two planes (``run_rowsel``,
+    ``run_tail_wide``); a launch holds at most MAX_ROWS // k images."""
     e, f, h, v, steps = 300, 512, 256, 8192, 40
+    n_img = min(n_img, MAX_ROWS // k)
     plan = grid_plan(cell, e, f, h, v, k, n_img, steps, 132)
     rows, nt = n_img * k, -(-v // 256)
     assert plan.rows == rows <= MAX_ROWS and plan.n_tiles == nt
-    fact = cell == "factored"
+    fact, wide = cell == "factored", k > K_MAX
     want_f = {"v": rows * 4 * f * fact, "hw": rows * 4 * h * fact,
               "s": rows * 4 * f * fact, "hn": 2 * rows * h,
               "cn": 2 * rows * h, "logits": rows * nt * 256,
-              "pm": rows * nt, "pse": rows * nt, "pv": rows * nt * k,
+              "pm": 0 if wide else rows * nt,
+              "pse": 0 if wide else rows * nt,
+              "pv": rows * (1 if wide else nt) * k,
               "scores": rows, "bscore": n_img}
-    want_i = {"bar": 1, "pi": rows * nt * k, "alive": rows, "word": rows,
-              "prev": rows, "seqs": rows * (steps + 2),
+    want_i = {"bar": 1, "pi": rows * (1 if wide else nt) * k,
+              "alive": rows, "word": rows, "prev": rows,
+              "seqs": (2 if wide else 1) * rows * (steps + 2),
               "steps": 2 * n_img}
     for regions, want, total in ((plan.floats, want_f, plan.n_floats),
                                  (plan.ints, want_i, plan.n_ints)):
@@ -114,6 +128,67 @@ def test_scratch_regions_are_disjoint_aligned_and_sized(cell, n_img, k):
             assert a1 <= b0
         assert all(off % 64 == 0 for _, off, _ in regions)  # 256 bytes
         assert total == max(b for _, b in spans)
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_a_wide_batch_splits_into_launches_of_max_rows_over_k_images(k):
+    """MAX_ROWS stays 1,024 rows a launch: at k = 256 a launch takes 4
+    images, and every launch but the last is full."""
+    per = MAX_ROWS // k
+    for batch in (1, per - 1, per, per + 1, 64, 500):
+        chunks = launch_chunks(batch, k)
+        assert [n for _, n in chunks] == \
+            [per] * (batch // per) + ([batch % per] if batch % per else [])
+        assert [a for a, _ in chunks] == list(range(0, batch, per))
+        assert all(n * k <= MAX_ROWS for _, n in chunks)
+    assert launch_chunks(64, 256) == [(i, 4) for i in range(0, 64, 4)]
+    assert launch_chunks(64, 20) == [(0, 51), (51, 13)]
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_the_wide_tail_scratch_fits_the_ring_and_mirrors_the_source(k):
+    """Above K_MAX the tail's scratch is the row stage's or the wide
+    tail's (the selection's, then a tile a warp and the tiles' max and
+    sum-exp; or the k slot state), whatever the length: it fits the ring
+    at any vocabulary up to 400,000, as ``tail_floats`` in
+    ``csrc/grid_beam.cuh`` computes it; ``merge_floats`` is the source's
+    too (the k <= K_MAX merging warps' copies)."""
+    body = SOURCE[SOURCE.index("inline int tail_floats("):]
+    body = body[:body.index("\n}\n")]
+    assert "const int rowsel = GB_WARPS * VT + 2 * n_tiles, tail = 5 * k + 4;" \
+        in body
+    assert "return TOPK_FLOATS + (rowsel > tail ? rowsel : tail);" in body
+    merge = re.search(r"inline int merge_floats\(int n_tiles, int k\) \{\s*"
+                      r"return round4\((.*?)\);", SOURCE, re.S).group(1)
+    for v in (516, 8192, 8800, 400000):
+        nt = -(-v // 256)
+        want = TOPK_FLOATS + max(THREADS // 32 * 256 + 2 * nt, 5 * k + 4)
+        for length in (2, 42, 4002):
+            assert beam.tail_floats(nt, k, length) == want
+        assert want <= beam.NSLOT * SLOT_FLOATS
+        assert beam.merge_floats(nt, k) == \
+            (eval(merge, {"n_tiles": nt, "k": k}) + 3) & ~3
+    grid_plan("factored", 16, 32, 32, 400000, k, 1, 4000, 4)  # no refusal
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_the_ctypes_plan_carries_a_wide_plan(k):
+    """A wide plan through the ctypes mirror: k, the tiles and every
+    region's offset as the plan lays them out; the limits it is checked
+    against are the source's (KWIDE, TOPK_FLOATS) and the kernel runs the
+    wide instantiation above KMAX."""
+    n_img = MAX_ROWS // k
+    plan = grid_plan("factored", 300, 512, 512, 8192, k, n_img, 40, 132)
+    c = beam._c_plan(plan, 1, 2, True)
+    assert (c.k, c.n_img, c.n_tiles, c.Vp) == (k, n_img, 32, 8192)
+    for name in beam._FLOAT_REGIONS + beam.INT_REGIONS:
+        assert getattr(c, "o_" + name) == plan.region(name)[0]
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", SOURCE))
+    assert int(consts["KWIDE"]) == K_WIDE >= k > int(consts["KMAX"]) == K_MAX
+    assert int(consts["TOPK_FLOATS"]) == TOPK_FLOATS
+    assert "p.k > KMAX ? reinterpret_cast<const void*>(grid_beam_kernel<true>)" \
+        in SOURCE
+    assert "p.k < 1 || p.k > KWIDE" in SOURCE
 
 
 def test_a_batch_splits_into_launches_of_at_most_max_rows():
@@ -131,7 +206,7 @@ def test_a_batch_splits_into_launches_of_at_most_max_rows():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(k=0), "k=0"), (dict(k=9), "k=9"), (dict(v=4, k=5), "k=5"),
+    (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
     (dict(v=130), "multiples of 4"), (dict(f=42), "multiples of 4"),
     (dict(h=30), "multiples of 4"), (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
@@ -161,8 +236,8 @@ def _params(vocab=128, e=16, h=32, seed=0):
 
 def test_the_wrapper_raises_before_the_cpu_route():
     params = _params()
-    # above the kernel's K_MAX = 8 the plain route decodes (the card
-    # refuses: tests/test_torch_cuda.py)
+    # the plain route decodes any k up to V (the card takes up to K_WIDE =
+    # 256: tests/test_torch_cuda.py)
     got, steps = mega_beam_decode_steps(params, None, 0, 2, k=9,
                                         max_seq_length=3)
     assert steps is None and got.tokens.shape == (2, 5)

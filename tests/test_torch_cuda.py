@@ -25,8 +25,10 @@ step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
 vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7; K7 as one search over the whole card at 1, 3, 8
 and 64 images and k = 1, 5 and 8, the same bits on a second run and on a
-3-block grid.  Every wrapper refuses k above the kernels' K_MAX = 8 on a
-CUDA tensor (the CPU route takes any k).  K5 (the attention training scan), both cells,
+3-block grid.  Every wrapper refuses k above the kernels' K_WIDE = 256 on
+a CUDA tensor (the CPU route takes any k); the wide paths (k of 9 to 256:
+K1, K2, K6 and K7) against their plain versions and K2 = K1 fused-step,
+K7 = K6 at atol 0.  K5 (the attention training scan), both cells,
 teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
 same bits on a second run, and the attention train steps on the card
 against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
@@ -107,6 +109,8 @@ def _params(device, vocab, e, f, h, seed=0, zero_head=False, end_bias=None):
     (13, 520, 30, 48, 64, 5),     # ragged vocab, E % 4 != 0, F != H
     (40, 1024, 300, 64, 32, 8),   # rows over several blocks, k = KMAX
     (3, 260, 16, 32, 32, 1),      # one vocab column in the last tile
+    (20, 520, 30, 48, 64, 20),    # the wide reduce (top-k above KMAX)
+    (5, 520, 30, 48, 64, 64),     # the same on the column-split path
 ])
 def test_decode_step_kernel_matches_plain(device, rows, vocab, e, f, h, ktop):
     params = _params(device, vocab, e, f, h, seed=rows)
@@ -136,15 +140,33 @@ def test_decode_step_kernel_ties_go_to_the_lowest_ids(device):
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("rows,ktop", [(9, 20), (3, 256), (300, 256)])
+def test_wide_top_k_ties_go_to_the_lowest_ids(device, rows, ktop):
+    """The wide reduce's radix select on a zero head: every entry ties,
+    the ids are 0..ktop-1 in order on both paths (column-split at 3 rows)."""
+    params = _params(device, 768, 20, 32, 32, zero_head=True)
+    x = torch.randn((rows, 20), device=device)
+    h = torch.zeros((rows, 32), device=device)
+    before = decode_step_topk.wide_launches
+    logp, idx, _, _ = decode_step_topk(params, x, h, h, 0, ktop=ktop)
+    torch.cuda.synchronize()
+    assert decode_step_topk.wide_launches == before + 1
+    assert idx.tolist() == [list(range(ktop))] * rows
+    torch.testing.assert_close(logp, torch.full_like(logp, -np.log(768.0)),
+                               rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("case", ["serving", "research", "early_end",
-                                  "tied", "one_beam", "one_image"])
+                                  "tied", "one_beam", "one_image", "wide",
+                                  "wide_tied"])
 def test_mega_kernel_matches_plain_and_fused_step(device, case):
     # one_image: the serial serving shape, K1's column-split path
     vocab, e, f, h = 516, 30, 40, 48
-    k, batch, steps = {"one_beam": (1, 7, 9),
-                       "one_image": (4, 1, 9)}.get(case, (4, 5, 9))
+    k, batch, steps = {"one_beam": (1, 7, 9), "one_image": (4, 1, 9),
+                       "wide": (20, 3, 9),
+                       "wide_tied": (64, 2, 5)}.get(case, (4, 5, 9))
     params = _params(device, vocab, e, f, h, seed=7,
-                     zero_head=case == "tied",
+                     zero_head=case in ("tied", "wide_tied"),
                      end_bias=50.0 if case == "early_end" else 1.0)
     feats = None
     if case != "research":
@@ -185,14 +207,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _params(device, 128, 16, 32, 32)
     with pytest.raises(ValueError, match="expected cpu"):
         decode_step_topk(params, x.cpu(), h, h, 0)
-    # above K_MAX the CPU route decodes; the kernels refuse, naming it
-    with pytest.raises(ValueError, match="K1 .*K_MAX = 8"):
-        decode_step_topk(params, x, h, h, 0, ktop=9)
-    with pytest.raises(ValueError, match="K2 .*K_MAX = 8"):
-        mega_beam_decode(params, None, 0, 2, k=9)
-    with pytest.raises(ValueError, match="K2 .*K_MAX = 8"):
-        mega_beam_decode(_nic_params(device, 128, 16, 32), None, 0, 2, k=9,
-                         cell="lstm")
+    # above K_WIDE the CPU route decodes; the kernels refuse, naming it
+    params = _params(device, 260, 16, 32, 32)
+    with pytest.raises(ValueError, match="K1 .*K_WIDE = 256"):
+        decode_step_topk(params, x, h, h, 0, ktop=257)
+    with pytest.raises(ValueError, match="K2 .*K_WIDE = 256"):
+        mega_beam_decode(params, None, 0, 2, k=257)
+    with pytest.raises(ValueError, match="K2 .*K_WIDE = 256"):
+        mega_beam_decode(_nic_params(device, 260, 16, 32), None, 0, 2,
+                         k=257, cell="lstm")
 
 
 # --- training kernels: K3 (lstm_scan.cu) and the chunked CE (chunked_ce.cu) --
@@ -589,7 +612,8 @@ def test_nic_wrappers_raise_on_what_the_kernels_do_not_take(device):
     ("factored", 1, 5), ("factored", 8, 5), ("factored", 64, 5),
     ("factored", 8, 1), ("factored", 8, 8),
     ("lstm", 1, 5), ("lstm", 8, 5), ("lstm", 64, 5), ("lstm", 8, 1),
-    ("lstm", 8, 8)])
+    ("lstm", 8, 8), ("factored", 8, 20), ("lstm", 8, 20),
+    ("factored", 3, 64), ("lstm", 1, 256)])
 def test_grid_search_matches_plain_and_keeps_its_bits(device, cell, n_img,
                                                       k):
     """K2 as one search over the whole card: images that end at widely
@@ -702,7 +726,9 @@ def _att_split_counts():
 
 
 @pytest.mark.parametrize("kind,n_img,k,p", [("factored", 3, 5, 9),
-                                            ("lstm", 4, 3, 196)])
+                                            ("lstm", 4, 3, 196),
+                                            ("factored", 2, 20, 9),
+                                            ("lstm", 1, 12, 196)])
 def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
     params = _att_params(device, kind)
     cell, att, gate = att_decode_step.step_params(params, kind, 2)
@@ -934,6 +960,22 @@ def test_mega_att_kernel_matches_plain_and_fused_step(device, kind, k,
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
 def test_grid_att_search_matches_plain_and_keeps_its_bits(device, kind,
                                                           n_img, k):
+    _grid_att_search(device, kind, n_img, k)
+
+
+@pytest.mark.parametrize("kind,n_img,k", [("factored", 3, 20),
+                                          ("lstm", 3, 20),
+                                          ("factored", 1, 36),   # k = V
+                                          ("lstm", 1, 64),
+                                          ("lstm", 2, 256)])
+def test_wide_grid_att_search_matches_plain_and_keeps_its_bits(device, kind,
+                                                               n_img, k):
+    """The same at beam widths above KMAX (the per-image stages in groups
+    of 8 rows, the wide selection)."""
+    _grid_att_search(device, kind, n_img, k)
+
+
+def _grid_att_search(device, kind, n_img, k):
     """K7 as one search over the whole card: images that end at several
     steps (live-row and live-image compaction), a ragged vocabulary, E % 4
     != 0, F != H, P = 9.  Against the plain search; the same bits on a
@@ -993,9 +1035,9 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
         att_beam.mega_att_beam_decode(params,
                                       torch.rand((2, 300, 64), device=device),
                                       0, 2, k=4)
-    # above K_MAX the CPU route decodes; the kernels refuse, naming it
-    with pytest.raises(ValueError, match="K7 .*K_MAX = 8"):
-        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=9)
+    # above K_WIDE the CPU route decodes; the kernels refuse, naming it
+    with pytest.raises(ValueError, match="K7 .*K_WIDE = 256"):
+        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=257)
     most = att_beam.max_grid(device)
     assert most >= torch.cuda.get_device_properties(0).multi_processor_count
     for grid in (0, most + 1):
@@ -1009,15 +1051,15 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="rows"):
         att_decode_step.att_decode_step_topk(
             cell, att, gate, x, h, h, feats, att1, k=4, ktop=4)
-    x9 = torch.zeros((18, 30), device=device)
-    h9 = torch.zeros((18, 48), device=device)
-    with pytest.raises(ValueError, match="K6 .*K_MAX = 8"):
+    x9 = torch.zeros((514, 30), device=device)
+    h9 = torch.zeros((514, 48), device=device)
+    with pytest.raises(ValueError, match="K6 .*K_WIDE = 256"):
         att_decode_step.att_decode_step_topk(
-            cell, att, gate, x9, h9, h9, feats, att1, k=9, ktop=4)
-    with pytest.raises(ValueError, match="K6 .*K_MAX = 8"):
+            cell, att, gate, x9, h9, h9, feats, att1, k=257, ktop=4)
+    with pytest.raises(ValueError, match="K6 .*K_WIDE = 256"):
         att_decode_step.att_decode_step_topk(
             cell, att, gate, x9[:16], h9[:16], h9[:16], feats, att1, k=8,
-            ktop=9)
+            ktop=257)
 
 
 # --- K5: the attention training scan (att_scan.cu) --------------------------

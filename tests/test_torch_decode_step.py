@@ -63,7 +63,8 @@ def test_plain_step_matches_jax_kernel_and_reference(style, vocab, v_tile):
 
 
 def test_plain_step_takes_ktop_10_as_the_jax_kernel_does():
-    """Above the CUDA kernels' K_MAX = 8: the CPU route answers as JAX."""
+    """Above the CUDA kernels' narrow paths (K_MAX = 8): the CPU route
+    answers as JAX."""
     jp, x, h, c = _setup(512, seed=4)
     got_v, got_i, got_h, got_c = _port(jp, x, h, c, 1, ktop=10)
     want_v, want_i, want_h, want_c = map(np.asarray, fused_decode_step_topk(
@@ -72,6 +73,37 @@ def test_plain_step_takes_ktop_10_as_the_jax_kernel_does():
     assert got_i.shape == (16, 10)
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_allclose(got_v, want_v, **TOL)
+    np.testing.assert_allclose(got_h, want_h, **TOL)
+    np.testing.assert_allclose(got_c, want_c, **TOL)
+
+
+def _tie_pairs(jp):
+    """Copies of the head's columns in pairs (2j + 1 := 2j): every row's
+    logits tie in pairs, so each top-k crosses ties it breaks by the
+    lowest id."""
+    jp = dict(jp, C_w=np.array(jp["C_w"]), C_b=np.array(jp["C_b"]))
+    jp["C_w"][:, 1::2] = jp["C_w"][:, 0::2]
+    jp["C_b"][1::2] = jp["C_b"][0::2]
+    return jp
+
+
+@pytest.mark.parametrize("ktop", [20, 64])
+def test_wide_top_k_on_tied_rows_matches_the_jax_kernel(ktop):
+    """The widths the CUDA kernel takes on its wide paths (9 to 256): the
+    CPU route's ids equal the JAX kernel's (interpret mode, V = 128) on
+    rows whose logits tie in pairs, values within 1e-5."""
+    jp, x, h, c = _setup(128, seed=8)
+    jp = _tie_pairs(jp)
+    got_v, got_i, got_h, got_c = _port(jp, x, h, c, 2, ktop=ktop)
+    want_v, want_i, want_h, want_c = map(np.asarray, fused_decode_step_topk(
+        jp, x, h, c, jnp.asarray(2), ktop=ktop, row_block=16, v_tile=128,
+        interpret=True))
+    assert got_i.shape == (16, ktop)
+    # the ties are there: each pair's ids side by side, the lower first
+    assert (got_v[:, 0::2] == got_v[:, 1::2]).all()
+    assert (got_i[:, 1::2] == got_i[:, 0::2] + 1).all()
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got_h, want_h, **TOL)
     np.testing.assert_allclose(got_c, want_c, **TOL)
 
@@ -106,8 +138,8 @@ def test_wrapper_rejects_bad_inputs():
         decode_step_topk(tp, xt, ht, ct, 4)      # no such style
     with pytest.raises(ValueError):
         decode_step_topk(tp, xt, ht, ct, 0, ktop=0)
-    # above the CUDA kernel's K_MAX = 8 the plain route still decodes
-    # (the card refuses: tests/test_torch_cuda.py)
+    # the plain route decodes any ktop up to V (the card takes up to K_WIDE
+    # = 256: tests/test_torch_cuda.py)
     vals, idx, _, _ = decode_step_topk(tp, xt, ht, ct, 0, ktop=9)
     assert vals.shape == idx.shape == (4, 9)
     bad = dict(tp, C_w=tp["C_w"].t().contiguous().t())  # not contiguous

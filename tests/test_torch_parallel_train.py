@@ -357,13 +357,11 @@ def test_trainers_on_a_mesh_equal_one_process(worlds, corpus, kind):
     for a, b in zip(jax.tree.leaves(got[0]["dec"]),
                     jax.tree.leaves(single["dec"])):
         assert np.abs(a - b).max() <= 2 * LR * steps
-    if kind != "seq2seq":
-        for r in range(1, n):
-            np.testing.assert_array_equal(got[r]["losses"],
-                                          got[0]["losses"])
-        assert len(got[0]["losses"]) == len(single["losses"]) > 0
-        np.testing.assert_allclose(got[0]["losses"], single["losses"],
-                                   rtol=1e-5)
+    for r in range(1, n):
+        np.testing.assert_array_equal(got[r]["losses"], got[0]["losses"])
+    assert len(got[0]["losses"]) == len(single["losses"]) > 0
+    np.testing.assert_allclose(got[0]["losses"], single["losses"],
+                               rtol=1e-5)
     if kind == "paper":
         return                         # the paper regime logs nothing
     name = kind.replace(":", "_")
