@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    rows an image (top-k = k), one image and 64, against their plain
    versions as phases 4 and 5b hold them (a near-tie swap within 1e-4,
    the log-probs' own tolerance, above k = 8), launches exact, timed at
-   k = 20 and 256; (b, c) K2 and K7 (both cells) at the same widths, one
+   k = 20 and 256 beside their library yardsticks; (b, c) K2 and K7
+   (both cells) at the same widths, one
    image and 64 (a launch holds MAX_ROWS // k images; 40 steps at k = 9
    and 20, 12 at 64, 8 at 256), margin-aware against the plain searches,
    launches exact, and at k = 20 = the fused-step paths (K1, K6) at atol
@@ -268,9 +269,27 @@ Phases, in order; any failure exits non-zero:
    (e) seconds a rank spends in ``import torch`` and CUDA's start, and the
    StyleNet factual step's ms a rank at DP 2 and TP 2 beside phase 9's;
    launches exact on every rank, no plain version called;
-24. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+24. hidden widths and batches past the training scans' resident plan
+   (``csrc/scan_grid.cuh``'s streamed plans): (a) K3 and K4 at (B, H) =
+   (64, 736), (64, 1024), (64, 2048) with E = 300, F = H, T = 25, and K3
+   at (2048, 512); K8 at (128, 1024), E = 512, T = 22, gclip 5.0: both
+   directions against their plain versions as phase 7 holds them, the same
+   bits twice, each plan's kinds printed and one recurrence launch a
+   direction, timed beside the bound (K4 beside cuDNN's ``nn.LSTM``, h
+   atol 1e-4); (b) K5 factored, sampled at ratio 0.8, at H = F = 1024 as
+   phase 10 holds it; (c) ``cli.train --hidden_size 1024`` over phase
+   19's corpus and cache, one epoch of StyleNet (``--factored_size
+   1024``) and one of NIC at ratio 1.0, their K3 / K4, CE and K2 counts
+   exact and no plain version, then ``evaluate --feed_feature`` on the
+   StyleNet checkpoint: its BLEU this process's, each line the plain
+   search's or a near tie; (d) SentiCap at H = 1024: one base step kernel
+   against plain (phase 13 (i)), then ``decode_split`` of 8 images at beam
+   20 through K9, its captions this process's K9 search's, margin-aware
+   against the plain search (phase 14's rule);
+25. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
-   ``trainer``, ``resident`` and ``seq2seq`` entries), one
+   ``trainer``, ``resident``, ``seq2seq`` and ``wide_h`` (phase 24)
+   entries), one
    ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
    entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
@@ -282,8 +301,9 @@ Phases, in order; any failure exits non-zero:
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10, and
    the wide paths of K1, K2, K6 and K7, both cells: their launches phase
-   5d (e)'s and, for K2, phase 19's beam-20 stage);
-25. print ``{"ok": true, "device": {...}}`` as the last line.
+   5d (e)'s and, for K2, phase 19's beam-20 stage; K3, K4 and K8 past the
+   resident plan, forward and backward: their launches phase 24's);
+26. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -531,11 +551,10 @@ def k1_line(dec, inputs, serial_inputs, max_err: float, ties: int):
                 serial_source="icee_tpu_torch/csrc/split_step.cuh")
 
 
-def k1_times(dec, inputs, ktop: int, n: int, warm: int,
-             library: bool = True) -> dict:
+def k1_times(dec, inputs, ktop: int, n: int, warm: int) -> dict:
     """K1's, its plain version's and the library yardstick's (the cell,
-    addmm, log_softmax, topk; with ``library``) mean ms over ``n`` calls on
-    ``inputs`` at top-``ktop``, and the bound."""
+    addmm, log_softmax, topk) mean ms over ``n`` calls on ``inputs`` at
+    top-``ktop``, and the bound."""
     import torch
 
     from icee_tpu_torch.ops.cells import factored_lstm_cell
@@ -554,7 +573,7 @@ def k1_times(dec, inputs, ktop: int, n: int, warm: int,
         lambda: decode_step_topk(dec, x, h, c, style, ktop=ktop), n, warm),
         "plain_ms": cuda_ms(lambda: decode_step_topk_plain(
             dec, x, h, c, style, ktop=ktop), n, warm),
-        "library_ms": cuda_ms(library_step, n, warm) if library else None}
+        "library_ms": cuda_ms(library_step, n, warm)}
     nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
         + 4 * rows * (2 * ktop + 2 * H)
     out["bound_ms"], out["bound_by"] = bound_ms(
@@ -631,7 +650,8 @@ def sequence_scores(dec, cell: str, feats, style: int, tokens, length):
         embed = lstm.embed
         step = lambda x, s: lstm.decode_step(dec, x, s)  # noqa: E731
     tok = tokens.long()
-    zeros = torch.zeros((tok.shape[0], H), device=tok.device)
+    hd = (dec["W_w"] if cell == "factored" else dec["cell"]["W_hh"]).shape[0]
+    zeros = torch.zeros((tok.shape[0], hd), device=tok.device)
     state = (zeros, zeros.clone())
     x = feats[:, 0] if feats is not None else embed(dec, tok[:, 0])
     total = torch.zeros((tok.shape[0],), device=tok.device)
@@ -951,11 +971,9 @@ def att_library_step(args):
         torch.addmm(cell["C_b"], h2, cell["C_w"]), dim=-1), k)
 
 
-def k6_times(kind: str, args, n: int, n_plain: int, warm: int,
-             library: bool = True) -> dict:
-    """K6's, its plain version's and the library yardstick's (with
-    ``library``) mean ms on ``args`` at top-k (k their rows an image), and
-    the bound."""
+def k6_times(kind: str, args, n: int, n_plain: int, warm: int) -> dict:
+    """K6's, its plain version's and the library yardstick's mean ms on
+    ``args`` at top-k (k their rows an image), and the bound."""
     from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk
 
     n_img, k = args[6].shape[0], args[9]
@@ -964,8 +982,7 @@ def k6_times(kind: str, args, n: int, n_plain: int, warm: int,
                          warm),
            "plain_ms": cuda_ms(lambda: att_step_plain(args, k), n_plain,
                                warm),
-           "library_ms": (cuda_ms(lambda: att_library_step(args), n, warm)
-                          if library else None)}
+           "library_ms": cuda_ms(lambda: att_library_step(args), n, warm)}
     nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
               + 4 * rows * (E + 2 * H) + 4 * rows * (2 * k + 2 * H + P))
     out["bound_ms"], out["bound_by"] = bound_ms(
@@ -1243,17 +1260,16 @@ def wide_steps(sty, att, device):
         for n_img in WIDE_IMAGES:
             rows, timed = n_img * k, k in WIDE_TIMED
             # calls a timing: fewer at the larger shapes; the library
-            # yardstick up to 1,280 rows (K6's broadcast score is 6.5 GB
-            # at 16,384)
+            # yardstick at every timed shape (K6's broadcast score is 6.6
+            # GB at 16,384 rows, its relu as much again: the card holds it)
             n, warm = (50, 5) if rows <= 256 else (20, 2) if rows <= 1280 \
                 else (5, 1)
-            library = rows <= 1280
             inputs, err, ties = check_k1(sty, device, rows, 30 + k + n_img,
                                          ktop=k)
             note("k1", err, ties)
             if timed:
                 out["k1"]["shapes"][f"k{k}_rows{rows}"] = dict(
-                    k1_times(sty, inputs, k, n, warm, library), k=k,
+                    k1_times(sty, inputs, k, n, warm), k=k,
                     rows=rows)
             del inputs
             for kind, dec in att.items():
@@ -1262,8 +1278,8 @@ def wide_steps(sty, att, device):
                 note(kind, err, ties)
                 if timed:
                     out[kind]["shapes"][f"k{k}_rows{rows}"] = dict(
-                        k6_times(kind, args, n, max(2, n // 4), warm,
-                                 library), k=k, rows=rows)
+                        k6_times(kind, args, n, max(2, n // 4), warm),
+                        k=k, rows=rows)
                 del args
             torch.cuda.empty_cache()
     return out
@@ -1486,10 +1502,11 @@ def wide_phase(params, device):
     sty, nic = params["stylenet"]["decoder"], params["nic"]["decoder"]
     att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
     steps = wide_steps(sty, att, device)
-    log("phase 5d (a): K1, K6 wide ok; ms (plain, bound) " + "; ".join(
-        f"{n} {sh}: {f['ms']:.4f} ({f['plain_ms']:.4f}, "
-        f"{f['bound_ms']:.4f})" for n, fig in steps.items()
-        for sh, f in fig["shapes"].items()))
+    log("phase 5d (a): K1, K6 wide ok; ms (plain, bound, library) "
+        + "; ".join(f"{n} {sh}: {f['ms']:.4f} ({f['plain_ms']:.4f}, "
+                    f"{f['bound_ms']:.4f}, {f['library_ms']:.4f})"
+                    for n, fig in steps.items()
+                    for sh, f in fig["shapes"].items()))
     searches = wide_searches(sty, nic, att, device)
     log("phase 5d (b, c): K2, K7 wide ok; ms (plain, bound) " + "; ".join(
         f"{n} {sh}: {f['ms']:.3f} ({f['plain_ms']:.3f}, "
@@ -2155,7 +2172,9 @@ def cell_weight_floats() -> int:
 SCAN_GROUPS = (("products_ms", ("sb_product_kernel", "tf32x3_")),
                ("planes_ms", ("sb_prepare_kernel",)),
                ("recurrence_ms", ("scan_fwd_grid_kernel",
-                                  "scan_bwd_grid_kernel")),
+                                  "scan_bwd_grid_kernel",
+                                  "scan_fwd_stream_kernel",
+                                  "scan_bwd_stream_kernel")),
                ("column_sums_ms", ("colsum_kernel",)))
 
 
@@ -3911,6 +3930,39 @@ def senticap_split(n: int, seed: int, senti: float = -1.0):
                         ids=[f"img{i}" for i in range(n)])
 
 
+def senticap_first_step(device, kernel, plain, data, batch, params,
+                        what: str):
+    """One SentiCap base step's loss and grads, the kernel path's steps
+    against the plain path's, with the same dropout masks.  Tolerances: the
+    loss (a SUM over ~1,700 tokens, ~1.5e4) rtol 1e-5; each grad 1e-3 x its
+    largest magnitude + 1e-7.  -> (loss rel err, {name: grad err / max|g|})
+    (widths SC_B, SC_T, SC_E, SC_H)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(82)
+    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
+                                    device=device) < 0.5).float() * 2.0,
+                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
+                                    device=device) < 0.5).float() * 2.0)
+    out = {name: steps.grads(params, data, batch, **masks)
+           for name, steps in (("kernel", kernel), ("plain", plain))}
+    torch.cuda.synchronize()
+    k_loss, p_loss = out["kernel"][0].item(), out["plain"][0].item()
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    grad_errs = {k: max_rel_err(out["kernel"][1][k], out["plain"][1][k])
+                 for k in params}
+    if not (loss_err <= 1e-5 and all(
+            (out["kernel"][1][k] - out["plain"][1][k]).abs().max().item()
+            <= 1e-3 * out["plain"][1][k].abs().max().item() + 1e-7
+            for k in params)):
+        fail(f"{what}: SentiCap first step: kernel vs plain loss rel err "
+             f"{loss_err}, grad errs {grad_errs}")
+    log(f"{what}: first step, kernel vs plain: loss {k_loss:.4f} vs "
+        f"{p_loss:.4f}; grad err / max|g| "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} }")
+    return loss_err, grad_errs
+
+
 def train_senticap_phase(device):
     """Phase 13: the SentiCap base model trains at the reference COCO
     regime (B=128, T=22, E=H=512, V=8800, visual 4096, RMSProp,
@@ -3955,31 +4007,9 @@ def train_senticap_phase(device):
         return model.init_params(torch.Generator().manual_seed(81), SC_V,
                                  conf, device=device)
 
-    # (i) one step's loss and grads, kernel path vs plain path, with the
-    # same dropout masks.  Tolerances: the loss (a SUM over ~1,700 tokens,
-    # ~1.5e4) rtol 1e-5; each grad 1e-3 x its largest magnitude + 1e-7
-    g = torch.Generator(device=device).manual_seed(82)
-    masks = dict(x_drop=(torch.rand((SC_B, SC_T, SC_E), generator=g,
-                                    device=device) < 0.5).float() * 2.0,
-                 y_drop=(torch.rand((SC_B, SC_T, SC_H), generator=g,
-                                    device=device) < 0.5).float() * 2.0)
-    params = fresh()
-    out = {name: steps.grads(params, data, batches[0], **masks)
-           for name, steps in (("kernel", kernel), ("plain", plain))}
-    torch.cuda.synchronize()
-    k_loss, p_loss = out["kernel"][0].item(), out["plain"][0].item()
-    loss_err = abs(k_loss - p_loss) / abs(p_loss)
-    grad_errs = {k: max_rel_err(out["kernel"][1][k], out["plain"][1][k])
-                 for k in params}
-    if not (loss_err <= 1e-5 and all(
-            (out["kernel"][1][k] - out["plain"][1][k]).abs().max().item()
-            <= 1e-3 * out["plain"][1][k].abs().max().item() + 1e-7
-            for k in params)):
-        fail(f"SentiCap first step: kernel vs plain loss rel err "
-             f"{loss_err}, grad errs {grad_errs}")
-    log(f"phase 13 (i): first step, kernel vs plain: loss {k_loss:.4f} vs "
-        f"{p_loss:.4f}; grad err / max|g| "
-        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} }")
+    # (i) one step's loss and grads, kernel path vs plain path
+    loss_err, grad_errs = senticap_first_step(
+        device, kernel, plain, data, batches[0], fresh(), "phase 13 (i)")
 
     # (ii) 30 steps on the kernel path, every K8 and CE count from 0 just
     # before and read just after; the loss must fall
@@ -4302,6 +4332,38 @@ def senticap_profile(what: str, fn):
     return groups
 
 
+def k9_margin_check(what: str, got, want, rescored):
+    """K9's searches ``got`` against the plain searches ``want`` (scores,
+    tokens, lengths), margin-aware as phase 5: each kernel score matches
+    its own sequence's plain re-score (``rescored``) within 1e-3 and the
+    plain search's within 1e-3, and where tokens differ, the kernel's
+    sequence ties the plain winner within 1e-4.  -> (score error, re-score
+    error, near-tie flips)."""
+    import torch
+
+    max_err, own_err, flips = 0.0, 0.0, 0
+    for i in range(got[0].shape[0]):
+        gs, ws, rs = got[0][i].item(), want[0][i].item(), rescored[i].item()
+        n = int(got[2][i])
+        same = n == int(want[2][i]) and torch.equal(got[1][i, :n],
+                                                    want[1][i, :n])
+        own_err = max(own_err, abs(rs - gs))
+        if not abs(rs - gs) <= 1e-3:
+            fail(f"{what} image {i}: reported score {gs}, its sequence "
+                 f"scores {rs}")
+        if not same:
+            margin = abs(rs - ws)
+            if margin > 1e-4:
+                fail(f"{what} image {i}: tokens differ; kernel's sequence "
+                     f"scores {rs}, plain winner {ws}, margin {margin}")
+            flips += 1
+            log(f"{what} image {i}: near-tie flip, margin {margin}")
+        max_err = max(max_err, abs(gs - ws))
+    if not max_err <= 1e-3:
+        fail(f"{what}: score error {max_err} > 1e-3")
+    return max_err, own_err, flips
+
+
 def check_k9(device):
     """Phase 14: K9 vs the plain search at 64 images, beam 20, max_len 20,
     margin-aware as phase 5: each kernel score matches its own sequence's
@@ -4323,26 +4385,7 @@ def check_k9(device):
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail("K9: two runs on the same inputs differ")
-    max_err, own_err, flips = 0.0, 0.0, 0
-    for i in range(SC_IMAGES):
-        gs, ws, rs = got[0][i].item(), want[0][i].item(), rescored[i].item()
-        n = int(got[2][i])
-        same = n == int(want[2][i]) and torch.equal(got[1][i, :n],
-                                                    want[1][i, :n])
-        own_err = max(own_err, abs(rs - gs))
-        if not abs(rs - gs) <= 1e-3:
-            fail(f"K9 image {i}: reported score {gs}, its sequence scores "
-                 f"{rs}")
-        if not same:
-            margin = abs(rs - ws)
-            if margin > 1e-4:
-                fail(f"K9 image {i}: tokens differ; kernel's sequence "
-                     f"scores {rs}, plain winner {ws}, margin {margin}")
-            flips += 1
-            log(f"K9 image {i}: near-tie flip, margin {margin}")
-        max_err = max(max_err, abs(gs - ws))
-    if not max_err <= 1e-3:
-        fail(f"K9: score error {max_err} > 1e-3")
+    max_err, own_err, flips = k9_margin_check("K9", got, want, rescored)
     lengths = got[2].tolist()
     if len(set(lengths)) < 2:
         fail(f"K9: every beam ended at one length {lengths[0]}")
@@ -8093,6 +8136,551 @@ def parallel_world_checks(device, one_step_ms: float):
     return launches, stats
 
 
+# --- phase 24: hidden widths and batches past the resident plan --------------
+#
+# K3, K4 and K8 where no resident partition of the recurrence fits (H from
+# 736, large B): a direction streams W_h's planes (csrc/scan_grid.cuh's
+# plans of kind SG_STREAMED).  (a) each scan against its plain version at
+# the shapes below; (b) K5 factored at H = F = 1024; (c) the train and
+# evaluate CLIs at --hidden_size 1024; (d) SentiCap at H = 1024.
+
+# (kernel, B, H): K3 and K4 at E = 300, F = H, T = 25; K8 at E = 512,
+# T = 22, gclip 5.0
+WIDE_SCANS = (("K3", 64, 736), ("K3", 64, 1024), ("K3", 64, 2048),
+              ("K3", 2048, 512), ("K4", 64, 736), ("K4", 64, 1024),
+              ("K4", 64, 2048), ("K8", 128, 1024))
+WIDE_H = 1024                 # the width of (b), (c), (d) and the entries
+WIDE_SC_IMAGES = 8            # (d): decode_split's images at beam 20
+WIDE_WRAPPERS = {"K3": ("factored_scan_fwd", "factored_scan_bwd"),
+                 "K4": ("nic_scan_fwd", "nic_scan_bwd"),
+                 "K8": ("senticap_scan_fwd", "senticap_scan_bwd")}
+KIND_NAMES = ("resident", "streamed")
+
+
+def wide_scan_flops_bytes(kernel: str, b: int, t: int, e: int, h: int):
+    """(fwd flops, bwd flops, fwd bytes, bwd bytes) of K3 (F = H), K4 or
+    K8 at (B, T, E, H): the products over all rows, the recurrence, the
+    backward's (T - 1) recurrent dh products; each weight and activation
+    read once, each output written once."""
+    n, h4 = b * t, 4 * h
+    if kernel == "K3":
+        f = h
+        fwd = 2 * n * (e * 4 * f + 4 * f * f + 4 * f * h + h * h4)
+        bwd = (2 * n * (h * h4 + 8 * f * h + 8 * f * f + 8 * e * f)
+               + 2 * b * (t - 1) * h4 * h)
+        w = e * 4 * f + 4 * f + 4 * f * f + 4 * f + 4 * f * h + h4 + h * h4 \
+            + h4
+        saved = n * (8 * f + h4)
+        return (fwd, bwd, 4 * (w + n * e + 2 * n * h + saved),
+                4 * (2 * w + 2 * n * e + 3 * n * h + saved))
+    if kernel == "K4":
+        w = e * h4 + h * h4 + 2 * h4
+        fwd = 2 * n * (e + h) * h4
+        bwd = 2 * n * h4 * (2 * e + h) + 2 * b * (t - 1) * h4 * h
+    else:
+        w = (e + h) * h4
+        fwd = 2 * n * (e + h) * h4
+        bwd = (2 * n * (e + h) * h4 + 2 * n * h4 * e
+               + 2 * b * (t - 1) * h4 * h)
+    return (fwd, bwd, 4 * (w + n * e + 2 * n * h + n * h4),
+            4 * (2 * w + 2 * n * e + 3 * n * h + n * h4))
+
+
+def wide_scan_case(kernel: str, b: int, h: int, device):
+    """(forward, backward, plain forward, plain backward, library forward
+    or None, library backward or None, plain versions' arguments) of one
+    phase 24 (a) shape, its inputs seeded from (B, H)."""
+    import torch
+
+    from icee_tpu_torch.ops import lstm_scan, nic_scan
+    from icee_tpu_torch.ops import senticap_scan as ss
+
+    seed = 240 + b + h
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def uni(shape, fan, scale=1.0):
+        return scale * (2 * torch.rand(shape, generator=g, device=device)
+                        - 1) / math.sqrt(fan)
+
+    def nrm(shape, scale):
+        return scale * torch.randn(shape, generator=g, device=device)
+
+    if kernel == "K3":
+        e, f, t = E, h, T_STEPS
+        p = {"V_w": uni((e, 4 * f), e), "V_b": nrm((4, f), 0.1),
+             "S_w": uni((4, f, f), f), "S_b": nrm((4, f), 0.1),
+             "U_w": uni((4, f, h), f), "U_b": nrm((4, h), 0.1),
+             "W_w": uni((h, 4 * h), h, 1.5), "W_b": nrm((4, h), 0.1)}
+        x, dh = nrm((b, t, e), 0.5), nrm((b, t, h), 0.02)
+
+        def fwd():
+            return lstm_scan.factored_scan_fwd(p, x)
+
+        def bwd(hs, cs, saved):
+            return lstm_scan.factored_scan_bwd(p, x, hs, cs, dh, saved)
+
+        return (lstm_scan, fwd, bwd,
+                lambda: lstm_scan.fused_factored_scan_plain(p, x),
+                lambda hs, cs: lstm_scan.factored_scan_bwd_plain(
+                    p, x, hs, cs, dh), None, None, (e, t))
+    if kernel == "K4":
+        e, t = E, T_STEPS
+        cell = {"W_ih": uni((e, 4 * h), e), "W_hh": uni((h, 4 * h), h, 1.5),
+                "b_ih": nrm((4 * h,), 0.1), "b_hh": nrm((4 * h,), 0.1)}
+        x, dh = nrm((b, t, e), 0.5), nrm((b, t, h), 0.02)
+        lstm = torch.nn.LSTM(e, h, batch_first=True).to(device)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(cell["W_ih"].T)
+            lstm.weight_hh_l0.copy_(cell["W_hh"].T)
+            lstm.bias_ih_l0.copy_(cell["b_ih"])
+            lstm.bias_hh_l0.copy_(cell["b_hh"])
+        xl = x.detach().clone().requires_grad_(True)
+        lib_h, _ = lstm(xl)
+        lib_inputs = [xl, *lstm.parameters()]
+
+        def lib_fwd():
+            with torch.no_grad():
+                return lstm(x)[0]
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_h, lib_inputs, dh,
+                                       retain_graph=True)
+
+        def fwd():
+            return nic_scan.nic_scan_fwd(cell, x)
+
+        def bwd(hs, cs, gates):
+            return nic_scan.nic_scan_bwd(cell, x, hs, cs, dh, gates)
+
+        return (nic_scan, fwd, bwd,
+                lambda: nic_scan.fused_nic_scan_plain(cell, x),
+                lambda hs, cs: nic_scan.nic_scan_bwd_plain(cell, x, hs, cs,
+                                                           dh),
+                lib_fwd, lib_bwd, (e, t))
+    e, t, gclip = SC_E, SC_T, 5.0
+    w = uni((e + h, 4 * h), e + h, 1.2)
+    x, dh = nrm((b, t, e), 1.0), nrm((b, t, h), 1.0)
+
+    def fwd():
+        return ss.senticap_scan_fwd(w, x)
+
+    def bwd(hs, cs, gates):
+        return ss.senticap_scan_bwd(w, x, hs, cs, dh, gclip, gates)
+
+    return (ss, fwd, bwd, lambda: ss.fused_senticap_scan_plain(w, x),
+            lambda hs, cs: ss.senticap_scan_bwd_plain(w, x, hs, cs, dh,
+                                                      gclip),
+            None, None, (e, t))
+
+
+def wide_grads(got):
+    """A backward's (dx, grads) as {name: tensor} (K8's grads are dW)."""
+    dx, grads = got
+    out = {"x": dx}
+    out.update(grads.items() if isinstance(grads, dict) else [("W", grads)])
+    return out
+
+
+def check_wide_scan(kernel: str, b: int, h: int, device) -> dict:
+    """Phase 24 (a), one shape: the scan's forward and backward on the card
+    against its plain versions, held as phase 7 holds them (h and c atol
+    1e-4; dx and each weight grad <= 1e-3 x its largest magnitude; the
+    same bits twice), its plan's kinds, exactly one recurrence launch a
+    direction (the library's count and the wrappers'), device ms by launch
+    group, times beside the bound and, for K4, cuDNN's ``nn.LSTM`` (h atol
+    1e-4) as the library call."""
+    import torch
+
+    from icee_tpu_torch.ops import scan_grid
+
+    mod, fwd, bwd, plain_f, plain_b, lib_f, lib_b, (e, t) = wide_scan_case(
+        kernel, b, h, device)
+    plan = scan_grid.plan_on(kernel, b, h, device)
+    what = f"phase 24 (a) {kernel} B {b} H {h}"
+    lib = mod._library()
+    wrappers = [getattr(mod, n) for n in WIDE_WRAPPERS[kernel]]
+    counts = [w.launches for w in wrappers]
+    torch.cuda.synchronize()
+    before = lib.icee_scan_recurrence_launches()
+    h_seq, c_seq, saved = fwd()
+    torch.cuda.synchronize()
+    mid = lib.icee_scan_recurrence_launches()
+    got = wide_grads(bwd(h_seq, c_seq, saved))
+    torch.cuda.synchronize()
+    after = lib.icee_scan_recurrence_launches()
+    if (mid - before, after - mid) != (1, 1):
+        fail(f"{what}: recurrence launches {mid - before} forward, "
+             f"{after - mid} backward, expected one each")
+    if [w.launches - n for w, n in zip(wrappers, counts)] != [1, 1]:
+        fail(f"{what}: the wrappers counted "
+             f"{[w.launches - n for w, n in zip(wrappers, counts)]}")
+    h2, c2, saved2 = fwd()
+    again = wide_grads(bwd(h_seq, c_seq, saved))
+    want_h, want_c = plain_f()
+    want = wide_grads(plain_b(h_seq, c_seq))
+    torch.cuda.synchronize()
+    fwd_err = max((h_seq - want_h).abs().max().item(),
+                  (c_seq - want_c).abs().max().item())
+    if not fwd_err <= 1e-4:
+        fail(f"{what} forward: max abs error {fwd_err} > 1e-4")
+    rel = {k: max_rel_err(got[k], want[k]) for k in want}
+    for name, err in rel.items():
+        if not err <= 1e-3:
+            fail(f"{what} backward: d{name} error {err} x max|g| > 1e-3")
+    if not (torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
+            and all(torch.equal(got[k], again[k]) for k in got)):
+        fail(f"{what}: two runs on the same inputs differ")
+    abs_b = max((got[k] - want[k]).abs().max().item() for k in want)
+    del h2, c2, saved2, again, want_h, want_c, want
+    out = {"B": b, "H": h, "E": e, "T": t,
+           "plan": {"forward": KIND_NAMES[plan.f_kind],
+                    "backward": KIND_NAMES[plan.b_kind],
+                    "f_units": plan.f_units, "f_blocks": plan.f_blocks,
+                    "f_stages": plan.f_stages, "b_units": plan.b_units,
+                    "b_kc": plan.b_kc, "b_splits": plan.b_splits,
+                    "b_blocks": plan.b_blocks, "b_stages": plan.b_stages},
+           "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": abs_b,
+           "bwd_max_rel_err": max(rel.values())}
+    if lib_f is not None:
+        lib_err = (lib_f() - h_seq).abs().max().item()
+        if not lib_err <= 1e-4:
+            fail(f"{what} vs cuDNN nn.LSTM: h max abs error {lib_err} > "
+                 "1e-4")
+        out["library_max_abs_err"] = lib_err
+    out["device_ms_by_group_fwd"] = scan_device_groups(
+        f"{what} forward", fwd, mod)
+    out["device_ms_by_group_bwd"] = scan_device_groups(
+        f"{what} backward", lambda: bwd(h_seq, c_seq, saved), mod)
+    out["fwd_ms"] = cuda_ms(fwd, 5)
+    out["bwd_ms"] = cuda_ms(lambda: bwd(h_seq, c_seq, saved), 5)
+    out["plain_fwd_ms"] = cuda_ms(plain_f, 2)
+    out["plain_bwd_ms"] = cuda_ms(lambda: plain_b(h_seq, c_seq), 2)
+    out["library_fwd_ms"] = None if lib_f is None else cuda_ms(lib_f, 5)
+    out["library_bwd_ms"] = None if lib_b is None else cuda_ms(lib_b, 5)
+    flops_f, flops_b, bytes_f, bytes_b = wide_scan_flops_bytes(kernel, b, t,
+                                                               e, h)
+    out["bound_fwd_ms"], out["bound_fwd_by"] = bound_ms(flops_f, bytes_f)
+    out["bound_bwd_ms"], out["bound_bwd_by"] = bound_ms(flops_b, bytes_b)
+    log(f"{what}: plan {out['plan']}; h/c err {fwd_err:.3g}, grads err / "
+        f"max|g| {max(rel.values()):.3g}; ms fwd {out['fwd_ms']:.3f} (plain "
+        f"{out['plain_fwd_ms']:.3f}, bound {out['bound_fwd_ms']:.3f}), bwd "
+        f"{out['bwd_ms']:.3f} (plain {out['plain_bwd_ms']:.3f}, bound "
+        f"{out['bound_bwd_ms']:.3f})"
+        + ("" if lib_f is None else
+           f"; cuDNN fwd {out['library_fwd_ms']:.3f}, bwd "
+           f"{out['library_bwd_ms']:.3f}, h err "
+           f"{out['library_max_abs_err']:.3g}"))
+    return out
+
+
+def check_wide_scans(device) -> dict:
+    """Phase 24 (a): every WIDE_SCANS shape -> {"K3 B64 H1024": stats}."""
+    import torch
+
+    out = {}
+    for kernel, b, h in WIDE_SCANS:
+        out[f"{kernel} B{b} H{h}"] = check_wide_scan(kernel, b, h, device)
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def widths(**kw):
+    """This module's width constants (H, F, SC_H ...) set to ``kw`` for the
+    block's duration: phase 24 runs phase 10's, 13's and 14's checks, which
+    read them, at H = 1024."""
+    old = {k: globals()[k] for k in kw}
+    globals().update(kw)
+    try:
+        yield
+    finally:
+        globals().update(old)
+
+
+def wide_k5(device) -> dict:
+    """Phase 24 (b): K5, factored, sampled at ratio 0.8, at H = F = 1024
+    (B = 128, T = 25), both directions against its plain versions as phase
+    10 holds them (``check_k5``)."""
+    with widths(H=WIDE_H, F=WIDE_H):
+        fwd, bwd = check_k5("factored", True, device)
+    keep = ("max_abs_err", "max_rel_err", "trace_flips", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "device_ms_by_group")
+    return {"H": WIDE_H, "F": WIDE_H, "B": B_ATT, "T": T_STEPS,
+            "fwd": {k: fwd[k] for k in keep if k in fwd},
+            "bwd": {k: bwd[k] for k in keep if k in bwd}}
+
+
+def wide_cli(device, keep: str) -> tuple:
+    """Phase 24 (c): the train CLI at --hidden_size 1024 over phase 19's
+    corpus and feature cache (``keep``), one epoch a family at ratio 1.0
+    (every step teacher-forced: K3 or K4 a step), StyleNet (F = 1024) then
+    NIC, their K3 / K4, CE and K2 counts exact and no plain version; then
+    ``evaluate --feed_feature`` on the StyleNet checkpoint: its BLEU that
+    of this process's ``evaluate()`` (K2), each printed line the plain
+    search's of its image or a near tie (phase 19's rule).  -> (launches,
+    stats)."""
+    from icee_tpu_torch.checkpoint.ckpt import load_params
+    from icee_tpu_torch.cli.evaluate import evaluate
+    from icee_tpu_torch.core.config import DecoderConfig, mode_id
+    from icee_tpu_torch.data.captions import load_caption_dataset
+    from icee_tpu_torch.data.vocab import load_vocab
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    import numpy as np
+
+    m = "icee_tpu_torch.cli."
+    launches, stats = {}, {}
+    logs = os.path.join(keep, "wide_logs")
+    os.makedirs(logs, exist_ok=True)
+    files = {n: os.path.join(keep, f"{n}.txt")
+             for n in ("train", "val", "happy", "val_happy")}
+    vocab_path = os.path.join(keep, "vocab.pkl")
+    cache = os.path.join(keep, "features.npz")
+    t_cap = STEPS + 2
+    n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
+    n_emo = -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION)
+    steps = n_fac + n_emo
+    ce = sum(n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
+             for n, b in ((n_fac, CLI_BATCH), (n_emo, B_EMOTION)))
+    for family, scan, beam, extra in (
+            ("stylenet", "fused_factored_scan", "mega_beam_decode",
+             ["--factored_size", WIDE_H]),
+            ("nic", "fused_nic_scan", "mega_beam_decode_lstm", [])):
+        name = f"train_{family}_h{WIDE_H}"
+        st, counts, _ = cli_stage(name, m + "train", [
+            "--trainer", "multitask", "--family", family, "--mode", "happy",
+            "--hidden_size", WIDE_H, *extra, "--vocab_path", vocab_path,
+            "--caption_path", files["train"], "--val_caption_path",
+            files["val"], "--happy_path", files["happy"],
+            "--val_happy_path", files["val_happy"], "--feature_cache", cache,
+            "--num_epochs", 1, "--caption_batch_size", CLI_BATCH,
+            "--language_batch_size", B_EMOTION, "--model_path",
+            os.path.join(keep, f"models_{name}"), "--log_path",
+            os.path.join(logs, f"{name}.txt"), "--metrics_path",
+            os.path.join(logs, f"{name}.jsonl"), "--data_name", name,
+            "--log_step", 10 ** 9, "--log_step_emotion", 10 ** 9], logs,
+            {f"{scan}_fwd": steps, f"{scan}_bwd": steps, "ce_rows": ce,
+             "ce_grad_rows": ce, beam: 2}, ratio=1.0, phase=24)
+        with open(os.path.join(logs, f"{name}.jsonl")) as f:
+            losses = [e["train_loss"] for e in map(json.loads, f)
+                      if e["event"] == "epoch_factual"]
+        if len(losses) != 1 or not np.isfinite(losses[0]):
+            fail(f"phase 24 (c) {name}: factual losses {losses}")
+        stats[name] = dict(st, steps=steps, train_loss=losses,
+                           captions_per_s=(CLI_IMAGES + CLI_EMO_IMAGES)
+                           * TR_CAPS / st["wall_s"])
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    # evaluate on the StyleNet checkpoint, serving semantics
+    name = f"train_stylenet_h{WIDE_H}"
+    models = os.path.join(keep, f"models_{name}")
+    best = os.path.join(models, f"HAP_BEST_checkpoint_{name}")
+    if not os.path.isdir(best):
+        best = os.path.join(models, f"HAP_checkpoint_{name}")
+    vocab = load_vocab(vocab_path)
+    dataset = load_caption_dataset(files["val"], vocab)
+    n_val = len(dataset)
+    st, counts, out = cli_stage(
+        f"evaluate_h{WIDE_H}", m + "evaluate", [
+            "--vocab_path", vocab_path, "--feature_cache", cache,
+            "--batch_size", CLI_BATCH, "--checkpoint_path", best,
+            "--test_path", files["val"], "--mode", "happy",
+            "--feed_feature"], logs,
+        {"mega_beam_decode": -(-n_val // CLI_BATCH)}, phase=24)
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    w = load_params(best, device)
+    cfg = DecoderConfig(vocab_size=V, embed_size=E, hidden_size=WIDE_H,
+                        factored_size=WIDE_H, max_seq_length=STEPS)
+    with np.load(cache) as f:
+        feats = dict(f)
+    got = bleu_lines(out)
+    want = evaluate(w["decoder"], w["head"], cfg, vocab, dataset,
+                    feats.__getitem__, mode_id("happy"),
+                    batch_size=CLI_BATCH, k=K, print_pairs=False,
+                    feed_feature=True, device=device)
+    if got != list(want):
+        fail(f"phase 24 (c) evaluate: BLEU {got} != the in-process "
+             f"evaluate()'s {list(want)}")
+    names = sorted({ex.image for ex in dataset})
+    style = mode_id("happy")
+    tiled, kern, plain, rescored = cli_searches(
+        w["decoder"], w["head"], feats, names, style, vocab, device)
+    _, _, search_flips = margin_check("phase 24 (c) K2 at H 1024", kern,
+                                      plain, rescored)
+    flips = check_eval_lines("phase 24 (c) evaluate", out, dataset,
+                             {n: i for i, n in enumerate(names)}, tiled,
+                             plain, w["decoder"], style, vocab)
+    stats[f"evaluate_h{WIDE_H}"] = dict(
+        st, bleu=got, near_tie_flips=flips, search_near_tie_flips=search_flips,
+        captions_per_s=n_val / st["wall_s"])
+    return launches, stats
+
+
+def wide_senticap(device) -> tuple:
+    """Phase 24 (d): SentiCap at H = 1024 (phase 13's COCO regime
+    otherwise): one base step, kernel path against plain (phase 13 (i)),
+    K8 launched once a direction; then ``decode_split`` of
+    WIDE_SC_IMAGES images at beam 20 through K9 (one launch), its
+    captions those of this process's K9 search of the same features, which
+    holds margin-aware against the plain search (phase 14's rule).  ->
+    (launches, stats)."""
+    import torch
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_scan as ss
+    from icee_tpu_torch.senticap import io as sio
+    from icee_tpu_torch.senticap import model
+    from icee_tpu_torch.senticap.solver import make_solver
+    from icee_tpu_torch.senticap.train import decode_split, make_base_step
+
+    counters = {"fused_senticap_scan_fwd": ss.senticap_scan_fwd,
+                "fused_senticap_scan_bwd": ss.senticap_scan_bwd,
+                "ce_rows": cl.ce_rows, "ce_grad_rows": cl.ce_grad_rows,
+                "mega_senticap_beam_decode": sd.mega_senticap_beam_decode}
+    stats = {"H": WIDE_H}
+    with widths(SC_H=WIDE_H):
+        conf = senticap_conf_full()
+        plain_conf = senticap_conf_full(FUSED_SCAN=False, CHUNKED_CE=False)
+        solver = make_solver(conf)
+        kernel = make_base_step(conf, solver, device=device)
+        plain = make_base_step(plain_conf, solver, device=device)
+        data = sio.device_dataset(senticap_split(SC_B, 80), device)
+        batch = torch.arange(SC_B, device=device)
+        params = model.init_params(torch.Generator().manual_seed(81), SC_V,
+                                   conf, device=device)
+        for fn in counters.values():
+            fn.launches = 0
+        loss_err, grad_errs = senticap_first_step(
+            device, kernel, plain, data, batch, params, "phase 24 (d)")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if (launches["fused_senticap_scan_fwd"],
+                launches["fused_senticap_scan_bwd"]) != (1, 1):
+            fail(f"phase 24 (d): the base steps launched {launches}")
+        opt_state = solver.init(params)
+        gen = torch.Generator(device=device).manual_seed(83)
+        stats["step_ms"] = step_ms(lambda: kernel(params, opt_state, data,
+                                                  batch, gen), 10)
+        stats["plain_step_ms"] = step_ms(lambda: plain(
+            params, opt_state, data, batch, gen), 3)
+        stats["first_step_kernel_vs_plain"] = {"loss_rel_err": loss_err,
+                                               "grad_rel_errs": grad_errs}
+        # decode_split through K9
+        dec = senticap_decoder(device)
+        ds = senticap_split(WIDE_SC_IMAGES, 85)
+        i2w = {i: f"w{i}" for i in range(SC_V)}
+        sd.mega_senticap_beam_decode.launches = 0
+        t0 = time.perf_counter()
+        out = decode_split(dec, conf, ds, i2w, switched=False,
+                           torch_device=device)
+        torch.cuda.synchronize()
+        stats["decode_split_ms"] = (time.perf_counter() - t0) * 1e3
+        n = sd.mega_senticap_beam_decode.launches
+        launches["mega_senticap_beam_decode"] += n
+        if n != 1:
+            fail(f"phase 24 (d): decode_split launched K9 {n} times")
+        v = torch.as_tensor(ds.V, device=device)
+        kw = dict(beam_size=SC_BEAM, max_len=SC_MAXLEN)
+        with torch.inference_mode():
+            got = sd.mega_senticap_beam_decode(dec, v, WIDE_SC_IMAGES, **kw)
+            want = sd.mega_senticap_beam_decode_plain(dec, v,
+                                                      WIDE_SC_IMAGES, **kw)
+            rescored = senticap_rescore(dec, v, got[1], got[2])
+        for i, o in enumerate(out):
+            ids = got[1][i, :int(got[2][i])].tolist()
+            if o["caption"] != [i2w[w] for w in ids[:-1]]:
+                fail(f"phase 24 (d): decode_split's caption of image {i} "
+                     f"{o['caption']} is not this process's K9 search's")
+        err, own, flips = k9_margin_check("phase 24 (d) K9", got, want,
+                                          rescored)
+        stats.update(decode_images=WIDE_SC_IMAGES, beam=SC_BEAM,
+                     k9_score_err=err, k9_rescore_err=own,
+                     k9_near_tie_flips=flips,
+                     k9_ms=cuda_ms(lambda: sd.mega_senticap_beam_decode(
+                         dec, v, WIDE_SC_IMAGES, **kw), 3),
+                     k9_plain_ms=cuda_ms(
+                         lambda: sd.mega_senticap_beam_decode_plain(
+                             dec, v, WIDE_SC_IMAGES, **kw), 1))
+    log(f"phase 24 (d): SentiCap at H {WIDE_H}: step {stats['step_ms']:.3f}"
+        f" ms (plain {stats['plain_step_ms']:.3f}); decode_split of "
+        f"{WIDE_SC_IMAGES} images {stats['decode_split_ms']:.2f} ms, K9 "
+        f"{stats['k9_ms']:.3f} ms (plain {stats['k9_plain_ms']:.3f}), "
+        f"{flips} near-tie flips; launches {launches}")
+    return launches, stats
+
+
+def wide_scan_entries(scans: dict, launches: dict) -> list:
+    """The kernels line's entries of phase 24: K3, K4 and K8 forward and
+    backward past the resident plan, at the headline shape (B 64, H 1024;
+    K8 B 128), every (a) shape's figures under ``shapes``, the launches
+    those of (c) (K3, K4) and (d) (K8)."""
+    rows = (("K3", "fused_factored_scan", "lstm_scan.cu", "pallas_lstm.py",
+             (":224", ":298"), "B64 H1024", None),
+            ("K4", "fused_nic_scan", "nic_scan.cu", "pallas_nic_train.py",
+             (":173", ":227"), "B64 H1024",
+             "torch.nn.LSTM(E, H, batch_first=True) (cuDNN), TF32 off"),
+            ("K8", "fused_senticap_scan", "senticap_scan.cu",
+             "pallas_senticap_train.py", (":173", ":224"), "B128 H1024",
+             None))
+    out = []
+    for kernel, name, src, tpu, lines, head, lib in rows:
+        for d, line in zip(("fwd", "bwd"), lines):
+            shapes = {k.split(" ", 1)[1]: {
+                "plan": f["plan"], "ms": f[f"{d}_ms"],
+                "plain_ms": f[f"plain_{d}_ms"],
+                "bound_ms": f[f"bound_{d}_ms"],
+                "bound_by": f[f"bound_{d}_by"],
+                "library_ms": f[f"library_{d}_ms"],
+                "max_abs_err": f[f"{d}_max_abs_err"],
+                "device_ms_by_group": f[f"device_ms_by_group_{d}"]}
+                for k, f in scans.items() if k.startswith(kernel + " ")}
+            top = shapes[head]
+            out.append({
+                "name": f"{name}_{d}_wide_h", "route": "cuda",
+                "source": f"icee_tpu_torch/csrc/{src} + "
+                          "icee_tpu_torch/csrc/scan_grid.cuh (streamed "
+                          "plans)",
+                "replaces": f"icee_tpu/ops/{tpu}{line} (H >= 736, large B)",
+                "launches": launches.get(f"{name}_{d}", 0),
+                "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"], "headline": head,
+                "library_note": lib or "no single PyTorch call computes "
+                                       "this cell", "shapes": shapes})
+    return out
+
+
+def wide_h_phase(device, keep: str) -> tuple:
+    """Phase 24, (a)-(d) -> (the kernels line's entries, stats)."""
+    import torch
+
+    t0 = time.perf_counter()
+    scans = check_wide_scans(device)
+    log("phase 24 (a): K3, K4, K8 past the resident plan ok: " + "; ".join(
+        f"{k} {f['plan']['forward']}/{f['plan']['backward']} fwd "
+        f"{f['fwd_ms']:.3f} (plain {f['plain_fwd_ms']:.3f}, bound "
+        f"{f['bound_fwd_ms']:.3f}) bwd {f['bwd_ms']:.3f} (plain "
+        f"{f['plain_bwd_ms']:.3f}, bound {f['bound_bwd_ms']:.3f})"
+        for k, f in scans.items()))
+    k5 = wide_k5(device)
+    torch.cuda.empty_cache()
+    log(f"phase 24 (b): K5 factored sampled at H = F = {WIDE_H} ok: fwd "
+        f"{k5['fwd']['ms']:.3f} ms (plain {k5['fwd']['plain_ms']:.3f}), bwd "
+        f"{k5['bwd']['ms']:.3f} ms (plain {k5['bwd']['plain_ms']:.3f})")
+    launches, cli = wide_cli(device, keep)
+    sc_launches, senticap = wide_senticap(device)
+    for k, n in sc_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    entries = wide_scan_entries(scans, launches)
+    stats = {"scans": scans, "k5": k5, "cli": cli, "senticap": senticap,
+             "launches": launches, "phase_s": time.perf_counter() - t0}
+    log(f"phase 24: hidden widths past the resident plan ok in "
+        f"{stats['phase_s']:.1f} s; launches {launches}")
+    return entries, stats
+
+
 def main() -> int:
     import shutil
 
@@ -8446,6 +9034,8 @@ def main() -> int:
         t23 = time.perf_counter()
         par_launches, par = parallel_phase(device, keep,
                                            train["factual_step_ms"])
+        t24 = time.perf_counter()
+        wide_h, train["wide_h"] = wide_h_phase(device, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     # every rank's launches: K3, the CE, K2 and K7 (phase 19's stages over
@@ -8462,8 +9052,20 @@ def main() -> int:
                     and "against_one_process" in par[n])
         + f"; SentiCap DP 2 step {par['senticap_dp2_step']}; factual step "
         f"ms a rank {par['factual_step_ms']}; launches {par_launches}")
-    log(f"phases 21-23 done; the whole run {time.perf_counter() - t_run:.1f}"
-        " s (the kernels' build included)")
+    # phase 24's CE row passes (its CLI epochs and SentiCap step) and K2
+    # (the CLI's validations and evaluate); its K3, K4, K8 counts are the
+    # wide entries'
+    for entry in (cef, ceb):
+        entry["launches"] += train["wide_h"]["launches"].get(entry["name"],
+                                                             0)
+    k2["launches"] += train["wide_h"]["launches"].get("mega_beam_decode", 0)
+    k2_lstm["launches"] += train["wide_h"]["launches"].get(
+        "mega_beam_decode_lstm", 0)
+    k9["launches"] += train["wide_h"]["launches"].get(
+        "mega_senticap_beam_decode", 0)
+    log(f"phase 24 done in {time.perf_counter() - t24:.1f} s; phases 21-24"
+        f" done; the whole run {time.perf_counter() - t_run:.1f} s (the "
+        "kernels' build included)")
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))
@@ -8475,7 +9077,7 @@ def main() -> int:
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
                                   ceb, *k5, k8f, k8b, k9, mxf, mxb, k10,
-                                  *wide.values()]}))
+                                  *wide.values(), *wide_h]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,10 @@ from icee_tpu_torch.core.config import (AttentionDecoderConfig,
 
 def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--embed_size", type=int, default=300)
-    p.add_argument("--hidden_size", type=int, default=512)
+    p.add_argument("--hidden_size", type=int, default=512,
+                   help="the decoder's width; on the card the training "
+                        "scans (K3, K4) take up to 2048, with batch sizes "
+                        "up to 2048")
     p.add_argument("--factored_size", type=int, default=512)
     p.add_argument("--attention_size", type=int, default=512)
     p.add_argument("--num_layers", type=int, default=1)

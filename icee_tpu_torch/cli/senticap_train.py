@@ -36,7 +36,12 @@ torch.distributed.run``; ``senticap/train.py``'s data-parallel steps): the
 minibatch must divide by the ranks, every rank starts from rank 0's
 weights and rank 0 alone writes the pickle; ``test`` decodes on one card
 (as the JAX CLI's), and a world of one process trains single-device with
-a WARNING.  Fresh weights come from :func:`init_base` and
+a WARNING.  Where K8 runs, its launch plan must take the minibatch (a
+rank's share under ``--data_parallel``) at the hidden size: on the card
+the scans take B and H up to 2048 (a wider ``--hidden_size`` is refused
+with the plan's own message, for ``base`` before any data loads, for
+``train`` once the base model's sizes are read).  Fresh weights come from
+:func:`init_base` and
 :func:`init_switched`, drawn from ``torch.Generator``s seeded ``--seed``
 (the JAX CLI draws from ``jax.random.PRNGKey(seed)``, whose numbers torch
 cannot reproduce).
@@ -75,6 +80,20 @@ def init_switched(vocab_size: int, conf: dict, base: dict, seed: int,
                                 vocab_size, conf, base=base, device=device)
 
 
+def check_scan_plan(hidden_size: int, batch_size: int, fused_scan,
+                    device, mesh=None) -> None:
+    """Where the training scan runs on the card (K8), its launch plan must
+    take the minibatch (a rank's share on a mesh) at this hidden size:
+    otherwise raise the plan's own ValueError now, not at the first
+    step."""
+    if device.type != "cuda" or fused_scan is False:
+        return
+    from icee_tpu_torch.ops import scan_grid, senticap_scan
+
+    batch = batch_size // (mesh.n_data if mesh is not None else 1)
+    scan_grid.plan_on(senticap_scan.WHAT, batch, hidden_size, device)
+
+
 def main(args) -> None:
     from icee_tpu_torch.cli.common import (data_parallel_mesh, device_of,
                                            end_parallel)
@@ -93,14 +112,16 @@ def main(args) -> None:
                                  "divide by the data-axis size "
                                  f"{mesh.n_data}")
     writer = mesh is None or mesh.is_writer
+    chunked_ce = {"auto": None, "on": True, "off": False}[args.chunked_ce]
+    fused_scan = {"auto": None, "on": True, "off": False}[args.fused_scan]
+    if args.command == "base":
+        check_scan_plan(args.hidden_size, args.batch_size, fused_scan,
+                        device, mesh)
     records = sio.load_captions_json(args.captions)
     default_senti = 1.0 if args.sentiment == "pos" else -1.0
     for r in records:
         r.setdefault("sentiment", default_senti)
     features = sio.load_features(args.features) if args.features else None
-
-    chunked_ce = {"auto": None, "on": True, "off": False}[args.chunked_ce]
-    fused_scan = {"auto": None, "on": True, "off": False}[args.fused_scan]
 
     if args.command == "base":
         conf = senticap_conf(
@@ -131,6 +152,8 @@ def main(args) -> None:
 
         base_params, conf, _, base_w2i = sio.load_model(args.base_model,
                                                         device)
+        check_scan_plan(conf["lstm_hidden_size"], args.batch_size,
+                        fused_scan, device, mesh)
         conf = dict(conf)
         conf["batch_size_val"] = args.batch_size
         conf["learning_rate"] = args.lr
@@ -233,7 +256,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default=None,
                    help="write eval/output_pos|des + metrics JSON here")
     p.add_argument("--emb_size", type=int, default=512)
-    p.add_argument("--hidden_size", type=int, default=512)
+    p.add_argument("--hidden_size", type=int, default=512,
+                   help="the LSTM's width; on the card K8 takes up to 2048 "
+                        "(with --batch_size up to 2048)")
     p.add_argument("--visual_size", type=int, default=4096)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--max_len", type=int, default=20)

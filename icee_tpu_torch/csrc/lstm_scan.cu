@@ -30,7 +30,9 @@
 //     rate at these shapes (measured slower: PERF.md's K3 findings);
 //   the recurrence is ONE cooperative launch a direction (scan_grid.cuh)
 //     with each block's slice of W_w resident in shared memory as TF32
-//     planes, one grid barrier a forward step and two a backward step,
+//     planes (past that plan's reach, H from ~736 or large B, streamed a
+//     pass from device memory), one grid barrier a forward step and two a
+//     backward step,
 //     its step products 3xTF32 wgmma with the gates after them
 //     (cell_gates.cuh's FactoredGates); what bounds a step is in
 //     scan_grid.cuh's note;
@@ -52,23 +54,26 @@ namespace {
 
 inline long long r16(long long floats) { return (floats + 15) / 16 * 16; }
 
-// The forward's workspace: the planes of V_w, S (4), U (4), then the
-// barrier's counter.
+// The forward's workspace: the planes of V_w, S (4), U (4), the
+// recurrence's (scan_grid.cuh's sg_fwd_ws_floats), then the barrier's
+// counter.
 struct FwdSpace {
-  long long pv, ps, pu, count, total;
-  FwdSpace(int E, int F, int H) {
+  long long pv, ps, pu, grid, count, total;
+  FwdSpace(const ScanPlan& p, int E, int F, int H) {
     pv = 0;
     ps = pv + r16(sp_planes_floats(E, 4 * F));
     pu = ps + r16(4 * sp_planes_floats(F, F));
-    count = pu + r16(4 * sp_planes_floats(F, H));
+    grid = pu + r16(4 * sp_planes_floats(F, H));
+    count = grid + r16(sg_fwd_ws_floats(p));
     total = count + 16;
   }
 };
 
 // The backward's: the planes of U_g^T (4), S_g^T (4), V_w^T, the
-// recurrence's partial sums, the 'A' products' partials, the counter.
+// recurrence's partial sums and its sg_bwd_ws_floats, the 'A' products'
+// partials, the counter.
 struct BwdSpace {
-  long long put, pst, pvt, part, tc, count, total;
+  long long put, pst, pvt, part, grid, tc, count, total;
   BwdSpace(const ScanPlan& p, int B, int T, int E, int F, int H) {
     const int N = B * T;
     long long tcf = tf32x3_part_floats(H, 4 * H, N, 1);
@@ -82,7 +87,8 @@ struct BwdSpace {
     pst = put + r16(4 * sp_planes_floats(H, F));
     pvt = pst + r16(4 * sp_planes_floats(F, F));
     part = pvt + r16(sp_planes_floats(4 * F, E));
-    tc = part + r16((long long)p.b_splits * B * H);
+    grid = part + r16((long long)p.b_splits * B * H);
+    tc = grid + r16(sg_bwd_ws_floats(p));
     count = tc + r16(tcf);
     total = count + 16;
   }
@@ -102,7 +108,7 @@ unsigned long long icee_scan_recurrence_launches() { return sg_launches(); }
 // Floats of the forward's and the backward's workspaces -> out[0], out[1].
 int icee_lstm_scan_workspace(const ScanPlan* plan, int B, int T, int E,
                              int F, int H, long long* out) {
-  out[0] = FwdSpace(E, F, H).total;
+  out[0] = FwdSpace(*plan, E, F, H).total;
   out[1] = BwdSpace(*plan, B, T, E, F, H).total;
   return 0;
 }
@@ -121,7 +127,7 @@ int icee_lstm_scan_fwd(const ScanPlan* plan, const float* x, const float* Vw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ScanPlan& p = *plan;
   ICEE_TRY((cudaError_t)sg_check_plan(p, B, H));
-  const FwdSpace w(E, F, H);
+  const FwdSpace w(p, E, F, H);
   if (ws_floats < w.total || !tc_aligned16(ws)) return cudaErrorInvalidValue;
   const int N = B * T, F4 = 4 * F, H4 = 4 * H;
   float *pv = ws + w.pv, *ps = ws + w.ps, *pu = ws + w.pu;
@@ -144,7 +150,7 @@ int icee_lstm_scan_fwd(const ScanPlan* plan, const float* x, const float* Vw,
                       4, 1, st));
   return (int)scan_fwd_grid<FactoredGates>(
       p, Ww, Wb, gates, h_seq, c_seq,
-      reinterpret_cast<unsigned*>(ws + w.count), B, T, H, st);
+      reinterpret_cast<unsigned*>(ws + w.count), ws + w.grid, B, T, H, st);
 }
 
 // From the forward's saved tensors and dh_seq (B, T, H): dx (N, E) and the
@@ -177,7 +183,8 @@ int icee_lstm_scan_bwd(const ScanPlan* plan, const float* x, const float* Vw,
   ICEE_TRY(sb_prepare_strided(Vw, F4, E, 1, F4, 0, 1, pvt, st));
   ICEE_TRY(scan_bwd_grid<FactoredGates>(
       p, Ww, gates, c_seq, dh_seq, dZ, ws + w.part,
-      reinterpret_cast<unsigned*>(ws + w.count), B, T, H, 0.f, st));
+      reinterpret_cast<unsigned*>(ws + w.count), ws + w.grid, B, T, H, 0.f,
+      st));
   // W branch: dW_w = h_prev^T dZ, dW_b = sum dZ; U branch: dU_b is the
   // same sum
   ICEE_TRY(tf32x3_gemm('A', h_prev, H, dZ, H4, dWw, H4, nullptr, H, H4, N, 1,

@@ -20,8 +20,9 @@
 //     from W_x's planes (planes_product.cuh), parked in the gates buffer;
 //     then ONE cooperative launch for the recurrence (scan_grid.cuh),
 //     z = P_t + h W_h and the gates (cell_gates.cuh SentiGates), each
-//     block's slice of W_h resident in shared memory as TF32 planes, its
-//     step products 3xTF32 wgmma;
+//     block's slice of W_h resident in shared memory as TF32 planes (past
+//     that plan's reach, H from ~736 or large B, streamed a pass from
+//     device memory), its step products 3xTF32 wgmma;
 //   backward: one cooperative launch for the (dh, dc) chain from the
 //     saved gates, writing dZ (N, 4H), the recurrent dh = dZ_{t+1} W_h^T
 //     summed over its k ranges in range order and THEN clamped; dW[:E] =
@@ -45,27 +46,31 @@ namespace {
 
 inline long long r16(long long floats) { return (floats + 15) / 16 * 16; }
 
-// The forward's workspace: W_x's planes, the barrier's counter.
+// The forward's workspace: W_x's planes, the recurrence's
+// (scan_grid.cuh's sg_fwd_ws_floats), the barrier's counter.
 struct FwdSpace {
-  long long pw, count, total;
-  FwdSpace(int E, int H) {
+  long long pw, grid, count, total;
+  FwdSpace(const ScanPlan& p, int E, int H) {
     pw = 0;
-    count = pw + r16(sp_planes_floats(E, 4 * H));
+    grid = pw + r16(sp_planes_floats(E, 4 * H));
+    count = grid + r16(sg_fwd_ws_floats(p));
     total = count + 16;
   }
 };
 
 // The backward's: W_x^T's planes, the recurrence's partial sums, the 'A'
-// products' partials, the counter.
+// products' partials, the counter; the recurrence's sg_bwd_ws_floats
+// after its partial sums.
 struct BwdSpace {
-  long long pwt, part, tc, count, total;
+  long long pwt, part, grid, tc, count, total;
   BwdSpace(const ScanPlan& p, int B, int T, int E, int H) {
     const int N = B * T;
     const long long a = tf32x3_part_floats(E, 4 * H, N, 1);
     const long long b = tf32x3_part_floats(H, 4 * H, N, 1);
     pwt = 0;
     part = pwt + r16(sp_planes_floats(4 * H, E));
-    tc = part + r16((long long)p.b_splits * B * H);
+    grid = part + r16((long long)p.b_splits * B * H);
+    tc = grid + r16(sg_bwd_ws_floats(p));
     count = tc + r16(a > b ? a : b);
     total = count + 16;
   }
@@ -85,7 +90,7 @@ unsigned long long icee_scan_recurrence_launches() { return sg_launches(); }
 // Floats of the forward's and the backward's workspaces -> out[0], out[1].
 int icee_senticap_scan_workspace(const ScanPlan* plan, int B, int T, int E,
                                  int H, long long* out) {
-  out[0] = FwdSpace(E, H).total;
+  out[0] = FwdSpace(*plan, E, H).total;
   out[1] = BwdSpace(*plan, B, T, E, H).total;
   return 0;
 }
@@ -100,7 +105,7 @@ int icee_senticap_scan_fwd(const ScanPlan* plan, const float* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ScanPlan& p = *plan;
   ICEE_TRY((cudaError_t)sg_check_plan(p, B, H));
-  const FwdSpace w(E, H);
+  const FwdSpace w(p, E, H);
   if (ws_floats < w.total || !tc_aligned16(ws)) return cudaErrorInvalidValue;
   const int N = B * T, H4 = 4 * H;
   float* pw = ws + w.pw;
@@ -110,7 +115,7 @@ int icee_senticap_scan_fwd(const ScanPlan* plan, const float* x,
                       gates, H4, 0, 0, N, H4, E, 1, 1, st));
   return (int)scan_fwd_grid<SentiGates>(
       p, W + (long long)E * H4, nullptr, gates, h_seq, c_seq,
-      reinterpret_cast<unsigned*>(ws + w.count), B, T, H, st);
+      reinterpret_cast<unsigned*>(ws + w.count), ws + w.grid, B, T, H, st);
 }
 
 // From the forward's saved gates and dh_seq (B, T, H): dx (N, E) and dW
@@ -134,7 +139,8 @@ int icee_senticap_scan_bwd(const ScanPlan* plan, const float* x,
   ICEE_TRY(sb_prepare_strided(W, H4, E, 1, H4, 0, 1, pwt, st));
   ICEE_TRY(scan_bwd_grid<SentiGates>(
       p, W + (long long)E * H4, gates, c_seq, dh_seq, dZ, ws + w.part,
-      reinterpret_cast<unsigned*>(ws + w.count), B, T, H, gclip, st));
+      reinterpret_cast<unsigned*>(ws + w.count), ws + w.grid, B, T, H,
+      gclip, st));
   // dW[:E] = x^T dZ, dW[E:] = h_prev^T dZ, dx = dZ W_x^T
   ICEE_TRY(tf32x3_gemm('A', x, E, dZ, H4, dW, H4, nullptr, E, H4, N, 1, 0, 0,
                        0, 0, tc, st));

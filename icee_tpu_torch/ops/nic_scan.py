@@ -9,9 +9,10 @@ planes, ``csrc/planes_product.cuh``; ``mma.sync`` for the weight grads,
 ``csrc/gemm_tf32x3.cuh``), db as a fixed-order column sum, and the
 recurrence as one cooperative launch a direction (``csrc/scan_grid.cuh``
 with the ``NicGates`` policy of ``csrc/cell_gates.cuh``) whose launch plan
-is ``ops/scan_grid.py::scan_plan``.  A shape with no plan (H above ~700:
-a block's slice of W_hh must fit its SM's shared memory) raises, naming
-K4.
+is ``ops/scan_grid.py::scan_plan``: W_hh's slices resident in shared
+memory up to H ~ 704, streamed from device memory past it, every B and H
+up to 2048.  A shape with no plan (H or B past 2048 where no resident
+partition fits) raises, naming K4.
 
 :func:`fused_nic_scan` is a ``torch.autograd.Function`` whose forward is
 :func:`nic_scan_fwd` and whose backward is :func:`nic_scan_bwd`; ``b_ih``

@@ -7,7 +7,11 @@ accuracy
 (``csrc/planes_product.cuh``'s 3xTF32 ``wgmma`` where one operand is a
 weight, ``csrc/gemm_tf32x3.cuh``'s ``mma.sync`` for the weight grads), and
 the recurrence as ONE cooperative launch (``csrc/scan_grid.cuh``) whose
-blocks keep their slice of W_h in shared memory for all T steps.  Here:
+blocks keep their slice of W_h in shared memory for all T steps (a plan
+of kind ``RESIDENT``), or, for a direction where no such partition fits
+(H past ~704, or a large B), stream W_h's TF32 planes from device memory
+through their ring a pass (kind ``STREAMED``, every B and H up to
+``STREAM_MAX``).  Here:
 
 - :func:`scan_plan`: the recurrence's launch plan, a pure function of
   (B, H) and the card's SM count, the source's ``sg_plan`` line for line
@@ -29,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -45,9 +49,12 @@ SG_LDA = SG_BK + 4    # A tile rows in shared memory (floats)
 SG_MAX_STAGES = 9     # the A ring: at most 8 tiles in flight
 SG_SMEM_LIMIT = 232448
 SG_TILE_BYTES = 4 * SG_ROWS * SG_LDA   # one ring stage
+SG_ITEM_TILES = 2     # a streamed item's fixed cost, in k tiles
 H100_SMS = 132
 FWD_UNITS = (4, 8, 16)
 BWD_UNITS = (16, 32, 64)
+RESIDENT, STREAMED = 0, 1   # a plan's kind, a direction
+STREAM_MAX = 2048           # B and H a streamed plan takes
 
 
 def _round_up(x: int, to: int) -> int:
@@ -84,6 +91,34 @@ def stages(nk: int, rest: int) -> int:
     return s if s >= 2 else 0
 
 
+def stream_stage_bytes(nc: int) -> int:
+    """One stage of a streamed ring: B's hi and lo tiles (nc rows of 128
+    bytes each), then the A tile."""
+    return 2 * nc * SG_BK * 4 + SG_TILE_BYTES
+
+
+def stream_rest(nc: int) -> int:
+    """Bytes of a streamed block besides its ring: 1024 to align the
+    ring, the out tile of a pass (64 x nc + 1)."""
+    return 1024 + 4 * SG_ROWS * (nc + 1)
+
+
+def stream_stages(nk: int, nc: int) -> int:
+    """Stages of a streamed ring for nk k tiles a pass (``stages``'
+    rule)."""
+    s = min(nk + 1, SG_MAX_STAGES,
+            (SG_SMEM_LIMIT - stream_rest(nc)) // stream_stage_bytes(nc))
+    return s if s >= 2 else 0
+
+
+def stream_item_bytes(nk: int, nc: int) -> int:
+    """What one item of a streamed pass costs, in bytes copied: its nk
+    tiles of A (64 x 32) and of B's planes (nc columns x 32, hi and lo),
+    and ``SG_ITEM_TILES`` tiles more for the ring's fill and the pass's
+    epilogue."""
+    return (nk + SG_ITEM_TILES) * (4 * SG_ROWS * SG_BK + 8 * nc * SG_BK)
+
+
 class _CPlan(ctypes.Structure):
     """ctypes mirror of ``csrc/scan_grid.cuh``'s ``ScanPlan``."""
     _fields_ = [("B", ctypes.c_int), ("H", ctypes.c_int),
@@ -92,47 +127,70 @@ class _CPlan(ctypes.Structure):
                 ("f_stages", ctypes.c_int), ("b_units", ctypes.c_int),
                 ("b_kc", ctypes.c_int), ("b_splits", ctypes.c_int),
                 ("b_blocks", ctypes.c_int), ("b_stages", ctypes.c_int),
-                ("b_per", ctypes.c_int), ("f_smem", ctypes.c_longlong),
+                ("b_per", ctypes.c_int), ("f_kind", ctypes.c_int),
+                ("b_kind", ctypes.c_int), ("f_smem", ctypes.c_longlong),
                 ("b_smem", ctypes.c_longlong)]
 
 
 @dataclass(frozen=True)
 class ScanPlan:
-    """The recurrence's partition for (B, H) on a card of ``sms`` SMs."""
+    """The recurrence's partition for (B, H) on a card of ``sms`` SMs.  A
+    streamed direction cuts its work into items of 64 rows (``f_rows``;
+    the backward's also by k range), dealt to its blocks round robin."""
     B: int
     H: int
     sms: int
     f_rows: int     # forward: batch rows a block (a multiple of 64)
     f_units: int    # forward: hidden units a block (4 f_units columns)
     f_blocks: int   # forward: ceil(B / f_rows) x ceil(H / f_units)
+    #                 (streamed: at most sms, the items dealt round robin)
     f_stages: int   # forward: A ring stages
     b_units: int    # backward: hidden units a block (dh columns)
     b_kc: int       # backward: depth of a block's range of 4H
     b_splits: int   # backward: k ranges, ceil(4H / b_kc)
-    b_blocks: int   # backward: ceil(H / b_units) x b_splits
+    b_blocks: int   # backward: ceil(H / b_units) x b_splits (streamed:
+    #                 at most sms, as the forward's)
     b_stages: int   # backward: A ring stages
     b_per: int      # backward: (b, j) elements a block's gate pass owns
+    f_kind: int     # forward: RESIDENT or STREAMED
+    b_kind: int     # backward: RESIDENT or STREAMED
     f_smem: int     # bytes of shared memory a forward block
     b_smem: int     # ... a backward block
 
     def c_struct(self) -> _CPlan:
         return _CPlan(*(getattr(self, f) for f, _ in _CPlan._fields_))
 
-    def fwd_block(self, q: int) -> Tuple[range, range]:
-        """(batch rows, hidden units) forward block ``q`` owns."""
+    def fwd_items(self, q: int) -> List[Tuple[range, range]]:
+        """The (batch rows, hidden units) forward block ``q`` owns each
+        step: items q, q + f_blocks, ... of f_rows rows x f_units units,
+        item i the rows' group i // groups and the units' i % groups (a
+        resident plan has one item a block; a streamed one's rows are a
+        64-row pass)."""
         groups = math.ceil(self.H / self.f_units)
-        rg, ug = divmod(q, groups)
-        return (range(rg * self.f_rows, min(self.B, (rg + 1) * self.f_rows)),
-                range(ug * self.f_units,
-                      min(self.H, (ug + 1) * self.f_units)))
+        items = math.ceil(self.B / self.f_rows) * groups
+        r, u = self.f_rows, self.f_units
+        return [(range(i // groups * r, min(self.B, (i // groups + 1) * r)),
+                 range(i % groups * u, min(self.H, (i % groups + 1) * u)))
+                for i in range(q, items, self.f_blocks)]
 
-    def bwd_block(self, q: int) -> Tuple[range, range]:
-        """(hidden units, k range of 4H) backward block ``q`` owns (all B
-        rows)."""
-        ug, kr = divmod(q, self.b_splits)
-        return (range(ug * self.b_units,
-                      min(self.H, (ug + 1) * self.b_units)),
-                range(kr * self.b_kc, min(4 * self.H, (kr + 1) * self.b_kc)))
+    def bwd_items(self, q: int) -> List[Tuple[range, range, range]]:
+        """The (batch rows, hidden units, k range of 4H) backward block
+        ``q``'s product owns each step: items q, q + b_blocks, ..., item i
+        the k range i % b_splits, then the units, then the rows (a resident
+        plan has one item a block over all B rows; a streamed one's rows
+        are a 64-row pass)."""
+        r = self.B if self.b_kind == RESIDENT else SG_ROWS
+        groups = math.ceil(self.H / self.b_units)
+        items = math.ceil(self.B / r) * groups * self.b_splits
+        u, kc = self.b_units, self.b_kc
+        out = []
+        for i in range(q, items, self.b_blocks):
+            rest, kr = divmod(i, self.b_splits)
+            rp, ug = divmod(rest, groups)
+            out.append((range(rp * r, min(self.B, (rp + 1) * r)),
+                        range(ug * u, min(self.H, (ug + 1) * u)),
+                        range(kr * kc, min(4 * self.H, (kr + 1) * kc))))
+        return out
 
     def gate_block(self, q: int) -> range:
         """The flat (b, j) elements b H + j backward block ``q``'s gate
@@ -142,10 +200,13 @@ class ScanPlan:
 
 
 def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
-    """``sg_plan``: among the partitions whose blocks fit one an SM and
-    whose shared memory fits a block, the least work a block a step, then
-    the fewest words through L2 a step, then more units.  Raises, naming
-    ``what`` (the kernel: K3, K4 or K8), where none fits."""
+    """``sg_plan``: among the resident partitions whose blocks fit one an
+    SM and whose shared memory fits a block, the least work a block a step,
+    then the fewest words through L2 a step, then more units.  A direction
+    with none, at B, H <= ``STREAM_MAX``, takes its streamed plan: the
+    fewest bytes a block copies a step, then the fewest through L2, then
+    more units (the backward's k ranges any multiple of 32).  Raises,
+    naming ``what`` (the kernel: K3, K4 or K8), where neither fits."""
     if b < 1 or h < 1:
         raise ValueError(f"{what}: B = {b}, H = {h}")
     fwd, best = None, None
@@ -162,7 +223,8 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
             key = (r * nc, blocks * rows, -u)
             if best is None or key < best:
                 best = key
-                fwd = (rows, u, blocks, st, rest + st * SG_TILE_BYTES)
+                fwd = (rows, u, blocks, st, RESIDENT,
+                       rest + st * SG_TILE_BYTES)
     h4, h4p = 4 * h, _round_up(4 * h, SG_BK)
     bwd, best = None, None
     for u in BWD_UNITS:
@@ -178,21 +240,62 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
                 key = (u * kd, blocks * b * kd + 2 * splits * b * h, -u)
                 if best is None or key < best:
                     best = key
-                    bwd = (u, kc, splits, blocks, st, per,
+                    bwd = (u, kc, splits, blocks, st, per, RESIDENT,
                            rest + st * SG_TILE_BYTES)
             if kc >= h4:
                 break
             kc *= 2
+    if b <= STREAM_MAX and h <= STREAM_MAX:
+        passes = math.ceil(b / SG_ROWS)
+        if fwd is None:
+            best = None
+            for u in FWD_UNITS:
+                nc = 4 * u
+                items = passes * math.ceil(h / u)
+                blocks = min(items, sms)
+                st = stream_stages(nkf, nc)
+                if st == 0:
+                    continue
+                item = stream_item_bytes(nkf, nc)
+                key = (math.ceil(items / blocks) * item, items * item, -u)
+                if best is None or key < best:
+                    best = key
+                    fwd = (SG_ROWS, u, blocks, st, STREAMED,
+                           stream_rest(nc) + st * stream_stage_bytes(nc))
+        if bwd is None:
+            best = None
+            nkt = h4p // SG_BK
+            for u in BWD_UNITS:
+                for splits in range(1, nkt + 1):
+                    nk = math.ceil(nkt / splits)
+                    kc = SG_BK * nk
+                    if math.ceil(h4 / kc) != splits:
+                        continue        # s ranges of this depth
+                    items = passes * math.ceil(h / u) * splits
+                    blocks = min(items, sms)
+                    st = stream_stages(nk, u)
+                    if st == 0:
+                        continue
+                    item = stream_item_bytes(nk, u)
+                    key = (math.ceil(items / blocks) * item,
+                           items * item + 8 * splits * b * h, -u)
+                    if best is None or key < best:
+                        best = key
+                        bwd = (u, kc, splits, blocks, st,
+                               _round_up(math.ceil(b * h / blocks), 4),
+                               STREAMED,
+                               stream_rest(u) + st * stream_stage_bytes(u))
     if fwd is None or bwd is None:
         raise ValueError(
             f"{what}: no launch plan of the recurrence fits B = {b}, H = {h} "
-            f"on {sms} SMs (a block's slice of W_h must fit "
-            f"{SG_SMEM_LIMIT} bytes of shared memory, one block an SM)")
+            f"on {sms} SMs (no resident partition fits {SG_SMEM_LIMIT} bytes "
+            f"of shared memory a block, one block an SM, and a streamed "
+            f"plan takes B and H up to {STREAM_MAX})")
     return ScanPlan(B=b, H=h, sms=sms, f_rows=fwd[0], f_units=fwd[1],
                     f_blocks=fwd[2], f_stages=fwd[3], b_units=bwd[0],
                     b_kc=bwd[1], b_splits=bwd[2], b_blocks=bwd[3],
-                    b_stages=bwd[4], b_per=bwd[5], f_smem=fwd[4],
-                    b_smem=bwd[6])
+                    b_stages=bwd[4], b_per=bwd[5], f_kind=fwd[4],
+                    b_kind=bwd[6], f_smem=fwd[5], b_smem=bwd[7])
 
 
 def plan_on(what: str, b: int, h: int, device: torch.device) -> ScanPlan:

@@ -132,10 +132,11 @@ VARIANTS = {
                 "      sg_mma<NC>(t, ah[s8], dl + d, 1);\n"
                 "      sg_mma<NC>(t, ah[s8], dh + d, 1);\n",
                 "      t[0] += __uint_as_float(ah[s8][0] ^ al[s8][1]);\n")],
-    "no_load": [("    if (st < nk) sg_load(A, lda, nrows, kd, st * SG_BK, vec, "
-                 "ring + st * STAGE);\n", ""),
+    "no_load": [("      sg_load(A, lda, nrows, kd, st * SG_BK, vec, "
+                 "ring + st * STAGE + BF);\n", ""),
                 ("      sg_load(A, lda, nrows, kd, nxt * SG_BK, vec,\n"
-                 "              ring + (nxt % stages) * STAGE);\n", "      ;\n")],
+                 "              ring + (nxt % stages) * STAGE + BF);\n",
+                 "      ;\n")],
 }
 
 

@@ -691,9 +691,10 @@ def test_decoders_refuse_data_parallel(mod, run, capsys, tmp_path):
 def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,
                                                               monkeypatch):
     """On a CUDA device (mocked here: ``common.device_of`` returns one and
-    the plan's SM count is the H100's 132), H = 1024 is refused with the
-    launch plan's own message before any data loads; H = 512 and
-    ``--fused_scan off`` pass the check."""
+    the plan's SM count is the H100's 132), H = 2049 (past the streamed
+    plans' reach of 2048) is refused with the launch plan's own message
+    before any data loads, and so is a batch of 2049 at H = 1024; H = 512,
+    1024 and 2048 pass the check, as do ``--fused_scan off`` and the CPU."""
     from icee_tpu_torch.core.config import DecoderConfig, TrainConfig
     from icee_tpu_torch.ops import scan_grid
 
@@ -704,17 +705,25 @@ def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,
     monkeypatch.setattr(common, "make_feature_provider",
                         lambda *a, **kw: loaded.append(a))
     argv = ["--vocab_path", str(run["tmp"] / "vocab.pkl"), "--hidden_size",
-            "1024", "--factored_size", "1024"]
+            "2049", "--factored_size", "2049"]
     for family, kernel in (("stylenet", "K3"), ("nic", "K4")):
         with pytest.raises(ValueError, match=f"{kernel} .*no launch plan"):
             run_port(train, argv + ["--family", family])
+    with pytest.raises(ValueError, match="K3 .*B = 2049, H = 1024"):
+        run_port(train, ["--vocab_path", str(run["tmp"] / "vocab.pkl"),
+                         "--hidden_size", "1024", "--factored_size", "1024",
+                         "--family", "stylenet", "--caption_batch_size",
+                         "2049"])
     assert loaded == []
     tcfg = TrainConfig(caption_batch_size=64, language_batch_size=96)
-    train.check_scan_plan("factored", DecoderConfig(hidden_size=512), tcfg,
-                          cuda)
-    train.check_scan_plan("factored", DecoderConfig(hidden_size=1024),
+    for h in (512, 1024, 2048):
+        train.check_scan_plan("factored", DecoderConfig(hidden_size=h), tcfg,
+                              cuda)
+        train.check_scan_plan("nic", DecoderConfig(hidden_size=h), tcfg,
+                              cuda)
+    train.check_scan_plan("factored", DecoderConfig(hidden_size=2049),
                           dataclasses.replace(tcfg, fused_scan=False), cuda)
-    train.check_scan_plan("factored", DecoderConfig(hidden_size=1024), tcfg,
+    train.check_scan_plan("factored", DecoderConfig(hidden_size=2049), tcfg,
                           torch.device("cpu"))
 
 

@@ -9,7 +9,8 @@ style other than 0 with zero grads on the other slices, and the same bits
 on a second run; every product K3 and K8 run over all rows alone at the
 main path's shapes against float64 (at most 4x gemm_f32.cuh's error, the
 same bits twice) and at ragged shapes against its emulation; a hidden
-width no recurrence plan fits refused by name.  The
+width past the recurrence's plans (H = 2049) refused by name; K3, K4
+and K8 where a direction streams W_h (H from 768, B = 2000), ragged.  The
 chunked CE's row passes: V % 4 != 0, a target outside the vocabulary, the
 clamp, and the whole loss on the card against the CPU; the one-read
 forward and the slab x row-group backward against the emulation of their
@@ -17,7 +18,7 @@ partition at V = 8192, 8800 and a ragged V, rows not 16-byte aligned, a
 -inf logit, a row of equal logits, the same bits twice.  K4 (the NIC
 training scan): T = 1, B not a multiple of 8, E % 4 != 0, the shared bias
 grad, and the same bits on a second run; at flagship width against its
-3xTF32 emulation; H = 1024 refused by name.  K2 with the LSTM cell: both
+3xTF32 emulation; H = 2049 refused by name.  K2 with the LSTM cell: both
 feature modes, batch padding and an early end; the whole-card search at
 1, 8 and 64 images, k = 1 and 8, images ending at widely different steps,
 the same bits on a second run and on a 3-block grid.  K6 and K7 (the attention
@@ -1379,11 +1380,12 @@ def test_scan_product_matches_its_emulation_at_ragged_shapes(device, form, m,
 
 
 def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
-    """H = 1024: no block's slice of W_h fits one an SM; each wrapper
-    (K3, K4, K8) raises naming its kernel, and launches nothing."""
+    """H = 2049: no resident slice of W_h fits a block and the streamed
+    plans reach H = 2048; each wrapper (K3, K4, K8) raises naming its
+    kernel, and launches nothing."""
     from icee_tpu_torch.ops import senticap_scan as ss
 
-    h = 1024
+    h = 2049
     x = torch.zeros((2, 3, 8), device=device)
     w = torch.zeros((8 + h, 4 * h), device=device)
     before = ss.senticap_scan_fwd.launches
@@ -1398,6 +1400,91 @@ def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
     with pytest.raises(ValueError, match="K4"):
         nic_scan.nic_scan_fwd(cell, x)
     assert nic_scan.nic_scan_fwd.launches == before
+
+
+@pytest.mark.parametrize("kernel,b,t,e,h", [
+    ("K3", 3, 4, 12, 768),     # resident forward, streamed backward
+    ("K3", 70, 3, 20, 1000),   # both streamed: two row passes, the last
+                               # of 6 rows; 1000 units: a part group
+    ("K4", 5, 5, 30, 1030),    # H % 8 != 0, E % 4 != 0, T = 5
+    ("K4", 2000, 2, 8, 300),   # B past the resident gate pass: 32 row
+                               # passes, the last of 16 rows; T = 2
+    ("K8", 9, 6, 16, 900),     # the clamp after the k ranges' sum
+])
+def test_scans_past_the_resident_plan_match_plain(device, kernel, b, t, e,
+                                                  h):
+    """K3, K4 and K8 where a direction's recurrence streams W_h
+    (``scan_grid.cuh``'s streamed plans): ragged row passes and unit
+    groups, forward and backward against the plain versions (h and c atol
+    1e-4, each grad within 1e-3 of its largest magnitude), one launch a
+    direction, the same bits on a second run.  Weights of width-free gain
+    (1 / sqrt(fan-in)), so the recurrences stay out of chaos at every
+    width."""
+    from icee_tpu_torch.ops import scan_grid
+    from icee_tpu_torch.ops import senticap_scan as ss
+
+    plan = scan_grid.plan_on(kernel, b, h, device)
+    assert plan.b_kind == scan_grid.STREAMED
+    g = torch.Generator(device=device).manual_seed(b + h)
+
+    def u(shape, fan, scale=1.0):
+        return scale * (2 * torch.rand(shape, generator=g, device=device)
+                        - 1) / fan ** 0.5
+
+    x = torch.randn((b, t, e), generator=g, device=device)
+    dh = torch.randn((b, t, h), generator=g, device=device)
+    if kernel == "K3":
+        f = 16
+        p = {"V_w": u((e, 4 * f), e), "V_b": u((4, f), 10),
+             "S_w": u((4, f, f), f), "S_b": u((4, f), 10),
+             "U_w": u((4, f, h), f), "U_b": u((4, h), 10),
+             "W_w": u((h, 4 * h), h, 1.5), "W_b": u((4, h), 10)}
+        fwd = lambda: lstm_scan.factored_scan_fwd(p, x)  # noqa: E731
+        bwd = lambda hs, cs, sv: lstm_scan.factored_scan_bwd(  # noqa: E731
+            p, x, hs, cs, dh, sv)
+        plain_f = lambda: lstm_scan.fused_factored_scan_plain(p, x)  # noqa
+        plain_b = lambda hs, cs: lstm_scan.factored_scan_bwd_plain(  # noqa
+            p, x, hs, cs, dh)
+        wrappers = (lstm_scan.factored_scan_fwd, lstm_scan.factored_scan_bwd)
+    elif kernel == "K4":
+        cell = {"W_ih": u((e, 4 * h), e), "W_hh": u((h, 4 * h), h, 1.5),
+                "b_ih": u((4 * h,), 10), "b_hh": u((4 * h,), 10)}
+        fwd = lambda: nic_scan.nic_scan_fwd(cell, x)  # noqa: E731
+        bwd = lambda hs, cs, sv: nic_scan.nic_scan_bwd(  # noqa: E731
+            cell, x, hs, cs, dh, sv)
+        plain_f = lambda: nic_scan.fused_nic_scan_plain(cell, x)  # noqa
+        plain_b = lambda hs, cs: nic_scan.nic_scan_bwd_plain(  # noqa: E731
+            cell, x, hs, cs, dh)
+        wrappers = (nic_scan.nic_scan_fwd, nic_scan.nic_scan_bwd)
+    else:
+        w = u((e + h, 4 * h), e + h, 1.2)
+        fwd = lambda: ss.senticap_scan_fwd(w, x)  # noqa: E731
+        bwd = lambda hs, cs, sv: ss.senticap_scan_bwd(  # noqa: E731
+            w, x, hs, cs, dh, 0.01, sv)
+        plain_f = lambda: ss.fused_senticap_scan_plain(w, x)  # noqa: E731
+        plain_b = lambda hs, cs: ss.senticap_scan_bwd_plain(  # noqa: E731
+            w, x, hs, cs, dh, 0.01)
+        wrappers = (ss.senticap_scan_fwd, ss.senticap_scan_bwd)
+    before = [fn.launches for fn in wrappers]
+    h_seq, c_seq, saved = fwd()
+    got = bwd(h_seq, c_seq, saved)
+    assert [fn.launches for fn in wrappers] == [n + 1 for n in before]
+    want_h, want_c = plain_f()
+    want = plain_b(h_seq, c_seq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h_seq, want_h, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c_seq, want_c, rtol=0, atol=1e-4)
+    _close_scaled(got[0], want[0])
+    grads = got[1] if isinstance(got[1], dict) else {"W": got[1]}
+    wants = want[1] if isinstance(want[1], dict) else {"W": want[1]}
+    for k in wants:
+        _close_scaled(grads[k], wants[k])
+    h2, c2, _ = fwd()
+    again = bwd(h_seq, c_seq, saved)
+    assert torch.equal(h_seq, h2) and torch.equal(c_seq, c2)
+    assert torch.equal(got[0], again[0])
+    again_g = again[1] if isinstance(again[1], dict) else {"W": again[1]}
+    assert all(torch.equal(grads[k], again_g[k]) for k in grads)
 
 
 # --- the SentiCap base slice: K8, K9, the step, TF32 -------------------------

@@ -81,6 +81,34 @@ def test_scan_grads_match_pallas_backward():
                                    err_msg=k, **GRAD_TOL)
 
 
+def test_scan_at_h_768_matches_pallas_forward_and_grads():
+    """H = F = 768, a width past the card's resident plan (there the CUDA
+    recurrence streams W_w; on the CPU the wrapper's plain version runs):
+    h against the Pallas kernel in interpret mode, and the grads against
+    ``jax.grad`` of it, at the tolerances above."""
+    h_dim, b, e = 768, 8, 16
+    _, p = _params(12, e=e, f=h_dim, h=h_dim)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((b, T, e)).astype(np.float32)
+    tgt = rng.standard_normal((b, T, h_dim)).astype(np.float32)
+    want = np.asarray(jscan(p, jnp.asarray(x), True))
+
+    def jloss(p, x):
+        return jnp.sum((jscan(p, x, True) - tgt) ** 2)
+
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(p, jnp.asarray(x))
+    tp = {k: v.requires_grad_(True) for k, v in bridge.to_torch(p).items()}
+    tx = torch.tensor(x, requires_grad=True)
+    h = lstm_scan.fused_factored_scan(tp, tx)
+    np.testing.assert_allclose(h.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+    ((h - torch.tensor(tgt)) ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **GRAD_TOL)
+    for k in KEYS:
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(gp[k]),
+                                   err_msg=k, **GRAD_TOL)
+
+
 def test_plain_backward_matches_autograd_of_plain_scan():
     _, p = _params(4)
     rng = np.random.default_rng(5)

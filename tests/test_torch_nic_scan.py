@@ -88,6 +88,45 @@ def test_grads_match_jax_grad_of_pallas_and_reference(b, t):
                                    **GRAD_TOL)
 
 
+def test_scan_at_h_768_matches_pallas_forward_and_grads():
+    """H = 768, a width past the card's resident plan (there the CUDA
+    recurrence streams W_hh; on the CPU the wrapper's plain version runs):
+    h against the Pallas kernel in interpret mode and the XLA oracle, the
+    grads against ``jax.grad`` of the kernel, at the tolerances above.
+    The weights' scale shrinks as 1 / sqrt(H) from ``_cell``'s at H = 32,
+    so the gates see pre-activations of the same size."""
+    h_dim, b = 768, 8
+    rng = np.random.default_rng(31)
+
+    def w(*shape, scale):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    scale = 0.3 * (H / h_dim) ** 0.5
+    cell = {"W_ih": w(E, 4 * h_dim, scale=0.3),
+            "W_hh": w(h_dim, 4 * h_dim, scale=scale),
+            "b_ih": w(4 * h_dim, scale=0.1), "b_hh": w(4 * h_dim, scale=0.1)}
+    x = _x(32, b)
+    kh = rng.standard_normal((b, T, h_dim)).astype(np.float32)
+    want_k = np.asarray(jscan(cell, jnp.asarray(x), None, True))
+    want_r = np.asarray(reference_nic_scan(cell, jnp.asarray(x)))
+    want_g = jax.grad(lambda c, xx: jnp.sum(jscan(c, xx, None, True) * kh),
+                      argnums=(0, 1))(cell, jnp.asarray(x))
+    tc = {k: v.requires_grad_(True) for k, v in bridge.to_torch(cell).items()}
+    tx = torch.tensor(x, requires_grad=True)
+    h = nic_scan.fused_nic_scan(tc, tx)
+    np.testing.assert_allclose(h.detach().numpy(), want_k, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(h.detach().numpy(), want_r, rtol=1e-5,
+                               atol=1e-5)
+    (h * torch.tensor(kh)).sum().backward()
+    for k in KEYS:
+        np.testing.assert_allclose(tc[k].grad.numpy(),
+                                   np.asarray(want_g[0][k]), err_msg=k,
+                                   **GRAD_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_g[1]),
+                               **GRAD_TOL)
+
+
 def test_bias_grads_are_shared():
     """b_ih and b_hh receive the same gradient (z sees their sum), through
     the autograd function as through the JAX custom_vjp."""

@@ -5,20 +5,25 @@ that the CPU can check, without JAX:
 
 - the recurrence's launch plan (``ops/scan_grid.py::scan_plan``) at the
   main path's shapes (K3 and K4: B 64, H 512; K8: B 128, H 512) and at edge
-  shapes (B 1, 3, 200; H 8, 33, 300): every (row, unit) of the forward and
-  every (unit, k) of the backward's product owned by one block, shared
-  memory within a block's 227 KB, at most one block an SM, the choice at
-  the main shapes, and the refusal of a shape that fits no partition,
-  naming the kernel;
+  shapes (B 1 to 2048; H 8 to 2048, past the resident plan's reach: the
+  streamed kind): every (row, unit) of the forward and every (row, unit,
+  k) of the backward's product owned by one block, shared memory within a
+  block's 227 KB as the kernels lay it out, at most one block an SM, the
+  choice at the main shapes, every resident-only plan unchanged,
+  a plan for every B and H up to 2048 on 132 and 114 SMs, and the
+  refusal of a shape past that reach, naming the kernel;
 - the ctypes mirror of the source's ``ScanPlan``, the geometry constants
   and the C entry points' argument counts, held against the sources' text;
 - the kernels' arithmetic in tensor ops (``scan_grid.*_tc_plain``: every
   product 3xTF32 through ``att_scan.tf32x3_product_plain``, the backward's
   recurrent dh as the plan's k ranges added in range order, then clamped)
-  over T = 25 steps at small width, against the unchanged plain scans and
-  float64 within phases 7 and 12's tolerances (h and c atol 1e-4, each
-  gradient within 1e-3 of its largest magnitude), K8 at gclip 5.0 and at
-  0.01, where the clamp binds, K4 with H not a multiple of 32.
+  over T = 25 steps at small width and at H = 768 and 1024 (streamed
+  plans), against the unchanged plain scans and float64 within phases 7
+  and 12's tolerances (h and c atol 1e-4, each gradient within 1e-3 of its
+  largest magnitude), and where B is a multiple of 8 against the JAX
+  package's Pallas kernels in interpret mode (``jax.vjp`` for the grads) at
+  the same tolerances; K8 at gclip 5.0 and at 0.01, where the clamp binds,
+  K4 with H not a multiple of 32.
 
 The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
@@ -28,9 +33,15 @@ import math
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from icee_tpu.ops.pallas_lstm import fused_factored_scan as jax_k3
+from icee_tpu.ops.pallas_nic_train import fused_nic_scan as jax_k4
+from icee_tpu.ops.pallas_senticap_train import fused_senticap_scan as jax_k8
 
 from icee_tpu_torch.ops import cuda_lib, lstm_scan, nic_scan, scan_grid
 from icee_tpu_torch.ops import senticap_scan as ss
@@ -38,22 +49,31 @@ from icee_tpu_torch.ops import senticap_scan as ss
 CSRC = Path(scan_grid.__file__).resolve().parents[1] / "csrc"
 HEADER = (CSRC / "scan_grid.cuh").read_text()
 
-EDGE = [(b, h) for b in (1, 3, 64, 128, 200) for h in (8, 33, 300, 512)]
+EDGE = [(b, h) for b in (1, 3, 64, 128, 200, 512, 2048)
+        for h in (8, 33, 300, 512, 704, 736, 1024, 2048)]
 
 
 def _owners_fwd(plan):
-    own = np.zeros((plan.B, plan.H), dtype=np.int64)
+    own = np.zeros((plan.B, plan.H), dtype=np.int8)
     for q in range(plan.f_blocks):
-        rows, units = plan.fwd_block(q)
-        own[rows.start:rows.stop, units.start:units.stop] += 1
+        for rows, units in plan.fwd_items(q):
+            own[rows.start:rows.stop, units.start:units.stop] += 1
     return own
 
 
 def _owners_bwd(plan):
-    own = np.zeros((plan.H, 4 * plan.H), dtype=np.int64)
+    """Owners of the backward product's (64-row pass, unit, 32-deep k
+    tile): every item's rows and k range start on those boundaries."""
+    own = np.zeros((-(-plan.B // 64), plan.H, -(-4 * plan.H // 32)),
+                   dtype=np.int8)
     for q in range(plan.b_blocks):
-        units, ks = plan.bwd_block(q)
-        own[units.start:units.stop, ks.start:ks.stop] += 1
+        for rows, units, ks in plan.bwd_items(q):
+            assert rows.start % 64 == 0 and ks.start % 32 == 0
+            assert rows.stop == plan.B or rows.stop % 64 == 0
+            assert ks.stop == 4 * plan.H or ks.stop % 32 == 0
+            own[rows.start // 64:-(-rows.stop // 64),
+                units.start:units.stop,
+                ks.start // 32:-(-ks.stop // 32)] += 1
     return own
 
 
@@ -63,7 +83,7 @@ def test_every_unit_row_and_k_is_owned_once(b, h):
     assert (_owners_fwd(plan) == 1).all()
     assert (_owners_bwd(plan) == 1).all()
     # the backward's gate pass: every (b, j) element in one block's range
-    gates = np.zeros(b * h, dtype=np.int64)
+    gates = np.zeros(b * h, dtype=np.int8)
     for q in range(plan.b_blocks):
         els = plan.gate_block(q)
         assert len(els) <= plan.b_per
@@ -71,36 +91,54 @@ def test_every_unit_row_and_k_is_owned_once(b, h):
     assert (gates == 1).all()
     # no block is empty: the plan launches no idle block
     for q in range(plan.f_blocks):
-        rows, units = plan.fwd_block(q)
-        assert len(rows) and len(units)
+        assert plan.fwd_items(q)
+        for rows, units in plan.fwd_items(q):
+            assert len(rows) and len(units)
     for q in range(plan.b_blocks):
-        units, ks = plan.bwd_block(q)
-        assert len(units) and len(ks)
+        assert plan.bwd_items(q)
+        for rows, units, ks in plan.bwd_items(q):
+            assert len(rows) and len(units) and len(ks)
 
 
 @pytest.mark.parametrize("b,h", EDGE)
 @pytest.mark.parametrize("sms", [132, 114, 16])
 def test_blocks_fit_the_card_one_an_sm(b, h, sms):
-    try:
-        plan = scan_grid.scan_plan("K", b, h, sms)
-    except ValueError as e:
-        assert sms < 132 and "no launch plan" in str(e)
-        return
+    plan = scan_grid.scan_plan("K", b, h, sms)
     assert 1 <= plan.f_blocks <= sms and 1 <= plan.b_blocks <= sms
     assert plan.f_smem <= scan_grid.SG_SMEM_LIMIT == cuda_lib.SMEM_LIMIT
     assert plan.b_smem <= scan_grid.SG_SMEM_LIMIT
-    # shared memory as the kernels lay it out: the slice's hi and lo words,
-    # the A ring, the forward's out and c tiles, the backward's out tile and
-    # gate-pass tiles (8 words an element)
+    # shared memory as the kernels lay it out.  Resident: the slice's hi
+    # and lo words, the A ring, the forward's out and c tiles, the
+    # backward's out tile and gate-pass tiles (8 words an element).
+    # Streamed: 1024 bytes to align the ring, each stage B's hi and lo
+    # tiles and an A tile, the out tile.
     kd = min(plan.b_kc, -(-4 * h // 32) * 32)
     nc, u = 4 * plan.f_units, plan.f_units
     tile = 4 * 64 * 36
-    assert plan.b_smem == (2 * 4 * plan.b_units * kd + 1024
-                           + 4 * 64 * (plan.b_units + 1) + 32 * plan.b_per
-                           + plan.b_stages * tile)
-    assert plan.f_smem == (2 * 4 * nc * (-(-h // 32) * 32) + 1024
-                           + 4 * (64 * (nc + 1) + plan.f_rows * u)
-                           + plan.f_stages * tile)
+    if plan.b_kind == scan_grid.RESIDENT:
+        assert plan.b_smem == (2 * 4 * plan.b_units * kd + 1024
+                               + 4 * 64 * (plan.b_units + 1)
+                               + 32 * plan.b_per + plan.b_stages * tile)
+        assert plan.b_blocks == math.ceil(h / plan.b_units) * plan.b_splits
+    else:
+        assert plan.b_kind == scan_grid.STREAMED
+        assert plan.b_smem == (1024 + 4 * 64 * (plan.b_units + 1)
+                               + plan.b_stages * (256 * plan.b_units + tile))
+        items = (math.ceil(b / 64) * math.ceil(h / plan.b_units)
+                 * plan.b_splits)
+        assert plan.b_blocks == min(items, sms)
+        assert plan.b_kc % 32 == 0
+    if plan.f_kind == scan_grid.RESIDENT:
+        assert plan.f_smem == (2 * 4 * nc * (-(-h // 32) * 32) + 1024
+                               + 4 * (64 * (nc + 1) + plan.f_rows * u)
+                               + plan.f_stages * tile)
+    else:
+        assert plan.f_kind == scan_grid.STREAMED
+        assert plan.f_smem == (1024 + 4 * 64 * (nc + 1)
+                               + plan.f_stages * (256 * nc + tile))
+        assert plan.f_rows == 64
+        assert plan.f_blocks == min(math.ceil(b / 64) * math.ceil(h / u),
+                                    sms)
     # every tile of a pass in flight where shared memory allows
     assert 2 <= plan.f_stages <= min(-(-h // 32) + 1, 9)
     assert 2 <= plan.b_stages <= min(kd // 32 + 1, 9)
@@ -110,6 +148,108 @@ def test_blocks_fit_the_card_one_an_sm(b, h, sms):
     assert 4 * plan.f_units in (16, 32, 64)
     assert plan.b_units in (16, 32, 64)
     assert plan.b_splits == math.ceil(4 * h / plan.b_kc)
+
+
+# The plans of the resident-only search (before the streamed kind) over
+# the old edge shapes, the main shapes and H = 704, on 132, 114 and 16 SMs:
+# (B, H, SMs) -> (f_rows, f_units, f_blocks, f_stages, b_units, b_kc,
+# b_splits, b_blocks, b_stages, b_per, f_smem, b_smem).  Shapes it refused
+# are not listed.
+RESIDENT_PLANS = {
+    (1, 8, 132): (64, 4, 2, 2, 16, 32, 1, 1, 2, 8, 28928, 28160),
+    (1, 33, 132): (64, 4, 9, 3, 16, 32, 5, 15, 2, 4, 42240, 28032),
+    (1, 300, 132): (64, 4, 75, 9, 64, 64, 19, 95, 3, 4, 130304, 78208),
+    (1, 512, 132): (64, 4, 128, 9, 64, 128, 16, 128, 5, 4, 154880, 129408),
+    (3, 8, 132): (64, 4, 2, 2, 16, 32, 1, 1, 2, 24, 28928, 28672),
+    (3, 33, 132): (64, 4, 9, 3, 16, 32, 5, 15, 2, 8, 42240, 28160),
+    (3, 300, 132): (64, 4, 75, 9, 64, 64, 19, 95, 3, 12, 130304, 78464),
+    (3, 512, 132): (64, 4, 128, 9, 64, 128, 16, 128, 5, 12, 154880, 129664),
+    (64, 8, 132): (64, 4, 2, 2, 16, 32, 1, 1, 2, 512, 28928, 44288),
+    (64, 33, 132): (64, 4, 9, 3, 16, 32, 5, 15, 2, 144, 42240, 32512),
+    (64, 300, 132): (64, 4, 75, 9, 64, 64, 19, 95, 3, 204, 130304, 84608),
+    (64, 512, 132): (64, 4, 128, 9, 64, 128, 16, 128, 5, 256, 154880, 137472),
+    (64, 704, 132): (64, 8, 88, 4, 64, 256, 11, 121, 7, 376, 228608, 225280),
+    (96, 512, 132): (64, 8, 128, 9, 64, 128, 16, 128, 5, 384, 225536, 141568),
+    (128, 8, 132): (64, 4, 4, 2, 16, 32, 1, 1, 2, 1024, 28928, 60672),
+    (128, 33, 132): (64, 4, 18, 3, 16, 32, 5, 15, 2, 284, 42240, 36992),
+    (128, 300, 132): (64, 8, 76, 9, 64, 64, 19, 95, 3, 408, 176384, 91136),
+    (128, 512, 132): (64, 8, 128, 9, 64, 128, 16, 128, 5, 512, 225536, 145664),
+    (128, 704, 132): (128, 8, 88, 4, 64, 256, 11, 121, 6, 748, 230656, 227968),
+    (200, 8, 132): (64, 4, 8, 2, 16, 32, 1, 1, 2, 1600, 28928, 79104),
+    (200, 33, 132): (64, 4, 36, 3, 16, 32, 5, 15, 2, 440, 42240, 41984),
+    (200, 300, 132): (64, 16, 76, 5, 64, 64, 19, 95, 3, 632, 231680, 98304),
+    (200, 512, 132): (128, 8, 128, 9, 64, 128, 16, 128, 5, 800, 227584,
+                       154880),
+    (1, 8, 114): (64, 4, 2, 2, 16, 32, 1, 1, 2, 8, 28928, 28160),
+    (1, 33, 114): (64, 4, 9, 3, 16, 32, 5, 15, 2, 4, 42240, 28032),
+    (1, 300, 114): (64, 4, 75, 9, 64, 64, 19, 95, 3, 4, 130304, 78208),
+    (1, 512, 114): (64, 8, 64, 9, 64, 256, 8, 64, 9, 8, 225536, 231936),
+    (3, 8, 114): (64, 4, 2, 2, 16, 32, 1, 1, 2, 24, 28928, 28672),
+    (3, 33, 114): (64, 4, 9, 3, 16, 32, 5, 15, 2, 8, 42240, 28160),
+    (3, 300, 114): (64, 4, 75, 9, 64, 64, 19, 95, 3, 12, 130304, 78464),
+    (3, 512, 114): (64, 8, 64, 9, 64, 256, 8, 64, 9, 24, 225536, 232448),
+    (64, 8, 114): (64, 4, 2, 2, 16, 32, 1, 1, 2, 512, 28928, 44288),
+    (64, 33, 114): (64, 4, 9, 3, 16, 32, 5, 15, 2, 144, 42240, 32512),
+    (64, 300, 114): (64, 4, 75, 9, 64, 64, 19, 95, 3, 204, 130304, 84608),
+    (64, 512, 114): (64, 8, 64, 9, 64, 256, 8, 64, 7, 512, 225536, 229632),
+    (96, 512, 114): (128, 8, 64, 9, 64, 256, 8, 64, 6, 768, 227584, 228608),
+    (128, 8, 114): (64, 4, 4, 2, 16, 32, 1, 1, 2, 1024, 28928, 60672),
+    (128, 33, 114): (64, 4, 18, 3, 16, 32, 5, 15, 2, 284, 42240, 36992),
+    (128, 300, 114): (64, 8, 76, 9, 64, 64, 19, 95, 3, 408, 176384, 91136),
+    (128, 512, 114): (128, 8, 64, 9, 64, 256, 8, 64, 5, 1024, 227584, 227584),
+    (200, 8, 114): (64, 4, 8, 2, 16, 32, 1, 1, 2, 1600, 28928, 79104),
+    (200, 33, 114): (64, 4, 36, 3, 16, 32, 5, 15, 2, 440, 42240, 41984),
+    (200, 300, 114): (64, 16, 76, 5, 64, 64, 19, 95, 3, 632, 231680, 98304),
+    (200, 512, 114): (256, 8, 64, 9, 64, 256, 8, 64, 3, 1600, 231680, 227584),
+    (1, 8, 16): (64, 4, 2, 2, 16, 32, 1, 1, 2, 8, 28928, 28160),
+    (1, 33, 16): (64, 4, 9, 3, 16, 32, 5, 15, 2, 4, 42240, 28032),
+    (3, 8, 16): (64, 4, 2, 2, 16, 32, 1, 1, 2, 24, 28928, 28672),
+    (3, 33, 16): (64, 4, 9, 3, 16, 32, 5, 15, 2, 8, 42240, 28160),
+    (64, 8, 16): (64, 4, 2, 2, 16, 32, 1, 1, 2, 512, 28928, 44288),
+    (64, 33, 16): (64, 4, 9, 3, 16, 32, 5, 15, 2, 144, 42240, 32512),
+    (128, 8, 16): (64, 4, 4, 2, 16, 32, 1, 1, 2, 1024, 28928, 60672),
+    (128, 33, 16): (64, 8, 10, 3, 16, 32, 5, 15, 2, 284, 55552, 36992),
+    (200, 8, 16): (64, 4, 8, 2, 16, 32, 1, 1, 2, 1600, 28928, 79104),
+    (200, 33, 16): (64, 16, 12, 3, 16, 32, 5, 15, 2, 440, 82176, 41984),
+}
+PLAN_FIELDS = ("f_rows", "f_units", "f_blocks", "f_stages", "b_units",
+               "b_kc", "b_splits", "b_blocks", "b_stages", "b_per", "f_smem",
+               "b_smem")
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_every_resident_only_plan_is_unchanged(sms):
+    """A shape the resident search takes keeps its plan, field for field:
+    new candidates are tried only where it finds none."""
+    shapes = [k for k in RESIDENT_PLANS if k[2] == sms]
+    assert len(shapes) >= 10
+    for b, h, _ in shapes:
+        plan = scan_grid.scan_plan("K", b, h, sms)
+        assert tuple(getattr(plan, f) for f in PLAN_FIELDS) == \
+            RESIDENT_PLANS[(b, h, sms)], (b, h, sms)
+        assert plan.f_kind == plan.b_kind == scan_grid.RESIDENT
+
+
+REACH_B = (1, 2, 63, 64, 65, 127, 129, 255, 511, 513, 1000, 1025, 2047, 2048)
+REACH_H = (1, 2, 31, 33, 100, 511, 703, 705, 735, 737, 900, 1023, 1025, 1500,
+           2047, 2048)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_every_b_and_h_up_to_2048_plans(sms):
+    """On an SXM (132 SMs) and a PCIe (114) H100, every B and H in 1 to
+    2048 has a plan (sampled at the edges of 64-row passes, 32-deep tiles
+    and the resident reach); past the resident reach a direction is
+    streamed."""
+    kinds = set()
+    for b in REACH_B:
+        for h in REACH_H:
+            plan = scan_grid.scan_plan("K", b, h, sms)
+            assert plan.f_smem <= scan_grid.SG_SMEM_LIMIT
+            assert plan.b_smem <= scan_grid.SG_SMEM_LIMIT
+            assert plan.f_blocks <= sms and plan.b_blocks <= sms
+            kinds.add((plan.f_kind, plan.b_kind))
+    assert kinds == {(0, 0), (0, 1), (1, 1)}
 
 
 def test_the_main_path_shapes():
@@ -134,25 +274,39 @@ def test_the_main_path_shapes():
 def test_k4_plans_as_k3_at_the_main_path_shape_and_refuses_wide_h():
     """K4 (B 64, H 512) takes K3's plan: the recurrence depends on (B, H)
     alone.  Its old step kernels took any H; the resident slice of W_hh
-    caps H at the plan's reach (704 fits, 736 does not)."""
+    reaches H = 704, the streamed plan past it up to 2048 (736: the forward
+    still resident, the backward streamed; 1024 and 2048 both streamed),
+    and H = 2049 is refused."""
     k4 = scan_grid.scan_plan(nic_scan.WHAT, 64, 512)
     assert k4 == scan_grid.scan_plan("K3", 64, 512)
     assert (k4.f_rows, k4.f_units, k4.f_blocks) == (64, 4, 128)
     assert (k4.b_units, k4.b_kc, k4.b_splits, k4.b_blocks) == (64, 128, 16,
                                                                128)
+    R, S = scan_grid.RESIDENT, scan_grid.STREAMED
     for b in (1, 64, 128):
-        assert scan_grid.scan_plan("K4", b, 704).f_blocks > 0
-        with pytest.raises(ValueError, match="K4 .*H = 736"):
-            scan_grid.scan_plan(nic_scan.WHAT, b, 736)
+        p = scan_grid.scan_plan("K4", b, 704)
+        assert (p.f_kind, p.b_kind) == (R, R)
+        p = scan_grid.scan_plan(nic_scan.WHAT, b, 736)
+        assert (p.f_kind, p.b_kind) == (R, S)
+        for h in (1024, 2048):
+            p = scan_grid.scan_plan(nic_scan.WHAT, b, h)
+            assert (p.f_kind, p.b_kind) == (S, S)
+        with pytest.raises(ValueError, match="K4 .*H = 2049"):
+            scan_grid.scan_plan(nic_scan.WHAT, b, 2049)
 
 
 def test_a_shape_that_fits_no_partition_raises_naming_the_kernel():
-    with pytest.raises(ValueError, match="K3 .*H = 1024"):
-        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 64, 1024)
+    with pytest.raises(ValueError, match="K3 .*H = 2049"):
+        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 64, 2049)
+    with pytest.raises(ValueError, match="K3 .*B = 2049, H = 1024"):
+        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 2049, 1024)
     with pytest.raises(ValueError, match="K8"):
-        scan_grid.scan_plan("K8 (csrc/senticap_scan.cu)", 1, 2048)
+        scan_grid.scan_plan("K8 (csrc/senticap_scan.cu)", 1, 4096)
     with pytest.raises(ValueError, match="K8"):
         scan_grid.scan_plan("K8", 0, 512)
+    # past the streamed reach a resident plan still takes what it took
+    p = scan_grid.scan_plan("K3", 4096, 128)
+    assert (p.f_kind, p.b_kind) == (scan_grid.RESIDENT, scan_grid.RESIDENT)
 
 
 def test_the_plan_is_a_pure_function_of_the_shape():
@@ -196,6 +350,11 @@ def test_the_wrappers_geometry_is_the_kernels():
     assert consts["SG_LDA"] == "SG_BK + 4"
     assert int(consts["SG_MAX_STAGES"]) == scan_grid.SG_MAX_STAGES
     assert int(consts["SG_SMEM_LIMIT"]) == scan_grid.SG_SMEM_LIMIT
+    # the streamed plans: the kinds, the reach, an item's fixed cost
+    assert int(consts["SG_RESIDENT"]) == scan_grid.RESIDENT
+    assert int(consts["SG_STREAMED"]) == scan_grid.STREAMED
+    assert int(consts["SG_STREAM_MAX"]) == scan_grid.STREAM_MAX
+    assert int(consts["SG_ITEM_TILES"]) == scan_grid.SG_ITEM_TILES
     assert "for (int u = 4; u <= 16; u *= 2)" in HEADER     # FWD_UNITS
     assert "for (int u = 16; u <= 64; u *= 2)" in HEADER    # BWD_UNITS
     assert scan_grid.FWD_UNITS == (4, 8, 16)
@@ -280,7 +439,31 @@ def _double(params):
     return {k: v.double() for k, v in params.items()}
 
 
-@pytest.mark.parametrize("b,e,f,h", [(6, 12, 16, 24), (3, 20, 24, 40)])
+def _against_pallas(kernel, args, h_seq, dh, grads):
+    """The JAX package's Pallas kernel ``kernel`` (interpret mode) on the
+    same inputs ``args`` (a tuple of arrays or dicts of them): its h_seq
+    within 1e-4 of ``h_seq``, and its ``jax.vjp`` on the cotangent ``dh``
+    against ``grads`` (one entry a positional argument, dicts by name),
+    each within 1e-3 of its largest magnitude."""
+    def j(t):
+        return jnp.asarray(t.numpy())
+
+    jargs = tuple({k: j(v) for k, v in a.items()} if isinstance(a, dict)
+                  else j(a) for a in args)
+    h, vjp = jax.vjp(kernel, *jargs)
+    assert np.abs(np.asarray(h) - h_seq.numpy()).max() <= 1e-4
+    for got, want in zip(grads, vjp(j(dh))):
+        pairs = ([(got[k], want[k]) for k in got] if isinstance(got, dict)
+                 else [(got, want)])
+        for g, w in pairs:
+            _close(g, torch.tensor(np.asarray(w)))
+
+
+# (B, E, F, H): the small widths, then H = 768 and 1024, past the
+# resident plan's reach (streamed plans), at a batch the Pallas kernels
+# take (a multiple of 8)
+@pytest.mark.parametrize("b,e,f,h", [(6, 12, 16, 24), (3, 20, 24, 40),
+                                     (8, 12, 16, 768), (8, 12, 16, 1024)])
 def test_k3_arithmetic_through_25_steps(b, e, f, h):
     rng = np.random.default_rng(b + h)
     t = 25
@@ -310,14 +493,23 @@ def test_k3_arithmetic_through_25_steps(b, e, f, h):
     v, s, acts = saved
     assert v.shape == (b * t, 4 * f) and s.shape == (b * t, 4 * f)
     assert acts.shape == (b, t, 4, h)
+    if b % 8 == 0:
+        _against_pallas(lambda p, x: jax_k3(p, x, True), (p, x), h_seq, dh,
+                        (grads, dx))
 
 
 @pytest.mark.parametrize("gclip", [5.0, 0.01])
-@pytest.mark.parametrize("b,e,h", [(5, 20, 32), (2, 16, 44)])
+@pytest.mark.parametrize("b,e,h", [(5, 20, 32), (2, 16, 44), (8, 16, 768),
+                                   (8, 16, 1024)])
 def test_k8_arithmetic_through_25_steps(b, e, h, gclip):
     rng = np.random.default_rng(b * h)
     t = 25
-    w = torch.tensor(rng.uniform(-0.6, 0.6, (e + h, 4 * h)).astype(
+    # U(-0.6, 0.6) up to 60 inputs a gate, then the bound shrinks as
+    # 1 / sqrt(E + H) (the model's Xavier law): the cell (h = o c, no tanh)
+    # stays out of the chaotic regime, where float32 and float64 part
+    # ways whatever the order of the sums, at every width
+    bound = 0.6 * min(1.0, (60 / (e + h)) ** 0.5)
+    w = torch.tensor(rng.uniform(-bound, bound, (e + h, 4 * h)).astype(
         np.float32))
     x = torch.tensor(rng.standard_normal((b, t, e)).astype(np.float32))
     dh = torch.tensor(rng.standard_normal((b, t, h)).astype(np.float32))
@@ -343,6 +535,9 @@ def test_k8_arithmetic_through_25_steps(b, e, h, gclip):
     if gclip < 1:   # the clamp binds: it changes dW
         loose = ss.senticap_scan_bwd_plain(w, x, h_seq, c_seq, dh, 1e9)[1]
         assert not torch.allclose(loose, want_dw)
+    if b % 8 == 0:
+        _against_pallas(lambda w, x: jax_k8(w, x, gclip, None, True), (w, x),
+                        h_seq, dh, (dw, dx))
 
 
 def _nic_cell(rng, e, h):
@@ -355,7 +550,8 @@ def _nic_cell(rng, e, h):
             "b_hh": t(0.1 * rng.standard_normal(4 * h))}
 
 
-@pytest.mark.parametrize("b,e,h", [(6, 20, 36), (3, 13, 44)])
+@pytest.mark.parametrize("b,e,h", [(6, 20, 36), (3, 13, 44), (8, 13, 768),
+                                   (8, 13, 1024)])
 def test_k4_arithmetic_through_25_steps(b, e, h):
     rng = np.random.default_rng(7 * b + h)
     t = 25
@@ -385,6 +581,9 @@ def test_k4_arithmetic_through_25_steps(b, e, h):
         _close(grads[k], want_g[k])
         _close(grads[k].double(), g64[k])
     assert torch.equal(grads["b_ih"], grads["b_hh"])
+    if b % 8 == 0:
+        _against_pallas(lambda c, x: jax_k4(c, x, None, True), (cell, x),
+                        h_seq, dh, (grads, dx))
 
 
 def test_scan_product_takes_the_plain_version_on_the_cpu():

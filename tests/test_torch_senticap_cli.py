@@ -276,6 +276,31 @@ def test_data_parallel_is_refused(runs, capsys):
         assert torch.equal(pickles[0][k], pickles[1][k]), k
 
 
+def test_hidden_size_past_the_scan_plan_is_refused_at_start(monkeypatch):
+    """On a CUDA device (mocked here: ``common.device_of`` returns one and
+    the plan's SM count is the H100's 132), ``base`` refuses H = 2049 with
+    K8's launch plan's own message before any data loads; H = 1024 and
+    2048 pass the check at the default batch of 128 (streamed plans), as
+    do ``--fused_scan off`` and the CPU at any width."""
+    from icee_tpu_torch.cli import common
+    from icee_tpu_torch.ops import scan_grid
+
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(scan_grid, "sm_count", lambda device: 132)
+    monkeypatch.setattr(common, "device_of", lambda args: cuda)
+    loaded = []
+    monkeypatch.setattr(sio, "load_captions_json",
+                        lambda path: loaded.append(path))
+    with pytest.raises(ValueError, match="K8 .*no launch plan.*H = 2049"):
+        run_port(["base", "--captions", "unused.json", "--hidden_size",
+                  "2049"])
+    assert loaded == []
+    for h in (1024, 2048):
+        cli.check_scan_plan(h, 128, None, cuda)
+    cli.check_scan_plan(2049, 128, False, cuda)
+    cli.check_scan_plan(2049, 128, None, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("switched", [False, True])
 def test_validation_perplexity_runs_in_training_batches(switched,
                                                         monkeypatch):

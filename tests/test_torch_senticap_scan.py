@@ -78,6 +78,33 @@ def test_grads_match_jax_vjp(b, gclip):
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("gclip", [5.0, 0.01])
+def test_scan_at_h_768_matches_pallas_forward_and_vjp(gclip):
+    """H = 768, a width past the card's resident plan (there the CUDA
+    recurrence streams W_h; on the CPU the wrapper's plain version runs):
+    h against the Pallas kernel in interpret mode and the XLA oracle, dw
+    and dx against ``jax.vjp`` of the kernel, at the tolerances above.
+    The weights' scale shrinks as 1 / sqrt(E + H) from ``_inputs``'
+    default at H = 8, so the cell (h = o c, no tanh) stays as tame."""
+    h_dim, b = 768, 8
+    w, x, dh = _inputs(50, b, scale=0.4 * ((E + H) / (E + h_dim)) ** 0.5,
+                       h=h_dim)
+    want_r = np.asarray(reference_senticap_scan(jnp.asarray(w),
+                                                jnp.asarray(x)))
+    kernel = (lambda w_, x_: jscan(w_, x_, gclip, 8, True))
+    want_k, vjp = jax.vjp(kernel, jnp.asarray(w), jnp.asarray(x))
+    want_w, want_x = vjp(jnp.asarray(dh))
+    tw = torch.tensor(w, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    h = senticap_scan.fused_senticap_scan(tw, tx, gclip)
+    for want in (want_k, want_r):
+        np.testing.assert_allclose(h.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    got_w, got_x = torch.autograd.grad(h, (tw, tx), torch.tensor(dh))
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), **GRAD_TOL)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), **GRAD_TOL)
+
+
 def test_clamp_binds_at_small_gclip():
     """At gclip 0.01 the clamp changes the gradient (so a misplaced clamp
     cannot pass the test above), and at 5.0 the output cotangent is not
