@@ -286,7 +286,23 @@ Phases, in order; any failure exits non-zero:
    against plain (phase 13 (i)), then ``decode_split`` of 8 images at beam
    20 through K9, its captions this process's K9 search's, margin-aware
    against the plain search (phase 14's rule);
-25. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+25. widths that are not a multiple of 4 (the padded layout of
+   ``icee_tpu_torch/ops/widths.py``): (a) K1 (5 and 320 rows, top-20 at
+   160), K2 (both cells), K6 (both kinds), the h0/c0 kernel and K7 (both
+   kinds) at 1 and 64 images (k = 5) and 8 images at k = 20, 20 steps,
+   phase 6's seeded decoders cut to each case's widths,
+   against their plain versions as phases 4-5d hold them, K2 = K1
+   fused-step and K7 = K6 at atol 0, at V = 8189, 8190 and 8191 (every
+   residue mod 4) with F, H, A and FS ragged across the cases (E = 300);
+   K5 forward and backward at B = 128, T = 25, P = 196, both kinds, both
+   modes, at the ragged A and FS; (b) ``build_vocab`` over phase 19's
+   corpus with one word merged into another (V = 8191), ``train`` (one
+   StyleNet epoch, its K2 sample included) and ``evaluate`` as processes,
+   launches exact, no plain version; the engine and batcher for all four
+   variants at V = 8191, batched captions = serial; (c) K2 and K7 (1 and
+   64 images) and K1 (5 rows) at V = 8191 beside the same decoders at V =
+   8192, on a line of their own;
+26. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
    ``trainer``, ``resident``, ``seq2seq`` and ``wide_h`` (phase 24)
    entries), one
@@ -295,15 +311,17 @@ Phases, in order; any failure exits non-zero:
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b), one ``{"parallel": {...}}`` line (phase 23)
-   and one ``{"kernels": [...]}`` line
+   one ``{"widths": {...}}`` line (phase 25) and one ``{"kernels": [...]}``
+   line
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
    forward and backward, K9, the mixture CE forward and backward, K10, and
    the wide paths of K1, K2, K6 and K7, both cells: their launches phase
    5d (e)'s and, for K2, phase 19's beam-20 stage; K3, K4 and K8 past the
-   resident plan, forward and backward: their launches phase 24's);
-26. print ``{"ok": true, "device": {...}}`` as the last line.
+   resident plan, forward and backward: their launches phase 24's; K1,
+   K2 and K7 with their phase 25 (c) times at V = 8191);
+27. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -408,17 +426,27 @@ def captioning_params(device):
     image).  -> ``CaptionEngine``'s ``params``."""
     import torch
 
-    from icee_tpu_torch.core.config import (AttentionDecoderConfig,
-                                            DecoderConfig, EncoderConfig)
-    from icee_tpu_torch.models import (attention, encoder, factored_lstm,
-                                       lstm, resnet)
+    from icee_tpu_torch.models import resnet
 
     backbone = resnet.init_params(torch.Generator().manual_seed(0),
                                   device=device)
     for li in range(1, 5):
         for block in backbone[f"layer{li}"]:
             block["bn3"]["weight"].mul_(0.2)
-    out = {"backbone": backbone}
+    return {"backbone": backbone, **decoder_params(device)}
+
+
+def decoder_params(device):
+    """``captioning_params`` without the backbone: the four variants'
+    decoders (and the global ones' encoder heads) at this module's
+    widths."""
+    import torch
+
+    from icee_tpu_torch.core.config import (AttentionDecoderConfig,
+                                            DecoderConfig, EncoderConfig)
+    from icee_tpu_torch.models import attention, encoder, factored_lstm, lstm
+
+    out = {}
     for variant, init, head_w, seed in (
             ("stylenet", factored_lstm.init_params, "C", 1),
             ("nic", lstm.init_params, "linear", 3)):
@@ -3430,7 +3458,7 @@ def k5_trace_check(kind, args, samp, pidx, plain_h):
     return flips
 
 
-def check_k5(kind: str, sampled: bool, device):
+def check_k5(kind: str, sampled: bool, device, timed: bool = True):
     """Phase 10: K5 forward and backward vs the plain versions at B_ATT x
     T_STEPS, full width.  Forward: h and c atol 1e-4 (float32 sums over up
     to FS + E = 2348 terms in other orders, values O(1)), alpha atol 1e-5;
@@ -3438,7 +3466,8 @@ def check_k5(kind: str, sampled: bool, device):
     rerun on the kernel's trace.  Backward (the plain backward from the
     kernel forward's outputs): each grad's max abs error <= 1e-3 x its
     largest magnitude, and the same bits on a second run.  -> (forward,
-    backward) entries of the kernels line."""
+    backward) entries of the kernels line; untimed (``timed`` False), the
+    errors alone."""
     import torch
 
     from icee_tpu_torch.ops import att_scan
@@ -3519,6 +3548,10 @@ def check_k5(kind: str, sampled: bool, device):
         f"{max(recomputed_rel.values()):.3g} (worst "
         f"{max(recomputed_rel, key=recomputed_rel.get)}); backward "
         "bit-identical over two runs")
+    if not timed:
+        return ({"max_abs_err": max(max(errs.values()), alpha_err),
+                 "trace_flips": flips},
+                {"max_abs_err": abs_err, "max_rel_err": max(rel.values())})
 
     # times: kernel, plain version, library chain; forward then backward
     ms_f = cuda_ms(lambda: att_scan.att_scan_fwd(*args, samp), 5)
@@ -8680,6 +8713,386 @@ def wide_h_phase(device, keep: str) -> tuple:
         f"{stats['phase_s']:.1f} s; launches {launches}")
     return entries, stats
 
+# --- phase 25: widths that are not a multiple of 4 ---------------------------
+
+# (a)'s cases: V of every residue mod 4 (8192 is phases 4-5d's), ragged F,
+# H, A and FS across them, E = 300
+RAG_CASES = (dict(V=8189, F=512, H=512, A=512, FS=2048),
+             dict(V=8190, F=510, H=511, A=509, FS=2046),
+             dict(V=8191, F=511, H=509, A=510, FS=2047))
+RAG_STEPS = 20          # (a)'s searches: steps (cut as phase 5d cuts them)
+RAG_WIDE = (8, 20)      # (a)'s wide shape: images, k
+RAG_K5 = {8190: (("factored", False), ("lstm", True)),   # (a): K5's modes
+          8191: (("factored", True), ("lstm", False))}   # at each case
+RAG_V = 8191            # (b), (c): the vocabulary build_vocab gives
+RAG_REQUESTS = 8        # (b): the engine's requests (4 images x 2 modes)
+RAG_TIMED_IMAGES = (1, 64)   # (c)
+
+
+def ragged_kernels(device) -> dict:
+    """Phase 25 (a): K1 (R = 5, R = 320; top-20 at 160 rows), K2 (both
+    cells at 1 and 64 images, k = 5, and RAG_WIDE), K6 (both kinds at 1
+    and 64 images, k = 5, and one image at k = 20), the h0/c0 kernel (1 and
+    64 images) and K7 (as K2), each RAG_CASES case, against their plain
+    versions as phases 4-5d hold them (``check_k1``, ``check_k2_shape``,
+    ``check_k6``, ``check_k7_shape``: launches exact, K2 = K1 fused-step
+    and K7 = K6 at atol 0); K5 (``check_k5``, untimed) forward and
+    backward at B = 128, T = 25, P = 196 in the modes ``RAG_K5`` gives a
+    case.  -> {case: {kernel: max abs err}}."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_beam import search_init_state
+    from icee_tpu_torch.ops.att_decode_step import att_init_state
+
+    out = {}
+    seeded = decoder_params(device)
+    for case in RAG_CASES:
+        tag = "V{V} F{F} H{H} A{A} FS{FS}".format(**case)
+        errs = {}
+
+        def note(name, err):
+            errs[name] = max(errs.get(name, 0.0), err)
+
+        params = {v: cut_decoder(p["decoder"], **case)
+                  for v, p in seeded.items()}
+        with widths(**case):
+            sty, nic = params["stylenet"], params["nic"]
+            att = {kind: params[v] for kind, v in ATT_KINDS.items()}
+            with torch.inference_mode():
+                for rows, ktop in ((K, K), (B_IMAGES * K, K),
+                                   (RAG_WIDE[0] * RAG_WIDE[1], RAG_WIDE[1])):
+                    note("k1", check_k1(sty, device, rows, 7 + rows,
+                                        ktop=ktop)[1])
+                for cell, dec in (("factored", sty), ("lstm", nic)):
+                    for n_img, k in ((1, K), (B_IMAGES, K), RAG_WIDE):
+                        note("k2_" + cell, check_k2_shape(
+                            dec, device, cell, n_img, k=k,
+                            steps_max=RAG_STEPS, timed=False)["max_abs_err"])
+                for kind, dec in att.items():
+                    for n_img, k in ((1, K), (B_IMAGES, K), (1, 20)):
+                        note("k6_" + kind, check_k6(dec, kind, device, n_img,
+                                                    60 + n_img, k=k)[1])
+                    for n_img in (1, B_IMAGES):
+                        feats = att_features(device, n_img, 61)
+                        h0, c0 = att_init_state(dec, feats)
+                        want = att_mod.init_hidden_state(dec, feats)
+                        k7 = search_init_state(dec, feats, kind, 3
+                                               if kind == "factored" else 0)
+                        err = max((h0 - want[0]).abs().max().item(),
+                                  (c0 - want[1]).abs().max().item())
+                        if not err <= 1e-4 or not (
+                                torch.equal(h0, k7[0])
+                                and torch.equal(c0, k7[1])):
+                            fail(f"phase 25 (a) {tag}: h0/c0 {kind} at "
+                                 f"{n_img} images: error {err} or not K7's")
+                        note("att_init", err)
+                    for n_img, k in ((1, K), (B_IMAGES, K), RAG_WIDE):
+                        note("k7_" + kind, check_k7_shape(
+                            dec, kind, device, n_img, k=k,
+                            steps_max=RAG_STEPS, timed=False)["max_abs_err"])
+            del params, sty, nic, att
+            torch.cuda.empty_cache()
+            for kind, sampled in RAG_K5.get(case["V"], ()):
+                fwd, bwd = check_k5(kind, sampled, device, timed=False)
+                name = "k5_" + kind + ("_sampled" if sampled else "")
+                note(name + "_fwd", fwd["max_abs_err"])
+                note(name + "_bwd_rel", bwd["max_rel_err"])
+        torch.cuda.empty_cache()
+        out[tag] = errs
+        log(f"phase 25 (a) {tag}: every kernel ok, max abs err {errs}")
+    return out
+
+
+def ragged_files(keep: str, root: str) -> dict:
+    """Phase 19's caption files (in ``keep``) with the word w{V-1} written
+    as w{V-2} throughout, under ``root``: ``build_vocab --threshold 1``
+    then gives V - 1 = RAG_V words.  -> their paths."""
+    drop, into = f"w{V - 1}", f"w{V - 2}"
+    out = {}
+    for name in ("train", "val", "happy", "val_happy"):
+        with open(os.path.join(keep, f"{name}.txt")) as f:
+            lines = f.read().splitlines()
+        out[name] = os.path.join(root, f"{name}.txt")
+        with open(out[name], "w") as f:
+            for line in lines:
+                key, caption = line.split("\t")
+                f.write(key + "\t" + " ".join(
+                    into if w == drop else w for w in caption.split())
+                    + "\n")
+    return out
+
+
+def ragged_cli(keep: str) -> tuple:
+    """Phase 25 (b): the demo's path at a vocabulary that is not a multiple
+    of 4, as processes over phase 19's files (``keep``): ``build_vocab``
+    (V = RAG_V), ``train`` (one StyleNet epoch at ratio 1.0 on the feature
+    cache: K3 and the CE a step, K2 for the validation and the sample) and
+    ``evaluate --feed_feature`` (K2 a batch), launches exact and no plain
+    version.  -> (launches, stats)."""
+    from icee_tpu_torch.data.captions import load_caption_dataset
+    from icee_tpu_torch.data.vocab import load_vocab
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    import numpy as np
+
+    m = "icee_tpu_torch.cli."
+    launches, stats = {}, {}
+    root = os.path.join(keep, "ragged")
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    files = ragged_files(keep, root)
+    vocab_path = os.path.join(root, "vocab.pkl")
+    cache = os.path.join(keep, "features.npz")
+
+    def stage(name, module, args, want, ratio=None):
+        st, counts, out = cli_stage(name, module, args, logs, want, ratio,
+                                    phase=25)
+        stats[name] = st
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return out
+
+    stage("build_vocab", m + "build_vocab", [
+        "--caption_path", files["train"], "--vocab_path", vocab_path,
+        "--threshold", 1], {})
+    vocab = load_vocab(vocab_path)
+    if len(vocab) != RAG_V:
+        fail(f"phase 25 (b): build_vocab gave {len(vocab)} words, not "
+             f"{RAG_V}")
+    t_cap = STEPS + 2
+    n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
+    n_emo = -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION)
+    ce = sum(n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
+             for n, b in ((n_fac, CLI_BATCH), (n_emo, B_EMOTION)))
+    models = os.path.join(root, "models")
+    stage("train", m + "train", [
+        "--trainer", "multitask", "--family", "stylenet", "--mode", "happy",
+        "--vocab_path", vocab_path, "--caption_path", files["train"],
+        "--val_caption_path", files["val"], "--happy_path", files["happy"],
+        "--val_happy_path", files["val_happy"], "--feature_cache", cache,
+        "--num_epochs", 1, "--caption_batch_size", CLI_BATCH,
+        "--language_batch_size", B_EMOTION, "--model_path", models,
+        "--log_path", os.path.join(logs, "train.txt"), "--metrics_path",
+        os.path.join(logs, "train.jsonl"), "--data_name", "ragged",
+        "--log_step", 10 ** 9, "--log_step_emotion", 10 ** 9],
+        {"fused_factored_scan_fwd": n_fac + n_emo,
+         "fused_factored_scan_bwd": n_fac + n_emo, "ce_rows": ce,
+         "ce_grad_rows": ce, "mega_beam_decode": 2}, ratio=1.0)
+    with open(os.path.join(logs, "train.jsonl")) as f:
+        losses = [e["train_loss"] for e in map(json.loads, f)
+                  if e["event"] == "epoch_factual"]
+    if len(losses) != 1 or not np.isfinite(losses[0]):
+        fail(f"phase 25 (b) train: factual losses {losses}")
+    stats["train"]["train_loss"] = losses
+    best = os.path.join(models, "HAP_BEST_checkpoint_ragged")
+    if not os.path.isdir(best):
+        best = os.path.join(models, "HAP_checkpoint_ragged")
+    n_val = len(load_caption_dataset(files["val"], vocab))
+    out = stage("evaluate", m + "evaluate", [
+        "--vocab_path", vocab_path, "--feature_cache", cache, "--batch_size",
+        CLI_BATCH, "--checkpoint_path", best, "--test_path", files["val"],
+        "--mode", "happy", "--feed_feature"],
+        {"mega_beam_decode": -(-n_val // CLI_BATCH)})
+    bleu = bleu_lines(out)
+    if len(bleu) != 4 or not all(np.isfinite(b) for b in bleu):
+        fail(f"phase 25 (b) evaluate: BLEU lines {bleu}")
+    stats["evaluate"]["bleu"] = bleu
+    return launches, stats
+
+
+def ragged_serving(device, root: str) -> tuple:
+    """Phase 25 (b), in process: ``CaptionEngine`` with phase 6's four
+    seeded variants cut to V = RAG_V (``cut_decoder``; E = 300, H = F =
+    A = 512, FS = 2048),
+    RAG_REQUESTS requests one by one, then the same through the
+    ``BatchingEngine`` all at once: the batched captions those of the
+    serial ones; K2 (both cells) and K7 (both kinds) launched on each
+    path, no plain version.  -> (launches, stats)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode
+    from icee_tpu_torch.ops.beam import mega_beam_decode
+    from icee_tpu_torch.serve.batching import BatchingEngine
+    from icee_tpu_torch.serve.config import ServeConfig
+    from icee_tpu_torch.serve.engine import CaptionEngine
+
+    counters = {"mega_beam_decode": (mega_beam_decode, "launches"),
+                "mega_beam_decode_lstm": (mega_beam_decode,
+                                          "lstm_launches"),
+                "mega_att_beam_decode": (mega_att_beam_decode, "launches"),
+                "mega_att_beam_decode_lstm": (mega_att_beam_decode,
+                                              "lstm_launches")}
+    rng = np.random.default_rng(25)
+    paths = []
+    for i in range(RAG_REQUESTS // 2):
+        base = rng.integers(0, 255, (8, 8, 3), dtype=np.uint8)
+        p = os.path.join(root, f"photo{i}.jpg")
+        Image.fromarray(base).resize((256, 256), Image.BILINEAR).save(
+            p, quality=90)
+        paths.append(p)
+    requests = [(paths[i // 2], MODES[(i // 2 + i % 2) % 4])
+                for i in range(RAG_REQUESTS)]
+    params = captioning_params(device)
+    for variant in SERVED:
+        params[variant]["decoder"] = cut_decoder(params[variant]["decoder"],
+                                                 V=RAG_V)
+    with widths(V=RAG_V):
+        config = ServeConfig(backend_host="127.0.0.1", backend_port=0,
+                             image_folder=os.path.join(root, "uploads"),
+                             vocab_path=serving_vocab(root),
+                             batch_window_ms=200.0)
+    engine = CaptionEngine(config, image_size=224, device=device,
+                           params=params)
+    if len(engine.vocab) != RAG_V:
+        fail(f"phase 25 (b): the engine's vocabulary {len(engine.vocab)}")
+    engine.caption(paths[0], "happy")     # warm-up
+    launches = {}
+    results = {}
+    for path in ("serial", "batched"):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        with plain_counters() as plain:
+            if path == "serial":
+                results[path] = [engine.caption(p, m) for p, m in requests]
+            else:
+                batcher = BatchingEngine(engine,
+                                         window_ms=config.batch_window_ms)
+                with ThreadPoolExecutor(len(requests)) as pool:
+                    results[path] = list(pool.map(
+                        lambda r: batcher.caption(*r), requests))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(plain.values()):
+            fail(f"phase 25 (b) {path}: a plain version ran: {plain}")
+        launches[path] = {k: getattr(fn, a) for k, (fn, a) in
+                          counters.items()}
+        if not all(launches[path].values()):
+            fail(f"phase 25 (b) {path}: launches {launches[path]}")
+        launches[path]["wall_s"] = wall
+    for j, (p, m) in enumerate(requests):
+        if results["batched"][j] != results["serial"][j]:
+            fail(f"phase 25 (b) request {j} ({m}): batched "
+                 f"{results['batched'][j]} != serial {results['serial'][j]}")
+    words = {v: [len(r[v].split()) for r in results["serial"]]
+             for v in SERVED}
+    if not all(max(w) for w in words.values()):
+        fail(f"phase 25 (b): every caption of a variant is empty: {words}")
+    log(f"phase 25 (b): the engine at V = {RAG_V}: {len(requests)} x "
+        f"{len(SERVED)} captions batched = serial; words per caption "
+        f"{ {v: (min(w), max(w)) for v, w in words.items()} }; e.g. "
+        f"{results['serial'][0]}; launches {launches}")
+    total = {k: launches["serial"][k] + launches["batched"][k]
+             for k in counters}
+    return total, {"requests": len(requests), "launches": launches,
+                   "words_min_max": {v: [min(w), max(w)]
+                                     for v, w in words.items()}}
+
+
+def cut_decoder(dec, **dims):
+    """A decoder seeded at this module's widths cut to ``dims`` (any of V,
+    F, H, A, FS): the leading corner of each weight (of each gate block),
+    the rest shared (``ops/widths.py::cut``): the same model less the cut
+    units and words, whose beams keep phase 5's lengths."""
+    from icee_tpu_torch.ops import widths as layout
+
+    w = {n: (dims.get(n, full), full) for n, full in (
+        ("E", E), ("F", F), ("H", H), ("V", V), ("A", A), ("FS", FS))}
+    fs = w["FS"] if "attention" in dec else (0, 0)
+    w["X"] = (E + fs[0], E + fs[1])
+    return layout.pad_tree(dec, w, layout.cut)
+
+
+def ragged_times(device) -> dict:
+    """Phase 25 (c): K2 (factored) and K7 (factored) at 1 and 64 images,
+    40 steps, k = 5, and K1 at R = 5, with phase 6's seeded decoders at V
+    = 8192 and the same decoders cut to V = RAG_V (``cut_decoder``): CUDA
+    events, aligned, ragged, aligned, ragged, each the mean of its calls;
+    the ragged/aligned ratio of the means, and each search's live
+    row-steps (the work, the same where the beams are).  -> figures."""
+    import torch
+
+    from icee_tpu_torch.ops.att_beam import (mega_att_beam_decode,
+                                             mega_att_beam_decode_steps)
+    from icee_tpu_torch.ops.beam import (mega_beam_decode,
+                                         mega_beam_decode_steps)
+    from icee_tpu_torch.ops.decode_step import decode_step_topk
+
+    params = decoder_params(device)
+    sty = params["stylenet"]["decoder"]
+    att = params["stylenet_att"]["decoder"]
+    decs = {"aligned": (sty, att),
+            "ragged": (cut_decoder(sty, V=RAG_V), cut_decoder(att, V=RAG_V))}
+    out = {"V": [V, RAG_V]}
+    g = torch.Generator(device=device).manual_seed(25)
+    with torch.inference_mode():
+        x = torch.randn((K, E), generator=g, device=device) * 0.5
+        h = torch.randn((K, H), generator=g, device=device) * 0.5
+        for name, (s, _) in decs.items():
+            decode_step_topk(s, x, h, h, 1)
+        fns = {"k1_r5": lambda s, a, n: decode_step_topk(s, x, h, h, 1)}
+        feats = {}
+        for n in RAG_TIMED_IMAGES:
+            feats[n] = (torch.randn((n, 1, E), generator=g, device=device)
+                        .expand(n, K, E).contiguous(),
+                        att_features(device, n, 25))
+            fns[f"k2_images{n}"] = lambda s, a, n: mega_beam_decode(
+                s, feats[n][0], 2, n, k=K, max_seq_length=STEPS)
+            fns[f"k7_images{n}"] = lambda s, a, n: mega_att_beam_decode(
+                a, feats[n][1], 3, n, k=K, max_seq_length=STEPS)
+            for name, (s, a) in decs.items():
+                _, st = mega_beam_decode_steps(s, feats[n][0], 2, n, k=K,
+                                               max_seq_length=STEPS)
+                _, st7 = mega_att_beam_decode_steps(a, feats[n][1], 3, n,
+                                                    k=K, max_seq_length=STEPS)
+                out.setdefault(f"k2_images{n}", {})[f"{name}_row_steps"] = \
+                    int(st[:, 1].sum())
+                out.setdefault(f"k7_images{n}", {})[f"{name}_row_steps"] = \
+                    int(st7[:, 1].sum())
+        for key, fn in fns.items():
+            n = int(key.rsplit("images", 1)[1]) if "images" in key else K
+            iters = (100, 10) if key == "k1_r5" else (5, 1)
+            runs = {"aligned": [], "ragged": []}
+            for name in ("aligned", "ragged", "aligned", "ragged"):
+                s, a = decs[name]
+                runs[name].append(cuda_ms(lambda: fn(s, a, n), *iters))
+            fig = out.setdefault(key, {})
+            for name, ms in runs.items():
+                fig[f"{name}_ms"] = sum(ms) / len(ms)
+                fig[f"{name}_runs_ms"] = ms
+            fig["ratio"] = fig["ragged_ms"] / fig["aligned_ms"]
+    return out
+
+
+def ragged_phase(device, keep: str) -> tuple:
+    """Phase 25: (b)'s processes (``ragged_cli``) on a thread of their own
+    while this process runs (a) and (b)'s engine, then (c) alone on the
+    card.  -> (launches of (b), stats)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(ragged_cli, keep)
+        stats = {"kernels": ragged_kernels(device)}
+        t_a = time.perf_counter() - t0
+        serve_root = os.path.join(keep, "ragged_serve")
+        os.makedirs(serve_root)
+        launches, stats["serve"] = ragged_serving(device, serve_root)
+        cli_launches, stats["cli"] = cli.result()
+    for k, n in cli_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    t_b = time.perf_counter() - t0
+    stats["times"] = ragged_times(device)
+    stats["phase_s"] = {"a": t_a, "a_b": t_b, "whole":
+                        time.perf_counter() - t0}
+    log("phase 25 (c): ragged vocabulary times: "
+        + json.dumps({"widths_times": stats["times"]}))
+    log(f"phase 25: widths that are not a multiple of 4 ok in "
+        f"{stats['phase_s']['whole']:.1f} s ((a) {t_a:.1f} s, (a) and (b) "
+        f"{t_b:.1f} s); launches {launches}")
+    return launches, stats
+
 
 def main() -> int:
     import shutil
@@ -9036,6 +9449,8 @@ def main() -> int:
                                            train["factual_step_ms"])
         t24 = time.perf_counter()
         wide_h, train["wide_h"] = wide_h_phase(device, keep)
+        t25 = time.perf_counter()
+        rag_launches, ragged = ragged_phase(device, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     # every rank's launches: K3, the CE, K2 and K7 (phase 19's stages over
@@ -9063,7 +9478,19 @@ def main() -> int:
         "mega_beam_decode_lstm", 0)
     k9["launches"] += train["wide_h"]["launches"].get(
         "mega_senticap_beam_decode", 0)
-    log(f"phase 24 done in {time.perf_counter() - t24:.1f} s; phases 21-24"
+    log(f"phase 24 done in {t25 - t24:.1f} s")
+    # phase 25's (b): K3, the CE and K2 (train, evaluate, the engine), K2
+    # lstm and K7 (the engine)
+    for entry in (k3f, k3b, cef, ceb, k2, k2_lstm, k7["factored"],
+                  k7["lstm"]):
+        entry["launches"] += rag_launches.get(entry["name"], 0)
+    times = ragged["times"]
+    k1["ragged_v8191"] = times["k1_r5"]
+    k2["ragged_v8191"] = {f"images{n}": times[f"k2_images{n}"]
+                          for n in RAG_TIMED_IMAGES}
+    k7["factored"]["ragged_v8191"] = {f"images{n}": times[f"k7_images{n}"]
+                                      for n in RAG_TIMED_IMAGES}
+    log(f"phase 25 done in {time.perf_counter() - t25:.1f} s; phases 21-25"
         f" done; the whole run {time.perf_counter() - t_run:.1f} s (the "
         "kernels' build included)")
     print(json.dumps({"train": train}))
@@ -9073,6 +9500,7 @@ def main() -> int:
                                  "senticap_switched": decode_sw}}))
     print(json.dumps({"split_timeline": stages}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"widths": ragged}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,

@@ -48,10 +48,12 @@ import torch
 from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.models import factored_lstm as fl
-from icee_tpu_torch.ops import cuda_lib
-from icee_tpu_torch.ops.att_decode_step import (K_MAX, KINDS, V_TILE,
-                                                check_step_params,
-                                                step_params, _kind)
+from icee_tpu_torch.ops import cuda_lib, widths
+from icee_tpu_torch.ops.att_decode_step import (ATT_WEIGHTS, CELL_WEIGHTS,
+                                                GATE_WEIGHTS, K_MAX, KINDS,
+                                                V_TILE, check_step_params,
+                                                step_layout, step_params,
+                                                _kind)
 from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
                                      MAX_STAGES, NSLOT, PLAN_ARRAYS,
                                      SLOT_FLOATS, THREADS,
@@ -60,8 +62,7 @@ from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
                                      plan_stage, plan_struct,
                                      selection_regions, stage_with_width,
                                      slabs_on, tail_floats)
-from icee_tpu_torch.ops.decode_step import (K_WIDE, check_beam_width,
-                                            check_kernel_widths)
+from icee_tpu_torch.ops.decode_step import K_WIDE, check_beam_width
 
 # csrc/grid_beam.cuh's limits for the attention (checked against the
 # library when it loads)
@@ -124,7 +125,9 @@ def mega_att_beam_decode(params: dict, features: torch.Tensor, style: int,
     StyleNet+Att tree (``style`` selects S and the attention net);
     ``kind="lstm"`` a NIC+Att tree (``style`` ignored).  Returns a
     :class:`BeamResult`, token-identical to
-    :func:`mega_att_beam_decode_plain` up to float near-ties."""
+    :func:`mega_att_beam_decode_plain` up to float near-ties.  Any F, H, V,
+    A and FS: on the card the kernel reads the weights, the features and
+    att1 at widths rounded up to 4 (``ops/widths.py``)."""
     return mega_att_beam_decode_steps(params, features, style, batch,
                                       start_token, end_token, k,
                                       max_seq_length, kind)[0]
@@ -196,19 +199,21 @@ def score_units(p: int, n_img: int, grid: int) -> Tuple[int, int]:
 def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
                   fs: int, k: int, n_img: int, max_seq: int,
                   grid: int) -> AttGridPlan:
-    """The plan of one launch for ``n_img`` images on ``grid`` blocks;
-    raises ValueError on what the kernel does not take."""
+    """The plan of one launch for ``n_img`` images on ``grid`` blocks, at
+    F, H, V, A and FS rounded up to 4 (the padded layout the kernel reads,
+    ``ops/widths.py``: the plan's widths); raises ValueError on what the
+    kernel does not take."""
     _kind(kind)
-    check_kernel_widths(f, h, v, a, fs)
     if kind == "lstm" and f != h:
         raise ValueError(f"f={f} != h={h}: the LSTM cell's widths are H")
     if not 1 <= k <= min(K_WIDE, v):
         raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
                          "K7 (csrc/att_beam.cu) takes at most K_WIDE")
-    if e < 1 or n_img < 1 or max_seq < 0 or grid < 1 or a < 4 or fs < 4:
+    if e < 1 or n_img < 1 or max_seq < 0 or grid < 1 or a < 1 or fs < 1:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}, a={a}, fs={fs}: each must be "
-                         "positive (a, fs at least 4)")
+                         "positive")
+    f, h, v, a, fs = map(widths.quad, (f, h, v, a, fs))
     if not 1 <= p <= MAX_P:
         raise ValueError(f"P={p} positions outside [1, {MAX_P}]")
     if K_MAX * a > NSLOT * SLOT_FLOATS:
@@ -325,20 +330,16 @@ def _search(params: dict, features: torch.Tensor, style: int, batch: int,
                                           max_seq_length, kind), None, []
     if device.type != "cuda":
         raise ValueError(f"mega_att_beam_decode: unsupported device {device}")
-    check_kernel_widths(f, hd, v, a, fs)
     lib = _library()
     blocks = check_grid(grid, max_grid(device))
-    att1 = att_mod.att_projection(att, features)
+    w, held = cuda_lib.checked_weights(
+        decoder_trees(params), ("K7", kind, int(style), device),
+        lambda: _search_weights(params, kind, int(style), e))
     ptr = cuda_lib.ptr
-    names = (("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b")
-             if kind == "factored" else ("W_ih", "b_ih", "W_hh", "b_hh"))
-    weights = (ptr(emb), ptr(att["dec_w"]), ptr(att["dec_b"]),
-               ptr(att["full_w"]), ptr(att["full_b"]), ptr(gate["f_beta_w"]),
-               ptr(gate["f_beta_b"]),
-               *(ptr(params[n]) for n in ("init_h_w", "init_h_b", "init_c_w",
-                                          "init_c_b")),
-               *(ptr(cell[n]) for n in names), ptr(cell["C_w"]),
-               ptr(cell["C_b"]))
+    att1 = widths.pad_last(att_mod.att_projection(att, features),
+                           w["A"][1])
+    features = widths.pad_last(features, w["FS"][1])
+    weights = (ptr(emb), *held[0])
     fn = (lib.icee_mega_att_beam_decode if kind == "factored"
           else lib.icee_mega_att_beam_decode_lstm)
     i32 = dict(dtype=torch.int32, device=device)
@@ -374,6 +375,43 @@ def _search(params: dict, features: torch.Tensor, style: int, batch: int,
             launched)
 
 
+INIT_WEIGHTS = ("init_h_w", "init_h_b", "init_c_w", "init_c_b")
+
+
+def decoder_trees(params: dict) -> Tuple[dict, ...]:
+    """An attention decoder's tree and the trees nested in it (the
+    attention nets, the LSTM cell), whose tensors key its padded copy."""
+    return (params, *(t for t in params.values() if isinstance(t, dict)))
+
+
+def init_layout(params: dict, fs: int) -> Tuple[widths.Widths, dict]:
+    """The h0/c0 weights (``INIT_WEIGHTS``) at H and FS rounded up to 4,
+    and their widths (``ops/widths.py``)."""
+    w = widths.widths(H=params["init_h_w"].shape[1], FS=fs)
+    return w, widths.pad_tree({n: params[n] for n in INIT_WEIGHTS}, w)
+
+
+def search_layout(params: dict, kind: str, style: int,
+                  e: int) -> Tuple[widths.Widths, dict]:
+    """K7's launch setup: the widths (true, padded) and the weights the
+    kernel reads (the style's step trees as K6 takes them, and the h0/c0
+    weights) laid out at the padded widths."""
+    cell, att, gate = step_params(params, kind, style)
+    w, kern = step_layout(cell, att, gate, kind, e)
+    kern.update(init_layout(params, w["FS"][0])[1])
+    return w, kern
+
+
+def _search_weights(params: dict, kind: str, style: int, e: int):
+    """-> (widths, (the kernel's weight arguments after the embedding, the
+    padded tensors they point into))."""
+    w, kern = search_layout(params, kind, style, e)
+    names = (ATT_WEIGHTS + GATE_WEIGHTS + INIT_WEIGHTS + CELL_WEIGHTS[kind]
+             + ("C_w", "C_b"))
+    held = (tuple(cuda_lib.ptr(kern[n]) for n in names), kern)
+    return widths.checked(w, held)
+
+
 def search_init_state(params: dict, features: torch.Tensor,
                       kind: str = "factored", style: int = 0, k: int = 5
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -393,8 +431,9 @@ def search_init_state(params: dict, features: torch.Tensor,
         parts = []
         for plan, scratch in launched:
             off, _ = plan.region(name)
-            plane = scratch[off + plan.rows * hd:off + 2 * plan.rows * hd]
-            parts.append(plane.view(plan.n_img, plan.k, hd)[:, 0])
+            plane = scratch[off + plan.rows * plan.h:
+                            off + 2 * plan.rows * plan.h]
+            parts.append(plane.view(plan.n_img, plan.k, plan.h)[:, 0, :hd])
         out.append(torch.cat(parts))
     return out[0], out[1]
 
@@ -427,12 +466,13 @@ class AttInitPlan:
 def att_init_plan(h: int, p: int, fs: int, n_img: int,
                   grid: int) -> AttInitPlan:
     """The plan of one h0/c0 launch: the search's init stage planned as
-    :func:`att_grid_plan` plans it (units (column slab, image block));
-    raises ValueError on what the kernel does not take."""
-    check_kernel_widths(h, fs)
-    if p < 1 or n_img < 1 or grid < 1 or h < 4 or fs < 4:
+    :func:`att_grid_plan` plans it (units (column slab, image block)), at
+    H and FS rounded up to 4; raises ValueError on what the kernel does
+    not take."""
+    if p < 1 or n_img < 1 or grid < 1 or h < 1 or fs < 1:
         raise ValueError(f"P={p}, n_img={n_img}, grid={grid}, h={h}, "
-                         f"fs={fs}: each must be positive (h, fs at least 4)")
+                         f"fs={fs}: each must be positive")
+    h, fs = widths.quad(h), widths.quad(fs)
     if n_img > MAX_ROWS:
         raise ValueError(f"{n_img} images: one launch takes at most "
                          f"{MAX_ROWS}")
@@ -464,12 +504,16 @@ def init_state(params: dict, features: torch.Tensor
     hd = params["init_h_w"].shape[1]
     lib = _library()
     blocks = max_grid(device)
+    w, kern = cuda_lib.checked_weights(
+        (params,), ("init", fs, device),
+        lambda: widths.checked(*init_layout(params, fs)))
+    hp, fsp = w["H"][1], w["FS"][1]
+    features = widths.pad_last(features, fsp)
     f32 = dict(dtype=torch.float32, device=device)
-    h0 = torch.empty((n_all, hd), **f32)
+    h0 = torch.empty((n_all, hp), **f32)
     c0 = torch.empty_like(h0)
     ptr = cuda_lib.ptr
-    weights = [ptr(params[n]) for n in ("init_h_w", "init_h_b", "init_c_w",
-                                        "init_c_b")]
+    weights = [ptr(kern[n]) for n in INIT_WEIGHTS]
     for first, n_img in launch_chunks(n_all, 1):
         plan = att_init_plan(hd, p, fs, n_img, blocks)
         scratch = torch.empty((plan.n_floats,), **f32)
@@ -478,7 +522,7 @@ def init_state(params: dict, features: torch.Tensor
             if len(_init_cplans) >= 64:
                 _init_cplans.clear()
             cplan = _init_cplans[plan] = plan_struct(_CInitPlan, plan, dict(
-                H=hd, P=p, FS=fs, n_img=n_img, grid=blocks, n_stages=1),
+                H=hp, P=p, FS=fsp, n_img=n_img, grid=blocks, n_stages=1),
                 ("mean",))
         rc = lib.icee_att_init_state(
             ctypes.byref(cplan), ptr(slabs_on(plan, device)),
@@ -486,7 +530,7 @@ def init_state(params: dict, features: torch.Tensor
             ptr(h0[first:first + n_img]), ptr(c0[first:first + n_img]),
             ptr(scratch), cuda_lib.stream_ptr(device))
         cuda_lib.check_rc(lib, rc, "att_init_state")
-    return h0, c0
+    return widths.cut_last(h0, hd), widths.cut_last(c0, hd)
 
 
 mega_att_beam_decode.launches = 0       # kernel launches, kind="factored"

@@ -48,11 +48,10 @@ import torch
 
 from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
 from icee_tpu_torch.ops.decode_step import (K_MAX, K_WIDE, SPLIT_ROWS,
                                             V_TILE, check_beam_width,
-                                            check_kernel_widths,
                                             scratch_ptrs, tiled_scratch)
 
 KINDS = ("factored", "lstm")
@@ -133,33 +132,57 @@ def check_step_params(cell_params: dict, att_params: dict, gate_params: dict,
     return f, h, v, a, fs
 
 
+CELL_WEIGHTS = {"factored": ("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w",
+                             "W_b"),
+                "lstm": ("W_ih", "b_ih", "W_hh", "b_hh")}
+ATT_WEIGHTS = ("dec_w", "dec_b", "full_w", "full_b")
+GATE_WEIGHTS = ("f_beta_w", "f_beta_b")
+
+
+def step_layout(cell_params: dict, att_params: dict, gate_params: dict,
+                kind: str, e: int) -> Tuple[widths.Widths, dict]:
+    """K6's launch setup (and K7's, on the style's trees): the widths
+    (true, padded) and one tree of the weights the kernel reads, the
+    cell's (with the head ``C_w``/``C_b``), the attention net's and the
+    gate's, laid out at the padded widths (``ops/widths.py``); the tensors
+    themselves where no width grows."""
+    h, a = att_params["dec_w"].shape
+    f = cell_params["U_w"].shape[1] if _kind(kind) == "factored" else h
+    w = widths.widths(E=e, F=f, H=h, V=cell_params["C_w"].shape[1], A=a,
+                      FS=gate_params["f_beta_w"].shape[1])
+    names = CELL_WEIGHTS[kind] + ("C_w", "C_b")
+    tree = {**{n: att_params[n] for n in ATT_WEIGHTS},
+            **{n: gate_params[n] for n in GATE_WEIGHTS},
+            **{n: cell_params[n] for n in names}}
+    return w, widths.pad_tree(tree, w)
+
+
 def _step_weights(cell_params: dict, att_params: dict, gate_params: dict,
                   kind: str, e: int, fs: int, device: torch.device,
                   split: bool):
-    """Validates the step's weights; -> (F, H, V, A, FS, addresses): on a
-    CUDA device the kernel's weight arguments after the step's inputs and
-    its widths after the outputs, on the CPU None."""
-    f, hd, v, a, fs = check_step_params(cell_params, att_params, gate_params,
-                                        kind, e + fs, device)
+    """Validates the step's weights; -> (widths, kernel weights): on a
+    CUDA device the kernel's weight arguments after the step's inputs (at
+    the padded widths), its cell widths after the outputs, and the padded
+    tensors they point into; on the CPU None."""
+    f, h, v, a, fs = check_step_params(cell_params, att_params, gate_params,
+                                       kind, e + fs, device)
     if device.type == "cpu":
-        return f, hd, v, a, fs, None
+        return widths.widths(E=e, F=f, H=h, V=v, A=a, FS=fs), None
     if device.type != "cuda":
         raise ValueError(f"att_decode_step_topk: unsupported device {device}")
-    check_kernel_widths(f, hd, v, a, fs)
+    w, kern = step_layout(cell_params, att_params, gate_params, kind, e)
+    fp, hp, fsp = w["F"][1], w["H"][1], w["FS"][1]
     if not split:  # the row-tiled cell launch holds 8 rows' planes
-        smem = _library().icee_att_step_smem(e, f, hd, fs)
+        smem = _library().icee_att_step_smem(e, fp, hp, fsp)
         if smem > cuda_lib.SMEM_LIMIT:
             raise ValueError(f"att_decode_step_topk needs {smem} bytes of "
                              f"shared memory per block, more than "
                              f"{cuda_lib.SMEM_LIMIT}")
     ptr = cuda_lib.ptr
-    cp, ap, gp = cell_params, att_params, gate_params
-    names = (("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b")
-             if kind == "factored" else ("W_ih", "b_ih", "W_hh", "b_hh"))
-    before = (ptr(ap["dec_w"]), ptr(ap["dec_b"]), ptr(ap["full_w"]),
-              ptr(ap["full_b"]), ptr(gp["f_beta_w"]), ptr(gp["f_beta_b"]),
-              *(ptr(cp[n]) for n in names), ptr(cp["C_w"]), ptr(cp["C_b"]))
-    return f, hd, v, a, fs, (before, (f, hd) if kind == "factored" else (hd,))
+    names = ATT_WEIGHTS + GATE_WEIGHTS + CELL_WEIGHTS[kind] + ("C_w", "C_b")
+    held = (tuple(ptr(kern[n]) for n in names),
+            (fp, hp) if kind == "factored" else (hp,), kern)
+    return widths.checked(w, held)
 
 
 def att_decode_step_topk(cell_params: dict, att_params: dict,
@@ -174,7 +197,10 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     style's S_w (4, F, F) and S_b; lstm: W_ih, W_hh, b_ih, b_hh) and the
     head ``C_w``/``C_b``; ``att_params``: the style's dec_w, dec_b, full_w,
     full_b; ``gate_params``: f_beta_w, f_beta_b.  ``features`` (n_img, P,
-    FS) and ``att1`` (n_img, P, A) are per image.  Float32 only.
+    FS) and ``att1`` (n_img, P, A) are per image.  Float32 only.  Any F,
+    H, V, A and FS: on the card the kernel runs at widths rounded up to 4
+    (``ops/widths.py``), h, c, the features and att1 padded in, h' and c'
+    cut back out.
     """
     device = x.device
     rows, e = x.shape
@@ -186,10 +212,11 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
                          f"(csrc/att_decode_step.cu) takes at most K_WIDE = "
                          f"{K_WIDE}")
     split = n_img == 1 and k <= SPLIT_ROWS
-    f, hd, v, a, fs, wp = cuda_lib.checked_weights(
+    w, wp = cuda_lib.checked_weights(
         (cell_params, att_params, gate_params), (kind, e, fs, device, split),
         lambda: _step_weights(cell_params, att_params, gate_params, kind, e,
                               fs, device, split))
+    hd, v, a = w["H"][0], w["V"][0], w["A"][0]
     for name, t, shape in (("x", x, (rows, e)), ("h", h, (rows, hd)),
                            ("c", c, (rows, hd)),
                            ("features", features, (n_img, p, fs)),
@@ -203,21 +230,22 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
                                           att1, kind, k, ktop)
 
     lib = _library()
+    fp, hp, vp, ap, fsp = (w[n][1] for n in ("F", "H", "V", "A", "FS"))
     f32 = dict(dtype=torch.float32, device=device)
-    h_out = torch.empty((rows, hd), **f32)
-    c_out = torch.empty((rows, hd), **f32)
+    h_out = torch.empty((rows, hp), **f32)
+    c_out = torch.empty((rows, hp), **f32)
     logp = torch.empty((rows, ktop), **f32)
     idx = torch.empty((rows, ktop), dtype=torch.int32, device=device)
     alpha = torch.empty((rows, p), **f32)
     ptr = cuda_lib.ptr
     if split:
         work = torch.empty((lib.icee_att_step_split_work(
-            kind == "factored", k, f, hd, v, a, p, fs),), **f32)
+            kind == "factored", k, fp, hp, vp, ap, p, fsp),), **f32)
         outs = (ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
                 ptr(work), k, e)
     else:
-        x_full = torch.empty((rows, e + fs), **f32)
-        scratch = tiled_scratch(rows, v, ktop, device)
+        x_full = torch.empty((rows, e + fsp), **f32)
+        scratch = tiled_scratch(rows, vp, ktop, device)
         outs = (ptr(x_full), ptr(h_out), ptr(c_out), ptr(logp), ptr(idx),
                 ptr(alpha), *scratch_ptrs(scratch), n_img, k, e)
     fn = {("factored", False): lib.icee_att_decode_step_topk,
@@ -225,15 +253,18 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
           ("lstm", False): lib.icee_att_decode_step_topk_lstm,
           ("lstm", True): lib.icee_att_decode_step_topk_lstm_split}[
               kind, split]
-    rc = fn(ptr(x), ptr(h), ptr(c), ptr(features), ptr(att1), *wp[0], *outs,
-            *wp[1], v, a, p, fs, ktop, cuda_lib.stream_ptr(device))
+    ins = (widths.pad_last(h, hp), widths.pad_last(c, hp),
+           widths.pad_last(features, fsp), widths.pad_last(att1, ap))
+    rc = fn(ptr(x), *map(ptr, ins), *wp[0], *outs, *wp[1], vp, ap, p, fsp,
+            ktop, cuda_lib.stream_ptr(device))
     cuda_lib.check_rc(lib, rc, f"att_decode_step_topk (kind={kind})")
     prefix = "" if kind == "factored" else "lstm_"
     counts = att_decode_step_topk.__dict__
     counts[prefix + "launches"] += 1
     counts[prefix + ("split_launches" if split else "tiled_launches")] += 1
     counts[prefix + "wide_launches"] += max(k, ktop) > K_MAX
-    return logp, idx, h_out, c_out, alpha
+    return (logp, idx, widths.cut_last(h_out, hd), widths.cut_last(c_out, hd),
+            alpha)
 
 
 att_decode_step_topk.launches = 0       # kernel calls, kind="factored"
@@ -265,7 +296,6 @@ def att_init_state(params: dict, features: torch.Tensor
         return att_mod.init_hidden_state(params, features)
     if device.type != "cuda":
         raise ValueError(f"att_init_state: unsupported device {device}")
-    check_kernel_widths(hd, fs)
     from icee_tpu_torch.ops import att_beam  # it imports this module
 
     h0, c0 = att_beam.init_state(params, features)

@@ -35,7 +35,9 @@ Plain versions, beside the kernels: :func:`fused_att_scan_plain`,
 follow) and :func:`att_scan_bwd_plain` (the explicit backward of
 ``_bwd_impl``).  The wrappers :func:`att_scan_fwd` and :func:`att_scan_bwd`
 take the plain versions only for tensors on the CPU; for CUDA tensors they
-launch the kernels or raise.  Launch counts, per cell and mode:
+launch the kernels or raise, on any A and FS (the kernels read att1, the
+features and the attention weights at widths rounded up to 4,
+:func:`card_layout`).  Launch counts, per cell and mode:
 ``att_scan_fwd.launches`` (factored, teacher-forced), ``.lstm_launches``,
 ``.sampled_launches``, ``.sampled_lstm_launches``, and the same on
 ``att_scan_bwd``.
@@ -56,7 +58,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, widths
 
 FACTORED_KEYS = ("V_we", "V_wc", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w",
                  "W_b")
@@ -559,18 +561,22 @@ def _time_major(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).contiguous()
 
 
-def _check_card(dims, att1, features, att: dict) -> None:
-    """What the CUDA kernels take beyond the shapes: A and FS multiples of
-    4 and 16-byte aligned rows (they read att1, the features and full_w as
-    float4)."""
-    a, fs = dims[5], dims[7]
-    if a % 4 or fs % 4:
-        raise ValueError(f"att_scan: A={a} and FS={fs} must be multiples "
-                         f"of 4 for the CUDA kernels")
+def card_layout(cell: dict, att: dict, att1, features, dims):
+    """K5's launch setup: A and FS rounded up to 4 (``ops/widths.py``; the
+    kernels read att1, the features and the attention weights as float4)
+    -> (cell, att, att1, features, dims) at the padded widths, the tensors
+    themselves where neither grows; raises where a row the kernels read
+    as float4 is not 16-byte aligned."""
+    b, t, e, f, h, a, p, fs = dims
+    w = widths.widths(pad=("A", "FS"), E=e, F=f or h, H=h, A=a, FS=fs)
+    ap, fsp = w["A"][1], w["FS"][1]
+    cell, att = widths.pad_tree(cell, w), widths.pad_tree(att, w)
+    att1, features = widths.pad_last(att1, ap), widths.pad_last(features, fsp)
     for name, ten in (("att1", att1), ("features", features),
                       ("full_w", att["full_w"])):
         if ten.data_ptr() % 16:
             raise ValueError(f"att_scan: {name} must be 16-byte aligned")
+    return cell, att, att1, features, (b, t, e, f, h, ap, p, fsp)
 
 
 def att_scan_fwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
@@ -595,7 +601,8 @@ def att_scan_fwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
         return h_seq, alphas, {"c_seq": c_seq, "pidx": pidx}
     if device.type != "cuda":
         raise ValueError(f"att_scan_fwd: unsupported device {device}")
-    _check_card(dims, att1, features, att)
+    cell, att, att1, features, dims = card_layout(cell, att, att1, features,
+                                                  dims)
     b, t, e, f, h, a, p, fs = dims
     lstm = kind == "lstm"
     ncat, g4 = a + fs + 4 * h, 4 * (h if lstm else f)
@@ -683,7 +690,10 @@ def att_scan_bwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
     if "buf" not in res:
         raise ValueError("att_scan_bwd: the kernel backward reads the "
                          "kernel forward's buffers (res['buf'])")
-    _check_card(dims, att1, features, att)
+    a0, fs0 = a, fs
+    cell, att, att1, features, dims = card_layout(cell, att, att1, features,
+                                                  dims)
+    a, fs = dims[5], dims[7]
     buf = res["buf"]
     lstm = kind == "lstm"
     ncat, g4 = a + fs + 4 * h, 4 * (h if lstm else f)
@@ -746,20 +756,22 @@ def att_scan_bwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
     setattr(att_scan_bwd, name, getattr(att_scan_bwd, name) + 1)
     w_cat_g, b_cat_g = g["w_cat"], g["b_cat"]
     dz_sum = b_cat_g[a + fs:]
-    datt = {"dec_w": w_cat_g[:, :a], "dec_b": b_cat_g[:a],
-            "full_w": g["full_w"][:, None], "full_b": g["full_b"],
-            "fb_w": w_cat_g[:, a:a + fs], "fb_b": b_cat_g[a:a + fs]}
+    datt = {"dec_w": w_cat_g[:, :a0], "dec_b": b_cat_g[:a0],
+            "full_w": g["full_w"][:a0, None], "full_b": g["full_b"],
+            "fb_w": w_cat_g[:, a:a + fs0], "fb_b": b_cat_g[a:a + fs0]}
+    d_e, d_fs = g["in_w"][:e], g["in_w"][e:e + fs0]
     if lstm:
-        dcell = {"W_ihe": g["in_w"][:e], "W_ihc": g["in_w"][e:],
+        dcell = {"W_ihe": d_e, "W_ihc": d_fs,
                  "W_hh": w_cat_g[:, a + fs:], "b_ih": dz_sum,
                  "b_hh": dz_sum.clone()}
     else:
-        dcell = {"V_we": g["in_w"][:e], "V_wc": g["in_w"][e:],
+        dcell = {"V_we": d_e, "V_wc": d_fs,
                  "V_b": g["V_b"], "S_w": g["S_w"], "S_b": g["S_b"],
                  "U_w": g["U_w"], "U_b": dz_sum.view(4, h),
                  "W_w": w_cat_g[:, a + fs:], "W_b": dz_sum.view(4, h).clone()}
     out = {"cell": dcell, "att": datt, "emb_seq": _time_major(sc["demb"]),
-           "att1": g["att1"], "h0": sc["dh"], "c0": sc["dc"]}
+           "att1": widths.cut_last(g["att1"], a0), "h0": sc["dh"],
+           "c0": sc["dc"]}
     if samp is not None:
         d_b = torch.empty_like(samp["head"]["B"])
         rc = lib.icee_scatter_rows(ptr(pidx), ptr(sc["dsamp"][1:]),

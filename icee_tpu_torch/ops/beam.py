@@ -43,11 +43,9 @@ import torch
 from icee_tpu_torch.decode.beam import BeamResult, beam_search_batched
 from icee_tpu_torch.models import factored_lstm as fl
 from icee_tpu_torch.models import lstm as nic
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.decode_step import (K_MAX, K_WIDE, V_TILE,
-                                            check_beam_width,
-                                            check_decoder_params,
-                                            check_kernel_widths)
+                                            _step_weights, check_beam_width)
 
 CELLS = ("factored", "lstm")
 # csrc/grid_beam.cuh's geometry (checked against the library when it loads)
@@ -64,6 +62,9 @@ SCRATCH_ALIGN = 64   # floats: each scratch region starts 256-byte aligned
 TOPK_FLOATS = 1024   # csrc/wide_topk.cuh: a block selection's scratch
 
 
+NIC_WEIGHTS = ("W_ih", "b_ih", "W_hh", "b_hh", "linear_w", "linear_b")
+
+
 def check_nic_params(params: dict, device: torch.device) -> Tuple[int, ...]:
     """Validate the NIC decoder tensors the kernel reads; -> (E, H, V)."""
     v, e = params["embed"].shape
@@ -75,6 +76,29 @@ def check_nic_params(params: dict, device: torch.device) -> Tuple[int, ...]:
         t = params["cell"][name] if name in params["cell"] else params[name]
         cuda_lib.check_tensor(name, t, shape, torch.float32, device)
     return e, h, v
+
+
+def nic_layout(params: dict) -> Tuple[widths.Widths, dict]:
+    """K2's launch setup with the LSTM cell: the widths (true, padded; F is
+    H) and the weights the kernel reads (``NIC_WEIGHTS``) laid out at the
+    padded widths (``ops/widths.py``)."""
+    v, e = params["embed"].shape
+    h = params["cell"]["W_hh"].shape[0]
+    w = widths.widths(E=e, F=h, H=h, V=v)
+    tree = dict(params["cell"], linear_w=params["linear_w"],
+                linear_b=params["linear_b"])
+    return w, widths.pad_tree({n: tree[n] for n in NIC_WEIGHTS}, w)
+
+
+def _nic_weights(params: dict, device: torch.device):
+    """Validates the NIC decoder's weights; -> (widths, kernel weights) as
+    ``decode_step._step_weights`` gives them for the factored cell."""
+    e, h, v = check_nic_params(params, device)
+    if device.type != "cuda":
+        return widths.widths(E=e, F=h, H=h, V=v), None
+    w, kern = nic_layout(params)
+    held = (tuple(cuda_lib.ptr(kern[n]) for n in NIC_WEIGHTS), kern)
+    return widths.checked(w, held)
 
 
 def _head(params: dict, cell: str) -> torch.Tensor:
@@ -119,7 +143,8 @@ def mega_beam_decode(params: dict, features: Optional[torch.Tensor],
     for research semantics (``<start>``'s embedding at step 1).
     ``cell="lstm"`` decodes the NIC parameter tree and ignores ``style``.
     Returns a :class:`BeamResult` with a leading batch dim, token-identical
-    to :func:`mega_beam_decode_plain`.
+    to :func:`mega_beam_decode_plain`.  Any F, H and V: on the card the
+    kernel reads the weights at widths rounded up to 4 (``ops/widths.py``).
     """
     return mega_beam_decode_steps(params, features, style, batch,
                                   start_token, end_token, k,
@@ -305,14 +330,16 @@ def carve_regions(sizes) -> Tuple[Tuple[str, int, int], ...]:
 @functools.lru_cache(maxsize=64)
 def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
               n_img: int, max_seq: int, grid: int) -> GridPlan:
-    """The plan of one launch for ``n_img`` images on ``grid`` blocks;
-    raises ValueError on what the kernel does not take."""
+    """The plan of one launch for ``n_img`` images on ``grid`` blocks, at
+    F, H and V rounded up to 4 (the padded layout the kernel reads,
+    ``ops/widths.py``: the plan's ``f``, ``h``, ``v``); raises ValueError
+    on what the kernel does not take."""
     if cell not in CELLS:
         raise ValueError(f"unknown cell {cell!r}; choose one of {CELLS}")
-    check_kernel_widths(f, h, v)
     if not 1 <= k <= min(K_WIDE, v):
         raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
                          "K2 (csrc/beam.cu) takes at most K_WIDE")
+    f, h, v = widths.quad(f), widths.quad(h), widths.quad(v)
     if e < 1 or n_img < 1 or max_seq < 0 or grid < 1:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}: each must be positive")
@@ -449,12 +476,16 @@ def mega_beam_decode_steps(
     fewer blocks than the card holds (tests: the bits must not change)."""
     device = _head(params, cell).device
     if cell == "factored":
-        e, f, hd, v, ns = check_decoder_params(params, device)
-        if not 0 <= int(style) < ns:
-            raise ValueError(f"style {style} outside [0, {ns})")
+        w, weights = cuda_lib.checked_weights(
+            (params,), (int(style), device),
+            lambda: _step_weights(params, int(style), device))
+        emb = params["B"]
     else:
-        e, hd, v = check_nic_params(params, device)
-        f = hd
+        w, weights = cuda_lib.checked_weights(
+            (params, params["cell"]), ("lstm", device),
+            lambda: _nic_weights(params, device))
+        emb = params["embed"]
+    e, f, hd, v = w["E"][0], w["F"][0], w["H"][0], w["V"][0]
     if features is not None:
         cuda_lib.check_tensor("features", features, (batch, k, e),
                               torch.float32, device)
@@ -465,21 +496,11 @@ def mega_beam_decode_steps(
                                       max_seq_length, cell), None
     if device.type != "cuda":
         raise ValueError(f"mega_beam_decode: unsupported device {device}")
-    check_kernel_widths(f, hd, v)
     lib = _library()
     blocks = check_grid(grid, max_grid(device))
     p = cuda_lib.ptr
-    if cell == "factored":
-        s = int(style)
-        weights = [p(params[n]) for n in ("V_w", "V_b")] + [
-            p(params["S_w"][s]), p(params["S_b"][s])] + [
-            p(params[n]) for n in ("U_w", "U_b", "W_w", "W_b", "C_w", "C_b")]
-        emb, fn = params["B"], lib.icee_mega_beam_decode
-    else:
-        lc = params["cell"]
-        weights = [p(lc[n]) for n in ("W_ih", "b_ih", "W_hh", "b_hh")] + [
-            p(params["linear_w"]), p(params["linear_b"])]
-        emb, fn = params["embed"], lib.icee_mega_beam_decode_lstm
+    fn = (lib.icee_mega_beam_decode if cell == "factored"
+          else lib.icee_mega_beam_decode_lstm)
     max_len = max_seq_length + 2
     i32 = dict(dtype=torch.int32, device=device)
     results = []
@@ -497,7 +518,7 @@ def mega_beam_decode_steps(
         score = torch.empty((n_img,), dtype=torch.float32, device=device)
         cplan = _c_plan(plan, start_token, end_token, feats is not None)
         rc = fn(ctypes.byref(cplan), p(slabs_on(plan, device)),
-                p(feats) if feats is not None else None, p(emb), *weights,
+                p(feats) if feats is not None else None, p(emb), *weights[0],
                 p(fs), p(ints), p(tokens), p(length), p(score),
                 cuda_lib.stream_ptr(device))
         cuda_lib.check_rc(lib, rc, f"mega_beam_decode (cell={cell})")

@@ -139,24 +139,37 @@ _CHECKED_MAX = 32
 
 
 def _state(t) -> tuple:
+    """(identity, version): the version None for an inference tensor,
+    which has no version counter; 0 for what is not a tensor."""
     if isinstance(t, torch.Tensor):
         return id(t), None if t.is_inference() else t._version
-    return id(t), None
+    return id(t), 0
+
+
+class Copies(tuple):
+    """A ``checked_weights`` result that holds copies of the weights'
+    values (a padded layout, ``ops/widths.py``), not only what their
+    shapes give."""
 
 
 def checked_weights(trees: Tuple[dict, ...], extra: tuple, check):
     """``check()``: the validation of the weight dicts ``trees`` and what
-    it derives from them (widths, the weight arguments' addresses), kept
-    while every value in ``trees`` is the same object at the same version,
-    so that a decode loop validates its weights once and not at every
-    step.  ``extra`` (the kind, the input widths, the device) is part of
-    the key.  A failing ``check`` raises and keeps nothing."""
+    it derives from them (widths, the weight arguments' addresses, a
+    padded copy), kept while every value in ``trees`` is the same object
+    at the same version, so that a decode loop validates (and pads) its
+    weights once and not at every step.  ``extra`` (the kind, the input
+    widths, the device) is part of the key.  A result that holds copies
+    (:class:`Copies`) is not kept where a tensor has no version counter
+    (an inference tensor), whose changes in place nothing would see.  A
+    failing ``check`` raises and keeps nothing."""
     key = tuple(map(id, trees)) + extra
     state = tuple(_state(t) for tree in trees for t in tree.values())
     hit = _checked.get(key)
     if hit is not None and hit[0] == state:
         return hit[2]
     result = check()
+    if isinstance(result, Copies) and any(v is None for _, v in state):
+        return result
     if len(_checked) >= _CHECKED_MAX:
         _checked.clear()
     _checked[key] = (state, trees, result)  # trees held: their ids stay theirs

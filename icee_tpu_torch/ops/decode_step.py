@@ -34,7 +34,7 @@ from typing import Tuple
 import torch
 
 from icee_tpu_torch.decode.beam import top_k
-from icee_tpu_torch.ops import cuda_lib
+from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.cells import factored_lstm_cell
 
 V_TILE = 256   # csrc/decode_common.cuh VT
@@ -71,15 +71,6 @@ def check_decoder_params(params: dict, device: torch.device) -> Tuple[int, ...]:
     return e, f, h, v, ns
 
 
-def check_kernel_widths(*dims: int) -> None:
-    """The kernels read weights (and features) as float4 column quads: the
-    widths (F, H, V; A and FS for the attention kernels) must be multiples
-    of 4."""
-    if any(d % 4 for d in dims):
-        raise ValueError(f"widths {dims}: the CUDA kernels take multiples "
-                         "of 4 only")
-
-
 def check_beam_width(name: str, k: int, v: int, device: torch.device,
                      kernel: str) -> None:
     """A beam width or top-k ``name=k``: the plain route takes any ``1 <= k
@@ -93,23 +84,37 @@ def check_beam_width(name: str, k: int, v: int, device: torch.device,
                          f"most K_WIDE = {K_WIDE}")
 
 
+FACTORED_WEIGHTS = ("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b",
+                    "C_w", "C_b")   # the kernels' weight arguments, in order
+
+
+def step_layout(params: dict, style: int) -> Tuple[widths.Widths, dict]:
+    """K1's launch setup, also K2's with the factored cell: the widths
+    (true, padded) and the weights the kernel reads (``FACTORED_WEIGHTS``,
+    S the style's slice) laid out at the padded widths
+    (``ops/widths.py``); the tensors themselves where no width grows."""
+    e, f4 = params["V_w"].shape
+    w = widths.widths(E=e, F=f4 // 4, H=params["W_w"].shape[0],
+                      V=params["C_w"].shape[1])
+    tree = {n: params[n] for n in FACTORED_WEIGHTS}
+    tree["S_w"], tree["S_b"] = params["S_w"][style], params["S_b"][style]
+    return w, widths.pad_tree(tree, w)
+
+
 def _step_weights(params: dict, style: int, device: torch.device):
-    """Validates the decoder's weights; -> (E, F, H, V, addresses): on a
-    CUDA device the kernel's weight arguments (the style's S slice), on the
-    CPU None."""
+    """Validates the decoder's weights; -> (widths, kernel weights): on a
+    CUDA device the kernel's weight arguments (addresses at the padded
+    widths, and the padded tensors they point into), on the CPU None."""
     e, f, hd, v, ns = check_decoder_params(params, device)
     if not 0 <= style < ns:
         raise ValueError(f"style {style} outside [0, {ns})")
     if device.type == "cpu":
-        return e, f, hd, v, None
+        return widths.widths(E=e, F=f, H=hd, V=v), None
     if device.type != "cuda":
         raise ValueError(f"decode_step_topk: unsupported device {device}")
-    check_kernel_widths(f, hd, v)
-    p = cuda_lib.ptr
-    return e, f, hd, v, (p(params["V_w"]), p(params["V_b"]),
-                         p(params["S_w"][style]), p(params["S_b"][style]),
-                         p(params["U_w"]), p(params["U_b"]), p(params["W_w"]),
-                         p(params["W_b"]), p(params["C_w"]), p(params["C_b"]))
+    w, kern = step_layout(params, style)
+    held = (tuple(cuda_lib.ptr(kern[n]) for n in FACTORED_WEIGHTS), kern)
+    return widths.checked(w, held)
 
 
 def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
@@ -118,13 +123,16 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
 
     ``logp_top`` are the log-softmax values of each row's top-``ktop``
     vocabulary entries, descending (ties to the lowest id); ``idx_top`` their
-    ids.  Float32 only.
+    ids.  Float32 only.  Any F, H and V: on the card the kernel runs at
+    widths rounded up to 4 (``ops/widths.py``), h and c padded in and cut
+    back out.
     """
     device = x.device
     rows = x.shape[0]
-    e, f, hd, v, weights = cuda_lib.checked_weights(
+    w, weights = cuda_lib.checked_weights(
         (params,), (int(style), device),
         lambda: _step_weights(params, int(style), device))
+    e, hd, v = w["E"][0], w["H"][0], w["V"][0]
     cuda_lib.check_tensor("x", x, (rows, e), torch.float32, device)
     cuda_lib.check_tensor("h", h, (rows, hd), torch.float32, device)
     cuda_lib.check_tensor("c", c, (rows, hd), torch.float32, device)
@@ -133,30 +141,33 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
         return decode_step_topk_plain(params, x, h, c, int(style), ktop)
 
     lib = _library()
+    fp, hp, vp = w["F"][1], w["H"][1], w["V"][1]
     f32 = dict(dtype=torch.float32, device=device)
-    h_out = torch.empty((rows, hd), **f32)
-    c_out = torch.empty((rows, hd), **f32)
+    h_out = torch.empty((rows, hp), **f32)
+    c_out = torch.empty((rows, hp), **f32)
     logp = torch.empty((rows, ktop), **f32)
     idx = torch.empty((rows, ktop), dtype=torch.int32, device=device)
     p = cuda_lib.ptr
-    head = (p(x), p(h), p(c), *weights, p(h_out), p(c_out), p(logp), p(idx))
+    h_in, c_in = widths.pad_last(h, hp), widths.pad_last(c, hp)
+    head = (p(x), p(h_in), p(c_in), *weights[0], p(h_out), p(c_out),
+            p(logp), p(idx))
     if rows <= SPLIT_ROWS:
-        work = torch.empty((lib.icee_decode_step_split_work(rows, f, hd, v),),
-                           **f32)
+        work = torch.empty((lib.icee_decode_step_split_work(rows, fp, hp,
+                                                            vp),), **f32)
         rc = lib.icee_decode_step_topk_split(
-            *head, p(work), rows, e, f, hd, v, ktop,
+            *head, p(work), rows, e, fp, hp, vp, ktop,
             cuda_lib.stream_ptr(device))
         decode_step_topk.split_launches += 1
     else:
-        scratch = tiled_scratch(rows, v, ktop, device)
+        scratch = tiled_scratch(rows, vp, ktop, device)
         rc = lib.icee_decode_step_topk(
-            *head, *scratch_ptrs(scratch), rows, e, f, hd, v, ktop,
+            *head, *scratch_ptrs(scratch), rows, e, fp, hp, vp, ktop,
             cuda_lib.stream_ptr(device))
         decode_step_topk.tiled_launches += 1
     cuda_lib.check_rc(lib, rc, "decode_step_topk")
     decode_step_topk.launches += 1
     decode_step_topk.wide_launches += ktop > K_MAX
-    return logp, idx, h_out, c_out
+    return logp, idx, widths.cut_last(h_out, hd), widths.cut_last(c_out, hd)
 
 
 decode_step_topk.launches = 0        # kernel calls, either path

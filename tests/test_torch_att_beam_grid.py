@@ -8,7 +8,8 @@ disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
 images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
 paths' 9, 20, 64, 256, both kinds; above k = 8 the per-image stages must
 take an image's rows in groups of at most 8; the plan and the wrapper must
-raise on what the kernel does not take.  The h0/c0 launch (the search's mean and
+raise on what the kernel does not take, and F, H, V, A and FS of any
+residue mod 4 plan as their padded widths.  The h0/c0 launch (the search's mean and
 init stage alone: ``run_mean``'s tasks, then ``att_init_plan``'s stage)
 must cover each (image, column quad) of the mean and each h0/c0 column of
 each image once, at 1, 2 and 64 images.  The ctypes mirrors of the
@@ -221,10 +222,34 @@ def test_the_ctypes_plan_carries_a_wide_plan(k):
         in SOURCE
 
 
+@pytest.mark.parametrize("kwargs", [
+    # the widths the card refused before it took a padded layout
+    dict(v=130), dict(f=42), dict(a=18), dict(fs=66),
+    # V of each residue mod 4 at the flagship widths, ragged F, H, A, FS
+    dict(e=300, f=512, h=512, v=8189, a=512, p=196, fs=2048),
+    dict(e=300, f=512, h=512, v=8190, a=512, p=196, fs=2048),
+    dict(e=300, f=510, h=511, v=8191, a=509, p=196, fs=2046),
+    dict(kind="lstm", e=300, f=511, h=511, v=8191, a=509, p=196, fs=2047,
+         k=20, n_img=51),
+    dict(f=1, h=2, v=7, a=1, fs=3),
+])
+def test_the_plan_takes_widths_that_are_not_multiples_of_4(kwargs):
+    """F, H, V, A and FS of any residue mod 4 plan as their padded widths
+    (each rounded up to 4: the layout the wrapper hands the kernel,
+    ``ops/widths.py``), the same plan field for field."""
+    args = dict(kind="factored", e=16, f=32, h=32, v=512, a=20, p=9, fs=64,
+                k=5, n_img=2, max_seq=9, grid=4)
+    args.update(kwargs)
+    plan = att_grid_plan(**args)
+    quads = {n: -(-args[n] // 4) * 4 for n in ("f", "h", "v", "a", "fs")}
+    assert (plan.f, plan.h, plan.v, plan.a, plan.fs) == tuple(
+        quads[n] for n in ("f", "h", "v", "a", "fs"))
+    assert plan == att_grid_plan(**dict(args, **quads))
+    assert plan.n_tiles == -(-args["v"] // 256)
+
+
 @pytest.mark.parametrize("kwargs,match", [
     (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
-    (dict(v=130), "multiples of 4"), (dict(f=42), "multiples of 4"),
-    (dict(a=18), "multiples of 4"), (dict(fs=66), "multiples of 4"),
     (dict(p=0), "P=0"), (dict(p=MAX_P + 1), f"P={MAX_P + 1}"),
     (dict(a=4096), "ring"), (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
@@ -401,8 +426,24 @@ def test_the_search_plans_its_init_stage_as_the_init_launch_does():
         att_stage_jobs("lstm", 300, 512, 512, 8192, 512, 2048)[-1])
 
 
+@pytest.mark.parametrize("h,fs", [(42, 64), (48, 66), (511, 2046),
+                                  (509, 2047), (1, 3)])
+def test_the_init_plan_takes_widths_that_are_not_multiples_of_4(h, fs):
+    """H and FS of any residue mod 4 plan as their padded widths (the
+    first two: the widths the card refused before), as the search plans
+    its own init stage."""
+    hp, fsp = -(-h // 4) * 4, -(-fs // 4) * 4
+    for n_img in (1, 2, 64):
+        plan = att_init_plan(h, 196, fs, n_img, 132)
+        assert plan == att_init_plan(hp, 196, fsp, n_img, 132)
+        assert (plan.h, plan.fs) == (hp, fsp)
+        assert plan.region("mean") == (0, n_img * fsp)
+        search = att_grid_plan("factored", 300, 512, h, 8191, 509, 196, fs,
+                               5, n_img, 40, 132)
+        assert search.stages[-1:] == plan.stages
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(h=42), "multiples of 4"), (dict(fs=66), "multiples of 4"),
     (dict(p=0), "P=0"), (dict(n_img=0), "n_img=0"), (dict(grid=0), "grid=0"),
     (dict(n_img=MAX_ROWS + 1), f"{MAX_ROWS + 1} images"),
 ])

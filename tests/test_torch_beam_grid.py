@@ -205,10 +205,31 @@ def test_a_batch_splits_into_launches_of_at_most_max_rows():
     assert launch_chunks(300, 5) == [(0, 204), (204, 96)]
 
 
+@pytest.mark.parametrize("kwargs", [
+    # the widths the card refused before it took a padded layout
+    dict(v=130), dict(f=42), dict(h=30),
+    # V of each residue mod 4 at the flagship widths, ragged F and H
+    dict(e=300, f=512, h=512, v=8189), dict(e=300, f=512, h=512, v=8190),
+    dict(e=300, f=512, h=512, v=8191), dict(e=300, f=510, h=511, v=8191),
+    dict(f=1, h=3, v=5), dict(cell="lstm", f=511, h=511, v=8189, k=20),
+])
+def test_the_plan_takes_widths_that_are_not_multiples_of_4(kwargs):
+    """F, H and V of any residue mod 4 plan as their padded widths (each
+    rounded up to 4: the layout the wrapper hands the kernel,
+    ``ops/widths.py``), the same plan field for field."""
+    args = dict(cell="factored", e=16, f=32, h=32, v=512, k=5, n_img=2,
+                max_seq=9, grid=4)
+    args.update(kwargs)
+    plan = grid_plan(**args)
+    quads = {n: -(-args[n] // 4) * 4 for n in ("f", "h", "v")}
+    assert (plan.f, plan.h, plan.v) == (quads["f"], quads["h"], quads["v"])
+    assert plan == grid_plan(**dict(args, **quads))
+    assert plan.n_tiles == -(-args["v"] // 256)
+
+
 @pytest.mark.parametrize("kwargs,match", [
     (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
-    (dict(v=130), "multiples of 4"), (dict(f=42), "multiples of 4"),
-    (dict(h=30), "multiples of 4"), (dict(n_img=205, k=5), "1025 rows"),
+    (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
     (dict(cell="gru"), "unknown cell"), (dict(v=400000), "tail's"),
     (dict(max_seq=4000), "tail's"),

@@ -27,10 +27,14 @@ vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7; K7 as one search over the whole card at 1, 3, 8
 and 64 images and k = 1, 5 and 8, the same bits on a second run and on a
 3-block grid.  Every wrapper refuses k above the kernels' K_WIDE = 256 on
-a CUDA tensor (the CPU route takes any k); the wide paths (k of 9 to 256:
+a CUDA tensor (the CPU route takes any k), and takes every width the CPU
+route takes: V, F, H, A and FS of each residue mod 4 (the padded layout of
+``ops/widths.py``) against the plain versions, K2 = K1 and K7 = K6 at atol
+0; the wide paths (k of 9 to 256:
 K1, K2, K6 and K7) against their plain versions and K2 = K1 fused-step,
 K7 = K6 at atol 0.  K5 (the attention training scan), both cells,
-teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, the
+teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, A
+and FS not multiples of 4, the
 same bits on a second run, and the attention train steps on the card
 against the CPU; K5's tensor-core product (``gemm_tf32x3.cuh``) in each
 form against float64 (at most 4x the CUDA-core product's error), its
@@ -198,13 +202,18 @@ def test_mega_kernel_matches_plain_and_fused_step(device, case):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
-    params = _params(device, 130, 16, 32, 32)   # V % 4 != 0
+    params = _params(device, 130, 16, 32, 32)   # V % 4 != 0: taken now
     x = torch.zeros((5, 16), device=device)
     h = torch.zeros((5, 32), device=device)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        decode_step_topk(params, x, h, h, 0)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        mega_beam_decode(params, None, 0, 2, k=4)
+    before = (decode_step_topk.launches, mega_beam_decode.launches)
+    got = decode_step_topk(params, x, h, h, 0)
+    want = decode_step_topk_plain(params, x, h, h, 0)
+    assert torch.equal(got[1], want[1])
+    beams = mega_beam_decode(params, None, 0, 2, k=4)
+    assert torch.equal(beams.tokens, mega_beam_decode_plain(
+        params, None, 0, 2, k=4).tokens)
+    assert (decode_step_topk.launches, mega_beam_decode.launches) == (
+        before[0] + 1, before[1] + 1)
     params = _params(device, 128, 16, 32, 32)
     with pytest.raises(ValueError, match="expected cpu"):
         decode_step_topk(params, x.cpu(), h, h, 0)
@@ -217,6 +226,120 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="K2 .*K_WIDE = 256"):
         mega_beam_decode(_nic_params(device, 260, 16, 32), None, 0, 2,
                          k=257, cell="lstm")
+
+
+# --- widths that are not a multiple of 4 (the padded layout, ops/widths.py) --
+
+RAGGED_WIDTHS = [  # (V, E, F, H, A, FS): every residue of V mod 4
+    (517, 30, 41, 47, 19, 62), (518, 30, 42, 46, 21, 63),
+    (519, 31, 43, 45, 18, 61)]
+
+
+@pytest.mark.parametrize("rows,ktop", [(5, 5), (13, 5), (20, 20), (3, 64)])
+@pytest.mark.parametrize("widths", RAGGED_WIDTHS)
+def test_decode_step_kernel_takes_widths_that_are_not_multiples_of_4(
+        device, widths, rows, ktop):
+    """K1 at ragged V, F and H, both paths, narrow and wide: ids exact,
+    values, h' and c' (cut back to H) within 1e-4 of the plain step."""
+    v, e, f, h = widths[:4]
+    params = _params(device, v, e, f, h, seed=rows + v)
+    g = torch.Generator(device=device).manual_seed(rows)
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device)
+                for d in (e, h, h))
+    before = decode_step_topk.launches
+    got = decode_step_topk(params, x, hh, c, 1, ktop=ktop)
+    want = decode_step_topk_plain(params, x, hh, c, 1, ktop=ktop)
+    torch.cuda.synchronize()
+    assert decode_step_topk.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.is_contiguous()
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("k,batch", [(4, 5), (4, 1), (20, 3)])
+@pytest.mark.parametrize("cell", ["factored", "lstm"])
+@pytest.mark.parametrize("widths", RAGGED_WIDTHS)
+def test_mega_kernel_takes_widths_that_are_not_multiples_of_4(
+        device, widths, cell, k, batch):
+    """K2 at ragged V, F and H, both cells, serving semantics: against the
+    plain search, and the factored cell = the fused-step path (K1) at atol
+    0; no token past V - 1."""
+    v, e, f, h = widths[:4]
+    steps = 9
+    params = (_params(device, v, e, f, h, seed=v, end_bias=1.0)
+              if cell == "factored"
+              else _nic_params(device, v, e, h, seed=v))
+    g = torch.Generator(device=device).manual_seed(k)
+    feats = torch.randn((batch, 1, e), generator=g, device=device)
+    feats = feats.expand(batch, k, e).contiguous()
+    got = mega_beam_decode(params, feats, 3, batch, k=k,
+                           max_seq_length=steps, cell=cell)
+    want = mega_beam_decode_plain(params, feats, 3, batch, k=k,
+                                  max_seq_length=steps, cell=cell)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(got.length, want.length, rtol=0, atol=0)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    assert int(got.tokens.max()) < v
+    if cell == "factored":
+        fused = factored_decode("fused-step", params, feats, 3, batch, k,
+                                steps, 1, 2)
+        for what in ("tokens", "length", "score"):
+            assert torch.equal(getattr(fused, what), getattr(got, what))
+
+
+@pytest.mark.parametrize("k,batch", [(4, 3), (5, 1), (20, 2)])
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+@pytest.mark.parametrize("widths", RAGGED_WIDTHS)
+def test_att_kernels_take_widths_that_are_not_multiples_of_4(
+        device, widths, kind, k, batch):
+    """K6, the h0/c0 kernel and K7 at ragged V, F, H, A and FS, both
+    kinds: K6 against its plain step (ids exact, values 1e-4, alpha 1e-5),
+    h0/c0 against ``init_hidden_state`` (1e-5) and = K7's own at atol 0,
+    K7 against the plain search, and K7 = the fused-step path (K6 per
+    step) at atol 0."""
+    v, e, f, h, a, fs = widths
+    params = _att_params(device, kind, vocab=v, e=e,
+                         f=f if kind == "factored" else h, h=h, a=a, fs=fs,
+                         seed=v)
+    rng = np.random.default_rng(v + k)
+    feats = torch.tensor(rng.random((batch, 9, fs), dtype=np.float32),
+                         device=device)
+    cell, att, gate = att_decode_step.step_params(params, kind, 1)
+    att1 = att_mod.att_projection(att, feats)
+    g = torch.Generator(device=device).manual_seed(k)
+    x, hh, c = (torch.randn((batch * k, d), generator=g, device=device)
+                for d in (e, h, h))
+    got = att_decode_step.att_decode_step_topk(cell, att, gate, x, hh, c,
+                                               feats, att1, kind, k, ktop=k)
+    want = att_decode_step.att_decode_step_topk_plain(
+        cell, att, gate, x, hh, c, feats, att1, kind, k, ktop=k)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+    h0, c0 = att_decode_step.att_init_state(params, feats)
+    want_h, want_c = att_mod.init_hidden_state(params, feats)
+    torch.testing.assert_close(h0, want_h, rtol=0, atol=1e-5)
+    torch.testing.assert_close(c0, want_c, rtol=0, atol=1e-5)
+    k7_h, k7_c = att_beam.search_init_state(params, feats, kind, 1)
+    assert torch.equal(h0, k7_h) and torch.equal(c0, k7_c)
+    steps = 9
+    beams = att_beam.mega_att_beam_decode(params, feats, 1, batch, k=k,
+                                          max_seq_length=steps, kind=kind)
+    plain = att_beam.mega_att_beam_decode_plain(
+        params, feats, 1, batch, k=k, max_seq_length=steps, kind=kind)
+    torch.testing.assert_close(beams.tokens, plain.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(beams.length, plain.length, rtol=0, atol=0)
+    torch.testing.assert_close(beams.score, plain.score, rtol=0, atol=1e-4)
+    args = (batch, k, steps, 1, 2)
+    fused = (attention_decode("fused-step", params, feats, 1, *args)
+             if kind == "factored"
+             else nic_att_decode("fused-step", params, feats, *args))
+    for what in ("tokens", "length", "score"):
+        assert torch.equal(getattr(fused, what), getattr(beams, what))
 
 
 # --- training kernels: K3 (lstm_scan.cu) and the chunked CE (chunked_ce.cu) --
@@ -598,9 +721,12 @@ def test_nic_wrappers_raise_on_what_the_kernels_do_not_take(device):
         nic_scan.nic_scan_fwd(cell, x.double())
     with pytest.raises(ValueError, match="shape"):
         nic_scan.nic_scan_fwd(cell, torch.zeros((2, 3, 9), device=device))
-    params = _nic_params(device, 130, 16, 32)   # V % 4 != 0
-    with pytest.raises(ValueError, match="multiples of 4"):
-        mega_beam_decode(params, None, 0, 2, k=4, cell="lstm")
+    params = _nic_params(device, 130, 16, 32)   # V % 4 != 0: taken now
+    launches = mega_beam_decode.lstm_launches
+    got = mega_beam_decode(params, None, 0, 2, k=4, cell="lstm")
+    assert mega_beam_decode.lstm_launches == launches + 1
+    assert torch.equal(got.tokens, mega_beam_decode_plain(
+        params, None, 0, 2, k=4, cell="lstm").tokens)
     params = _nic_params(device, 128, 16, 32)
     with pytest.raises(ValueError, match="expected"):
         mega_beam_decode(params, torch.zeros((2, 4, 16)), 0, 2, k=4,
@@ -1025,10 +1151,13 @@ def _grid_att_search(device, kind, n_img, k):
 
 
 def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
-    params = _att_params(device, "lstm", a=18)    # A % 4 != 0
+    params = _att_params(device, "lstm", a=18)    # A % 4 != 0: taken now
     feats = torch.rand((2, 9, 64), device=device)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=4, kind="lstm")
+    launches = att_beam.mega_att_beam_decode.lstm_launches
+    got = att_beam.mega_att_beam_decode(params, feats, 0, 2, k=4, kind="lstm")
+    assert att_beam.mega_att_beam_decode.lstm_launches == launches + 1
+    assert torch.equal(got.tokens, att_beam.mega_att_beam_decode_plain(
+        params, feats, 0, 2, k=4, kind="lstm").tokens)
     params = _att_params(device, "factored")
     with pytest.raises(ValueError, match="expected"):
         att_beam.mega_att_beam_decode(params, feats.cpu(), 0, 2, k=4)
@@ -1065,12 +1194,13 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
 
 # --- K5: the attention training scan (att_scan.cu) --------------------------
 
-def _att_scan_inputs(device, kind, b, t, p, sampled, vocab=37, seed=21):
+def _att_scan_inputs(device, kind, b, t, p, sampled, vocab=37, seed=21,
+                     a=20, fs=64):
     """K5's inputs from a random attention decoder (E = 30, F = 40, H = 48,
-    A = 20, FS = 64) through the model's own repacking."""
-    params = _att_params(device, kind, vocab=vocab, seed=seed)
+    A = 20, FS = 64 unless given) through the model's own repacking."""
+    params = _att_params(device, kind, vocab=vocab, seed=seed, a=a, fs=fs)
     rng = np.random.default_rng(seed + b)
-    feats = torch.tensor(rng.random((b, p, 64), dtype=np.float32),
+    feats = torch.tensor(rng.random((b, p, fs), dtype=np.float32),
                          device=device)
     caps = torch.tensor(rng.integers(0, vocab, (b, t)), device=device)
     fam = att_mod._Family(params, AttentionDecoderConfig(embed_size=30),
@@ -1104,8 +1234,25 @@ def test_att_scan_kernels_match_plain(device, kind, b, t, p, sampled):
     """``sampled="tied"``: a zero head, so every logit ties and every
     argmax is token 0 (the lowest index), and the token scatter adds all
     the sampled rows into one row of B."""
+    _att_scan_case(device, kind, b, t, p, sampled)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind,a,fs", [("factored", 19, 62),
+                                       ("lstm", 21, 63),
+                                       ("factored", 18, 61),
+                                       ("lstm", 509, 2046)])
+def test_att_scan_kernels_take_widths_that_are_not_multiples_of_4(
+        device, kind, a, fs, sampled):
+    """K5 at A and FS of every residue mod 4 (the padded layout,
+    ``att_scan.card_layout``): as the test above holds it, every gradient
+    at the true widths."""
+    _att_scan_case(device, kind, 5, 4, 9, sampled, width_a=a, fs=fs)
+
+
+def _att_scan_case(device, kind, b, t, p, sampled, width_a=20, fs=64):
     args, samp, (dh, da) = _att_scan_inputs(device, kind, b, t, p,
-                                            bool(sampled))
+                                            bool(sampled), a=width_a, fs=fs)
     if sampled == "tied":
         samp["head"] = dict(samp["head"], C_w=torch.zeros_like(
             samp["head"]["C_w"]), C_b=torch.zeros_like(samp["head"]["C_b"]))
@@ -1132,7 +1279,7 @@ def test_att_scan_kernels_match_plain(device, kind, b, t, p, sampled):
                "pidx": None if res["pidx"] is None else res["pidx"].cpu()}
     # the plain backward on the forward's att2, so both sides take the same
     # relu' masks (see att_scan_bwd_plain)
-    att2 = res["buf"]["hp"][:, :, :20].transpose(0, 1).cpu()
+    att2 = res["buf"]["hp"][:, :, :width_a].transpose(0, 1).cpu()
     with torch.no_grad():
         ref = att_scan.att_scan_grads_plain(
             *(bridge.to_torch(bridge.to_numpy(x)) for x in args[:7]),
@@ -1214,10 +1361,13 @@ def test_att_scan_wrappers_raise_on_what_the_kernels_do_not_take(device):
     odd["full_w"] = torch.zeros((18, 1), device=device)   # A % 4 != 0
     odd["dec_w"] = torch.zeros((48, 18), device=device)
     odd["dec_b"] = torch.zeros((18,), device=device)
-    bad = list(args)
-    bad[1], bad[3] = odd, torch.zeros((2, 9, 18), device=device)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        att_scan.att_scan_fwd(*bad, samp)
+    odd_args = list(args)                            # taken now
+    odd_args[1], odd_args[3] = odd, torch.zeros((2, 9, 18), device=device)
+    h, a, _ = att_scan.att_scan_fwd(*odd_args, samp)
+    want = att_scan.fused_att_scan_sampled_plain(
+        *odd_args[:2], samp["head"], odd_args[2], samp["emb_raw"],
+        *odd_args[3:7], samp["coins"], "lstm")
+    torch.testing.assert_close(h, want[0], rtol=0, atol=1e-4)
     h, a, res = att_scan.att_scan_fwd(*args)         # teacher-forced res
     with pytest.raises(ValueError, match="token trace"):
         att_scan.att_scan_bwd(*args[:7], h, a, res, dh, da, "lstm", samp)
