@@ -47,8 +47,9 @@ Phases, in order; any failure exits non-zero:
    image and 64 (a launch holds MAX_ROWS // k images; 40 steps at k = 9
    and 20, 12 at 64, 8 at 256), margin-aware against the plain searches,
    launches exact, and at k = 20 = the fused-step paths (K1, K6) at atol
-   0, timed at k = 20 and 256; (d) k = 257 refused on the card by every
-   wrapper, naming its kernel, nothing launched; (e) the main path at
+   0, timed at k = 20 and 256; (d) k = V + 1 refused by every wrapper on
+   the card and on the CPU route with the same message (the CPU route's),
+   nothing launched; (e) the main path at
    beam 20: the decode entry points of ``decode/fast.py`` for 8 images of
    each variant, both paths, every count from 0 just before and read just
    after and exact, no plain version, fused-step = whole search at atol 0;
@@ -188,8 +189,9 @@ Phases, in order; any failure exits non-zero:
    bit-equal to ``train``'s), ``evaluate`` in both
    semantics, ``caption_batch`` (and ``--beam_size 20``, K2's wide path,
    its captions those of this process's searches at beam 20 and
-   margin-aware against the plain search's; ``--beam_size 257`` must fail
-   with K2's own message), ``sample``, ``validate``, the spatial
+   margin-aware against the plain search's; ``--beam_size 300``, K2 with
+   its survivors in device memory, must exit 0 with a caption an image,
+   its launches exact and no plain version), ``sample``, ``validate``, the spatial
    ``precompute_features`` of 64 images with ``evaluate --attention`` and
    ``caption_batch --attention``, then ``python -m icee_tpu_torch.serve``
    on the trained checkpoint (one request, ``GET /``).  Each stage runs
@@ -302,7 +304,27 @@ Phases, in order; any failure exits non-zero:
    variants at V = 8191, batched captions = serial; (c) K2 and K7 (1 and
    64 images) and K1 (5 rows) at V = 8191 beside the same decoders at V =
    8192, on a line of their own;
-26. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+26. beams and vocabularies past one block (``csrc/wide_topk.cuh``'s
+   selection with its survivors in device memory; K9's and K10's passes
+   from device memory): (a) K1 and K6 (both kinds) at k = top-k = 257,
+   512, 1024 (one image), 300 over 8 images and k = top-k = V on the
+   decoders cut to V = 1000, against their plain versions as phase 5d (a)
+   holds them; (b) K2 (both cells) and K7 (both kinds) at k = 257, 512,
+   1024, 2048 (one image; 8, 8, 6, 4 steps), 300 over 8 images, k = V =
+   1000 (4 steps) and k = 5 at V = 100,000 over 1 and 8 images (20
+   steps), margin-aware and re-scored as phase 5d (b, c), launches exact,
+   K2 = K1 fused-step and K7 = K6 at atol 0 at k = 300, 1024 and V =
+   100,000; (c) K9 and K10 at the COCO regime at beam 165, 257, 512 over
+   8 images (V = 8800) and beam 20 over 64 images at V = 32,768 (both)
+   and 60,000 (K9), phases 14's and 17's checks, launches exact; (d) the
+   times of K1 and K6 at k = 1024, K2 and K7 at k = 512 and 2048 and at V
+   = 100,000 (8 images), K9 at beam 257, K10 at V = 32,768, beside their
+   bounds (and K1's and K6's library chains), on a line of their own;
+   (e) the main path: ``decode/fast.py`` at beam 300 over 2 images and
+   ``decode_split`` (switched at V = 32,768, beam 20; base at beam 257),
+   every count from 0 just before and read just after and exact, no plain
+   version, fused-step = whole search at atol 0;
+27. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
    ``trainer``, ``resident``, ``seq2seq`` and ``wide_h`` (phase 24)
    entries), one
@@ -311,8 +333,9 @@ Phases, in order; any failure exits non-zero:
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b), one ``{"parallel": {...}}`` line (phase 23)
-   one ``{"widths": {...}}`` line (phase 25) and one ``{"kernels": [...]}``
-   line
+   one ``{"widths": {...}}`` line (phase 25), one
+   ``{"past_block_times": {...}}`` line (phase 26) and one
+   ``{"kernels": [...]}`` line
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
@@ -320,8 +343,10 @@ Phases, in order; any failure exits non-zero:
    the wide paths of K1, K2, K6 and K7, both cells: their launches phase
    5d (e)'s and, for K2, phase 19's beam-20 stage; K3, K4 and K8 past the
    resident plan, forward and backward: their launches phase 24's; K1,
-   K2 and K7 with their phase 25 (c) times at V = 8191);
-27. print ``{"ok": true, "device": {...}}`` as the last line.
+   K2 and K7 with their phase 25 (c) times at V = 8191; K1, K2, K6, K7
+   (both cells or kinds), K9 and K10 past one block: their launches
+   phase 26 (e)'s);
+28. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -330,6 +355,7 @@ with a message and no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -391,20 +417,27 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def step_flops_per_row(cell: str = "factored") -> int:
-    """Multiply-adds x2 of one decode step for one row: cell chain + head."""
+def step_flops_per_row(cell: str = "factored", vocab: int = V) -> int:
+    """Multiply-adds x2 of one decode step for one row: cell chain + head
+    (over ``vocab`` words)."""
     if cell == "lstm":
-        return 2 * (E * 4 * H + H * 4 * H + H * V)
-    return 2 * (E * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H + H * V)
+        return 2 * (E * 4 * H + H * 4 * H + H * vocab)
+    return 2 * (E * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H + H * vocab)
 
 
-def decoder_weight_bytes(cell: str = "factored") -> int:
+def decoder_weight_bytes(cell: str = "factored", vocab: int = V) -> int:
     """Bytes of the weights every step reads (the embedding is gathered by
     row and counted with the step inputs)."""
     if cell == "lstm":
-        return 4 * (E * 4 * H + 4 * H + H * 4 * H + 4 * H + H * V + V)
+        return 4 * (E * 4 * H + 4 * H + H * 4 * H + 4 * H + H * vocab
+                    + vocab)
     return 4 * (E * 4 * F + 4 * F + 4 * F * F + 4 * F + 4 * F * H + 4 * H
-                + H * 4 * H + 4 * H + H * V + V)
+                + H * 4 * H + 4 * H + H * vocab + vocab)
+
+
+def head_vocab(dec) -> int:
+    """The words of a decoder's head (any of the four variants)."""
+    return (dec["C_w"] if "C_w" in dec else dec["linear_w"]).shape[1]
 
 
 def captioning_params(device):
@@ -436,10 +469,10 @@ def captioning_params(device):
     return {"backbone": backbone, **decoder_params(device)}
 
 
-def decoder_params(device):
+def decoder_params(device, vocab: int = V):
     """``captioning_params`` without the backbone: the four variants'
     decoders (and the global ones' encoder heads) at this module's
-    widths."""
+    widths, over ``vocab`` words."""
     import torch
 
     from icee_tpu_torch.core.config import (AttentionDecoderConfig,
@@ -451,8 +484,9 @@ def decoder_params(device):
             ("stylenet", factored_lstm.init_params, "C", 1),
             ("nic", lstm.init_params, "linear", 3)):
         dec = init(torch.Generator().manual_seed(seed),
-                   DecoderConfig(vocab_size=V, embed_size=E, hidden_size=H,
-                                 factored_size=F), device=device)
+                   DecoderConfig(vocab_size=vocab, embed_size=E,
+                                 hidden_size=H, factored_size=F),
+                   device=device)
         w, b = (("C_w", "C_b") if head_w == "C"
                 else ("linear_w", "linear_b"))
         dec[w].mul_(30.0)
@@ -465,7 +499,7 @@ def decoder_params(device):
         head["linear_w"].mul_(10.0)
         head["linear_b"].mul_(10.0)
         out[variant] = {"decoder": dec, "head": head}
-    att_cfg = AttentionDecoderConfig(vocab_size=V, embed_size=E,
+    att_cfg = AttentionDecoderConfig(vocab_size=vocab, embed_size=E,
                                      hidden_size=H, factored_size=F,
                                      attention_size=A, feature_size=FS)
     for variant, init, head_w, seed in (
@@ -602,10 +636,11 @@ def k1_times(dec, inputs, ktop: int, n: int, warm: int) -> dict:
         "plain_ms": cuda_ms(lambda: decode_step_topk_plain(
             dec, x, h, c, style, ktop=ktop), n, warm),
         "library_ms": cuda_ms(library_step, n, warm)}
-    nbytes = decoder_weight_bytes() + 4 * rows * (E + 2 * H) \
+    vocab = head_vocab(dec)
+    nbytes = decoder_weight_bytes(vocab=vocab) + 4 * rows * (E + 2 * H) \
         + 4 * rows * (2 * ktop + 2 * H)
     out["bound_ms"], out["bound_by"] = bound_ms(
-        rows * step_flops_per_row(), nbytes)
+        rows * step_flops_per_row(vocab=vocab), nbytes)
     return out
 
 
@@ -732,6 +767,15 @@ def margin_check(what: str, got, want, rescored):
 K2_IMAGES = (1, 8, 64)   # the serial request, a batched call, the benchmark
 
 
+def wide_selection(vocab: int, k: int, steps_max: int) -> bool:
+    """Whether a whole-search launch runs the wide selection (k above
+    K_MAX, or the narrow tail's partials past the ring: V above ~80k)."""
+    from icee_tpu_torch.ops import beam, widths
+
+    return beam.selection_kind(-(-widths.quad(vocab) // 256), k,
+                               steps_max + 2) != beam.SEL_NARROW
+
+
 def plain_by_images(search, batch: int, k: int, *args, **kw):
     """A plain search ``search(args[0], feats, args[2], n, ...)`` over
     ``batch`` images, MAX_ROWS // k images at a time (the kernels' launch
@@ -757,12 +801,12 @@ def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
     import torch
 
     from icee_tpu_torch.decode.fast import factored_decode
-    from icee_tpu_torch.ops.beam import (K_MAX, launch_chunks,
-                                         mega_beam_decode,
+    from icee_tpu_torch.ops.beam import (launch_chunks, mega_beam_decode,
                                          mega_beam_decode_plain,
                                          mega_beam_decode_steps)
 
     style = 2 if cell == "factored" else 0
+    vocab = head_vocab(dec)
     g = torch.Generator(device=device).manual_seed(4)
     feats = torch.randn((n_img, 1, E), generator=g, device=device)
     feats = feats.expand(n_img, k, E).contiguous()
@@ -775,8 +819,8 @@ def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
             + f", {cell}, {n_img} images, k={k}"
         with counted_calls(mega_beam_decode, {
                 pre + "launches": n_launch,
-                pre + "wide_launches": n_launch * (k > K_MAX)},
-                f"K2 {mode}"):
+                pre + "wide_launches": n_launch * wide_selection(
+                    vocab, k, steps_max)}, f"K2 {mode}"):
             got, steps = mega_beam_decode_steps(dec, mode_feats, style,
                                                 n_img, k=k, **kw)
         want = plain_by_images(mega_beam_decode_plain, n_img, k, dec,
@@ -822,10 +866,10 @@ def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
     out["plain_ms"] = cuda_ms(lambda: plain_by_images(
         mega_beam_decode_plain, n_img, k, dec, feats, style, **kw), 3)
     row_steps = out["live_row_steps"]
-    nbytes = (decoder_weight_bytes(cell) + 4 * n_img * k * E
+    nbytes = (decoder_weight_bytes(cell, vocab) + 4 * n_img * k * E
               + 4 * row_steps * E + 4 * n_img * (steps_max + 4))
     out["bound_ms"], out["bound_by"] = bound_ms(
-        row_steps * step_flops_per_row(cell), nbytes)
+        row_steps * step_flops_per_row(cell, vocab), nbytes)
     return out
 
 
@@ -862,19 +906,19 @@ def check_k2(dec, device, cell: str = "factored"):
 ATT_KINDS = {"factored": "stylenet_att", "lstm": "nic_att"}
 
 
-def att_step_flops_per_row(kind: str) -> int:
+def att_step_flops_per_row(kind: str, vocab: int = V) -> int:
     """Multiply-adds x2 of one attention step for one row: att2, the P
     scores, the context, the gate, then the cell on [emb; ctx] and the
-    head."""
+    head (over ``vocab`` words)."""
     attend = 2 * (H * A + P * A + P * FS + H * FS)
     e_in = E + FS
     if kind == "lstm":
-        return attend + 2 * (e_in * 4 * H + H * 4 * H + H * V)
+        return attend + 2 * (e_in * 4 * H + H * 4 * H + H * vocab)
     return attend + 2 * (e_in * 4 * F + 4 * F * F + 4 * F * H + H * 4 * H
-                         + H * V)
+                         + H * vocab)
 
 
-def att_weight_bytes(kind: str, init: bool = False) -> int:
+def att_weight_bytes(kind: str, init: bool = False, vocab: int = V) -> int:
     """Bytes of the weights every attention step reads (with ``init``, the
     h0/c0 projections too)."""
     e_in = E + FS
@@ -884,8 +928,8 @@ def att_weight_bytes(kind: str, init: bool = False) -> int:
     else:
         cell = e_in * 4 * F + 4 * F + 4 * F * F + 4 * F + 4 * F * H + 4 * H \
             + H * 4 * H + 4 * H
-    return 4 * (attend + cell + H * V + V + (2 * FS * H + 2 * H if init
-                                             else 0))
+    return 4 * (attend + cell + H * vocab + vocab
+                + (2 * FS * H + 2 * H if init else 0))
 
 
 def att_features(device, n_img: int, seed: int):
@@ -1005,16 +1049,16 @@ def k6_times(kind: str, args, n: int, n_plain: int, warm: int) -> dict:
     from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk
 
     n_img, k = args[6].shape[0], args[9]
-    rows = n_img * k
+    rows, vocab = n_img * k, head_vocab(args[0])
     out = {"ms": cuda_ms(lambda: att_decode_step_topk(*args, ktop=k), n,
                          warm),
            "plain_ms": cuda_ms(lambda: att_step_plain(args, k), n_plain,
                                warm),
            "library_ms": cuda_ms(lambda: att_library_step(args), n, warm)}
-    nbytes = (att_weight_bytes(kind) + 4 * n_img * P * (FS + A)
+    nbytes = (att_weight_bytes(kind, vocab=vocab) + 4 * n_img * P * (FS + A)
               + 4 * rows * (E + 2 * H) + 4 * rows * (2 * k + 2 * H + P))
     out["bound_ms"], out["bound_by"] = bound_ms(
-        rows * att_step_flops_per_row(kind), nbytes)
+        rows * att_step_flops_per_row(kind, vocab), nbytes)
     return out
 
 
@@ -1171,9 +1215,10 @@ def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
     from icee_tpu_torch.ops.att_beam import (mega_att_beam_decode,
                                              mega_att_beam_decode_plain,
                                              mega_att_beam_decode_steps)
-    from icee_tpu_torch.ops.beam import K_MAX, launch_chunks
+    from icee_tpu_torch.ops.beam import launch_chunks
 
     style = 3 if kind == "factored" else 0
+    vocab = head_vocab(dec)
     feats = att_features(device, n_img, 14)
     kw = dict(max_seq_length=steps_max, kind=kind)
     what = f"K7 {kind} {n_img} images, k={k}"
@@ -1181,7 +1226,8 @@ def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
     n_launch = len(launch_chunks(n_img, k))
     with counted_calls(mega_att_beam_decode, {
             pre + "launches": n_launch,
-            pre + "wide_launches": n_launch * (k > K_MAX)}, what):
+            pre + "wide_launches": n_launch * wide_selection(
+                vocab, k, steps_max)}, what):
         got, steps = mega_att_beam_decode_steps(dec, feats, style, n_img,
                                                 k=k, **kw)
     want = plain_by_images(mega_att_beam_decode_plain, n_img, k, dec, feats,
@@ -1220,9 +1266,10 @@ def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
         dec, feats, style, n_img, k=k, **kw), 5)
     out["plain_ms"] = cuda_ms(lambda: plain_by_images(
         mega_att_beam_decode_plain, n_img, k, dec, feats, style, **kw), 1)
-    flops = (row_steps * att_step_flops_per_row(kind)
+    flops = (row_steps * att_step_flops_per_row(kind, vocab)
              + n_img * (P * FS + 2 * 2 * FS * H))
-    nbytes = (att_weight_bytes(kind, init=True) + 4 * n_img * P * (FS + A)
+    nbytes = (att_weight_bytes(kind, init=True, vocab=vocab)
+              + 4 * n_img * P * (FS + A)
               + 4 * row_steps * E + 4 * n_img * (steps_max + 4))
     out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
     return out
@@ -1351,9 +1398,9 @@ def wide_searches(sty, nic, att, device):
 
 
 def check_wide_refusals(sty, nic, att, device):
-    """Phase 5d (d): k = 257 on the card: each wide wrapper raises a
-    ValueError naming its kernel and the limit K_WIDE = 256, and launches
-    nothing."""
+    """Phase 5d (d): k = V + 1 on the card and on the CPU route: each wide
+    wrapper raises the same ValueError on both (the CPU route's, ``k=8193
+    outside [1, 8192]``), and launches nothing.  -> the messages."""
     import torch
 
     from icee_tpu_torch.models import attention as att_mod
@@ -1363,44 +1410,57 @@ def check_wide_refusals(sty, nic, att, device):
     from icee_tpu_torch.ops.beam import mega_beam_decode
     from icee_tpu_torch.ops.decode_step import decode_step_topk
 
-    z = dict(device=device)
-    x, h = torch.zeros((257, E), **z), torch.zeros((257, H), **z)
-    feats = att_features(device, 1, 3)
-    cases = [("K1", lambda: decode_step_topk(sty, x[:5], h[:5], h[:5], 0,
-                                             ktop=257)),
-             ("K1", lambda: decode_step_topk(sty, x, h, h, 0, ktop=257)),
-             ("K2", lambda: mega_beam_decode(sty, None, 0, 1, k=257)),
-             ("K2", lambda: mega_beam_decode(nic, None, 0, 1, k=257,
-                                             cell="lstm"))]
-    for kind, dec in att.items():
-        cell, at, gate = step_params(dec, kind, 0)
-        att1 = att_mod.att_projection(at, feats)
+    def on(tree, dev):
+        return {n: on(t, dev) if isinstance(t, dict) else t.to(dev)
+                for n, t in tree.items()}
+
+    over = V + 1
+    cases = []
+    for dev in (device, torch.device("cpu")):
+        z = dict(device=dev)
+        x, h = torch.zeros((5, E), **z), torch.zeros((5, H), **z)
+        feats = att_features(device, 1, 3).to(dev)
+        s_, n_ = on(sty, dev), on(nic, dev)
+        route = "card" if dev.type == "cuda" else "cpu"
         cases += [
-            ("K6", lambda c=cell, a=at, g=gate, a1=att1, kd=kind:
-             att_decode_step_topk(c, a, g, x, h, h, feats, a1, kd, 257,
-                                  ktop=5)),
-            ("K6", lambda c=cell, a=at, g=gate, a1=att1, kd=kind:
-             att_decode_step_topk(c, a, g, x[:5], h[:5], h[:5], feats, a1,
-                                  kd, 5, ktop=257)),
-            ("K7", lambda d=dec, kd=kind: mega_att_beam_decode(
-                d, feats, 0, 1, k=257, kind=kd))]
+            ("K1", route, lambda s_=s_, x=x, h=h: decode_step_topk(
+                s_, x, h, h, 0, ktop=over)),
+            ("K2", route, lambda s_=s_: mega_beam_decode(s_, None, 0, 1,
+                                                         k=over)),
+            ("K2", route, lambda n_=n_: mega_beam_decode(
+                n_, None, 0, 1, k=over, cell="lstm"))]
+        for kind, dec in att.items():
+            d_ = on(dec, dev)
+            cell, at, gate = step_params(d_, kind, 0)
+            att1 = att_mod.att_projection(at, feats)
+            cases += [
+                ("K6", route, lambda c=cell, a=at, g=gate, a1=att1, kd=kind,
+                 x=x, h=h, f=feats: att_decode_step_topk(
+                     c, a, g, x, h, h, f, a1, kd, 5, ktop=over)),
+                ("K7", route, lambda d=d_, kd=kind, f=feats:
+                 mega_att_beam_decode(d, f, 0, 1, k=over, kind=kd))]
     fns = (decode_step_topk, mega_beam_decode, att_decode_step_topk,
            mega_att_beam_decode)
     before = [dict(vars(fn)) for fn in fns]
-    msgs = []
-    for name, call in cases:
+    msgs = {}
+    for name, route, call in cases:
         try:
             call()
         except ValueError as e:
-            if f"{name} (csrc/" not in str(e) or "K_WIDE = 256" not in str(e):
-                fail(f"phase 5d: k = 257 on {name} raised {e!r}")
-            msgs.append(str(e))
+            if f"={over} outside [1, {V}]" not in str(e):
+                fail(f"phase 5d: k = V + 1 on {name} ({route}) raised {e!r}")
+            msgs.setdefault(name, set()).add(str(e))
             continue
-        fail(f"phase 5d: k = 257 on {name} did not raise")
+        fail(f"phase 5d: k = V + 1 on {name} ({route}) did not raise")
     torch.cuda.synchronize()
     if [dict(vars(fn)) for fn in fns] != before:
         fail("phase 5d: a refused call launched a kernel")
-    return msgs
+    for name, got in msgs.items():
+        # one message a kernel: the card's is the CPU route's
+        if len(got) != 1:
+            fail(f"phase 5d: k = V + 1 on {name}: the card and the CPU "
+                 f"route differ: {sorted(got)}")
+    return [m for got in msgs.values() for m in got]
 
 
 def wide_counters():
@@ -1507,25 +1567,28 @@ def wide_main_path(sty, nic, att, device):
 
 
 def wide_entry(name: str, source: str, replaces: str, fig: dict,
-               headline: str) -> dict:
+               headline: str, **extra) -> dict:
     """A wide path's entry of the kernels line: the ``headline`` shape's
     figures, every timed shape's under ``shapes``, the errors over every
-    checked width and shape."""
+    checked width and shape, and ``extra``."""
     top = fig["shapes"][headline]
-    return dict({k: v for k, v in fig.items() if k != "shapes"},
-                name=name, route="cuda", source=source, replaces=replaces,
-                wide_source=WIDE_SOURCE, ms=top["ms"],
-                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                bound_by=top["bound_by"],
-                library_ms=top.get("library_ms"),
-                headline=headline, widths_checked=list(WIDE_KS),
-                images_checked=list(WIDE_IMAGES), shapes=fig["shapes"])
+    entry = dict({k: v for k, v in fig.items() if k != "shapes"},
+                 name=name, route="cuda", source=source, replaces=replaces,
+                 wide_source=WIDE_SOURCE, ms=top["ms"],
+                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                 bound_by=top["bound_by"],
+                 library_ms=top.get("library_ms"),
+                 headline=headline, shapes=fig["shapes"], **extra)
+    if entry["library_ms"] is None:
+        entry["library_note"] = "no single PyTorch call computes a beam search"
+    return entry
 
 
 def wide_phase(params, device):
     """Phase 5d: beam widths 9-256 in K1, K2, K6 and K7 (their wide paths,
     ``csrc/wide_topk.cuh``): (a)-(c) against their plain versions, (d) the
-    refusals at 257, (e) the main path at beam 20.  -> (the kernels line's
+    refusal of k = V + 1 on both routes, (e) the main path at beam 20.
+    -> (the kernels line's
     wide entries by name, the main path's counts)."""
     sty, nic = params["stylenet"]["decoder"], params["nic"]["decoder"]
     att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
@@ -1541,38 +1604,39 @@ def wide_phase(params, device):
         f"{f['bound_ms']:.3f})" for n, fig in searches.items()
         for sh, f in fig["shapes"].items()))
     msgs = check_wide_refusals(sty, nic, att, device)
-    log(f"phase 5d (d): k = 257 refused by every wrapper: {msgs[0]!r} ...")
+    log(f"phase 5d (d): k = V + 1 refused by every wrapper, the card as "
+        f"the CPU route: {msgs}")
     counts = wide_main_path(sty, nic, att, device)
     att_step = "icee_tpu/ops/pallas_att_decode.py:201 (kind=\"{}\", k 9-256)"
     att_beam = ("icee_tpu/ops/pallas_att_decode.py:733 (kind=\"{}\"; both "
                 "calls, :974 and :907; k 9-256)")
+    wide_entry_ = functools.partial(wide_entry,
+                                    widths_checked=list(WIDE_KS),
+                                    images_checked=list(WIDE_IMAGES))
     entries = {
-        "decode_step_topk_wide": wide_entry(
+        "decode_step_topk_wide": wide_entry_(
             "decode_step_topk_wide", "icee_tpu_torch/csrc/decode_step.cu",
             "icee_tpu/ops/pallas_decode.py:261 (ktop 9-256)", steps["k1"],
             "k20_rows1280"),
-        "mega_beam_decode_wide": wide_entry(
+        "mega_beam_decode_wide": wide_entry_(
             "mega_beam_decode_wide", "icee_tpu_torch/csrc/beam.cu",
             "icee_tpu/ops/pallas_beam.py:350 (k 9-256)", searches["k2"],
             "k20_images64"),
-        "mega_beam_decode_lstm_wide": wide_entry(
+        "mega_beam_decode_lstm_wide": wide_entry_(
             "mega_beam_decode_lstm_wide", "icee_tpu_torch/csrc/beam.cu",
             "icee_tpu/ops/pallas_beam.py:350 (cell=\"lstm\", :129-143; k "
             "9-256)", searches["k2_lstm"], "k20_images64")}
     for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
-        entries[f"att_decode_step_topk{sfx}_wide"] = wide_entry(
+        entries[f"att_decode_step_topk{sfx}_wide"] = wide_entry_(
             f"att_decode_step_topk{sfx}_wide",
             "icee_tpu_torch/csrc/att_decode_step.cu", att_step.format(kind),
             steps[kind], "k20_rows1280")
-        entries[f"mega_att_beam_decode{sfx}_wide"] = wide_entry(
+        entries[f"mega_att_beam_decode{sfx}_wide"] = wide_entry_(
             f"mega_att_beam_decode{sfx}_wide",
             "icee_tpu_torch/csrc/att_beam.cu", att_beam.format(kind),
             searches["k7" + sfx], "k20_images64")
     for name, entry in entries.items():
         entry["launches"] = counts[name]
-        if entry["library_ms"] is None:
-            entry["library_note"] = "no single PyTorch call computes a " \
-                                    "beam search"
     return entries, counts
 
 
@@ -4160,21 +4224,22 @@ def check_neglog2(device):
             "value": want.item(), "rows": rows, "V": SC_V}
 
 
-def senticap_decoder(device):
-    """Seeded base-model weights at the decode regime, shaped so beams end
-    at several lengths: Xavier init (``model.init_params``) with the head x
-    60, w_lstm x 1.5, an N(0, 1) output bias and +2.5 on STOP (at the
-    plain init every beam runs to max_len on near-uniform nll)."""
+def senticap_decoder(device, vocab: int = SC_V):
+    """Seeded base-model weights at the decode regime (over ``vocab``
+    words), shaped so beams end at several lengths: Xavier init
+    (``model.init_params``) with the head x 60, w_lstm x 1.5, an N(0, 1)
+    output bias and +2.5 on STOP (at the plain init every beam runs to
+    max_len on near-uniform nll)."""
     import torch
 
     from icee_tpu_torch.senticap import model
 
-    p = model.init_params(torch.Generator().manual_seed(60), SC_V,
+    p = model.init_params(torch.Generator().manual_seed(60), vocab,
                           senticap_conf_full())
     g = torch.Generator().manual_seed(61)
     p["w"] *= 60.0
     p["w_lstm"] *= 1.5
-    p["b"] = torch.randn(SC_V, generator=g)
+    p["b"] = torch.randn(vocab, generator=g)
     p["b"][0] += 2.5
     return {k: v.to(device) for k, v in p.items()}
 
@@ -4398,57 +4463,27 @@ def k9_margin_check(what: str, got, want, rescored):
 
 
 def check_k9(device):
-    """Phase 14: K9 vs the plain search at 64 images, beam 20, max_len 20,
-    margin-aware as phase 5: each kernel score matches its own sequence's
-    plain re-score within 1e-3 and the plain search's within 1e-3, and
-    where tokens differ, the kernel's sequence ties the plain winner within
-    1e-4.  -> the kernel's entry of the kernels line."""
-    import torch
-
+    """Phase 14: K9 vs the plain search at 64 images, beam 20, max_len 20
+    (``sb_search_check``), its beams ending at several lengths.  -> the
+    kernel's entry of the kernels line."""
     from icee_tpu_torch.ops import senticap_decode as sd
 
     params = senticap_decoder(device)
-    g = torch.Generator(device=device).manual_seed(62)
-    v = torch.randn((SC_IMAGES, SC_VIS), generator=g, device=device)
+    r, v = sb_search_check("K9", False, params, SC_IMAGES, SC_BEAM, 62,
+                           True)
+    if len(set(r["lengths"])) < 2:
+        fail(f"K9: every beam ended at one length {r['lengths'][0]}")
     kw = dict(beam_size=SC_BEAM, max_len=SC_MAXLEN)
-    got = sd.mega_senticap_beam_decode(params, v, SC_IMAGES, **kw)
-    again = sd.mega_senticap_beam_decode(params, v, SC_IMAGES, **kw)
-    want = sd.mega_senticap_beam_decode_plain(params, v, SC_IMAGES, **kw)
-    rescored = senticap_rescore(params, v, got[1], got[2])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("K9: two runs on the same inputs differ")
-    max_err, own_err, flips = k9_margin_check("K9", got, want, rescored)
-    lengths = got[2].tolist()
-    if len(set(lengths)) < 2:
-        fail(f"K9: every beam ended at one length {lengths[0]}")
-    log(f"K9: {SC_IMAGES} images, lengths min {min(lengths)} max "
-        f"{max(lengths)} mean {sum(lengths) / len(lengths):.2f} "
-        f"({len(set(lengths))} distinct); score max abs err {max_err:.3g}, "
-        f"vs own re-score {own_err:.3g}; {flips} near-tie flips; "
-        f"bit-identical over two runs")
-    ms = cuda_ms(lambda: sd.mega_senticap_beam_decode(params, v, SC_IMAGES,
-                                                      **kw), 3)
-    plain_ms = cuda_ms(lambda: sd.mega_senticap_beam_decode_plain(
-        params, v, SC_IMAGES, **kw), 3)
-    rows, steps = SC_IMAGES * SC_BEAM, SC_MAXLEN + 1
-    flops = steps * rows * 2 * ((SC_E + SC_H) * 4 * SC_H + SC_H * SC_V)
-    nbytes = 4 * (SC_V * SC_E + (SC_E + SC_H) * 4 * SC_H + SC_H * SC_V + SC_V
-                  + SC_IMAGES * SC_E + steps * rows * SC_E
-                  + SC_IMAGES * (steps + 2))
-    b_ms, b_by = bound_ms(flops, nbytes)
     groups = senticap_profile("K9", lambda: sd.mega_senticap_beam_decode(
         params, v, SC_IMAGES, **kw))
-    return {"name": "mega_senticap_beam_decode", "route": "cuda",
-            "source": "icee_tpu_torch/csrc/senticap_beam.cu",
-            "replaces": "icee_tpu/ops/pallas_senticap_decode.py:397",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_tf32x3_ms": flops / TF32X3_FLOP_PER_S * 1e3,
-            "device_ms_by_group": groups, "library_ms": None,
-            "library_note": "no single PyTorch call computes a beam search",
-            "near_tie_flips": flips, "max_rescore_err": own_err,
-            "lengths": lengths}
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_tf32x3_ms", "near_tie_flips", "max_rescore_err",
+            "lengths")
+    return dict({k: r[k] for k in keep}, name="mega_senticap_beam_decode",
+                route="cuda", source="icee_tpu_torch/csrc/senticap_beam.cu",
+                replaces="icee_tpu/ops/pallas_senticap_decode.py:397",
+                device_ms_by_group=groups, library_ms=None,
+                library_note="no single PyTorch call computes a beam search")
 
 
 def decode_senticap_phase(device):
@@ -4759,7 +4794,7 @@ def pretrained_base(device):
     return {k: v.cpu() for k, v in params.items()}
 
 
-def switched_params(device, base=None):
+def switched_params(device, base=None, vocab: int = SC_V):
     """Seeded switched weights, ``switched.init_params(base=...)`` over a
     base model: for training the pretrained ``base`` (``pretrained_base``);
     without one, for the decode, phase 14's base decoder
@@ -4774,8 +4809,9 @@ def switched_params(device, base=None):
 
     train = base is not None
     if not train:
-        base = {k: v.cpu() for k, v in senticap_decoder("cpu").items()}
-    p = switched.init_params(torch.Generator().manual_seed(64), SC_V,
+        base = {k: v.cpu() for k, v in senticap_decoder("cpu",
+                                                        vocab).items()}
+    p = switched.init_params(torch.Generator().manual_seed(64), vocab,
                              senticap_conf_full(), base=base)
     if not train:
         g = torch.Generator().manual_seed(65)
@@ -5027,88 +5063,30 @@ def switched_rescore(params, v, tokens, length):
 
 
 def check_k10(device):
-    """Phase 17: K10 vs its plain search at 64 images, beam 20, max_len 20,
-    margin-aware as phase 14: each kernel score matches its own sequence's
-    plain re-score within 1e-3 and the plain search's within 1e-3; where
-    tokens differ, the kernel's sequence ties the plain winner within
-    1e-4; where they agree, the trace within 1e-5.  -> the kernel's entry
-    of the kernels line."""
-    import torch
-
+    """Phase 17: K10 vs its plain search at 64 images, beam 20, max_len 20
+    (``sb_search_check``: margin-aware as phase 14, the gate trace within
+    1e-5 where tokens agree), its beams ending at several lengths.  -> the
+    kernel's entry of the kernels line."""
     from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
     params = switched_params(device)
-    g = torch.Generator(device=device).manual_seed(66)
-    v = torch.randn((SC_IMAGES, SC_VIS), generator=g, device=device)
+    r, v = sb_search_check("K10", True, params, SC_IMAGES, SC_BEAM, 66,
+                           True)
+    if len(set(r["lengths"])) < 2:
+        fail(f"K10: every beam ended at one length {r['lengths'][0]}")
+    log(f"K10: gates {r['gate_min_max'][0]:.3f}..{r['gate_min_max'][1]:.3f}")
     kw = dict(beam_size=SC_BEAM, max_len=SC_MAXLEN)
-    got = ssd.mega_senticap_switched_decode(params, v, SC_IMAGES, **kw)
-    again = ssd.mega_senticap_switched_decode(params, v, SC_IMAGES, **kw)
-    want = ssd.mega_senticap_switched_decode_plain(params, v, SC_IMAGES,
-                                                   **kw)
-    rescored = switched_rescore(params, v, got[1], got[2])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("K10: two runs on the same inputs differ")
-    max_err, own_err, trace_err, flips = 0.0, 0.0, 0.0, 0
-    for i in range(SC_IMAGES):
-        gs, ws, rs = got[0][i].item(), want[0][i].item(), rescored[i].item()
-        n = int(got[2][i])
-        same = n == int(want[2][i]) and torch.equal(got[1][i, :n],
-                                                    want[1][i, :n])
-        own_err = max(own_err, abs(rs - gs))
-        if not abs(rs - gs) <= 1e-3:
-            fail(f"K10 image {i}: reported score {gs}, its sequence scores "
-                 f"{rs}")
-        if same:
-            trace_err = max(trace_err, (got[3][i, :n] - want[3][i, :n])
-                            .abs().max().item())
-        else:
-            margin = abs(rs - ws)
-            if margin > 1e-4:
-                fail(f"K10 image {i}: tokens differ; kernel's sequence "
-                     f"scores {rs}, plain winner {ws}, margin {margin}")
-            flips += 1
-            log(f"K10 image {i}: near-tie flip, margin {margin}")
-        max_err = max(max_err, abs(gs - ws))
-    if not max_err <= 1e-3:
-        fail(f"K10: score error {max_err} > 1e-3")
-    if not trace_err <= 1e-5:
-        fail(f"K10: trace error {trace_err} > 1e-5")
-    lengths = got[2].tolist()
-    if len(set(lengths)) < 2:
-        fail(f"K10: every beam ended at one length {lengths[0]}")
-    gates = torch.cat([got[3][i, :lengths[i]] for i in range(SC_IMAGES)])
-    spread = [gates.min().item(), gates.max().item()]
-    log(f"K10: {SC_IMAGES} images, lengths min {min(lengths)} max "
-        f"{max(lengths)} mean {sum(lengths) / len(lengths):.2f} "
-        f"({len(set(lengths))} distinct); gates {spread[0]:.3f}.."
-        f"{spread[1]:.3f}; score max abs err {max_err:.3g}, vs own re-score "
-        f"{own_err:.3g}; trace err {trace_err:.3g}; {flips} near-tie flips;"
-        f" bit-identical over two runs")
-    ms = cuda_ms(lambda: ssd.mega_senticap_switched_decode(
-        params, v, SC_IMAGES, **kw), 3)
-    plain_ms = cuda_ms(lambda: ssd.mega_senticap_switched_decode_plain(
-        params, v, SC_IMAGES, **kw), 3)
-    rows, steps = SC_IMAGES * SC_BEAM, SC_MAXLEN + 1
-    flops = steps * rows * 2 * (2 * ((SC_E + SC_H) * 4 * SC_H + SC_H * SC_V)
-                                + 2 * SC_H)
-    nbytes = 4 * (2 * (SC_V * SC_E + (SC_E + SC_H) * 4 * SC_H + SC_H * SC_V
-                       + SC_V) + 2 * SC_H + 1 + 2 * SC_IMAGES * SC_E
-                  + 2 * steps * rows * SC_E + SC_IMAGES * (2 * steps + 2))
-    b_ms, b_by = bound_ms(flops, nbytes)
     groups = senticap_profile("K10", lambda: ssd.mega_senticap_switched_decode(
         params, v, SC_IMAGES, **kw))
-    return {"name": "mega_senticap_switched_decode", "route": "cuda",
-            "source": "icee_tpu_torch/csrc/senticap_switched_beam.cu",
-            "replaces": "icee_tpu/ops/pallas_senticap_switched_decode.py:241",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_tf32x3_ms": flops / TF32X3_FLOP_PER_S * 1e3,
-            "device_ms_by_group": groups, "library_ms": None,
-            "library_note": "no single PyTorch call computes a beam search",
-            "near_tie_flips": flips, "max_rescore_err": own_err,
-            "max_trace_err": trace_err, "gate_min_max": spread,
-            "lengths": lengths}
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_tf32x3_ms", "near_tie_flips", "max_rescore_err",
+            "max_trace_err", "gate_min_max", "lengths")
+    return dict({k: r[k] for k in keep},
+                name="mega_senticap_switched_decode", route="cuda",
+                source="icee_tpu_torch/csrc/senticap_switched_beam.cu",
+                replaces="icee_tpu/ops/pallas_senticap_switched_decode.py:241",
+                device_ms_by_group=groups, library_ms=None,
+                library_note="no single PyTorch call computes a beam search")
 
 
 def decode_switched_phase(device):
@@ -5767,6 +5745,7 @@ CLI_PROGRESS = 4           # train_resident: a progress record every 4 batches
 CLI_TIMEOUT_S = 600
 CLI_STYLE = "sad"          # the seeded checkpoint's mode
 CLI_WIDE_BEAM = 20         # caption_batch at a beam above K_MAX (K2 wide)
+CLI_SCAN_BEAM = 300        # ... above K_WIDE (survivors in device memory)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Each stage runs as ``python -c CLI_WRAPPER '{"module": ..., "ratio": ...}'
@@ -6440,21 +6419,22 @@ def cli_phase(device, keep: str = None):
             near_tie_flips=flips, distinct_captions=distinct,
             captions_per_s=CLI_IMAGES / stats[wide]["wall_s"])
         del kern_w, plain_w, rescored_w
-        # a beam above K_WIDE raises K2's own error
-        t = time.perf_counter()
-        proc = subprocess.run(cli_cmd(m + "caption_batch", seeded_args + [
-            "--out", os.path.join(root, "k257.json"), "--beam_size", 257]),
-            cwd=ROOT, env=cli_env(), capture_output=True, text=True,
-            timeout=CLI_TIMEOUT_S)
-        k2_msg = ("k=257: the CUDA kernel K2 (csrc/beam.cu) takes at most "
-                  "K_WIDE = 256")
-        if proc.returncode == 0 or k2_msg not in proc.stderr:
-            fail(f"phase 19 caption_batch --beam_size 257: exit "
-                 f"{proc.returncode}, {proc.stderr[-2000:]}")
-        stats["caption_batch_beam_257"] = {
-            "wall_s": time.perf_counter() - t,
-            "error": next((ln for ln in proc.stderr.splitlines()
-                           if k2_msg in ln), None)}
+        # a beam above K_WIDE: K2 with its survivors in device memory, one
+        # launch a MAX_ROWS // k images of a batch, no plain version
+        scan = f"caption_batch_beam_{CLI_SCAN_BEAM}"
+        n_scan = -(-CLI_IMAGES // CLI_BATCH) * len(
+            launch_chunks(CLI_BATCH, CLI_SCAN_BEAM))
+        stage(scan, m + "caption_batch", seeded_args + [
+            "--image_dir", files["img"], "--out", os.path.join(
+                root, f"{scan}.json"), "--beam_size", CLI_SCAN_BEAM],
+            {"mega_beam_decode": n_scan, "mega_beam_decode_wide": n_scan})
+        with open(os.path.join(root, f"{scan}.json")) as f:
+            got = json.load(f)
+        if sorted(got) != sorted(names) or not all(
+                isinstance(c, str) for c in got.values()):
+            fail(f"phase 19 {scan}: captions for {len(got)} images")
+        stats[scan].update(captions_per_s=CLI_IMAGES / stats[scan]["wall_s"],
+                           launches=n_scan)
         # 5/6 one image, its feature from the backbone on the card, the
         # weights from the reference's torch checkpoints
         image = os.path.join(files["img"], "t0.jpg")
@@ -9094,6 +9074,425 @@ def ragged_phase(device, keep: str) -> tuple:
     return launches, stats
 
 
+# --- phase 26: beams and vocabularies past one block -------------------------
+
+PB_KS = (257, 512, 1024)      # (a): K1 and K6 at one image, k = top-k
+PB_MANY = (300, 8)            # (a), (b): k = 300 over 8 images
+PB_V = 1000                   # k = top-k = V on the decoders cut to V
+PB_V_STEPS = 4                # (b) at k = V
+PB_SEARCHES = {257: 8, 512: 8, 1024: 6, 2048: 4}   # (b) one image: steps
+PB_FUSED = (300, 1024)        # K2 = K1 and K7 = K6 at atol 0 (also big V)
+PB_TIMED = (512, 2048)        # (b) timed at one image
+PB_K1_TIMED = 1024            # (a) timed at one image
+PB_BIG_V, PB_BIG_K, PB_BIG_STEPS = 100000, 5, 20   # the wide tail at k <= 8
+PB_BIG_IMAGES = (1, 8)
+PB_SC_BEAMS = (165, 257, 512)  # (c) at V = 8800 over PB_SC_IMAGES images
+PB_SC_IMAGES = 8
+PB_SC_TIMED_BEAM = 257
+PB_SC_VOCABS = {32768: ("K9", "K10"), 60000: ("K9",)}  # beam 20, 64 images
+PB_SC_TIMED_V = 32768
+PB_MAIN = (2, 300)            # (e): images and beam of the main path
+
+
+def past_block_steps(sty, att, cuts, device):
+    """Phase 26 (a): K1 and K6 (both kinds) above K_WIDE against their plain
+    versions as phase 5d (a) holds them (``check_k1``, ``check_k6``: ids
+    exact but in a 1e-4 near tie, values 1e-4, launches exact): k = top-k
+    in PB_KS at one image, 300 over 8 images, and k = top-k = V on the
+    decoders cut to PB_V words; timed at PB_K1_TIMED.  -> {"k1" | kind:
+    {"max_abs_err", "near_tie_swaps", "shapes"}}."""
+    import torch
+
+    out = {n: {"max_abs_err": 0.0, "near_tie_swaps": 0, "shapes": {}}
+           for n in ("k1", *att)}
+
+    def note(name, err, ties):
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        out[name]["near_tie_swaps"] += ties
+
+    cases = [(k, 1, sty, att) for k in PB_KS]
+    cases += [(PB_MANY[0], PB_MANY[1], sty, att),
+              (PB_V, 1, cuts["stylenet"], {k: cuts[k] for k in att})]
+    for k, n_img, k1_dec, att_decs in cases:
+        rows, timed = n_img * k, n_img == 1 and k == PB_K1_TIMED
+        inputs, err, ties = check_k1(k1_dec, device, rows, 70 + k + n_img,
+                                     ktop=k)
+        note("k1", err, ties)
+        if timed:
+            out["k1"]["shapes"][f"k{k}_rows{rows}"] = dict(
+                k1_times(k1_dec, inputs, k, 10, 2), k=k, rows=rows)
+        del inputs
+        for kind, dec in att_decs.items():
+            args, err, ties = check_k6(dec, kind, device, n_img,
+                                       80 + k + n_img, k=k)
+            note(kind, err, ties)
+            if timed:
+                out[kind]["shapes"][f"k{k}_rows{rows}"] = dict(
+                    k6_times(kind, args, 10, 3, 2), k=k, rows=rows)
+            del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def past_block_searches(decs, big, cuts, device):
+    """Phase 26 (b): K2 (both cells) and K7 (both kinds) against their plain
+    searches, margin-aware and re-scored as phase 5d (b, c) holds them
+    (``check_k2_shape``, ``check_k7_shape``; launches exact): k in
+    PB_SEARCHES at one image (its steps cut as phase 5d cuts them), 300
+    over 8 images, k = V = PB_V over PB_V_STEPS steps, and k = PB_BIG_K at
+    V = PB_BIG_V over PB_BIG_IMAGES images (the wide selection at k <= 8);
+    K2 = K1 fused-step and K7 = K6 at atol 0 at k in PB_FUSED and at
+    PB_BIG_V; timed at PB_TIMED and PB_BIG_V over 8 images.  -> {name:
+    {"max_abs_err", "near_tie_flips", "max_rescore_err", "shapes"}}."""
+    import torch
+
+    names = {("factored", False): "k2", ("lstm", False): "k2_lstm",
+             ("factored", True): "k7", ("lstm", True): "k7_lstm"}
+    out = {n: {"max_abs_err": 0.0, "near_tie_flips": 0,
+               "max_rescore_err": 0.0, "shapes": {}}
+           for n in names.values()}
+    cases = [(k, 1, steps, decs, k in PB_FUSED, k in PB_TIMED)
+             for k, steps in PB_SEARCHES.items()]
+    cases += [(PB_MANY[0], PB_MANY[1], PB_SEARCHES[257], decs, True, False),
+              (PB_V, 1, PB_V_STEPS, cuts, False, False)]
+    cases += [(PB_BIG_K, n, PB_BIG_STEPS, big, True, n == 8)
+              for n in PB_BIG_IMAGES]
+    for k, n_img, steps, ds, fused, timed in cases:
+        kw = dict(k=k, steps_max=steps, fused=fused, timed=timed)
+        for (cell, attends), name in names.items():
+            if attends:
+                dec = ds["stylenet_att" if cell == "factored" else "nic_att"]
+                r = check_k7_shape(dec, cell, device, n_img, **kw)
+            else:
+                dec = ds["stylenet" if cell == "factored" else "nic"]
+                r = check_k2_shape(dec, device, cell, n_img, **kw)
+            o = out[name]
+            o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+            o["max_rescore_err"] = max(o["max_rescore_err"],
+                                       r["max_rescore_err"])
+            o["near_tie_flips"] += r["near_tie_flips"]
+            if timed:
+                o["shapes"][f"v{head_vocab(dec)}_k{k}_images{n_img}"] = \
+                    dict(r, k=k, images=n_img, steps=steps,
+                         vocab=head_vocab(dec))
+        torch.cuda.empty_cache()
+    return out
+
+
+def sb_search_check(what: str, switched: bool, params, n_img: int,
+                    beam: int, seed: int, timed: bool) -> dict:
+    """K9 (or, ``switched``, K10) against its plain search over ``n_img``
+    images at ``beam`` (max_len 20), margin-aware as phase 5: two runs
+    bit-identical and one launch each; each kernel score within 1e-3 of
+    its own sequence's plain re-score and of the plain search's, a token
+    mismatch tying the plain winner within 1e-4; K10's gate trace within
+    1e-5 where tokens agree.  -> (this shape's figures (with ``timed``, ms,
+    plain ms and the bound), the visual features searched)."""
+    import torch
+
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+
+    vocab, paths = params["w"].shape[1], 2 if switched else 1
+    fn = (ssd.mega_senticap_switched_decode if switched
+          else sd.mega_senticap_beam_decode)
+    plain = (ssd.mega_senticap_switched_decode_plain if switched
+             else sd.mega_senticap_beam_decode_plain)
+    device = params["w"].device
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn((n_img, SC_VIS), generator=g, device=device)
+    kw = dict(beam_size=beam, max_len=SC_MAXLEN)
+    with counted_calls(fn, {"launches": 2}, what):
+        got = fn(params, v, n_img, **kw)
+        again = fn(params, v, n_img, **kw)
+    want = plain(params, v, n_img, **kw)
+    rescore = switched_rescore if switched else senticap_rescore
+    rescored = rescore(params, v, got[1], got[2])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: two runs on the same inputs differ")
+    max_err, own_err, flips = k9_margin_check(what, got, want, rescored)
+    trace_err = 0.0
+    if switched:
+        for i in range(n_img):
+            n = int(got[2][i])
+            if n == int(want[2][i]) and torch.equal(got[1][i, :n],
+                                                    want[1][i, :n]):
+                trace_err = max(trace_err, (got[3][i, :n] - want[3][i, :n])
+                                .abs().max().item())
+        if not trace_err <= 1e-5:
+            fail(f"{what}: trace error {trace_err} > 1e-5")
+    plan = sd.launch_plan(what, n_img, beam, SC_E, SC_H, vocab, SC_MAXLEN,
+                          paths)
+    lengths = got[2].tolist()
+    log(f"{what}: {n_img} images, beam {beam}, V {vocab} (row pass from "
+        f"{'device' if plan.topk_wide else 'shared'} memory, selection from "
+        f"{'device' if plan.select_wide else 'shared'} memory); lengths min "
+        f"{min(lengths)} max {max(lengths)} mean "
+        f"{sum(lengths) / len(lengths):.2f} ({len(set(lengths))} distinct);"
+        f" score max abs err {max_err:.3g}, vs own re-score {own_err:.3g}, "
+        f"trace {trace_err:.3g}; {flips} near-tie flips; bit-identical over "
+        "two runs")
+    out = {"max_abs_err": max_err, "max_rescore_err": own_err,
+           "near_tie_flips": flips, "lengths": lengths,
+           "topk_wide": plan.topk_wide, "select_wide": plan.select_wide,
+           "images": n_img, "beam": beam, "vocab": vocab}
+    if switched:
+        out["max_trace_err"] = trace_err
+        gates = torch.cat([got[3][i, :lengths[i]] for i in range(n_img)])
+        out["gate_min_max"] = [gates.min().item(), gates.max().item()]
+    if not timed:
+        return out, v
+    out["ms"] = cuda_ms(lambda: fn(params, v, n_img, **kw), 3)
+    out["plain_ms"] = cuda_ms(lambda: plain(params, v, n_img, **kw), 3)
+    rows, steps = n_img * beam, SC_MAXLEN + 1
+    gate = 2 * SC_H if switched else 0   # K10's switch gate, a row a step
+    flops = steps * rows * 2 * (paths * ((SC_E + SC_H) * 4 * SC_H
+                                         + SC_H * vocab) + gate)
+    nbytes = 4 * (paths * (vocab * SC_E + (SC_E + SC_H) * 4 * SC_H
+                           + SC_H * vocab + vocab) + (gate + 1 if switched
+                                                      else 0)
+                  + paths * (n_img * SC_E + steps * rows * SC_E)
+                  + n_img * (paths * steps + 2))
+    out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
+    out["bound_tf32x3_ms"] = flops / TF32X3_FLOP_PER_S * 1e3
+    return out, v
+
+
+def past_block_senticap(device) -> dict:
+    """Phase 26 (c): K9 and K10 at the COCO regime (E = H = 512, max_len
+    20) past one block: beam in PB_SC_BEAMS over PB_SC_IMAGES images at V
+    = 8800 (the selection from device memory, the row pass too above 256),
+    beam 20 over 64 images at V in PB_SC_VOCABS (the row pass from device
+    memory); ``sb_search_check`` each.  -> {"k9" | "k10": {"max_abs_err",
+    "near_tie_flips", "max_rescore_err", "max_trace_err", "shapes"}}."""
+    import torch
+
+    out = {n: {"max_abs_err": 0.0, "near_tie_flips": 0,
+               "max_rescore_err": 0.0, "max_trace_err": 0.0, "shapes": {}}
+           for n in ("k9", "k10")}
+
+    def run(name, switched, params, n_img, beam, timed):
+        what = f"{name.upper()} past one block"
+        r, _ = sb_search_check(what, switched, params, n_img, beam,
+                               90 + beam + n_img, timed)
+        o = out[name]
+        for key in ("max_abs_err", "max_rescore_err", "max_trace_err"):
+            o[key] = max(o[key], r.get(key, 0.0))
+        o["near_tie_flips"] += r["near_tie_flips"]
+        o["shapes"][f"v{r['vocab']}_beam{beam}_images{n_img}"] = r
+
+    base, sw = senticap_decoder(device), switched_params(device)
+    for beam in PB_SC_BEAMS:
+        run("k9", False, base, PB_SC_IMAGES, beam,
+            beam == PB_SC_TIMED_BEAM)
+        run("k10", True, sw, PB_SC_IMAGES, beam, False)
+    del base, sw
+    for vocab, kernels in PB_SC_VOCABS.items():
+        sw = switched_params(device, vocab=vocab)
+        base = {k: sw[k] for k in ("wemb", "w_lstm", "w", "b", "wvm",
+                                   "bmv")}
+        if "K9" in kernels:
+            run("k9", False, base, SC_IMAGES, SC_BEAM, False)
+        if "K10" in kernels:
+            run("k10", True, sw, SC_IMAGES, SC_BEAM,
+                vocab == PB_SC_TIMED_V)
+        del sw, base
+        torch.cuda.empty_cache()
+    return out
+
+
+def past_block_main_path(decs, device) -> dict:
+    """Phase 26 (e): the main path past one block, through the entry points
+    the engines and the CLIs call, every count from 0 just before and read
+    just after: ``decode/fast.py`` at beam PB_MAIN[1] over PB_MAIN[0]
+    images (StyleNet's whole search and fused-step path, NIC's search, both
+    attention decoders' searches and fused-step paths: K2 and K7 once a
+    search, K1 and K6 once a step, the h0/c0 kernel once a fused-step
+    attention path, each fused-step result = its whole search's at atol
+    0), then ``senticap/train.py::decode_split``: switched at V = 32,768,
+    beam 20 (K10 with its row pass from device memory, K9 on the
+    background weights) and base at beam 257 over V = 8800 (K9 from device
+    memory); no plain version.  -> the counts."""
+    import torch
+
+    from icee_tpu_torch.decode.fast import (attention_decode,
+                                            factored_decode, nic_att_decode,
+                                            nic_decode)
+    from icee_tpu_torch.ops import senticap_decode as sd
+    from icee_tpu_torch.ops import senticap_switched_decode as ssd
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode_steps
+    from icee_tpu_torch.ops.beam import mega_beam_decode_steps
+    from icee_tpu_torch.senticap.train import decode_split
+
+    n, k = PB_MAIN
+    sty, nic = decs["stylenet"], decs["nic"]
+    att = {"factored": decs["stylenet_att"], "lstm": decs["nic_att"]}
+    g = torch.Generator(device=device).manual_seed(26)
+    feats = torch.randn((n, 1, E), generator=g, device=device).expand(
+        n, k, E).contiguous()
+    spatial = att_features(device, n, 27)
+    styles = {"factored": 3, "lstm": 0}
+    _, st = mega_beam_decode_steps(sty, feats, 2, n, k=k,
+                                   max_seq_length=STEPS)
+    att_steps = {kind: int(mega_att_beam_decode_steps(
+        dec, spatial, styles[kind], n, k=k, max_seq_length=STEPS,
+        kind=kind)[1][:, 0].max()) for kind, dec in att.items()}
+    conf = senticap_conf_full(MAX_SENTENCE_LEN=SC_MAXLEN)
+    sw = switched_params(device, vocab=PB_SC_TIMED_V)
+    ds_sw = senticap_split(PB_SC_IMAGES, 68, senti=1.0)
+    base = senticap_decoder(device)
+    ds_base = senticap_split(PB_SC_IMAGES, 69)
+    i2w = {i: f"w{i}" for i in range(PB_SC_TIMED_V)}
+    counters = dict(wide_counters(),
+                    mega_senticap_beam_decode=(sd.mega_senticap_beam_decode,
+                                               "launches"),
+                    mega_senticap_switched_decode=(
+                        ssd.mega_senticap_switched_decode, "launches"))
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    with plain_counters() as plain:
+        res = {
+            "stylenet": factored_decode("mega", sty, feats, 2, n, k, STEPS,
+                                        1, 2),
+            "stylenet_fused": factored_decode("fused-step", sty, feats, 2, n,
+                                              k, STEPS, 1, 2),
+            "nic": nic_decode(nic, feats, n, k, STEPS, 1, 2),
+            "stylenet_att": attention_decode("mega", att["factored"],
+                                             spatial, 3, n, k, STEPS, 1, 2),
+            "stylenet_att_fused": attention_decode(
+                "fused-step", att["factored"], spatial, 3, n, k, STEPS, 1,
+                2),
+            "nic_att": nic_att_decode("mega", att["lstm"], spatial, n, k,
+                                      STEPS, 1, 2),
+            "nic_att_fused": nic_att_decode("fused-step", att["lstm"],
+                                            spatial, n, k, STEPS, 1, 2)}
+        styled = decode_split(sw, conf, ds_sw, i2w, switched=True,
+                              torch_device=device)
+        captions = decode_split(base, conf, ds_base, i2w, switched=False,
+                                beam_size=PB_SC_TIMED_BEAM,
+                                torch_device=device)
+        torch.cuda.synchronize()
+    got = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    if any(plain.values()):
+        fail(f"phase 26 (e): a plain version ran on the card: {plain}")
+    s1, s6f, s6l = int(st[:, 0].max()), att_steps["factored"], \
+        att_steps["lstm"]
+    want = {"decode_step_topk": s1, "decode_step_topk_wide": s1,
+            "mega_beam_decode": 1, "mega_beam_decode_wide": 1,
+            "mega_beam_decode_lstm": 1, "mega_beam_decode_lstm_wide": 1,
+            "att_decode_step_topk": s6f, "att_decode_step_topk_wide": s6f,
+            "att_decode_step_topk_lstm": s6l,
+            "att_decode_step_topk_lstm_wide": s6l,
+            "mega_att_beam_decode": 1, "mega_att_beam_decode_wide": 1,
+            "mega_att_beam_decode_lstm": 1,
+            "mega_att_beam_decode_lstm_wide": 1, "att_init_state": 2,
+            "mega_senticap_beam_decode": 2,
+            "mega_senticap_switched_decode": 1}
+    if got != want:
+        fail(f"phase 26 (e): launches {got}, expected {want}")
+    for name in ("stylenet", "stylenet_att", "nic_att"):
+        for what in ("tokens", "length", "score"):
+            if not torch.equal(getattr(res[name], what),
+                               getattr(res[name + "_fused"], what)):
+                fail(f"phase 26 (e) {name}: the fused-step path's {what} "
+                     "differ from the whole search's (atol 0)")
+    if len(styled) != PB_SC_IMAGES or len(captions) != PB_SC_IMAGES or any(
+            len(o["attention"]) != len(o["positive"]) + 1 for o in styled):
+        fail("phase 26 (e): decode_split's records are malformed")
+    log(f"phase 26 (e): beam {k}, {n} images a variant, decode_split "
+        f"switched at V = {PB_SC_TIMED_V} and base at beam "
+        f"{PB_SC_TIMED_BEAM}: launches {got}; fused-step = whole search at "
+        "atol 0")
+    return got
+
+
+def past_block_phase(device) -> tuple:
+    """Phase 26: every beam width and vocabulary that the CPU route takes,
+    on the card, past one block's shared memory: (a) K1 and K6, (b) K2 and
+    K7, (c) K9 and K10 against their plain versions, (d) their times, (e)
+    the main path.  -> (the kernels line's entries, the times line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        decs = {n: d["decoder"] for n, d in decoder_params(device).items()}
+        cuts = {n: cut_decoder(d, V=PB_V) for n, d in decs.items()}
+        att = {"factored": decs["stylenet_att"], "lstm": decs["nic_att"]}
+        steps = past_block_steps(decs["stylenet"], att, {
+            "stylenet": cuts["stylenet"], "factored": cuts["stylenet_att"],
+            "lstm": cuts["nic_att"]}, device)
+        log(f"phase 26 (a): K1, K6 ok at k = {PB_KS}, {PB_MANY[0]} over "
+            f"{PB_MANY[1]} images and V = {PB_V}; " + "; ".join(
+                f"{n} max err {f['max_abs_err']:.3g}, near-tie swaps "
+                f"{f['near_tie_swaps']}" for n, f in steps.items()))
+        big = {n: d["decoder"] for n, d in decoder_params(
+            device, PB_BIG_V).items()}
+        searches = past_block_searches(decs, big, cuts, device)
+        del big
+        torch.cuda.empty_cache()
+        log("phase 26 (b): K2, K7 ok; " + "; ".join(
+            f"{n} max err {f['max_abs_err']:.3g}, re-score "
+            f"{f['max_rescore_err']:.3g}, near-tie flips "
+            f"{f['near_tie_flips']}" for n, f in searches.items()))
+        sc = past_block_senticap(device)
+        log("phase 26 (c): K9, K10 ok; " + "; ".join(
+            f"{n} max err {f['max_abs_err']:.3g}, re-score "
+            f"{f['max_rescore_err']:.3g}, trace {f['max_trace_err']:.3g}, "
+            f"near-tie flips {f['near_tie_flips']}" for n, f in sc.items()))
+        counts = past_block_main_path(decs, device)
+    att_step = "icee_tpu/ops/pallas_att_decode.py:201 (kind=\"{}\", k > 256)"
+    att_beam = ("icee_tpu/ops/pallas_att_decode.py:733 (kind=\"{}\"; k > "
+                "256, V past the narrow tail)")
+    k1h = k6h = f"k{PB_K1_TIMED}_rows{PB_K1_TIMED}"
+    gh = f"v{V}_k{PB_TIMED[0]}_images1"
+    entries = [
+        wide_entry(
+            "decode_step_topk_past_block", "icee_tpu_torch/csrc/decode_step.cu",
+            "icee_tpu/ops/pallas_decode.py:261 (ktop > 256)", steps["k1"],
+            k1h, launches=counts["decode_step_topk_wide"]),
+        wide_entry(
+            "mega_beam_decode_past_block", "icee_tpu_torch/csrc/beam.cu",
+            "icee_tpu/ops/pallas_beam.py:350 (k > 256, V past the narrow "
+            "tail)", searches["k2"], gh,
+            launches=counts["mega_beam_decode_wide"]),
+        wide_entry(
+            "mega_beam_decode_lstm_past_block", "icee_tpu_torch/csrc/beam.cu",
+            "icee_tpu/ops/pallas_beam.py:350 (cell=\"lstm\", :129-143; k > "
+            "256, V past the narrow tail)", searches["k2_lstm"], gh,
+            launches=counts["mega_beam_decode_lstm_wide"])]
+    for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
+        entries.append(wide_entry(
+            f"att_decode_step_topk{sfx}_past_block",
+            "icee_tpu_torch/csrc/att_decode_step.cu", att_step.format(kind),
+            steps[kind], k6h,
+            launches=counts[f"att_decode_step_topk{sfx}_wide"]))
+        entries.append(wide_entry(
+            f"mega_att_beam_decode{sfx}_past_block",
+            "icee_tpu_torch/csrc/att_beam.cu", att_beam.format(kind),
+            searches["k7" + sfx], gh,
+            launches=counts[f"mega_att_beam_decode{sfx}_wide"]))
+    entries.append(wide_entry(
+        "mega_senticap_beam_decode_past_block",
+        "icee_tpu_torch/csrc/senticap_beam.cu",
+        "icee_tpu/ops/pallas_senticap_decode.py:397 (beam > 164, V past the "
+        "row block)", sc["k9"],
+        f"v{SC_V}_beam{PB_SC_TIMED_BEAM}_images{PB_SC_IMAGES}",
+        launches=counts["mega_senticap_beam_decode"]))
+    entries.append(wide_entry(
+        "mega_senticap_switched_decode_past_block",
+        "icee_tpu_torch/csrc/senticap_switched_beam.cu",
+        "icee_tpu/ops/pallas_senticap_switched_decode.py:241 (beam > 159, "
+        "V > 28,800)", sc["k10"],
+        f"v{PB_SC_TIMED_V}_beam{SC_BEAM}_images{SC_IMAGES}",
+        launches=counts["mega_senticap_switched_decode"]))
+    times = {e["name"]: {sh: {k: f[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms") if k in f}
+        for sh, f in e["shapes"].items() if "ms" in f} for e in entries}
+    log(f"phase 26 done in {time.perf_counter() - t0:.1f} s")
+    return entries, times
+
+
 def main() -> int:
     import shutil
 
@@ -9491,8 +9890,11 @@ def main() -> int:
     k7["factored"]["ragged_v8191"] = {f"images{n}": times[f"k7_images{n}"]
                                       for n in RAG_TIMED_IMAGES}
     log(f"phase 25 done in {time.perf_counter() - t25:.1f} s; phases 21-25"
-        f" done; the whole run {time.perf_counter() - t_run:.1f} s (the "
-        "kernels' build included)")
+        " done")
+    past_block, past_block_times = past_block_phase(device)
+    log(f"phase 26 (d): times {json.dumps(past_block_times)}")
+    log(f"phases 21-26 done; the whole run {time.perf_counter() - t_run:.1f}"
+        " s (the kernels' build included)")
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))
@@ -9501,11 +9903,12 @@ def main() -> int:
     print(json.dumps({"split_timeline": stages}))
     print(json.dumps({"parallel": par}))
     print(json.dumps({"widths": ragged}))
+    print(json.dumps({"past_block_times": past_block_times}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
                                   ceb, *k5, k8f, k8b, k9, mxf, mxb, k10,
-                                  *wide.values(), *wide_h]}))
+                                  *wide.values(), *wide_h, *past_block]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,9 @@ emits one JSON object ``{image: caption}``: the checkpoint loads once, the
 backbone runs on the device, and each batch of ``--batch_size`` images
 (the last one padded to the batch) decodes in one K2 launch, or with
 ``--attention`` one K7 launch (their plain versions on the CPU; a batch of more than
-1,024 beam rows, e.g. 64 images at ``--beam_size`` 20, in several).  A
-``--beam_size`` the kernels do not take (above 256) raises the kernel's
-own error on the card; nothing decodes on a plain path there instead.
+1,024 beam rows, e.g. 64 images at ``--beam_size`` 20, in several; above
+1,024 one image a launch).  Every ``--beam_size`` up to V decodes on the
+card; nothing decodes on a plain path there instead.
 
 ``--data_parallel`` decodes each batch over every rank of the world (one
 process per card, ``python -m torch.distributed.run``): each rank searches

@@ -9,7 +9,7 @@ the batch as the JAX CLI pads it: one K2 launch a batch
 ``--attention`` one K7 launch a batch (``attention_decode("mega", ...)``);
 on the CPU their plain versions.  The JAX CLI probes a chain of candidate
 paths and takes the first that compiles; the port has one path a decoder,
-and a beam width the kernel does not take (k > 256) raises its error.
+which takes every beam width up to V.
 
 ``--data_parallel`` decodes each batch over every rank of the world (one
 process per card, started by ``python -m torch.distributed.run``): each

@@ -48,11 +48,14 @@
 //   logits | tile partials | beam tail (merge_row, the selection, the
 //        sequences, best-completed tracking; emb[word] is next step's x)
 // Only live rows run (step 1: slot 0 of each image); the per-image stages
-// take only images with a live row.  Beam widths of 9 to KWIDE = 256: the
+// take only images with a live row.  Beam widths above 8, up to V: the
 // per-image stages (scores, ctx) take an image's live rows in groups of 8
 // (a group in an image's place, grid_beam.cuh scan_rows), and the
-// selection is K2's wide row stage and tail.  att1 = features enc_w + enc_b stays a
-// plain product outside the kernel, as in the JAX package.
+// selection is K2's wide row stage and tail (also at k <= 8 where the
+// narrow tail outgrows the ring), above KWIDE = 256 with the survivors,
+// and past MAX_ROWS rows the row lists, in device memory.  att1 =
+// features enc_w + enc_b stays a plain product outside the kernel, as in
+// the JAX package.
 //
 // Bits: every output is the chain K6 computes for it (attend_rows' and
 // dot4's k order from 0.f; x V_w resumed at k = E from its partial, as K6's
@@ -86,8 +89,10 @@ struct AttGridPlan {
   // float scratch offsets
   long long o_att2, o_gpre, o_hw, o_xpart, o_esc, o_ctx, o_v, o_s, o_hn,
       o_cn, o_logits, o_pm, o_pse, o_pv, o_scores, o_bscore, o_mean;
-  // int scratch offsets
-  long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar;
+  // int scratch offsets; SEL_SCAN's (grid_beam.cuh GridArgs) are 0 where
+  // the plan has no such region
+  long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar, o_cand,
+      o_lists, o_tstate;
 };
 
 // The plan of the h0/c0 launch (ops/att_beam.py::_CInitPlan mirrors it
@@ -167,13 +172,13 @@ __device__ void run_scores(const GridArgs& a, const Smem& sm,
   }
 }
 
-template <bool WIDE>
+template <int SEL>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_att_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Job jobs[MAX_JOBS];        // read every chunk: kept on chip
   __shared__ Stage stages[MAX_STAGES];
-  const Smem sm = carve_smem(smem);
+  const Smem sm = carve_lists<SEL>(smem, a);
   load_plan(a, jobs, stages);
   init_search_state(a);
 
@@ -193,7 +198,7 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
         grid_sync(a.bar, gen);
       }
     }
-    run_selection<WIDE>(a, sm, c, gen);
+    run_selection<SEL>(a, sm, c, gen);
   }
 }
 
@@ -283,9 +288,10 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
   a.FS = (int)p.FS;
   a.pu = (int)p.pu;
   a.upi = (int)p.upi;
-  const void* kernel =
-      p.k > KMAX ? reinterpret_cast<const void*>(grid_att_kernel<true>)
-                 : reinterpret_cast<const void*>(grid_att_kernel<false>);
+  const void* kernel = sel_kernel(
+      p, reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN>));
   return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
@@ -295,7 +301,7 @@ extern "C" const char* icee_error_string(int code) {
 
 // The kernel's dynamic shared memory (bytes) and its geometry, for the
 // wrapper's plan: {smem, threads, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS,
-// MAX_P, KMAX, KWIDE}.
+// MAX_P, KMAX, KWIDE, MAX_K}.
 extern "C" void icee_mega_att_beam_consts(long long* out) {
   out[0] = (long long)grid_smem_bytes();
   out[1] = GB_THREADS;
@@ -307,14 +313,16 @@ extern "C" void icee_mega_att_beam_consts(long long* out) {
   out[7] = MAX_P;
   out[8] = KMAX;
   out[9] = KWIDE;
+  out[10] = MAX_K;
 }
 
-// Blocks of one cooperative launch on the current device (either
+// Blocks of one cooperative launch on the current device (every
 // instantiation).
 extern "C" int icee_mega_att_beam_max_grid(int* out) {
-  return grid_max_blocks2(
-      reinterpret_cast<const void*>(grid_att_kernel<false>),
-      reinterpret_cast<const void*>(grid_att_kernel<true>), out);
+  return grid_max_blocks3(
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN>), out);
 }
 
 // factored: stages pre | ctx | vrows | style | gates | logits | init (and

@@ -30,14 +30,14 @@
 //
 // Row-tiled design: four launches on the caller's stream.
 //   1. attention: one block per image and group of up to 8 of its k rows
-//      (one group where k <= 8; k up to KWIDE = 256), att_common.cuh
+//      (one group where k <= 8; grid.y counts the groups), att_common.cuh
 //      attend_rows; the image's att1 and features stream from L2/HBM (one
 //      image's features are 1.6 MB, far above a block's shared memory, so
 //      nothing of the TPU kernel's VMEM residency carries over).  Writes
 //      x_full = [emb; gate * ctx] (R, E + FS) and alpha (R, P).
 //   2-4. K1's cell, head and merge launches (step_kernels.cuh) with input
-//      width E + FS, the cell a template over the weight set; a top-k of 9
-//      to KWIDE takes K1's wide head and reduce (wide_topk.cuh).
+//      width E + FS, the cell a template over the weight set; a top-k above
+//      8, up to V, takes K1's wide head and reduce (wide_topk.cuh).
 #include "att_common.cuh"
 #include "split_step.cuh"
 #include "step_kernels.cuh"
@@ -87,8 +87,7 @@ static int att_step(const float* x, const float* h, const float* c,
                     int* idx, float* alpha, float* pm, float* pse, float* pv,
                     int* pi, float* lg, int n_img, int k, int E, int V,
                     int ktop, void* stream) {
-  if (n_img <= 0 || k < 1 || k > KWIDE || ktop < 1 || ktop > KWIDE ||
-      ktop > V || aw.A % 4 || aw.FS % 4 || aw.H % 4 || V % 4 ||
+  if (n_img <= 0 || k < 1 || k > 65535 * ATT_ROWS || ktop < 1 || ktop > V || aw.A % 4 || aw.FS % 4 || aw.H % 4 || V % 4 ||
       w.E != E + aw.FS)
     return cudaErrorInvalidValue;
   const int rows = k < ATT_ROWS ? k : ATT_ROWS;  // a block's rows
@@ -117,10 +116,12 @@ extern "C" long long icee_att_step_smem(int E, int F, int H, int FS) {
                      (round4(E + FS) + round4(H) + 2 * (size_t)cell_ld(F, H)));
 }
 
-// Rows R = n_img * k, image-major, k <= KWIDE.  x (R, E); h, c (R, H);
+// Rows R = n_img * k, image-major, k <= 65535 groups of 8.  x (R, E); h,
+// c (R, H);
 // feats (n_img, P, FS); att1 (n_img, P, A); x_full (R, E + FS) scratch;
 // alpha (R, P); partials pm, pse (R, n_tiles), pv, pi (R, n_tiles, ktop),
-// or for ktop > KMAX the logits lg (R, n_tiles * 256).  V_w has E + FS
+// or for ktop > KMAX the logits lg (R, n_tiles * 256), for ktop > KWIDE
+// followed by the wide reduce's survivors (2 R ktop floats).  V_w has E + FS
 // rows.  Returns 0 or the first CUDA error of the four launches.
 extern "C" int icee_att_decode_step_topk(
     const float* x, const float* h, const float* c, const float* feats,
@@ -158,9 +159,10 @@ extern "C" int icee_att_decode_step_topk_lstm(
 }
 
 // The column-split path (split_step.cuh) for ONE image's k <= 8 rows (a
-// top-k up to KWIDE): the same outputs, bit for bit, as the calls above,
-// with the same arguments but for work (icee_att_step_split_work floats)
-// in place of x_full, the partials and the logits; feats (1, P, FS), att1
+// top-k up to V): the same outputs, bit for bit, as the calls above, with
+// the same arguments but for work (icee_att_step_split_work floats, then
+// for ktop > KWIDE 1 + 2 k ktop floats of survivors, cand_after) in place
+// of x_full, the partials and the logits; feats (1, P, FS), att1
 // (1, P, A).
 extern "C" long long icee_att_step_split_work(int factored, int k, int F,
                                               int H, int V, int A, int P,
@@ -169,8 +171,7 @@ extern "C" long long icee_att_step_split_work(int factored, int k, int F,
 }
 
 static bool split_shape_ok(int k, int ktop, const AttWeights& aw, int V) {
-  return k >= 1 && k <= SPLIT_ROWS && ktop >= 1 && ktop <= KWIDE &&
-         ktop <= V && aw.A % 4 == 0 && aw.FS % 4 == 0 && aw.H % 4 == 0 &&
+  return k >= 1 && k <= SPLIT_ROWS && ktop >= 1 && ktop <= V && aw.A % 4 == 0 && aw.FS % 4 == 0 && aw.H % 4 == 0 &&
          V % 4 == 0;
 }
 

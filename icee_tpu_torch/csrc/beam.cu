@@ -49,14 +49,19 @@
 // best-completed tracking).  Once no beam is alive every block leaves after
 // the barrier.
 //
-// Beam widths of 9 to KWIDE = 256 (wide_topk.cuh): the products do not
+// Beam widths above 8, up to V (wide_topk.cuh): the products do not
 // depend on k (a launch holds at most MAX_ROWS = 1024 rows, so 4 images at
-// k = 256: ops/beam.py::launch_chunks splits a batch); the tile partials
-// and tail give way to a row stage (a block a live row: logZ as merge_row
-// takes it, the row's top-k by a radix select, into device memory) and a
-// wide tail (an image's k x k candidates selected the same way from L2,
-// the sequences double-buffered in device memory, so no tail state grows
-// with k or L in shared memory).
+// k = 256, or one image of any k: ops/beam.py::launch_chunks splits a
+// batch); the tile partials and tail give way to a row stage (a block a
+// live row: logZ as merge_row takes it, the row's top-k by a radix select,
+// into device memory) and a wide tail (an image's k x k candidates
+// selected the same way from L2, the sequences double-buffered in device
+// memory, so no tail state grows with k or L in shared memory).  The same
+// wide selection takes k <= 8 where the narrow tail's partials outgrow the
+// ring (V above ~80k).  Above KWIDE = 256 (SEL_SCAN) the survivors, and
+// past MAX_ROWS rows the row lists, sit in device memory
+// (grid_beam.cuh).  One instantiation a selection kind, so the narrower
+// ones compile as they did.
 //
 // Bits: every output is the same sequential fmaf chain in k order from 0.f
 // as dot4's (decode_common.cuh), with the same bias adds after and the same
@@ -78,17 +83,19 @@ struct GridPlan {
   // float scratch offsets
   long long o_v, o_hw, o_s, o_hn, o_cn, o_logits, o_pm, o_pse, o_pv,
       o_scores, o_bscore;
-  // int scratch offsets
-  long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar;
+  // int scratch offsets; SEL_SCAN's (grid_beam.cuh GridArgs) are 0 where
+  // the plan has no such region
+  long long o_pi, o_alive, o_word, o_prev, o_seqs, o_steps, o_bar, o_cand,
+      o_lists, o_tstate;
 };
 
-template <bool WIDE>
+template <int SEL>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_beam_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Job jobs[MAX_JOBS];        // read every chunk: kept on chip
   __shared__ Stage stages[MAX_STAGES];
-  const Smem sm = carve_smem(smem);
+  const Smem sm = carve_lists<SEL>(smem, a);
   load_plan(a, jobs, stages);
   init_search_state(a);
 
@@ -101,7 +108,7 @@ grid_beam_kernel(const __grid_constant__ GridArgs a) {
       run_stage(a, stages[s], sm, c);
       grid_sync(a.bar, gen);
     }
-    run_selection<WIDE>(a, sm, c, gen);
+    run_selection<SEL>(a, sm, c, gen);
   }
 }
 
@@ -120,9 +127,10 @@ static int launch(const GridPlan& p, const int* slabs, const float* feats,
   a.feats = p.feed ? feats : nullptr;
   a.emb = emb;
   a.feed = (int)p.feed;
-  const void* kernel =
-      p.k > KMAX ? reinterpret_cast<const void*>(grid_beam_kernel<true>)
-                 : reinterpret_cast<const void*>(grid_beam_kernel<false>);
+  const void* kernel = sel_kernel(
+      p, reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN>));
   return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
@@ -132,7 +140,7 @@ extern "C" const char* icee_error_string(int code) {
 
 // The kernel's dynamic shared memory (bytes) and its geometry, for the
 // wrapper's plan: {smem, threads, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS,
-// KWIDE, TOPK_FLOATS}.
+// KWIDE, TOPK_FLOATS, MAX_K}.
 extern "C" void icee_mega_beam_consts(long long* out) {
   out[0] = (long long)grid_smem_bytes();
   out[1] = GB_THREADS;
@@ -143,14 +151,16 @@ extern "C" void icee_mega_beam_consts(long long* out) {
   out[6] = MAX_ROWS;
   out[7] = KWIDE;
   out[8] = TOPK_FLOATS;
+  out[9] = MAX_K;
 }
 
-// Blocks of one cooperative launch on the current device (either
+// Blocks of one cooperative launch on the current device (every
 // instantiation).
 extern "C" int icee_mega_beam_max_grid(int* out) {
-  return grid_max_blocks2(
-      reinterpret_cast<const void*>(grid_beam_kernel<false>),
-      reinterpret_cast<const void*>(grid_beam_kernel<true>), out);
+  return grid_max_blocks3(
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN>), out);
 }
 
 // factored: stages [x V_w + V_b, h W_w + W_b] | v_g S_g + S_b | the gates

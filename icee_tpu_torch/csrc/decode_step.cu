@@ -34,11 +34,12 @@
 //      Only the (R, n_tiles, k) partials are written.
 //   3. merge: one warp per row combines the partials into logZ and the
 //      exact top-k, and writes logp = value - logZ.
-// A top-k of 9 to KWIDE = 256 (wide_topk.cuh): the head writes the logits
+// A top-k above 8, up to V (wide_topk.cuh): the head writes the logits
 // (R, V) to device memory instead of reducing its tiles, and a reduce
 // launch of one block a row takes logZ the same way and the row's top-k by
 // a radix select (the O(k V) picks of the two launches above are for k <=
-// 8 only); the column-split path's reduce launch does the same on its
+// 8 only), above KWIDE = 256 with the survivors in device memory after the
+// logits; the column-split path's reduce launch does the same on its
 // logits.  The logits and logZ are the same bits, so are the log-probs.
 // The simple first version uses CUDA-core fmaf; wgmma/TMA tiling is later
 // work.
@@ -53,7 +54,8 @@ extern "C" const char* icee_error_string(int code) {
 
 // Partials: pm, pse (R, n_tiles); pv, pi (R, n_tiles, k), n_tiles = ceil(V /
 // 256); for k > KMAX instead lg (R, n_tiles * 256), the logits (the
-// partials then unused).  Returns 0 or the first CUDA error of the three
+// partials then unused), for k > KWIDE followed by 2 R k floats of the
+// reduce's survivors.  Returns 0 or the first CUDA error of the three
 // launches.
 extern "C" int icee_decode_step_topk(
     const float* x, const float* h, const float* c, const float* Vw,
@@ -62,7 +64,7 @@ extern "C" int icee_decode_step_topk(
     const float* Cb, float* h_out, float* c_out, float* logp, int* idx,
     float* pm, float* pse, float* pv, int* pi, float* lg, int R, int E,
     int F, int H, int V, int k, void* stream) {
-  if (R <= 0 || k < 1 || k > KWIDE || k > V || F % 4 || H % 4 || V % 4)
+  if (R <= 0 || k < 1 || k > V || F % 4 || H % 4 || V % 4)
     return cudaErrorInvalidValue;
   return launch_step_topk(x, h, c,
                           CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},
@@ -75,8 +77,9 @@ extern "C" long long icee_decode_step_split_work(int R, int F, int H, int V) {
 }
 
 // The column-split path (split_step.cuh) for R <= 8 rows, at any top-k up
-// to KWIDE: the same outputs, bit for bit, as icee_decode_step_topk.  work:
-// icee_decode_step_split_work floats.  Returns 0 or the first CUDA error of
+// to V: the same outputs, bit for bit, as icee_decode_step_topk.  work:
+// icee_decode_step_split_work floats, then for k > KWIDE 1 + 2 R k floats
+// of the wide reduce's survivors (cand_after).  Returns 0 or the first CUDA error of
 // the five launches.
 extern "C" int icee_decode_step_topk_split(
     const float* x, const float* h, const float* c, const float* Vw,
@@ -84,8 +87,8 @@ extern "C" int icee_decode_step_topk_split(
     const float* Ub, const float* Ww, const float* Wb, const float* Cw,
     const float* Cb, float* h_out, float* c_out, float* logp, int* idx,
     float* work, int R, int E, int F, int H, int V, int k, void* stream) {
-  if (R <= 0 || R > SPLIT_ROWS || k < 1 || k > KWIDE || k > V || F % 4 ||
-      H % 4 || V % 4)
+  if (R <= 0 || R > SPLIT_ROWS || k < 1 || k > V || F % 4 || H % 4 ||
+      V % 4)
     return cudaErrorInvalidValue;
   return launch_split_k1(x, h, c,
                          CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},

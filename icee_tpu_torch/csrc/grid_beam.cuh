@@ -28,12 +28,18 @@
 //     live row through tile_reduce, a warp a tile) and the beam tail
 //     (run_tail: each image in one block, merge_row of its live rows, the
 //     selection, the sequences, best-completed tracking);
-//   - above KMAX (k of 9 to KWIDE = 256, wide_topk.cuh) the row stage
-//     (run_rowsel: a block a live row, its logZ and exact top-k into device
-//     memory) and the wide tail (run_tail_wide: each image in one block,
-//     the top-k of its k x k candidates by block_topk, read from L2, the
-//     sequences double-buffered in device memory); per-image stages take
-//     a wide image's live rows in groups of at most KMAX (scan_rows).
+//   - above KMAX (k of 9 up to V, wide_topk.cuh; also at k <= KMAX where
+//     the narrow tail's partials do not fit the ring, V above ~80k) the
+//     row stage (run_rowsel: a block a live row, its logZ and exact top-k
+//     into device memory) and the wide tail (run_tail_wide: each image in
+//     one block, the top-k of its k x k candidates by block_topk, read
+//     from L2, the sequences double-buffered in device memory); per-image
+//     stages take a wide image's live rows in groups of at most KMAX
+//     (scan_rows).  Above KWIDE (SCAN) each selection's survivors sit in a
+//     block's own device-memory scratch (cand), the tail's slot state too
+//     where it outgrows the ring (tstate), and an image of more than
+//     MAX_ROWS rows (one image a launch) keeps each block's row lists in
+//     device memory (lists) instead of shared memory.
 // Intermediates live in device memory (L2) and are read across a barrier
 // through L2 only (cp.async.cg, __ldcg); an image's search state has one
 // owner block; no atomics touch data.  Once no beam is alive every block
@@ -65,12 +71,20 @@ constexpr int MAX_CW = 64;             // widest column slab
 constexpr int MAX_BR = 64;             // most rows of a unit
 constexpr int MAX_UNIT_ROWS = 128;     // input rows of a unit, all sets
 constexpr int ZS_FLOATS = MAX_CW * MAX_BR;
-constexpr int MAX_ROWS = 1024;         // rows (images x k) of one launch
+constexpr int MAX_ROWS = 1024;         // rows (images x k) of one launch,
+                                       // unless one image (SCAN)
+constexpr int MAX_K = 46340;           // widest beam: k x k candidates
+                                       // indexed by an int
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_JOBS = 12;           // products of a launch, all stages
 constexpr int MAX_P = 256;             // positions of an attended image
 constexpr int ALD = MAX_P + 4;         // row stride of a unit's softmax rows
 constexpr int ALPHA_FLOATS = KMAX * ALD;
+
+// The selection a launch runs (a kernel instantiation each): the tile
+// partials and the narrow tail, the wide row stage and tail, or the same
+// with survivors in device memory (k > KWIDE).
+enum Sel { SEL_NARROW, SEL_WIDE, SEL_SCAN };
 
 // A_ALPHA: the input rows are the unit's image's softmax rows (per-image
 // stages), in shared memory for the whole unit
@@ -142,6 +156,13 @@ struct GridArgs {
   // h, c are the h0/c0 rows at row img * k (else zeros)
   int att, A, P, FS;
   int pu, upi;          // the scores stage: positions a unit, units an image
+  // SEL_SCAN: each block's survivors (k pairs), its tail state where it
+  // does not fit the ring (tail_state_floats, else null), and its row
+  // lists where the launch holds more than MAX_ROWS rows (8 rows ints:
+  // xptr, list, hsrc, rmap, img, ifirst, icount; else null)
+  unsigned long long* cand;
+  float* tstate;
+  int* lists;
 };
 
 struct Smem {
@@ -180,6 +201,27 @@ __device__ inline Smem carve_smem(float* base) {
   return s;
 }
 
+// A kernel's lists: in shared memory, or (SEL_SCAN with a.lists) this
+// block's own part of a.lists in device memory.
+template <int SEL>
+__device__ inline Smem carve_lists(float* base, const GridArgs& a) {
+  Smem s = carve_smem(base);
+  if constexpr (SEL == SEL_SCAN) {
+    if (a.lists != nullptr) {
+      const size_t n = a.rows;
+      int* b = a.lists + (size_t)blockIdx.x * 8 * n;
+      s.xptr = reinterpret_cast<const float**>(b);
+      s.list = b + 2 * n;
+      s.hsrc = s.list + n;
+      s.rmap = s.hsrc + n;
+      s.img = s.rmap + n;
+      s.ifirst = s.img + n;
+      s.icount = s.ifirst + n;
+    }
+  }
+  return s;
+}
+
 // The launch's jobs and stages into shared memory (read every chunk), each
 // stage pointed at its jobs.  Ends with a barrier.
 __device__ inline void load_plan(const GridArgs& a, Job* jobs,
@@ -203,11 +245,11 @@ __device__ inline void init_search_state(const GridArgs& a) {
       a.seqs[(size_t)base * L + e] = (e % L == 0) ? a.start : a.end;
     for (int e = tid; e < L; e += GB_THREADS)
       a.tok[(size_t)img * L + e] = a.end;
-    if (tid < k) {
-      a.alive[base + tid] = 1;
-      a.scores[base + tid] = 0.f;
-      a.word[base + tid] = 0;
-      a.prev[base + tid] = 0;
+    for (int q = tid; q < k; q += GB_THREADS) {
+      a.alive[base + q] = 1;
+      a.scores[base + q] = 0.f;
+      a.word[base + q] = 0;
+      a.prev[base + q] = 0;
     }
     if (tid == 0) {
       a.bscore[img] = NEG;
@@ -821,18 +863,48 @@ __host__ __device__ inline int merge_floats(int n_tiles, int k) {
   return round4(n_tiles * (2 + 2 * k));
 }
 
-// Floats of the tail's per-image state after the merging warps' copies:
-// log-probs, ids, sequences old and new, and the k-slot state.  Above KMAX
-// the larger of the wide row stage's (the selection's scratch, a tile a
-// warp, the tiles' max and sum-exp) and the wide tail's (the selection's
-// scratch and the k-slot state; the candidates and sequences stay in
-// device memory), whatever L.
-__host__ __device__ inline int tail_floats(int n_tiles, int k, int L) {
-  if (k > KMAX) {
-    const int rowsel = GB_WARPS * VT + 2 * n_tiles, tail = 5 * k + 4;
-    return TOPK_FLOATS + (rowsel > tail ? rowsel : tail);
-  }
-  return KMAX * merge_floats(n_tiles, k) + 2 * k * k + 2 * k * L + 6 * k + 4;
+// Floats of the narrow tail's scratch: the merging warps' copies, then
+// the per-image state: log-probs, ids, sequences old and new, and the
+// k-slot state.
+__host__ __device__ inline long long narrow_tail_floats(int n_tiles, int k,
+                                                        int L) {
+  return KMAX * (long long)merge_floats(n_tiles, k) + 2LL * k * k +
+         2LL * k * L + 6LL * k + 4;
+}
+
+// Floats of the wide tail's k-slot state (scores, totals, alive, parents,
+// words, then three flags).
+__host__ __device__ inline long long tail_state_floats(int k) {
+  return 5LL * k + 4;
+}
+
+// Whether the wide tail's k-slot state sits in the ring (else, SEL_SCAN,
+// in tstate).
+__host__ __device__ inline bool state_in_ring(int k) {
+  return TOPK_FLOATS + tail_state_floats(k) <= RING_FLOATS;
+}
+
+// The selection of a search at k and V (n_tiles tiles): the narrow tail
+// where k <= KMAX and its scratch fits the ring, the wide one up to KWIDE,
+// then SEL_SCAN.
+__host__ __device__ inline int sel_kind(int n_tiles, int k, int L) {
+  if (k > KWIDE) return SEL_SCAN;
+  if (k > KMAX || narrow_tail_floats(n_tiles, k, L) > RING_FLOATS)
+    return SEL_WIDE;
+  return SEL_NARROW;
+}
+
+// Floats of the ring a search's selection takes: the narrow tail's
+// scratch, or the larger of the wide row stage's (the selection's scratch,
+// a tile a warp, the tiles' max and sum-exp) and the wide tail's (the
+// selection's scratch and the k-slot state where it sits in the ring; the
+// candidates and sequences stay in device memory), whatever L.
+__host__ __device__ inline long long tail_floats(int n_tiles, int k, int L) {
+  if (sel_kind(n_tiles, k, L) == SEL_NARROW)
+    return narrow_tail_floats(n_tiles, k, L);
+  const long long rowsel = GB_WARPS * VT + 2LL * n_tiles;
+  const long long tail = state_in_ring(k) ? tail_state_floats(k) : 0;
+  return TOPK_FLOATS + (rowsel > tail ? rowsel : tail);
 }
 
 // The beam tail of the images this block owns (image b, b + G, ...): the
@@ -979,9 +1051,10 @@ __device__ void run_tail(const GridArgs& a, const Smem& sm,
   }
 }
 
-// The wide row stage (k > KMAX): a block a live row in turn, its logZ and
-// exact top-k (wide_row: K1's wide reduce, the same bits) into pv, pi at
-// the row's place, (rows, k) each.
+// The wide row stage: a block a live row in turn, its logZ and exact
+// top-k (wide_row: K1's wide reduce, the same bits) into pv, pi at the
+// row's place, (rows, k) each; SCAN: the survivors in the block's cand.
+template <bool SCAN>
 __device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
   TopkScratch* s = reinterpret_cast<TopkScratch*>(sm.ring);
   float* lt = sm.ring + TOPK_FLOATS;  // a tile a warp
@@ -991,20 +1064,24 @@ __device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
     const size_t r = sm.list[i];
     float* lp = a.pv + r * a.k;
     int* li = a.pi + r * a.k;
-    wide_row(a.logits + (size_t)i * a.Vp, a.V, a.k, lt, pm, pse, s,
-             [&](int q, int col, float v) {
-               lp[q] = v;
-               li[q] = col;
-             });
+    wide_row<SCAN>(
+        a.logits + (size_t)i * a.Vp, a.V, a.k, lt, pm, pse, s,
+        [&](int q, int col, float v) {
+          lp[q] = v;
+          li[q] = col;
+        },
+        SCAN ? a.cand + (size_t)blockIdx.x * a.k : nullptr);
   }
 }
 
-// The wide beam tail (k > KMAX) of the images this block owns: run_tail's
-// semantics (candidate order p*k + q, rank < n_alive validity, strict->
-// tracking, length = t + 2) with the top-k of an image's k*k candidates
-// taken by block_topk from the row stage's log-probs in device memory, and
-// the sequences read from plane t % 2 of seqs and written to the other
-// (seqs holds two (rows, L) planes).
+// The wide beam tail of the images this block owns: run_tail's semantics
+// (candidate order p*k + q, rank < n_alive validity, strict-> tracking,
+// length = t + 2) with the top-k of an image's k*k candidates taken by
+// block_topk from the row stage's log-probs in device memory, and the
+// sequences read from plane t % 2 of seqs and written to the other (seqs
+// holds two (rows, L) planes).  SCAN: the survivors in the block's cand,
+// the slot state in its tstate where it does not fit the ring.
+template <bool SCAN>
 __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
                               const StepCtx& c) {
   const int tid = threadIdx.x;
@@ -1012,6 +1089,8 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
   const bool first = t == 0;
   TopkScratch* s = reinterpret_cast<TopkScratch*>(sm.ring);
   float* sc = sm.ring + TOPK_FLOATS;             // beam scores
+  if (SCAN && !state_in_ring(k))
+    sc = a.tstate + (size_t)blockIdx.x * tail_state_floats(k);
   float* top = sc + k;                           // selected totals
   int* al = reinterpret_cast<int*>(top + k);     // alive
   int* pq = al + k;                              // parent slot
@@ -1039,11 +1118,14 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
       const bool ok = first ? (p == 0) : (al[p] != 0);
       return ok ? sc[p] + __ldcg(lp + cand) : NEG;
     };
-    block_topk(k * k, k, total, s, [&](int q, int cand) {
-      top[q] = total(cand);
-      pq[q] = cand / k;
-      wq[q] = __ldcg(li + cand);
-    });
+    block_topk<SCAN>(
+        k * k, k, total, s,
+        [&](int q, int cand) {
+          top[q] = total(cand);
+          pq[q] = cand / k;
+          wq[q] = __ldcg(li + cand);
+        },
+        SCAN ? a.cand + (size_t)blockIdx.x * k : nullptr);
     for (int e = tid; e < k * L; e += GB_THREADS) {
       const int q = e / L, pos = e % L;
       seq_out[(size_t)base * L + e] =
@@ -1097,16 +1179,16 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
 }
 
 // A step's selection after its logits: the tile partials and the beam tail
-// (k <= KMAX), or (WIDE) the wide row stage and tail; a grid barrier after
-// each.  The kernels are instantiated once for each, so that the k <= KMAX
-// kernel is compiled as it was before the wide paths.
-template <bool WIDE>
+// (SEL_NARROW), or the wide row stage and tail; a grid barrier after each.
+// The kernels are instantiated once for each Sel, so that the narrower
+// kernels are compiled as they were before the wider paths.
+template <int SEL>
 __device__ void run_selection(const GridArgs& a, const Smem& sm,
                               const StepCtx& c, unsigned& gen) {
-  if constexpr (WIDE) {
-    run_rowsel(a, sm, c.n);
+  if constexpr (SEL != SEL_NARROW) {
+    run_rowsel<SEL == SEL_SCAN>(a, sm, c.n);
     grid_sync(a.bar, gen);
-    run_tail_wide(a, sm, c);
+    run_tail_wide<SEL == SEL_SCAN>(a, sm, c);
   } else {
     run_partials(a, sm, c.n);
     grid_sync(a.bar, gen);
@@ -1191,9 +1273,10 @@ template <class Plan>
 inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
                                float* fs, int* is, int* tok, int* len,
                                float* score) {
-  if (p.k < 1 || p.k > KWIDE || p.n_img < 1 || p.n_img * p.k > MAX_ROWS ||
-      p.E < 1 || p.H < 4 || p.H % 4 || p.F % 4 || p.V < p.k || p.V % 4 ||
-      p.max_seq < 0 || p.grid < 1 || p.n_tiles != (p.V + VT - 1) / VT ||
+  if (p.k < 1 || p.k > MAX_K || p.n_img < 1 ||
+      (p.n_img * p.k > MAX_ROWS && p.n_img > 1) || p.E < 1 || p.H < 4 ||
+      p.H % 4 || p.F % 4 || p.V < p.k || p.V % 4 || p.max_seq < 0 ||
+      p.grid < 1 || p.n_tiles != (p.V + VT - 1) / VT ||
       p.Vp != p.n_tiles * VT ||
       tail_floats((int)p.n_tiles, (int)p.k, (int)p.max_seq + 2) >
           RING_FLOATS)
@@ -1231,7 +1314,24 @@ inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
   a.start = (int)p.start;
   a.end = (int)p.end;
   a.xvec = p.E % 4 == 0;
+  a.cand = nullptr;
+  a.tstate = nullptr;
+  a.lists = nullptr;
+  if (sel_kind(a.n_tiles, a.k, a.max_seq + 2) == SEL_SCAN) {
+    a.cand = reinterpret_cast<unsigned long long*>(is + p.o_cand);
+    if (!state_in_ring(a.k))
+      a.tstate = reinterpret_cast<float*>(is + p.o_tstate);
+    if (a.rows > MAX_ROWS) a.lists = is + p.o_lists;
+  }
   return cudaSuccess;
+}
+
+// The kernel instantiation (of narrow, wide, scan) a plan's search runs.
+template <class Plan>
+inline const void* sel_kernel(const Plan& p, const void* narrow,
+                              const void* wide, const void* scan) {
+  const int sel = sel_kind((int)p.n_tiles, (int)p.k, (int)p.max_seq + 2);
+  return sel == SEL_SCAN ? scan : sel == SEL_WIDE ? wide : narrow;
 }
 
 // Blocks of one cooperative launch of `kernel` on the current device:
@@ -1257,13 +1357,16 @@ inline int grid_max_blocks(const void* kernel, int* out) {
   return e;
 }
 
-// The blocks of one cooperative launch that both instantiations of a
-// search kernel (k <= KMAX and WIDE) hold: the fewer of the two.
-inline int grid_max_blocks2(const void* narrow, const void* wide, int* out) {
-  int n = 0, w = 0;
+// The blocks of one cooperative launch that every instantiation of a
+// search kernel (one a Sel) holds: the fewest.
+inline int grid_max_blocks3(const void* narrow, const void* wide,
+                            const void* scan, int* out) {
+  int n = 0, w = 0, x = 0;
   cudaError_t e = static_cast<cudaError_t>(grid_max_blocks(narrow, &n));
   if (e == cudaSuccess) e = static_cast<cudaError_t>(grid_max_blocks(wide, &w));
-  *out = n < w ? n : w;
+  if (e == cudaSuccess) e = static_cast<cudaError_t>(grid_max_blocks(scan, &x));
+  n = n < w ? n : w;
+  *out = n < x ? n : x;
   return e;
 }
 

@@ -76,18 +76,29 @@ int icee_sb_product(const float* A, long long lda, long long za,
 
 // The beam least (nll, token) pairs of each row of nll (R, V), in order
 // (the row selection K9 and K10 run, alone).
+// cand: sb_topk_wide_floats(R, K) floats where the selection runs from
+// device memory (sb_topk_wide) above KWIDE, else unused.
 int icee_sb_row_select(const float* nll, int R, int V, int K, float* top_nll,
-                       int* top_tok, void* stream) {
-  if (R < 1 || K < 1 || K > V || K > TOPK_THREADS)
-    return cudaErrorInvalidValue;
+                       int* top_tok, float* cand, void* stream) {
+  if (R < 1 || K < 1 || K > V) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sb_topk_wide(V, K, 1)) {
+    auto* c = reinterpret_cast<unsigned long long*>(cand);
+    if (K > KWIDE)
+      sb_row_select_dev_kernel<true><<<R, TOPK_THREADS, 0, st>>>(
+          nll, V, K, top_nll, top_tok, c);
+    else
+      sb_row_select_dev_kernel<false><<<R, TOPK_THREADS, 0, st>>>(
+          nll, V, K, top_nll, top_tok, nullptr);
+    return (int)cudaGetLastError();
+  }
   const int cap = sb_topk_cap(V, K);
   const size_t smem = (size_t)sb_topk_smem(V, K, 1);
   ICEE_TRY(cudaFuncSetAttribute(sb_row_select_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem));
-  sb_row_select_kernel<<<R, TOPK_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      nll, V, K, cap, top_nll, top_tok);
+  sb_row_select_kernel<<<R, TOPK_THREADS, smem, st>>>(nll, V, K, cap,
+                                                       top_nll, top_tok);
   return (int)cudaGetLastError();
 }
 
@@ -102,23 +113,19 @@ int icee_senticap_beam(const SbPlan* plan, const float* x0, const float* emb,
                        const float* W, const float* w, const float* b,
                        float* planes, float* xh, float* c, float* z,
                        float* hn, float* cn, float* logits, float* top_nll,
-                       int* top_tok, int* seqs, float* lp, int* tok, int* len,
-                       float* score, int n_img, int beam, int E, int H, int V,
-                       int max_len, int stop, void* stream) {
+                       int* top_tok, int* seqs, float* lp, float* wide,
+                       int* tok, int* len, float* score, int n_img, int beam,
+                       int E, int H, int V, int max_len, int stop,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_img <= 0 || E < 1 || H < 1 || max_len < 0)
     return cudaErrorInvalidValue;
   const SbPlan p = *plan;
-  ICEE_TRY((cudaError_t)sb_check_plan(p, beam, E, H, V, max_len, 1));
+  ICEE_TRY((cudaError_t)sb_check_plan(p, n_img, beam, E, H, V, max_len, 1));
   const int R = n_img * beam, L = max_len + 1, H4 = 4 * H;
   float* cell_w = planes;
   float* head_w = planes + p.cell_planes;
-  ICEE_TRY(cudaFuncSetAttribute(sb_row_topk_kernel<false>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p.topk_smem));
-  ICEE_TRY(cudaFuncSetAttribute(sb_select_kernel<1, false>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p.select_smem));
+  ICEE_TRY((sb_allow_smem<false, 1, false>(p)));
   ICEE_TRY(sb_prepare(W, E + H, H4, cell_w, st));
   ICEE_TRY(sb_prepare(w, H, V, head_w, st));
   sb_init_kernel<<<264, 256, 0, st>>>(x0, xh, c, seqs, lp, tok, len, score,
@@ -137,15 +144,13 @@ int icee_senticap_beam(const SbPlan* plan, const float* x0, const float* emb,
     ICEE_TRY(cudaGetLastError());
     ICEE_TRY(sb_product(hn, H, 0, head_w, 0, p.head_kp, &b, logits, V, 0, 0,
                         R, V, H, 1, 1, st));
-    sb_row_topk_kernel<false><<<R, TOPK_THREADS, p.topk_smem, st>>>(
-        logits, nullptr, nullptr, nullptr, nullptr, R, V, H, beam,
-        p.topk_cap, top_nll, top_tok);
-    ICEE_TRY(cudaGetLastError());
-    sb_select_kernel<1, false><<<n_img, SEL_THREADS, p.select_smem, st>>>(
-        top_nll, top_tok, hn, cn, emb, nullptr, nullptr, xh, c, seqs, lp,
-        nullptr, tok, len, score, nullptr, R, beam, E, H, L, t, max_len,
-        stop);
-    ICEE_TRY(cudaGetLastError());
+    ICEE_TRY(sb_row_pass<false>(p, logits, nullptr, nullptr, nullptr,
+                                nullptr, R, V, H, beam, top_nll, top_tok,
+                                wide, st));
+    ICEE_TRY((sb_select_pass<1, false>(
+        p, top_nll, top_tok, hn, cn, emb, nullptr, nullptr, xh, c, seqs, lp,
+        nullptr, tok, len, score, nullptr, R, n_img, beam, E, H, L, t,
+        max_len, stop, wide, st)));
   }
   return 0;
 }

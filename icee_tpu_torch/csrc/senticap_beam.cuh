@@ -44,7 +44,24 @@
 //                         of the step that emitted the token) are gathered
 //                         from each survivor's parent and the next word
 //                         embedded per path.
-// No atomics: a search gives the same bits on every run.
+// Where a row or an image does not fit one block's shared memory (beam
+// above TOPK_THREADS = 256 or V past the row block, ~28,800 for K10; beam
+// above ~160 for the selection's beam^2 candidates), the same functions
+// run from device memory (the plan's topk_wide / select_wide, a scratch
+// of wide_floats the wrapper allocates):
+//   sb_row_topk_dev_kernel  the same softmax and nll keys, in place of the
+//                         row's logits in device memory, then the beam
+//                         least (key, token) pairs by wide_topk.cuh's
+//                         block_select (a radix select; above KWIDE its
+//                         survivors in the scratch): the same pairs in the
+//                         same order as sb_select_row;
+//   sb_select_kernel<WIDE> the candidates, old sequences and traces and
+//                         the survivors' state in the scratch, the
+//                         survivors by block_select of the (total,
+//                         candidate) pairs: the same order as the counted
+//                         ranks (-0 counted as +0).
+// So a beam that both paths take gives the same bits on either.
+// No atomics touch data: a search gives the same bits on every run.
 //
 // The products (planes_product.cuh, shared with K3 and K8): each weight is
 // laid out once a call as TF32 hi / lo planes (sb_prepare_kernel) and every
@@ -61,12 +78,14 @@
 
 #include "planes_product.cuh"  // the products (sb_product, sb_prepare)
 #include "scan_step.cuh"    // ICEE_TRY
+#include "wide_topk.cuh"    // block_select
 
 namespace icee {
 
 constexpr int TOPK_THREADS = 256;
 constexpr int TOPK_WARPS = TOPK_THREADS / 32;
 constexpr int SEL_THREADS = 512;
+constexpr long long SB_SMEM_LIMIT = 232448;  // bytes one block may use
 
 __device__ __forceinline__ float sb_sigm(float z) {
   return 1.f / (1.f + expf(-z));
@@ -92,6 +111,9 @@ struct SbPlan {
   int cell_kp, head_kp;   // the products' padded depths
   int topk_cap;           // survivor slots of one row
   int paths;
+  int topk_wide;          // the row pass from device memory
+  int select_wide;        // the selection from device memory
+  long long wide_floats;  // floats of the wide passes' scratch
 };
 
 // Shared memory of one selection block (bytes).
@@ -119,9 +141,50 @@ inline long long sb_topk_smem(int V, int K, int paths) {
   return 8LL * TOPK_THREADS + 4LL * sp_round_up(V, 4) + second;
 }
 
+// Whether the row pass runs from device memory: a beam above its
+// threads, or a block over the limit.
+inline bool sb_topk_wide(int V, int K, int paths) {
+  return K > TOPK_THREADS || sb_topk_smem(V, K, paths) > SB_SMEM_LIMIT;
+}
+
+// Whether the selection runs from device memory.
+inline bool sb_select_wide(int beam, int max_len, bool with_trace) {
+  return sb_select_smem(beam, max_len, with_trace) > SB_SMEM_LIMIT;
+}
+
+// Floats of the device-memory row pass's survivors: a row's beam pairs
+// above KWIDE, else none.
+inline long long sb_topk_wide_floats(long long R, int K) {
+  return K > KWIDE ? 2 * R * K : 0;
+}
+
+// Floats of one image's part of the device-memory selection's scratch:
+// the survivors' pairs (above KWIDE), the beam^2 totals and tokens, the
+// old sequences (and traces), the new scores, parents and words; even, so
+// that each image's pairs stay 8-byte aligned.
+__host__ __device__ inline long long sb_select_wide_floats(int beam,
+                                                          int max_len,
+                                                          bool with_trace) {
+  const long long K2 = (long long)beam * beam, L = max_len + 1;
+  const long long f = (beam > KWIDE ? 2LL * beam : 0) + 2 * K2 +
+                      beam * L * (with_trace ? 2 : 1) + 3LL * beam;
+  return f + (f & 1);
+}
+
+// Floats of a search's wide scratch: the row pass's survivors, then each
+// image's selection part.
+inline long long sb_wide_floats(int n_img, int beam, int V, int max_len,
+                                int paths) {
+  const long long R = (long long)n_img * beam;
+  return (sb_topk_wide(V, beam, paths) ? sb_topk_wide_floats(R, beam) : 0) +
+         (sb_select_wide(beam, max_len, paths == 2)
+              ? n_img * sb_select_wide_floats(beam, max_len, paths == 2)
+              : 0);
+}
+
 // 0 where the plan is the one this source derives for the shapes.
-inline int sb_check_plan(const SbPlan& p, int beam, int E, int H, int V,
-                         int max_len, int paths) {
+inline int sb_check_plan(const SbPlan& p, int n_img, int beam, int E, int H,
+                         int V, int max_len, int paths) {
   const int ck = sp_round_up(E + H, SP_BK), hk = sp_round_up(H, SP_BK);
   const bool ok =
       p.paths == paths && p.cell_kp == ck && p.head_kp == hk &&
@@ -131,7 +194,10 @@ inline int sb_check_plan(const SbPlan& p, int beam, int E, int H, int V,
       p.topk_cap == sb_topk_cap(V, beam) &&
       p.topk_smem == sb_topk_smem(V, beam, paths) &&
       p.select_smem == sb_select_smem(beam, max_len, paths == 2) &&
-      beam >= 1 && beam <= V && beam <= TOPK_THREADS;
+      p.topk_wide == (int)sb_topk_wide(V, beam, paths) &&
+      p.select_wide == (int)sb_select_wide(beam, max_len, paths == 2) &&
+      p.wide_floats == sb_wide_floats(n_img, beam, V, max_len, paths) &&
+      beam >= 1 && beam <= V && (long long)beam * beam <= 0x7fffffffLL;
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -340,17 +406,81 @@ __device__ __forceinline__ void tk_load_row(const float* __restrict__ src,
   }
 }
 
+// Warp 0: K10's switch gate of row r0, att[r0] = sigmoid(hn_o[r0] . aw[:H]
+// + hn_n[r0] . aw[H:] + ab), lanes strided over H and a tree; into *a_sh
+// too.
+__device__ __forceinline__ void sb_gate(const float* __restrict__ hn,
+                                        const float* __restrict__ aw,
+                                        const float* __restrict__ ab,
+                                        float* att, long long R, long long r0,
+                                        int H, float* a_sh) {
+  const int tid = threadIdx.x;
+  const float* ho = hn + r0 * H;
+  const float* hs = hn + (R + r0) * H;
+  float s = 0.f;
+  for (int j = tid; j < H; j += 32) s += ho[j] * aw[j];
+  for (int j = tid; j < H; j += 32) s += hs[j] * aw[H + j];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (tid == 0) {
+    *a_sh = sb_sigm(s + ab[0]);
+    att[r0] = *a_sh;
+  }
+}
+
+// A row's nll keys in place of `row` (V floats; with MIX the second
+// head's row_n, mixed by the gate a): the max m; e = exp(l - m) in place
+// and its sum se; p = e / se (MIX: (1 - a) (e_o / se_o) + a (e_n /
+// se_n)), nll = -log2(p + 1e-37) as its key.  Every thread's sums run
+// over its tokens c = tid + i T in order, then the fixed block reduction.
+// -> this thread's least (key, token) pair (sb_sentinel where it has
+// none).  Every thread of the block must call it.
+template <bool MIX>
+__device__ __forceinline__ unsigned long long sb_row_keys(
+    float* row, float* row_n, int V, float a, float (*red)[TOPK_WARPS]) {
+  constexpr int P = MIX ? 2 : 1;
+  const int tid = threadIdx.x;
+  float m[P], se[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float* l = p ? row_n : row;
+    m[p] = -INFINITY;
+    for (int c = tid; c < V; c += TOPK_THREADS) m[p] = fmaxf(m[p], l[c]);
+  }
+  tk_block_reduce<P>(m, true, red);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float* l = p ? row_n : row;
+    se[p] = 0.f;
+    for (int c = tid; c < V; c += TOPK_THREADS) {
+      const float e = expf(l[c] - m[p]);
+      l[c] = e;
+      se[p] += e;
+    }
+  }
+  tk_block_reduce<P>(se, false, red);
+  unsigned* keys = reinterpret_cast<unsigned*>(row);
+  unsigned long long least = sb_sentinel(V);
+  const float one_m_a = 1.f - a;
+  for (int c = tid; c < V; c += TOPK_THREADS) {
+    float p;
+    if (MIX)
+      p = one_m_a * (row[c] / se[0]) + a * (row_n[c] / se[MIX ? 1 : 0]);
+    else
+      p = row[c] / se[0];
+    const unsigned k = sb_key(-log2f(p + 1e-37f));
+    keys[c] = k;
+    const unsigned long long x = sb_pair(k, c);
+    least = x < least ? x : least;
+  }
+  return least;
+}
+
 // One block per row r < R of logits (R, V) (with MIX, of the two heads'
-// logits (2, R, V), mixed by the switch gate att[r] = sigmoid(hn_o[r] .
-// aw[:H] + hn_n[r] . aw[H:] + ab), which warp 0 computes first and writes
-// to att (R,); hn (2, R, H)): the row(s) read once into shared memory; the
-// max m; e = exp(l - m) in place and its sum se; p = e / se (MIX: (1 -
-// att) (e_o / se_o) + att (e_n / se_n)), nll = -log2(p + 1e-37), kept as
-// its key in place, each thread's least pair on the way; then the K
-// smallest (nll, token) pairs in order into top_nll / top_tok (R, K)
-// (sb_select_row).  Every thread's sums run over its tokens c = tid + i T
-// in order, then the fixed block reduction.  Shared memory:
-// sb_topk_smem(V, K, MIX ? 2 : 1) bytes.
+// logits (2, R, V), mixed by the switch gate att[r], which warp 0 computes
+// first (sb_gate); hn (2, R, H)): the row(s) read once into shared memory,
+// the nll keys in place (sb_row_keys), then the K smallest (nll, token)
+// pairs in order into top_nll / top_tok (R, K) (sb_select_row).  Shared
+// memory: sb_topk_smem(V, K, MIX ? 2 : 1) bytes.
 template <bool MIX>
 __global__ void __launch_bounds__(TOPK_THREADS)
 sb_row_topk_kernel(const float* __restrict__ logits,
@@ -381,55 +511,47 @@ sb_row_topk_kernel(const float* __restrict__ logits,
 #pragma unroll
   for (int p = 0; p < P; ++p) tk_load_row(logits + (p * R + r0) * V,
                                           p ? row_n : row, V);
-  if (MIX && tid < 32) {   // the switch gate: lanes strided over H, a tree
-    const float* ho = hn + r0 * H;
-    const float* hs = hn + (R + r0) * H;
-    float s = 0.f;
-    for (int j = tid; j < H; j += 32) s += ho[j] * aw[j];
-    for (int j = tid; j < H; j += 32) s += hs[j] * aw[H + j];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (tid == 0) {
-      a_sh = sb_sigm(s + ab[0]);
-      att[r0] = a_sh;
-    }
-  }
+  if (MIX && tid < 32) sb_gate(hn, aw, ab, att, R, r0, H, &a_sh);
   __syncthreads();
-  float m[P], se[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float* l = p ? row_n : row;
-    m[p] = -INFINITY;
-    for (int c = tid; c < V; c += TOPK_THREADS) m[p] = fmaxf(m[p], l[c]);
-  }
-  tk_block_reduce<P>(m, true, red);
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float* l = p ? row_n : row;
-    se[p] = 0.f;
-    for (int c = tid; c < V; c += TOPK_THREADS) {
-      const float e = expf(l[c] - m[p]);
-      l[c] = e;
-      se[p] += e;
-    }
-  }
-  tk_block_reduce<P>(se, false, red);
-  unsigned* keys = reinterpret_cast<unsigned*>(row);
-  unsigned long long least = sb_sentinel(V);
-  const float a = MIX ? a_sh : 0.f, one_m_a = 1.f - a;
-  for (int c = tid; c < V; c += TOPK_THREADS) {
-    float p;
-    if (MIX)
-      p = one_m_a * (row[c] / se[0]) + a * (row_n[c] / se[MIX ? 1 : 0]);
-    else
-      p = row[c] / se[0];
-    const unsigned k = sb_key(-log2f(p + 1e-37f));
-    keys[c] = k;
-    const unsigned long long x = sb_pair(k, c);
-    least = x < least ? x : least;
-  }
+  const unsigned long long least =
+      sb_row_keys<MIX>(row, row_n, V, MIX ? a_sh : 0.f, red);
   __syncthreads();
-  sb_select_row(keys, V, K, least, runs, cand, scan, &tau, top_nll + r0 * K,
-                top_tok + r0 * K);
+  sb_select_row(reinterpret_cast<unsigned*>(row), V, K, least, runs, cand,
+                scan, &tau, top_nll + r0 * K, top_tok + r0 * K);
+}
+
+// sb_row_topk_kernel from device memory (the plan's topk_wide): the same
+// keys, in place of the row's logits (logits (P, R, V), row r0 of path
+// 0), then the K least (key, token) pairs by block_select (SCAN: K >
+// KWIDE, the survivors in cand + r0 K): the same pairs, in the same order,
+// as sb_select_row gives.
+template <bool MIX, bool SCAN>
+__global__ void __launch_bounds__(TOPK_THREADS)
+sb_row_topk_dev_kernel(float* logits, const float* __restrict__ hn,
+                       const float* __restrict__ aw,
+                       const float* __restrict__ ab, float* att, long long R,
+                       int V, int H, int K, float* top_nll, int* top_tok,
+                       unsigned long long* cand) {
+  __shared__ float red[2][TOPK_WARPS];
+  __shared__ float a_sh;
+  __shared__ TopkScratch ts;
+  const long long r0 = blockIdx.x;
+  float* row = logits + r0 * V;
+  float* row_n = logits + (R + r0) * V;
+  if (MIX && threadIdx.x < 32) sb_gate(hn, aw, ab, att, R, r0, H, &a_sh);
+  __syncthreads();
+  sb_row_keys<MIX>(row, row_n, V, MIX ? a_sh : 0.f, red);
+  __syncthreads();
+  const unsigned* keys = reinterpret_cast<const unsigned*>(row);
+  float* out_nll = top_nll + r0 * K;
+  int* out_tok = top_tok + r0 * K;
+  block_select<SCAN>(
+      V, K, [&](int c) { return keys[c]; }, &ts,
+      [&](int q, int c) {
+        out_nll[q] = sb_unkey(keys[c]);
+        out_tok[q] = c;
+      },
+      SCAN ? cand + r0 * K : nullptr);
 }
 
 // sb_select_row alone on given rows nll (R, V) (the card's test of the
@@ -456,11 +578,33 @@ sb_row_select_kernel(const float* __restrict__ nll_rows, int V, int K,
                 top_tok + r0 * K);
 }
 
+// sb_row_select_kernel from device memory (K above TOPK_THREADS, or V past
+// the block): block_select of the (key, token) pairs read from nll_rows
+// (SCAN: the survivors in cand + r0 K).
+template <bool SCAN>
+__global__ void __launch_bounds__(TOPK_THREADS)
+sb_row_select_dev_kernel(const float* __restrict__ nll_rows, int V, int K,
+                         float* top_nll, int* top_tok,
+                         unsigned long long* cand) {
+  __shared__ TopkScratch ts;
+  const long long r0 = blockIdx.x;
+  const float* row = nll_rows + r0 * V;
+  block_select<SCAN>(
+      V, K, [&](int c) { return sb_key(row[c]); }, &ts,
+      [&](int q, int c) {
+        top_nll[r0 * K + q] = sb_unkey(sb_key(row[c]));
+        top_tok[r0 * K + q] = c;
+      },
+      SCAN ? cand + r0 * K : nullptr);
+}
+
 // One block per image: candidate totals, best completed, survivors, then
 // the next step's [x; h], c of each of the PATHS paths (emb[p] the path's
 // word embedding (V, E)), the sequences and scores; with TRACE also the
-// traces, from att (R,), the gate each row computed at this step.
-template <int PATHS, bool TRACE>
+// traces, from att (R,), the gate each row computed at this step.  WIDE:
+// the image's arrays in its part of `wide` (sb_select_wide_floats), the
+// survivors by block_select (SCAN: beam > KWIDE, their pairs there too).
+template <int PATHS, bool TRACE, bool WIDE = false, bool SCAN = false>
 __global__ void __launch_bounds__(SEL_THREADS)
 sb_select_kernel(const float* __restrict__ top_nll,
                  const int* __restrict__ top_tok, const float* __restrict__ hn,
@@ -469,10 +613,20 @@ sb_select_kernel(const float* __restrict__ top_nll,
                  float* xh, float* c, int* seqs, float* lp, float* trace,
                  int* tok, int* len, float* score, float* att_trace,
                  long long R, int beam, int E, int H, int L, int t,
-                 int max_len, int stop) {
+                 int max_len, int stop, float* wide) {
   extern __shared__ float sm[];
   const int K2 = beam * beam;
-  float* tot = sm;                                  // (K2,)
+  const long long img = blockIdx.x, r0 = img * beam;
+  unsigned long long* gcand = nullptr;
+  float* base = sm;
+  if (WIDE) {
+    base = wide + img * sb_select_wide_floats(beam, L - 1, TRACE);
+    if (SCAN) {
+      gcand = reinterpret_cast<unsigned long long*>(base);
+      base += 2 * beam;
+    }
+  }
+  float* tot = base;                                // (K2,)
   float* slp = tot + K2;                            // (beam,) new scores
   int* ctok = reinterpret_cast<int*>(slp + beam);   // (K2,)
   int* sseq = ctok + K2;                            // (beam, L) old sequences
@@ -482,7 +636,6 @@ sb_select_kernel(const float* __restrict__ top_nll,
   __shared__ float best_v, wbest_v[SEL_THREADS / 32];
   __shared__ int best_c, improves, wbest_c[SEL_THREADS / 32];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const long long img = blockIdx.x, r0 = img * beam;
   const bool last = (t == max_len);
   for (int i = tid; i < K2; i += nt) {
     const int p = i / beam;
@@ -536,11 +689,23 @@ sb_select_kernel(const float* __restrict__ top_nll,
   }
   // survivors: the rank of each candidate among the non-stop totals (a
   // stop candidate's total set to inf first), counted four at a time
-  // until it reaches the beam
+  // until it reaches the beam; WIDE: the beam least (total, candidate)
+  // pairs by block_select, the same order
   for (int i = tid; i < K2; i += nt)
     if (ctok[i] == stop || last) tot[i] = INFINITY;
   __syncthreads();
-  for (int i = tid; i < K2; i += nt) {
+  if constexpr (WIDE) {
+    __shared__ TopkScratch ts;
+    block_select<SCAN>(
+        K2, beam, [&](int i) { return sb_key(tot[i]); }, &ts,
+        [&](int rank, int i) {
+          slp[rank] = tot[i];
+          par[rank] = i / beam;
+          wrd[rank] = ctok[i];
+        },
+        gcand);
+  }
+  for (int i = tid; i < K2 && !WIDE; i += nt) {
     const float vi = tot[i];
     int rank = 0, j = 0;
     for (; j + 4 <= K2 && rank < beam; j += 4)
@@ -606,7 +771,74 @@ sb_select_kernel(const float* __restrict__ top_nll,
       trace[r0 * L + i] = pos == t ? att[r0 + par[q]]
                                    : strace[par[q] * L + pos];
   }
-  if (tid < beam) lp[r0 + tid] = slp[tid];
+  for (int q = tid; q < beam; q += nt) lp[r0 + q] = slp[q];
+}
+
+// ---- a step's row pass and selection, by the plan ---------------------------
+
+// The shared memory the plan's shared-memory passes take, set once a call
+// (a device-memory pass takes none beyond its static scratch).
+template <bool MIX, int PATHS, bool TRACE>
+inline cudaError_t sb_allow_smem(const SbPlan& p) {
+  cudaError_t e = cudaSuccess;
+  if (!p.topk_wide)
+    e = cudaFuncSetAttribute(sb_row_topk_kernel<MIX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)p.topk_smem);
+  if (e == cudaSuccess && !p.select_wide)
+    e = cudaFuncSetAttribute(sb_select_kernel<PATHS, TRACE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)p.select_smem);
+  return e;
+}
+
+// A step's row pass: a block a row, from shared memory or (topk_wide) from
+// device memory, its survivors (beam > KWIDE) at the start of `wide`.
+template <bool MIX>
+inline cudaError_t sb_row_pass(const SbPlan& p, float* logits,
+                               const float* hn, const float* aw,
+                               const float* ab, float* att, long long R,
+                               int V, int H, int beam, float* top_nll,
+                               int* top_tok, float* wide, cudaStream_t st) {
+  auto* cand = reinterpret_cast<unsigned long long*>(wide);
+  if (!p.topk_wide)
+    sb_row_topk_kernel<MIX><<<(unsigned)R, TOPK_THREADS, p.topk_smem, st>>>(
+        logits, hn, aw, ab, att, R, V, H, beam, p.topk_cap, top_nll,
+        top_tok);
+  else if (beam > KWIDE)
+    sb_row_topk_dev_kernel<MIX, true><<<(unsigned)R, TOPK_THREADS, 0, st>>>(
+        logits, hn, aw, ab, att, R, V, H, beam, top_nll, top_tok, cand);
+  else
+    sb_row_topk_dev_kernel<MIX, false><<<(unsigned)R, TOPK_THREADS, 0, st>>>(
+        logits, hn, aw, ab, att, R, V, H, beam, top_nll, top_tok, nullptr);
+  return cudaGetLastError();
+}
+
+// A step's selection: a block an image, from shared memory or
+// (select_wide) from its part of `wide` after the row pass's survivors.
+template <int PATHS, bool TRACE>
+inline cudaError_t sb_select_pass(
+    const SbPlan& p, const float* top_nll, const int* top_tok,
+    const float* hn, const float* cn, const float* emb0, const float* emb1,
+    const float* att, float* xh, float* c, int* seqs, float* lp,
+    float* trace, int* tok, int* len, float* score, float* att_trace,
+    long long R, int n_img, int beam, int E, int H, int L, int t,
+    int max_len, int stop, float* wide, cudaStream_t st) {
+  float* w = wide + (p.topk_wide ? sb_topk_wide_floats(R, beam) : 0);
+  if (!p.select_wide)
+    sb_select_kernel<PATHS, TRACE><<<n_img, SEL_THREADS, p.select_smem, st>>>(
+        top_nll, top_tok, hn, cn, emb0, emb1, att, xh, c, seqs, lp, trace,
+        tok, len, score, att_trace, R, beam, E, H, L, t, max_len, stop,
+        nullptr);
+  else if (beam > KWIDE)
+    sb_select_kernel<PATHS, TRACE, true, true><<<n_img, SEL_THREADS, 0, st>>>(
+        top_nll, top_tok, hn, cn, emb0, emb1, att, xh, c, seqs, lp, trace,
+        tok, len, score, att_trace, R, beam, E, H, L, t, max_len, stop, w);
+  else
+    sb_select_kernel<PATHS, TRACE, true, false><<<n_img, SEL_THREADS, 0, st>>>(
+        top_nll, top_tok, hn, cn, emb0, emb1, att, xh, c, seqs, lp, trace,
+        tok, len, score, att_trace, R, beam, E, H, L, t, max_len, stop, w);
+  return cudaGetLastError();
 }
 
 }  // namespace icee

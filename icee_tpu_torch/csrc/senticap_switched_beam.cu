@@ -63,24 +63,19 @@ int icee_senticap_switched_beam(
     const float* w_n, const float* b_o, const float* b_n, const float* aw,
     const float* ab, float* planes, float* xh, float* c, float* z, float* hn,
     float* cn, float* att, float* logits, float* top_nll, int* top_tok,
-    int* seqs, float* lp, float* trace, int* tok, int* len, float* score,
-    float* att_trace, int n_img, int beam, int E, int H, int V, int max_len,
-    int stop, void* stream) {
+    int* seqs, float* lp, float* trace, float* wide, int* tok, int* len,
+    float* score, float* att_trace, int n_img, int beam, int E, int H, int V,
+    int max_len, int stop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_img <= 0 || E < 1 || H < 1 || max_len < 0)
     return cudaErrorInvalidValue;
   const SbPlan p = *plan;
-  ICEE_TRY((cudaError_t)sb_check_plan(p, beam, E, H, V, max_len, 2));
+  ICEE_TRY((cudaError_t)sb_check_plan(p, n_img, beam, E, H, V, max_len, 2));
   const long long R = (long long)n_img * beam;
   const int L = max_len + 1, H4 = 4 * H, W = E + H, Ri = (int)R;
   float* cell_w = planes;
   float* head_w = planes + 2 * p.cell_planes;
-  ICEE_TRY(cudaFuncSetAttribute(sb_row_topk_kernel<true>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p.topk_smem));
-  ICEE_TRY(cudaFuncSetAttribute(sb_select_kernel<2, true>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p.select_smem));
+  ICEE_TRY((sb_allow_smem<true, 2, true>(p)));
   ICEE_TRY(sb_prepare(W_o, W, H4, cell_w, st));
   ICEE_TRY(sb_prepare(W_n, W, H4, cell_w + p.cell_planes, st));
   ICEE_TRY(sb_prepare(w_o, H, V, head_w, st));
@@ -102,14 +97,12 @@ int icee_senticap_switched_beam(
     ICEE_TRY(cudaGetLastError());
     ICEE_TRY(sb_product(hn, H, R * H, head_w, p.head_planes, p.head_kp,
                         heads, logits, V, R * V, 0, Ri, V, H, 2, 1, st));
-    sb_row_topk_kernel<true><<<Ri, TOPK_THREADS, p.topk_smem, st>>>(
-        logits, hn, aw, ab, att, R, V, H, beam, p.topk_cap, top_nll,
-        top_tok);
-    ICEE_TRY(cudaGetLastError());
-    sb_select_kernel<2, true><<<n_img, SEL_THREADS, p.select_smem, st>>>(
-        top_nll, top_tok, hn, cn, emb_o, emb_n, att, xh, c, seqs, lp, trace,
-        tok, len, score, att_trace, R, beam, E, H, L, t, max_len, stop);
-    ICEE_TRY(cudaGetLastError());
+    ICEE_TRY(sb_row_pass<true>(p, logits, hn, aw, ab, att, R, V, H, beam,
+                               top_nll, top_tok, wide, st));
+    ICEE_TRY((sb_select_pass<2, true>(
+        p, top_nll, top_tok, hn, cn, emb_o, emb_n, att, xh, c, seqs, lp,
+        trace, tok, len, score, att_trace, R, n_img, beam, E, H, L, t,
+        max_len, stop, wide, st)));
   }
   return 0;
 }

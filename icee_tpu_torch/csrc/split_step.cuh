@@ -1,6 +1,6 @@
 // The column-split path of K1 (decode_step.cu) and K6 (att_decode_step.cu):
 // one decode step for a few rows (one image's k <= 8 beam slots, the serial
-// serving path; its top-k may be up to KWIDE wide) spread over every SM of
+// serving path; its top-k may be up to V wide) spread over every SM of
 // the card.
 //
 // Why: at that shape every weight is read once for 5 rows (K1 ~32 MB, K6
@@ -432,12 +432,24 @@ inline Gemv gemv(const float* W, int ldw, const float* A, int lda, int K,
   return Gemv{W, A, nullptr, bias, out, K, ldw, 0, ncols, 1, lda, 0, ldo};
 }
 
+// The survivor scratch of a wide reduce above KWIDE that follows `floats`
+// floats of a work buffer: wide_cand_pairs(R, ktop) pairs at the next
+// 8-byte boundary (so the buffer holds floats + 1 + 2 wide_cand_pairs
+// floats); null at ktop <= KWIDE.
+inline unsigned long long* cand_after(float* work, long long floats, int ktop) {
+  return ktop > KWIDE ? reinterpret_cast<unsigned long long*>(
+                            work + ((floats + 1) & ~1LL))
+                      : nullptr;
+}
+
 // The logits and reduce launches (h_out (R, H) -> logp, idx); a top-k
-// above KMAX takes the wide reduce (wide_topk.cuh) on the same logits.
+// above KMAX takes the wide reduce (wide_topk.cuh) on the same logits,
+// above KWIDE with its survivors in cand.
 inline cudaError_t launch_split_head(const float* h_out, const float* Cw,
                                      const float* Cb, int R, int H, int V,
                                      int ktop, float* logits, float* logp,
-                                     int* idx, cudaStream_t s) {
+                                     int* idx, unsigned long long* cand,
+                                     cudaStream_t s) {
   SplitArgs a = {};
   a.R = R;
   a.n_jobs = 1;
@@ -447,8 +459,13 @@ inline cudaError_t launch_split_head(const float* h_out, const float* Cw,
   if (ktop > KMAX) {  // a top-k above 8: the wide reduce (wide_topk.cuh)
     const size_t smem = sizeof(float) * (size_t)wide_reduce_floats(V);
     if (smem > SPLIT_SMEM_LIMIT) return cudaErrorInvalidValue;
-    return split_launch(wide_reduce_kernel, R, WIDE_THREADS, smem, s, true,
-                        (const float*)logits, V, V, ktop, logp, idx);
+    if (ktop > KWIDE)
+      return split_launch(wide_reduce_kernel<true>, R, WIDE_THREADS, smem, s,
+                          true, (const float*)logits, V, V, ktop, logp, idx,
+                          cand);
+    return split_launch(wide_reduce_kernel<false>, R, WIDE_THREADS, smem, s,
+                        true, (const float*)logits, V, V, ktop, logp, idx,
+                        (unsigned long long*)nullptr);
   }
   const int n_tiles = (V + VT - 1) / VT;
   const size_t smem =
@@ -491,7 +508,8 @@ inline long long split_k1_work(int R, int F, int H, int V) {
 }
 
 // K1 on the column-split path (R <= SPLIT_ROWS): work holds v (R, 4F), hwb
-// (R, 4H), s (R, 4F) and the logits (R, V).
+// (R, 4H), s (R, 4F) and the logits (R, V), then (ktop > KWIDE) the wide
+// reduce's survivors (cand_after).
 inline cudaError_t launch_split_k1(const float* x, const float* h,
                                    const float* c, const CellWeights& w,
                                    const float* Cw, const float* Cb,
@@ -515,6 +533,7 @@ inline cudaError_t launch_split_k1(const float* x, const float* h,
   e = launch_split_factored_tail(w, v, hwb, c, s_buf, h_out, c_out, R, s);
   if (e != cudaSuccess) return e;
   return launch_split_head(h_out, Cw, Cb, R, H, V, ktop, logits, logp, idx,
+                           cand_after(work, split_k1_work(R, F, H, V), ktop),
                            s);
 }
 
@@ -559,7 +578,9 @@ inline cudaError_t launch_split_attend(const AttWeights& aw,
   return launch_slab<CTX>(c, s, true);
 }
 
-// K6 on the column-split path: one image's R = k <= SPLIT_ROWS rows.
+// K6 on the column-split path: one image's R = k <= SPLIT_ROWS rows; work
+// holds split_att_work floats, then (ktop > KWIDE) the wide reduce's
+// survivors (cand_after).
 inline cudaError_t launch_split_att(const float* x, const float* h,
                                     const float* c, const float* feats,
                                     const float* att1, const AttWeights& aw,
@@ -595,8 +616,10 @@ inline cudaError_t launch_split_att(const float* x, const float* h,
   if (e != cudaSuccess) return e;
   e = launch_split_factored_tail(w, v, hwb, c, s_buf, h_out, c_out, R, s);
   if (e != cudaSuccess) return e;
-  return launch_split_head(h_out, Cw, Cb, R, H, V, ktop, logits, logp, idx,
-                           s);
+  return launch_split_head(
+      h_out, Cw, Cb, R, H, V, ktop, logits, logp, idx,
+      cand_after(work, split_att_work(true, R, F, H, V, aw.A, aw.P, FS), ktop),
+      s);
 }
 
 inline cudaError_t launch_split_att(const float* x, const float* h,
@@ -638,8 +661,11 @@ inline cudaError_t launch_split_att(const float* x, const float* h,
   a.H = H;
   e = launch_slab<GATES_L>(a, s, true);
   if (e != cudaSuccess) return e;
-  return launch_split_head(h_out, Cw, Cb, R, H, V, ktop, logits, logp, idx,
-                           s);
+  return launch_split_head(
+      h_out, Cw, Cb, R, H, V, ktop, logits, logp, idx,
+      cand_after(work, split_att_work(false, R, H, H, V, aw.A, aw.P, FS),
+                 ktop),
+      s);
 }
 
 }  // namespace icee

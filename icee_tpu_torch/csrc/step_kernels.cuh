@@ -114,7 +114,9 @@ head_logits_kernel(const float* __restrict__ h, const float* __restrict__ Cw,
 // stream.  Partials: pm, pse (R, n_tiles); pv, pi (R, n_tiles, k), n_tiles =
 // ceil(V / 256).  Above KMAX the head writes the logits to lg (R, n_tiles *
 // 256; unused, and may be null, at k <= KMAX) and the merge is the wide
-// reduce; the partials are not used.  Returns the first CUDA error of the
+// reduce, above KWIDE with its survivors after the logits (lg then holds
+// R n_tiles 256 floats and 2 wide_cand_pairs(R, k) more); the partials
+// are not used.  Returns the first CUDA error of the
 // three launches.
 template <class W>
 cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
@@ -151,7 +153,12 @@ cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
     head_logits_kernel<<<head_grid, HEAD_TILES * QT, smem, s>>>(
         h_out, Cw, Cb, lg, ld, R, w.H, V);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    return launch_wide_reduce(lg, ld, R, V, k, logp, idx, s);
+    // above KWIDE the reduce's survivors follow the logits in lg
+    return launch_wide_reduce(
+        lg, ld, R, V, k, logp, idx,
+        k > KWIDE ? reinterpret_cast<unsigned long long*>(lg + (size_t)R * ld)
+                  : nullptr,
+        s);
   }
   const size_t head_smem =
       sizeof(float) * HEAD_ROWS * (round4(w.H) + HEAD_TILES * VT);

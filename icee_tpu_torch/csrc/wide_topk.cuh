@@ -1,24 +1,32 @@
 // The exact top-k of the wide paths: beam widths and top-ks above KMAX, up
-// to KWIDE = 256, in K1 (decode_step.cu), K2 (beam.cu), K6
-// (att_decode_step.cu) and K7 (att_beam.cu).  JAX's kernels take any 1 <=
-// k <= V (icee_tpu/ops/pallas_decode.py:261, pallas_beam.py:350,
+// to V, in K1 (decode_step.cu), K2 (beam.cu), K6 (att_decode_step.cu), K7
+// (att_beam.cu), and the rows and candidates of K9 and K10 that do not fit
+// one block's shared memory (senticap_beam.cuh).  JAX's kernels take any 1
+// <= k <= V (icee_tpu/ops/pallas_decode.py:261, pallas_beam.py:350,
 // pallas_att_decode.py:201 and :733); the k <= KMAX paths pick k times by
 // warp arg-max from per-tile candidates (decode_common.cuh tile_reduce,
 // merge_row), which costs O(k V) a row and holds n_tiles k candidates a
 // warp.  Above KMAX the paths select instead, over a whole block:
 //
-//   block_topk   the K greatest of n values val(c), in order, ties to the
-//                lowest index c: the K least of the distinct 64-bit pairs
-//                (key, c), key an order-preserving descending key of the
-//                value (-0 counted as +0).  A radix select finds the K-th
-//                least pair a byte at a time from the top (a 256-bin
-//                histogram a pass, stopping as soon as the chosen bin holds
-//                exactly the pairs still wanted: two or three passes unless
-//                values tie across the threshold); the survivors (exactly
-//                K) are gathered by a block-wide prefix sum, and each one's
-//                rank among them is counted.  The values are read through
-//                val() on every pass, never stored: a row of V logits or an
-//                image's k x k beam candidates stay where they are (L2).
+//   block_select the K least of the distinct 64-bit pairs (key(c), c), c
+//                < n, key a 32-bit order key, in order: a radix select
+//                finds the K-th least pair a byte at a time from the top
+//                (a 256-bin histogram a pass, stopping as soon as the
+//                chosen bin holds exactly the pairs still wanted: two or
+//                three passes unless keys tie across the threshold); the
+//                survivors (exactly K) are gathered by a block-wide prefix
+//                sum, and each one's rank among them is counted.  The keys
+//                are read through key() on every pass, never stored: a row
+//                of V logits or an image's k x k beam candidates stay where
+//                they are (L2).  Up to KWIDE = 256 survivors sit in shared
+//                memory; above it (SCAN) in a device-memory scratch of K
+//                pairs that the caller gives, and the ranks are counted
+//                against them streamed through shared memory KWIDE at a
+//                time, RANK_ITEMS survivors a thread held in registers.
+//                Either way O(K^2) compares a selection: ~4M at K = 2048.
+//   block_topk   block_select of the K greatest of n values val(c), ties
+//                to the lowest index c: key = an order-preserving
+//                descending key of the value (-0 counted as +0).
 //   wide_row     one row of logits (V floats in device memory): every
 //                256-wide tile's max and sum-exp through tile_reduce, logZ
 //                through merge_logz -- the same arithmetic, in the same
@@ -28,18 +36,20 @@
 //                K2 = K1 fused-step, K7 = K6 hold at atol 0 there too.
 //
 // What bounds it: bytes through L2, a few reads of the row (or of the k x k
-// candidates) a selection.  No atomics touch data: the histogram's counts
-// are counts, the survivors' places come from a prefix sum, and the output
-// order from the ranks, so a selection gives the same result on every run.
+// candidates) a selection; above KWIDE also the K^2 rank compares.  No
+// atomics touch data: the histogram's counts are counts, the survivors'
+// places come from a prefix sum, and the output order from the ranks, so a
+// selection gives the same result on every run.
 #pragma once
 
 #include "decode_common.cuh"
 
 namespace icee {
 
-constexpr int KWIDE = 256;          // largest beam / top-k of the wide paths
+constexpr int KWIDE = 256;          // most survivors held in shared memory
 constexpr int WIDE_THREADS = 512;   // a wide reduce block's threads
 constexpr int TOPK_FLOATS = 1024;   // floats a block_topk scratch takes
+constexpr int RANK_ITEMS = 4;       // survivors a thread ranks at once (SCAN)
 
 // An order-preserving descending key of v: larger values give smaller
 // keys; -0 and +0 give the same key.
@@ -48,13 +58,8 @@ __device__ __forceinline__ unsigned desc_key(float v) {
   return (b & 0x80000000u) ? b : ~(b | 0x80000000u);
 }
 
-// (key, index) as one 64-bit value in the order (value desc, index asc).
-__device__ __forceinline__ unsigned long long desc_pair(float v, int c) {
-  return ((unsigned long long)desc_key(v) << 32) | (unsigned)c;
-}
-
 struct alignas(16) TopkScratch {
-  unsigned long long cand[KWIDE];  // the survivors' pairs
+  unsigned long long cand[KWIDE];  // the survivors' pairs (SCAN: a chunk)
   int hist[256];
   int wsum[32];                    // a block scan's per-warp sums
   int rem, bin, cnt;               // pairs still wanted, the chosen bin
@@ -86,13 +91,19 @@ __device__ __forceinline__ int block_excl_scan(int v, int* wsum, int& total) {
   return off;
 }
 
-// The K (1 <= K <= min(n, KWIDE)) greatest of val(c), c < n, ties to the
-// lowest c: emit(rank, c) once for each, rank 0 the greatest.  Every
-// thread of the block must call it (blockDim.x a multiple of 32); it ends
-// with a barrier.
-template <class Val, class Emit>
-__device__ void block_topk(int n, int K, Val val, TopkScratch* s, Emit emit) {
+// The K (1 <= K <= n; K <= KWIDE unless SCAN) least pairs (key(c), c), c
+// < n: emit(rank, c) once for each, rank 0 the least.  SCAN: the survivors
+// go to gcand (K pairs of device memory, this block's own).  Every thread
+// of the block must call it (blockDim.x a multiple of 32); it ends with a
+// barrier.
+template <bool SCAN = false, class Key, class Emit>
+__device__ void block_select(int n, int K, Key key, TopkScratch* s,
+                             Emit emit,
+                             unsigned long long* gcand = nullptr) {
   const int tid = threadIdx.x, nt = blockDim.x;
+  auto pair = [&](int c) {
+    return ((unsigned long long)key(c) << 32) | (unsigned)c;
+  };
   unsigned long long prefix = 0, mask = 0;
   if (tid == 0) s->rem = K;
   for (int shift = 56; shift >= 0; shift -= 8) {
@@ -104,7 +115,7 @@ __device__ void block_topk(int n, int K, Val val, TopkScratch* s, Emit emit) {
     for (int i = tid; i < 256; i += nt) s->hist[i] = 0;
     __syncthreads();
     for (int c = tid; c < n; c += nt) {
-      const unsigned long long p = desc_pair(val(c), c);
+      const unsigned long long p = pair(c);
       if ((p & mask) == prefix) atomicAdd(&s->hist[(p >> shift) & 255], 1);
     }
     __syncthreads();
@@ -143,34 +154,76 @@ __device__ void block_topk(int n, int K, Val val, TopkScratch* s, Emit emit) {
   }                               // every thread)
   const unsigned long long tau = prefix | ~mask;  // the K-th least pair's
   int mine = 0;                                    // range: exactly K <= tau
-  for (int c = tid; c < n; c += nt) mine += desc_pair(val(c), c) <= tau;
+  for (int c = tid; c < n; c += nt) mine += pair(c) <= tau;
   int total;
   int off = block_excl_scan(mine, s->wsum, total);
+  unsigned long long* cand = SCAN ? gcand : s->cand;
   for (int c = tid; c < n && mine > 0; c += nt) {
-    const unsigned long long p = desc_pair(val(c), c);
+    const unsigned long long p = pair(c);
     if (p <= tau) {
-      s->cand[off++] = p;
+      cand[off++] = p;
       --mine;
     }
   }
   __syncthreads();
-  for (int i = tid; i < K; i += nt) {
-    const unsigned long long p = s->cand[i];
-    int r = 0;
-    for (int j = 0; j < K; ++j) r += s->cand[j] < p;
-    emit(r, (int)(p & 0xffffffffull));
+  if constexpr (!SCAN) {
+    for (int i = tid; i < K; i += nt) {
+      const unsigned long long p = s->cand[i];
+      int r = 0;
+      for (int j = 0; j < K; ++j) r += s->cand[j] < p;
+      emit(r, (int)(p & 0xffffffffull));
+    }
+  } else {
+    // each survivor's rank against all K, streamed through s->cand
+    for (int i0 = 0; i0 < K; i0 += RANK_ITEMS * nt) {
+      unsigned long long p[RANK_ITEMS];
+      int r[RANK_ITEMS];
+#pragma unroll
+      for (int u = 0; u < RANK_ITEMS; ++u) {
+        const int i = i0 + tid + u * nt;
+        p[u] = i < K ? gcand[i] : ~0ull;
+        r[u] = 0;
+      }
+      for (int j0 = 0; j0 < K; j0 += KWIDE) {
+        const int m = min(KWIDE, K - j0);
+        __syncthreads();
+        for (int j = tid; j < m; j += nt) s->cand[j] = gcand[j0 + j];
+        __syncthreads();
+        for (int j = 0; j < m; ++j) {
+          const unsigned long long q = s->cand[j];
+#pragma unroll
+          for (int u = 0; u < RANK_ITEMS; ++u) r[u] += q < p[u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RANK_ITEMS; ++u)
+        if (i0 + tid + u * nt < K) emit(r[u], (int)(p[u] & 0xffffffffull));
+    }
   }
   __syncthreads();
+}
+
+// The K greatest of val(c), c < n, ties to the lowest c: block_select on
+// the descending keys.
+template <bool SCAN = false, class Val, class Emit>
+__device__ __forceinline__ void block_topk(int n, int K, Val val,
+                                           TopkScratch* s, Emit emit,
+                                           unsigned long long* gcand =
+                                               nullptr) {
+  block_select<SCAN>(
+      n, K, [&](int c) { return desc_key(val(c)); }, s, emit, gcand);
 }
 
 // One row of V logits in device memory (read through L2): the tiles' max
 // and sum-exp (tile_reduce, a warp a tile, into pm, pse: n_tiles floats
 // each), logZ (merge_logz), then the row's K greatest logits, ties to the
-// lowest id: emit(rank, id, logit - logZ).  lt holds VT floats a warp.
-// Every thread of the block must call it; it ends with a barrier.
-template <class Emit>
+// lowest id: emit(rank, id, logit - logZ).  lt holds VT floats a warp;
+// SCAN: K > KWIDE, the survivors in gcand (K pairs).  Every thread of the
+// block must call it; it ends with a barrier.
+template <bool SCAN = false, class Emit>
 __device__ void wide_row(const float* row, int V, int K, float* lt,
-                         float* pm, float* pse, TopkScratch* s, Emit emit) {
+                         float* pm, float* pse, TopkScratch* s, Emit emit,
+                         unsigned long long* gcand = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5, n_tiles = (V + VT - 1) / VT;
   float* mine = lt + warp * VT;
@@ -194,9 +247,9 @@ __device__ void wide_row(const float* row, int V, int K, float* lt,
   }
   __syncthreads();
   const float logz = s->logz;
-  block_topk(
+  block_topk<SCAN>(
       V, K, [&](int c) { return __ldcg(row + c); }, s,
-      [&](int q, int c) { emit(q, c, __ldcg(row + c) - logz); });
+      [&](int q, int c) { emit(q, c, __ldcg(row + c) - logz); }, gcand);
 }
 
 // Floats of wide_reduce_kernel's shared memory at vocabulary V.
@@ -204,12 +257,14 @@ __host__ __device__ inline int wide_reduce_floats(int V) {
   return TOPK_FLOATS + (WIDE_THREADS / 32) * VT + 2 * ((V + VT - 1) / VT);
 }
 
-// One block a row r of logits (R, ld): wide_row, into logp, idx (R, k).
-// Launched with or without programmatic dependent launch (it waits for the
-// previous launch's logits first; without the attribute that is a no-op).
+// One block a row r of logits (R, ld): wide_row, into logp, idx (R, k);
+// SCAN (k > KWIDE): row r's survivors in cand + r k.  Launched with or
+// without programmatic dependent launch (it waits for the previous
+// launch's logits first; without the attribute that is a no-op).
+template <bool SCAN>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_reduce_kernel(const float* logits, int ld, int V, int k, float* logp,
-                   int* idx) {
+                   int* idx, unsigned long long* cand) {
   extern __shared__ __align__(16) float smem[];
   TopkScratch* s = reinterpret_cast<TopkScratch*>(smem);
   float* lt = smem + TOPK_FLOATS;
@@ -217,26 +272,46 @@ wide_reduce_kernel(const float* logits, int ld, int V, int k, float* logp,
   float* pse = pm + (V + VT - 1) / VT;
   const size_t r = blockIdx.x;
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  wide_row(logits + r * ld, V, k, lt, pm, pse, s,
-           [&](int q, int c, float lp) {
-             logp[r * k + q] = lp;
-             idx[r * k + q] = c;
-           });
+  wide_row<SCAN>(
+      logits + r * ld, V, k, lt, pm, pse, s,
+      [&](int q, int c, float lp) {
+        logp[r * k + q] = lp;
+        idx[r * k + q] = c;
+      },
+      SCAN ? cand + r * k : nullptr);
 }
 
-// The wide reduce launch: R rows of logits (R, ld) -> logp, idx (R, k).
+// Pairs of the wide reduce's survivor scratch for R rows of top-k k: R k
+// above KWIDE (in device memory, after the logits), else none.
+__host__ __device__ inline long long wide_cand_pairs(int R, int k) {
+  return k > KWIDE ? (long long)R * k : 0;
+}
+
+// The wide reduce launch: R rows of logits (R, ld) -> logp, idx (R, k);
+// cand: wide_cand_pairs(R, k) pairs (k > KWIDE).
 inline cudaError_t launch_wide_reduce(const float* logits, int ld, int R,
                                       int V, int k, float* logp, int* idx,
+                                      unsigned long long* cand,
                                       cudaStream_t s) {
   const size_t smem = sizeof(float) * (size_t)wide_reduce_floats(V);
+  const void* kernel = k > KWIDE
+                           ? reinterpret_cast<const void*>(
+                                 wide_reduce_kernel<true>)
+                           : reinterpret_cast<const void*>(
+                                 wide_reduce_kernel<false>);
+  if (k > KWIDE && cand == nullptr) return cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(wide_reduce_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e != cudaSuccess) return e;
-  wide_reduce_kernel<<<R, WIDE_THREADS, smem, s>>>(logits, ld, V, k, logp,
-                                                   idx);
+  if (k > KWIDE)
+    wide_reduce_kernel<true><<<R, WIDE_THREADS, smem, s>>>(
+        logits, ld, V, k, logp, idx, cand);
+  else
+    wide_reduce_kernel<false><<<R, WIDE_THREADS, smem, s>>>(
+        logits, ld, V, k, logp, idx, nullptr);
   return cudaGetLastError();
 }
 

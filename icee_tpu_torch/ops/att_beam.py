@@ -12,10 +12,12 @@ context (units of an image's feature columns, the softmax in every block),
 the rest of the cell, the vocabulary head, the per-tile top-k partials and
 each image's beam tail; h0/c0 from the mean feature before step 1.  Only
 the beams still alive run.  :func:`att_grid_plan` is the launch plan the
-kernel reads.  Beam widths of 9 to ``K_WIDE`` = 256: the per-image stages
-take an image's live rows in groups of up to 8 (``ATT_GROUP`` rows, a
-group planned in an image's place), and the selection is K2's wide row
-stage and tail.  :func:`init_state` runs the search's mean and h0/c0 stage
+kernel reads.  Beam widths above 8, up to V: the per-image stages take
+an image's live rows in groups of up to 8 (``ATT_GROUP`` rows, a group
+planned in an image's place), and the selection is K2's wide row stage
+and tail (``ops/beam.py::selection_kind``: also at k <= 8 where the
+narrow tail outgrows the ring; above 256 with the survivors, and past
+``MAX_ROWS`` rows the row lists, in device memory).  :func:`init_state` runs the search's mean and h0/c0 stage
 alone for the fused-step path (``att_decode_step.att_init_state``),
 planned by :func:`att_init_plan`.  The TPU scheduling knobs
 (``n_img_block``, ``n_streams``, ``topk_fold``, ``p_stream``, ``p_tile``,
@@ -32,7 +34,7 @@ outside the kernel, as in the JAX package.
 :func:`mega_att_beam_decode` takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.  Launch counts:
 ``mega_att_beam_decode.launches`` (factored) and ``.lstm_launches``, and of
-those at a beam above ``K_MAX`` ``.wide_launches`` and
+those with the wide selection ``.wide_launches`` and
 ``.lstm_wide_launches``.
 """
 
@@ -54,14 +56,16 @@ from icee_tpu_torch.ops.att_decode_step import (ATT_WEIGHTS, CELL_WEIGHTS,
                                                 V_TILE, check_step_params,
                                                 step_layout, step_params,
                                                 _kind)
-from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_ROWS,
+from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_K, MAX_ROWS,
                                      MAX_STAGES, NSLOT, PLAN_ARRAYS,
-                                     SLOT_FLOATS, THREADS,
+                                     SEL_NARROW, SLOT_FLOATS, THREADS,
                                      GridPlan, Job, StagePlan, carve_regions,
-                                     check_grid, grid_blocks, launch_chunks,
-                                     plan_stage, plan_struct,
+                                     check_grid, check_plan_rows,
+                                     check_plan_width, check_ring,
+                                     grid_blocks, launch_chunks, plan_stage,
+                                     plan_struct, scan_regions,
                                      selection_regions, stage_with_width,
-                                     slabs_on, tail_floats)
+                                     slabs_on)
 from icee_tpu_torch.ops.decode_step import K_WIDE, check_beam_width
 
 # csrc/grid_beam.cuh's limits for the attention (checked against the
@@ -206,9 +210,7 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
     _kind(kind)
     if kind == "lstm" and f != h:
         raise ValueError(f"f={f} != h={h}: the LSTM cell's widths are H")
-    if not 1 <= k <= min(K_WIDE, v):
-        raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
-                         "K7 (csrc/att_beam.cu) takes at most K_WIDE")
+    check_plan_width("K7 (csrc/att_beam.cu)", k, v)
     if e < 1 or n_img < 1 or max_seq < 0 or grid < 1 or a < 1 or fs < 1:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}, a={a}, fs={fs}: each must be "
@@ -220,13 +222,9 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
         raise ValueError(f"A={a}: {K_MAX} rows of att2 do not fit the "
                          "kernel's ring")
     rows = n_img * k
-    if rows > MAX_ROWS:
-        raise ValueError(f"{n_img} images x k={k} = {rows} rows: one launch "
-                         f"takes at most {MAX_ROWS}")
+    check_plan_rows(n_img, k)
     n_tiles = -(-v // V_TILE)
-    if tail_floats(n_tiles, k, max_seq + 2) > NSLOT * SLOT_FLOATS:
-        raise ValueError(f"V={v}, max_seq={max_seq}: the beam tail's "
-                         "scratch does not fit the kernel's ring")
+    check_ring(n_tiles, k, v, max_seq)
     jobs = att_stage_jobs(kind, e, f, h, v, a, fs)
     groups = image_groups(n_img, k)
     stages = tuple(plan_image_stage(js, grid, groups) if i == CTX_STAGE
@@ -246,7 +244,8 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
         ("scores", rows), ("bscore", n_img), ("mean", n_img * fs)])
     ints = carve_regions([
         ("bar", 1), ("pi", sel["pi"]), ("alive", rows), ("word", rows),
-        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)])
+        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)]
+        + (scan_regions(rows, k, grid) if k > K_WIDE else []))
     return AttGridPlan(kind, e, f, h, v, k, n_img, max_seq, grid, stages,
                        floats, ints, a, p, fs, pu, upi)
 
@@ -323,7 +322,7 @@ def _search(params: dict, features: torch.Tensor, style: int, batch: int,
                         ("init_c_w", (fs, hd)), ("init_c_b", (hd,))):
         cuda_lib.check_tensor(name, params[name], shape, torch.float32,
                               device)
-    check_beam_width("k", k, v, device, "K7 (csrc/att_beam.cu)")
+    check_beam_width("k", k, v)
     if device.type == "cpu":
         return mega_att_beam_decode_plain(params, features, int(style), batch,
                                           start_token, end_token, k,
@@ -362,7 +361,8 @@ def _search(params: dict, features: torch.Tensor, style: int, batch: int,
         cuda_lib.check_rc(lib, rc, f"mega_att_beam_decode (kind={kind})")
         prefix = "" if kind == "factored" else "lstm_"
         mega_att_beam_decode.__dict__[prefix + "launches"] += 1
-        mega_att_beam_decode.__dict__[prefix + "wide_launches"] += k > K_MAX
+        mega_att_beam_decode.__dict__[prefix + "wide_launches"] += (
+            plan.selection != SEL_NARROW)
         off, size = plan.region("steps")
         results.append((tokens, length, score,
                         ints[off:off + size].view(n_img, 2).clone()))
@@ -535,7 +535,7 @@ def init_state(params: dict, features: torch.Tensor
 
 mega_att_beam_decode.launches = 0       # kernel launches, kind="factored"
 mega_att_beam_decode.lstm_launches = 0  # kernel launches, kind="lstm"
-mega_att_beam_decode.wide_launches = 0       # of those, at k > K_MAX
+mega_att_beam_decode.wide_launches = 0       # of those, the wide selection
 mega_att_beam_decode.lstm_wide_launches = 0
 
 
@@ -549,10 +549,10 @@ def _library() -> ctypes.CDLL:
         "icee_mega_att_beam_consts": ([vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib
-    consts = (ctypes.c_longlong * 10)()
+    consts = (ctypes.c_longlong * 11)()
     lib.icee_mega_att_beam_consts(consts)
     want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, MAX_P, K_MAX,
-            K_WIDE)
+            K_WIDE, MAX_K)
     if tuple(consts[1:]) != want:
         raise RuntimeError(f"csrc/att_beam.cu's geometry {tuple(consts[1:])} "
                            f"is not the wrapper's {want}")

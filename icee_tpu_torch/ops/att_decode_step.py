@@ -16,8 +16,10 @@ the shape alone and giving the same bits for a row:
   merge launches run with input width E + FS (the cell a template over the
   weight set).
 
-Beams and top-ks of 9 to ``K_WIDE`` = 256 take K1's wide head and reduce
-(``csrc/wide_topk.cuh``), the same bits as the narrow merge would give.
+Top-ks above ``K_MAX`` = 8, up to V, take K1's wide head and reduce
+(``csrc/wide_topk.cuh``), the same bits as the narrow merge would give
+(above ``K_WIDE`` = 256 the survivors in device memory); any beam width k
+runs, its rows in groups of 8 an attention block.
 
 :func:`att_decode_step_topk_plain` is the same function in
 plain PyTorch: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
@@ -50,9 +52,9 @@ from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
-from icee_tpu_torch.ops.decode_step import (K_MAX, K_WIDE, SPLIT_ROWS,
-                                            V_TILE, check_beam_width,
-                                            scratch_ptrs, tiled_scratch)
+from icee_tpu_torch.ops.decode_step import (K_MAX, SPLIT_ROWS, V_TILE,
+                                            check_beam_width, scratch_ptrs,
+                                            tiled_scratch, wide_cand_floats)
 
 KINDS = ("factored", "lstm")
 
@@ -207,10 +209,6 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     n_img, p, fs = features.shape
     if k < 1 or rows != n_img * k:
         raise ValueError(f"{rows} rows for {n_img} images of k={k}")
-    if device.type == "cuda" and k > K_WIDE:
-        raise ValueError(f"k={k} rows an image: the CUDA kernel K6 "
-                         f"(csrc/att_decode_step.cu) takes at most K_WIDE = "
-                         f"{K_WIDE}")
     split = n_img == 1 and k <= SPLIT_ROWS
     w, wp = cuda_lib.checked_weights(
         (cell_params, att_params, gate_params), (kind, e, fs, device, split),
@@ -222,8 +220,7 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
                            ("features", features, (n_img, p, fs)),
                            ("att1", att1, (n_img, p, a))):
         cuda_lib.check_tensor(name, t, shape, torch.float32, device)
-    check_beam_width("ktop", ktop, v, device,
-                     "K6 (csrc/att_decode_step.cu)")
+    check_beam_width("ktop", ktop, v)
     if device.type == "cpu":
         return att_decode_step_topk_plain(cell_params, att_params,
                                           gate_params, x, h, c, features,
@@ -240,7 +237,8 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     ptr = cuda_lib.ptr
     if split:
         work = torch.empty((lib.icee_att_step_split_work(
-            kind == "factored", k, fp, hp, vp, ap, p, fsp),), **f32)
+            kind == "factored", k, fp, hp, vp, ap, p, fsp)
+            + wide_cand_floats(k, ktop),), **f32)
         outs = (ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
                 ptr(work), k, e)
     else:

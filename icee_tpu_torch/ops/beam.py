@@ -11,12 +11,17 @@ head, the per-tile top-k partials, and each image's beam tail (merge,
 selection, sequences, best-completed tracking, early exit).  Only the beams
 still alive run.  :func:`grid_plan` is the launch plan the kernel reads:
 each stage's column slabs and row-block size, and the scratch layout.
-Beam widths of 9 to ``K_WIDE`` = 256 take the kernel's wide selection
+Beam widths above ``K_MAX`` = 8, up to V, take the kernel's wide selection
 (``csrc/wide_topk.cuh``): a row stage (a block a live row: logZ, the row's
 top-k into device memory) and a wide tail (an image's k x k candidates
-selected from L2, the sequences double-buffered in device memory).  A
-launch holds at most ``MAX_ROWS`` rows, so :func:`launch_chunks` splits a
-batch into launches of ``MAX_ROWS // k`` images (4 at k = 256).
+selected from L2, the sequences double-buffered in device memory); so do
+k <= 8 where the narrow tail's partials outgrow the ring (V above ~80k).
+Above ``K_WIDE`` = 256 the selections' survivors sit in device memory
+(:func:`selection_kind`, ``SEL_SCAN``).  A launch holds at most
+``MAX_ROWS`` rows, or one image of any k, so :func:`launch_chunks` splits
+a batch into launches of ``max(1, MAX_ROWS // k)`` images (4 at k = 256);
+an image of more than ``MAX_ROWS`` rows keeps each block's row lists in
+device memory.
 
 :func:`mega_beam_decode_plain` is the same search in plain PyTorch
 (:func:`~icee_tpu_torch.decode.beam.beam_search_batched` over the decoder's
@@ -26,7 +31,7 @@ kernel against it on the card.
 :func:`mega_beam_decode` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Its launch counts
 are ``mega_beam_decode.launches`` (factored) and
-``mega_beam_decode.lstm_launches``, and of those at a beam above ``K_MAX``
+``mega_beam_decode.lstm_launches``, and of those with the wide selection
 ``.wide_launches`` and ``.lstm_wide_launches``.
 """
 
@@ -54,12 +59,16 @@ KC = 64              # k rows of a ring chunk
 KCP = KC + 4         # row stride of a chunk's input rows
 NSLOT = 4            # ring chunks
 SLOT_FLOATS = 7680   # floats of one chunk: weights, then input rows
-MAX_ROWS = 1024      # rows (images x k) of one launch
+MAX_ROWS = 1024      # rows (images x k) of one launch, unless one image
+MAX_K = 46340        # widest beam: an image's k x k candidates by an int
 MAX_BR = 64          # most rows of a unit
 MAX_UNIT_ROWS = 128  # input rows of a unit, all sets (two a copying thread)
 MAX_STAGES = 8
 SCRATCH_ALIGN = 64   # floats: each scratch region starts 256-byte aligned
 TOPK_FLOATS = 1024   # csrc/wide_topk.cuh: a block selection's scratch
+RING_FLOATS = NSLOT * SLOT_FLOATS
+# csrc/grid_beam.cuh Sel: the selection a launch runs
+SEL_NARROW, SEL_WIDE, SEL_SCAN = 0, 1, 2
 
 
 NIC_WEIGHTS = ("W_ih", "b_ih", "W_hh", "b_hh", "linear_w", "linear_b")
@@ -202,6 +211,10 @@ class GridPlan:
         return -(-self.v // V_TILE)
 
     @property
+    def selection(self) -> int:
+        return selection_kind(self.n_tiles, self.k, self.max_seq + 2)
+
+    @property
     def n_floats(self) -> int:
         return _end(self.floats)
 
@@ -290,31 +303,73 @@ def merge_floats(n_tiles: int, k: int) -> int:
     return (n_tiles * (2 + 2 * k) + 3) & ~3
 
 
-def tail_floats(n_tiles: int, k: int, length: int) -> int:
-    """Floats of the beam tail's scratch (``csrc/grid_beam.cuh``): K_MAX
-    merging warps' copies, then one image's log-probs, ids, sequences and
-    slot state.  Above K_MAX the larger of the wide row stage's (the
-    selection's scratch, a tile a warp, the tiles' max and sum-exp) and the
-    wide tail's (the selection's scratch and the slot state), whatever the
-    length."""
-    if k > K_MAX:
-        return TOPK_FLOATS + max(THREADS // 32 * V_TILE + 2 * n_tiles,
-                                 5 * k + 4)
+def narrow_tail_floats(n_tiles: int, k: int, length: int) -> int:
+    """Floats of the narrow beam tail's scratch (``csrc/grid_beam.cuh``):
+    K_MAX merging warps' copies, then one image's log-probs, ids,
+    sequences and slot state."""
     return (K_MAX * merge_floats(n_tiles, k) + 2 * k * k + 2 * k * length
             + 6 * k + 4)
+
+
+def tail_state_floats(k: int) -> int:
+    """Floats of the wide tail's k-slot state."""
+    return 5 * k + 4
+
+
+def state_in_ring(k: int) -> bool:
+    """Whether the wide tail's slot state sits in the ring (else, at
+    ``SEL_SCAN``, in device memory: the ``tstate`` region)."""
+    return TOPK_FLOATS + tail_state_floats(k) <= RING_FLOATS
+
+
+def selection_kind(n_tiles: int, k: int, length: int) -> int:
+    """The selection a search runs (``csrc/grid_beam.cuh`` ``sel_kind``):
+    ``SEL_NARROW`` (the tile partials and the narrow tail) where k <=
+    ``K_MAX`` and its scratch fits the ring, ``SEL_WIDE`` (the row stage
+    and the wide tail) up to ``K_WIDE``, then ``SEL_SCAN`` (the same, the
+    survivors in device memory)."""
+    if k > K_WIDE:
+        return SEL_SCAN
+    if k > K_MAX or narrow_tail_floats(n_tiles, k, length) > RING_FLOATS:
+        return SEL_WIDE
+    return SEL_NARROW
+
+
+def tail_floats(n_tiles: int, k: int, length: int) -> int:
+    """Floats of the ring the selection takes: the narrow tail's scratch,
+    or the larger of the wide row stage's (the selection's scratch, a tile
+    a warp, the tiles' max and sum-exp) and the wide tail's (the
+    selection's scratch and the slot state where it sits in the ring),
+    whatever the length."""
+    if selection_kind(n_tiles, k, length) == SEL_NARROW:
+        return narrow_tail_floats(n_tiles, k, length)
+    state = tail_state_floats(k) if state_in_ring(k) else 0
+    return TOPK_FLOATS + max(THREADS // 32 * V_TILE + 2 * n_tiles, state)
 
 
 def selection_regions(rows: int, n_tiles: int, k: int, length: int):
     """Sizes of the scratch regions the selection reads and writes: the
     tile partials pm, pse (rows, n_tiles) and pv, pi (rows, n_tiles, k) and
-    the sequences (rows, length); above K_MAX pv, pi are each row's top-k
-    (rows, k), pm and pse go unused, and the sequences take two planes."""
-    if k > K_MAX:
+    the sequences (rows, length); with the wide selection pv, pi are each
+    row's top-k (rows, k), pm and pse go unused, and the sequences take two
+    planes."""
+    if selection_kind(n_tiles, k, length) != SEL_NARROW:
         return dict(pm=0, pse=0, pv=rows * k, pi=rows * k,
                     seqs=2 * rows * length)
     return dict(pm=rows * n_tiles, pse=rows * n_tiles,
                 pv=rows * n_tiles * k, pi=rows * n_tiles * k,
                 seqs=rows * length)
+
+
+def scan_regions(rows: int, k: int, grid: int):
+    """The int regions only ``SEL_SCAN`` has (``csrc/grid_beam.cuh``
+    GridArgs), each block's own part: cand, its selections' k survivors (8
+    bytes each); tstate, the tail's slot state where it does not fit the
+    ring; lists, its row lists (8 ints a row) where the launch holds more
+    than ``MAX_ROWS`` rows."""
+    return [("cand", 2 * grid * k),
+            ("tstate", 0 if state_in_ring(k) else grid * tail_state_floats(k)),
+            ("lists", 8 * grid * rows if rows > MAX_ROWS else 0)]
 
 
 def carve_regions(sizes) -> Tuple[Tuple[str, int, int], ...]:
@@ -336,21 +391,15 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
     on what the kernel does not take."""
     if cell not in CELLS:
         raise ValueError(f"unknown cell {cell!r}; choose one of {CELLS}")
-    if not 1 <= k <= min(K_WIDE, v):
-        raise ValueError(f"k={k} outside [1, {min(K_WIDE, v)}]: the kernel "
-                         "K2 (csrc/beam.cu) takes at most K_WIDE")
+    check_plan_width("K2 (csrc/beam.cu)", k, v)
     f, h, v = widths.quad(f), widths.quad(h), widths.quad(v)
     if e < 1 or n_img < 1 or max_seq < 0 or grid < 1:
         raise ValueError(f"e={e}, n_img={n_img}, max_seq={max_seq}, "
                          f"grid={grid}: each must be positive")
     rows = n_img * k
-    if rows > MAX_ROWS:
-        raise ValueError(f"{n_img} images x k={k} = {rows} rows: one launch "
-                         f"takes at most {MAX_ROWS}")
+    check_plan_rows(n_img, k)
     n_tiles = -(-v // V_TILE)
-    if tail_floats(n_tiles, k, max_seq + 2) > NSLOT * SLOT_FLOATS:
-        raise ValueError(f"V={v}, max_seq={max_seq}: the beam tail's "
-                         "scratch does not fit the kernel's ring")
+    check_ring(n_tiles, k, v, max_seq)
     stages = tuple(plan_stage(jobs, grid, rows)
                    for jobs in stage_jobs(cell, e, f, h, v))
     fact = cell == "factored"
@@ -363,15 +412,41 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
         ("scores", rows), ("bscore", n_img)])
     ints = carve_regions([
         ("bar", 1), ("pi", sel["pi"]), ("alive", rows), ("word", rows),
-        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)])
+        ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)]
+        + (scan_regions(rows, k, grid) if k > K_WIDE else []))
     return GridPlan(cell, e, f, h, v, k, n_img, max_seq, grid, stages,
                     floats, ints)
 
 
+def check_plan_width(kernel: str, k: int, v: int) -> None:
+    """The beam widths a whole-search kernel plans: 1 <= k <= V, and k x k
+    candidates an image that an int indexes (k <= ``MAX_K``)."""
+    if not 1 <= k <= v:
+        raise ValueError(f"k={k} outside [1, {v}]")
+    if k > MAX_K:
+        raise ValueError(f"k={k}: the kernel {kernel} indexes an image's "
+                         f"k x k candidates by an int (k <= {MAX_K})")
+
+
+def check_plan_rows(n_img: int, k: int) -> None:
+    """A launch holds at most ``MAX_ROWS`` rows, or one image of any k."""
+    if n_img > 1 and n_img * k > MAX_ROWS:
+        raise ValueError(f"{n_img} images x k={k} = {n_img * k} rows: one "
+                         f"launch takes at most {MAX_ROWS}, or one image")
+
+
+def check_ring(n_tiles: int, k: int, v: int, max_seq: int) -> None:
+    """The selection's scratch fits the ring (the wide row stage's tiles'
+    max and sum-exp: V up to ~3.2M)."""
+    if tail_floats(n_tiles, k, max_seq + 2) > RING_FLOATS:
+        raise ValueError(f"V={v}, max_seq={max_seq}: the beam tail's "
+                         "scratch does not fit the kernel's ring")
+
+
 def launch_chunks(batch: int, k: int) -> list:
     """(first image, images) of each launch of a ``batch``: at most
-    ``MAX_ROWS // k`` images a launch."""
-    per = MAX_ROWS // k
+    ``MAX_ROWS // k`` images a launch, and at least one."""
+    per = max(1, MAX_ROWS // k)
     return [(i, min(per, batch - i)) for i in range(0, batch, per)]
 
 
@@ -381,7 +456,8 @@ _PLAN_FIELDS = (
 PLAN_ARRAYS = ("cw", "br", "n_slabs", "slab0")
 _FLOAT_REGIONS = ("v", "hw", "s", "hn", "cn", "logits", "pm", "pse", "pv",
                   "scores", "bscore")
-INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar")
+INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar",
+               "cand", "lists", "tstate")
 
 
 class _CPlan(ctypes.Structure):
@@ -395,7 +471,8 @@ class _CPlan(ctypes.Structure):
 def plan_struct(cls, plan: GridPlan, vals: dict, regions) -> ctypes.Structure:
     """A kernel's plan struct (``cls``, a ctypes mirror): the scalar
     ``vals``, each stage's geometry and first slab, and the offset
-    ``o_<name>`` of each scratch region in ``regions``."""
+    ``o_<name>`` of each scratch region in ``regions`` (0 for one the plan
+    has not: ``SEL_SCAN``'s)."""
     c = cls()
     for name, val in vals.items():
         setattr(c, name, val)
@@ -404,8 +481,10 @@ def plan_struct(cls, plan: GridPlan, vals: dict, regions) -> ctypes.Structure:
         c.cw[i], c.br[i] = st.cw, st.br
         c.n_slabs[i], c.slab0[i] = len(st.slabs), first
         first += len(st.slabs)
+    held = {n for n, _, _ in plan.floats + plan.ints}
     for name in regions:
-        setattr(c, "o_" + name, plan.region(name)[0])
+        if name in held:
+            setattr(c, "o_" + name, plan.region(name)[0])
     return c
 
 
@@ -489,7 +568,7 @@ def mega_beam_decode_steps(
     if features is not None:
         cuda_lib.check_tensor("features", features, (batch, k, e),
                               torch.float32, device)
-    check_beam_width("k", k, v, device, "K2 (csrc/beam.cu)")
+    check_beam_width("k", k, v)
     if device.type == "cpu":
         return mega_beam_decode_plain(params, features, int(style), batch,
                                       start_token, end_token, k,
@@ -524,7 +603,8 @@ def mega_beam_decode_steps(
         cuda_lib.check_rc(lib, rc, f"mega_beam_decode (cell={cell})")
         prefix = "" if cell == "factored" else "lstm_"
         mega_beam_decode.__dict__[prefix + "launches"] += 1
-        mega_beam_decode.__dict__[prefix + "wide_launches"] += k > K_MAX
+        mega_beam_decode.__dict__[prefix + "wide_launches"] += (
+            plan.selection != SEL_NARROW)
         off, size = plan.region("steps")
         results.append((tokens, length, score,
                         ints[off:off + size].view(n_img, 2).clone()))
@@ -537,7 +617,7 @@ def mega_beam_decode_steps(
 
 mega_beam_decode.launches = 0       # kernel launches, cell="factored"
 mega_beam_decode.lstm_launches = 0  # kernel launches, cell="lstm"
-mega_beam_decode.wide_launches = 0       # of those, at k > K_MAX
+mega_beam_decode.wide_launches = 0       # of those, the wide selection
 mega_beam_decode.lstm_wide_launches = 0
 
 
@@ -550,10 +630,10 @@ def _library() -> ctypes.CDLL:
         "icee_mega_beam_consts": ([vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib
-    consts = (ctypes.c_longlong * 9)()
+    consts = (ctypes.c_longlong * 10)()
     lib.icee_mega_beam_consts(consts)
     want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, K_WIDE,
-            TOPK_FLOATS)
+            TOPK_FLOATS, MAX_K)
     if tuple(consts[1:]) != want:
         raise RuntimeError(f"csrc/beam.cu's geometry {tuple(consts[1:])} is "
                            f"not the wrapper's {want}")

@@ -11,10 +11,12 @@ alone and giving the same bits for a row:
   three launches, cell, per-tile head partials, merge; the (R, V) logits
   never reach device memory.
 
-A top-k of 9 to ``K_WIDE`` = 256 takes either path with the wide reduce
-(``csrc/wide_topk.cuh``): the head writes the logits to device memory and a
-block a row takes logZ as the merge does and the top-k by a radix select,
-the same bits as the k <= ``K_MAX`` merge would give.
+A top-k above ``K_MAX`` = 8, up to V, takes either path with the wide
+reduce (``csrc/wide_topk.cuh``): the head writes the logits to device
+memory and a block a row takes logZ as the merge does and the top-k by a
+radix select, the same bits as the k <= ``K_MAX`` merge would give; above
+``K_WIDE`` = 256 the selection's survivors sit in device memory after the
+logits (:func:`wide_cand_floats`) and are ranked from there.
 
 :func:`decode_step_topk_plain` is the same function in plain PyTorch: the CPU
 tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from icee_tpu_torch.decode.beam import top_k
@@ -39,7 +42,7 @@ from icee_tpu_torch.ops.cells import factored_lstm_cell
 
 V_TILE = 256   # csrc/decode_common.cuh VT
 K_MAX = 8      # csrc/decode_common.cuh KMAX: the narrow paths' widest k
-K_WIDE = 256   # csrc/wide_topk.cuh KWIDE: the wide paths' widest k
+K_WIDE = 256   # csrc/wide_topk.cuh KWIDE: most survivors in shared memory
 SPLIT_ROWS = 8  # csrc/split_step.cuh SPLIT_ROWS: most rows of the split path
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -71,17 +74,63 @@ def check_decoder_params(params: dict, device: torch.device) -> Tuple[int, ...]:
     return e, f, h, v, ns
 
 
-def check_beam_width(name: str, k: int, v: int, device: torch.device,
-                     kernel: str) -> None:
-    """A beam width or top-k ``name=k``: the plain route takes any ``1 <= k
-    <= V``; the CUDA kernels take at most ``K_WIDE`` (their k <= ``K_MAX``
-    paths pick from per-tile candidates, the wider ones select by a radix
-    select over a block)."""
+def check_beam_width(name: str, k: int, v: int) -> None:
+    """A beam width or top-k ``name=k``: every route takes any ``1 <= k <=
+    V`` (the card's k <= ``K_MAX`` paths pick from per-tile candidates, the
+    wider ones select by a radix select over a block)."""
     if not 1 <= k <= v:
         raise ValueError(f"{name}={k} outside [1, {v}]")
-    if device.type == "cuda" and k > K_WIDE:
-        raise ValueError(f"{name}={k}: the CUDA kernel {kernel} takes at "
-                         f"most K_WIDE = {K_WIDE}")
+
+
+def wide_cand_floats(rows: int, k: int) -> int:
+    """Floats of the wide reduce's survivor scratch after a work buffer or
+    the logits (``csrc/wide_topk.cuh`` ``wide_cand_pairs``, at the next
+    8-byte boundary: ``split_step.cuh`` ``cand_after``): one 8-byte pair a
+    row and survivor above ``K_WIDE``, else none."""
+    return 1 + 2 * rows * k if k > K_WIDE else 0
+
+
+def block_select_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """``csrc/wide_topk.cuh``'s ``block_select``, step by step, on rows of
+    32-bit keys (R, n) (int64, 0 <= key < 2^32) -> the indices (R, k)
+    int64 of each row's k least pairs (key, index), in order: the radix
+    select's histogram passes a byte at a time from the top (an index
+    byte above the largest index skipped, stopping once the chosen bin
+    holds exactly the pairs still wanted), the survivors (every pair <=
+    the threshold: exactly k), their ranks by counting."""
+    rows, n = keys.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} outside [1, {n}]")
+    pairs = ((keys.cpu().numpy().astype(np.uint64) << np.uint64(32))
+             | np.arange(n, dtype=np.uint64))
+    out = np.empty((rows, k), dtype=np.int64)
+    for r in range(rows):
+        p = pairs[r]
+        prefix = mask = 0
+        rem = k
+        for shift in range(56, -1, -8):
+            if 0 < shift < 32 and (n - 1) >> shift == 0:
+                mask |= 0xFF << shift
+                continue
+            sel = (p & np.uint64(mask)) == np.uint64(prefix)
+            hist = np.bincount(((p[sel] >> np.uint64(shift))
+                                & np.uint64(255)).astype(np.int64),
+                               minlength=256)
+            incl = np.cumsum(hist)
+            b = int(np.searchsorted(incl, rem))   # first bin reaching rem
+            rem -= int(incl[b] - hist[b])
+            prefix |= b << shift
+            mask |= 0xFF << shift
+            if hist[b] == rem:
+                break
+        tau = np.uint64(prefix | (~mask & 0xFFFFFFFFFFFFFFFF))
+        cand = p[p <= tau]
+        assert cand.size == k, (cand.size, k)
+        rank = (cand[None, :] < cand[:, None]).sum(axis=1)
+        order = np.empty(k, dtype=np.uint64)
+        order[rank] = cand
+        out[r] = (order & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return torch.from_numpy(out).to(keys.device)
 
 
 FACTORED_WEIGHTS = ("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b",
@@ -136,7 +185,7 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
     cuda_lib.check_tensor("x", x, (rows, e), torch.float32, device)
     cuda_lib.check_tensor("h", h, (rows, hd), torch.float32, device)
     cuda_lib.check_tensor("c", c, (rows, hd), torch.float32, device)
-    check_beam_width("ktop", ktop, v, device, "K1 (csrc/decode_step.cu)")
+    check_beam_width("ktop", ktop, v)
     if device.type == "cpu":
         return decode_step_topk_plain(params, x, h, c, int(style), ktop)
 
@@ -152,8 +201,8 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
     head = (p(x), p(h_in), p(c_in), *weights[0], p(h_out), p(c_out),
             p(logp), p(idx))
     if rows <= SPLIT_ROWS:
-        work = torch.empty((lib.icee_decode_step_split_work(rows, fp, hp,
-                                                            vp),), **f32)
+        work = torch.empty((lib.icee_decode_step_split_work(rows, fp, hp, vp)
+                            + wide_cand_floats(rows, ktop),), **f32)
         rc = lib.icee_decode_step_topk_split(
             *head, p(work), rows, e, fp, hp, vp, ktop,
             cuda_lib.stream_ptr(device))
@@ -180,7 +229,9 @@ def tiled_scratch(rows: int, v: int, ktop: int, device: torch.device):
     """The row-tiled path's scratch arguments (``csrc/step_kernels.cuh``):
     the per-tile partials pm, pse (rows, n_tiles) and pv, pi (rows,
     n_tiles, ktop), then the logits (rows, n_tiles * 256) where ``ktop``
-    is above ``K_MAX`` (the partials then unused and empty; else None)."""
+    is above ``K_MAX`` (the partials then unused and empty; else None),
+    above ``K_WIDE`` followed by the wide reduce's survivors
+    (:func:`wide_cand_floats`)."""
     n_tiles = -(-v // V_TILE)
     f32 = dict(dtype=torch.float32, device=device)
     wide = ktop > K_MAX
@@ -189,7 +240,11 @@ def tiled_scratch(rows: int, v: int, ktop: int, device: torch.device):
     pse = torch.empty((rows, tiles), **f32)
     pv = torch.empty((rows, tiles, ktop), **f32)
     pi = torch.empty((rows, tiles, ktop), dtype=torch.int32, device=device)
-    lg = torch.empty((rows, n_tiles * V_TILE), **f32) if wide else None
+    lg = None
+    if wide:
+        cols = n_tiles * V_TILE
+        lg = torch.empty((rows * cols + wide_cand_floats(rows, ktop),),
+                         **f32)[:rows * cols].view(rows, cols)
     return pm, pse, pv, pi, lg
 
 

@@ -30,7 +30,16 @@ plain version beside its kernel (``csrc/senticap_beam.cuh``):
   ``tf32x3_product`` arithmetic on wgmma);
 - :func:`row_topk` / :func:`row_topk_plain`: the row selection, the beam
   least (nll, token) pairs of each row by a threshold (the K-th least of
-  the threads' minima) and an exact order of the few survivors.
+  the threads' minima) and an exact order of the few survivors; where the
+  row does not fit a block (beam above the threads, or V past the block's
+  shared memory) by ``csrc/wide_topk.cuh``'s radix select from device
+  memory (plain version ``decode_step.block_select_plain``).
+
+A beam or vocabulary past one block's shared memory (the plan's
+``topk_wide``, ``select_wide``) runs the row pass and the beam^2
+candidates' selection from device memory, in a scratch of
+``wide_floats`` floats: the same pairs in the same order, so a beam both
+paths take gives the same bits on either.
 """
 
 from __future__ import annotations
@@ -44,12 +53,14 @@ import torch
 
 from icee_tpu_torch.ops import cuda_lib
 from icee_tpu_torch.ops.att_scan import tf32_split
+from icee_tpu_torch.ops.decode_step import K_WIDE, block_select_plain
 
 # csrc/senticap_beam.cuh's geometry
 SP_BM, SP_BN, SP_BK = 128, 64, 32     # a product block's tile, k tile
 SP_NP = 64                            # planes' rows: a multiple of this
 SP_BLOCKS_PER_SM = 2                  # product blocks an SM holds
 TOPK_THREADS = 256                    # threads of a row top-k block
+MAX_BEAM = 46340                      # beam^2 candidates an int indexes
 H100_SMS = 132
 
 
@@ -106,6 +117,45 @@ def topk_smem(vocab: int, beam: int, paths: int) -> int:
     return 8 * TOPK_THREADS + 4 * _round_up(vocab, 4) + max(4 * vocab, cand)
 
 
+def topk_wide(vocab: int, beam: int, paths: int) -> bool:
+    """Whether the row pass runs from device memory: a beam above its
+    threads, or a block over the shared-memory limit."""
+    return (beam > TOPK_THREADS
+            or topk_smem(vocab, beam, paths) > cuda_lib.SMEM_LIMIT)
+
+
+def select_wide(beam: int, max_len: int, with_trace: bool) -> bool:
+    """Whether the selection runs from device memory."""
+    return select_smem(beam, max_len, with_trace) > cuda_lib.SMEM_LIMIT
+
+
+def topk_wide_floats(rows: int, beam: int) -> int:
+    """Floats of the device-memory row pass's survivors: a row's beam
+    8-byte pairs above ``K_WIDE``, else none."""
+    return 2 * rows * beam if beam > K_WIDE else 0
+
+
+def select_wide_floats(beam: int, max_len: int, with_trace: bool) -> int:
+    """Floats of one image's part of the device-memory selection's
+    scratch: the survivors' pairs (above ``K_WIDE``), the beam^2 totals and
+    tokens, the old sequences (and traces), the new scores, parents and
+    words; even."""
+    f = ((2 * beam if beam > K_WIDE else 0) + 2 * beam * beam
+         + beam * (max_len + 1) * (2 if with_trace else 1) + 3 * beam)
+    return f + (f & 1)
+
+
+def wide_floats(n_img: int, beam: int, vocab: int, max_len: int,
+                paths: int) -> int:
+    """Floats of a search's wide scratch: the row pass's survivors, then
+    each image's selection part."""
+    rows = n_img * beam
+    return ((topk_wide_floats(rows, beam)
+             if topk_wide(vocab, beam, paths) else 0)
+            + (n_img * select_wide_floats(beam, max_len, paths == 2)
+               if select_wide(beam, max_len, paths == 2) else 0))
+
+
 class _CPlan(ctypes.Structure):
     """ctypes mirror of ``csrc/senticap_beam.cuh``'s ``SbPlan``."""
     _fields_ = [("cell_planes", ctypes.c_longlong),
@@ -114,7 +164,9 @@ class _CPlan(ctypes.Structure):
                 ("select_smem", ctypes.c_longlong),
                 ("cell_splits", ctypes.c_int),
                 ("cell_kp", ctypes.c_int), ("head_kp", ctypes.c_int),
-                ("topk_cap", ctypes.c_int), ("paths", ctypes.c_int)]
+                ("topk_cap", ctypes.c_int), ("paths", ctypes.c_int),
+                ("topk_wide", ctypes.c_int), ("select_wide", ctypes.c_int),
+                ("wide_floats", ctypes.c_longlong)]
 
 
 @dataclass(frozen=True)
@@ -130,6 +182,9 @@ class SbPlan:
     head_kp: int
     topk_cap: int
     paths: int
+    topk_wide: int     # the row pass from device memory
+    select_wide: int   # the selection from device memory
+    wide_floats: int   # floats of the wide passes' scratch
 
     def planes_floats(self) -> int:
         """Floats of the planes scratch: every path's cell, then heads."""
@@ -142,16 +197,18 @@ class SbPlan:
 def launch_plan(what: str, n_img: int, beam: int, e: int, h: int,
                 vocab: int, max_len: int, paths: int = 1,
                 sms: int = H100_SMS) -> SbPlan:
-    """The plan of a search on the card; raises for what the kernels do
-    not take (beam above the row pass's threads or outside [1, V], a
-    block's shared memory over the limit)."""
+    """The plan of a search on the card: a row pass and a selection from
+    shared memory where they fit one block, else from device memory.
+    Raises for a beam outside [1, V] or above ``MAX_BEAM`` (its beam^2
+    candidates indexed by an int)."""
     if n_img < 1:
         raise ValueError(f"{what}: {n_img} images")
     if not 1 <= beam <= vocab:
         raise ValueError(f"beam_size {beam} outside [1, {vocab}]")
-    if beam > TOPK_THREADS:
-        raise ValueError(f"{what}: beam_size {beam} > {TOPK_THREADS}, the "
-                         f"row top-k's threads")
+    if beam > MAX_BEAM:
+        raise ValueError(f"{what}: beam_size {beam} > {MAX_BEAM}: the "
+                         f"kernel indexes an image's beam^2 candidates by "
+                         f"an int")
     if max_len < 0:
         raise ValueError(f"max_len {max_len} < 0")
     rows = n_img * beam
@@ -164,11 +221,11 @@ def launch_plan(what: str, n_img: int, beam: int, e: int, h: int,
                   cell_splits=product_splits(rows, 4 * h, e + h, paths,
                                              sms),
                   cell_kp=cell_2kp // 2, head_kp=head_2kp // 2,
-                  topk_cap=topk_cap(vocab, beam), paths=paths)
-    need = max(plan.topk_smem, plan.select_smem)
-    if need > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"{what} needs {need} bytes of shared memory per "
-                         f"block, more than {cuda_lib.SMEM_LIMIT}")
+                  topk_cap=topk_cap(vocab, beam), paths=paths,
+                  topk_wide=int(topk_wide(vocab, beam, paths)),
+                  select_wide=int(select_wide(beam, max_len, paths == 2)),
+                  wide_floats=wide_floats(n_img, beam, vocab, max_len,
+                                          paths))
     return plan
 
 
@@ -283,14 +340,20 @@ def planes_product(a: torch.Tensor, planes: torch.Tensor, n: int,
 planes_product.launches = 0
 
 
+def _keys(nll: torch.Tensor) -> torch.Tensor:
+    """Each nll of rows (R, V) as the kernel's 32-bit key (``sb_key``: the
+    float's bits made order-preserving, -0 as +0), in an int64."""
+    bits = (nll + 0.0).contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
+                       bits | 0x80000000)
+
+
 def _pairs(nll: torch.Tensor) -> torch.Tensor:
     """Each (nll, token) of rows nll (R, V) as one int64 key in the order
     (nll, token): the float's bits made order-preserving (-0 as +0), less
     2^63 so that signed order is the unsigned order of the kernel's key,
     the token below."""
-    bits = (nll + 0.0).contiguous().view(torch.int32).long() & 0xFFFFFFFF
-    key = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
-                      bits | 0x80000000)
+    key = _keys(nll)
     tok = torch.arange(nll.shape[-1], dtype=torch.int64, device=nll.device)
     return ((key - 0x80000000) << 32) | tok
 
@@ -303,8 +366,14 @@ def row_topk_plain(nll: torch.Tensor, k: int,
     -0 as +0, their tokens), ties to the lowest token: each of ``threads``
     threads' least pair over its tokens c = thread + i threads; tau, the
     k-th least of those minima; the survivors, every pair <= tau; their
-    order."""
+    order.  At the kernel's threads where the row does not fit a block
+    (:func:`topk_wide`), the device-memory path's radix select instead
+    (``decode_step.block_select_plain``)."""
     rows, vocab = nll.shape
+    if threads == TOPK_THREADS and 1 <= k <= vocab and topk_wide(vocab, k,
+                                                                 1):
+        tok = block_select_plain(_keys(nll), k)
+        return torch.gather(nll + 0.0, 1, tok), tok.to(torch.int32)
     if not 1 <= k <= min(vocab, threads):
         raise ValueError(f"k {k} outside [1, min(V, threads)]")
     pairs = _pairs(nll)
@@ -333,23 +402,24 @@ def row_topk(nll: torch.Tensor, k: int
     """The k least (nll, token) pairs of each row of nll (R, V), in order,
     ties to the lowest token: :func:`row_topk_plain` on the CPU; on the
     card the selection K9 and K10 run, alone (``sb_row_select_kernel``),
-    counted in ``row_topk.launches``."""
+    counted in ``row_topk.launches`` (from device memory where the row
+    does not fit a block: :func:`topk_wide`)."""
     if nll.device.type == "cpu":
         return row_topk_plain(nll, k)
     rows, vocab = nll.shape
     cuda_lib.check_tensor("nll", nll, (rows, vocab), torch.float32,
                           nll.device)
-    if not 1 <= k <= min(vocab, TOPK_THREADS):
-        raise ValueError(f"k {k} outside [1, min(V, {TOPK_THREADS})]")
-    if topk_smem(vocab, k, 1) > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"row_topk needs {topk_smem(vocab, k, 1)} bytes of "
-                         f"shared memory per block")
+    if not 1 <= k <= vocab:
+        raise ValueError(f"k {k} outside [1, {vocab}]")
     out_nll = torch.empty((rows, k), dtype=torch.float32, device=nll.device)
     out_tok = torch.empty((rows, k), dtype=torch.int32, device=nll.device)
+    cand = torch.empty((max(1, topk_wide_floats(rows, k)),),
+                       dtype=torch.float32, device=nll.device)
     lib = _library()
     p = cuda_lib.ptr
     rc = lib.icee_sb_row_select(p(nll), rows, vocab, k, p(out_nll),
-                                p(out_tok), cuda_lib.stream_ptr(nll.device))
+                                p(out_tok), p(cand),
+                                cuda_lib.stream_ptr(nll.device))
     cuda_lib.check_rc(lib, rc, "row_topk")
     row_topk.launches += 1
     return out_nll, out_tok
@@ -445,7 +515,8 @@ def mega_senticap_beam_decode(params: dict, v_feats: torch.Tensor,
                    top_nll=torch.empty((rows, beam_size), **f32),
                    top_tok=torch.empty((rows, beam_size), **i32),
                    seqs=torch.empty((rows, seq_len), **i32),
-                   lp=torch.empty((rows,), **f32))
+                   lp=torch.empty((rows,), **f32),
+                   wide=torch.empty((max(1, plan.wide_floats),), **f32))
     tokens = torch.empty((batch, seq_len), **i32)
     length = torch.empty((batch,), **i32)
     score = torch.empty((batch,), **f32)
@@ -481,8 +552,8 @@ def sm_count(device: torch.device) -> int:
 def _library() -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return cuda_lib.library("senticap_beam", {
-        "icee_senticap_beam": ([vp] * 20 + [i] * 7 + [vp], i),
+        "icee_senticap_beam": ([vp] * 21 + [i] * 7 + [vp], i),
         "icee_sb_prepare": ([vp, i, i, vp, vp], i),
         "icee_sb_product": ([vp, ll, ll, vp, ll, i, vp, vp, vp, ll, ll, ll]
                             + [i] * 5 + [vp], i),
-        "icee_sb_row_select": ([vp, i, i, i, vp, vp, vp], i)})
+        "icee_sb_row_select": ([vp, i, i, i, vp, vp, vp, vp], i)})

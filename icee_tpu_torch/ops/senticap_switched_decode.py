@@ -126,7 +126,8 @@ def mega_senticap_switched_decode(
                    top_tok=torch.empty((rows, beam_size), **i32),
                    seqs=torch.empty((rows, seq_len), **i32),
                    lp=torch.empty((rows,), **f32),
-                   trace=torch.empty((rows, seq_len), **f32))
+                   trace=torch.empty((rows, seq_len), **f32),
+                   wide=torch.empty((max(1, plan.wide_floats),), **f32))
     tokens = torch.empty((batch, seq_len), **i32)
     length = torch.empty((batch,), **i32)
     score = torch.empty((batch,), **f32)
@@ -152,4 +153,4 @@ mega_senticap_switched_decode.launches = 0  # wrapper calls on CUDA tensors
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     return cuda_lib.library("senticap_switched_beam", {
-        "icee_senticap_switched_beam": ([vp] * 29 + [i] * 7 + [vp], i)})
+        "icee_senticap_switched_beam": ([vp] * 30 + [i] * 7 + [vp], i)})

@@ -123,8 +123,23 @@ def test_wide_beam_on_tied_rows_matches_jax(kind, k):
     kernel's resident call in interpret mode; at k = 64, where interpret
     mode takes about a minute an image on the CPU, the XLA attention beam
     (``_xla_beam``), which the kernel is held to above."""
+    _tied_wide_beam(kind, k, 128, 2, 8)
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_beam_past_one_block_matches_the_xla_beam(kind):
+    """A beam width the CUDA kernel runs with its survivors in device
+    memory (k = 300 > 256, V = 400, 3 steps, one image): the CPU route
+    (both port paths) answers as JAX's XLA attention beam on tied rows."""
+    _tied_wide_beam(kind, 300, 400, 1, 3)
+
+
+def _tied_wide_beam(kind, k, vocab, batch, steps):
+    """The port at beam ``k`` over ``vocab`` words against JAX (its kernel
+    in interpret mode at k = 20, else the XLA beam), the head's columns
+    copied in pairs."""
     global CFG
-    cfg, CFG = CFG, JAttCfg(vocab_size=128, embed_size=16, hidden_size=24,
+    cfg, CFG = CFG, JAttCfg(vocab_size=vocab, embed_size=16, hidden_size=24,
                             factored_size=24, attention_size=20,
                             feature_size=32)
     try:
@@ -136,7 +151,7 @@ def test_wide_beam_on_tied_rows_matches_jax(kind, k):
     end = tree[b][2]
     tree[b][1::2] = tree[b][0::2]
     tree[b][2:4] = end, tree[b][4]       # <end> alone holds the end bias
-    style, batch, steps = (1 if kind == "factored" else 0), 2, 8
+    style = 1 if kind == "factored" else 0
     jp = jax.tree.map(jnp.asarray, tree)
     feats = np.random.default_rng({"factored": 3, "lstm": 8}[kind]) \
         .standard_normal((batch, P, 32)).astype(np.float32)
@@ -146,7 +161,7 @@ def test_wide_beam_on_tied_rows_matches_jax(kind, k):
                      v_tile=128, kind=kind, interpret=True)
     else:
         want = _xla_beam(jp, feats, jnp.asarray(style), kind, k=k,
-                         steps=steps, vocab=128)
+                         steps=steps, vocab=vocab)
     tp = bridge.to_torch(tree)
     got = mega_att_beam_decode(tp, torch.tensor(feats), style, batch,
                                start_token=1, end_token=2, k=k,
@@ -222,8 +237,8 @@ def test_wrapper_raises_on_what_it_does_not_take():
         mega_att_beam_decode(tp, feats, 4, BATCH, k=K)
     with pytest.raises(ValueError, match="k=0"):
         mega_att_beam_decode(tp, feats, 0, BATCH, k=0)
-    # the plain route decodes any k up to V (the card takes up to K_WIDE; the
-    # card refuses: tests/test_torch_cuda.py)
+    # every route decodes any k up to V (the card's:
+    # tests/test_torch_cuda.py)
     got = mega_att_beam_decode(tp, feats, 0, BATCH, k=9, max_seq_length=3)
     assert got.tokens.shape == (BATCH, 5)
     with pytest.raises(ValueError, match="unknown kind"):

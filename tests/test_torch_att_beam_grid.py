@@ -6,10 +6,12 @@ and in order (grids of 1 to 132 blocks, 1 to 64 images); the stages must
 fit the kernel's chunk slots and threads; the scratch regions must be
 disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
 images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
-paths' 9, 20, 64, 256, both kinds; above k = 8 the per-image stages must
-take an image's rows in groups of at most 8; the plan and the wrapper must
-raise on what the kernel does not take, and F, H, V, A and FS of any
-residue mod 4 plan as their padded widths.  The h0/c0 launch (the search's mean and
+paths' 9, 20, 64, 256, both kinds, and past one block (k = 257 up to V,
+an image of more than ``MAX_ROWS`` rows; V = 100,000 at k <= 8); above k
+= 8 the per-image stages must take an image's rows in groups of at most
+8; every plan the narrower paths made before is unchanged; the plan and
+the wrapper must raise on what the kernel does not take, and F, H, V, A
+and FS of any residue mod 4 plan as their padded widths.  The h0/c0 launch (the search's mean and
 init stage alone: ``run_mean``'s tasks, then ``att_init_plan``'s stage)
 must cover each (image, column quad) of the mean and each h0/c0 column of
 each image once, at 1, 2 and 64 images.  The ctypes mirrors of the
@@ -212,13 +214,15 @@ def test_the_ctypes_plan_carries_a_wide_plan(k):
                          n_img, 40, 132)
     c = att_beam._c_plan(plan, 1, 2)
     assert (c.k, c.n_img, c.pu, c.upi) == (k, n_img, plan.pu, plan.upi)
-    for name in att_beam._FLOAT_REGIONS + beam.INT_REGIONS:
+    for name in att_beam._FLOAT_REGIONS + beam.INT_REGIONS[:7]:
         assert getattr(c, "o_" + name) == plan.region(name)[0]
+    assert (c.o_cand, c.o_lists, c.o_tstate) == (0, 0, 0)  # SEL_SCAN's
     wide = (CSRC / "wide_topk.cuh").read_text()
     assert int(re.search(r"constexpr int KWIDE = (\d+);", wide).group(1)) \
         == K_WIDE >= k
-    assert "out[9] = KWIDE;" in SOURCE
-    assert "p.k > KMAX ? reinterpret_cast<const void*>(grid_att_kernel<true>)" \
+    assert "out[9] = KWIDE;" in SOURCE and "out[10] = MAX_K;" in SOURCE
+    assert plan.selection == beam.SEL_WIDE
+    assert "reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>)" \
         in SOURCE
 
 
@@ -249,12 +253,14 @@ def test_the_plan_takes_widths_that_are_not_multiples_of_4(kwargs):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
+    (dict(k=0), "k=0"), (dict(k=513), r"k=513 outside \[1, 512\]"),
+    (dict(v=4, k=5), "k=5"),
     (dict(p=0), "P=0"), (dict(p=MAX_P + 1), f"P={MAX_P + 1}"),
     (dict(a=4096), "ring"), (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
     (dict(kind="gru"), "unknown kind"), (dict(kind="lstm", f=48), "f=48"),
-    (dict(v=400000), "tail's"), (dict(max_seq=4000), "tail's"),
+    (dict(v=4000000), "tail's"),
+    (dict(v=50000, k=beam.MAX_K + 1, n_img=1), "by an int"),
 ])
 def test_the_plan_raises_on_what_the_kernel_does_not_take(kwargs, match):
     args = dict(kind="factored", e=16, f=32, h=32, v=512, a=20, p=9, fs=64,
@@ -262,6 +268,60 @@ def test_the_plan_raises_on_what_the_kernel_does_not_take(kwargs, match):
     args.update(kwargs)
     with pytest.raises(ValueError, match=match):
         att_grid_plan(**args)
+
+
+@pytest.mark.parametrize("k,v,n_img", [
+    (257, 8192, 1), (512, 8192, 2), (1024, 8192, 1), (2048, 8192, 1),
+    (300, 8192, 3), (1000, 1000, 1), (5, 100000, 8), (5, 100000, 1)])
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_the_plan_takes_beams_and_vocabularies_past_one_block(kind, k, v,
+                                                              n_img):
+    """K7 plans as K2 does: above K_WIDE ``SEL_SCAN`` (each block's
+    survivors, the slot state past the ring, the row lists past
+    MAX_ROWS rows in device memory), an image's rows in groups of 8 for
+    the per-image stages; at k <= 8 and V = 100,000 the wide selection."""
+    plan = att_grid_plan(kind, 300, 512, 512, v, 512, 196, 2048, k, n_img,
+                         8, 132)
+    rows = n_img * k
+    assert plan.selection == (beam.SEL_SCAN if k > K_WIDE else
+                              beam.SEL_WIDE)
+    assert image_groups(n_img, k) == n_img * -(-k // ATT_GROUP)
+    names = {n for n, _, _ in plan.ints}
+    assert ({"cand", "tstate", "lists"} <= names) == (k > K_WIDE)
+    if k > K_WIDE:
+        assert plan.region("lists")[1] == (8 * 132 * rows
+                                           if rows > MAX_ROWS else 0)
+    c = att_beam._c_plan(plan, 1, 2)
+    for name in att_beam._FLOAT_REGIONS + beam.INT_REGIONS:
+        want = plan.region(name)[0] if name in names or name in {
+            n for n, _, _ in plan.floats} else 0
+        assert getattr(c, "o_" + name) == want
+
+
+def _narrow_cases():
+    """The shapes whose plans the parent commit made."""
+    for kind in ("factored", "lstm"):
+        for k in (1, 5, 8, 9, 20, 256):
+            for v in (516, 8192):
+                for n_img in sorted({1, MAX_ROWS // k}):
+                    for grid in (3, 132):
+                        yield (kind, 300, 512, 512, v, 512, 196, 2048, k,
+                               n_img, 20, grid)
+
+
+# sha256 of the parent commit's plans of _narrow_cases() (each plan's repr)
+NARROW_PLANS = \
+    "67288f1c71896ece073694cf255538414a8409f03b66b508f7217fcd973dfc06"
+
+
+def test_every_plan_the_narrower_paths_made_is_unchanged():
+    """Every shape that planned before keeps its plan field for field."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for args in _narrow_cases():
+        h.update(repr(att_grid_plan(*args)).encode())
+    assert h.hexdigest() == NARROW_PLANS
 
 
 def _params(vocab=64, e=8, h=16, a=8, fs=12, seed=0):
@@ -287,7 +347,7 @@ def test_the_wrapper_raises_before_the_cpu_route():
     feats = torch.zeros((2, 5, 12))
     with pytest.raises(ValueError, match="k=0"):
         mega_att_beam_decode_steps(params, feats, 0, 2, k=0)
-    with pytest.raises(ValueError, match="k=65"):
+    with pytest.raises(ValueError, match=r"k=65 outside \[1, 64\]"):
         mega_att_beam_decode_steps(params, feats, 0, 2, k=65)
     with pytest.raises(ValueError, match="style 4"):
         mega_att_beam_decode_steps(params, feats, 4, 2, k=2)
@@ -295,7 +355,7 @@ def test_the_wrapper_raises_before_the_cpu_route():
         mega_att_beam_decode_steps(params, feats[:, :, :8], 0, 2, k=2)
     with pytest.raises(ValueError, match="unknown kind"):
         mega_att_beam_decode_steps(params, feats, 0, 2, k=2, kind="gru")
-    # the plain route takes any k up to V (the card takes up to K_WIDE)
+    # the plain route takes any k up to V (and so does the card)
     got, steps = mega_att_beam_decode_steps(params, feats, 1, 2, k=9,
                                             max_seq_length=3)
     assert steps is None and got.tokens.shape == (2, 5)

@@ -226,8 +226,8 @@ def test_wrapper_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="ktop"):
         att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
                              ktop=0)
-    # the plain route decodes any k up to V (the card takes up to K_WIDE)
-    # (the card refuses: tests/test_torch_cuda.py)
+    # every route decodes any k up to V (the card's:
+    # tests/test_torch_cuda.py)
     got = att_decode_step_topk(cell, att, gate, x, h, c, feats, att1, k=K,
                                ktop=9)
     assert got[0].shape == got[1].shape == (B * K, 9)

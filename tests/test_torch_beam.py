@@ -164,6 +164,46 @@ def test_wide_beam_on_tied_rows_matches_jax_mega(k):
     assert (got.length.numpy() > 1).all()
 
 
+@pytest.mark.parametrize("cell", ["factored", "lstm"])
+def test_beam_past_one_block_matches_the_xla_beam(cell):
+    """A beam width the CUDA kernel runs with its survivors in device
+    memory (k = 300 > 256, V = 400): the CPU route (both port paths for
+    the factored cell, nic_decode and the wrapper for the LSTM cell)
+    answers as JAX's XLA ``beam_search_batched``, the head's columns
+    copied in pairs so that rows and candidates tie: tokens and lengths
+    equal, scores within 1e-5."""
+    k, batch, steps, vocab = 300, 1, 3, 400
+    if cell == "factored":
+        jp = _params(vocab=vocab, seed=15)
+        w, b = "C_w", "C_b"
+    else:
+        jp = _nic_params(vocab=vocab, seed=16)
+        w, b = "linear_w", "linear_b"
+    jp[w] = np.array(jp[w]) * np.float32(8.0)
+    jp[w][:, 1::2] = jp[w][:, 0::2]
+    jp[b] = np.array(jp[b])
+    jp[b][1::2] = jp[b][0::2]
+    jp[b][2] = 4.0
+    feats = _feats(batch, k, 32 if cell == "factored" else 24, seed=7)
+    if cell == "factored":
+        jparams = jax.tree.map(jnp.asarray, jp)
+        zeros = jnp.zeros((batch * k, 64), jnp.float32)
+        want = jbeam_batched(
+            embed_fn=lambda t: jfl.embed(jparams, t),
+            step_fn=lambda x, st: jfl.decode_step(jparams, x, st, 1),
+            init_model_state=(zeros, zeros), start_token=1, end_token=2,
+            k=k, max_seq_length=steps, vocab_size=vocab, batch=batch,
+            first_input=jnp.asarray(feats))
+        got = _port_all(jp, feats, 1, batch, k, steps)
+    else:
+        want = _jax_nic_beam(jax.tree.map(jnp.asarray, jp), feats, batch, k,
+                             steps)
+        got = _nic_port(jp, feats, batch, k, steps)
+    _assert_same(got, want, scores=False)
+    np.testing.assert_allclose(got.score.numpy(), np.asarray(want.score),
+                               rtol=0, atol=1e-5)
+
+
 def test_all_tied_logits():
     """Zero head: every word ties every step; the candidate merge, top-k and
     best-completed tracking all resolve ties by the lowest index."""
@@ -208,8 +248,8 @@ def test_unknown_path_and_bad_block_raise():
     feats = torch.zeros((2, 5, 32))
     with pytest.raises(ValueError):
         factored_decode("xla", jp, feats, 0, 2, 5, 4, 1, 2)
-    # 9 beams, on the CUDA kernel's wide path: the plain route decodes any
-    # k up to V (the card takes up to K_WIDE = 256: tests/test_torch_cuda.py)
+    # 9 beams, on the CUDA kernel's wide path: every route decodes any k up
+    # to V (the card's: tests/test_torch_cuda.py)
     got = mega_beam_decode(jp, torch.zeros((2, 9, 32)), 0, 2, k=9,
                            max_seq_length=3)
     assert got.tokens.shape == (2, 5)

@@ -5,9 +5,12 @@ must cover each output column of each of its products once and in order
 blocks must fit the kernel's chunk slots; the scratch regions must be
 disjoint, aligned and of the sizes the kernel indexes, at 1, 8 and 64
 images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
-paths' 9, 20, 64, 256; a batch must split into launches of at most
-``MAX_ROWS`` rows; the beam tail's scratch must fit the ring; and the plan
-and the wrapper must raise on what the kernel does not take.  The ctypes
+paths' 9, 20, 64, 256, and past one block (``SEL_SCAN``: k = 257 up to V,
+an image of more than ``MAX_ROWS`` rows; k <= 8 at V = 100,000); a batch
+must split into launches of at most ``MAX_ROWS`` rows, or one image; the
+beam tail's scratch must fit the ring; every plan the narrower paths made
+before is unchanged; and the plan and the wrapper must raise on what the
+kernel does not take.  The ctypes
 mirror of the kernel's ``GridPlan`` and its geometry constants are held
 against the CUDA sources' text (``csrc/beam.cu``, the
 ``csrc/grid_beam.cuh`` it shares with K7, ``csrc/wide_topk.cuh`` and
@@ -24,8 +27,9 @@ import torch
 
 from icee_tpu_torch import bridge
 from icee_tpu_torch.ops import beam
-from icee_tpu_torch.ops.beam import (K_MAX, K_WIDE, KC, KCP, MAX_BR,
-                                     MAX_ROWS, SLOT_FLOATS, THREADS,
+from icee_tpu_torch.ops.beam import (K_MAX, K_WIDE, KC, KCP, MAX_BR, MAX_K,
+                                     MAX_ROWS, SEL_NARROW, SEL_SCAN,
+                                     SEL_WIDE, SLOT_FLOATS, THREADS,
                                      TOPK_FLOATS, grid_plan, launch_chunks,
                                      mega_beam_decode_steps, slab_columns)
 
@@ -153,11 +157,13 @@ def test_the_wide_tail_scratch_fits_the_ring_and_mirrors_the_source(k):
     at any vocabulary up to 400,000, as ``tail_floats`` in
     ``csrc/grid_beam.cuh`` computes it; ``merge_floats`` is the source's
     too (the k <= K_MAX merging warps' copies)."""
-    body = SOURCE[SOURCE.index("inline int tail_floats("):]
+    body = SOURCE[SOURCE.index("inline long long tail_floats("):]
     body = body[:body.index("\n}\n")]
-    assert "const int rowsel = GB_WARPS * VT + 2 * n_tiles, tail = 5 * k + 4;" \
-        in body
+    assert "const long long rowsel = GB_WARPS * VT + 2LL * n_tiles;" in body
+    assert ("const long long tail = state_in_ring(k) ? tail_state_floats(k)"
+            " : 0;") in body
     assert "return TOPK_FLOATS + (rowsel > tail ? rowsel : tail);" in body
+    assert "return 5LL * k + 4;" in SOURCE   # tail_state_floats
     merge = re.search(r"inline int merge_floats\(int n_tiles, int k\) \{\s*"
                       r"return round4\((.*?)\);", SOURCE, re.S).group(1)
     for v in (516, 8192, 8800, 400000):
@@ -181,14 +187,16 @@ def test_the_ctypes_plan_carries_a_wide_plan(k):
     plan = grid_plan("factored", 300, 512, 512, 8192, k, n_img, 40, 132)
     c = beam._c_plan(plan, 1, 2, True)
     assert (c.k, c.n_img, c.n_tiles, c.Vp) == (k, n_img, 32, 8192)
-    for name in beam._FLOAT_REGIONS + beam.INT_REGIONS:
+    for name in beam._FLOAT_REGIONS + beam.INT_REGIONS[:7]:
         assert getattr(c, "o_" + name) == plan.region(name)[0]
+    assert (c.o_cand, c.o_lists, c.o_tstate) == (0, 0, 0)  # SEL_SCAN's
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", SOURCE))
     assert int(consts["KWIDE"]) == K_WIDE >= k > int(consts["KMAX"]) == K_MAX
     assert int(consts["TOPK_FLOATS"]) == TOPK_FLOATS
-    assert "p.k > KMAX ? reinterpret_cast<const void*>(grid_beam_kernel<true>)" \
-        in SOURCE
-    assert "p.k < 1 || p.k > KWIDE" in SOURCE
+    assert plan.selection == SEL_WIDE
+    assert "sel == SEL_SCAN ? scan : sel == SEL_WIDE ? wide : narrow" in SOURCE
+    assert "if (k > KWIDE) return SEL_SCAN;" in SOURCE
+    assert "p.k < 1 || p.k > MAX_K" in SOURCE
 
 
 def test_a_batch_splits_into_launches_of_at_most_max_rows():
@@ -228,11 +236,12 @@ def test_the_plan_takes_widths_that_are_not_multiples_of_4(kwargs):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(k=0), "k=0"), (dict(k=257), "k=257"), (dict(v=4, k=5), "k=5"),
+    (dict(k=0), "k=0"), (dict(k=513), r"k=513 outside \[1, 512\]"),
+    (dict(v=4, k=5), "k=5"),
     (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
-    (dict(cell="gru"), "unknown cell"), (dict(v=400000), "tail's"),
-    (dict(max_seq=4000), "tail's"),
+    (dict(cell="gru"), "unknown cell"), (dict(v=4000000), "tail's"),
+    (dict(v=50000, k=MAX_K + 1, n_img=1), "by an int"),
 ])
 def test_the_plan_raises_on_what_the_kernel_does_not_take(kwargs, match):
     args = dict(cell="factored", e=16, f=32, h=32, v=512, k=5, n_img=2,
@@ -240,6 +249,108 @@ def test_the_plan_raises_on_what_the_kernel_does_not_take(kwargs, match):
     args.update(kwargs)
     with pytest.raises(ValueError, match=match):
         grid_plan(**args)
+
+
+@pytest.mark.parametrize("k,v,n_img", [
+    (257, 8192, 1), (512, 8192, 2), (1024, 8192, 1), (2048, 8192, 1),
+    (300, 8192, 3), (1000, 1000, 1), (8192, 8192, 1)])
+@pytest.mark.parametrize("cell", ["factored", "lstm"])
+def test_the_plan_takes_beams_past_one_block(cell, k, v, n_img):
+    """Above K_WIDE the search runs ``SEL_SCAN``: each block's survivors
+    (k pairs) in ``cand``, the tail's slot state in ``tstate`` once it
+    outgrows the ring, the row lists in ``lists`` once one image holds
+    more than MAX_ROWS rows; k = V too.  The ctypes plan carries each
+    region's offset."""
+    grid, steps = 132, 8
+    plan = grid_plan(cell, 300, 512, 512, v, k, n_img, steps, grid)
+    rows = n_img * k
+    assert plan.selection == SEL_SCAN and plan.rows == rows
+    sizes = {n: size for n, _, size in plan.ints}
+    state = 5 * k + 4
+    assert sizes["cand"] == 2 * grid * k
+    assert sizes["tstate"] == (0 if TOPK_FLOATS + state <= 4 * SLOT_FLOATS
+                               else grid * state)
+    assert sizes["lists"] == (8 * grid * rows if rows > MAX_ROWS else 0)
+    assert sizes["pi"] == rows * k and sizes["seqs"] == 2 * rows * (steps + 2)
+    assert beam.tail_floats(plan.n_tiles, k, steps + 2) <= 4 * SLOT_FLOATS
+    c = beam._c_plan(plan, 1, 2, False)
+    for name in beam._FLOAT_REGIONS + beam.INT_REGIONS:
+        assert getattr(c, "o_" + name) == plan.region(name)[0]
+    spans = sorted((off, off + size) for _, off, size in plan.ints)
+    for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+        assert a1 <= b0
+    assert all(off % 64 == 0 for _, off, _ in plan.ints)
+
+
+@pytest.mark.parametrize("k,n_img,sel", [
+    (5, 1, SEL_WIDE), (5, 8, SEL_WIDE), (8, 64, SEL_WIDE),
+    (1, 64, SEL_NARROW), (20, 8, SEL_WIDE)])
+def test_the_narrow_tails_vocabulary_bound_is_gone(k, n_img, sel):
+    """At V = 100,000 the narrow tail's partials (K_MAX warps' copies of
+    n_tiles partials) do not fit the ring: k <= 8 takes the wide row
+    stage and tail, whose scratch does not grow with V but for the
+    tiles' max and sum-exp; so do the shapes that refused before (V =
+    400,000; 4,000 steps)."""
+    plan = grid_plan("factored", 300, 512, 512, 100000, k, n_img, 40, 132)
+    assert plan.selection == sel
+    assert (sel == SEL_WIDE) == (
+        beam.narrow_tail_floats(plan.n_tiles, k, 42) > 4 * SLOT_FLOATS
+        or k > K_MAX)
+    sizes = {n: size for n, _, size in plan.floats}
+    if sel == SEL_WIDE:   # (k = 1: one candidate a tile still fits)
+        assert sizes["pm"] == 0 and sizes["pv"] == n_img * k * k
+    for v, steps in ((400000, 9), (512, 4000)):
+        assert grid_plan("factored", 16, 32, 32, v, 5, 2, steps,
+                         4).selection == SEL_WIDE
+    assert grid_plan("factored", 300, 512, 512, 80384, 5, 1, 40,
+                     132).selection == SEL_NARROW
+
+
+@pytest.mark.parametrize("k", [1025, 2048, 46340, 100000])
+def test_launch_chunks_never_give_an_empty_launch(k):
+    """Above MAX_ROWS a launch takes one image."""
+    for batch in (1, 3, 64):
+        assert launch_chunks(batch, k) == [(i, 1) for i in range(batch)]
+
+
+def _narrow_cases():
+    """The shapes whose plans the parent commit made (k <= 256; the narrow
+    tail where it fit)."""
+    for cell in ("factored", "lstm"):
+        for k in (1, 2, 5, 8, 9, 20, 64, 256):
+            for v in (516, 8192, 8800, 40000):
+                for n_img in sorted({1, 4, MAX_ROWS // k}):
+                    for max_seq in (0, 20, 40):
+                        for grid in (1, 8, 132):
+                            yield (cell, 300, 512, 512, v, k, n_img,
+                                   max_seq, grid)
+
+
+# sha256 of the parent commit's plans of _narrow_cases(): each plan's repr,
+# its ctypes struct's fields (arrays as lists) and launch_chunks(64, k)
+NARROW_PLANS = \
+    "062b6e1faf48b2e9b813a2e51776128264e9ef009b74314308228b1a5ae039ca"
+
+
+def test_every_plan_the_narrower_paths_made_is_unchanged():
+    """Every shape that planned before (k <= 256; the narrow tail where it
+    fit) keeps its plan field for field: the digest of the plans, their
+    ctypes structs (SEL_SCAN's offsets left out: 0 there) and the launch
+    split is the parent commit's."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for args in _narrow_cases():
+        plan = grid_plan(*args)
+        c = beam._c_plan(plan, 1, 2, True)
+        assert (c.o_cand, c.o_lists, c.o_tstate) == (0, 0, 0)
+        fields = [getattr(c, f) for f, _ in c._fields_
+                  if f not in ("o_cand", "o_lists", "o_tstate")]
+        h.update(repr(plan).encode())
+        h.update(repr([list(x) if hasattr(x, "__len__") else x
+                       for x in fields]).encode())
+        h.update(repr(launch_chunks(64, args[5])).encode())
+    assert h.hexdigest() == NARROW_PLANS
 
 
 def _params(vocab=128, e=16, h=32, seed=0):
@@ -257,8 +368,8 @@ def _params(vocab=128, e=16, h=32, seed=0):
 
 def test_the_wrapper_raises_before_the_cpu_route():
     params = _params()
-    # the plain route decodes any k up to V (the card takes up to K_WIDE =
-    # 256: tests/test_torch_cuda.py)
+    # every route decodes any k up to V (the card's:
+    # tests/test_torch_cuda.py)
     got, steps = mega_beam_decode_steps(params, None, 0, 2, k=9,
                                         max_seq_length=3)
     assert steps is None and got.tokens.shape == (2, 5)

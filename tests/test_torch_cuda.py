@@ -26,13 +26,13 @@ step and search), both cells: E % 4 != 0, F != H, P % 4 != 0, a ragged
 vocab, k below a full block, the h0/c0 kernel, and the serial path (K6 per
 step) bit-identical to K7; K7 as one search over the whole card at 1, 3, 8
 and 64 images and k = 1, 5 and 8, the same bits on a second run and on a
-3-block grid.  Every wrapper refuses k above the kernels' K_WIDE = 256 on
-a CUDA tensor (the CPU route takes any k), and takes every width the CPU
-route takes: V, F, H, A and FS of each residue mod 4 (the padded layout of
+3-block grid.  Every wrapper takes every beam width and top-k the CPU
+route takes (1 <= k <= V, refusing V + 1 with the CPU route's message),
+and every width the CPU route takes: V, F, H, A and FS of each residue mod 4 (the padded layout of
 ``ops/widths.py``) against the plain versions, K2 = K1 and K7 = K6 at atol
-0; the wide paths (k of 9 to 256:
-K1, K2, K6 and K7) against their plain versions and K2 = K1 fused-step,
-K7 = K6 at atol 0.  K5 (the attention training scan), both cells,
+0; the wide paths (k of 9 up to V: K1, K2, K6 and K7, above 256 with the
+survivors in device memory) against their plain versions and K2 = K1
+fused-step, K7 = K6 at atol 0.  K5 (the attention training scan), both cells,
 teacher-forced and sampled: E % 4 != 0, F != H, P = 9 and 196, T = 1, A
 and FS not multiples of 4, the
 same bits on a second run, and the attention train steps on the card
@@ -73,7 +73,8 @@ from icee_tpu_torch.ops import att_beam, att_decode_step, att_scan
 from icee_tpu_torch.core.config import AttentionDecoderConfig, TrainConfig
 from icee_tpu_torch.train import optim
 from icee_tpu_torch.train.steps import make_attention_steps
-from icee_tpu_torch.ops.beam import (max_grid, mega_beam_decode,
+from icee_tpu_torch.ops.beam import (launch_chunks, max_grid,
+                                     mega_beam_decode,
                                      mega_beam_decode_plain,
                                      mega_beam_decode_steps)
 from icee_tpu_torch.ops.decode_step import (decode_step_topk,
@@ -116,6 +117,8 @@ def _params(device, vocab, e, f, h, seed=0, zero_head=False, end_bias=None):
     (3, 260, 16, 32, 32, 1),      # one vocab column in the last tile
     (20, 520, 30, 48, 64, 20),    # the wide reduce (top-k above KMAX)
     (5, 520, 30, 48, 64, 64),     # the same on the column-split path
+    (20, 1000, 30, 48, 64, 300),  # survivors in device memory (above 256)
+    (3, 1000, 30, 48, 64, 1000),  # ... top-k = V, column-split
 ])
 def test_decode_step_kernel_matches_plain(device, rows, vocab, e, f, h, ktop):
     params = _params(device, vocab, e, f, h, seed=rows)
@@ -145,7 +148,8 @@ def test_decode_step_kernel_ties_go_to_the_lowest_ids(device):
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("rows,ktop", [(9, 20), (3, 256), (300, 256)])
+@pytest.mark.parametrize("rows,ktop", [(9, 20), (3, 256), (300, 256),
+                                       (3, 768), (40, 500)])
 def test_wide_top_k_ties_go_to_the_lowest_ids(device, rows, ktop):
     """The wide reduce's radix select on a zero head: every entry ties,
     the ids are 0..ktop-1 in order on both paths (column-split at 3 rows)."""
@@ -163,15 +167,16 @@ def test_wide_top_k_ties_go_to_the_lowest_ids(device, rows, ktop):
 
 @pytest.mark.parametrize("case", ["serving", "research", "early_end",
                                   "tied", "one_beam", "one_image", "wide",
-                                  "wide_tied"])
+                                  "wide_tied", "scan", "scan_tied"])
 def test_mega_kernel_matches_plain_and_fused_step(device, case):
     # one_image: the serial serving shape, K1's column-split path
     vocab, e, f, h = 516, 30, 40, 48
     k, batch, steps = {"one_beam": (1, 7, 9), "one_image": (4, 1, 9),
                        "wide": (20, 3, 9),
-                       "wide_tied": (64, 2, 5)}.get(case, (4, 5, 9))
+                       "wide_tied": (64, 2, 5), "scan": (300, 2, 4),
+                       "scan_tied": (516, 1, 3)}.get(case, (4, 5, 9))
     params = _params(device, vocab, e, f, h, seed=7,
-                     zero_head=case in ("tied", "wide_tied"),
+                     zero_head=case in ("tied", "wide_tied", "scan_tied"),
                      end_bias=50.0 if case == "early_end" else 1.0)
     feats = None
     if case != "research":
@@ -182,7 +187,7 @@ def test_mega_kernel_matches_plain_and_fused_step(device, case):
     got = mega_beam_decode(params, feats, 3, batch, k=k,
                            max_seq_length=steps)
     torch.cuda.synchronize()
-    assert mega_beam_decode.launches == before + 1
+    assert mega_beam_decode.launches == before + len(launch_chunks(batch, k))
     want = mega_beam_decode_plain(params, feats, 3, batch, k=k,
                                   max_seq_length=steps)
     torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
@@ -217,15 +222,28 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _params(device, 128, 16, 32, 32)
     with pytest.raises(ValueError, match="expected cpu"):
         decode_step_topk(params, x.cpu(), h, h, 0)
-    # above K_WIDE the CPU route decodes; the kernels refuse, naming it
+    # above K_WIDE the kernels decode as the CPU route does; both refuse
+    # k = V + 1 with the same message
     params = _params(device, 260, 16, 32, 32)
-    with pytest.raises(ValueError, match="K1 .*K_WIDE = 256"):
-        decode_step_topk(params, x, h, h, 0, ktop=257)
-    with pytest.raises(ValueError, match="K2 .*K_WIDE = 256"):
-        mega_beam_decode(params, None, 0, 2, k=257)
-    with pytest.raises(ValueError, match="K2 .*K_WIDE = 256"):
-        mega_beam_decode(_nic_params(device, 260, 16, 32), None, 0, 2,
-                         k=257, cell="lstm")
+    got = decode_step_topk(params, x, h, h, 0, ktop=257)
+    want = decode_step_topk_plain(params, x, h, h, 0, ktop=257)
+    assert torch.equal(got[1], want[1])
+    nic_params = _nic_params(device, 260, 16, 32)
+    for cell, p in (("factored", params), ("lstm", nic_params)):
+        got = mega_beam_decode(p, None, 0, 2, k=257, max_seq_length=2,
+                               cell=cell)
+        want = mega_beam_decode_plain(p, None, 0, 2, k=257,
+                                      max_seq_length=2, cell=cell)
+        assert torch.equal(got.length, want.length)
+        torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+        for dev in (device, torch.device("cpu")):
+            q = {n: (t.to(dev) if torch.is_tensor(t) else
+                     {m: u.to(dev) for m, u in t.items()})
+                 for n, t in p.items()}
+            with pytest.raises(ValueError, match=r"k=261 outside \[1, 260\]"):
+                mega_beam_decode(q, None, 0, 2, k=261, cell=cell)
+    with pytest.raises(ValueError, match=r"ktop=261 outside \[1, 260\]"):
+        decode_step_topk(params, x, h, h, 0, ktop=261)
 
 
 # --- widths that are not a multiple of 4 (the padded layout, ops/widths.py) --
@@ -1094,7 +1112,9 @@ def test_grid_att_search_matches_plain_and_keeps_its_bits(device, kind,
                                           ("lstm", 3, 20),
                                           ("factored", 1, 36),   # k = V
                                           ("lstm", 1, 64),
-                                          ("lstm", 2, 256)])
+                                          ("lstm", 2, 256),
+                                          ("lstm", 3, 300),   # 3 launches
+                                          ("lstm", 1, 516)])  # k = V
 def test_wide_grid_att_search_matches_plain_and_keeps_its_bits(device, kind,
                                                                n_img, k):
     """The same at beam widths above KMAX (the per-image stages in groups
@@ -1119,7 +1139,7 @@ def _grid_att_search(device, kind, n_img, k):
                                                    **kw)
     torch.cuda.synchronize()
     after = list(before)
-    after[3 if kind == "factored" else 4] += 1
+    after[3 if kind == "factored" else 4] += len(launch_chunks(n_img, k))
     assert _att_counts() == tuple(after)
     want = att_beam.mega_att_beam_decode_plain(params, feats, 1, n_img, **kw)
     torch.testing.assert_close(got.tokens, want.tokens, rtol=0, atol=0)
@@ -1165,9 +1185,16 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
         att_beam.mega_att_beam_decode(params,
                                       torch.rand((2, 300, 64), device=device),
                                       0, 2, k=4)
-    # above K_WIDE the CPU route decodes; the kernels refuse, naming it
-    with pytest.raises(ValueError, match="K7 .*K_WIDE = 256"):
-        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=257)
+    # above K_WIDE the kernels decode as the CPU route does; k = V + 1 is
+    # refused with the CPU route's message
+    got = att_beam.mega_att_beam_decode(params, feats, 0, 2, k=257,
+                                        max_seq_length=2)
+    want = att_beam.mega_att_beam_decode_plain(params, feats, 0, 2, k=257,
+                                               max_seq_length=2)
+    assert torch.equal(got.length, want.length)
+    torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match=r"k=517 outside \[1, 516\]"):
+        att_beam.mega_att_beam_decode(params, feats, 0, 2, k=517)
     most = att_beam.max_grid(device)
     assert most >= torch.cuda.get_device_properties(0).multi_processor_count
     for grid in (0, most + 1):
@@ -1182,14 +1209,19 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
         att_decode_step.att_decode_step_topk(
             cell, att, gate, x, h, h, feats, att1, k=4, ktop=4)
     x9 = torch.zeros((514, 30), device=device)
-    h9 = torch.zeros((514, 48), device=device)
-    with pytest.raises(ValueError, match="K6 .*K_WIDE = 256"):
-        att_decode_step.att_decode_step_topk(
-            cell, att, gate, x9, h9, h9, feats, att1, k=257, ktop=4)
-    with pytest.raises(ValueError, match="K6 .*K_WIDE = 256"):
+    h9 = torch.randn((514, 48), device=device)
+    for k, ktop, rows in ((257, 4, 514), (8, 257, 16)):
+        got = att_decode_step.att_decode_step_topk(
+            cell, att, gate, x9[:rows], h9[:rows], h9[:rows], feats, att1,
+            k=k, ktop=ktop)
+        want = att_decode_step.att_decode_step_topk_plain(
+            cell, att, gate, x9[:rows], h9[:rows], h9[:rows], feats, att1,
+            "factored", k, ktop)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match=r"ktop=517 outside \[1, 516\]"):
         att_decode_step.att_decode_step_topk(
             cell, att, gate, x9[:16], h9[:16], h9[:16], feats, att1, k=8,
-            ktop=257)
+            ktop=517)
 
 
 # --- K5: the attention training scan (att_scan.cu) --------------------------
@@ -1697,13 +1729,16 @@ def test_senticap_scan_kernels_match_plain(device, b, t, e, h, gclip):
 
 
 @pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated",
-                                  "beam1"])
+                                  "beam1", "wide", "wide_rows", "wide_tied"])
 def test_senticap_beam_kernel_matches_plain(device, case):
     """K9 against its plain search: a ragged vocabulary over several
     images, one image at beam 20, an all-tied zero head (every step picks
     tokens 0, 1, 2, ... in index order, so the best sequence is all 0s
     when STOP is another token), a saturated tail (nll plateau at
-    -log2(1e-37), ranked by index) and beam 1 (greedy)."""
+    -log2(1e-37), ranked by index) and beam 1 (greedy).  Past one block:
+    beam 170 (the selection from device memory), 300 (the row pass too)
+    and a tied head at beam 300; there a token mismatch must tie the plain
+    winner's score within 1e-4."""
     from icee_tpu_torch.ops import senticap_decode as sd
 
     vocab, beam, batch, max_len, stop = 515, 5, 6, 7, 0
@@ -1714,6 +1749,13 @@ def test_senticap_beam_kernel_matches_plain(device, case):
         beam = 1
     elif case == "tied":
         vocab, stop, kw = 64, 63, dict(zero_head=True)
+    elif case == "wide":
+        beam, batch, max_len = 170, 2, 4
+    elif case == "wide_rows":
+        beam, batch, max_len = 300, 1, 4
+    elif case == "wide_tied":
+        vocab, beam, batch, max_len, stop = 400, 300, 1, 4, 399
+        kw = dict(zero_head=True)
     params = _senticap_params(device, vocab, 16, 16, **kw)
     if case == "saturated":
         params["b"].fill_(-200.0)
@@ -1727,12 +1769,20 @@ def test_senticap_beam_kernel_matches_plain(device, case):
     assert sd.mega_senticap_beam_decode.launches == before + 1
     want = sd.mega_senticap_beam_decode_plain(params, v, batch, beam, max_len,
                                               stop)
-    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
-    for i in range(batch):
-        n = int(want[2][i])
-        assert got[1][i, :n].tolist() == want[1][i, :n].tolist(), i
+    if case in ("wide", "wide_rows"):
+        plan = sd.launch_plan("K", batch, beam, 16, 16, vocab, max_len)
+        assert plan.select_wide and plan.topk_wide == (case == "wide_rows")
+        for i in range(batch):
+            n = int(want[2][i])
+            if got[1][i, :n].tolist() != want[1][i, :n].tolist():
+                assert abs(float(got[0][i]) - float(want[0][i])) <= 1e-4, i
+    else:
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        for i in range(batch):
+            n = int(want[2][i])
+            assert got[1][i, :n].tolist() == want[1][i, :n].tolist(), i
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
-    if case == "tied":
+    if case in ("tied", "wide_tied"):
         assert got[1].tolist() == [[0] * (max_len + 1)] * batch
     if case == "ragged":
         assert len(set(got[2].tolist())) > 1
@@ -1897,10 +1947,15 @@ def _selection_rows(vocab):
 
 @pytest.mark.parametrize("vocab,k", [(40, 1), (40, 5), (40, 40), (300, 20),
                                      (8800, 1), (8800, 20), (8800, 164),
-                                     (257, 256)])
+                                     (257, 256),
+                                     # from device memory (the radix select)
+                                     (300, 257), (8800, 257), (8800, 1024),
+                                     (1024, 1024), (32768, 20),
+                                     (32768, 300)])
 def test_row_selection_kernel_matches_its_emulation(device, vocab, k):
     """The row selection K9 and K10 run (one block a row: the threads'
-    minima, the threshold, the survivors, their order), alone, against
+    minima, the threshold, the survivors, their order; where the row does
+    not fit a block, the radix select from device memory), alone, against
     its plain emulation and a stable sort: the same tokens and nll bits."""
     from icee_tpu_torch.ops import senticap_decode as sd
 
@@ -1939,22 +1994,30 @@ def test_senticap_wrappers_raise_on_what_the_kernels_do_not_take(device):
 
 def test_senticap_searches_refuse_a_beam_above_the_row_pass(device):
     """A beam above the row top-k's 256 threads, or one whose selection
-    block would need more shared memory than a block has, raises on the
-    card before any launch (the CPU route takes it)."""
+    block would need more shared memory than a block has, runs on the card
+    from device memory, as the CPU route takes it (best scores within
+    1e-4); only a beam above V is refused, with the CPU route's message."""
     from icee_tpu_torch.ops import senticap_decode as sd
     from icee_tpu_torch.ops import senticap_switched_decode as ssd
 
     params = _senticap_params(device, 400, 16, 16)
-    v = torch.zeros((1, 24), device=device)
-    before = sd.mega_senticap_beam_decode.launches
-    with pytest.raises(ValueError, match="row top-k"):
-        sd.mega_senticap_beam_decode(params, v, 1, beam_size=300)
-    with pytest.raises(ValueError, match="shared memory"):
-        sd.mega_senticap_beam_decode(params, v, 1, beam_size=200)
-    assert sd.mega_senticap_beam_decode.launches == before
     sw = _switched_params(device, 400, 16, 16)
-    with pytest.raises(ValueError, match="row top-k"):
-        ssd.mega_senticap_switched_decode(sw, v, 1, beam_size=300)
+    v = torch.randn((1, 24), device=device)
+    for beam in (300, 200):
+        before = sd.mega_senticap_beam_decode.launches
+        got = sd.mega_senticap_beam_decode(params, v, 1, beam_size=beam,
+                                           max_len=3)
+        assert sd.mega_senticap_beam_decode.launches == before + 1
+        want = sd.mega_senticap_beam_decode_plain(params, v, 1, beam, 3)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        got = ssd.mega_senticap_switched_decode(sw, v, 1, beam_size=beam,
+                                                max_len=3)
+        want = ssd.mega_senticap_switched_decode_plain(sw, v, 1, beam, 3)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    for dev in (device, torch.device("cpu")):
+        p = {n: t.to(dev) for n, t in params.items()}
+        with pytest.raises(ValueError, match=r"beam_size 401 outside"):
+            sd.mega_senticap_beam_decode(p, v.to(dev), 1, beam_size=401)
 
 
 def _switched_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
@@ -1974,7 +2037,7 @@ def _switched_params(device, vocab, e, h, seed=0, vis=24, stop_bias=2.0,
 
 
 @pytest.mark.parametrize("case", ["ragged", "one_image", "tied", "saturated",
-                                  "beam1"])
+                                  "beam1", "wide", "wide_rows", "wide_tied"])
 def test_senticap_switched_beam_kernel_matches_plain(device, case):
     """K10 against its plain search, margin-aware: a ragged vocabulary and
     E != H over several images, one image at beam 20, all-tied zero heads
@@ -1993,6 +2056,13 @@ def test_senticap_switched_beam_kernel_matches_plain(device, case):
         beam = 1
     elif case == "tied":
         vocab, stop, e, kw = 64, 63, 16, dict(zero_head=True)
+    elif case == "wide":
+        beam, batch, max_len = 170, 2, 4
+    elif case == "wide_rows":
+        beam, batch, max_len = 300, 1, 4
+    elif case == "wide_tied":
+        vocab, beam, batch, max_len, stop, e = 400, 300, 1, 4, 399, 16
+        kw = dict(zero_head=True)
     params = _switched_params(device, vocab, e, 16, **kw)
     if case == "saturated":
         for k in ("b", "b_sw"):
@@ -2017,7 +2087,7 @@ def test_senticap_switched_beam_kernel_matches_plain(device, case):
             assert not got[3][i, n:].any()
         else:
             assert abs(float(got[0][i]) - float(want[0][i])) <= 1e-4, i
-    if case == "tied":
+    if case in ("tied", "wide_tied"):
         assert got[1].tolist() == [[0] * (max_len + 1)] * batch
     if case == "ragged":
         assert len(set(got[2].tolist())) > 1

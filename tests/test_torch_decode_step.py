@@ -108,6 +108,25 @@ def test_wide_top_k_on_tied_rows_matches_the_jax_kernel(ktop):
     np.testing.assert_allclose(got_c, want_c, **TOL)
 
 
+@pytest.mark.parametrize("ktop", [300, 512])
+def test_top_k_past_one_block_matches_the_jax_reference(ktop):
+    """Top-ks the CUDA kernel selects with its survivors in device memory
+    (above 256, up to V = 512): the CPU route's ids equal JAX's XLA
+    ``reference_step_topk`` on rows whose logits tie in pairs (the lower id
+    first), values within 1e-5."""
+    jp, x, h, c = _setup(512, seed=9, rows=6)
+    jp = _tie_pairs(jp)
+    got_v, got_i, got_h, got_c = _port(jp, x, h, c, 1, ktop=ktop)
+    want_v, want_i, want_h, want_c = map(np.asarray, reference_step_topk(
+        jp, x, h, c, jnp.asarray(1), ktop=ktop))
+    assert got_i.shape == (6, ktop)
+    assert (got_i[:, 1::2] == got_i[:, 0::2] + 1).all()
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_h, want_h, **TOL)
+    np.testing.assert_allclose(got_c, want_c, **TOL)
+
+
 def test_all_tied_logits_pick_lowest_ids():
     """Zero head: every vocab entry ties; ids must be 0..k-1 like lax.top_k
     (as tests/test_pallas.py::test_fused_step_tie_breaking)."""
@@ -138,8 +157,8 @@ def test_wrapper_rejects_bad_inputs():
         decode_step_topk(tp, xt, ht, ct, 4)      # no such style
     with pytest.raises(ValueError):
         decode_step_topk(tp, xt, ht, ct, 0, ktop=0)
-    # the plain route decodes any ktop up to V (the card takes up to K_WIDE
-    # = 256: tests/test_torch_cuda.py)
+    # every route decodes any ktop up to V (the card's above 256:
+    # tests/test_torch_cuda.py)
     vals, idx, _, _ = decode_step_topk(tp, xt, ht, ct, 0, ktop=9)
     assert vals.shape == idx.shape == (4, 9)
     bad = dict(tp, C_w=tp["C_w"].t().contiguous().t())  # not contiguous

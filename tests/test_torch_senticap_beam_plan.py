@@ -13,9 +13,14 @@ searches, ``csrc/senticap_beam.cuh``, their products in
   where the kernel's fragment loads read them, hi + lo within 2^-22 of
   each weight through ``ops/att_scan.py::tf32_split``; and the planes'
   product against ``att_scan.tf32x3_product_plain`` bit for bit;
+- the device-memory path's selection (``decode_step.block_select_plain``,
+  ``csrc/wide_topk.cuh``'s radix select step by step) against a stable
+  sort on planted ties and the plateau, at k = 257, 1024 and V;
 - the launch plan at 1, 8 and 64 images x beam 1, 5, 20 x max_len 0, 5, 20
   for both models: the planes' and the row passes' sizes, the tile width
-  choice, the refusals; the ctypes mirror of the source's ``SbPlan``, the
+  choice, the refusals; past one block (beam 165, 257, 1024; V = 32,768
+  and 60,000) the device-memory passes and their scratch; every plan made
+  before unchanged; the ctypes mirror of the source's ``SbPlan``, the
   geometry constants and the C entry points' argument counts, held against
   the CUDA sources' text.
 
@@ -245,10 +250,10 @@ def test_plan_cuts_the_cells_k_at_the_decode_shape():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(beam=0), "outside"), (dict(beam=9000), "outside"),
-    (dict(beam=257, vocab=20000), "row top-k"),
+    (dict(beam=8801), r"beam_size 8801 outside \[1, 8800\]"),
     (dict(max_len=-1), "max_len"), (dict(n_img=0), "images"),
-    (dict(beam=170), "shared memory"),             # the selection's block
-    (dict(vocab=60000, paths=2), "shared memory"),  # the row pass's rows
+    (dict(beam=20001, vocab=20000, paths=2), "outside"),
+    (dict(beam=sd.MAX_BEAM + 1, vocab=50000), "by an int"),
 ])
 def test_plan_refuses_what_the_kernels_do_not_take(kwargs, match):
     args = dict(n_img=4, beam=20, e=512, h=512, vocab=8800, max_len=20,
@@ -258,6 +263,100 @@ def test_plan_refuses_what_the_kernels_do_not_take(kwargs, match):
         sd.launch_plan("K", args["n_img"], args["beam"], args["e"],
                        args["h"], args["vocab"], args["max_len"],
                        args["paths"])
+
+
+@pytest.mark.parametrize("beam,vocab,paths,topk,select", [
+    (165, 8800, 1, 0, 1), (257, 8800, 1, 1, 1), (1024, 8800, 2, 1, 1),
+    (170, 8800, 1, 0, 1), (160, 8800, 2, 0, 1), (257, 20000, 1, 1, 1),
+    (20, 32768, 1, 0, 0), (20, 32768, 2, 1, 0), (20, 60000, 1, 1, 0),
+    (20, 60000, 2, 1, 0), (1, 65536, 2, 1, 0)])
+def test_plan_takes_beams_and_vocabularies_past_one_block(beam, vocab, paths,
+                                                          topk, select):
+    """What the plan refused before it plans now: a row pass from device
+    memory where the row does not fit a block (beam above its 256 threads,
+    or V past its shared memory: K10 at V > ~28,800), a selection from
+    device memory where beam^2 candidates do not (beam above ~160), with
+    the scratch the source derives (``sb_wide_floats``)."""
+    n_img, max_len = 8, 20
+    plan = sd.launch_plan("K", n_img, beam, 512, 512, vocab, max_len, paths)
+    assert (plan.topk_wide, plan.select_wide) == (topk, select)
+    assert plan.topk_wide == (beam > sd.TOPK_THREADS
+                              or plan.topk_smem > cuda_lib.SMEM_LIMIT)
+    assert plan.select_wide == (plan.select_smem > cuda_lib.SMEM_LIMIT)
+    rows, seq = n_img * beam, max_len + 1
+    per_img = ((2 * beam if beam > 256 else 0) + 2 * beam * beam
+               + beam * seq * paths + 3 * beam)
+    per_img += per_img & 1
+    assert plan.wide_floats == (
+        (2 * rows * beam if topk and beam > 256 else 0)
+        + (n_img * per_img if select else 0))
+    c = plan.c_struct()
+    assert [getattr(c, f) for f, _ in sd._CPlan._fields_] == [
+        getattr(plan, f) for f, _ in sd._CPlan._fields_]
+
+
+def _narrow_cases():
+    """The shapes whose plans the parent commit made."""
+    for paths in (1, 2):
+        for n_img in (1, 8, 64):
+            for b in (1, 5, 20, 100, 159):
+                for v in (300, 8800, 20000):
+                    for ml in (0, 20):
+                        yield (n_img, b, 512, 512, v, ml, paths)
+
+
+OLD_FIELDS = ("cell_planes", "head_planes", "topk_smem", "select_smem",
+              "cell_splits", "cell_kp", "head_kp", "topk_cap", "paths")
+# sha256 of the parent commit's plans of _narrow_cases() (OLD_FIELDS)
+NARROW_PLANS = \
+    "9c9bd47aba5e2aad5ad40b3f4f45c1a08db1d3ee069e38a800e9263f50409328"
+
+
+def test_every_plan_made_before_is_unchanged():
+    """Every shape that planned before keeps its plan field for field,
+    and runs the shared-memory passes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for args in _narrow_cases():
+        plan = sd.launch_plan("K", *args)
+        assert (plan.topk_wide, plan.select_wide, plan.wide_floats) == (
+            0, 0, 0)
+        h.update(repr([getattr(plan, f) for f in OLD_FIELDS]).encode())
+    assert h.hexdigest() == NARROW_PLANS
+
+
+def _plateau_rows(vocab):
+    """nll rows of V tokens: random values with planted ties (each value
+    on a few tokens), most tokens on the plateau, -0 beside +0."""
+    rng = np.random.default_rng(vocab)
+    ties = rng.integers(0, vocab // 8 + 1, vocab).astype(np.float64)
+    plateau = np.full(vocab, PLATEAU)
+    plateau[rng.choice(vocab, vocab // 10, replace=False)] = \
+        rng.uniform(1.0, 30.0, vocab // 10)
+    signed = rng.uniform(1.0, 30.0, vocab)
+    signed[[3, vocab // 2]] = [-0.0, 0.0]
+    return torch.tensor(np.stack([ties, plateau, signed]),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("vocab,k", [(300, 257), (1024, 257), (1500, 1024),
+                                     (300, 300), (1024, 1024)])
+def test_the_device_memory_selection_is_a_stable_sorts_first_k(vocab, k):
+    """The device-memory path's selection (the radix select of
+    ``csrc/wide_topk.cuh``, step by step) on planted ties, the plateau and
+    -0: the same tokens and nll bits as a stable sort, ties to the lowest
+    token, at k = 257, 1024 and k = V; ``row_topk_plain`` takes it above
+    the threshold path's 256 threads."""
+    nll = _plateau_rows(vocab)
+    from icee_tpu_torch.ops.decode_step import block_select_plain
+
+    want_nll, want_tok = _stable(nll, k)
+    tok = block_select_plain(sd._keys(nll), k)
+    assert torch.equal(tok.to(torch.int32), want_tok)
+    got_nll, got_tok = sd.row_topk_plain(nll, k)
+    assert torch.equal(got_tok, want_tok)
+    assert torch.equal(got_nll, want_nll)
 
 
 def test_the_cpu_route_takes_the_plain_search_beyond_the_plan():

@@ -121,6 +121,20 @@ def test_plain_matches_jax_kernel_and_device_beam(vocab, beam, batch,
         assert len(set(np.asarray(got[2]).tolist())) > 1
 
 
+def test_beam_past_one_block_matches_jax_device_beam():
+    """A beam the CUDA kernel runs from device memory (300 > the row
+    pass's 256 threads, beam^2 candidates past a block; V = 400): the
+    CPU route answers as JAX's ``make_device_beam(with_attention=True)``,
+    the gate trace within 1e-6."""
+    params = _params(22, 400, 3.0)
+    v = np.random.default_rng(122).standard_normal((2, VIS)).astype(
+        np.float32)
+    got = ssd.mega_senticap_switched_decode(
+        bridge.to_torch(params), torch.tensor(v), 2, beam_size=300,
+        max_len=3)
+    _assert_same(got, _jax_device_beam(params, v, 300, 3), 2)
+
+
 def test_plain_matches_jax_on_saturated_tail_ties():
     """Peaked heads drive most tokens' mixed probability below ~1e-38,
     where nll plateaus at -log2(1e-37) and ties break by token INDEX."""
