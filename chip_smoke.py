@@ -183,7 +183,7 @@ Phases, in order; any failure exits non-zero:
    files (every one of V words at least once) and 512 synthetic JPEGs, at
    flagship width (first whether the C++ batcher and JPEG decoder build
    there): ``build_vocab`` (V = 8192), ``precompute_features``
-   (ResNet-152 at 224, batch 32), ``train`` (multitask StyleNet, 2 epochs,
+   (ResNet-152 at 224, batch 32), ``train`` (multitask StyleNet, an epoch,
    ratio 1.0 set through the stage wrapper), ``train_resident`` (the
    same with ``--device_resident --progress_chunk 4``: its checkpoint
    bit-equal to ``train``'s), ``evaluate`` in both
@@ -213,7 +213,7 @@ Phases, in order; any failure exits non-zero:
    calls counted by line; (b) the pinned epoch with a progress record
    every 64 batches, killed after the 3rd record and resumed by a fresh
    trainer: equal to (a)'s at atol 0, each record's write timed; (c)
-   StyleNet+Att at ratio 0.8 over 1,000 spatial features (1.6 GB) x 5
+   StyleNet+Att at ratio 0.8 over 500 spatial features (0.8 GB) x 5
    captions at B = 128, streamed through a 0.5 GB budget and pinned:
    equal at atol 0, K5 launches exact; (d) bfloat16 storage against
    float32 storage of the rounded features, at atol 0; (e) one
@@ -324,18 +324,38 @@ Phases, in order; any failure exits non-zero:
    ``decode_split`` (switched at V = 32,768, beam 20; base at beam 257),
    every count from 0 just before and read just after and exact, no plain
    version, fused-step = whole search at atol 0;
-27. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+27. the step and attention kernels at every width: (a) K1 and K6 (both
+   kinds) at H = F = 1024 and 2048 (4 and 2 rows a row-tiled cell block)
+   over 64 images x 5 rows and one image x 20 as phases 4 and 5b hold
+   them, timed at 64 images; at H = F = 1024, K2 (factored) = K1
+   fused-step and K7 (both kinds) = K6 at atol 0 over 8 images at k = 5
+   and 20, and the engine's fused-step path (8 requests one by one, then
+   one batch of 8) = its whole searches for StyleNet, StyleNet+Att and
+   NIC+Att, launches exact; (b) K5 (both cells and modes, forward and
+   backward) at B = 128, (T, A) = (42, 2048) and (62, 1024), where the
+   d_att1 pass splits A, as phase 10 holds it, the factored sampled scan
+   timed; (c) K7 (both kinds) at P = 289, 400, 1024 (one image and 64 at
+   k = 5, 8 at k = 20), 2304 (the softmax rows in device memory) and at A
+   = 4096 (att2 from L2), margin-aware and = K6 at atol 0, the h0/c0
+   launch at P = 400, and the attention decoders' main path at P = 400
+   through ``decode/fast.py``, launches exact; (d) beside (a)-(c),
+   ``precompute_features --spatial --grid 20`` over 64 JPEGs, ``train
+   --attention --attention_size 2048`` (one epoch, ratio 0.8),
+   ``evaluate --attention`` and ``caption_batch --attention`` as
+   processes, launches exact, no plain version;
+   then the seconds of every phase, on a line of their own;
+28. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
-   ``trainer``, ``resident``, ``seq2seq`` and ``wide_h`` (phase 24)
-   entries), one
+   ``trainer``, ``resident``, ``seq2seq``, ``wide_h`` (phase 24) and
+   ``wide_width`` (phase 27) entries), one
    ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
    entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
    "senticap_switched": {...}}}`` line, one ``{"split_timeline": {...}}``
    line (phases 4 and 5b), one ``{"parallel": {...}}`` line (phase 23)
    one ``{"widths": {...}}`` line (phase 25), one
-   ``{"past_block_times": {...}}`` line (phase 26) and one
-   ``{"kernels": [...]}`` line
+   ``{"past_block_times": {...}}`` line (phase 26), one ``{"phase_s":
+   {...}}`` line and one ``{"kernels": [...]}`` line
    (K1, K2 factored and lstm, K6 factored and lstm, the h0/c0 kernel, K7
    factored and lstm, K3 and K4 forward and backward, CE forward and
    backward, K5 forward and backward for both cells and both modes, K8
@@ -345,8 +365,11 @@ Phases, in order; any failure exits non-zero:
    resident plan, forward and backward: their launches phase 24's; K1,
    K2 and K7 with their phase 25 (c) times at V = 8191; K1, K2, K6, K7
    (both cells or kinds), K9 and K10 past one block: their launches
-   phase 26 (e)'s);
-28. print ``{"ok": true, "device": {...}}`` as the last line.
+   phase 26 (e)'s; K1 and K6 (both kinds) at H = F past 8 rows a cell
+   block, K5 factored sampled past the d_att1 plane and K7 (both kinds)
+   past 256 positions: their launches phase 27's engine, (c)'s main path
+   and (d)'s processes);
+29. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -472,7 +495,9 @@ def captioning_params(device):
 def decoder_params(device, vocab: int = V):
     """``captioning_params`` without the backbone: the four variants'
     decoders (and the global ones' encoder heads) at this module's
-    widths, over ``vocab`` words."""
+    widths, over ``vocab`` words.  The heads are sharpened 30x at H = 512
+    and by 30 sqrt(512 / H) at other widths, so that the logits keep the
+    flagship's spread (a sum over H terms grows as sqrt(H))."""
     import torch
 
     from icee_tpu_torch.core.config import (AttentionDecoderConfig,
@@ -480,6 +505,7 @@ def decoder_params(device, vocab: int = V):
     from icee_tpu_torch.models import attention, encoder, factored_lstm, lstm
 
     out = {}
+    sharpen = 30.0 * math.sqrt(512 / H)
     for variant, init, head_w, seed in (
             ("stylenet", factored_lstm.init_params, "C", 1),
             ("nic", lstm.init_params, "linear", 3)):
@@ -489,7 +515,7 @@ def decoder_params(device, vocab: int = V):
                    device=device)
         w, b = (("C_w", "C_b") if head_w == "C"
                 else ("linear_w", "linear_b"))
-        dec[w].mul_(30.0)
+        dec[w].mul_(sharpen)
         dec[b][2] = 2.0
         if variant == "nic":
             dec["cell"]["W_ih"].mul_(4.0)
@@ -509,7 +535,7 @@ def decoder_params(device, vocab: int = V):
                    device=device)
         w, b = (("C_w", "C_b") if head_w == "C"
                 else ("linear_w", "linear_b"))
-        dec[w].mul_(30.0)
+        dec[w].mul_(sharpen)
         dec[b][2] = 7.5
         dec["init_h_w"].mul_(6.0)
         dec["init_c_w"].mul_(6.0)
@@ -5740,7 +5766,7 @@ CLI_VAL_IMAGES, CLI_EMO_IMAGES, CLI_EMO_VAL_IMAGES = 60, 190, 20
 # the augmenting train stage's corpus: the backbone runs once a caption
 CLI_AUG_IMAGES, CLI_AUG_EMO_IMAGES = 40, 20
 CLI_BATCH = 64             # train / evaluate / caption_batch batches (the default)
-CLI_EPOCHS = 2
+CLI_EPOCHS = 1
 CLI_PROGRESS = 4           # train_resident: a progress record every 4 batches
 CLI_TIMEOUT_S = 600
 CLI_STYLE = "sad"          # the seeded checkpoint's mode
@@ -6153,9 +6179,10 @@ def cli_phase(device, keep: str = None):
     6's seeded weights made anew: the backbone for every image stage, the
     StyleNet decoder and head for the decode stages.  ``keep``: a
     directory that receives the vocabulary, the feature caches, the caption
-    files (phase 22 trains seq2seq on them), the ``train`` stage's log and
-    checkpoint and the ``evaluate`` stages' outputs (phase 23 holds its
-    multi-rank runs to them)."""
+    files (phase 22 trains seq2seq on them), the seeded backbone (phase 27
+    encodes its grids with it), the ``train`` stage's log and checkpoint
+    and the ``evaluate`` stages' outputs (phase 23 holds its multi-rank
+    runs to them)."""
     import numpy as np
     import torch
 
@@ -6258,7 +6285,7 @@ def cli_phase(device, keep: str = None):
         names = sorted(feats)
         if len(names) != CLI_IMAGES:
             fail(f"phase 19 precompute_features: {len(names)} features")
-        # 3/6 (i) two epochs of the multitask regime on the feature cache
+        # 3/6 (i) an epoch of the multitask regime on the feature cache
         # at ratio 1.0, so that every step takes the teacher-forced path
         # (K3)
         n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
@@ -6485,7 +6512,7 @@ def cli_phase(device, keep: str = None):
 
             for path in (vocab_path, cache, files["train"], files["val"],
                          files["happy"], files["val_happy"], spatial,
-                         os.path.join(root, "chip.log"),
+                         backbone, os.path.join(root, "chip.log"),
                          os.path.join(root, "chip.jsonl")):
                 shutil.copy(path, keep)
             shutil.copytree(seeded, os.path.join(keep, "seeded_checkpoint"))
@@ -6610,12 +6637,12 @@ def serve_stage(device, root: str, vocab_path: str, backbone: str,
 RES_IMAGES, RES_EMO, RES_VAL = 6000, 1500, 500
 RES_PROGRESS = 64          # (b): a record every 64 batches: 8 in the pass
 RES_KILL_AFTER = 3         # (b): the hook raises after this record
-RES_ATT_IMAGES = 1000      # (c): 196 x 2048 float32 features, 1.6 GB
+RES_ATT_IMAGES = 500       # (c): 196 x 2048 float32 features, 0.8 GB
 RES_ATT_BUDGET_GB = 0.5    # (c): below the split's features: it streams
 RES_BF16_BATCHES = 10      # (d)
 RES_BIG_B = (512, 1024)    # (e): one attention step at each
 RES_SC_BATCHES = 10        # (f)
-RES_BUSY_BATCHES = 40      # the busy share's pass of each tier
+RES_BUSY_BATCHES = 20      # the busy share's pass of each tier
 
 
 @contextlib.contextmanager
@@ -7723,7 +7750,7 @@ def senticap_variants(device) -> dict:
 
 
 PAR_RANKS = 2              # phase 23: ranks, two on one card (gloo)
-PAR_TIMED_STEPS = 20       # (e) timed steps a rank and mesh
+PAR_TIMED_STEPS = 8        # (e) timed steps a rank and mesh
 PAR_LOSS_RTOL = 1e-5       # (a) the epochs' losses against phase 19's
 PAR_GRAD_TOL = 1e-5        # (c) each grad within this x its largest |g|
 
@@ -9493,12 +9520,627 @@ def past_block_phase(device) -> tuple:
     return entries, times
 
 
+# --- phase 27: the step and attention kernels at every width ----------------
+#
+# K1 and K6 (both kinds) where a row-tiled cell block no longer holds 8 rows
+# (4 at H = F = 1024, 2 at 2048); K5 (both cells and modes) where the d_att1
+# pass splits A into column blocks; K7 (both kinds) past 256 positions (the
+# softmax rows at their own stride, past 1,784 positions in device memory)
+# and past A = 3,840 (att2 from L2), the h0/c0 launch at P = 400; then the
+# path a user takes there as processes: spatial features at --grid 20,
+# train --attention at A = 2048, evaluate and caption_batch.
+
+WW_HS = (1024, 2048)           # (a): K1, K6 at H = F (E = 300, FS = 2048)
+WW_STEP_SHAPES = ((B_IMAGES, K), (1, 20))   # (a): images, k (= top-k)
+WW_FUSED_H = 1024              # (a): K2 = K1, K7 = K6 at atol 0; the engine
+WW_FUSED_IMAGES, WW_FUSED_KS = 8, (5, 20)
+WW_REQUESTS = 8                # (a): the engine's requests
+WW_K5 = ((42, 2048), (62, 1024))   # (b): K5's (T, A) at B_ATT
+WW_PS = (289, 400, 1024)       # (c): K7's positions (grids 17, 20, 32)
+WW_P_SHAPES = ((1, K), (B_IMAGES, K), (8, 20))   # (c): images, k
+WW_P_TIMED = (400, 1024)       # (c): timed at B_IMAGES images
+WW_P_DEVICE = 2304             # (c): alpha in device memory, one image
+WW_WIDE_A = 4096               # (c): att2 from L2, one image
+WW_INIT_P = 400                # (c): the h0/c0 launch, 1 and B_IMAGES images
+WW_GRID = 20                   # (d): precompute_features --grid (P = 400)
+WW_CLI_IMAGES, WW_CLI_VAL, WW_CLI_EMO = 64, 16, 32   # (d): images
+WW_CLI_A = 2048                # (d): train --attention_size
+
+
+def ww_steps(device) -> dict:
+    """Phase 27 (a): K1 and K6 (both kinds) against their plain versions as
+    phases 4 and 5b hold them (``check_k1``, ``check_k6``: ids exact but in
+    a near tie, values 1e-4, alpha 1e-5, one launch each on the row-tiled
+    path) at H = F in WW_HS over 64 images x 5 rows and one image x 20,
+    the first timed.  -> {"k1" | kind: {"max_abs_err", "near_tie_swaps",
+    "shapes"}}."""
+    import torch
+
+    from icee_tpu_torch.ops.decode_step import cell_rows
+
+    out = {n: {"max_abs_err": 0.0, "near_tie_swaps": 0, "shapes": {}}
+           for n in ("k1", "factored", "lstm")}
+
+    def note(name, err, ties):
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        out[name]["near_tie_swaps"] += ties
+
+    for hw in WW_HS:
+        with widths(H=hw, F=hw):
+            decs = decoder_params(device)
+            sty = decs["stylenet"]["decoder"]
+            for n_img, k in WW_STEP_SHAPES:
+                rows, timed = n_img * k, n_img == B_IMAGES
+                tag = f"h{hw}_rows{rows}"
+                inputs, err, ties = check_k1(sty, device, rows, 270 + hw % 7,
+                                             ktop=k)
+                note("k1", err, ties)
+                if timed:
+                    out["k1"]["shapes"][tag] = dict(
+                        k1_times(sty, inputs, k, 5, 1), H=hw, F=hw,
+                        rows=rows, cell_rows=cell_rows(E, hw, hw))
+                del inputs
+                for kind, variant in ATT_KINDS.items():
+                    dec = decs[variant]["decoder"]
+                    args, err, ties = check_k6(dec, kind, device, n_img,
+                                               275 + hw % 7, k=k)
+                    note(kind, err, ties)
+                    if timed:
+                        out[kind]["shapes"][tag] = dict(
+                            k6_times(kind, args, 5, 2, 1), H=hw, F=hw,
+                            rows=rows, cell_rows=cell_rows(E + FS, hw, hw))
+                    del args
+            del decs, sty
+            torch.cuda.empty_cache()
+    return out
+
+
+def ww_fused(device) -> dict:
+    """Phase 27 (a): at H = F = WW_FUSED_H, K2 (factored) against its plain
+    search and the fused-step path (K1 per step, row-tiled at 4 rows a
+    block) at atol 0, K7 (both kinds) likewise against K6
+    (``check_k2_shape``, ``check_k7_shape``), over WW_FUSED_IMAGES images
+    at each k of WW_FUSED_KS.  -> {name: errors}."""
+    import torch
+
+    out = {}
+    with widths(H=WW_FUSED_H, F=WW_FUSED_H):
+        decs = decoder_params(device)
+        for k in WW_FUSED_KS:
+            kw = dict(k=k, fused=True, timed=False)
+            for name, r in (
+                    ("k2", check_k2_shape(decs["stylenet"]["decoder"],
+                                          device, "factored",
+                                          WW_FUSED_IMAGES, **kw)),
+                    *((f"k7_{kind}", check_k7_shape(
+                        decs[variant]["decoder"], kind, device,
+                        WW_FUSED_IMAGES, **kw))
+                      for kind, variant in ATT_KINDS.items())):
+                o = out.setdefault(name, {"max_abs_err": 0.0,
+                                          "near_tie_flips": 0})
+                o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+                o["near_tie_flips"] += r["near_tie_flips"]
+        del decs
+        torch.cuda.empty_cache()
+    log(f"phase 27 (a): at H = F = {WW_FUSED_H}, {WW_FUSED_IMAGES} images, "
+        f"k = {WW_FUSED_KS}: K2 = K1 fused-step and K7 = K6 at atol 0; "
+        + json.dumps(out))
+    return out
+
+
+def ww_engine(device, root: str) -> dict:
+    """Phase 27 (a): ``CaptionEngine`` with phase 6's seeded variants at H
+    = F = WW_FUSED_H: WW_REQUESTS requests one by one through
+    ``caption(path="fused-step")`` (K1 and K6 on the column-split path,
+    the h0/c0 launch, NIC's K2) and ``caption(path="mega")`` (K2, K7),
+    then the same images as one batch through ``decode`` on both paths (K1
+    and K6 row-tiled, 4 rows a cell block); the fused-step captions those
+    of the whole searches.  Every count from 0 just before and read just
+    after, exact: K1 and K6 once a step the searches ran (``*_steps``), no
+    plain version.  -> the counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from icee_tpu_torch.core.config import mode_id
+    from icee_tpu_torch.decode.beam import BeamResult
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode_steps
+    from icee_tpu_torch.ops.beam import mega_beam_decode_steps
+    from icee_tpu_torch.serve.config import ServeConfig
+    from icee_tpu_torch.serve.engine import BEAM_K, CaptionEngine
+
+    rng = np.random.default_rng(27)
+    paths = []
+    for i in range(WW_REQUESTS):
+        small = rng.integers(0, 255, (8, 8, 3), dtype=np.uint8)
+        p = os.path.join(root, f"photo{i}.jpg")
+        Image.fromarray(small).resize((256, 256), Image.BILINEAR).save(
+            p, quality=90)
+        paths.append(p)
+    mode = "happy"
+    with widths(H=WW_FUSED_H, F=WW_FUSED_H):
+        params = captioning_params(device)
+        config = ServeConfig(backend_host="127.0.0.1", backend_port=0,
+                             image_folder=os.path.join(root, "uploads"),
+                             vocab_path=serving_vocab(root))
+    engine = CaptionEngine(config, image_size=224, device=device,
+                           params=params)
+    widths_h = {v: engine.models[v]["happy"]["decoder"][w].shape[0]
+                for v, w in (("stylenet", "W_w"), ("stylenet_att", "W_w"),
+                             ("nic_att", "init_h_b"))}
+    if set(widths_h.values()) != {WW_FUSED_H}:
+        fail(f"phase 27 (a): the engine's decoders' H {widths_h}")
+    counters = wide_counters()
+    step, att_step = (counters[n][0] for n in ("decode_step_topk",
+                                               "att_decode_step_topk"))
+    for p in ("split", "tiled"):   # the path each step call took
+        counters[f"decode_step_topk_{p}"] = (step, f"{p}_launches")
+        counters[f"att_decode_step_topk_{p}"] = (att_step, f"{p}_launches")
+        counters[f"att_decode_step_topk_lstm_{p}"] = (att_step,
+                                                      f"lstm_{p}_launches")
+    steps_max = engine.dec_cfg.max_seq_length
+    with torch.inference_mode():
+        feats = {v: torch.cat([engine.encode(p, mode, v) for p in paths])
+                 for v in ("stylenet", "stylenet_att", "nic_att")}
+        n = len(paths)
+        sty = engine.models["stylenet"][mode]["decoder"]
+        tiled = feats["stylenet"][:, None, :].expand(
+            n, BEAM_K, feats["stylenet"].shape[1]).contiguous()
+        s1 = mega_beam_decode_steps(sty, tiled, mode_id(mode), n, k=BEAM_K,
+                                    max_seq_length=steps_max)[1][:, 0]
+        s6 = {kind: mega_att_beam_decode_steps(
+            engine.models[v][mode]["decoder"], feats[v], mode_id(mode), n,
+            k=BEAM_K, max_seq_length=engine.att_cfg.max_seq_length,
+            kind=kind)[1][:, 0] for kind, v in ATT_KINDS.items()}
+    # one image a request: the column-split path, K1 / K6 once a step of
+    # its search; one batch: the row-tiled path, once a step of the longest
+    want = {}
+    for how, agg, p in (("serial", lambda s: int(s.sum()), "split"),
+                        ("batched", lambda s: int(s.max()), "tiled")):
+        want[how] = {"att_init_state": 2 * (n if how == "serial" else 1)}
+        for name, s in (("decode_step_topk", s1),
+                        ("att_decode_step_topk", s6["factored"]),
+                        ("att_decode_step_topk_lstm", s6["lstm"])):
+            want[how][name] = want[how][f"{name}_{p}"] = agg(s)
+    want["serial"]["mega_beam_decode_lstm"] = n   # NIC's one path, K2
+    got, captions = {}, {}
+    for how in ("serial", "batched"):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        with plain_counters() as plain:
+            if how == "serial":
+                captions["fused"] = [engine.caption(p, mode, path="fused-step")
+                                     for p in paths]
+            else:
+                captions["fused_batched"] = {
+                    v: engine.decode(feats[v], mode, "fused-step", v)
+                    for v in feats}
+            torch.cuda.synchronize()
+        got[how] = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+        if any(plain.values()):
+            fail(f"phase 27 (a) engine {how}: a plain version ran: {plain}")
+        nonzero = {k: v for k, v in got[how].items() if v}
+        if nonzero != want[how]:
+            fail(f"phase 27 (a) engine {how}: launches {nonzero}, expected "
+                 f"{want[how]}")
+    captions["mega"] = [engine.caption(p, mode) for p in paths]
+    with torch.inference_mode():
+        mega_batched = {v: engine.decode(feats[v], mode, "mega", v)
+                        for v in feats}
+    for j in range(n):
+        for v in feats:
+            if captions["fused"][j][v] != captions["mega"][j][v]:
+                fail(f"phase 27 (a) engine request {j} {v}: fused-step "
+                     f"{captions['fused'][j][v]!r} != mega "
+                     f"{captions['mega'][j][v]!r}")
+    for v, res in captions["fused_batched"].items():
+        want_res = mega_batched[v]
+        if not all(torch.equal(getattr(res, f), getattr(want_res, f))
+                   for f in BeamResult._fields):
+            fail(f"phase 27 (a) engine batched {v}: the fused-step beams "
+                 "differ from the whole search's (atol 0)")
+    words = {v: [len(c[v].split()) for c in captions["mega"]] for v in feats}
+    log(f"phase 27 (a) engine at H = F = {WW_FUSED_H}: {n} requests and "
+        f"one batch of {n}, fused-step = mega for {sorted(feats)}; words "
+        f"{ {v: (min(w), max(w)) for v, w in words.items()} }; launches "
+        f"{ {h: {k: v for k, v in g.items() if v} for h, g in got.items()} }")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {k: got["serial"][k] + got["batched"][k] for k in got["serial"]}
+
+
+def ww_k5(device) -> dict:
+    """Phase 27 (b): K5, both cells, teacher-forced and sampled, forward and
+    backward, against its plain versions as phase 10 holds them
+    (``check_k5``) at B = B_ATT and each (T, A) of WW_K5, where the d_att1
+    pass splits A (2 column blocks at each); the factored sampled scan
+    timed.  -> {"T{t}_A{a}": {"fwd", "bwd"}} of the timed runs, and the
+    largest errors."""
+    from icee_tpu_torch.ops.att_scan import datt1_plan
+
+    out, errs = {}, {"fwd": 0.0, "bwd": 0.0, "trace_flips": 0}
+    for t, a in WW_K5:
+        with widths(T_STEPS=t, A=a):
+            for kind in ("factored", "lstm"):
+                for sampled in (False, True):
+                    timed = kind == "factored" and sampled
+                    fwd, bwd = check_k5(kind, sampled, device, timed=timed)
+                    errs["fwd"] = max(errs["fwd"], fwd["max_abs_err"])
+                    errs["bwd"] = max(errs["bwd"], bwd["max_rel_err"])
+                    errs["trace_flips"] += fwd["trace_flips"]
+                    if timed:
+                        out[f"T{t}_A{a}"] = {
+                            "fwd": fwd, "bwd": bwd,
+                            "datt1_plan": datt1_plan(t, a)}
+    log(f"phase 27 (b): K5 ok at (T, A) {WW_K5}, B {B_ATT}: forward max abs "
+        f"err {errs['fwd']:.3g}, backward max err / max|g| "
+        f"{errs['bwd']:.3g}, trace flips {errs['trace_flips']}; "
+        + "; ".join(f"{s}: fwd {v['fwd']['ms']:.3f} ms (bound "
+                    f"{v['fwd']['bound_ms']:.3f}), bwd {v['bwd']['ms']:.3f} "
+                    f"(bound {v['bwd']['bound_ms']:.3f})"
+                    for s, v in out.items()))
+    return {"shapes": out, **errs}
+
+
+def ww_k7(device) -> dict:
+    """Phase 27 (c): K7 (both kinds) against its plain search,
+    margin-aware, and the fused-step path (K6 per step) at atol 0
+    (``check_k7_shape``): at P in WW_PS over one image and B_IMAGES at k =
+    5 and 8 images at k = 20 (timed at B_IMAGES images where P is in
+    WW_P_TIMED), at P = WW_P_DEVICE (the softmax rows in device memory) and
+    at A = WW_WIDE_A (att2 from L2) over one image, timed; the h0/c0
+    launch at P = WW_INIT_P within 1e-4 of ``init_hidden_state`` and =
+    K7's at atol 0.  -> {kind: {"max_abs_err", ..., "shapes"}, "init"}."""
+    import torch
+
+    from icee_tpu_torch.models import attention as att_mod
+    from icee_tpu_torch.ops.att_beam import alpha_layout, search_init_state
+    from icee_tpu_torch.ops.att_decode_step import att_init_state
+
+    out = {kind: {"max_abs_err": 0.0, "near_tie_flips": 0,
+                  "max_rescore_err": 0.0, "shapes": {}}
+           for kind in ATT_KINDS}
+    cases = [(p, n, k, n == B_IMAGES and p in WW_P_TIMED)
+             for p in WW_PS for n, k in WW_P_SHAPES]
+    cases += [(WW_P_DEVICE, 1, K, True)]
+    decs = decoder_params(device)
+    for p, n_img, k, timed in cases:
+        with widths(P=p):
+            for kind, variant in ATT_KINDS.items():
+                r = check_k7_shape(decs[variant]["decoder"], kind, device,
+                                   n_img, k=k, timed=timed)
+                o = out[kind]
+                o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+                o["max_rescore_err"] = max(o["max_rescore_err"],
+                                           r["max_rescore_err"])
+                o["near_tie_flips"] += r["near_tie_flips"]
+                if timed:
+                    o["shapes"][f"p{p}_a{A}_images{n_img}"] = dict(
+                        r, P=p, A=A, images=n_img, k=k,
+                        alpha_layout=alpha_layout(p, A))
+        torch.cuda.empty_cache()
+    del decs
+    with widths(A=WW_WIDE_A):
+        decs = decoder_params(device)
+        for kind, variant in ATT_KINDS.items():
+            r = check_k7_shape(decs[variant]["decoder"], kind, device, 1,
+                               timed=True)
+            o = out[kind]
+            o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+            o["max_rescore_err"] = max(o["max_rescore_err"],
+                                       r["max_rescore_err"])
+            o["near_tie_flips"] += r["near_tie_flips"]
+            o["shapes"][f"p{P}_a{WW_WIDE_A}_images1"] = dict(
+                r, P=P, A=WW_WIDE_A, images=1, k=K,
+                alpha_layout=alpha_layout(P, WW_WIDE_A))
+        del decs
+        torch.cuda.empty_cache()
+    decs = decoder_params(device)
+    init_err = 0.0
+    with widths(P=WW_INIT_P):
+        for n in (1, B_IMAGES):
+            feats = att_features(device, n, 31)
+            for kind, variant in ATT_KINDS.items():
+                dec = decs[variant]["decoder"]
+                h0, c0 = att_init_state(dec, feats)
+                kh, kc = search_init_state(dec, feats, kind,
+                                           3 if kind == "factored" else 0, K)
+                wh, wc = att_mod.init_hidden_state(dec, feats)
+                torch.cuda.synchronize()
+                e = max((h0 - wh).abs().max().item(),
+                        (c0 - wc).abs().max().item())
+                init_err = max(init_err, e)
+                if not e <= 1e-4:
+                    fail(f"phase 27 (c) att_init_state {kind}, P = "
+                         f"{WW_INIT_P}, {n} images: error {e} > 1e-4")
+                if kh is None or not (torch.equal(h0, kh)
+                                      and torch.equal(c0, kc)):
+                    fail(f"phase 27 (c) att_init_state {kind}, P = "
+                         f"{WW_INIT_P}, {n} images: h0/c0 differ from K7's")
+    out["init"] = {"P": WW_INIT_P, "max_abs_err": init_err}
+    out["main_counts"] = ww_main_path(decs, device)
+    del decs
+    torch.cuda.empty_cache()
+    log(f"phase 27 (c): K7 ok at P {WW_PS} (1 and {B_IMAGES} images, k = "
+        f"{K}; 8 at k = 20), {WW_P_DEVICE} and A = {WW_WIDE_A} (one image); "
+        + "; ".join(f"{kind} max err {o['max_abs_err']:.3g}, re-score "
+                    f"{o['max_rescore_err']:.3g}, near-tie flips "
+                    f"{o['near_tie_flips']}" for kind, o in out.items()
+                    if kind in ATT_KINDS)
+        + f"; h0/c0 at P = {WW_INIT_P} max err {init_err:.3g}, = K7's")
+    return out
+
+
+def ww_main_path(decs, device) -> dict:
+    """Phase 27 (c): the attention decoders' main path at P = WW_INIT_P
+    through ``decode/fast.py`` (what the engines and the CLIs call), every
+    count from 0 just before and read just after: 2 images at k = 5, each
+    kind's whole search (K7 once) and fused-step path (the h0/c0 launch
+    once, K6 once a step the search ran), each fused-step result = its
+    whole search's at atol 0; no plain version.  -> the counts."""
+    import torch
+
+    from icee_tpu_torch.decode.fast import attention_decode, nic_att_decode
+    from icee_tpu_torch.ops.att_beam import mega_att_beam_decode_steps
+
+    n, styles = 2, {"factored": 3, "lstm": 0}
+    att = {kind: decs[v]["decoder"] for kind, v in ATT_KINDS.items()}
+    with widths(P=WW_INIT_P):
+        spatial = att_features(device, n, 32)
+    steps = {kind: int(mega_att_beam_decode_steps(
+        dec, spatial, styles[kind], n, k=K, max_seq_length=STEPS,
+        kind=kind)[1][:, 0].max()) for kind, dec in att.items()}
+    counters = wide_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    with plain_counters() as plain:
+        res = {}
+        for path in ("mega", "fused-step"):
+            res["factored", path] = attention_decode(
+                path, att["factored"], spatial, styles["factored"], n, K,
+                STEPS, 1, 2)
+            res["lstm", path] = nic_att_decode(path, att["lstm"], spatial,
+                                               n, K, STEPS, 1, 2)
+        torch.cuda.synchronize()
+    got = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    if any(plain.values()):
+        fail(f"phase 27 (c) main path: a plain version ran: {plain}")
+    want = {"mega_att_beam_decode": 1, "mega_att_beam_decode_lstm": 1,
+            "att_decode_step_topk": steps["factored"],
+            "att_decode_step_topk_lstm": steps["lstm"], "att_init_state": 2}
+    if {k: v for k, v in got.items() if v} != want:
+        fail(f"phase 27 (c) main path: launches {got}, expected {want}")
+    for kind in att:
+        a, b = res[kind, "mega"], res[kind, "fused-step"]
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"phase 27 (c) main path {kind}: the fused-step path's "
+                 "beams differ from the whole search's (atol 0)")
+    log(f"phase 27 (c) main path at P = {WW_INIT_P}: {n} images, k = {K}, "
+        f"launches {want}; fused-step = whole search at atol 0")
+    return got
+
+
+def ww_cli(keep: str) -> tuple:
+    """Phase 27 (d): the spatial path as processes over WW_CLI_IMAGES fresh
+    JPEGs, phase 19's vocabulary and seeded backbone (``keep``):
+    ``precompute_features --spatial --grid WW_GRID`` (P = 400), ``train --attention
+    --attention_size WW_CLI_A`` for one epoch at ratio 0.8 (K5 sampled a
+    step, forward and backward, its d_att1 pass in 2 column blocks; the CE
+    a step and chunk), ``evaluate --attention`` and ``caption_batch
+    --attention`` from its checkpoint (K7 a batch); each exits 0 with its
+    launches exact and no plain version.  -> (launches, stats)."""
+    import numpy as np
+    from PIL import Image
+
+    from icee_tpu_torch.ops import chunked_loss as cl
+
+    m = "icee_tpu_torch.cli."
+    root = os.path.join(keep, "grid20")
+    logs = os.path.join(root, "logs")
+    img_dir = os.path.join(root, "img")
+    os.makedirs(logs)
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(270)
+    for i in range(WW_CLI_IMAGES):
+        small = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(small, "RGB").resize((256, 256), Image.BILINEAR).save(
+            os.path.join(img_dir, f"g{i}.jpg"), quality=90)
+
+    def write(name, examples):
+        path = os.path.join(root, name)
+        seen = {}
+        with open(path, "w") as f:
+            for e in examples:
+                j = seen[e.image] = seen.get(e.image, -1) + 1
+                f.write(f"{e.image}.jpg#{j}\t"
+                        + " ".join(f"w{i}" for i in e.caption_ids[1:-1])
+                        + "\n")
+        return path
+
+    files = {name: write(f"{name}.txt", trainer_corpus(n, TR_CAPS, seed, "g"))
+             for name, n, seed in (("train", WW_CLI_IMAGES, 271),
+                                   ("val", WW_CLI_VAL, 272),
+                                   ("happy", WW_CLI_EMO, 273),
+                                   ("val_happy", WW_CLI_VAL, 274))}
+    launches, stats = {}, {}
+
+    def stage(name, module, args, want, ratio=None):
+        st, counts, out = cli_stage(name, module, args, logs, want, ratio,
+                                    phase=27)
+        stats[name] = st
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return out
+
+    vocab_path = os.path.join(keep, "vocab.pkl")
+    spatial = os.path.join(root, "spatial.npz")
+    stage("precompute_features_grid", m + "precompute_features", [
+        "--caption_path", files["train"], "--image_dir", img_dir, "--out",
+        spatial, "--batch_size", 32, "--spatial", "--grid", WW_GRID,
+        "--resnet_weights", os.path.join(keep, "resnet152.npz")], {})
+    with np.load(spatial) as z:
+        shapes = [z[n].shape for n in z.files]
+    if set(shapes) != {(WW_GRID * WW_GRID, FS)} or \
+            len(shapes) != WW_CLI_IMAGES:
+        fail(f"phase 27 (d) precompute_features: {len(shapes)} features, "
+             f"shapes {set(shapes)}")
+    width = ["--attention", "--attention_size", WW_CLI_A]
+    t_in = STEPS + 1   # targets of captions padded to max_seq_length + 2
+    n_fac = -(-WW_CLI_IMAGES * TR_CAPS // CLI_BATCH)
+    n_emo = -(-WW_CLI_EMO * TR_CAPS // B_EMOTION)
+    ce = sum(n * -(-t_in // cl.auto_t_chunk(b, t_in))
+             for n, b in ((n_fac, CLI_BATCH), (n_emo, B_EMOTION)))
+    models = os.path.join(root, "models")
+    stage("train_attention", m + "train", [
+        "--trainer", "multitask", "--family", "stylenet", *width, "--mode",
+        "happy", "--vocab_path", vocab_path, "--caption_path",
+        files["train"], "--val_caption_path", files["val"], "--happy_path",
+        files["happy"], "--val_happy_path", files["val_happy"],
+        "--feature_cache", spatial, "--num_epochs", 1,
+        "--caption_batch_size", CLI_BATCH, "--language_batch_size",
+        B_EMOTION, "--model_path", models, "--log_path",
+        os.path.join(logs, "train.txt"), "--metrics_path",
+        os.path.join(logs, "train.jsonl"), "--data_name", "grid20",
+        "--log_step", 10 ** 9, "--log_step_emotion", 10 ** 9],
+        {"fused_att_scan_sampled_fwd": n_fac + n_emo,
+         "fused_att_scan_sampled_bwd": n_fac + n_emo, "ce_rows": ce,
+         "ce_grad_rows": ce}, ratio=0.8)
+    with open(os.path.join(logs, "train.jsonl")) as f:
+        losses = [e["train_loss"] for e in map(json.loads, f)
+                  if e["event"].startswith("epoch_")]
+    if len(losses) != 2 or not all(np.isfinite(losses)):
+        fail(f"phase 27 (d) train: epoch losses {losses}")
+    stats["train_attention"]["train_loss"] = losses
+    best = os.path.join(models, "HAP_BEST_checkpoint_grid20")
+    if not os.path.isdir(best):
+        best = os.path.join(models, "HAP_checkpoint_grid20")
+    common = ["--vocab_path", vocab_path, "--feature_cache", spatial,
+              "--batch_size", CLI_BATCH, "--checkpoint_path", best, *width]
+    n_val = WW_CLI_VAL * TR_CAPS
+    out = stage("evaluate_attention", m + "evaluate", common + [
+        "--test_path", files["val"], "--mode", "happy"],
+        {"mega_att_beam_decode": -(-n_val // CLI_BATCH)})
+    bleu = bleu_lines(out)
+    if len(bleu) != 4 or not all(np.isfinite(b) for b in bleu):
+        fail(f"phase 27 (d) evaluate: BLEU lines {bleu}")
+    stats["evaluate_attention"]["bleu"] = bleu
+    caps = os.path.join(root, "captions.json")
+    stage("caption_batch_attention", m + "caption_batch", common + [
+        "--mode", "happy", "--out", caps],
+        {"mega_att_beam_decode": -(-WW_CLI_IMAGES // CLI_BATCH)})
+    with open(caps) as f:
+        got = json.load(f)
+    if len(got) != WW_CLI_IMAGES:
+        fail(f"phase 27 (d) caption_batch: {len(got)} captions")
+    stats["config"] = {"images": WW_CLI_IMAGES, "grid": WW_GRID,
+                       "P": WW_GRID * WW_GRID, "A": WW_CLI_A,
+                       "T": t_in, "batch": CLI_BATCH,
+                       "emotion_batch": B_EMOTION}
+    return launches, stats
+
+
+def ww_entries(steps, k5, k7, counts) -> list:
+    """Phase 27's entries of the kernels line: K1, K6 (both kinds) at H = F
+    = 1024 (their launches the engine's at that width), K5 factored sampled
+    forward and backward at (T, A) = (42, 2048) (launches (d)'s train), K7
+    (both kinds) at P = 400 over 64 images (launches (c)'s main path and,
+    the factored kind, (d)'s evaluate and caption_batch), every timed
+    shape under ``shapes``."""
+    step = "icee_tpu/ops/pallas_att_decode.py:201 (kind=\"{}\"; H = F past "
+    k1h = k6h = f"h{WW_FUSED_H}_rows{B_IMAGES * K}"
+    entries = [wide_entry(
+        "decode_step_topk_wide_hidden", "icee_tpu_torch/csrc/decode_step.cu",
+        "icee_tpu/ops/pallas_decode.py:261 (H = F past 772: the row-tiled "
+        "cell at 4 and 2 rows a block)", steps["k1"], k1h,
+        launches=counts["decode_step_topk"])]
+    for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
+        entries.append(wide_entry(
+            f"att_decode_step_topk{sfx}_wide_hidden",
+            "icee_tpu_torch/csrc/att_decode_step.cu",
+            step.format(kind) + "544: the row-tiled cell at 4 and 2 rows)",
+            steps[kind], k6h, launches=counts[f"att_decode_step_topk{sfx}"]))
+    for d, line in (("fwd", ":623"), ("bwd", ":758")):
+        shapes = {s: v[d] for s, v in k5["shapes"].items()}
+        top = shapes[f"T{WW_K5[0][0]}_A{WW_K5[0][1]}"]
+        entries.append(dict(
+            {k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")},
+            name=f"fused_att_scan_sampled_{d}_wide_attention",
+            route="cuda", source="icee_tpu_torch/csrc/att_scan.cu",
+            replaces=f"icee_tpu/ops/pallas_att_train.py{line} (:887, "
+                     "T x (A + 28) past one block's d_att1 plane)",
+            launches=counts[f"fused_att_scan_sampled_{d}"],
+            headline=f"T{WW_K5[0][0]}_A{WW_K5[0][1]}", shapes=shapes,
+            datt1_plans={s: v["datt1_plan"] for s, v in
+                         k5["shapes"].items()}))
+    k7h = f"p{WW_INIT_P}_a{A}_images{B_IMAGES}"
+    for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
+        entries.append(wide_entry(
+            f"mega_att_beam_decode{sfx}_wide_positions",
+            "icee_tpu_torch/csrc/att_beam.cu",
+            f"icee_tpu/ops/pallas_att_decode.py:733 (kind=\"{kind}\"; the "
+            "P-streamed call :907, any P; A past 3,840)", k7[kind], k7h,
+            launches=counts.get(f"mega_att_beam_decode{sfx}", 0)
+            + k7["main_counts"][f"mega_att_beam_decode{sfx}"],
+            init_at_p400=k7["init"]))
+    return entries
+
+
+def wide_width_phase(device, keep: str) -> tuple:
+    """Phase 27: the step and attention kernels at every width the JAX
+    package takes: (a) K1, K6, the atol-0 checks and the engine at H = F
+    past 8 rows a cell block, (b) K5 past the d_att1 plane, (c) K7 past 256
+    positions and A = 3,840, (d) the spatial path's processes, on a thread
+    beside (a)-(c).  -> (the kernels line's entries, stats)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cli_job = pool.submit(ww_cli, keep)
+        with torch.inference_mode():
+            steps = ww_steps(device)
+            log("phase 27 (a): K1, K6 ok at H = F = " + ", ".join(
+                map(str, WW_HS)) + "; " + "; ".join(
+                    f"{n} max err {f['max_abs_err']:.3g}, near-tie swaps "
+                    f"{f['near_tie_swaps']}" for n, f in steps.items()))
+            fused = ww_fused(device)
+            with tempfile.TemporaryDirectory() as root:
+                engine_counts = ww_engine(device, root)
+        t_a = time.perf_counter() - t0
+        k5 = ww_k5(device)
+        t_b = time.perf_counter() - t0
+        with torch.inference_mode():
+            k7 = ww_k7(device)
+        t_c = time.perf_counter() - t0
+        cli_counts, cli = cli_job.result()
+    counts = dict(engine_counts)
+    for k, n in cli_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    entries = ww_entries(steps, k5, k7, counts)
+    stats = {"fused": fused, "cli": cli, "launches": counts,
+             "phase_s": {"a": t_a, "b": t_b - t_a, "c": t_c - t_b,
+                         "whole": time.perf_counter() - t0}}
+    log(f"phase 27 done in {stats['phase_s']['whole']:.1f} s ((a) "
+        f"{t_a:.1f}, (b) {t_b - t_a:.1f}, (c) {t_c - t_b:.1f}; (d) beside "
+        f"them); launches {counts}")
+    return entries, stats
+
+
 def main() -> int:
     import shutil
 
     import torch
 
     t_run = time.perf_counter()
+    phase_s, t_mark = {}, [t_run]
+
+    def done(phase: str) -> None:
+        """Logs and keeps the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_s[phase] = round(now - t_mark[0], 2)
+        t_mark[0] = now
+        log(f"phase {phase}: {phase_s[phase]:.1f} s")
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -9535,6 +10177,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     log("phase 3: TF32 off for matmul and cuDNN; cuDNN deterministic")
+    done("1-3")
 
     from icee_tpu_torch.ops.att_decode_step import att_decode_step_topk
     from icee_tpu_torch.ops.decode_step import decode_step_topk
@@ -9556,6 +10199,7 @@ def main() -> int:
             f"{k1['serial_plain_ms']:.4f}, library "
             f"{k1['serial_library_ms']:.4f}, bound "
             f"{k1['serial_bound_ms']:.4f}")
+        done("4")
         k2 = check_k2(sty, device)
         k2_lstm = check_k2(nic, device, cell="lstm")
         log("phase 5: K2 ok, ms (plain, bound) at " + "; ".join(
@@ -9566,6 +10210,7 @@ def main() -> int:
             f"({k2_lstm['shapes'][n]['plain_ms']:.3f}, "
             f"{k2_lstm['shapes'][n]['bound_ms']:.3f})"
             for n in k2["shapes"]))
+        done("5")
         att = {kind: params[v]["decoder"] for kind, v in ATT_KINDS.items()}
         k6 = {}
         for kind, dec in att.items():
@@ -9589,6 +10234,7 @@ def main() -> int:
         log("phases 4, 5b: column-split path at the serial shape from a "
             "CUDA graph (replay ms, span and stage start/end us): "
             + json.dumps(stages))
+        done("5b")
         k7 = {kind: check_k7(dec, kind, device) for kind, dec in att.items()}
         log("phase 5c: K7 ok, ms (plain, bound) at " + "; ".join(
             f"{n} images: factored {k7['factored']['shapes'][n]['ms']:.3f} "
@@ -9598,6 +10244,7 @@ def main() -> int:
             f"({k7['lstm']['shapes'][n]['plain_ms']:.3f}, "
             f"{k7['lstm']['shapes'][n]['bound_ms']:.3f})"
             for n in k7["factored"]["shapes"]))
+        done("5c")
         t5d = time.perf_counter()
         wide, _ = wide_phase(params, device)
         log(f"phase 5d: beam widths {WIDE_KS} ok in "
@@ -9605,9 +10252,11 @@ def main() -> int:
             + "; ".join(f"{n} {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, "
                         f"bound {e['bound_ms']:.3f})"
                         for n, e in wide.items()))
+        done("5d")
 
     launches, stats = serve_phase(params, device)
     log(f"phase 6: served {stats['requests']} requests, launches {launches}")
+    done("6")
     # the served paths (batched and serial) launch the whole-search
     # kernels; the fused-step path (phase 6's third) launches K1, K6 and
     # the h0/c0 kernel
@@ -9654,12 +10303,14 @@ def main() -> int:
         f"{k4b['library_ms']:.3f}, bound {k4b['bound_ms']:.3f}, 3xTF32 floor "
         f"{k4b['bound_tf32x3_ms']:.3f}; device ms by group: "
         f"{groups_line(k4b['device_ms_by_group'])})")
+    done("7")
     cef, ceb, ce_whole = check_ce(device)
     log(f"phase 8: CE ok, rows {cef['ms']:.4f} ms (cold "
         f"{cef['cold_ms']:.4f}, after addmm {cef['after_addmm_ms']:.4f}, "
         f"bound {cef['bound_ms']:.4f}), grad rows {ceb['ms']:.4f} ms (cold "
         f"{ceb['cold_ms']:.4f}, after addmm {ceb['after_addmm_ms']:.4f}, "
         f"bound {ceb['bound_ms']:.4f}); whole loss fwd+bwd {ce_whole}")
+    done("8")
     train_launches, train = train_phase(device)
     nic_launches, train["nic"] = train_phase(device, factored=False)
     train["chunked_ce_fwd_bwd"] = ce_whole
@@ -9669,6 +10320,7 @@ def main() -> int:
         f"{train['nic']['factual_step_ms']:.3f} ms, "
         f"{train['nic']['captions_per_s']:.1f} captions/s (plain "
         f"{train['nic']['plain_factual_step_ms']:.3f} ms)")
+    done("9")
     for entry in (k3f, k3b):
         entry["launches"] = train_launches[entry["name"]]
     for entry in (k4f, k4b):
@@ -9693,6 +10345,7 @@ def main() -> int:
         f"{e['device_ms_by_group']['products_ms']:.3f} / "
         f"{e['device_ms_by_group']['attention_ms']:.3f} / "
         f"{e['device_ms_by_group']['rest_ms']:.3f})" for e in k5))
+    done("10")
     att_launches = {}
     train["att"] = {}
     for factored in (True, False):
@@ -9704,6 +10357,7 @@ def main() -> int:
         f"{m} {st['factual_step_ms']:.3f} ms, {st['captions_per_s']:.1f} "
         f"captions/s (plain {st['plain_factual_step_ms']:.3f} ms)"
         for m, st in train["att"].items()))
+    done("11")
     for entry in k5:
         entry["launches"] = att_launches[entry["name"]]
     for entry in (cef, ceb):   # the attention steps use the CE kernels too
@@ -9718,6 +10372,7 @@ def main() -> int:
         f"{k8b['ms']:.3f} ms (plain {k8b['plain_ms']:.3f}, bound "
         f"{k8b['bound_ms']:.3f}, 3xTF32 floor {k8b['bound_tf32x3_ms']:.3f}; "
         f"device ms by group: {groups_line(k8b['device_ms_by_group'])})")
+    done("12")
     sc_launches, train["senticap"] = train_senticap_phase(device)
     train["senticap"]["neglog2"] = check_neglog2(device)
     log(f"phase 13: SentiCap step {train['senticap']['step_ms']:.3f} ms, "
@@ -9725,6 +10380,7 @@ def main() -> int:
         f"{train['senticap']['plain_step_ms']:.3f} ms); neglog2 sum "
         f"{train['senticap']['neglog2']['ms']:.4f} ms (plain row pass "
         f"{train['senticap']['neglog2']['plain_ms']:.4f} ms)")
+    done("13")
     for entry in (k8f, k8b):
         entry["launches"] = sc_launches[entry["name"]]
     for entry in (cef, ceb):   # the SentiCap steps use the CE kernels too
@@ -9739,6 +10395,7 @@ def main() -> int:
             f"3xTF32 floor {k9['bound_tf32x3_ms']:.3f}); device ms by "
             f"group: {groups_line(k9['device_ms_by_group'])}")
         k9["launches"], decode = decode_senticap_phase(device)
+    done("14")
     base = pretrained_base(device)
     mxf, mxb, train["mixture_ce_fwd_bwd"] = check_mixture_ce(device, base)
     log(f"phase 15: mixture CE ok, rows {mxf['ms']:.4f} ms (plain "
@@ -9746,12 +10403,14 @@ def main() -> int:
         f"{mxb['plain_ms']:.4f}); whole loss fwd+bwd "
         f"{train['mixture_ce_fwd_bwd']['kernel_path_ms']:.3f} ms (plain "
         f"{train['mixture_ce_fwd_bwd']['plain_path_ms']:.3f})")
+    done("15")
     sw_launches, train["senticap_switched"] = train_switched_phase(device,
                                                                   base)
     log(f"phase 16: switched step "
         f"{train['senticap_switched']['step_ms']:.3f} ms, "
         f"{train['senticap_switched']['captions_per_s']:.1f} captions/s "
         f"(plain {train['senticap_switched']['plain_step_ms']:.3f} ms)")
+    done("16")
     for entry in (k8f, k8b):   # the switch steps run K8 too
         entry["launches"] += sw_launches[entry["name"]]
     mxf["launches"] = sw_launches["mixture_ce_rows"]
@@ -9769,6 +10428,7 @@ def main() -> int:
             f"3xTF32 floor {k10['bound_tf32x3_ms']:.3f}); device ms by "
             f"group: {groups_line(k10['device_ms_by_group'])}")
         sw_dec_launches, decode_sw = decode_switched_phase(device)
+    done("17")
     k10["launches"] = sw_dec_launches["mega_senticap_switched_decode"]
     k9["launches"] += sw_dec_launches["mega_senticap_beam_decode"]
     tr_launches, train["trainer"] = trainer_phase(device)
@@ -9782,6 +10442,7 @@ def main() -> int:
         f"{[round(c) for c in train['trainer']['nic']['captions_per_s']]}; "
         "device-busy share of a StyleNet epoch "
         f"{train['trainer']['stylenet']['device_busy_share']}")
+    done("18")
     # the trainers run K3, K4, K5 (sampled, factored), the CE and K2
     for entry in (k3f, k3b, k4f, k4b, cef, ceb, *k5):
         entry["launches"] += tr_launches.get(entry["name"], 0)
@@ -9797,6 +10458,7 @@ def main() -> int:
         f"evaluate {cli['evaluate']['captions_per_s']:.1f} and "
         f"caption_batch {cli['caption_batch']['captions_per_s']:.1f} "
         "captions/s, process start included")
+    done("19")
     # the CLIs run K3, the CE and K2 (train, evaluate, caption_batch,
     # sample, serve; caption_batch at beam 20 its wide path) and K7 (the
     # attention stages)
@@ -9819,6 +10481,7 @@ def main() -> int:
         f"{res['host']['device_busy_share']}, pinned "
         f"{res['pinned']['device_busy_share']}; synchronizing calls "
         f"{res['pinned']['sync_calls']}; launches {res_launches}")
+    done("20")
     # the resident epochs run K3, the CE, K2, K5 (sampled, factored), K8
     # and the mixture CE
     for entry in (k3f, k3b, cef, ceb, k8f, k8b, *k5):
@@ -9838,18 +10501,25 @@ def main() -> int:
         else:
             for entry in (cef, ceb):
                 entry["launches"] += counts.get(entry["name"], 0)
+    done("21")
     try:
         s2s_launches, train["seq2seq"] = seq2seq_phase(device, keep)
         for counts in s2s_launches.values():   # the CE row passes only
             for entry in (cef, ceb):
                 entry["launches"] += counts.get(entry["name"], 0)
-        t23 = time.perf_counter()
+        done("22")
         par_launches, par = parallel_phase(device, keep,
                                            train["factual_step_ms"])
-        t24 = time.perf_counter()
+        done("23")
         wide_h, train["wide_h"] = wide_h_phase(device, keep)
-        t25 = time.perf_counter()
+        done("24")
         rag_launches, ragged = ragged_phase(device, keep)
+        done("25")
+        past_block, past_block_times = past_block_phase(device)
+        log(f"phase 26 (d): times {json.dumps(past_block_times)}")
+        done("26")
+        wide_width, train["wide_width"] = wide_width_phase(device, keep)
+        done("27")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     # every rank's launches: K3, the CE, K2 and K7 (phase 19's stages over
@@ -9858,7 +10528,7 @@ def main() -> int:
         entry["launches"] += par_launches.get(entry["name"], 0)
     k2["launches"] += par_launches.get("mega_beam_decode", 0)
     k7["factored"]["launches"] += par_launches.get("mega_att_beam_decode", 0)
-    par["phase_s"] = time.perf_counter() - t23
+    par["phase_s"] = phase_s["23"]
     log(f"phase 23: slice 8 ok in {par['phase_s']:.1f} s; against phase "
         "19's one-process train "
         + ", ".join(f"{n} {par[n]['against_one_process']}" for n in par
@@ -9877,24 +10547,25 @@ def main() -> int:
         "mega_beam_decode_lstm", 0)
     k9["launches"] += train["wide_h"]["launches"].get(
         "mega_senticap_beam_decode", 0)
-    log(f"phase 24 done in {t25 - t24:.1f} s")
     # phase 25's (b): K3, the CE and K2 (train, evaluate, the engine), K2
     # lstm and K7 (the engine)
     for entry in (k3f, k3b, cef, ceb, k2, k2_lstm, k7["factored"],
                   k7["lstm"]):
         entry["launches"] += rag_launches.get(entry["name"], 0)
+    # phase 27's CE row passes ((d)'s train); its K1, K6, K5 and K7 counts
+    # are its own entries'
+    for entry in (cef, ceb):
+        entry["launches"] += train["wide_width"]["launches"].get(
+            entry["name"], 0)
     times = ragged["times"]
     k1["ragged_v8191"] = times["k1_r5"]
     k2["ragged_v8191"] = {f"images{n}": times[f"k2_images{n}"]
                           for n in RAG_TIMED_IMAGES}
     k7["factored"]["ragged_v8191"] = {f"images{n}": times[f"k7_images{n}"]
                                       for n in RAG_TIMED_IMAGES}
-    log(f"phase 25 done in {time.perf_counter() - t25:.1f} s; phases 21-25"
-        " done")
-    past_block, past_block_times = past_block_phase(device)
-    log(f"phase 26 (d): times {json.dumps(past_block_times)}")
-    log(f"phases 21-26 done; the whole run {time.perf_counter() - t_run:.1f}"
-        " s (the kernels' build included)")
+    log(f"phases 21-27 done; seconds a phase {json.dumps(phase_s)}; the "
+        f"whole run {time.perf_counter() - t_run:.1f} s (the kernels' build "
+        "included)")
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"serve": stats}))
@@ -9904,11 +10575,13 @@ def main() -> int:
     print(json.dumps({"parallel": par}))
     print(json.dumps({"widths": ragged}))
     print(json.dumps({"past_block_times": past_block_times}))
+    print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": [k1, k2, k2_lstm, k6["factored"],
                                   k6["lstm"], att_init, k7["factored"],
                                   k7["lstm"], k3f, k3b, k4f, k4b, cef,
                                   ceb, *k5, k8f, k8b, k9, mxf, mxb, k10,
-                                  *wide.values(), *wide_h, *past_block]}))
+                                  *wide.values(), *wide_h, *past_block,
+                                  *wide_width]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 def caption_batch(dec_params, head, cfg, vocab, names, provider, mode_idx,
                   batch_size=64, k=5, attention=False, feed_feature=True,
-                  device="cpu", mesh=None):
+                  device="cuda", mesh=None):
     """-> dict image name -> detokenized caption (serving detok contract:
     strip specials, drop trailing ``<unk>``,
     ``app/backend/sample.py:82-96``); ``mesh``: data-parallel decoding."""

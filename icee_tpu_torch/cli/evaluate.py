@@ -87,7 +87,7 @@ def beam_decode(dec_params, cfg, vocab, feats, style: int, k: int,
 
 def evaluate(dec_params, head, cfg, vocab, dataset, provider, mode_idx,
              batch_size=64, k=5, print_pairs=True, attention=False,
-             feed_feature=False, device="cpu", mesh=None):
+             feed_feature=False, device="cuda", mesh=None):
     """-> [BLEU-1, BLEU-2, BLEU-3, BLEU-4] over ``dataset``'s lines;
     ``mesh``: each batch decoded data-parallel, the pairs printed by rank
     0 alone."""

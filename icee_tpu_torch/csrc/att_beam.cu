@@ -41,6 +41,15 @@
 //        softmax over P of its rows' scores in every block (softmax_row),
 //        then sum_p alpha_p feat_p as one chain in P order, times
 //        sigmoid(gpre)
+// Any P and A.  A unit's softmax rows sit in shared memory at a stride of
+// MAX_P + 4 to P = 256 (the launch as it was), of round4(P) + 4 past that
+// while they fit beside the ring (P to 1,784); past that a softmax stage
+// of its own (a warp a live row over the grid, softmax_row through L2)
+// turns each row of scores into alpha in place, after a barrier, and the
+// context stage streams those rows through the ring as dense input rows.
+// The scores stage stages an image's (up to 8) att2 rows in the ring to A
+// = 3,840, and reads them from L2 past that.  Every chain is the same
+// either way, so are the bits.
 //   factored: vrows (x V_w's rows E.. resumed from the partial, + V_b) |
 //        style (v_g S_g + S_b) | gates ((s_g U_g + U_b) + hW, then the cell)
 //   lstm: gates (x W_ih's rows E.. resumed, ((. + b_ih) + h W_hh) + b_hh,
@@ -105,6 +114,29 @@ struct AttInitPlan {
   long long o_mean;
 };
 
+static_assert(sizeof(Job) * MAX_JOBS + sizeof(Stage) * MAX_STAGES +
+                      GRID_SMEM_MAX <= 232448,
+              "a search block's plan copies and dynamic shared memory fit");
+
+// Where a search over P positions at attention width A keeps what its
+// per-image stages read (ops/att_beam.py::alpha_layout mirrors it): the
+// softmax rows' stride in shared memory (ALD to MAX_P, round4(P) + 4 while
+// grid_smem_bytes fits GRID_SMEM_MAX, else 0: in place in esc), esc's row
+// stride (P; round4(P) where the context stage streams its rows), and
+// whether the scores stage stages att2 in the ring (KMAX rows of A).
+struct AlphaLayout {
+  int ald, eld, att2_ring;
+};
+
+inline AlphaLayout alpha_layout(int P, int A) {
+  AlphaLayout l;
+  l.ald = P <= MAX_P ? ALD : round4(P) + 4;
+  if (grid_smem_bytes(l.ald) > GRID_SMEM_MAX) l.ald = 0;
+  l.eld = l.ald ? P : round4(P);
+  l.att2_ring = (long long)KMAX * round4(A) <= RING_FLOATS;
+  return l;
+}
+
 // The mean of each image's P feature rows (a sequential sum over P, then
 // / P), a thread a column quad; 8 rows' loads in
 // flight ahead of their adds.
@@ -146,8 +178,9 @@ __device__ void run_mean(const GridArgs& a) {
 
 // The scores stage: units (live image, `pu` positions); a unit stages its
 // image's live rows of att2 in the ring (at most KMAX: a group's where the
-// beam is wider), then each warp scores positions (att_score: a lane's
-// chain over its A quads, the butterfly, the bias).
+// beam is wider; past the ring's A each warp reads them from L2), then
+// each warp scores positions (att_score: a lane's chain over its A quads,
+// the butterfly, the bias).
 __device__ void run_scores(const GridArgs& a, const Smem& sm,
                            const StepCtx& c) {
   const int warp = threadIdx.x >> 5, A = a.A, Ap = round4(A);
@@ -157,17 +190,26 @@ __device__ void run_scores(const GridArgs& a, const Smem& sm,
   for (int u = blockIdx.x; u < c.n_img * a.upi; u += gridDim.x) {
     const int li = u / a.upi, part = u % a.upi;
     const int img = sm.img[li], i0 = sm.ifirst[li], m = sm.icount[li];
-    for (int e = threadIdx.x; e < m * (A / 4); e += GB_THREADS) {
-      const int r = e / (A / 4), q = e % (A / 4);
-      cp_async16(att2 + r * Ap + 4 * q, a.att2 + (size_t)(i0 + r) * A + 4 * q);
+    if (a.att2_ring) {
+      for (int e = threadIdx.x; e < m * (A / 4); e += GB_THREADS) {
+        const int r = e / (A / 4), q = e % (A / 4);
+        cp_async16(att2 + r * Ap + 4 * q,
+                   a.att2 + (size_t)(i0 + r) * A + 4 * q);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
     const int p1 = min(a.P, (part + 1) * a.pu);
-    for (int p = part * a.pu + warp; p < p1; p += GB_WARPS)
-      att_score<KMAX>(a.att1 + ((size_t)img * a.P + p) * A, aw, att2, Ap, m,
-                      a.esc + (size_t)i0 * a.P + p, a.P);
+    for (int p = part * a.pu + warp; p < p1; p += GB_WARPS) {
+      const float* a1 = a.att1 + ((size_t)img * a.P + p) * A;
+      float* dst = a.esc + (size_t)i0 * a.eld + p;
+      if (a.att2_ring)
+        att_score<KMAX>(a1, aw, att2, Ap, m, dst, a.eld);
+      else
+        att_score<KMAX, true>(a1, aw, a.att2 + (size_t)i0 * A, A, m, dst,
+                              a.eld);
+    }
     __syncthreads();
   }
 }
@@ -196,6 +238,10 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
       if (s == 0) {  // after pre: the attention scores
         run_scores(a, sm, c);
         grid_sync(a.bar, gen);
+        if (a.ald == 0) {  // the softmax rows in place in esc
+          run_softmax(a, c);
+          grid_sync(a.bar, gen);
+        }
       }
     }
     run_selection<SEL>(a, sm, c, gen);
@@ -248,8 +294,13 @@ static void attention_jobs(GridArgs& a, const AttGridPlan& p, float* fs,
                        fs + p.o_att2, A);
   a.jobs[1] = bias_job(fbw, 0, FS, H, 1, FS, A_HPREV, nullptr, 0, 0, fbb,
                        fs + p.o_gpre, FS);
-  Job ctx = bias_job(feats, 0, FS, P, 1, FS, A_ALPHA, nullptr, 0, 0, nullptr,
-                     fs + p.o_ctx, FS);
+  // the context reads the softmax rows from shared memory, or (ald = 0)
+  // streams them from esc as dense input rows
+  const AlphaLayout l = alpha_layout(P, A);
+  Job ctx = l.ald ? bias_job(feats, 0, FS, P, 1, FS, A_ALPHA, nullptr, 0, 0,
+                             nullptr, fs + p.o_ctx, FS)
+                  : bias_job(feats, 0, FS, P, 1, FS, A_DENSE, fs + p.o_esc,
+                             l.eld, 0, nullptr, fs + p.o_ctx, FS);
   ctx.wimg = (long long)P * FS;
   ctx.epi = E_CTX;
   ctx.hw = fs + p.o_gpre;
@@ -268,9 +319,8 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
                       const float* emb, const float* fullw,
                       const float* fullb, GridArgs& a, float* fs, int* is,
                       int* tok, int* len, float* score, void* stream) {
-  if (p.A < 4 || p.A % 4 || KMAX * p.A > RING_FLOATS || p.FS < 4 ||
-      p.FS % 4 || p.P < 1 || p.P > MAX_P || p.pu < 1 || p.upi < 1 ||
-      p.pu * p.upi < p.P)
+  if (p.A < 4 || p.A % 4 || p.FS < 4 || p.FS % 4 || p.P < 1 || p.pu < 1 ||
+      p.upi < 1 || p.pu * p.upi < p.P)
     return cudaErrorInvalidValue;
   cudaError_t e = search_args(a, p, slabs, fs, is, tok, len, score);
   if (e != cudaSuccess) return e;
@@ -288,6 +338,10 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
   a.FS = (int)p.FS;
   a.pu = (int)p.pu;
   a.upi = (int)p.upi;
+  const AlphaLayout l = alpha_layout(a.P, a.A);
+  a.ald = l.ald;
+  a.eld = l.eld;
+  a.att2_ring = l.att2_ring;
   const void* kernel = sel_kernel(
       p, reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW>),
       reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
@@ -314,6 +368,17 @@ extern "C" void icee_mega_att_beam_consts(long long* out) {
   out[8] = KMAX;
   out[9] = KWIDE;
   out[10] = MAX_K;
+}
+
+// The alpha layout of a search over P positions at width A (alpha_layout)
+// and its launch's dynamic shared memory, for the wrapper's mirror: {ald,
+// eld, att2_ring, smem}.
+extern "C" void icee_mega_att_beam_layout(int P, int A, long long* out) {
+  const AlphaLayout l = alpha_layout(P, A);
+  out[0] = l.ald;
+  out[1] = l.eld;
+  out[2] = l.att2_ring;
+  out[3] = (long long)grid_smem_bytes(l.ald);
 }
 
 // Blocks of one cooperative launch on the current device (every

@@ -60,8 +60,9 @@ __host__ __device__ inline int att_scratch(const AttWeights& w, int rows) {
 // chain over its A quads of relu(att1_p + att2_r) * full_w, then the warp's
 // butterfly sum, the bias after; lane 0 writes dst[r * ldd].  a1 is the
 // position's att1 row (A floats, global), att2 (rows x ld2) is in shared
-// memory.  The whole warp must call it.
-template <int MAXR>
+// memory, or (CG) in device memory written by other blocks, read through
+// L2.  The whole warp must call it.
+template <int MAXR, bool CG = false>
 __device__ __forceinline__ void att_score(const float* __restrict__ a1,
                                           const AttWeights& w,
                                           const float* att2, int ld2,
@@ -76,7 +77,13 @@ __device__ __forceinline__ void att_score(const float* __restrict__ a1,
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       if (r < rows) {
-        const float4 d = *reinterpret_cast<const float4*>(att2 + r * ld2 + a);
+        const float4* dp =
+            reinterpret_cast<const float4*>(att2 + (size_t)r * ld2 + a);
+        float4 d;
+        if constexpr (CG)
+          d = __ldcg(dp);
+        else
+          d = *dp;
         e[r] = fmaf(fmaxf(v.x + d.x, 0.f), fw.x, e[r]);
         e[r] = fmaf(fmaxf(v.y + d.y, 0.f), fw.y, e[r]);
         e[r] = fmaf(fmaxf(v.z + d.z, 0.f), fw.z, e[r]);
@@ -95,17 +102,26 @@ __device__ __forceinline__ void att_score(const float* __restrict__ a1,
 }
 
 // One warp: softmax over the P scores of one row, exp(e - max) / sum, in
-// place in er (shared memory); also into out[p] when out is not null.
+// place in er (shared memory, or (CG) device memory that other blocks
+// wrote, read through L2: the same reduction either way); also into
+// out[p] when out is not null.
+template <bool CG = false>
 __device__ __forceinline__ void softmax_row(float* er, int P, float* out) {
   const int lane = threadIdx.x & 31;
+  auto e_at = [&](int p) {
+    if constexpr (CG)
+      return __ldcg(er + p);
+    else
+      return er[p];
+  };
   float m = -INFINITY;
-  for (int p = lane; p < P; p += 32) m = fmaxf(m, er[p]);
+  for (int p = lane; p < P; p += 32) m = fmaxf(m, e_at(p));
   m = warp_max(m);
   float sum = 0.f;
-  for (int p = lane; p < P; p += 32) sum += expf(er[p] - m);
+  for (int p = lane; p < P; p += 32) sum += expf(e_at(p) - m);
   sum = warp_sum(sum);
   for (int p = lane; p < P; p += 32) {
-    const float a = expf(er[p] - m) / sum;
+    const float a = expf(e_at(p) - m) / sum;
     er[p] = a;
     if (out != nullptr) out[p] = a;
   }

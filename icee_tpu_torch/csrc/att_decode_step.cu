@@ -12,8 +12,9 @@
 // beam-major permutation and vocab padding were layout devices of the TPU
 // and are not carried over.
 //
-// Two paths, chosen by the shape alone (one image: column-split, several:
-// row-tiled); a row's outputs are the same bits on both.
+// Two paths, chosen by the shape (one image whose products fit the
+// column-split launches' shared memory: column-split, else row-tiled); a
+// row's outputs are the same bits on both.
 //
 // What bounds it on the H100: at the batched shape (64 images x 5 beams,
 // E + FS = 2348, F = H = A = 512, P = 196, V = 8192) operations, ~28 MFLOP
@@ -36,7 +37,8 @@
 //      nothing of the TPU kernel's VMEM residency carries over).  Writes
 //      x_full = [emb; gate * ctx] (R, E + FS) and alpha (R, P).
 //   2-4. K1's cell, head and merge launches (step_kernels.cuh) with input
-//      width E + FS, the cell a template over the weight set; a top-k above
+//      width E + FS (8 rows a cell block to H = 544, then 4, 2 or 1), the
+//      cell a template over the weight set; a top-k above
 //      8, up to V, takes K1's wide head and reduce (wide_topk.cuh).
 #include "att_common.cuh"
 #include "split_step.cuh"
@@ -108,12 +110,28 @@ extern "C" const char* icee_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared memory (bytes) of the cell launch, the largest of the four, for
-// the wrapper's checks: input width E + FS; the LSTM cell's planes are
-// those of F = H.
+// Shared memory (bytes) of the cell launch at the rows a block it holds
+// (cell_rows: 8, 4, 2 or 1; 0 where not one row fits), for the wrapper's
+// mirror: input width E + FS; the LSTM cell's planes are those of F = H.
 extern "C" long long icee_att_step_smem(int E, int F, int H, int FS) {
-  return (long long)(sizeof(float) * CELL_ROWS *
-                     (round4(E + FS) + round4(H) + 2 * (size_t)cell_ld(F, H)));
+  const int ld = cell_ld(F, H);
+  return (long long)cell_smem(cell_rows(E + FS, H, ld), E + FS, H, ld);
+}
+
+// Shared memory (bytes) of the attention launch of a block of `rows` rows.
+extern "C" long long icee_att_attend_smem(int rows, int H, int A, int P) {
+  const AttWeights aw{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      H, A, P, 0};
+  return (long long)(sizeof(float) *
+                     ((size_t)rows * round4(H) + att_scratch(aw, rows)));
+}
+
+// Shared memory (bytes) of the column-split path's largest launch for one
+// image's k rows: above a block's, the wrapper takes the row-tiled path.
+extern "C" long long icee_att_step_split_smem(int factored, int k, int E,
+                                              int F, int H, int A, int P,
+                                              int FS) {
+  return (long long)split_att_smem(factored != 0, k, E, F, H, A, P, FS);
 }
 
 // Rows R = n_img * k, image-major, k <= 65535 groups of 8.  x (R, E); h,

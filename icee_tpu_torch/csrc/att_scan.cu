@@ -43,7 +43,12 @@
 //   - d_att1 and full_w's grad are not accumulated every step (51 MB of
 //     read-modify-write a step): the backward keeps the score grads d_e
 //     (B, P) of each step and one pass after the loop sums the T steps for
-//     each (image, p, a), reading att1 once.
+//     each (image, p, a), reading att1 once.  A block of that pass holds
+//     the image's att2 of every step, (T, A), in shared memory; where that
+//     does not fit (A = 2048 from T = 28, A = 1024 from T = 56), the pass
+//     splits A into column blocks that do (datt1_cols), each (p, a) sum
+//     and each column's share of full_w's grad as before, so the same
+//     bits: any A, and T up to ~1,800.
 // What bounds it now (PERF.md): the products still take about half of
 // each direction, 16-31 TFLOP/s for the per-step ones, bound by a launch's
 // fixed costs (pipeline fill, the partial sums) more than by their
@@ -341,31 +346,35 @@ att_bwd_kernel(const float* __restrict__ dx, const float* __restrict__ ctx,
   }
 }
 
-// After the reverse loop, block (b, chunk) for positions [chunk D1_PCH,
-// ...) of image b: d_att1[b, p, a] = sum over steps s = T - 1 .. 0 of
-// (att1 + att2_s > 0) d_e_s[p] full_w[a], and the block's share of full_w's
-// grad, sum over its positions and steps of relu(att1 + att2_s) d_e_s[p],
-// into its row of fw_part (the rows are summed in block order after).
+// After the reverse loop, block (b, chunk, column block) for positions
+// [chunk D1_PCH, ...) of image b and columns [z Ac, (z + 1) Ac) of A:
+// d_att1[b, p, a] = sum over steps s = T - 1 .. 0 of (att1 + att2_s > 0)
+// d_e_s[p] full_w[a], and the block's share of full_w's grad, sum over its
+// positions and steps of relu(att1 + att2_s) d_e_s[p], into its columns of
+// its row of fw_part (the rows are summed in block order after).  Ac = A
+// where the whole (T, A) plane fits (one column block).
 __global__ void __launch_bounds__(D1_THREADS)
 datt1_kernel(const float* __restrict__ att1, const float* __restrict__ hp,
              const float* __restrict__ de, const float* __restrict__ fullw,
              float* datt1, float* fw_part, int B, int T, int P, int A,
-             int NCAT) {
+             int NCAT, int Ac) {
   extern __shared__ __align__(16) float sm[];
-  float* a2s = sm;              // (T, A): att2 of image b at every step
-  float* des = sm + T * A;      // (T, D1_PCH): this chunk's d_e
+  const int a0 = blockIdx.z * Ac, na = min(Ac, A - a0);
+  float* a2s = sm;              // (T, na): att2 of image b at every step
+  float* des = sm + T * na;     // (T, D1_PCH): this chunk's d_e
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int p0 = blockIdx.y * D1_PCH, np = min(D1_PCH, P - p0);
-  for (int i = tid; i < T * A; i += nt) {
-    const int s = i / A, a = i % A;
-    a2s[i] = hp[((size_t)s * B + b) * NCAT + a];
+  for (int i = tid; i < T * na; i += nt) {
+    const int s = i / na, a = i % na;
+    a2s[i] = hp[((size_t)s * B + b) * NCAT + a0 + a];
   }
   for (int i = tid; i < T * D1_PCH; i += nt) {
     const int s = i / D1_PCH, q = i % D1_PCH;
     des[i] = q < np ? de[((size_t)s * B + b) * P + p0 + q] : 0.f;
   }
   __syncthreads();
-  for (int a = tid; a < A; a += nt) {
+  for (int al = tid; al < na; al += nt) {
+    const int a = a0 + al;
     const float fw = fullw[a];
     float wacc = 0.f;
     for (int q = 0; q < np; ++q) {
@@ -373,7 +382,7 @@ datt1_kernel(const float* __restrict__ att1, const float* __restrict__ hp,
       const float x = att1[at];
       float d = 0.f;
       for (int s = T - 1; s >= 0; --s) {
-        const float pre = x + a2s[s * A + a];
+        const float pre = x + a2s[s * na + al];
         if (pre > 0.f) {
           const float e = des[s * D1_PCH + q];
           d += e * fw;
@@ -443,8 +452,22 @@ scatter_rows_kernel(const int* __restrict__ tok,
   }
 }
 
-inline size_t datt1_smem(int T, int A) {
-  return sizeof(float) * ((size_t)T * A + (size_t)T * D1_PCH);
+inline size_t datt1_smem(int T, int Ac) {
+  return sizeof(float) * ((size_t)T * Ac + (size_t)T * D1_PCH);
+}
+
+// Columns of a d_att1 block (ops/att_scan.py::datt1_plan mirrors it): A
+// where the (T, A) plane fits, else the fewest column blocks whose planes
+// do, their width a multiple of 4 (the last may be narrower); 0 where not
+// even 4 columns fit (T above ~1,800).
+inline int datt1_cols(int T, int A) {
+  if (datt1_smem(T, A) <= SMEM_MAX) return A;
+  const long long most =
+      (((long long)(SMEM_MAX / sizeof(float)) - (long long)T * D1_PCH) / T) &
+      ~3LL;
+  if (most < 4) return 0;
+  const long long n = (A + most - 1) / most;
+  return (int)(((A + n - 1) / n + 3) & ~3LL);
 }
 
 // ---- the two scans ------------------------------------------------------
@@ -576,12 +599,13 @@ static int scan_bwd(bool factored, const float* att1, const float* feats,
 
   // d_att1 and full_w's grad: one pass over att1 summing the T steps
   const int n_ch = (P + D1_PCH - 1) / D1_PCH;
-  const size_t d1_smem = datt1_smem(T, A);
+  const int Ac = datt1_cols(T, A), n_col = (A + Ac - 1) / Ac;
+  const size_t d1_smem = datt1_smem(T, Ac);
   ICEE_TRY(cudaFuncSetAttribute(datt1_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)d1_smem));
-  datt1_kernel<<<dim3(B, n_ch), D1_THREADS, d1_smem, st>>>(
-      att1, hp, de, fullw, gatt1, fw_part, B, T, P, A, NCAT);
+  datt1_kernel<<<dim3(B, n_ch, n_col), D1_THREADS, d1_smem, st>>>(
+      att1, hp, de, fullw, gatt1, fw_part, B, T, P, A, NCAT, Ac);
   ICEE_TRY(cudaGetLastError());
   ICEE_TRY(colsum(fw_part, A, B * n_ch, A, gfullw, 0, st));
   float* de_col = fw_part + (size_t)B * n_ch * A;  // (P,) sums of d_e
@@ -669,12 +693,16 @@ int icee_f32_gemm(int form, const float* A, long long lda, const float* B,
               zb, zc, zbias, static_cast<cudaStream_t>(stream));
 }
 
-// Floats of the d_att1 pass's scratch, or -1 if its (T, A) plane of att2
-// does not fit a block's shared memory.
+// Floats of the d_att1 pass's scratch, or -1 if not even 4 columns of its
+// (T, A) plane of att2 fit a block's shared memory.
 long long icee_att_scan_fw_part_floats(int B, int T, int P, int A) {
-  if (datt1_smem(T, A) > SMEM_MAX) return -1;
+  if (datt1_cols(T, A) == 0) return -1;
   return (long long)B * ((P + D1_PCH - 1) / D1_PCH) * A + P;
 }
+
+// Columns of a d_att1 block at T and A (datt1_cols), for the wrapper's
+// mirror.
+int icee_att_scan_datt1_cols(int T, int A) { return datt1_cols(T, A); }
 
 int icee_att_scan_fwd(int lstm, const float* emb, const float* att1,
                       const float* feats, const float* Wcat,
@@ -718,7 +746,7 @@ int icee_att_scan_bwd(int lstm, const float* att1, const float* feats,
                       float* gfullb, float* gWin, float* gVb, float* gSw,
                       float* gSb, float* gUw, int B, int T, int E, int F,
                       int H, int A, int P, int FS, void* stream) {
-  if (B < 1 || T < 1 || A % 4 || FS % 4 || datt1_smem(T, A) > SMEM_MAX)
+  if (B < 1 || T < 1 || A % 4 || FS % 4 || datt1_cols(T, A) == 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lstm)

@@ -5,8 +5,9 @@
 // top-k (lowest vocab index on ties) -> log-softmax values of those k, plus
 // h' and c'.  The (R, V) logits never reach device memory.
 //
-// Two paths, chosen by the row count alone (R <= 8: column-split, else
-// row-tiled); a row's outputs are the same bits on both.
+// Two paths, chosen by the shape (R <= 8 rows whose products fit the
+// column-split launches' shared memory: column-split, else row-tiled); a
+// row's outputs are the same bits on both.
 //
 // Row-tiled, for the batched shapes.  What bounds it on the H100:
 // operations.  At R = 320 rows (E = 300, F = H = 512, V = 8192) one step is
@@ -25,9 +26,10 @@
 //
 // Row-tiled design: three launches on the caller's stream (step_kernels.cuh,
 // shared with K6, the attention step).
-//   1. cell: one block per 8 rows; each of the cell's stages spans all four
-//      gates (4F or 4H output columns, one column quad per thread), through
-//      shared-memory scratch planes.
+//   1. cell: one block per 8 rows (4, 2 or 1 where 8 rows' planes do not
+//      fit: E = 300 and H from 773); each of the cell's stages spans all
+//      four gates (4F or 4H output columns, one column quad per thread),
+//      through shared-memory scratch planes.
 //   2. head: grid (row blocks of 16) x (groups of 4 vocab tiles of 256).
 //      Each block computes its logits tiles into shared memory and one warp
 //      per (row, tile) reduces a tile to a partial (max, sum-exp, top-k).
@@ -70,6 +72,18 @@ extern "C" int icee_decode_step_topk(
                           CellWeights{Vw, Vb, Sw, Sb, Uw, Ub, Ww, Wb, E, F, H},
                           Cw, Cb, h_out, c_out, logp, idx, pm, pse, pv, pi, lg,
                           R, V, k, stream);
+}
+
+// Rows a block of the row-tiled cell launch holds at input width E (8, 4,
+// 2 or 1; 0: none fits), for the wrapper's mirror (decode_step.cell_rows).
+extern "C" int icee_cell_rows(int E, int F, int H) {
+  return cell_rows(E, H, cell_ld(F, H));
+}
+
+// Shared memory (bytes) of the column-split path's largest product launch
+// at R rows: above a block's, the wrapper takes the row-tiled path.
+extern "C" long long icee_decode_step_split_smem(int R, int E, int F, int H) {
+  return (long long)split_k1_smem(R, E, F, H);
 }
 
 extern "C" long long icee_decode_step_split_work(int R, int F, int H, int V) {

@@ -77,9 +77,12 @@ constexpr int MAX_K = 46340;           // widest beam: k x k candidates
                                        // indexed by an int
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_JOBS = 12;           // products of a launch, all stages
-constexpr int MAX_P = 256;             // positions of an attended image
+constexpr int MAX_P = 256;             // positions whose softmax rows sit
+                                       // at the narrow stride ALD
 constexpr int ALD = MAX_P + 4;         // row stride of a unit's softmax rows
-constexpr int ALPHA_FLOATS = KMAX * ALD;
+// dynamic shared memory a search block may take (the block's own static
+// plan copies, ~2 KB, take the rest of its 232,448 bytes)
+constexpr size_t GRID_SMEM_MAX = 229376;
 
 // The selection a launch runs (a kernel instantiation each): the tile
 // partials and the narrow tail, the wide row stage and tail, or the same
@@ -156,6 +159,11 @@ struct GridArgs {
   // h, c are the h0/c0 rows at row img * k (else zeros)
   int att, A, P, FS;
   int pu, upi;          // the scores stage: positions a unit, units an image
+  // the softmax rows' stride in shared memory (0: each row in place in
+  // esc, by a softmax stage of its own), esc's row stride, and whether
+  // the scores stage stages att2 in the ring (else reads it from L2);
+  // K2: ald = ALD, the rest unused
+  int ald, eld, att2_ring;
   // SEL_SCAN: each block's survivors (k pairs), its tail state where it
   // does not fit the ring (tail_state_floats, else null), and its row
   // lists where the launch holds more than MAX_ROWS rows (8 rows ints:
@@ -168,8 +176,9 @@ struct GridArgs {
 struct Smem {
   float* ring;          // the chunk ring; the partials and tail scratch
   float* zs;            // a gate unit's z, (4, nr, cw / 4)
-  float* alpha;         // a per-image unit's softmax rows, (KMAX, ALD)
-                        // (a unit's rows: an image's, or a group of KMAX)
+  float* alpha;         // a per-image unit's softmax rows, (KMAX, ald)
+                        // (a unit's rows: an image's, or a group of KMAX;
+                        // none where ald = 0: in device memory)
   const float** xptr;   // compact row -> its step input row
   int* list;            // compact row -> row
   int* hsrc;            // compact row -> the row of its h, c (-1: zeros)
@@ -180,17 +189,19 @@ struct Smem {
   int* wcount;          // the scan's per-warp counts
 };
 
-__host__ __device__ constexpr size_t grid_smem_bytes() {
-  return sizeof(float) * (RING_FLOATS + ZS_FLOATS + ALPHA_FLOATS) +
+// Dynamic shared memory of a search block whose softmax rows are `ald`
+// floats apart (ALD; K7 past MAX_P positions its own; 0: none).
+__host__ __device__ constexpr size_t grid_smem_bytes(int ald = ALD) {
+  return sizeof(float) * (RING_FLOATS + ZS_FLOATS + (size_t)KMAX * ald) +
          sizeof(float*) * MAX_ROWS + sizeof(int) * (6 * MAX_ROWS + 32);
 }
 
-__device__ inline Smem carve_smem(float* base) {
+__device__ inline Smem carve_smem(float* base, int ald = ALD) {
   Smem s;
   s.ring = base;
   s.zs = s.ring + RING_FLOATS;
   s.alpha = s.zs + ZS_FLOATS;
-  s.xptr = reinterpret_cast<const float**>(s.alpha + ALPHA_FLOATS);
+  s.xptr = reinterpret_cast<const float**>(s.alpha + (size_t)KMAX * ald);
   s.list = reinterpret_cast<int*>(s.xptr + MAX_ROWS);
   s.hsrc = s.list + MAX_ROWS;
   s.rmap = s.hsrc + MAX_ROWS;
@@ -205,7 +216,7 @@ __device__ inline Smem carve_smem(float* base) {
 // block's own part of a.lists in device memory.
 template <int SEL>
 __device__ inline Smem carve_lists(float* base, const GridArgs& a) {
-  Smem s = carve_smem(base);
+  Smem s = carve_smem(base, a.ald);
   if constexpr (SEL == SEL_SCAN) {
     if (a.lists != nullptr) {
       const size_t n = a.rows;
@@ -566,12 +577,22 @@ __device__ void load_alpha(const GridArgs& a, const Smem& sm,
   const int P = a.P;
   for (int e = threadIdx.x; e < x.nr * P; e += GB_THREADS) {
     const int r = e / P, p = e % P;
-    sm.alpha[r * ALD + p] = __ldcg(a.esc + (size_t)(x.i0 + r) * P + p);
+    sm.alpha[r * a.ald + p] = __ldcg(a.esc + (size_t)(x.i0 + r) * a.eld + p);
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5;
-  if (warp < x.nr) softmax_row(sm.alpha + warp * ALD, P, nullptr);
+  if (warp < x.nr) softmax_row(sm.alpha + warp * a.ald, P, nullptr);
   __syncthreads();
+}
+
+// Where the softmax rows do not fit shared memory (ald = 0): every live
+// row's softmax over P in place in esc, a warp a row over the grid (K6's
+// softmax_row, through L2), before the context stage reads them as dense
+// input rows.
+__device__ void run_softmax(const GridArgs& a, const StepCtx& c) {
+  const int warp = blockIdx.x * GB_WARPS + (threadIdx.x >> 5);
+  for (int i = warp; i < c.n; i += gridDim.x * GB_WARPS)
+    softmax_row<true>(a.esc + (size_t)i * a.eld, a.P, nullptr);
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -819,10 +840,10 @@ __device__ void run_stage(const GridArgs& a, const Stage& S, const Smem& sm,
     if (cc.act) {
       const int k0 = (ph ? cc.ch - cc.x.nch0 : cc.ch) * KC;
       const float* slot = sm.ring + (it % NSLOT) * SLOT_FLOATS;
-      const float* a0 = cc.alpha ? sm.alpha + t.lane * ALD + k0
+      const float* a0 = cc.alpha ? sm.alpha + t.lane * a.ald + k0
                                  : slot + KC * t.cw + (ph ? cc.aoff1 : cc.aoff0);
       compute(slot, t.cw, min(KC, (ph ? cc.K1 : cc.K0) - k0), t.q, a0,
-              cc.alpha ? t.lanes * ALD : t.lanes * KCP, cc.two, acc);
+              cc.alpha ? t.lanes * a.ald : t.lanes * KCP, cc.two, acc);
     }
     if (cc.ch + 1 == cc.x.nch) epilogue(a, S, sm, c, t, cc.x, acc, acc0);
     if (++cc.ch == cc.x.nch) {
@@ -1314,6 +1335,7 @@ inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
   a.start = (int)p.start;
   a.end = (int)p.end;
   a.xvec = p.E % 4 == 0;
+  a.ald = ALD;
   a.cand = nullptr;
   a.tstate = nullptr;
   a.lists = nullptr;
@@ -1373,7 +1395,7 @@ inline int grid_max_blocks3(const void* narrow, const void* wide,
 // One cooperative launch of `kernel` over `grid` blocks.
 inline cudaError_t grid_launch(const void* kernel, const GridArgs& a,
                                int grid, void* stream) {
-  const size_t smem = grid_smem_bytes();
+  const size_t smem = grid_smem_bytes(a.ald);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

@@ -502,6 +502,45 @@ inline cudaError_t launch_split_factored_tail(const CellWeights& w,
   return launch_slab<GATES_F>(a, s, true);
 }
 
+// Shared memory (bytes) of the column-split path's largest product launch
+// (slab_smem_floats) and, for K6, of its scores launch: K1's pre, style,
+// gates and logits; K6's pre, scores, ctx, vrows or the LSTM gates, style,
+// gates and logits (F = H for the LSTM cell).  The factored gates hold
+// four copies of R rows of s, so R = 8 rows refuse F above ~1,400; the
+// wrappers then take the row-tiled path, whose rows are the same bits.
+inline size_t split_slab_bytes(int K, int G, bool seg, int R) {
+  Gemv J = {};
+  J.K = K;
+  J.aseg = seg ? 1 : 0;
+  return sizeof(float) * (size_t)slab_smem_floats(J, G, R);
+}
+
+inline size_t split_cell_bytes(bool factored, int R, int E, int F, int H,
+                               int FS) {
+  size_t m = 0;
+  const size_t each[] = {
+      split_slab_bytes(E, 1, false, R), split_slab_bytes(H, 1, false, R),
+      factored ? split_slab_bytes(F, 1, true, R) : 0,
+      factored ? split_slab_bytes(F, 4, true, R)
+               : split_slab_bytes(FS, 4, false, R),
+      factored && FS > 0 ? split_slab_bytes(FS, 1, false, R) : 0};
+  for (size_t b : each) m = b > m ? b : m;
+  return m;
+}
+
+inline size_t split_k1_smem(int R, int E, int F, int H) {
+  return split_cell_bytes(true, R, E, F, H, 0);
+}
+
+inline size_t split_att_smem(bool factored, int R, int E, int F, int H,
+                             int A, int P, int FS) {
+  size_t m = split_cell_bytes(factored, R, E, F, H, FS);
+  const size_t each[] = {sizeof(float) * (size_t)R * A,
+                         split_slab_bytes(P, 1, false, R)};
+  for (size_t b : each) m = b > m ? b : m;
+  return m;
+}
+
 // Floats of the column-split path's work buffer.
 inline long long split_k1_work(int R, int F, int H, int V) {
   return (long long)R * (4 * F + 4 * H + 4 * F + V);

@@ -5,6 +5,14 @@
 // Above KMAX (a top-k of 9 to KWIDE) the head writes the logits to device
 // memory (head_logits_kernel) and wide_topk.cuh's reduce launch takes each
 // row's logZ and top-k from there.
+//
+// The cell launch holds a block's rows' planes (input, h, two scratch
+// planes of 4F or 4H) in shared memory: 8 rows a block where they fit (E_in
+// + H + 8 max(F, H) floats a row: K1 to H = 772 at E = 300, K6 to H = 544
+// at E + FS = 2,348), else 4, 2 or 1 (cell_rows, a template instance
+// each).  A row's arithmetic is the same chain in every instance, so the
+// rows a block holds change no bit.  The head launch holds 16 rows of h
+// (and, at k <= KMAX, their logits tiles): H up to ~2,600.
 #pragma once
 
 #include "decode_common.cuh"
@@ -12,12 +20,35 @@
 
 namespace icee {
 
-constexpr int CELL_ROWS = 8;
+constexpr int CELL_ROWS = 8;   // most rows of a cell block
 constexpr int HEAD_ROWS = 16;
 constexpr int HEAD_TILES = 4;  // vocab tiles per head block
 constexpr int CELL_THREADS = 512;
+constexpr size_t STEP_SMEM_MAX = 232448;  // bytes of shared memory a block
 
-template <class W>
+// Shared memory (bytes) of a cell block of `rows` rows: input width e_in,
+// hidden width H, scratch planes ld (cell_ld) wide.
+__host__ __device__ inline size_t cell_smem(int rows, int e_in, int H,
+                                            int ld) {
+  return sizeof(float) * rows * (round4(e_in) + round4(H) + 2 * (size_t)ld);
+}
+
+// Rows a cell block holds: 8, else the most of 4, 2, 1 whose planes fit;
+// 0 where not even one row's do.
+__host__ __device__ inline int cell_rows(int e_in, int H, int ld) {
+  for (int r = CELL_ROWS; r >= 1; r /= 2)
+    if (cell_smem(r, e_in, H, ld) <= STEP_SMEM_MAX) return r;
+  return 0;
+}
+
+// Shared memory (bytes) of a head block: 16 rows of h and, at k <= KMAX,
+// their logits tiles.
+__host__ __device__ inline size_t head_smem(int H, int k) {
+  return sizeof(float) * HEAD_ROWS *
+         (round4(H) + (k > KMAX ? 0 : (size_t)HEAD_TILES * VT));
+}
+
+template <class W, int ROWS>
 __global__ void __launch_bounds__(CELL_THREADS)
 cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
             const float* __restrict__ c, W w, float* h_out, float* c_out,
@@ -25,11 +56,11 @@ cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
   extern __shared__ __align__(16) float smem[];
   const int Ep = round4(w.E), Hp = round4(w.H), ld = cell_width(w);
   float* xs = smem;
-  float* hs = xs + CELL_ROWS * Ep;
-  float* s1 = hs + CELL_ROWS * Hp;
-  float* s2 = s1 + CELL_ROWS * ld;
-  const int r0 = blockIdx.x * CELL_ROWS;
-  const int rows = min(CELL_ROWS, R - r0);
+  float* hs = xs + ROWS * Ep;
+  float* s1 = hs + ROWS * Hp;
+  float* s2 = s1 + ROWS * ld;
+  const int r0 = blockIdx.x * ROWS;
+  const int rows = min(ROWS, R - r0);
   for (int i = threadIdx.x; i < rows * Ep; i += blockDim.x) {
     const int r = i / Ep, e = i % Ep;
     xs[i] = e < w.E ? x[(size_t)(r0 + r) * w.E + e] : 0.f;
@@ -39,9 +70,24 @@ cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
     hs[i] = j < w.H ? h[(size_t)(r0 + r) * w.H + j] : 0.f;
   }
   __syncthreads();
-  cell_step<CELL_ROWS>(xs, Ep, hs, Hp, c + (size_t)r0 * w.H, w.H, w, s1, s2,
-                       ld, rows, h_out + (size_t)r0 * w.H, w.H,
-                       c_out + (size_t)r0 * w.H, w.H);
+  cell_step<ROWS>(xs, Ep, hs, Hp, c + (size_t)r0 * w.H, w.H, w, s1, s2, ld,
+                  rows, h_out + (size_t)r0 * w.H, w.H,
+                  c_out + (size_t)r0 * w.H, w.H);
+}
+
+// The cell launch at `rows` (cell_rows) rows a block.
+template <class W, int ROWS>
+cudaError_t launch_cell(const float* x, const float* h, const float* c,
+                        const W& w, float* h_out, float* c_out, int R,
+                        cudaStream_t s) {
+  const size_t smem = cell_smem(ROWS, w.E, w.H, cell_width(w));
+  cudaError_t e = cudaFuncSetAttribute(
+      cell_kernel<W, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  cell_kernel<W, ROWS><<<(R + ROWS - 1) / ROWS, CELL_THREADS, smem, s>>>(
+      x, h, c, w, h_out, c_out, R);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(HEAD_TILES * QT)
@@ -129,23 +175,22 @@ cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
   const int n_tiles = (V + VT - 1) / VT;
   cudaError_t e;
   if (k > KMAX && lg == nullptr) return cudaErrorInvalidValue;
+  if (head_smem(w.H, k) > STEP_SMEM_MAX) return cudaErrorInvalidValue;
 
-  const size_t cell_smem =
-      sizeof(float) * CELL_ROWS *
-      (round4(w.E) + round4(w.H) + 2 * (size_t)cell_width(w));
-  e = cudaFuncSetAttribute(cell_kernel<W>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)cell_smem);
+  switch (cell_rows(w.E, w.H, cell_width(w))) {
+    case 8: e = launch_cell<W, 8>(x, h, c, w, h_out, c_out, R, s); break;
+    case 4: e = launch_cell<W, 4>(x, h, c, w, h_out, c_out, R, s); break;
+    case 2: e = launch_cell<W, 2>(x, h, c, w, h_out, c_out, R, s); break;
+    case 1: e = launch_cell<W, 1>(x, h, c, w, h_out, c_out, R, s); break;
+    default: return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
-  cell_kernel<W><<<(R + CELL_ROWS - 1) / CELL_ROWS, CELL_THREADS, cell_smem, s>>>(
-      x, h, c, w, h_out, c_out, R);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const dim3 head_grid((R + HEAD_ROWS - 1) / HEAD_ROWS,
                        (n_tiles + HEAD_TILES - 1) / HEAD_TILES);
   if (k > KMAX) {
     const int ld = n_tiles * VT;
-    const size_t smem = sizeof(float) * HEAD_ROWS * round4(w.H);
+    const size_t smem = head_smem(w.H, k);
     e = cudaFuncSetAttribute(head_logits_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -160,13 +205,12 @@ cudaError_t launch_step_topk(const float* x, const float* h, const float* c,
                   : nullptr,
         s);
   }
-  const size_t head_smem =
-      sizeof(float) * HEAD_ROWS * (round4(w.H) + HEAD_TILES * VT);
+  const size_t hsmem = head_smem(w.H, k);
   e = cudaFuncSetAttribute(head_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)head_smem);
+                           (int)hsmem);
   if (e != cudaSuccess) return e;
-  head_kernel<<<head_grid, HEAD_TILES * QT, head_smem, s>>>(
+  head_kernel<<<head_grid, HEAD_TILES * QT, hsmem, s>>>(
       h_out, Cw, Cb, pm, pse, pv, pi, R, w.H, V, n_tiles, k);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

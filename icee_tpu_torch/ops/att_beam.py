@@ -19,7 +19,12 @@ and tail (``ops/beam.py::selection_kind``: also at k <= 8 where the
 narrow tail outgrows the ring; above 256 with the survivors, and past
 ``MAX_ROWS`` rows the row lists, in device memory).  :func:`init_state` runs the search's mean and h0/c0 stage
 alone for the fused-step path (``att_decode_step.att_init_state``),
-planned by :func:`att_init_plan`.  The TPU scheduling knobs
+planned by :func:`att_init_plan`.  Any P and A (:func:`alpha_layout`):
+a unit's softmax rows sit in shared memory while they fit beside the ring
+(P to 1,784), past that a softmax stage of their own turns each row of
+scores into alpha in place in device memory and the context stage streams
+them; the scores stage stages att2 in the ring to A = 3,840 and reads it
+from L2 past that.  The TPU scheduling knobs
 (``n_img_block``, ``n_streams``, ``topk_fold``, ``p_stream``, ``p_tile``,
 ``_profile``) have no counterpart.  :func:`mega_att_beam_decode_plain` is
 the same search in plain PyTorch (``beam_search_batched`` over the
@@ -68,12 +73,41 @@ from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_K, MAX_ROWS,
                                      slabs_on)
 from icee_tpu_torch.ops.decode_step import K_WIDE, check_beam_width
 
-# csrc/grid_beam.cuh's limits for the attention (checked against the
+# csrc/grid_beam.cuh's geometry for the attention (checked against the
 # library when it loads)
-MAX_P = 256                   # positions of an image
+MAX_P = 256                   # positions whose softmax rows sit at ALD
+ALD = MAX_P + 4               # their row stride in shared memory
+GRID_SMEM_MAX = 229376        # dynamic shared memory a search block takes
+ZS_FLOATS = 64 * 64           # a gate unit's z exchange
 WARPS = THREADS // 32         # a block's warps: positions it scores at once
 ATT_GROUP = K_MAX             # rows of a per-image unit: a wider beam's
                               # image takes ceil(k / 8) units' places
+
+
+def grid_smem(ald: int) -> int:
+    """Bytes of dynamic shared memory of a search block whose softmax rows
+    are ``ald`` floats apart (``csrc/grid_beam.cuh`` ``grid_smem_bytes``):
+    the ring, the z exchange, 8 softmax rows, the row lists."""
+    return (4 * (NSLOT * SLOT_FLOATS + ZS_FLOATS + K_MAX * ald)
+            + 8 * MAX_ROWS + 4 * (6 * MAX_ROWS + 32))
+
+
+def alpha_layout(p: int, a: int) -> Tuple[int, int, bool]:
+    """Where a search over ``p`` positions at (padded) attention width
+    ``a`` keeps what its per-image stages read (``csrc/att_beam.cu``
+    ``alpha_layout``): (the softmax rows' stride in shared memory, the
+    attention scores' row stride, whether the scores stage stages att2 in
+    the ring).  The stride is ``ALD`` to ``MAX_P`` positions (the launch as
+    it was), round4(P) + 4 while the block's shared memory holds 8 such
+    rows beside the ring (P to 1,784), else 0: each row's softmax in place
+    in the scores (device memory, rows round4(P) apart) by a stage of its
+    own.  att2 rows stage in the ring while 8 of them fit (A to 3,840),
+    else the scores stage reads them from L2."""
+    ald = ALD if p <= MAX_P else widths.quad(p) + 4
+    if grid_smem(ald) > GRID_SMEM_MAX:
+        ald = 0
+    return ald, p if ald else widths.quad(p), K_MAX * widths.quad(a) <= \
+        NSLOT * SLOT_FLOATS
 
 
 def image_groups(n_img: int, k: int) -> int:
@@ -152,6 +186,18 @@ class AttGridPlan(GridPlan):
     pu: int
     upi: int
 
+    @property
+    def alpha(self) -> Tuple[int, int, bool]:
+        """(softmax rows' stride in shared memory, 0: in device memory;
+        the scores' row stride; att2 staged in the ring):
+        :func:`alpha_layout`."""
+        return alpha_layout(self.p, self.a)
+
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory of a block of the launch."""
+        return grid_smem(self.alpha[0])
+
 
 def att_stage_jobs(kind: str, e: int, f: int, h: int, v: int, a: int,
                    fs: int) -> Tuple[Tuple[Job, ...], ...]:
@@ -216,11 +262,8 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
                          f"grid={grid}, a={a}, fs={fs}: each must be "
                          "positive")
     f, h, v, a, fs = map(widths.quad, (f, h, v, a, fs))
-    if not 1 <= p <= MAX_P:
-        raise ValueError(f"P={p} positions outside [1, {MAX_P}]")
-    if K_MAX * a > NSLOT * SLOT_FLOATS:
-        raise ValueError(f"A={a}: {K_MAX} rows of att2 do not fit the "
-                         "kernel's ring")
+    if p < 1:
+        raise ValueError(f"P={p} positions: at least 1")
     rows = n_img * k
     check_plan_rows(n_img, k)
     n_tiles = -(-v // V_TILE)
@@ -236,7 +279,8 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
     sel = selection_regions(rows, n_tiles, k, max_seq + 2)
     floats = carve_regions([
         ("att2", rows * a), ("gpre", rows * fs), ("hw", rows * 4 * h),
-        ("xpart", rows * 4 * f), ("esc", rows * p), ("ctx", rows * fs),
+        ("xpart", rows * 4 * f), ("esc", rows * alpha_layout(p, a)[1]),
+        ("ctx", rows * fs),
         ("v", rows * 4 * f if fact else 0), ("s", rows * 4 * f if fact else 0),
         ("hn", 2 * rows * h), ("cn", 2 * rows * h),
         ("logits", rows * n_tiles * V_TILE), ("pm", sel["pm"]),
@@ -546,15 +590,32 @@ def _library() -> ctypes.CDLL:
         "icee_mega_att_beam_decode_lstm": ([vp] * 27, i),
         "icee_mega_att_beam_max_grid": ([vp], i),
         "icee_att_init_state": ([vp] * 11, i),
-        "icee_mega_att_beam_consts": ([vp], None)})
+        "icee_mega_att_beam_consts": ([vp], None),
+        "icee_mega_att_beam_layout": ([i, i, vp], None)})
     if getattr(lib, "geometry_checked", False):
         return lib
     consts = (ctypes.c_longlong * 11)()
     lib.icee_mega_att_beam_consts(consts)
     want = (THREADS, KC, KCP, NSLOT, SLOT_FLOATS, MAX_ROWS, MAX_P, K_MAX,
             K_WIDE, MAX_K)
-    if tuple(consts[1:]) != want:
-        raise RuntimeError(f"csrc/att_beam.cu's geometry {tuple(consts[1:])} "
-                           f"is not the wrapper's {want}")
+    if tuple(consts[1:]) != want or consts[0] != grid_smem(ALD):
+        raise RuntimeError(f"csrc/att_beam.cu's geometry {tuple(consts)} "
+                           f"is not the wrapper's {(grid_smem(ALD), *want)}")
+    for p in LAYOUT_PS:
+        for a in (4, 512, 3840, 3844, 4096):
+            out = (ctypes.c_longlong * 4)()
+            lib.icee_mega_att_beam_layout(p, a, out)
+            ald, eld, ring = alpha_layout(p, a)
+            if tuple(out) != (ald, eld, int(ring), grid_smem(ald)):
+                raise RuntimeError(
+                    f"csrc/att_beam.cu's alpha layout {tuple(out)} at P={p}, "
+                    f"A={a} is not the wrapper's "
+                    f"{(ald, eld, int(ring), grid_smem(ald))}")
     lib.geometry_checked = True
     return lib
+
+
+# P at which the library's alpha layout is held to alpha_layout when it
+# loads: each side of both of its boundaries, the grids users run
+LAYOUT_PS = (1, 49, 196, 256, 257, 289, 400, 1024, 1781, 1784, 1785, 2304,
+             4096)

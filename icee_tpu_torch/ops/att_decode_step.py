@@ -9,12 +9,15 @@ the shape alone and giving the same bits for a row:
   ``csrc/split_step.cuh``): pre (every product of h and of the embedding),
   scores, context, then the cell's and the head's launches, each product's
   columns spread over the whole card and chained by programmatic dependent
-  launch;
+  launch; where those launches' shared memory does not hold the rows
+  (:func:`split_att_smem`: the factored cell at F above ~1,400 and k =
+  8), the row-tiled path;
 * row-tiled (several images, or more than 8 rows an image; the batched
   shapes): an attention launch (one block per image and group of up to 8
   of its rows) writes x = [emb; gate * ctx], then K1's cell, head and
   merge launches run with input width E + FS (the cell a template over the
-  weight set).
+  weight set; 8 rows a cell block to H = 544, then 4, 2 or 1:
+  ``decode_step.cell_rows``).
 
 Top-ks above ``K_MAX`` = 8, up to V, take K1's wide head and reduce
 (``csrc/wide_topk.cuh``), the same bits as the narrow merge would give
@@ -52,9 +55,13 @@ from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
-from icee_tpu_torch.ops.decode_step import (K_MAX, SPLIT_ROWS, V_TILE,
-                                            check_beam_width, scratch_ptrs,
-                                            tiled_scratch, wide_cand_floats)
+from icee_tpu_torch.ops.decode_step import (K_MAX, MIRROR_SHAPES,
+                                            SPLIT_ROWS, V_TILE,
+                                            cell_rows, cell_smem,
+                                            check_beam_width, check_tiled,
+                                            scratch_ptrs, split_cell_smem,
+                                            split_slab_smem, tiled_scratch,
+                                            wide_cand_floats)
 
 KINDS = ("factored", "lstm")
 
@@ -159,9 +166,31 @@ def step_layout(cell_params: dict, att_params: dict, gate_params: dict,
     return w, widths.pad_tree(tree, w)
 
 
+def attend_smem(rows: int, h: int, a: int, p: int) -> int:
+    """Bytes of shared memory of a row-tiled attention block of ``rows``
+    rows (``csrc/att_decode_step.cu`` ``att_step``): their h, att2 and
+    scores."""
+    return 4 * rows * (widths.quad(h) + widths.quad(a) + widths.quad(p))
+
+
+def split_att_smem(factored: bool, k: int, e: int, f: int, h: int, a: int,
+                   p: int, fs: int) -> int:
+    """Bytes of shared memory of K6's largest column-split launch for one
+    image's k rows (``csrc/split_step.cuh`` ``split_att_smem``): the cell's
+    and pre launches, the scores launch's att2 rows, the context's."""
+    return max(split_cell_smem(factored, k, e, f, h, fs), 4 * k * a,
+               split_slab_smem(p, 1, False, k))
+
+
+def tiled_step_smem(e: int, f: int, h: int, fs: int) -> int:
+    """Bytes of shared memory of the row-tiled cell launch at the rows a
+    block holds (``icee_att_step_smem``; 0 where not one row fits)."""
+    rows = cell_rows(e + fs, f, h)
+    return cell_smem(rows, e + fs, f, h) if rows else 0
+
+
 def _step_weights(cell_params: dict, att_params: dict, gate_params: dict,
-                  kind: str, e: int, fs: int, device: torch.device,
-                  split: bool):
+                  kind: str, e: int, fs: int, device: torch.device):
     """Validates the step's weights; -> (widths, kernel weights): on a
     CUDA device the kernel's weight arguments after the step's inputs (at
     the padded widths), its cell widths after the outputs, and the padded
@@ -173,13 +202,7 @@ def _step_weights(cell_params: dict, att_params: dict, gate_params: dict,
     if device.type != "cuda":
         raise ValueError(f"att_decode_step_topk: unsupported device {device}")
     w, kern = step_layout(cell_params, att_params, gate_params, kind, e)
-    fp, hp, fsp = w["F"][1], w["H"][1], w["FS"][1]
-    if not split:  # the row-tiled cell launch holds 8 rows' planes
-        smem = _library().icee_att_step_smem(e, fp, hp, fsp)
-        if smem > cuda_lib.SMEM_LIMIT:
-            raise ValueError(f"att_decode_step_topk needs {smem} bytes of "
-                             f"shared memory per block, more than "
-                             f"{cuda_lib.SMEM_LIMIT}")
+    fp, hp = w["F"][1], w["H"][1]
     ptr = cuda_lib.ptr
     names = ATT_WEIGHTS + GATE_WEIGHTS + CELL_WEIGHTS[kind] + ("C_w", "C_b")
     held = (tuple(ptr(kern[n]) for n in names),
@@ -209,11 +232,10 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     n_img, p, fs = features.shape
     if k < 1 or rows != n_img * k:
         raise ValueError(f"{rows} rows for {n_img} images of k={k}")
-    split = n_img == 1 and k <= SPLIT_ROWS
     w, wp = cuda_lib.checked_weights(
-        (cell_params, att_params, gate_params), (kind, e, fs, device, split),
+        (cell_params, att_params, gate_params), (kind, e, fs, device),
         lambda: _step_weights(cell_params, att_params, gate_params, kind, e,
-                              fs, device, split))
+                              fs, device))
     hd, v, a = w["H"][0], w["V"][0], w["A"][0]
     for name, t, shape in (("x", x, (rows, e)), ("h", h, (rows, hd)),
                            ("c", c, (rows, hd)),
@@ -228,6 +250,17 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
 
     lib = _library()
     fp, hp, vp, ap, fsp = (w[n][1] for n in ("F", "H", "V", "A", "FS"))
+    split = (n_img == 1 and k <= SPLIT_ROWS and split_att_smem(
+        kind == "factored", k, e, fp, hp, ap, p, fsp) <= cuda_lib.SMEM_LIMIT)
+    if not split:
+        what = f"att_decode_step_topk (K6, kind={kind})"
+        smem = attend_smem(min(k, K_MAX), hp, ap, p)
+        if smem > cuda_lib.SMEM_LIMIT:
+            raise ValueError(
+                f"{what}: the attention launch's {min(k, K_MAX)} rows at "
+                f"H={hp}, A={ap}, P={p} need {smem} bytes of shared memory, "
+                f"more than {cuda_lib.SMEM_LIMIT}")
+        check_tiled(what, e + fsp, fp, hp, ktop)
     f32 = dict(dtype=torch.float32, device=device)
     h_out = torch.empty((rows, hp), **f32)
     c_out = torch.empty((rows, hp), **f32)
@@ -306,11 +339,35 @@ att_init_state.launches = 0
 
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return cuda_lib.library("att_decode_step", {
+    ll = ctypes.c_longlong
+    lib = cuda_lib.library("att_decode_step", {
         "icee_att_decode_step_topk": ([vp] * 32 + [i] * 10 + [vp], i),
         "icee_att_decode_step_topk_lstm": ([vp] * 28 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_split": ([vp] * 27 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_lstm_split": (
             [vp] * 23 + [i] * 8 + [vp], i),
-        "icee_att_step_split_work": ([i] * 8, ctypes.c_longlong),
-        "icee_att_step_smem": ([i] * 4, ctypes.c_longlong)})
+        "icee_att_step_split_work": ([i] * 8, ll),
+        "icee_att_step_smem": ([i] * 4, ll),
+        "icee_att_attend_smem": ([i] * 4, ll),
+        "icee_att_step_split_smem": ([i] * 8, ll)})
+    if getattr(lib, "mirrors_checked", False):
+        return lib
+    for e_in, f, h in MIRROR_SHAPES:   # E + FS = e_in, E = 300 or e_in
+        e, fs = (300, e_in - 300) if e_in > 300 else (e_in, 0)
+        for kind, ff in (("factored", f), ("lstm", h)):
+            got = (lib.icee_att_step_smem(e, ff, h, fs),
+                   lib.icee_att_attend_smem(8, h, 512, 1024),
+                   *(lib.icee_att_step_split_smem(kind == "factored", r, e,
+                                                  ff, h, 512, 400, fs)
+                     for r in (1, 5, 8)))
+            want = (tiled_step_smem(e, ff, h, fs),
+                    attend_smem(8, h, 512, 1024),
+                    *(split_att_smem(kind == "factored", r, e, ff, h, 512,
+                                     400, fs) for r in (1, 5, 8)))
+            if got != want:
+                raise RuntimeError(
+                    f"csrc/att_decode_step.cu's shared memory "
+                    f"{got} at {kind} (E, F, H, FS) = {(e, ff, h, fs)} are "
+                    f"not the wrapper's {want}")
+    lib.mirrors_checked = True
+    return lib

@@ -37,7 +37,9 @@ follow) and :func:`att_scan_bwd_plain` (the explicit backward of
 take the plain versions only for tensors on the CPU; for CUDA tensors they
 launch the kernels or raise, on any A and FS (the kernels read att1, the
 features and the attention weights at widths rounded up to 4,
-:func:`card_layout`).  Launch counts, per cell and mode:
+:func:`card_layout`) and T up to ~1,800 (the backward's d_att1 pass in
+column blocks of A where its (T, A) plane does not fit a block,
+:func:`datt1_plan`).  Launch counts, per cell and mode:
 ``att_scan_fwd.launches`` (factored, teacher-forced), ``.lstm_launches``,
 ``.sampled_launches``, ``.sampled_lstm_launches``, and the same on
 ``att_scan_bwd``.
@@ -699,11 +701,9 @@ def att_scan_bwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
     ncat, g4 = a + fs + 4 * h, 4 * (h if lstm else f)
     w_cat, _, in_w, _, _ = _kernel_weights(cell, att, kind)
     f32 = dict(dtype=torch.float32, device=device)
+    datt1_plan(t, a)   # raises past the pass's T
     lib = _library()
     n_fw = lib.icee_att_scan_fw_part_floats(b, t, p, a)
-    if n_fw < 0:
-        raise ValueError(f"att_scan_bwd: T={t} x A={a} does not fit the "
-                         f"d_att1 pass's shared memory")
     sc = {"demb": torch.empty((t, b, e), **f32),
           "dsamp": torch.empty((t, b, e), **f32) if samp is not None
           else None,
@@ -915,10 +915,35 @@ def fused_att_scan_sampled(cell: dict, att: dict, head: dict, emb_seq,
                                  head["B"], *weights)
 
 
+D1_PCH = 28   # csrc/att_scan.cu: positions a block of the d_att1 pass
+
+
+def datt1_plan(t: int, a: int) -> Tuple[int, int]:
+    """(columns a block, column blocks) of the backward's d_att1 pass
+    (``csrc/att_scan.cu`` ``datt1_cols``): a block holds the image's att2
+    of every step, (T, A_c), and d_e of its 28 positions, (T, 28), in
+    shared memory; A_c = A where that fits, else the fewest column blocks
+    that do, their width a multiple of 4.  Each (position, column) sum is
+    the same chain either way.  Raises ValueError where not even 4 columns
+    fit (T above ~1,800)."""
+    floats = cuda_lib.SMEM_LIMIT // 4
+    if t * (a + D1_PCH) <= floats:
+        return a, 1
+    most = (floats - t * D1_PCH) // t & ~3
+    if most < 4:
+        raise ValueError(f"att_scan_bwd (K5): T={t} steps of att2 and d_e "
+                         f"do not fit the d_att1 pass's shared memory even "
+                         f"4 columns a block (T <= "
+                         f"{floats // (4 + D1_PCH)})")
+    n = -(-a // most)
+    cols = (-(-a // n) + 3) & ~3
+    return cols, -(-a // cols)
+
+
 def _library() -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     product = [i, vp, ll, vp, ll, vp, ll, vp] + [i] * 4 + [ll] * 4
-    return cuda_lib.library("att_scan", {
+    lib = cuda_lib.library("att_scan", {
         "icee_att_scan_fwd": ([i] + [vp] * 31 + [i] * 9 + [vp], i),
         "icee_att_scan_bwd": ([i] + [vp] * 40 + [i] * 8 + [vp], i),
         "icee_scatter_rows": ([vp, vp, i, i, i, vp, vp], i),
@@ -926,4 +951,16 @@ def _library() -> ctypes.CDLL:
         "icee_att_scan_fw_part_floats": ([i] * 4, ll),
         "icee_tf32x3_part_floats": ([i] * 4, ll),
         "icee_tf32x3_gemm": (product + [vp, vp], i),
-        "icee_f32_gemm": (product + [vp], i)})
+        "icee_f32_gemm": (product + [vp], i),
+        "icee_att_scan_datt1_cols": ([i, i], i)})
+    if getattr(lib, "mirrors_checked", False):
+        return lib
+    for t in (1, 25, 27, 28, 42, 55, 56, 62, 107, 108, 500, 1816):
+        for a in (4, 20, 512, 1024, 1028, 2048, 3840, 4096, 8192):
+            got = lib.icee_att_scan_datt1_cols(t, a)
+            if got != datt1_plan(t, a)[0]:
+                raise RuntimeError(f"csrc/att_scan.cu's d_att1 columns {got} "
+                                   f"at T={t}, A={a} are not the wrapper's "
+                                   f"{datt1_plan(t, a)}")
+    lib.mirrors_checked = True
+    return lib

@@ -7,9 +7,13 @@ alone and giving the same bits for a row:
 * column-split (R <= ``SPLIT_ROWS`` = 8, one image's beam on the serial
   serving path; ``csrc/split_step.cuh``): five launches, each product's
   columns spread over the whole card, weights streamed by ``cp.async``;
+  where its launches' shared memory does not hold R rows
+  (:func:`split_k1_smem`: F above ~1,400 at R = 8), the row-tiled path;
 * row-tiled (larger R, the batched shapes; ``csrc/step_kernels.cuh``):
   three launches, cell, per-tile head partials, merge; the (R, V) logits
-  never reach device memory.
+  never reach device memory.  A cell block holds 8 rows where their planes
+  fit, else 4, 2 or 1 (:func:`cell_rows`); the head block 16 rows of h
+  (:func:`check_tiled`: H up to ~2,600).
 
 A top-k above ``K_MAX`` = 8, up to V, takes either path with the wide
 reduce (``csrc/wide_topk.cuh``): the head writes the logits to device
@@ -44,6 +48,11 @@ V_TILE = 256   # csrc/decode_common.cuh VT
 K_MAX = 8      # csrc/decode_common.cuh KMAX: the narrow paths' widest k
 K_WIDE = 256   # csrc/wide_topk.cuh KWIDE: most survivors in shared memory
 SPLIT_ROWS = 8  # csrc/split_step.cuh SPLIT_ROWS: most rows of the split path
+CELL_ROWS = 8   # csrc/step_kernels.cuh CELL_ROWS: most rows of a cell block
+HEAD_ROWS = 16  # csrc/step_kernels.cuh HEAD_ROWS: rows of a head block
+HEAD_TILES = 4  # csrc/step_kernels.cuh HEAD_TILES: vocab tiles a head block
+# csrc/split_step.cuh: a slab launch's ring and chunks
+SPLIT_RING, SPLIT_CHUNK_ROWS, SPLIT_SLAB_F4 = 6, 128, 4
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -133,6 +142,86 @@ def block_select_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.from_numpy(out).to(keys.device)
 
 
+def cell_smem(rows: int, e_in: int, f: int, h: int) -> int:
+    """Bytes of shared memory of a row-tiled cell block of ``rows`` rows
+    (``csrc/step_kernels.cuh`` ``cell_smem``): each row's input (``e_in``),
+    h and two scratch planes of 4 max(F, H) floats (the LSTM cell: F =
+    H)."""
+    ld = widths.quad(4 * max(f, h))
+    return 4 * rows * (widths.quad(e_in) + widths.quad(h) + 2 * ld)
+
+
+def cell_rows(e_in: int, f: int, h: int) -> int:
+    """Rows a cell block holds (``csrc/step_kernels.cuh`` ``cell_rows``):
+    8 where their planes fit a block's shared memory, else the most of 4,
+    2, 1 that fit; 0 where not one row's do (H above ~6,000).  The rows a
+    block holds change no row's bits."""
+    for rows in (8, 4, 2, 1):
+        if cell_smem(rows, e_in, f, h) <= cuda_lib.SMEM_LIMIT:
+            return rows
+    return 0
+
+
+def head_smem(h: int, ktop: int) -> int:
+    """Bytes of shared memory of a head block: 16 rows of h and, at
+    ``ktop`` <= ``K_MAX``, their logits tiles."""
+    return 4 * HEAD_ROWS * (widths.quad(h)
+                            + (0 if ktop > K_MAX else HEAD_TILES * V_TILE))
+
+
+def check_tiled(what: str, e_in: int, f: int, h: int, ktop: int) -> None:
+    """Raise ValueError, naming the launch, where the row-tiled step's
+    cell or head launch does not fit a block's shared memory (the padded
+    widths)."""
+    if cell_rows(e_in, f, h) == 0:
+        raise ValueError(
+            f"{what}: the cell launch does not hold one row at E_in={e_in}, "
+            f"F={f}, H={h} ({cell_smem(1, e_in, f, h)} bytes of shared "
+            f"memory, more than {cuda_lib.SMEM_LIMIT})")
+    if head_smem(h, ktop) > cuda_lib.SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: the head launch's {HEAD_ROWS} rows at H={h}, "
+            f"ktop={ktop} need {head_smem(h, ktop)} bytes of shared memory, "
+            f"more than {cuda_lib.SMEM_LIMIT}")
+
+
+def split_slab_smem(k: int, gates: int, seg: bool, rows: int) -> int:
+    """Bytes of shared memory of one column-split product launch
+    (``csrc/split_step.cuh`` ``slab_smem_floats``): its ring, its input
+    rows (a copy a gate where each gate reads its own segment) and, for
+    the gates, the z exchange."""
+    nch = -(-k // SPLIT_CHUNK_ROWS)
+    kp = ((k + 31) & ~31) + 4
+    floats = (min(nch, SPLIT_RING) * SPLIT_CHUNK_ROWS * 4 * SPLIT_SLAB_F4
+              + (gates if seg else 1) * rows * kp
+              + (4 * rows * SPLIT_SLAB_F4 if gates == 4 else 0))
+    return 4 * floats
+
+
+def split_cell_smem(factored: bool, rows: int, e: int, f: int, h: int,
+                    fs: int = 0) -> int:
+    """The largest of the split path's cell and pre launches
+    (``split_cell_bytes``): the x and h products, the factored style and
+    gates (four copies of s: R = 8 refuses F above ~1,400) or the LSTM
+    gates over FS, the factored rows of V_w past E."""
+    each = [split_slab_smem(e, 1, False, rows),
+            split_slab_smem(h, 1, False, rows)]
+    if factored:
+        each += [split_slab_smem(f, 1, True, rows),
+                 split_slab_smem(f, 4, True, rows)]
+        if fs > 0:
+            each.append(split_slab_smem(fs, 1, False, rows))
+    else:
+        each.append(split_slab_smem(fs, 4, False, rows))
+    return max(each)
+
+
+def split_k1_smem(rows: int, e: int, f: int, h: int) -> int:
+    """Bytes of shared memory of K1's largest column-split launch at
+    ``rows`` rows (``csrc/split_step.cuh`` ``split_k1_smem``)."""
+    return split_cell_smem(True, rows, e, f, h)
+
+
 FACTORED_WEIGHTS = ("V_w", "V_b", "S_w", "S_b", "U_w", "U_b", "W_w", "W_b",
                     "C_w", "C_b")   # the kernels' weight arguments, in order
 
@@ -200,7 +289,11 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
     h_in, c_in = widths.pad_last(h, hp), widths.pad_last(c, hp)
     head = (p(x), p(h_in), p(c_in), *weights[0], p(h_out), p(c_out),
             p(logp), p(idx))
-    if rows <= SPLIT_ROWS:
+    split = (rows <= SPLIT_ROWS and split_k1_smem(rows, e, fp, hp)
+             <= cuda_lib.SMEM_LIMIT)
+    if not split:
+        check_tiled("decode_step_topk (K1)", e, fp, hp, ktop)
+    if split:
         work = torch.empty((lib.icee_decode_step_split_work(rows, fp, hp, vp)
                             + wide_cand_floats(rows, ktop),), **f32)
         rc = lib.icee_decode_step_topk_split(
@@ -221,7 +314,7 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
 
 decode_step_topk.launches = 0        # kernel calls, either path
 decode_step_topk.split_launches = 0  # R <= SPLIT_ROWS (5 CUDA launches)
-decode_step_topk.tiled_launches = 0  # larger R (3 CUDA launches)
+decode_step_topk.tiled_launches = 0  # the rest (3 CUDA launches)
 decode_step_topk.wide_launches = 0   # ktop > K_MAX, either path
 
 
@@ -254,9 +347,37 @@ def scratch_ptrs(tensors) -> list:
     return [None if t is None else cuda_lib.ptr(t) for t in tensors]
 
 
+# (E_in, F, H) at which the library's cell rows and split-path shared
+# memory are held to the mirrors when it loads: each side of every rows
+# boundary of K1 and K6, the training scans' widths, ragged ones
+MIRROR_SHAPES = tuple((e, f, h) for e in (16, 300, 301, 2348, 2349)
+                      for f, h in ((32, 32), (512, 512), (544, 544),
+                                   (548, 548), (772, 772), (776, 776),
+                                   (1024, 1024), (1400, 1400),
+                                   (1424, 1424), (2048, 2048),
+                                   (2052, 2052), (512, 2048), (6000, 6000)))
+
+
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return cuda_lib.library("decode_step", {
+    ll = ctypes.c_longlong
+    lib = cuda_lib.library("decode_step", {
         "icee_decode_step_topk": ([vp] * 22 + [i] * 6 + [vp], i),
         "icee_decode_step_topk_split": ([vp] * 18 + [i] * 6 + [vp], i),
-        "icee_decode_step_split_work": ([i] * 4, ctypes.c_longlong)})
+        "icee_decode_step_split_work": ([i] * 4, ll),
+        "icee_cell_rows": ([i] * 3, i),
+        "icee_decode_step_split_smem": ([i] * 4, ll)})
+    if getattr(lib, "mirrors_checked", False):
+        return lib
+    for e, f, h in MIRROR_SHAPES:
+        got = (lib.icee_cell_rows(e, f, h),
+               *(lib.icee_decode_step_split_smem(r, e, f, h)
+                 for r in (1, 5, 8)))
+        want = (cell_rows(e, f, h),
+                *(split_k1_smem(r, e, f, h) for r in (1, 5, 8)))
+        if got != want:
+            raise RuntimeError(f"csrc/decode_step.cu's cell rows and split "
+                               f"shared memory {got} at (E, F, H) = "
+                               f"{(e, f, h)} are not the wrapper's {want}")
+    lib.mirrors_checked = True
+    return lib

@@ -98,7 +98,7 @@ def rank_device(device, rank: Optional[int] = None) -> torch.device:
     return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
 
 
-def make_mesh(shape: Optional[Tuple[int, int]] = None, device="cpu",
+def make_mesh(shape: Optional[Tuple[int, int]] = None, device="cuda",
               backend: Optional[str] = None) -> Mesh:
     """Build this rank's ``(data, model)`` mesh over the initialized world.
 

@@ -61,7 +61,8 @@ def vocab_losses(mesh, p: dict) -> dict:
 
     out = {}
     for shape in p["shapes"]:
-        m = mesh if tuple(shape) == mesh.shape else make_mesh(shape)
+        m = mesh if tuple(shape) == mesh.shape else make_mesh(
+            shape, device=mesh.device)
         v = p["w"].shape[1]
         vocab = vocab_shard(m, v)
 

@@ -2,8 +2,9 @@
 takes its plain version, against the JAX package's
 ``mega_att_beam_decode``, both its resident call and its P-streamed call
 (``p_stream=True``, two P tiles), in interpret mode, and against the XLA
-``beam_search_batched`` attention beam, for both cells; plus the port's two
-decode paths (``decode/fast.py``), which must agree with each other.
+``beam_search_batched`` attention beam, for both cells, also at P = 289
+(past the 256 positions the card once took); plus the port's two decode
+paths (``decode/fast.py``), which must agree with each other.
 
 Weights are JAX's init shapes redrawn as N(0, gain^2 / fan_in) with a
 sharpened head and a bias on ``<end>``, so that beams complete at lengths
@@ -243,3 +244,33 @@ def test_wrapper_raises_on_what_it_does_not_take():
     assert got.tokens.shape == (BATCH, 5)
     with pytest.raises(ValueError, match="unknown kind"):
         mega_att_beam_decode(tp, feats, 0, BATCH, k=K, kind="gru")
+
+
+@pytest.mark.filterwarnings("ignore:mega_att_beam_decode")
+@pytest.mark.parametrize("kind,style", [("factored", 1), ("lstm", 0)])
+def test_past_256_positions_matches_both_jax_calls(kind, style):
+    """P = 289 (``precompute_features --spatial --grid 17``), past the 256
+    positions whose softmax rows the card's K7 once held at a fixed
+    stride: the plain version answers as JAX's resident call and its
+    P-streamed call (tiles of 64, the last one padded) in interpret
+    mode."""
+    tree = _params(kind)
+    jp = jax.tree.map(jnp.asarray, tree)
+    feats = np.random.default_rng(7).standard_normal(
+        (2, 289, CFG.feature_size)).astype(np.float32)
+    common = dict(start_token=1, end_token=2, k=3, max_seq_length=4,
+                  n_img_block=2, v_tile=128, kind=kind, interpret=True)
+    jstyle = jnp.asarray(style)
+    wants = {"resident": jmega(jp, feats, jstyle, 2, **common),
+             "p-streamed": jmega(jp, feats, jstyle, 2, p_stream=True,
+                                 p_tile=64, **common)}
+    got = mega_att_beam_decode(bridge.to_torch(tree), torch.tensor(feats),
+                               style, 2, start_token=1, end_token=2, k=3,
+                               max_seq_length=4, kind=kind)
+    for name, want in wants.items():
+        np.testing.assert_array_equal(got.tokens.numpy(),
+                                      np.asarray(want.tokens), err_msg=name)
+        np.testing.assert_array_equal(got.length.numpy(),
+                                      np.asarray(want.length), err_msg=name)
+        np.testing.assert_allclose(got.score.numpy(), np.asarray(want.score),
+                                   rtol=0, atol=1e-4, err_msg=name)

@@ -9,9 +9,12 @@ images (as many as ``MAX_ROWS`` rows hold) and k = 1, 5, 8 and the wide
 paths' 9, 20, 64, 256, both kinds, and past one block (k = 257 up to V,
 an image of more than ``MAX_ROWS`` rows; V = 100,000 at k <= 8); above k
 = 8 the per-image stages must take an image's rows in groups of at most
-8; every plan the narrower paths made before is unchanged; the plan and
-the wrapper must raise on what the kernel does not take, and F, H, V, A
-and FS of any residue mod 4 plan as their padded widths.  The h0/c0 launch (the search's mean and
+8; every plan the narrower paths made before is unchanged, and so is
+every plan within 256 positions and A = 3,840 (a digest of the parent's);
+any P and A plan, with the softmax rows at their own stride or in device
+memory and att2 from L2 as ``alpha_layout`` says; the plan and the
+wrapper must raise on what the kernel does not take, and F, H, V, A and
+FS of any residue mod 4 plan as their padded widths.  The h0/c0 launch (the search's mean and
 init stage alone: ``run_mean``'s tasks, then ``att_init_plan``'s stage)
 must cover each (image, column quad) of the mean and each h0/c0 column of
 each image once, at 1, 2 and 64 images.  The ctypes mirrors of the
@@ -255,8 +258,7 @@ def test_the_plan_takes_widths_that_are_not_multiples_of_4(kwargs):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(k=0), "k=0"), (dict(k=513), r"k=513 outside \[1, 512\]"),
     (dict(v=4, k=5), "k=5"),
-    (dict(p=0), "P=0"), (dict(p=MAX_P + 1), f"P={MAX_P + 1}"),
-    (dict(a=4096), "ring"), (dict(n_img=205, k=5), "1025 rows"),
+    (dict(p=0), "P=0"), (dict(n_img=205, k=5), "1025 rows"),
     (dict(grid=0), "grid=0"), (dict(n_img=0), "n_img=0"),
     (dict(kind="gru"), "unknown kind"), (dict(kind="lstm", f=48), "f=48"),
     (dict(v=4000000), "tail's"),
@@ -322,6 +324,92 @@ def test_every_plan_the_narrower_paths_made_is_unchanged():
     for args in _narrow_cases():
         h.update(repr(att_grid_plan(*args)).encode())
     assert h.hexdigest() == NARROW_PLANS
+
+
+# sha256 of the parent commit's plans at P <= 256 and A <= 3,840, where the
+# softmax rows sat at the fixed stride and att2 in the ring (each repr)
+RESIDENT_PLANS = \
+    "909a0981554fea0efdbcf584397625b527a18caf8262d8292a1385e9daf709de"
+
+
+def _resident_cases():
+    for kind in ("factored", "lstm"):
+        for p in (1, 49, 196, 256):
+            for a in (512, 3840):
+                for k, n_img in ((1, 1), (5, 1), (5, 64), (20, 8), (300, 1)):
+                    for grid in (3, 132):
+                        yield (kind, 300, 512, 512, 8192, a, p, 2048, k,
+                               n_img, 20, grid)
+
+
+def test_every_plan_within_256_positions_and_the_ring_is_unchanged():
+    """P of 1 to 256 and A to 3,840 (the shapes the kernel took before
+    any P and A): each plan field for field, its layout the old one."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for args in _resident_cases():
+        plan = att_grid_plan(*args)
+        h.update(repr(plan).encode())
+        assert plan.alpha == (att_beam.ALD, plan.p, True)
+        assert plan.smem == att_beam.grid_smem(att_beam.ALD) == 180480
+    assert h.hexdigest() == RESIDENT_PLANS
+
+
+@pytest.mark.parametrize("p,a,ald", [
+    (257, 512, 264), (289, 512, 296), (400, 512, 404), (1024, 512, 1028),
+    (1784, 512, 1788), (1785, 512, 0), (4096, 512, 0), (196, 3844, 260),
+    (196, 4096, 260), (400, 4096, 404), (4096, 4096, 0)])
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_the_plan_takes_any_p_and_a(kind, p, a, ald):
+    """Past 256 positions a unit's softmax rows sit at a stride of round4(P)
+    + 4 while 8 of them fit the block beside the ring (P to 1,784), past
+    that in place in the scores (device memory, rows round4(P) apart);
+    past A = 3,840 the scores stage reads att2 from L2.  The plans carry
+    the layout: the scores' region holds every row at its stride, the
+    block's shared memory fits, the scores units cover every position
+    once, the ctypes plan points at the region."""
+    for k, n_img in ((5, 1), (5, 64), (20, 8)):
+        plan = att_grid_plan(kind, 300, 512, 512, 8192, a, p, 2048, k,
+                             n_img, 20, 132)
+        got_ald, eld, ring = plan.alpha
+        assert got_ald == ald
+        assert eld == (p if ald else -(-p // 4) * 4)
+        assert ring == (a <= 3840)
+        assert plan.region("esc")[1] == plan.rows * eld
+        assert plan.smem <= att_beam.GRID_SMEM_MAX
+        assert plan.smem == att_beam.grid_smem(ald)
+        if ald:
+            assert ald >= p + 4 and ald % 4 == 0
+        positions = []
+        for part in range(plan.upi):
+            positions += range(part * plan.pu, min(p, (part + 1) * plan.pu))
+        assert positions == list(range(p))
+        c = att_beam._c_plan(plan, 1, 2)
+        assert (c.P, c.A, c.o_esc) == (p, a, plan.region("esc")[0])
+        ends = sorted((off, off + size) for _, off, size in plan.floats)
+        assert all(e0 <= s1 for (_, e0), (s1, _) in zip(ends, ends[1:]))
+
+
+def test_the_kernels_alpha_layout_is_the_plans():
+    """``csrc/att_beam.cu`` ``alpha_layout`` and ``grid_smem_bytes`` as
+    the mirrors state them (the library is held to them when it loads)."""
+    body = SOURCE[SOURCE.index("inline AlphaLayout alpha_layout"):]
+    body = body[:body.index("\n}\n")]
+    assert "l.ald = P <= MAX_P ? ALD : round4(P) + 4;" in body
+    assert "if (grid_smem_bytes(l.ald) > GRID_SMEM_MAX) l.ald = 0;" in body
+    assert "l.eld = l.ald ? P : round4(P);" in body
+    assert "(long long)KMAX * round4(A) <= RING_FLOATS" in body
+    assert re.search(r"constexpr size_t GRID_SMEM_MAX = %d;"
+                     % att_beam.GRID_SMEM_MAX, SHARED)
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", SHARED))
+    assert consts["ALD"] == "MAX_P + 4" and att_beam.ALD == MAX_P + 4
+    assert consts["ZS_FLOATS"] == "MAX_CW * MAX_BR"
+    assert att_beam.ZS_FLOATS == int(consts["MAX_CW"]) * int(consts["MAX_BR"])
+    # the context reads the softmax rows as dense rows of esc where ald = 0
+    assert "A_DENSE, fs + p.o_esc,\n                             l.eld" in \
+        SOURCE
+    assert "if (a.ald == 0) {  // the softmax rows in place in esc" in SOURCE
 
 
 def _params(vocab=64, e=8, h=16, a=8, fs=12, seed=0):

@@ -5,7 +5,8 @@ at batch tiles 8 and 16, and its XLA oracles ``reference_att_scan*``; on the
 CPU the port's wrappers take their plain versions (the CUDA kernels are held
 against those on the card by ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``).  Sizes are the JAX test's
-(``tests/test_pallas_att_train.py``); inputs come from
+(``tests/test_pallas_att_train.py``), and T = 60 at A = 1024 (past one
+block's d_att1 plane on the card); inputs come from
 ``numpy.random.default_rng``.
 
 Tolerances: h atol = rtol 1e-5 and alpha atol 1e-6, rtol 1e-5 (float32 on
@@ -264,3 +265,54 @@ def test_wrappers_check_their_inputs():
         att_scan.att_scan_bwd(tc, ta, x["emb"], x["att1"], x["feats"],
                               x["h0"], x["c0"], h, a, res, h, a, "lstm",
                               samp)
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_past_the_d_att1_plane_matches_pallas_vjp(kind):
+    """T = 60 steps at A = 1024, T (A + 28) = 63,120 floats: past what one
+    block of the card's d_att1 pass held (58,112), where it now splits A
+    into column blocks (``att_scan.datt1_plan``: 2 of 512).  The plain
+    forward and backward (what the card is held to) against JAX's
+    interpret-mode kernels and ``jax.vjp``, the other widths narrow."""
+    t, a = 60, 1024
+    assert att_scan.datt1_plan(t, a) == (512, 2)
+    rng = np.random.default_rng(11)
+
+    def n(*shape, scale=0.3):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    att = {"dec_w": n(H, a, scale=0.05), "dec_b": n(a), "full_w": n(a, 1,
+           scale=0.05), "full_b": n(1), "fb_w": n(H, FS), "fb_b": n(FS)}
+    if kind == "factored":
+        cell = {"V_we": n(E, 4 * F), "V_wc": n(FS, 4 * F), "V_b": n(4, F),
+                "S_w": n(4, F, F), "S_b": n(4, F), "U_w": n(4, F, H),
+                "U_b": n(4, H), "W_w": n(H, 4 * H), "W_b": n(4, H)}
+    else:
+        cell = {"W_ihe": n(E, 4 * H), "W_ihc": n(FS, 4 * H),
+                "W_hh": n(H, 4 * H), "b_ih": n(4 * H), "b_hh": n(4 * H)}
+    args = (n(2, t, E, scale=1.0), n(2, P, a, scale=1.0),
+            n(2, P, FS, scale=1.0), n(2, H), n(2, H))
+    dh, da = n(2, t, H, scale=1.0), n(2, t, P, scale=1.0)
+
+    def jfn(cell, att, emb, att1, feats, h0, c0):
+        return jat.fused_att_scan(cell, att, emb, att1, feats, h0, c0, kind,
+                                  2, True)
+
+    (want_h, want_a), vjp = jax.vjp(jfn, cell, att, *args)
+    want = vjp((jnp.asarray(dh), jnp.asarray(da)))
+    got_in = [bridge.to_torch(v) for v in (cell, att, *args)]
+    for v in got_in:
+        for leaf in (v.values() if isinstance(v, dict) else (v,)):
+            leaf.requires_grad_(True)
+    h, al = att_scan.fused_att_scan(*got_in, kind)
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(want_h),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(al.detach().numpy(), np.asarray(want_a),
+                               rtol=1e-5, atol=1e-6)
+    torch.autograd.backward((h, al), (torch.tensor(dh), torch.tensor(da)))
+    for name, g, w in zip(("cell", "att", "emb", "att1", "feats", "h0",
+                           "c0"), got_in, want):
+        for key, leaf in (g.items() if isinstance(g, dict) else (("", g),)):
+            ww = w[key] if key else w
+            np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ww),
+                                       err_msg=f"{name}.{key}", **GRAD_TOL)

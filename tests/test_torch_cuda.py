@@ -137,6 +137,38 @@ def test_decode_step_kernel_matches_plain(device, rows, vocab, e, f, h, ktop):
         torch.testing.assert_close(g_, w_, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("rows,hw,ktop", [
+    (20, 1024, 5),    # 4 rows a cell block
+    (20, 2048, 20),   # 2 rows a block, the wide head
+    (8, 2048, 5),     # one image of 8 rows: the split path does not hold
+                      # F = 2048, the row-tiled path takes it
+    (5, 2048, 5),     # ... 5 rows: the split path
+])
+def test_decode_step_kernel_past_8_rows_a_cell_block(device, rows, hw, ktop):
+    """K1 where a row-tiled cell block holds fewer than 8 rows (H = F past
+    772 at E = 300): the plain version's ids and values, and the same bits
+    for a row as at other row counts (each row's chain does not depend on
+    the rows a block holds)."""
+    params = _params(device, 300, 300, hw, hw, seed=hw)
+    for name in ("V_w", "S_w", "U_w", "W_w", "C_w"):   # the narrow cases'
+        params[name].mul_((64 / params[name].shape[-2]) ** 0.5)   # sums
+    g = torch.Generator(device=device).manual_seed(rows)
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device) * 0.3
+                for d in (300, hw, hw))
+    split = decode_step_topk.split_launches
+    got = decode_step_topk(params, x, hh, c, 1, ktop=ktop)
+    want = decode_step_topk_plain(params, x, hh, c, 1, ktop=ktop)
+    torch.cuda.synchronize()
+    assert decode_step_topk.split_launches == split + (rows == 5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+    one = decode_step_topk(params, x[:3].contiguous(), hh[:3].contiguous(),
+                           c[:3].contiguous(), 1, ktop=ktop)
+    for i in range(4):
+        assert torch.equal(one[i], got[i][:3])
+
+
 def test_decode_step_kernel_ties_go_to_the_lowest_ids(device):
     params = _params(device, 768, 20, 32, 32, zero_head=True)
     x = torch.randn((9, 20), device=device)
@@ -901,6 +933,34 @@ def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
 
 
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
+@pytest.mark.parametrize("n_img,k,hw", [(2, 5, 1024), (1, 8, 2048),
+                                        (1, 20, 2048)])
+def test_att_decode_step_kernel_past_8_rows_a_cell_block(device, kind, n_img,
+                                                         k, hw):
+    """K6 where a row-tiled cell block holds fewer than 8 rows (H = F past
+    544 at E + FS = 2348): against its plain version; one image of 8 rows
+    at F = 2048 on the row-tiled path (the split path does not hold it)."""
+    params = _att_params(device, kind, e=300, f=hw, h=hw, a=512, fs=2048,
+                         vocab=300)
+    cell, att, gate = att_decode_step.step_params(params, kind, 1)
+    g = torch.Generator(device=device).manual_seed(k)
+    rows = n_img * k
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device) * 0.3
+                for d in (300, hw, hw))
+    feats = torch.rand((n_img, 49, 2048), generator=g, device=device) * 0.3
+    att1 = att_mod.att_projection(att, feats)
+    got = att_decode_step.att_decode_step_topk(cell, att, gate, x, hh, c,
+                                               feats, att1, kind, k, ktop=k)
+    want = att_decode_step.att_decode_step_topk_plain(
+        cell, att, gate, x, hh, c, feats, att1, kind, k, ktop=k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
 @pytest.mark.parametrize("n_img", [1, 3])
 def test_att_init_state_kernel_matches_plain(device, n_img, kind):
     """The h0/c0 launch (K7's mean and init stages alone) against the
@@ -1181,10 +1241,16 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params = _att_params(device, "factored")
     with pytest.raises(ValueError, match="expected"):
         att_beam.mega_att_beam_decode(params, feats.cpu(), 0, 2, k=4)
-    with pytest.raises(ValueError, match="P=300"):
-        att_beam.mega_att_beam_decode(params,
-                                      torch.rand((2, 300, 64), device=device),
-                                      0, 2, k=4)
+    # past 256 positions (and past the block's softmax rows) the kernel
+    # decodes as the CPU route does
+    for p in (300, 2000):
+        wide_p = torch.rand((2, p, 64), device=device)
+        got = att_beam.mega_att_beam_decode(params, wide_p, 0, 2, k=4,
+                                            max_seq_length=3)
+        want = att_beam.mega_att_beam_decode_plain(params, wide_p, 0, 2,
+                                                   k=4, max_seq_length=3)
+        assert torch.equal(got.length, want.length)
+        torch.testing.assert_close(got.score, want.score, rtol=0, atol=1e-4)
     # above K_WIDE the kernels decode as the CPU route does; k = V + 1 is
     # refused with the CPU route's message
     got = att_beam.mega_att_beam_decode(params, feats, 0, 2, k=257,
@@ -1267,6 +1333,18 @@ def test_att_scan_kernels_match_plain(device, kind, b, t, p, sampled):
     argmax is token 0 (the lowest index), and the token scatter adds all
     the sampled rows into one row of B."""
     _att_scan_case(device, kind, b, t, p, sampled)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind,t,a", [("factored", 28, 2048),
+                                      ("lstm", 60, 1024)])
+def test_att_scan_kernels_past_the_d_att1_plane(device, kind, t, a,
+                                                sampled):
+    """K5 where T x (A + 28) floats no longer fit one block of the d_att1
+    pass (which then splits A into column blocks, ``datt1_plan``): as the
+    plain versions, each grad within 1e-3 x its largest."""
+    assert att_scan.datt1_plan(t, a)[1] == 2
+    _att_scan_case(device, kind, 2, t, 9, sampled, width_a=a)
 
 
 @pytest.mark.parametrize("sampled", [False, True])

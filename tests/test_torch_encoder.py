@@ -97,6 +97,20 @@ def test_resnet_primitives_match_jax():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("grid", [17, 20])
+def test_adaptive_pool_up_to_a_spatial_grid_matches_jax(grid):
+    """``precompute_features --spatial --grid G`` pools ResNet-152's 7 x 7
+    map to G x G: G = 17 (P = 289) and 20 (P = 400) upsample, each bin one
+    or two input rows and columns, as JAX's pool does."""
+    x = np.random.default_rng(grid).standard_normal(
+        (2, 7, 7, 16)).astype(np.float32)
+    want = jresnet.adaptive_avg_pool(jnp.asarray(x), (grid, grid))
+    got = resnet.adaptive_avg_pool(torch.tensor(x), (grid, grid))
+    assert got.shape == (2, grid, grid, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("k,stride", [(1, 1), (3, 1), (3, 2)])
 def test_bfloat16_conv_matches_jax_conv(k, stride):
     """A conv with bfloat16 weights (the ``backbone_dtype="bfloat16"`` mode)
