@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
 3. turn TF32 off for matmuls and cuDNN, so float32 means float32;
 4. K1 (``decode_step_topk``) vs its plain PyTorch version at E=300,
    F=H=512, V=8192: at the serial path's 5 rows (one image x 5 beams, the
-   column-split path) and at 64 images x 5 beams = 320 rows (the row-tiled
+   column-split path) and at 64 images x 5 beams = 320 rows (the many-row
    path), both timed, with the column-split path's device timeline (a
    CUDA graph replay: its time, span and per-launch start and end);
 5. K2 (``mega_beam_decode``, one cooperative search over the whole card)
@@ -24,7 +24,7 @@ Phases, in order; any failure exits non-zero:
    cell must equal the serial fused-step path (K1) at atol 0; each shape
    timed, its bound from the live row-steps it ran;
 5b. K6 (``att_decode_step_topk``, the attention step) vs its plain version
-   at 64 images x 5 beams = 320 rows (row-tiled) and at the serial path's
+   at 64 images x 5 beams = 320 rows (many-row) and at the serial path's
    one image (column-split), both timed, with the column-split path's
    device timeline, for the StyleNet+Att cell (``kind="factored"``)
    and the NIC+Att cell (``kind="lstm"``), at A=512, P=14x14, FS=2048,
@@ -279,9 +279,11 @@ Phases, in order; any failure exits non-zero:
    bits twice, each plan's kinds printed and one recurrence launch a
    direction, timed beside the bound (K4 beside cuDNN's ``nn.LSTM``, h
    atol 1e-4); (b) K5 factored, sampled at ratio 0.8, at H = F = 1024 as
-   phase 10 holds it; (c) ``cli.train --hidden_size 1024`` over phase
-   19's corpus and cache, one epoch of StyleNet (``--factored_size
-   1024``) and one of NIC at ratio 1.0, their K3 / K4, CE and K2 counts
+   phase 10 holds it; (c) ``cli.train --hidden_size 1024``, one epoch of
+   StyleNet (``--factored_size 1024``) over 4,096 captions at
+   ``--caption_batch_size 4096`` (one factual step of 4,096 rows through
+   K3: phase 28's batch past 2048) and one of NIC over phase 19's corpus
+   and cache at ratio 1.0, their K3 / K4, CE and K2 counts
    exact and no plain version, then ``evaluate --feed_feature`` on the
    StyleNet checkpoint: its BLEU this process's, each line the plain
    search's or a near tie; (d) SentiCap at H = 1024: one base step kernel
@@ -325,7 +327,7 @@ Phases, in order; any failure exits non-zero:
    every count from 0 just before and read just after and exact, no plain
    version, fused-step = whole search at atol 0;
 27. the step and attention kernels at every width: (a) K1 and K6 (both
-   kinds) at H = F = 1024 and 2048 (4 and 2 rows a row-tiled cell block)
+   kinds) at H = F = 1024 and 2048 (the many-row path's tiles recorded)
    over 64 images x 5 rows and one image x 20 as phases 4 and 5b hold
    them, timed at 64 images; at H = F = 1024, K2 (factored) = K1
    fused-step and K7 (both kinds) = K6 at atol 0 over 8 images at k = 5
@@ -343,11 +345,17 @@ Phases, in order; any failure exits non-zero:
    --attention --attention_size 2048`` (one epoch, ratio 0.8),
    ``evaluate --attention`` and ``caption_batch --attention`` as
    processes, launches exact, no plain version;
+28. batches past 2048: (a) K3, K4 and K8 forward and backward at B =
+   4096, H = 512 (streamed plans) as phase 24 (a) holds them (h, c atol
+   1e-4, each grad within 1e-3 x its largest magnitude, the same bits
+   twice), timed beside their bounds, K4 also beside cuDNN's nn.LSTM
+   (the train CLI's step at ``--caption_batch_size 4096`` is phase 24
+   (c)'s);
    then the seconds of every phase, on a line of their own;
-28. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+29. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
-   ``trainer``, ``resident``, ``seq2seq``, ``wide_h`` (phase 24) and
-   ``wide_width`` (phase 27) entries), one
+   ``trainer``, ``resident``, ``seq2seq``, ``wide_h`` (phase 24),
+   ``wide_width`` (phase 27) and ``big_batch`` (phase 28) entries), one
    ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
    entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
@@ -362,14 +370,15 @@ Phases, in order; any failure exits non-zero:
    forward and backward, K9, the mixture CE forward and backward, K10, and
    the wide paths of K1, K2, K6 and K7, both cells: their launches phase
    5d (e)'s and, for K2, phase 19's beam-20 stage; K3, K4 and K8 past the
-   resident plan, forward and backward: their launches phase 24's; K1,
+   resident plan, forward and backward: their launches phases 24's and
+   28's, phase 28's B = 4096 figures among their shapes; K1,
    K2 and K7 with their phase 25 (c) times at V = 8191; K1, K2, K6, K7
    (both cells or kinds), K9 and K10 past one block: their launches
    phase 26 (e)'s; K1 and K6 (both kinds) at H = F past 8 rows a cell
    block, K5 factored sampled past the d_att1 plane and K7 (both kinds)
    past 256 positions: their launches phase 27's engine, (c)'s main path
    and (d)'s processes);
-29. print ``{"ok": true, "device": {...}}`` as the last line.
+30. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -623,7 +632,7 @@ def check_k1(dec, device, rows: int, seed: int, ktop: int = K):
 
 def k1_line(dec, inputs, serial_inputs, max_err: float, ties: int):
     """Times K1, its plain version and the library yardstick at the
-    batched shape (320 rows, the row-tiled path) and the serial one (5
+    batched shape (320 rows, the many-row path) and the serial one (5
     rows, the column-split path); -> K1's entry of the kernels line."""
     out = {}
     for tag, shape_inputs in (("", inputs), ("serial_", serial_inputs)):
@@ -861,7 +870,7 @@ def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
         flips += errs[2]
         if cell == "factored" and fused:
             # the fused-step path (K1 in the Python beam) gives the same
-            # bits: column-split at <= 8 rows, row-tiled above
+            # bits: column-split at <= 8 rows, many-row above
             fused_res = factored_decode("fused-step", dec, mode_feats, style,
                                         n_img, k, steps_max, 1, 2)
             for what in ("tokens", "length", "score"):
@@ -1263,7 +1272,7 @@ def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
     max_err, own_err, flips = margin_check(what, got, want, rescored)
     if fused:
         # the fused-step path (K6 per step: column-split at one image of
-        # k <= 8, row-tiled above) gives the same bits
+        # k <= 8, many-row above) gives the same bits
         args = (n_img, k, steps_max, 1, 2)
         fused_res = (attention_decode("fused-step", dec, feats, style, *args)
                      if kind == "factored"
@@ -2024,7 +2033,7 @@ def serve_phase(params, device):
             if got[name + "_tiled"] or got[name + "_split"] != got[name]:
                 fail(f"{name} on the fused-step path: "
                      f"{got[name + '_split']} column-split and "
-                     f"{got[name + '_tiled']} row-tiled calls of "
+                     f"{got[name + '_tiled']} many-row calls of "
                      f"{got[name]}")
         words = {v: [len(batched[j][1][v].split())
                      for j in range(len(requests))] for v in SERVED}
@@ -8321,8 +8330,9 @@ def wide_grads(got):
     return out
 
 
-def check_wide_scan(kernel: str, b: int, h: int, device) -> dict:
-    """Phase 24 (a), one shape: the scan's forward and backward on the card
+def check_wide_scan(kernel: str, b: int, h: int, device,
+                    phase: str = "24 (a)") -> dict:
+    """Phase 24 (a) (or ``phase``), one shape: the scan's forward and backward on the card
     against its plain versions, held as phase 7 holds them (h and c atol
     1e-4; dx and each weight grad <= 1e-3 x its largest magnitude; the
     same bits twice), its plan's kinds, exactly one recurrence launch a
@@ -8336,7 +8346,7 @@ def check_wide_scan(kernel: str, b: int, h: int, device) -> dict:
     mod, fwd, bwd, plain_f, plain_b, lib_f, lib_b, (e, t) = wide_scan_case(
         kernel, b, h, device)
     plan = scan_grid.plan_on(kernel, b, h, device)
-    what = f"phase 24 (a) {kernel} B {b} H {h}"
+    what = f"phase {phase} {kernel} B {b} H {h}"
     lib = mod._library()
     wrappers = [getattr(mod, n) for n in WIDE_WRAPPERS[kernel]]
     counts = [w.launches for w in wrappers]
@@ -8451,11 +8461,14 @@ def wide_k5(device) -> dict:
 
 
 def wide_cli(device, keep: str) -> tuple:
-    """Phase 24 (c): the train CLI at --hidden_size 1024 over phase 19's
-    corpus and feature cache (``keep``), one epoch a family at ratio 1.0
-    (every step teacher-forced: K3 or K4 a step), StyleNet (F = 1024) then
-    NIC, their K3 / K4, CE and K2 counts exact and no plain version; then
-    ``evaluate --feed_feature`` on the StyleNet checkpoint: its BLEU that
+    """Phase 24 (c): the train CLI at --hidden_size 1024, one epoch a
+    family at ratio 1.0 (every step teacher-forced: K3 or K4 a step):
+    StyleNet (F = 1024) over ``big_batch_files``' BIG_B captions at
+    --caption_batch_size BIG_B (one factual step of BIG_B rows through K3:
+    phase 28's batch past 2048), then NIC over phase 19's corpus and
+    feature cache (``keep``) at CLI_BATCH; phase 19's emotion captions
+    for both; their K3 / K4, CE and K2 counts exact and no plain version;
+    then ``evaluate --feed_feature`` on the StyleNet checkpoint: its BLEU that
     of this process's ``evaluate()`` (K2), each printed line the plain
     search's of its image or a near tie (phase 19's rule).  -> (launches,
     stats)."""
@@ -8477,23 +8490,26 @@ def wide_cli(device, keep: str) -> tuple:
     vocab_path = os.path.join(keep, "vocab.pkl")
     cache = os.path.join(keep, "features.npz")
     t_cap = STEPS + 2
-    n_fac = -(-CLI_IMAGES * TR_CAPS // CLI_BATCH)
     n_emo = -(-CLI_EMO_IMAGES * TR_CAPS // B_EMOTION)
-    steps = n_fac + n_emo
-    ce = sum(n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
-             for n, b in ((n_fac, CLI_BATCH), (n_emo, B_EMOTION)))
-    for family, scan, beam, extra in (
+    big_train, big_cache = big_batch_files(keep)
+    for family, scan, beam, extra, (caps, feats, batch, n_cap) in (
             ("stylenet", "fused_factored_scan", "mega_beam_decode",
-             ["--factored_size", WIDE_H]),
-            ("nic", "fused_nic_scan", "mega_beam_decode_lstm", [])):
+             ["--factored_size", WIDE_H], (big_train, big_cache, BIG_B,
+                                           BIG_B)),
+            ("nic", "fused_nic_scan", "mega_beam_decode_lstm", [],
+             (files["train"], cache, CLI_BATCH, CLI_IMAGES * TR_CAPS))):
+        n_fac = -(-n_cap // batch)
+        steps = n_fac + n_emo
+        ce = sum(n * -(-t_cap // cl.auto_t_chunk(b, t_cap))
+                 for n, b in ((n_fac, batch), (n_emo, B_EMOTION)))
         name = f"train_{family}_h{WIDE_H}"
         st, counts, _ = cli_stage(name, m + "train", [
             "--trainer", "multitask", "--family", family, "--mode", "happy",
             "--hidden_size", WIDE_H, *extra, "--vocab_path", vocab_path,
-            "--caption_path", files["train"], "--val_caption_path",
+            "--caption_path", caps, "--val_caption_path",
             files["val"], "--happy_path", files["happy"],
-            "--val_happy_path", files["val_happy"], "--feature_cache", cache,
-            "--num_epochs", 1, "--caption_batch_size", CLI_BATCH,
+            "--val_happy_path", files["val_happy"], "--feature_cache", feats,
+            "--num_epochs", 1, "--caption_batch_size", batch,
             "--language_batch_size", B_EMOTION, "--model_path",
             os.path.join(keep, f"models_{name}"), "--log_path",
             os.path.join(logs, f"{name}.txt"), "--metrics_path",
@@ -8506,9 +8522,10 @@ def wide_cli(device, keep: str) -> tuple:
                       if e["event"] == "epoch_factual"]
         if len(losses) != 1 or not np.isfinite(losses[0]):
             fail(f"phase 24 (c) {name}: factual losses {losses}")
-        stats[name] = dict(st, steps=steps, train_loss=losses,
-                           captions_per_s=(CLI_IMAGES + CLI_EMO_IMAGES)
-                           * TR_CAPS / st["wall_s"])
+        stats[name] = dict(st, steps=steps, factual_batch=batch,
+                           train_loss=losses,
+                           captions_per_s=(n_cap + CLI_EMO_IMAGES * TR_CAPS)
+                           / st["wall_s"])
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # evaluate on the StyleNet checkpoint, serving semantics
@@ -8650,18 +8667,21 @@ def wide_senticap(device) -> tuple:
     return launches, stats
 
 
-def wide_scan_entries(scans: dict, launches: dict) -> list:
-    """The kernels line's entries of phase 24: K3, K4 and K8 forward and
-    backward past the resident plan, at the headline shape (B 64, H 1024;
-    K8 B 128), every (a) shape's figures under ``shapes``, the launches
-    those of (c) (K3, K4) and (d) (K8)."""
+def wide_scan_entries(scans: dict, launches: dict, suffix: str = "wide_h",
+                      heads=("B64 H1024", "B64 H1024", "B128 H1024"),
+                      reach: str = "H >= 736, large B") -> list:
+    """The kernels line's entries of phase 24 (and, with ``suffix``,
+    ``heads`` and ``reach``, phase 28): K3, K4 and K8 forward and backward
+    past the resident plan, at the headline shape (``heads``: B 64, H
+    1024; K8 B 128), every (a) shape's figures under ``shapes``, the
+    launches those of (c) (K3, K4) and (d) (K8)."""
     rows = (("K3", "fused_factored_scan", "lstm_scan.cu", "pallas_lstm.py",
-             (":224", ":298"), "B64 H1024", None),
+             (":224", ":298"), heads[0], None),
             ("K4", "fused_nic_scan", "nic_scan.cu", "pallas_nic_train.py",
-             (":173", ":227"), "B64 H1024",
+             (":173", ":227"), heads[1],
              "torch.nn.LSTM(E, H, batch_first=True) (cuDNN), TF32 off"),
             ("K8", "fused_senticap_scan", "senticap_scan.cu",
-             "pallas_senticap_train.py", (":173", ":224"), "B128 H1024",
+             "pallas_senticap_train.py", (":173", ":224"), heads[2],
              None))
     out = []
     for kernel, name, src, tpu, lines, head, lib in rows:
@@ -8677,11 +8697,11 @@ def wide_scan_entries(scans: dict, launches: dict) -> list:
                 for k, f in scans.items() if k.startswith(kernel + " ")}
             top = shapes[head]
             out.append({
-                "name": f"{name}_{d}_wide_h", "route": "cuda",
+                "name": f"{name}_{d}_{suffix}", "route": "cuda",
                 "source": f"icee_tpu_torch/csrc/{src} + "
                           "icee_tpu_torch/csrc/scan_grid.cuh (streamed "
                           "plans)",
-                "replaces": f"icee_tpu/ops/{tpu}{line} (H >= 736, large B)",
+                "replaces": f"icee_tpu/ops/{tpu}{line} ({reach})",
                 "launches": launches.get(f"{name}_{d}", 0),
                 "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -9522,8 +9542,9 @@ def past_block_phase(device) -> tuple:
 
 # --- phase 27: the step and attention kernels at every width ----------------
 #
-# K1 and K6 (both kinds) where a row-tiled cell block no longer holds 8 rows
-# (4 at H = F = 1024, 2 at 2048); K5 (both cells and modes) where the d_att1
+# K1 and K6 (both kinds) at H = F = 1024 and 2048 (where the earlier
+# row-tiled cell launch held 4 and 2 rows a block; since the many-row
+# redesign one register-tiled launch a product over all rows); K5 (both cells and modes) where the d_att1
 # pass splits A into column blocks; K7 (both kinds) past 256 positions (the
 # softmax rows at their own stride, past 1,784 positions in device memory)
 # and past A = 3,840 (att2 from L2), the h0/c0 launch at P = 400; then the
@@ -9547,16 +9568,21 @@ WW_CLI_IMAGES, WW_CLI_VAL, WW_CLI_EMO = 64, 16, 32   # (d): images
 WW_CLI_A = 2048                # (d): train --attention_size
 
 
+def plan_tiles(plan) -> dict:
+    """{launch: "BMxBN"} of a many-row step plan's product launches."""
+    return {name: f"{t[0]}x{t[1]}" for name, t, *_ in plan if t}
+
+
 def ww_steps(device) -> dict:
     """Phase 27 (a): K1 and K6 (both kinds) against their plain versions as
     phases 4 and 5b hold them (``check_k1``, ``check_k6``: ids exact but in
-    a near tie, values 1e-4, alpha 1e-5, one launch each on the row-tiled
+    a near tie, values 1e-4, alpha 1e-5, one launch each on the many-row
     path) at H = F in WW_HS over 64 images x 5 rows and one image x 20,
     the first timed.  -> {"k1" | kind: {"max_abs_err", "near_tie_swaps",
     "shapes"}}."""
     import torch
 
-    from icee_tpu_torch.ops.decode_step import cell_rows
+    from icee_tpu_torch.ops.decode_step import step_plan
 
     out = {n: {"max_abs_err": 0.0, "near_tie_swaps": 0, "shapes": {}}
            for n in ("k1", "factored", "lstm")}
@@ -9578,7 +9604,8 @@ def ww_steps(device) -> dict:
                 if timed:
                     out["k1"]["shapes"][tag] = dict(
                         k1_times(sty, inputs, k, 5, 1), H=hw, F=hw,
-                        rows=rows, cell_rows=cell_rows(E, hw, hw))
+                        rows=rows, tiles=plan_tiles(step_plan(
+                            "k1", rows, E, hw, hw, V, k)))
                 del inputs
                 for kind, variant in ATT_KINDS.items():
                     dec = decs[variant]["decoder"]
@@ -9588,7 +9615,8 @@ def ww_steps(device) -> dict:
                     if timed:
                         out[kind]["shapes"][tag] = dict(
                             k6_times(kind, args, 5, 2, 1), H=hw, F=hw,
-                            rows=rows, cell_rows=cell_rows(E + FS, hw, hw))
+                            rows=rows, tiles=plan_tiles(step_plan(
+                                kind, rows, E, hw, hw, V, k, A, P, FS, k)))
                     del args
             del decs, sty
             torch.cuda.empty_cache()
@@ -9597,8 +9625,8 @@ def ww_steps(device) -> dict:
 
 def ww_fused(device) -> dict:
     """Phase 27 (a): at H = F = WW_FUSED_H, K2 (factored) against its plain
-    search and the fused-step path (K1 per step, row-tiled at 4 rows a
-    block) at atol 0, K7 (both kinds) likewise against K6
+    search and the fused-step path (K1 per step, the many-row path) at
+    atol 0, K7 (both kinds) likewise against K6
     (``check_k2_shape``, ``check_k7_shape``), over WW_FUSED_IMAGES images
     at each k of WW_FUSED_KS.  -> {name: errors}."""
     import torch
@@ -9634,7 +9662,7 @@ def ww_engine(device, root: str) -> dict:
     ``caption(path="fused-step")`` (K1 and K6 on the column-split path,
     the h0/c0 launch, NIC's K2) and ``caption(path="mega")`` (K2, K7),
     then the same images as one batch through ``decode`` on both paths (K1
-    and K6 row-tiled, 4 rows a cell block); the fused-step captions those
+    and K6 many-row); the fused-step captions those
     of the whole searches.  Every count from 0 just before and read just
     after, exact: K1 and K6 once a step the searches ran (``*_steps``), no
     plain version.  -> the counts."""
@@ -9693,7 +9721,7 @@ def ww_engine(device, root: str) -> dict:
             k=BEAM_K, max_seq_length=engine.att_cfg.max_seq_length,
             kind=kind)[1][:, 0] for kind, v in ATT_KINDS.items()}
     # one image a request: the column-split path, K1 / K6 once a step of
-    # its search; one batch: the row-tiled path, once a step of the longest
+    # its search; one batch: the many-row path, once a step of the longest
     want = {}
     for how, agg, p in (("serial", lambda s: int(s.sum()), "split"),
                         ("batched", lambda s: int(s.max()), "tiled")):
@@ -10050,14 +10078,14 @@ def ww_entries(steps, k5, k7, counts) -> list:
     k1h = k6h = f"h{WW_FUSED_H}_rows{B_IMAGES * K}"
     entries = [wide_entry(
         "decode_step_topk_wide_hidden", "icee_tpu_torch/csrc/decode_step.cu",
-        "icee_tpu/ops/pallas_decode.py:261 (H = F past 772: the row-tiled "
-        "cell at 4 and 2 rows a block)", steps["k1"], k1h,
+        "icee_tpu/ops/pallas_decode.py:261 (H = F past 772: the many-row "
+        "path's products)", steps["k1"], k1h,
         launches=counts["decode_step_topk"])]
     for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
         entries.append(wide_entry(
             f"att_decode_step_topk{sfx}_wide_hidden",
             "icee_tpu_torch/csrc/att_decode_step.cu",
-            step.format(kind) + "544: the row-tiled cell at 4 and 2 rows)",
+            step.format(kind) + "544: the many-row path's products)",
             steps[kind], k6h, launches=counts[f"att_decode_step_topk{sfx}"]))
     for d, line in (("fwd", ":623"), ("bwd", ":758")):
         shapes = {s: v[d] for s, v in k5["shapes"].items()}
@@ -10102,7 +10130,11 @@ def wide_width_phase(device, keep: str) -> tuple:
             log("phase 27 (a): K1, K6 ok at H = F = " + ", ".join(
                 map(str, WW_HS)) + "; " + "; ".join(
                     f"{n} max err {f['max_abs_err']:.3g}, near-tie swaps "
-                    f"{f['near_tie_swaps']}" for n, f in steps.items()))
+                    f"{f['near_tie_swaps']}" for n, f in steps.items())
+                + "; ms (library, bound) " + "; ".join(
+                    f"{n} {tag} {s['ms']:.3f} ({s['library_ms']:.3f}, "
+                    f"{s['bound_ms']:.3f})" for n, f in steps.items()
+                    for tag, s in f["shapes"].items()))
             fused = ww_fused(device)
             with tempfile.TemporaryDirectory() as root:
                 engine_counts = ww_engine(device, root)
@@ -10123,6 +10155,65 @@ def wide_width_phase(device, keep: str) -> tuple:
     log(f"phase 27 done in {stats['phase_s']['whole']:.1f} s ((a) "
         f"{t_a:.1f}, (b) {t_b - t_a:.1f}, (c) {t_c - t_b:.1f}; (d) beside "
         f"them); launches {counts}")
+    return entries, stats
+
+
+# --- phase 28: batches past 2048 (K3, K4, K8) ---------------------------------
+#
+# The streamed plan takes any B (it cut the batch into 64-row items from
+# the first; the cap of 2048 guarded nothing): K3, K4 and K8 forward and
+# backward at B = 4096, H = 512 against their plain versions at phase 24's
+# limits, timed beside the bound (K4 also beside cuDNN's nn.LSTM).  The
+# train CLI's step at --caption_batch_size 4096 through K3 is phase 24
+# (c)'s StyleNet epoch (at --hidden_size 1024: one process for both).
+
+BIG_B, BIG_H = 4096, 512
+BIG_SCANS = (("K3", BIG_B, BIG_H), ("K4", BIG_B, BIG_H), ("K8", BIG_B, BIG_H))
+BIG_CAPS = 4                  # captions an image: BIG_B // BIG_CAPS images
+
+
+def big_batch_files(keep: str) -> tuple:
+    """BIG_B training captions (BIG_B // BIG_CAPS images t0 .., BIG_CAPS
+    each, phase 19's words) and a feature cache of random 2048-d vectors
+    for those images and phase 19's (its validation and emotion captions
+    name images t0 .. t209) under ``keep``: phase 24 (c)'s StyleNet epoch
+    trains on them at --caption_batch_size BIG_B.  -> (captions, cache)."""
+    import numpy as np
+
+    n_img = BIG_B // BIG_CAPS
+    train = os.path.join(keep, "big_train.txt")
+    with open(train, "w") as f:
+        for j, e in enumerate(trainer_corpus(n_img, BIG_CAPS, 280, "t")):
+            f.write(f"{e.image}.jpg#{j % BIG_CAPS}\t"
+                    + " ".join(f"w{i}" for i in e.caption_ids[1:-1]) + "\n")
+    cache = os.path.join(keep, "big_features.npz")
+    rng = np.random.default_rng(281)
+    np.savez(cache, **{f"t{i}.jpg": rng.random(2048, dtype=np.float32)
+                       for i in range(max(n_img, CLI_IMAGES))})
+    return train, cache
+
+
+def big_batch_phase(device) -> tuple:
+    """Phase 28 -> (entries of its shapes, each named as phase 24's entry
+    it joins with ``_big_b`` for ``_wide_h``, stats)."""
+    import torch
+
+    t0 = time.perf_counter()
+    scans = {}
+    for kernel, b, h in BIG_SCANS:
+        scans[f"{kernel} B{b} H{h}"] = check_wide_scan(kernel, b, h, device,
+                                                       "28")
+        torch.cuda.empty_cache()
+    log("phase 28: K3, K4, K8 at B = 4096 ok: " + "; ".join(
+        f"{k} {f['plan']['forward']}/{f['plan']['backward']} fwd "
+        f"{f['fwd_ms']:.3f} (plain {f['plain_fwd_ms']:.3f}, bound "
+        f"{f['bound_fwd_ms']:.3f}) bwd {f['bwd_ms']:.3f} (plain "
+        f"{f['plain_bwd_ms']:.3f}, bound {f['bound_bwd_ms']:.3f})"
+        for k, f in scans.items()))
+    head = f"B{BIG_B} H{BIG_H}"
+    entries = wide_scan_entries(scans, {}, "big_b", (head,) * 3, "B > 2048")
+    stats = {"scans": scans, "phase_s": time.perf_counter() - t0}
+    log(f"phase 28: batches past 2048 ok in {stats['phase_s']:.1f} s")
     return entries, stats
 
 
@@ -10226,9 +10317,12 @@ def main() -> int:
         att_init = check_att_init(att, device)
         log(f"phase 5b: K6 ok, factored {k6['factored']['ms']:.3f} ms "
             f"(serial {k6['factored']['serial_ms']:.3f}) vs plain "
-            f"{k6['factored']['plain_ms']:.3f}; lstm {k6['lstm']['ms']:.3f} "
-            f"ms (serial {k6['lstm']['serial_ms']:.3f}) vs plain "
-            f"{k6['lstm']['plain_ms']:.3f}; h0/c0 at one image "
+            f"{k6['factored']['plain_ms']:.3f}, library "
+            f"{k6['factored']['library_ms']:.3f}; lstm "
+            f"{k6['lstm']['ms']:.3f} ms (serial "
+            f"{k6['lstm']['serial_ms']:.3f}) vs plain "
+            f"{k6['lstm']['plain_ms']:.3f}, library "
+            f"{k6['lstm']['library_ms']:.3f}; h0/c0 at one image "
             f"{att_init['ms']:.4f} ms (device {att_init['device_ms']}), 64 "
             f"images {att_init['shapes'][str(B_IMAGES)]['ms']:.4f}")
         log("phases 4, 5b: column-split path at the serial shape from a "
@@ -10520,6 +10614,16 @@ def main() -> int:
         done("26")
         wide_width, train["wide_width"] = wide_width_phase(device, keep)
         done("27")
+        big_batch, train["big_batch"] = big_batch_phase(device)
+        done("28")
+        # phase 28's shapes and launches join phase 24's entries: the same
+        # kernels past the resident plan
+        for e in wide_h:
+            big = next(b for b in big_batch
+                       if b["name"] == e["name"].replace("_wide_h", "_big_b"))
+            e["shapes"].update(big["shapes"])
+            e["max_abs_err"] = max(e["max_abs_err"], big["max_abs_err"])
+            e["replaces"] = e["replaces"].replace("large B", "B > 2048")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     # every rank's launches: K3, the CE, K2 and K7 (phase 19's stages over
@@ -10563,7 +10667,7 @@ def main() -> int:
                           for n in RAG_TIMED_IMAGES}
     k7["factored"]["ragged_v8191"] = {f"images{n}": times[f"k7_images{n}"]
                                       for n in RAG_TIMED_IMAGES}
-    log(f"phases 21-27 done; seconds a phase {json.dumps(phase_s)}; the "
+    log(f"phases 21-28 done; seconds a phase {json.dumps(phase_s)}; the "
         f"whole run {time.perf_counter() - t_run:.1f} s (the kernels' build "
         "included)")
     print(json.dumps({"train": train}))

@@ -38,7 +38,7 @@ weights and rank 0 alone writes the pickle; ``test`` decodes on one card
 (as the JAX CLI's), and a world of one process trains single-device with
 a WARNING.  Where K8 runs, its launch plan must take the minibatch (a
 rank's share under ``--data_parallel``) at the hidden size: on the card
-the scans take B and H up to 2048 (a wider ``--hidden_size`` is refused
+the scans take any B and H up to 2048 (a wider ``--hidden_size`` is refused
 with the plan's own message, for ``base`` before any data loads, for
 ``train`` once the base model's sizes are read).  Fresh weights come from
 :func:`init_base` and
@@ -258,7 +258,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--emb_size", type=int, default=512)
     p.add_argument("--hidden_size", type=int, default=512,
                    help="the LSTM's width; on the card K8 takes up to 2048 "
-                        "(with --batch_size up to 2048)")
+                        "(at any --batch_size)")
     p.add_argument("--visual_size", type=int, default=4096)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--max_len", type=int, default=20)

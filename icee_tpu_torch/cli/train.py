@@ -41,11 +41,11 @@ alone logs and writes the checkpoints.  ``--dist_backend gloo`` puts
 several ranks on one card (NCCL refuses that); the default follows the
 device.  A world of one process trains single-device with a WARNING;
 ``--tensor_parallel`` or the multi-host flags without ``--data_parallel``
-are refused.  On the card the training scans take ``--hidden_size`` and
-both batch sizes up to 2048 (past about 704 units, or at large batches,
-their recurrence streams W_h: ``ops/scan_grid.py``); a shape the training
-scan's launch plan cannot take on this card is refused with the plan's
-own message before any data loads.
+are refused.  On the card the training scans take ``--hidden_size`` up to
+2048 and any batch size (past about 704 units, or at large batches,
+their recurrence streams W_h: ``ops/scan_grid.py``; a batch of 4096 at H
+= 512 trains so); a shape the training scan's launch plan cannot take on
+this card is refused with the plan's own message before any data loads.
 """
 
 import argparse

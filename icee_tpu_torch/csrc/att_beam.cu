@@ -66,8 +66,8 @@
 // features enc_w + enc_b stays a plain product outside the kernel, as in
 // the JAX package.
 //
-// Bits: every output is the chain K6 computes for it (attend_rows' and
-// dot4's k order from 0.f; x V_w resumed at k = E from its partial, as K6's
+// Bits: every output is the chain K6 computes for it (att_score's,
+// softmax_row's and dot4's k order from 0.f; x V_w resumed at k = E from its partial, as K6's
 // column-split path does; the same bias adds after), built with
 // -fmad=false, and no chain's k range is split across blocks.  So the
 // fused-step path (K6 per step from att_init_state's h0/c0) and this

@@ -77,12 +77,15 @@
 // planes fit it).  The work is cut into items of 64 rows (forward: 64 rows
 // x f_units units; backward: 64 rows x b_units units x one b_kc-deep k
 // range, any multiple of 32), dealt to min(items, SMs) blocks round robin,
-// so every (B, H) up to SG_STREAM_MAX has a plan on any card.  The
+// so every B and every H up to SG_STREAM_MAX has a plan on any card: a
+// streamed item holds 64 rows whatever B is, its state is in device memory
+// and every row offset is 64-bit (B H < 2^31 is the one bound on B, the
+// gate pass's element count).  The
 // forward reads c_{t-1} from c_seq, the backward's gate pass reads its
 // operands from device memory and carries dc there (no per-element state
 // in shared memory).  The arithmetic is the resident passes' own; the
 // backward's partials are added in range order, then clamped, as there.
-// A shape past SG_STREAM_MAX with no resident plan raises in the wrapper.
+// An H past SG_STREAM_MAX with no resident plan raises in the wrapper.
 //
 // No atomics in any sum (the grid barrier counts arrivals only): a call
 // gives the same bits on every run.
@@ -103,7 +106,7 @@ constexpr int SG_SMEM_LIMIT = 232448;  // bytes of shared memory a block
 constexpr int SG_TILE_BYTES = 4 * SG_ROWS * SG_LDA;   // one ring stage
 constexpr int SG_RESIDENT = 0;     // a plan's kind: W_h's slice resident
 constexpr int SG_STREAMED = 1;     // ... W_h's planes streamed a pass
-constexpr int SG_STREAM_MAX = 2048;   // B and H a streamed plan takes
+constexpr int SG_STREAM_MAX = 2048;   // H a streamed plan takes
 constexpr int SG_ITEM_TILES = 2;   // a streamed item's fixed cost, in k tiles
 
 struct ScanPlan {
@@ -196,7 +199,7 @@ inline long long sg_stream_item_bytes(int nk, int nc) {
 // 16, 32, 64, k ranges 32 x 2^i up to the first that covers 4H.  Keys, in
 // order: a block's work a step, then the words through L2 a step (A's
 // reads; the backward's partials written and read), then more units.
-// Where a direction has no resident plan and B, H <= SG_STREAM_MAX, its
+// Where a direction has no resident plan and H <= SG_STREAM_MAX, its
 // streamed plan: forward units 4, 8, 16; backward units 16, 32, 64 and k
 // ranges of every multiple of 32 (s ranges of 32 ceil(nk / s) tiles);
 // keys: what a block's items cost a step in bytes copied (their A and B
@@ -250,7 +253,7 @@ inline ScanPlan sg_plan(int B, int H, int sms) {
       if (kc >= h4) break;
     }
   }
-  if (B > SG_STREAM_MAX || H > SG_STREAM_MAX) return p;
+  if (H > SG_STREAM_MAX || (long long)B * H > 0x7fffffffLL) return p;
   const int passes = sg_cdiv(B, SG_ROWS);
   if (p.f_blocks == 0) {
     best0 = -1;

@@ -11,13 +11,17 @@ the shape alone and giving the same bits for a row:
   columns spread over the whole card and chained by programmatic dependent
   launch; where those launches' shared memory does not hold the rows
   (:func:`split_att_smem`: the factored cell at F above ~1,400 and k =
-  8), the row-tiled path;
-* row-tiled (several images, or more than 8 rows an image; the batched
-  shapes): an attention launch (one block per image and group of up to 8
-  of its rows) writes x = [emb; gate * ctx], then K1's cell, head and
-  merge launches run with input width E + FS (the cell a template over the
-  weight set; 8 rows a cell block to H = 544, then 4, 2 or 1:
-  ``decode_step.cell_rows``).
+  8), the many-row path;
+* many-row (several images, or more than 8 rows an image; the batched
+  shapes; ``csrc/step_kernels.cuh``): one product launch over all rows of
+  att2, the gate's pre-activation and the cell's h product, then the
+  scores (a block per image, group of 8 of its rows and 8 positions) and
+  the context (a block per image, group and 256 feature columns) write x
+  = [emb; gate * ctx], then K1's products, gates and reduce run with input
+  width E + FS (``decode_step.step_plan`` lists the launches).  Only the
+  attention launches hold rows whole in shared memory: a group's att2
+  (8 A floats) and scores (8 P), A and P up to ~7,000
+  (:func:`check_attend`).
 
 Top-ks above ``K_MAX`` = 8, up to V, take K1's wide head and reduce
 (``csrc/wide_topk.cuh``), the same bits as the narrow merge would give
@@ -55,12 +59,12 @@ from icee_tpu_torch.decode.beam import top_k
 from icee_tpu_torch.models import attention as att_mod
 from icee_tpu_torch.ops import cuda_lib, widths
 from icee_tpu_torch.ops.cells import factored_lstm_cell, lstm_cell
-from icee_tpu_torch.ops.decode_step import (K_MAX, MIRROR_SHAPES,
-                                            SPLIT_ROWS, V_TILE,
-                                            cell_rows, cell_smem,
-                                            check_beam_width, check_tiled,
-                                            scratch_ptrs, split_cell_smem,
-                                            split_slab_smem, tiled_scratch,
+from icee_tpu_torch.ops.decode_step import (K_MAX, MIRROR_ROWS,
+                                            MIRROR_SHAPES, SPLIT_ROWS,
+                                            V_TILE, check_beam_width,
+                                            gemm_pick, mirror_gemm_pick,
+                                            split_cell_smem, split_slab_smem,
+                                            step_work_floats,
                                             wide_cand_floats)
 
 KINDS = ("factored", "lstm")
@@ -166,11 +170,24 @@ def step_layout(cell_params: dict, att_params: dict, gate_params: dict,
     return w, widths.pad_tree(tree, w)
 
 
-def attend_smem(rows: int, h: int, a: int, p: int) -> int:
-    """Bytes of shared memory of a row-tiled attention block of ``rows``
-    rows (``csrc/att_decode_step.cu`` ``att_step``): their h, att2 and
-    scores."""
-    return 4 * rows * (widths.quad(h) + widths.quad(a) + widths.quad(p))
+def attend_smem(rows: int, a: int, p: int) -> int:
+    """Bytes of shared memory of the larger of the many-row path's
+    attention launches for a group of ``rows`` rows (``csrc/
+    att_decode_step.cu`` ``icee_att_attend_smem``): the scores launch
+    holds their att2 rows, the context launch their scores."""
+    return 4 * rows * max(widths.quad(a), widths.quad(p))
+
+
+def check_attend(what: str, k: int, a: int, p: int) -> None:
+    """Raise ValueError, naming the launch, where a group of min(k, 8)
+    rows' att2 or scores do not fit a block's shared memory (the padded
+    widths)."""
+    smem = attend_smem(min(k, K_MAX), a, p)
+    if smem > cuda_lib.SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: the attention launches' {min(k, K_MAX)} rows at A={a}, "
+            f"P={p} need {smem} bytes of shared memory, more than "
+            f"{cuda_lib.SMEM_LIMIT}")
 
 
 def split_att_smem(factored: bool, k: int, e: int, f: int, h: int, a: int,
@@ -180,13 +197,6 @@ def split_att_smem(factored: bool, k: int, e: int, f: int, h: int, a: int,
     and pre launches, the scores launch's att2 rows, the context's."""
     return max(split_cell_smem(factored, k, e, f, h, fs), 4 * k * a,
                split_slab_smem(p, 1, False, k))
-
-
-def tiled_step_smem(e: int, f: int, h: int, fs: int) -> int:
-    """Bytes of shared memory of the row-tiled cell launch at the rows a
-    block holds (``icee_att_step_smem``; 0 where not one row fits)."""
-    rows = cell_rows(e + fs, f, h)
-    return cell_smem(rows, e + fs, f, h) if rows else 0
 
 
 def _step_weights(cell_params: dict, att_params: dict, gate_params: dict,
@@ -253,14 +263,7 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
     split = (n_img == 1 and k <= SPLIT_ROWS and split_att_smem(
         kind == "factored", k, e, fp, hp, ap, p, fsp) <= cuda_lib.SMEM_LIMIT)
     if not split:
-        what = f"att_decode_step_topk (K6, kind={kind})"
-        smem = attend_smem(min(k, K_MAX), hp, ap, p)
-        if smem > cuda_lib.SMEM_LIMIT:
-            raise ValueError(
-                f"{what}: the attention launch's {min(k, K_MAX)} rows at "
-                f"H={hp}, A={ap}, P={p} need {smem} bytes of shared memory, "
-                f"more than {cuda_lib.SMEM_LIMIT}")
-        check_tiled(what, e + fsp, fp, hp, ktop)
+        check_attend(f"att_decode_step_topk (K6, kind={kind})", k, ap, p)
     f32 = dict(dtype=torch.float32, device=device)
     h_out = torch.empty((rows, hp), **f32)
     c_out = torch.empty((rows, hp), **f32)
@@ -275,10 +278,11 @@ def att_decode_step_topk(cell_params: dict, att_params: dict,
         outs = (ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
                 ptr(work), k, e)
     else:
-        x_full = torch.empty((rows, e + fsp), **f32)
-        scratch = tiled_scratch(rows, vp, ktop, device)
-        outs = (ptr(x_full), ptr(h_out), ptr(c_out), ptr(logp), ptr(idx),
-                ptr(alpha), *scratch_ptrs(scratch), n_img, k, e)
+        work = torch.empty((lib.icee_att_step_work(
+            kind == "factored", rows, e, fp, hp, vp, ap, p, fsp, ktop),),
+            **f32)
+        outs = (ptr(h_out), ptr(c_out), ptr(logp), ptr(idx), ptr(alpha),
+                ptr(work), n_img, k, e)
     fn = {("factored", False): lib.icee_att_decode_step_topk,
           ("factored", True): lib.icee_att_decode_step_topk_split,
           ("lstm", False): lib.icee_att_decode_step_topk_lstm,
@@ -302,7 +306,7 @@ att_decode_step_topk.launches = 0       # kernel calls, kind="factored"
 att_decode_step_topk.lstm_launches = 0  # kernel calls, kind="lstm"
 att_decode_step_topk.split_launches = 0       # one image: the split path
 att_decode_step_topk.lstm_split_launches = 0
-att_decode_step_topk.tiled_launches = 0       # several images: row-tiled
+att_decode_step_topk.tiled_launches = 0       # the rest: many-row
 att_decode_step_topk.lstm_tiled_launches = 0
 att_decode_step_topk.wide_launches = 0        # k or ktop above K_MAX
 att_decode_step_topk.lstm_wide_launches = 0
@@ -341,32 +345,42 @@ def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     ll = ctypes.c_longlong
     lib = cuda_lib.library("att_decode_step", {
-        "icee_att_decode_step_topk": ([vp] * 32 + [i] * 10 + [vp], i),
-        "icee_att_decode_step_topk_lstm": ([vp] * 28 + [i] * 9 + [vp], i),
+        "icee_att_decode_step_topk": ([vp] * 27 + [i] * 10 + [vp], i),
+        "icee_att_decode_step_topk_lstm": ([vp] * 23 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_split": ([vp] * 27 + [i] * 9 + [vp], i),
         "icee_att_decode_step_topk_lstm_split": (
             [vp] * 23 + [i] * 8 + [vp], i),
         "icee_att_step_split_work": ([i] * 8, ll),
-        "icee_att_step_smem": ([i] * 4, ll),
-        "icee_att_attend_smem": ([i] * 4, ll),
-        "icee_att_step_split_smem": ([i] * 8, ll)})
+        "icee_att_step_work": ([i] * 10, ll),
+        "icee_att_attend_smem": ([i] * 3, ll),
+        "icee_att_step_split_smem": ([i] * 8, ll),
+        "icee_step_gemm_pick": ([i, i, vp, vp, i], i)})
     if getattr(lib, "mirrors_checked", False):
         return lib
     for e_in, f, h in MIRROR_SHAPES:   # E + FS = e_in, E = 300 or e_in
         e, fs = (300, e_in - 300) if e_in > 300 else (e_in, 0)
         for kind, ff in (("factored", f), ("lstm", h)):
-            got = (lib.icee_att_step_smem(e, ff, h, fs),
-                   lib.icee_att_attend_smem(8, h, 512, 1024),
-                   *(lib.icee_att_step_split_smem(kind == "factored", r, e,
-                                                  ff, h, 512, 400, fs)
+            fact = kind == "factored"
+            got = (lib.icee_att_attend_smem(8, 512, h),
+                   *(lib.icee_att_step_split_smem(fact, r, e, ff, h, 512,
+                                                  400, fs)
                      for r in (1, 5, 8)))
-            want = (tiled_step_smem(e, ff, h, fs),
-                    attend_smem(8, h, 512, 1024),
-                    *(split_att_smem(kind == "factored", r, e, ff, h, 512,
-                                     400, fs) for r in (1, 5, 8)))
+            want = (attend_smem(8, 512, h),
+                    *(split_att_smem(fact, r, e, ff, h, 512, 400, fs)
+                      for r in (1, 5, 8)))
+            for rows in MIRROR_ROWS:
+                jobs = [(512, 1), (fs, 1), (4 * h, 1)]
+                got += (mirror_gemm_pick(lib, rows, jobs, 132),
+                        *(lib.icee_att_step_work(fact, rows, e, ff, h, 8192,
+                                                 512, 196, fs, kt)
+                          for kt in (5, 20, 300)))
+                want += (gemm_pick(rows, jobs, 132),
+                         *(step_work_floats(kind, rows, e, ff, h, 8192, kt,
+                                            512, 196, fs)
+                           for kt in (5, 20, 300)))
             if got != want:
                 raise RuntimeError(
-                    f"csrc/att_decode_step.cu's shared memory "
+                    f"csrc/att_decode_step.cu's plans and shared memory "
                     f"{got} at {kind} (E, F, H, FS) = {(e, ff, h, fs)} are "
                     f"not the wrapper's {want}")
     lib.mirrors_checked = True

@@ -9,11 +9,13 @@ alone and giving the same bits for a row:
   columns spread over the whole card, weights streamed by ``cp.async``;
   where its launches' shared memory does not hold R rows
   (:func:`split_k1_smem`: F above ~1,400 at R = 8), the row-tiled path;
-* row-tiled (larger R, the batched shapes; ``csrc/step_kernels.cuh``):
-  three launches, cell, per-tile head partials, merge; the (R, V) logits
-  never reach device memory.  A cell block holds 8 rows where their planes
-  fit, else 4, 2 or 1 (:func:`cell_rows`); the head block 16 rows of h
-  (:func:`check_tiled`: H up to ~2,600).
+* many-row (larger R, the batched shapes; ``csrc/step_kernels.cuh``):
+  each product one register-tiled launch over all R rows (a block a tile
+  of up to 128 rows x 128 columns, the tile shape :func:`gemm_pick`'s),
+  so each weight tile is read once per tile of rows; then the gates, the
+  logits (R, V) into device memory, the tile partials and the merge
+  (:func:`step_plan` lists the launches).  It takes any width: no launch
+  holds a whole row of h in shared memory.
 
 A top-k above ``K_MAX`` = 8, up to V, takes either path with the wide
 reduce (``csrc/wide_topk.cuh``): the head writes the logits to device
@@ -28,7 +30,7 @@ tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
 :func:`decode_step_topk` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Launch counts:
 ``decode_step_topk.launches`` (every call), ``.split_launches`` and
-``.tiled_launches`` (each path), ``.wide_launches`` (a top-k above
+``.tiled_launches`` (each path; ``tiled`` is the many-row path), ``.wide_launches`` (a top-k above
 ``K_MAX``, either path).
 """
 
@@ -48,9 +50,14 @@ V_TILE = 256   # csrc/decode_common.cuh VT
 K_MAX = 8      # csrc/decode_common.cuh KMAX: the narrow paths' widest k
 K_WIDE = 256   # csrc/wide_topk.cuh KWIDE: most survivors in shared memory
 SPLIT_ROWS = 8  # csrc/split_step.cuh SPLIT_ROWS: most rows of the split path
-CELL_ROWS = 8   # csrc/step_kernels.cuh CELL_ROWS: most rows of a cell block
-HEAD_ROWS = 16  # csrc/step_kernels.cuh HEAD_ROWS: rows of a head block
-HEAD_TILES = 4  # csrc/step_kernels.cuh HEAD_TILES: vocab tiles a head block
+# csrc/step_kernels.cuh: the many-row products' k tile, the tile shapes
+# (BM, BN) in gemm_pick's order, the products a launch holds; a
+# tile-partials block's warps, a gates block's threads
+GEMM_BK = 8
+GEMM_TILES = ((128, 128), (64, 128), (64, 64), (32, 64))
+MAX_GEMM_JOBS = 3
+PART_WARPS = 8
+GATE_THREADS = 256
 # csrc/split_step.cuh: a slab launch's ring and chunks
 SPLIT_RING, SPLIT_CHUNK_ROWS, SPLIT_SLAB_F4 = 6, 128, 4
 
@@ -142,47 +149,108 @@ def block_select_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.from_numpy(out).to(keys.device)
 
 
-def cell_smem(rows: int, e_in: int, f: int, h: int) -> int:
-    """Bytes of shared memory of a row-tiled cell block of ``rows`` rows
-    (``csrc/step_kernels.cuh`` ``cell_smem``): each row's input (``e_in``),
-    h and two scratch planes of 4 max(F, H) floats (the LSTM cell: F =
-    H)."""
-    ld = widths.quad(4 * max(f, h))
-    return 4 * rows * (widths.quad(e_in) + widths.quad(h) + 2 * ld)
+def gemm_smem(cfg: int) -> int:
+    """Bytes of shared memory of a many-row product block of tile shape
+    ``cfg`` (``csrc/step_kernels.cuh`` ``gemm_smem``): two k tiles of its
+    rows, k-major (GEMM_BK x BM + 4), and of the weight (GEMM_BK x BN)."""
+    bm, bn = GEMM_TILES[cfg]
+    return 4 * 2 * GEMM_BK * (bm + 4 + bn)
 
 
-def cell_rows(e_in: int, f: int, h: int) -> int:
-    """Rows a cell block holds (``csrc/step_kernels.cuh`` ``cell_rows``):
-    8 where their planes fit a block's shared memory, else the most of 4,
-    2, 1 that fit; 0 where not one row's do (H above ~6,000).  The rows a
-    block holds change no row's bits."""
-    for rows in (8, 4, 2, 1):
-        if cell_smem(rows, e_in, f, h) <= cuda_lib.SMEM_LIMIT:
-            return rows
-    return 0
+def gemm_blocks(cfg: int, m: int, jobs) -> int:
+    """Blocks of a product launch of ``m`` rows and ``jobs`` (N, nseg)
+    products at tile shape ``cfg``: row tiles x column tiles x segments,
+    summed over the products."""
+    bm, bn = GEMM_TILES[cfg]
+    return sum(-(-m // bm) * nseg * -(-n // bn) for n, nseg in jobs)
 
 
-def head_smem(h: int, ktop: int) -> int:
-    """Bytes of shared memory of a head block: 16 rows of h and, at
-    ``ktop`` <= ``K_MAX``, their logits tiles."""
-    return 4 * HEAD_ROWS * (widths.quad(h)
-                            + (0 if ktop > K_MAX else HEAD_TILES * V_TILE))
+def gemm_pick(m: int, jobs, sms: int = 132) -> int:
+    """``gemm_pick``: the tile shape of a product launch, the least work
+    on the busiest SM, ceil(blocks / sms) (BM BN + 8 (BM + BN)) (its
+    blocks' outputs and the k tiles they copy), ties to the larger
+    tile."""
+    best, cost = 0, None
+    for cfg, (bm, bn) in enumerate(GEMM_TILES):
+        c = -(-gemm_blocks(cfg, m, jobs) // sms) * (bm * bn + 8 * (bm + bn))
+        if cost is None or c < cost:
+            best, cost = cfg, c
+    return best
 
 
-def check_tiled(what: str, e_in: int, f: int, h: int, ktop: int) -> None:
-    """Raise ValueError, naming the launch, where the row-tiled step's
-    cell or head launch does not fit a block's shared memory (the padded
-    widths)."""
-    if cell_rows(e_in, f, h) == 0:
-        raise ValueError(
-            f"{what}: the cell launch does not hold one row at E_in={e_in}, "
-            f"F={f}, H={h} ({cell_smem(1, e_in, f, h)} bytes of shared "
-            f"memory, more than {cuda_lib.SMEM_LIMIT})")
-    if head_smem(h, ktop) > cuda_lib.SMEM_LIMIT:
-        raise ValueError(
-            f"{what}: the head launch's {HEAD_ROWS} rows at H={h}, "
-            f"ktop={ktop} need {head_smem(h, ktop)} bytes of shared memory, "
-            f"more than {cuda_lib.SMEM_LIMIT}")
+def step_plan(kind: str, rows: int, e: int, f: int, h: int, v: int,
+              ktop: int, a: int = 0, p: int = 0, fs: int = 0, k: int = 1,
+              sms: int = 132) -> list:
+    """The many-row step's launches in order (``csrc/decode_step.cu``,
+    ``csrc/att_decode_step.cu``), each ``(name, tile or None, blocks,
+    threads, shared memory bytes)``, at the padded widths: ``kind`` "k1"
+    (input width ``e``), "factored" or "lstm" (K6: ``rows`` = images x
+    ``k``, input width e + fs, attention width ``a`` over ``p``
+    positions)."""
+    out = []
+
+    def product(name, jobs):
+        assert len(jobs) <= MAX_GEMM_JOBS
+        cfg = gemm_pick(rows, jobs, sms)
+        bm, bn = GEMM_TILES[cfg]
+        out.append((name, (bm, bn), gemm_blocks(cfg, rows, jobs),
+                    bm * bn // 64, gemm_smem(cfg)))
+
+    if kind == "k1":
+        product("pre", [(4 * f, 1), (4 * h, 1)])
+    else:
+        product("pre", [(a, 1), (fs, 1), (4 * h, 1)])
+        group = min(k, K_MAX)
+        groups = rows // k * -(-k // K_MAX)
+        out.append(("scores", None, groups * -(-p // 8), 256,
+                    4 * group * widths.quad(a)))
+        out.append(("context", None, groups * -(-fs // 256), 64,
+                    4 * group * widths.quad(p)))
+    if kind != "lstm":
+        if kind == "factored":
+            product("v", [(4 * f, 1)])
+        product("style", [(f, 4)])
+        product("z", [(h, 4)])
+    else:
+        product("z", [(4 * h, 1)])
+    out.append(("gates", None, -(-rows * h // GATE_THREADS), GATE_THREADS,
+                0))
+    product("logits", [(v, 1)])
+    if ktop > K_MAX:
+        out.append(("wide_reduce", None, rows, 512,
+                    4 * (1024 + 16 * V_TILE + 2 * -(-v // V_TILE))))
+    else:
+        tiles = rows * -(-v // V_TILE)
+        out.append(("tile_partials", None, -(-tiles // PART_WARPS),
+                    PART_WARPS * 32, 4 * PART_WARPS * V_TILE))
+        out.append(("merge", None, -(-rows // 8), 256, 0))
+    return out
+
+
+def step_work_floats(kind: str, rows: int, e: int, f: int, h: int, v: int,
+                     ktop: int, a: int = 0, p: int = 0, fs: int = 0) -> int:
+    """Floats of the many-row path's work buffer (``csrc/step_kernels.cuh``
+    ``step_work``), each plane at a multiple of 4: (K6) att2, the gate
+    pre-activation, the scores, x; the cell's h product; (factored) v, s;
+    z; the logits; the partials (ktop <= K_MAX) or the wide reduce's
+    survivors (above K_WIDE)."""
+    def q(n):
+        return (n + 3) & ~3
+
+    tiles = -(-v // V_TILE)
+    planes = []
+    if kind != "k1":
+        planes += [rows * a, rows * fs, rows * p, rows * widths.quad(e + fs)]
+    planes.append(rows * 4 * h)
+    if kind != "lstm":
+        planes += [rows * 4 * f, rows * 4 * f]
+    planes += [rows * 4 * h, rows * v]
+    if ktop <= K_MAX:
+        planes += [rows * tiles, rows * tiles, rows * tiles * ktop,
+                   rows * tiles * ktop]
+    elif ktop > K_WIDE:
+        planes.append(2 * rows * ktop)
+    return sum(q(n) for n in planes)
 
 
 def split_slab_smem(k: int, gates: int, seg: bool, rows: int) -> int:
@@ -291,8 +359,6 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
             p(logp), p(idx))
     split = (rows <= SPLIT_ROWS and split_k1_smem(rows, e, fp, hp)
              <= cuda_lib.SMEM_LIMIT)
-    if not split:
-        check_tiled("decode_step_topk (K1)", e, fp, hp, ktop)
     if split:
         work = torch.empty((lib.icee_decode_step_split_work(rows, fp, hp, vp)
                             + wide_cand_floats(rows, ktop),), **f32)
@@ -301,9 +367,10 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
             cuda_lib.stream_ptr(device))
         decode_step_topk.split_launches += 1
     else:
-        scratch = tiled_scratch(rows, vp, ktop, device)
+        work = torch.empty((lib.icee_decode_step_work(rows, e, fp, hp, vp,
+                                                      ktop),), **f32)
         rc = lib.icee_decode_step_topk(
-            *head, *scratch_ptrs(scratch), rows, e, fp, hp, vp, ktop,
+            *head, p(work), rows, e, fp, hp, vp, ktop,
             cuda_lib.stream_ptr(device))
         decode_step_topk.tiled_launches += 1
     cuda_lib.check_rc(lib, rc, "decode_step_topk")
@@ -314,69 +381,62 @@ def decode_step_topk(params: dict, x: torch.Tensor, h: torch.Tensor,
 
 decode_step_topk.launches = 0        # kernel calls, either path
 decode_step_topk.split_launches = 0  # R <= SPLIT_ROWS (5 CUDA launches)
-decode_step_topk.tiled_launches = 0  # the rest (3 CUDA launches)
+decode_step_topk.tiled_launches = 0  # the rest: the many-row path
 decode_step_topk.wide_launches = 0   # ktop > K_MAX, either path
 
 
-def tiled_scratch(rows: int, v: int, ktop: int, device: torch.device):
-    """The row-tiled path's scratch arguments (``csrc/step_kernels.cuh``):
-    the per-tile partials pm, pse (rows, n_tiles) and pv, pi (rows,
-    n_tiles, ktop), then the logits (rows, n_tiles * 256) where ``ktop``
-    is above ``K_MAX`` (the partials then unused and empty; else None),
-    above ``K_WIDE`` followed by the wide reduce's survivors
-    (:func:`wide_cand_floats`)."""
-    n_tiles = -(-v // V_TILE)
-    f32 = dict(dtype=torch.float32, device=device)
-    wide = ktop > K_MAX
-    tiles = 0 if wide else n_tiles
-    pm = torch.empty((rows, tiles), **f32)
-    pse = torch.empty((rows, tiles), **f32)
-    pv = torch.empty((rows, tiles, ktop), **f32)
-    pi = torch.empty((rows, tiles, ktop), dtype=torch.int32, device=device)
-    lg = None
-    if wide:
-        cols = n_tiles * V_TILE
-        lg = torch.empty((rows * cols + wide_cand_floats(rows, ktop),),
-                         **f32)[:rows * cols].view(rows, cols)
-    return pm, pse, pv, pi, lg
-
-
-def scratch_ptrs(tensors) -> list:
-    """Kernel arguments of scratch tensors: each one's address, None for
-    None."""
-    return [None if t is None else cuda_lib.ptr(t) for t in tensors]
-
-
-# (E_in, F, H) at which the library's cell rows and split-path shared
-# memory are held to the mirrors when it loads: each side of every rows
-# boundary of K1 and K6, the training scans' widths, ragged ones
+# (E_in, F, H) at which the library's plans and split-path shared memory
+# are held to the mirrors when it loads: the flagship and training widths,
+# each side of the split path's boundaries, ragged ones
 MIRROR_SHAPES = tuple((e, f, h) for e in (16, 300, 301, 2348, 2349)
                       for f, h in ((32, 32), (512, 512), (544, 544),
                                    (548, 548), (772, 772), (776, 776),
                                    (1024, 1024), (1400, 1400),
                                    (1424, 1424), (2048, 2048),
                                    (2052, 2052), (512, 2048), (6000, 6000)))
+MIRROR_ROWS = (9, 320, 1024)   # rows of the many-row plans held there
+
+
+def mirror_gemm_pick(lib, m: int, jobs, sms: int) -> int:
+    """The library's ``icee_step_gemm_pick`` for ``jobs`` (N, nseg)."""
+    arr = ctypes.c_int * MAX_GEMM_JOBS
+    ns = arr(*[n for n, _ in jobs])
+    segs = arr(*[s for _, s in jobs])
+    return lib.icee_step_gemm_pick(m, len(jobs), ns, segs, sms)
 
 
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     ll = ctypes.c_longlong
     lib = cuda_lib.library("decode_step", {
-        "icee_decode_step_topk": ([vp] * 22 + [i] * 6 + [vp], i),
+        "icee_decode_step_topk": ([vp] * 18 + [i] * 6 + [vp], i),
+        "icee_decode_step_work": ([i] * 6, ll),
         "icee_decode_step_topk_split": ([vp] * 18 + [i] * 6 + [vp], i),
         "icee_decode_step_split_work": ([i] * 4, ll),
-        "icee_cell_rows": ([i] * 3, i),
+        "icee_step_gemm_pick": ([i, i, vp, vp, i], i),
+        "icee_step_gemm_smem": ([i], ll),
         "icee_decode_step_split_smem": ([i] * 4, ll)})
     if getattr(lib, "mirrors_checked", False):
         return lib
+    for cfg in range(len(GEMM_TILES)):
+        if lib.icee_step_gemm_smem(cfg) != gemm_smem(cfg):
+            raise RuntimeError(f"csrc/step_kernels.cuh's gemm_smem({cfg}) "
+                               f"{lib.icee_step_gemm_smem(cfg)} is not the "
+                               f"wrapper's {gemm_smem(cfg)}")
     for e, f, h in MIRROR_SHAPES:
-        got = (lib.icee_cell_rows(e, f, h),
-               *(lib.icee_decode_step_split_smem(r, e, f, h)
-                 for r in (1, 5, 8)))
-        want = (cell_rows(e, f, h),
-                *(split_k1_smem(r, e, f, h) for r in (1, 5, 8)))
+        got = tuple(lib.icee_decode_step_split_smem(r, e, f, h)
+                    for r in (1, 5, 8))
+        want = tuple(split_k1_smem(r, e, f, h) for r in (1, 5, 8))
+        for rows in MIRROR_ROWS:
+            jobs = [(4 * f, 1), (4 * h, 1)]
+            got += (mirror_gemm_pick(lib, rows, jobs, 132),
+                    lib.icee_decode_step_work(rows, e, f, h, 8192, 5),
+                    lib.icee_decode_step_work(rows, e, f, h, 8192, 300))
+            want += (gemm_pick(rows, jobs, 132),
+                     step_work_floats("k1", rows, e, f, h, 8192, 5),
+                     step_work_floats("k1", rows, e, f, h, 8192, 300))
         if got != want:
-            raise RuntimeError(f"csrc/decode_step.cu's cell rows and split "
+            raise RuntimeError(f"csrc/decode_step.cu's plans and split "
                                f"shared memory {got} at (E, F, H) = "
                                f"{(e, f, h)} are not the wrapper's {want}")
     lib.mirrors_checked = True

@@ -10,8 +10,8 @@ planes, ``csrc/planes_product.cuh``; ``mma.sync`` for the weight grads,
 recurrence as one cooperative launch a direction (``csrc/scan_grid.cuh``
 with the ``NicGates`` policy of ``csrc/cell_gates.cuh``) whose launch plan
 is ``ops/scan_grid.py::scan_plan``: W_hh's slices resident in shared
-memory up to H ~ 704, streamed from device memory past it, every B and H
-up to 2048.  A shape with no plan (H or B past 2048 where no resident
+memory up to H ~ 704, streamed from device memory past it, every B and
+every H up to 2048.  A shape with no plan (H past 2048 where no resident
 partition fits) raises, naming K4.
 
 :func:`fused_nic_scan` is a ``torch.autograd.Function`` whose forward is

@@ -10,7 +10,7 @@ the recurrence as ONE cooperative launch (``csrc/scan_grid.cuh``) whose
 blocks keep their slice of W_h in shared memory for all T steps (a plan
 of kind ``RESIDENT``), or, for a direction where no such partition fits
 (H past ~704, or a large B), stream W_h's TF32 planes from device memory
-through their ring a pass (kind ``STREAMED``, every B and H up to
+through their ring a pass (kind ``STREAMED``, every B, and every H up to
 ``STREAM_MAX``).  Here:
 
 - :func:`scan_plan`: the recurrence's launch plan, a pure function of
@@ -54,7 +54,7 @@ H100_SMS = 132
 FWD_UNITS = (4, 8, 16)
 BWD_UNITS = (16, 32, 64)
 RESIDENT, STREAMED = 0, 1   # a plan's kind, a direction
-STREAM_MAX = 2048           # B and H a streamed plan takes
+STREAM_MAX = 2048           # H a streamed plan takes (any B)
 
 
 def _round_up(x: int, to: int) -> int:
@@ -203,7 +203,8 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
     """``sg_plan``: among the resident partitions whose blocks fit one an
     SM and whose shared memory fits a block, the least work a block a step,
     then the fewest words through L2 a step, then more units.  A direction
-    with none, at B, H <= ``STREAM_MAX``, takes its streamed plan: the
+    with none, at H <= ``STREAM_MAX`` and any B (B H < 2^31), takes its
+    streamed plan: the
     fewest bytes a block copies a step, then the fewest through L2, then
     more units (the backward's k ranges any multiple of 32).  Raises,
     naming ``what`` (the kernel: K3, K4 or K8), where neither fits."""
@@ -245,7 +246,7 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
             if kc >= h4:
                 break
             kc *= 2
-    if b <= STREAM_MAX and h <= STREAM_MAX:
+    if h <= STREAM_MAX and b * h < 2 ** 31:
         passes = math.ceil(b / SG_ROWS)
         if fwd is None:
             best = None
@@ -290,7 +291,7 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
             f"{what}: no launch plan of the recurrence fits B = {b}, H = {h} "
             f"on {sms} SMs (no resident partition fits {SG_SMEM_LIMIT} bytes "
             f"of shared memory a block, one block an SM, and a streamed "
-            f"plan takes B and H up to {STREAM_MAX})")
+            f"plan takes H up to {STREAM_MAX} and B H below 2^31)")
     return ScanPlan(B=b, H=h, sms=sms, f_rows=fwd[0], f_units=fwd[1],
                     f_blocks=fwd[2], f_stages=fwd[3], b_units=bwd[0],
                     b_kc=bwd[1], b_splits=bwd[2], b_blocks=bwd[3],

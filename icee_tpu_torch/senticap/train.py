@@ -417,10 +417,9 @@ def validation_perplexity(params, conf, dataset: sio.SentiDataset,
 
     The split is evaluated in blocks of ``conf["batch_size_val"]`` rows
     (the training batch), their neglog2 sums added: the JAX package's one
-    pass over the whole split would hand K8 a batch of every row, which its
-    launch plan refuses from about 1,100 rows at H = 512 (and the
-    materialized path would hold (N, T, V) floats).  The sum's order is
-    the only difference."""
+    pass over the whole split would hand K8 a batch of every row, whose
+    activations (and, on the materialized path, (N, T, V) floats) a block
+    keeps off the card.  The sum's order is the only difference."""
     dev = resolve_indexed_device(device)
     use_chunked = (base_model.chunked_ce_requested(conf, dev)
                    and conf.get("SOFTMAX_OUT", True))

@@ -693,8 +693,9 @@ def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,
     """On a CUDA device (mocked here: ``common.device_of`` returns one and
     the plan's SM count is the H100's 132), H = 2049 (past the streamed
     plans' reach of 2048) is refused with the launch plan's own message
-    before any data loads, and so is a batch of 2049 at H = 1024; H = 512,
-    1024 and 2048 pass the check, as do ``--fused_scan off`` and the CPU."""
+    before any data loads, at any batch; H = 512, 1024 and 2048 pass the
+    check, as do batches of 2049 and 4096 (the streamed plan takes any B),
+    ``--fused_scan off`` and the CPU."""
     from icee_tpu_torch.core.config import DecoderConfig, TrainConfig
     from icee_tpu_torch.ops import scan_grid
 
@@ -709,11 +710,11 @@ def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,
     for family, kernel in (("stylenet", "K3"), ("nic", "K4")):
         with pytest.raises(ValueError, match=f"{kernel} .*no launch plan"):
             run_port(train, argv + ["--family", family])
-    with pytest.raises(ValueError, match="K3 .*B = 2049, H = 1024"):
+    with pytest.raises(ValueError, match="K3 .*B = 4096, H = 2049"):
         run_port(train, ["--vocab_path", str(run["tmp"] / "vocab.pkl"),
-                         "--hidden_size", "1024", "--factored_size", "1024",
+                         "--hidden_size", "2049", "--factored_size", "2049",
                          "--family", "stylenet", "--caption_batch_size",
-                         "2049"])
+                         "4096", "--language_batch_size", "4096"])
     assert loaded == []
     tcfg = TrainConfig(caption_batch_size=64, language_batch_size=96)
     for h in (512, 1024, 2048):
@@ -721,6 +722,11 @@ def test_hidden_size_beyond_the_scan_plan_is_refused_at_start(run,
                               cuda)
         train.check_scan_plan("nic", DecoderConfig(hidden_size=h), tcfg,
                               cuda)
+    for b in (2049, 4096):
+        big = TrainConfig(caption_batch_size=b, language_batch_size=b)
+        for family in ("factored", "nic"):
+            train.check_scan_plan(family, DecoderConfig(hidden_size=1024),
+                                  big, cuda)
     train.check_scan_plan("factored", DecoderConfig(hidden_size=2049),
                           dataclasses.replace(tcfg, fused_scan=False), cuda)
     train.check_scan_plan("factored", DecoderConfig(hidden_size=2049), tcfg,

@@ -1109,6 +1109,77 @@ def test_split_and_tiled_paths_give_a_row_the_same_bits(device, op):
         torch.testing.assert_close(a_, w_[rows], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("op", ["k1", "factored", "lstm"])
+def test_many_row_path_keeps_each_rows_bits_at_every_tile(device, op):
+    """The many-row path (one register-tiled launch a product over all
+    rows) at 320 rows (K1 at the flagship widths E = 300, F = H = 512, V =
+    8192): each image's 5 rows are the column-split path's bits (the
+    chains the earlier row-tiled launches shared, at atol 0), and 9 and
+    1,025 rows (other tile shapes: 32 x 64, 128 x 128) give the same rows
+    the same bits."""
+    if op == "k1":
+        params = _params(device, 8192, 300, 512, 512, seed=26)
+        for name in ("V_w", "S_w", "U_w", "W_w", "C_w"):
+            params[name].mul_((64 / params[name].shape[-2]) ** 0.5)
+        g = torch.Generator(device=device).manual_seed(26)
+        x, hh, c = (torch.randn((1025, d), generator=g, device=device) * 0.3
+                    for d in (300, 512, 512))
+
+        def run(n):
+            return decode_step_topk(params, x[:n].contiguous(),
+                                    hh[:n].contiguous(), c[:n].contiguous(),
+                                    1, ktop=5)
+        tiled = decode_step_topk.tiled_launches
+        calls = {n: run(n) for n in (320, 9, 1025)}
+        assert decode_step_topk.tiled_launches == tiled + 3
+        alone = [run(5) if i == 0 else decode_step_topk(
+            params, *(t[5 * i:5 * i + 5].contiguous() for t in (x, hh, c)),
+            1, ktop=5) for i in range(64)]
+    else:
+        args = _k6_inputs(device, op, 205, 5, 26)
+        cell, att, gate, x, hh, c, feats, att1 = args[:8]
+        step = att_decode_step.att_decode_step_topk
+
+        def run_img(i0, n):
+            rows = slice(5 * i0, 5 * (i0 + n))
+            return step(cell, att, gate, *(t[rows].contiguous()
+                                           for t in (x, hh, c)),
+                        feats[i0:i0 + n].contiguous(),
+                        att1[i0:i0 + n].contiguous(), op, 5, ktop=5)
+        calls = {320: run_img(0, 64), 1025: run_img(0, 205)}
+        alone = [run_img(i, 1) for i in range(64)]
+    torch.cuda.synchronize()
+    whole = calls[320]
+    for i, one in enumerate(alone):
+        for w_, a_ in zip(whole, one):
+            assert torch.equal(a_, w_[5 * i:5 * i + 5]), (op, i)
+    for n, got in calls.items():
+        m = min(n, 320)
+        for w_, g_ in zip(whole, got):
+            assert torch.equal(g_[:m], w_[:m]), (op, n)
+
+
+def test_k2_equals_k1_many_row_at_64_images(device):
+    """K2 (the whole search) and the fused-step path (K1 a step, 320 rows:
+    the many-row path) give 64 images x 5 beams the same tokens, lengths
+    and scores, bit for bit."""
+    vocab, e, f, h, k, batch, steps = 516, 30, 40, 48, 5, 64, 9
+    params = _params(device, vocab, e, f, h, seed=7, end_bias=1.0)
+    g = torch.Generator(device=device).manual_seed(1)
+    feats = torch.randn((batch, 1, e), generator=g, device=device)
+    feats = feats.expand(batch, k, e).contiguous()
+    got = mega_beam_decode(params, feats, 3, batch, k=k,
+                           max_seq_length=steps)
+    tiled = decode_step_topk.tiled_launches
+    fused = factored_decode("fused-step", params, feats, 3, batch, k, steps,
+                            1, 2)
+    torch.cuda.synchronize()
+    assert decode_step_topk.tiled_launches > tiled
+    torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
+    torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
+
+
 ATT_BEAM_WEIGHTS = {"factored": dict(vocab=36, seed=14, end_bias=1.0),
                     "lstm": {}}
 

@@ -29,6 +29,7 @@ The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
 
 import ctypes
+import hashlib
 import math
 import re
 from pathlib import Path
@@ -298,8 +299,11 @@ def test_k4_plans_as_k3_at_the_main_path_shape_and_refuses_wide_h():
 def test_a_shape_that_fits_no_partition_raises_naming_the_kernel():
     with pytest.raises(ValueError, match="K3 .*H = 2049"):
         scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 64, 2049)
-    with pytest.raises(ValueError, match="K3 .*B = 2049, H = 1024"):
-        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 2049, 1024)
+    with pytest.raises(ValueError, match="K3 .*B = 4096, H = 2049"):
+        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 4096, 2049)
+    # B H past 2^31 (the gate pass's element count) has no streamed plan
+    with pytest.raises(ValueError, match="K3 .*B = 1048576, H = 2048"):
+        scan_grid.scan_plan("K3 (csrc/lstm_scan.cu)", 1 << 20, 2048)
     with pytest.raises(ValueError, match="K8"):
         scan_grid.scan_plan("K8 (csrc/senticap_scan.cu)", 1, 4096)
     with pytest.raises(ValueError, match="K8"):
@@ -307,6 +311,64 @@ def test_a_shape_that_fits_no_partition_raises_naming_the_kernel():
     # past the streamed reach a resident plan still takes what it took
     p = scan_grid.scan_plan("K3", 4096, 128)
     assert (p.f_kind, p.b_kind) == (scan_grid.RESIDENT, scan_grid.RESIDENT)
+
+
+# sha256 of every plan over REACH_B x REACH_H (B up to 2048), field by
+# field, as the parent commit of the lifted batch cap gave them: lifting the
+# cap changed no plan it already made.
+PLANS_UP_TO_2048 = {
+    132: "2333ea657eae508ebff95f9ca82b6d2676b9655d9f9f6a60364154bf7925fca1",
+    114: "e68695466849a3be333e59cbd8d9ee091975bffe93b3946b2ee21a1a20130fa7"}
+
+
+@pytest.mark.parametrize("sms", sorted(PLANS_UP_TO_2048))
+def test_every_plan_up_to_b_2048_is_unchanged(sms):
+    d = hashlib.sha256()
+    for b in REACH_B:
+        for h in REACH_H:
+            p = scan_grid.scan_plan("K", b, h, sms)
+            d.update(repr(tuple(getattr(p, f) for f, _ in
+                                scan_grid._CPlan._fields_)).encode())
+    assert d.hexdigest() == PLANS_UP_TO_2048[sms]
+
+
+# Batches past 2048 (the streamed plan took none before): the large-batch
+# epochs on an 80 GB card
+PAST_2048 = [(2049, 512), (2560, 512), (4096, 512), (8192, 512),
+             (4096, 256), (8192, 128), (2560, 1024), (3000, 700)]
+
+
+@pytest.mark.parametrize("b,h", PAST_2048)
+def test_batches_past_2048_plan_and_own_every_element_once(b, h):
+    """B past 2048 at H <= 2048 has a plan: its streamed directions cut
+    the batch into 64-row items like any other B, every (row, unit) and
+    (pass, unit, k tile) owned once, every gate-pass element in one
+    block's range, each block within the card and its shared memory."""
+    test_every_unit_row_and_k_is_owned_once(b, h)
+    for sms in (132, 114):
+        test_blocks_fit_the_card_one_an_sm(b, h, sms)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_a_batch_past_2048_keeps_the_plan_of_its_kind(sms):
+    """A resident direction at B > 2048 (small H) plans as it did; the
+    backward past the resident reach streams, its blocks at most one an
+    SM, and a streamed block's shared memory is its units' ring and tiles,
+    whatever B is."""
+    p = scan_grid.scan_plan("K3", 4096, 128, sms)
+    assert p.f_kind == scan_grid.RESIDENT
+    assert p.b_kind == (scan_grid.RESIDENT if sms == 132 else
+                        scan_grid.STREAMED)
+    for b, h in ((2049, 512), (4096, 512), (8192, 512), (4096, 1024)):
+        p = scan_grid.scan_plan("K3", b, h, sms)
+        assert p.b_kind == scan_grid.STREAMED
+        assert p.f_blocks <= sms and p.b_blocks <= sms
+        assert p.b_smem == (scan_grid.stream_rest(p.b_units) + p.b_stages
+                            * scan_grid.stream_stage_bytes(p.b_units))
+        if p.f_kind == scan_grid.STREAMED:
+            nc = 4 * p.f_units
+            assert p.f_smem == (scan_grid.stream_rest(nc) + p.f_stages
+                                * scan_grid.stream_stage_bytes(nc))
 
 
 def test_the_plan_is_a_pure_function_of_the_shape():

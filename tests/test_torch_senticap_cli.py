@@ -280,8 +280,9 @@ def test_hidden_size_past_the_scan_plan_is_refused_at_start(monkeypatch):
     """On a CUDA device (mocked here: ``common.device_of`` returns one and
     the plan's SM count is the H100's 132), ``base`` refuses H = 2049 with
     K8's launch plan's own message before any data loads; H = 1024 and
-    2048 pass the check at the default batch of 128 (streamed plans), as
-    do ``--fused_scan off`` and the CPU at any width."""
+    2048 pass the check at the default batch of 128 (streamed plans), H =
+    512 at batches of 2049 to 8192, as do ``--fused_scan off`` and the CPU
+    at any width."""
     from icee_tpu_torch.cli import common
     from icee_tpu_torch.ops import scan_grid
 
@@ -297,6 +298,9 @@ def test_hidden_size_past_the_scan_plan_is_refused_at_start(monkeypatch):
     assert loaded == []
     for h in (1024, 2048):
         cli.check_scan_plan(h, 128, None, cuda)
+    # past B = 2048 too (the streamed plan takes any B)
+    for b in (2049, 4096, 8192):
+        cli.check_scan_plan(512, b, None, cuda)
     cli.check_scan_plan(2049, 128, False, cuda)
     cli.check_scan_plan(2049, 128, None, torch.device("cpu"))
 
@@ -305,21 +309,20 @@ def test_hidden_size_past_the_scan_plan_is_refused_at_start(monkeypatch):
 def test_validation_perplexity_runs_in_training_batches(switched,
                                                         monkeypatch):
     """``base`` ends with ``validation_perplexity`` over the whole training
-    split.  On the card K8 takes a batch its launch plan fits, which a
-    whole split is not (2,560 rows at H = 512 are refused, the training
-    batch of 128 fits), so the port evaluates the split in blocks of
-    ``batch_size_val`` rows: every forward sees at most that many, and the
-    perplexity equals JAX's one pass (rtol 1e-5, the sum's order apart),
-    chunked and materialized, base and switched."""
+    split.  The port evaluates the split in blocks of ``batch_size_val``
+    rows (K8's plan takes any batch now, 2,560 rows at H = 512 streamed,
+    but a block bounds the device memory a whole split would take): every
+    forward sees at most that many, and the perplexity equals JAX's one
+    pass (rtol 1e-5, the sum's order apart), chunked and materialized,
+    base and switched."""
     from icee_tpu.senticap import io as jio
     from icee_tpu.senticap.train import validation_perplexity as jvp
-    from icee_tpu_torch.ops.scan_grid import scan_plan
+    from icee_tpu_torch.ops.scan_grid import STREAMED, scan_plan
     from icee_tpu_torch.senticap import io as sio
     from icee_tpu_torch.senticap import model, switched as sw
     from icee_tpu_torch.senticap.config import senticap_conf
 
-    with pytest.raises(ValueError, match="K8: no launch plan"):
-        scan_plan("K8", 2560, 512)
+    assert scan_plan("K8", 2560, 512).b_kind == STREAMED
     scan_plan("K8", 128, 512)
     rng = np.random.default_rng(3)
     w2i = {".": 0, **{w: i + 1 for i, w in enumerate(WORDS)}}

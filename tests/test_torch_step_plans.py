@@ -1,14 +1,16 @@
-"""The host side of the step and attention-training launches past one
-block's shared memory, no JAX: the mirrors of ``csrc/step_kernels.cuh``'s
-``cell_rows`` (K1's and K6's row-tiled cell launch: 8 rows a block where
-their planes fit, else 4, 2 or 1), of ``csrc/split_step.cuh``'s shared
-memory (the column-split launches, which hand a shape they do not hold to
-the row-tiled path) and of ``csrc/att_scan.cu``'s ``datt1_cols`` (K5's
-d_att1 pass, split over column blocks of A past its (T, A) plane).  Every
-shape the earlier launches took keeps their plan: 8 rows a cell block,
-the split path, one column block.  Past the new bounds the checks raise,
-naming the launch.  The mirrors are held to the CUDA sources' constants
-here and to the libraries themselves when they load on the card.
+"""The host side of the step and attention-training launches, no JAX: the
+mirrors of ``csrc/step_kernels.cuh``'s many-row step (K1's and K6's
+products over all rows, each a register-tiled launch whose tile shape
+``gemm_pick`` chooses; the attention launches' groups of 8 rows; the work
+buffer's planes), of ``csrc/split_step.cuh``'s shared memory (the
+column-split launches, which hand a shape they do not hold to the
+many-row path) and of ``csrc/att_scan.cu``'s ``datt1_cols`` (K5's d_att1
+pass, split over column blocks of A past its (T, A) plane).  Every shape
+the earlier launches took has a plan; the many-row path takes any width,
+and only K6's attention launches, which hold a group's att2 and scores,
+still raise past their bound, naming the launch.  The mirrors are held to
+the CUDA sources' constants here and to the libraries themselves when
+they load on the card.
 """
 
 import re
@@ -17,12 +19,13 @@ from pathlib import Path
 import pytest
 
 from icee_tpu_torch.ops import att_decode_step, att_scan, cuda_lib
-from icee_tpu_torch.ops import decode_step
+from icee_tpu_torch.ops import decode_step, widths
 
 CSRC = Path(decode_step.__file__).resolve().parents[1] / "csrc"
 STEP = (CSRC / "step_kernels.cuh").read_text()
 SPLIT = (CSRC / "split_step.cuh").read_text()
 SCAN = (CSRC / "att_scan.cu").read_text()
+ATT = (CSRC / "att_decode_step.cu").read_text()
 
 # (E_in, F, H) of every K1 / K6 row-tiled launch the card ran before:
 # the flagship (K1 E = 300, K6 E + FS = 2348), ragged widths padded to 4,
@@ -32,17 +35,41 @@ EARLIER = [(300, 512, 512), (2348, 512, 512), (300, 512, 512),
            (16, 32, 32), (30 + 64, 48, 48), (30 + 64, 32, 48),
            (300, 772, 772), (2348, 544, 544)]
 
+# The planner's rows and widths: one row, one image's beam (5, 8), just
+# past the split path (9), the batched flagship (64 x 5), 1024 rows (the
+# wide beams' launches) and 16,384; H = F, a ragged 1021 padded to 1024
+PLAN_ROWS = (1, 5, 8, 9, 320, 1024, 16384)
+PLAN_H = (512, 1024, 2048, 1021)
+KINDS = ("k1", "factored", "lstm")
+E, FS, A, P, V = 300, 2048, 512, 196, 8192
+
 
 def _const(text: str, name: str) -> int:
     return int(re.search(r"constexpr (?:int|size_t) %s = (\d+);" % name,
                          text).group(1))
 
 
+def _plan(kind, rows, h, ktop=5, k=5, **kw):
+    hp = widths.quad(h)
+    args = dict(a=A, p=P, fs=FS, k=k) if kind != "k1" else {}
+    args.update(kw)
+    return decode_step.step_plan(kind, rows, E, hp, hp, V, ktop, **args)
+
+
 def test_the_mirrors_constants_are_the_kernels():
-    assert _const(STEP, "CELL_ROWS") == decode_step.CELL_ROWS
-    assert _const(STEP, "HEAD_ROWS") == decode_step.HEAD_ROWS
-    assert _const(STEP, "HEAD_TILES") == decode_step.HEAD_TILES
+    assert _const(STEP, "GEMM_BK") == decode_step.GEMM_BK
+    assert _const(STEP, "GEMM_CONFIGS") == len(decode_step.GEMM_TILES)
+    assert _const(STEP, "MAX_GEMM_JOBS") == decode_step.MAX_GEMM_JOBS
+    assert _const(STEP, "PART_WARPS") == decode_step.PART_WARPS
+    assert _const(STEP, "GATE_THREADS") == decode_step.GATE_THREADS
     assert _const(STEP, "STEP_SMEM_MAX") == cuda_lib.SMEM_LIMIT
+    # the tile table: BM 128, 64, 64, 32; BN 128, 128, 64, 64
+    assert "return cfg == 0 ? 128 : cfg == 3 ? 32 : 64;" in STEP
+    assert "return cfg <= 1 ? 128 : 64;" in STEP
+    assert decode_step.GEMM_TILES == ((128, 128), (64, 128), (64, 64),
+                                      (32, 64))
+    assert _const(ATT, "ATT_SCORE_WARPS") == 8
+    assert _const(ATT, "CTX_THREADS") == 64
     assert _const(SPLIT, "RING") == decode_step.SPLIT_RING
     assert _const(SPLIT, "CHUNK_ROWS") == decode_step.SPLIT_CHUNK_ROWS
     assert _const(SPLIT, "SLAB_F4") == decode_step.SPLIT_SLAB_F4
@@ -51,58 +78,156 @@ def test_the_mirrors_constants_are_the_kernels():
     assert _const(SCAN, "SMEM_MAX") == cuda_lib.SMEM_LIMIT
 
 
+def test_the_gemm_smem_mirror_follows_the_source():
+    """A product block holds two k tiles (the one read, the one written)
+    of its rows, k-major (8 x BM + 4 floats), and of the weight (8 x BN):
+    16,640 bytes at 128 x 128, down to 6,400 at 32 x 64, static shared
+    memory."""
+    assert "return sizeof(float) * 2 * GEMM_BK *" in STEP
+    assert "((size_t)gemm_bm(cfg) + 4 + (size_t)gemm_bn(cfg));" in STEP
+    assert "__shared__ __align__(16) float As[2][GEMM_BK][LDA];" in STEP
+    assert "__shared__ __align__(16) float Ws[2][GEMM_BK][BN];" in STEP
+    assert [decode_step.gemm_smem(c) for c in range(4)] == [16640, 12544,
+                                                            8448, 6400]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("h", PLAN_H)
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_the_many_row_plan_at_every_row_count_and_width(kind, h, rows):
+    """Every launch of the step fits a block (threads, shared memory) and
+    the grid; each product's blocks cover its (row, column) outputs once
+    (row tiles x column tiles x segments at the chosen tile), its tile the
+    least busiest-SM load; so each weight tile is read once per tile of
+    rows, ceil(R / BM) times a step."""
+    k = 5 if rows % 5 == 0 else 1
+    plan = _plan(kind, rows, h, ktop=5, k=k)
+    hp = widths.quad(h)
+    products = {"k1": ["pre", "style", "z", "logits"],
+                "factored": ["pre", "v", "style", "z", "logits"],
+                "lstm": ["pre", "z", "logits"]}[kind]
+    assert [n for n, t, *_ in plan if t] == products
+    jobs = {"pre": ([(4 * hp, 1), (4 * hp, 1)] if kind == "k1" else
+                    [(A, 1), (FS, 1), (4 * hp, 1)]),
+            "v": [(4 * hp, 1)], "style": [(hp, 4)],
+            "z": [(hp, 4)] if kind != "lstm" else [(4 * hp, 1)],
+            "logits": [(V, 1)]}
+    for name, tile, blocks, threads, smem in plan:
+        assert 1 <= blocks < 2 ** 31
+        assert 32 <= threads <= 1024 and threads % 32 == 0
+        assert 0 <= smem <= cuda_lib.SMEM_LIMIT
+        if tile is None:
+            continue
+        cfg = decode_step.GEMM_TILES.index(tile)
+        assert cfg == decode_step.gemm_pick(rows, jobs[name])
+        bm, bn = tile
+        assert threads == bm * bn // 64 and smem == decode_step.gemm_smem(cfg)
+        assert blocks == sum(-(-rows // bm) * s * -(-n // bn)
+                             for n, s in jobs[name])
+        costs = [-(-decode_step.gemm_blocks(c, rows, jobs[name]) // 132)
+                 * (tb[0] * tb[1] + 8 * (tb[0] + tb[1]))
+                 for c, tb in enumerate(decode_step.GEMM_TILES)]
+        assert costs[cfg] == min(costs) and costs.index(min(costs)) == cfg
+    names = [n for n, *_ in plan]
+    assert names[-2:] == ["tile_partials", "merge"]
+    assert "gates" in names
+    if kind != "k1":
+        assert names[1:3] == ["scores", "context"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("rows,hw", [(320, 2048), (320, 1024), (1024, 1024),
+                                     (16384, 512), (16384, 2048), (9, 2048)])
+def test_the_pick_fills_the_card(kind, rows, hw):
+    """At R = 320 every product launch has more blocks than the card's
+    132 SMs (smaller tiles where 128 x 128 would leave SMs idle); at 16,384
+    rows every product takes 128 x 128, the tile that copies the fewest
+    bytes; at 9 rows (one row tile) the 32 x 64 tile."""
+    plan = [(n, t, b) for n, t, b, *_ in _plan(kind, rows, hw) if t]
+    if rows == 320:
+        assert all(b >= 132 for _, _, b in plan), plan
+    if rows == 16384:
+        assert all(t == (128, 128) for _, t, _ in plan), plan
+    if rows == 9:
+        assert all(t == (32, 64) for _, t, _ in plan), plan
+    if (rows, hw, kind) == (1024, 1024, "k1"):
+        assert all(t == (128, 128) for _, t, _ in plan), plan
+
+
+@pytest.mark.parametrize("ktop", [1, 5, 8, 9, 20, 256, 257, 300])
+def test_the_reduce_follows_the_top_k(ktop):
+    """k <= 8: the tile partials (a warp a row and 256-wide tile) and the
+    merge; above, the wide reduce, a block a row; the work buffer holds the
+    partials, or above 256 the survivors."""
+    plan = _plan("k1", 320, 512, ktop=ktop)
+    names = [n for n, *_ in plan]
+    tiles = 320 * V // 256
+    if ktop <= 8:
+        assert names[-2:] == ["tile_partials", "merge"]
+        assert plan[-2][2] == tiles // 8
+    else:
+        assert names[-1] == "wide_reduce" and plan[-1][2] == 320
+    floats = decode_step.step_work_floats("k1", 320, E, 512, 512, V, ktop)
+    base = 320 * (4 * 512 * 4 + V)
+    extra = {True: 2 * 320 * 32 + 2 * 320 * 32 * ktop}.get(ktop <= 8, 0)
+    if ktop > 256:
+        extra = 2 * 320 * ktop
+    assert floats == base + extra
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_the_work_buffer_mirror_at_ragged_widths(kind):
+    """Each plane starts at a multiple of 4 floats (16 bytes): att2, the
+    gate pre-activation, the scores (P = 197), x (E + FS = 2349 -> 2352),
+    the h product, (factored) v and s, z, the logits, the partials."""
+    rows, e, f, h, v, a, p, fs = 15, 301, 44, 48, 8192, 512, 197, 2048
+    q = lambda n: (n + 3) & ~3  # noqa: E731
+    planes = [rows * a, rows * fs, rows * p, rows * 2352, rows * 4 * h]
+    if kind == "factored":
+        planes += [rows * 4 * f] * 2
+    planes += [rows * 4 * h, rows * v, rows * 32, rows * 32,
+               rows * 32 * 5, rows * 32 * 5]
+    assert decode_step.step_work_floats(kind, rows, e, f, h, v, 5, a, p,
+                                        fs) == sum(q(n) for n in planes)
+
+
 @pytest.mark.parametrize("e_in,f,h", EARLIER)
-def test_every_earlier_cell_launch_keeps_8_rows(e_in, f, h):
-    assert decode_step.cell_rows(e_in, f, h) == 8
-    assert decode_step.cell_smem(8, e_in, f, h) <= cuda_lib.SMEM_LIMIT
-    decode_step.check_tiled("K1", e_in, f, h, 5)
+def test_every_earlier_shape_has_a_many_row_plan(e_in, f, h):
+    """Every shape the row-tiled launches ran has a plan at 320 rows, each
+    launch within a block's shared memory."""
+    kind = "k1" if e_in <= 300 else "factored"
+    e = e_in if kind == "k1" else e_in - FS if e_in > FS else 30
+    fs = 0 if kind == "k1" else e_in - e
+    extra = {} if kind == "k1" else dict(a=A, p=P, fs=fs, k=5)
+    for name, tile, blocks, threads, smem in decode_step.step_plan(
+            kind, 320, e, f, h, V, 5, **extra):
+        assert smem <= cuda_lib.SMEM_LIMIT and blocks >= 1
 
 
-@pytest.mark.parametrize("e_in,first", [(300, 773), (2348, 545)])
-def test_the_cell_launch_gives_up_8_rows_where_they_no_longer_fit(e_in,
-                                                                  first):
-    """K1 (E = 300) holds 8 rows to H = 772, K6 (E + FS = 2348) to 544;
-    past that 4 a block (widths padded to 4: the next is first + 3)."""
-    last = first - 1
-    assert decode_step.cell_rows(e_in, last, last) == 8
-    assert decode_step.cell_rows(e_in, first + 3, first + 3) == 4
+@pytest.mark.parametrize("hw", [773, 2612, 3700, 6200, 8192])
+def test_the_many_row_path_takes_any_width(hw):
+    """The row-tiled cell gave up rows past H = 772 (K1) and refused one
+    row near H = 6,000, its head near 2,600; the many-row products hold
+    no row of h whole, so every width plans within a block."""
+    for kind in KINDS:
+        for _, _, _, _, smem in _plan(kind, 320, hw, ktop=20):
+            assert smem <= cuda_lib.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("e_in", [300, 2348])
-@pytest.mark.parametrize("hw,rows", [(1024, 4), (2048, 2)])
-def test_the_training_widths_take_4_and_2_rows(e_in, hw, rows):
-    """At H = F = 1024 a block holds 4 rows, at 2048 two, for K1 and K6
-    alike (4 (E_in + 9 H) bytes a row), and the head launch holds its 16
-    rows of h at both widths and either top-k."""
-    assert decode_step.cell_rows(e_in, hw, hw) == rows
-    assert decode_step.cell_smem(rows, e_in, hw, hw) <= cuda_lib.SMEM_LIMIT
-    assert decode_step.cell_smem(2 * rows, e_in, hw, hw) > \
-        cuda_lib.SMEM_LIMIT
-    for ktop in (5, 20):
-        decode_step.check_tiled("K6", e_in, hw, hw, ktop)
-    assert att_decode_step.tiled_step_smem(e_in, hw, hw, 0) == \
-        decode_step.cell_smem(rows, e_in, hw, hw)
-
-
-@pytest.mark.parametrize("e_in,f,h,ktop,match", [
-    (2348, 6200, 6200, 20, r"K6: the cell launch does not hold one row at "
-     r"E_in=2348, F=6200, H=6200"),
-    (300, 2700, 2700, 5, r"K1: the head launch's 16 rows at H=2700, ktop=5"),
-    (300, 3700, 3700, 20, r"K1: the head launch's 16 rows at H=3700"),
+@pytest.mark.parametrize("a,p,match", [
+    (8192, 196, r"K6: the attention launches' 8 rows at A=8192, P=196"),
+    (512, 7300, r"K6: the attention launches' 8 rows at A=512, P=7300"),
 ])
-def test_past_the_new_bounds_the_check_names_the_launch(e_in, f, h, ktop,
-                                                        match):
+def test_past_the_new_bounds_the_check_names_the_launch(a, p, match):
+    """K6's scores launch holds a group's 8 att2 rows (8 A floats), its
+    context launch their 8 score rows (8 P): A and P up to 7,264; past
+    that the check names the launch.  One row a group (k = 1) holds 8
+    times more."""
     with pytest.raises(ValueError, match=match):
-        decode_step.check_tiled(e_in == 300 and "K1" or "K6", e_in, f, h,
-                                ktop)
-
-
-def test_the_head_launch_holds_2048_and_stops_near_2600():
-    for ktop in (5, 20):
-        assert decode_step.head_smem(2048, ktop) <= cuda_lib.SMEM_LIMIT
-    assert decode_step.head_smem(2608, 5) <= cuda_lib.SMEM_LIMIT
-    assert decode_step.head_smem(2612, 5) > cuda_lib.SMEM_LIMIT
-    assert decode_step.head_smem(2612, 20) <= cuda_lib.SMEM_LIMIT
+        att_decode_step.check_attend("K6", 8, a, p)
+    att_decode_step.check_attend("K6", 1, a, p)
+    att_decode_step.check_attend("K6", 8, 7264, 7264)
+    assert att_decode_step.attend_smem(8, 7264, 196) == cuda_lib.SMEM_LIMIT
 
 
 def test_the_split_path_keeps_every_earlier_shape():
