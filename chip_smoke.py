@@ -351,11 +351,20 @@ Phases, in order; any failure exits non-zero:
    twice), timed beside their bounds, K4 also beside cuDNN's nn.LSTM
    (the train CLI's step at ``--caption_batch_size 4096`` is phase 24
    (c)'s);
+29. past the earlier limits: (a) K5 factored sampled, forward and
+   backward, at T = 1,900 (the d_att1 pass in chunks of steps), A = 512,
+   4 images, as phase 10 holds it, timed beside its bound; (b) K6 (both
+   kinds) at A = 8,192, P = 196, k = 8 (att2 staged in column pieces) over
+   one image and 64, as phase 5b holds it, timed, and K7 = K6 at atol 0
+   over 4 images; (c) K2's time by part (products, row stage, tail) at k
+   = 20 over 64 images, k = 300 over 3 and k = 2048 at one image, k = 300
+   checked as phase 26 (b) and timed beside its bound;
    then the seconds of every phase, on a line of their own;
-29. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
+30. print one ``{"train": {...}}`` line (with ``nic``, ``att`` (with
    ``b512`` and ``b1024``), ``senticap``, ``senticap_switched``,
    ``trainer``, ``resident``, ``seq2seq``, ``wide_h`` (phase 24),
-   ``wide_width`` (phase 27) and ``big_batch`` (phase 28) entries), one
+   ``wide_width`` (phase 27), ``big_batch`` (phase 28) and ``limits``
+   (phase 29) entries), one
    ``{"cli": {...}}`` line (phase 19, with phase 21's ``senticap_cli``
    entry), one ``{"serve":
    {...}}`` line, one ``{"decode": {"senticap": {...},
@@ -377,8 +386,9 @@ Phases, in order; any failure exits non-zero:
    phase 26 (e)'s; K1 and K6 (both kinds) at H = F past 8 rows a cell
    block, K5 factored sampled past the d_att1 plane and K7 (both kinds)
    past 256 positions: their launches phase 27's engine, (c)'s main path
-   and (d)'s processes);
-30. print ``{"ok": true, "device": {...}}`` as the last line.
+   and (d)'s processes; phase 29's K5, K6 and K2 figures among the
+   shapes of those entries);
+31. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without CUDA it exits 2, and where the package is not beside it 1, each
 with a message and no result.
@@ -1003,7 +1013,9 @@ def check_k6(dec, kind: str, device, n_img: int, seed: int, k: int = K):
 
     from icee_tpu_torch.models import attention as att_mod
     from icee_tpu_torch.ops.att_decode_step import (att_decode_step_topk,
+                                                    split_att_smem,
                                                     step_params)
+    from icee_tpu_torch.ops.cuda_lib import SMEM_LIMIT
     from icee_tpu_torch.ops.decode_step import K_MAX, SPLIT_ROWS
 
     style = 3 if kind == "factored" else 0
@@ -1017,7 +1029,11 @@ def check_k6(dec, kind: str, device, n_img: int, seed: int, k: int = K):
     att1 = att_mod.att_projection(att, feats)
     args = (cell, att, gate, x, h, c, feats, att1, kind, k)
     pre = "" if kind == "factored" else "lstm_"
-    split = n_img == 1 and k <= SPLIT_ROWS
+    # one image's rows on the column-split path where its launches fit a
+    # block (the wrapper's rule: past A = 7,264 at k = 8 they do not)
+    split = n_img == 1 and k <= SPLIT_ROWS and split_att_smem(
+        kind == "factored", k, E, F if kind == "factored" else H, H, A, P,
+        FS) <= SMEM_LIMIT
     with counted_calls(att_decode_step_topk, {
             pre + "launches": 1, pre + "wide_launches": int(k > K_MAX),
             pre + "split_launches": int(split),
@@ -2297,11 +2313,14 @@ def cell_weight_floats() -> int:
 # all rows (the planes product and gemm_tf32x3.cuh's, its partial sums
 # included), the weights' TF32 planes, the recurrence, the bias column sums
 SCAN_GROUPS = (("products_ms", ("sb_product_kernel", "tf32x3_")),
-               ("planes_ms", ("sb_prepare_kernel",)),
+               ("planes_ms", ("sb_prepare_kernel",
+                              "sg_prepare_groups_kernel")),
                ("recurrence_ms", ("scan_fwd_grid_kernel",
                                   "scan_bwd_grid_kernel",
                                   "scan_fwd_stream_kernel",
-                                  "scan_bwd_stream_kernel")),
+                                  "scan_bwd_stream_kernel",
+                                  "scan_fwd_tma_kernel",
+                                  "scan_bwd_tma_kernel")),
                ("column_sums_ms", ("colsum_kernel",)))
 
 
@@ -5773,7 +5792,7 @@ def trainer_phase(device):
 CLI_IMAGES = 500
 CLI_VAL_IMAGES, CLI_EMO_IMAGES, CLI_EMO_VAL_IMAGES = 60, 190, 20
 # the augmenting train stage's corpus: the backbone runs once a caption
-CLI_AUG_IMAGES, CLI_AUG_EMO_IMAGES = 40, 20
+CLI_AUG_IMAGES, CLI_AUG_EMO_IMAGES = 24, 12
 CLI_BATCH = 64             # train / evaluate / caption_batch batches (the default)
 CLI_EPOCHS = 1
 CLI_PROGRESS = 4           # train_resident: a progress record every 4 batches
@@ -10217,6 +10236,212 @@ def big_batch_phase(device) -> tuple:
     return entries, stats
 
 
+# --- phase 29: K5 past T = 1,816, K6 past A = 7,264, the selection ----------
+#
+# (a) K5 factored, sampled, forward and backward at T = 1,900 (the d_att1
+# pass in chunks of steps, ``att_scan.datt1_steps``) over P29_K5_IMAGES
+# images at A = 512, as phase 10 holds it, timed beside its bound; (b) K6
+# (both kinds) at A = 8,192, P = 196 over one image and 64 at k = 8 (a
+# group's 8 att2 rows past a block's shared memory: the scores launch in
+# column pieces), as phase 5b holds it, timed, and K7 (both kinds) = K6 at
+# atol 0 there over P29_K7_IMAGES images; (c) where K2's time goes (the
+# search's profile marks: products, row stage, tail) at k = 20 over 64
+# images, k = 300 over 3 (``caption_batch --beam_size 300``'s launch) and
+# k = 2048 at one image, K2 at k = 300 timed beside its bound.
+
+P29_K5 = (1900, 512)          # (a): T, A
+P29_K5_IMAGES = 4
+P29_A, P29_K = 8192, 8        # (b): A, k (= top-k)
+P29_K6_IMAGES = (1, B_IMAGES)
+P29_K7_IMAGES, P29_K7_STEPS = 4, 8
+P29_SPLITS = ((20, 64, 40), (300, 3, 20), (2048, 1, 4))   # (c): k, images,
+P29_K2_TIMED = (300, 3, 20)                               # steps
+
+
+def grid_split(call) -> dict:
+    """One call of a K2 search with the search's profile marks on
+    (``csrc/grid_beam.cuh`` gb_mark): ms of its live-row scans and
+    products, its row stages and its tails, summed over its launches and
+    steps, and the steps."""
+    import ctypes
+
+    import torch
+
+    from icee_tpu_torch.ops import beam, cuda_lib
+
+    lib = beam._library()
+    fn = lib.icee_grid_profile
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    words = (ctypes.c_ulonglong * 8)()
+    torch.cuda.synchronize()
+    cuda_lib.check_rc(lib, fn(1, None), "grid profile on")
+    call()
+    torch.cuda.synchronize()
+    cuda_lib.check_rc(lib, fn(0, ctypes.addressof(words)), "grid profile off")
+    return {"products_ms": words[0] / 1e6, "row_stage_ms": words[1] / 1e6,
+            "tail_ms": words[2] / 1e6, "steps": int(words[4])}
+
+
+def p29_k5(device) -> dict:
+    """Phase 29 (a): ``check_k5``'s checks, then the kernel's and the plain
+    version's times on its inputs (the plain ones once: a plain step loop
+    of 1,900 steps) beside the bound -> {"fwd", "bwd"}."""
+    import torch
+
+    from icee_tpu_torch.ops import att_scan
+    from icee_tpu_torch.ops.att_scan import datt1_plan, datt1_steps
+
+    t, a = P29_K5
+    with widths(T_STEPS=t, A=a, B_ATT=P29_K5_IMAGES):
+        err_f, err_b = check_k5("factored", True, device, timed=False)
+        # check_k5's inputs (its seed for the sampled factored scan)
+        args, samp, (dh, da) = k5_inputs("factored", device, True, 52)
+        with torch.no_grad():
+            h, al, res = att_scan.att_scan_fwd(*args, samp)
+            plain_args = (*args[:2], samp["head"], args[2], samp["emb_raw"],
+                          *args[3:7], samp["coins"], "factored")
+            fwd = {"ms": cuda_ms(lambda: att_scan.att_scan_fwd(*args, samp),
+                                 3),
+                   "plain_ms": cuda_ms(
+                       lambda: att_scan.fused_att_scan_sampled_plain(
+                           *plain_args), 1, 0)}
+            bwd = {"ms": cuda_ms(lambda: att_scan.att_scan_bwd(
+                       *args[:7], h, al, res, dh, da, "factored", samp), 3),
+                   "plain_ms": cuda_ms(lambda: att_scan.att_scan_grads_plain(
+                       *args[:7], h, al, res, dh, da, "factored", samp), 1,
+                       0)}
+        # the library chain (the per-step PyTorch calls, autograd
+        # backward), once each
+        with torch.no_grad():
+            fwd["library_ms"] = cuda_ms(lambda: k5_library_scan(args, samp),
+                                        1, 0)
+        lh, la, leaves = k5_library_scan(args, samp, grad=True)
+        bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            (lh, la), leaves, (dh, da), retain_graph=True), 1, 0)
+        del lh, la, leaves
+        flops_f, bytes_f, flops_b, bytes_b = k5_flops_bytes("factored", True)
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(flops_f, bytes_f)
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(flops_b, bytes_b)
+        for d in (fwd, bwd):
+            d.update(T=t, A=a, B=P29_K5_IMAGES)
+        fwd.update(max_abs_err=err_f["max_abs_err"],
+                   trace_flips=err_f["trace_flips"])
+        bwd.update(max_abs_err=err_b["max_abs_err"],
+                   max_rel_err=err_b["max_rel_err"])
+        del args, samp, h, al, res
+        torch.cuda.empty_cache()
+    plan = (*datt1_plan(t, a), datt1_steps(t, a))
+    log(f"phase 29 (a): K5 sampled factored ok at T = {t}, A = {a}, B = "
+        f"{P29_K5_IMAGES} (d_att1: {plan[0]} columns x {plan[1]} blocks, "
+        f"{plan[2]} steps a chunk): fwd {fwd['ms']:.3f} ms (plain "
+        f"{fwd['plain_ms']:.3f}, library {fwd['library_ms']:.3f}, bound "
+        f"{fwd['bound_ms']:.3f}), bwd {bwd['ms']:.3f} (plain "
+        f"{bwd['plain_ms']:.3f}, library {bwd['library_ms']:.3f}, bound "
+        f"{bwd['bound_ms']:.3f})")
+    return {"fwd": dict(fwd, datt1_plan=plan),
+            "bwd": dict(bwd, datt1_plan=plan)}
+
+
+def p29_attention(device) -> tuple:
+    """Phase 29 (b) -> ({kind: {"a8192_rows{R}": times}}, errors)."""
+    import torch
+
+    from icee_tpu_torch.ops.att_decode_step import scores_cols
+
+    out, errs = {kind: {} for kind in ATT_KINDS}, {}
+    with widths(A=P29_A):
+        decs = decoder_params(device)
+        with torch.inference_mode():
+            for kind, variant in ATT_KINDS.items():
+                dec = decs[variant]["decoder"]
+                for n_img in P29_K6_IMAGES:
+                    rows = n_img * P29_K
+                    args, err, ties = check_k6(dec, kind, device, n_img,
+                                               290 + n_img, k=P29_K)
+                    errs[f"k6_{kind}_images{n_img}"] = [err, ties]
+                    out[kind][f"a{P29_A}_rows{rows}"] = dict(
+                        k6_times(kind, args, 5, 2, 1), A=P29_A, rows=rows,
+                        scores_cols=scores_cols(P29_K, P29_A))
+                    del args
+                r = check_k7_shape(dec, kind, device, P29_K7_IMAGES,
+                                   k=P29_K, steps_max=P29_K7_STEPS,
+                                   fused=True, timed=False)
+                errs[f"k7_{kind}"] = [r["max_abs_err"], r["near_tie_flips"]]
+        del decs
+        torch.cuda.empty_cache()
+    log(f"phase 29 (b): K6 ok at A = {P29_A}, P = {P}, k = {P29_K} (att2 in "
+        f"column pieces of {scores_cols(P29_K, P29_A)}), K7 = K6 at atol 0 "
+        f"over {P29_K7_IMAGES} images; errors {json.dumps(errs)}; ms "
+        + "; ".join(f"{kind} {tag} {f['ms']:.3f} (plain {f['plain_ms']:.3f}"
+                    f", library {f['library_ms']:.3f}, bound "
+                    f"{f['bound_ms']:.3f})" for kind, shapes in out.items()
+                    for tag, f in shapes.items()))
+    return out, errs
+
+
+def p29_splits(device) -> dict:
+    """Phase 29 (c) -> {"v{V}_k{k}_images{n}": split (and, at
+    P29_K2_TIMED, check_k2_shape's figures)}."""
+    import torch
+
+    from icee_tpu_torch.ops.beam import (mega_beam_decode,
+                                         mega_beam_decode_plain)
+
+    out = {}
+    with torch.inference_mode():
+        sty = decoder_params(device)["stylenet"]["decoder"]
+        for k, n_img, steps in P29_SPLITS:
+            g = torch.Generator(device=device).manual_seed(4)
+            feats = torch.randn((n_img, 1, E), generator=g, device=device)
+            feats = feats.expand(n_img, k, E).contiguous()
+            def search():
+                return mega_beam_decode(sty, feats, 2, n_img, k=k,
+                                        max_seq_length=steps,
+                                        cell="factored")
+
+            fig = {}
+            if (k, n_img, steps) == P29_K2_TIMED:
+                # phase 26 (b)'s checks; the plain search timed once
+                fig = check_k2_shape(sty, device, "factored", n_img, k=k,
+                                     steps_max=steps, fused=False,
+                                     timed=False)
+                kw = dict(max_seq_length=steps, cell="factored")
+                fig["ms"] = cuda_ms(search, 3)
+                fig["plain_ms"] = cuda_ms(lambda: plain_by_images(
+                    mega_beam_decode_plain, n_img, k, sty, feats, 2, **kw),
+                    1, 0)
+                nbytes = (decoder_weight_bytes("factored", V)
+                          + 4 * n_img * k * E
+                          + 4 * fig["live_row_steps"] * E
+                          + 4 * n_img * (steps + 4))
+                fig["bound_ms"], fig["bound_by"] = bound_ms(
+                    fig["live_row_steps"] * step_flops_per_row("factored", V),
+                    nbytes)
+            fig["split"] = grid_split(search)
+            out[f"v{V}_k{k}_images{n_img}"] = dict(fig, k=k, images=n_img,
+                                                   steps=steps)
+        del sty
+        torch.cuda.empty_cache()
+    log("phase 29 (c): K2's time by part (ms: products, row stage, tail; "
+        "steps) " + "; ".join(
+            f"{tag} {f['split']['products_ms']:.3f} / "
+            f"{f['split']['row_stage_ms']:.3f} / {f['split']['tail_ms']:.3f}"
+            f"; {f['split']['steps']}" for tag, f in out.items()))
+    return out
+
+
+def limits_phase(device) -> tuple:
+    """Phase 29 -> (K5's, K6's and K2's figures to join their entries,
+    stats)."""
+    t0 = time.perf_counter()
+    k5 = p29_k5(device)
+    att, errs = p29_attention(device)
+    splits = p29_splits(device)
+    stats = {"k6_k7_errors": errs, "phase_s": time.perf_counter() - t0}
+    log(f"phase 29 done in {stats['phase_s']:.1f} s")
+    return {"k5": k5, "k6": att, "k2": splits}, stats
+
+
 def main() -> int:
     import shutil
 
@@ -10616,6 +10841,23 @@ def main() -> int:
         done("27")
         big_batch, train["big_batch"] = big_batch_phase(device)
         done("28")
+        limits, train["limits"] = limits_phase(device)
+        done("29")
+        # phase 29's shapes join the entries of the same kernels' paths
+        for e in wide_width:
+            for d in ("fwd", "bwd"):
+                if e["name"] == f"fused_att_scan_sampled_{d}_wide_attention":
+                    e["shapes"][f"T{P29_K5[0]}_A{P29_K5[1]}"] = \
+                        limits["k5"][d]
+            for kind, sfx in (("factored", ""), ("lstm", "_lstm")):
+                if e["name"] == f"att_decode_step_topk{sfx}_wide_hidden":
+                    e["shapes"].update(limits["k6"][kind])
+        for e in past_block:
+            if e["name"] == "mega_beam_decode_past_block":
+                for tag, f in limits["k2"].items():
+                    e["shapes"].setdefault(tag, {}).update(f)
+        wide["mega_beam_decode_wide"]["split_k20_images64"] = \
+            limits["k2"][f"v{V}_k20_images{B_IMAGES}"]["split"]
         # phase 28's shapes and launches join phase 24's entries: the same
         # kernels past the resident plan
         for e in wide_h:
@@ -10667,7 +10909,7 @@ def main() -> int:
                           for n in RAG_TIMED_IMAGES}
     k7["factored"]["ragged_v8191"] = {f"images{n}": times[f"k7_images{n}"]
                                       for n in RAG_TIMED_IMAGES}
-    log(f"phases 21-28 done; seconds a phase {json.dumps(phase_s)}; the "
+    log(f"phases 21-29 done; seconds a phase {json.dumps(phase_s)}; the "
         f"whole run {time.perf_counter() - t_run:.1f} s (the kernels' build "
         "included)")
     print(json.dumps({"train": train}))

@@ -230,6 +230,7 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
   const int init = a.n_stages - 1;  // h0, c0: step 1 only
   for (int t = 0; t <= a.max_seq; ++t) {
     StepCtx c = step_ctx(a, t);
+    gb_mark(-1);
     scan_rows(a, sm, c);
     if (c.n == 0) break;  // the same count in every block
     for (int s = t == 0 ? -1 : 0; s < init; ++s) {
@@ -347,6 +348,12 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
       reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
       reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN>));
   return grid_launch(kernel, a, (int)p.grid, stream);
+}
+
+// The search's profile marks (grid_beam.cuh gb_mark): out (8 words, or
+// null) <- the sums so far, then zeroed, the marks on where on != 0.
+extern "C" int icee_grid_profile(int on, unsigned long long* out) {
+  return (int)grid_profile(on, out);
 }
 
 extern "C" const char* icee_error_string(int code) {

@@ -31,8 +31,10 @@
 //      product (h W_w + W_b, or h W_hh);
 //   2. scores: a block per (image, group of up to 8 of its rows, 8
 //      positions), a warp a position (att_common.cuh att_score), the
-//      group's att2 rows in shared memory; it also copies the embedding
-//      into x = [emb; gate * ctx] (R, round4(E + FS));
+//      group's att2 rows in shared memory (where a group's rows outgrow a
+//      block's, A past ~7,264, in column pieces of a multiple of 128, each
+//      row's chain carried from piece to piece in the same order); it also
+//      copies the embedding into x = [emb; gate * ctx] (R, round4(E + FS));
 //   3. context: a block per (image, group, 256 feature columns): the
 //      group's softmax (softmax_row, in every block; the first writes
 //      alpha), then ctx = alpha feat as dot4 chains over P, times
@@ -52,11 +54,20 @@ namespace icee {
 constexpr int ATT_SCORE_WARPS = 8;   // positions a scores block
 constexpr int CTX_THREADS = 64;      // column quads a context block
 
-// Shared memory (bytes) of the scores launch (the group's att2 rows) and
-// of the context launch (the group's scores, then weights), for `rows`
-// rows of a group.
+// Columns of att2 the scores launch stages at once for a group of `rows`
+// rows: all of round4(A) where they fit a block, else the widest multiple
+// of 128 that does (each lane's quads a, a + 128, ... then fall in the same
+// order, piece after piece).
+inline int att_scores_cols(int rows, int A) {
+  const size_t fit = STEP_SMEM_MAX / (sizeof(float) * (size_t)rows);
+  return (size_t)round4(A) <= fit ? round4(A) : (int)(fit / 128 * 128);
+}
+
+// Shared memory (bytes) of the scores launch (the group's att2 rows, or a
+// piece of their columns) and of the context launch (the group's scores,
+// then weights), for `rows` rows of a group.
 inline size_t att_scores_smem(int rows, int A) {
-  return sizeof(float) * (size_t)rows * round4(A);
+  return sizeof(float) * (size_t)rows * att_scores_cols(rows, A);
 }
 inline size_t att_ctx_smem(int rows, int P) {
   return sizeof(float) * (size_t)rows * round4(P);
@@ -64,29 +75,75 @@ inline size_t att_ctx_smem(int rows, int P) {
 
 // Block (image, row group, positions blockIdx.z ATT_SCORE_WARPS ..): a
 // warp a position's scores for the group's rows; blocks of blockIdx.z 0
-// also copy the rows' embedding into xf[:, :E].
+// also copy the rows' embedding into xf[:, :E].  ac: att2's columns staged
+// at once (att_scores_cols); below A, the pieces [a0, a0 + ac) in turn,
+// each lane's chain e[r] running on over them as att_score runs it over
+// all of A (the same fmaf order, then the same butterfly sum and bias).
 __global__ void __launch_bounds__(ATT_SCORE_WARPS * 32)
 att_scores_kernel(const float* __restrict__ x,
                   const float* __restrict__ att2, AttWeights w,
                   const float* __restrict__ att1, float* scores, float* xf,
-                  int ldx, int E, int k) {
-  extern __shared__ __align__(16) float smem[];   // (rows, A)
+                  int ldx, int E, int k, int ac) {
+  extern __shared__ __align__(16) float smem[];   // (rows, min(A, ac))
   const int A = w.A, P = w.P, img = blockIdx.x;
   const int rows = min(ATT_ROWS, k - (int)blockIdx.y * ATT_ROWS);
   const size_t r0 = (size_t)img * k + (size_t)blockIdx.y * ATT_ROWS;
-  for (int i = threadIdx.x; i < rows * A / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(smem)[i] =
-        reinterpret_cast<const float4*>(att2 + r0 * A)[i];
   if (blockIdx.z == 0)
     for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
       const int r = i / E, e = i % E;
       xf[(r0 + r) * ldx + e] = x[(r0 + r) * E + e];
     }
-  __syncthreads();
   const int p = blockIdx.z * ATT_SCORE_WARPS + (threadIdx.x >> 5);
-  if (p < P)   // whole warps
-    att_score<ATT_ROWS>(att1 + ((size_t)img * P + p) * A, w, smem, A, rows,
-                        scores + r0 * P + p, P);
+  if (ac >= A) {
+    for (int i = threadIdx.x; i < rows * A / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(smem)[i] =
+          reinterpret_cast<const float4*>(att2 + r0 * A)[i];
+    __syncthreads();
+    if (p < P)   // whole warps
+      att_score<ATT_ROWS>(att1 + ((size_t)img * P + p) * A, w, smem, A,
+                          rows, scores + r0 * P + p, P);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const float* a1 = att1 + ((size_t)img * P + (p < P ? p : 0)) * A;
+  float e[ATT_ROWS];
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) e[r] = 0.f;
+  for (int a0 = 0; a0 < A; a0 += ac) {
+    const int na = min(ac, A - a0);   // a multiple of 4 (A is)
+    __syncthreads();                  // the last piece is read
+    for (int i = threadIdx.x; i < rows * (na / 4); i += blockDim.x) {
+      const int r = i / (na / 4), q = i % (na / 4);
+      reinterpret_cast<float4*>(smem + (size_t)r * ac)[q] =
+          reinterpret_cast<const float4*>(att2 + (r0 + r) * A + a0)[q];
+    }
+    __syncthreads();
+    if (p >= P) continue;   // whole warps; every thread meets the barriers
+    for (int a = a0 + 4 * lane; a < a0 + na; a += 128) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(a1 + a));
+      const float4 fw = __ldg(reinterpret_cast<const float4*>(w.fullw + a));
+#pragma unroll
+      for (int r = 0; r < ATT_ROWS; ++r) {
+        if (r < rows) {
+          const float4 d = *reinterpret_cast<const float4*>(
+              smem + (size_t)r * ac + (a - a0));
+          e[r] = fmaf(fmaxf(v.x + d.x, 0.f), fw.x, e[r]);
+          e[r] = fmaf(fmaxf(v.y + d.y, 0.f), fw.y, e[r]);
+          e[r] = fmaf(fmaxf(v.z + d.z, 0.f), fw.z, e[r]);
+          e[r] = fmaf(fmaxf(v.w + d.w, 0.f), fw.w, e[r]);
+        }
+      }
+    }
+  }
+  if (p >= P) return;
+  const float fb = w.fullb[0];
+#pragma unroll
+  for (int r = 0; r < ATT_ROWS; ++r) {
+    if (r < rows) {
+      const float sum = warp_sum(e[r]);
+      if (lane == 0) scores[(r0 + r) * P + p] = sum + fb;
+    }
+  }
 }
 
 // Block (image, row group, column quads blockIdx.z CTX_THREADS ..): the
@@ -178,8 +235,8 @@ static int att_step(const float* x, const float* h, const float* c,
     return e;
   att_scores_kernel<<<dim3(n_img, groups,
                            (P + ATT_SCORE_WARPS - 1) / ATT_SCORE_WARPS),
-                      ATT_SCORE_WARPS * 32, ssmem, s>>>(x, w.att2, aw, att1,
-                                                        w.sc, w.xf, ldx, E, k);
+                      ATT_SCORE_WARPS * 32, ssmem, s>>>(
+      x, w.att2, aw, att1, w.sc, w.xf, ldx, E, k, att_scores_cols(rows, A));
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = allow_smem(reinterpret_cast<const void*>(att_ctx_kernel),
                       csmem)) != cudaSuccess)

@@ -48,7 +48,11 @@
 //     does not fit (A = 2048 from T = 28, A = 1024 from T = 56), the pass
 //     splits A into column blocks that do (datt1_cols), each (p, a) sum
 //     and each column's share of full_w's grad as before, so the same
-//     bits: any A, and T up to ~1,800.
+//     bits: any A, and T up to ~1,800.  Past that (not even 4 columns of
+//     the plane fit) the pass also cuts T into chunks of steps
+//     (datt1_steps), a column a thread: each (p, a) sum is the same chain
+//     in s order, carried in registers from one chunk to the next, and
+//     full_w's grad a column's chain over (chunk, position, step): any T.
 // What bounds it now (PERF.md): the products still take about half of
 // each direction, 16-31 TFLOP/s for the per-step ones, bound by a launch's
 // fixed costs (pipeline fill, the partial sums) more than by their
@@ -352,18 +356,68 @@ att_bwd_kernel(const float* __restrict__ dx, const float* __restrict__ ctx,
 // d_e_s[p] full_w[a], and the block's share of full_w's grad, sum over its
 // positions and steps of relu(att1 + att2_s) d_e_s[p], into its columns of
 // its row of fw_part (the rows are summed in block order after).  Ac = A
-// where the whole (T, A) plane fits (one column block).
+// where the whole (T, A) plane fits (one column block).  Tc < T (Ac <=
+// D1_THREADS, a column a thread): the steps in chunks of Tc from the last,
+// each chunk's (Tc, Ac) plane of att2 and (Tc, D1_PCH) of d_e in shared
+// memory in turn, the thread's D1_PCH sums d and its full_w sum carried
+// in registers.
 __global__ void __launch_bounds__(D1_THREADS)
 datt1_kernel(const float* __restrict__ att1, const float* __restrict__ hp,
              const float* __restrict__ de, const float* __restrict__ fullw,
              float* datt1, float* fw_part, int B, int T, int P, int A,
-             int NCAT, int Ac) {
+             int NCAT, int Ac, int Tc) {
   extern __shared__ __align__(16) float sm[];
   const int a0 = blockIdx.z * Ac, na = min(Ac, A - a0);
-  float* a2s = sm;              // (T, na): att2 of image b at every step
-  float* des = sm + T * na;     // (T, D1_PCH): this chunk's d_e
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int p0 = blockIdx.y * D1_PCH, np = min(D1_PCH, P - p0);
+  if (Tc < T) {
+    float* a2c = sm;              // (Tc, na): att2 of a chunk of steps
+    float* dec = sm + Tc * na;    // (Tc, D1_PCH): their d_e
+    const bool mine = tid < na;
+    const int a = a0 + (mine ? tid : 0);
+    const float fw = fullw[a];
+    float x[D1_PCH], d[D1_PCH];
+#pragma unroll
+    for (int q = 0; q < D1_PCH; ++q) {
+      x[q] = mine && q < np ? att1[((size_t)b * P + p0 + q) * A + a] : 0.f;
+      d[q] = 0.f;
+    }
+    float wacc = 0.f;
+    for (int s1 = T; s1 > 0; s1 -= Tc) {   // steps [s0, s1), from the last
+      const int s0 = max(0, s1 - Tc), ns = s1 - s0;
+      __syncthreads();   // the last chunk is read
+      for (int i = tid; i < ns * na; i += nt) {
+        const int s = i / na, al = i % na;
+        a2c[i] = hp[((size_t)(s0 + s) * B + b) * NCAT + a0 + al];
+      }
+      for (int i = tid; i < ns * D1_PCH; i += nt) {
+        const int s = i / D1_PCH, q = i % D1_PCH;
+        dec[i] = q < np ? de[((size_t)(s0 + s) * B + b) * P + p0 + q] : 0.f;
+      }
+      __syncthreads();
+      if (!mine) continue;
+#pragma unroll
+      for (int q = 0; q < D1_PCH; ++q) {
+        if (q >= np) continue;
+        for (int s = ns - 1; s >= 0; --s) {
+          const float pre = x[q] + a2c[s * na + tid];
+          if (pre > 0.f) {
+            const float e = dec[s * D1_PCH + q];
+            d[q] += e * fw;
+            wacc += pre * e;
+          }
+        }
+      }
+    }
+    if (!mine) return;
+#pragma unroll
+    for (int q = 0; q < D1_PCH; ++q)
+      if (q < np) datt1[((size_t)b * P + p0 + q) * A + a] = d[q];
+    fw_part[((size_t)b * gridDim.y + blockIdx.y) * A + a] = wacc;
+    return;
+  }
+  float* a2s = sm;              // (T, na): att2 of image b at every step
+  float* des = sm + T * na;     // (T, D1_PCH): this chunk's d_e
   for (int i = tid; i < T * na; i += nt) {
     const int s = i / na, a = i % na;
     a2s[i] = hp[((size_t)s * B + b) * NCAT + a0 + a];
@@ -458,16 +512,25 @@ inline size_t datt1_smem(int T, int Ac) {
 
 // Columns of a d_att1 block (ops/att_scan.py::datt1_plan mirrors it): A
 // where the (T, A) plane fits, else the fewest column blocks whose planes
-// do, their width a multiple of 4 (the last may be narrower); 0 where not
-// even 4 columns fit (T above ~1,800).
+// do, their width a multiple of 4 (the last may be narrower); past T ~
+// 1,816, where not even 4 columns fit, a column a thread: min(A,
+// D1_THREADS), the steps then chunked (datt1_steps).
 inline int datt1_cols(int T, int A) {
   if (datt1_smem(T, A) <= SMEM_MAX) return A;
   const long long most =
       (((long long)(SMEM_MAX / sizeof(float)) - (long long)T * D1_PCH) / T) &
       ~3LL;
-  if (most < 4) return 0;
+  if (most < 4) return A < D1_THREADS ? A : D1_THREADS;
   const long long n = (A + most - 1) / most;
   return (int)(((A + n - 1) / n + 3) & ~3LL);
+}
+
+// Steps of att2 a d_att1 block holds at once: T where the pass fits as
+// above, else the most whose (steps, datt1_cols) plane and d_e do.
+inline int datt1_steps(int T, int A) {
+  const int Ac = datt1_cols(T, A);
+  if (datt1_smem(T, Ac) <= SMEM_MAX) return T;
+  return (int)(SMEM_MAX / sizeof(float) / ((size_t)Ac + D1_PCH));
 }
 
 // ---- the two scans ------------------------------------------------------
@@ -600,12 +663,13 @@ static int scan_bwd(bool factored, const float* att1, const float* feats,
   // d_att1 and full_w's grad: one pass over att1 summing the T steps
   const int n_ch = (P + D1_PCH - 1) / D1_PCH;
   const int Ac = datt1_cols(T, A), n_col = (A + Ac - 1) / Ac;
-  const size_t d1_smem = datt1_smem(T, Ac);
+  const int Tc = datt1_steps(T, A);
+  const size_t d1_smem = datt1_smem(Tc, Ac);
   ICEE_TRY(cudaFuncSetAttribute(datt1_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)d1_smem));
   datt1_kernel<<<dim3(B, n_ch, n_col), D1_THREADS, d1_smem, st>>>(
-      att1, hp, de, fullw, gatt1, fw_part, B, T, P, A, NCAT, Ac);
+      att1, hp, de, fullw, gatt1, fw_part, B, T, P, A, NCAT, Ac, Tc);
   ICEE_TRY(cudaGetLastError());
   ICEE_TRY(colsum(fw_part, A, B * n_ch, A, gfullw, 0, st));
   float* de_col = fw_part + (size_t)B * n_ch * A;  // (P,) sums of d_e
@@ -693,16 +757,15 @@ int icee_f32_gemm(int form, const float* A, long long lda, const float* B,
               zb, zc, zbias, static_cast<cudaStream_t>(stream));
 }
 
-// Floats of the d_att1 pass's scratch, or -1 if not even 4 columns of its
-// (T, A) plane of att2 fit a block's shared memory.
+// Floats of the d_att1 pass's scratch.
 long long icee_att_scan_fw_part_floats(int B, int T, int P, int A) {
-  if (datt1_cols(T, A) == 0) return -1;
   return (long long)B * ((P + D1_PCH - 1) / D1_PCH) * A + P;
 }
 
-// Columns of a d_att1 block at T and A (datt1_cols), for the wrapper's
-// mirror.
+// Columns and steps of a d_att1 block at T and A (datt1_cols,
+// datt1_steps), for the wrapper's mirror.
 int icee_att_scan_datt1_cols(int T, int A) { return datt1_cols(T, A); }
+int icee_att_scan_datt1_steps(int T, int A) { return datt1_steps(T, A); }
 
 int icee_att_scan_fwd(int lstm, const float* emb, const float* att1,
                       const float* feats, const float* Wcat,
@@ -746,8 +809,7 @@ int icee_att_scan_bwd(int lstm, const float* att1, const float* feats,
                       float* gfullb, float* gWin, float* gVb, float* gSw,
                       float* gSb, float* gUw, int B, int T, int E, int F,
                       int H, int A, int P, int FS, void* stream) {
-  if (B < 1 || T < 1 || A % 4 || FS % 4 || datt1_cols(T, A) == 0)
-    return cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || A % 4 || FS % 4) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lstm)
     return scan_bwd<NicGates>(false, att1, feats, Wcat, fullw, Win, Sw, Uw,

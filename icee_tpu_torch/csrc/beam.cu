@@ -102,6 +102,7 @@ grid_beam_kernel(const __grid_constant__ GridArgs a) {
   unsigned gen = 0;
   for (int t = 0; t <= a.max_seq; ++t) {
     StepCtx c = step_ctx(a, t);
+    gb_mark(-1);
     scan_rows(a, sm, c);
     if (c.n == 0) break;  // the same count in every block
     for (int s = 0; s < a.n_stages; ++s) {
@@ -132,6 +133,12 @@ static int launch(const GridPlan& p, const int* slabs, const float* feats,
       reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE>),
       reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN>));
   return grid_launch(kernel, a, (int)p.grid, stream);
+}
+
+// The search's profile marks (grid_beam.cuh gb_mark): out (8 words, or
+// null) <- the sums so far, then zeroed, the marks on where on != 0.
+extern "C" int icee_grid_profile(int on, unsigned long long* out) {
+  return (int)grid_profile(on, out);
 }
 
 extern "C" const char* icee_error_string(int code) {

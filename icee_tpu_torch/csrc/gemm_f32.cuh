@@ -208,7 +208,7 @@ inline cudaError_t gemm(char form, const float* A, long long lda,
   return cudaGetLastError();
 }
 
-constexpr int CS_COLS = 32, CS_GROUPS = 8;
+constexpr int CS_COLS = 32, CS_GROUPS = 8, CS_UNROLL = 8;
 
 // out(c) = [out(c) +] sum_r X[r * ldx + c] for c < C, r < R.
 __global__ void __launch_bounds__(CS_COLS * CS_GROUPS)
@@ -218,8 +218,19 @@ colsum_kernel(const float* __restrict__ X, long long ldx, int R, int C,
   const int lc = threadIdx.x % CS_COLS, grp = threadIdx.x / CS_COLS;
   const int c = blockIdx.x * CS_COLS + lc;
   float s = 0.f;
-  if (c < C)
-    for (int r = grp; r < R; r += CS_GROUPS) s += X[r * ldx + c];
+  if (c < C) {
+    // the loads of CS_UNROLL rows in flight at once, added in row order
+    int r = grp;
+    for (; r + (CS_UNROLL - 1) * CS_GROUPS < R; r += CS_UNROLL * CS_GROUPS) {
+      float v[CS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < CS_UNROLL; ++u)
+        v[u] = X[(long long)(r + u * CS_GROUPS) * ldx + c];
+#pragma unroll
+      for (int u = 0; u < CS_UNROLL; ++u) s += v[u];
+    }
+    for (; r < R; r += CS_GROUPS) s += X[(long long)r * ldx + c];
+  }
   part[grp][lc] = s;
   __syncthreads();
   if (grp == 0 && c < C) {

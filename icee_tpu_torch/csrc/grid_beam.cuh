@@ -1072,15 +1072,30 @@ __device__ void run_tail(const GridArgs& a, const Smem& sm,
   }
 }
 
+// The ring past `used` floats (rounded up to 8 bytes) as a sort buffer of
+// up to `want` pairs: its pairs, 0 where fewer than `want` fit.
+__device__ __forceinline__ int ring_pairs(long long used, int want) {
+  used = (used + 1) & ~1LL;
+  return want > 0 && used + 2LL * want <= RING_FLOATS ? want : 0;
+}
+
 // The wide row stage: a block a live row in turn, its logZ and exact
 // top-k (wide_row: K1's wide reduce, the same bits) into pv, pi at the
-// row's place, (rows, k) each; SCAN: the survivors in the block's cand.
+// row's place, (rows, k) each; SCAN: the survivors sorted in the ring
+// where pow2_ceil(k) pairs fit it, else in the block's cand.  The row is
+// staged in the ring where V floats still fit beside them.
 template <bool SCAN>
 __device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
   TopkScratch* s = reinterpret_cast<TopkScratch*>(sm.ring);
   float* lt = sm.ring + TOPK_FLOATS;  // a tile a warp
   float* pm = lt + GB_WARPS * VT;
   float* pse = pm + a.n_tiles;
+  const long long used = (pse + a.n_tiles - sm.ring + 1) & ~1LL;
+  const int scap = SCAN ? ring_pairs(used, pow2_ceil(a.k)) : 0;
+  unsigned long long* sbuf =
+      reinterpret_cast<unsigned long long*>(sm.ring + used);
+  const long long used2 = used + 2LL * scap;
+  float* stage = used2 + a.V <= RING_FLOATS ? sm.ring + used2 : nullptr;
   for (int i = blockIdx.x; i < n; i += gridDim.x) {
     const size_t r = sm.list[i];
     float* lp = a.pv + r * a.k;
@@ -1091,8 +1106,116 @@ __device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
           lp[q] = v;
           li[q] = col;
         },
-        SCAN ? a.cand + (size_t)blockIdx.x * a.k : nullptr);
+        SCAN ? a.cand + (size_t)blockIdx.x * a.k : nullptr, stage, sbuf,
+        scap);
   }
+}
+
+// Blocks an image's wide tail takes (SEL_SCAN): g = gridDim / images where
+// that is at least 2 and an image has at least SPREAD_MIN candidates, else
+// 1 (the image in one block).
+constexpr long long SPREAD_MIN = 32768;
+__device__ __forceinline__ int tail_spread(const GridArgs& a) {
+  const int g = gridDim.x / a.n_img;
+  return g >= 2 && (long long)a.k * a.k >= SPREAD_MIN ? g : 1;
+}
+
+// The selection of a spread wide tail (g blocks an image): block (image
+// blockIdx / g, part blockIdx % g) takes candidates [n part / g, n (part +
+// 1) / g) of its image's n = k k; block_select's radix passes, each block
+// a histogram of its share into its own device-memory area (its cand,
+// double-buffered by pass), merged by every block of the image in part
+// order after a grid barrier; then each block's count of survivors, their
+// places by a prefix over the parts, the survivors into part 0's cand, and
+// part 0 (the owner) orders them (sorted in the ring where they fit, else
+// ranked) -> emit(rank, candidate).  pair(c): the 64-bit (key, c).  Every
+// block of the grid calls it with the same g (the same barriers).
+template <class Pair, class Emit>
+__device__ void spread_select(const GridArgs& a, TopkScratch* s, int g,
+                              bool act, Pair pair, unsigned long long* sbuf,
+                              int scap, Emit emit, unsigned& gen) {
+  const int tid = threadIdx.x, nt = GB_THREADS, k = a.k;
+  const int img = blockIdx.x / g, part = blockIdx.x % g;
+  const long long n = (long long)k * k;
+  const int c0 = (int)(n * part / g), c1 = (int)(n * (part + 1) / g);
+  int* area = reinterpret_cast<int*>(a.cand + (size_t)blockIdx.x * k);
+  auto area_of = [&](int q) {
+    return reinterpret_cast<const int*>(a.cand + (size_t)(img * g + q) * k);
+  };
+  unsigned long long prefix = 0, mask = 0;
+  bool done = !act;
+  if (tid == 0) s->rem = k;
+  int buf = 0;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    if (shift > 0 && shift < 32 && ((unsigned)(n - 1) >> shift) == 0) {
+      mask |= 0xffull << shift;
+      continue;
+    }
+    for (int i = tid; i < 256; i += nt) s->hist[i] = 0;
+    __syncthreads();
+    if (!done) {
+      int c = c0 + tid;
+      for (; c + 3 * nt < c1; c += 4 * nt) {   // four reads in flight
+        unsigned long long p[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) p[u] = pair(c + u * nt);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if ((p[u] & mask) == prefix)
+            atomicAdd(&s->hist[(p[u] >> shift) & 255], 1);
+      }
+      for (; c < c1; c += nt) {
+        const unsigned long long p = pair(c);
+        if ((p & mask) == prefix) atomicAdd(&s->hist[(p >> shift) & 255], 1);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 256; i += nt)
+      __stcg(area + 256 * buf + i, s->hist[i]);
+    grid_sync(a.bar, gen);
+    if (!done) {   // the same in every block of the image
+      for (int i = tid; i < 256; i += nt) {
+        int sum = 0;
+        for (int q = 0; q < g; ++q) sum += __ldcg(area_of(q) + 256 * buf + i);
+        s->hist[i] = sum;
+      }
+      __syncthreads();
+      if (tid < 32) pick_bin(s->hist, s->rem, s);
+      __syncthreads();
+      prefix |= (unsigned long long)s->bin << shift;
+      mask |= 0xffull << shift;
+      done = s->cnt == s->rem;
+      __syncthreads();   // s->cnt, s->rem read before the next pass
+    }
+    buf ^= 1;
+  }
+  const unsigned long long tau = prefix | ~mask;   // exactly k pairs <= tau
+  int mine = 0;
+  if (act)
+    for (int c = c0 + tid; c < c1; c += nt) mine += pair(c) <= tau;
+  int total;
+  int off = block_excl_scan(mine, s->wsum, total);
+  if (tid == 0) __stcg(area + 512, total);
+  grid_sync(a.bar, gen);
+  if (act)
+    for (int q = 0; q < part; ++q) off += __ldcg(area_of(q) + 512);
+  grid_sync(a.bar, gen);   // every count read before part 0's cand is written
+  unsigned long long* out = a.cand + (size_t)img * g * k;
+  if (act)
+    for (int c = c0 + tid; c < c1 && mine > 0; c += nt) {
+      const unsigned long long p = pair(c);
+      if (p <= tau) {
+        __stcg(out + off++, p);
+        --mine;
+      }
+    }
+  grid_sync(a.bar, gen);
+  if (!act || part != 0) return;
+  const bool sorted = pow2_ceil(k) <= scap;
+  if (sorted)
+    for (int i = tid; i < k; i += nt) sbuf[i] = __ldcg(out + i);
+  __syncthreads();
+  emit_in_order(k, sorted ? sbuf : out, sorted, s, emit);
 }
 
 // The wide beam tail of the images this block owns: run_tail's semantics
@@ -1104,7 +1227,7 @@ __device__ void run_rowsel(const GridArgs& a, const Smem& sm, int n) {
 // the slot state in its tstate where it does not fit the ring.
 template <bool SCAN>
 __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
-                              const StepCtx& c) {
+                              const StepCtx& c, unsigned& gen) {
   const int tid = threadIdx.x;
   const int k = a.k, L = a.max_seq + 2, t = c.t;
   const bool first = t == 0;
@@ -1118,19 +1241,32 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
   int* wq = pq + k;                              // selected next words
   int* keep = wq + k;                            // [improved, slot, n_take]
   float* best_s = reinterpret_cast<float*>(keep + 3);
+  // SCAN: the survivors' sort buffer in the ring past the state
+  const long long used =
+      TOPK_FLOATS + (state_in_ring(k) ? tail_state_floats(k) : 0);
+  const int scap = SCAN ? ring_pairs(used, pow2_ceil(k)) : 0;
+  unsigned long long* sbuf =
+      reinterpret_cast<unsigned long long*>(sm.ring + ((used + 1) & ~1LL));
   const size_t plane = (size_t)a.rows * L;
   const int* seq_in = a.seqs + (t & 1) * plane;
   int* seq_out = a.seqs + ((t & 1) ^ 1) * plane;
-  for (int img = blockIdx.x; img < a.n_img; img += gridDim.x) {
+  const int g = SCAN ? tail_spread(a) : 1;
+  for (int img = g > 1 ? blockIdx.x / g : blockIdx.x;
+       g > 1 ? img == (int)blockIdx.x / g : img < a.n_img;
+       img += g > 1 ? 1 : gridDim.x) {
     const int base = img * k;
+    const bool in = img < a.n_img;
     int live_rows = 0;
-    for (int q = 0; q < k; ++q) live_rows += sm.rmap[base + q] >= 0;
-    if (live_rows == 0) continue;
-    for (int q = tid; q < k; q += GB_THREADS) {
-      al[q] = a.alive[base + q];
-      sc[q] = a.scores[base + q];
+    if (in)
+      for (int q = 0; q < k; ++q) live_rows += sm.rmap[base + q] >= 0;
+    if (live_rows == 0 && g == 1) continue;
+    if (live_rows > 0) {
+      for (int q = tid; q < k; q += GB_THREADS) {
+        al[q] = a.alive[base + q];
+        sc[q] = a.scores[base + q];
+      }
+      if (tid == 0) *best_s = a.bscore[img];
     }
-    if (tid == 0) *best_s = a.bscore[img];
     __syncthreads();
     const float* lp = a.pv + (size_t)base * k;  // candidate p*k + q at p*k + q
     const int* li = a.pi + (size_t)base * k;
@@ -1139,14 +1275,25 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
       const bool ok = first ? (p == 0) : (al[p] != 0);
       return ok ? sc[p] + __ldcg(lp + cand) : NEG;
     };
-    block_topk<SCAN>(
-        k * k, k, total, s,
-        [&](int q, int cand) {
-          top[q] = total(cand);
-          pq[q] = cand / k;
-          wq[q] = __ldcg(li + cand);
-        },
-        SCAN ? a.cand + (size_t)blockIdx.x * k : nullptr);
+    auto emit = [&](int q, int cand) {
+      top[q] = total(cand);
+      pq[q] = cand / k;
+      wq[q] = __ldcg(li + cand);
+    };
+    if (g > 1) {   // every block meets spread_select's barriers
+      spread_select(
+          a, s, g, live_rows > 0,
+          [&](int cand) {
+            return ((unsigned long long)desc_key(total(cand)) << 32) |
+                   (unsigned)cand;
+          },
+          sbuf, scap, emit, gen);
+      if (live_rows == 0 || blockIdx.x % g != 0) break;
+    } else {
+      block_topk<SCAN>(k * k, k, total, s, emit,
+                       SCAN ? a.cand + (size_t)blockIdx.x * k : nullptr,
+                       sbuf, scap);
+    }
     for (int e = tid; e < k * L; e += GB_THREADS) {
       const int q = e / L, pos = e % L;
       seq_out[(size_t)base * L + e] =
@@ -1199,6 +1346,28 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
   }
 }
 
+// Where a search's time goes, for a probe (off unless icee_grid_profile
+// turned it on; a launch with it off pays one load of g_gb_prof_on in
+// block 0's thread 0 a mark): block 0's thread 0 stamps %globaltimer
+// after the barriers that end a step's parts and adds each part's time,
+// in ns, to g_gb_prof: [0] the live-row scan and the products, [1] the
+// row stage (narrow: the tile partials), [2] the tail; [4] counts steps,
+// [7] holds the last stamp.  Every block passed each barrier before block
+// 0 leaves it, so a part's time is the card's.
+__device__ unsigned long long g_gb_prof[8];
+__device__ int g_gb_prof_on;
+
+__device__ __forceinline__ void gb_mark(int part) {   // -1: a step starts
+  if (blockIdx.x != 0 || threadIdx.x != 0 || !g_gb_prof_on) return;
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  if (part >= 0)
+    g_gb_prof[part] += ns - g_gb_prof[7];
+  else
+    g_gb_prof[4] += 1;
+  g_gb_prof[7] = ns;
+}
+
 // A step's selection after its logits: the tile partials and the beam tail
 // (SEL_NARROW), or the wide row stage and tail; a grid barrier after each.
 // The kernels are instantiated once for each Sel, so that the narrower
@@ -1206,16 +1375,31 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
 template <int SEL>
 __device__ void run_selection(const GridArgs& a, const Smem& sm,
                               const StepCtx& c, unsigned& gen) {
+  gb_mark(0);
   if constexpr (SEL != SEL_NARROW) {
     run_rowsel<SEL == SEL_SCAN>(a, sm, c.n);
     grid_sync(a.bar, gen);
-    run_tail_wide<SEL == SEL_SCAN>(a, sm, c);
+    gb_mark(1);
+    run_tail_wide<SEL == SEL_SCAN>(a, sm, c, gen);
   } else {
     run_partials(a, sm, c.n);
     grid_sync(a.bar, gen);
+    gb_mark(1);
     run_tail(a, sm, c);
   }
   grid_sync(a.bar, gen);
+  gb_mark(2);
+}
+
+// The probe's switch: out (8 words of host memory, or null) <- the parts'
+// sums so far; then the sums zeroed and the marks on (on != 0) or off.
+inline cudaError_t grid_profile(int on, unsigned long long* out) {
+  unsigned long long z[8] = {};
+  cudaError_t e = cudaSuccess;
+  if (out != nullptr) e = cudaMemcpyFromSymbol(out, g_gb_prof, sizeof(z));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_gb_prof, z, sizeof(z));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_gb_prof_on, &on, sizeof(on));
+  return e;
 }
 
 }  // namespace icee

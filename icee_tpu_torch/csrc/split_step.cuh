@@ -457,7 +457,7 @@ inline cudaError_t launch_split_head(const float* h_out, const float* Cw,
   cudaError_t e = launch_slab<LOGITS>(a, s, true);
   if (e != cudaSuccess) return e;
   if (ktop > KMAX) {  // a top-k above 8: the wide reduce (wide_topk.cuh)
-    const size_t smem = sizeof(float) * (size_t)wide_reduce_floats(V);
+    const size_t smem = sizeof(float) * (size_t)wide_layout(V, ktop).total;
     if (smem > SPLIT_SMEM_LIMIT) return cudaErrorInvalidValue;
     if (ktop > KWIDE)
       return split_launch(wide_reduce_kernel<true>, R, WIDE_THREADS, smem, s,

@@ -15,15 +15,21 @@
 //                chosen bin holds exactly the pairs still wanted: two or
 //                three passes unless keys tie across the threshold); the
 //                survivors (exactly K) are gathered by a block-wide prefix
-//                sum, and each one's rank among them is counted.  The keys
-//                are read through key() on every pass, never stored: a row
-//                of V logits or an image's k x k beam candidates stay where
-//                they are (L2).  Up to KWIDE = 256 survivors sit in shared
-//                memory; above it (SCAN) in a device-memory scratch of K
-//                pairs that the caller gives, and the ranks are counted
-//                against them streamed through shared memory KWIDE at a
-//                time, RANK_ITEMS survivors a thread held in registers.
-//                Either way O(K^2) compares a selection: ~4M at K = 2048.
+//                sum.  Up to KWIDE = 256 survivors sit in the scratch and
+//                each one's rank among them is counted (K compares a
+//                survivor).  Above it (SCAN) they are sorted in a shared-
+//                memory buffer the caller gives where they fit (a bitonic
+//                sort of the K distinct pairs padded to a power of two:
+//                rank r is the r-th of the sorted pairs, exactly the order
+//                a rank count gives; K log^2 K / 2 compares, ~60k at K =
+//                2048), else they go to a device-memory scratch of K pairs
+//                and their ranks are counted against them streamed through
+//                shared memory KWIDE at a time, RANK_ITEMS survivors a
+//                thread held in registers (O(K^2) compares, ~4M at K =
+//                2048).  The keys are read through key() on every pass,
+//                never stored: a row of V logits or an image's k x k beam
+//                candidates stay where they are (L2, or a copy the caller
+//                staged in shared memory).
 //   block_topk   block_select of the K greatest of n values val(c), ties
 //                to the lowest index c: key = an order-preserving
 //                descending key of the value (-0 counted as +0).
@@ -35,11 +41,13 @@
 //                bits at any width and on every kernel's wide path, and
 //                K2 = K1 fused-step, K7 = K6 hold at atol 0 there too.
 //
-// What bounds it: bytes through L2, a few reads of the row (or of the k x k
-// candidates) a selection; above KWIDE also the K^2 rank compares.  No
+// What bounds it: the latency of the passes' reads, a few reads of the row
+// (or of the k x k candidates) a selection, so wide_row stages the row in
+// shared memory where the caller has room and a grid's tail spreads an
+// image's k x k candidates over several blocks (grid_beam.cuh).  No
 // atomics touch data: the histogram's counts are counts, the survivors'
-// places come from a prefix sum, and the output order from the ranks, so a
-// selection gives the same result on every run.
+// places come from a prefix sum, and the output order from the sort (or
+// the ranks), so a selection gives the same result on every run.
 #pragma once
 
 #include "decode_common.cuh"
@@ -91,15 +99,124 @@ __device__ __forceinline__ int block_excl_scan(int v, int* wsum, int& total) {
   return off;
 }
 
+// The least power of two >= n (n >= 1).
+__host__ __device__ inline int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// v[0 .. n2) ascending in shared memory, n2 a power of two: a bitonic sort
+// by the whole block.  Every thread must call it; it ends with a barrier.
+__device__ inline void block_sort_pairs(unsigned long long* v, int n2) {
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
+        const unsigned long long x = v[lo], y = v[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          v[lo] = y;
+          v[hi] = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The K survivors' pairs, in cand (shared memory where sorted, with room
+// for pow2_ceil(K) pairs; else device memory, read through L2 since other
+// blocks may have written it), in any order: emit(rank, c) once for each
+// in the order of the pairs.  sorted: a sort in place; else the ranks
+// counted against the pairs streamed through s->cand.  Every thread must
+// call it; it ends with a barrier.
+template <class Emit>
+__device__ void emit_in_order(int K, unsigned long long* cand, bool sorted,
+                              TopkScratch* s, Emit emit) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (sorted) {
+    const int n2 = pow2_ceil(K);
+    for (int i = K + tid; i < n2; i += nt) cand[i] = ~0ull;  // past every
+    block_sort_pairs(cand, n2);                              // pair c < n
+    for (int i = tid; i < K; i += nt)
+      emit(i, (int)(cand[i] & 0xffffffffull));
+    __syncthreads();
+    return;
+  }
+  for (int i0 = 0; i0 < K; i0 += RANK_ITEMS * nt) {
+    unsigned long long p[RANK_ITEMS];
+    int r[RANK_ITEMS];
+#pragma unroll
+    for (int u = 0; u < RANK_ITEMS; ++u) {
+      const int i = i0 + tid + u * nt;
+      p[u] = i < K ? __ldcg(cand + i) : ~0ull;
+      r[u] = 0;
+    }
+    for (int j0 = 0; j0 < K; j0 += KWIDE) {
+      const int m = min(KWIDE, K - j0);
+      __syncthreads();
+      for (int j = tid; j < m; j += nt) s->cand[j] = __ldcg(cand + j0 + j);
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        const unsigned long long q = s->cand[j];
+#pragma unroll
+        for (int u = 0; u < RANK_ITEMS; ++u) r[u] += q < p[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RANK_ITEMS; ++u)
+      if (i0 + tid + u * nt < K) emit(r[u], (int)(p[u] & 0xffffffffull));
+  }
+  __syncthreads();
+}
+
+// The bin of a 256-bin histogram h (shared memory) that holds the rem-th
+// least pair, by warp 0: s->bin, s->rem (the pairs still wanted within
+// it), s->cnt (its count).  The caller syncs after.
+__device__ __forceinline__ void pick_bin(const int* h, int rem,
+                                        TopkScratch* s) {
+  const int lane = threadIdx.x;
+  if (lane >= 32) return;
+  int v[8], sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = h[8 * lane + j];
+    sum += v[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int before = incl - sum;
+  if (before < rem && rem <= incl) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (before + v[j] >= rem) {
+        s->bin = 8 * lane + j;
+        s->rem = rem - before;
+        s->cnt = v[j];
+        break;
+      }
+      before += v[j];
+    }
+  }
+}
+
 // The K (1 <= K <= n; K <= KWIDE unless SCAN) least pairs (key(c), c), c
 // < n: emit(rank, c) once for each, rank 0 the least.  SCAN: the survivors
-// go to gcand (K pairs of device memory, this block's own).  Every thread
-// of the block must call it (blockDim.x a multiple of 32); it ends with a
-// barrier.
+// go to sbuf (shared memory of scap pairs, where pow2_ceil(K) <= scap) and
+// are sorted there, else to gcand (K pairs of device memory, this block's
+// own) and ranked by counting.  Every thread of the block must call it
+// (blockDim.x a multiple of 32); it ends with a barrier.
 template <bool SCAN = false, class Key, class Emit>
 __device__ void block_select(int n, int K, Key key, TopkScratch* s,
                              Emit emit,
-                             unsigned long long* gcand = nullptr) {
+                             unsigned long long* gcand = nullptr,
+                             unsigned long long* sbuf = nullptr,
+                             int scap = 0) {
   const int tid = threadIdx.x, nt = blockDim.x;
   auto pair = [&](int c) {
     return ((unsigned long long)key(c) << 32) | (unsigned)c;
@@ -119,34 +236,8 @@ __device__ void block_select(int n, int K, Key key, TopkScratch* s,
       if ((p & mask) == prefix) atomicAdd(&s->hist[(p >> shift) & 255], 1);
     }
     __syncthreads();
-    if (tid < 32) {  // the bin that holds the rem-th pair: lane l, bins 8l..
-      int h[8], sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        h[j] = s->hist[8 * tid + j];
-        sum += h[j];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(FULL, incl, o);
-        if (tid >= o) incl += y;
-      }
-      const int rem = s->rem;
-      int before = incl - sum;
-      if (before < rem && rem <= incl) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (before + h[j] >= rem) {
-            s->bin = 8 * tid + j;
-            s->rem = rem - before;
-            s->cnt = h[j];
-            break;
-          }
-          before += h[j];
-        }
-      }
-    }
+    // the bin that holds the rem-th pair: lane l, bins 8l ..
+    if (tid < 32) pick_bin(s->hist, s->rem, s);
     __syncthreads();
     prefix |= (unsigned long long)s->bin << shift;
     mask |= 0xffull << shift;
@@ -157,7 +248,8 @@ __device__ void block_select(int n, int K, Key key, TopkScratch* s,
   for (int c = tid; c < n; c += nt) mine += pair(c) <= tau;
   int total;
   int off = block_excl_scan(mine, s->wsum, total);
-  unsigned long long* cand = SCAN ? gcand : s->cand;
+  const bool sorted = SCAN && sbuf != nullptr && pow2_ceil(K) <= scap;
+  unsigned long long* cand = !SCAN ? s->cand : sorted ? sbuf : gcand;
   for (int c = tid; c < n && mine > 0; c += nt) {
     const unsigned long long p = pair(c);
     if (p <= tau) {
@@ -166,41 +258,17 @@ __device__ void block_select(int n, int K, Key key, TopkScratch* s,
     }
   }
   __syncthreads();
-  if constexpr (!SCAN) {
+  if constexpr (!SCAN) {   // K <= KWIDE: K compares a survivor
     for (int i = tid; i < K; i += nt) {
       const unsigned long long p = s->cand[i];
       int r = 0;
       for (int j = 0; j < K; ++j) r += s->cand[j] < p;
       emit(r, (int)(p & 0xffffffffull));
     }
+    __syncthreads();
   } else {
-    // each survivor's rank against all K, streamed through s->cand
-    for (int i0 = 0; i0 < K; i0 += RANK_ITEMS * nt) {
-      unsigned long long p[RANK_ITEMS];
-      int r[RANK_ITEMS];
-#pragma unroll
-      for (int u = 0; u < RANK_ITEMS; ++u) {
-        const int i = i0 + tid + u * nt;
-        p[u] = i < K ? gcand[i] : ~0ull;
-        r[u] = 0;
-      }
-      for (int j0 = 0; j0 < K; j0 += KWIDE) {
-        const int m = min(KWIDE, K - j0);
-        __syncthreads();
-        for (int j = tid; j < m; j += nt) s->cand[j] = gcand[j0 + j];
-        __syncthreads();
-        for (int j = 0; j < m; ++j) {
-          const unsigned long long q = s->cand[j];
-#pragma unroll
-          for (int u = 0; u < RANK_ITEMS; ++u) r[u] += q < p[u];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < RANK_ITEMS; ++u)
-        if (i0 + tid + u * nt < K) emit(r[u], (int)(p[u] & 0xffffffffull));
-    }
+    emit_in_order(K, cand, sorted, s, emit);
   }
-  __syncthreads();
 }
 
 // The K greatest of val(c), c < n, ties to the lowest c: block_select on
@@ -209,30 +277,45 @@ template <bool SCAN = false, class Val, class Emit>
 __device__ __forceinline__ void block_topk(int n, int K, Val val,
                                            TopkScratch* s, Emit emit,
                                            unsigned long long* gcand =
-                                               nullptr) {
+                                               nullptr,
+                                           unsigned long long* sbuf = nullptr,
+                                           int scap = 0) {
   block_select<SCAN>(
-      n, K, [&](int c) { return desc_key(val(c)); }, s, emit, gcand);
+      n, K, [&](int c) { return desc_key(val(c)); }, s, emit, gcand, sbuf,
+      scap);
 }
 
 // One row of V logits in device memory (read through L2): the tiles' max
 // and sum-exp (tile_reduce, a warp a tile, into pm, pse: n_tiles floats
 // each), logZ (merge_logz), then the row's K greatest logits, ties to the
 // lowest id: emit(rank, id, logit - logZ).  lt holds VT floats a warp;
-// SCAN: K > KWIDE, the survivors in gcand (K pairs).  Every thread of the
-// block must call it; it ends with a barrier.
+// SCAN: K > KWIDE, the survivors in sbuf (shared, scap pairs) where they
+// fit, else in gcand (K pairs).  stage: V floats of shared memory or null;
+// given, the row is copied there once and every pass reads the copy.
+// Every thread of the block must call it; it ends with a barrier.
 template <bool SCAN = false, class Emit>
 __device__ void wide_row(const float* row, int V, int K, float* lt,
                          float* pm, float* pse, TopkScratch* s, Emit emit,
-                         unsigned long long* gcand = nullptr) {
+                         unsigned long long* gcand = nullptr,
+                         float* stage = nullptr,
+                         unsigned long long* sbuf = nullptr, int scap = 0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5, n_tiles = (V + VT - 1) / VT;
+  if (stage != nullptr) {
+    for (int c = threadIdx.x; c < V; c += blockDim.x)
+      stage[c] = __ldcg(row + c);
+    __syncthreads();
+  }
+  auto at = [&](int c) {
+    return stage != nullptr ? stage[c] : __ldcg(row + c);
+  };
   float* mine = lt + warp * VT;
   for (int t = warp; t < n_tiles; t += nw) {
     float v[VT / 32];
 #pragma unroll
     for (int u = 0; u < VT / 32; ++u) {
       const int col = t * VT + lane + 32 * u;
-      v[u] = col < V ? __ldcg(row + col) : NEG;
+      v[u] = col < V ? at(col) : NEG;
     }
 #pragma unroll
     for (int u = 0; u < VT / 32; ++u) mine[lane + 32 * u] = v[u];
@@ -248,28 +331,56 @@ __device__ void wide_row(const float* row, int V, int K, float* lt,
   __syncthreads();
   const float logz = s->logz;
   block_topk<SCAN>(
-      V, K, [&](int c) { return __ldcg(row + c); }, s,
-      [&](int q, int c) { emit(q, c, __ldcg(row + c) - logz); }, gcand);
+      V, K, at, s, [&](int q, int c) { emit(q, c, at(c) - logz); }, gcand,
+      sbuf, scap);
 }
 
-// Floats of wide_reduce_kernel's shared memory at vocabulary V.
+// Floats of wide_reduce_kernel's shared memory at vocabulary V without its
+// extras (the sort buffer, the staged row).
 __host__ __device__ inline int wide_reduce_floats(int V) {
   return TOPK_FLOATS + (WIDE_THREADS / 32) * VT + 2 * ((V + VT - 1) / VT);
 }
 
+// Bytes of shared memory a wide reduce block takes at most for its extras,
+// so that three or four blocks of 512 threads share an SM.
+constexpr int WIDE_EXTRA_CAP = 64 * 1024;
+
+// A wide reduce block's layout at (V, k), in floats: the base scratch
+// (wide_reduce_floats, rounded up to 8 bytes), then (k > KWIDE) a sort
+// buffer of pow2_ceil(k) pairs, then the staged row (V floats), each where
+// it still fits WIDE_EXTRA_CAP (sort first).
+struct WideLayout {
+  int base, sort_pairs, stage, total;
+};
+__host__ __device__ inline WideLayout wide_layout(int V, int k) {
+  WideLayout w;
+  w.base = (wide_reduce_floats(V) + 1) & ~1;
+  long long cap = WIDE_EXTRA_CAP / 4 > w.base ? WIDE_EXTRA_CAP / 4 : w.base;
+  w.sort_pairs = k > KWIDE ? pow2_ceil(k) : 0;
+  if (w.base + 2LL * w.sort_pairs > cap) w.sort_pairs = 0;
+  w.stage = w.base + 2LL * w.sort_pairs + V <= cap ? V : 0;
+  w.total = w.base + 2 * w.sort_pairs + w.stage;
+  return w;
+}
+
 // One block a row r of logits (R, ld): wide_row, into logp, idx (R, k);
-// SCAN (k > KWIDE): row r's survivors in cand + r k.  Launched with or
-// without programmatic dependent launch (it waits for the previous
-// launch's logits first; without the attribute that is a no-op).
+// SCAN (k > KWIDE): row r's survivors in the sort buffer, else in cand +
+// r k.  Launched with or without programmatic dependent launch (it waits
+// for the previous launch's logits first; without the attribute that is a
+// no-op).  Shared memory: wide_layout(V, k).total floats.
 template <bool SCAN>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_reduce_kernel(const float* logits, int ld, int V, int k, float* logp,
                    int* idx, unsigned long long* cand) {
   extern __shared__ __align__(16) float smem[];
+  const WideLayout wl = wide_layout(V, k);
   TopkScratch* s = reinterpret_cast<TopkScratch*>(smem);
   float* lt = smem + TOPK_FLOATS;
   float* pm = lt + (WIDE_THREADS / 32) * VT;
   float* pse = pm + (V + VT - 1) / VT;
+  unsigned long long* sbuf =
+      reinterpret_cast<unsigned long long*>(smem + wl.base);
+  float* stage = wl.stage ? smem + wl.base + 2 * wl.sort_pairs : nullptr;
   const size_t r = blockIdx.x;
   asm volatile("griddepcontrol.wait;" ::: "memory");
   wide_row<SCAN>(
@@ -278,7 +389,7 @@ wide_reduce_kernel(const float* logits, int ld, int V, int k, float* logp,
         logp[r * k + q] = lp;
         idx[r * k + q] = c;
       },
-      SCAN ? cand + r * k : nullptr);
+      SCAN ? cand + r * k : nullptr, stage, sbuf, wl.sort_pairs);
 }
 
 // Pairs of the wide reduce's survivor scratch for R rows of top-k k: R k
@@ -293,7 +404,7 @@ inline cudaError_t launch_wide_reduce(const float* logits, int ld, int R,
                                       int V, int k, float* logp, int* idx,
                                       unsigned long long* cand,
                                       cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)wide_reduce_floats(V);
+  const size_t smem = sizeof(float) * (size_t)wide_layout(V, k).total;
   const void* kernel = k > KWIDE
                            ? reinterpret_cast<const void*>(
                                  wide_reduce_kernel<true>)

@@ -19,9 +19,9 @@ the shape alone and giving the same bits for a row:
   the context (a block per image, group and 256 feature columns) write x
   = [emb; gate * ctx], then K1's products, gates and reduce run with input
   width E + FS (``decode_step.step_plan`` lists the launches).  Only the
-  attention launches hold rows whole in shared memory: a group's att2
-  (8 A floats) and scores (8 P), A and P up to ~7,000
-  (:func:`check_attend`).
+  attention launches hold rows in shared memory: a group's att2 (8 A
+  floats; past a block's, from A ~7,264, in column pieces) and scores (8
+  P, P up to 7,264: :func:`check_attend`).
 
 Top-ks above ``K_MAX`` = 8, up to V, take K1's wide head and reduce
 (``csrc/wide_topk.cuh``), the same bits as the narrow merge would give
@@ -170,18 +170,31 @@ def step_layout(cell_params: dict, att_params: dict, gate_params: dict,
     return w, widths.pad_tree(tree, w)
 
 
+def scores_cols(rows: int, a: int) -> int:
+    """Columns of att2 the many-row scores launch stages at once for a
+    group of ``rows`` rows (``csrc/att_decode_step.cu``
+    ``att_scores_cols``): all of them (the padded A) where they fit a
+    block's shared memory, else the widest multiple of 128 that does,
+    taken piece after piece with each row's chain carried on."""
+    fit = cuda_lib.SMEM_LIMIT // (4 * rows)
+    return widths.quad(a) if widths.quad(a) <= fit else fit // 128 * 128
+
+
 def attend_smem(rows: int, a: int, p: int) -> int:
     """Bytes of shared memory of the larger of the many-row path's
     attention launches for a group of ``rows`` rows (``csrc/
     att_decode_step.cu`` ``icee_att_attend_smem``): the scores launch
-    holds their att2 rows, the context launch their scores."""
-    return 4 * rows * max(widths.quad(a), widths.quad(p))
+    holds their att2 rows (or a piece of their columns), the context
+    launch their scores."""
+    return 4 * rows * max(scores_cols(rows, a), widths.quad(p))
 
 
 def check_attend(what: str, k: int, a: int, p: int) -> None:
     """Raise ValueError, naming the launch, where a group of min(k, 8)
-    rows' att2 or scores do not fit a block's shared memory (the padded
-    widths)."""
+    rows' scores do not fit a block's shared memory (the padded widths;
+    P past 7,264, where JAX's K6 holds an image's features block beside
+    its weights past its own 110 MB).  Any A fits: the scores launch
+    stages att2 in column pieces."""
     smem = attend_smem(min(k, K_MAX), a, p)
     if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(
@@ -362,10 +375,11 @@ def _library() -> ctypes.CDLL:
         for kind, ff in (("factored", f), ("lstm", h)):
             fact = kind == "factored"
             got = (lib.icee_att_attend_smem(8, 512, h),
+                   lib.icee_att_attend_smem(8, 8192, h),   # att2 in pieces
                    *(lib.icee_att_step_split_smem(fact, r, e, ff, h, 512,
                                                   400, fs)
                      for r in (1, 5, 8)))
-            want = (attend_smem(8, 512, h),
+            want = (attend_smem(8, 512, h), attend_smem(8, 8192, h),
                     *(split_att_smem(fact, r, e, ff, h, 512, 400, fs)
                       for r in (1, 5, 8)))
             for rows in MIRROR_ROWS:

@@ -37,12 +37,12 @@ follow) and :func:`att_scan_bwd_plain` (the explicit backward of
 take the plain versions only for tensors on the CPU; for CUDA tensors they
 launch the kernels or raise, on any A and FS (the kernels read att1, the
 features and the attention weights at widths rounded up to 4,
-:func:`card_layout`) and T up to ~1,800 (the backward's d_att1 pass in
-column blocks of A where its (T, A) plane does not fit a block,
-:func:`datt1_plan`).  Launch counts, per cell and mode:
-``att_scan_fwd.launches`` (factored, teacher-forced), ``.lstm_launches``,
-``.sampled_launches``, ``.sampled_lstm_launches``, and the same on
-``att_scan_bwd``.
+:func:`card_layout`) and any T (the backward's d_att1 pass in column
+blocks of A where its (T, A) plane does not fit a block, past T = 1,816
+also in chunks of steps: :func:`datt1_plan`, :func:`datt1_steps`).
+Launch counts, per cell and mode: ``att_scan_fwd.launches`` (factored,
+teacher-forced), ``.lstm_launches``, ``.sampled_launches``,
+``.sampled_lstm_launches``, and the same on ``att_scan_bwd``.
 
 Every product the CUDA scans launch is ``csrc/gemm_tf32x3.cuh``'s: float32
 accuracy on the tensor cores from three TF32 passes over a hi/lo split of
@@ -701,7 +701,6 @@ def att_scan_bwd(cell: dict, att: dict, emb_seq, att1, features, h0, c0,
     ncat, g4 = a + fs + 4 * h, 4 * (h if lstm else f)
     w_cat, _, in_w, _, _ = _kernel_weights(cell, att, kind)
     f32 = dict(dtype=torch.float32, device=device)
-    datt1_plan(t, a)   # raises past the pass's T
     lib = _library()
     n_fw = lib.icee_att_scan_fw_part_floats(b, t, p, a)
     sc = {"demb": torch.empty((t, b, e), **f32),
@@ -915,7 +914,8 @@ def fused_att_scan_sampled(cell: dict, att: dict, head: dict, emb_seq,
                                  head["B"], *weights)
 
 
-D1_PCH = 28   # csrc/att_scan.cu: positions a block of the d_att1 pass
+D1_PCH = 28       # csrc/att_scan.cu: positions a block of the d_att1 pass
+D1_THREADS = 256  # ... and its threads
 
 
 def datt1_plan(t: int, a: int) -> Tuple[int, int]:
@@ -924,20 +924,58 @@ def datt1_plan(t: int, a: int) -> Tuple[int, int]:
     of every step, (T, A_c), and d_e of its 28 positions, (T, 28), in
     shared memory; A_c = A where that fits, else the fewest column blocks
     that do, their width a multiple of 4.  Each (position, column) sum is
-    the same chain either way.  Raises ValueError where not even 4 columns
-    fit (T above ~1,800)."""
+    the same chain either way.  Where not even 4 columns fit (T above
+    1,816), a column a thread (A_c = min(A, 256)) and the steps in chunks
+    (:func:`datt1_steps`)."""
     floats = cuda_lib.SMEM_LIMIT // 4
     if t * (a + D1_PCH) <= floats:
         return a, 1
     most = (floats - t * D1_PCH) // t & ~3
     if most < 4:
-        raise ValueError(f"att_scan_bwd (K5): T={t} steps of att2 and d_e "
-                         f"do not fit the d_att1 pass's shared memory even "
-                         f"4 columns a block (T <= "
-                         f"{floats // (4 + D1_PCH)})")
+        cols = min(a, D1_THREADS)
+        return cols, -(-a // cols)
     n = -(-a // most)
     cols = (-(-a // n) + 3) & ~3
     return cols, -(-a // cols)
+
+
+def datt1_steps(t: int, a: int) -> int:
+    """Steps of att2 a d_att1 block holds at once (``csrc/att_scan.cu``
+    ``datt1_steps``): all T where :func:`datt1_plan`'s plane fits, else
+    the most whose (steps, A_c) plane and d_e do; the pass then takes the
+    steps in chunks from the last, each (position, column) sum the same
+    chain in step order, carried from chunk to chunk (:func:`datt1_chain`
+    models it)."""
+    cols, _ = datt1_plan(t, a)
+    floats = cuda_lib.SMEM_LIMIT // 4
+    if t * (cols + D1_PCH) <= floats:
+        return t
+    return floats // (cols + D1_PCH)
+
+
+def datt1_chain(pre: torch.Tensor, de: torch.Tensor, fw: torch.Tensor,
+                steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A CPU model of one d_att1 block's sums, float32 add by add as the
+    pass runs them: pre (T, Q, C) = att1 + att2_s of Q positions and C
+    columns, de (T, Q), fw (C,).  Each (q, c) sum d = sum over s = T - 1
+    .. 0 of [pre > 0] de_s[q] fw[c], the steps taken in chunks of
+    ``steps`` from the last (``steps`` = T: one chunk), and each column's
+    full_w sum over (q, s) (one chunk) or (chunk, q, s) -> (d (Q, C),
+    wacc (C,))."""
+    t, q_n, _ = pre.shape
+    d = torch.zeros(pre.shape[1:], dtype=torch.float32)
+    wacc = torch.zeros(pre.shape[2], dtype=torch.float32)
+    if steps >= t:
+        order = [(q, s) for q in range(q_n) for s in reversed(range(t))]
+    else:
+        order = [(q, s) for s1 in range(t, 0, -steps) for q in range(q_n)
+                 for s in reversed(range(max(0, s1 - steps), s1))]
+    for q, s in order:
+        on = pre[s, q] > 0
+        e = de[s, q]
+        d[q] = torch.where(on, d[q] + e * fw, d[q])
+        wacc = torch.where(on, wacc + pre[s, q] * e, wacc)
+    return d, wacc
 
 
 def _library() -> ctypes.CDLL:
@@ -952,15 +990,19 @@ def _library() -> ctypes.CDLL:
         "icee_tf32x3_part_floats": ([i] * 4, ll),
         "icee_tf32x3_gemm": (product + [vp, vp], i),
         "icee_f32_gemm": (product + [vp], i),
-        "icee_att_scan_datt1_cols": ([i, i], i)})
+        "icee_att_scan_datt1_cols": ([i, i], i),
+        "icee_att_scan_datt1_steps": ([i, i], i)})
     if getattr(lib, "mirrors_checked", False):
         return lib
-    for t in (1, 25, 27, 28, 42, 55, 56, 62, 107, 108, 500, 1816):
+    for t in (1, 25, 27, 28, 42, 55, 56, 62, 107, 108, 500, 1816, 1817,
+              1900, 4000, 20000):
         for a in (4, 20, 512, 1024, 1028, 2048, 3840, 4096, 8192):
-            got = lib.icee_att_scan_datt1_cols(t, a)
-            if got != datt1_plan(t, a)[0]:
-                raise RuntimeError(f"csrc/att_scan.cu's d_att1 columns {got} "
-                                   f"at T={t}, A={a} are not the wrapper's "
-                                   f"{datt1_plan(t, a)}")
+            got = (lib.icee_att_scan_datt1_cols(t, a),
+                   lib.icee_att_scan_datt1_steps(t, a))
+            if got != (datt1_plan(t, a)[0], datt1_steps(t, a)):
+                raise RuntimeError(f"csrc/att_scan.cu's d_att1 columns and "
+                                   f"steps {got} at T={t}, A={a} are not "
+                                   f"the wrapper's {datt1_plan(t, a)}, "
+                                   f"{datt1_steps(t, a)}")
     lib.mirrors_checked = True
     return lib

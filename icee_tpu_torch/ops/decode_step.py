@@ -106,46 +106,110 @@ def wide_cand_floats(rows: int, k: int) -> int:
     return 1 + 2 * rows * k if k > K_WIDE else 0
 
 
-def block_select_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
+def desc_keys(v: torch.Tensor) -> torch.Tensor:
+    """``csrc/wide_topk.cuh``'s ``desc_key`` of float32 values, in an int64:
+    larger values give smaller keys, -0 the key of +0."""
+    bits = (v.float() + 0.0).contiguous().view(torch.int32).long() \
+        & 0xFFFFFFFF
+    return torch.where(bits >= 0x80000000, bits,
+                       (bits | 0x80000000) ^ 0xFFFFFFFF)
+
+
+def _radix_threshold(hists, n: int, k: int) -> int:
+    """The radix select's threshold: ``hists(prefix, mask, shift)`` -> the
+    256-bin histogram of the pairs matching the prefix on the bytes above
+    ``shift``; passes a byte at a time from the top (an index byte above
+    the largest index skipped, stopping once the chosen bin holds exactly
+    the pairs still wanted) -> tau, exactly k pairs <= tau."""
+    prefix = mask = 0
+    rem = k
+    for shift in range(56, -1, -8):
+        if 0 < shift < 32 and (n - 1) >> shift == 0:
+            mask |= 0xFF << shift
+            continue
+        hist = hists(prefix, mask, shift)
+        incl = np.cumsum(hist)
+        b = int(np.searchsorted(incl, rem))   # first bin reaching rem
+        rem -= int(incl[b] - hist[b])
+        prefix |= b << shift
+        mask |= 0xFF << shift
+        if hist[b] == rem:
+            break
+    return prefix | (~mask & 0xFFFFFFFFFFFFFFFF)
+
+
+def _hist(p: np.ndarray, prefix: int, mask: int, shift: int) -> np.ndarray:
+    sel = (p & np.uint64(mask)) == np.uint64(prefix)
+    return np.bincount(((p[sel] >> np.uint64(shift)) & np.uint64(255))
+                       .astype(np.int64), minlength=256)
+
+
+def bitonic_sort_plain(pairs: np.ndarray) -> np.ndarray:
+    """``csrc/wide_topk.cuh``'s ``emit_in_order`` sort, compare-exchange by
+    compare-exchange: the uint64 pairs padded with 2^64 - 1 to a power of
+    two, ``block_sort_pairs``' bitonic network (stage k, stride j: element
+    lo = 2 i - (i & (j - 1)) against lo + j, ascending where lo & k is 0)
+    -> the pairs ascending."""
+    n = len(pairs)
+    n2 = 1 << max(0, (n - 1).bit_length())
+    v = np.full(n2, np.uint64(0xFFFFFFFFFFFFFFFF))
+    v[:n] = pairs
+    i = np.arange(n2 // 2)
+    k = 2
+    while k <= n2:
+        j = k >> 1
+        while j > 0:
+            lo = 2 * i - (i & (j - 1))
+            hi = lo + j
+            x, y = v[lo], v[hi]
+            swap = (x > y) == ((lo & k) == 0)
+            v[lo] = np.where(swap, y, x)
+            v[hi] = np.where(swap, x, y)
+            j >>= 1
+        k <<= 1
+    return v[:n]
+
+
+def block_select_plain(keys: torch.Tensor, k: int, order: str = "rank",
+                       parts: int = 1) -> torch.Tensor:
     """``csrc/wide_topk.cuh``'s ``block_select``, step by step, on rows of
     32-bit keys (R, n) (int64, 0 <= key < 2^32) -> the indices (R, k)
     int64 of each row's k least pairs (key, index), in order: the radix
-    select's histogram passes a byte at a time from the top (an index
-    byte above the largest index skipped, stopping once the chosen bin
-    holds exactly the pairs still wanted), the survivors (every pair <=
-    the threshold: exactly k), their ranks by counting."""
+    select's histogram passes (:func:`_radix_threshold`), the survivors
+    (every pair <= the threshold: exactly k), then their order by counting
+    each one's rank (``order="rank"``, the kernels past the sort buffer) or
+    by the bitonic sort (``"sort"``, :func:`bitonic_sort_plain`).
+    ``parts`` > 1 models ``grid_beam.cuh``'s ``spread_select``: the n
+    pairs cut into ``parts`` contiguous shares, each share's histogram
+    counted alone and the histograms added in part order, the survivors
+    gathered share by share."""
     rows, n = keys.shape
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside [1, {n}]")
     pairs = ((keys.cpu().numpy().astype(np.uint64) << np.uint64(32))
              | np.arange(n, dtype=np.uint64))
+    bounds = [n * q // parts for q in range(parts + 1)]
     out = np.empty((rows, k), dtype=np.int64)
     for r in range(rows):
         p = pairs[r]
-        prefix = mask = 0
-        rem = k
-        for shift in range(56, -1, -8):
-            if 0 < shift < 32 and (n - 1) >> shift == 0:
-                mask |= 0xFF << shift
-                continue
-            sel = (p & np.uint64(mask)) == np.uint64(prefix)
-            hist = np.bincount(((p[sel] >> np.uint64(shift))
-                                & np.uint64(255)).astype(np.int64),
-                               minlength=256)
-            incl = np.cumsum(hist)
-            b = int(np.searchsorted(incl, rem))   # first bin reaching rem
-            rem -= int(incl[b] - hist[b])
-            prefix |= b << shift
-            mask |= 0xFF << shift
-            if hist[b] == rem:
-                break
-        tau = np.uint64(prefix | (~mask & 0xFFFFFFFFFFFFFFFF))
-        cand = p[p <= tau]
+        shares = [p[bounds[q]:bounds[q + 1]] for q in range(parts)]
+
+        def hists(prefix, mask, shift):
+            total = np.zeros(256, dtype=np.int64)
+            for share in shares:
+                total += _hist(share, prefix, mask, shift)
+            return total
+
+        tau = np.uint64(_radix_threshold(hists, n, k))
+        cand = np.concatenate([share[share <= tau] for share in shares])
         assert cand.size == k, (cand.size, k)
-        rank = (cand[None, :] < cand[:, None]).sum(axis=1)
-        order = np.empty(k, dtype=np.uint64)
-        order[rank] = cand
-        out[r] = (order & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        if order == "sort":
+            ordered = bitonic_sort_plain(cand)
+        else:
+            rank = (cand[None, :] < cand[:, None]).sum(axis=1)
+            ordered = np.empty(k, dtype=np.uint64)
+            ordered[rank] = cand
+        out[r] = (ordered & np.uint64(0xFFFFFFFF)).astype(np.int64)
     return torch.from_numpy(out).to(keys.device)
 
 

@@ -143,13 +143,9 @@ WHAT = "K3 (csrc/lstm_scan.cu)"
 
 def _workspace(lib, plan, b, t, e, f, h, direction: int, device):
     """The C side's workspace of one direction (0 forward, 1 backward)
-    and its plan struct."""
-    cplan = plan.c_struct()
-    sizes = (ctypes.c_longlong * 2)()
-    lib.icee_lstm_scan_workspace(ctypes.byref(cplan), b, t, e, f, h,
-                                 ctypes.byref(sizes))
-    return cplan, torch.empty((sizes[direction],), dtype=torch.float32,
-                              device=device)
+    and its plan struct (``scan_grid.workspace``: asked once a shape)."""
+    return scan_grid.workspace(lib.icee_lstm_scan_workspace, plan,
+                               (b, t, e, f, h), direction, device)
 
 
 def factored_scan_fwd(params: dict, x: torch.Tensor

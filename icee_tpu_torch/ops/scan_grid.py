@@ -9,14 +9,18 @@ weight, ``csrc/gemm_tf32x3.cuh``'s ``mma.sync`` for the weight grads), and
 the recurrence as ONE cooperative launch (``csrc/scan_grid.cuh``) whose
 blocks keep their slice of W_h in shared memory for all T steps (a plan
 of kind ``RESIDENT``), or, for a direction where no such partition fits
-(H past ~704, or a large B), stream W_h's TF32 planes from device memory
-through their ring a pass (kind ``STREAMED``, every B, and every H up to
-``STREAM_MAX``).  Here:
+(H past ~704, or a large B) or whose resident ring would hold one tile in
+flight, stream W_h's TF32 planes from device memory through their ring a
+pass (kind ``STREAMED``, every B, and every H up to ``STREAM_MAX``), in
+items of 1 or 2 M tiles of 64 rows that share each tile of the planes,
+the ring fed by TMA where the operands allow it.  Here:
 
 - :func:`scan_plan`: the recurrence's launch plan, a pure function of
   (B, H) and the card's SM count, the source's ``sg_plan`` line for line
-  (the C entry points re-derive it and refuse a plan that differs);
-  :class:`_CPlan` is the ctypes mirror of its ``ScanPlan``;
+  (the C entry points re-derive it once a plan and refuse a plan that
+  differs), derived once a shape; :class:`_CPlan` is the ctypes mirror of
+  its ``ScanPlan``, and :func:`workspace` asks a scan's workspace size
+  once a shape;
 - :func:`factored_scan_tc_plain`, :func:`factored_scan_bwd_tc_plain`,
   :func:`nic_scan_tc_plain`, :func:`nic_scan_bwd_tc_plain`,
   :func:`senticap_scan_tc_plain` and :func:`senticap_scan_bwd_tc_plain`:
@@ -50,9 +54,13 @@ SG_MAX_STAGES = 9     # the A ring: at most 8 tiles in flight
 SG_SMEM_LIMIT = 232448
 SG_TILE_BYTES = 4 * SG_ROWS * SG_LDA   # one ring stage
 SG_ITEM_TILES = 2     # a streamed item's fixed cost, in k tiles
+SG_MAX_MT = 2         # 64-row M tiles of a streamed item
+SG_FLIGHT_BYTES = 49152   # bytes a block keeps in flight (the plan key)
 H100_SMS = 132
 FWD_UNITS = (4, 8, 16)
 BWD_UNITS = (16, 32, 64)
+STREAM_FWD_UNITS = (8, 16)    # a streamed item's units: 32 or 64 columns
+STREAM_BWD_UNITS = (32, 64)
 RESIDENT, STREAMED = 0, 1   # a plan's kind, a direction
 STREAM_MAX = 2048           # H a streamed plan takes (any B)
 
@@ -91,32 +99,42 @@ def stages(nk: int, rest: int) -> int:
     return s if s >= 2 else 0
 
 
-def stream_stage_bytes(nc: int) -> int:
+def stream_stage_bytes(nc: int, mt: int = 1) -> int:
     """One stage of a streamed ring: B's hi and lo tiles (nc rows of 128
-    bytes each), then the A tile."""
-    return 2 * nc * SG_BK * 4 + SG_TILE_BYTES
+    bytes each), then the item's mt A tiles."""
+    return 2 * nc * SG_BK * 4 + mt * SG_TILE_BYTES
 
 
-def stream_rest(nc: int) -> int:
+def stream_rest(nc: int, mt: int = 1) -> int:
     """Bytes of a streamed block besides its ring: 1024 to align the
-    ring, the out tile of a pass (64 x nc + 1)."""
-    return 1024 + 4 * SG_ROWS * (nc + 1)
+    ring, the out tile of an item (64 mt x nc + 1)."""
+    return 1024 + 4 * SG_ROWS * mt * (nc + 1)
 
 
-def stream_stages(nk: int, nc: int) -> int:
+def stream_stages(nk: int, nc: int, mt: int = 1) -> int:
     """Stages of a streamed ring for nk k tiles a pass (``stages``'
     rule)."""
-    s = min(nk + 1, SG_MAX_STAGES,
-            (SG_SMEM_LIMIT - stream_rest(nc)) // stream_stage_bytes(nc))
+    s = min(nk + 1, SG_MAX_STAGES, (SG_SMEM_LIMIT - stream_rest(nc, mt))
+            // stream_stage_bytes(nc, mt))
     return s if s >= 2 else 0
 
 
-def stream_item_bytes(nk: int, nc: int) -> int:
-    """What one item of a streamed pass costs, in bytes copied: its nk
-    tiles of A (64 x 32) and of B's planes (nc columns x 32, hi and lo),
-    and ``SG_ITEM_TILES`` tiles more for the ring's fill and the pass's
-    epilogue."""
-    return (nk + SG_ITEM_TILES) * (4 * SG_ROWS * SG_BK + 8 * nc * SG_BK)
+def tile_cost(mt: int, nc_streamed: int, st: int) -> int:
+    """What a ring's k tile costs a block, in bytes (``sg_tile_cost``):
+    the bytes it copies (mt A tiles of 64 x 32, and B's planes, nc columns
+    x 32, hi and lo: 0 for a resident slice), and no less than
+    ``SG_FLIGHT_BYTES`` over the tiles in flight (st - 1): a ring too
+    shallow to cover L2's latency waits for it whatever it copies."""
+    return max(mt * 4 * SG_ROWS * SG_BK + 8 * nc_streamed * SG_BK,
+               SG_FLIGHT_BYTES // (st - 1))
+
+
+def stream_item_bytes(nk: int, nc: int, mt: int = 1,
+                      st: int = SG_MAX_STAGES) -> int:
+    """What one item of a streamed pass costs: its nk k tiles and
+    ``SG_ITEM_TILES`` tiles more for the ring's fill and the item's
+    epilogue, each at :func:`tile_cost`."""
+    return (nk + SG_ITEM_TILES) * tile_cost(mt, nc, st)
 
 
 class _CPlan(ctypes.Structure):
@@ -129,18 +147,21 @@ class _CPlan(ctypes.Structure):
                 ("b_blocks", ctypes.c_int), ("b_stages", ctypes.c_int),
                 ("b_per", ctypes.c_int), ("f_kind", ctypes.c_int),
                 ("b_kind", ctypes.c_int), ("f_smem", ctypes.c_longlong),
-                ("b_smem", ctypes.c_longlong)]
+                ("b_smem", ctypes.c_longlong), ("b_rows", ctypes.c_int)]
 
 
 @dataclass(frozen=True)
 class ScanPlan:
     """The recurrence's partition for (B, H) on a card of ``sms`` SMs.  A
-    streamed direction cuts its work into items of 64 rows (``f_rows``;
-    the backward's also by k range), dealt to its blocks round robin."""
+    streamed direction cuts its work into items of 64 or 128 rows
+    (``f_rows``, ``b_rows``: 1 or 2 M tiles sharing each tile of W_h's
+    planes; the backward's also by k range), dealt to its blocks round
+    robin."""
     B: int
     H: int
     sms: int
-    f_rows: int     # forward: batch rows a block (a multiple of 64)
+    f_rows: int     # forward: batch rows a block (a multiple of 64;
+    #                 streamed: an item's)
     f_units: int    # forward: hidden units a block (4 f_units columns)
     f_blocks: int   # forward: ceil(B / f_rows) x ceil(H / f_units)
     #                 (streamed: at most sms, the items dealt round robin)
@@ -156,6 +177,7 @@ class ScanPlan:
     b_kind: int     # backward: RESIDENT or STREAMED
     f_smem: int     # bytes of shared memory a forward block
     b_smem: int     # ... a backward block
+    b_rows: int     # backward: rows of a pass (streamed: an item's)
 
     def c_struct(self) -> _CPlan:
         return _CPlan(*(getattr(self, f) for f, _ in _CPlan._fields_))
@@ -178,8 +200,8 @@ class ScanPlan:
         ``q``'s product owns each step: items q, q + b_blocks, ..., item i
         the k range i % b_splits, then the units, then the rows (a resident
         plan has one item a block over all B rows; a streamed one's rows
-        are a 64-row pass)."""
-        r = self.B if self.b_kind == RESIDENT else SG_ROWS
+        are an item's ``b_rows``)."""
+        r = self.B if self.b_kind == RESIDENT else self.b_rows
         groups = math.ceil(self.H / self.b_units)
         items = math.ceil(self.B / r) * groups * self.b_splits
         u, kc = self.b_units, self.b_kc
@@ -199,15 +221,34 @@ class ScanPlan:
                      min((q + 1) * self.b_per, self.B * self.H))
 
 
+_PLANS: dict = {}
+
+
 def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
     """``sg_plan``: among the resident partitions whose blocks fit one an
     SM and whose shared memory fits a block, the least work a block a step,
-    then the fewest words through L2 a step, then more units.  A direction
-    with none, at H <= ``STREAM_MAX`` and any B (B H < 2^31), takes its
-    streamed plan: the
-    fewest bytes a block copies a step, then the fewest through L2, then
-    more units (the backward's k ranges any multiple of 32).  Raises,
-    naming ``what`` (the kernel: K3, K4 or K8), where neither fits."""
+    then the fewest words through L2 a step, then more units.  At H <=
+    ``STREAM_MAX`` (and B H < 2^31) each direction also has a streamed
+    plan, items of 1 or 2 M tiles of 64 rows sharing each tile of W_h's
+    planes: the least cost on the busiest block a step (the A rows re-read
+    once a unit group, the plane tiles once a row group, each k tile no
+    cheaper than the L2 latency its ring covers: :func:`tile_cost`), then
+    the least over all items, then more units (the backward's k ranges any
+    multiple of 32).  A direction streams where no resident partition
+    fits, or where the resident ring has 2 stages for passes of more than
+    one k tile (one tile in flight) and the streamed plan's busiest block
+    costs less than the resident one's (B = 4096's forward: 2,048 rows a
+    block).  Raises, naming ``what`` (the kernel: K3, K4 or K8),
+    where neither fits.  A plan is derived once a (B, H, sms): a second
+    call returns the same plan without a search."""
+    plan = _PLANS.get((b, h, sms))
+    if plan is None:
+        plan = _search(what, b, h, sms)
+        _PLANS[(b, h, sms)] = plan
+    return plan
+
+
+def _search(what: str, b: int, h: int, sms: int) -> ScanPlan:
     if b < 1 or h < 1:
         raise ValueError(f"{what}: B = {b}, H = {h}")
     fwd, best = None, None
@@ -242,50 +283,68 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
                 if best is None or key < best:
                     best = key
                     bwd = (u, kc, splits, blocks, st, per, RESIDENT,
-                           rest + st * SG_TILE_BYTES)
+                           rest + st * SG_TILE_BYTES, SG_ROWS)
             if kc >= h4:
                 break
             kc *= 2
     if h <= STREAM_MAX and b * h < 2 ** 31:
-        passes = math.ceil(b / SG_ROWS)
-        if fwd is None:
-            best = None
-            for u in FWD_UNITS:
-                nc = 4 * u
-                items = passes * math.ceil(h / u)
+        # the resident plans' busiest block a step: its passes' A tiles
+        f_res = None if fwd is None else (
+            math.ceil(min(fwd[0], b) / SG_ROWS) * nkf
+            * tile_cost(1, 0, fwd[3]))
+        b_res = None if bwd is None else (
+            math.ceil(b / SG_ROWS) * (_round_up(min(bwd[1], h4p), SG_BK)
+                                      // SG_BK) * tile_cost(1, 0, bwd[4]))
+        sfwd, best = None, None
+        for u in STREAM_FWD_UNITS:
+            nc = 4 * u
+            # two M tiles an item where TMA feeds the ring (H % 4 == 0)
+            for mt in range(1, (1 if h % 4 else SG_MAX_MT) + 1):
+                items = math.ceil(b / (SG_ROWS * mt)) * math.ceil(h / u)
                 blocks = min(items, sms)
-                st = stream_stages(nkf, nc)
-                if st == 0:
-                    continue
-                item = stream_item_bytes(nkf, nc)
-                key = (math.ceil(items / blocks) * item, items * item, -u)
-                if best is None or key < best:
-                    best = key
-                    fwd = (SG_ROWS, u, blocks, st, STREAMED,
-                           stream_rest(nc) + st * stream_stage_bytes(nc))
-        if bwd is None:
-            best = None
-            nkt = h4p // SG_BK
-            for u in BWD_UNITS:
+                st = stream_stages(nkf, nc, mt)
+                if st:
+                    item = stream_item_bytes(nkf, nc, mt, st)
+                    key = (math.ceil(items / blocks) * item, items * item,
+                           -u)
+                    if best is None or key < best:
+                        best = key
+                        sfwd = (SG_ROWS * mt, u, blocks, st, STREAMED,
+                                stream_rest(nc, mt)
+                                + st * stream_stage_bytes(nc, mt))
+        if sfwd is not None and (fwd is None or (
+                fwd[3] == 2 < nkf + 1 and best[0] < f_res)):
+            fwd = sfwd
+        sbwd, best = None, None
+        nkt = h4p // SG_BK
+        for u in STREAM_BWD_UNITS:
+            for mt in range(1, SG_MAX_MT + 1):
                 for splits in range(1, nkt + 1):
                     nk = math.ceil(nkt / splits)
                     kc = SG_BK * nk
                     if math.ceil(h4 / kc) != splits:
                         continue        # s ranges of this depth
-                    items = passes * math.ceil(h / u) * splits
+                    items = (math.ceil(b / (SG_ROWS * mt)) * math.ceil(h / u)
+                             * splits)
                     blocks = min(items, sms)
-                    st = stream_stages(nk, u)
+                    st = stream_stages(nk, u, mt)
                     if st == 0:
                         continue
-                    item = stream_item_bytes(nk, u)
+                    item = stream_item_bytes(nk, u, mt, st)
                     key = (math.ceil(items / blocks) * item,
                            items * item + 8 * splits * b * h, -u)
                     if best is None or key < best:
                         best = key
-                        bwd = (u, kc, splits, blocks, st,
-                               _round_up(math.ceil(b * h / blocks), 4),
-                               STREAMED,
-                               stream_rest(u) + st * stream_stage_bytes(u))
+                        sbwd = (u, kc, splits, blocks, st,
+                                _round_up(math.ceil(b * h / blocks), 4),
+                                STREAMED,
+                                stream_rest(u, mt)
+                                + st * stream_stage_bytes(u, mt),
+                                SG_ROWS * mt)
+        if sbwd is not None and (bwd is None or (
+                bwd[4] == 2 < min(bwd[1], h4p) // SG_BK + 1
+                and best[0] < b_res)):
+            bwd = sbwd
     if fwd is None or bwd is None:
         raise ValueError(
             f"{what}: no launch plan of the recurrence fits B = {b}, H = {h} "
@@ -296,12 +355,34 @@ def scan_plan(what: str, b: int, h: int, sms: int = H100_SMS) -> ScanPlan:
                     f_blocks=fwd[2], f_stages=fwd[3], b_units=bwd[0],
                     b_kc=bwd[1], b_splits=bwd[2], b_blocks=bwd[3],
                     b_stages=bwd[4], b_per=bwd[5], f_kind=fwd[4],
-                    b_kind=bwd[6], f_smem=fwd[5], b_smem=bwd[7])
+                    b_kind=bwd[6], f_smem=fwd[5], b_smem=bwd[7],
+                    b_rows=bwd[8])
 
 
 def plan_on(what: str, b: int, h: int, device: torch.device) -> ScanPlan:
     """:func:`scan_plan` for the card ``device`` (its SM count)."""
     return scan_plan(what, b, h, sm_count(device))
+
+
+_SPACES: dict = {}
+
+
+def workspace(query, plan: ScanPlan, dims: Tuple[int, ...], direction: int,
+              device: torch.device):
+    """A scan's C workspace for one direction (0 forward, 1 backward) ->
+    (the plan's ctypes struct, a float32 tensor of its size).  ``query``
+    is the library's ``icee_*_scan_workspace`` (plan, *dims, out[2]); its
+    answer and the struct are kept a (query, plan, dims), so that a second
+    call asks the library nothing."""
+    key = (query.__name__, plan, dims)
+    hit = _SPACES.get(key)
+    if hit is None:
+        cplan = plan.c_struct()
+        sizes = (ctypes.c_longlong * 2)()
+        query(ctypes.byref(cplan), *dims, ctypes.byref(sizes))
+        hit = _SPACES[key] = (cplan, (sizes[0], sizes[1]))
+    return hit[0], torch.empty((hit[1][direction],), dtype=torch.float32,
+                               device=device)
 
 
 # --- the kernels' arithmetic --------------------------------------------------

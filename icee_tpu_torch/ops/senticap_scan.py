@@ -119,13 +119,9 @@ def senticap_scan_bwd_plain(w_lstm: torch.Tensor, x: torch.Tensor,
 
 def _workspace(lib, plan, b, t, e, h, direction: int, device):
     """The C side's workspace of one direction (0 forward, 1 backward)
-    and its plan struct."""
-    cplan = plan.c_struct()
-    sizes = (ctypes.c_longlong * 2)()
-    lib.icee_senticap_scan_workspace(ctypes.byref(cplan), b, t, e, h,
-                                     ctypes.byref(sizes))
-    return cplan, torch.empty((sizes[direction],), dtype=torch.float32,
-                              device=device)
+    and its plan struct (``scan_grid.workspace``: asked once a shape)."""
+    return scan_grid.workspace(lib.icee_senticap_scan_workspace, plan,
+                               (b, t, e, h), direction, device)
 
 
 def senticap_scan_fwd(w_lstm: torch.Tensor, x: torch.Tensor, gclip=5.0

@@ -1,6 +1,6 @@
 """The multi-rank dry run (counterpart of ``__graft_entry__.py``'s
 ``dryrun_multichip``): ``python -m icee_tpu_torch.parallel.dryrun N
-[--device cuda|cpu]``.
+[--device cuda|cpu]``, on the card unless ``--device cpu`` is given.
 
 It spawns ``n`` ranks (:mod:`icee_tpu_torch.parallel.launch`) and on a
 ``dp_tp_shape(n, 2)`` mesh runs, at tiny widths with random weights:
@@ -13,9 +13,10 @@ It spawns ``n`` ranks (:mod:`icee_tpu_torch.parallel.launch`) and on a
 - a sharded K2 search and a sharded K7 search over the data axis.
 
 Every rank's parameters must equal rank 0's after each trainer, and the
-losses must be finite; rank 0 prints one summary line.  On the CPU the
-kernels run their plain versions; with ``--device cuda`` the ranks share
-the cards (gloo where they share one, NCCL where each has its own).
+losses must be finite; rank 0 prints one summary line.  With ``--device
+cuda`` (the default) the ranks share the cards (gloo where they share
+one, NCCL where each has its own); with ``--device cpu`` the kernels run
+their plain versions.
 """
 
 from __future__ import annotations
@@ -183,7 +184,7 @@ def _rank(mesh, payload) -> str:
             f"sharded K7 {k7}; parameters equal on every rank")
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu",
+def dryrun_multichip(n_devices: int, device: str = "cuda",
                      backend=None) -> str:
     """Run the dry run on ``n_devices`` spawned ranks -> rank 0's summary
     line (each rank raises on a fault)."""
@@ -202,7 +203,7 @@ def dryrun_multichip(n_devices: int, device: str = "cpu",
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("n", type=int)
-    p.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"])
     args = p.parse_args()
     print(dryrun_multichip(args.n, args.device, args.dist_backend))

@@ -933,6 +933,54 @@ def test_att_decode_step_kernel_matches_plain(device, kind, n_img, k, p):
 
 
 @pytest.mark.parametrize("kind", ["factored", "lstm"])
+@pytest.mark.parametrize("n_img,k,a", [(3, 5, 8192), (1, 8, 8192),
+                                       (2, 12, 12000)])
+def test_att_decode_step_kernel_past_a_7264(device, kind, n_img, k, a):
+    """K6 where a group's 8 att2 rows outgrow a block's shared memory (A
+    past 7,264): the scores launch stages att2 in column pieces of 7,168,
+    each row's chain carried on; as the plain version, the ids exactly,
+    and the same bits as K7's search at the first step (below: the whole
+    search against the fused-step beam at atol 0)."""
+    assert att_decode_step.scores_cols(8, a) == 7168 < a
+    params = _att_params(device, kind, a=a, vocab=64)
+    cell, att, gate = att_decode_step.step_params(params, kind, 2)
+    g = torch.Generator(device=device).manual_seed(a + k)
+    rows = n_img * k
+    x, hh, c = (torch.randn((rows, d), generator=g, device=device)
+                for d in (30, 48, 48))
+    feats = torch.rand((n_img, 9, 64), generator=g, device=device)
+    att1 = att_mod.att_projection(att, feats)
+    got = att_decode_step.att_decode_step_topk(cell, att, gate, x, hh, c,
+                                               feats, att1, kind, k, ktop=k)
+    want = att_decode_step.att_decode_step_topk_plain(
+        cell, att, gate, x, hh, c, feats, att1, kind, k, ktop=k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
+def test_mega_att_kernel_past_a_7264_is_the_fused_step(device, kind):
+    """K7 = K6 at atol 0 where K6's scores launch stages att2 in pieces
+    (A = 8,192, 2 images x 5 beams, the many-row path)."""
+    params = _att_params(device, kind, **{"vocab": 64, **ATT_BEAM_WEIGHTS[
+        kind], "a": 8192})
+    feats = torch.tensor(np.random.default_rng(8).random(
+        (2, 9, 64), dtype=np.float32), device=device)
+    got = att_beam.mega_att_beam_decode(params, feats, 1, 2, k=5,
+                                        max_seq_length=6, kind=kind)
+    args = (2, 5, 6, 1, 2)
+    fused = (attention_decode("fused-step", params, feats, 1, *args)
+             if kind == "factored"
+             else nic_att_decode("fused-step", params, feats, *args))
+    torch.testing.assert_close(fused.tokens, got.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(fused.length, got.length, rtol=0, atol=0)
+    torch.testing.assert_close(fused.score, got.score, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["factored", "lstm"])
 @pytest.mark.parametrize("n_img,k,hw", [(2, 5, 1024), (1, 8, 2048),
                                         (1, 20, 2048)])
 def test_att_decode_step_kernel_past_8_rows_a_cell_block(device, kind, n_img,
@@ -1364,10 +1412,11 @@ def test_att_wrappers_raise_on_what_the_kernels_do_not_take(device):
 # --- K5: the attention training scan (att_scan.cu) --------------------------
 
 def _att_scan_inputs(device, kind, b, t, p, sampled, vocab=37, seed=21,
-                     a=20, fs=64):
+                     a=20, fs=64, gain=1.5):
     """K5's inputs from a random attention decoder (E = 30, F = 40, H = 48,
     A = 20, FS = 64 unless given) through the model's own repacking."""
-    params = _att_params(device, kind, vocab=vocab, seed=seed, a=a, fs=fs)
+    params = _att_params(device, kind, vocab=vocab, seed=seed, a=a, fs=fs,
+                         gain=gain)
     rng = np.random.default_rng(seed + b)
     feats = torch.tensor(rng.random((b, p, fs), dtype=np.float32),
                          device=device)
@@ -1419,6 +1468,21 @@ def test_att_scan_kernels_past_the_d_att1_plane(device, kind, t, a,
 
 
 @pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind,t,a", [("factored", 1900, 20),
+                                      ("lstm", 1817, 260)])
+def test_att_scan_kernels_past_1816_steps(device, kind, t, a, sampled):
+    """K5 where not even 4 columns of the d_att1 pass's (T, A) plane fit a
+    block (T past 1,816): the pass takes the steps in chunks
+    (``datt1_steps``), each (position, column) sum carried from chunk to
+    chunk; as the plain versions, each grad within 1e-3 x its largest.
+    Weights of gain 0.5, so that the recurrence stays contractive through
+    the 1,900 steps (at gain 1.5 the factored cell's c, unbounded, grows
+    into the thousands and float32 orders part ways)."""
+    assert att_scan.datt1_steps(t, a) < t
+    _att_scan_case(device, kind, 2, t, 9, sampled, width_a=a, gain=0.5)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
 @pytest.mark.parametrize("kind,a,fs", [("factored", 19, 62),
                                        ("lstm", 21, 63),
                                        ("factored", 18, 61),
@@ -1431,9 +1495,11 @@ def test_att_scan_kernels_take_widths_that_are_not_multiples_of_4(
     _att_scan_case(device, kind, 5, 4, 9, sampled, width_a=a, fs=fs)
 
 
-def _att_scan_case(device, kind, b, t, p, sampled, width_a=20, fs=64):
+def _att_scan_case(device, kind, b, t, p, sampled, width_a=20, fs=64,
+                   gain=1.5):
     args, samp, (dh, da) = _att_scan_inputs(device, kind, b, t, p,
-                                            bool(sampled), a=width_a, fs=fs)
+                                            bool(sampled), a=width_a, fs=fs,
+                                            gain=gain)
     if sampled == "tied":
         samp["head"] = dict(samp["head"], C_w=torch.zeros_like(
             samp["head"]["C_w"]), C_b=torch.zeros_like(samp["head"]["C_b"]))
@@ -1741,6 +1807,11 @@ def test_scan_wrappers_refuse_a_shape_without_a_plan(device):
     ("K4", 2000, 2, 8, 300),   # B past the resident gate pass: 32 row
                                # passes, the last of 16 rows; T = 2
     ("K8", 9, 6, 16, 900),     # the clamp after the k ranges' sum
+    ("K8", 700, 3, 16, 800),   # items of 128 rows both ways, the last
+                               # of 60 rows
+    ("K4", 4096, 2, 8, 512),   # the forward streamed where the resident
+                               # ring held one tile in flight
+    ("K3", 2048, 2, 8, 8),     # backward items of 128 rows, H of 8
 ])
 def test_scans_past_the_resident_plan_match_plain(device, kernel, b, t, e,
                                                   h):

@@ -122,10 +122,14 @@ def test_blocks_fit_the_card_one_an_sm(b, h, sms):
                                + 32 * plan.b_per + plan.b_stages * tile)
         assert plan.b_blocks == math.ceil(h / plan.b_units) * plan.b_splits
     else:
+        # an item: mt M tiles of 64 rows sharing each tile of the planes
         assert plan.b_kind == scan_grid.STREAMED
-        assert plan.b_smem == (1024 + 4 * 64 * (plan.b_units + 1)
-                               + plan.b_stages * (256 * plan.b_units + tile))
-        items = (math.ceil(b / 64) * math.ceil(h / plan.b_units)
+        mt = plan.b_rows // 64
+        assert plan.b_rows == 64 * mt and mt in (1, 2)
+        assert plan.b_smem == (1024 + 4 * 64 * mt * (plan.b_units + 1)
+                               + plan.b_stages * (256 * plan.b_units
+                                                  + mt * tile))
+        items = (math.ceil(b / plan.b_rows) * math.ceil(h / plan.b_units)
                  * plan.b_splits)
         assert plan.b_blocks == min(items, sms)
         assert plan.b_kc % 32 == 0
@@ -135,11 +139,12 @@ def test_blocks_fit_the_card_one_an_sm(b, h, sms):
                                + plan.f_stages * tile)
     else:
         assert plan.f_kind == scan_grid.STREAMED
-        assert plan.f_smem == (1024 + 4 * 64 * (nc + 1)
-                               + plan.f_stages * (256 * nc + tile))
-        assert plan.f_rows == 64
-        assert plan.f_blocks == min(math.ceil(b / 64) * math.ceil(h / u),
-                                    sms)
+        mt = plan.f_rows // 64
+        assert plan.f_rows == 64 * mt and mt in (1, 2)
+        assert plan.f_smem == (1024 + 4 * 64 * mt * (nc + 1)
+                               + plan.f_stages * (256 * nc + mt * tile))
+        assert plan.f_blocks == min(
+            math.ceil(b / plan.f_rows) * math.ceil(h / u), sms)
     # every tile of a pass in flight where shared memory allows
     assert 2 <= plan.f_stages <= min(-(-h // 32) + 1, 9)
     assert 2 <= plan.b_stages <= min(kd // 32 + 1, 9)
@@ -314,11 +319,17 @@ def test_a_shape_that_fits_no_partition_raises_naming_the_kernel():
 
 
 # sha256 of every plan over REACH_B x REACH_H (B up to 2048), field by
-# field, as the parent commit of the lifted batch cap gave them: lifting the
-# cap changed no plan it already made.
+# field.  Lifting the batch cap changed no plan; the streamed items of 128
+# rows (b_rows, the backward's; the forward's where H % 4 == 0), and the
+# streamed forward in place of a resident one whose 2-stage ring holds one
+# of a pass's k tiles in flight, changed 106 of the 224 on 132 SMs (41
+# forwards: 30 streamed ones now 128-row items, 11 resident ones now
+# streamed; 102 backwards: 98 streamed ones now 128-row items, 2 resident
+# ones now streamed, 2 other k ranges) and 111 on 114; the rest keep every
+# field.
 PLANS_UP_TO_2048 = {
-    132: "2333ea657eae508ebff95f9ca82b6d2676b9655d9f9f6a60364154bf7925fca1",
-    114: "e68695466849a3be333e59cbd8d9ee091975bffe93b3946b2ee21a1a20130fa7"}
+    132: "c20df62c3041393e3655c82cb5a4cb21fdd6711afec61f3921cf5a30e2b770a7",
+    114: "8106fa2e1ee6fbae096ff2383d556c84109519b6e26dd2763d7ca286aeec82a7"}
 
 
 @pytest.mark.parametrize("sms", sorted(PLANS_UP_TO_2048))
@@ -363,12 +374,13 @@ def test_a_batch_past_2048_keeps_the_plan_of_its_kind(sms):
         p = scan_grid.scan_plan("K3", b, h, sms)
         assert p.b_kind == scan_grid.STREAMED
         assert p.f_blocks <= sms and p.b_blocks <= sms
-        assert p.b_smem == (scan_grid.stream_rest(p.b_units) + p.b_stages
-                            * scan_grid.stream_stage_bytes(p.b_units))
+        mt = p.b_rows // 64
+        assert p.b_smem == (scan_grid.stream_rest(p.b_units, mt) + p.b_stages
+                            * scan_grid.stream_stage_bytes(p.b_units, mt))
         if p.f_kind == scan_grid.STREAMED:
-            nc = 4 * p.f_units
-            assert p.f_smem == (scan_grid.stream_rest(nc) + p.f_stages
-                                * scan_grid.stream_stage_bytes(nc))
+            nc, mt = 4 * p.f_units, p.f_rows // 64
+            assert p.f_smem == (scan_grid.stream_rest(nc, mt) + p.f_stages
+                                * scan_grid.stream_stage_bytes(nc, mt))
 
 
 def test_the_plan_is_a_pure_function_of_the_shape():
@@ -421,6 +433,13 @@ def test_the_wrappers_geometry_is_the_kernels():
     assert "for (int u = 16; u <= 64; u *= 2)" in HEADER    # BWD_UNITS
     assert scan_grid.FWD_UNITS == (4, 8, 16)
     assert scan_grid.BWD_UNITS == (16, 32, 64)
+    # the streamed items: their units, M tiles, and the plan key's flight
+    assert "for (int u = 8; u <= 16; u *= 2) {   // streamed" in HEADER
+    assert "for (int u = 32; u <= 64; u *= 2) {   // streamed" in HEADER
+    assert scan_grid.STREAM_FWD_UNITS == (8, 16)
+    assert scan_grid.STREAM_BWD_UNITS == (32, 64)
+    assert int(consts["SG_MAX_MT"]) == scan_grid.SG_MAX_MT == 2
+    assert int(consts["SG_FLIGHT_BYTES"]) == scan_grid.SG_FLIGHT_BYTES
     assert "__launch_bounds__(SG_THREADS, 1)" in HEADER
 
 
@@ -660,3 +679,102 @@ def test_scan_product_takes_the_plain_version_on_the_cpu():
     assert (got.double() - ref).abs().max().item() <= 1e-5
     with pytest.raises(ValueError, match="no bias"):
         scan_grid.scan_product(a.transpose(1, 2), b, "A", bias)
+
+
+# --- items of several M tiles (wider streamed items) and the plan cache ------
+
+WIDE_ITEM_SHAPES = [(4096, 512), (64, 1024), (64, 2048)]
+
+
+@pytest.mark.parametrize("b,h", WIDE_ITEM_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_the_wide_item_plans_own_every_element_once_and_fit(b, h, sms):
+    """At B = 4096 (H = 512) both directions stream in items of 128 rows
+    (two 64-row M tiles sharing each tile of W_h's planes), the forward
+    in place of the resident plan whose 2-stage ring held one tile in
+    flight; at B = 64 (H = 1024, 2048) an item is one M tile.  Every (row,
+    unit) and (pass, unit, k tile) is owned once, every gate element by
+    one block, and each block fits the card and its shared memory."""
+    plan = scan_grid.scan_plan("K4", b, h, sms)
+    assert plan.f_kind == plan.b_kind == scan_grid.STREAMED
+    rows = 128 if b == 4096 else 64
+    assert plan.f_rows == plan.b_rows == rows
+    assert plan.f_stages >= 5 and plan.b_stages >= 5
+    test_blocks_fit_the_card_one_an_sm(b, h, sms)
+    if sms == 132:
+        test_every_unit_row_and_k_is_owned_once(b, h)
+
+
+def test_b_4096_streams_where_its_resident_ring_held_one_tile():
+    """The resident forward at B = 4096 (2,048 rows a block, 2 ring
+    stages: each of a step's 512 k tiles waits on L2 alone) costs its
+    busiest block more than the streamed plan's (items of 128 rows behind
+    5 stages), counted by ``tile_cost``: the streamed plan is taken.  The
+    main path's shapes keep their resident plans."""
+    b, h, nk = 4096, 512, 16
+    res = 2048 // 64 * nk * scan_grid.tile_cost(1, 0, 2)
+    plan = scan_grid.scan_plan("K4", b, h)
+    items = math.ceil(b / plan.f_rows) * math.ceil(h / plan.f_units)
+    busiest = math.ceil(items / plan.f_blocks) * scan_grid.stream_item_bytes(
+        nk, 4 * plan.f_units, plan.f_rows // 64, plan.f_stages)
+    assert busiest < res
+    for what, bb in (("K3", 64), ("K4", 64), ("K8", 128)):
+        p = scan_grid.scan_plan(what, bb, 512)
+        assert p.f_kind == p.b_kind == scan_grid.RESIDENT
+
+
+def test_a_second_plan_call_costs_no_search(monkeypatch):
+    """A plan is derived once a (B, H, SM count): a second call returns the
+    same object without searching again (``scan_grid._search`` is not
+    called), whatever the kernel's name."""
+    first = scan_grid.scan_plan("K4", 777, 1500, 97)
+    calls = []
+    monkeypatch.setattr(scan_grid, "_search",
+                        lambda *a: calls.append(a) or first)
+    assert scan_grid.scan_plan("K3", 777, 1500, 97) is first
+    assert not calls
+    scan_grid.scan_plan("K4", 778, 1500, 97)
+    assert calls == [("K4", 778, 1500, 97)]
+    del scan_grid._PLANS[(778, 1500, 97)]   # the fake search's answer
+
+
+def test_a_workspace_is_asked_once_a_shape():
+    """``scan_grid.workspace`` asks the library's size query once a (query,
+    plan, dims) and keeps its answer and the plan's ctypes struct."""
+    asked = []
+
+    def icee_fake_scan_workspace(cplan, *args):
+        *dims, out = args
+        asked.append(tuple(dims))
+        sizes = ctypes.cast(out, ctypes.POINTER(ctypes.c_longlong))
+        sizes[0], sizes[1] = 5, 7
+
+    plan = scan_grid.scan_plan("K4", 64, 512)
+    cpu = torch.device("cpu")
+    c1, w1 = scan_grid.workspace(icee_fake_scan_workspace, plan,
+                                 (64, 25, 300, 512), 0, cpu)
+    c2, w2 = scan_grid.workspace(icee_fake_scan_workspace, plan,
+                                 (64, 25, 300, 512), 1, cpu)
+    assert asked == [(64, 25, 300, 512)]
+    assert c1 is c2 and w1.shape == (5,) and w2.shape == (7,)
+    assert c1.b_rows == plan.b_rows and c1.f_rows == plan.f_rows
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_arithmetic_through_25_steps_on_wide_items(kernel, monkeypatch):
+    """The kernels' arithmetic (``scan_grid.*_tc_plain``) where the plan
+    streams both directions in items of 128 rows: B = 96, H = 96 on a
+    4-SM card, the backward's two k ranges of 192 added in order; held
+    against the plain scans, float64 and the JAX Pallas kernels as the
+    tests above hold it."""
+    plan_of = scan_grid.scan_plan
+    plan = plan_of(kernel, 96, 96, 4)
+    assert plan.f_kind == plan.b_kind == scan_grid.STREAMED
+    assert plan.f_rows == plan.b_rows == 128
+    assert (plan.b_kc, plan.b_splits) == (192, 2)
+    monkeypatch.setattr(scan_grid, "scan_plan",
+                        lambda what, b, h, sms=4: plan_of(what, b, h, sms))
+    if kernel == "K3":
+        test_k3_arithmetic_through_25_steps(96, 12, 16, 96)
+    else:
+        test_k4_arithmetic_through_25_steps(96, 13, 96)

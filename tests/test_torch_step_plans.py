@@ -16,7 +16,9 @@ they load on the card.
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from icee_tpu_torch.ops import att_decode_step, att_scan, cuda_lib
 from icee_tpu_torch.ops import decode_step, widths
@@ -215,19 +217,25 @@ def test_the_many_row_path_takes_any_width(hw):
 
 
 @pytest.mark.parametrize("a,p,match", [
-    (8192, 196, r"K6: the attention launches' 8 rows at A=8192, P=196"),
+    (8192, 7300, r"K6: the attention launches' 8 rows at A=8192, P=7300"),
     (512, 7300, r"K6: the attention launches' 8 rows at A=512, P=7300"),
 ])
 def test_past_the_new_bounds_the_check_names_the_launch(a, p, match):
-    """K6's scores launch holds a group's 8 att2 rows (8 A floats), its
-    context launch their 8 score rows (8 P): A and P up to 7,264; past
-    that the check names the launch.  One row a group (k = 1) holds 8
-    times more."""
+    """K6's context launch holds a group's 8 score rows (8 P): P up to
+    7,264; past that the check names the launch.  Its scores launch holds
+    their 8 att2 rows (8 A floats) whole up to A = 7,264 and stages them
+    in column pieces of 7,168 past it, so any A passes.  One row a group
+    (k = 1) holds 8 times more."""
     with pytest.raises(ValueError, match=match):
         att_decode_step.check_attend("K6", 8, a, p)
     att_decode_step.check_attend("K6", 1, a, p)
     att_decode_step.check_attend("K6", 8, 7264, 7264)
+    for wide in (7268, 8192, 12000, 100000):
+        att_decode_step.check_attend("K6", 8, wide, 196)
+        assert att_decode_step.scores_cols(8, wide) == 7168
     assert att_decode_step.attend_smem(8, 7264, 196) == cuda_lib.SMEM_LIMIT
+    assert att_decode_step.attend_smem(8, 8192, 196) == 4 * 8 * 7168
+    assert att_decode_step.scores_cols(8, 7264) == 7264
 
 
 def test_the_split_path_keeps_every_earlier_shape():
@@ -296,5 +304,54 @@ def test_the_d_att1_pass_splits_a_into_column_blocks_that_fit(t, a, want):
 
 
 def test_past_1816_steps_the_d_att1_pass_raises():
-    with pytest.raises(ValueError, match=r"K5\): T=1817 steps"):
-        att_scan.datt1_plan(1817, 4)
+    """Past T = 1,816 not even 4 columns of the (T, A) plane fit a block:
+    the pass no longer raises but takes a column a thread (A_c = min(A,
+    256)) and the steps in chunks whose plane and d_e fit; up to 1,816
+    every plan keeps all T steps."""
+    assert att_scan.datt1_plan(1817, 4) == (4, 1)
+    assert att_scan.datt1_steps(1817, 4) == 1816
+    assert att_scan.datt1_steps(1816, 512) == 1816
+    for t in (1817, 1900, 4000, 20000):
+        for a in (4, 20, 512, 8192):
+            cols, n = att_scan.datt1_plan(t, a)
+            steps = att_scan.datt1_steps(t, a)
+            assert cols == min(a, att_scan.D1_THREADS)
+            assert (n - 1) * cols < a <= n * cols
+            assert 1 <= steps < t
+            assert 4 * steps * (cols + att_scan.D1_PCH) <= \
+                cuda_lib.SMEM_LIMIT
+            assert 4 * (steps + 1) * (cols + att_scan.D1_PCH) > \
+                cuda_lib.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t,a,want", [
+    (1900, 512, (256, 2, 204)), (4000, 512, (256, 2, 204)),
+    (1900, 20, (20, 1, 1210)), (4000, 8192, (256, 32, 204)),
+])
+def test_the_d_att1_pass_chunks_steps_past_1816(t, a, want):
+    assert (*att_scan.datt1_plan(t, a), att_scan.datt1_steps(t, a)) == want
+
+
+@pytest.mark.parametrize("t,steps", [(9, 4), (13, 5), (7, 1), (6, 6)])
+def test_the_chunked_d_att1_chain_is_the_unchunked_one_bit_for_bit(t, steps):
+    """Each (position, column) sum of the d_att1 pass is one chain over
+    the steps in reverse order; cutting the steps into chunks carries it
+    from chunk to chunk, so d_att1 is the same bits (the CPU model
+    ``att_scan.datt1_chain``, float32 add by add); full_w's sum is taken
+    in (chunk, position, step) order there, within float32 rounding of
+    the one-chunk order."""
+    rng = np.random.default_rng(t * 100 + steps)
+    pre = torch.from_numpy(rng.standard_normal((t, 5, 12)).astype(
+        np.float32))
+    de = torch.from_numpy(rng.standard_normal((t, 5)).astype(np.float32))
+    fw = torch.from_numpy(rng.standard_normal(12).astype(np.float32))
+    d1, w1 = att_scan.datt1_chain(pre, de, fw, t)
+    d2, w2 = att_scan.datt1_chain(pre, de, fw, steps)
+    assert torch.equal(d1, d2)
+    want = (np.maximum(pre.double().numpy(), 0) * de.double().numpy()[
+        :, :, None]).sum((0, 1))
+    np.testing.assert_allclose(w2.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(w1.numpy(), want, rtol=1e-5, atol=1e-5)
+    dwant = (np.where(pre.numpy() > 0, 1.0, 0.0) * de.double().numpy()[
+        :, :, None]).sum(0) * fw.double().numpy()
+    np.testing.assert_allclose(d1.numpy(), dwant, rtol=1e-5, atol=1e-5)
