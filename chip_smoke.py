@@ -836,6 +836,19 @@ def plain_by_images(search, batch: int, k: int, *args, **kw):
     return BeamResult(*(torch.cat(ts) for ts in zip(*parts)))
 
 
+def search_geometry(kernel: str, call) -> dict:
+    """One more call of K2 or K7 (``kernel``) with the search's profile on
+    (``ops/beam.py::search_split``): each product stage's steps by the
+    geometry it took, {stage: {"slab" | "tile": steps}} (K7's
+    scores and softmax stages left out: they have one)."""
+    from icee_tpu_torch.ops import att_beam, beam
+
+    lib = beam._library() if kernel == "k2" else att_beam._library()
+    return {stage: {geo: n for geo, (n, _) in geos.items()}
+            for stage, geos in beam.search_split(lib, call)["stages"].items()
+            if stage not in ("scores", "softmax")}
+
+
 def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
                    steps_max: int = STEPS, fused: bool = True,
                    timed: bool = True):
@@ -908,6 +921,8 @@ def check_k2_shape(dec, device, cell: str, n_img: int, k: int = K,
         return out
     out["ms"] = cuda_ms(lambda: mega_beam_decode(dec, feats, style, n_img,
                                                  k=k, **kw), 5)
+    out["geometry"] = search_geometry("k2", lambda: mega_beam_decode(
+        dec, feats, style, n_img, k=k, **kw))
     out["plain_ms"] = cuda_ms(lambda: plain_by_images(
         mega_beam_decode_plain, n_img, k, dec, feats, style, **kw), 3)
     row_steps = out["live_row_steps"]
@@ -1315,6 +1330,8 @@ def check_k7_shape(dec, kind: str, device, n_img: int, k: int = K,
         return out
     out["ms"] = cuda_ms(lambda: mega_att_beam_decode(
         dec, feats, style, n_img, k=k, **kw), 5)
+    out["geometry"] = search_geometry("k7", lambda: mega_att_beam_decode(
+        dec, feats, style, n_img, k=k, **kw))
     out["plain_ms"] = cuda_ms(lambda: plain_by_images(
         mega_att_beam_decode_plain, n_img, k, dec, feats, style, **kw), 1)
     flops = (row_steps * att_step_flops_per_row(kind, vocab)

@@ -56,6 +56,10 @@
 //        then the cell)
 //   logits | tile partials | beam tail (merge_row, the selection, the
 //        sequences, best-completed tracking; emb[word] is next step's x)
+// Every stage but ctx (its weights are each image's own features) runs in
+// K2's tiles where a step's live rows reach its threshold
+// (ops/att_beam.py::att_grid_plan), in the kernel instantiation that has
+// them (a launch without tiles runs the one without).
 // Only live rows run (step 1: slot 0 of each image); the per-image stages
 // take only images with a live row.  Beam widths above 8, up to V: the
 // per-image stages (scores, ctx) take an image's live rows in groups of 8
@@ -95,6 +99,9 @@ struct AttGridPlan {
   long long Vp, n_tiles, grid, n_stages, pu, upi;
   long long cw[MAX_STAGES], br[MAX_STAGES], n_slabs[MAX_STAGES],
       slab0[MAX_STAGES];
+  // the tile geometry: each stage's tile slabs, the first of them in the
+  // slab table, and the least live rows that take them (0: none)
+  long long t_slabs[MAX_STAGES], t_slab0[MAX_STAGES], t_min[MAX_STAGES];
   // float scratch offsets
   long long o_att2, o_gpre, o_hw, o_xpart, o_esc, o_ctx, o_v, o_s, o_hn,
       o_cn, o_logits, o_pm, o_pse, o_pv, o_scores, o_bscore, o_mean;
@@ -115,7 +122,7 @@ struct AttInitPlan {
 };
 
 static_assert(sizeof(Job) * MAX_JOBS + sizeof(Stage) * MAX_STAGES +
-                      GRID_SMEM_MAX <= 232448,
+                      sizeof(int) + GRID_SMEM_MAX <= 232448,
               "a search block's plan copies and dynamic shared memory fit");
 
 // Where a search over P positions at attention width A keeps what its
@@ -214,7 +221,7 @@ __device__ void run_scores(const GridArgs& a, const Smem& sm,
   }
 }
 
-template <int SEL>
+template <int SEL, bool TILES>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_att_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -234,14 +241,18 @@ grid_att_kernel(const __grid_constant__ GridArgs a) {
     scan_rows(a, sm, c);
     if (c.n == 0) break;  // the same count in every block
     for (int s = t == 0 ? -1 : 0; s < init; ++s) {
-      run_stage(a, stages[s < 0 ? init : s], sm, c);
+      const Stage& S = stages[s < 0 ? init : s];
+      run_stage<TILES>(a, S, sm, c);
       grid_sync(a.bar, gen);
+      gb_stage(s < 0 ? init : s, c.n, TILES && stage_geo(S, c.n));
       if (s == 0) {  // after pre: the attention scores
         run_scores(a, sm, c);
         grid_sync(a.bar, gen);
+        gb_stage(GB_SCORES, c.n, false);
         if (a.ald == 0) {  // the softmax rows in place in esc
           run_softmax(a, c);
           grid_sync(a.bar, gen);
+          gb_stage(GB_SOFTMAX, c.n, false);
         }
       }
     }
@@ -264,7 +275,7 @@ grid_att_init_kernel(const __grid_constant__ GridArgs a, int part) {
   load_plan(a, jobs, stages);
   StepCtx c = step_ctx(a, 0);
   c.n = a.n_img;
-  run_stage(a, stages[0], sm, c);
+  run_stage<false>(a, stages[0], sm, c);
 }
 
 }  // namespace icee
@@ -343,10 +354,16 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
   a.ald = l.ald;
   a.eld = l.eld;
   a.att2_ring = l.att2_ring;
-  const void* kernel = sel_kernel(
-      p, reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW>),
-      reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
-      reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN>));
+  const void* kernel =
+      has_tiles(p)
+          ? sel_kernel(
+                p, reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW, true>),
+                reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE, true>),
+                reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN, true>))
+          : sel_kernel(
+                p, reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW, false>),
+                reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE, false>),
+                reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN, false>));
   return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
@@ -354,6 +371,12 @@ static int att_launch(const AttGridPlan& p, const int* slabs,
 // null) <- the sums so far, then zeroed, the marks on where on != 0.
 extern "C" int icee_grid_profile(int on, unsigned long long* out) {
   return (int)grid_profile(on, out);
+}
+
+// The profile's stage records (grid_beam.cuh g_gb_rec): *n <- their count,
+// out (2 * cap words) <- the first cap.
+extern "C" int icee_grid_records(unsigned long long* out, int cap, int* n) {
+  return (int)grid_records(out, cap, n);
 }
 
 extern "C" const char* icee_error_string(int code) {
@@ -391,10 +414,20 @@ extern "C" void icee_mega_att_beam_layout(int P, int A, long long* out) {
 // Blocks of one cooperative launch on the current device (every
 // instantiation).
 extern "C" int icee_mega_att_beam_max_grid(int* out) {
-  return grid_max_blocks3(
-      reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW>),
-      reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>),
-      reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN>), out);
+  int plain = 0, tiled = 0;
+  cudaError_t e = static_cast<cudaError_t>(grid_max_blocks3(
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW, false>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE, false>),
+      reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN, false>),
+      &plain));
+  if (e == cudaSuccess)
+    e = static_cast<cudaError_t>(grid_max_blocks3(
+        reinterpret_cast<const void*>(grid_att_kernel<SEL_NARROW, true>),
+        reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE, true>),
+        reinterpret_cast<const void*>(grid_att_kernel<SEL_SCAN, true>),
+        &tiled));
+  *out = plain < tiled ? plain : tiled;
+  return (int)e;
 }
 
 // factored: stages pre | ctx | vrows | style | gates | logits | init (and

@@ -40,7 +40,14 @@
 // units' weights and input rows, 64 k rows a chunk, through a ring of four
 // shared-memory chunks by cp.async (three in flight, the next unit's while
 // this one finishes); a thread owns 4 adjacent columns of one or two rows
-// and runs each output's fmaf chain from shared memory.  Intermediates (v,
+// and runs each output's fmaf chain from shared memory.  Where a step's
+// live rows reach a stage's threshold (ops/beam.py::plan_tiles, from the
+// card's stage times) the stage runs in tiles of 128 live rows by 128
+// columns instead, 4 x 8 outputs a thread in registers (grid_beam.cuh
+// run_tiles; not the LSTM cell's two chains): at 900-2,048 live rows the
+// slabs read each weight chunk once per 52 rows and a shared-memory load
+// every 5 fmaf.  A launch whose plan has no tiles runs the instantiation
+// without them.  Intermediates (v,
 // hW, s, h', c', the logits, the tile partials) live in device memory (L2)
 // and are read across a barrier through L2 only (cp.async.cg, __ldcg).  The
 // tile partials stage takes every 256-wide logits tile of every live row
@@ -80,6 +87,9 @@ struct GridPlan {
   long long Vp, n_tiles, grid, n_stages;
   long long cw[MAX_STAGES], br[MAX_STAGES], n_slabs[MAX_STAGES],
       slab0[MAX_STAGES];
+  // the tile geometry: each stage's tile slabs, the first of them in the
+  // slab table, and the least live rows that take them (0: none)
+  long long t_slabs[MAX_STAGES], t_slab0[MAX_STAGES], t_min[MAX_STAGES];
   // float scratch offsets
   long long o_v, o_hw, o_s, o_hn, o_cn, o_logits, o_pm, o_pse, o_pv,
       o_scores, o_bscore;
@@ -89,7 +99,7 @@ struct GridPlan {
       o_lists, o_tstate;
 };
 
-template <int SEL>
+template <int SEL, bool TILES>
 __global__ void __launch_bounds__(GB_THREADS, 1)
 grid_beam_kernel(const __grid_constant__ GridArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -106,8 +116,9 @@ grid_beam_kernel(const __grid_constant__ GridArgs a) {
     scan_rows(a, sm, c);
     if (c.n == 0) break;  // the same count in every block
     for (int s = 0; s < a.n_stages; ++s) {
-      run_stage(a, stages[s], sm, c);
+      run_stage<TILES>(a, stages[s], sm, c);
       grid_sync(a.bar, gen);
+      gb_stage(s, c.n, TILES && stage_geo(stages[s], c.n));
     }
     run_selection<SEL>(a, sm, c, gen);
   }
@@ -128,10 +139,16 @@ static int launch(const GridPlan& p, const int* slabs, const float* feats,
   a.feats = p.feed ? feats : nullptr;
   a.emb = emb;
   a.feed = (int)p.feed;
-  const void* kernel = sel_kernel(
-      p, reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW>),
-      reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE>),
-      reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN>));
+  const void* kernel =
+      has_tiles(p)
+          ? sel_kernel(
+                p, reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW, true>),
+                reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE, true>),
+                reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN, true>))
+          : sel_kernel(
+                p, reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW, false>),
+                reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE, false>),
+                reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN, false>));
   return grid_launch(kernel, a, (int)p.grid, stream);
 }
 
@@ -139,6 +156,12 @@ static int launch(const GridPlan& p, const int* slabs, const float* feats,
 // null) <- the sums so far, then zeroed, the marks on where on != 0.
 extern "C" int icee_grid_profile(int on, unsigned long long* out) {
   return (int)grid_profile(on, out);
+}
+
+// The profile's stage records (grid_beam.cuh g_gb_rec): *n <- their count,
+// out (2 * cap words) <- the first cap.
+extern "C" int icee_grid_records(unsigned long long* out, int cap, int* n) {
+  return (int)grid_records(out, cap, n);
 }
 
 extern "C" const char* icee_error_string(int code) {
@@ -164,10 +187,20 @@ extern "C" void icee_mega_beam_consts(long long* out) {
 // Blocks of one cooperative launch on the current device (every
 // instantiation).
 extern "C" int icee_mega_beam_max_grid(int* out) {
-  return grid_max_blocks3(
-      reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW>),
-      reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE>),
-      reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN>), out);
+  int plain = 0, tiled = 0;
+  cudaError_t e = static_cast<cudaError_t>(grid_max_blocks3(
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW, false>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE, false>),
+      reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN, false>),
+      &plain));
+  if (e == cudaSuccess)
+    e = static_cast<cudaError_t>(grid_max_blocks3(
+        reinterpret_cast<const void*>(grid_beam_kernel<SEL_NARROW, true>),
+        reinterpret_cast<const void*>(grid_beam_kernel<SEL_WIDE, true>),
+        reinterpret_cast<const void*>(grid_beam_kernel<SEL_SCAN, true>),
+        &tiled));
+  *out = plain < tiled ? plain : tiled;
+  return (int)e;
 }
 
 // factored: stages [x V_w + V_b, h W_w + W_b] | v_g S_g + S_b | the gates

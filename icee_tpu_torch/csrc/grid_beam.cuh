@@ -23,7 +23,11 @@
 //     two rows and runs each output's fmaf chain from shared memory.  A
 //     chain may start from a stored partial (Job.init: the rows of x V_w /
 //     x W_ih past the embedding, resumed at k = E), never from another
-//     block's part of the same k range;
+//     block's part of the same k range.  Where a step's live rows reach a
+//     stage's threshold (the plan's, from the H100's stage times) the
+//     stage runs in tiles instead (run_tiles): 128 live rows by 128
+//     columns a unit (a gate tile: 32 columns of each gate), 4 x 8 outputs
+//     a thread in registers, the same chains;
 //   - the tile partials (run_partials: every 256-wide logits tile of every
 //     live row through tile_reduce, a warp a tile) and the beam tail
 //     (run_tail: each image in one block, merge_row of its live rows, the
@@ -77,9 +81,15 @@ constexpr int MAX_K = 46340;           // widest beam: k x k candidates
                                        // indexed by an int
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_JOBS = 12;           // products of a launch, all stages
+constexpr int TBM = 128;               // live rows of a tile
+constexpr int TSLOTS = 3;              // the ring as tile chunks (TSLOTS - 1
+                                       // in flight)
+constexpr int TBN = 128;               // columns of a tile (a gate tile: 32
+                                       // of each gate)
 constexpr int MAX_P = 256;             // positions whose softmax rows sit
                                        // at the narrow stride ALD
 constexpr int ALD = MAX_P + 4;         // row stride of a unit's softmax rows
+constexpr int TSLOT_FLOATS = RING_FLOATS / TSLOTS;
 // dynamic shared memory a search block may take (the block's own static
 // plan copies, ~2 KB, take the rest of its 232,448 bytes)
 constexpr size_t GRID_SMEM_MAX = 229376;
@@ -119,7 +129,11 @@ struct Job {
 struct Stage {
   const Job* job;       // the stage's jobs (the kernel's shared copy)
   const int4* slabs;    // (job, segment, first column, width)
+  const int4* tslabs;   // the tile geometry's slabs, as slabs (a gate
+                        // tile's width: of each gate)
   int job0, n_jobs, cw, br, n_slabs, per_img;
+  int n_tslabs, tmin;   // tmin: the least live rows that take the tiles
+                        // (0: the stage has none)
 };
 
 struct GridArgs {
@@ -233,10 +247,17 @@ __device__ inline Smem carve_lists(float* base, const GridArgs& a) {
   return s;
 }
 
+// The search's profile switch (icee_grid_profile, off unless a probe turns
+// it on) and each block's copy of it, taken once a launch by load_plan:
+// the profile marks read the copy.
+__device__ int g_gb_prof_on;
+__shared__ int g_gb_prof_blk;
+
 // The launch's jobs and stages into shared memory (read every chunk), each
-// stage pointed at its jobs.  Ends with a barrier.
+// stage pointed at its jobs, and the profile switch.  Ends with a barrier.
 __device__ inline void load_plan(const GridArgs& a, Job* jobs,
                                  Stage* stages) {
+  if (threadIdx.x == 0) g_gb_prof_blk = g_gb_prof_on;
   for (int i = threadIdx.x; i < a.n_jobs; i += GB_THREADS) jobs[i] = a.jobs[i];
   if (threadIdx.x < a.n_stages) {
     Stage s = a.st[threadIdx.x];
@@ -422,7 +443,7 @@ struct Geo {
 
 // Input-row sets a chunk of J holds in phase `amode`: 4 where each gate
 // reads its own segment of a dense input, else 1.
-__device__ __forceinline__ int row_sets(const Job& J, int amode) {
+__host__ __device__ __forceinline__ int row_sets(const Job& J, int amode) {
   return (J.gates && amode == A_DENSE && J.aseg != 0) ? 4 : 1;
 }
 
@@ -761,12 +782,380 @@ __device__ void epilogue(const GridArgs& a, const Stage& S, const Smem& sm,
   }
 }
 
+// --- the tile geometry ------------------------------------------------------
+//
+// A stage whose live rows fill the card takes tiles (ops/beam.py
+// plan_tiles: the least live rows from which the tiles beat the slabs):
+// a unit is a tile slab (up to TBN columns of a job's segment; a gate
+// tile's TBN / 4 of each of the four gates) over a row tile of at most
+// TBM live rows, the live rows split evenly into ceil(n / TBM) row tiles.
+// A slab's row tiles are adjacent in the unit order, so the blocks that
+// take them read its weight chunks from L2 at about the same time.  The
+// thread of warp w, half h (bit 4 of the thread) and column lane tx (its
+// low four bits) owns 4 rows, 8 w + 4 h + i, and 8 columns, 4 tx + j and
+// 64 + 4 tx + j: 32 outputs in registers.  A chunk (KT k rows: the weights
+// (KT, TBN) row-major, the input rows (SETS, TBM, KT)) goes through the
+// slabs' ring cut into TSLOTS larger slots.  At each k quad a thread reads
+// a float4 of each of its rows (a warp's two halves read two addresses, 16
+// banks apart) and two float4 of weights a k row: 12 loads for 128 fmaf,
+// where a slab thread took 6 for 32, and a weight chunk serves 128 rows
+// where a slab served at most 52.  Where each gate reads its own input
+// rows (SETS = 4: the factored cell's s_g U_g) the chunk holds the four
+// sets and a column quad reads its gate's.  In a gate tile column quad q
+// of lane tx is gate 2 q + tx / 8, so lanes tx and tx ^ 8 of a warp hold
+// the four gates of the same columns: after the chains they trade half
+// their rows' pre-activations by shuffle and each runs the cell on its
+// half, in registers.  Every output is still one fmaf chain in k order
+// from 0.f or its init over the whole k range (a short last chunk runs
+// only its k rows), with the slab path's epilogue arithmetic: the bits do
+// not depend on the geometry.  The tiles are compiled only into the
+// kernels of launches whose plan has them (TILES), so a launch without
+// them runs the slab path's code as it was.
+
+template <int SETS>
+struct TileCfg {
+  static constexpr int KT = SETS == 4 ? 12 : 36;      // k rows of a chunk
+  static constexpr int LDA = KT;                      // an input row's stride
+  static constexpr int SS = TBM * LDA + 8;            // a set's: 8 banks on
+  static_assert(KT * TBN + SETS * SS <= TSLOT_FLOATS && KT % 4 == 0 &&
+                    LDA % 8 == 4,
+                "a tile chunk fits a tile slot; a warp's halves (4 rows "
+                "apart) 16 banks apart");
+};
+
+// Whether a step of n live rows runs a stage in tiles.
+__device__ __forceinline__ bool stage_geo(const Stage& S, int n) {
+  return S.tmin > 0 && n >= S.tmin;
+}
+
+// A tile unit: tile slab (job, segment, first column, width) over live rows
+// [i0, i0 + nr), and its chunks.
+struct TileUnit {
+  int4 slab;
+  int i0, nr, nch;
+};
+
+template <class T>
+__device__ __forceinline__ TileUnit tile_of(const Stage& S, int u, int n) {
+  const int n_rt = (n + TBM - 1) / TBM;
+  const int rt = u % n_rt, base = n / n_rt, rem = n % n_rt;
+  TileUnit x;
+  x.slab = __ldg(S.tslabs + u / n_rt);
+  x.i0 = rt * base + min(rt, rem);
+  x.nr = base + (rt < rem ? 1 : 0);
+  x.nch = (S.job[x.slab.x].K + T::KT - 1) / T::KT;
+  return x;
+}
+
+// The thread's first row in its tile (its rows: the next three too).
+__device__ __forceinline__ int tile_row0() {
+  return 8 * (threadIdx.x >> 5) + 4 * ((threadIdx.x >> 4) & 1);
+}
+
+// The output column of the thread's column quad q (plain: of its segment;
+// a gate tile: of gate 2 q + tx / 8), and whether the tile holds it.
+__device__ __forceinline__ int tile_col(const Job& J, const TileUnit& x,
+                                        int q, bool& in) {
+  const int tx = threadIdx.x & 15;
+  if (J.gates) {
+    const int cl = 4 * (tx & 7);
+    in = cl < x.slab.w;
+    return (2 * q + (tx >> 3)) * J.segw + x.slab.z + cl;
+  }
+  const int vc = 64 * q + 4 * tx;
+  in = vc < x.slab.w;
+  return x.slab.y * J.segw + x.slab.z + vc;
+}
+
+// Loads chunk ch of tile unit x into a ring slot: the weight rows as (kn,
+// TBN) floats (a gate tile's as four gates of TBN / 4), then the input rows
+// as (SETS, TBM, LDA), each row's kn k values.
+template <class T, int SETS>
+__device__ __forceinline__ void tile_issue(const GridArgs& a, const Stage& S,
+                                           const Smem& sm, const StepCtx& c,
+                                           const TileUnit& x, int ch,
+                                           float* slot) {
+  constexpr int QR = TBN / 4, QG = TBN / 16;
+  const Job& J = S.job[x.slab.x];
+  const int k0 = ch * T::KT, kn = min(T::KT, J.K - k0);
+  for (int e = threadIdx.x; e < kn * QR; e += GB_THREADS) {
+    const int kk = e / QR, q = e % QR;
+    const int seg = J.gates ? q / QG : x.slab.y;
+    const int cl = J.gates ? 4 * (q % QG) : 4 * q;
+    if (cl < x.slab.w)
+      cp_async16(slot + kk * TBN + 4 * q,
+                 J.W + seg * J.wseg + (size_t)(k0 + kk) * J.ldw + x.slab.z +
+                     cl);
+  }
+  float* sa = slot + T::KT * TBN;
+  if (J.amode != A_X || a.xvec) {  // k0 and kn are multiples of 4 here
+    const int qk = kn / 4;
+    for (int e = threadIdx.x; e < SETS * x.nr * qk; e += GB_THREADS) {
+      const int ar = e / qk, q = e % qk;
+      const int set = SETS == 1 ? 0 : ar / x.nr;
+      const int rr = SETS == 1 ? ar : ar % x.nr;
+      const float* src =
+          row_src(a, J, sm, c, J.amode, set, x.slab.y, x.i0 + rr);
+      float* d = sa + set * T::SS + rr * T::LDA + 4 * q;
+      if (src != nullptr)
+        cp_async16(d, src + k0 + 4 * q);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < SETS * x.nr * kn; e += GB_THREADS) {
+    const int ar = e / kn, m = e % kn;
+    const int set = SETS == 1 ? 0 : ar / x.nr;
+    const int rr = SETS == 1 ? ar : ar % x.nr;
+    const float* src = row_src(a, J, sm, c, J.amode, set, x.slab.y, x.i0 + rr);
+    sa[set * T::SS + rr * T::LDA + m] = src != nullptr ? __ldcg(src + k0 + m)
+                                                       : 0.f;
+  }
+}
+
+// k rows [k, k + KQ) of the thread's chains (KQ 4, or 1 for a ragged end):
+// its rows' values at a0 (its second column quad's at a1: its gate's set)
+// against its columns of the weight rows at ws: acc[i][.] = fmaf(x, w, acc)
+// in k order.
+template <class T, int SETS, int KQ>
+__device__ __forceinline__ void tile_kq(const float* ws, const float* a0,
+                                        const float* a1, int k,
+                                        float (&acc)[4][8]) {
+  float x0[4][KQ], x1[SETS == 1 ? 1 : 4][KQ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (KQ == 4) {
+      const float4 v = lds4(a0 + i * T::LDA + k);
+      x0[i][0] = v.x, x0[i][1] = v.y, x0[i][2] = v.z, x0[i][3] = v.w;
+      if constexpr (SETS != 1) {
+        const float4 u = lds4(a1 + i * T::LDA + k);
+        x1[i][0] = u.x, x1[i][1] = u.y, x1[i][2] = u.z, x1[i][3] = u.w;
+      }
+    } else {
+      x0[i][0] = a0[i * T::LDA + k];
+      if constexpr (SETS != 1) x1[i][0] = a1[i * T::LDA + k];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk) {
+    const float4 w0 = lds4(ws + (k + kk) * TBN);
+    const float4 w1 = lds4(ws + (k + kk) * TBN + 64);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float u = x0[i][kk];
+      const float v = SETS == 1 ? x0[i][kk] : x1[SETS == 1 ? 0 : i][kk];
+      acc[i][0] = fmaf(u, w0.x, acc[i][0]);
+      acc[i][1] = fmaf(u, w0.y, acc[i][1]);
+      acc[i][2] = fmaf(u, w0.z, acc[i][2]);
+      acc[i][3] = fmaf(u, w0.w, acc[i][3]);
+      acc[i][4] = fmaf(v, w1.x, acc[i][4]);
+      acc[i][5] = fmaf(v, w1.y, acc[i][5]);
+      acc[i][6] = fmaf(v, w1.z, acc[i][6]);
+      acc[i][7] = fmaf(v, w1.w, acc[i][7]);
+    }
+  }
+}
+
+// One chunk's kn k rows of the thread's chains: whole k quads, then the k
+// rows of a ragged end one at a time.
+template <class T, int SETS>
+__device__ __forceinline__ void tile_chunk(const float* slot, int kn,
+                                           float (&acc)[4][8]) {
+  const int tx = threadIdx.x & 15;
+  const float* ws = slot + 4 * tx;
+  const float* as = slot + T::KT * TBN + tile_row0() * T::LDA;
+  const float* a0 = as + (SETS == 1 ? 0 : (tx >> 3) * T::SS);
+  const float* a1 = as + (SETS == 1 ? 0 : (2 + (tx >> 3)) * T::SS);
+  int k = 0;
+#pragma unroll 2
+  for (; k + 4 <= kn; k += 4) tile_kq<T, SETS, 4>(ws, a0, a1, k, acc);
+#pragma unroll 1
+  for (; k < kn; ++k) tile_kq<T, SETS, 1>(ws, a0, a1, k, acc);
+}
+
+// A unit's chains start: from 0.f, or from the stored partial (init).
+__device__ __forceinline__ void tile_start(const Stage& S, const TileUnit& x,
+                                           float (&acc)[4][8]) {
+  const Job& J = S.job[x.slab.x];
+  const int r0 = tile_row0();
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    bool in;
+    const int col = tile_col(J, x, q, in);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][4 * q + j] =
+            J.init != nullptr && in && r0 + i < x.nr
+                ? __ldcg(J.init + (size_t)(x.i0 + r0 + i) * J.ldi + col + j)
+                : 0.f;
+  }
+}
+
+// After a unit's last chunk: the bias adds into the job's output, or the
+// gate pre-activations (in place of acc) and the cell on them, each thread
+// on its own outputs and lane tx ^ 8's (the slab epilogue's arithmetic; no
+// barrier).
+__device__ __forceinline__ void tile_epilogue(const GridArgs& a,
+                                              const Stage& S, const Smem& sm,
+                                              const StepCtx& c,
+                                              const TileUnit& x,
+                                              float (&acc)[4][8]) {
+  const Job& J = S.job[x.slab.x];
+  const int r0 = tile_row0(), H = a.H;
+  if (!J.gates) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      bool in;
+      const int col = tile_col(J, x, q, in);
+      if (!in) continue;   // a quad is wholly in or out
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (r0 + i >= x.nr) continue;
+        float* o = J.out + (size_t)(x.i0 + r0 + i) * J.ldo + col;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[j] = J.bias != nullptr ? acc[i][4 * q + j] + __ldg(J.bias + col + j)
+                                   : acc[i][4 * q + j];
+      }
+    }
+    return;
+  }
+  // the pre-activation z of gate 2 q + tx / 8 (column quad q; both quads
+  // hold the same columns, of two gates)
+  bool in = false;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int o = tile_col(J, x, q, in);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!in || r0 + i >= x.nr) continue;
+      const float* hw = J.hw + (size_t)(x.i0 + r0 + i) * 4 * H + o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = acc[i][4 * q + j];
+        if (J.epi == E_GATES_F)  // (s U + U_b) + (h W + W_b)
+          acc[i][4 * q + j] = (v + __ldg(J.bias + o + j)) + __ldcg(hw + j);
+        else  // ((x W_ih + b_ih) resumed + h W_hh stored) + b_hh
+          acc[i][4 * q + j] = ((v + __ldg(J.bias + o + j)) + __ldcg(hw + j)) +
+                              __ldg(J.bias2 + o + j);
+      }
+    }
+  }
+  // lanes tx < 8 hold gates 0 and 2, lanes tx ^ 8 gates 1 and 3: the lower
+  // runs the cell on rows 0 and 1 of the thread's, the upper on 2 and 3
+  const bool lower = (threadIdx.x & 8) == 0;
+  const int cl = x.slab.z + 4 * (threadIdx.x & 7);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    float g[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float f0 = acc[m][j], f1 = acc[m][4 + j];
+      const float u0 = acc[2 + m][j], u1 = acc[2 + m][4 + j];
+      const float t0 = __shfl_xor_sync(FULL, lower ? u0 : f0, 8);
+      const float t1 = __shfl_xor_sync(FULL, lower ? u1 : f1, 8);
+      const float own0 = lower ? f0 : u0, own1 = lower ? f1 : u1;
+      g[0][j] = lower ? own0 : t0;
+      g[1][j] = lower ? t0 : own0;
+      g[2][j] = lower ? own1 : t1;
+      g[3][j] = lower ? t1 : own1;
+    }
+    const int row = r0 + (lower ? m : 2 + m);
+    if (!in || row >= x.nr) continue;
+    const int li = x.i0 + row;
+    const int src = sm.hsrc[li];
+    const size_t dst = (size_t)sm.list[li] * H + cl;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float cin =
+          src < 0 ? 0.f : __ldcg(c.cn_prev + (size_t)src * H + cl + j);
+      float h_new, c_new;
+      if (J.epi == E_GATES_F) {  // [i, f, o, c], h = o * c (no tanh)
+        const float i_t = sigmoid(g[0][j]), f_t = sigmoid(g[1][j]);
+        const float o_t = sigmoid(g[2][j]), g_t = tanhf(g[3][j]);
+        c_new = f_t * cin + i_t * g_t;
+        h_new = o_t * c_new;
+      } else {  // [i, f, g, o], h = o * tanh(c)
+        const float i_t = sigmoid(g[0][j]), f_t = sigmoid(g[1][j]);
+        const float g_t = tanhf(g[2][j]), o_t = sigmoid(g[3][j]);
+        c_new = f_t * cin + i_t * g_t;
+        h_new = o_t * tanhf(c_new);
+      }
+      c.cn_cur[dst + j] = c_new;
+      c.hn_cur[dst + j] = h_new;
+    }
+  }
+}
+
+// A stage in tiles: this block's units in turn, their chunks streamed
+// through the ring as run_stage streams a slab's (one barrier a chunk),
+// the ring cut into TSLOTS larger slots.
+template <int SETS>
+__device__ __forceinline__ void run_tiles(const GridArgs& a, const Stage& S,
+                                          const Smem& sm, const StepCtx& c) {
+  using T = TileCfg<SETS>;
+  const int n = c.n, n_units = S.n_tslabs * ((n + TBM - 1) / TBM);
+  int iu = blockIdx.x, ich = 0, cu = blockIdx.x, cch = 0;
+  float acc[4][8];
+#pragma unroll 1
+  for (int it = 1 - TSLOTS; cu < n_units; ++it) {
+    if (it >= 0) {
+      cp_async_wait<TSLOTS - 2>();  // chunk `it` has landed
+      __syncthreads();              // ... for every thread; slot it - 1 free
+    }
+    if (iu < n_units) {   // (a unit's place is recomputed, not carried)
+      const TileUnit ix = tile_of<T>(S, iu, n);
+      tile_issue<T, SETS>(
+          a, S, sm, c, ix, ich,
+          sm.ring + ((it + TSLOTS - 1) % TSLOTS) * TSLOT_FLOATS);
+      if (++ich == ix.nch) {
+        ich = 0;
+        iu += gridDim.x;
+      }
+    }
+    cp_async_commit();
+    if (it < 0) continue;
+    const TileUnit cx = tile_of<T>(S, cu, n);
+    if (cch == 0) tile_start(S, cx, acc);
+    if (8 * (threadIdx.x >> 5) < cx.nr)   // a warp past the tile's rows rests
+      tile_chunk<T, SETS>(sm.ring + (it % TSLOTS) * TSLOT_FLOATS,
+                          min(T::KT, S.job[cx.slab.x].K - cch * T::KT), acc);
+    if (++cch == cx.nch) {
+      tile_epilogue(a, S, sm, c, cx, acc);
+      cch = 0;
+      cu += gridDim.x;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// A stage's tiles, in the input-row sets of its job.
+__device__ __forceinline__ void run_tile_stage(const GridArgs& a,
+                                               const Stage& S, const Smem& sm,
+                                               const StepCtx& c) {
+  if (row_sets(S.job[0], S.job[0].amode) == 4)
+    run_tiles<4>(a, S, sm, c);
+  else
+    run_tiles<1>(a, S, sm, c);
+}
+
 // One product stage: this block's units in turn, their chunks streamed
 // through the ring (one barrier a chunk; the next unit's chunks are in
-// flight while a unit finishes).
+// flight while a unit finishes); in tiles where the kernel has them
+// (TILES) and the step's live rows reach the stage's tmin.
+template <bool TILES>
 __device__ void run_stage(const GridArgs& a, const Stage& S, const Smem& sm,
                           const StepCtx& c) {
   const int n = c.n;
+  if constexpr (TILES) {
+    if (stage_geo(S, n)) {
+      run_tile_stage(a, S, sm, c);
+      return;
+    }
+  }
   const int n_rb = (n + S.br - 1) / S.br;
   const int n_units = S.n_slabs * (S.per_img ? c.n_img : n_rb);
   Geo t;
@@ -1347,25 +1736,51 @@ __device__ void run_tail_wide(const GridArgs& a, const Smem& sm,
 }
 
 // Where a search's time goes, for a probe (off unless icee_grid_profile
-// turned it on; a launch with it off pays one load of g_gb_prof_on in
-// block 0's thread 0 a mark): block 0's thread 0 stamps %globaltimer
+// turned it on; a launch with it off pays one shared-memory load in block
+// 0's thread 0 a mark): block 0's thread 0 stamps %globaltimer
 // after the barriers that end a step's parts and adds each part's time,
 // in ns, to g_gb_prof: [0] the live-row scan and the products, [1] the
 // row stage (narrow: the tile partials), [2] the tail; [4] counts steps,
-// [7] holds the last stamp.  Every block passed each barrier before block
-// 0 leaves it, so a part's time is the card's.
+// [6] and [7] hold the last stamps.  Every block passed each barrier
+// before block 0 leaves it, so a part's time is the card's.  Each product
+// stage (and K7's scores and softmax stages) also appends a record to
+// g_gb_rec: (live rows << 32 | stage << 8 | tiles taken, ns since the
+// last record or the step's start), GB_RECORDS of them at most.
+constexpr int GB_RECORDS = 4096;
+constexpr int GB_SCORES = MAX_STAGES, GB_SOFTMAX = MAX_STAGES + 1;
 __device__ unsigned long long g_gb_prof[8];
-__device__ int g_gb_prof_on;
+__device__ unsigned long long g_gb_rec[2 * GB_RECORDS];
+__device__ int g_gb_nrec;
 
-__device__ __forceinline__ void gb_mark(int part) {   // -1: a step starts
-  if (blockIdx.x != 0 || threadIdx.x != 0 || !g_gb_prof_on) return;
+__device__ __forceinline__ unsigned long long gb_now() {
   unsigned long long ns;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  if (part >= 0)
+  return ns;
+}
+
+__device__ __forceinline__ void gb_mark(int part) {   // -1: a step starts
+  if (blockIdx.x != 0 || threadIdx.x != 0 || !g_gb_prof_blk) return;
+  const unsigned long long ns = gb_now();
+  if (part >= 0) {
     g_gb_prof[part] += ns - g_gb_prof[7];
-  else
+  } else {
     g_gb_prof[4] += 1;
+    g_gb_prof[6] = ns;
+  }
   g_gb_prof[7] = ns;
+}
+
+// After stage `id`'s barrier: its record (see g_gb_rec).
+__device__ __forceinline__ void gb_stage(int id, int n, bool tiles) {
+  if (blockIdx.x != 0 || threadIdx.x != 0 || !g_gb_prof_blk) return;
+  const unsigned long long ns = gb_now();
+  const int r = g_gb_nrec;
+  if (r < GB_RECORDS) {
+    g_gb_rec[2 * r] = ((unsigned long long)n << 32) | (id << 8) | tiles;
+    g_gb_rec[2 * r + 1] = ns - g_gb_prof[6];
+    g_gb_nrec = r + 1;
+  }
+  g_gb_prof[6] = ns;
 }
 
 // A step's selection after its logits: the tile partials and the beam tail
@@ -1395,10 +1810,23 @@ __device__ void run_selection(const GridArgs& a, const Smem& sm,
 // sums so far; then the sums zeroed and the marks on (on != 0) or off.
 inline cudaError_t grid_profile(int on, unsigned long long* out) {
   unsigned long long z[8] = {};
+  const int none = 0;
   cudaError_t e = cudaSuccess;
   if (out != nullptr) e = cudaMemcpyFromSymbol(out, g_gb_prof, sizeof(z));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_gb_prof, z, sizeof(z));
+  if (e == cudaSuccess && on)
+    e = cudaMemcpyToSymbol(g_gb_nrec, &none, sizeof(none));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_gb_prof_on, &on, sizeof(on));
+  return e;
+}
+
+// The stage records since the profile was last turned on: *n <- their
+// count, out (2 * cap words) <- the first cap of them.
+inline cudaError_t grid_records(unsigned long long* out, int cap, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(n, g_gb_nrec, sizeof(int));
+  const int m = *n < cap ? *n : cap;
+  if (e == cudaSuccess && m > 0)
+    e = cudaMemcpyFromSymbol(out, g_gb_rec, 2 * sizeof(unsigned long long) * m);
   return e;
 }
 
@@ -1435,7 +1863,10 @@ inline Job bias_job(const float* W, long long wseg, int ldw, int K, int nseg,
 inline cudaError_t set_stages(GridArgs& a, int n_stages,
                               const long long* cw, const long long* br,
                               const long long* n_slabs,
-                              const long long* slab0, const int* slabs) {
+                              const long long* slab0, const int* slabs,
+                              const long long* t_slabs = nullptr,
+                              const long long* t_slab0 = nullptr,
+                              const long long* t_min = nullptr) {
   if (n_stages < 1 || n_stages > MAX_STAGES) return cudaErrorInvalidValue;
   a.n_stages = n_stages;
   for (int s = 0; s < n_stages; ++s) {
@@ -1444,11 +1875,24 @@ inline cudaError_t set_stages(GridArgs& a, int n_stages,
     S.br = (int)br[s];
     S.n_slabs = (int)n_slabs[s];
     S.slabs = reinterpret_cast<const int4*>(slabs) + slab0[s];
+    S.n_tslabs = t_min != nullptr ? (int)t_slabs[s] : 0;
+    S.tmin = t_min != nullptr ? (int)t_min[s] : 0;
+    S.tslabs = reinterpret_cast<const int4*>(slabs) +
+               (t_min != nullptr ? t_slab0[s] : 0);
     if ((S.cw != 16 && S.cw != 32 && S.cw != 64) || S.br < 1 ||
         S.br > MAX_BR || S.br > 2 * (GB_THREADS / (S.cw / 4)) ||
         S.n_slabs < 1 || S.n_jobs < 1 || S.job0 < 0 ||
-        S.job0 + S.n_jobs > a.n_jobs)
+        S.job0 + S.n_jobs > a.n_jobs || S.tmin < 0 ||
+        (S.tmin > 0 && (S.n_tslabs < 1 || S.per_img)))
       return cudaErrorInvalidValue;
+    // tiles hold one gate job (they run the cell on its columns), of one
+    // chain (not the LSTM cell's two), or plain jobs
+    for (int j = 0; j < S.n_jobs && S.tmin > 0; ++j) {
+      const Job& J = a.jobs[S.job0 + j];
+      if ((J.gates && S.n_jobs > 1) || J.W2 != nullptr ||
+          J.epi == E_GATES_L || J.epi == E_CTX)
+        return cudaErrorInvalidValue;
+    }
     for (int j = 0; j < S.n_jobs; ++j) {
       const Job& J = a.jobs[S.job0 + j];
       const int sets = (J.gates && J.amode == A_DENSE && J.aseg) ? 4 : 1;
@@ -1487,7 +1931,7 @@ inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
           RING_FLOATS)
     return cudaErrorInvalidValue;
   cudaError_t e = set_stages(a, (int)p.n_stages, p.cw, p.br, p.n_slabs,
-                             p.slab0, slabs);
+                             p.slab0, slabs, p.t_slabs, p.t_slab0, p.t_min);
   if (e != cudaSuccess) return e;
   a.hn = fs + p.o_hn;
   a.cn = fs + p.o_cn;
@@ -1530,6 +1974,15 @@ inline cudaError_t search_args(GridArgs& a, const Plan& p, const int* slabs,
     if (a.rows > MAX_ROWS) a.lists = is + p.o_lists;
   }
   return cudaSuccess;
+}
+
+// Whether a plan's search takes tiles in any stage (its kernel is then the
+// instantiation that holds them).
+template <class Plan>
+inline bool has_tiles(const Plan& p) {
+  for (int s = 0; s < p.n_stages; ++s)
+    if (p.t_min[s] > 0) return true;
+  return false;
 }
 
 // The kernel instantiation (of narrow, wide, scan) a plan's search runs.

@@ -64,13 +64,13 @@ from icee_tpu_torch.ops.att_decode_step import (ATT_WEIGHTS, CELL_WEIGHTS,
 from icee_tpu_torch.ops.beam import (INT_REGIONS, KC, KCP, MAX_K, MAX_ROWS,
                                      MAX_STAGES, NSLOT, PLAN_ARRAYS,
                                      SEL_NARROW, SLOT_FLOATS, THREADS,
-                                     GridPlan, Job, StagePlan, carve_regions,
-                                     check_grid, check_plan_rows,
-                                     check_plan_width, check_ring,
-                                     grid_blocks, launch_chunks, plan_stage,
-                                     plan_struct, scan_regions,
-                                     selection_regions, stage_with_width,
-                                     slabs_on)
+                                     TILE_ARRAYS, GridPlan, Job, StagePlan,
+                                     TilePlan, carve_regions, check_grid,
+                                     check_plan_rows, check_plan_width,
+                                     check_ring, grid_blocks, launch_chunks,
+                                     plan_stage, plan_struct, plan_tiles,
+                                     scan_regions, selection_regions,
+                                     stage_with_width, slabs_on)
 from icee_tpu_torch.ops.decode_step import K_WIDE, check_beam_width
 
 # csrc/grid_beam.cuh's geometry for the attention (checked against the
@@ -270,10 +270,15 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
     check_ring(n_tiles, k, v, max_seq)
     jobs = att_stage_jobs(kind, e, f, h, v, a, fs)
     groups = image_groups(n_img, k)
+    stage_rows = [n_img if i == len(jobs) - 1 else rows
+                  for i in range(len(jobs))]
     stages = tuple(plan_image_stage(js, grid, groups) if i == CTX_STAGE
-                   else plan_stage(js, grid, n_img if i == len(jobs) - 1
-                                   else rows)
+                   else plan_stage(js, grid, stage_rows[i])
                    for i, js in enumerate(jobs))
+    # the per-image stage keeps its slabs
+    tiles = tuple(TilePlan() if i == CTX_STAGE
+                  else plan_tiles(st, grid, stage_rows[i])
+                  for i, st in enumerate(stages))
     pu, upi = score_units(p, groups, grid)
     fact = kind == "factored"
     sel = selection_regions(rows, n_tiles, k, max_seq + 2)
@@ -291,7 +296,7 @@ def att_grid_plan(kind: str, e: int, f: int, h: int, v: int, a: int, p: int,
         ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)]
         + (scan_regions(rows, k, grid) if k > K_WIDE else []))
     return AttGridPlan(kind, e, f, h, v, k, n_img, max_seq, grid, stages,
-                       floats, ints, a, p, fs, pu, upi)
+                       floats, ints, tiles, a, p, fs, pu, upi)
 
 
 _PLAN_FIELDS = (
@@ -305,7 +310,8 @@ _FLOAT_REGIONS = ("att2", "gpre", "hw", "xpart", "esc", "ctx", "v", "s",
 class _CAttPlan(ctypes.Structure):
     """``csrc/att_beam.cu`` AttGridPlan, field by field (all 64-bit)."""
     _fields_ = ([(n, ctypes.c_longlong) for n in _PLAN_FIELDS]
-                + [(n, ctypes.c_longlong * MAX_STAGES) for n in PLAN_ARRAYS]
+                + [(n, ctypes.c_longlong * MAX_STAGES)
+                   for n in PLAN_ARRAYS + TILE_ARRAYS]
                 + [("o_" + n, ctypes.c_longlong)
                    for n in _FLOAT_REGIONS + INT_REGIONS])
 
@@ -500,6 +506,7 @@ class AttInitPlan:
     stages: Tuple[StagePlan, ...]
     floats: Tuple[Tuple[str, int, int], ...]
     ints: Tuple[Tuple[str, int, int], ...] = ()
+    tiles = ()   # the h0/c0 launch's stage keeps its slabs
 
     region = GridPlan.region
     slab_table = GridPlan.slab_table
@@ -591,7 +598,9 @@ def _library() -> ctypes.CDLL:
         "icee_mega_att_beam_max_grid": ([vp], i),
         "icee_att_init_state": ([vp] * 11, i),
         "icee_mega_att_beam_consts": ([vp], None),
-        "icee_mega_att_beam_layout": ([i, i, vp], None)})
+        "icee_mega_att_beam_layout": ([i, i, vp], None),
+        "icee_grid_profile": ([i, vp], i),
+        "icee_grid_records": ([vp, i, vp], i)})
     if getattr(lib, "geometry_checked", False):
         return lib
     consts = (ctypes.c_longlong * 11)()

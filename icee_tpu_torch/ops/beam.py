@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -67,6 +67,8 @@ MAX_STAGES = 8
 SCRATCH_ALIGN = 64   # floats: each scratch region starts 256-byte aligned
 TOPK_FLOATS = 1024   # csrc/wide_topk.cuh: a block selection's scratch
 RING_FLOATS = NSLOT * SLOT_FLOATS
+TBM = 128            # csrc/grid_beam.cuh: live rows of a tile
+TBN = 128            # columns of a tile (a gate tile: TBN // 4 of each gate)
 # csrc/grid_beam.cuh Sel: the selection a launch runs
 SEL_NARROW, SEL_WIDE, SEL_SCAN = 0, 1, 2
 
@@ -185,10 +187,22 @@ class StagePlan:
 
 
 @dataclass(frozen=True)
+class TilePlan:
+    """A stage's tile geometry (``csrc/grid_beam.cuh`` run_tiles): its tile
+    slabs (job, segment, first column, width; a gate tile's width of each
+    gate) and the least live rows at which a step takes them (0: never;
+    then no slabs)."""
+    slabs: Tuple[Tuple[int, int, int, int], ...] = ()
+    min_rows: int = 0
+
+
+@dataclass(frozen=True)
 class GridPlan:
     """What one launch of ``csrc/beam.cu`` reads besides the tensors: the
-    product stages and the scratch layout (float and int regions, each
-    ``(offset, size)`` in elements)."""
+    product stages (each stage's slabs, and its tiles), and the scratch
+    layout (float and int regions, each ``(offset, size)`` in elements).
+    The repr is the slab plan's alone (the tiles have their own:
+    ``tiles``)."""
     cell: str
     e: int
     f: int
@@ -201,6 +215,7 @@ class GridPlan:
     stages: Tuple[StagePlan, ...]
     floats: Tuple[Tuple[str, int, int], ...]
     ints: Tuple[Tuple[str, int, int], ...]
+    tiles: Tuple[TilePlan, ...] = field(repr=False)
 
     @property
     def rows(self) -> int:
@@ -229,8 +244,10 @@ class GridPlan:
         raise KeyError(name)
 
     def slab_table(self) -> np.ndarray:
-        """(slabs, 4) int32: every stage's slabs in turn."""
-        return np.asarray([s for st in self.stages for s in st.slabs],
+        """(slabs, 4) int32: every stage's slabs in turn, then every
+        stage's tile slabs in turn."""
+        return np.asarray([s for st in self.stages for s in st.slabs]
+                          + [s for t in self.tiles for s in t.slabs],
                           dtype=np.int32).reshape(-1, 4)
 
 
@@ -283,6 +300,110 @@ def stage_with_width(jobs: Tuple[Job, ...], cw: int) -> StagePlan:
                       for seg in range(j.nseg)
                       for c0 in range(0, j.segw, cw)]
     return StagePlan(jobs, cw, br, tuple(slabs))
+
+
+# csrc/grid_beam.cuh TileCfg: k rows of a tile chunk by the input-row sets
+# a chunk holds (4 where each gate reads its own rows)
+TILE_KT = {1: 36, 4: 12}
+
+
+TILE_SLOTS = 3      # the ring cut into tile slots (csrc/grid_beam.cuh TSLOTS)
+
+
+def tile_chunk_floats(sets: int) -> int:
+    """Floats of a tile chunk in a tile slot: the weights (KT, TBN), then
+    each set's input rows (TBM, KT) and 8 floats of skew."""
+    kt = TILE_KT[sets]
+    return kt * TBN + sets * (TBM * kt + 8)
+
+
+def tile_slabs(jobs: Tuple[Job, ...]) -> tuple:
+    """A stage's tile slabs: up to ``TBN`` columns of a segment, a gate
+    job's ``TBN`` / 4 of each gate."""
+    slabs = []
+    for ji, j in enumerate(jobs):
+        if j.gates:
+            w = TBN // 4
+            slabs += [(ji, 0, c0, min(w, j.segw - c0))
+                      for c0 in range(0, j.segw, w)]
+        else:
+            slabs += [(ji, seg, c0, min(TBN, j.segw - c0))
+                      for seg in range(j.nseg)
+                      for c0 in range(0, j.segw, TBN)]
+    return tuple(slabs)
+
+
+def tile_units(tiles: TilePlan, n: int) -> list:
+    """The units a step of ``n`` live rows runs in tiles (``csrc/
+    grid_beam.cuh`` tile_of), in unit order: (tile slab, first live row,
+    live rows), the rows split evenly into tiles of at most ``TBM``, a
+    slab's row tiles adjacent."""
+    n_rt = -(-n // TBM)
+    base, rem = divmod(n, n_rt)
+    return [(slab, rt * base + min(rt, rem), base + (rt < rem))
+            for slab in tiles.slabs for rt in range(n_rt)]
+
+
+def stage_geo(tiles: TilePlan, n: int) -> bool:
+    """Whether a step of ``n`` live rows runs the stage in tiles
+    (``csrc/grid_beam.cuh`` stage_geo)."""
+    return tiles.min_rows > 0 and n >= tiles.min_rows
+
+
+# The cost model that picks a stage's geometry by its live rows: the
+# card's time for a unit's 64 k rows, in us, on the H100 (NVIDIA H100
+# 80GB HBM3, 700 W; fitted to scripts/search_turns.py's stage records,
+# each geometry forced): a slab unit's, fixed and per row a thread runs
+# (one or two); a tile unit's by its input sets, fixed and by the share of
+# its warps that hold live rows.
+SLAB_US = (0.70, 1.47)
+TILE_US = {1: (4.65, 7.15), 4: (10.33, 10.64)}
+TILE_LAUNCH_MIN = 3 * TBM  # a launch of fewer rows takes no tiles: their
+                           # kernel's slab steps and tail cost more than the
+                           # few tiled steps save
+
+
+def stage_us(stage: StagePlan, slabs: tuple, sets: int, grid: int,
+             rows: np.ndarray):
+    """The cost model's time of a stage's 64 k rows at ``rows`` live rows
+    (an array), (slabs, tiles): the units' rounds over ``grid`` blocks
+    times a unit's time."""
+    lanes = THREADS // (stage.cw // 4)
+    n_rb = -(-rows // stage.br)
+    per_thread = np.minimum(-(-(-(-rows // n_rb)) // lanes), 2)
+    slab = (-(-(len(stage.slabs) * n_rb) // grid)
+            * (SLAB_US[0] + SLAB_US[1] * per_thread))
+    n_rt = -(-rows // TBM)
+    warps = -(-(-(-rows // n_rt)) // 8) / (THREADS // 32)
+    fixed, per = TILE_US[sets]
+    tile = -(-(len(slabs) * n_rt) // grid) * (fixed + per * warps)
+    return slab, tile
+
+
+def tile_min_rows(stage: StagePlan, slabs: tuple, sets: int, grid: int,
+                  rows: int) -> int:
+    """The least live rows from which the cost model puts the tiles at or
+    below the slabs at every count up to ``rows`` (the launch's), or 0 if
+    none (always below ``TILE_LAUNCH_MIN`` rows)."""
+    if rows < TILE_LAUNCH_MIN:
+        return 0
+    slab, tile = stage_us(stage, slabs, sets, grid, np.arange(1, rows + 1))
+    worse = np.nonzero(tile > slab)[0]
+    first = int(worse[-1]) + 2 if len(worse) else 1
+    return first if first <= rows else 0
+
+
+def plan_tiles(stage: StagePlan, grid: int, rows: int,
+               two_chains: bool = False) -> TilePlan:
+    """A stage's tile geometry for a launch of ``rows`` rows on ``grid``
+    blocks: none where the slabs stay cheaper at every live-row count, nor
+    for the LSTM cell's two chains (``two_chains``)."""
+    if two_chains:
+        return TilePlan()
+    slabs = tile_slabs(stage.jobs)
+    sets = max(j.sets for j in stage.jobs)
+    least = tile_min_rows(stage, slabs, sets, grid, rows)
+    return TilePlan(slabs, least) if least else TilePlan()
 
 
 def slab_columns(stage: StagePlan, job: int) -> list:
@@ -402,6 +523,8 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
     check_ring(n_tiles, k, v, max_seq)
     stages = tuple(plan_stage(jobs, grid, rows)
                    for jobs in stage_jobs(cell, e, f, h, v))
+    tiles = tuple(plan_tiles(st, grid, rows, two_chains=st.jobs[0].gates
+                             and cell == "lstm") for st in stages)
     fact = cell == "factored"
     sel = selection_regions(rows, n_tiles, k, max_seq + 2)
     floats = carve_regions([
@@ -415,7 +538,7 @@ def grid_plan(cell: str, e: int, f: int, h: int, v: int, k: int,
         ("prev", rows), ("seqs", sel["seqs"]), ("steps", 2 * n_img)]
         + (scan_regions(rows, k, grid) if k > K_WIDE else []))
     return GridPlan(cell, e, f, h, v, k, n_img, max_seq, grid, stages,
-                    floats, ints)
+                    floats, ints, tiles)
 
 
 def check_plan_width(kernel: str, k: int, v: int) -> None:
@@ -454,6 +577,7 @@ _PLAN_FIELDS = (
     "cell", "E", "F", "H", "V", "k", "n_img", "max_seq", "start", "end",
     "feed", "Vp", "n_tiles", "grid", "n_stages")
 PLAN_ARRAYS = ("cw", "br", "n_slabs", "slab0")
+TILE_ARRAYS = ("t_slabs", "t_slab0", "t_min")
 _FLOAT_REGIONS = ("v", "hw", "s", "hn", "cn", "logits", "pm", "pse", "pv",
                   "scores", "bscore")
 INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar",
@@ -463,16 +587,18 @@ INT_REGIONS = ("pi", "alive", "word", "prev", "seqs", "steps", "bar",
 class _CPlan(ctypes.Structure):
     """``csrc/beam.cu`` GridPlan, field by field (all 64-bit)."""
     _fields_ = ([(n, ctypes.c_longlong) for n in _PLAN_FIELDS]
-                + [(n, ctypes.c_longlong * MAX_STAGES) for n in PLAN_ARRAYS]
+                + [(n, ctypes.c_longlong * MAX_STAGES)
+                   for n in PLAN_ARRAYS + TILE_ARRAYS]
                 + [("o_" + n, ctypes.c_longlong)
                    for n in _FLOAT_REGIONS + INT_REGIONS])
 
 
 def plan_struct(cls, plan: GridPlan, vals: dict, regions) -> ctypes.Structure:
     """A kernel's plan struct (``cls``, a ctypes mirror): the scalar
-    ``vals``, each stage's geometry and first slab, and the offset
-    ``o_<name>`` of each scratch region in ``regions`` (0 for one the plan
-    has not: ``SEL_SCAN``'s)."""
+    ``vals``, each stage's geometry and first slab (and, where the struct
+    has them, its tile slabs, the first of them and its tile threshold),
+    and the offset ``o_<name>`` of each scratch region in ``regions`` (0
+    for one the plan has not: ``SEL_SCAN``'s)."""
     c = cls()
     for name, val in vals.items():
         setattr(c, name, val)
@@ -481,6 +607,11 @@ def plan_struct(cls, plan: GridPlan, vals: dict, regions) -> ctypes.Structure:
         c.cw[i], c.br[i] = st.cw, st.br
         c.n_slabs[i], c.slab0[i] = len(st.slabs), first
         first += len(st.slabs)
+    if hasattr(c, "t_min"):
+        for i, t in enumerate(plan.tiles):
+            c.t_slabs[i], c.t_slab0[i] = len(t.slabs), first
+            c.t_min[i] = t.min_rows
+            first += len(t.slabs)
     held = {n for n, _, _ in plan.floats + plan.ints}
     for name in regions:
         if name in held:
@@ -621,13 +752,55 @@ mega_beam_decode.wide_launches = 0       # of those, the wide selection
 mega_beam_decode.lstm_wide_launches = 0
 
 
+def search_split(lib: ctypes.CDLL, call, raw: bool = False) -> dict:
+    """One ``call`` of a whole-search kernel (K2 or K7: ``lib`` is its
+    library) with the search's profile marks on (``icee_grid_profile``,
+    ``icee_grid_records``; the card's time of each part, summed over the
+    call's launches and steps): the live-row scan and products, the row
+    stage, the tail (ms), the steps, and each product stage's time and
+    steps by geometry (``stages``: {stage: {"slab" | "tile": [steps,
+    ms]}}; K7's scores and softmax stages as ``scores``, ``softmax``);
+    with ``raw``, also each record as (stage, live rows, tiles taken,
+    ms)."""
+    prof, recs = lib.icee_grid_profile, lib.icee_grid_records
+    words = (ctypes.c_ulonglong * 8)()
+    torch.cuda.synchronize()
+    cuda_lib.check_rc(lib, prof(1, None), "profile on")
+    call()
+    torch.cuda.synchronize()
+    cuda_lib.check_rc(lib, prof(0, ctypes.addressof(words)), "profile off")
+    cap, n = 4096, ctypes.c_int(0)
+    out = (ctypes.c_ulonglong * (2 * cap))()
+    cuda_lib.check_rc(lib, recs(ctypes.addressof(out), cap, ctypes.byref(n)),
+                      "profile records")
+    stages: Dict[str, Dict[str, list]] = {}
+    names = {MAX_STAGES: "scores", MAX_STAGES + 1: "softmax"}
+    records = []
+    for r in range(min(n.value, cap)):
+        key, ns = out[2 * r], out[2 * r + 1]
+        sid = names.get((key >> 8) & 0xff, str((key >> 8) & 0xff))
+        geo = "tile" if key & 1 else "slab"
+        entry = stages.setdefault(sid, {}).setdefault(geo, [0, 0.0])
+        entry[0] += 1
+        entry[1] += ns / 1e6
+        records.append((sid, int(key >> 32), int(key & 1), ns / 1e6))
+    got = {"products_ms": words[0] / 1e6, "row_stage_ms": words[1] / 1e6,
+           "tail_ms": words[2] / 1e6, "steps": int(words[4]),
+           "stages": stages, "records": n.value}
+    if raw:
+        got["raw"] = records
+    return got
+
+
 def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib = cuda_lib.library("beam", {
         "icee_mega_beam_decode": ([vp] * 20, i),
         "icee_mega_beam_decode_lstm": ([vp] * 16, i),
         "icee_mega_beam_max_grid": ([vp], i),
-        "icee_mega_beam_consts": ([vp], None)})
+        "icee_mega_beam_consts": ([vp], None),
+        "icee_grid_profile": ([i, vp], i),
+        "icee_grid_records": ([vp, i, vp], i)})
     if getattr(lib, "geometry_checked", False):
         return lib
     consts = (ctypes.c_longlong * 10)()

@@ -104,8 +104,12 @@ def test_units_cover_each_column_and_position_once_in_order(shape, grid):
             assert got, "an empty scores unit"
             positions.setdefault(img, []).extend(got)
         assert positions == {i: list(range(p)) for i in range(n_img)}
+        # every stage's slabs in turn, then every stage's tile slabs
         table = plan.slab_table()
-        assert table.shape == (sum(len(st.slabs) for st in plan.stages), 4)
+        rows = [s for st in plan.stages for s in st.slabs]
+        rows += [s for t in plan.tiles for s in t.slabs]
+        assert table.shape == (len(rows), 4)
+        assert table.tolist() == [list(s) for s in rows]
         assert table.dtype == np.int32
 
 
@@ -225,8 +229,10 @@ def test_the_ctypes_plan_carries_a_wide_plan(k):
         == K_WIDE >= k
     assert "out[9] = KWIDE;" in SOURCE and "out[10] = MAX_K;" in SOURCE
     assert plan.selection == beam.SEL_WIDE
-    assert "reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE>)" \
-        in SOURCE
+    # the wide kernel, with and without the tiles (csrc/grid_beam.cuh)
+    for tiles in ("false", "true"):
+        assert ("reinterpret_cast<const void*>(grid_att_kernel<SEL_WIDE, "
+                f"{tiles}>)") in SOURCE
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -631,8 +637,9 @@ def test_the_init_entry_points_stages_are_the_plans():
     assert len(init_stage_jobs(48)) == 2
     kernel = SOURCE[SOURCE.index("grid_att_init_kernel(const"):]
     kernel = kernel[:kernel.index("\n}\n")]
-    assert "run_mean(a);" in kernel and "run_stage(a, stages[0], sm, c);" \
-        in kernel
+    # the init stage in slabs (the init kernel has no tiles)
+    assert "run_mean(a);" in kernel
+    assert "run_stage<false>(a, stages[0], sm, c);" in kernel
     shared = SOURCE[SOURCE.index("static void attention_jobs("):]
     shared = shared[:shared.index("\n}\n")]
     assert "init_jobs(a.jobs + init, fs + p.o_mean," in shared

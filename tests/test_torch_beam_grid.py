@@ -75,8 +75,12 @@ def test_slabs_cover_each_column_once_and_in_order(shape, grid):
             assert c0 % 4 == 0 and width % 4 == 0 and width > 0
             assert c0 + width <= job.segw and 0 <= seg < job.nseg
             assert width <= (st.cw // 4 if job.gates else st.cw)
+    # the table: every stage's slabs in turn, then every stage's tile slabs
     table = plan.slab_table()
-    assert table.shape == (sum(len(st.slabs) for st in plan.stages), 4)
+    rows = [s for st in plan.stages for s in st.slabs]
+    rows += [s for t in plan.tiles for s in t.slabs]
+    assert table.shape == (len(rows), 4)
+    assert table.tolist() == [list(s) for s in rows]
     assert table.dtype == np.int32
 
 
@@ -335,8 +339,10 @@ NARROW_PLANS = \
 def test_every_plan_the_narrower_paths_made_is_unchanged():
     """Every shape that planned before (k <= 256; the narrow tail where it
     fit) keeps its plan field for field: the digest of the plans, their
-    ctypes structs (SEL_SCAN's offsets left out: 0 there) and the launch
-    split is the parent commit's."""
+    ctypes structs (SEL_SCAN's offsets left out: 0 there; the tile fields,
+    which the tile plans' own digest holds,
+    tests/test_torch_search_tiles.py) and the launch split is the parent
+    commit's."""
     import hashlib
 
     h = hashlib.sha256()
@@ -345,7 +351,8 @@ def test_every_plan_the_narrower_paths_made_is_unchanged():
         c = beam._c_plan(plan, 1, 2, True)
         assert (c.o_cand, c.o_lists, c.o_tstate) == (0, 0, 0)
         fields = [getattr(c, f) for f, _ in c._fields_
-                  if f not in ("o_cand", "o_lists", "o_tstate")]
+                  if f not in ("o_cand", "o_lists", "o_tstate")
+                  + beam.TILE_ARRAYS]
         h.update(repr(plan).encode())
         h.update(repr([list(x) if hasattr(x, "__len__") else x
                        for x in fields]).encode())
